@@ -1,0 +1,86 @@
+"""Carry weights across from the JAX package, as numpy arrays.
+
+The JAX package stacks per-layer leaves on a leading axis under
+``params["blocks"]``; the port keeps a list of per-layer dicts.  These
+functions take numpy only (``np.asarray`` of every leaf, done by the
+caller), so this package never sees a JAX type.
+
+Weight containers travel as plain dicts with a ``"kind"`` key:
+
+  {"kind": "quant", "values", "scale", "zero"}
+  {"kind": "packed", "codes" (uint16), "literals", "nlit", "scale", "zero",
+   "shape", "tile_n", "tile_k"}
+
+with the same leading layer axis as any other stacked leaf.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.compressed import PackedLinear, QuantLinear
+from .serve.engine import ServeState
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a, copy=True, order="C")   # writable: torch shares it
+    if a.dtype == np.uint16:
+        a = a.view(np.int16)      # codes: the uint16 bits, as the kernel reads
+    return torch.from_numpy(a).to(device)
+
+
+def _leaf(node, device):
+    if isinstance(node, dict) and node.get("kind") == "quant":
+        return QuantLinear(_tensor(node["values"], device),
+                           _tensor(node["scale"], device),
+                           _tensor(node["zero"], device))
+    if isinstance(node, dict) and node.get("kind") == "packed":
+        return PackedLinear(_tensor(node["codes"], device),
+                            _tensor(node["literals"], device),
+                            _tensor(node["nlit"], device),
+                            _tensor(node["scale"], device),
+                            _tensor(node["zero"], device),
+                            shape=tuple(int(s) for s in node["shape"]),
+                            tile_n=int(node["tile_n"]),
+                            tile_k=int(node["tile_k"]))
+    if isinstance(node, dict):
+        return {k: _leaf(v, device) for k, v in node.items()}
+    return _tensor(node, device)
+
+
+def _layer(node, i: int):
+    """Layer ``i`` of a stacked (leading layer axis) subtree."""
+    if isinstance(node, dict):
+        return {k: (v if k in ("kind", "shape", "tile_n", "tile_k")
+                    else _layer(v, i)) for k, v in node.items()}
+    return node[i]
+
+
+def _unstack(tree: dict, cfg) -> dict:
+    out = dict(tree)
+    out["blocks"] = [_layer(tree["blocks"], i) for i in range(cfg.n_layers)]
+    return out
+
+
+def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The JAX package's dense parameter tree (numpy leaves, stacked
+    ``blocks``) → the port's parameter dict on ``device``."""
+    device = resolve_device(device)
+    flat = _unstack(tree, cfg)
+    out = {k: _leaf(v, device) for k, v in flat.items() if k != "blocks"}
+    out["blocks"] = [_leaf(b, device) for b in flat["blocks"]]
+    return out
+
+
+def serve_state_from_numpy(tree: dict, lut, cfg, *, mode: str,
+                           table: dict | None = None,
+                           stats: dict | None = None,
+                           device=None) -> ServeState:
+    """A JAX ``ServeState`` (containers as ``"kind"`` dicts, numpy planes
+    and LUT) → the port's ``ServeState`` on ``device``."""
+    device = resolve_device(device)
+    params = params_from_numpy(tree, cfg, device)
+    return ServeState(params=params,
+                      lut=_tensor(lut, device) if lut is not None else None,
+                      table=table, mode=mode, stats=dict(stats or {}))

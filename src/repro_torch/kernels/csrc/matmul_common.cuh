@@ -1,0 +1,165 @@
+// Shared pieces of the two W8A16 matmul kernels (fused_decode_matmul.cu,
+// dequant_matmul.cu): the bf16 x tile, its row sums, the SIMT dot over a
+// uint8 weight tile in shared memory, and the affine epilogue
+//
+//     y = s · (Σ_k x·q − z·Σ_k x)
+//
+// which both kernels must compute the same way (the TPU kernels keep their
+// epilogues in sync for the same reason: dequant_matmul.py:26-27).
+//
+// Block layout, both kernels: 256 threads own 128 output columns (thread
+// t -> column t % 128) in two row groups (g = t / 128); a thread keeps RPT
+// rows g, g + 2, ... of one column in registers, so a block covers
+// BM = 2·RPT rows × 128 columns.  K is walked in chunks; a chunk of the
+// weight sits in shared memory as bytes with a row stride of chunk + 4, so
+// 32 threads reading 32 rows at one k hit 32 different banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace qmoe {
+
+constexpr int kThreads = 256;
+constexpr int kBN = 128;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// y = s·(acc − sumx·z), every step rounded on its own.  nvcc would contract
+// the plain expression into an FMA, which rounds once where the plain
+// PyTorch version rounds twice; the _rn intrinsics are never contracted.
+__device__ __forceinline__ float affine(float s, float z, float acc,
+                                        float sumx) {
+  return __fmul_rn(s, __fsub_rn(acc, __fmul_rn(sumx, z)));
+}
+
+// xs[r][c] = x[m0 + r][k0 + c] as f32 for r < bm, c < kc4; zero outside
+// M rows and the kc real columns (kc4 = kc rounded up to 4).
+__device__ __forceinline__ void load_x_tile(
+    const __nv_bfloat16* __restrict__ x, int M, int K, int m0, int k0,
+    int kc, int kc4, int bm, int xstride, float* __restrict__ xs) {
+  for (int i = threadIdx.x; i < bm * kc4; i += kThreads) {
+    int r = i / kc4, c = i - r * kc4;
+    int m = m0 + r;
+    float v = 0.f;
+    if (m < M && c < kc) v = __bfloat162float(x[(long long)m * K + k0 + c]);
+    xs[r * xstride + c] = v;
+  }
+}
+
+// sumx[r] += Σ_c xs[r][c], one warp per row.
+__device__ __forceinline__ void add_row_sums(const float* __restrict__ xs,
+                                             int bm, int kc4, int xstride,
+                                             float* __restrict__ sumx) {
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < bm; r += kThreads / 32) {
+    float s = 0.f;
+    for (int c = lane; c < kc4; c += 32) s += xs[r * xstride + c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) sumx[r] += s;
+  }
+}
+
+// acc[i] += Σ_k xs[g + 2i][k] · qrow[k] over one chunk of kc4 columns.
+template <int RPT>
+__device__ __forceinline__ void dot_chunk(const unsigned char* __restrict__ qrow,
+                                          const float* __restrict__ xs,
+                                          int xstride, int kc4, int g,
+                                          float (&acc)[RPT]) {
+  for (int k = 0; k < kc4; k += 4) {
+    uint32_t w = *reinterpret_cast<const uint32_t*>(qrow + k);
+    float q0 = (float)(w & 0xFFu), q1 = (float)((w >> 8) & 0xFFu);
+    float q2 = (float)((w >> 16) & 0xFFu), q3 = (float)(w >> 24);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float4 xv = *reinterpret_cast<const float4*>(xs + (g + 2 * i) * xstride + k);
+      acc[i] = fmaf(xv.x, q0, acc[i]);
+      acc[i] = fmaf(xv.y, q1, acc[i]);
+      acc[i] = fmaf(xv.z, q2, acc[i]);
+      acc[i] = fmaf(xv.w, q3, acc[i]);
+    }
+  }
+}
+
+// Finish a block: the affine epilogue straight into out when the block
+// saw all of K (part == nullptr), else this split's raw sums into the
+// workspace for splitk_epilogue.
+template <int RPT, typename TOut>
+__device__ __forceinline__ void finish_block(
+    const float (&acc)[RPT], const float* __restrict__ sumx,
+    const float* __restrict__ scale, const float* __restrict__ zero,
+    TOut* __restrict__ out, float* __restrict__ part,
+    float* __restrict__ sxpart, int M, int N, int m0, int col, int g) {
+  const int bm = 2 * RPT;
+  if (part == nullptr) {
+    if (col < N) {
+      float s = scale[col], z = zero[col];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        int m = m0 + g + 2 * i;
+        if (m < M) store(out + (long long)m * N + col,
+                         affine(s, z, acc[i], sumx[g + 2 * i]));
+      }
+    }
+    return;
+  }
+  const long long split = blockIdx.z;
+  if (col < N) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      int m = m0 + g + 2 * i;
+      if (m < M) part[(split * M + m) * N + col] = acc[i];
+    }
+  }
+  const int t = threadIdx.x;
+  if (blockIdx.x == 0 && t < bm && m0 + t < M)
+    sxpart[split * M + m0 + t] = sumx[t];
+}
+
+// Sum the split-K partials in split order, then the affine epilogue.
+template <typename TOut>
+__global__ void splitk_epilogue(const float* __restrict__ part,
+                                const float* __restrict__ sxpart,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ zero,
+                                TOut* __restrict__ out, int M, int N,
+                                int splits) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)M * N) return;
+  int m = (int)(i / N), n = (int)(i - (long long)m * N);
+  float acc = 0.f, sx = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    acc += part[((long long)s * M + m) * N + n];
+    sx += sxpart[(long long)s * M + m];
+  }
+  store(out + i, affine(scale[n], zero[n], acc, sx));
+}
+
+inline int launch_splitk_epilogue(const float* part, const float* sxpart,
+                                  const float* scale, const float* zero,
+                                  void* out, int out_bf16, int M, int N,
+                                  int splits, cudaStream_t stream) {
+  long long total = (long long)M * N;
+  int blocks = (int)((total + 255) / 256);
+  if (out_bf16)
+    splitk_epilogue<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        part, sxpart, scale, zero, static_cast<__nv_bfloat16*>(out), M, N,
+        splits);
+  else
+    splitk_epilogue<float><<<blocks, 256, 0, stream>>>(
+        part, sxpart, scale, zero, static_cast<float*>(out), M, N, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace qmoe

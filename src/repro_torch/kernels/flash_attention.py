@@ -1,0 +1,90 @@
+"""Causal online-softmax attention (FlashAttention) with GQA.
+
+Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (the
+TPU Pallas kernel).  The CUDA kernel is ``csrc/flash_attention.cu``;
+:func:`flash_attention_plain` is the plain PyTorch version the CPU runs and
+the card's kernel is held against.  Layouts are the reference's: q
+(B, Hq, Tq, D), k/v (B, Hkv, Tk, D) → (B, Hq, Tq, D) in q's dtype, with
+query i at position ``q_offset + i``.  Masked scores are NEG_INF = −1e30
+and the denominator is max(l, 1e−30), as in the reference.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NAME = "flash_attention"
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)     # instantiated in the kernel
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = ([_P] * 4 + [_I] * 8 + [_L] * 9 + [ctypes.c_float]
+             + [_I] * 3 + [_P])
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          sm_scale: float | None = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain version: the full masked softmax in f32, grouped over the kv
+    heads (no repeat)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qg = q.to(torch.float32).reshape(b, hkv, rep, tq, d)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.to(torch.float32)) * sm
+    if causal:
+        qpos = torch.arange(tq, device=q.device) + q_offset
+        kpos = torch.arange(tk, device=q.device)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", p, v.to(torch.float32))
+    out = out / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, tq, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    sm_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(B, Hq, Tq, D) × (B, Hkv, Tk, D) → (B, Hq, Tq, D).  Any strides over
+    (B, H, T) with D contiguous.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: no kernel for device {q.device}")
+    dev = _build.cuda_args(q, k, v)
+    b, hq, tq, d = q.shape
+    _, hkv, tk, _ = k.shape
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or hq % hkv):
+        raise ValueError(f"{NAME}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head_dim {d} not in {HEAD_DIMS}")
+    if q_offset < 0:
+        raise ValueError(f"{NAME}: q_offset must be ≥ 0, got {q_offset}")
+    ok = (torch.bfloat16, torch.float32)
+    if q.dtype not in ok or k.dtype not in ok or v.dtype != k.dtype:
+        raise TypeError(f"{NAME}: q and k/v must be bf16 or f32")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{NAME}: head_dim must be the contiguous axis")
+    out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=dev)
+    if b * hq * tq == 0:
+        return out
+    sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    fn = _build.function(NAME, "qmoe_flash_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+             b, hq, hkv, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], float(sm), int(causal), int(q_offset),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, NAME)
+    _build.LAUNCH_COUNTS[NAME] += 1
+    return out

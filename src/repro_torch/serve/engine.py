@@ -1,0 +1,253 @@
+"""Serving runtime — compressed-weight inference, the paper's system.
+
+Counterpart of ``repro/serve/engine.py`` for one device:
+  1. ``build_serve_params``: quantize every policy-selected weight to int8
+     per channel, build ONE model-wide dictionary over the quantized byte
+     streams, and encode each tensor in the tile-major blocked layout.
+     It runs on the card by default (quantization, counting and encoding
+     are tensor ops on the weights' device).
+  2. ``generate``: one prefill, then a greedy (or sampled) decode loop in
+     Python.  Every compressed projection runs the fused
+     decode→dequant→matmul kernel, the tied LM head the dequant-matmul
+     kernel, and prefill attention the flash-attention kernel.
+
+Not ported yet: ``TiledPackedLinear`` column tiles, ``model_shards``, the
+integrity manifest, the resilience rungs and the continuous-batching
+scheduler.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from .._device import resolve_device
+from ..core.blocked_codec import (TableIndex, build_lut, choose_fused_tiles,
+                                  encode_blocked, encode_blocked_tiled)
+from ..core.codec import find_frequent_sequences
+from ..core.compressed import PackedLinear, pad_literals, quantize_linear
+from ..core.policy import CompressionPolicy
+from ..core.quant import QuantConfig
+from ..models import layers as L
+from ..models import lm as LM
+from .context import ServeContext
+
+
+@dataclasses.dataclass
+class ServeState:
+    params: Any
+    lut: Optional[torch.Tensor]
+    table: Optional[dict]
+    mode: str
+    stats: dict
+
+    def to(self, device) -> "ServeState":
+        """The same artifact with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, params=_map_leaves(self.params, lambda t: t.to(device)),
+            lut=self.lut.to(device) if self.lut is not None else None)
+
+
+def _map_leaves(node, fn):
+    if isinstance(node, dict):
+        return {k: _map_leaves(v, fn) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_map_leaves(v, fn) for v in node]
+    return fn(node)
+
+
+def _leaf_groups(params) -> list:
+    """[(name, [(holder, key), ...]), ...] in the reference's flatten order.
+
+    The reference stacks the layers, so each per-layer leaf (e.g.
+    ``['blocks']['attn']['wq']``) is one stacked leaf whose layers are
+    quantized, counted and encoded in layer order, and dict keys flatten
+    sorted.  The table's code order depends on that stream order, so the
+    port walks its per-layer lists the same way: a group holds one leaf
+    position across all layers."""
+    groups = []
+
+    def visit(node, prefix, holders):
+        for key in sorted(node):
+            name = f"{prefix}['{key}']"
+            child = node[key]
+            if isinstance(child, list):           # per-layer blocks
+                visit(child[0], name, child)
+            elif isinstance(child, dict):
+                visit(child, name, [h[key] for h in holders])
+            else:
+                groups.append((name, [(h, key) for h in holders]))
+
+    visit(params, "", [params])
+    return groups
+
+
+def _copy_tree(node):
+    if isinstance(node, dict):
+        return {k: _copy_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_copy_tree(v) for v in node]
+    return node
+
+
+def build_serve_params(params: Any, policy: CompressionPolicy, *,
+                       qcfg: QuantConfig | None = None,
+                       table: dict | None = None,
+                       block_weights: int | None = None,
+                       device=None) -> ServeState:
+    """Dense → quant/compressed per policy, on ``device`` (the card unless
+    the caller passes another).  Planes, table and LUT are byte-equal to
+    the reference's ``build_serve_params`` for the same weights."""
+    device = resolve_device(device)
+    qcfg = qcfg or QuantConfig(bits=policy.bits, granularity="per_channel")
+    bw = block_weights or policy.block_weights
+    out = _copy_tree(params)
+    groups = _leaf_groups(out)
+
+    # Pass 1: decide actions; quantize selected tensors; gather streams.
+    actions, quantized, streams = [], {}, []
+    for gi, (name, holders) in enumerate(groups):
+        leaf = holders[0][0][holders[0][1]]
+        if leaf.ndim < 2:
+            actions.append("dense")
+            continue
+        act = policy.action(name, tuple(leaf.shape))
+        actions.append(act)
+        if act in ("quant", "compressed"):
+            qls = [quantize_linear(h[k].to(device), qcfg) for h, k in holders]
+            quantized[gi] = qls
+            if act == "compressed":
+                streams.extend(q.values for q in qls)
+
+    # Pass 2: one model-wide dictionary (paper: single table per model).
+    if table is None and streams:
+        table = find_frequent_sequences(streams, max_codes=65535)
+    lut = build_lut(table, device=device) if table is not None else None
+    index = TableIndex(table, device=device) if table is not None else None
+
+    # Pass 3: build containers.
+    n_bytes = {"dense": 0, "quant": 0, "compressed": 0}
+    for gi, (name, holders) in enumerate(groups):
+        act = actions[gi]
+        if act == "dense":
+            for h, k in holders:
+                h[k] = h[k].to(device)
+                n_bytes["dense"] += h[k].numel() * h[k].element_size()
+            continue
+        qls = quantized[gi]
+        if act == "quant":
+            for (h, k), q in zip(holders, qls):
+                h[k] = q
+                n_bytes["quant"] += q.nbytes
+            continue
+        shape = tuple(qls[0].values.shape)
+        tiles = choose_fused_tiles(shape, bw)
+        if tiles:
+            tn, tk = tiles[:2]
+            bcs = [encode_blocked_tiled(q.values, index, tile_n=tn,
+                                        tile_k=tk, block_weights=bw)
+                   for q in qls]
+        else:
+            tn, tk = 0, 0
+            bcs = [encode_blocked(q.values, index, block_weights=bw)
+                   for q in qls]
+        cap = max(bc.literals.shape[1] for bc in bcs)
+        for (h, k), q, bc in zip(holders, qls, bcs):
+            pl = PackedLinear(bc.codes, pad_literals(bc.literals, cap),
+                              bc.nlit, q.scale, q.zero, shape=shape,
+                              tile_n=tn, tile_k=tk)
+            h[k] = pl
+            n_bytes["compressed"] += pl.payload_nbytes + 8 * shape[0]
+    if lut is not None:
+        n_bytes["compressed"] += lut.numel()
+    return ServeState(params=out, lut=lut, table=table, mode=policy.mode,
+                      stats=n_bytes)
+
+
+# ---------------------------------------------------------------------------
+# Step functions.
+# ---------------------------------------------------------------------------
+
+def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
+                   device=None):
+    """Returns (prefill, decode_step) for serving on ``device`` (from
+    ``ctx``, else the argument; the card unless the caller passes another).
+
+    prefill(params, lut, batch, caches) -> (last_logits, caches)
+    decode_step(params, lut, token, caches, pos) -> (logits, caches)
+
+    Caches are updated in place and returned.
+    """
+    if ctx is not None:
+        cfg = ctx.cfg if cfg is None else cfg
+        device = ctx.device
+    device = resolve_device(device)
+
+    def _last_logits(params, hidden, lut):
+        """LM head on the final position only."""
+        head = params.get("lm_head", params["embed"])
+        logits = L.linear(hidden[:, -1:], head, lut)
+        if cfg.logits_softcap:
+            c = cfg.logits_softcap
+            logits = torch.tanh(logits / c) * c
+        return logits[:, 0]
+
+    def prefill(params, lut, batch, caches):
+        tokens = batch["tokens"].to(device)
+        hidden, new_caches, _ = LM.forward(params, cfg, tokens, caches=caches,
+                                           pos=0, lut=lut, return_hidden=True)
+        return _last_logits(params, hidden, lut), new_caches
+
+    def decode_step(params, lut, token, caches, pos):
+        logits, new_caches, _ = LM.forward(params, cfg, token.to(device),
+                                           caches=caches, pos=int(pos),
+                                           lut=lut)
+        return logits[:, -1], new_caches
+
+    return prefill, decode_step
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """The next-token rule: greedy argmax (the first maximum) unless a
+    generator and a positive temperature are given, then one categorical
+    draw per row from softmax(logits / temperature).  logits (B, V) →
+    (B,) token ids."""
+    if generator is None or temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
+             lut=None, max_new: int = 16, max_len: int | None = None,
+             temperature: float = 0.0,
+             generator: torch.Generator | None = None, device=None):
+    """One-shot generation: one prefill, then ``max_new − 1`` decode steps.
+
+    tokens (B, T0) int; returns (B, T0 + max_new) on the serving device.
+    Runs on ``device`` (from ``ctx``, else the argument; the card unless
+    the caller passes another).  Prompts of different lengths are
+    left-padded by the caller, as in the reference."""
+    if ctx is not None:
+        cfg = ctx.cfg if cfg is None else cfg
+        lut, device = ctx.lut, ctx.device
+    device = resolve_device(device)
+    tokens = torch.as_tensor(tokens).to(device)
+    if max_new <= 0:
+        return tokens
+    b, t0 = tokens.shape
+    max_len = max_len or (t0 + max_new)
+    caches = LM.init_caches(cfg, b, max_len, device=device)
+    prefill, decode_step = make_serve_fns(cfg, device=device)
+    ids = tokens.long()
+    logits, caches = prefill(params, lut, {"tokens": ids}, caches)
+    tok = sample_tokens(logits, temperature, generator)[:, None]
+    out = [tok]
+    for i in range(max_new - 1):
+        logits, caches = decode_step(params, lut, tok, caches, t0 + i)
+        tok = sample_tokens(logits, temperature, generator)[:, None]
+        out.append(tok)
+    return torch.cat([tokens] + [t.to(tokens.dtype) for t in out], dim=1)

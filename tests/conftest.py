@@ -47,6 +47,9 @@ def _reset_probe_counters():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skipped "
+        "without one")
     impl = os.environ.get("REPRO_TEST_IMPL")
     if impl:
         from repro.kernels import ops

@@ -1,0 +1,67 @@
+"""The port imports torch and never jax or the JAX package ``repro``; so does
+``chip_smoke.py``.  Checked in fresh interpreters, since this test process
+has imported both."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _run(code: str, cwd=ROOT) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+_CHECK = """
+import sys
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in {forbidden!r})
+assert not bad, bad
+print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = """
+import pkgutil, importlib, repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):
+    importlib.import_module(m.name)
+""" + _CHECK.format(forbidden=FORBIDDEN)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20   # every submodule was loaded
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    assert any(n.startswith("repro_torch") for n in names)
+    # everything chip_smoke imports, in one fresh process
+    code = "\n".join(f"import {n}" for n in sorted(names)) + \
+        _CHECK.format(forbidden=FORBIDDEN)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    """Without CUDA (this host), or alone in a directory, it exits non-zero
+    and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, PYTHONPATH=""))
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout

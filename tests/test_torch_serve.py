@@ -1,0 +1,135 @@
+"""The slice end to end: greedy ``generate`` of the port against the JAX
+package's, and where the port's entry points run.
+
+Both packages serve the same smoke model on the same planes (the JAX
+state crosses as numpy), for 3 left-padded prompts × 8 new tokens, in all
+three weight modes; the greedy tokens must be equal (both argmaxes take the
+first maximum).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config
+from repro.core import CompressionPolicy as JPolicy
+from repro.models import lm as JLM
+from repro.serve import engine as JE
+from repro.serve.context import ServeContext as JContext
+
+from repro_torch import convert
+from repro_torch.configs import get_config as tget_config
+from repro_torch.core.policy import CompressionPolicy
+from repro_torch.kernels import _build
+from repro_torch.kernels.dequant_matmul import dequant_matmul
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_decode_matmul import fused_decode_matmul
+from repro_torch.models import lm as TLM
+from repro_torch.serve import engine as TE
+from repro_torch.serve.context import ServeContext
+
+from test_torch_model import state_to_numpy
+
+torch.set_num_threads(2)
+
+
+def _prompts(vocab, lens=(9, 5, 7), seed=4):
+    """Left-padded (pad id 0) as examples/serve_batched.py pads."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((len(lens), max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        out[i, max(lens) - n:] = rng.integers(1, vocab, n)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["dense", "quant", "compressed"])
+def test_generate_tokens_match_reference(mode):
+    cfg = get_config("llama3.2-1b").smoke
+    tcfg = tget_config("llama3.2-1b").smoke
+    params = JLM.init_lm(jax.random.PRNGKey(0), cfg, jnp.float32)
+    if mode == "dense":
+        jp, jlut = params, None
+        tp = convert.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, params), tcfg, device="cpu")
+        tlut = None
+    else:
+        st = JE.build_serve_params(params, JPolicy(mode=mode,
+                                                   min_weight_size=1024))
+        jp, jlut = st.params, st.lut
+        ts = convert.serve_state_from_numpy(
+            state_to_numpy(st), np.asarray(st.lut) if st.lut is not None
+            else None, tcfg, mode=mode, device="cpu")
+        tp, tlut = ts.params, ts.lut
+    toks = _prompts(cfg.vocab_size)
+    ref = np.asarray(JE.generate(jp, cfg, jnp.asarray(toks),
+                                 ctx=JContext(cfg=cfg, lut=jlut),
+                                 max_new=8))
+    got = TE.generate(tp, tcfg, torch.from_numpy(toks),
+                      ctx=ServeContext(tcfg, lut=tlut, device="cpu"),
+                      max_new=8)
+    assert got.dtype == torch.int32 and got.shape == (3, toks.shape[1] + 8)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_port_packs_and_serves_on_cpu():
+    """The port's own packing feeds its own serving: quant and compressed
+    states of one model give the same greedy tokens (the codec is
+    lossless over the quantized model)."""
+    tcfg = tget_config("llama3.2-1b").smoke
+    params = TLM.init_lm(tcfg, seed=3, device="cpu")
+    toks = torch.from_numpy(_prompts(tcfg.vocab_size, seed=5))
+    outs = {}
+    for mode in ("quant", "compressed"):
+        st = TE.build_serve_params(params, CompressionPolicy(
+            mode=mode, min_weight_size=1024), device="cpu")
+        outs[mode] = TE.generate(st.params, tcfg, toks, lut=st.lut,
+                                 max_new=6, device="cpu")
+    assert torch.equal(outs["quant"], outs["compressed"])
+
+
+def test_sampling_is_seeded():
+    logits = torch.randn(4, 50, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(TE.sample_tokens(logits),
+                       torch.argmax(logits, dim=-1))
+    a = TE.sample_tokens(logits, 0.7, torch.Generator().manual_seed(1))
+    b = TE.sample_tokens(logits, 0.7, torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and a.shape == (4,)
+
+
+# -- where the entry points run --------------------------------------------
+
+def test_entry_points_need_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default runs there")
+    tcfg = tget_config("llama3.2-1b").smoke
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TLM.init_lm(tcfg)
+    params = TLM.init_lm(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.build_serve_params(params, CompressionPolicy(min_weight_size=1024))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.generate(params, tcfg, torch.zeros((1, 3), dtype=torch.long))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TE.make_serve_fns(tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TLM.init_caches(tcfg, 1, 8)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    _build.LAUNCH_COUNTS.clear()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 64, generator=g)
+    wq = torch.randint(0, 256, (16, 64), dtype=torch.uint8, generator=g)
+    s, z = torch.rand(16, 1, generator=g), torch.full((16, 1), 128.0)
+    dequant_matmul(x, wq, s, z)
+    codes = torch.full((1, 256), -1, dtype=torch.int16)   # all ESCAPE
+    lits = torch.randint(0, 256, (1, 256, 4), dtype=torch.uint8, generator=g)
+    lut = torch.zeros((2, 4), dtype=torch.uint8)
+    fused_decode_matmul(x, codes, lits, lut, s, z, shape=(16, 64),
+                        tile_n=16, tile_k=64)
+    q = torch.randn(1, 4, 5, 16, generator=g)
+    kv = torch.randn(1, 2, 5, 16, generator=g)
+    flash_attention(q, kv, kv)
+    assert sum(_build.LAUNCH_COUNTS.values()) == 0
