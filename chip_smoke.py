@@ -4,28 +4,35 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Imports nothing of JAX or of the JAX package.
-Phases, in order; the script exits non-zero if any fails:
+Two main paths — Llama-3.2-1B (dense) and DeepSeek-V2-Lite (MLA + MoE) —
+each in the phases below; the script exits non-zero if any phase fails:
 
   1. Device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
      source, all started together, into ``src/repro_torch/kernels/build``).
-  2. Pack: Llama-3.2-1B at full width and all 16 layers, weights drawn from
-     a seed on the card, packed by ``build_serve_params(mode='compressed')``
-     with the default policy.
-  3. Kernels against their plain PyTorch versions at the main path's
-     shapes, on the packed planes: bitwise on integer-valued bf16 x, within
-     a stated tolerance on random x; times (CUDA events, L2 flushed before
-     every launch), bounds, the plain version's time and one PyTorch
-     library call's time as a yardstick.
+  2. Pack: the model at full width, weights drawn from a seed on the card,
+     packed by ``build_serve_params(mode='compressed')`` with the default
+     policy.  Llama-3.2-1B with all 16 layers; DeepSeek-V2-Lite with 8 of
+     its 27 layers (the dense first layer + 7 MoE layers: the f32 weights
+     drawn for packing would not fit the card at full depth).
+  3. Kernels against their plain PyTorch versions at the path's shapes, on
+     the packed planes: bitwise on integer-valued bf16 x (and for the
+     dictionary decode, on every input), within a stated tolerance on
+     random x; times (CUDA-graph replays with the weights past the L2, or
+     CUDA events around single calls), bounds, the plain version's time
+     and one PyTorch library call's time as a yardstick where one exists.
   4. End to end: ``generate`` answers 4 left-padded requests (prompt
      lengths 32–200 from the seed) with 32 new tokens each; the launch
-     counts of that run must show every kernel of the path.
+     counts of that run, read right after it, must be what the path's
+     code launches, and no expert plane may be materialized.
   5. Card against CPU: the same seeded model at 2 layers, packed once; the
      prefill logits of the card and of the CPU (plain versions) must agree
-     within a stated tolerance; greedy tokens of 8 steps are compared.
+     within a stated tolerance; greedy tokens are compared (and, for the
+     MoE, the routed expert sets).
 
-Prints one JSON ``kernels`` line, one ``e2e`` line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+Prints one ``kernel_detail`` and one ``e2e`` line per path, one JSON
+``kernels`` line (every kernel, with the launches of its path's run), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ import torch
 SEED = 0
 BATCH, MAX_NEW = 4, 32
 PROMPT_MIN, PROMPT_MAX = 32, 200
+DS_LAYERS = 8            # DeepSeek-V2-Lite depth on the card (of 27)
+DS_CHECK_STEPS = 4       # greedy steps compared card against CPU
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak, same source
 # Tolerances, each with its reason:
@@ -57,9 +66,16 @@ MATMUL_RTOL = 1e-4
 FLASH_ATOL_BF16 = 1.6e-2
 #  * K2 with f32 q and output: f32 roundoff only.
 FLASH_ATOL_F32 = 1e-4
+#  * K2 at MLA's (192, 128) on random bf16 q/k/v, 207 keys: the same
+#    two bf16 ulps at |out| ≈ 1 (v ~ N(0, 1), softmax weights average it).
 #  * Card against CPU prefill logits at 2 layers: bf16 activations, where
 #    a rounding flip is 2^-8 relative, pass through 2 layers of width 2048
-#    and the 2048-wide LM head; logits are O(1).
+#    and the 2048-wide LM head; logits are O(1).  The same bound holds for
+#    DeepSeek-V2-Lite's 2 layers (a dense layer and an MoE layer) for a
+#    request whose last token takes the same experts on both devices; a
+#    request whose last token routes differently (a near-tie at the top-6
+#    boundary of bf16 router logits) is reported and left out, at most one
+#    of the four.
 E2E_LOGIT_ATOL = 5e-2
 
 
@@ -328,6 +344,433 @@ def check_flash(rt, cfg, device, t_prefill, gen, timer):
                                     "bound_ms", "bound_by")}}, rows
 
 
+def plane_bytes(w) -> int:
+    """Bytes a decode of the packed weight ``w`` must read: the codes, the
+    literal rows its blocks use (4 × Σ nlit), scale and zero."""
+    return (w.codes.numel() * 2 + int(w.nlit.sum()) * 4
+            + (w.scale.numel() + w.zero.numel()) * 4)
+
+
+def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
+    """K3 on the first MoE layer's three expert stacks (64 experts; gate/up
+    1408 × 2048, down 2048 × 1408) at M = cap of a decode step (4 tokens)
+    and of the prefill (4 prompts × T tokens)."""
+    fdm, L = rt["fdm"], rt["L"]
+    lut = state.lut
+    experts = state.params["blocks"][0]["moe"]["experts"]
+    caps = {"decode": L._capacity(BATCH, cfg.top_k, cfg.n_experts,
+                                  cfg.capacity_factor),
+            "prefill": L._capacity(n_prefill, cfg.top_k, cfg.n_experts,
+                                   cfg.capacity_factor)}
+    rows, worst, bitwise = [], 0.0, True
+    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name in ("w_gate", "w_up", "w_down"):
+        w = experts[name]
+        e = w.codes.shape[0]
+        n, k = w.shape
+        args = (w.codes, w.literals, lut, w.scale, w.zero)
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        wbt = w.materialize(lut, torch.bfloat16).transpose(1, 2)
+        for phase, m in caps.items():
+            xi = torch.randint(-4, 5, (e, m, k), generator=gen, device=device
+                               ).to(torch.bfloat16)
+            same = bool(torch.equal(
+                fdm.grouped_fused_decode_matmul(xi, *args, **kw),
+                fdm.grouped_fused_decode_matmul_plain(
+                    xi, *args, **kw, out_dtype=torch.bfloat16)))
+            bitwise &= same
+            xr = torch.randn((e, m, k), generator=gen, device=device
+                             ).to(torch.bfloat16)
+            yk = fdm.grouped_fused_decode_matmul(xr, *args, **kw,
+                                                 out_dtype=torch.float32)
+            yp = fdm.grouped_fused_decode_matmul_plain(
+                xr, *args, **kw, out_dtype=torch.float32)
+            err = float((yk - yp).abs().max())
+            tol = MATMUL_RTOL * float(yp.abs().max())
+            worst = max(worst, err)
+            if not (same and err <= tol and torch.isfinite(yk).all()):
+                raise AssertionError(f"K3 {name} {tuple(w.codes.shape)} "
+                                     f"M={m}: bitwise={same} err={err} "
+                                     f"tol={tol}")
+            b, by = bound_ms(nbytes(xr, lut) + plane_bytes(w) + e * m * n * 2,
+                             2.0 * e * m * n * k)
+            # one stack's planes (~280 MB) and bf16 weights (~370 MB) are
+            # each past the 50 MB L2, so repeated calls find it cold
+            t = {"stack": name, "E": e, "N": n, "K": k, "M": m,
+                 "phase": phase, "bitwise": same, "max_abs_err": err,
+                 "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
+                     xr, *args, **kw)] * 4),
+                 "plain_ms": timer.ms(
+                     lambda: fdm.grouped_fused_decode_matmul_plain(
+                         xr, *args, **kw, out_dtype=torch.bfloat16)),
+                 "library_ms": timer.graph_ms(
+                     [lambda: torch.bmm(xr, wbt)] * 4),
+                 "bound_ms": b, "bound_by": by,
+                 "cap": w.literals.shape[2], "tile": [w.tile_n, w.tile_k]}
+            rows.append(t)
+            if phase == "decode":
+                for f in agg:
+                    agg[f] += t[f]
+        del wbt
+    return {"name": "grouped_fused_decode_matmul", "route": "cuda",
+            "path": cfg.name,
+            "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
+            "replaces": "src/repro/kernels/fused_decode_matmul.py:202",
+            "bitwise": bitwise, "max_abs_err": worst,
+            "timed_at": f"one MoE layer's 3 expert stacks, decode cap "
+                        f"{caps['decode']}",
+            "library": "torch.bmm on the materialized bf16 expert stack",
+            **agg, "bound_by": "bytes"}, rows
+
+
+def check_dict_decode(rt, cfg, state, timer):
+    """K4 on MLA's wkv_b (4096 × 512: 512 blocks of 1024 slots) and on a
+    ragged, prime block count of the same planes."""
+    ddc = rt["ddc"]
+    lut = state.lut
+    w = state.params["blocks"][0]["attn"]["wkv_b"]
+    rows = []
+    for label, nb in (("wkv_b", w.codes.shape[0]),
+                      ("ragged", max(w.codes.shape[0] - 3, 1))):
+        codes, lits = w.codes[:nb], w.literals[:nb]
+        got = ddc.dict_decode(codes, lits, lut)
+        same = bool(torch.equal(got, ddc.dict_decode_plain(codes, lits, lut)))
+        if not same:
+            raise AssertionError(f"K4 {label} ({nb} blocks) differs from "
+                                 "its plain version")
+        slots = codes.shape[1]
+        b, by = bound_ms(nb * slots * 2 + int(w.nlit[:nb].sum()) * 4
+                         + nbytes(lut) + nb * slots * 4, 0.0)
+        rows.append({"planes": label, "blocks": nb, "slots": slots,
+                     "bitwise": same,
+                     # single launches with the L2 flushed before each: the
+                     # 256 MB flush covers the launch's host latency
+                     "ms": timer.ms(lambda: ddc.dict_decode(codes, lits, lut),
+                                    iters=20),
+                     "plain_ms": timer.ms(
+                         lambda: ddc.dict_decode_plain(codes, lits, lut)),
+                     "library_ms": None, "bound_ms": b, "bound_by": by})
+    main = rows[0]
+    return {"name": "dict_decode", "route": "cuda", "path": cfg.name,
+            "source": "src/repro_torch/kernels/csrc/dict_decode.cu",
+            "replaces": "src/repro/kernels/dict_decode.py:44",
+            "bitwise": True, "max_abs_err": 0.0,
+            "timed_at": f"MLA wkv_b {tuple(w.shape)}, {main['blocks']} blocks",
+            "library": "none: no single PyTorch call decodes the dictionary",
+            **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}}, rows
+
+
+def _sdpa_vdim(q, k, v):
+    """SDPA over keys with a v head dim of their own; where the installed
+    torch refuses Dv ≠ Dqk, v is zero-padded to Dqk and the output cut."""
+    import torch.nn.functional as F
+    try:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True), "sdpa"
+    except RuntimeError:
+        pad = torch.nn.functional.pad(v, (0, q.shape[-1] - v.shape[-1]))
+        return (F.scaled_dot_product_attention(q, k, pad, is_causal=True)
+                [..., :v.shape[-1]], "sdpa, v zero-padded to Dqk")
+
+
+def check_flash_mla(rt, cfg, device, t_prefill, gen, timer):
+    """K2 at MLA's head dims: (B, 16, T, 192) against (B, 16, T + 32,
+    192/128), q_offset 0 (the prefill over a cache of T + 32), and on a
+    ragged prime T; both lane counts are timed."""
+    fa = rt["fa"]
+    hq = cfg.n_heads
+    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    rows, worst = [], 0.0
+    for tq in (t_prefill, 197):
+        tk = tq + MAX_NEW
+        q = torch.randn((BATCH, hq, tq, d), generator=gen, device=device)
+        k = torch.randn((BATCH, hq, tk, d), generator=gen, device=device)
+        v = torch.randn((BATCH, hq, tk, dv), generator=gen, device=device)
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        err = float((fa.flash_attention(qb, kb, vb).float()
+                     - fa.flash_attention_plain(qb, kb, vb).float())
+                    .abs().max())
+        qf = qb.float()
+        err32 = float((fa.flash_attention(qf, kb, vb)
+                       - fa.flash_attention_plain(qf, kb, vb)).abs().max())
+        worst = max(worst, err)
+        if not (err <= FLASH_ATOL_BF16 and err32 <= FLASH_ATOL_F32):
+            raise AssertionError(f"K2 (192, 128) T={tq}: bf16 err {err}, "
+                                 f"f32 err {err32}")
+        pairs = sum(min(tk, i + 1) for i in range(tq))
+        seen_k = min(tk, tq)
+        b, by = bound_ms(2 * BATCH * hq * (tq + seen_k) * (d + dv) + 0.0,
+                         2.0 * (d + dv) * BATCH * hq * pairs)
+        kr, vr = kb[:, :, :tq], vb[:, :, :tq]
+        _, lib_name = _sdpa_vdim(qb, kr, vr)
+        lanes_ms = {f"lanes_{n}": timer.graph_ms(
+            [lambda n=n: fa.flash_attention(qb, kb, vb, lanes=n)] * 8)
+            for n in fa.MLA_LANES}
+        rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
+                     "max_abs_err": err, "max_abs_err_f32": err32,
+                     "ms": timer.graph_ms(
+                         [lambda: fa.flash_attention(qb, kb, vb)] * 8),
+                     **lanes_ms,
+                     "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
+                         qb, kb, vb)),
+                     # SDPA's causal mask is aligned top-left; over the
+                     # first Tq keys it is the same function
+                     "library_ms": timer.graph_ms(
+                         [lambda: _sdpa_vdim(qb, kr, vr)[0]] * 8),
+                     "library": lib_name, "bound_ms": b, "bound_by": by})
+    main = rows[0]
+    return {"name": "flash_attention", "route": "cuda", "path": cfg.name,
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "max_abs_err": worst,
+            "timed_at": f"MLA prefill (B={BATCH}, {hq}, T={t_prefill}, {d}) "
+                        f"vs Tk={t_prefill + MAX_NEW}, Dv={dv}",
+            "library": main["library"],
+            **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}}, rows
+
+
+def pack(rt, cfg, device, seed):
+    """Seeded weights on the card, packed in compressed mode with the
+    default policy; the dense weights are freed.  → (state, timings)."""
+    LM = rt["LM"]
+    t0 = time.perf_counter()
+    params = LM.init_lm(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = rt["build_serve_params"](
+        params, rt["CompressionPolicy"](mode="compressed"), device=device)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    del params
+    torch.cuda.empty_cache()
+    log(f"pack: {cfg.name} ({cfg.n_layers} layers) init {init_s:.2f} s, "
+        f"build_serve_params {pack_s:.2f} s (peak {peak} B), table "
+        f"{len(state.table)} codes, stats {json.dumps(state.stats)}")
+    return state, {"init_s": init_s, "pack_s": pack_s,
+                   "pack_peak_mem_bytes": peak}
+
+
+def serve(rt, cfg, state, device, batch, lens, want, packed_want):
+    """The main path: ``generate`` answers the batch with MAX_NEW tokens,
+    counts zeroed just before and read just after; then the prefill alone
+    (median of 3).  Raises unless the launch and materialize counts are
+    ``want`` and ``packed_want``."""
+    _build, L, LM, ops = rt["_build"], rt["L"], rt["LM"], rt["ops"]
+    t_prefill = batch.shape[1]
+    _build.LAUNCH_COUNTS.clear()
+    L.MATERIALIZE_COUNTS.clear()
+    ops.DISPATCH_COUNTS.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rt["generate"](state.params, cfg, batch, lut=state.lut,
+                         max_new=MAX_NEW, device=device)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCH_COUNTS)
+    materialized = dict(L.MATERIALIZE_COUNTS)
+    peak = torch.cuda.max_memory_allocated(device)
+    prefill, _ = rt["make_serve_fns"](cfg, device=device)
+    ids = torch.as_tensor(batch, device=device)
+    pre = []
+    for _ in range(3):
+        caches = LM.init_caches(cfg, BATCH, t_prefill + MAX_NEW,
+                                device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(state.params, state.lut, {"tokens": ids}, caches)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    prefill_s = sorted(pre)[1]
+    new = out[:, t_prefill:].cpu()
+    e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": BATCH,
+           "prompt_lens": lens, "max_new": MAX_NEW, "generate_s": gen_s,
+           "prefill_ms": prefill_s * 1e3,
+           "decode_tokens_per_s": BATCH * (MAX_NEW - 1) / (gen_s - prefill_s),
+           "peak_mem_bytes": peak, "stats": state.stats,
+           "launches": launches, "materialize_counts": materialized,
+           "dispatch_counts": dict(ops.DISPATCH_COUNTS),
+           "first_request_tokens": new[0].tolist()}
+    ok = (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
+          and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
+          and launches == want
+          and all(materialized.get(k, 0) == v for k, v in packed_want.items())
+          and bool(torch.isfinite(logits.float()).all()))
+    if not ok:
+        raise AssertionError(f"{cfg.name} main path: launches {launches} "
+                             f"(want {want}), materialize {materialized} "
+                             f"(want {packed_want}), out {tuple(out.shape)}")
+    return e2e
+
+
+def llama_path(rt, device, gen, timer, kernels, failed):
+    """Llama-3.2-1B: pack, K1/K5/K2 at its shapes, serve, card vs CPU."""
+    cfg = rt["get_config"]("llama3.2-1b").full
+    batch, lens = make_prompts(cfg.vocab_size)
+    t_prefill = batch.shape[1]
+    state, packing = pack(rt, cfg, device, SEED)
+    rows, detail = [], {}
+    for name, fn in (
+            ("fused_decode_matmul",
+             lambda: check_fused(rt, state, device, t_prefill, gen, timer)),
+            ("dequant_matmul",
+             lambda: (check_dequant(rt, state, device, gen, timer), None)),
+            ("flash_attention",
+             lambda: check_flash(rt, cfg, device, t_prefill, gen, timer))):
+        try:
+            row, detail[name] = fn()
+            rows.append(dict(row, path=cfg.name))
+        except Exception:
+            traceback.print_exc()
+            failed.append(f"{cfg.name} kernel {name}")
+    log(f"kernel_detail {cfg.name} " + json.dumps(detail))
+    e2e = {}
+    try:
+        e2e = serve(rt, cfg, state, device, batch, lens, want={
+            "fused_decode_matmul": 7 * cfg.n_layers * MAX_NEW,
+            "dequant_matmul": MAX_NEW, "flash_attention": cfg.n_layers},
+            packed_want={"packed": 0})
+        e2e.update(packing)
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} e2e")
+    for row in rows:
+        row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
+    kernels.extend(rows)
+    log(f"e2e {cfg.name} " + json.dumps(e2e))
+    del state
+    torch.cuda.empty_cache()
+    try:
+        card_vs_cpu(rt, dataclasses.replace(cfg, n_layers=2), device, batch,
+                    steps=8)
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} card_vs_cpu")
+
+
+def deepseek_path(rt, device, gen, timer, kernels, failed):
+    """DeepSeek-V2-Lite at full width, depth 8: pack, K3/K4/K2 (192/128)
+    at its shapes, serve, card vs CPU at depth 2."""
+    full = rt["get_config"]("deepseek-v2-lite-16b").full
+    cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
+    batch, lens = make_prompts(cfg.vocab_size)
+    t_prefill = batch.shape[1]
+    state, packing = pack(rt, cfg, device, SEED)
+    rows, detail = [], {}
+    for name, fn in (
+            ("grouped_fused_decode_matmul",
+             lambda: check_grouped(rt, cfg, state, device, BATCH * t_prefill,
+                                   gen, timer)),
+            ("dict_decode", lambda: check_dict_decode(rt, cfg, state, timer)),
+            ("flash_attention",
+             lambda: check_flash_mla(rt, cfg, device, t_prefill, gen,
+                                     timer))):
+        try:
+            row, detail[name] = fn()
+            rows.append(row)
+        except Exception:
+            traceback.print_exc()
+            failed.append(f"{cfg.name} kernel {name}")
+    log(f"kernel_detail {cfg.name} " + json.dumps(detail))
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    e2e = {}
+    try:
+        # per forward: 3 grouped launches per MoE layer; K1 for MLA's wq,
+        # wkv_a, wo and the 3 projections of the dense or shared-expert
+        # MLP in every layer; K4 for MLA's absorbed wkv_b in every layer;
+        # K5 for the int8 LM head; K2 once per layer, at the prefill only
+        e2e = serve(rt, cfg, state, device, batch, lens, want={
+            "grouped_fused_decode_matmul": 3 * n_moe * MAX_NEW,
+            "fused_decode_matmul": 6 * cfg.n_layers * MAX_NEW,
+            "dict_decode": cfg.n_layers * MAX_NEW,
+            "dequant_matmul": MAX_NEW, "flash_attention": cfg.n_layers},
+            packed_want={"packed_stacked": 0,
+                         "packed": cfg.n_layers * MAX_NEW})
+        e2e.update(packing, full_layers=full.n_layers)
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} e2e")
+    for row in rows:
+        row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
+    kernels.extend(rows)
+    log(f"e2e {cfg.name} " + json.dumps(e2e))
+    del state
+    torch.cuda.empty_cache()
+    try:
+        card_vs_cpu(rt, dataclasses.replace(cfg, n_layers=2), device, batch,
+                    steps=DS_CHECK_STEPS)
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} card_vs_cpu")
+
+
+def card_vs_cpu(rt, cfg, device, batch, steps):
+    """The same seeded model at 2 layers, packed once on the card and
+    copied to the CPU: prefill logits of the last position within
+    E2E_LOGIT_ATOL, greedy tokens of ``steps`` steps compared.  For an MoE
+    model the routed top-k sets of every token are compared too; a request
+    whose last token routes differently is reported and left out of the
+    logit gate (at most one)."""
+    LM, L = rt["LM"], rt["L"]
+    t0 = time.perf_counter()
+    params = LM.init_lm(cfg, seed=SEED + 1, device=device)
+    st_gpu = rt["build_serve_params"](params, rt["CompressionPolicy"](),
+                                      device=device)
+    del params
+    st_cpu = st_gpu.to("cpu")
+    ids = torch.as_tensor(batch)
+    t_prefill = ids.shape[1]
+    moe = cfg.family == "moe"
+    head_key = "lm_head" if "lm_head" in st_gpu.params else "embed"
+    res = {}
+    for key, dev, st in (("card", device, st_gpu), ("cpu", "cpu", st_cpu)):
+        _, decode_step = rt["make_serve_fns"](cfg, device=dev)
+        caches = LM.init_caches(cfg, BATCH, t_prefill + steps, device=dev)
+        out = LM.forward(st.params, cfg, ids.to(dev), caches=caches, pos=0,
+                         lut=st.lut, return_hidden=True,
+                         return_routing=moe)
+        hidden, caches = out[0], out[1]
+        logits = L.linear(hidden[:, -1:], st.params[head_key], st.lut)[:, 0]
+        toks = []
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        for i in range(steps):
+            toks.append(tok)
+            if i < steps - 1:
+                lg, caches = decode_step(st.params, st.lut, tok, caches,
+                                         t_prefill + i)
+                tok = torch.argmax(lg, dim=-1)[:, None]
+        res[key] = (logits.float().cpu(), torch.cat(toks, 1).cpu(),
+                    out[3].cpu() if moe else None)
+    diff = (res["card"][0] - res["cpu"][0]).abs().max(dim=-1).values
+    scale = float(res["cpu"][0].abs().max())
+    info = {"model": cfg.name, "layers": 2,
+            "logit_max_abs_err_per_request": diff.tolist(),
+            "logit_scale": scale, "tolerance": E2E_LOGIT_ATOL,
+            "token_mismatches": int((res["card"][1] != res["cpu"][1]).sum()),
+            "tokens_compared": BATCH * steps}
+    gated = torch.ones(BATCH, dtype=torch.bool)
+    if moe:
+        n_tok = BATCH * t_prefill
+        differs = (res["card"][2].sort(-1).values
+                   != res["cpu"][2].sort(-1).values).any(-1)  # (L_moe, n)
+        info["tokens_routed_differently"] = int(differs.any(0).sum())
+        info["tokens_routed"] = n_tok
+        last = differs.any(0).reshape(BATCH, t_prefill)[:, -1]
+        gated = ~last
+        info["requests_left_out"] = [int(i) for i in torch.nonzero(last)]
+    info["seconds"] = time.perf_counter() - t0
+    log("card_vs_cpu " + json.dumps(info))
+    bad = diff[gated].max().item() if gated.any() else 0.0
+    if int((~gated).sum()) > 1 or not (bad <= E2E_LOGIT_ATOL
+                                        and math.isfinite(bad)):
+        raise AssertionError(f"{cfg.name} card vs CPU: logits differ by "
+                             f"{diff.tolist()}, left out {(~gated).tolist()}")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -339,17 +782,22 @@ def main() -> int:
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import dequant_matmul as dqm
+    from repro_torch.kernels import dict_decode as ddc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_decode_matmul as fdm
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
     from repro_torch.serve.engine import (build_serve_params, generate,
                                           make_serve_fns)
-    rt = {"fdm": fdm, "dqm": dqm, "fa": fa}
+    rt = {"fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
+          "ops": ops, "_build": _build, "get_config": get_config,
+          "CompressionPolicy": CompressionPolicy,
+          "build_serve_params": build_serve_params, "generate": generate,
+          "make_serve_fns": make_serve_fns}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
-    failed = []
+    failed, kernels = [], []
 
     # -- 1. device + build ---------------------------------------------------
     smi = nvidia_smi_line()
@@ -364,138 +812,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # -- 2. pack Llama-3.2-1B -----------------------------------------------
-    cfg = get_config("llama3.2-1b").full
-    batch, lens = make_prompts(cfg.vocab_size)
-    t_prefill = batch.shape[1]
-    t0 = time.perf_counter()
-    params = LM.init_lm(cfg, seed=SEED, device=device)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state = build_serve_params(params, CompressionPolicy(mode="compressed"),
-                               device=device)
-    torch.cuda.synchronize()
-    pack_s = time.perf_counter() - t0
-    del params
-    torch.cuda.empty_cache()
-    log(f"pack: llama3.2-1b ({cfg.n_layers} layers) init {init_s:.2f} s, "
-        f"build_serve_params {pack_s:.2f} s, table {len(state.table)} codes, "
-        f"stats {json.dumps(state.stats)}")
-
-    # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     timer = Timer(device)
-    kernels, detail = {}, {}
-    for name, fn in (
-            ("fused_decode_matmul",
-             lambda: check_fused(rt, state, device, t_prefill, gen, timer)),
-            ("dequant_matmul",
-             lambda: (check_dequant(rt, state, device, gen, timer), None)),
-            ("flash_attention",
-             lambda: check_flash(rt, cfg, device, t_prefill, gen, timer))):
+    for path in (llama_path, deepseek_path):
+        t0 = time.perf_counter()
         try:
-            kernels[name], detail[name] = fn()
+            path(rt, device, gen, timer, kernels, failed)
         except Exception:
             traceback.print_exc()
-            failed.append(f"kernel {name}")
-    log("kernel_detail " + json.dumps(detail))
+            failed.append(path.__name__)
+        log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
-    # -- 4. end to end: the main path ------------------------------------------
-    e2e = {}
-    try:
-        _build.LAUNCH_COUNTS.clear()
-        L.MATERIALIZE_COUNTS.clear()
-        ops.DISPATCH_COUNTS.clear()
-        torch.cuda.reset_peak_memory_stats(device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = generate(state.params, cfg, batch, lut=state.lut,
-                       max_new=MAX_NEW, device=device)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCH_COUNTS)
-        materialized = dict(L.MATERIALIZE_COUNTS)
-        peak = torch.cuda.max_memory_allocated(device)
-        # prefill alone, timed after the counted run (3 runs, median)
-        prefill, _ = make_serve_fns(cfg, device=device)
-        ids = torch.as_tensor(batch, device=device)
-        pre = []
-        for _ in range(3):
-            caches = LM.init_caches(cfg, BATCH, t_prefill + MAX_NEW,
-                                    device=device)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, _ = prefill(state.params, state.lut, {"tokens": ids},
-                                caches)
-            torch.cuda.synchronize()
-            pre.append(time.perf_counter() - t0)
-        prefill_s = sorted(pre)[1]
-        new = out[:, t_prefill:].cpu()
-        e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": BATCH,
-               "prompt_lens": lens, "max_new": MAX_NEW,
-               "pack_s": pack_s, "generate_s": gen_s,
-               "prefill_ms": prefill_s * 1e3,
-               "decode_tokens_per_s": BATCH * (MAX_NEW - 1)
-               / (gen_s - prefill_s),
-               "peak_mem_bytes": peak, "stats": state.stats,
-               "launches": launches, "materialize_counts": materialized,
-               "first_request_tokens": new[0].tolist()}
-        want = {"fused_decode_matmul": 7 * cfg.n_layers * MAX_NEW,
-                "dequant_matmul": MAX_NEW}
-        ok = (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
-              and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
-              and all(launches.get(k) == v for k, v in want.items())
-              and launches.get("flash_attention", 0) > 0
-              and materialized.get("packed", 0) == 0
-              and bool(torch.isfinite(logits.float()).all()))
-        if not ok:
-            raise AssertionError(f"main path: launches {launches} (want "
-                                 f"{want}, flash > 0), materialize "
-                                 f"{materialized}, out {tuple(out.shape)}")
-        for name, row in kernels.items():
-            row["launches"] = launches.get(name, 0)
-    except Exception:
-        traceback.print_exc()
-        failed.append("e2e")
-    log("e2e " + json.dumps(e2e))
-    del state
-    torch.cuda.empty_cache()
-
-    # -- 5. card against CPU at 2 layers ---------------------------------------
-    try:
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
-        params2 = LM.init_lm(cfg2, seed=SEED + 1, device=device)
-        st_gpu = build_serve_params(params2, CompressionPolicy(),
-                                    device=device)
-        del params2
-        st_cpu = st_gpu.to("cpu")
-        ids = torch.as_tensor(batch)
-        res = {}
-        for dev, st in (("cuda", st_gpu), ("cpu", st_cpu)):
-            prefill, _ = make_serve_fns(cfg2, device=dev)
-            caches = LM.init_caches(cfg2, BATCH, t_prefill + 8, device=dev)
-            logits, _ = prefill(st.params, st.lut, {"tokens": ids}, caches)
-            toks = generate(st.params, cfg2, ids, lut=st.lut, max_new=8,
-                            device=dev)
-            res[dev] = (logits.float().cpu(), toks[:, t_prefill:].cpu())
-        err = float((res["cuda"][0] - res["cpu"][0]).abs().max())
-        scale = float(res["cpu"][0].abs().max())
-        mism = int((res["cuda"][1] != res["cpu"][1]).sum())
-        log("card_vs_cpu " + json.dumps({
-            "layers": 2, "logit_max_abs_err": err, "logit_scale": scale,
-            "tolerance": E2E_LOGIT_ATOL, "token_mismatches": mism,
-            "tokens_compared": BATCH * 8}))
-        if not (err <= E2E_LOGIT_ATOL and math.isfinite(err)):
-            raise AssertionError(f"card vs CPU logits differ by {err}")
-    except Exception:
-        traceback.print_exc()
-        failed.append("card_vs_cpu")
-
-    for row in kernels.values():
+    for row in kernels:
         row.setdefault("launches", 0)
-    log(json.dumps({"kernels": [kernels[k] for k in kernels]}))
+    log(json.dumps({"kernels": kernels}))
     if failed:
         log(f"FAILED: {failed}")
         return 1

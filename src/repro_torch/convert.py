@@ -1,9 +1,11 @@
 """Carry weights across from the JAX package, as numpy arrays.
 
 The JAX package stacks per-layer leaves on a leading axis under
-``params["blocks"]``; the port keeps a list of per-layer dicts.  These
-functions take numpy only (``np.asarray`` of every leaf, done by the
-caller), so this package never sees a JAX type.
+``params["blocks"]``; the port keeps a list of per-layer dicts.  An MoE
+model's ``first_blocks`` is a list in both.  Stacked expert leaves keep
+their expert axis: (L, E, N, K) in the reference, (E, N, K) per layer here,
+and so do their planes.  These functions take numpy only (``np.asarray`` of
+every leaf, done by the caller), so this package never sees a JAX type.
 
 Weight containers travel as plain dicts with a ``"kind"`` key:
 
@@ -46,6 +48,8 @@ def _leaf(node, device):
                             tile_k=int(node["tile_k"]))
     if isinstance(node, dict):
         return {k: _leaf(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_leaf(v, device) for v in node]
     return _tensor(node, device)
 
 
@@ -59,7 +63,8 @@ def _layer(node, i: int):
 
 def _unstack(tree: dict, cfg) -> dict:
     out = dict(tree)
-    out["blocks"] = [_layer(tree["blocks"], i) for i in range(cfg.n_layers)]
+    n = cfg.n_layers - (cfg.first_dense_layers if cfg.family == "moe" else 0)
+    out["blocks"] = [_layer(tree["blocks"], i) for i in range(n)]
     return out
 
 

@@ -118,7 +118,7 @@ def decode_blocked(codes: torch.Tensor, literals: torch.Tensor,
     from_lit = torch.gather(
         literals, 1, rank[:, :, None].expand(-1, -1, literals.shape[2]))
     out = torch.where(is_esc[:, :, None], from_lit, from_dict)
-    return out.reshape(codes.shape[0], -1)
+    return out.reshape(codes.shape[0], codes.shape[1] * literals.shape[2])
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +174,12 @@ def tile_stream(w2d: torch.Tensor, tile_n: int, tile_k: int) -> torch.Tensor:
 
 def untile_flat(flat: torch.Tensor, shape: tuple, tile_n: int,
                 tile_k: int) -> torch.Tensor:
-    """Inverse of :func:`tile_stream` for an (N·K,) flat."""
+    """Inverse of :func:`tile_stream` for a (..., N·K) flat."""
     n, k = shape
-    return (flat.reshape(n // tile_n, k // tile_k, tile_n, tile_k)
-            .permute(0, 2, 1, 3).reshape(n, k))
+    lead = tuple(flat.shape[:-1])
+    t = flat.reshape(lead + (n // tile_n, k // tile_k, tile_n, tile_k))
+    d = len(lead)
+    return t.permute(*range(d), d, d + 2, d + 1, d + 3).reshape(lead + (n, k))
 
 
 def encode_blocked_tiled(weights2d: torch.Tensor, table,

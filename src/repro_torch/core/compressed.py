@@ -1,10 +1,12 @@
 """Compressed weight containers — how the port's models carry weights.
 
 Counterpart of ``repro/core/compressed.py`` (``QuantLinear``,
-``PackedLinear``, ``pad_literals``, ``quantize_linear``).  A linear weight
-is dense (a tensor), a :class:`QuantLinear` (mode 'quant') or a
-:class:`PackedLinear` (mode 'compressed'); the decode LUT is shared by the
-whole model and passed beside the params.
+``PackedLinear``, ``pad_literals``, ``quantize_linear``,
+``pack_expert_stack``).  A linear weight is dense (a tensor), a
+:class:`QuantLinear` (mode 'quant') or a :class:`PackedLinear` (mode
+'compressed'); the decode LUT is shared by the whole model and passed
+beside the params.  A stacked weight (an MoE layer's experts) carries a
+leading expert axis on every plane.
 """
 from __future__ import annotations
 
@@ -12,17 +14,20 @@ import dataclasses
 
 import torch
 
+from ..kernels.dict_decode import dict_decode
 from . import blocked_codec as bcdc
+from .codec import find_frequent_sequences
 from .quant import QuantConfig, quantize
 
 
 @dataclasses.dataclass
 class QuantLinear:
-    """uint8 weight + per-channel affine params (mode='quant')."""
+    """uint8 weight + per-channel affine params (mode='quant'), with any
+    leading (stacked expert) dims."""
 
-    values: torch.Tensor   # uint8 [out, in]
-    scale: torch.Tensor    # f32 [out, 1]
-    zero: torch.Tensor     # f32 [out, 1]
+    values: torch.Tensor   # uint8 [..., out, in]
+    scale: torch.Tensor    # f32 [..., out, 1]
+    zero: torch.Tensor     # f32 [..., out, 1]
 
     def materialize(self, dtype=torch.bfloat16) -> torch.Tensor:
         return ((self.values.to(torch.float32) - self.zero) * self.scale
@@ -42,14 +47,16 @@ class QuantLinear:
 class PackedLinear:
     """Blocked-compressed uint8 weight + quantizer params (mode='compressed').
 
-      codes    int16 (uint16 bits) [nb, slots]
-      literals uint8 [nb, cap, S]
-      nlit     int32 [nb]
-      scale    f32   [out, 1]
-      zero     f32   [out, 1]
+      codes    int16 (uint16 bits) [..., nb, slots]
+      literals uint8 [..., nb, cap, S]
+      nlit     int32 [..., nb]
+      scale    f32   [..., out, 1]
+      zero     f32   [..., out, 1]
 
-    ``tile_n > 0``: blocks are laid out tile-major per (tile_n, tile_k)
-    weight tile, the layout the fused kernel reads; 0 = linear layout.
+    Leading dims stack weights of one ``shape`` (an MoE layer's experts:
+    [E, ...]) with one literal capacity.  ``tile_n > 0``: blocks are laid
+    out tile-major per (tile_n, tile_k) weight tile, the layout the fused
+    kernels read; 0 = linear layout.
     """
 
     codes: torch.Tensor
@@ -73,17 +80,27 @@ class PackedLinear:
             scale=self.scale.to(device), zero=self.zero.to(device))
 
     def materialize_int8(self, lut: torch.Tensor) -> torch.Tensor:
-        """Decode to the dense uint8 (out, in) weight.  For tests and
-        yardsticks only: the serving path never calls it."""
+        """Decode to the dense uint8 (..., out, in) weight, for any leading
+        dims: blocks decode on their own, so the planes flatten to
+        (-1, slots).  On CUDA planes the dict-decode kernel runs; on CPU
+        planes its plain version."""
         n, k = self.shape
-        flat = bcdc.decode_blocked(self.codes, self.literals, lut
-                                   ).reshape(-1)[: n * k]
+        lead = tuple(self.codes.shape[:-2])
+        slots = self.codes.shape[-1]
+        cap, s = self.literals.shape[-2:]
+        flat = dict_decode(self.codes.reshape(-1, slots),
+                           self.literals.reshape(-1, cap, s), lut)
+        per = self.codes.shape[-2] * slots * s
+        flat = flat.reshape(-1, per)[:, : n * k]
         if self.tile_n:
-            return bcdc.untile_flat(flat, (n, k), self.tile_n, self.tile_k)
-        return flat.reshape(n, k)
+            w = bcdc.untile_flat(flat, (n, k), self.tile_n, self.tile_k)
+        else:
+            w = flat.reshape(-1, n, k)
+        return w.reshape(lead + (n, k))
 
     def materialize(self, lut: torch.Tensor,
                     dtype=torch.bfloat16) -> torch.Tensor:
+        """Decode + dequantize to the dense weight (any leading dims)."""
         w = self.materialize_int8(lut).to(torch.float32)
         return ((w - self.zero) * self.scale).to(dtype)
 
@@ -107,3 +124,50 @@ def quantize_linear(w: torch.Tensor,
     values, scale, zero = quantize(w, qcfg)
     return QuantLinear(values=values.reshape(w.shape), scale=scale,
                        zero=zero)
+
+
+def stack_packed(qls: list, bcs: list, *, shape, tile_n: int, tile_k: int,
+                 cap: int | None = None) -> PackedLinear:
+    """One stacked PackedLinear from per-weight quantizers and encodings,
+    with one literal capacity ``cap`` (default: the stack's largest)."""
+    if cap is None:
+        cap = max(bc.literals.shape[1] for bc in bcs)
+    return PackedLinear(
+        codes=torch.stack([bc.codes for bc in bcs]),
+        literals=torch.stack([pad_literals(bc.literals, cap) for bc in bcs]),
+        nlit=torch.stack([bc.nlit for bc in bcs]),
+        scale=torch.stack([q.scale for q in qls]),
+        zero=torch.stack([q.zero for q in qls]),
+        shape=tuple(shape), tile_n=tile_n, tile_k=tile_k)
+
+
+def pack_expert_stack(ws, table: dict | None = None,
+                      block_weights: int = bcdc.DEFAULT_BLOCK_WEIGHTS,
+                      tile="auto"):
+    """Quantize + blocked-compress same-shape expert weights into one
+    stacked PackedLinear (leading expert axis, one shared dictionary, one
+    literal capacity; tile-major by default), on the weights' device — what
+    ``serve.engine.build_serve_params`` emits for an ``experts/w_*`` leaf.
+    Returns ``(packed, lut)``.  ``tile=None`` keeps the linear layout."""
+    n, k = ws[0].shape
+    device = ws[0].device
+    qls = [quantize_linear(w) for w in ws]
+    if table is None:
+        table = find_frequent_sequences([q.values for q in qls])
+    lut = bcdc.build_lut(table, device=device)
+    index = bcdc.TableIndex(table, device=device)
+    if tile == "auto":
+        picked = bcdc.choose_fused_tiles((n, k), block_weights)
+        tile = picked[:2] if picked else None
+    if tile is not None:
+        tn, tk = tile
+        bcs = [bcdc.encode_blocked_tiled(q.values, index, tile_n=tn,
+                                         tile_k=tk,
+                                         block_weights=block_weights)
+               for q in qls]
+    else:
+        tn, tk = 0, 0
+        bcs = [bcdc.encode_blocked(q.values, index,
+                                   block_weights=block_weights)
+               for q in qls]
+    return stack_packed(qls, bcs, shape=(n, k), tile_n=tn, tile_k=tk), lut

@@ -29,11 +29,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_decode_matmul", "dequant_matmul", "flash_attention")
+SOURCES = ("fused_decode_matmul", "dequant_matmul", "flash_attention",
+           "dict_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# Launches of each kernel, by source name.  Every wrapper adds one where it
+# Launches of each kernel, by kernel name (K3 grouped_fused_decode_matmul
+# shares fused_decode_matmul's source).  Every wrapper adds one where it
 # launches its kernel and nowhere else; callers clear it to count a run.
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 

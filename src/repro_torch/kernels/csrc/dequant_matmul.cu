@@ -80,7 +80,7 @@ dequant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
   qmoe::finish_block<RPT, TOut>(acc, sumx, scale, zero, out, part, sxpart,
-                                M, N, m0, n0 + n, g);
+                                M, N, m0, n0 + n, g, blockIdx.z);
 }
 
 template <int RPT, typename TOut>

@@ -1,7 +1,15 @@
 // Fused decode -> dequant -> matmul over tile-major compressed planes.
 //
-// Replaces repro/kernels/fused_decode_matmul.py::fused_decode_matmul (the
-// TPU Pallas kernel: _kernel, _decode_tile, _accumulate) for G = 1 planes.
+// Replaces two TPU Pallas kernels of repro/kernels/fused_decode_matmul.py:
+//   * K1 fused_decode_matmul (_kernel, _decode_tile, _accumulate), G = 1
+//     planes;
+//   * K3 grouped_fused_decode_matmul (_grouped_kernel): the same product for
+//     every expert of a stacked MoE weight in one launch, grid
+//     (N/128, M/BM, E · splits).
+//     The device code is K1's; a block finds its expert from blockIdx.z and
+//     offsets x, planes, scale/zero and output by per-expert strides (the
+//     LUT is shared).  At MoE decode E · N/128 blocks (704 or 1024 for
+//     DeepSeek-V2-Lite) already fill the 132 SMs, so K is not split there.
 //
 //   y[m, n] = s[n] · (Σ_k bf16(x[m, k]) · q[n, k] − z[n] · Σ_k bf16(x[m, k]))
 //
@@ -39,82 +47,17 @@
 
 namespace {
 
-constexpr uint32_t kEscape = 0xFFFFu;
+using qmoe::decode_block;
 
-__device__ __forceinline__ int escapes_in(uint4 v) {
-  int n = 0;
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    n += ((w[i] & 0xFFFFu) == kEscape) + ((w[i] >> 16) == kEscape);
-  return n;
-}
-
-// One warp decodes one compressed block (`slots` codes) into the
-// row-major (tile_n, tile_k) byte tile at byte offset byte0; tile_k is a
-// power of two (1 << tk_shift).  Lanes own contiguous runs of slots; when
-// a run is a whole number of 8-code groups, codes are read 16 bytes at a
-// time (the block's codes start on a 16-byte boundary then).
-__device__ __forceinline__ void decode_block(
-    const uint16_t* __restrict__ codes, const uint32_t* __restrict__ lits,
-    const uint32_t* __restrict__ lut, int slots, int cap,
-    unsigned char* __restrict__ qtile, int qstride, int tk_shift, int byte0,
-    int lane) {
-  const int spl = (slots + 31) >> 5;
-  const int s0 = min(lane * spl, slots), s1 = min(s0 + spl, slots);
-  const bool vec = (spl & 7) == 0;
-  int cnt = 0;
-  if (vec) {
-    for (int s = s0; s < s1; s += 8)
-      cnt += escapes_in(*reinterpret_cast<const uint4*>(codes + s));
-  } else {
-    for (int s = s0; s < s1; ++s) cnt += (codes[s] == kEscape);
-  }
-  int incl = cnt;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    int v = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += v;
-  }
-  int rank = incl - cnt;  // escapes in this block before slot s0
-  const int tk_mask = (1 << tk_shift) - 1;
-  // Eight independent gram loads in flight per lane before any store.
-  for (int s = s0; s < s1; s += 8) {
-    uint32_t c[8];
-    if (vec) {
-      uint4 v = *reinterpret_cast<const uint4*>(codes + s);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        c[2 * i] = w[i] & 0xFFFFu;
-        c[2 * i + 1] = w[i] >> 16;
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) c[u] = s + u < s1 ? codes[s + u] : 0u;
-    }
-    uint32_t gram[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (s + u < s1) {
-        const uint32_t* src = lut + c[u];
-        if (c[u] == kEscape) {
-          src = lits + min(max(rank, 0), cap - 1);
-          ++rank;
-        }
-        gram[u] = __ldg(src);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (s + u < s1) {
-        int p = byte0 + 4 * (s + u);
-        *reinterpret_cast<uint32_t*>(qtile + (p >> tk_shift) * qstride +
-                                     (p & tk_mask)) = gram[u];
-      }
-    }
-  }
-}
+// Per-expert operands of a grouped launch: blockIdx.z = expert · splits +
+// split.  Each expert's x (M × K), planes, scale/zero (N), output (M × N)
+// and split-K workspaces lie one after another; the LUT is shared.  All
+// offsets are taken in 64 bits, as a stack's planes may pass 2^31 bytes.
+// K1 is the case E = 1.
+struct Expert {
+  long long codes, lits;   // elements (uint16 codes, uint32 grams) per expert
+  int splits;
+};
 
 template <int RPT, typename TOut>
 __global__ void __launch_bounds__(qmoe::kThreads)
@@ -127,7 +70,7 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                            TOut* __restrict__ out, float* __restrict__ part,
                            float* __restrict__ sxpart, int M, int N, int K,
                            int tile_n, int tile_k, int slots, int cap,
-                           int bpt, int tiles_per_split) {
+                           int bpt, int tiles_per_split, Expert ex) {
   constexpr int BM = 2 * RPT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int qstride = tile_k + 4;
@@ -142,10 +85,21 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   const int j0 = blockIdx.x * tpb;
   const int tcount = min(tpb, nnt - j0);
   const int m0 = blockIdx.y * BM;
-  const int kt0 = blockIdx.z * tiles_per_split;
+  const int e = blockIdx.z / ex.splits, split = blockIdx.z - e * ex.splits;
+  const int kt0 = split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, nkt);
   const int block_bytes = 4 * slots;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
+  x += (long long)e * M * K;
+  codes += e * ex.codes;
+  lits += e * ex.lits;
+  scale += (long long)e * N;
+  zero += (long long)e * N;
+  out += (long long)e * M * N;
+  if (part != nullptr) {
+    part += (long long)e * ex.splits * M * N;
+    sxpart += (long long)e * ex.splits * M;
+  }
 
   if (tid < BM) sumx[tid] = 0.f;
   __syncthreads();
@@ -169,7 +123,8 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
   qmoe::finish_block<RPT, TOut>(acc, sumx, scale, zero, out, part, sxpart,
-                                M, N, m0, blockIdx.x * qmoe::kBN + n, g);
+                                M, N, m0, blockIdx.x * qmoe::kBN + n, g,
+                                split);
 }
 
 // Prefill-sized M: the same decode, with the product on the tensor cores
@@ -212,7 +167,8 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                float* __restrict__ part,
                                float* __restrict__ sxpart, int M, int N,
                                int K, int tile_n, int tile_k, int slots,
-                               int cap, int bpt, int tiles_per_split) {
+                               int cap, int bpt, int tiles_per_split,
+                               Expert ex) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int qstride = tile_k + 4;
@@ -232,10 +188,22 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int j0 = blockIdx.x * tpb;
   const int tcount = min(tpb, nnt - j0);
   const int m0 = blockIdx.y * kMmaBM;
-  const int kt0 = blockIdx.z * tiles_per_split;
+  const int e = blockIdx.z / ex.splits;
+  const long long split = blockIdx.z - e * ex.splits;
+  const int kt0 = (int)split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, nkt);
   const int block_bytes = 4 * slots;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
+  x += (long long)e * M * K;
+  codes += e * ex.codes;
+  lits += e * ex.lits;
+  scale += (long long)e * N;
+  zero += (long long)e * N;
+  out += (long long)e * M * N;
+  if (part != nullptr) {
+    part += (long long)e * ex.splits * M * N;
+    sxpart += (long long)e * ex.splits * M;
+  }
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
@@ -310,7 +278,6 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                               acc[i][j], kLdC, wmma::mem_row_major);
   __syncthreads();
   const int n0 = blockIdx.x * qmoe::kBN;
-  const long long split = blockIdx.z;
   for (int i = tid; i < kMmaBM * qmoe::kBN; i += qmoe::kThreads) {
     int r = i / qmoe::kBN, c = i - r * qmoe::kBN;
     int m = m0 + r, n = n0 + c;
@@ -331,14 +298,16 @@ int launch_kernel(Kern kern, int bm, size_t smem, const void* x,
                   const void* codes, const void* lits, const void* lut,
                   const void* scale, const void* zero, TOut* out, void* part,
                   void* sxpart, int out_bf16, int M, int N, int K, int tile_n,
-                  int tile_k, int slots, int cap, int bpt, int splits,
+                  int tile_k, int slots, int cap, int bpt, int splits, int E,
                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int nkt = K / tile_k;
   int tiles_per_split = (nkt + splits - 1) / splits;
-  dim3 grid((N + qmoe::kBN - 1) / qmoe::kBN, (M + bm - 1) / bm, splits);
+  const long long nb = (long long)(N / tile_n) * nkt * bpt;
+  const Expert ex = {nb * slots, nb * cap, splits};
+  dim3 grid((N + qmoe::kBN - 1) / qmoe::kBN, (M + bm - 1) / bm, E * splits);
   kern<<<grid, qmoe::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const uint16_t*>(codes), static_cast<const uint32_t*>(lits),
@@ -346,13 +315,13 @@ int launch_kernel(Kern kern, int bm, size_t smem, const void* x,
       static_cast<const float*>(zero), out,
       splits > 1 ? static_cast<float*>(part) : nullptr,
       static_cast<float*>(sxpart), M, N, K, tile_n, tile_k, slots, cap, bpt,
-      tiles_per_split);
+      tiles_per_split, ex);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return qmoe::launch_splitk_epilogue(
       static_cast<const float*>(part), static_cast<const float*>(sxpart),
       static_cast<const float*>(scale), static_cast<const float*>(zero), out,
-      out_bf16, M, N, splits, stream);
+      out_bf16, M, N, splits, stream, E);
 }
 
 template <typename TOut>
@@ -360,11 +329,11 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
            int tile_n, int tile_k, int slots, int cap, int bpt, int splits,
-           cudaStream_t stream) {
+           int E, cudaStream_t stream) {
   const size_t qbytes = (size_t)qmoe::kBN * (tile_k + 4);
 #define QMOE_ARGS x, codes, lits, lut, scale, zero, static_cast<TOut*>(out), \
                   part, sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,    \
-                  cap, bpt, splits, stream
+                  cap, bpt, splits, E, stream
   if (bm == 4)
     return launch_kernel(fused_decode_matmul_kernel<2, TOut>, 4,
                          qbytes + (4 * tile_k + 4) * sizeof(float), QMOE_ARGS);
@@ -383,15 +352,18 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
 }  // namespace
 
 // C entry point, bound with ctypes.  Returns the CUDA error code (0 = ok).
-// bm: rows per block — 4 or 16 (SIMT product) or 128 (tensor cores; needs
-// tile_k % 64 == 0).  part/sxpart: f32 workspaces of splits·M·N and
-// splits·M (unused when splits == 1).  The literal plane is read as one
-// uint32 per gram (S = 4).
+// E weights of one shape in one launch: x (E, M, K), planes (E, nb, slots)
+// and (E, nb, cap, 4), scale/zero (E, N, 1), out (E, M, N) — K1 is E = 1,
+// K3 a whole expert stack.  bm: rows per block — 4 or 16 (SIMT product) or
+// 128 (tensor cores; needs tile_k % 64 == 0).  part/sxpart: f32 workspaces
+// of E·splits·M·N and E·splits·M (unused when splits == 1).  The literal
+// plane is read as one uint32 per gram (S = 4).
 extern "C" int qmoe_fused_decode_matmul(
     const void* x, const void* codes, const void* lits, const void* lut,
     const void* scale, const void* zero, void* out, void* part, void* sxpart,
-    int out_bf16, int M, int N, int K, int tile_n, int tile_k, int slots,
-    int cap, int bpt, int splits, int bm, int device, void* stream) {
+    int out_bf16, int E, int M, int N, int K, int tile_n, int tile_k,
+    int slots, int cap, int bpt, int splits, int bm, int device,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // This library links its own CUDA runtime: select the tensors' device.
   cudaError_t dev_err = cudaSetDevice(device);
@@ -399,8 +371,8 @@ extern "C" int qmoe_fused_decode_matmul(
   if (out_bf16)
     return launch<__nv_bfloat16>(bm, x, codes, lits, lut, scale, zero, out,
                                  part, sxpart, 1, M, N, K, tile_n, tile_k,
-                                 slots, cap, bpt, splits, s);
+                                 slots, cap, bpt, splits, E, s);
   return launch<float>(bm, x, codes, lits, lut, scale, zero, out, part,
                        sxpart, 0, M, N, K, tile_n, tile_k, slots, cap, bpt,
-                       splits, s);
+                       splits, E, s);
 }

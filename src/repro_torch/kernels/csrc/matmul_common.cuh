@@ -1,6 +1,7 @@
-// Shared pieces of the two W8A16 matmul kernels (fused_decode_matmul.cu,
-// dequant_matmul.cu): the bf16 x tile, its row sums, the SIMT dot over a
-// uint8 weight tile in shared memory, and the affine epilogue
+// Shared pieces of the W8A16 matmul kernels (fused_decode_matmul.cu,
+// dequant_matmul.cu) and the dictionary decode (dict_decode.cu): the
+// decode of one compressed block, the bf16 x tile, its row sums, the SIMT
+// dot over a uint8 weight tile in shared memory, and the affine epilogue
 //
 //     y = s · (Σ_k x·q − z·Σ_k x)
 //
@@ -23,6 +24,89 @@ namespace qmoe {
 
 constexpr int kThreads = 256;
 constexpr int kBN = 128;
+
+constexpr uint32_t kEscape = 0xFFFFu;
+
+__device__ __forceinline__ int escapes_in(uint4 v) {
+  int n = 0;
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    n += ((w[i] & 0xFFFFu) == kEscape) + ((w[i] >> 16) == kEscape);
+  return n;
+}
+
+// One warp decodes one compressed block (`slots` codes) into a row-major
+// byte tile of rows 1 << tk_shift bytes wide and qstride bytes apart,
+// starting at byte offset byte0 of the block's stream: a LUT row for codes
+// != ESCAPE, and for an escape the literal row rank = (escapes before it in
+// the block), clipped to [0, cap − 1] as the TPU kernels clip it.  The
+// escape rank is a prefix count: lanes own contiguous runs of slots, count
+// their escapes, and a shuffle scan across the warp gives each run its
+// first rank — no block-wide barrier.  When a run is a whole number of
+// 8-code groups (and so is the block), codes are read 16 bytes at a time;
+// the block's codes must then start on a 16-byte boundary.  All 32 lanes
+// of the warp must call it together.
+__device__ __forceinline__ void decode_block(
+    const uint16_t* __restrict__ codes, const uint32_t* __restrict__ lits,
+    const uint32_t* __restrict__ lut, int slots, int cap,
+    unsigned char* __restrict__ qtile, int qstride, int tk_shift, int byte0,
+    int lane) {
+  const int spl = (slots + 31) >> 5;
+  const int s0 = min(lane * spl, slots), s1 = min(s0 + spl, slots);
+  const bool vec = (spl & 7) == 0 && (slots & 7) == 0;
+  int cnt = 0;
+  if (vec) {
+    for (int s = s0; s < s1; s += 8)
+      cnt += escapes_in(*reinterpret_cast<const uint4*>(codes + s));
+  } else {
+    for (int s = s0; s < s1; ++s) cnt += (codes[s] == kEscape);
+  }
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  int rank = incl - cnt;  // escapes in this block before slot s0
+  const int tk_mask = (1 << tk_shift) - 1;
+  // Eight independent gram loads in flight per lane before any store.
+  for (int s = s0; s < s1; s += 8) {
+    uint32_t c[8];
+    if (vec) {
+      uint4 v = *reinterpret_cast<const uint4*>(codes + s);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        c[2 * i] = w[i] & 0xFFFFu;
+        c[2 * i + 1] = w[i] >> 16;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) c[u] = s + u < s1 ? codes[s + u] : 0u;
+    }
+    uint32_t gram[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (s + u < s1) {
+        const uint32_t* src = lut + c[u];
+        if (c[u] == kEscape) {
+          src = lits + min(max(rank, 0), cap - 1);
+          ++rank;
+        }
+        gram[u] = __ldg(src);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (s + u < s1) {
+        int p = byte0 + 4 * (s + u);
+        *reinterpret_cast<uint32_t*>(qtile + (p >> tk_shift) * qstride +
+                                     (p & tk_mask)) = gram[u];
+      }
+    }
+  }
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -100,7 +184,8 @@ __device__ __forceinline__ void finish_block(
     const float (&acc)[RPT], const float* __restrict__ sumx,
     const float* __restrict__ scale, const float* __restrict__ zero,
     TOut* __restrict__ out, float* __restrict__ part,
-    float* __restrict__ sxpart, int M, int N, int m0, int col, int g) {
+    float* __restrict__ sxpart, int M, int N, int m0, int col, int g,
+    long long split) {
   const int bm = 2 * RPT;
   if (part == nullptr) {
     if (col < N) {
@@ -114,7 +199,6 @@ __device__ __forceinline__ void finish_block(
     }
     return;
   }
-  const long long split = blockIdx.z;
   if (col < N) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -127,38 +211,46 @@ __device__ __forceinline__ void finish_block(
     sxpart[split * M + m0 + t] = sumx[t];
 }
 
-// Sum the split-K partials in split order, then the affine epilogue.
+// Sum the split-K partials in split order, then the affine epilogue.  E
+// independent (M, N) products (the experts of a grouped launch) lie one
+// after another in out, scale/zero (N each) and the workspaces.
 template <typename TOut>
 __global__ void splitk_epilogue(const float* __restrict__ part,
                                 const float* __restrict__ sxpart,
                                 const float* __restrict__ scale,
                                 const float* __restrict__ zero,
                                 TOut* __restrict__ out, int M, int N,
-                                int splits) {
+                                int splits, int E) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)M * N) return;
-  int m = (int)(i / N), n = (int)(i - (long long)m * N);
+  const long long mn = (long long)M * N;
+  if (i >= mn * E) return;
+  const long long e = i / mn, r = i - e * mn;
+  int m = (int)(r / N), n = (int)(r - (long long)m * N);
+  const float* pe = part + e * splits * mn;
+  const float* se = sxpart + e * splits * M;
   float acc = 0.f, sx = 0.f;
   for (int s = 0; s < splits; ++s) {
-    acc += part[((long long)s * M + m) * N + n];
-    sx += sxpart[(long long)s * M + m];
+    acc += pe[((long long)s * M + m) * N + n];
+    sx += se[(long long)s * M + m];
   }
-  store(out + i, affine(scale[n], zero[n], acc, sx));
+  store(out + i, affine(scale[e * N + n], zero[e * N + n], acc, sx));
 }
 
 inline int launch_splitk_epilogue(const float* part, const float* sxpart,
                                   const float* scale, const float* zero,
                                   void* out, int out_bf16, int M, int N,
-                                  int splits, cudaStream_t stream) {
-  long long total = (long long)M * N;
+                                  int splits, cudaStream_t stream,
+                                  int E = 1) {
+  long long total = (long long)M * N * E;
   int blocks = (int)((total + 255) / 256);
   if (out_bf16)
     splitk_epilogue<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
         part, sxpart, scale, zero, static_cast<__nv_bfloat16*>(out), M, N,
-        splits);
+        splits, E);
   else
     splitk_epilogue<float><<<blocks, 256, 0, stream>>>(
-        part, sxpart, scale, zero, static_cast<float*>(out), M, N, splits);
+        part, sxpart, scale, zero, static_cast<float*>(out), M, N, splits,
+        E);
   return (int)cudaGetLastError();
 }
 

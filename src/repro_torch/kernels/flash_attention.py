@@ -4,9 +4,11 @@ Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (the
 TPU Pallas kernel).  The CUDA kernel is ``csrc/flash_attention.cu``;
 :func:`flash_attention_plain` is the plain PyTorch version the CPU runs and
 the card's kernel is held against.  Layouts are the reference's: q
-(B, Hq, Tq, D), k/v (B, Hkv, Tk, D) → (B, Hq, Tq, D) in q's dtype, with
-query i at position ``q_offset + i``.  Masked scores are NEG_INF = −1e30
-and the denominator is max(l, 1e−30), as in the reference.
+(B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v (B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv)
+in q's dtype, with query i at position ``q_offset + i``.  Masked scores are
+NEG_INF = −1e30 and the denominator is max(l, 1e−30), as in the reference.
+The kernel takes the head-dim pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64
+and 128, and DeepSeek-V2's MLA (qk_nope + qk_rope = 192, v = 128).
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ from . import _build
 
 NAME = "flash_attention"
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)     # instantiated in the kernel
+# (Dqk, Dv) pairs instantiated in the kernel → threads per query row
+HEAD_DIMS = {(64, 64): 1, (128, 128): 1, (192, 128): 4}
+MLA_LANES = (2, 4)        # the lane counts built for (192, 128)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 8 + [_L] * 9 + [ctypes.c_float]
+_ARGTYPES = ([_P] * 4 + [_I] * 10 + [_L] * 9 + [ctypes.c_float]
              + [_I] * 3 + [_P])
 
 
@@ -49,11 +53,14 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """(B, Hq, Tq, D) × (B, Hkv, Tk, D) → (B, Hq, Tq, D).  Any strides over
-    (B, H, T) with D contiguous.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+                    sm_scale: float | None = None, q_offset: int = 0,
+                    lanes: int | None = None) -> torch.Tensor:
+    """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
+    (B, Hq, Tq, Dv).  Any strides over (B, H, T) with the head dim
+    contiguous; ``sm_scale`` defaults to 1/sqrt(Dqk).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.  ``lanes``
+    overrides the threads per query row for (192, 128) (one of
+    ``MLA_LANES``)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
@@ -62,12 +69,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
     dev = _build.cuda_args(q, k, v)
     b, hq, tq, d = q.shape
     _, hkv, tk, _ = k.shape
-    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+    dv = v.shape[3]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d
             or hq % hkv):
         raise ValueError(f"{NAME}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head_dim {d} not in {HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head_dim pair {(d, dv)} not in "
+                         f"{sorted(HEAD_DIMS)}")
+    if lanes is None:
+        lanes = HEAD_DIMS[(d, dv)]
+    elif not (lanes == HEAD_DIMS[(d, dv)]
+              or ((d, dv) == (192, 128) and lanes in MLA_LANES)):
+        raise ValueError(f"{NAME}: no {lanes}-lane kernel for {(d, dv)}")
     if q_offset < 0:
         raise ValueError(f"{NAME}: q_offset must be ≥ 0, got {q_offset}")
     ok = (torch.bfloat16, torch.float32)
@@ -75,14 +89,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise TypeError(f"{NAME}: q and k/v must be bf16 or f32")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{NAME}: head_dim must be the contiguous axis")
-    out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, hq, tq, dv), dtype=q.dtype, device=dev)
     if b * hq * tq == 0:
         return out
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     fn = _build.function(NAME, "qmoe_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             b, hq, hkv, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+             b, hq, hkv, tq, tk, d, dv, lanes, *q.stride()[:3],
+             *k.stride()[:3],
              *v.stride()[:3], float(sm), int(causal), int(q_offset),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, NAME)

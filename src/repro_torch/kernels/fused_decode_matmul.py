@@ -1,10 +1,13 @@
 """Fused decode→dequant→matmul: the compressed serving hot path.
 
-Counterpart of ``repro/kernels/fused_decode_matmul.py::fused_decode_matmul``
-(the TPU Pallas kernel) for G = 1 tile-major planes.  The CUDA kernel is
-``csrc/fused_decode_matmul.cu`` (its header says what bounds it on the H100
-and how the design answers that); :func:`fused_decode_matmul_plain` is the
-plain PyTorch version the CPU runs and the card's kernel is held against.
+Counterpart of two TPU Pallas kernels of
+``repro/kernels/fused_decode_matmul.py``: K1 ``fused_decode_matmul`` (G = 1
+tile-major planes) and K3 ``grouped_fused_decode_matmul`` (the same product
+for every expert of a stacked MoE weight, in one launch).  Both run the CUDA
+kernel ``csrc/fused_decode_matmul.cu`` (its header says what bounds it on
+the H100 and how the design answers that); :func:`fused_decode_matmul_plain`
+and :func:`grouped_fused_decode_matmul_plain` are the plain PyTorch
+versions the CPU runs and the card's kernel is held against.
 
     y = s · (Σ_k x·q − z·Σ_k x),  q decoded from (codes, literals, lut)
 
@@ -21,11 +24,13 @@ import torch
 from ..core.blocked_codec import decode_blocked
 from . import _build
 
-NAME = "fused_decode_matmul"
+NAME = "fused_decode_matmul"                 # K1; also the CUDA source
+GROUPED_NAME = "grouped_fused_decode_matmul"  # K3
 MAX_TILE_N = 128          # the kernel's block width (csrc: kBN)
 MAX_TILE_K = 512          # bounds the tile held in shared memory
+MAX_GRID_Z = 65535        # experts × K splits share gridDim.z
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 13 + [_P]
 
 
 def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
@@ -73,10 +78,116 @@ def _split_count(blocks: int, steps: int, device) -> int:
     return -(-steps // per)
 
 
+def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
+                                      *, shape, tile_n: int, tile_k: int,
+                                      out_dtype=torch.float32
+                                      ) -> torch.Tensor:
+    """Plain version of K3: :func:`fused_decode_matmul_plain`'s strip scan
+    for every expert at once (the reference's oracle vmaps K1's strip scan
+    over the expert axis, ``repro.kernels.ref.grouped_fused_decode_matmul``).
+    x (E, M, K); planes (E, nb, slots) / (E, nb, cap, 4); scale/zero
+    (E, N, 1) → (E, M, N)."""
+    n, k = shape
+    e, m = x.shape[0], x.shape[1]
+    nnt, nkt = n // tile_n, k // tile_k
+    nb, slots = codes.shape[1], codes.shape[2]
+    bpt = nb // (nnt * nkt)
+    cap, s = literals.shape[2], literals.shape[3]
+    codes_s = codes.reshape(e, nnt, nkt, bpt, slots)
+    lits_s = literals.reshape(e, nnt, nkt, bpt, cap, s)
+    xf = x.to(torch.float32)
+    acc = torch.zeros((e, m, n), dtype=torch.float32, device=x.device)
+    for kt in range(nkt):
+        q = decode_blocked(codes_s[:, :, kt].reshape(-1, slots),
+                           lits_s[:, :, kt].reshape(-1, cap, s), lut)
+        q = q.reshape(e, n, tile_k).to(torch.float32)
+        acc = acc + torch.bmm(xf[:, :, kt * tile_k:(kt + 1) * tile_k],
+                              q.transpose(1, 2))
+    sumx = xf.sum(dim=2, keepdim=True)
+    y = scale.reshape(e, 1, n) * (acc - sumx * zero.reshape(e, 1, n))
+    return y.to(out_dtype)
+
+
+def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
+            tile_k, out_dtype):
+    """Check the operands and launch the kernel for E = x.shape[0] weights
+    of one shape: x (E, M, K), codes (E, nb, slots), literals
+    (E, nb, cap, 4), scale/zero E·N values → (E, M, N)."""
+    dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
+    n, k = shape
+    e, m = x.shape[0], x.shape[1]
+    if x.ndim != 3 or x.shape[2] != k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} against weight {shape}")
+    if not (0 < tile_n <= MAX_TILE_N and MAX_TILE_N % tile_n == 0
+            and 4 <= tile_k <= MAX_TILE_K and tile_k & (tile_k - 1) == 0
+            and n % tile_n == 0 and k % tile_k == 0):
+        raise ValueError(f"{name}: tile {(tile_n, tile_k)} of {shape} is "
+                         f"outside the kernel's range (tile_n | 128, "
+                         f"tile_k a power of two in [4, 512])")
+    if codes.ndim != 3 or codes.shape[0] != e:
+        raise ValueError(f"{name}: codes {tuple(codes.shape)} for {e} "
+                         "weight(s)")
+    nb, slots = codes.shape[1], codes.shape[2]
+    nnt, nkt = n // tile_n, k // tile_k
+    bpt = nb // (nnt * nkt)
+    if (codes.dtype != torch.int16 or literals.dtype != torch.uint8
+            or lut.dtype != torch.uint8 or scale.dtype != torch.float32
+            or zero.dtype != torch.float32):
+        raise TypeError(f"{name}: planes must be int16 codes, uint8 "
+                        "literals/lut and f32 scale/zero")
+    if (literals.ndim != 4 or literals.shape[:2] != (e, nb)
+            or literals.shape[3] != 4 or lut.ndim != 2 or lut.shape[1] != 4
+            or bpt * nnt * nkt != nb or bpt * slots * 4 != tile_n * tile_k
+            or scale.numel() != e * n or zero.numel() != e * n):
+        raise ValueError(f"{name}: planes codes {tuple(codes.shape)}, "
+                         f"literals {tuple(literals.shape)} do not tile "
+                         f"{shape} by {(tile_n, tile_k)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: out_dtype must be bf16 or f32")
+    for what, t in (("codes", codes), ("literals", literals), ("lut", lut),
+                    ("scale", scale), ("zero", zero)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if codes.data_ptr() % 16 or literals.data_ptr() % 4 \
+            or lut.data_ptr() % 4:
+        raise ValueError(f"{name}: codes (read 16 bytes at a time), "
+                         "literals and lut (read as uint32) must start on "
+                         "a 16-, 4- and 4-byte boundary")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:      # the tensor-core path loads x 16 B at a time
+        xb = xb.clone()
+    out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
+    if m == 0 or e == 0:
+        return out
+    bm = block_rows(m, tile_k)
+    blocks = e * -(-n // MAX_TILE_N) * -(-m // bm)
+    splits = _split_count(blocks, nkt, dev)
+    if e * splits > MAX_GRID_Z:
+        raise ValueError(f"{name}: {e} weights × {splits} K splits exceed "
+                         f"the grid's z extent {MAX_GRID_Z}")
+    part = sx = None
+    if splits > 1:
+        part = torch.empty(e * splits * m * n, dtype=torch.float32,
+                           device=dev)
+        sx = torch.empty(e * splits * m, dtype=torch.float32, device=dev)
+    fn = _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
+    err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
+             lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+             out.data_ptr(), part.data_ptr() if part is not None else None,
+             sx.data_ptr() if sx is not None else None,
+             int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
+             slots, literals.shape[2], bpt, splits, bm, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    _build.LAUNCH_COUNTS[name] += 1
+    return out
+
+
 def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
                         tile_n: int, tile_k: int,
                         out_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ dequant(decode(codes, literals)).T without a dense weight.
+    """K1: y = x @ dequant(decode(codes, literals)).T without a dense
+    weight.
 
     x: (M, K) float; codes int16 (uint16 bits) (nb, slots), literals uint8
     (nb, cap, 4), lut uint8 (n_codes + 1, 4): tile-major planes of the
@@ -89,64 +200,32 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
             tile_n=tile_n, tile_k=tile_k, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {x.device}")
-    dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
-    n, k = shape
-    m = x.shape[0]
-    if x.ndim != 2 or x.shape[1] != k:
-        raise ValueError(f"{NAME}: x {tuple(x.shape)} against weight {shape}")
-    if not (0 < tile_n <= MAX_TILE_N and MAX_TILE_N % tile_n == 0
-            and 4 <= tile_k <= MAX_TILE_K and tile_k & (tile_k - 1) == 0
-            and n % tile_n == 0 and k % tile_k == 0):
-        raise ValueError(f"{NAME}: tile {(tile_n, tile_k)} of {shape} is "
-                         f"outside the kernel's range (tile_n | 128, "
-                         f"tile_k a power of two in [4, 512])")
-    nb, slots = codes.shape
-    nnt, nkt = n // tile_n, k // tile_k
-    bpt = nb // (nnt * nkt)
-    if (codes.dtype != torch.int16 or literals.dtype != torch.uint8
-            or lut.dtype != torch.uint8 or scale.dtype != torch.float32
-            or zero.dtype != torch.float32):
-        raise TypeError(f"{NAME}: planes must be int16 codes, uint8 "
-                        "literals/lut and f32 scale/zero")
-    if (literals.ndim != 3 or literals.shape[0] != nb
-            or literals.shape[2] != 4 or lut.ndim != 2 or lut.shape[1] != 4
-            or bpt * nnt * nkt != nb or bpt * slots * 4 != tile_n * tile_k
-            or scale.numel() != n or zero.numel() != n):
-        raise ValueError(f"{NAME}: planes codes {tuple(codes.shape)}, "
-                         f"literals {tuple(literals.shape)} do not tile "
-                         f"{shape} by {(tile_n, tile_k)}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{NAME}: out_dtype must be bf16 or f32")
-    for name, t in (("codes", codes), ("literals", literals), ("lut", lut),
-                    ("scale", scale), ("zero", zero)):
-        if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
-    if codes.data_ptr() % 16 or literals.data_ptr() % 4 \
-            or lut.data_ptr() % 4:
-        raise ValueError(f"{NAME}: codes (read 16 bytes at a time), "
-                         "literals and lut (read as uint32) must start on "
-                         "a 16-, 4- and 4-byte boundary")
-    xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:      # the tensor-core path loads x 16 B at a time
-        xb = xb.clone()
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    if m == 0:
-        return out
-    bm = block_rows(m, tile_k)
-    blocks = -(-n // MAX_TILE_N) * -(-m // bm)
-    splits = _split_count(blocks, nkt, dev)
-    part = sx = None
-    if splits > 1:
-        part = torch.empty(splits * m * n, dtype=torch.float32, device=dev)
-        sx = torch.empty(splits * m, dtype=torch.float32, device=dev)
-    fn = _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
-    err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
-             lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-             out.data_ptr(), part.data_ptr() if part is not None else None,
-             sx.data_ptr() if sx is not None else None,
-             int(out_dtype == torch.bfloat16), m, n, k, tile_n, tile_k,
-             slots, literals.shape[1], bpt, splits, bm, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, NAME)
-    _build.LAUNCH_COUNTS[NAME] += 1
-    return out
+    if x.ndim != 2 or codes.ndim != 2 or literals.ndim != 3:
+        raise ValueError(f"{NAME}: x {tuple(x.shape)}, codes "
+                         f"{tuple(codes.shape)}: one weight's 2-D planes "
+                         "and a 2-D x")
+    return _launch(NAME, x[None], codes[None], literals[None], lut, scale,
+                   zero, shape=shape, tile_n=tile_n, tile_k=tile_k,
+                   out_dtype=out_dtype)[0]
+
+
+def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
+                                shape, tile_n: int, tile_k: int,
+                                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K3: y[e] = x[e] @ dequant(decode(codes[e], literals[e])).T for every
+    expert of a stacked weight, in one launch.
+
+    x: (E, M, K) float (the capacity-gathered token blocks); codes int16
+    (E, nb, slots), literals uint8 (E, nb, cap, 4) with one literal
+    capacity for the stack, lut shared; scale/zero (E, N, 1) f32.
+    → (E, M, N).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if x.device.type == "cpu":
+        return grouped_fused_decode_matmul_plain(
+            x, codes, literals, lut, scale, zero, shape=shape,
+            tile_n=tile_n, tile_k=tile_k, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"{GROUPED_NAME}: no kernel for device {x.device}")
+    return _launch(GROUPED_NAME, x, codes, literals, lut, scale, zero,
+                   shape=shape, tile_n=tile_n, tile_k=tile_k,
+                   out_dtype=out_dtype)

@@ -15,8 +15,10 @@ import collections
 import torch
 
 from .dequant_matmul import dequant_matmul as _dequant_matmul
+from .dict_decode import dict_decode as _dict_decode
 from .flash_attention import flash_attention as _flash_attention
 from .fused_decode_matmul import fused_decode_matmul as _fused
+from .fused_decode_matmul import grouped_fused_decode_matmul as _grouped
 
 DISPATCH_COUNTS = collections.Counter()
 
@@ -50,7 +52,50 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
     return y.reshape(*lead, n)
 
 
+def dict_decode(codes, literals, nlit, lut):
+    """(nb, slots) codes → (nb, slots·S) uint8.  ``nlit`` is carried for
+    the reference's signature; the kernel masks a ragged block count, so
+    nothing is padded."""
+    del nlit
+    return _dict_decode(codes, literals, lut)
+
+
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):
-    """(B, Hq, Tq, D) × (B, Hkv, Tk, D) → (B, Hq, Tq, D)."""
+    """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
+    (B, Hq, Tq, Dv)."""
     return _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
                             q_offset=q_offset)
+
+
+def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16):
+    """Grouped expert fused matmul over a stacked tile-major PackedLinear
+    (leading expert axis on every plane): xe (E, cap, K) → (E, cap, N), one
+    launch of the grouped kernel.  No probe: callers count."""
+    if not packed.tile_n or packed.codes.ndim != 3:
+        raise ValueError("grouped_fused_local takes a stacked tile-major "
+                         f"PackedLinear, got codes {tuple(packed.codes.shape)}"
+                         f" tile_n {packed.tile_n}")
+    return _grouped(xe, packed.codes, packed.literals, lut, packed.scale,
+                    packed.zero, shape=tuple(packed.shape),
+                    tile_n=packed.tile_n, tile_k=packed.tile_k,
+                    out_dtype=out_dtype)
+
+
+def grouped_decode_dequant_matmul(xe, packed, lut, *,
+                                  out_dtype=torch.bfloat16):
+    """Per-expert compressed matmul y[e] = x[e] @ W[e].T — the MoE hot
+    path.  ``packed``: a stacked PackedLinear (codes (E, nb, slots), scale
+    (E, N, 1), …); ``xe`` the capacity-gathered token blocks (E, cap, K).
+    Tile-major stacks run the grouped fused kernel (probe
+    'grouped_fused'); linear-layout stacks raise, as 2-D ones do."""
+    if lut is None or packed.codes.ndim != 3:
+        raise ValueError("grouped_decode_dequant_matmul takes a stacked "
+                         "PackedLinear and its LUT, got codes "
+                         f"{tuple(packed.codes.shape)}")
+    if not packed.tile_n:
+        raise NotImplementedError(
+            "linear-layout expert stacks (tile_n == 0) need the two-step "
+            "decode path, which is not ported; pack with a tile-major "
+            "layout")
+    DISPATCH_COUNTS["grouped_fused"] += 1
+    return grouped_fused_local(xe, packed, lut, out_dtype=out_dtype)

@@ -1,11 +1,12 @@
 """Model primitives — functional layers over plain parameter dicts.
 
-Counterpart of ``repro/models/layers.py`` for the dense Llama family.
-Activations keep the reference's (B, T, H, hd) layout and weights its
-(out, in) layout.  A linear weight is a dense tensor, a ``QuantLinear`` or
-a ``PackedLinear``; ``linear`` routes the last two to the hand-written
-kernels through ``kernels.ops`` (CUDA tensors) or their plain versions
-(CPU tensors).
+Counterpart of ``repro/models/layers.py`` for the dense Llama family and
+DeepSeek-V2's MLA attention and MoE (global dispatch).  Activations keep the
+reference's (B, T, H, hd) layout and weights its (out, in) layout.  A linear
+weight is a dense tensor, a ``QuantLinear`` or a ``PackedLinear``;
+``linear`` routes the last two to the hand-written kernels through
+``kernels.ops`` (CUDA tensors) or their plain versions (CPU tensors), and a
+stacked expert ``PackedLinear`` runs the grouped kernel.
 
 Unlike the reference, the KV cache is updated in place (``_kv_write``):
 the cache is the largest activation buffer and a functional copy per token
@@ -43,10 +44,27 @@ def linear(x: torch.Tensor, w, lut=None, bias=None) -> torch.Tensor:
     return y
 
 
-# Materialization probe: how often a PackedLinear was decoded to a dense
-# tensor ('packed').  The compressed serving path keeps it at zero; tests
-# and chip_smoke.py assert on it.
+# Materialization probe: how often a weight container was decoded to a
+# dense tensor, by kind: 'packed' (one weight), 'packed_stacked' (a stacked
+# expert weight — the grouped kernel keeps these at zero), 'quant'.  MLA's
+# absorb decodes wkv_b ('packed') at every call, as the reference does;
+# tests and chip_smoke.py assert on the counts.
 MATERIALIZE_COUNTS = collections.Counter()
+
+
+def materialize_weight(w, lut=None, dtype=None):
+    """Dense view of any weight container (the MLA absorb, dense or
+    int8 expert stacks).  ``dtype=None`` decodes containers to bf16 and
+    leaves dense weights as they are.  A CUDA ``PackedLinear`` decodes
+    with the dict-decode kernel."""
+    if isinstance(w, PackedLinear):
+        kind = "packed_stacked" if w.codes.ndim > 2 else "packed"
+        MATERIALIZE_COUNTS[kind] += 1
+        return w.materialize(lut, torch.bfloat16 if dtype is None else dtype)
+    if isinstance(w, QuantLinear):
+        MATERIALIZE_COUNTS["quant"] += 1
+        return w.materialize(torch.bfloat16 if dtype is None else dtype)
+    return w if dtype is None else w.to(dtype)
 
 
 def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
@@ -219,6 +237,137 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
 
 
 # ---------------------------------------------------------------------------
+# MLA — DeepSeek latent attention (compressed KV cache).
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg, gen: torch.Generator, device,
+             dtype=torch.float32) -> Params:
+    d = cfg.d_model
+    nq = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    s = 1.0 / math.sqrt(d)
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = _normal((cfg.q_lora_rank, d), gen, device, dtype, s)
+        p["q_a_norm"] = torch.ones(cfg.q_lora_rank, dtype=dtype,
+                                   device=device)
+        p["wq_b"] = _normal((nq * (dn + dr), cfg.q_lora_rank), gen, device,
+                            dtype, 1.0 / math.sqrt(cfg.q_lora_rank))
+    else:
+        p["wq"] = _normal((nq * (dn + dr), d), gen, device, dtype, s)
+    p["wkv_a"] = _normal((r + dr, d), gen, device, dtype, s)
+    p["kv_a_norm"] = torch.ones(r, dtype=dtype, device=device)
+    p["wkv_b"] = _normal((nq * (dn + dv), r), gen, device, dtype,
+                         1.0 / math.sqrt(r))
+    p["wo"] = _normal((d, nq * dv), gen, device, dtype,
+                      1.0 / math.sqrt(nq * dv))
+    return p
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device="cpu") -> Params:
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                             dtype=dtype, device=device),
+    }
+
+
+def _mla_q(p, x, cfg, lut):
+    b, t, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        qa = rms_norm(linear(x, p["wq_a"], lut), p["q_a_norm"], cfg.norm_eps)
+        q = linear(qa, p["wq_b"], lut)
+    else:
+        q = linear(x, p["wq"], lut)
+    q = q.reshape(b, t, cfg.n_heads, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
+              cache: Optional[Params] = None, pos: int | None = None,
+              rope=None):
+    """MLA attention; returns (y, cache).  Without a cache, or at a
+    prefill (T > 1), per-head K/V are built from the latents and attention
+    runs the flash kernel (q/k head dim qk_nope + qk_rope, v head dim
+    v_head_dim); a decode step (T = 1) runs the *absorbed* form over the
+    cached latents in f32 plain torch, as the reference does in plain jnp.
+    The cache is updated in place.  ``rope``: the (cos, sin) tables of
+    these positions at qk_rope_head_dim, when the caller shares them."""
+    b, t, _ = x.shape
+    nq = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    pos0 = 0 if pos is None else int(pos)
+
+    q_nope, q_rope = _mla_q(p, x, cfg, lut)
+    if rope is None:
+        rope = rope_tables(pos0 + torch.arange(t, device=x.device), dr,
+                           cfg.rope_theta)
+    cos, sin = rope
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    kv_a = linear(x, p["wkv_a"], lut)                       # (b, t, r + dr)
+    ckv = rms_norm(kv_a[..., :r], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., r:].reshape(b, t, 1, dr), cos, sin
+                        ).reshape(b, t, dr)
+
+    wkv_b = materialize_weight(p["wkv_b"], lut, x.dtype
+                               ).reshape(nq, dn + dv, r)
+    w_k, w_v = wkv_b[:, :dn], wkv_b[:, dn:]                 # (nq, dn|dv, r)
+
+    def attend_latents(kv, kr, flash):
+        """Per-head K/V of latents kv (b, L, r) and rope keys kr (b, L, dr),
+        then ``flash(q_full, k_full, v)``; → (b, t, nq·dv) in x's dtype."""
+        lmax = kv.shape[1]
+        k_nope = torch.einsum("blr,hdr->blhd", kv.to(x.dtype), w_k)
+        v = torch.einsum("blr,hdr->blhd", kv.to(x.dtype), w_v)
+        k_full = torch.cat([k_nope, kr[:, :, None].to(x.dtype).expand(
+            b, lmax, nq, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        # the flash kernel's default scale 1/sqrt(dn + dr) is MLA's
+        return flash(q_full, k_full, v).to(x.dtype).reshape(b, t, nq * dv)
+
+    if cache is None:
+        o = attend_latents(ckv, k_rope,
+                           lambda q, k, v: _attend_full(q, k, v, True))
+        return linear(o, p["wo"], lut), None
+
+    cckv = _kv_write(cache["ckv"], ckv.to(cache["ckv"].dtype), pos0)
+    ckrope = _kv_write(cache["krope"], k_rope.to(cache["krope"].dtype), pos0)
+    new_cache = {"ckv": cckv, "krope": ckrope}
+    if t > 1:
+        if t == cckv.shape[1]:
+            # full prefill: the fresh latents are the cache's whole content
+            o = attend_latents(ckv, k_rope,
+                               lambda q, k, v: _attend_full(q, k, v, True))
+        else:  # chunked prefill: flash over the cache
+            o = attend_latents(cckv, ckrope, lambda q, k, v:
+                               _attend_cache_flash(q, k, v, pos0))
+        return linear(o, p["wo"], lut), new_cache
+
+    # Decode (absorbed): score = (q_nope·W_k)·ckv + q_rope·krope.
+    f32 = torch.float32
+    qc = torch.einsum("bthd,hdr->bthr", q_nope.to(f32), w_k.to(f32))
+    s_nope = torch.einsum("bthr,blr->bthl", qc, cckv.to(f32))
+    s_rope = torch.einsum("bthd,bld->bthl", q_rope.to(f32), ckrope.to(f32))
+    logits = (s_nope + s_rope) / math.sqrt(dn + dr)
+    lmax = cckv.shape[1]
+    kpos = torch.arange(lmax, device=x.device)
+    qpos = pos0 + torch.arange(t, device=x.device)
+    mask = kpos[None, :] <= qpos[:, None]                   # (t, L)
+    logits = torch.where(mask[None, :, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    attn = torch.softmax(logits, dim=-1)
+    o_lat = torch.einsum("bthl,blr->bthr", attn, cckv.to(f32))
+    o = torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32)).to(x.dtype)
+    return linear(o.reshape(b, t, nq * dv), p["wo"], lut), new_cache
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP.
 # ---------------------------------------------------------------------------
 
@@ -231,12 +380,126 @@ def init_mlp(d: int, ff: int, gen: torch.Generator, device,
     }
 
 
+def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """silu(g)·u op by op in g's dtype, as the reference's XLA program
+    computes it (logistic = 1 / (1 + exp(−g)), each op rounded to bf16 in
+    the quantized modes); a fused F.silu rounds differently and moves bf16
+    activations by an ulp."""
+    sig = 1.0 / (1.0 + torch.exp(-g))
+    return g * sig * u
+
+
 def apply_mlp(p: Params, x: torch.Tensor, *, lut=None) -> torch.Tensor:
     g = linear(x, p["w_gate"], lut)
     u = linear(x, p["w_up"], lut)
-    # silu(g)·u op by op in g's dtype, as the reference's XLA program
-    # computes it (logistic = 1 / (1 + exp(−g)), each op rounded to bf16 in
-    # the quantized modes); a fused F.silu rounds differently and moves
-    # bf16 activations by an ulp.
-    sig = 1.0 / (1.0 + torch.exp(-g))
-    return linear(g * sig * u, p["w_down"], lut)
+    return linear(_silu_mul(g, u), p["w_down"], lut)
+
+
+def init_moe(cfg, gen: torch.Generator, device,
+             dtype=torch.float32) -> Params:
+    d, e, ffe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {
+        "router": _normal((e, d), gen, device, dtype, 1.0 / math.sqrt(d)),
+        "experts": {
+            "w_gate": _normal((e, ffe, d), gen, device, dtype,
+                              1.0 / math.sqrt(d)),
+            "w_up": _normal((e, ffe, d), gen, device, dtype,
+                            1.0 / math.sqrt(d)),
+            "w_down": _normal((e, d, ffe), gen, device, dtype,
+                              1.0 / math.sqrt(ffe)),
+        },
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(d, ffe * cfg.n_shared_experts, gen, device,
+                               dtype)
+    return p
+
+
+def _capacity(n_tokens: int, top_k: int, n_experts: int,
+              factor: float) -> int:
+    c = int(math.ceil(n_tokens * top_k / n_experts * factor))
+    return max(4, min(c, n_tokens))
+
+
+def _grouped_fused_ok(w, lut) -> bool:
+    """True when an expert stack can take the grouped fused kernel: a
+    stacked tile-major PackedLinear with a decode LUT in hand."""
+    return (isinstance(w, PackedLinear) and w.tile_n > 0
+            and w.codes.ndim == 3 and lut is not None)
+
+
+def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
+    """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
+    compressed stack runs the grouped fused kernel (three launches, dense
+    expert weights never exist); dense and int8 stacks are materialized
+    and multiplied, as in the reference."""
+    def mm(h, w):
+        if isinstance(w, PackedLinear) and w.codes.ndim == 3 \
+                and lut is not None:
+            return ops.grouped_decode_dequant_matmul(h, w, lut,
+                                                     out_dtype=h.dtype)
+        return torch.einsum("ecx,eyx->ecy", h,
+                            materialize_weight(w, lut, h.dtype))
+
+    g = mm(xe, experts["w_gate"])
+    u = mm(xe, experts["w_up"])
+    return mm(_silu_mul(g, u), experts["w_down"])
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
+              with_routing: bool = False):
+    """Capacity-based top-k MoE with global dispatch; returns (y, aux) or,
+    with ``with_routing``, (y, aux, expert_ids (n_tok, k)).
+
+    Routing follows the reference: softmax over the router logits (the
+    router runs in x's dtype, as ``linear`` casts it), top-k with the lower
+    expert first on ties (a stable descending sort, as ``lax.top_k``),
+    gates renormalized, capacity slots in token-major order with slots ≥
+    cap dropped.  The combine adds each token's gated expert outputs in
+    ascending expert order in x's dtype, as the reference's scatter-add
+    does; it is a fixed-order gather and add, never an atomic scatter."""
+    b, t, d = x.shape
+    n_tok = b * t
+    e, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(n_tok, d)
+
+    router_logits = linear(xf, p["router"], lut).to(torch.float32)
+    probs = torch.softmax(router_logits, dim=-1)
+    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_ids = srt[:, :k], order[:, :k]        # (n_tok, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    # Load-balance aux loss (Switch-style): e · Σ_e f_e · P_e.
+    onehot = torch.nn.functional.one_hot(expert_ids, e)     # (n, k, e)
+    f = onehot.to(torch.float32).sum(dim=1).mean(dim=0)
+    aux = e * torch.sum(f * probs.mean(dim=0))
+
+    cap = _capacity(n_tok, k, e, cfg.capacity_factor)
+    # Position of each (token, slot) in its expert's queue, token-major.
+    flat_e = expert_ids.reshape(-1)                         # (n·k,)
+    oh = onehot.reshape(n_tok * k, e)
+    slot = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
+    keep = slot < cap
+    tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
+    table = torch.full((e, cap), n_tok, dtype=torch.long, device=x.device)
+    table[flat_e[keep], slot[keep]] = tok_idx[keep]         # n_tok: zero row
+    gtable = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
+    gtable[flat_e[keep], slot[keep]] = gate_vals.reshape(-1)[keep]
+
+    xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    ye = _expert_ffn(p["experts"], xpad[table], lut)        # (e, cap, d)
+    contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
+    contrib = torch.cat([contrib.reshape(e * cap, d),
+                         contrib.new_zeros((1, d))], dim=0)  # last: dropped
+    where = torch.where(keep, flat_e * cap + slot, e * cap).reshape(n_tok, k)
+    where = where.gather(1, torch.argsort(expert_ids, dim=1))  # by expert
+    y = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + contrib[where[:, j]]
+
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], xf, lut=lut)
+    y = y.reshape(b, t, d)
+    if with_routing:
+        return y, aux, expert_ids
+    return y, aux

@@ -1,9 +1,12 @@
-"""Decoder-only LM assembly — the dense (Llama) family.
+"""Decoder-only LM assembly — the dense (Llama) and MoE (DeepSeek-V2)
+families.
 
 Counterpart of ``repro/models/lm.py`` (``init_lm``, ``forward``,
-``init_caches`` for ``family='dense'``).  The reference stacks layers on a
-leading axis and runs them under ``lax.scan``; here ``params["blocks"]`` is
-a list of per-layer dicts and a Python loop runs them.
+``init_caches`` for ``family`` 'dense' and 'moe').  The reference stacks
+layers on a leading axis and runs them under ``lax.scan``; here
+``params["blocks"]`` is a list of per-layer dicts and a Python loop runs
+them.  An MoE model's first ``first_dense_layers`` layers (attention + a
+dense MLP) are the list ``params["first_blocks"]``, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,10 +20,19 @@ from . import layers as L
 Params = Any
 
 
+FAMILIES = ("dense", "moe")
+
+
 def _check_family(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported; "
-                                  "only 'dense' (Llama) is")
+                                  f"only {FAMILIES} are")
+
+
+def _init_attn(cfg, gen, device, dtype):
+    if cfg.mla:
+        return L.init_mla(cfg, gen, device, dtype)
+    return L.init_attention(cfg, gen, device, dtype)
 
 
 def init_lm(cfg, *, seed: int = 0, device=None,
@@ -39,12 +51,29 @@ def init_lm(cfg, *, seed: int = 0, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal((v, d), gen, device, dtype, 0.02)
+    if cfg.family == "dense":
+        params["blocks"] = [{
+            "attn_norm": torch.ones(d, dtype=dtype, device=device),
+            "attn": L.init_attention(cfg, gen, device, dtype),
+            "mlp_norm": torch.ones(d, dtype=dtype, device=device),
+            "mlp": L.init_mlp(d, cfg.d_ff, gen, device, dtype),
+        } for _ in range(cfg.n_layers)]
+        return params
+    nd = cfg.first_dense_layers
+    ff = cfg.d_ff or cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts)
+    if nd:
+        params["first_blocks"] = [{
+            "attn_norm": torch.ones(d, dtype=dtype, device=device),
+            "attn": _init_attn(cfg, gen, device, dtype),
+            "mlp_norm": torch.ones(d, dtype=dtype, device=device),
+            "mlp": L.init_mlp(d, ff, gen, device, dtype),
+        } for _ in range(nd)]
     params["blocks"] = [{
         "attn_norm": torch.ones(d, dtype=dtype, device=device),
-        "attn": L.init_attention(cfg, gen, device, dtype),
+        "attn": _init_attn(cfg, gen, device, dtype),
         "mlp_norm": torch.ones(d, dtype=dtype, device=device),
-        "mlp": L.init_mlp(d, cfg.d_ff, gen, device, dtype),
-    } for _ in range(cfg.n_layers)]
+        "moe": L.init_moe(cfg, gen, device, dtype),
+    } for _ in range(nd, cfg.n_layers)]
     return params
 
 
@@ -63,42 +92,95 @@ def _dense_block(bp, x, cfg, lut, cache, pos, rope):
     return x, new_cache
 
 
+def _moe_block(bp, x, cfg, lut, cache, pos, rope):
+    """An MoE-family layer (MLA or GQA attention, then the MoE or, in the
+    first layers, a dense MLP).  Returns (x, cache, aux, expert_ids or
+    None)."""
+    h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
+    attn = L.apply_mla if cfg.mla else L.apply_attention
+    a, new_cache = attn(bp["attn"], h, cfg, lut=lut, cache=cache, pos=pos,
+                        rope=rope)
+    x = x + a
+    h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
+    if "moe" in bp:
+        y, aux, ids = L.apply_moe(bp["moe"], h, cfg, lut=lut,
+                                  with_routing=True)
+        return x + y, new_cache, aux, ids
+    return x + L.apply_mlp(bp["mlp"], h, lut=lut), new_cache, 0.0, None
+
+
 def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
             pos: Optional[int] = None, lut=None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, return_routing: bool = False):
     """tokens (B, T) int → (logits, caches, aux_loss).
 
     ``return_hidden=True`` skips the LM head and returns the final normed
-    hidden states.  Caches are updated in place and returned."""
+    hidden states.  ``return_routing=True`` (MoE family) appends the top-k
+    expert ids of the MoE layers, (L_moe, B·T, k).  Caches are updated in
+    place and returned."""
     _check_family(cfg)
+    if return_routing and cfg.family != "moe":
+        raise ValueError(f"return_routing needs family 'moe', got "
+                         f"{cfg.family!r}")
     x = L.embed(params["embed"], tokens, lut)
     pos0 = 0 if pos is None else int(pos)
     rope = L.rope_tables(pos0 + torch.arange(tokens.shape[1],
                                              device=x.device),
-                         cfg.resolved_head_dim, cfg.rope_theta)
-    blk_caches = (caches or {}).get("blocks")
+                         cfg.qk_rope_head_dim if cfg.mla
+                         else cfg.resolved_head_dim, cfg.rope_theta)
+    caches = caches or {}
+    out_caches: dict = {}
+    aux = 0.0
+    routing = []
+    if "first_blocks" in params:
+        fb_caches = caches.get("first")
+        ncs = []
+        for i, bp in enumerate(params["first_blocks"]):
+            cache = fb_caches[i] if fb_caches is not None else None
+            x, nc, _, _ = _moe_block(bp, x, cfg, lut, cache, pos, rope)
+            ncs.append(nc)
+        out_caches["first"] = ncs if fb_caches is not None else None
+    blk_caches = caches.get("blocks")
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
         cache = blk_caches[i] if blk_caches is not None else None
-        x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
+        if cfg.family == "dense":
+            x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
+        else:
+            x, nc, a, ids = _moe_block(bp, x, cfg, lut, cache, pos, rope)
+            aux = aux + a
+            routing.append(ids)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out_caches = {"blocks": new_caches if blk_caches is not None else None}
+    out_caches["blocks"] = new_caches if blk_caches is not None else None
+    extra = (torch.stack(routing),) if return_routing else ()
     if return_hidden:
-        return x, out_caches, 0.0
+        return (x, out_caches, aux) + extra
     head = params.get("lm_head", params["embed"])
     logits = L.linear(x, head, lut)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c
-    return logits, out_caches, 0.0
+    return (logits, out_caches, aux) + extra
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                 device=None) -> Params:
     """Per-layer KV caches for serving, on ``device`` (the card unless the
-    caller passes another)."""
+    caller passes another).  MLA layers cache the latents; an MoE model's
+    first dense layers have theirs under ``"first"``."""
     _check_family(cfg)
     device = resolve_device(device)
-    return {"blocks": [L.init_kv_cache(cfg, batch, max_len, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+
+    def one():
+        if cfg.mla:
+            return L.init_mla_cache(cfg, batch, max_len, dtype, device)
+        return L.init_kv_cache(cfg, batch, max_len, dtype, device)
+
+    if cfg.family == "dense":
+        return {"blocks": [one() for _ in range(cfg.n_layers)]}
+    nd = cfg.first_dense_layers
+    out = {"blocks": [one() for _ in range(cfg.n_layers - nd)]}
+    if nd:
+        out["first"] = [one() for _ in range(nd)]
+    return out

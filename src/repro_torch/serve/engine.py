@@ -3,13 +3,17 @@
 Counterpart of ``repro/serve/engine.py`` for one device:
   1. ``build_serve_params``: quantize every policy-selected weight to int8
      per channel, build ONE model-wide dictionary over the quantized byte
-     streams, and encode each tensor in the tile-major blocked layout.
-     It runs on the card by default (quantization, counting and encoding
-     are tensor ops on the weights' device).
+     streams, and encode each tensor in the tile-major blocked layout; a
+     stacked expert leaf (E, N, K) is quantized and encoded expert by
+     expert into one stacked container.  It runs on the card by default
+     (quantization, counting and encoding are tensor ops on the weights'
+     device).
   2. ``generate``: one prefill, then a greedy (or sampled) decode loop in
      Python.  Every compressed projection runs the fused
-     decode→dequant→matmul kernel, the tied LM head the dequant-matmul
-     kernel, and prefill attention the flash-attention kernel.
+     decode→dequant→matmul kernel, every compressed expert stack the
+     grouped one, an int8 LM head the dequant-matmul kernel, prefill
+     attention the flash-attention kernel, and MLA's absorbed wkv_b the
+     dict-decode kernel.
 
 Not ported yet: ``TiledPackedLinear`` column tiles, ``model_shards``, the
 integrity manifest, the resilience rungs and the continuous-batching
@@ -26,7 +30,8 @@ from .._device import resolve_device
 from ..core.blocked_codec import (TableIndex, build_lut, choose_fused_tiles,
                                   encode_blocked, encode_blocked_tiled)
 from ..core.codec import find_frequent_sequences
-from ..core.compressed import PackedLinear, pad_literals, quantize_linear
+from ..core.compressed import (PackedLinear, QuantLinear, stack_packed,
+                               quantize_linear)
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
 from ..models import layers as L
@@ -60,20 +65,25 @@ def _map_leaves(node, fn):
 def _leaf_groups(params) -> list:
     """[(name, [(holder, key), ...]), ...] in the reference's flatten order.
 
-    The reference stacks the layers, so each per-layer leaf (e.g.
-    ``['blocks']['attn']['wq']``) is one stacked leaf whose layers are
-    quantized, counted and encoded in layer order, and dict keys flatten
-    sorted.  The table's code order depends on that stream order, so the
-    port walks its per-layer lists the same way: a group holds one leaf
-    position across all layers."""
+    The reference stacks the layers of ``params["blocks"]``, so each
+    per-layer leaf (e.g. ``['blocks']['attn']['wq']``) is one stacked leaf
+    whose layers are quantized, counted and encoded in layer order, and
+    dict keys flatten sorted.  The table's code order depends on that
+    stream order, so the port walks its per-layer list the same way: a
+    group holds one leaf position across all layers.  Any other list (an
+    MoE model's ``first_blocks``) is a list in the reference too: each
+    element is a tree of its own."""
     groups = []
 
     def visit(node, prefix, holders):
         for key in sorted(node):
             name = f"{prefix}['{key}']"
             child = node[key]
-            if isinstance(child, list):           # per-layer blocks
+            if isinstance(child, list) and key == "blocks":  # stacked layers
                 visit(child[0], name, child)
+            elif isinstance(child, list):
+                for i, sub in enumerate(child):
+                    visit(sub, f"{name}[{i}]", [sub])
             elif isinstance(child, dict):
                 visit(child, name, [h[key] for h in holders])
             else:
@@ -81,6 +91,17 @@ def _leaf_groups(params) -> list:
 
     visit(params, "", [params])
     return groups
+
+
+def _unstack_if_one(dense, container):
+    """A container built with a leading stack axis, without it when the
+    dense leaf was one 2-D weight."""
+    if dense.ndim > 2:
+        return container
+    return dataclasses.replace(container, **{
+        f.name: getattr(container, f.name)[0]
+        for f in dataclasses.fields(container)
+        if isinstance(getattr(container, f.name), torch.Tensor)})
 
 
 def _copy_tree(node):
@@ -98,27 +119,37 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                        device=None) -> ServeState:
     """Dense → quant/compressed per policy, on ``device`` (the card unless
     the caller passes another).  Planes, table and LUT are byte-equal to
-    the reference's ``build_serve_params`` for the same weights."""
+    the reference's ``build_serve_params`` for the same weights.
+
+    A leaf with a leading expert axis, (E, N, K), is quantized per expert
+    and encoded expert by expert; its streams join the dictionary in the
+    reference's layer-major, expert-minor order, and one literal capacity
+    covers every layer's and expert's planes of that leaf."""
     device = resolve_device(device)
     qcfg = qcfg or QuantConfig(bits=policy.bits, granularity="per_channel")
     bw = block_weights or policy.block_weights
     out = _copy_tree(params)
     groups = _leaf_groups(out)
 
-    # Pass 1: decide actions; quantize selected tensors; gather streams.
+    # Pass 1: decide actions; quantize selected tensors (each expert of a
+    # stacked leaf on its own); gather streams.
     actions, quantized, streams = [], {}, []
     for gi, (name, holders) in enumerate(groups):
         leaf = holders[0][0][holders[0][1]]
         if leaf.ndim < 2:
             actions.append("dense")
             continue
-        act = policy.action(name, tuple(leaf.shape))
+        act = policy.action(name, tuple(leaf.shape[-2:]))
         actions.append(act)
         if act in ("quant", "compressed"):
-            qls = [quantize_linear(h[k].to(device), qcfg) for h, k in holders]
-            quantized[gi] = qls
+            per_layer = []
+            for h, k in holders:
+                w = h[k].to(device)
+                subs = w.reshape((-1,) + tuple(w.shape[-2:]))
+                per_layer.append([quantize_linear(sub, qcfg) for sub in subs])
+            quantized[gi] = per_layer
             if act == "compressed":
-                streams.extend(q.values for q in qls)
+                streams.extend(q.values for qls in per_layer for q in qls)
 
     # Pass 2: one model-wide dictionary (paper: single table per model).
     if table is None and streams:
@@ -135,30 +166,33 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                 h[k] = h[k].to(device)
                 n_bytes["dense"] += h[k].numel() * h[k].element_size()
             continue
-        qls = quantized[gi]
+        per_layer = quantized[gi]
         if act == "quant":
-            for (h, k), q in zip(holders, qls):
-                h[k] = q
+            for (h, k), qls in zip(holders, per_layer):
+                h[k] = q = _unstack_if_one(h[k], QuantLinear(
+                    torch.stack([q.values for q in qls]),
+                    torch.stack([q.scale for q in qls]),
+                    torch.stack([q.zero for q in qls])))
                 n_bytes["quant"] += q.nbytes
             continue
-        shape = tuple(qls[0].values.shape)
+        shape = tuple(per_layer[0][0].values.shape)
         tiles = choose_fused_tiles(shape, bw)
-        if tiles:
-            tn, tk = tiles[:2]
-            bcs = [encode_blocked_tiled(q.values, index, tile_n=tn,
-                                        tile_k=tk, block_weights=bw)
-                   for q in qls]
-        else:
-            tn, tk = 0, 0
-            bcs = [encode_blocked(q.values, index, block_weights=bw)
-                   for q in qls]
-        cap = max(bc.literals.shape[1] for bc in bcs)
-        for (h, k), q, bc in zip(holders, qls, bcs):
-            pl = PackedLinear(bc.codes, pad_literals(bc.literals, cap),
-                              bc.nlit, q.scale, q.zero, shape=shape,
-                              tile_n=tn, tile_k=tk)
-            h[k] = pl
-            n_bytes["compressed"] += pl.payload_nbytes + 8 * shape[0]
+        tn, tk = tiles[:2] if tiles else (0, 0)
+
+        def encode(q):
+            if tiles:
+                return encode_blocked_tiled(q.values, index, tile_n=tn,
+                                            tile_k=tk, block_weights=bw)
+            return encode_blocked(q.values, index, block_weights=bw)
+
+        bcs = [[encode(q) for q in qls] for qls in per_layer]
+        cap = max(bc.literals.shape[1] for layer in bcs for bc in layer)
+        for (h, k), qls, layer in zip(holders, per_layer, bcs):
+            pl = stack_packed(qls, layer, shape=shape, tile_n=tn, tile_k=tk,
+                              cap=cap)
+            h[k] = pl = _unstack_if_one(h[k], pl)
+            n_bytes["compressed"] += (pl.payload_nbytes
+                                      + 8 * shape[0] * len(qls))
     if lut is not None:
         n_bytes["compressed"] += lut.numel()
     return ServeState(params=out, lut=lut, table=table, mode=policy.mode,

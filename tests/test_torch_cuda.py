@@ -5,11 +5,12 @@ the card (which has no JAX, so the repository's conftest cannot load):
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Shapes are ragged or small on purpose (the main path's shapes are checked
+Shapes are ragged or small on purpose (the main paths' shapes are checked
 by chip_smoke.py).  Tolerances: integer-valued bf16 x → bitwise; random
 bf16 x with f32 output → the same exact products summed in another order,
 1e-4 of the output's largest magnitude; attention in f32 → 1e-4, in bf16
-→ two bf16 ulps at |out| ≈ 1.
+→ two bf16 ulps at |out| ≈ 1; the dictionary decode is integer work →
+bitwise on every input.
 """
 import dataclasses
 
@@ -19,14 +20,17 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.blocked_codec import (TableIndex, build_lut,
                                             choose_fused_tiles,
+                                            encode_blocked,
                                             encode_blocked_tiled)
 from repro_torch.core.codec import find_frequent_sequences
-from repro_torch.core.compressed import quantize_linear
+from repro_torch.core.compressed import pack_expert_stack, quantize_linear
 from repro_torch.core.policy import CompressionPolicy
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dequant_matmul as dqm
+from repro_torch.kernels import dict_decode as ddc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_decode_matmul as fdm
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.serve.engine import build_serve_params, make_serve_fns
 
@@ -94,21 +98,79 @@ def test_dequant_matmul_on_card(card, n, k, m):
                                                dt), xi, xr)
 
 
-@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,off,dtype", [
-    (2, 4, 2, 70, 70, 64, 0, torch.float32),
-    (1, 32, 8, 197, 229, 64, 0, torch.bfloat16),
-    (2, 8, 2, 33, 100, 128, 20, torch.float32),
-    (1, 4, 4, 1, 50, 64, 49, torch.bfloat16),
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,dv,off,dtype,lanes", [
+    (2, 4, 2, 70, 70, 64, 64, 0, torch.float32, None),
+    (1, 32, 8, 197, 229, 64, 64, 0, torch.bfloat16, None),
+    (2, 8, 2, 33, 100, 128, 128, 20, torch.float32, None),
+    (1, 4, 4, 1, 50, 64, 64, 49, torch.bfloat16, None),
+    (2, 16, 16, 37, 69, 192, 128, 0, torch.float32, 4),
+    (1, 16, 16, 101, 133, 192, 128, 32, torch.bfloat16, 4),
+    (2, 16, 16, 37, 69, 192, 128, 5, torch.float32, 2),
+    (1, 16, 16, 101, 133, 192, 128, 32, torch.bfloat16, 2),
 ])
-def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, off, dtype):
+def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
+                                 dtype, lanes):
     g = _gen(card, 2)
     q = torch.randn((b, hq, tq, d), generator=g, device=card).to(dtype)
     k = torch.randn((b, hkv, tk, d), generator=g, device=card).to(dtype)
-    v = torch.randn((b, hkv, tk, d), generator=g, device=card).to(dtype)
-    err = (fa.flash_attention(q, k, v, q_offset=off).float()
-           - fa.flash_attention_plain(q, k, v, q_offset=off).float()
-           ).abs().max().item()
+    v = torch.randn((b, hkv, tk, dv), generator=g, device=card).to(dtype)
+    got = fa.flash_attention(q, k, v, q_offset=off, lanes=lanes)
+    assert got.shape == (b, hq, tq, dv)
+    err = (got.float() - fa.flash_attention_plain(q, k, v, q_offset=off)
+           .float()).abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 1.6e-2), err
+
+
+@pytest.mark.parametrize("e,n,k,m", [
+    (5, 48, 64, 4),       # prime E, N tile 16: several N tiles per block
+    (7, 24, 96, 83),      # odd cap past 16 rows, tile_k 32 (SIMT rows)
+    (3, 256, 512, 130),   # tensor-core rows, ragged M
+    (4, 192, 128, 4),     # a ragged last 128-column block
+    (64, 128, 256, 4),    # 64 experts at decode
+])
+def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
+    g = _gen(card, 4)
+    ws = [torch.randint(-3, 4, (n, k), generator=g, device=card).float() / 3
+          for _ in range(e)]
+    pl, lut = pack_expert_stack(ws)
+    args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
+    kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    xi = torch.randint(-4, 5, (e, m, k), generator=g, device=card
+                       ).to(torch.bfloat16)
+    xr = torch.randn((e, m, k), generator=g, device=card).to(torch.bfloat16)
+    _check_matmul(
+        lambda x, dt: fdm.grouped_fused_decode_matmul(x, *args, **kw,
+                                                      out_dtype=dt),
+        lambda x, dt: fdm.grouped_fused_decode_matmul_plain(
+            x, *args, **kw, out_dtype=dt), xi, xr)
+    # one launch for the stack, and each expert equals K1 on its planes
+    _build.LAUNCH_COUNTS.clear()
+    y = fdm.grouped_fused_decode_matmul(xi, *args, **kw)
+    assert _build.LAUNCH_COUNTS[fdm.GROUPED_NAME] == 1
+    for j in (0, e - 1):
+        assert torch.equal(y[j], fdm.fused_decode_matmul(
+            xi[j], pl.codes[j], pl.literals[j], lut, pl.scale[j],
+            pl.zero[j], **kw))
+
+
+@pytest.mark.parametrize("n_weights,block_weights", [
+    (13 * 4096, 4096),    # prime block count
+    (9 * 400 + 40, 400),  # 100 slots (no 16-byte code reads), ragged end
+    (4096 * 512, 4096),   # MLA wkv_b's size: 512 blocks
+])
+def test_dict_decode_on_card(card, n_weights, block_weights):
+    g = _gen(card, 5)
+    w = torch.randint(0, 256, (n_weights,), generator=g, device=card
+                      ).to(torch.uint8)
+    w[: n_weights // 2] = w[: n_weights // 2] % 4   # half hits the table
+    table = find_frequent_sequences([w], max_codes=60)
+    bc = encode_blocked(w, TableIndex(table, device=card),
+                        block_weights=block_weights)
+    lut = build_lut(table, device=card)
+    got = ddc.dict_decode(bc.codes, bc.literals, lut)
+    assert torch.equal(got, ddc.dict_decode_plain(bc.codes, bc.literals,
+                                                  lut))
+    assert torch.equal(got.reshape(-1)[:n_weights], w)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -117,10 +179,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         fa.flash_attention(torch.zeros((1, 2, 3, 16), device=card),
                            torch.zeros((1, 2, 3, 16), device=card),
                            torch.zeros((1, 2, 3, 16), device=card))
+    with pytest.raises(ValueError, match="head_dim"):      # (192, 64)
+        fa.flash_attention(torch.zeros((1, 2, 3, 192), device=card),
+                           torch.zeros((1, 2, 3, 192), device=card),
+                           torch.zeros((1, 2, 3, 64), device=card))
     with pytest.raises(TypeError):
         dqm.dequant_matmul(x, torch.zeros((8, 64), device=card),
                            torch.ones((8, 1), device=card),
                            torch.zeros((8, 1), device=card))
+    ws = [torch.ones((16, 64), device=card)] * 3
+    pl, lut = pack_expert_stack(ws)
+    args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
+    kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    with pytest.raises(ValueError, match="weight"):        # 2 x for 3
+        fdm.grouped_fused_decode_matmul(torch.zeros((2, 4, 64), device=card),
+                                        *args, **kw)
+    lin, lut_l = pack_expert_stack(ws, tile=None)
+    with pytest.raises(NotImplementedError, match="linear-layout"):
+        ops.grouped_decode_dequant_matmul(torch.zeros((3, 4, 64),
+                                                      device=card), lin,
+                                          lut_l)
+    with pytest.raises(ValueError, match="boundary"):      # misaligned
+        codes = torch.zeros(2 * 256 + 1, dtype=torch.int16, device=card)
+        ddc.dict_decode(codes[1:].reshape(2, 256),
+                        torch.zeros((2, 1, 4), dtype=torch.uint8,
+                                    device=card), lut)
 
 
 def test_prefill_card_matches_cpu(card):
@@ -146,3 +229,37 @@ def test_prefill_card_matches_cpu(card):
     assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
     assert _build.LAUNCH_COUNTS["dequant_matmul"] == 1
     assert (out["cuda"] - out["cpu"]).abs().max().item() <= 3e-2
+
+
+def test_moe_prefill_card_matches_cpu(card):
+    """A small DeepSeek-V2-Lite variant with MLA's head dims (192/128)
+    packed on the card: prefill logits on the card equal the CPU's plain
+    versions to bf16 accuracy, and every kernel of the MoE path ran."""
+    cfg = dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").smoke, d_model=256, n_heads=4,
+        n_kv_heads=4, kv_lora_rank=128, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, d_ff=512, moe_d_ff=128)
+    params = LM.init_lm(cfg, seed=0, device=card)
+    st = build_serve_params(params, CompressionPolicy(min_weight_size=1024),
+                            device=card)
+    ids = torch.randint(0, cfg.vocab_size, (3, 19),
+                        generator=_gen(card, 3), device=card)
+    out, routing = {}, {}
+    _build.LAUNCH_COUNTS.clear()
+    L.MATERIALIZE_COUNTS.clear()
+    for dev, s in (("cuda", st), ("cpu", st.to("cpu"))):
+        caches = LM.init_caches(cfg, 3, 24, device=dev)
+        hidden, _, _, routing[dev] = LM.forward(
+            s.params, cfg, ids.to(dev), caches=caches, pos=0, lut=s.lut,
+            return_hidden=True, return_routing=True)
+        out[dev] = L.linear(hidden[:, -1:], s.params["lm_head"], s.lut
+                            ).float().cpu()
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    assert _build.LAUNCH_COUNTS[fdm.GROUPED_NAME] == 3 * n_moe
+    assert _build.LAUNCH_COUNTS["fused_decode_matmul"] == 6 * cfg.n_layers
+    assert _build.LAUNCH_COUNTS["dict_decode"] == cfg.n_layers
+    assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
+    assert _build.LAUNCH_COUNTS["dequant_matmul"] == 1
+    assert L.MATERIALIZE_COUNTS["packed_stacked"] == 0
+    if torch.equal(routing["cuda"].cpu(), routing["cpu"]):
+        assert (out["cuda"] - out["cpu"]).abs().max().item() <= 3e-2

@@ -6,6 +6,7 @@ a seed with numpy, go through ``repro.kernels.ref`` and through the Pallas
 kernel bodies in interpret mode (``impl="pallas_interpret"``).
 
 Tolerances:
+  * the dictionary decode is integer work: bitwise.
   * integer-valued f32 x: every product and partial sum is an exact
     integer in f32, so the affine epilogue sees identical numbers —
     bitwise, except against ``ref.dequant_matmul``, which dequantizes the
@@ -25,6 +26,7 @@ import jax.numpy as jnp
 
 from repro.core import blocked_codec as jbc
 from repro.core import codec as jcodec
+from repro.core.compressed import pack_expert_stack as jpack_expert_stack
 from repro.core.compressed import pack_linear
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -33,10 +35,12 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.dequant_matmul import (dequant_matmul,
                                                 dequant_matmul_plain)
+from repro_torch.kernels.dict_decode import dict_decode, dict_decode_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.fused_decode_matmul import (
-    fused_decode_matmul, fused_decode_matmul_plain)
+    fused_decode_matmul, fused_decode_matmul_plain,
+    grouped_fused_decode_matmul, grouped_fused_decode_matmul_plain)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -160,21 +164,103 @@ def test_ops_flatten_leading_dims():
         ops.decode_dequant_matmul(x, linear, t["lut"])
 
 
-def _qkv(seed, b, hq, hkv, tq, tk, d):
+def _planes(pl):
+    """A reference PackedLinear's planes as the port's tensors."""
+    return (torch.from_numpy(np.array(pl.codes).view(np.int16)),
+            torch.from_numpy(np.array(pl.literals)),
+            torch.from_numpy(np.array(pl.scale)),
+            torch.from_numpy(np.array(pl.zero)))
+
+
+@pytest.mark.parametrize("e,n,k,m", [
+    (3, 64, 128, 8),     # prime E, tile-multiple dims
+    (5, 48, 64, 13),     # prime E, odd cap
+    (7, 24, 96, 130),    # prime E, cap > 128 with remainder
+])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
+    """K3's plain version against the reference's oracle (K1's strip scan
+    vmapped over experts) and the grouped Pallas kernel, at the shapes of
+    tests/test_moe_fused.py."""
+    rng = np.random.default_rng(8)
+    ws = [rng.laplace(0.0, 0.02, size=(n, k)).astype(np.float32)
+          for _ in range(e)]
+    pl, lut = jpack_expert_stack(ws)
+    codes, lits, scale, zero = _planes(pl)
+    tlut = torch.from_numpy(np.array(lut))
+    x = np.stack([_x(rng, m, k, kind) for _ in range(e)])
+    kw = dict(shape=tuple(pl.shape), tile_n=pl.tile_n, tile_k=pl.tile_k)
+    got = grouped_fused_decode_matmul(torch.from_numpy(x), codes, lits, tlut,
+                                      scale, zero, **kw,
+                                      out_dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(got, grouped_fused_decode_matmul_plain(
+        torch.from_numpy(x), codes, lits, tlut, scale, zero, **kw).numpy())
+    for j in (0, e - 1):     # each expert is K1's plain version
+        np.testing.assert_array_equal(got[j], fused_decode_matmul_plain(
+            torch.from_numpy(x[j]), codes[j], lits[j], tlut, scale[j],
+            zero[j], **kw).numpy())
+    ref = np.asarray(jref.grouped_fused_decode_matmul(
+        jnp.asarray(x), pl.codes, pl.literals, pl.nlit, lut, pl.scale,
+        pl.zero, **kw))
+    pallas = np.asarray(jops.grouped_decode_dequant_matmul(
+        jnp.asarray(x), pl, lut, impl="pallas_interpret",
+        out_dtype=jnp.float32))
+    if kind == "int":
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, pallas)
+    else:
+        assert_close_scaled(got, ref)
+        assert_close_scaled(got, pallas)
+
+
+@pytest.mark.parametrize("shape,block_weights,max_codes", [
+    ((13, 256), 256, 40),      # prime block count (13 blocks)
+    ((37, 100), 400, 300),     # 100 slots, ragged last block
+    ((64, 512), 4096, 65535),  # MLA wkv_b's layout at smoke scale
+])
+def test_dict_decode_plain(shape, block_weights, max_codes):
+    """K4's plain version against the reference's oracle and the Pallas
+    kernel (which pads the prime block count to a whole chunk)."""
+    rng = np.random.default_rng(9)
+    w = rng.integers(0, 256, shape).astype(np.uint8)
+    w[: shape[0] // 2] %= 5                    # half the weights hit codes
+    table = jcodec.find_frequent_sequences([w], max_codes=max_codes)
+    lut = jbc.build_lut(table)
+    bc = jbc.encode_blocked(w, table, lut=lut, block_weights=block_weights)
+    codes = torch.from_numpy(np.array(bc.codes).view(np.int16))
+    lits = torch.from_numpy(np.array(bc.literals))
+    got = dict_decode(codes, lits, torch.from_numpy(np.array(lut))).numpy()
+    assert got.shape == (codes.shape[0], codes.shape[1] * 4)
+    np.testing.assert_array_equal(got, dict_decode_plain(
+        codes, lits, torch.from_numpy(np.array(lut))).numpy())
+    args = (jnp.asarray(bc.codes), jnp.asarray(bc.literals),
+            jnp.asarray(bc.nlit), jnp.asarray(lut))
+    np.testing.assert_array_equal(got, np.asarray(jref.dict_decode(*args)))
+    np.testing.assert_array_equal(got, np.asarray(jops.dict_decode(
+        *args, impl="pallas_interpret")))
+    np.testing.assert_array_equal(got.reshape(-1)[: w.size], w.reshape(-1))
+    np.testing.assert_array_equal(got, ops.dict_decode(
+        codes, lits, None, torch.from_numpy(np.array(lut))).numpy())
+
+
+def _qkv(seed, b, hq, hkv, tq, tk, d, dv=None):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, hq, tq, d)).astype(np.float32),
             rng.standard_normal((b, hkv, tk, d)).astype(np.float32),
-            rng.standard_normal((b, hkv, tk, d)).astype(np.float32))
+            rng.standard_normal((b, hkv, tk, dv or d)).astype(np.float32))
 
 
-@pytest.mark.parametrize("b,hq,hkv,tq,tk,q_offset,causal", [
-    (2, 4, 2, 37, 53, 16, True),     # GQA, ragged, offset (chunked prefill)
-    (1, 8, 2, 29, 29, 0, True),      # prime T, full prefill
-    (2, 4, 4, 13, 41, 0, False),
-    (1, 4, 1, 7, 1300, 1200, True),  # reference's chunked path (Tk > 1024)
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,q_offset,causal,dv", [
+    (2, 4, 2, 37, 53, 16, True, 16),     # GQA, ragged, offset
+    (1, 8, 2, 29, 29, 0, True, 16),      # prime T, full prefill
+    (2, 4, 4, 13, 41, 0, False, 16),
+    (1, 4, 1, 7, 1300, 1200, True, 16),  # reference's chunked path
+    (2, 4, 4, 23, 31, 8, True, 8),       # MLA-like: Dv ≠ Dqk, q_offset
+    (1, 4, 4, 19, 1100, 1081, True, 8),  # Dv ≠ Dqk, chunked reference
 ])
-def test_flash_attention_plain_vs_ref(b, hq, hkv, tq, tk, q_offset, causal):
-    q, k, v = _qkv(5, b, hq, hkv, tq, tk, 16)
+def test_flash_attention_plain_vs_ref(b, hq, hkv, tq, tk, q_offset, causal,
+                                      dv):
+    q, k, v = _qkv(5, b, hq, hkv, tq, tk, 16, dv)
     got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
                           q_offset=q_offset).numpy()
     np.testing.assert_array_equal(got, flash_attention_plain(
@@ -182,14 +268,16 @@ def test_flash_attention_plain_vs_ref(b, hq, hkv, tq, tk, q_offset, causal):
         q_offset=q_offset).numpy())
     ref = np.asarray(jref.flash_attention(*map(jnp.asarray, (q, k, v)),
                                           causal=causal, q_offset=q_offset))
+    assert got.shape == ref.shape == (b, hq, tq, dv)
     np.testing.assert_allclose(got, ref, **TOL)
 
 
-@pytest.mark.parametrize("tq,tk,q_offset,bq,bk", [
-    (48, 80, 32, 16, 16), (32, 32, 0, 16, 8), (24, 64, 40, 8, 32),
+@pytest.mark.parametrize("tq,tk,q_offset,bq,bk,dv", [
+    (48, 80, 32, 16, 16, 16), (32, 32, 0, 16, 8, 16),
+    (24, 64, 40, 8, 32, 16), (16, 48, 32, 8, 16, 8),
 ])
-def test_flash_attention_plain_vs_pallas(tq, tk, q_offset, bq, bk):
-    q, k, v = _qkv(6, 2, 4, 2, tq, tk, 16)
+def test_flash_attention_plain_vs_pallas(tq, tk, q_offset, bq, bk, dv):
+    q, k, v = _qkv(6, 2, 4, 2, tq, tk, 16, dv)
     got = flash_attention(*map(torch.from_numpy, (q, k, v)),
                           q_offset=q_offset).numpy()
     pallas = np.asarray(pallas_flash(

@@ -26,15 +26,22 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 """
 
 
+# modules of the MoE slice, which the walk below must reach
+MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
+               "repro_torch.kernels.dict_decode")
+
+
 def test_port_imports_no_jax_and_no_reference():
     code = """
-import pkgutil, importlib, repro_torch
+import pkgutil, importlib, sys, repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):
     importlib.import_module(m.name)
-""" + _CHECK.format(forbidden=FORBIDDEN)
+missing = [m for m in {moe!r} if m not in sys.modules]
+assert not missing, missing
+""".format(moe=MOE_MODULES) + _CHECK.format(forbidden=FORBIDDEN)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20   # every submodule was loaded
+    assert int(out.stdout.split()[-1]) >= 27   # every submodule was loaded
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

@@ -1,15 +1,19 @@
-"""Where the time of the port's main path goes on the card.
+"""Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py
+    python3 tools/profile_decode.py [--model llama|deepseek|both]
 
-Packs Llama-3.2-1B (all 16 layers, weights from a seed) in compressed mode
-on the CUDA card, serves the 4 prompts of chip_smoke.py, and profiles one
-prefill and 8 decode steps with torch.profiler: device time by kernel,
-and the share of the window's wall time in which the device ran a kernel.
-Prints one JSON line per window.  Needs one CUDA card.
+For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
+width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
+in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
+and profiles one prefill and 8 decode steps with torch.profiler: device
+time by kernel, and the share of the window's wall time in which the
+device ran a kernel.  Prints one JSON line per window.  Needs one CUDA
+card.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -28,6 +32,8 @@ from repro_torch.serve.engine import (build_serve_params,  # noqa: E402
                                       make_serve_fns, sample_tokens)
 
 BATCH, DECODE_STEPS, SEED = 4, 8, 0
+MODELS = {"llama": ("llama3.2-1b", None),
+          "deepseek": ("deepseek-v2-lite-16b", 8)}    # (arch, layers)
 
 
 def prompts(vocab):
@@ -40,7 +46,7 @@ def prompts(vocab):
     return out
 
 
-def window(name, fn):
+def window(model, name, fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -58,18 +64,18 @@ def window(name, fn):
             busy += dev / 1e3
     rows.sort(key=lambda r: -r[1])
     print(json.dumps({
-        "window": name, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+        "model": model, "window": name, "wall_ms": wall * 1e3,
+        "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3),
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
                         for k, ms, n in rows[:12]]}), flush=True)
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("profile_decode: no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    cfg = get_config("llama3.2-1b").full
+def profile(model, dev):
+    arch, layers = MODELS[model]
+    cfg = get_config(arch).full
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = LM.init_lm(cfg, seed=SEED, device=dev)
     st = build_serve_params(params, CompressionPolicy(), device=dev)
     del params
@@ -95,8 +101,23 @@ def main():
 
     run_prefill()          # warm-up: kernel libraries load, caches fill
     run_decode()
-    window("prefill", run_prefill)
-    window(f"decode x{DECODE_STEPS}", run_decode)
+    window(cfg.name, "prefill", run_prefill)
+    window(cfg.name, f"decode x{DECODE_STEPS}", run_decode)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=["llama", "deepseek", "both"],
+                    default="both")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_decode: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    for model in (("llama", "deepseek") if args.model == "both"
+                  else (args.model,)):
+        profile(model, dev)
+        torch.cuda.empty_cache()
     return 0
 
 
