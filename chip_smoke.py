@@ -476,7 +476,7 @@ def _sdpa_vdim(q, k, v):
 def check_flash_mla(rt, cfg, device, t_prefill, gen, timer):
     """K2 at MLA's head dims: (B, 16, T, 192) against (B, 16, T + 32,
     192/128), q_offset 0 (the prefill over a cache of T + 32), and on a
-    ragged prime T; both lane counts are timed."""
+    ragged prime T."""
     fa = rt["fa"]
     hq = cfg.n_heads
     d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -503,14 +503,10 @@ def check_flash_mla(rt, cfg, device, t_prefill, gen, timer):
                          2.0 * (d + dv) * BATCH * hq * pairs)
         kr, vr = kb[:, :, :tq], vb[:, :, :tq]
         _, lib_name = _sdpa_vdim(qb, kr, vr)
-        lanes_ms = {f"lanes_{n}": timer.graph_ms(
-            [lambda n=n: fa.flash_attention(qb, kb, vb, lanes=n)] * 8)
-            for n in fa.MLA_LANES}
         rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
                      "max_abs_err": err, "max_abs_err_f32": err32,
                      "ms": timer.graph_ms(
                          [lambda: fa.flash_attention(qb, kb, vb)] * 8),
-                     **lanes_ms,
                      "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
                          qb, kb, vb)),
                      # SDPA's causal mask is aligned top-left; over the

@@ -84,19 +84,22 @@ def build(names=SOURCES) -> dict:
         os.close(fd)
         cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        with open(out.with_suffix(".log"), "w") as log:
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT),
+                           tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode:
-            os.unlink(tmp)
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
+    while procs:              # each source's own seconds, as it finishes
+        for name in [n for n, p in procs.items() if p[0].poll() is not None]:
+            proc, tmp, out, t0 = procs.pop(name)
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed for {name}.cu:\n"
+                              + out.with_suffix(".log").read_text())
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

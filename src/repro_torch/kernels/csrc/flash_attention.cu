@@ -53,7 +53,9 @@ __device__ __forceinline__ void store(void* p, long long i, int bf16,
 // dot products are summed across the row's lanes by shuffles, and each lane
 // updates its own accumulator elements.  LANES = 1 keeps a whole row in one
 // thread (head dims 64 and 128); MLA's 192 + 128 values per row would not
-// fit in one thread's registers, so it takes LANES > 1.
+// fit in one thread's registers, so it takes LANES = 2 (96 + 64 per
+// thread, 254 registers, no spills; at the DeepSeek-V2-Lite prefill 4%
+// faster than LANES = 4 on an H100 80GB HBM3 at 700 W, PERF.md).
 template <int DQK, int DV, int LANES>
 __global__ void __launch_bounds__(kBQ * LANES)
 flash_attention_kernel(const void* __restrict__ q, const void* __restrict__ k,
@@ -180,12 +182,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int q_bf16,
 
 // C entry point, bound with ctypes.  Returns the CUDA error code (0 = ok).
 // Strides are in elements, (batch, head, time) for each of q, k, v.  Head
-// dims (Dqk, Dv): (64, 64), (128, 128) and MLA's (192, 128); lanes: the
-// threads per query row, 1 for the first two and 2 or 4 for MLA's.
+// dims (Dqk, Dv): (64, 64), (128, 128) and MLA's (192, 128).
 extern "C" int qmoe_flash_attention(
     const void* q, const void* k, const void* v, void* out, int q_bf16,
     int kv_bf16, int B, int Hq, int Hkv, int Tq, int Tk, int Dqk, int Dv,
-    int lanes, long long qsb, long long qsh, long long qst, long long ksb,
+    long long qsb, long long qsh, long long qst, long long ksb,
     long long ksh, long long kst, long long vsb, long long vsh,
     long long vst, float sm_scale, int causal, int q_offset, int device,
     void* stream) {
@@ -198,14 +199,9 @@ extern "C" int qmoe_flash_attention(
   const long long vstr[3] = {vsb, vsh, vst};
 #define QMOE_ARGS q, k, v, out, q_bf16, kv_bf16, B, Hq, Hkv, Tq, Tk, qs, \
                   kstr, vstr, sm_scale, causal, q_offset, s
-  if (Dqk == 64 && Dv == 64 && lanes == 1)
-    return launch<64, 64, 1>(QMOE_ARGS);
-  if (Dqk == 128 && Dv == 128 && lanes == 1)
-    return launch<128, 128, 1>(QMOE_ARGS);
-  if (Dqk == 192 && Dv == 128 && lanes == 2)
-    return launch<192, 128, 2>(QMOE_ARGS);
-  if (Dqk == 192 && Dv == 128 && lanes == 4)
-    return launch<192, 128, 4>(QMOE_ARGS);
+  if (Dqk == 64 && Dv == 64) return launch<64, 64, 1>(QMOE_ARGS);
+  if (Dqk == 128 && Dv == 128) return launch<128, 128, 1>(QMOE_ARGS);
+  if (Dqk == 192 && Dv == 128) return launch<192, 128, 2>(QMOE_ARGS);
 #undef QMOE_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -21,11 +21,9 @@ from . import _build
 
 NAME = "flash_attention"
 NEG_INF = -1e30
-# (Dqk, Dv) pairs instantiated in the kernel → threads per query row
-HEAD_DIMS = {(64, 64): 1, (128, 128): 1, (192, 128): 4}
-MLA_LANES = (2, 4)        # the lane counts built for (192, 128)
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (Dqk, Dv) in the kernel
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 10 + [_L] * 9 + [ctypes.c_float]
+_ARGTYPES = ([_P] * 4 + [_I] * 9 + [_L] * 9 + [ctypes.c_float]
              + [_I] * 3 + [_P])
 
 
@@ -53,14 +51,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None, q_offset: int = 0,
-                    lanes: int | None = None) -> torch.Tensor:
+                    sm_scale: float | None = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
     (B, Hq, Tq, Dv).  Any strides over (B, H, T) with the head dim
     contiguous; ``sm_scale`` defaults to 1/sqrt(Dqk).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.  ``lanes``
-    overrides the threads per query row for (192, 128) (one of
-    ``MLA_LANES``)."""
+    plain version; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
@@ -76,12 +72,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"v {tuple(v.shape)} do not match")
     if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head_dim pair {(d, dv)} not in "
-                         f"{sorted(HEAD_DIMS)}")
-    if lanes is None:
-        lanes = HEAD_DIMS[(d, dv)]
-    elif not (lanes == HEAD_DIMS[(d, dv)]
-              or ((d, dv) == (192, 128) and lanes in MLA_LANES)):
-        raise ValueError(f"{NAME}: no {lanes}-lane kernel for {(d, dv)}")
+                         f"{HEAD_DIMS}")
     if q_offset < 0:
         raise ValueError(f"{NAME}: q_offset must be ≥ 0, got {q_offset}")
     ok = (torch.bfloat16, torch.float32)
@@ -96,8 +87,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     fn = _build.function(NAME, "qmoe_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             b, hq, hkv, tq, tk, d, dv, lanes, *q.stride()[:3],
-             *k.stride()[:3],
+             b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], float(sm), int(causal), int(q_offset),
              dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, NAME)

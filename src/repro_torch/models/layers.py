@@ -421,13 +421,6 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int,
     return max(4, min(c, n_tokens))
 
 
-def _grouped_fused_ok(w, lut) -> bool:
-    """True when an expert stack can take the grouped fused kernel: a
-    stacked tile-major PackedLinear with a decode LUT in hand."""
-    return (isinstance(w, PackedLinear) and w.tile_n > 0
-            and w.codes.ndim == 3 and lut is not None)
-
-
 def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
     """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
     compressed stack runs the grouped fused kernel (three launches, dense

@@ -100,6 +100,9 @@ def _moe_block(bp, x, cfg, lut, cache, pos, rope):
     attn = L.apply_mla if cfg.mla else L.apply_attention
     a, new_cache = attn(bp["attn"], h, cfg, lut=lut, cache=cache, pos=pos,
                         rope=rope)
+    # Unlike _dense_block, the norm reads the residual sum rounded to x's
+    # dtype: the reference's MoE layers do (compared layer by layer, in
+    # eager and in jitted runs).
     x = x + a
     h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
     if "moe" in bp:

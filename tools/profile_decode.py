@@ -71,7 +71,7 @@ def window(model, name, fn):
                         for k, ms, n in rows[:12]]}), flush=True)
 
 
-def profile(model, dev):
+def profile_model(model, dev):
     arch, layers = MODELS[model]
     cfg = get_config(arch).full
     if layers:
@@ -116,7 +116,7 @@ def main():
     dev = torch.device("cuda", 0)
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
-        profile(model, dev)
+        profile_model(model, dev)
         torch.cuda.empty_cache()
     return 0
 
