@@ -16,11 +16,13 @@ each in the phases below; the script exits non-zero if any phase fails:
      its 27 layers (the dense first layer + 7 MoE layers: the f32 weights
      drawn for packing would not fit the card at full depth).
   3. Kernels against their plain PyTorch versions at the path's shapes, on
-     the packed planes: bitwise on integer-valued bf16 x (and for the
+     the packed planes — every kernel the path launches, at every weight
+     shape it gives it: bitwise on integer-valued bf16 x (and for the
      dictionary decode, on every input), within a stated tolerance on
      random x; times (CUDA-graph replays with the weights past the L2, or
-     CUDA events around single calls), bounds, the plain version's time
-     and one PyTorch library call's time as a yardstick where one exists.
+     the L2 flushed in the graph, or CUDA events around single calls),
+     bounds, the plain version's time and one PyTorch library call's time
+     as a yardstick where one exists.
   4. End to end: ``generate`` answers 4 left-padded requests (prompt
      lengths 32–200 from the seed) with 32 new tokens each; the launch
      counts of that run, read right after it, must be what the path's
@@ -58,7 +60,7 @@ BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak, same source
 # Tolerances, each with its reason:
 #  * K1/K5 on random bf16 x, f32 output: the kernel and the plain version
 #    sum the same exact products in another order; f32 roundoff over
-#    K ≤ 8192 terms stays far below 1e-4 of the output's scale.
+#    K ≤ 10944 terms stays far below 1e-4 of the output's scale.
 MATMUL_RTOL = 1e-4
 #  * K2 in bf16 (the main path's dtypes): f32 math in both, another order
 #    of sums and another exp; the bf16 output may round to the other side:
@@ -97,15 +99,28 @@ class Timer:
 
     ``graph_ms``: the calls are captured once in a CUDA graph and the graph
     is replayed between two CUDA events, so the host's Python overhead is
-    not counted; the K1 calls walk the 16 layers' planes, so (as on the
-    main path) the weights exceed the 50 MB L2.  ``ms``: CUDA events
+    not counted; the K1 calls walk the layers' planes, so (as on the
+    main path) the weights exceed the 50 MB L2, or the graph flushes the
+    L2 before each call where they do not.  ``ms``: CUDA events
     around single calls with the L2 flushed before each, host overhead
     included — for the plain versions, which are no speed yardstick."""
 
     def __init__(self, device):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
 
-    def graph_ms(self, fns, reps: int = 10) -> float:
+    def graph_ms(self, fns, reps: int = 10, cold: bool = False) -> float:
+        """``cold``: for weights that fit the L2 together, a 128 MB memset
+        (which evicts it) is captured before each call, and a graph of the
+        memsets alone is timed and subtracted."""
+        if not cold:
+            return self._replay_ms(fns, reps) / len(fns)
+        wipe = self.flush[:128 << 20].zero_
+        both = [f for fn in fns for f in (wipe, fn)]
+        return (self._replay_ms(both, reps)
+                - self._replay_ms([wipe] * len(fns), reps)) / len(fns)
+
+    def _replay_ms(self, fns, reps: int) -> float:
+        """Milliseconds of one replay of a CUDA graph of ``fns``."""
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -125,7 +140,7 @@ class Timer:
             graph.replay()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / (reps * len(fns))
+        return start.elapsed_time(end) / reps
 
     def ms(self, fn, iters: int = 5, warmup: int = 2) -> float:
         for _ in range(warmup):
@@ -174,14 +189,19 @@ def make_prompts(vocab: int):
 
 # ---------------------------------------------------------------------------
 
-def check_fused(rt, state, device, t_prefill, gen, timer):
-    """K1 on the four Llama-3.2-1B projection shapes at M = batch (decode)
-    and M = batch·T (prefill)."""
+L2_BYTES = 50 << 20      # H100 SXM L2
+
+
+def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
+                timed_at, cold=False):
+    """K1 on each ``(label, weights, in_layer)`` of ``projections`` — the
+    packed planes of one projection in every layer that has it — at M =
+    batch (decode) and M = ``m_prefill`` (prefill): bitwise on integer x,
+    within MATMUL_RTOL on random x.  Calls are timed walking the layers'
+    planes; with ``cold``, a walk whose planes fit twice in the L2 is timed
+    with the L2 flushed before each call.  The row's times add up the
+    ``in_layer`` projections at decode: one layer's K1 work."""
     fdm = rt["fdm"]
-    blocks = state.params["blocks"]
-    lut = state.lut
-    names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-             ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down")]
 
     def planes(w):
         return ((w.codes, w.literals, lut, w.scale, w.zero),
@@ -190,12 +210,12 @@ def check_fused(rt, state, device, t_prefill, gen, timer):
     rows, worst, bitwise = [], 0.0, True
     agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     seen = set()
-    for grp, name in names:
-        ws = [b[grp][name] for b in blocks]
+    for label, ws, in_layer in projections:
         w = ws[0]
         n, k = w.shape
         args, kw = planes(w)
-        for m in (BATCH, BATCH * t_prefill):
+        flush = cold and sum(plane_bytes(wl) for wl in ws) < 2 * L2_BYTES
+        for m in (BATCH, m_prefill):
             xi = int_x(m, k, gen, device)
             yk = fdm.fused_decode_matmul(xi, *args, **kw,
                                          out_dtype=torch.bfloat16)
@@ -212,11 +232,12 @@ def check_fused(rt, state, device, t_prefill, gen, timer):
             tol = MATMUL_RTOL * float(yp.abs().max())
             worst = max(worst, err)
             if not (same and err <= tol and torch.isfinite(yk).all()):
-                raise AssertionError(f"K1 {w.shape} M={m}: bitwise={same} "
-                                     f"err={err} tol={tol}")
-            key = (n, k, m)
-            if key in seen:       # wq/wo and w_gate/w_up share a shape
-                t = next(r for r in rows if (r["N"], r["K"], r["M"]) == key)
+                raise AssertionError(f"K1 {label} {w.shape} M={m}: "
+                                     f"bitwise={same} err={err} tol={tol}")
+            key = (n, k, m, len(ws))
+            if key in seen:       # projections of one shape share a time
+                t = next(r for r in rows
+                         if (r["N"], r["K"], r["M"], r["layers"]) == key)
             else:
                 seen.add(key)
                 b, by = bound_ms(nbytes(xr, *args) + m * n * 2,
@@ -225,32 +246,30 @@ def check_fused(rt, state, device, t_prefill, gen, timer):
                     xr, *p[0], **p[1]) for wl in ws]
                 wbs = [wl.materialize(lut, torch.bfloat16) for wl in ws]
                 lib = [lambda wb=wb: xr @ wb.T for wb in wbs]
-                t = {"N": n, "K": k, "M": m, "bitwise": same,
-                     "max_abs_err": err,
-                     "ms": timer.graph_ms(kern),
+                t = {"proj": label, "N": n, "K": k, "M": m,
+                     "layers": len(ws), "bitwise": same, "max_abs_err": err,
+                     "ms": timer.graph_ms(kern, cold=flush),
                      "plain_ms": timer.ms(lambda: fdm.fused_decode_matmul_plain(
                          xr, *args, **kw, out_dtype=torch.bfloat16)),
-                     "library_ms": timer.graph_ms(lib),
-                     "bound_ms": b, "bound_by": by,
+                     "library_ms": timer.graph_ms(lib, cold=flush),
+                     "bound_ms": b, "bound_by": by, "l2_flushed": flush,
                      "cap": w.literals.shape[1],
                      "tile": [w.tile_n, w.tile_k]}
                 del wbs, lib
                 rows.append(t)
-            if m == BATCH:
+            if m == BATCH and in_layer:
                 for f in agg:
                     agg[f] += t[f]
     return {"name": "fused_decode_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
             "replaces": "src/repro/kernels/fused_decode_matmul.py:114",
-            "bitwise": bitwise, "max_abs_err": worst,
-            "timed_at": "one layer's 7 projections, decode M=4",
+            "bitwise": bitwise, "max_abs_err": worst, "timed_at": timed_at,
             **agg, "bound_by": "bytes"}, rows
 
 
-def check_dequant(rt, state, device, gen, timer):
-    """K5 on the tied LM head (128256 × 2048) at M = batch."""
+def check_dequant(rt, head, device, gen, timer):
+    """K5 on the int8 LM head at M = batch."""
     dqm = rt["dqm"]
-    head = state.params["embed"]
     n, k = head.values.shape
     args = (head.values, head.scale, head.zero)
     xi = int_x(BATCH, k, gen, device)
@@ -271,7 +290,7 @@ def check_dequant(rt, state, device, gen, timer):
            "replaces": "src/repro/kernels/dequant_matmul.py:69",
            "bitwise": same, "max_abs_err": err,
            "timed_at": f"LM head {n}x{k}, M={BATCH}",
-           # the 263 MB weight exceeds the L2 on its own
+           # a 210-263 MB weight exceeds the L2 on its own
            "ms": timer.graph_ms([lambda: dqm.dequant_matmul(xr, *args)] * 4),
            "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
                xr, *args, torch.bfloat16)),
@@ -282,27 +301,21 @@ def check_dequant(rt, state, device, gen, timer):
 
 def _sdpa(q, k, v):
     import torch.nn.functional as F
-    try:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-    except TypeError:        # older torch: repeat the kv heads
-        rep = q.shape[1] // k.shape[1]
-        return F.scaled_dot_product_attention(
-            q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
-            is_causal=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
 
 
-def check_flash(rt, cfg, device, t_prefill, gen, timer):
-    """K2 at the prefill's (B, 32, T, 64) against (B, 8, T + 32, 64) with
-    q_offset 0, and on a ragged prime T."""
+def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
+    """K2 at the prefill's (B, hq, T, d) against (B, hkv, T + 32, d/dv)
+    keys and values with q_offset 0 (the prefill over a cache of T + 32),
+    and on a ragged prime T."""
     fa = rt["fa"]
-    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     rows, worst = [], 0.0
     for tq in (t_prefill, 197):
         tk = tq + MAX_NEW
         q = torch.randn((BATCH, hq, tq, d), generator=gen, device=device)
         k = torch.randn((BATCH, hkv, tk, d), generator=gen, device=device)
-        v = torch.randn((BATCH, hkv, tk, d), generator=gen, device=device)
+        v = torch.randn((BATCH, hkv, tk, dv), generator=gen, device=device)
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
         yk = fa.flash_attention(qb, kb, vb)
         yp = fa.flash_attention_plain(qb, kb, vb)
@@ -313,17 +326,16 @@ def check_flash(rt, cfg, device, t_prefill, gen, timer):
         worst = max(worst, err)
         if not (err <= FLASH_ATOL_BF16 and err32 <= FLASH_ATOL_F32
                 and torch.isfinite(yk).all()):
-            raise AssertionError(f"K2 T={tq}: bf16 err {err}, f32 err "
-                                 f"{err32}")
+            raise AssertionError(f"K2 ({d}, {dv}) T={tq}: bf16 err {err}, "
+                                 f"f32 err {err32}")
         pairs = sum(min(tk, i + 1) for i in range(tq))
         seen_k = min(tk, tq)
         b, by = bound_ms(
-            2 * (2 * BATCH * hq * tq * d + 2 * BATCH * hkv * seen_k * d),
-            4.0 * d * BATCH * hq * pairs)
-        kr = kb[:, :, :tq]
-        vr = vb[:, :, :tq]
-        rows.append({"Tq": tq, "Tk": tk, "max_abs_err": err,
-                     "max_abs_err_f32": err32,
+            2 * BATCH * (hq * tq + hkv * seen_k) * (d + dv),
+            2.0 * (d + dv) * BATCH * hq * pairs)
+        kr, vr = kb[:, :, :tq], vb[:, :, :tq]
+        rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
+                     "max_abs_err": err, "max_abs_err_f32": err32,
                      "ms": timer.graph_ms(
                          [lambda: fa.flash_attention(qb, kb, vb)] * 8),
                      "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
@@ -338,8 +350,9 @@ def check_flash(rt, cfg, device, t_prefill, gen, timer):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
             "max_abs_err": worst,
-            "timed_at": f"prefill (B={BATCH}, {hq}, T={t_prefill}, {d}) vs "
-                        f"Tk={t_prefill + MAX_NEW}",
+            "timed_at": f"{what} (B={BATCH}, {hq}, T={t_prefill}, {d}) vs "
+                        f"Tk={t_prefill + MAX_NEW}, Dv={dv}",
+            "library": "scaled_dot_product_attention",
             **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")}}, rows
 
@@ -413,7 +426,6 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
                     agg[f] += t[f]
         del wbt
     return {"name": "grouped_fused_decode_matmul", "route": "cuda",
-            "path": cfg.name,
             "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
             "replaces": "src/repro/kernels/fused_decode_matmul.py:202",
             "bitwise": bitwise, "max_abs_err": worst,
@@ -451,77 +463,12 @@ def check_dict_decode(rt, cfg, state, timer):
                          lambda: ddc.dict_decode_plain(codes, lits, lut)),
                      "library_ms": None, "bound_ms": b, "bound_by": by})
     main = rows[0]
-    return {"name": "dict_decode", "route": "cuda", "path": cfg.name,
+    return {"name": "dict_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dict_decode.cu",
             "replaces": "src/repro/kernels/dict_decode.py:44",
             "bitwise": True, "max_abs_err": 0.0,
             "timed_at": f"MLA wkv_b {tuple(w.shape)}, {main['blocks']} blocks",
             "library": "none: no single PyTorch call decodes the dictionary",
-            **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")}}, rows
-
-
-def _sdpa_vdim(q, k, v):
-    """SDPA over keys with a v head dim of their own; where the installed
-    torch refuses Dv ≠ Dqk, v is zero-padded to Dqk and the output cut."""
-    import torch.nn.functional as F
-    try:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True), "sdpa"
-    except RuntimeError:
-        pad = torch.nn.functional.pad(v, (0, q.shape[-1] - v.shape[-1]))
-        return (F.scaled_dot_product_attention(q, k, pad, is_causal=True)
-                [..., :v.shape[-1]], "sdpa, v zero-padded to Dqk")
-
-
-def check_flash_mla(rt, cfg, device, t_prefill, gen, timer):
-    """K2 at MLA's head dims: (B, 16, T, 192) against (B, 16, T + 32,
-    192/128), q_offset 0 (the prefill over a cache of T + 32), and on a
-    ragged prime T."""
-    fa = rt["fa"]
-    hq = cfg.n_heads
-    d, dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
-    rows, worst = [], 0.0
-    for tq in (t_prefill, 197):
-        tk = tq + MAX_NEW
-        q = torch.randn((BATCH, hq, tq, d), generator=gen, device=device)
-        k = torch.randn((BATCH, hq, tk, d), generator=gen, device=device)
-        v = torch.randn((BATCH, hq, tk, dv), generator=gen, device=device)
-        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        err = float((fa.flash_attention(qb, kb, vb).float()
-                     - fa.flash_attention_plain(qb, kb, vb).float())
-                    .abs().max())
-        qf = qb.float()
-        err32 = float((fa.flash_attention(qf, kb, vb)
-                       - fa.flash_attention_plain(qf, kb, vb)).abs().max())
-        worst = max(worst, err)
-        if not (err <= FLASH_ATOL_BF16 and err32 <= FLASH_ATOL_F32):
-            raise AssertionError(f"K2 (192, 128) T={tq}: bf16 err {err}, "
-                                 f"f32 err {err32}")
-        pairs = sum(min(tk, i + 1) for i in range(tq))
-        seen_k = min(tk, tq)
-        b, by = bound_ms(2 * BATCH * hq * (tq + seen_k) * (d + dv) + 0.0,
-                         2.0 * (d + dv) * BATCH * hq * pairs)
-        kr, vr = kb[:, :, :tq], vb[:, :, :tq]
-        _, lib_name = _sdpa_vdim(qb, kr, vr)
-        rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
-                     "max_abs_err": err, "max_abs_err_f32": err32,
-                     "ms": timer.graph_ms(
-                         [lambda: fa.flash_attention(qb, kb, vb)] * 8),
-                     "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
-                         qb, kb, vb)),
-                     # SDPA's causal mask is aligned top-left; over the
-                     # first Tq keys it is the same function
-                     "library_ms": timer.graph_ms(
-                         [lambda: _sdpa_vdim(qb, kr, vr)[0]] * 8),
-                     "library": lib_name, "bound_ms": b, "bound_by": by})
-    main = rows[0]
-    return {"name": "flash_attention", "route": "cuda", "path": cfg.name,
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:80",
-            "max_abs_err": worst,
-            "timed_at": f"MLA prefill (B={BATCH}, {hq}, T={t_prefill}, {d}) "
-                        f"vs Tk={t_prefill + MAX_NEW}, Dv={dv}",
-            "library": main["library"],
             **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by")}}, rows
 
@@ -569,6 +516,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     gen_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCH_COUNTS)
     materialized = dict(L.MATERIALIZE_COUNTS)
+    dispatched = dict(ops.DISPATCH_COUNTS)
     peak = torch.cuda.max_memory_allocated(device)
     prefill, _ = rt["make_serve_fns"](cfg, device=device)
     ids = torch.as_tensor(batch, device=device)
@@ -589,7 +537,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
            "decode_tokens_per_s": BATCH * (MAX_NEW - 1) / (gen_s - prefill_s),
            "peak_mem_bytes": peak, "stats": state.stats,
            "launches": launches, "materialize_counts": materialized,
-           "dispatch_counts": dict(ops.DISPATCH_COUNTS),
+           "dispatch_counts": dispatched,
            "first_request_tokens": new[0].tolist()}
     ok = (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
           and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
@@ -603,20 +551,12 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     return e2e
 
 
-def llama_path(rt, device, gen, timer, kernels, failed):
-    """Llama-3.2-1B: pack, K1/K5/K2 at its shapes, serve, card vs CPU."""
-    cfg = rt["get_config"]("llama3.2-1b").full
-    batch, lens = make_prompts(cfg.vocab_size)
-    t_prefill = batch.shape[1]
-    state, packing = pack(rt, cfg, device, SEED)
+def run_checks(cfg, checks, kernels, failed):
+    """Run each ``(name, check)``; a check returns (row, detail).  Rows go
+    to ``kernels`` with the path's name; a check that raises is a failed
+    phase.  → the rows."""
     rows, detail = [], {}
-    for name, fn in (
-            ("fused_decode_matmul",
-             lambda: check_fused(rt, state, device, t_prefill, gen, timer)),
-            ("dequant_matmul",
-             lambda: (check_dequant(rt, state, device, gen, timer), None)),
-            ("flash_attention",
-             lambda: check_flash(rt, cfg, device, t_prefill, gen, timer))):
+    for name, fn in checks:
         try:
             row, detail[name] = fn()
             rows.append(dict(row, path=cfg.name))
@@ -624,6 +564,35 @@ def llama_path(rt, device, gen, timer, kernels, failed):
             traceback.print_exc()
             failed.append(f"{cfg.name} kernel {name}")
     log(f"kernel_detail {cfg.name} " + json.dumps(detail))
+    kernels.extend(rows)
+    return rows
+
+
+def llama_path(rt, device, gen, timer, kernels, failed):
+    """Llama-3.2-1B: pack, K1/K5/K2 at its shapes, serve, card vs CPU."""
+    cfg = rt["get_config"]("llama3.2-1b").full
+    batch, lens = make_prompts(cfg.vocab_size)
+    t_prefill = batch.shape[1]
+    state, packing = pack(rt, cfg, device, SEED)
+    blocks = state.params["blocks"]
+    projections = [(name, [b[grp][name] for b in blocks], True)
+                   for grp, name in (("attn", "wq"), ("attn", "wk"),
+                                     ("attn", "wv"), ("attn", "wo"),
+                                     ("mlp", "w_gate"), ("mlp", "w_up"),
+                                     ("mlp", "w_down"))]
+    rows = run_checks(cfg, (
+        ("fused_decode_matmul",
+         lambda: check_fused(rt, state.lut, projections, device,
+                             BATCH * t_prefill, gen, timer,
+                             "one layer's 7 projections, decode M=4")),
+        ("dequant_matmul",
+         lambda: (check_dequant(rt, state.params["embed"], device, gen,
+                                timer), None)),
+        ("flash_attention",
+         lambda: check_flash(rt, device, t_prefill, gen, timer, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.resolved_head_dim,
+                             cfg.resolved_head_dim, "prefill"))),
+        kernels, failed)
     e2e = {}
     try:
         e2e = serve(rt, cfg, state, device, batch, lens, want={
@@ -636,7 +605,6 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         failed.append(f"{cfg.name} e2e")
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
-    kernels.extend(rows)
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     del state
     torch.cuda.empty_cache()
@@ -650,28 +618,43 @@ def llama_path(rt, device, gen, timer, kernels, failed):
 
 def deepseek_path(rt, device, gen, timer, kernels, failed):
     """DeepSeek-V2-Lite at full width, depth 8: pack, K3/K4/K2 (192/128)
-    at its shapes, serve, card vs CPU at depth 2."""
+    and K1/K5 at its shapes, serve, card vs CPU at depth 2."""
     full = rt["get_config"]("deepseek-v2-lite-16b").full
     cfg = dataclasses.replace(full, n_layers=DS_LAYERS)
     batch, lens = make_prompts(cfg.vocab_size)
     t_prefill = batch.shape[1]
     state, packing = pack(rt, cfg, device, SEED)
-    rows, detail = [], {}
-    for name, fn in (
-            ("grouped_fused_decode_matmul",
-             lambda: check_grouped(rt, cfg, state, device, BATCH * t_prefill,
-                                   gen, timer)),
-            ("dict_decode", lambda: check_dict_decode(rt, cfg, state, timer)),
-            ("flash_attention",
-             lambda: check_flash_mla(rt, cfg, device, t_prefill, gen,
-                                     timer))):
-        try:
-            row, detail[name] = fn()
-            rows.append(row)
-        except Exception:
-            traceback.print_exc()
-            failed.append(f"{cfg.name} kernel {name}")
-    log(f"kernel_detail {cfg.name} " + json.dumps(detail))
+    first, moe = state.params["first_blocks"], state.params["blocks"]
+    attn = [b["attn"] for b in first + moe]
+    # MLA's wq, wkv_a and wo in all 8 layers and the shared experts' MLP
+    # in the 7 MoE layers make one MoE layer's K1 work; the dense first
+    # layer's 10944-wide MLP runs once per forward
+    projections = (
+        [(name, [a[name] for a in attn], True)
+         for name in ("wq", "wkv_a", "wo")]
+        + [(f"shared.{name}", [b["moe"]["shared"][name] for b in moe], True)
+           for name in ("w_gate", "w_up", "w_down")]
+        + [(f"first.{name}", [b["mlp"][name] for b in first], False)
+           for name in ("w_gate", "w_up", "w_down")])
+    rows = run_checks(cfg, (
+        ("grouped_fused_decode_matmul",
+         lambda: check_grouped(rt, cfg, state, device, BATCH * t_prefill,
+                               gen, timer)),
+        ("dict_decode", lambda: check_dict_decode(rt, cfg, state, timer)),
+        ("flash_attention",
+         lambda: check_flash(rt, device, t_prefill, gen, timer, cfg.n_heads,
+                             cfg.n_heads,
+                             cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                             cfg.v_head_dim, "MLA prefill")),
+        ("fused_decode_matmul",
+         lambda: check_fused(rt, state.lut, projections, device,
+                             BATCH * t_prefill, gen, timer,
+                             "one MoE layer's 6 projections (MLA wq, wkv_a, "
+                             "wo; shared experts), decode M=4", cold=True)),
+        ("dequant_matmul",
+         lambda: (check_dequant(rt, state.params["lm_head"], device, gen,
+                                timer), None))),
+        kernels, failed)
     n_moe = cfg.n_layers - cfg.first_dense_layers
     e2e = {}
     try:
@@ -692,7 +675,6 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         failed.append(f"{cfg.name} e2e")
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
-    kernels.extend(rows)
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     del state
     torch.cuda.empty_cache()

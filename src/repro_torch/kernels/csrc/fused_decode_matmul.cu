@@ -53,13 +53,33 @@ using qmoe::decode_block;
 // split.  Each expert's x (M × K), planes, scale/zero (N), output (M × N)
 // and split-K workspaces lie one after another; the LUT is shared.  All
 // offsets are taken in 64 bits, as a stack's planes may pass 2^31 bytes.
-// K1 is the case E = 1.
+// K1 is the case E = 1, and its kernels are instantiated with kGrouped
+// false: no expert index, no offsets.
 struct Expert {
   long long codes, lits;   // elements (uint16 codes, uint32 grams) per expert
   int splits;
 };
 
-template <int RPT, typename TOut>
+template <typename TOut>
+__device__ __forceinline__ void to_expert(
+    int e, const Expert& ex, int M, int N, int K,
+    const __nv_bfloat16* __restrict__& x, const uint16_t* __restrict__& codes,
+    const uint32_t* __restrict__& lits, const float* __restrict__& scale,
+    const float* __restrict__& zero, TOut* __restrict__& out,
+    float* __restrict__& part, float* __restrict__& sxpart) {
+  x += (long long)e * M * K;
+  codes += e * ex.codes;
+  lits += e * ex.lits;
+  scale += (long long)e * N;
+  zero += (long long)e * N;
+  out += (long long)e * M * N;
+  if (part != nullptr) {
+    part += (long long)e * ex.splits * M * N;
+    sxpart += (long long)e * ex.splits * M;
+  }
+}
+
+template <int RPT, typename TOut, bool kGrouped>
 __global__ void __launch_bounds__(qmoe::kThreads)
 fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                            const uint16_t* __restrict__ codes,
@@ -85,21 +105,14 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   const int j0 = blockIdx.x * tpb;
   const int tcount = min(tpb, nnt - j0);
   const int m0 = blockIdx.y * BM;
-  const int e = blockIdx.z / ex.splits, split = blockIdx.z - e * ex.splits;
+  const int split = kGrouped ? blockIdx.z % ex.splits : blockIdx.z;
   const int kt0 = split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, nkt);
   const int block_bytes = 4 * slots;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
-  x += (long long)e * M * K;
-  codes += e * ex.codes;
-  lits += e * ex.lits;
-  scale += (long long)e * N;
-  zero += (long long)e * N;
-  out += (long long)e * M * N;
-  if (part != nullptr) {
-    part += (long long)e * ex.splits * M * N;
-    sxpart += (long long)e * ex.splits * M;
-  }
+  if (kGrouped)
+    to_expert(blockIdx.z / ex.splits, ex, M, N, K, x, codes, lits, scale,
+              zero, out, part, sxpart);
 
   if (tid < BM) sumx[tid] = 0.f;
   __syncthreads();
@@ -155,7 +168,7 @@ __host__ __device__ inline size_t mma_sumx_offset(int tile_k) {
   return staged > accs ? staged : accs;
 }
 
-template <typename TOut>
+template <typename TOut, bool kGrouped>
 __global__ void __launch_bounds__(qmoe::kThreads)
 fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                const uint16_t* __restrict__ codes,
@@ -188,22 +201,14 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int j0 = blockIdx.x * tpb;
   const int tcount = min(tpb, nnt - j0);
   const int m0 = blockIdx.y * kMmaBM;
-  const int e = blockIdx.z / ex.splits;
-  const long long split = blockIdx.z - e * ex.splits;
+  const long long split = kGrouped ? blockIdx.z % ex.splits : blockIdx.z;
   const int kt0 = (int)split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, nkt);
   const int block_bytes = 4 * slots;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
-  x += (long long)e * M * K;
-  codes += e * ex.codes;
-  lits += e * ex.lits;
-  scale += (long long)e * N;
-  zero += (long long)e * N;
-  out += (long long)e * M * N;
-  if (part != nullptr) {
-    part += (long long)e * ex.splits * M * N;
-    sxpart += (long long)e * ex.splits * M;
-  }
+  if (kGrouped)
+    to_expert(blockIdx.z / ex.splits, ex, M, N, K, x, codes, lits, scale,
+              zero, out, part, sxpart);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
 #pragma unroll
@@ -324,7 +329,7 @@ int launch_kernel(Kern kern, int bm, size_t smem, const void* x,
       out_bf16, M, N, splits, stream, E);
 }
 
-template <typename TOut>
+template <typename TOut, bool kGrouped>
 int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
@@ -335,18 +340,34 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
                   part, sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,    \
                   cap, bpt, splits, E, stream
   if (bm == 4)
-    return launch_kernel(fused_decode_matmul_kernel<2, TOut>, 4,
+    return launch_kernel(fused_decode_matmul_kernel<2, TOut, kGrouped>, 4,
                          qbytes + (4 * tile_k + 4) * sizeof(float), QMOE_ARGS);
   if (bm == 16)
-    return launch_kernel(fused_decode_matmul_kernel<8, TOut>, 16,
+    return launch_kernel(fused_decode_matmul_kernel<8, TOut, kGrouped>, 16,
                          qbytes + (16 * tile_k + 16) * sizeof(float),
                          QMOE_ARGS);
   if (bm == kMmaBM && tile_k % kSubK == 0)
-    return launch_kernel(fused_decode_matmul_mma_kernel<TOut>, kMmaBM,
+    return launch_kernel(fused_decode_matmul_mma_kernel<TOut, kGrouped>,
+                         kMmaBM,
                          mma_sumx_offset(tile_k) + kMmaBM * sizeof(float),
                          QMOE_ARGS);
 #undef QMOE_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename TOut>
+int launch_any(int E, int bm, const void* x, const void* codes,
+               const void* lits, const void* lut, const void* scale,
+               const void* zero, void* out, void* part, void* sxpart,
+               int out_bf16, int M, int N, int K, int tile_n, int tile_k,
+               int slots, int cap, int bpt, int splits, cudaStream_t stream) {
+  if (E == 1)
+    return launch<TOut, false>(bm, x, codes, lits, lut, scale, zero, out,
+                               part, sxpart, out_bf16, M, N, K, tile_n,
+                               tile_k, slots, cap, bpt, splits, E, stream);
+  return launch<TOut, true>(bm, x, codes, lits, lut, scale, zero, out, part,
+                            sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,
+                            cap, bpt, splits, E, stream);
 }
 
 }  // namespace
@@ -369,10 +390,10 @@ extern "C" int qmoe_fused_decode_matmul(
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   if (out_bf16)
-    return launch<__nv_bfloat16>(bm, x, codes, lits, lut, scale, zero, out,
-                                 part, sxpart, 1, M, N, K, tile_n, tile_k,
-                                 slots, cap, bpt, splits, E, s);
-  return launch<float>(bm, x, codes, lits, lut, scale, zero, out, part,
-                       sxpart, 0, M, N, K, tile_n, tile_k, slots, cap, bpt,
-                       splits, E, s);
+    return launch_any<__nv_bfloat16>(E, bm, x, codes, lits, lut, scale, zero,
+                                     out, part, sxpart, 1, M, N, K, tile_n,
+                                     tile_k, slots, cap, bpt, splits, s);
+  return launch_any<float>(E, bm, x, codes, lits, lut, scale, zero, out,
+                           part, sxpart, 0, M, N, K, tile_n, tile_k, slots,
+                           cap, bpt, splits, s);
 }

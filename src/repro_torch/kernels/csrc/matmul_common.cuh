@@ -224,7 +224,7 @@ __global__ void splitk_epilogue(const float* __restrict__ part,
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long mn = (long long)M * N;
   if (i >= mn * E) return;
-  const long long e = i / mn, r = i - e * mn;
+  const long long e = E == 1 ? 0 : i / mn, r = i - e * mn;
   int m = (int)(r / N), n = (int)(r - (long long)m * N);
   const float* pe = part + e * splits * mn;
   const float* se = sxpart + e * splits * M;

@@ -15,7 +15,6 @@ import collections
 import torch
 
 from .dequant_matmul import dequant_matmul as _dequant_matmul
-from .dict_decode import dict_decode as _dict_decode
 from .flash_attention import flash_attention as _flash_attention
 from .fused_decode_matmul import fused_decode_matmul as _fused
 from .fused_decode_matmul import grouped_fused_decode_matmul as _grouped
@@ -50,14 +49,6 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
                tile_n=packed.tile_n, tile_k=packed.tile_k,
                out_dtype=out_dtype)
     return y.reshape(*lead, n)
-
-
-def dict_decode(codes, literals, nlit, lut):
-    """(nb, slots) codes → (nb, slots·S) uint8.  ``nlit`` is carried for
-    the reference's signature; the kernel masks a ragged block count, so
-    nothing is padded."""
-    del nlit
-    return _dict_decode(codes, literals, lut)
 
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):

@@ -260,5 +260,14 @@ def test_moe_prefill_card_matches_cpu(card):
     assert _build.LAUNCH_COUNTS["flash_attention"] == cfg.n_layers
     assert _build.LAUNCH_COUNTS["dequant_matmul"] == 1
     assert L.MATERIALIZE_COUNTS["packed_stacked"] == 0
-    if torch.equal(routing["cuda"].cpu(), routing["cpu"]):
-        assert (out["cuda"] - out["cpu"]).abs().max().item() <= 3e-2
+    # bf16 router logits can tie near the top-k boundary, so a few tokens
+    # may take another expert set on the card; a request whose last token
+    # does is left out of the logit check (at most one of the three)
+    b, t = ids.shape
+    differs = (routing["cuda"].cpu().sort(-1).values
+               != routing["cpu"].sort(-1).values).any(-1).any(0)
+    assert int(differs.sum()) <= b * t // 10, int(differs.sum())
+    kept = ~differs.reshape(b, t)[:, -1]
+    assert int(kept.sum()) >= b - 1
+    err = (out["cuda"] - out["cpu"]).abs()[kept].max().item()
+    assert err <= 3e-2, err

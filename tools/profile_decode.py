@@ -1,14 +1,22 @@
 """Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py [--model llama|deepseek|both]
+    python3 tools/profile_decode.py [--model llama|deepseek|both|k1]
+                                    [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
 and profiles one prefill and 8 decode steps with torch.profiler: device
 time by kernel, and the share of the window's wall time in which the
-device ran a kernel.  Prints one JSON line per window.  Needs one CUDA
-card.
+device ran a kernel.  Prints one JSON line per window.
+
+``--model k1`` times K1 (``fused_decode_matmul``) alone on Llama-3.2-1B's
+seven projection shapes, as chip_smoke.py does (CUDA-graph replays walking
+the 16 layers' planes), at M = 4 and M = 700, and prints ptxas' register
+report and one JSON line.  ``--src DIR`` imports the port from ``DIR``
+instead of this checkout's ``src``: to compare two commits on one card,
+unpack the other (``git archive``) into a gitignored directory and run
+both in one call, in the order A, B, B, A.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -23,14 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
-
-from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.policy import CompressionPolicy  # noqa: E402
-from repro_torch.models import lm as LM  # noqa: E402
-from repro_torch.serve.engine import (build_serve_params,  # noqa: E402
-                                      make_serve_fns, sample_tokens)
-
+ROOT = Path(__file__).resolve().parents[1]
 BATCH, DECODE_STEPS, SEED = 4, 8, 0
 MODELS = {"llama": ("llama3.2-1b", None),
           "deepseek": ("deepseek-v2-lite-16b", 8)}    # (arch, layers)
@@ -72,6 +73,11 @@ def window(model, name, fn):
 
 
 def profile_model(model, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import (build_serve_params, make_serve_fns,
+                                          sample_tokens)
     arch, layers = MODELS[model]
     cfg = get_config(arch).full
     if layers:
@@ -105,15 +111,65 @@ def profile_model(model, dev):
     window(cfg.name, f"decode x{DECODE_STEPS}", run_decode)
 
 
+def time_k1(dev, label, reps=20):
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import Timer
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import build_serve_params
+    t0 = time.perf_counter()
+    _build.build([fdm.NAME])
+    build_s = time.perf_counter() - t0
+    cfg = get_config("llama3.2-1b").full
+    params = LM.init_lm(cfg, seed=SEED, device=dev)
+    st = build_serve_params(params, CompressionPolicy(), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timer = Timer(dev)
+    rows, layer_ms = [], 0.0
+    for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                      ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
+                      ("mlp", "w_down")):
+        ws = [b[grp][name] for b in st.params["blocks"]]
+        n, k = ws[0].shape
+        for m in (BATCH, 700):
+            x = torch.randn((m, k), generator=gen, device=dev
+                            ).to(torch.bfloat16)
+            fns = [lambda w=w: fdm.fused_decode_matmul(
+                x, w.codes, w.literals, st.lut, w.scale, w.zero,
+                shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+                for w in ws]
+            ms = timer.graph_ms(fns, reps=reps)
+            rows.append({"proj": name, "N": n, "K": k, "M": m, "ms": ms})
+            if m == BATCH:
+                layer_ms += ms
+    for line in _build.ptxas_report(fdm.NAME).splitlines():
+        if "registers" in line:
+            print(line.strip())
+    print(json.dumps({"k1": label, "build_s": build_s,
+                      "layer_ms_m4": layer_ms, "rows": rows}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=["llama", "deepseek", "both"],
+    ap.add_argument("--model", choices=["llama", "deepseek", "both", "k1"],
                     default="both")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the directory to import repro_torch from")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
     dev = torch.device("cuda", 0)
+    if args.model == "k1":
+        time_k1(dev, args.src)
+        return 0
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
         profile_model(model, dev)
