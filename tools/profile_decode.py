@@ -10,10 +10,16 @@ and profiles one prefill and 8 decode steps with torch.profiler: device
 time by kernel, and the share of the window's wall time in which the
 device ran a kernel.  Prints one JSON line per window.
 
-``--model k1`` times K1 (``fused_decode_matmul``) alone on Llama-3.2-1B's
-seven projection shapes, as chip_smoke.py does (CUDA-graph replays walking
-the 16 layers' planes), at M = 4 and M = 700, and prints ptxas' register
-report and one JSON line.  ``--src DIR`` imports the port from ``DIR``
+``--model k1`` times the fused decode-matmul kernels alone, at M = 4
+(decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
+Llama-3.2-1B's seven projection shapes, as chip_smoke.py does (CUDA-graph
+replays walking the 16 layers' planes), and on DeepSeek-V2-Lite's first
+down projection (2048 × 10944, tile_k 64; the L2 flushed before each
+call); K3 (``grouped_fused_decode_matmul``) on one DeepSeek-shaped expert
+stack (64 × 1408 × 2048) at cap 4 and 83.  The two DeepSeek shapes are
+packed from seeded random weights of those shapes alone.  Prints the
+registers and spills ptxas reports for each kernel of the source, and
+one JSON line.  ``--src DIR`` imports the port from ``DIR``
 instead of this checkout's ``src``: to compare two commits on one card,
 unpack the other (``git archive``) into a gitignored directory and run
 both in one call, in the order A, B, B, A.  Needs one CUDA card.
@@ -23,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -111,10 +118,32 @@ def profile_model(model, dev):
     window(cfg.name, f"decode x{DECODE_STEPS}", run_decode)
 
 
+def ptxas_kernels(report: str) -> list:
+    """(kernel, registers, spill bytes) for each entry function of a
+    ``ptxas -v`` report, the template arguments shortened."""
+    rows, fn, spill = [], None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), 0
+            short = re.search(r"\d+(\w+?kernel)I(\w+?)EEv", fn)
+            if short:
+                fn = f"{short.group(1)}<{short.group(2)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            rows.append({"kernel": fn, "registers": int(m.group(1)),
+                         "spill_bytes": spill})
+    return rows
+
+
 def time_k1(dev, label, reps=20):
-    sys.path.insert(0, str(ROOT))
     from chip_smoke import Timer
     from repro_torch.configs import get_config
+    from repro_torch.core.compressed import pack_expert_stack
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_decode_matmul as fdm
@@ -148,11 +177,44 @@ def time_k1(dev, label, reps=20):
             rows.append({"proj": name, "N": n, "K": k, "M": m, "ms": ms})
             if m == BATCH:
                 layer_ms += ms
-    for line in _build.ptxas_report(fdm.NAME).splitlines():
-        if "registers" in line:
-            print(line.strip())
+    del st
+    torch.cuda.empty_cache()
+    # DeepSeek-V2-Lite: the first layer's down projection (tile_k 64; its
+    # ~34 MB of planes fit the L2, so each call is timed cold) and one
+    # expert stack of gate/up shape (~280 MB of planes, past the L2)
+    for proj, e, n, k, m_values in (
+            ("first.w_down", 1, 2048, 10944, (BATCH, 700)),
+            ("experts.w_gate", 64, 1408, 2048, (4, 83))):
+        ws = [torch.randn((n, k), generator=gen, device=dev) * 0.02
+              for _ in range(e)]
+        pl, lut = pack_expert_stack(ws)
+        del ws
+        kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+        for m in m_values:
+            if e == 1:
+                args = (pl.codes[0], pl.literals[0], lut, pl.scale[0],
+                        pl.zero[0])
+                x = torch.randn((m, k), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                ms = timer.graph_ms([lambda: fdm.fused_decode_matmul(
+                    x, *args, **kw)], reps=reps, cold=True)
+            else:
+                args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
+                x = torch.randn((e, m, k), generator=gen, device=dev
+                                ).to(torch.bfloat16)
+                ms = timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
+                    x, *args, **kw)] * 4, reps=reps)
+            rows.append({"proj": proj, "E": e, "N": n, "K": k, "M": m,
+                         "tile": [pl.tile_n, pl.tile_k], "ms": ms})
+        del pl, args
+        torch.cuda.empty_cache()
+    ptxas = ptxas_kernels(_build.ptxas_report(fdm.NAME))
+    for r in ptxas:
+        print(f"ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled")
     print(json.dumps({"k1": label, "build_s": build_s,
-                      "layer_ms_m4": layer_ms, "rows": rows}), flush=True)
+                      "layer_ms_m4": layer_ms, "rows": rows,
+                      "ptxas": ptxas}), flush=True)
 
 
 def main():
@@ -166,6 +228,9 @@ def main():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path.insert(1, str(ROOT))
+    from chip_smoke import nvidia_smi_line
+    print(f"card: {nvidia_smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
     if args.model == "k1":
         time_k1(dev, args.src)
