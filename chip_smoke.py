@@ -200,7 +200,8 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
     within MATMUL_RTOL on random x.  Calls are timed walking the layers'
     planes; with ``cold``, a walk whose planes fit twice in the L2 is timed
     with the L2 flushed before each call.  The row's times add up the
-    ``in_layer`` projections at decode: one layer's K1 work."""
+    ``in_layer`` projections: one layer's K1 work at decode (``ms``...)
+    and at the prefill (``prefill_ms``...)."""
     fdm = rt["fdm"]
 
     def planes(w):
@@ -209,6 +210,9 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
 
     rows, worst, bitwise = [], 0.0, True
     agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    pre = dict.fromkeys(("prefill_ms", "prefill_bound_ms",
+                         "prefill_library_ms"), 0.0)
+    pre_by = set()
     seen = set()
     for label, ws, in_layer in projections:
         w = ws[0]
@@ -260,11 +264,17 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
             if m == BATCH and in_layer:
                 for f in agg:
                     agg[f] += t[f]
+            if m == m_prefill and in_layer:
+                for f in pre:
+                    pre[f] += t[f[len("prefill_"):]]
+                pre_by.add(t["bound_by"])
     return {"name": "fused_decode_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
             "replaces": "src/repro/kernels/fused_decode_matmul.py:114",
             "bitwise": bitwise, "max_abs_err": worst, "timed_at": timed_at,
-            **agg, "bound_by": "bytes"}, rows
+            **agg, "bound_by": "bytes", **pre,
+            "prefill_timed_at": f"the same projections at M={m_prefill}",
+            "prefill_bound_by": "+".join(sorted(pre_by))}, rows
 
 
 def check_dequant(rt, head, device, gen, timer):
@@ -377,6 +387,9 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
                                    cfg.capacity_factor)}
     rows, worst, bitwise = [], 0.0, True
     agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    pre = dict.fromkeys(("prefill_ms", "prefill_bound_ms",
+                         "prefill_library_ms"), 0.0)
+    pre_by = set()
     for name in ("w_gate", "w_up", "w_down"):
         w = experts[name]
         e = w.codes.shape[0]
@@ -424,6 +437,10 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
             if phase == "decode":
                 for f in agg:
                     agg[f] += t[f]
+            else:
+                for f in pre:
+                    pre[f] += t[f[len("prefill_"):]]
+                pre_by.add(by)
         del wbt
     return {"name": "grouped_fused_decode_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
@@ -432,7 +449,10 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
             "timed_at": f"one MoE layer's 3 expert stacks, decode cap "
                         f"{caps['decode']}",
             "library": "torch.bmm on the materialized bf16 expert stack",
-            **agg, "bound_by": "bytes"}, rows
+            **agg, "bound_by": "bytes", **pre,
+            "prefill_timed_at": f"the same stacks at prefill cap "
+                                f"{caps['prefill']}",
+            "prefill_bound_by": "+".join(sorted(pre_by))}, rows
 
 
 def check_dict_decode(rt, cfg, state, timer):

@@ -4,8 +4,8 @@
 //   * K1 fused_decode_matmul (_kernel, _decode_tile, _accumulate), G = 1
 //     planes;
 //   * K3 grouped_fused_decode_matmul (_grouped_kernel): the same product for
-//     every expert of a stacked MoE weight in one launch, grid
-//     (N/128, M/BM, E · splits).
+//     every expert of a stacked MoE weight in one launch, the expert index
+//     in gridDim.z (expert · splits + split).
 //     The device code is K1's; a block finds its expert from blockIdx.z and
 //     offsets x, planes, scale/zero and output by per-expert strides (the
 //     LUT is shared).  At MoE decode E · N/128 blocks (704 or 1024 for
@@ -18,31 +18,44 @@
 // row rank = (escapes before it in the block), clipped to [0, cap − 1] as
 // _decode_tile clips it.  The decoded weight never reaches device memory.
 //
-// What bounds it on the H100: at decode (M = batch, 1–8) it reads the
-// compressed planes once — 2 bytes of code per 4 weights plus the literal
-// rows — so it is bound by memory bytes, not operations.  Design:
+// What bounds it on the H100:
+//   * At decode (M = batch, 1–8) it reads the compressed planes once — 2
+//     bytes of code per 4 weights plus the literal rows — so the bound is
+//     memory bytes; what fills a block's time is the decode loop's
+//     instructions per slot (PERF.md).
+//   * At prefill (M = 4 prompts × up to 200 tokens) the bound is the
+//     operations: 2·M·N·K on the tensor cores, about 0.024 ms for
+//     8192 × 2048 at M = 700 against 0.008 ms for its planes' bytes.  What
+//     fills the time is the decode, once per launch about 0.04 ms for
+//     8192 × 2048, and the product's 64-column steps: their loads, barriers
+//     and row sums, more than the tensor cores' own rate (PERF.md).  A
+//     kernel that decodes each tile again for every 128-row band of M pays
+//     the decode ⌈M/128⌉ times (6 at M = 700).
+// Design:
 //   * Blocks own 128 output columns.  At decode-sized M a block holds
 //     BM = 4 or 16 rows and the product runs on the SIMT cores, so M is
-//     not padded to 128 rows; at prefill-sized M it holds 128 rows and the
-//     product runs on the tensor cores (WMMA, bf16 in, f32 sums).
+//     not padded to 128 rows; at prefill-sized M the product runs on the
+//     tensor cores (mma.sync, bf16 in, f32 sums) and a block walks a group of
+//     128-row bands over each span of K tiles it decoded, so a tile is
+//     decoded once per band group (the wrapper's plan: at least two bands
+//     per group, one group per launch where the grid still fills the card).
 //   * The TPU grid carries its accumulator across K steps; blocks here run
 //     in no order, so a block loops over its K tiles itself.  To put more
-//     than N/128 blocks on the card, K tiles are split over gridDim.z and
-//     a second kernel sums the splits in a fixed order before the
-//     epilogue (deterministic; exact for integer-valued inputs).
+//     blocks on the card — and at prefill, to give a block with several
+//     bands a span that fits in shared memory — K tiles are split over
+//     gridDim.z and a second kernel sums the splits in a fixed order before
+//     the epilogue (no atomics: deterministic, exact for integer-valued
+//     inputs).
 //   * The LUT (up to 65 536 rows × 4 B = 256 KiB) does not fit in shared
 //     memory, so rows are read through the read-only cache (__ldg); it
 //     stays in the 50 MB L2.
 //   * The escape rank is a prefix count within a compressed block: one
 //     warp per block, each lane a contiguous run of slots, a shuffle scan
 //     across lanes — no block-wide barrier inside the decode.
-//   * On the H100 the decode loop, more than the bytes or the product,
-//     fills a block's time (PERF.md), so it is kept short per slot: codes
-//     are read 16 bytes at a time, a slot's place in the tile is a shift
-//     and a mask (tile_k is a power of two), and eight gram loads per lane
-//     are in flight before their stores.
-#include <mma.h>
-
+//   * The decode loop is kept short per slot: codes are read 16 bytes at a
+//     time, a slot's place in the tile is a shift and a mask (tile_k is a
+//     power of two), and eight gram loads per lane are in flight before
+//     their stores.
 #include "matmul_common.cuh"
 
 namespace {
@@ -141,40 +154,88 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // Prefill-sized M: the same decode, with the product on the tensor cores
-// (WMMA, bf16 × bf16 → f32; q ≤ 255 and bf16 x are exact in bf16, and the
-// sums of integer-valued inputs stay exact in f32, so the bitwise contract
-// with the plain version holds).  A block owns 128 rows × 128 columns;
-// eight warps hold 2 × 4 tiles of 64 × 32 accumulators.  Each decoded
-// (tile_n, tile_k) tile is widened to bf16 64 columns at a time.  Every
-// 128-row band decodes the weight tile again, so taller bands mean fewer
-// decodes per output.
+// (mma.sync m16n8k16, bf16 × bf16 → f32; q ≤ 255 and bf16 x are exact in
+// bf16, and the sums of integer-valued inputs stay exact in f32, so the
+// bitwise contract with the plain version holds).
+//
+// A block owns one 128-column stripe of N, one K split (tiles [kt0, kt1))
+// and a group of consecutive 128-row bands of M.  It decodes its K tiles a
+// span at a time (at most 512 columns in the wrapper's plan), widened to
+// bf16 side by side in shared memory, and every band of the group runs its
+// product over the decoded span, so a weight tile is decoded once per band
+// group, not once per band.  The wrapper's plan keeps that consistent: a
+// block with several bands gets a split of one span (its partial sums go
+// to the split-K workspace after each band); a block with one band may
+// walk many spans, accumulating.  Per band, x comes in 64-column steps by
+// cp.async into three stages, two steps' copies in flight while the
+// tensor cores run the current one.  Sixteen warps hold 4 × 4 tiles of
+// 32 × 32 f32 accumulators, their A (x) and B (q) fragments read by
+// ldmatrix.  At the band's end each thread writes its accumulators: raw
+// into the workspace, or through the affine epilogue into out when the
+// launch has one split.  One 512-thread block per SM: a 512-column span in
+// bf16 and the x stages take 185 KiB of shared memory, and 32
+// accumulators a thread stay in the 128 registers a thread may hold.
+constexpr int kMmaThreads = 512;
 constexpr int kMmaBM = 128;
 constexpr int kSubK = 64;
-constexpr int kLdB = kSubK + 8;     // bf16 per staged row (16-byte multiple)
-constexpr int kLdC = qmoe::kBN + 4; // f32 per accumulator row at the end
+constexpr int kLdX = kSubK + 8;     // bf16 per staged x row (16-byte multiple)
+constexpr int kStages = 3;
 
 __host__ __device__ constexpr size_t align128(size_t n) {
   return (n + 127) & ~size_t(127);
 }
 
-// Shared memory of the tensor-core kernel: the decoded tile, the bf16
-// staging of q and x, and — past all of them, or past the f32 accumulators
-// that reuse them at the end, whichever is larger — the row sums of x.
-__host__ __device__ inline size_t mma_sumx_offset(int tile_k) {
-  size_t staged = align128((size_t)qmoe::kBN * (tile_k + 4)) +
-                  align128((size_t)qmoe::kBN * kLdB * 2) +
-                  align128((size_t)kMmaBM * kLdB * 2);
-  size_t accs = align128((size_t)kMmaBM * kLdC * sizeof(float));
-  return staged > accs ? staged : accs;
+constexpr size_t kXStage = align128((size_t)kMmaBM * kLdX * 2);  // bytes
+
+// Shared memory of the tensor-core kernel for a span of span_cols decoded
+// columns: the span in bf16 (row stride span_cols + 8), kStages bf16
+// stages of one 64-column step of x, and the row sums of x.
+__host__ __device__ inline size_t mma_smem_bytes(int span_cols) {
+  return align128((size_t)qmoe::kBN * (span_cols + 8) * 2) +
+         kStages * kXStage + kMmaBM * sizeof(float);
 }
 
-// Two blocks per SM for the grouped instantiation: without the bound it
-// holds 170 registers and one block per SM, so no block's decode overlaps
-// another's product (K3 at a prefill cap of 83: 1.18 → 0.92 ms per stack on
-// one H100).  K1's instantiation holds 128 registers either way, and with
-// the bound it measured 5 % slower with tile_k 64, so it keeps the default.
+// dst[0:16) = src[0:16), or zeros when src_bytes is 0 (no read), without
+// passing through registers.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's copy groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// The four 8 × 8 bf16 matrices at the rows lanes 0–7, 8–15, 16–23, 24–31
+// point at, one register each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// d += a · b for one m16n8k16 tile, bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 template <typename TOut, bool kGrouped>
-__global__ void __launch_bounds__(qmoe::kThreads, kGrouped ? 2 : 1)
+__global__ void __launch_bounds__(kMmaThreads, 1)
 fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                const uint16_t* __restrict__ codes,
                                const uint32_t* __restrict__ lits,
@@ -186,147 +247,174 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                float* __restrict__ sxpart, int M, int N,
                                int K, int tile_n, int tile_k, int slots,
                                int cap, int bpt, int tiles_per_split,
-                               Expert ex) {
-  using namespace nvcuda;
+                               int span, int bands_per_block, Expert ex) {
+  constexpr int kWarps = kMmaThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int qstride = tile_k + 4;
-  unsigned char* qs = smem;                      // 128 × qstride decoded bytes
-  size_t off = align128((size_t)qmoe::kBN * qstride);
-  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(smem + off);  // 128 × kLdB
-  off += align128((size_t)qmoe::kBN * kLdB * 2);
-  __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(smem + off);  // kMmaBM × kLdB
-  float* sumx = reinterpret_cast<float*>(smem + mma_sumx_offset(tile_k));
-  // kMmaBM × kLdC f32 accumulators at the end, over the dead qs/qb/xb
-  float* cs = reinterpret_cast<float*>(smem);
+  const int qstride = span * tile_k + 8;   // bf16 per decoded row
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const size_t qbytes = align128((size_t)qmoe::kBN * qstride * 2);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + qbytes);
+  float* sumx = reinterpret_cast<float*>(smem + qbytes + kStages * kXStage);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;       // 2 × 4 warps of 64 × 32
+  const int wm = warp >> 2, wn = warp & 3;       // 4 × 4 warps of 32 × 32
+  const int g = lane >> 2, tq = lane & 3;        // mma fragment coordinates
   const int nkt = K / tile_k, nnt = N / tile_n;
   const int tpb = qmoe::kBN / tile_n;
   const int j0 = blockIdx.x * tpb;
   const int tcount = min(tpb, nnt - j0);
-  const int m0 = blockIdx.y * kMmaBM;
+  const int n0 = blockIdx.x * qmoe::kBN;
   const long long split = kGrouped ? blockIdx.z % ex.splits : blockIdx.z;
   const int kt0 = (int)split * tiles_per_split;
   const int kt1 = min(kt0 + tiles_per_split, nkt);
+  const int bands = (M + kMmaBM - 1) / kMmaBM;
+  const int band0 = blockIdx.y * bands_per_block;
+  const int band1 = min(band0 + bands_per_block, bands);
   const int block_bytes = 4 * slots;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
+  // the row sums feed the epilogue: every block's with one split, else
+  // the first stripe's, once per split
+  const bool need_sumx = part == nullptr || blockIdx.x == 0;
   if (kGrouped)
     to_expert(blockIdx.z / ex.splits, ex, M, N, K, x, codes, lits, scale,
               zero, out, part, sxpart);
+  // this lane's ldmatrix rows: A (x) rows of the warp's m16 tiles, B (q)
+  // rows of its n8 tile pairs, and the column offset of each
+  const int a_row = wm * 32 + (lane & 15), a_col = (lane >> 4) * 8;
+  const int b_row = wn * 32 + (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  float acc[2][4][4];                            // [m16 tile][n8 tile][4]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  if (tid < kMmaBM) sumx[tid] = 0.f;
-  __syncthreads();
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
-  for (int kt = kt0; kt < kt1; ++kt) {
-    for (int idx = warp; idx < tcount * bpt; idx += qmoe::kThreads / 32) {
-      int jj = idx / bpt, bb = idx - jj * bpt;
-      long long blk = ((long long)(j0 + jj) * nkt + kt) * bpt + bb;
+  for (int c0 = kt0; c0 < kt1; c0 += span) {
+    const int c1 = min(c0 + span, kt1);
+    // decode K tiles [c0, c1) of the stripe's N tiles: tile (jj, c0 + t)
+    // at rows jj·tile_n, columns t·tile_k of the span
+    const int per_row = (c1 - c0) * bpt;
+    for (int idx = warp; idx < tcount * per_row; idx += kWarps) {
+      const int jj = idx / per_row, rem = idx - jj * per_row;
+      const int t = rem / bpt, bb = rem - t * bpt;
+      const long long blk = ((long long)(j0 + jj) * nkt + c0 + t) * bpt + bb;
       decode_block(codes + blk * slots, lits + blk * cap, lut, slots, cap,
-                   qs + jj * tile_n * qstride, qstride, tk_shift,
-                   bb * block_bytes, lane);
+                   qs + jj * tile_n * qstride + t * tile_k, qstride,
+                   tk_shift, bb * block_bytes, lane);
     }
     __syncthreads();
-    for (int sub = 0; sub < tile_k; sub += kSubK) {
-      // widen 128 × 64 decoded bytes to bf16, 4 per thread-step
-      for (int i = tid; i < qmoe::kBN * (kSubK / 4); i += qmoe::kThreads) {
-        int r = i / (kSubK / 4), c = (i - r * (kSubK / 4)) * 4;
-        uint32_t w = *reinterpret_cast<const uint32_t*>(qs + r * qstride + sub + c);
-        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(qb + r * kLdB + c);
-        dst[0] = __floats2bfloat162_rn((float)(w & 0xFFu),
-                                       (float)((w >> 8) & 0xFFu));
-        dst[1] = __floats2bfloat162_rn((float)((w >> 16) & 0xFFu),
-                                       (float)(w >> 24));
+    const int steps = (c1 - c0) * tile_k / kSubK;
+    for (int band = band0; band < band1; ++band) {
+      const int m0 = band * kMmaBM;
+      if (c0 == kt0 && tid < kMmaBM) sumx[tid] = 0.f;
+      // x: 128 rows × 64 columns of step st into stage st % kStages, 16
+      // bytes per copy (the wrapper passes x 16-byte aligned and K is a
+      // multiple of 64 here); rows past M read nothing and are zero.  One
+      // copy group per step, empty past the last, so that waiting for all
+      // but the newest kStages − 2 groups always means step st is in.
+      auto load_x = [&](int st) {
+        if (st < steps) {
+          __nv_bfloat16* dst = xs + (st % kStages) * (kXStage / 2);
+          const long long xcol = (long long)c0 * tile_k + st * kSubK;
+          for (int i = tid; i < kMmaBM * (kSubK / 8); i += kMmaThreads) {
+            const int r = i / (kSubK / 8), c = (i - r * (kSubK / 8)) * 8;
+            const int m = m0 + r;
+            cp_async16(dst + r * kLdX + c,
+                       x + (long long)min(m, M - 1) * K + xcol + c,
+                       m < M ? 16 : 0);
+          }
+        }
+        cp_async_commit();
+      };
+      for (int st = 0; st < kStages - 1; ++st) load_x(st);
+      for (int st = 0; st < steps; ++st) {
+        cp_async_wait<kStages - 2>();
+        // step st is in; every warp is done with step st − 1's stage
+        __syncthreads();
+        load_x(st + kStages - 1);
+        const __nv_bfloat16* xt = xs + (st % kStages) * (kXStage / 2);
+        if (need_sumx) {
+          // four threads a row, 16 columns each: two 16-byte loads, a
+          // short chain of adds and two shuffles, no loop over rows
+          static_assert(kMmaThreads == 4 * kMmaBM, "four threads per row");
+          const int r = tid >> 2;
+          const uint4* src = reinterpret_cast<const uint4*>(
+              xt + r * kLdX + (tid & 3) * 16);
+          const uint4 v[2] = {src[0], src[1]};
+          float sx = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t w[4] = {v[h].x, v[h].y, v[h].z, v[h].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float2 f = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&w[u]));
+              sx += f.x + f.y;
+            }
+          }
+          sx += __shfl_xor_sync(0xffffffffu, sx, 1);
+          sx += __shfl_xor_sync(0xffffffffu, sx, 2);
+          if ((tid & 3) == 0) sumx[r] += sx;
+        }
+        const __nv_bfloat16* qt = qs + st * kSubK;
+#pragma unroll
+        for (int kk = 0; kk < kSubK; kk += 16) {
+          uint32_t a[2][4], b[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            ldmatrix_x4(a[i], xt + (a_row + i * 16) * kLdX + kk + a_col);
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            ldmatrix_x4(b[p], qt + (b_row + p * 16) * qstride + kk + b_col);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_bf16(acc[i][j], a[i], b[j >> 1][(j & 1) * 2],
+                       b[j >> 1][(j & 1) * 2 + 1]);
+        }
       }
-      // stage 128 rows × 64 columns of x, 8 bf16 (16 bytes) per load; the
-      // wrapper passes x 16-byte aligned and K is a multiple of 64 here
-      const long long xcol = (long long)kt * tile_k + sub;
-      for (int i = tid; i < kMmaBM * (kSubK / 8); i += qmoe::kThreads) {
-        int r = i / (kSubK / 8), c = (i - r * (kSubK / 8)) * 8;
-        int m = m0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M)
-          v = *reinterpret_cast<const uint4*>(x + (long long)m * K + xcol + c);
-        *reinterpret_cast<uint4*>(xb + r * kLdB + c) = v;
+      __syncthreads();     // the stages and the span are free again
+      if (c1 < kt1) continue;      // the band's sums go on over the next span
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + i * 16 + g + h * 8;
+          const int m = m0 + r;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int n = n0 + wn * 32 + j * 8 + tq * 2 + v;
+              const float a = acc[i][j][2 * h + v];
+              acc[i][j][2 * h + v] = 0.f;
+              if (m >= M || n >= N) continue;
+              if (part == nullptr)
+                qmoe::store(out + (long long)m * N + n,
+                            qmoe::affine(scale[n], zero[n], a, sumx[r]));
+              else
+                part[(split * M + m) * N + n] = a;
+            }
+          }
+        }
       }
-      __syncthreads();
-      for (int r = warp; r < kMmaBM; r += qmoe::kThreads / 32) {
-        float sx = __bfloat162float(xb[r * kLdB + lane]) +
-                   __bfloat162float(xb[r * kLdB + lane + 32]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sx += __shfl_xor_sync(0xffffffffu, sx, o);
-        if (lane == 0) sumx[r] += sx;
-      }
-#pragma unroll
-      for (int kk = 0; kk < kSubK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          wmma::load_matrix_sync(a[i], xb + (wm * 64 + i * 16) * kLdB + kk, kLdB);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], qb + (wn * 32 + j * 16) * kLdB + kk, kLdB);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+      if (part != nullptr && blockIdx.x == 0 && tid < kMmaBM && m0 + tid < M)
+        sxpart[split * M + m0 + tid] = sumx[tid];
+      __syncthreads();     // sumx is the next band's
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 64 + i * 16) * kLdC + wn * 32 + j * 16,
-                              acc[i][j], kLdC, wmma::mem_row_major);
-  __syncthreads();
-  const int n0 = blockIdx.x * qmoe::kBN;
-  for (int i = tid; i < kMmaBM * qmoe::kBN; i += qmoe::kThreads) {
-    int r = i / qmoe::kBN, c = i - r * qmoe::kBN;
-    int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float a = cs[r * kLdC + c];
-    if (part == nullptr)
-      qmoe::store(out + (long long)m * N + n,
-                  qmoe::affine(scale[n], zero[n], a, sumx[r]));
-    else
-      part[(split * M + m) * N + n] = a;
-  }
-  if (part != nullptr && blockIdx.x == 0 && tid < kMmaBM && m0 + tid < M)
-    sxpart[split * M + m0 + tid] = sumx[tid];
 }
 
-template <typename Kern, typename TOut>
-int launch_kernel(Kern kern, int bm, size_t smem, const void* x,
-                  const void* codes, const void* lits, const void* lut,
-                  const void* scale, const void* zero, TOut* out, void* part,
-                  void* sxpart, int out_bf16, int M, int N, int K, int tile_n,
-                  int tile_k, int slots, int cap, int bpt, int splits, int E,
-                  cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int nkt = K / tile_k;
-  int tiles_per_split = (nkt + splits - 1) / splits;
-  const long long nb = (long long)(N / tile_n) * nkt * bpt;
-  const Expert ex = {nb * slots, nb * cap, splits};
-  dim3 grid((N + qmoe::kBN - 1) / qmoe::kBN, (M + bm - 1) / bm, E * splits);
-  kern<<<grid, qmoe::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const uint16_t*>(codes), static_cast<const uint32_t*>(lits),
-      static_cast<const uint32_t*>(lut), static_cast<const float*>(scale),
-      static_cast<const float*>(zero), out,
-      splits > 1 ? static_cast<float*>(part) : nullptr,
-      static_cast<float*>(sxpart), M, N, K, tile_n, tile_k, slots, cap, bpt,
-      tiles_per_split, ex);
-  err = cudaGetLastError();
+// The split-K epilogue after a launch that wrote partial sums.
+template <typename TOut>
+int finish_launch(const void* part, const void* sxpart, const void* scale,
+                  const void* zero, TOut* out, int out_bf16, int M, int N,
+                  int splits, int E, cudaStream_t stream) {
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return qmoe::launch_splitk_epilogue(
       static_cast<const float*>(part), static_cast<const float*>(sxpart),
@@ -339,25 +427,59 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
            int tile_n, int tile_k, int slots, int cap, int bpt, int splits,
-           int E, cudaStream_t stream) {
+           int span, int bands_per_block, int E, cudaStream_t stream) {
+  const int nkt = K / tile_k;
+  const int tiles_per_split = (nkt + splits - 1) / splits;
+  const long long nb = (long long)(N / tile_n) * nkt * bpt;
+  const Expert ex = {nb * slots, nb * cap, splits};
+  const int stripes = (N + qmoe::kBN - 1) / qmoe::kBN;
+  auto* xp = static_cast<const __nv_bfloat16*>(x);
+  auto* cp = static_cast<const uint16_t*>(codes);
+  auto* lp = static_cast<const uint32_t*>(lits);
+  auto* up = static_cast<const uint32_t*>(lut);
+  auto* sp = static_cast<const float*>(scale);
+  auto* zp = static_cast<const float*>(zero);
+  auto* op = static_cast<TOut*>(out);
+  float* pp = splits > 1 ? static_cast<float*>(part) : nullptr;
+  auto* sxp = static_cast<float*>(sxpart);
+  if (bm == kMmaBM) {
+    const int bands = (M + kMmaBM - 1) / kMmaBM;
+    // a block with several bands must see its whole split in one span
+    if (tile_k % kSubK || span < 1 || bands_per_block < 1 ||
+        (bands_per_block > 1 && tiles_per_split > span))
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = mma_smem_bytes(span * tile_k);
+    auto kern = &fused_decode_matmul_mma_kernel<TOut, kGrouped>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // the most shared memory the SM can give
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kern,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(stripes, (bands + bands_per_block - 1) / bands_per_block,
+              E * splits);
+    kern<<<grid, kMmaThreads, smem, stream>>>(
+        xp, cp, lp, up, sp, zp, op, pp, sxp, M, N, K, tile_n, tile_k, slots,
+        cap, bpt, tiles_per_split, span, bands_per_block, ex);
+    return finish_launch(part, sxpart, scale, zero, op, out_bf16, M, N,
+                         splits, E, stream);
+  }
   const size_t qbytes = (size_t)qmoe::kBN * (tile_k + 4);
-#define QMOE_ARGS x, codes, lits, lut, scale, zero, static_cast<TOut*>(out), \
-                  part, sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,    \
-                  cap, bpt, splits, E, stream
-  if (bm == 4)
-    return launch_kernel(fused_decode_matmul_kernel<2, TOut, kGrouped>, 4,
-                         qbytes + (4 * tile_k + 4) * sizeof(float), QMOE_ARGS);
-  if (bm == 16)
-    return launch_kernel(fused_decode_matmul_kernel<8, TOut, kGrouped>, 16,
-                         qbytes + (16 * tile_k + 16) * sizeof(float),
-                         QMOE_ARGS);
-  if (bm == kMmaBM && tile_k % kSubK == 0)
-    return launch_kernel(fused_decode_matmul_mma_kernel<TOut, kGrouped>,
-                         kMmaBM,
-                         mma_sumx_offset(tile_k) + kMmaBM * sizeof(float),
-                         QMOE_ARGS);
-#undef QMOE_ARGS
-  return (int)cudaErrorInvalidValue;
+  auto kern = bm == 4 ? &fused_decode_matmul_kernel<2, TOut, kGrouped>
+                      : &fused_decode_matmul_kernel<8, TOut, kGrouped>;
+  if (bm != 4 && bm != 16) return (int)cudaErrorInvalidValue;
+  const size_t smem = qbytes + (bm * tile_k + bm) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(stripes, (M + bm - 1) / bm, E * splits);
+  kern<<<grid, qmoe::kThreads, smem, stream>>>(
+      xp, cp, lp, up, sp, zp, op, pp, sxp, M, N, K, tile_n, tile_k, slots,
+      cap, bpt, tiles_per_split, ex);
+  return finish_launch(part, sxpart, scale, zero, op, out_bf16, M, N, splits,
+                       E, stream);
 }
 
 template <typename TOut>
@@ -365,14 +487,17 @@ int launch_any(int E, int bm, const void* x, const void* codes,
                const void* lits, const void* lut, const void* scale,
                const void* zero, void* out, void* part, void* sxpart,
                int out_bf16, int M, int N, int K, int tile_n, int tile_k,
-               int slots, int cap, int bpt, int splits, cudaStream_t stream) {
+               int slots, int cap, int bpt, int splits, int span,
+               int bands_per_block, cudaStream_t stream) {
   if (E == 1)
     return launch<TOut, false>(bm, x, codes, lits, lut, scale, zero, out,
                                part, sxpart, out_bf16, M, N, K, tile_n,
-                               tile_k, slots, cap, bpt, splits, E, stream);
+                               tile_k, slots, cap, bpt, splits, span,
+                               bands_per_block, E, stream);
   return launch<TOut, true>(bm, x, codes, lits, lut, scale, zero, out, part,
                             sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,
-                            cap, bpt, splits, E, stream);
+                            cap, bpt, splits, span, bands_per_block, E,
+                            stream);
 }
 
 }  // namespace
@@ -381,15 +506,17 @@ int launch_any(int E, int bm, const void* x, const void* codes,
 // E weights of one shape in one launch: x (E, M, K), planes (E, nb, slots)
 // and (E, nb, cap, 4), scale/zero (E, N, 1), out (E, M, N) — K1 is E = 1,
 // K3 a whole expert stack.  bm: rows per block — 4 or 16 (SIMT product) or
-// 128 (tensor cores; needs tile_k % 64 == 0).  part/sxpart: f32 workspaces
-// of E·splits·M·N and E·splits·M (unused when splits == 1).  The literal
+// 128 (tensor cores; needs tile_k % 64 == 0, and takes span: K tiles
+// decoded at once, and bands_per_block: 128-row bands per block, which
+// needs a split of at most one span).  part/sxpart: f32 workspaces of
+// E·splits·M·N and E·splits·M (unused when splits == 1).  The literal
 // plane is read as one uint32 per gram (S = 4).
 extern "C" int qmoe_fused_decode_matmul(
     const void* x, const void* codes, const void* lits, const void* lut,
     const void* scale, const void* zero, void* out, void* part, void* sxpart,
     int out_bf16, int E, int M, int N, int K, int tile_n, int tile_k,
-    int slots, int cap, int bpt, int splits, int bm, int device,
-    void* stream) {
+    int slots, int cap, int bpt, int splits, int bm, int span,
+    int bands_per_block, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // This library links its own CUDA runtime: select the tensors' device.
   cudaError_t dev_err = cudaSetDevice(device);
@@ -397,8 +524,9 @@ extern "C" int qmoe_fused_decode_matmul(
   if (out_bf16)
     return launch_any<__nv_bfloat16>(E, bm, x, codes, lits, lut, scale, zero,
                                      out, part, sxpart, 1, M, N, K, tile_n,
-                                     tile_k, slots, cap, bpt, splits, s);
+                                     tile_k, slots, cap, bpt, splits, span,
+                                     bands_per_block, s);
   return launch_any<float>(E, bm, x, codes, lits, lut, scale, zero, out,
                            part, sxpart, 0, M, N, K, tile_n, tile_k, slots,
-                           cap, bpt, splits, s);
+                           cap, bpt, splits, span, bands_per_block, s);
 }

@@ -36,8 +36,27 @@ __device__ __forceinline__ int escapes_in(uint4 v) {
   return n;
 }
 
+// The two low bytes of w as two bf16 (the lower byte in the low half),
+// exactly: 2^23 + b as an f32 minus 2^23 is b, and an integer below 256 has
+// no bits below the top 16 of its f32.
+__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t w) {
+  const float lo = __uint_as_float(0x4B000000u | (w & 0xFFu)) - 8388608.f;
+  const float hi = __uint_as_float(0x4B000000u | ((w >> 8) & 0xFFu)) - 8388608.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// A decoded gram (4 weights) into a tile of bytes, or widened to 4 bf16.
+__device__ __forceinline__ void store_gram(unsigned char* p, uint32_t gram) {
+  *reinterpret_cast<uint32_t*>(p) = gram;
+}
+__device__ __forceinline__ void store_gram(__nv_bfloat16* p, uint32_t gram) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bytes_to_bf16x2(gram), bytes_to_bf16x2(gram >> 16));
+}
+
 // One warp decodes one compressed block (`slots` codes) into a row-major
-// byte tile of rows 1 << tk_shift bytes wide and qstride bytes apart,
+// tile of rows 1 << tk_shift weights wide and qstride elements apart
+// (bytes, or bf16 for the tensor-core product),
 // starting at byte offset byte0 of the block's stream: a LUT row for codes
 // != ESCAPE, and for an escape the literal row rank = (escapes before it in
 // the block), clipped to [0, cap − 1] as the TPU kernels clip it.  The
@@ -47,10 +66,11 @@ __device__ __forceinline__ int escapes_in(uint4 v) {
 // 8-code groups (and so is the block), codes are read 16 bytes at a time;
 // the block's codes must then start on a 16-byte boundary.  All 32 lanes
 // of the warp must call it together.
+template <typename Q>
 __device__ __forceinline__ void decode_block(
     const uint16_t* __restrict__ codes, const uint32_t* __restrict__ lits,
     const uint32_t* __restrict__ lut, int slots, int cap,
-    unsigned char* __restrict__ qtile, int qstride, int tk_shift, int byte0,
+    Q* __restrict__ qtile, int qstride, int tk_shift, int byte0,
     int lane) {
   const int spl = (slots + 31) >> 5;
   const int s0 = min(lane * spl, slots), s1 = min(s0 + spl, slots);
@@ -101,8 +121,8 @@ __device__ __forceinline__ void decode_block(
     for (int u = 0; u < 8; ++u) {
       if (s + u < s1) {
         int p = byte0 + 4 * (s + u);
-        *reinterpret_cast<uint32_t*>(qtile + (p >> tk_shift) * qstride +
-                                     (p & tk_mask)) = gram[u];
+        store_gram(qtile + (p >> tk_shift) * qstride + (p & tk_mask),
+                   gram[u]);
       }
     }
   }

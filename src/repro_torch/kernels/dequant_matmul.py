@@ -69,7 +69,7 @@ def dequant_matmul(x, wq, scale, zero,
         return out
     rpt = 2 if m <= 4 else 8
     blocks = -(-n // 128) * -(-m // (2 * rpt))
-    splits = _split_count(blocks, -(-k // KC), dev)
+    splits = _split_count(blocks, -(-k // KC), _build.sm_count(dev))
     part = sx = None
     if splits > 1:
         part = torch.empty(splits * m * n, dtype=torch.float32, device=dev)

@@ -18,6 +18,7 @@ The kernel rounds x to bf16 before the product, as the TPU kernel does
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,8 +30,11 @@ GROUPED_NAME = "grouped_fused_decode_matmul"  # K3
 MAX_TILE_N = 128          # the kernel's block width (csrc: kBN)
 MAX_TILE_K = 512          # bounds the tile held in shared memory
 MAX_GRID_Z = 65535        # experts × K splits share gridDim.z
+MMA_BM = 128              # rows of a band of the tensor-core kernel
+SPAN_COLS = 512           # widest K span the tensor-core kernel decodes
+MMA_SMEM_MAX = 232448     # the most shared memory one block may take (H100)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 13 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 15 + [_P]
 
 
 def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
@@ -67,15 +71,80 @@ def block_rows(m: int, tile_k: int) -> int:
         return 4
     if m <= 16 or tile_k % 64:
         return 16
-    return 128
+    return MMA_BM
 
 
-def _split_count(blocks: int, steps: int, device) -> int:
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split_count(blocks: int, steps: int, sms: int) -> int:
     """K splits that put about two blocks on every SM, no split empty."""
-    sms = _build.sm_count(device)
-    want = max(1, min(steps, -(-2 * sms // blocks)))
-    per = -(-steps // want)
-    return -(-steps // per)
+    want = max(1, min(steps, _cdiv(2 * sms, blocks)))
+    return _cdiv(steps, _cdiv(steps, want))
+
+
+def mma_smem_bytes(span_cols: int) -> int:
+    """Shared memory of one tensor-core block decoding ``span_cols``
+    columns at once (csrc: ``mma_smem_bytes``): the span in bf16, three
+    bf16 stages of x (128 × 72) and 128 row sums."""
+    def align(b):
+        return _cdiv(b, 128) * 128
+    return (align(128 * (span_cols + 8) * 2) + 3 * align(128 * 72 * 2)
+            + 128 * 4)
+
+
+class Plan(NamedTuple):
+    """How one launch covers (E, M, N, K): ``bm`` rows per block, K cut
+    into ``splits`` runs of ``tiles_per_split`` tiles (the last may be
+    shorter), decoded ``span`` tiles at a time, and — at bm = 128 —
+    ``bands_per_block`` 128-row bands walked by each block over each span
+    it decodes."""
+    bm: int
+    splits: int
+    tiles_per_split: int
+    span: int
+    bands_per_block: int
+
+    def decodes_per_tile(self, m: int) -> int:
+        """Times one launch decodes each weight tile."""
+        return _cdiv(_cdiv(m, self.bm), self.bands_per_block)
+
+
+def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
+                sms: int) -> Plan:
+    """The launch of E products (M, K) × (K, N) with K tiles of ``tile_k``
+    on a card of ``sms`` SMs.
+
+    Decode-sized M (bm 4 or 16, SIMT): one band of rows per block, K split
+    so that about two blocks sit on every SM.
+
+    Prefill-sized M (bm 128, tensor cores; one block per SM): the kernel
+    decodes ``span`` K tiles at once, ``SPAN_COLS`` columns or all of K if
+    less, which fits a block's shared memory (``mma_smem_bytes``).  With
+    one band of rows (M ≤ 128) a tile is decoded once whatever the grid,
+    so K is split as at decode.  With several bands, a split is one span
+    and a block walks ``bands_per_block`` ≥ 2 bands over it, so each tile
+    is decoded ⌈bands / bands_per_block⌉ ≤ bands / 2 times: once, where
+    E · stripes · splits blocks already cover the SMs; else the fewest
+    bands per block that keep the grid within one block per SM.
+    The price is the split-K workspace, written and read once: 8·M·N·K /
+    SPAN_COLS bytes, about M·N·K · 4.7e-15 s at 3.35 TB/s, against the
+    decodes saved, at least bands/2 decodes of N·K weights at about 4e-12 s
+    each (PERF.md), M·N·K · 1.6e-14 s — under a third."""
+    bm = block_rows(m, tile_k)
+    nkt = k // tile_k
+    stripes = _cdiv(n, MAX_TILE_N)
+    bands = _cdiv(m, bm)
+    span = min(nkt, max(1, SPAN_COLS // tile_k))
+    if bm < MMA_BM or bands == 1:
+        splits = _split_count(e * stripes * bands, nkt, sms)
+        per_block = 1
+    else:
+        splits = _cdiv(nkt, span)
+        groups = max(1, min(bands // 2, sms // (e * stripes * splits)))
+        per_block = _cdiv(bands, groups)
+    return Plan(bm, splits, _cdiv(nkt, splits), span, per_block)
 
 
 def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
@@ -159,9 +228,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
     if m == 0 or e == 0:
         return out
-    bm = block_rows(m, tile_k)
-    blocks = e * -(-n // MAX_TILE_N) * -(-m // bm)
-    splits = _split_count(blocks, nkt, dev)
+    plan = launch_plan(m, n, k, tile_k, e, _build.sm_count(dev))
+    splits = plan.splits
     if e * splits > MAX_GRID_Z:
         raise ValueError(f"{name}: {e} weights × {splits} K splits exceed "
                          f"the grid's z extent {MAX_GRID_Z}")
@@ -176,7 +244,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
              out.data_ptr(), part.data_ptr() if part is not None else None,
              sx.data_ptr() if sx is not None else None,
              int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
-             slots, literals.shape[2], bpt, splits, bm, dev.index,
+             slots, literals.shape[2], bpt, splits, plan.bm, plan.span,
+             plan.bands_per_block, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1

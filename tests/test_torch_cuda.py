@@ -66,6 +66,8 @@ def _check_matmul(kernel, plain, xi, xr):
 @pytest.mark.parametrize("n,k,m,levels", [
     (64, 64, 1, 2), (64, 64, 37, 2), (192, 128, 9, 300), (256, 512, 130, 3),
     (128, 96, 70, 300), (2048, 2048, 5, 2),
+    (256, 704, 700, 300),   # tile_k 64, 11 tiles: no multiple of the span
+    (384, 1024, 129, 2),    # one row past a band: two bands per block
 ])
 def test_fused_decode_matmul_on_card(card, n, k, m, levels):
     g = _gen(card)
@@ -126,6 +128,7 @@ def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
     (3, 256, 512, 130),   # tensor-core rows, ragged M
     (4, 192, 128, 4),     # a ragged last 128-column block
     (64, 128, 256, 4),    # 64 experts at decode
+    (64, 640, 640, 83),   # 64 experts at a prefill cap, two spans a block
 ])
 def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
     g = _gen(card, 4)

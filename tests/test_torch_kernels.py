@@ -38,6 +38,7 @@ from repro_torch.kernels.dequant_matmul import (dequant_matmul,
 from repro_torch.kernels.dict_decode import dict_decode, dict_decode_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels import fused_decode_matmul as fdm
 from repro_torch.kernels.fused_decode_matmul import (
     fused_decode_matmul, fused_decode_matmul_plain,
     grouped_fused_decode_matmul, grouped_fused_decode_matmul_plain)
@@ -210,6 +211,54 @@ def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
         jops.grouped_decode_dequant_matmul(
             jnp.asarray(x), pl, lut, impl="pallas_interpret",
             out_dtype=jnp.float32)))
+
+
+@pytest.mark.parametrize("m,n,k,tile_k,e", [
+    (700, 2048, 2048, 512, 1),    # Llama-3.2-1B wq, wo
+    (700, 512, 2048, 512, 1),     # wk, wv
+    (700, 8192, 2048, 512, 1),    # w_gate, w_up
+    (700, 2048, 8192, 512, 1),    # w_down
+    (700, 3072, 2048, 512, 1),    # DeepSeek-V2-Lite MLA wq
+    (700, 576, 2048, 512, 1),     # MLA wkv_a (tile_n 64)
+    (700, 2816, 2048, 512, 1),    # shared experts' gate, up
+    (700, 2048, 2816, 256, 1),    # shared experts' down
+    (700, 10944, 2048, 512, 1),   # first layer's gate, up
+    (700, 2048, 10944, 64, 1),    # first layer's down: 171 tiles of 64
+    (83, 1408, 2048, 512, 64),    # expert stack gate/up at prefill cap
+    (83, 2048, 1408, 128, 64),    # expert stack down
+    (129, 2048, 2048, 512, 1),    # one row past a band
+    (129, 2048, 10944, 64, 1),
+    (700, 256, 704, 64, 1),       # 11 tiles of 64: no multiple of the span
+    (300, 1408, 2048, 512, 64),   # a cap of three bands
+    (4, 8192, 2048, 512, 1),      # decode: SIMT rows
+    (83, 1408, 2048, 32, 64),     # tile_k 32: SIMT rows at prefill
+])
+@pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
+def test_launch_plan(m, n, k, tile_k, e, sms):
+    """The fused kernels' launch plan: every K tile in exactly one split,
+    the grid's z extent, a tensor-core span that fits a block's shared
+    memory (and covers its split when a block walks several bands), and
+    fewer decodes of each tile than 128-row bands of M."""
+    plan = fdm.launch_plan(m, n, k, tile_k, e, sms)
+    nkt = k // tile_k
+    runs = [range(s * plan.tiles_per_split,
+                  min((s + 1) * plan.tiles_per_split, nkt))
+            for s in range(plan.splits)]
+    assert all(len(r) for r in runs)
+    assert [t for r in runs for t in r] == list(range(nkt))
+    assert e * plan.splits <= fdm.MAX_GRID_Z
+    assert plan.bm == fdm.block_rows(m, tile_k)
+    bands = -(-m // 128)
+    if plan.bm == fdm.MMA_BM:
+        assert fdm.mma_smem_bytes(plan.span * tile_k) <= fdm.MMA_SMEM_MAX
+        assert plan.span * tile_k <= fdm.SPAN_COLS
+        if plan.bands_per_block > 1:
+            assert plan.tiles_per_split <= plan.span
+        if m > 128:
+            assert plan.decodes_per_tile(m) < bands
+            assert plan.bands_per_block >= 2
+    else:
+        assert plan.bands_per_block == 1
 
 
 @pytest.mark.parametrize("shape,block_weights,max_codes", [
