@@ -56,10 +56,10 @@ __device__ __forceinline__ void store_gram(__nv_bfloat16* p, uint32_t gram) {
 
 // One warp decodes one compressed block (`slots` codes) into a row-major
 // tile of rows 1 << tk_shift weights wide and qstride elements apart
-// (bytes, or bf16 for the tensor-core product),
-// starting at byte offset byte0 of the block's stream: a LUT row for codes
-// != ESCAPE, and for an escape the literal row rank = (escapes before it in
-// the block), clipped to [0, cap − 1] as the TPU kernels clip it.  The
+// (bytes, or bf16 for the tensor-core product), starting at weight byte0
+// of the block's stream: a LUT row for codes != ESCAPE, and for an escape
+// the literal row rank = (escapes before it in the block), clipped to
+// [0, cap − 1] as the TPU kernels clip it.  The
 // escape rank is a prefix count: lanes own contiguous runs of slots, count
 // their escapes, and a shuffle scan across the warp gives each run its
 // first rank — no block-wide barrier.  When a run is a whole number of

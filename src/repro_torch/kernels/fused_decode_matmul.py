@@ -106,10 +106,6 @@ class Plan(NamedTuple):
     span: int
     bands_per_block: int
 
-    def decodes_per_tile(self, m: int) -> int:
-        """Times one launch decodes each weight tile."""
-        return _cdiv(_cdiv(m, self.bm), self.bands_per_block)
-
 
 def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
                 sms: int) -> Plan:
