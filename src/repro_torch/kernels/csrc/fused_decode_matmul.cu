@@ -26,11 +26,10 @@
 //   * At prefill (M = 4 prompts × up to 200 tokens) the bound is the
 //     operations: 2·M·N·K on the tensor cores, about 0.024 ms for
 //     8192 × 2048 at M = 700 against 0.008 ms for its planes' bytes.  What
-//     fills the time is the decode, once per launch about 0.04 ms for
-//     8192 × 2048, and the product's 64-column steps: their loads, barriers
-//     and row sums, more than the tensor cores' own rate (PERF.md).  A
-//     kernel that decodes each tile again for every 128-row band of M pays
-//     the decode ⌈M/128⌉ times (6 at M = 700).
+//     fills the time is the decode and the product's 64-column steps:
+//     their x copies, barriers and row sums, more than the tensor cores'
+//     own rate (PERF.md).  A kernel that decodes each tile again for every
+//     128-row band of M pays the decode ⌈M/128⌉ times (6 at M = 700).
 // Design:
 //   * Blocks own 128 output columns.  At decode-sized M a block holds
 //     BM = 4 or 16 rows and the product runs on the SIMT cores, so M is
