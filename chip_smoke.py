@@ -17,12 +17,13 @@ each in the phases below; the script exits non-zero if any phase fails:
      drawn for packing would not fit the card at full depth).
   3. Kernels against their plain PyTorch versions at the path's shapes, on
      the packed planes — every kernel the path launches, at every weight
-     shape it gives it: bitwise on integer-valued bf16 x (and for the
-     dictionary decode, on every input), within a stated tolerance on
-     random x; times (CUDA-graph replays with the weights past the L2, or
-     the L2 flushed in the graph, or CUDA events around single calls),
-     bounds, the plain version's time and one PyTorch library call's time
-     as a yardstick where one exists.
+     shape it gives it, and (Llama's K1 phase) K1 and K3 on weights the
+     packer tiles 2 and 1 weights wide: bitwise on integer-valued bf16 x
+     (and for the dictionary decode, on every input), within a stated
+     tolerance on random x; times (CUDA-graph replays with the weights past
+     the L2, or the L2 flushed in the graph, or CUDA events around single
+     calls), bounds, the plain version's time and one PyTorch library
+     call's time as a yardstick where one exists.
   4. End to end: ``generate`` answers 4 left-padded requests (prompt
      lengths 32–200 from the seed) with 32 new tokens each; the launch
      counts of that run, read right after it, must be what the path's
@@ -275,6 +276,40 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
             **agg, "bound_by": "bytes", **pre,
             "prefill_timed_at": f"the same projections at M={m_prefill}",
             "prefill_bound_by": "+".join(sorted(pre_by))}, rows
+
+
+def check_small_tiles(rt, device, gen):
+    """K1 and K3 on weights whose K the packer cuts into tiles 2 and 1
+    weights wide (K ≡ 2 mod 4, K odd), at M = batch and 129: bitwise on
+    integer x.  Packed from seeded random weights of those shapes alone."""
+    fdm, pack_stack = rt["fdm"], rt["pack_expert_stack"]
+    rows = []
+    for e, n, k in ((1, 128, 130), (1, 128, 131), (3, 128, 130)):
+        ws = [torch.randint(-3, 4, (n, k), generator=gen, device=device
+                            ).float() / 3 for _ in range(e)]
+        pl, lut = pack_stack(ws)
+        kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k,
+                  out_dtype=torch.bfloat16)
+        for m in (BATCH, 129):
+            x = torch.randint(-4, 5, (e, m, k), generator=gen,
+                              device=device).to(torch.bfloat16)
+            if e == 1:
+                args = (pl.codes[0], pl.literals[0], lut, pl.scale[0],
+                        pl.zero[0])
+                same = bool(torch.equal(
+                    fdm.fused_decode_matmul(x[0], *args, **kw),
+                    fdm.fused_decode_matmul_plain(x[0], *args, **kw)))
+            else:
+                args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
+                same = bool(torch.equal(
+                    fdm.grouped_fused_decode_matmul(x, *args, **kw),
+                    fdm.grouped_fused_decode_matmul_plain(x, *args, **kw)))
+            rows.append({"kernel": "K1" if e == 1 else "K3", "E": e, "N": n,
+                         "K": k, "M": m, "tile": [pl.tile_n, pl.tile_k],
+                         "bitwise": same})
+            if not same:
+                raise AssertionError(f"K1/K3 at tile_k {pl.tile_k}: {rows[-1]}")
+    return rows
 
 
 def check_dequant(rt, head, device, gen, timer):
@@ -571,6 +606,12 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     return e2e
 
 
+def merge(checked, **more):
+    """A check's (row, detail) with more detail: {"rows": ..., **more}."""
+    row, detail = checked
+    return row, {"rows": detail, **more}
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -602,9 +643,10 @@ def llama_path(rt, device, gen, timer, kernels, failed):
                                      ("mlp", "w_down"))]
     rows = run_checks(cfg, (
         ("fused_decode_matmul",
-         lambda: check_fused(rt, state.lut, projections, device,
-                             BATCH * t_prefill, gen, timer,
-                             "one layer's 7 projections, decode M=4")),
+         lambda: merge(check_fused(rt, state.lut, projections, device,
+                                   BATCH * t_prefill, gen, timer,
+                                   "one layer's 7 projections, decode M=4"),
+                       small_tiles=check_small_tiles(rt, device, gen))),
         ("dequant_matmul",
          lambda: (check_dequant(rt, state.params["embed"], device, gen,
                                 timer), None)),
@@ -777,6 +819,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.compressed import pack_expert_stack
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import dequant_matmul as dqm
@@ -790,6 +833,7 @@ def main() -> int:
     rt = {"fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
           "ops": ops, "_build": _build, "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
+          "pack_expert_stack": pack_expert_stack,
           "build_serve_params": build_serve_params, "generate": generate,
           "make_serve_fns": make_serve_fns}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32

@@ -54,7 +54,9 @@
 //   * The decode loop is kept short per slot: codes are read 16 bytes at a
 //     time, a slot's place in the tile is a shift and a mask (tile_k is a
 //     power of two), and eight gram loads per lane are in flight before
-//     their stores.
+//     their stores.  The packer gives tile_k 1 or 2 to some K (odd, or
+//     2 mod 4): a gram then spans rows and is stored weight by weight, and
+//     the SIMT kernel stages 4 columns, the ones past tile_k zero in x.
 #include "matmul_common.cuh"
 
 namespace {
@@ -105,10 +107,14 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                            int bpt, int tiles_per_split, Expert ex) {
   constexpr int BM = 2 * RPT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int qstride = tile_k + 4;
+  // a staged row holds at least 4 columns (one uint32 / float4 read); below
+  // tile_k 4 the columns past tile_k are x = 0, so any weight byte there
+  // adds nothing
+  const int tkw = max(tile_k, 4);
+  const int qstride = tkw + 4;
   unsigned char* qs = smem;                                     // 128 × qstride
-  float* xs = reinterpret_cast<float*>(smem + qmoe::kBN * qstride);  // BM × tile_k
-  float* sumx = xs + BM * tile_k;                                // BM
+  float* xs = reinterpret_cast<float*>(smem + qmoe::kBN * qstride);  // BM × tkw
+  float* sumx = xs + BM * tkw;                                   // BM
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n = tid % qmoe::kBN, g = tid / qmoe::kBN;
@@ -140,11 +146,10 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                    qs + jj * tile_n * qstride, qstride, tk_shift,
                    bb * block_bytes, lane);
     }
-    qmoe::load_x_tile(x, M, K, m0, kt * tile_k, tile_k, tile_k, BM, tile_k,
-                      xs);
+    qmoe::load_x_tile(x, M, K, m0, kt * tile_k, tile_k, tkw, BM, tkw, xs);
     __syncthreads();
-    qmoe::add_row_sums(xs, BM, tile_k, tile_k, sumx);
-    qmoe::dot_chunk<RPT>(qs + n * qstride, xs, tile_k, tile_k, g, acc);
+    qmoe::add_row_sums(xs, BM, tkw, tkw, sumx);
+    qmoe::dot_chunk<RPT>(qs + n * qstride, xs, tkw, tkw, g, acc);
     __syncthreads();
   }
   qmoe::finish_block<RPT, TOut>(acc, sumx, scale, zero, out, part, sxpart,
@@ -465,11 +470,12 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
     return finish_launch(part, sxpart, scale, zero, op, out_bf16, M, N,
                          splits, E, stream);
   }
-  const size_t qbytes = (size_t)qmoe::kBN * (tile_k + 4);
+  const int tkw = tile_k < 4 ? 4 : tile_k;     // the kernel's staged width
+  const size_t qbytes = (size_t)qmoe::kBN * (tkw + 4);
   auto kern = bm == 4 ? &fused_decode_matmul_kernel<2, TOut, kGrouped>
                       : &fused_decode_matmul_kernel<8, TOut, kGrouped>;
   if (bm != 4 && bm != 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = qbytes + (bm * tile_k + bm) * sizeof(float);
+  const size_t smem = qbytes + (bm * tkw + bm) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -54,10 +54,21 @@ __device__ __forceinline__ void store_gram(__nv_bfloat16* p, uint32_t gram) {
       make_uint2(bytes_to_bf16x2(gram), bytes_to_bf16x2(gram >> 16));
 }
 
+// One decoded weight (a byte b < 256), as a byte or as an exact bf16.
+__device__ __forceinline__ void store_weight(unsigned char* p, uint32_t b) {
+  *p = static_cast<unsigned char>(b);
+}
+__device__ __forceinline__ void store_weight(__nv_bfloat16* p, uint32_t b) {
+  *p = __float2bfloat16_rn(static_cast<float>(b));
+}
+
 // One warp decodes one compressed block (`slots` codes) into a row-major
 // tile of rows 1 << tk_shift weights wide and qstride elements apart
 // (bytes, or bf16 for the tensor-core product), starting at weight byte0
-// of the block's stream: a LUT row for codes != ESCAPE, and for an escape
+// of the block's stream; weight i of the stream lands at row i >> tk_shift,
+// column i & (tile width − 1), so below 4 weights a row (tk_shift < 2) a
+// gram spans 2 or 4 rows and is stored weight by weight.  A LUT row for
+// codes != ESCAPE, and for an escape
 // the literal row rank = (escapes before it in the block), clipped to
 // [0, cap − 1] as the TPU kernels clip it.  The
 // escape rank is a prefix count: lanes own contiguous runs of slots, count
@@ -117,12 +128,26 @@ __device__ __forceinline__ void decode_block(
         gram[u] = __ldg(src);
       }
     }
+    if (tk_shift >= 2) {
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      if (s + u < s1) {
-        int p = byte0 + 4 * (s + u);
-        store_gram(qtile + (p >> tk_shift) * qstride + (p & tk_mask),
-                   gram[u]);
+      for (int u = 0; u < 8; ++u) {
+        if (s + u < s1) {
+          int p = byte0 + 4 * (s + u);
+          store_gram(qtile + (p >> tk_shift) * qstride + (p & tk_mask),
+                     gram[u]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (s + u < s1) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            int p = byte0 + 4 * (s + u) + j;
+            store_weight(qtile + (p >> tk_shift) * qstride + (p & tk_mask),
+                         (gram[u] >> (8 * j)) & 0xFFu);
+          }
+        }
       }
     }
   }

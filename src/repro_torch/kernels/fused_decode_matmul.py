@@ -64,6 +64,20 @@ def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
     return y.to(out_dtype)
 
 
+def check_tiles(name: str, shape, tile_n: int, tile_k: int):
+    """Raise unless the kernel takes (tile_n, tile_k) tiles of ``shape``:
+    tile_n divides 128, tile_k is a power of two up to 512 (1 and 2
+    included: the packer picks them for K odd or 2 mod 4), and both
+    divide the weight."""
+    n, k = shape
+    if not (0 < tile_n <= MAX_TILE_N and MAX_TILE_N % tile_n == 0
+            and 0 < tile_k <= MAX_TILE_K and tile_k & (tile_k - 1) == 0
+            and n % tile_n == 0 and k % tile_k == 0):
+        raise ValueError(f"{name}: tile {(tile_n, tile_k)} of {shape} is "
+                         f"outside the kernel's range (tile_n | 128, "
+                         f"tile_k a power of two in [1, 512])")
+
+
 def block_rows(m: int, tile_k: int) -> int:
     """Rows per block: 4 or 16 with the SIMT product (decode-sized M), 128
     with the tensor-core product (prefill-sized M; needs 64 | tile_k)."""
@@ -183,12 +197,7 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     e, m = x.shape[0], x.shape[1]
     if x.ndim != 3 or x.shape[2] != k:
         raise ValueError(f"{name}: x {tuple(x.shape)} against weight {shape}")
-    if not (0 < tile_n <= MAX_TILE_N and MAX_TILE_N % tile_n == 0
-            and 4 <= tile_k <= MAX_TILE_K and tile_k & (tile_k - 1) == 0
-            and n % tile_n == 0 and k % tile_k == 0):
-        raise ValueError(f"{name}: tile {(tile_n, tile_k)} of {shape} is "
-                         f"outside the kernel's range (tile_n | 128, "
-                         f"tile_k a power of two in [4, 512])")
+    check_tiles(name, shape, tile_n, tile_k)
     if codes.ndim != 3 or codes.shape[0] != e:
         raise ValueError(f"{name}: codes {tuple(codes.shape)} for {e} "
                          "weight(s)")

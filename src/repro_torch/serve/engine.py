@@ -260,6 +260,8 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
              temperature: float = 0.0,
              generator: torch.Generator | None = None, device=None):
     """One-shot generation: one prefill, then ``max_new − 1`` decode steps.
+    The prefill's token is greedy; the decode steps follow
+    :func:`sample_tokens` with ``temperature`` and ``generator``.
 
     tokens (B, T0) int; returns (B, T0 + max_new) on the serving device.
     Runs on ``device`` (from ``ctx``, else the argument; the card unless
@@ -278,7 +280,9 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     prefill, decode_step = make_serve_fns(cfg, device=device)
     ids = tokens.long()
     logits, caches = prefill(params, lut, {"tokens": ids}, caches)
-    tok = sample_tokens(logits, temperature, generator)[:, None]
+    # the first new token is greedy whatever the temperature, as in the
+    # reference; only the decode steps sample
+    tok = sample_tokens(logits, 0.0)[:, None]
     out = [tok]
     for i in range(max_new - 1):
         logits, caches = decode_step(params, lut, tok, caches, t0 + i)

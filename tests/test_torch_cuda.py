@@ -68,6 +68,10 @@ def _check_matmul(kernel, plain, xi, xr):
     (128, 96, 70, 300), (2048, 2048, 5, 2),
     (256, 704, 700, 300),   # tile_k 64, 11 tiles: no multiple of the span
     (384, 1024, 129, 2),    # one row past a band: two bands per block
+    (128, 130, 4, 2),       # tile_k 2: a gram spans two rows of a tile
+    (128, 130, 129, 300),
+    (128, 131, 4, 300),     # tile_k 1: a gram spans four
+    (128, 131, 129, 2),
 ])
 def test_fused_decode_matmul_on_card(card, n, k, m, levels):
     g = _gen(card)
@@ -129,6 +133,7 @@ def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
     (4, 192, 128, 4),     # a ragged last 128-column block
     (64, 128, 256, 4),    # 64 experts at decode
     (64, 640, 640, 83),   # 64 experts at a prefill cap, two spans a block
+    (3, 128, 130, 83),    # tile_k 2
 ])
 def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
     g = _gen(card, 4)

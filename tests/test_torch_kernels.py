@@ -90,6 +90,8 @@ def _packed(shape, seed, block_weights=4096):
 @pytest.mark.parametrize("shape,m,bw", [
     ((64, 64), 3, 4096), ((96, 160), 5, 1024), ((256, 128), 16, 4096),
     ((32, 48), 7, 256),
+    ((128, 130), 4, 4096),     # tile_k 2: a gram spans two rows of a tile
+    ((128, 131), 5, 4096),     # tile_k 1: a gram spans four
 ])
 @pytest.mark.parametrize("kind", ["int", "float", "bf16"])
 def test_fused_decode_matmul_plain(shape, m, bw, kind):
@@ -232,6 +234,10 @@ def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
     (300, 1408, 2048, 512, 64),   # a cap of three bands
     (4, 8192, 2048, 512, 1),      # decode: SIMT rows
     (83, 1408, 2048, 32, 64),     # tile_k 32: SIMT rows at prefill
+    (4, 128, 130, 2, 1),          # tile_k 2 (K 2 mod 4) at decode
+    (129, 128, 130, 2, 1),        # and past 16 rows
+    (129, 128, 131, 1, 1),        # tile_k 1 (K odd)
+    (83, 1408, 2050, 2, 64),      # an expert stack at tile_k 2
 ])
 @pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
 def test_launch_plan(m, n, k, tile_k, e, sms):
@@ -258,6 +264,21 @@ def test_launch_plan(m, n, k, tile_k, e, sms):
             assert -(-bands // plan.bands_per_block) < bands
     else:
         assert plan.bands_per_block == 1
+
+
+@pytest.mark.parametrize("shape", [(128, 130), (256, 6), (1408, 2050),
+                                   (128, 131), (64, 130)])
+def test_small_tile_k_is_in_the_kernels_range(shape):
+    """The packer gives K odd or 2 mod 4 tiles 1 or 2 weights wide; the
+    wrappers' range check takes them (the kernel stages such a tile in 4
+    columns), without launching anything."""
+    tile_n, tile_k, _ = jbc.choose_fused_tiles(shape)
+    assert tile_k in (1, 2)
+    fdm.check_tiles(fdm.NAME, shape, tile_n, tile_k)
+    assert fdm.launch_plan(4, *shape, tile_k, 1, 132).bm == 4
+    for bad in (3, 1024):
+        with pytest.raises(ValueError, match="range"):
+            fdm.check_tiles(fdm.NAME, (128, 3 * 1024), 128, bad)
 
 
 @pytest.mark.parametrize("shape,block_weights,max_codes", [

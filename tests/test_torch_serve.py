@@ -98,6 +98,24 @@ def test_sampling_is_seeded():
     assert torch.equal(a, b) and a.shape == (4,)
 
 
+def test_sampled_generate_starts_greedy():
+    """Under sampling the first new token is still the prefill's argmax,
+    as in the reference (``repro.serve.engine.generate`` samples only in
+    its decode loop); the decode steps draw from the seeded generator."""
+    tcfg = tget_config("llama3.2-1b").smoke
+    params = TLM.init_lm(tcfg, seed=3, device="cpu")
+    toks = torch.from_numpy(_prompts(tcfg.vocab_size, seed=6))
+    t0 = toks.shape[1]
+    greedy = TE.generate(params, tcfg, toks, max_new=6, device="cpu")
+    runs = [TE.generate(params, tcfg, toks, max_new=6, temperature=50.0,
+                        generator=torch.Generator().manual_seed(7),
+                        device="cpu") for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][:, :t0 + 1], greedy[:, :t0 + 1])
+    # at this temperature the draws are near uniform over the vocabulary
+    assert not torch.equal(runs[0][:, t0 + 1:], greedy[:, t0 + 1:])
+
+
 # -- where the entry points run --------------------------------------------
 
 def test_entry_points_need_a_card_unless_told_cpu():
