@@ -353,8 +353,10 @@ def _sdpa(q, k, v):
 def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
     """K2 at the prefill's (B, hq, T, d) against (B, hkv, T + 32, d/dv)
     keys and values with q_offset 0 (the prefill over a cache of T + 32),
-    and on a ragged prime T."""
-    fa = rt["fa"]
+    and on a ragged prime T: the tensor-core kernel on bf16 operands (the
+    main path's), and the SIMT kernel with f32 q (``f32_*``), each
+    launched under its own count."""
+    fa, _build = rt["fa"], rt["_build"]
     rows, worst = [], 0.0
     for tq in (t_prefill, 197):
         tk = tq + MAX_NEW
@@ -362,22 +364,27 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
         k = torch.randn((BATCH, hkv, tk, d), generator=gen, device=device)
         v = torch.randn((BATCH, hkv, tk, dv), generator=gen, device=device)
         qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        yk = fa.flash_attention(qb, kb, vb)
-        yp = fa.flash_attention_plain(qb, kb, vb)
-        err = float((yk.float() - yp.float()).abs().max())
         qf = qb.float()
-        err32 = float((fa.flash_attention(qf, kb, vb)
-                       - fa.flash_attention_plain(qf, kb, vb)).abs().max())
+        _build.LAUNCH_COUNTS.clear()
+        yk = fa.flash_attention(qb, kb, vb)
+        yk32 = fa.flash_attention(qf, kb, vb)
+        routed = dict(_build.LAUNCH_COUNTS)
+        err = float((yk.float() - fa.flash_attention_plain(qb, kb, vb)
+                     .float()).abs().max())
+        err32 = float((yk32 - fa.flash_attention_plain(qf, kb, vb))
+                      .abs().max())
         worst = max(worst, err)
         if not (err <= FLASH_ATOL_BF16 and err32 <= FLASH_ATOL_F32
+                and routed == {fa.NAME: 1, fa.F32_NAME: 1}
                 and torch.isfinite(yk).all()):
             raise AssertionError(f"K2 ({d}, {dv}) T={tq}: bf16 err {err}, "
-                                 f"f32 err {err32}")
+                                 f"f32 err {err32}, launches {routed}")
         pairs = sum(min(tk, i + 1) for i in range(tq))
         seen_k = min(tk, tq)
-        b, by = bound_ms(
-            2 * BATCH * (hq * tq + hkv * seen_k) * (d + dv),
-            2.0 * (d + dv) * BATCH * hq * pairs)
+        kv_bytes = 2 * BATCH * hkv * seen_k * (d + dv)
+        flops = 2.0 * (d + dv) * BATCH * hq * pairs
+        b, by = bound_ms(kv_bytes + 2 * BATCH * hq * tq * (d + dv), flops)
+        b32, by32 = bound_ms(kv_bytes + 4 * BATCH * hq * tq * (d + dv), flops)
         kr, vr = kb[:, :, :tq], vb[:, :, :tq]
         rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
                      "max_abs_err": err, "max_abs_err_f32": err32,
@@ -389,17 +396,24 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
                      # first Tq keys it is the same function
                      "library_ms": timer.graph_ms(
                          [lambda: _sdpa(qb, kr, vr)] * 8),
-                     "bound_ms": b, "bound_by": by})
+                     "bound_ms": b, "bound_by": by,
+                     "f32_ms": timer.graph_ms(
+                         [lambda: fa.flash_attention(qf, kb, vb)] * 8),
+                     "f32_bound_ms": b32, "f32_bound_by": by32})
     main = rows[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
             "max_abs_err": worst,
             "timed_at": f"{what} (B={BATCH}, {hq}, T={t_prefill}, {d}) vs "
-                        f"Tk={t_prefill + MAX_NEW}, Dv={dv}",
+                        f"Tk={t_prefill + MAX_NEW}, Dv={dv}; bf16 "
+                        "operands, the tensor-core kernel",
             "library": "scaled_dot_product_attention",
             **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")}}, rows
+                                    "bound_ms", "bound_by", "f32_ms",
+                                    "f32_bound_ms")},
+            "f32_max_abs_err": max(r["max_abs_err_f32"] for r in rows),
+            "f32_kernel": "SIMT, f32 q (flash_attention_f32)"}, rows
 
 
 def plane_bytes(w) -> int:

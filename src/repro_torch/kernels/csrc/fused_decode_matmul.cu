@@ -58,10 +58,16 @@
 //     2 mod 4): a gram then spans rows and is stored weight by weight, and
 //     the SIMT kernel stages 4 columns, the ones past tile_k zero in x.
 #include "matmul_common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
+using qmoe::cp_async16;
+using qmoe::cp_async_commit;
+using qmoe::cp_async_wait;
 using qmoe::decode_block;
+using qmoe::ldmatrix_x4;
+using qmoe::mma_bf16;
 
 // Per-expert operands of a grouped launch: blockIdx.z = expert · splits +
 // split.  Each expert's x (M × K), planes, scale/zero (N), output (M × N)
@@ -197,45 +203,6 @@ constexpr size_t kXStage = align128((size_t)kMmaBM * kLdX * 2);  // bytes
 __host__ __device__ inline size_t mma_smem_bytes(int span_cols) {
   return align128((size_t)qmoe::kBN * (span_cols + 8) * 2) +
          kStages * kXStage + kMmaBM * sizeof(float);
-}
-
-// dst[0:16) = src[0:16), or zeros when src_bytes is 0 (no read), without
-// passing through registers.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's copy groups are in flight.
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
-// The four 8 × 8 bf16 matrices at the rows lanes 0–7, 8–15, 16–23, 24–31
-// point at, one register each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// d += a · b for one m16n8k16 tile, bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <typename TOut, bool kGrouped>

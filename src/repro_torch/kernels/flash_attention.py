@@ -1,14 +1,19 @@
 """Causal online-softmax attention (FlashAttention) with GQA.
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (the
-TPU Pallas kernel).  The CUDA kernel is ``csrc/flash_attention.cu``;
-:func:`flash_attention_plain` is the plain PyTorch version the CPU runs and
-the card's kernel is held against.  Layouts are the reference's: q
-(B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v (B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv)
-in q's dtype, with query i at position ``q_offset + i``.  Masked scores are
-NEG_INF = −1e30 and the denominator is max(l, 1e−30), as in the reference.
-The kernel takes the head-dim pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64
-and 128, and DeepSeek-V2's MLA (qk_nope + qk_rope = 192, v = 128).
+TPU Pallas kernel).  The CUDA source is ``csrc/flash_attention.cu``, with
+two kernels chosen by dtype: bf16 q, k and v (every path through
+``generate``) run the tensor-core kernel (``mma.sync``, bf16 operands, f32
+sums, P rounded to bf16 for P·V), counted as ``flash_attention``; any f32
+operand runs the SIMT kernel (f32 throughout), counted as
+``flash_attention_f32``.  :func:`flash_attention_plain` is the plain
+PyTorch version the CPU runs and the card's kernels are held against.
+Layouts are the reference's: q (B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v
+(B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv) in q's dtype, with query i at position
+``q_offset + i``.  Masked scores are NEG_INF = −1e30 and the denominator
+is max(l, 1e−30), as in the reference.  The kernels take the head-dim
+pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64 and 128, and DeepSeek-V2's
+MLA (qk_nope + qk_rope = 192, v = 128).
 """
 from __future__ import annotations
 
@@ -19,12 +24,15 @@ import torch
 
 from . import _build
 
-NAME = "flash_attention"
+NAME = "flash_attention"          # the CUDA source; the bf16 kernel's count
+F32_NAME = "flash_attention_f32"  # the SIMT kernel's count
 NEG_INF = -1e30
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (Dqk, Dv) in the kernel
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 9 + [_L] * 9 + [ctypes.c_float]
-             + [_I] * 3 + [_P])
+_MMA_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9 + [ctypes.c_float]
+                 + [_I] * 3 + [_P])
+_SIMT_ARGTYPES = ([_P] * 4 + [_I] * 9 + [_L] * 9 + [ctypes.c_float]
+                  + [_I] * 3 + [_P])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -50,13 +58,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.reshape(b, hq, tq, v.shape[-1]).to(q.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if its base and (B, H, T) strides are multiples of 8 bf16
+    (16 bytes, the tensor-core kernel's copy unit), else a contiguous copy
+    that is."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+        return t
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     sm_scale: float | None = None,
                     q_offset: int = 0) -> torch.Tensor:
     """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
     (B, Hq, Tq, Dv).  Any strides over (B, H, T) with the head dim
     contiguous; ``sm_scale`` defaults to 1/sqrt(Dqk).  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    plain version; CUDA tensors launch a kernel or raise: the tensor-core
+    kernel when q, k and v are bf16 (an operand whose base or (B, H, T)
+    strides are not multiples of 8 elements goes through ``.contiguous()``
+    first), the SIMT kernel when any is f32."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
@@ -84,12 +105,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if b * hq * tq == 0:
         return out
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    fn = _build.function(NAME, "qmoe_flash_attention", _ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if q.dtype == k.dtype == torch.bfloat16:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        fn = _build.function(NAME, "qmoe_flash_attention_mma", _MMA_ARGTYPES)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
+                 *v.stride()[:3], float(sm), int(causal), int(q_offset),
+                 dev.index, stream)
+        _build.check(err, NAME)
+        _build.LAUNCH_COUNTS[NAME] += 1
+        return out
+    fn = _build.function(NAME, "qmoe_flash_attention_simt", _SIMT_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
              b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
              *v.stride()[:3], float(sm), int(causal), int(q_offset),
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, NAME)
-    _build.LAUNCH_COUNTS[NAME] += 1
+             dev.index, stream)
+    _build.check(err, F32_NAME)
+    _build.LAUNCH_COUNTS[F32_NAME] += 1
     return out

@@ -112,18 +112,69 @@ def test_dequant_matmul_on_card(card, n, k, m):
     (2, 16, 16, 37, 69, 192, 128, 0, torch.float32),
     (1, 16, 16, 101, 133, 192, 128, 32, torch.bfloat16),
     (2, 16, 8, 64, 64, 192, 128, 5, torch.float32),    # GQA, one q block
+    (1, 8, 2, 1, 207, 64, 64, 206, torch.bfloat16),    # one row, full cache
+    (2, 4, 2, 15, 15, 64, 64, 0, torch.bfloat16),      # a warp's ragged tail
+    (1, 4, 4, 65, 80, 128, 128, 15, torch.bfloat16),   # a block's tail
+    (1, 4, 2, 40, 129, 64, 64, 89, torch.bfloat16),    # Tk = 64·2 + 1
+    (4, 32, 8, 175, 207, 64, 64, 0, torch.bfloat16),   # Llama: GQA rep 4
+    (4, 16, 16, 175, 207, 192, 128, 0, torch.bfloat16),  # MLA's prefill
 ])
 def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
                                  dtype):
+    """bf16 operands run the tensor-core kernel, f32 the SIMT kernel; each
+    launch counts under its own name."""
     g = _gen(card, 2)
     q = torch.randn((b, hq, tq, d), generator=g, device=card).to(dtype)
     k = torch.randn((b, hkv, tk, d), generator=g, device=card).to(dtype)
     v = torch.randn((b, hkv, tk, dv), generator=g, device=card).to(dtype)
+    _build.LAUNCH_COUNTS.clear()
     got = fa.flash_attention(q, k, v, q_offset=off)
-    assert got.shape == (b, hq, tq, dv)
+    assert dict(_build.LAUNCH_COUNTS) == {
+        fa.NAME if dtype == torch.bfloat16 else fa.F32_NAME: 1}
+    assert got.shape == (b, hq, tq, dv) and got.dtype == dtype
     err = (got.float() - fa.flash_attention_plain(q, k, v, q_offset=off)
            .float()).abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 1.6e-2), err
+
+
+@pytest.mark.parametrize("layout", ["noncausal", "cache_views", "unaligned"])
+def test_flash_attention_bf16_layouts_on_card(card, layout):
+    """The tensor-core kernel without the causal mask, on transposed views
+    of (B, L, H, D) caches as models/layers.py passes them (a cache longer
+    than the keys written, q_offset into it), and on an operand whose
+    T-stride is not a multiple of 8 elements (the wrapper copies it
+    contiguous first): within 1.6e-2 of the plain version, bf16."""
+    g = _gen(card, 6)
+    b, hq, hkv, tq, d = 2, 8, 2, 37, 64
+    causal, off = layout != "noncausal", 0
+    if layout == "cache_views":
+        tk, off = 100, 50
+        cache = torch.randn((b, tk, 2 * hkv, d), generator=g, device=card
+                            ).to(torch.bfloat16)
+        k = cache[:, :, :hkv].transpose(1, 2)
+        v = cache[:, :, hkv:].transpose(1, 2)
+        q = torch.randn((b, tq, hq, d), generator=g, device=card
+                        ).to(torch.bfloat16).transpose(1, 2)
+        assert not (q.is_contiguous() or k.is_contiguous())
+    else:
+        tk = 70
+        q = torch.randn((b, hq, tq, d), generator=g, device=card
+                        ).to(torch.bfloat16)
+        k = torch.randn((b, hkv, tk, d), generator=g, device=card
+                        ).to(torch.bfloat16)
+        v = torch.randn((b, hkv, tk, d), generator=g, device=card
+                        ).to(torch.bfloat16)
+    if layout == "unaligned":        # rows 68 elements apart
+        wide = torch.randn((b, hkv, tk, d + 4), generator=g, device=card
+                           ).to(torch.bfloat16)
+        v = wide[..., :d]
+        assert v.stride(2) % 8
+    _build.LAUNCH_COUNTS.clear()
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+    assert dict(_build.LAUNCH_COUNTS) == {fa.NAME: 1}
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+    err = (got.float() - want.float()).abs().max().item()
+    assert got.is_contiguous() and err <= 1.6e-2, err
 
 
 @pytest.mark.parametrize("e,n,k,m", [

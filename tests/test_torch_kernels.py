@@ -17,7 +17,11 @@ Tolerances:
     so f32 roundoff there is absolute, not relative to each output.  The
     Pallas kernels round x to bf16 before the product, so x is made
     bf16-representable for those comparisons.
+  * the card's tensor-core attention, emulated here (P rounded to bf16
+    for P·V), on bf16 inputs with a bf16 output: the card tests' 1.6e-2.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -362,3 +366,72 @@ def test_flash_attention_strided_views():
         flash_attention(qt, kt, vt, q_offset=2),
         flash_attention(*map(torch.from_numpy, (q, k, v)), q_offset=2),
         rtol=0, atol=0)
+
+
+def _tensor_core_attention(q, k, v, *, causal, q_offset):
+    """The numerics of the card's bf16 tensor-core K2 kernel, emulated in
+    f32 torch: keys in tiles of 64, scores in log2 units (scale · log2 e,
+    masked to −1e30), the running max and sum in f32, P rounded to bf16
+    before P·V (the kernel feeds P to mma.sync as bf16), l summed from the
+    unrounded P, and the bf16 output of o / max(l, 1e−30)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, tq, d)
+    scale = 1.4426950408889634 / math.sqrt(d)
+    m = torch.full((b, hkv, hq // hkv, tq, 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, hkv, hq // hkv, tq, v.shape[-1]))
+    qpos = q_offset + torch.arange(tq)
+    for k0 in range(0, tk, 64):
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qg, k[:, :, k0:k0 + 64]) * scale
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1])
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum(
+            "bgrqk,bgkd->bgrqd", p.to(torch.bfloat16).float(),
+            v[:, :, k0:k0 + 64])
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, tq, -1).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hq,hkv,d,dv", [(8, 2, 64, 64),      # Llama: rep 4
+                                         (4, 4, 192, 128)])   # MLA
+@pytest.mark.parametrize("q_offset,seed", [(0, 11), (32, 12)])
+def test_flash_attention_tensor_core_numerics(hq, hkv, d, dv, q_offset,
+                                              seed):
+    """Rounding P to bf16 for P·V, as the card's tensor-core kernel does,
+    keeps the bf16 output within the card tests' 1.6e-2 of the reference
+    (``repro.kernels.ref`` in f32 on the same bf16 inputs, rounded to
+    bf16) at the paths' prefill lengths: 175 queries over 207 keys."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _qkv(seed, 2, hq, hkv, 175, 207, d, dv))
+    got = _tensor_core_attention(q, k, v, causal=True, q_offset=q_offset)
+    ref = np.asarray(jref.flash_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True,
+        q_offset=q_offset))
+    ref = torch.from_numpy(ref.copy()).to(torch.bfloat16)
+    assert got.shape == ref.shape == (2, hq, 175, dv)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 1.6e-2, err
+
+
+def test_flash_attention_operand_alignment():
+    """The tensor-core kernel copies 16 bytes at a time: an operand whose
+    base or (B, H, T) strides are not multiples of 8 elements is passed
+    as an aligned contiguous copy; an aligned one (a transposed cache view
+    included) as it is."""
+    from repro_torch.kernels.flash_attention import _aligned
+    cache = torch.zeros((2, 40, 4, 64), dtype=torch.bfloat16)
+    view = cache.transpose(1, 2)
+    assert _aligned(view) is view
+    wide = torch.zeros((2, 4, 40, 68), dtype=torch.bfloat16)[..., :64]
+    shifted = torch.zeros(2 * 4 * 40 * 64 + 1, dtype=torch.bfloat16)[1:]
+    for t in (wide, shifted.reshape(2, 4, 40, 64)):
+        got = _aligned(t)
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert torch.equal(got, t)

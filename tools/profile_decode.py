@@ -1,14 +1,15 @@
 """Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py [--model llama|deepseek|both|k1]
+    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2]
                                     [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
 and profiles one prefill and 8 decode steps with torch.profiler: device
-time by kernel, and the share of the window's wall time in which the
-device ran a kernel.  Prints one JSON line per window.
+time by kernel, K2's time (every kernel named ``flash_attention``...),
+and the share of the window's wall time in which the device ran a
+kernel.  Prints one JSON line per window.
 
 ``--model k1`` times the fused decode-matmul kernels alone, at M = 4
 (decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
@@ -19,7 +20,18 @@ call); K3 (``grouped_fused_decode_matmul``) on one DeepSeek-shaped expert
 stack (64 × 1408 × 2048) at cap 4 and 83.  The two DeepSeek shapes are
 packed from seeded random weights of those shapes alone.  Prints the
 registers and spills ptxas reports for each kernel of the source, and
-one JSON line.  ``--src DIR`` imports the port from ``DIR``
+one JSON line.
+
+``--model k2`` times K2 (``flash_attention``) alone with CUDA-graph
+replays, as chip_smoke.py does, at both paths' prefill shapes: Llama's
+(4, 32 q / 8 kv heads, 175, 64) and MLA's (4, 16 / 16, 175, 192 / 128)
+against 207 keys, and each at a ragged T = 197 against 229.  Beside each:
+the kernel's error against the plain version, its time with f32 q (the
+SIMT kernel), SDPA's time over the same keys and the bound.  Prints the
+registers, spills and static shared memory ptxas reports for each K2
+instantiation, and one JSON line.
+
+``--src DIR`` imports the port from ``DIR``
 instead of this checkout's ``src``: to compare two commits on one card,
 unpack the other (``git archive``) into a gitignored directory and run
 both in one call, in the order A, B, B, A.  Needs one CUDA card.
@@ -75,6 +87,7 @@ def window(model, name, fn):
         "model": model, "window": name, "wall_ms": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3),
+        "k2_ms": sum(ms for k, ms, _ in rows if "flash_attention" in k),
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
                         for k, ms, n in rows[:12]]}), flush=True)
 
@@ -119,14 +132,15 @@ def profile_model(model, dev):
 
 
 def ptxas_kernels(report: str) -> list:
-    """(kernel, registers, spill bytes) for each entry function of a
-    ``ptxas -v`` report, the template arguments shortened."""
+    """(kernel, registers, spill bytes, static shared memory bytes) for
+    each entry function of a ``ptxas -v`` report, the template arguments
+    shortened."""
     rows, fn, spill = [], None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn, spill = m.group(1), 0
-            short = re.search(r"\d+(\w+?kernel)I(\w+?)EEv", fn)
+            short = re.search(r"\d([a-z_]*kernel)I(\w+?)EEv", fn)
             if short:
                 fn = f"{short.group(1)}<{short.group(2)}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -135,8 +149,20 @@ def ptxas_kernels(report: str) -> list:
             spill = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
             rows.append({"kernel": fn, "registers": int(m.group(1)),
-                         "spill_bytes": spill})
+                         "spill_bytes": spill,
+                         "smem_bytes": int(smem.group(1)) if smem else 0})
+    return rows
+
+
+def print_ptxas(name: str) -> list:
+    from repro_torch.kernels import _build
+    rows = ptxas_kernels(_build.ptxas_report(name))
+    for r in rows:
+        print(f"ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['spill_bytes']} bytes spilled, {r['smem_bytes']} bytes "
+              "static shared memory", flush=True)
     return rows
 
 
@@ -208,18 +234,64 @@ def time_k1(dev, label, reps=20):
                          "tile": [pl.tile_n, pl.tile_k], "ms": ms})
         del pl, args
         torch.cuda.empty_cache()
-    ptxas = ptxas_kernels(_build.ptxas_report(fdm.NAME))
-    for r in ptxas:
-        print(f"ptxas {r['kernel']}: {r['registers']} registers, "
-              f"{r['spill_bytes']} bytes spilled")
+    ptxas = print_ptxas(fdm.NAME)
     print(json.dumps({"k1": label, "build_s": build_s,
                       "layer_ms_m4": layer_ms, "rows": rows,
                       "ptxas": ptxas}), flush=True)
 
 
+K2_SHAPES = (("llama", 32, 8, 64, 64), ("mla", 16, 16, 192, 128))
+
+
+def time_k2(dev, label, reps=20):
+    from chip_smoke import Timer, _sdpa, bound_ms
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    _build.build(["flash_attention"])
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timer = Timer(dev)
+    rows = []
+    for what, hq, hkv, d, dv in K2_SHAPES:
+        for tq in (175, 197):
+            tk = tq + 32
+            q, k, v = (torch.randn(s, generator=gen, device=dev
+                                   ).to(torch.bfloat16)
+                       for s in ((BATCH, hq, tq, d), (BATCH, hkv, tk, d),
+                                 (BATCH, hkv, tk, dv)))
+            qf = q.float()
+            err = float((fa.flash_attention(q, k, v).float()
+                         - fa.flash_attention_plain(q, k, v).float()
+                         ).abs().max())
+            err32 = float((fa.flash_attention(qf, k, v)
+                           - fa.flash_attention_plain(qf, k, v)).abs().max())
+            pairs = sum(min(tk, i + 1) for i in range(tq))
+            b, by = bound_ms(2 * BATCH * (hq * tq + hkv * min(tk, tq))
+                             * (d + dv), 2.0 * (d + dv) * BATCH * hq * pairs)
+            kr, vr = k[:, :, :tq], v[:, :, :tq]
+            rows.append({
+                "shape": what, "B": BATCH, "Hq": hq, "Hkv": hkv, "Tq": tq,
+                "Tk": tk, "Dqk": d, "Dv": dv, "max_abs_err": err,
+                "max_abs_err_f32": err32,
+                "ms": timer.graph_ms([lambda: fa.flash_attention(q, k, v)]
+                                     * 8, reps=reps),
+                "f32_ms": timer.graph_ms(
+                    [lambda: fa.flash_attention(qf, k, v)] * 8, reps=reps),
+                "sdpa_ms": timer.graph_ms([lambda: _sdpa(q, kr, vr)] * 8,
+                                          reps=reps),
+                "bound_ms": b, "bound_by": by})
+            print(json.dumps(rows[-1]), flush=True)
+    ptxas = print_ptxas("flash_attention")
+    print(json.dumps({"k2": label, "build_s": build_s, "rows": rows,
+                      "ptxas": ptxas}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=["llama", "deepseek", "both", "k1"],
+    ap.add_argument("--model",
+                    choices=["llama", "deepseek", "both", "k1", "k2"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -232,8 +304,8 @@ def main():
     from chip_smoke import nvidia_smi_line
     print(f"card: {nvidia_smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
-    if args.model == "k1":
-        time_k1(dev, args.src)
+    if args.model in ("k1", "k2"):
+        (time_k1 if args.model == "k1" else time_k2)(dev, args.src)
         return 0
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
