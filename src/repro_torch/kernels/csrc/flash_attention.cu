@@ -39,11 +39,16 @@
 //     scale folds log2(e) in so the softmax takes exp2; the mask is built
 //     only on tiles that cross the diagonal or the tail.  The row max and
 //     sum live in the quad of lanes that holds a row (two shuffles).
-//   * O += P·V: P is rounded to bf16 in registers (the m16n8 accumulator
-//     layout pairs into the m16n8k16 A layout, so it never touches shared
-//     memory); V comes through ldmatrix.trans.  O stays f32 in registers
-//     (32 a thread at Dv = 64, 64 at 128) until the end, which divides by
-//     max(l, 1e-30), rounds to bf16 and stores two values at a time.
+//   * O += P·V: P is split in registers into bf16 hi + lo (the m16n8
+//     accumulator layout pairs into the m16n8k16 A layout, so it never
+//     touches shared memory) and both go through the tensor cores against
+//     V (ldmatrix.trans).  P rounded to bf16 alone put the output one bf16
+//     ulp off at |out| in [2, 4) — the edge of the 1.6e-2 tolerance — and
+//     moved DeepSeek-V2-Lite's card-vs-CPU logits past theirs; hi + lo
+//     keeps 16 bits of P for 10–15 % more kernel time (PERF.md).  O stays
+//     f32 in registers (32 a thread at Dv = 64, 64 at 128) until the end,
+//     which divides by max(l, 1e-30), rounds to bf16 and stores two values
+//     at a time.
 //   * One q head a block.  A block per GQA group, loading each K/V tile
 //     once for the group's q heads, is the next step to measure.
 //
@@ -241,6 +246,15 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// p as two bf16 pairs hi + lo, hi = bf16(p) and lo = bf16(p − hi): 16
+// significant bits, where bf16 alone keeps 8.
+__device__ __forceinline__ void split_bf16x2(float p0, float p1,
+                                             uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16x2(p0, p1);
+  lo = pack_bf16x2(p0 - __uint_as_float(hi << 16),
+                   p1 - __uint_as_float(hi & 0xFFFF0000u));
+}
+
 
 // Fragment coordinates (mma.sync m16n8k16): lane = 4·g + t.  An m16n8
 // accumulator holds rows g and g + 8, columns 2t and 2t + 1 of its tile;
@@ -338,7 +352,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     const bool run = warp_live && k0 <= warp_last_key;
     const bf16* kt = ks + (tile & 1) * kTcKeys * LDQ;
     const bf16* vt = vs + (tile & 1) * kTcKeys * LDV;
-    uint32_t pa[NS / 2][4];      // P as the A fragments of P·V
+    uint32_t ph[NS / 2][4], pl[NS / 2][4];   // P = hi + lo, A fragments
     if (run) {
       float s[NS][4];
 #pragma unroll
@@ -393,16 +407,17 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
           o[n][2 * r + 1] *= alpha;
         }
       }
-      // P = exp2(S − m): the f32 sums go to l, bf16 pairs to the A
-      // fragments of P·V (n8 tiles 2kk and 2kk + 1 make k16 step kk)
+      // P = exp2(S − m): the f32 sums go to l, bf16 hi + lo pairs to the
+      // A fragments of P·V (n8 tiles 2kk and 2kk + 1 make k16 step kk)
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         const float p0 = exp2f(s[j][0] - m[0]), p1 = exp2f(s[j][1] - m[0]);
         const float p2 = exp2f(s[j][2] - m[1]), p3 = exp2f(s[j][3] - m[1]);
         l[0] += p0 + p1;
         l[1] += p2 + p3;
-        pa[j >> 1][2 * (j & 1)] = pack_bf16x2(p0, p1);
-        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16x2(p2, p3);
+        const int kk = j >> 1, a = 2 * (j & 1);
+        split_bf16x2(p0, p1, ph[kk][a], pl[kk][a]);
+        split_bf16x2(p2, p3, ph[kk][a + 1], pl[kk][a + 1]);
       }
       // O += P·V: ldmatrix.trans x4 gives the B fragments of two n8 tiles
       // of V's columns
@@ -414,8 +429,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
           ldmatrix_x4_trans(bv, vt + (kk * 16 + (lane & 7) +
                                       ((lane >> 3) & 1) * 8) * LDV +
                                     np * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * np], pa[kk], bv[0], bv[1]);
-          mma_bf16(o[2 * np + 1], pa[kk], bv[2], bv[3]);
+          mma_bf16(o[2 * np], ph[kk], bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], ph[kk], bv[2], bv[3]);
+          mma_bf16(o[2 * np], pl[kk], bv[0], bv[1]);
+          mma_bf16(o[2 * np + 1], pl[kk], bv[2], bv[3]);
         }
       }
     }

@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (the
 TPU Pallas kernel).  The CUDA source is ``csrc/flash_attention.cu``, with
 two kernels chosen by dtype: bf16 q, k and v (every path through
 ``generate``) run the tensor-core kernel (``mma.sync``, bf16 operands, f32
-sums, P rounded to bf16 for P·V), counted as ``flash_attention``; any f32
+sums, P split into bf16 hi + lo for P·V), counted as ``flash_attention``;
+any f32
 operand runs the SIMT kernel (f32 throughout), counted as
 ``flash_attention_f32``.  :func:`flash_attention_plain` is the plain
 PyTorch version the CPU runs and the card's kernels are held against.
