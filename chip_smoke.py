@@ -75,9 +75,11 @@ FLASH_ATOL_F32 = 1e-4
 #    a rounding flip is 2^-8 relative, pass through 2 layers of width 2048
 #    and the 2048-wide LM head; logits are O(1).  The same bound holds for
 #    DeepSeek-V2-Lite's 2 layers (a dense layer and an MoE layer) for a
-#    request whose last token takes the same experts on both devices; a
+#    request whose last token keeps the same experts on both devices; a
 #    request whose last token routes differently (a near-tie at the top-6
-#    boundary of bf16 router logits) is reported and left out, at most one
+#    boundary of bf16 router logits), or keeps another set because such a
+#    near-tie of an earlier token moved it past an expert's capacity (the
+#    slots are ranked token-major), is reported and left out, at most one
 #    of the four.
 E2E_LOGIT_ATOL = 5e-2
 
@@ -766,8 +768,9 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
     """The same seeded model at 2 layers, packed once on the card and
     copied to the CPU: prefill logits of the last position within
     E2E_LOGIT_ATOL, greedy tokens of ``steps`` steps compared.  For an MoE
-    model the routed top-k sets of every token are compared too; a request
-    whose last token routes differently is reported and left out of the
+    model the routed top-k sets of every token are compared too, and the
+    sets each keeps within the experts' capacity; a request whose last
+    token routes or keeps differently is reported and left out of the
     logit gate (at most one)."""
     LM, L = rt["LM"], rt["L"]
     t0 = time.perf_counter()
@@ -809,11 +812,21 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
     gated = torch.ones(BATCH, dtype=torch.bool)
     if moe:
         n_tok = BATCH * t_prefill
-        differs = (res["card"][2].sort(-1).values
-                   != res["cpu"][2].sort(-1).values).any(-1)  # (L_moe, n)
+        cap = L._capacity(n_tok, cfg.top_k, cfg.n_experts,
+                          cfg.capacity_factor)
+
+        def kept(ids):            # the experts a token keeps; -1: dropped
+            slot = L.expert_slots(ids, cfg.n_experts).reshape(ids.shape)
+            return torch.where(slot < cap, ids, -1).sort(-1).values
+
+        card, cpu = res["card"][2], res["cpu"][2]         # (L_moe, n, k)
+        differs = (card.sort(-1).values != cpu.sort(-1).values).any(-1)
+        moved = torch.stack([(kept(a) != kept(b)).any(-1)
+                             for a, b in zip(card, cpu)])  # (L_moe, n)
         info["tokens_routed_differently"] = int(differs.any(0).sum())
+        info["tokens_kept_differently"] = int(moved.any(0).sum())
         info["tokens_routed"] = n_tok
-        last = differs.any(0).reshape(BATCH, t_prefill)[:, -1]
+        last = (differs | moved).any(0).reshape(BATCH, t_prefill)[:, -1]
         gated = ~last
         info["requests_left_out"] = [int(i) for i in torch.nonzero(last)]
     info["seconds"] = time.perf_counter() - t0

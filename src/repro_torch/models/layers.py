@@ -421,6 +421,15 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int,
     return max(4, min(c, n_tokens))
 
 
+def expert_slots(expert_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The position of each (token, k) choice in its expert's queue,
+    token-major: ``expert_ids`` (n_tok, k) → (n_tok · k,).  A choice at
+    position ≥ the capacity is dropped."""
+    flat_e = expert_ids.reshape(-1)
+    oh = torch.nn.functional.one_hot(flat_e, n_experts)
+    return (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
+
+
 def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
     """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
     compressed stack runs the grouped fused kernel (three launches, dense
@@ -468,10 +477,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     aux = e * torch.sum(f * probs.mean(dim=0))
 
     cap = _capacity(n_tok, k, e, cfg.capacity_factor)
-    # Position of each (token, slot) in its expert's queue, token-major.
     flat_e = expert_ids.reshape(-1)                         # (n·k,)
-    oh = onehot.reshape(n_tok * k, e)
-    slot = (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
+    slot = expert_slots(expert_ids, e)
     keep = slot < cap
     tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
     table = torch.full((e, cap), n_tok, dtype=torch.long, device=x.device)
