@@ -310,7 +310,8 @@ def check_small_tiles(rt, device, gen):
                          "K": k, "M": m, "tile": [pl.tile_n, pl.tile_k],
                          "bitwise": same})
             if not same:
-                raise AssertionError(f"K1/K3 at tile_k {pl.tile_k}: {rows[-1]}")
+                raise AssertionError(f"K1/K3 at tile_k {pl.tile_k}: "
+                                     f"{rows[-1]}")
     return rows
 
 
@@ -622,12 +623,6 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     return e2e
 
 
-def merge(checked, **more):
-    """A check's (row, detail) with more detail: {"rows": ..., **more}."""
-    row, detail = checked
-    return row, {"rows": detail, **more}
-
-
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -657,12 +652,16 @@ def llama_path(rt, device, gen, timer, kernels, failed):
                                      ("attn", "wv"), ("attn", "wo"),
                                      ("mlp", "w_gate"), ("mlp", "w_up"),
                                      ("mlp", "w_down"))]
+
+    def check_k1():
+        row, detail = check_fused(rt, state.lut, projections, device,
+                                  BATCH * t_prefill, gen, timer,
+                                  "one layer's 7 projections, decode M=4")
+        return row, {"rows": detail,
+                     "small_tiles": check_small_tiles(rt, device, gen)}
+
     rows = run_checks(cfg, (
-        ("fused_decode_matmul",
-         lambda: merge(check_fused(rt, state.lut, projections, device,
-                                   BATCH * t_prefill, gen, timer,
-                                   "one layer's 7 projections, decode M=4"),
-                       small_tiles=check_small_tiles(rt, device, gen))),
+        ("fused_decode_matmul", check_k1),
         ("dequant_matmul",
          lambda: (check_dequant(rt, state.params["embed"], device, gen,
                                 timer), None)),
@@ -816,7 +815,8 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
                           cfg.capacity_factor)
 
         def kept(ids):            # the experts a token keeps; -1: dropped
-            slot = L.expert_slots(ids, cfg.n_experts).reshape(ids.shape)
+            slot = L.expert_slots(ids, torch.nn.functional.one_hot(
+                ids, cfg.n_experts)).reshape(ids.shape)
             return torch.where(slot < cap, ids, -1).sort(-1).values
 
         card, cpu = res["card"][2], res["cpu"][2]         # (L_moe, n, k)
@@ -825,6 +825,9 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
                              for a, b in zip(card, cpu)])  # (L_moe, n)
         info["tokens_routed_differently"] = int(differs.any(0).sum())
         info["tokens_kept_differently"] = int(moved.any(0).sum())
+        info["slots_dropped"] = {d: int((kept(r) < 0).sum())
+                                 for d, r in (("card", card), ("cpu", cpu))}
+        info["slots"] = card.numel()
         info["tokens_routed"] = n_tok
         last = (differs | moved).any(0).reshape(BATCH, t_prefill)[:, -1]
         gated = ~last

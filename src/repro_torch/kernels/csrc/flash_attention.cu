@@ -365,8 +365,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 #pragma unroll
         for (int p = 0; p < NS / 2; ++p) {
           uint32_t bk[4];
-          ldmatrix_x4(bk, kt + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDQ +
-                              kk * 16 + ((lane >> 3) & 1) * 8);
+          ldmatrix_x4(bk, kt + (p * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                   LDQ + kk * 16 + ((lane >> 3) & 1) * 8);
           mma_bf16(s[2 * p], qa[kk], bk[0], bk[1]);
           mma_bf16(s[2 * p + 1], qa[kk], bk[2], bk[3]);
         }

@@ -5,8 +5,7 @@ TPU Pallas kernel).  The CUDA source is ``csrc/flash_attention.cu``, with
 two kernels chosen by dtype: bf16 q, k and v (every path through
 ``generate``) run the tensor-core kernel (``mma.sync``, bf16 operands, f32
 sums, P split into bf16 hi + lo for P·V), counted as ``flash_attention``;
-any f32
-operand runs the SIMT kernel (f32 throughout), counted as
+any f32 operand runs the SIMT kernel (f32 throughout), counted as
 ``flash_attention_f32``.  :func:`flash_attention_plain` is the plain
 PyTorch version the CPU runs and the card's kernels are held against.
 Layouts are the reference's: q (B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v
@@ -106,23 +105,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if b * hq * tq == 0:
         return out
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if q.dtype == k.dtype == torch.bfloat16:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        name, dtypes = NAME, ()
         fn = _build.function(NAME, "qmoe_flash_attention_mma", _MMA_ARGTYPES)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
-                 *v.stride()[:3], float(sm), int(causal), int(q_offset),
-                 dev.index, stream)
-        _build.check(err, NAME)
-        _build.LAUNCH_COUNTS[NAME] += 1
-        return out
-    fn = _build.function(NAME, "qmoe_flash_attention_simt", _SIMT_ARGTYPES)
+    else:
+        name = F32_NAME
+        dtypes = (int(q.dtype == torch.bfloat16),
+                  int(k.dtype == torch.bfloat16))
+        fn = _build.function(NAME, "qmoe_flash_attention_simt",
+                             _SIMT_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], float(sm), int(causal), int(q_offset),
-             dev.index, stream)
-    _build.check(err, F32_NAME)
-    _build.LAUNCH_COUNTS[F32_NAME] += 1
+             *dtypes, b, hq, hkv, tq, tk, d, dv, *q.stride()[:3],
+             *k.stride()[:3], *v.stride()[:3], float(sm), int(causal),
+             int(q_offset), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, name)
+    _build.LAUNCH_COUNTS[name] += 1
     return out

@@ -421,12 +421,13 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int,
     return max(4, min(c, n_tokens))
 
 
-def expert_slots(expert_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+def expert_slots(expert_ids: torch.Tensor,
+                 onehot: torch.Tensor) -> torch.Tensor:
     """The position of each (token, k) choice in its expert's queue,
-    token-major: ``expert_ids`` (n_tok, k) → (n_tok · k,).  A choice at
-    position ≥ the capacity is dropped."""
+    token-major: ``expert_ids`` (n_tok, k) and their one-hot (n_tok, k, E)
+    → (n_tok · k,).  A choice at position ≥ the capacity is dropped."""
     flat_e = expert_ids.reshape(-1)
-    oh = torch.nn.functional.one_hot(flat_e, n_experts)
+    oh = onehot.reshape(flat_e.shape[0], -1)
     return (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
 
 
@@ -478,7 +479,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
 
     cap = _capacity(n_tok, k, e, cfg.capacity_factor)
     flat_e = expert_ids.reshape(-1)                         # (n·k,)
-    slot = expert_slots(expert_ids, e)
+    slot = expert_slots(expert_ids, onehot)
     keep = slot < cap
     tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
     table = torch.full((e, cap), n_tok, dtype=torch.long, device=x.device)
