@@ -450,9 +450,13 @@ def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
-              with_routing: bool = False):
+              with_routing: bool = False,
+              expert_ids: torch.Tensor | None = None):
     """Capacity-based top-k MoE with global dispatch; returns (y, aux) or,
-    with ``with_routing``, (y, aux, expert_ids (n_tok, k)).
+    with ``with_routing``, (y, aux, expert_ids (n_tok, k)).  Given
+    ``expert_ids`` (n_tok, k), each token goes to those experts instead of
+    its top-k, gated by the router's probabilities of them, renormalized:
+    two runs then share one routing and capacity slots.
 
     Routing follows the reference: softmax over the router logits (the
     router runs in x's dtype, as ``linear`` casts it), top-k with the lower
@@ -468,8 +472,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
 
     router_logits = linear(xf, p["router"], lut).to(torch.float32)
     probs = torch.softmax(router_logits, dim=-1)
-    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, expert_ids = srt[:, :k], order[:, :k]        # (n_tok, k)
+    if expert_ids is None:
+        srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate_vals, expert_ids = srt[:, :k], order[:, :k]    # (n_tok, k)
+    else:
+        gate_vals = probs.gather(1, expert_ids)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # Load-balance aux loss (Switch-style): e · Σ_e f_e · P_e.

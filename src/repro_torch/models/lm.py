@@ -92,10 +92,10 @@ def _dense_block(bp, x, cfg, lut, cache, pos, rope):
     return x, new_cache
 
 
-def _moe_block(bp, x, cfg, lut, cache, pos, rope):
+def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
     """An MoE-family layer (MLA or GQA attention, then the MoE or, in the
     first layers, a dense MLP).  Returns (x, cache, aux, expert_ids or
-    None)."""
+    None); ``expert_ids`` routes the MoE's tokens (``apply_moe``)."""
     h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     attn = L.apply_mla if cfg.mla else L.apply_attention
     a, new_cache = attn(bp["attn"], h, cfg, lut=lut, cache=cache, pos=pos,
@@ -107,24 +107,25 @@ def _moe_block(bp, x, cfg, lut, cache, pos, rope):
     h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
     if "moe" in bp:
         y, aux, ids = L.apply_moe(bp["moe"], h, cfg, lut=lut,
-                                  with_routing=True)
+                                  with_routing=True, expert_ids=expert_ids)
         return x + y, new_cache, aux, ids
     return x + L.apply_mlp(bp["mlp"], h, lut=lut), new_cache, 0.0, None
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
             pos: Optional[int] = None, lut=None,
-            return_hidden: bool = False, return_routing: bool = False):
+            return_hidden: bool = False, return_routing: bool = False,
+            routing: Optional[torch.Tensor] = None):
     """tokens (B, T) int → (logits, caches, aux_loss).
 
     ``return_hidden=True`` skips the LM head and returns the final normed
     hidden states.  ``return_routing=True`` (MoE family) appends the top-k
-    expert ids of the MoE layers, (L_moe, B·T, k).  Caches are updated in
-    place and returned."""
+    expert ids of the MoE layers, (L_moe, B·T, k); ``routing``, ids of that
+    shape (another run's), routes the MoE layers' tokens to those experts
+    instead.  Caches are updated in place and returned."""
     _check_family(cfg)
-    if return_routing and cfg.family != "moe":
-        raise ValueError(f"return_routing needs family 'moe', got "
-                         f"{cfg.family!r}")
+    if (return_routing or routing is not None) and cfg.family != "moe":
+        raise ValueError(f"routing needs family 'moe', got {cfg.family!r}")
     x = L.embed(params["embed"], tokens, lut)
     pos0 = 0 if pos is None else int(pos)
     rope = L.rope_tables(pos0 + torch.arange(tokens.shape[1],
@@ -134,7 +135,7 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
     caches = caches or {}
     out_caches: dict = {}
     aux = 0.0
-    routing = []
+    routed = []
     if "first_blocks" in params:
         fb_caches = caches.get("first")
         ncs = []
@@ -150,13 +151,15 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
         if cfg.family == "dense":
             x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
         else:
-            x, nc, a, ids = _moe_block(bp, x, cfg, lut, cache, pos, rope)
+            x, nc, a, ids = _moe_block(
+                bp, x, cfg, lut, cache, pos, rope,
+                None if routing is None else routing[i])
             aux = aux + a
-            routing.append(ids)
+            routed.append(ids)
         new_caches.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_caches["blocks"] = new_caches if blk_caches is not None else None
-    extra = (torch.stack(routing),) if return_routing else ()
+    extra = (torch.stack(routed),) if return_routing else ()
     if return_hidden:
         return (x, out_caches, aux) + extra
     head = params.get("lm_head", params["embed"])

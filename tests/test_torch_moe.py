@@ -311,6 +311,44 @@ def test_forward_logits_match(models, mode):
         np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-3)
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_forward_under_the_reference_routing(models, mode):
+    """Given the reference's expert ids (``routing``), the port routes
+    every token as the reference did, so every token's logits, those of
+    near-tie tokens too, come within the tolerance."""
+    cfg, tcfg, out = models
+    jp, jlut, tp, tlut, _ = out[mode]
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 11))
+    jl, _, _, jroute = jax.jit(lambda p, t, lut: JLM.forward(
+        p, cfg, t, lut=lut, return_routing=True))(
+        jp, jnp.asarray(toks, jnp.int32), jlut)
+    route = torch.from_numpy(np.array(jroute, np.int64))
+    tl, _, _, troute = TLM.forward(tp, tcfg, torch.from_numpy(toks),
+                                   lut=tlut, return_routing=True,
+                                   routing=route)
+    assert torch.equal(troute, route)
+    np.testing.assert_allclose(tl.float().numpy(),
+                               np.asarray(jl, np.float32), rtol=0,
+                               atol=ATOL[mode])
+
+
+def test_moe_given_its_own_routing_is_unchanged(models):
+    """apply_moe given the expert ids it chose itself computes the same
+    output bit for bit; given others, it keeps those within capacity."""
+    cfg, tcfg, out = models
+    _, _, tp, tlut, _ = out["compressed"]
+    _, tx = _block_input(cfg, "compressed", 2)
+    tbp = tp["blocks"][1]["moe"]
+    y, aux, ids = TL.apply_moe(tbp, tx, tcfg, lut=tlut, with_routing=True)
+    y2, aux2, ids2 = TL.apply_moe(tbp, tx, tcfg, lut=tlut,
+                                  with_routing=True, expert_ids=ids)
+    assert torch.equal(y2, y) and torch.equal(ids2, ids) and aux2 == aux
+    flipped = ids.flip(0)               # another routing of the same tokens
+    y3, _, ids3 = TL.apply_moe(tbp, tx, tcfg, lut=tlut, with_routing=True,
+                               expert_ids=flipped)
+    assert torch.equal(ids3, flipped) and not torch.equal(y3, y)
+
+
 def _reference_greedy(jp, cfg, jlut, toks, n):
     """The reference's greedy tokens and each step's logits, from its
     jitted prefill and decode-step functions (what ``generate`` runs)."""
