@@ -25,9 +25,10 @@ one JSON line.
 ``--model k2`` times K2 (``flash_attention``) alone with CUDA-graph
 replays, as chip_smoke.py does, at both paths' prefill shapes: Llama's
 (4, 32 q / 8 kv heads, 175, 64) and MLA's (4, 16 / 16, 175, 192 / 128)
-against 207 keys, and each at a ragged T = 197 against 229.  Beside each:
-the kernel's error against the plain version, its time with f32 q (the
-SIMT kernel), SDPA's time over the same keys and the bound.  Prints the
+against 207 keys, and each at a ragged T = 197 against 229, through
+chip_smoke.py's ``check_flash``.  Beside each: the kernel's error against
+the plain version, its time and error with f32 q (the SIMT kernel), the
+plain version's and SDPA's times and the bounds.  Prints the
 registers, spills and static shared memory ptxas reports for each K2
 instantiation, and one JSON line.
 
@@ -243,8 +244,10 @@ def time_k1(dev, label, reps=20):
 K2_SHAPES = (("llama", 32, 8, 64, 64), ("mla", 16, 16, 192, 128))
 
 
-def time_k2(dev, label, reps=20):
-    from chip_smoke import Timer, _sdpa, bound_ms
+def time_k2(dev, label):
+    """K2 at both paths' prefill shapes through chip_smoke.check_flash: one
+    definition of its error, timing and bound."""
+    from chip_smoke import Timer, check_flash
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
@@ -255,33 +258,11 @@ def time_k2(dev, label, reps=20):
     timer = Timer(dev)
     rows = []
     for what, hq, hkv, d, dv in K2_SHAPES:
-        for tq in (175, 197):
-            tk = tq + 32
-            q, k, v = (torch.randn(s, generator=gen, device=dev
-                                   ).to(torch.bfloat16)
-                       for s in ((BATCH, hq, tq, d), (BATCH, hkv, tk, d),
-                                 (BATCH, hkv, tk, dv)))
-            qf = q.float()
-            err = float((fa.flash_attention(q, k, v).float()
-                         - fa.flash_attention_plain(q, k, v).float()
-                         ).abs().max())
-            err32 = float((fa.flash_attention(qf, k, v)
-                           - fa.flash_attention_plain(qf, k, v)).abs().max())
-            pairs = sum(min(tk, i + 1) for i in range(tq))
-            b, by = bound_ms(2 * BATCH * (hq * tq + hkv * min(tk, tq))
-                             * (d + dv), 2.0 * (d + dv) * BATCH * hq * pairs)
-            kr, vr = k[:, :, :tq], v[:, :, :tq]
-            rows.append({
-                "shape": what, "B": BATCH, "Hq": hq, "Hkv": hkv, "Tq": tq,
-                "Tk": tk, "Dqk": d, "Dv": dv, "max_abs_err": err,
-                "max_abs_err_f32": err32,
-                "ms": timer.graph_ms([lambda: fa.flash_attention(q, k, v)]
-                                     * 8, reps=reps),
-                "f32_ms": timer.graph_ms(
-                    [lambda: fa.flash_attention(qf, k, v)] * 8, reps=reps),
-                "sdpa_ms": timer.graph_ms([lambda: _sdpa(q, kr, vr)] * 8,
-                                          reps=reps),
-                "bound_ms": b, "bound_by": by})
+        _, shape_rows = check_flash({"fa": fa, "_build": _build}, dev, 175,
+                                    gen, timer, hq, hkv, d, dv, what)
+        for row in shape_rows:
+            rows.append({"shape": what, "B": BATCH, "Hq": hq, "Hkv": hkv,
+                         **row})
             print(json.dumps(rows[-1]), flush=True)
     ptxas = print_ptxas("flash_attention")
     print(json.dumps({"k2": label, "build_s": build_s, "rows": rows,
