@@ -42,10 +42,13 @@
 //   * O += P·V: P is split in registers into bf16 hi + lo (the m16n8
 //     accumulator layout pairs into the m16n8k16 A layout, so it never
 //     touches shared memory) and both go through the tensor cores against
-//     V (ldmatrix.trans).  P rounded to bf16 alone put the output one bf16
-//     ulp off at |out| in [2, 4) — the edge of the 1.6e-2 tolerance — and
-//     moved DeepSeek-V2-Lite's card-vs-CPU logits past theirs; hi + lo
-//     keeps 16 bits of P for 10–15 % more kernel time (PERF.md).  O stays
+//     V (ldmatrix.trans).  P rounded to bf16 alone (FlashAttention-2's
+//     choice) passes every check, but at its edge: the output one bf16 ulp
+//     off at |out| in [2, 4), 0.015625 against the 1.6e-2 tolerance, and
+//     the 2-layer card-vs-CPU logits of both paths 0.046875 off against
+//     5e-2 (0.03125 and 0.039 with hi + lo).  hi + lo keeps 16 bits of P,
+//     so K2 errs as little as the f32 SIMT kernel (0.0039), for 13–17 %
+//     more kernel time, 0.03 ms of a prefill (PERF.md).  O stays
 //     f32 in registers (32 a thread at Dv = 64, 64 at 128) until the end,
 //     which divides by max(l, 1e-30), rounds to bf16 and stores two values
 //     at a time.
