@@ -18,7 +18,7 @@ each in the phases below; the script exits non-zero if any phase fails:
   3. Kernels against their plain PyTorch versions at the path's shapes, on
      the packed planes — every kernel the path launches, at every weight
      shape it gives it, and (Llama's K1 phase) K1 and K3 on weights the
-     packer tiles 2 and 1 weights wide: bitwise on integer-valued bf16 x
+     packer tiles 1, 2, 4 and 8 weights wide: bitwise on integer-valued bf16 x
      (and for the dictionary decode, on every input), within a stated
      tolerance on random x; times (CUDA-graph replays with the weights past
      the L2, or the L2 flushed in the graph, or CUDA events around single
@@ -198,6 +198,16 @@ def make_prompts(vocab: int):
 L2_BYTES = 50 << 20      # H100 SXM L2
 
 
+def launch_info(fdm, m, w, e):
+    """The kernel ``fdm.launch_plan`` picks for a call at M = ``m`` on the
+    planes of ``w`` (E = ``e`` weights) and its grid and block size."""
+    slots = w.codes.shape[-1]
+    plan = fdm.launch_plan(m, *w.shape, w.tile_k, e,
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count, slots)
+    return fdm.launch_grid(plan, m, w.shape[0], w.tile_k, slots, e)
+
+
 def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
                 timed_at, cold=False):
     """K1 on each ``(label, weights, in_layer)`` of ``projections`` — the
@@ -264,7 +274,8 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
                      "library_ms": timer.graph_ms(lib, cold=flush),
                      "bound_ms": b, "bound_by": by, "l2_flushed": flush,
                      "cap": w.literals.shape[1],
-                     "tile": [w.tile_n, w.tile_k]}
+                     "tile": [w.tile_n, w.tile_k],
+                     **launch_info(fdm, m, w, 1)}
                 del wbs, lib
                 rows.append(t)
             if m == BATCH and in_layer:
@@ -285,11 +296,14 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
 
 def check_small_tiles(rt, device, gen):
     """K1 and K3 on weights whose K the packer cuts into tiles 2 and 1
-    weights wide (K ≡ 2 mod 4, K odd), at M = batch and 129: bitwise on
-    integer x.  Packed from seeded random weights of those shapes alone."""
+    weights wide (K ≡ 2 mod 4, K odd: the SIMT kernel at decode M) and 4
+    and 8 wide (the decode kernel's product on the SIMT cores), at M =
+    batch and 129: bitwise on integer x.  Packed from seeded random weights
+    of those shapes alone."""
     fdm, pack_stack = rt["fdm"], rt["pack_expert_stack"]
     rows = []
-    for e, n, k in ((1, 128, 130), (1, 128, 131), (3, 128, 130)):
+    for e, n, k in ((1, 128, 130), (1, 128, 131), (3, 128, 130),
+                    (1, 128, 132), (1, 128, 136), (3, 128, 132)):
         ws = [torch.randint(-3, 4, (n, k), generator=gen, device=device
                             ).float() / 3 for _ in range(e)]
         pl, lut = pack_stack(ws)
@@ -311,7 +325,8 @@ def check_small_tiles(rt, device, gen):
                     fdm.grouped_fused_decode_matmul_plain(x, *args, **kw)))
             rows.append({"kernel": "K1" if e == 1 else "K3", "E": e, "N": n,
                          "K": k, "M": m, "tile": [pl.tile_n, pl.tile_k],
-                         "bitwise": same})
+                         "bitwise": same,
+                         "launch": launch_info(fdm, m, pl, e)})
             if not same:
                 raise AssertionError(f"K1/K3 at tile_k {pl.tile_k}: "
                                      f"{rows[-1]}")
@@ -487,7 +502,8 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
                  "library_ms": timer.graph_ms(
                      [lambda: torch.bmm(xr, wbt)] * 4),
                  "bound_ms": b, "bound_by": by,
-                 "cap": w.literals.shape[2], "tile": [w.tile_n, w.tile_k]}
+                 "cap": w.literals.shape[2], "tile": [w.tile_n, w.tile_k],
+                 **launch_info(fdm, m, w, e)}
             rows.append(t)
             if phase == "decode":
                 for f in agg:

@@ -4,12 +4,16 @@
 //   * K1 fused_decode_matmul (_kernel, _decode_tile, _accumulate), G = 1
 //     planes;
 //   * K3 grouped_fused_decode_matmul (_grouped_kernel): the same product for
-//     every expert of a stacked MoE weight in one launch, the expert index
-//     in gridDim.z (expert · splits + split).
-//     The device code is K1's; a block finds its expert from blockIdx.z and
+//     every expert of a stacked MoE weight in one launch.  The device code
+//     is K1's; a block finds its expert from its index (gridDim.z =
+//     expert · splits + split, or the decode kernel's row group) and
 //     offsets x, planes, scale/zero and output by per-expert strides (the
-//     LUT is shared).  At MoE decode E · N/128 blocks (704 or 1024 for
-//     DeepSeek-V2-Lite) already fill the 132 SMs, so K is not split there.
+//     LUT is shared).
+//
+// Three kernels, picked by the wrapper's plan (launch_plan): the decode
+// kernel at M ≤ 4 (tile_k ≥ 4: one warp per compressed block, below), the
+// SIMT kernel at other decode-sized M (5–16, tile_k 1 or 2 at M ≤ 4, or
+// tile_k % 64 != 0 at prefill), and the tensor-core prefill kernel.
 //
 //   y[m, n] = s[n] · (Σ_k bf16(x[m, k]) · q[n, k] − z[n] · Σ_k bf16(x[m, k]))
 //
@@ -21,8 +25,8 @@
 // What bounds it on the H100:
 //   * At decode (M = batch, 1–8) it reads the compressed planes once — 2
 //     bytes of code per 4 weights plus the literal rows — so the bound is
-//     memory bytes; what fills a block's time is the decode loop's
-//     instructions per slot (PERF.md).
+//     memory bytes (the decode kernel's note below says how it answers
+//     that).
 //   * At prefill (M = 4 prompts × up to 200 tokens) the bound is the
 //     operations: 2·M·N·K on the tensor cores, about 0.024 ms for
 //     8192 × 2048 at M = 700 against 0.008 ms for its planes' bytes.  What
@@ -31,16 +35,18 @@
 //     own rate (PERF.md).  A kernel that decodes each tile again for every
 //     128-row band of M pays the decode ⌈M/128⌉ times (6 at M = 700).
 // Design:
-//   * Blocks own 128 output columns.  At decode-sized M a block holds
-//     BM = 4 or 16 rows and the product runs on the SIMT cores, so M is
-//     not padded to 128 rows; at prefill-sized M the product runs on the
-//     tensor cores (mma.sync, bf16 in, f32 sums) and a block walks a group of
-//     128-row bands over each span of K tiles it decoded, so a tile is
-//     decoded once per band group (the wrapper's plan: at least two bands
-//     per group, one group per launch where the grid still fills the card).
+//   * SIMT and prefill kernels: blocks own 128 output columns.  The SIMT
+//     kernel holds BM = 4 or 16 rows and the product runs on the SIMT
+//     cores, so M is not padded to 128 rows; at prefill-sized M the product
+//     runs on the tensor cores (mma.sync, bf16 in, f32 sums) and a block
+//     walks a group of 128-row bands over each span of K tiles it decoded,
+//     so a tile is decoded once per band group (the wrapper's plan: at least
+//     two bands per group, one group per launch where the grid still fills
+//     the card).
 //   * The TPU grid carries its accumulator across K steps; blocks here run
-//     in no order, so a block loops over its K tiles itself.  To put more
-//     blocks on the card — and at prefill, to give a block with several
+//     in no order, so a block loops over its K tiles itself.  In the SIMT
+//     and prefill kernels, to put more blocks on the card — and at
+//     prefill, to give a block with several
 //     bands a span that fits in shared memory — K tiles are split over
 //     gridDim.z and a second kernel sums the splits in a fixed order before
 //     the epilogue (no atomics: deterministic, exact for integer-valued
@@ -96,6 +102,405 @@ __device__ __forceinline__ void to_expert(
   if (part != nullptr) {
     part += (long long)e * ex.splits * M * N;
     sxpart += (long long)e * ex.splits * M;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Decode batch (M ≤ 4): one warp per compressed block, decoded into
+// registers, all of K reduced inside the launch.
+//
+// What bounds it: bytes.  Every weight is read once as 2 bytes of code per
+// 4 weights plus a 4-byte literal row per escaped gram (with random
+// weights nearly every gram escapes: 1.5 bytes a weight), against 4·M
+// multiply-adds per weight.  Streaming at 3.35 TB/s needs ~25 KB in
+// flight on each SM (3.35 TB/s × ~1 µs of latency / 132 SMs), no barrier
+// inside the stream, and no second pass over device memory.
+// The SIMT kernel it replaces at M ≤ 4 (PERF.md) lost to four things; the
+// design's answer to each:
+//   1. A per-call floor: one 128-column stripe per block, K split only at
+//      tile granularity (16 blocks for 512 × 2048), and a serial decode →
+//      barrier → stage x → barrier → dot chain per K tile.  Here a CUDA
+//      block owns one row group — compressed-block position bb of tile row
+//      j (of expert e for K3): rpb = 4·slots / tile_k output columns — over
+//      every K tile, and warp w takes K tiles w, w + W, ... (W from the
+//      wrapper's plan: a power of two that keeps the grid within one wave
+//      of 16 warps a SM, at most min(K tiles, 16)).  A warp decodes its
+//      tile's block straight into registers and multiplies it against x
+//      with no block-wide barrier until the epilogue: 64 blocks of 4 warps
+//      for 512 × 2048, 1024 of 2 for 8192 × 2048, 11 264 of 1 for a 64 ×
+//      1408 × 2048 expert stack (one warp walks all of K).
+//   2. A second launch: the split-K workspace and splitk_epilogue.  Here
+//      the warps' partial sums meet in shared memory and are added in
+//      (warp, column group) order before qmoe::affine and the store: no
+//      workspace, no atomics, no second kernel, and two calls give the
+//      same bits.
+//   3. The literal stream gathered lane-strided.  Here a step is 256
+//      consecutive slots: lane L reads slots 8L .. 8L + 7 as one 16-byte
+//      load (neighbouring lanes on neighbouring slots), counts its escapes,
+//      and a shuffle scan over the warp gives each lane its first literal
+//      rank, the step's total carried to the next step; the escaped rows
+//      of a step are one contiguous run.  All of a block's (≤ 4) steps'
+//      codes, then all 32 gram loads a lane, are issued before the first
+//      product: ~6 KB in flight per warp, 16 warps per SM (128
+//      registers a thread).
+//   4. x staged as f32 by scalar loads, and the row sums a pass of their
+//      own.  Here a warp copies its tile's x (4 rows × tile_k bf16) into
+//      shared memory by cp.async before it reads its codes, so the copy
+//      hides behind the decode, and Σx comes from the same mma as the
+//      product (against ones).
+// The product (tile_k ≥ 32) runs on the tensor cores although M ≤ 4: the
+// SIMT version of this kernel spent its issue slots on 4 FMA and 2
+// conversions per weight and measured slower (PERF.md).  With mma.sync
+// m16n8k16 each lane's gram is its own B fragment (K order permuted), the
+// A rows carry x at the columns of one lane group each, and the cross
+// terms between groups are dropped (below).  tile_k 4, 8 or 16: a lane
+// holds whole rows (tile_k / 4 grams each), multiplies them on the SIMT
+// cores and adds each row's sum to shared memory as it completes.
+constexpr int kDecM = 4;          // rows of x the decode kernel takes
+constexpr int kDecSteps = 4;      // 256-slot steps: blocks of ≤ 1024 slots
+constexpr int kDecMaxWarps = 16;  // warps per CUDA block (K tiles at once)
+
+// q = a byte of g as an exact f32: 2^23 + b as the bits 0x4B0000bb, less
+// 2^23 (one PRMT and one FADD per weight).  magic holds 0x4B000000 in a
+// register, so that PRMT takes its selector as the immediate.
+__device__ __forceinline__ float gram_byte(uint32_t g, uint32_t magic,
+                                           int j) {
+  return __uint_as_float(__byte_perm(g, magic, 0x7440 + j)) - 8388608.f;
+}
+
+// Two exact small integers as f32 → one bf16x2 (lo in the low half).
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The four bf16 of v (two packed pairs) as f32.
+__device__ __forceinline__ void bf16x4_to_float(uint2 v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x << 16);
+  f[1] = __uint_as_float(v.x & 0xFFFF0000u);
+  f[2] = __uint_as_float(v.y << 16);
+  f[3] = __uint_as_float(v.y & 0xFFFF0000u);
+}
+
+// One warp decodes one compressed block (slots ≤ 256·kSteps) into
+// g[step][u]: the gram of slot step·256 + 8·lane + u, 0 past the block.
+// A LUT row for codes != ESCAPE, and for an escape the literal row
+// rank = escapes before it in the block, clipped to [0, cap − 1] as
+// _decode_tile clips it.  kVec: slots is a multiple of 8, so codes are
+// read 16 bytes a lane and a lane's 8 slots are all in the block or all
+// past it.  All 32 lanes must call it together.
+template <bool kVec, int kSteps>
+__device__ __forceinline__ void decode_grams(
+    const uint16_t* __restrict__ codes, const uint32_t* __restrict__ lits,
+    const uint32_t* __restrict__ lut, int slots, int cap, int lane,
+    uint32_t (&g)[kSteps][8]) {
+  uint32_t w[kSteps][4];
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+    const int s0 = st * 256 + lane * 8;
+    w[st][0] = w[st][1] = w[st][2] = w[st][3] = 0u;
+    if (kVec) {
+      if (s0 < slots) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes + s0));
+        w[st][0] = v.x, w[st][1] = v.y, w[st][2] = v.z, w[st][3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (s0 + u < slots)
+          w[st][u >> 1] |= (uint32_t)__ldg(codes + s0 + u) << (16 * (u & 1));
+    }
+  }
+  // a literal row as an offset from the LUT, so that one 64-bit add
+  // addresses either plane
+  const long long dlit = lits - lut;
+  int base = 0;   // escapes in the block before this step
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+    const int s0 = st * 256 + lane * 8;
+    const int nval = min(max(slots - s0, 0), 8);
+    uint32_t c[8], esc = 0u;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      c[u] = (u & 1) ? w[st][u >> 1] >> 16 : w[st][u >> 1] & 0xFFFFu;
+      esc |= (uint32_t)(c[u] == qmoe::kEscape) << u;
+    }
+    esc &= (1u << nval) - 1u;
+    const int cnt = __popc(esc);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    int rank = base + incl - cnt;
+    base += __shfl_sync(0xffffffffu, incl, 31);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) g[st][u] = 0u;
+    if (nval > 0) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (kVec || u < nval) {
+          const bool e = (esc >> u) & 1u;
+          const long long idx = e ? dlit + min(rank, cap - 1) : c[u];
+          rank += e;
+          g[st][u] = __ldg(lut + idx);
+        }
+      }
+    }
+  }
+}
+
+// A warp's copy of x for one K tile (wide kernel): kDecM rows × tile_k
+// columns in 8-byte pieces of 4 columns, piece (m, u, l) holding columns
+// 32·l + 4·u .. + 3 of row m at (m·8 + u)·16 + l, so that the lanes of a
+// product step (lane l of each row reading piece (m, u, l)) hit
+// neighbouring words at offsets known to the compiler.  Copied by
+// cp.async, issued before the block's codes are read so that its latency
+// hides behind theirs.
+constexpr int kXsPieces = kDecM * 8 * 16;   // uint2 per warp
+__device__ __forceinline__ void stage_x(const __nv_bfloat16* const (&xr)[kDecM],
+                                        int k0, int tile_k, int lane,
+                                        uint2* __restrict__ xs) {
+  // lane copies pieces kc = lane + 32i of each row: (u, l) = (lane % 8,
+  // lane / 8 + 4i)
+  const int n = max((tile_k / 4 - lane + 31) >> 5, 0);
+  const unsigned d0 = (unsigned)__cvta_generic_to_shared(
+      xs + (lane & 7) * 16 + (lane >> 3));
+#pragma unroll
+  for (int m = 0; m < kDecM; ++m) {
+    const __nv_bfloat16* src = xr[m] + k0 + 4 * lane;
+    unsigned dst = d0 + m * 8 * 16 * 8;
+    for (int i = 0; i < n; ++i, src += 128, dst += 4 * 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+                   "l"(src));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// kWide: tile_k ≥ 32 (so slots is a multiple of 8), product on the tensor
+// cores; else tile_k 4, 8, 16, product on the SIMT cores.
+template <typename TOut, bool kGrouped, bool kWide>
+__global__ void __launch_bounds__(kDecMaxWarps * 32)
+fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                                  const uint16_t* __restrict__ codes,
+                                  const uint32_t* __restrict__ lits,
+                                  const uint32_t* __restrict__ lut,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ zero,
+                                  TOut* __restrict__ out, int M, int N,
+                                  int K, int tile_n, int tile_k, int slots,
+                                  int cap, int bpt, Expert ex) {
+  extern __shared__ float dsm[];
+  const int W = blockDim.x >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
+  const int rpb = (4 * slots) >> tk_shift;  // output columns of the group
+  const int lpr = kWide ? tile_k >> 5 : 1;  // lanes per row of a step
+  const int H = lpr >= 4 ? lpr >> 2 : 1;    // partial sums per row (below)
+  float* red = dsm;                         // [W][rpb][H][kDecM]
+  float* redsx = dsm + W * rpb * H * kDecM; // [W][4][kDecM]
+  uint2* xs = reinterpret_cast<uint2*>(redsx + W * 4 * kDecM) +
+              warp * kXsPieces;             // the warp's x tile (wide)
+  const int nkt = K / tile_k, nnt = N / tile_n;
+  int rg = blockIdx.x;
+  if (kGrouped) {
+    const int groups = nnt * bpt;
+    const int e = rg / groups;
+    rg -= e * groups;
+    float* __restrict__ none = nullptr;
+    float* __restrict__ none_sx = nullptr;
+    to_expert(e, ex, M, N, K, x, codes, lits, scale, zero, out, none,
+              none_sx);
+  }
+  const int j = rg >> (__ffs(bpt) - 1), bb = rg & (bpt - 1);  // powers of 2
+  const int n0 = j * tile_n + bb * rpb;
+  // the epilogue's first scale and zero, read now: not at the block's end
+  float sc = 0.f, zr = 0.f;
+  if (tid < rpb * M) {
+    sc = __ldg(scale + n0 + tid % rpb);
+    zr = __ldg(zero + n0 + tid % rpb);
+  }
+  if (!kWide) {
+    for (int i = tid; i < W * rpb * kDecM; i += blockDim.x) red[i] = 0.f;
+    __syncthreads();
+  }
+  // rows of x past M read row M − 1: their sums are never stored
+  const __nv_bfloat16* xr[kDecM];
+#pragma unroll
+  for (int m = 0; m < kDecM; ++m) xr[m] = x + (long long)min(m, M - 1) * K;
+  // 0x4B000000, not known to the compiler (M ≥ 1): see gram_byte
+  const uint32_t magic = 0x4B000000u | ((uint32_t)M >> 31);
+
+  // Tensor-core mapping (wide).  Lane L = 4·gq + tq holds, in step st,
+  // the grams of row st·(32 / lpr) + L / lpr, columns 32·(L % lpr) + 4u
+  // .. + 3 (u = 0..7).  mma u of step st takes them as its B fragment:
+  // column n = gq, K slots {2tq, 2tq + 1, 2tq + 8, 2tq + 9} = the gram's 4
+  // columns (the product's K order permuted).  The 16 A rows are (s, m),
+  // s = r / 4, m = r % 4: row (s, m) holds x row m at the columns of the
+  // lanes of "group" s — lanes whose tq reads column block 4s + tq (lpr ≥
+  // 4: the gq with gq % H = s), or lanes with tq / lpr = s (lpr 1 or 2) —
+  // and zero at the other K slots.  So C[(s, m)][n] is x row m against
+  // weight row (n, s)'s columns of lane group s: a partial sum when s
+  // belongs to column n (lpr ≥ 4: s = n % H, H column blocks of 128 per
+  // row), a cross term to drop otherwise.  One more mma against ones
+  // sums x: Σ_{s < H} C[(s, m)][·] is Σ_k x[m][k] over the tile.
+  const int gq = lane >> 2, tq = lane & 3;
+  const uint2* xa[2];   // A rows gq and gq + 8
+  bool av[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int sg = (gq >> 2) + 2 * i;
+    av[i] = lpr >= 4 ? sg < H : sg == tq / lpr;
+    const int blk = lpr >= 4 ? 4 * sg + tq : (tq & (lpr - 1));
+    xa[i] = xs + (gq & 3) * 8 * 16 + (av[i] ? blk : 0);
+  }
+  float acc[kDecSteps][4], csx[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    csx[v] = 0.f;
+#pragma unroll
+    for (int st = 0; st < kDecSteps; ++st) acc[st][v] = 0.f;
+  }
+  float sx[kDecM] = {0.f, 0.f, 0.f, 0.f};   // narrow: Σ_k x
+  float* wred = red + warp * rpb * kDecM;   // narrow: [rpb][kDecM]
+  constexpr uint32_t kOnes = 0x3F803F80u;   // bf16x2 (1, 1)
+
+  for (int kt = warp; kt < nkt; kt += W) {
+    const long long blk = ((long long)j * nkt + kt) * bpt + bb;
+    const int k0 = kt * tile_k;
+    if (kWide) {
+      __syncwarp();                  // the last tile's reads of xs are done
+      stage_x(xr, k0, tile_k, lane, xs);
+    }
+    // narrow tiles have at most 512 slots (rows ≤ tile_n ≤ 128): 2 steps
+    constexpr int kSteps = kWide ? kDecSteps : 2;
+    uint32_t g[kSteps][8];
+    decode_grams<kWide, kSteps>(codes + blk * slots, lits + blk * cap, lut,
+                                slots, cap, lane, g);
+    if constexpr (kWide) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncwarp();
+      // steps past the block hold zero grams: their sums are never stored
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        uint32_t bq[kDecSteps][2];
+#pragma unroll
+        for (int st = 0; st < kDecSteps; ++st) {
+          bq[st][0] = bf16x2_of(gram_byte(g[st][u], magic, 0),
+                                gram_byte(g[st][u], magic, 1));
+          bq[st][1] = bf16x2_of(gram_byte(g[st][u], magic, 2),
+                                gram_byte(g[st][u], magic, 3));
+        }
+        const uint2 p0 = av[0] ? xa[0][u * 16] : make_uint2(0u, 0u);
+        const uint2 p1 = av[1] ? xa[1][u * 16] : make_uint2(0u, 0u);
+        const uint32_t a[4] = {p0.x, p1.x, p0.y, p1.y};
+        qmoe::mma_bf16(csx, a, kOnes, kOnes);
+#pragma unroll
+        for (int st = 0; st < kDecSteps; ++st)
+          qmoe::mma_bf16(acc[st], a, bq[st][0], bq[st][1]);
+      }
+    } else {
+      // tile_k 4, 8, 16: gpr grams per row, whole rows in one lane
+      const int gpr = tile_k >> 2;
+#pragma unroll
+      for (int st = 0; st < kSteps; ++st) {
+        float ra[kDecM] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int slot = st * 256 + lane * 8 + u;
+          if (slot >= slots) continue;
+          const int c0 = k0 + (((lane * 8 + u) & (gpr - 1)) << 2);
+#pragma unroll
+          for (int m = 0; m < kDecM; ++m) {
+            float xf[4];
+            bf16x4_to_float(
+                __ldg(reinterpret_cast<const uint2*>(xr[m] + c0)), xf);
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              ra[m] = fmaf(xf[b], gram_byte(g[st][u], magic, b), ra[m]);
+          }
+          if (((lane * 8 + u + 1) & (gpr - 1)) == 0) {
+            float* r = wred + (slot >> (tk_shift - 2)) * kDecM;
+#pragma unroll
+            for (int m = 0; m < kDecM; ++m) {
+              r[m] += ra[m];
+              ra[m] = 0.f;
+            }
+          }
+        }
+      }
+      // Σ_k x over this tile's columns, 4 per lane at a time
+      for (int c = k0 + lane * 4; c < k0 + tile_k; c += 128) {
+#pragma unroll
+        for (int m = 0; m < kDecM; ++m) {
+          float xf[4];
+          bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(xr[m] + c)),
+                          xf);
+          sx[m] += (xf[0] + xf[1]) + (xf[2] + xf[3]);
+        }
+      }
+    }
+  }
+
+  if (kWide) {
+    // each (row, s, m) partial is one C entry of one lane
+    const int rps = 32 / lpr;   // rows per step
+#pragma unroll
+    for (int st = 0; st < kDecSteps; ++st) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = gq + 8 * (v >> 1), n = 2 * tq + (v & 1);
+        const int sg = r >> 2, m = r & 3;
+        bool use;
+        int row;
+        if (lpr >= 4) {
+          use = sg == (n & (H - 1));
+          row = n / H;
+        } else {
+          use = sg < 4 / lpr;
+          row = (4 / lpr) * n + sg;
+        }
+        row += st * rps;
+        if (use && row < rpb)
+          red[((warp * rpb + row) * H + (lpr >= 4 ? sg : 0)) * kDecM + m] =
+              acc[st][v];
+      }
+    }
+    if (tq == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gq + 8 * i;
+        if ((r >> 2) < H)
+          redsx[(warp * 4 + (r >> 2)) * kDecM + (r & 3)] = csx[2 * i];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kDecM; ++m)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sx[m] += __shfl_xor_sync(0xffffffffu, sx[m], off);
+    if (lane == 0)
+#pragma unroll
+      for (int m = 0; m < kDecM; ++m) redsx[warp * 4 * kDecM + m] = sx[m];
+  }
+  __syncthreads();
+
+  // the partials in (warp, s) order, then the affine epilogue
+  for (int t = tid; t < rpb * M; t += blockDim.x) {
+    const int m = t >> (__ffs(rpb) - 1), row = t & (rpb - 1);
+    float a = 0.f, sum = 0.f;
+#pragma unroll 4
+    for (int w = 0; w < W; ++w)
+#pragma unroll 4
+      for (int h = 0; h < H; ++h) {
+        a += red[((w * rpb + row) * H + h) * kDecM + m];
+        sum += redsx[(w * 4 + h) * kDecM + m];
+      }
+    const int n = n0 + row;
+    if (t >= blockDim.x) sc = scale[n], zr = zero[n];
+    qmoe::store(out + (long long)m * N + n, qmoe::affine(sc, zr, a, sum));
   }
 }
 
@@ -398,7 +803,8 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
            int tile_n, int tile_k, int slots, int cap, int bpt, int splits,
-           int span, int bands_per_block, int E, cudaStream_t stream) {
+           int span, int bands_per_block, int decode_warps, int E,
+           cudaStream_t stream) {
   const int nkt = K / tile_k;
   const int tiles_per_split = (nkt + splits - 1) / splits;
   const long long nb = (long long)(N / tile_n) * nkt * bpt;
@@ -413,6 +819,29 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
   auto* op = static_cast<TOut*>(out);
   float* pp = splits > 1 ? static_cast<float*>(part) : nullptr;
   auto* sxp = static_cast<float*>(sxpart);
+  if (decode_warps > 0) {
+    // one block per row group, all of K: no split, no workspace
+    const int rpb = 4 * slots / tile_k;
+    if (M > kDecM || splits != 1 || tile_k < 4 || decode_warps > kDecMaxWarps ||
+        slots > (tile_k >= 32 ? 256 * kDecSteps : 512) ||
+        rpb * tile_k != 4 * slots)
+      return (int)cudaErrorInvalidValue;
+    const int H = tile_k >= 128 ? tile_k / 128 : 1;   // the kernel's H
+    const size_t smem =
+        (size_t)decode_warps * ((rpb * H + 4) * kDecM * 4 +
+                                (tile_k >= 32 ? kXsPieces * 8 : 0));
+    const long long blocks = (long long)E * (N / tile_n) * bpt;
+    auto kern = tile_k >= 32
+                    ? &fused_decode_matmul_decode_kernel<TOut, kGrouped, true>
+                    : &fused_decode_matmul_decode_kernel<TOut, kGrouped, false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned)blocks, decode_warps * 32, smem, stream>>>(
+        xp, cp, lp, up, sp, zp, op, M, N, K, tile_n, tile_k, slots, cap, bpt,
+        ex);
+    return (int)cudaGetLastError();
+  }
   if (bm == kMmaBM) {
     const int bands = (M + kMmaBM - 1) / kMmaBM;
     // a block with several bands must see its whole split in one span
@@ -460,16 +889,16 @@ int launch_any(int E, int bm, const void* x, const void* codes,
                const void* zero, void* out, void* part, void* sxpart,
                int out_bf16, int M, int N, int K, int tile_n, int tile_k,
                int slots, int cap, int bpt, int splits, int span,
-               int bands_per_block, cudaStream_t stream) {
+               int bands_per_block, int decode_warps, cudaStream_t stream) {
   if (E == 1)
     return launch<TOut, false>(bm, x, codes, lits, lut, scale, zero, out,
                                part, sxpart, out_bf16, M, N, K, tile_n,
                                tile_k, slots, cap, bpt, splits, span,
-                               bands_per_block, E, stream);
+                               bands_per_block, decode_warps, E, stream);
   return launch<TOut, true>(bm, x, codes, lits, lut, scale, zero, out, part,
                             sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,
-                            cap, bpt, splits, span, bands_per_block, E,
-                            stream);
+                            cap, bpt, splits, span, bands_per_block,
+                            decode_warps, E, stream);
 }
 
 }  // namespace
@@ -477,18 +906,20 @@ int launch_any(int E, int bm, const void* x, const void* codes,
 // C entry point, bound with ctypes.  Returns the CUDA error code (0 = ok).
 // E weights of one shape in one launch: x (E, M, K), planes (E, nb, slots)
 // and (E, nb, cap, 4), scale/zero (E, N, 1), out (E, M, N) — K1 is E = 1,
-// K3 a whole expert stack.  bm: rows per block — 4 or 16 (SIMT product) or
-// 128 (tensor cores; needs tile_k % 64 == 0, and takes span: K tiles
-// decoded at once, and bands_per_block: 128-row bands per block, which
-// needs a split of at most one span).  part/sxpart: f32 workspaces of
-// E·splits·M·N and E·splits·M (unused when splits == 1).  The literal
-// plane is read as one uint32 per gram (S = 4).
+// K3 a whole expert stack.  decode_warps > 0: the decode-batch kernel (M ≤
+// 4, tile_k ≥ 4, slots ≤ 1024, one split), that many warps to a block.
+// Else bm: rows per block — 4 or 16 (SIMT product) or 128 (tensor cores;
+// needs tile_k % 64 == 0, and takes span: K tiles decoded at once, and
+// bands_per_block: 128-row bands per block, which needs a split of at
+// most one span).  part/sxpart: f32 workspaces of E·splits·M·N and
+// E·splits·M (unused when splits == 1).  The literal plane is read as one
+// uint32 per gram (S = 4).
 extern "C" int qmoe_fused_decode_matmul(
     const void* x, const void* codes, const void* lits, const void* lut,
     const void* scale, const void* zero, void* out, void* part, void* sxpart,
     int out_bf16, int E, int M, int N, int K, int tile_n, int tile_k,
     int slots, int cap, int bpt, int splits, int bm, int span,
-    int bands_per_block, int device, void* stream) {
+    int bands_per_block, int decode_warps, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // This library links its own CUDA runtime: select the tensors' device.
   cudaError_t dev_err = cudaSetDevice(device);
@@ -497,8 +928,9 @@ extern "C" int qmoe_fused_decode_matmul(
     return launch_any<__nv_bfloat16>(E, bm, x, codes, lits, lut, scale, zero,
                                      out, part, sxpart, 1, M, N, K, tile_n,
                                      tile_k, slots, cap, bpt, splits, span,
-                                     bands_per_block, s);
+                                     bands_per_block, decode_warps, s);
   return launch_any<float>(E, bm, x, codes, lits, lut, scale, zero, out,
                            part, sxpart, 0, M, N, K, tile_n, tile_k, slots,
-                           cap, bpt, splits, span, bands_per_block, s);
+                           cap, bpt, splits, span, bands_per_block,
+                           decode_warps, s);
 }

@@ -5,7 +5,8 @@ Counterpart of two TPU Pallas kernels of
 tile-major planes) and K3 ``grouped_fused_decode_matmul`` (the same product
 for every expert of a stacked MoE weight, in one launch).  Both run the CUDA
 kernel ``csrc/fused_decode_matmul.cu`` (its header says what bounds it on
-the H100 and how the design answers that); :func:`fused_decode_matmul_plain`
+the H100 and how the design answers that; :func:`launch_plan` picks one of
+its three kernels: decode batch, SIMT rows, tensor-core prefill); :func:`fused_decode_matmul_plain`
 and :func:`grouped_fused_decode_matmul_plain` are the plain PyTorch
 versions the CPU runs and the card's kernel is held against.
 
@@ -33,8 +34,13 @@ MAX_GRID_Z = 65535        # experts × K splits share gridDim.z
 MMA_BM = 128              # rows of a band of the tensor-core kernel
 SPAN_COLS = 512           # widest K span the tensor-core kernel decodes
 MMA_SMEM_MAX = 232448     # the most shared memory one block may take (H100)
+DECODE_M = 4              # rows of x the decode-batch kernel takes (kDecM)
+DECODE_MAX_SLOTS = 1024   # its blocks: at most 4 steps of 256 slots
+DECODE_MAX_WARPS = 16     # K tiles a block's warps take at once
+DECODE_WARPS_PER_SM = 16  # resident at 128 registers a thread
+MAX_GRID_X = 2 ** 31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 15 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 16 + [_P]
 
 
 def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
@@ -109,25 +115,40 @@ def mma_smem_bytes(span_cols: int) -> int:
 
 
 class Plan(NamedTuple):
-    """How one launch covers (E, M, N, K): ``bm`` rows per block, K cut
-    into ``splits`` runs of ``tiles_per_split`` tiles (the last may be
-    shorter), decoded ``span`` tiles at a time, and — at bm = 128 —
-    ``bands_per_block`` 128-row bands walked by each block over each span
-    it decodes."""
+    """How one launch covers (E, M, N, K): ``kernel`` — ``"decode"`` (M ≤
+    4: a warp per compressed block, ``warps`` K tiles at once per block,
+    all of K in the launch), ``"simt"`` or ``"mma"`` — with ``bm`` rows per
+    block, K cut into ``splits`` runs of ``tiles_per_split`` tiles (the
+    last may be shorter), decoded ``span`` tiles at a time, and — at bm =
+    128 — ``bands_per_block`` 128-row bands walked by each block over each
+    span it decodes."""
     bm: int
     splits: int
     tiles_per_split: int
     span: int
     bands_per_block: int
+    kernel: str = "simt"
+    warps: int = 0
 
 
 def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
-                sms: int) -> Plan:
+                sms: int, slots: int = DECODE_MAX_SLOTS) -> Plan:
     """The launch of E products (M, K) × (K, N) with K tiles of ``tile_k``
-    on a card of ``sms`` SMs.
+    (compressed blocks of ``slots`` codes) on a card of ``sms`` SMs.
 
-    Decode-sized M (bm 4 or 16, SIMT): one band of rows per block, K split
-    so that about two blocks sit on every SM.
+    Decode batch (M ≤ 4, tile_k ≥ 4, blocks of ≤ 1024 slots, ≤ 512 below
+    tile_k 32 — every block the packer makes at those tiles): the decode
+    kernel, one block per row group over all of K — no split — whose W
+    warps take every W-th K tile.  W is the largest power of two that keeps
+    the grid's warps within one wave of the card (16 a SM), at most the K
+    tiles and 16: a block's fixed costs (its barrier, the epilogue) are
+    paid once per row group, so where row groups alone fill the card one
+    warp walks all of K (PERF.md: K3's down stack went from 11 warps to
+    1, and its time fell by over a third).  Its grid is E · N · tile_k /
+    (4 · slots) blocks (:func:`launch_grid`).
+
+    Other decode-sized M (bm 4 or 16, SIMT): one band of rows per block, K
+    split so that about two blocks sit on every SM.
 
     Prefill-sized M (bm 128, tensor cores; one block per SM): the kernel
     decodes ``span`` K tiles at once, ``SPAN_COLS`` columns or all of K if
@@ -144,6 +165,12 @@ def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
     each (PERF.md), M·N·K · 1.6e-14 s — under a third."""
     bm = block_rows(m, tile_k)
     nkt = k // tile_k
+    if (m <= DECODE_M and tile_k >= 4
+            and slots <= (DECODE_MAX_SLOTS if tile_k >= 32 else 512)):
+        groups = e * n * tile_k // (4 * slots)
+        fit = max(1, sms * DECODE_WARPS_PER_SM // max(groups, 1))
+        warps = min(1 << (fit.bit_length() - 1), nkt, DECODE_MAX_WARPS)
+        return Plan(bm, 1, nkt, 1, 1, "decode", warps)
     stripes = _cdiv(n, MAX_TILE_N)
     bands = _cdiv(m, bm)
     span = min(nkt, max(1, SPAN_COLS // tile_k))
@@ -154,7 +181,35 @@ def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
         splits = _cdiv(nkt, span)
         groups = max(1, min(bands // 2, sms // (e * stripes * splits)))
         per_block = _cdiv(bands, groups)
-    return Plan(bm, splits, _cdiv(nkt, splits), span, per_block)
+    return Plan(bm, splits, _cdiv(nkt, splits), span, per_block,
+                "mma" if bm == MMA_BM else "simt")
+
+
+def decode_smem_bytes(tile_k: int, slots: int, warps: int) -> int:
+    """Shared memory of one decode-kernel block (csrc: ``launch``): per
+    warp, its partial sums (rpb rows × H column groups × 4 rows of x) and
+    Σx (4 × 4), and at tile_k ≥ 32 its x tile (4 × 8 × 16 pieces of 8
+    bytes)."""
+    rpb = 4 * slots // tile_k
+    groups = tile_k // 128 if tile_k >= 128 else 1
+    return warps * ((rpb * groups + 4) * DECODE_M * 4
+                    + (DECODE_M * 8 * 16 * 8 if tile_k >= 32 else 0))
+
+
+def launch_grid(plan: Plan, m: int, n: int, tile_k: int, slots: int,
+                e: int) -> dict:
+    """The grid and block size the C side launches for ``plan`` (csrc:
+    ``launch``): the decode kernel one block per row group (E · N/tile_n ·
+    bpt of them), the others (stripes, row bands, E · splits)."""
+    if plan.kernel == "decode":
+        return {"kernel": "decode", "grid": [e * n * tile_k // (4 * slots),
+                                             1, 1],
+                "threads": 32 * plan.warps,
+                "smem_bytes": decode_smem_bytes(tile_k, slots, plan.warps)}
+    rows = _cdiv(_cdiv(m, plan.bm), plan.bands_per_block)
+    return {"kernel": plan.kernel,
+            "grid": [_cdiv(n, MAX_TILE_N), rows, e * plan.splits],
+            "threads": 512 if plan.kernel == "mma" else 256}
 
 
 def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
@@ -233,11 +288,14 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
     if m == 0 or e == 0:
         return out
-    plan = launch_plan(m, n, k, tile_k, e, _build.sm_count(dev))
+    plan = launch_plan(m, n, k, tile_k, e, _build.sm_count(dev), slots)
     splits = plan.splits
     if e * splits > MAX_GRID_Z:
         raise ValueError(f"{name}: {e} weights × {splits} K splits exceed "
                          f"the grid's z extent {MAX_GRID_Z}")
+    if plan.kernel == "decode" and e * nnt * bpt > MAX_GRID_X:
+        raise ValueError(f"{name}: {e * nnt * bpt} row groups exceed the "
+                         f"grid's x extent {MAX_GRID_X}")
     part = sx = None
     if splits > 1:
         part = torch.empty(e * splits * m * n, dtype=torch.float32,
@@ -250,7 +308,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
              sx.data_ptr() if sx is not None else None,
              int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
              slots, literals.shape[2], bpt, splits, plan.bm, plan.span,
-             plan.bands_per_block, dev.index,
+             plan.bands_per_block, plan.warps if plan.kernel == "decode"
+             else 0, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1

@@ -92,6 +92,52 @@ def test_fused_decode_matmul_on_card(card, n, k, m, levels):
                                                     out_dtype=dt), xi, xr)
 
 
+@pytest.mark.parametrize("e,n,k,tile_k", [
+    (1, 2048, 2048, 512),     # Llama-3.2-1B wq, wo
+    (1, 512, 2048, 512),      # wk, wv
+    (1, 8192, 2048, 512),     # w_gate, w_up
+    (1, 2048, 8192, 512),     # w_down
+    (1, 576, 2048, 512),      # DeepSeek-V2-Lite MLA wkv_a (tile_n 64)
+    (1, 2048, 2816, 256),     # shared experts' w_down
+    (1, 2048, 10944, 64),     # first layer's w_down
+    (64, 1408, 2048, 512),    # expert stacks: gate / up
+    (64, 2048, 1408, 128),    # down
+])
+def test_decode_kernel_on_card(card, e, n, k, tile_k):
+    """The decode-batch kernel at both paths' decode shapes, M = 1 to 4:
+    bitwise equal to the plain version on integer x, within 1e-4 of the
+    output's scale on random x, two calls bitwise equal, one launch."""
+    g = _gen(card, 7)
+    ws = [torch.randn((n, k), generator=g, device=card) * 0.02
+          for _ in range(e)]
+    pl, lut = pack_expert_stack(ws)
+    del ws
+    assert pl.tile_k == tile_k
+    kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    if e == 1:
+        args = (pl.codes[0], pl.literals[0], lut, pl.scale[0], pl.zero[0])
+        kernel, plain = fdm.fused_decode_matmul, fdm.fused_decode_matmul_plain
+    else:
+        args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
+        kernel = fdm.grouped_fused_decode_matmul
+        plain = fdm.grouped_fused_decode_matmul_plain
+    for m in (1, 2, 3, 4):
+        plan = fdm.launch_plan(m, n, k, tile_k, e, 132, pl.codes.shape[-1])
+        assert plan.kernel == "decode" and plan.splits == 1
+        shape = (e, m, k) if e > 1 else (m, k)
+        xi = torch.randint(-4, 5, shape, generator=g, device=card
+                           ).to(torch.bfloat16)
+        xr = torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+        _check_matmul(lambda x, dt: kernel(x, *args, **kw, out_dtype=dt),
+                      lambda x, dt: plain(x, *args, **kw, out_dtype=dt),
+                      xi, xr)
+        _build.LAUNCH_COUNTS.clear()
+        y1 = kernel(xr, *args, **kw, out_dtype=torch.float32)
+        y2 = kernel(xr, *args, **kw, out_dtype=torch.float32)
+        assert sum(_build.LAUNCH_COUNTS.values()) == 2
+        assert torch.equal(y1, y2)
+
+
 @pytest.mark.parametrize("n,k,m", [(211, 64, 5), (130, 100, 3),
                                    (1000, 512, 40), (64, 2048, 1)])
 def test_dequant_matmul_on_card(card, n, k, m):

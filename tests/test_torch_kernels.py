@@ -240,6 +240,11 @@ def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
     (4, 8192, 2048, 512, 1),      # decode: SIMT rows
     (83, 1408, 2048, 32, 64),     # tile_k 32: SIMT rows at prefill
     (4, 128, 130, 2, 1),          # tile_k 2 (K 2 mod 4) at decode
+    (4, 2048, 10944, 64, 1),      # decode: 171 tiles, warps walk several
+    (4, 1408, 2048, 512, 64),     # K3 at decode: 11 264 row groups
+    (4, 2048, 1408, 128, 64),     # K3's down stack at decode
+    (1, 576, 2048, 512, 1),       # MLA wkv_a (tile_n 64) at M = 1
+    (3, 40, 72, 8, 1),            # tile_k 8 at decode: narrow rows
     (129, 128, 130, 2, 1),        # and past 16 rows
     (129, 128, 131, 1, 1),        # tile_k 1 (K odd)
     (83, 1408, 2050, 2, 64),      # an expert stack at tile_k 2
@@ -249,8 +254,13 @@ def test_launch_plan(m, n, k, tile_k, e, sms):
     """The fused kernels' launch plan: every K tile in exactly one split,
     the grid's z extent, a tensor-core span that fits a block's shared
     memory (and covers its split when a block walks several bands), and
-    fewer decodes of each tile than 128-row bands of M."""
-    plan = fdm.launch_plan(m, n, k, tile_k, e, sms)
+    fewer decodes of each tile than 128-row bands of M.  At M ≤ 4 (tile_k
+    ≥ 4) the decode kernel: one split, every tile in one block, a power of
+    two of warps (or all the K tiles, at most 16) that keeps the grid's
+    warps within one wave of the card, a grid of one block per row group
+    within the x extent and shared memory within what a block may take."""
+    slots = min(min(n & -n, 128) * tile_k, 4096) // 4   # the packer's
+    plan = fdm.launch_plan(m, n, k, tile_k, e, sms, slots)
     nkt = k // tile_k
     runs = [range(s * plan.tiles_per_split,
                   min((s + 1) * plan.tiles_per_split, nkt))
@@ -269,6 +279,25 @@ def test_launch_plan(m, n, k, tile_k, e, sms):
             assert -(-bands // plan.bands_per_block) < bands
     else:
         assert plan.bands_per_block == 1
+    grid = fdm.launch_grid(plan, m, n, tile_k, slots, e)
+    if m <= fdm.DECODE_M and tile_k >= 4:
+        assert plan.kernel == "decode" and grid["kernel"] == "decode"
+        assert plan.splits == 1 and plan.tiles_per_split == nkt
+        groups = grid["grid"][0]          # one block per row group
+        fit = max(1, sms * fdm.DECODE_WARPS_PER_SM // groups)
+        assert 1 <= plan.warps <= min(nkt, fdm.DECODE_MAX_WARPS)
+        assert plan.warps == min(1 << (fit.bit_length() - 1), nkt,
+                                 fdm.DECODE_MAX_WARPS)
+        assert groups == e * n * tile_k // (4 * slots)
+        assert grid["threads"] == 32 * plan.warps <= 512
+        assert 0 < grid["grid"][0] <= fdm.MAX_GRID_X
+        assert grid["smem_bytes"] == fdm.decode_smem_bytes(tile_k, slots,
+                                                            plan.warps)
+        assert grid["smem_bytes"] <= fdm.MMA_SMEM_MAX
+    else:
+        assert plan.kernel == ("mma" if plan.bm == fdm.MMA_BM else "simt")
+        assert grid["grid"][2] == e * plan.splits <= fdm.MAX_GRID_Z
+    assert fdm.launch_plan(m, n, k, tile_k, e, sms, 2048).kernel != "decode"
 
 
 @pytest.mark.parametrize("shape", [(128, 130), (256, 6), (1408, 2050),
@@ -281,6 +310,8 @@ def test_small_tile_k_is_in_the_kernels_range(shape):
     assert tile_k in (1, 2)
     fdm.check_tiles(fdm.NAME, shape, tile_n, tile_k)
     assert fdm.launch_plan(4, *shape, tile_k, 1, 132).bm == 4
+    # tile_k 1 and 2 stay on the SIMT kernel at decode M
+    assert fdm.launch_plan(4, *shape, tile_k, 1, 132).kernel == "simt"
     for bad in (3, 1024):
         with pytest.raises(ValueError, match="range"):
             fdm.check_tiles(fdm.NAME, (128, 3 * 1024), 128, bad)
@@ -440,3 +471,201 @@ def test_flash_attention_operand_alignment():
         got = _aligned(t)
         assert got.is_contiguous() and got.data_ptr() % 16 == 0
         assert torch.equal(got, t)
+
+
+def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
+                             tile_n, tile_k):
+    """The work split of the card's decode-batch kernel (M ≤ 4), emulated in
+    f32 torch: one block per row group (block position bb of tile row j)
+    over all of K; warp w takes K tiles w, w + W, ...; each step of 256
+    slots gives lane L slots 8L .. 8L + 7, whose escape ranks are the
+    step's base (escapes of the earlier steps), the escapes of the lanes
+    before L and of the lane's own earlier slots, clipped to cap − 1.
+    tile_k ≥ 32: tile_k / 32 lanes share a row, each 32 columns; the
+    tensor-core product sums, per warp, each row's columns in groups of
+    128 (H = tile_k / 128 partial sums per row, one when tile_k ≤ 128)
+    over the warp's tiles, and Σx the same way.  tile_k 4, 8, 16: a lane
+    holds whole rows.  The partials are summed in (warp, group) order,
+    then the affine epilogue."""
+    n, k = shape
+    m = x.shape[0]
+    nb, slots = codes.shape
+    cap = literals.shape[1]
+    nnt, nkt = n // tile_n, k // tile_k
+    bpt = nb // (nnt * nkt)
+    plan = fdm.launch_plan(m, n, k, tile_k, 1, 132, slots)
+    assert plan.kernel == "decode" and plan.splits == 1
+    warps, rpb = plan.warps, 4 * slots // tile_k
+    groups = max(tile_k // 128, 1)
+    steps = -(-slots // 256)
+    xb = torch.zeros((4, k))
+    xb[:m] = x.to(torch.bfloat16).float()
+    c_all = (codes.to(torch.int32) & 0xFFFF).reshape(nnt, nkt, bpt, slots)
+    l_all = literals.reshape(nnt, nkt, bpt, cap, 4)
+    red = torch.zeros((warps, nnt, bpt, rpb, groups, 4))
+    redsx = torch.zeros((warps, groups, 4))
+    lane = torch.arange(32)
+    slot = (torch.arange(steps)[:, None, None] * 256 + lane[None, :, None] * 8
+            + torch.arange(8)[None, None, :])          # (steps, 32, 8)
+    valid = slot < slots
+    for w in range(warps):
+        for kt in range(w, nkt, warps):
+            c = c_all[:, kt][..., slot.clamp(max=slots - 1)]
+            esc = valid & (c == 0xFFFF)                 # (nnt, bpt, st, L, u)
+            cnt = esc.sum(-1)
+            lanes_before = cnt.cumsum(-1) - cnt
+            total = cnt.sum(-1)
+            step_base = total.cumsum(-1) - total
+            own_before = esc.cumsum(-1) - esc.int()
+            rank = (step_base[..., None, None] + lanes_before[..., None]
+                    + own_before).clamp(max=cap - 1)
+            lits = l_all[:, kt]                         # (nnt, bpt, cap, 4)
+            from_lit = torch.gather(
+                lits[:, :, None, None].expand(-1, -1, steps, 32, -1, -1),
+                4, rank.clamp(min=0)[..., None].expand(-1, -1, -1, -1, -1, 4)
+                .long())
+            grams = torch.where(esc[..., None], from_lit,
+                                lut[torch.where(esc | ~valid, 0, c).long()])
+            q = torch.where(valid[..., None], grams, 0).float()
+            xt = xb[:, kt * tile_k:(kt + 1) * tile_k]
+            if tile_k >= 32:
+                lpr = tile_k // 32
+                cols = ((lane % lpr) * 32)[:, None, None] + \
+                    4 * torch.arange(8)[None, :, None] + \
+                    torch.arange(4)[None, None, :]       # (L, u, b)
+                dots = torch.einsum("gbsluj,mluj->gbslm", q, xt[:, cols])
+                for st in range(steps):
+                    for ln in range(32):
+                        row = st * (32 // lpr) + ln // lpr
+                        if row < rpb:
+                            red[w, :, :, row, (ln % lpr) // 4] += \
+                                dots[:, :, st, ln]
+                redsx[w] += xt.reshape(4, groups, -1).sum(-1).T
+            else:
+                gpr = tile_k // 4
+                cols = ((lane[:, None] * 8 + torch.arange(8)) % gpr)[
+                    ..., None] * 4 + torch.arange(4)    # (L, u, b)
+                dots = torch.einsum("gbsluj,mluj->gbslum", q, xt[:, cols])
+                rows = (slot // gpr).clamp(max=rpb - 1)
+                for st in range(steps):
+                    for ln in range(32):
+                        for u in range(8):
+                            if valid[st, ln, u]:
+                                red[w, :, :, rows[st, ln, u], 0] += \
+                                    dots[:, :, st, ln, u]
+                redsx[w, 0] += xt.sum(1)
+    a, sx = torch.zeros((nnt, bpt, rpb, 4)), torch.zeros(4)
+    for w in range(warps):
+        for h in range(groups):
+            a = a + red[w, :, :, :, h]
+            sx = sx + redsx[w, h]
+    a = a.reshape(n, 4).T[:m]
+    y = scale.reshape(1, -1) * (a - sx[:m, None] * zero.reshape(1, -1))
+    return y
+
+
+def _packed_escapes(shape, seed, escapes):
+    """Planes of a seeded weight where every gram escapes (a table of
+    grams the weight lacks) or none does (a two-level weight, every gram
+    in the table)."""
+    rng = np.random.default_rng(seed)
+    from repro.core.compressed import quantize_linear
+    if escapes == "all":
+        w = rng.standard_normal(shape).astype(np.float32)
+        vals = np.asarray(quantize_linear(jnp.asarray(w)).values)
+        table = {tuple(int(b) for b in (1, 2, 3, 4)): 0}
+        assert not np.any(np.all(vals.reshape(-1, 4) == (1, 2, 3, 4), 1))
+    else:
+        w = rng.integers(0, 2, shape).astype(np.float32)
+        w[:, 0] = 2.0          # per-channel range: values 0, 127 and 255
+        vals = np.asarray(quantize_linear(jnp.asarray(w)).values)
+        table = jcodec.find_frequent_sequences([vals], min_count=1)
+    lut = jbc.build_lut(table)
+    pl = pack_linear(jnp.asarray(w), table, lut, tile="auto")
+    return pl, lut, {
+        "codes": torch.from_numpy(np.array(pl.codes).view(np.int16)),
+        "literals": torch.from_numpy(np.array(pl.literals)),
+        "lut": torch.from_numpy(np.array(lut)),
+        "scale": torch.from_numpy(np.array(pl.scale)),
+        "zero": torch.from_numpy(np.array(pl.zero))}
+
+
+@pytest.mark.parametrize("shape,m,bw,escapes", [
+    ((128, 2048), 4, 4096, "mixed"),    # tile_k 512: 16 lanes to a row
+    ((128, 768), 3, 4096, "mixed"),     # tile_k 256: 8 lanes, 3 tiles
+    ((256, 640), 4, 4096, "mixed"),     # tile_k 128, 5 tiles
+    ((128, 1408), 2, 4096, "mixed"),    # tile_k 128, 11 tiles
+    ((64, 192), 4, 4096, "mixed"),      # tile_n 64, tile_k 64: 32 rows/block
+    ((96, 160), 1, 1024, "mixed"),      # tile_k 32: 256 slots, lane = row
+    ((32, 48), 4, 256, "mixed"),        # tile_k 16: 64 slots, narrow
+    ((40, 72), 3, 4096, "mixed"),       # tile_k 8: 8 × 8 tiles, 16 slots
+    ((24, 36), 4, 4096, "mixed"),       # tile_k 4: 8 × 4 tiles, 8 slots
+    ((64, 96), 4, 512, "mixed"),        # 128 slots: half a step
+    ((128, 2048), 4, 4096, "all"),      # every gram escapes
+    ((128, 2048), 4, 4096, "none"),     # no gram escapes
+    ((64, 17 * 64), 4, 4096, "all"),    # 17 tiles: warps take two each
+])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_decode_kernel_decomposition(shape, m, bw, escapes, kind):
+    """The decode-batch kernel's work split (``_decode_kernel_emulation``)
+    is bitwise equal to the plain version and to the reference's oracle on
+    integer-valued x, and within assert_close_scaled on bf16 x."""
+    if escapes == "mixed":
+        pl, lut, t = _packed(shape, 5, bw)
+    else:
+        pl, lut, t = _packed_escapes(shape, 5, escapes)
+    cap = t["literals"].shape[1]
+    nlit = np.asarray(pl.nlit)
+    if escapes == "all":
+        assert (nlit == t["codes"].shape[1]).all()
+    if escapes == "none":
+        assert (nlit == 0).all()
+    x = torch.from_numpy(_x(np.random.default_rng(6), m, shape[1],
+                            kind).copy())
+    kw = dict(shape=shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    args = (t["codes"], t["literals"], t["lut"], t["scale"], t["zero"])
+    got = _decode_kernel_emulation(x, *args, **kw).numpy()
+    plain = fused_decode_matmul_plain(x, *args, **kw).numpy()
+    ref = np.asarray(jref.fused_decode_matmul(
+        jnp.asarray(x.numpy()), pl.codes, pl.literals, pl.nlit,
+        jnp.asarray(lut), pl.scale, pl.zero, **kw))
+    assert cap >= 1
+    if kind == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert_close_scaled(got, plain)
+        assert_close_scaled(got, ref)
+
+
+@pytest.mark.parametrize("e,n,k,m", [(3, 128, 1408, 4), (5, 64, 256, 3)])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_decode_kernel_decomposition_grouped(e, n, k, m, kind):
+    """K3 at decode: the kernel's grid holds every expert's row groups and
+    each runs K1's work on its expert's planes, so the emulation per
+    expert is the stack's product — bitwise equal to K3's plain version
+    and the reference's grouped oracle on integer x, close on bf16 x."""
+    rng = np.random.default_rng(10)
+    ws = [rng.laplace(0.0, 0.02, size=(n, k)).astype(np.float32)
+          for _ in range(e)]
+    pl, lut = jpack_expert_stack(ws)
+    codes, lits, scale, zero = _planes(pl)
+    tlut = torch.from_numpy(np.array(lut))
+    x = np.stack([_x(rng, m, k, kind) for _ in range(e)])
+    kw = dict(shape=tuple(pl.shape), tile_n=pl.tile_n, tile_k=pl.tile_k)
+    assert fdm.launch_plan(m, n, k, pl.tile_k, e, 132,
+                           codes.shape[2]).kernel == "decode"
+    got = np.stack([_decode_kernel_emulation(
+        torch.from_numpy(x[j]), codes[j], lits[j], tlut, scale[j], zero[j],
+        **kw).numpy() for j in range(e)])
+    plain = grouped_fused_decode_matmul_plain(
+        torch.from_numpy(x), codes, lits, tlut, scale, zero, **kw).numpy()
+    ref = np.asarray(jref.grouped_fused_decode_matmul(
+        jnp.asarray(x), pl.codes, pl.literals, pl.nlit, lut, pl.scale,
+        pl.zero, **kw))
+    if kind == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert_close_scaled(got, plain)
+        assert_close_scaled(got, ref)

@@ -7,20 +7,25 @@ For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
 and profiles one prefill and 8 decode steps with torch.profiler: device
-time by kernel, K2's time (every kernel named ``flash_attention``...),
-and the share of the window's wall time in which the device ran a
-kernel.  Prints one JSON line per window.
+time by kernel, K2's time (every kernel named ``flash_attention``...), the
+calls of the split-K epilogue, and the share of the window's wall time in
+which the device ran a kernel.  Busy time sums the device's own events
+(kernels, copies, fills) only: an operator's row repeats its kernels'
+time and is not counted.  Prints one JSON line per window.
 
 ``--model k1`` times the fused decode-matmul kernels alone, at M = 4
 (decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
 Llama-3.2-1B's seven projection shapes, as chip_smoke.py does (CUDA-graph
 replays walking the 16 layers' planes), and on DeepSeek-V2-Lite's first
 down projection (2048 × 10944, tile_k 64; the L2 flushed before each
-call); K3 (``grouped_fused_decode_matmul``) on one DeepSeek-shaped expert
-stack (64 × 1408 × 2048) at cap 4 and 83.  The two DeepSeek shapes are
-packed from seeded random weights of those shapes alone.  Prints the
-registers and spills ptxas reports for each kernel of the source, and
-one JSON line.
+call); K3 (``grouped_fused_decode_matmul``) on DeepSeek-shaped expert
+stacks, gate/up (64 × 1408 × 2048) and down (64 × 2048 × 1408), at cap 4
+and 83.  The DeepSeek shapes are packed from seeded random weights of
+those shapes alone.  Each row has the kernel the plan picks, its bytes or
+operations bound and the time of one PyTorch call on the materialized
+bf16 weights (``torch.matmul``; ``torch.bmm`` for a stack), timed the same
+way.  Prints the registers and spills ptxas reports for each kernel of
+the source, and one JSON line.
 
 ``--model k2`` times K2 (``flash_attention``) alone with CUDA-graph
 replays, as chip_smoke.py does, at both paths' prefill shapes: Llama's
@@ -49,6 +54,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -75,20 +81,22 @@ def window(model, name, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    busy = 0.0
-    for e in prof.key_averages():
-        dev = getattr(e, "self_device_time_total",
-                      getattr(e, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            rows.append((e.key, dev / 1e3, e.count))
-            busy += dev / 1e3
+    # the device's own events only: an operator's row also carries the
+    # time of the kernels it launched
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
     print(json.dumps({
         "model": model, "window": name, "wall_ms": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3),
         "k2_ms": sum(ms for k, ms, _ in rows if "flash_attention" in k),
+        "fused_decode_matmul_ms": sum(ms for k, ms, _ in rows
+                                      if "fused_decode_matmul" in k),
+        "splitk_epilogue_calls": sum(n for k, _, n in rows
+                                     if "splitk_epilogue" in k),
         "top_kernels": [{"name": k[:80], "ms": ms, "calls": n}
                         for k, ms, n in rows[:12]]}), flush=True)
 
@@ -168,7 +176,7 @@ def print_ptxas(name: str) -> list:
 
 
 def time_k1(dev, label, reps=20):
-    from chip_smoke import Timer
+    from chip_smoke import Timer, bound_ms, nbytes, plane_bytes
     from repro_torch.configs import get_config
     from repro_torch.core.compressed import pack_expert_stack
     from repro_torch.core.policy import CompressionPolicy
@@ -187,12 +195,26 @@ def time_k1(dev, label, reps=20):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_of(m, w, e):
+        """The kernel the plan picks and its grid (a tree from before the
+        decode kernel: the kernel and its K splits)."""
+        slots = w.codes.shape[-1]
+        if not hasattr(fdm, "launch_grid"):
+            plan = fdm.launch_plan(m, *w.shape, w.tile_k, e, sms)
+            return {"kernel": "mma" if plan.bm == fdm.MMA_BM else "simt",
+                    "splits": plan.splits}
+        plan = fdm.launch_plan(m, *w.shape, w.tile_k, e, sms, slots)
+        return fdm.launch_grid(plan, m, w.shape[0], w.tile_k, slots, e)
+
     rows, layer_ms = [], 0.0
     for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                       ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
                       ("mlp", "w_down")):
         ws = [b[grp][name] for b in st.params["blocks"]]
         n, k = ws[0].shape
+        wbs = [w.materialize(st.lut, torch.bfloat16) for w in ws]
         for m in (BATCH, 700):
             x = torch.randn((m, k), generator=gen, device=dev
                             ).to(torch.bfloat16)
@@ -201,22 +223,32 @@ def time_k1(dev, label, reps=20):
                 shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
                 for w in ws]
             ms = timer.graph_ms(fns, reps=reps)
-            rows.append({"proj": name, "N": n, "K": k, "M": m, "ms": ms})
+            lib = timer.graph_ms([lambda wb=wb: x @ wb.T for wb in wbs],
+                                 reps=reps)
+            b, by = bound_ms(nbytes(x) + plane_bytes(ws[0]) + m * n * 2,
+                             2.0 * m * n * k)
+            rows.append({"proj": name, "N": n, "K": k, "M": m, "ms": ms,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib,
+                         **plan_of(m, ws[0], 1)})
+            print(json.dumps(rows[-1]), flush=True)
             if m == BATCH:
                 layer_ms += ms
+        del wbs
     del st
     torch.cuda.empty_cache()
     # DeepSeek-V2-Lite: the first layer's down projection (tile_k 64; its
     # ~34 MB of planes fit the L2, so each call is timed cold) and one
-    # expert stack of gate/up shape (~280 MB of planes, past the L2)
+    # expert stack of each shape (~280 MB of planes, past the L2)
     for proj, e, n, k, m_values in (
             ("first.w_down", 1, 2048, 10944, (BATCH, 700)),
-            ("experts.w_gate", 64, 1408, 2048, (4, 83))):
+            ("experts.w_gate", 64, 1408, 2048, (4, 83)),
+            ("experts.w_down", 64, 2048, 1408, (4, 83))):
         ws = [torch.randn((n, k), generator=gen, device=dev) * 0.02
               for _ in range(e)]
         pl, lut = pack_expert_stack(ws)
         del ws
         kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+        wb = pl.materialize(lut, torch.bfloat16)
         for m in m_values:
             if e == 1:
                 args = (pl.codes[0], pl.literals[0], lut, pl.scale[0],
@@ -225,15 +257,25 @@ def time_k1(dev, label, reps=20):
                                 ).to(torch.bfloat16)
                 ms = timer.graph_ms([lambda: fdm.fused_decode_matmul(
                     x, *args, **kw)], reps=reps, cold=True)
+                lib = timer.graph_ms([lambda: x @ wb[0].T], reps=reps,
+                                     cold=True)
             else:
                 args = (pl.codes, pl.literals, lut, pl.scale, pl.zero)
                 x = torch.randn((e, m, k), generator=gen, device=dev
                                 ).to(torch.bfloat16)
                 ms = timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
                     x, *args, **kw)] * 4, reps=reps)
+                wbt = wb.transpose(1, 2)
+                lib = timer.graph_ms([lambda: torch.bmm(x, wbt)] * 4,
+                                     reps=reps)
+            b, by = bound_ms(nbytes(x, lut) + plane_bytes(pl) + e * m * n * 2,
+                             2.0 * e * m * n * k)
             rows.append({"proj": proj, "E": e, "N": n, "K": k, "M": m,
-                         "tile": [pl.tile_n, pl.tile_k], "ms": ms})
-        del pl, args
+                         "tile": [pl.tile_n, pl.tile_k], "ms": ms,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib,
+                         **plan_of(m, pl, e)})
+            print(json.dumps(rows[-1]), flush=True)
+        del pl, args, wb
         torch.cuda.empty_cache()
     ptxas = print_ptxas(fdm.NAME)
     print(json.dumps({"k1": label, "build_s": build_s,
