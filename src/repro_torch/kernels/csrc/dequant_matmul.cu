@@ -6,14 +6,59 @@
 //   y[m, n] = s[n] · (Σ_k bf16(x[m, k]) · q[n, k] − z[n] · Σ_k bf16(x[m, k]))
 //
 // On the compressed main path it is the tied LM head of Llama-3.2 (a
-// QuantLinear: 128 256 × 2048 uint8, 263 MB) at M = batch, every prefill
-// and decode step.  There it is a GEMV over the weight, bound by memory
-// bytes: the weight is read once, with 16-byte loads where K allows.
-// Design: the same block layout and affine epilogue as the fused kernel
-// (matmul_common.cuh); K is walked in 512-byte chunks and split over
-// gridDim.z when N/128 × M/BM blocks would leave the card idle.  Ragged M,
-// N and K are masked in the kernel, never padded in device memory.
+// QuantLinear: 128 256 × 2048 uint8, 263 MB) and DeepSeek-V2-Lite's
+// int8 head (102 400 × 2048) at M = batch, every prefill and decode step.
+// There it is a GEMV over the weight, bound by memory bytes: the weight is
+// read once.  Two kernels, picked by the wrapper's plan (dequant_plan):
+//
+//   * the decode kernel at M ≤ 4 with K % 16 == 0 (below);
+//   * the SIMT kernel at other shapes: blocks of 128 output columns walk K
+//     in 512-byte chunks through shared memory, split over gridDim.z when
+//     N/128 × M/BM blocks would leave the card idle (matmul_common.cuh's
+//     block layout and split-K epilogue).
+//
+// Ragged M, N and K are masked in the kernels, never padded in device
+// memory.
+//
+// The decode kernel.  Its bound is the weight's bytes: 263 MB for Llama's
+// head, 0.079 ms at 3.35 TB/s.  The SIMT kernel reached 1.22 TB/s there,
+// slower than torch.matmul reading the bf16 weight (twice the bytes), for
+// four costs in series; what this kernel does about each:
+//   1. Load → barrier → dot → barrier per 512-byte chunk, the weight copied
+//      through registers into shared memory, 3 blocks (24 warps) an SM by
+//      its 74 KB of shared memory: loads and products never overlapped
+//      within a block.  Here a warp owns 8 weight rows and walks all of K
+//      from registers: each lane reads 16 bytes of a row (4 lanes a row, so
+//      a warp-wide load reads 64 whole bytes — two sectors — of 8 rows),
+//      by ld.global.nc, 8 loads a lane a stage; the next stage (and across
+//      a row group's end, the next group's first) is issued before the
+//      current one's product.  No barrier and no shared memory in the
+//      stream; 8 KB in flight a warp while it waits.
+//   2. Each weight byte converted by an I2F (16 a clock an SM), twice (by
+//      both row groups of the block): ~0.126 ms of conversions alone.
+//      Here each byte becomes an exact f32 by one PRMT and one FADD
+//      (gram_byte) and is packed to bf16x2 once.
+//   3. The product on the SIMT cores.  Here it runs on mma.sync m16n8k16:
+//      each lane's 4 bytes (one word of its 16-byte load) are its own B
+//      fragment — column n = the lane's row, K slots {2t, 2t + 1, 2t + 8,
+//      2t + 9} = the word's 4 columns (the K order permuted) — and A row m
+//      holds x[m] at the columns each lane's word covers (rows 4–15 zero).
+//   4. x staged as f32 by scalar loads in every chunk of every block, and
+//      its row sums recomputed per chunk.  Here a block copies x (4 × K
+//      bf16) into shared memory once by cp.async and sums its rows once.
+// The whole of K is reduced in one warp in a fixed order: no split, no
+// workspace, no second launch; two calls give the same bits.  The affine
+// epilogue (qmoe::affine) is applied in registers, each output stored
+// once.  The grid is persistent (dequant_plan): 2 blocks of 8 warps an SM
+// at most (the launch bounds hold a thread to 128 registers), as few as
+// take the tasks in the same number of rounds.  Each of these choices
+// (rows a warp task, warps a block, loads a stage, the grid, the L2
+// prefetch, the bf16 packing) is timed against its alternative by
+// tools/profile_decode.py --model k5 (PERF.md).
+#include <atomic>
+
 #include "matmul_common.cuh"
+#include "mma_sm80.cuh"
 
 namespace {
 
@@ -83,17 +128,230 @@ dequant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                                 M, N, m0, n0 + n, g, blockIdx.z);
 }
 
+// ---------------------------------------------------------------------------
+// The decode kernel (M ≤ 4, K % 16 == 0, wq on a 16-byte boundary).
+
+constexpr int kDecM = 4;       // rows of x (A rows 0–3 of the mma)
+constexpr int kTiles = 1;      // 8-row tiles (the mma's N) a warp task
+constexpr int kLoads = 8;      // 16-byte weight loads a lane holds a stage
+constexpr int kSlice = 64;     // columns one load covers across a row's lanes
+constexpr int kSlices = kLoads / kTiles;   // 64-column slices a stage
+constexpr int kDecWarps = 8;   // warps a block
+constexpr int kDecRows = 8 * kTiles;       // weight rows a warp task
+
+// 16 bytes of the weight stream: read once, so not kept in L1; the L2
+// fetches the 256-byte segment around it (the row's next loads).
+__device__ __forceinline__ uint4 ldg_stream(const uint8_t* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Shared memory of one block: x as bf16, 4 rows of kpad columns (K rounded
+// up to whole stages) 2·kpad + 16 bytes apart, so that the 16 lanes
+// reading a row piece each (rows 0–3 × 4 lanes) hit 32 different banks;
+// then Σx's per-warp partials.
+__host__ __device__ inline int decode_kpad(int K) {
+  constexpr int cols = kSlice * kSlices;
+  return (K + cols - 1) / cols * cols;
+}
+__host__ __device__ inline int decode_smem_bytes(int K) {
+  return kDecM * (2 * decode_kpad(K) + 16) + kDecWarps * kDecM * 4;
+}
+
+// Warp task t = weight rows kDecRows·t .. + kDecRows − 1 over all of K;
+// warp gw of the grid takes tasks gw, gw + (warps in the grid), ...  Lane
+// L = 4·gid + tig reads, of row tile i, row kDecRows·t + 8i + gid at
+// columns 64·sl + 16·tig .. + 15 for every slice sl; word u of that load
+// is the B fragment of the slice's mma u for the tile.
+template <typename TOut>
+__global__ void __launch_bounds__(kDecWarps * 32, 2)
+dequant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
+                             const uint8_t* __restrict__ wq,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ zero,
+                             TOut* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int kpad = decode_kpad(K);
+  const int P = kpad / (kSlice * kSlices);    // stages a task
+  const int xrow = 2 * kpad + 16;             // bytes between rows of x
+  float* red = reinterpret_cast<float*>(smem + kDecM * xrow);   // [W][4]
+  const int tasks = (N + kDecRows - 1) / kDecRows;
+  const int gw = blockIdx.x * kDecWarps + warp, nw = gridDim.x * kDecWarps;
+  const int G = (gw < tasks ? (tasks - 1 - gw) / nw + 1 : 0) * P;
+
+  // stage g of this warp: task gw + (g / P)·nw, columns of stage g % P
+  using Stage = uint4[kTiles][kSlices];
+  auto load = [&](Stage& b, int g) {
+    const int q = g / P;
+    const int c0 = (g - q * P) * kSlices * kSlice + 16 * tig;
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+      const int r = (gw + q * nw) * kDecRows + 8 * i + gid;
+      const uint8_t* src = wq + (long long)r * K + c0;
+#pragma unroll
+      for (int s = 0; s < kSlices; ++s)
+        b[i][s] = r < N && c0 + kSlice * s < K ? ldg_stream(src + kSlice * s)
+                                               : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  // this lane's scale and zero of task t: rows kDecRows·t + 8i + 2·tig +
+  // j, the output columns of its C fragments
+  float sc[kTiles][2], zr[kTiles][2];
+  auto load_affine = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = t * kDecRows + 8 * i + 2 * tig + j;
+        sc[i][j] = n < N ? __ldg(scale + n) : 0.f;
+        zr[i][j] = n < N ? __ldg(zero + n) : 0.f;
+      }
+  };
+
+  // The first stage's loads go out before anything waits.
+  Stage b0, b1;
+  if (G > 0) {
+    load(b0, 0);
+    load_affine(gw);
+  }
+  // x → shared memory once a block, rows past M and columns past K zero.
+  const int pieces = kpad / 8;                 // 16-byte pieces a row
+  for (int i = tid; i < kDecM * pieces; i += blockDim.x) {
+    const int m = i / pieces, c = i - m * pieces;
+    const bool in = m < M && 8 * c < K;
+    qmoe::cp_async16(smem + m * xrow + 16 * c,
+                     in ? x + (long long)m * K + 8 * c : x, in ? 16 : 0);
+  }
+  qmoe::cp_async_commit();
+  qmoe::cp_async_wait<0>();
+  __syncthreads();
+  // Σ_k x[m][k] once a block: each thread sums its pieces of every row,
+  // then the warp, then the warps in order.
+  float part[kDecM];
+#pragma unroll
+  for (int m = 0; m < kDecM; ++m) {
+    part[m] = 0.f;
+    for (int c = tid; c < pieces; c += blockDim.x) {
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(smem + m * xrow + 16 * c);
+      const uint32_t h[4] = {v.x, v.y, v.z, v.w};
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s += __uint_as_float(h[e] << 16) + __uint_as_float(h[e] & 0xFFFF0000u);
+      part[m] += s;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part[m] += __shfl_xor_sync(0xffffffffu, part[m], off);
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int m = 0; m < kDecM; ++m) red[warp * kDecM + m] = part[m];
+  __syncthreads();
+  float sx = 0.f;     // Σx of x row gid (lanes gid < 4 store outputs)
+  for (int w = 0; w < kDecWarps; ++w) sx += red[w * kDecM + (gid & 3)];
+
+  // 0x4B000000, not known to the compiler (M ≥ 1): see gram_byte
+  const uint32_t magic = 0x4B000000u | ((uint32_t)M >> 31);
+  const unsigned char* xl = smem + (gid & 3) * xrow + 32 * tig;
+  float acc[kTiles][4];
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  auto compute = [&](const Stage& b, int g) {
+    const int q = g / P, p = g - q * P;
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s) {
+      // x[gid][64·sl + 16·tig .. + 15]: the A rows of this slice's 4 mmas
+      uint4 xa[2] = {make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
+      if (gid < kDecM) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            xl + 2 * kSlice * (p * kSlices + s));
+        xa[0] = src[0];
+        xa[1] = src[1];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const uint4& xv = xa[u >> 1];
+        const uint32_t a[4] = {(u & 1) ? xv.z : xv.x, 0u,
+                               (u & 1) ? xv.w : xv.y, 0u};
+#pragma unroll
+        for (int i = 0; i < kTiles; ++i) {
+          const uint32_t w[4] = {b[i][s].x, b[i][s].y, b[i][s].z, b[i][s].w};
+          qmoe::mma_bf16(acc[i], a,
+                         qmoe::bf16x2_of(qmoe::gram_byte(w[u], magic, 0),
+                                         qmoe::gram_byte(w[u], magic, 1)),
+                         qmoe::bf16x2_of(qmoe::gram_byte(w[u], magic, 2),
+                                         qmoe::gram_byte(w[u], magic, 3)));
+        }
+      }
+    }
+    if (p != P - 1) return;
+    // The task's end: C[gid][2·tig + j] of tile i is y[gid] at weight row
+    // kDecRows·t + 8i + 2·tig + j.
+    const int t = gw + q * nw;
+    if (gid < M) {
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = t * kDecRows + 8 * i + 2 * tig + j;
+          if (n < N)
+            qmoe::store(out + (long long)gid * N + n,
+                        qmoe::affine(sc[i][j], zr[i][j], acc[i][j], sx));
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    if (g + 1 < G) load_affine(t + nw);
+  };
+
+  // Two stages in registers: the next is in flight during each product.
+  for (int g = 0; g < G; g += 2) {
+    if (g + 1 < G) load(b1, g + 1);
+    compute(b0, g);
+    if (g + 2 < G) load(b0, g + 2);
+    if (g + 1 < G) compute(b1, g + 1);
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raise kern's dynamic shared memory cap to `bytes` once per device: the
+// first launch on each device sets it, later launches only read a flag.
+// One `ready` table per kernel instantiation (the caller's template).
+inline int smem_cap_once(std::atomic<bool> (&ready)[kMaxDevices],
+                         const void* kern, int bytes, int device) {
+  if (device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  if (ready[device].load(std::memory_order_acquire)) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) ready[device].store(true, std::memory_order_release);
+  return (int)err;
+}
+
 template <int RPT, typename TOut>
 int launch(const void* x, const void* wq, const void* scale,
            const void* zero, void* out, void* part, void* sxpart, int M,
-           int N, int K, int splits, cudaStream_t stream) {
+           int N, int K, int splits, int device, cudaStream_t stream) {
   constexpr int BM = 2 * RPT;
-  size_t smem = (size_t)qmoe::kBN * (kKC + 4) +
-                (size_t)BM * kKC * sizeof(float) + BM * sizeof(float);
+  constexpr size_t smem = (size_t)qmoe::kBN * (kKC + 4) +
+                          (size_t)BM * kKC * sizeof(float) +
+                          BM * sizeof(float);
   auto kern = dequant_matmul_kernel<RPT, TOut>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static std::atomic<bool> ready[kMaxDevices];
+  int rc = smem_cap_once(ready, (const void*)kern, (int)smem, device);
+  if (rc) return rc;
   int nkc = (K + kKC - 1) / kKC;
   int chunks_per_split = (nkc + splits - 1) / splits;
   dim3 grid((N + qmoe::kBN - 1) / qmoe::kBN, (M + BM - 1) / BM, splits);
@@ -103,7 +361,7 @@ int launch(const void* x, const void* wq, const void* scale,
       static_cast<TOut*>(out),
       splits > 1 ? static_cast<float*>(part) : nullptr,
       static_cast<float*>(sxpart), M, N, K, chunks_per_split);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   return qmoe::launch_splitk_epilogue(
       static_cast<const float*>(part), static_cast<const float*>(sxpart),
@@ -111,9 +369,34 @@ int launch(const void* x, const void* wq, const void* scale,
       sizeof(TOut) == 2, M, N, splits, stream);
 }
 
+template <typename TOut>
+int launch_decode(const void* x, const void* wq, const void* scale,
+                  const void* zero, void* out, int M, int N, int K,
+                  int blocks, int device, cudaStream_t stream) {
+  if (M < 1 || M > kDecM || K < 16 || K % 16 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  auto kern = dequant_matmul_decode_kernel<TOut>;
+  const int smem = decode_smem_bytes(K);
+  if (smem > 48 * 1024) {   // past the default: the most a block may take
+    static std::atomic<bool> ready[kMaxDevices];
+    int rc = smem_cap_once(ready, (const void*)kern, 232448, device);
+    if (rc) return rc;
+  }
+  kern<<<blocks, kDecWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<TOut*>(out), M, N, K);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// C entry point, bound with ctypes.  Returns the CUDA error code (0 = ok).
+// C entry points, bound with ctypes.  Each returns the CUDA error code
+// (0 = ok).
+//
+// The SIMT kernel: rpt rows of x a thread (2 or 8), K split `splits` ways
+// with f32 workspaces part (splits·M·N) and sxpart (splits·M), unused when
+// splits == 1.
 extern "C" int qmoe_dequant_matmul(const void* x, const void* wq,
                                    const void* scale, const void* zero,
                                    void* out, void* part, void* sxpart,
@@ -124,7 +407,8 @@ extern "C" int qmoe_dequant_matmul(const void* x, const void* wq,
   // This library links its own CUDA runtime: select the tensors' device.
   cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
-#define QMOE_ARGS x, wq, scale, zero, out, part, sxpart, M, N, K, splits, s
+#define QMOE_ARGS x, wq, scale, zero, out, part, sxpart, M, N, K, splits, \
+                  device, s
   if (rpt == 2)
     return out_bf16 ? launch<2, __nv_bfloat16>(QMOE_ARGS)
                     : launch<2, float>(QMOE_ARGS);
@@ -133,4 +417,23 @@ extern "C" int qmoe_dequant_matmul(const void* x, const void* wq,
                     : launch<8, float>(QMOE_ARGS);
 #undef QMOE_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The decode kernel (M ≤ 4, K % 16 == 0, wq and x on 16-byte
+// boundaries): kDecRows weight rows a warp task, kDecWarps warps a block,
+// `blocks` blocks; a grid with fewer warps than tasks is persistent (warps
+// take every (warps in the grid)-th task).
+extern "C" int qmoe_dequant_matmul_decode(const void* x, const void* wq,
+                                          const void* scale,
+                                          const void* zero, void* out,
+                                          int out_bf16, int M, int N, int K,
+                                          int blocks, int device,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  return out_bf16 ? launch_decode<__nv_bfloat16>(x, wq, scale, zero, out, M,
+                                                 N, K, blocks, device, s)
+                  : launch_decode<float>(x, wq, scale, zero, out, M, N, K,
+                                         blocks, device, s);
 }

@@ -160,19 +160,8 @@ constexpr int kDecM = 4;          // rows of x the decode kernel takes
 constexpr int kDecSteps = 4;      // 256-slot steps: blocks of ≤ 1024 slots
 constexpr int kDecMaxWarps = 16;  // warps per CUDA block (K tiles at once)
 
-// q = a byte of g as an exact f32: 2^23 + b as the bits 0x4B0000bb, less
-// 2^23 (one PRMT and one FADD per weight).  magic holds 0x4B000000 in a
-// register, so that PRMT takes its selector as the immediate.
-__device__ __forceinline__ float gram_byte(uint32_t g, uint32_t magic,
-                                           int j) {
-  return __uint_as_float(__byte_perm(g, magic, 0x7440 + j)) - 8388608.f;
-}
-
-// Two exact small integers as f32 → one bf16x2 (lo in the low half).
-__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using qmoe::bf16x2_of;   // the weight-byte conversions (matmul_common.cuh)
+using qmoe::gram_byte;
 
 // The four bf16 of v (two packed pairs) as f32.
 __device__ __forceinline__ void bf16x4_to_float(uint2 v, float (&f)[4]) {

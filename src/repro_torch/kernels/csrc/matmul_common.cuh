@@ -1,19 +1,22 @@
 // Shared pieces of the W8A16 matmul kernels (fused_decode_matmul.cu,
 // dequant_matmul.cu) and the dictionary decode (dict_decode.cu): the
-// decode of one compressed block, the bf16 x tile, its row sums, the SIMT
-// dot over a uint8 weight tile in shared memory, and the affine epilogue
+// decode of one compressed block, the weight bytes as exact f32 and bf16
+// without I2F (the decode-batch kernels' tensor-core products), the bf16
+// x tile, its row sums, the SIMT dot over a uint8 weight tile in shared
+// memory, and the affine epilogue
 //
 //     y = s · (Σ_k x·q − z·Σ_k x)
 //
 // which both kernels must compute the same way (the TPU kernels keep their
 // epilogues in sync for the same reason: dequant_matmul.py:26-27).
 //
-// Block layout, both kernels: 256 threads own 128 output columns (thread
-// t -> column t % 128) in two row groups (g = t / 128); a thread keeps RPT
-// rows g, g + 2, ... of one column in registers, so a block covers
-// BM = 2·RPT rows × 128 columns.  K is walked in chunks; a chunk of the
-// weight sits in shared memory as bytes with a row stride of chunk + 4, so
-// 32 threads reading 32 rows at one k hit 32 different banks.
+// Block layout of both files' SIMT kernels: 256 threads own 128 output
+// columns (thread t -> column t % 128) in two row groups (g = t / 128); a
+// thread keeps RPT rows g, g + 2, ... of one column in registers, so a
+// block covers BM = 2·RPT rows × 128 columns.  K is walked in chunks; a
+// chunk of the weight sits in shared memory as bytes with a row stride of
+// chunk + 4, so 32 threads reading 32 rows at one k hit 32 different
+// banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +46,20 @@ __device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t w) {
   const float lo = __uint_as_float(0x4B000000u | (w & 0xFFu)) - 8388608.f;
   const float hi = __uint_as_float(0x4B000000u | ((w >> 8) & 0xFFu)) - 8388608.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// q = byte j of g as an exact f32: 2^23 + b as the bits 0x4B0000bb, less
+// 2^23 (one PRMT and one FADD per weight, no I2F).  magic holds 0x4B000000
+// in a register, so that PRMT takes its selector as the immediate.
+__device__ __forceinline__ float gram_byte(uint32_t g, uint32_t magic,
+                                           int j) {
+  return __uint_as_float(__byte_perm(g, magic, 0x7440 + j)) - 8388608.f;
+}
+
+// Two exact small integers as f32 → one bf16x2 (lo in the low half).
+__device__ __forceinline__ uint32_t bf16x2_of(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // A decoded gram (4 weights) into a tile of bytes, or widened to 4 bf16.

@@ -1,19 +1,24 @@
 """W8A16 dequant × matmul against a dense uint8 weight.
 
 Counterpart of ``repro/kernels/dequant_matmul.py::dequant_matmul`` (the TPU
-Pallas kernel).  The CUDA kernel is ``csrc/dequant_matmul.cu``;
-:func:`dequant_matmul_plain` is the plain PyTorch version the CPU runs and
-the card's kernel is held against.  Both compute the kernel's affine form
+Pallas kernel).  The CUDA kernels are in ``csrc/dequant_matmul.cu`` (its
+note says what bounds them on the H100 and how the design answers that);
+:func:`dequant_plan` picks one by shape: the decode kernel at M ≤ 4 (a warp
+per 8 weight rows over all of K, the product on the tensor cores), the
+SIMT kernel otherwise.  :func:`dequant_matmul_plain` is the plain PyTorch
+version the CPU runs and the card's kernels are held against.  All compute
+the kernel's affine form
 
     y = s · (Σ_k x·q − z·Σ_k x)
 
 with the same epilogue as the fused kernel.  (``repro.kernels.ref`` instead
 dequantizes the weight first; the two agree to f32 roundoff.)  On the
-compressed main path this is Llama-3.2's tied LM head.
+compressed main paths this is the int8 LM head (Llama-3.2's tied one).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,9 +26,65 @@ from . import _build
 from .fused_decode_matmul import _split_count
 
 NAME = "dequant_matmul"
-KC = 512                  # K chunk of the kernel (csrc: kKC)
+KC = 512                  # K chunk of the SIMT kernel (csrc: kKC)
+DECODE_M = 4              # rows of x the decode kernel takes (kDecM)
+DECODE_ROWS = 8           # weight rows of a decode warp task (kDecRows)
+DECODE_WARPS = 8          # warps a decode block (kDecWarps)
+DECODE_BLOCKS_PER_SM = 2  # resident: launch bounds cap 128 registers
+DECODE_STAGE_COLS = 512   # K columns of one stage (kLoads · kSlice)
+SMEM_MAX = 232448         # the most shared memory one block may take (H100)
+MAX_GRID_X = 2 ** 31 - 1
+MAX_GRID_YZ = 65535
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
+_DECODE_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
+
+
+class DequantPlan(NamedTuple):
+    """How one launch covers (M, N, K): ``kernel`` ``"decode"`` — warp
+    tasks of ``DECODE_ROWS`` weight rows over all of K, ``DECODE_WARPS`` to
+    a block, ``grid[0]`` blocks — or ``"simt"`` — ``rpt`` rows of x a
+    thread in blocks of 128 columns, K in ``splits`` runs; ``grid`` and
+    ``threads`` as the C side launches them."""
+    kernel: str
+    grid: tuple
+    threads: int
+    smem_bytes: int
+    rpt: int = 0
+    splits: int = 1
+
+
+def decode_smem_bytes(k: int) -> int:
+    """Shared memory of one decode block (csrc: ``decode_smem_bytes``): x as
+    bf16, 4 rows of K rounded up to whole stages, each row 16 bytes
+    longer (banks), and 4 partial sums of Σx a warp."""
+    kpad = -(-k // DECODE_STAGE_COLS) * DECODE_STAGE_COLS
+    return DECODE_M * (2 * kpad + 16) + DECODE_WARPS * DECODE_M * 4
+
+
+def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+    """The launch of (M, K) × (K, N) on a card of ``sms`` SMs, a pure
+    function of the shapes.
+
+    Decode batch (M ≤ 4, K a positive multiple of 16: rows of 16-byte
+    loads): the decode kernel, one warp task per 8 weight rows, 8 warps a
+    block.  The grid is persistent: no more warps than the card holds at
+    once (2 blocks an SM), and as few as take the tasks in the same number
+    of rounds, so that every warp runs the same number of tasks but the
+    last few (PERF.md).  Otherwise the SIMT kernel: 4 rows a block at
+    M ≤ 4, else 16; K split so that about two blocks sit on every SM."""
+    if m <= DECODE_M and k > 0 and k % 16 == 0:
+        tasks = -(-n // DECODE_ROWS)
+        rounds = -(-tasks // (sms * DECODE_BLOCKS_PER_SM * DECODE_WARPS))
+        blocks = -(-tasks // (rounds * DECODE_WARPS))
+        return DequantPlan("decode", (blocks, 1, 1), 32 * DECODE_WARPS,
+                           decode_smem_bytes(k))
+    rpt = 2 if m <= 4 else 8
+    stripes, bands = -(-n // 128), -(-m // (2 * rpt))
+    splits = _split_count(stripes * bands, max(1, -(-k // KC)), sms)
+    return DequantPlan("simt", (stripes, bands, splits), 256,
+                       128 * (KC + 4) + (2 * rpt * KC + 2 * rpt) * 4,
+                       rpt=rpt, splits=splits)
 
 
 def dequant_matmul_plain(x, wq, scale, zero,
@@ -41,7 +102,7 @@ def dequant_matmul(x, wq, scale, zero,
                    out_dtype=torch.bfloat16) -> torch.Tensor:
     """y = x @ dequant(wq).T.  x: (M, K) float; wq: (N, K) uint8;
     scale/zero: (N, 1) f32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel :func:`dequant_plan` picks, or raise."""
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, wq, scale, zero, out_dtype)
     if x.device.type != "cuda":
@@ -64,23 +125,38 @@ def dequant_matmul(x, wq, scale, zero,
     if wq.data_ptr() % 16:
         raise ValueError(f"{NAME}: wq must start on a 16-byte boundary")
     xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:       # the decode kernel copies x 16 B at a time
+        xb = xb.clone()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    rpt = 2 if m <= 4 else 8
-    blocks = -(-n // 128) * -(-m // (2 * rpt))
-    splits = _split_count(blocks, -(-k // KC), _build.sm_count(dev))
-    part = sx = None
-    if splits > 1:
-        part = torch.empty(splits * m * n, dtype=torch.float32, device=dev)
-        sx = torch.empty(splits * m, dtype=torch.float32, device=dev)
-    fn = _build.function(NAME, "qmoe_dequant_matmul", _ARGTYPES)
-    err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-             zero.data_ptr(), out.data_ptr(),
-             part.data_ptr() if part is not None else None,
-             sx.data_ptr() if sx is not None else None,
-             int(out_dtype == torch.bfloat16), m, n, k, splits, rpt,
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    plan = dequant_plan(m, n, k, _build.sm_count(dev))
+    if plan.smem_bytes > SMEM_MAX or plan.grid[0] > MAX_GRID_X \
+            or max(plan.grid[1:]) > MAX_GRID_YZ:
+        raise ValueError(f"{NAME}: ({m}, {n}, {k}) needs a grid "
+                         f"{plan.grid} with {plan.smem_bytes} B of shared "
+                         "memory a block, past the card's limits")
+    bf16 = int(out_dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.kernel == "decode":
+        fn = _build.function(NAME, "qmoe_dequant_matmul_decode",
+                             _DECODE_ARGTYPES)
+        err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                 zero.data_ptr(), out.data_ptr(), bf16, m, n, k,
+                 plan.grid[0], dev.index, stream)
+    else:
+        part = sx = None
+        if plan.splits > 1:
+            part = torch.empty(plan.splits * m * n, dtype=torch.float32,
+                               device=dev)
+            sx = torch.empty(plan.splits * m, dtype=torch.float32,
+                             device=dev)
+        fn = _build.function(NAME, "qmoe_dequant_matmul", _ARGTYPES)
+        err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                 zero.data_ptr(), out.data_ptr(),
+                 part.data_ptr() if part is not None else None,
+                 sx.data_ptr() if sx is not None else None, bf16, m, n, k,
+                 plan.splits, plan.rpt, dev.index, stream)
     _build.check(err, NAME)
     _build.LAUNCH_COUNTS[NAME] += 1
     return out

@@ -138,9 +138,23 @@ def test_decode_kernel_on_card(card, e, n, k, tile_k):
         assert torch.equal(y1, y2)
 
 
-@pytest.mark.parametrize("n,k,m", [(211, 64, 5), (130, 100, 3),
-                                   (1000, 512, 40), (64, 2048, 1)])
+@pytest.mark.parametrize("n,k,m", [
+    (211, 64, 5), (130, 100, 3), (1000, 512, 40), (64, 2048, 1),
+    # both paths' int8 LM heads at decode batch: the decode kernel
+    (128256, 2048, 1), (128256, 2048, 2), (128256, 2048, 3),
+    (128256, 2048, 4),
+    (102400, 2048, 1), (102400, 2048, 2), (102400, 2048, 3),
+    (102400, 2048, 4),
+    (1003, 2048, 4),        # N ragged against the 8-row warp tasks
+    (37, 48, 2),            # K not a whole stage
+    (40, 28672, 3),         # x past 48 KB of shared memory
+    (130, 100, 4),          # K % 16 != 0 at M = 4: the SIMT kernel
+])
 def test_dequant_matmul_on_card(card, n, k, m):
+    """K5 (quantized from seeded random weights): bitwise equal to the
+    plain version on integer x, within 1e-4 of the output's scale on
+    random x, two calls bitwise equal, one launch each of the kernel the
+    plan picks."""
     g = _gen(card, 1)
     q = quantize_linear(torch.randn((n, k), generator=g, device=card))
     xi, xr = _xs(m, k, g, card)
@@ -148,6 +162,13 @@ def test_dequant_matmul_on_card(card, n, k, m):
         lambda x, dt: dqm.dequant_matmul(x, q.values, q.scale, q.zero, dt),
         lambda x, dt: dqm.dequant_matmul_plain(x, q.values, q.scale, q.zero,
                                                dt), xi, xr)
+    plan = dqm.dequant_plan(m, n, k, 132)
+    assert plan.kernel == ("decode" if m <= 4 and k % 16 == 0 else "simt")
+    _build.LAUNCH_COUNTS.clear()
+    y1 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
+    y2 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
+    assert dict(_build.LAUNCH_COUNTS) == {dqm.NAME: 2}
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("b,hq,hkv,tq,tk,d,dv,off,dtype", [
@@ -289,6 +310,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                            torch.zeros((1, 2, 3, 64), device=card))
     with pytest.raises(TypeError):
         dqm.dequant_matmul(x, torch.zeros((8, 64), device=card),
+                           torch.ones((8, 1), device=card),
+                           torch.zeros((8, 1), device=card))
+    with pytest.raises(ValueError, match="boundary"):      # misaligned wq
+        wq = torch.zeros(8 * 64 + 1, dtype=torch.uint8, device=card)
+        dqm.dequant_matmul(x, wq[1:].view(8, 64),
                            torch.ones((8, 1), device=card),
                            torch.zeros((8, 1), device=card))
     ws = [torch.ones((16, 64), device=card)] * 3

@@ -38,6 +38,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import dequant_matmul as dqm
 from repro_torch.kernels.dequant_matmul import (dequant_matmul,
                                                 dequant_matmul_plain)
 from repro_torch.kernels.dict_decode import dict_decode, dict_decode_plain
@@ -151,6 +152,158 @@ def test_dequant_matmul_plain(n, k, m, kind):
     if kind == "int":
         np.testing.assert_array_equal(got, pallas)
     else:
+        assert_close_scaled(got, pallas)
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (4, 128256, 2048),   # Llama-3.2-1B's tied head at decode batch
+    (1, 102400, 2048),   # DeepSeek-V2-Lite's head
+    (3, 1003, 2048),     # ragged N
+    (2, 37, 48),         # K not a whole stage
+    (4, 64, 16),         # one 16-column piece
+    (4, 8, 28672),       # the widest K a block's shared memory holds
+    (4, 130, 100),       # K % 16 != 0: the SIMT kernel
+    (5, 128256, 2048),   # M > 4: the SIMT kernel (a full-logits forward)
+    (700, 1000, 512),    # prefill rows
+    (4, 211, 0),         # K = 0: the SIMT kernel writes the epilogue
+    (1, 4096, 10944),
+])
+@pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
+def test_dequant_plan(m, n, k, sms):
+    """K5's launch plan, a pure function of the shapes: the decode kernel
+    exactly at M ≤ 4 with K a positive multiple of 16 (16-byte rows; the
+    wrapper refuses a wq off a 16-byte boundary for every kernel), each
+    output row in exactly one warp task and each task in exactly one warp
+    of the grid, and the grid, block and shared memory within what the
+    card takes.  Else the SIMT kernel: every K chunk in exactly one split,
+    no split empty."""
+    plan = dqm.dequant_plan(m, n, k, sms)
+    assert plan.kernel == ("decode" if m <= 4 and k > 0 and k % 16 == 0
+                           else "simt")
+    assert plan.smem_bytes <= dqm.SMEM_MAX and plan.threads <= 1024
+    assert 0 < plan.grid[0] <= dqm.MAX_GRID_X
+    assert all(0 < g <= dqm.MAX_GRID_YZ for g in plan.grid[1:])
+    if plan.kernel == "decode":
+        rpw, warps = dqm.DECODE_ROWS, dqm.DECODE_WARPS
+        assert plan.threads == 32 * warps
+        assert plan.grid[1:] == (1, 1) and plan.splits == 1
+        assert plan.smem_bytes == dqm.decode_smem_bytes(k)
+        assert plan.smem_bytes >= 4 * 2 * k        # x, staged once
+        # no more warps than the card holds at once, and no fewer than
+        # take the tasks in the same number of rounds
+        tasks = -(-n // rpw)
+        nw = plan.grid[0] * warps
+        rounds = -(-tasks // nw)
+        assert plan.grid[0] <= sms * dqm.DECODE_BLOCKS_PER_SM
+        assert (plan.grid[0] - 1) * warps * rounds < tasks
+        owner = np.full(tasks, -1)
+        for gw in range(nw):                 # warp gw: tasks gw, gw + nw...
+            mine = np.arange(gw, tasks, nw)
+            assert (owner[mine] == -1).all()
+            owner[mine] = gw
+        assert (owner >= 0).all()
+        rows = (np.arange(tasks)[:, None] * rpw + np.arange(rpw)).ravel()
+        assert np.array_equal(rows[rows < n], np.arange(n))
+    else:
+        rpt = 2 if m <= 4 else 8
+        assert plan.rpt == rpt and plan.threads == 256
+        assert plan.grid == (-(-n // 128), -(-m // (2 * rpt)), plan.splits)
+        nkc = -(-k // dqm.KC)
+        per = -(-nkc // plan.splits)
+        assert plan.splits == 1 or (plan.splits - 1) * per < nkc
+        assert plan.splits * per >= nkc
+
+
+def _dequant_decode_emulation(x, wq, scale, zero, sms=132):
+    """The work split of the card's K5 decode kernel (M ≤ 4), emulated in
+    f32 torch.  Warp gw of the grid takes tasks gw, gw + (warps in the
+    grid), ...; task t is weight rows 8t .. 8t + 7 over all of K, walked
+    in 64-column slices.  In slice sl, lane (gid, tig) holds 16 bytes of
+    row 8t + gid at columns 64·sl + 16·tig ..;
+    word u of them is its B fragment of mma u: K slots 2·tig, 2·tig + 1,
+    2·tig + 8, 2·tig + 9 = the word's 4 columns.  A row r < 4 holds x[r]
+    at each slot's column, rows 4–15 zero.  C accumulates over (sl, u) in
+    order.  Σx: thread T of a block sums its 16-byte pieces T, T + 256,
+    ... of each row (each piece's bf16 pairs in order), the warp by an xor
+    butterfly, the warps in order.  Then the affine epilogue."""
+    m, k = x.shape
+    n = wq.shape[0]
+    plan = dqm.dequant_plan(m, n, k, sms)
+    assert plan.kernel == "decode"
+    rpw, warps, blocks = dqm.DECODE_ROWS, dqm.DECODE_WARPS, plan.grid[0]
+    cols = dqm.DECODE_STAGE_COLS                     # columns a stage
+    kpad = -(-k // cols) * cols
+    tasks = -(-n // rpw)
+    xb = torch.zeros((4, kpad))
+    xb[:m, :k] = x.to(torch.bfloat16).float()
+    wp = torch.zeros((tasks * rpw, kpad))
+    wp[:n, :k] = wq.float()
+    wt = wp.reshape(tasks, rpw, kpad)                # (task, row, col)
+    # the slot order: slot 2·tig + (c & 1) + 8·(c >> 1) holds column 4u + c
+    # of lane tig's word u
+    slot_col = torch.empty(16, dtype=torch.long)
+    for tig in range(4):
+        for c in range(4):
+            slot_col[2 * tig + (c & 1) + 8 * (c >> 1)] = 16 * tig + c
+    acc = torch.zeros((tasks, 16, 8))
+    for sl in range(kpad // 64):
+        for u in range(4):
+            kc = 64 * sl + 4 * u + slot_col                      # (16,)
+            a = torch.zeros((16, 16))
+            a[:4] = xb[:, kc]
+            b = wt[:, :, kc].transpose(1, 2)                     # (t, 16, 8)
+            acc = acc + torch.matmul(a, b)
+    # Σx, in the kernel's order
+    threads = 32 * warps
+    pieces = kpad // 8
+    part = torch.zeros((threads, 4))
+    for c0 in range(0, pieces, threads):
+        cs = torch.arange(c0, min(c0 + threads, pieces))
+        v = xb[:, (cs[:, None] * 8 + torch.arange(8)).ravel()].reshape(
+            4, -1, 4, 2)
+        s = torch.zeros((4, len(cs)))
+        for e in range(4):
+            s = s + (v[:, :, e, 0] + v[:, :, e, 1])
+        part[cs - c0] = part[cs - c0] + s.T
+    lanes = part.reshape(warps, 32, 4)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ off]
+    sx = torch.zeros(4)
+    for w in range(warps):
+        sx = sx + lanes[w, 0]
+    # warp gw of the grid runs tasks gw, gw + (warps in the grid), ...;
+    # C[gid][col] of task t is y[gid] at row 8t + col
+    assert blocks * warps >= min(tasks, 1)
+    y = acc[:, :4].permute(1, 0, 2).reshape(4, tasks * rpw)[:m, :n]
+    return scale.reshape(1, -1) * (y - sx[:m, None] * zero.reshape(1, -1))
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 37, 64), (2, 203, 512), (3, 130, 1040), (4, 257, 2048),
+    (4, 9, 48),
+])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_dequant_decode_decomposition(m, n, k, kind):
+    """K5's decode-kernel work split (``_dequant_decode_emulation``) is
+    bitwise equal to the plain version and to the reference's Pallas
+    kernel (interpret mode) on integer-valued x, and within
+    assert_close_scaled of both on bf16 x — at M = 1–4, N ragged against
+    the 8-row tasks, K ragged against the stages."""
+    rng = np.random.default_rng(11)
+    wq = rng.integers(0, 256, (n, k)).astype(np.uint8)
+    scale = (rng.random((n, 1)) * 0.02 + 1e-3).astype(np.float32)
+    zero = rng.integers(0, 256, (n, 1)).astype(np.float32)
+    x = _x(rng, m, k, kind)
+    args = [torch.from_numpy(a) for a in (x, wq, scale, zero)]
+    got = _dequant_decode_emulation(*args).numpy()
+    plain = dequant_matmul_plain(*args, torch.float32).numpy()
+    pallas = np.asarray(jops.dequant_matmul(
+        *map(jnp.asarray, (x, wq, scale, zero)), impl="pallas_interpret"))
+    if kind == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, pallas)
+    else:
+        assert_close_scaled(got, plain)
         assert_close_scaled(got, pallas)
 
 

@@ -1,14 +1,15 @@
 """Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2]
+    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2|k5]
                                     [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
 and profiles one prefill and 8 decode steps with torch.profiler: device
-time by kernel, K2's time (every kernel named ``flash_attention``...), the
-calls of the split-K epilogue, and the share of the window's wall time in
+time by kernel, K2's time (every kernel named ``flash_attention``...), K5's
+(``dequant_matmul``...), the calls of the split-K epilogue, and the share
+of the window's wall time in
 which the device ran a kernel.  Busy time sums the device's own events
 (kernels, copies, fills) only: an operator's row repeats its kernels'
 time and is not counted.  Prints one JSON line per window.
@@ -37,6 +38,20 @@ plain version's and SDPA's times and the bounds.  Prints the
 registers, spills and static shared memory ptxas reports for each K2
 instantiation, and one JSON line.
 
+``--model k5`` times K5 (``dequant_matmul``) alone at M = 4 on both
+paths' int8 LM heads, Llama-3.2-1B's 128 256 × 2048 and DeepSeek-V2-Lite's
+102 400 × 2048 (quantized from seeded random weights of those shapes),
+through chip_smoke.py's ``check_dequant``: its error against the plain
+version, the kernel and grid the plan picks, its time (CUDA-graph
+replays; each head is past the L2), ``torch.matmul``'s on the bf16 head
+and the bytes bound.  Then the decode kernel's design choices: variants
+of its source with one constant or line replaced (16 rows a warp, 4
+warps a block, 4 loads a stage, no L2 prefetch, bf16 packed by PRMT;
+K5_VARIANTS), built beside the kernels, and the source as built on two
+other grids (2 blocks an SM; one task a warp), each bitwise-checked and
+timed the same way, with its registers and spills.  Prints the registers
+and spills ptxas reports for each K5 instantiation, and one JSON line.
+
 ``--src DIR`` imports the port from ``DIR``
 instead of this checkout's ``src``: to compare two commits on one card,
 unpack the other (``git archive``) into a gitignored directory and run
@@ -45,9 +60,11 @@ both in one call, in the order A, B, B, A.  Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import re
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -93,6 +110,7 @@ def window(model, name, fn):
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3),
         "k2_ms": sum(ms for k, ms, _ in rows if "flash_attention" in k),
+        "k5_ms": sum(ms for k, ms, _ in rows if "dequant_matmul" in k),
         "fused_decode_matmul_ms": sum(ms for k, ms, _ in rows
                                       if "fused_decode_matmul" in k),
         "splitk_epilogue_calls": sum(n for k, _, n in rows
@@ -311,10 +329,144 @@ def time_k2(dev, label):
                       "ptxas": ptxas}), flush=True)
 
 
+K5_HEADS = (("llama3.2-1b", 128256, 2048),
+            ("deepseek-v2-lite-16b", 102400, 2048))
+# The decode kernel's design choices, each timed against the source as
+# built: a variant is the source with its own constants (or a line of it)
+# replaced.  PACK_HI packs the high halves of two exact f32 by one PRMT.
+K5_VARIANTS = {
+    "as built": {},
+    "16 rows a warp": {"constexpr int kTiles = 1;":
+                       "constexpr int kTiles = 2;"},
+    "4 warps a block": {"constexpr int kDecWarps = 8;":
+                        "constexpr int kDecWarps = 4;"},
+    "4 loads a stage": {"constexpr int kLoads = 8;":
+                        "constexpr int kLoads = 4;"},
+    "no L2 prefetch": {"L2::256B.": ""},
+    "bf16 pack by PRMT": {
+        '#include "mma_sm80.cuh"':
+            '#include "mma_sm80.cuh"\n#define PACK_HI(a, b) __byte_perm('
+            '__float_as_uint(a), __float_as_uint(b), 0x7632)',
+        "qmoe::bf16x2_of(": "PACK_HI("},
+}
+
+
+def build_k5_variants(_build):
+    """One library per K5_VARIANTS entry, built from the substituted source
+    into the build directory, all nvcc at once → {name: (C entry,
+    ptxas rows of its decode kernels, warps a block, rows a task)}."""
+    src = (_build.CSRC / "dequant_matmul.cu").read_text()
+    out = _build.BUILD_DIR / "k5_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in K5_VARIANTS.items():
+        text = src
+        for old, new in subs.items():
+            if old not in text:
+                raise RuntimeError(f"K5 variant {name!r}: {old!r} is not in "
+                                   "the source")
+            text = text.replace(old, new)
+        stem = out / name.replace(" ", "_")
+        stem.with_suffix(".cu").write_text(text)
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-I", str(_build.CSRC), "-o", str(stem.with_suffix(".so")),
+             str(stem.with_suffix(".cu"))], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), stem, text)
+    libs = {}
+    for name, (proc, stem, text) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for K5 variant {name!r}:\n"
+                               + report)
+        fn = ctypes.CDLL(str(stem.with_suffix(".so"))
+                         ).qmoe_dequant_matmul_decode
+        fn.restype = ctypes.c_int
+        const = {c: int(re.search(rf"constexpr int {c} = (\d+);",
+                                  text).group(1))
+                 for c in ("kDecWarps", "kTiles")}
+        libs[name] = (fn, [r for r in ptxas_kernels(report)
+                           if "decode" in r["kernel"]],
+                      const["kDecWarps"], 8 * const["kTiles"])
+    return libs
+
+
+def time_k5_variants(dqm, libs, head, dev, gen, timer, sms):
+    """Each variant at M = 4 on ``head``: bitwise on integer x against
+    the plain version, its time with the CUDA-graph replays of
+    check_dequant; the source as built also on two other grids."""
+    from chip_smoke import BATCH, int_x, rand_x
+    from repro_torch.kernels import _build
+    n, k = head.values.shape
+    args = (head.values, head.scale, head.zero)
+    xi, xr = int_x(BATCH, k, gen, dev), rand_x(BATCH, k, gen, dev)
+    want = dqm.dequant_matmul_plain(xi, *args, torch.bfloat16)
+    rows = []
+    for name, (fn, ptxas, warps, rows_a_task) in libs.items():
+        fn.argtypes = dqm._DECODE_ARGTYPES
+        tasks = -(-n // rows_a_task)
+        per_sm = dqm.DECODE_BLOCKS_PER_SM * dqm.DECODE_WARPS  # as planned
+        rounds = -(-tasks // (sms * per_sm))
+        grids = {"plan: balanced persistent": -(-tasks // (rounds * warps))}
+        if name == "as built":
+            grids["persistent, 2 blocks an SM"] = min(
+                -(-tasks // warps), sms * per_sm // warps)
+            grids["one task a warp"] = -(-tasks // warps)
+        for grid, blocks in grids.items():
+            def call(x, fn=fn, blocks=blocks, name=name):
+                y = torch.empty((BATCH, n), dtype=torch.bfloat16, device=dev)
+                _build.check(fn(x.data_ptr(), *(t.data_ptr() for t in args),
+                                y.data_ptr(), 1, BATCH, n, k, blocks,
+                                dev.index,
+                                torch.cuda.current_stream(dev).cuda_stream),
+                             f"K5 variant {name!r}")
+                return y
+            rows.append({"variant": name, "grid": grid, "blocks": blocks,
+                         "N": n, "K": k, "M": BATCH,
+                         "bitwise": bool(torch.equal(call(xi), want)),
+                         "ms": timer.graph_ms([lambda: call(xr)] * 4),
+                         "ptxas": ptxas})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def time_k5(dev, label):
+    """K5 at both paths' LM heads through chip_smoke.check_dequant: one
+    definition of its error, timing and bound; then, on a tree with the
+    decode kernel, its design variants (K5_VARIANTS) on the same heads."""
+    from chip_smoke import Timer, check_dequant
+    from repro_torch.core.compressed import quantize_linear
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dequant_matmul as dqm
+    t0 = time.perf_counter()
+    _build.build([dqm.NAME])
+    variants = (build_k5_variants(_build)
+                if hasattr(dqm, "dequant_plan") else {})
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timer = Timer(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, design = [], []
+    for arch, n, k in K5_HEADS:
+        head = quantize_linear(torch.randn((n, k), generator=gen,
+                                           device=dev))
+        rows.append({"head": arch, **check_dequant({"dqm": dqm}, head, dev,
+                                                   gen, timer)})
+        print(json.dumps(rows[-1]), flush=True)
+        design += [{"head": arch, **r} for r in time_k5_variants(
+            dqm, variants, head, dev, gen, timer, sms)]
+        del head
+        torch.cuda.empty_cache()
+    ptxas = print_ptxas(dqm.NAME)
+    print(json.dumps({"k5": label, "build_s": build_s, "rows": rows,
+                      "variants": design, "ptxas": ptxas}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model",
-                    choices=["llama", "deepseek", "both", "k1", "k2"],
+                    choices=["llama", "deepseek", "both", "k1", "k2", "k5"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -327,8 +479,9 @@ def main():
     from chip_smoke import nvidia_smi_line
     print(f"card: {nvidia_smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
-    if args.model in ("k1", "k2"):
-        (time_k1 if args.model == "k1" else time_k2)(dev, args.src)
+    kernel_alone = {"k1": time_k1, "k2": time_k2, "k5": time_k5}
+    if args.model in kernel_alone:
+        kernel_alone[args.model](dev, args.src)
         return 0
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
