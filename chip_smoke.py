@@ -422,6 +422,12 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
         b, by = bound_ms(kv_bytes + 2 * BATCH * hq * tq * (d + dv), flops)
         b32, by32 = bound_ms(kv_bytes + 4 * BATCH * hq * tq * (d + dv), flops)
         kr, vr = kb[:, :, :tq], vb[:, :, :tq]
+        # SDPA on f32 operands: with enable_gqa it takes the math backend
+        # (bmm, whose cuBLAS workspace per stream outlives the timing); k
+        # and v repeated to the q heads, outside the timed call, take its
+        # fused kernel
+        kf, vf = (t.float().repeat_interleave(hq // hkv, dim=1)
+                  for t in (kr, vr))
         rows.append({"Tq": tq, "Tk": tk, "Dqk": d, "Dv": dv,
                      "max_abs_err": err, "max_abs_err_f32": err32,
                      "ms": timer.graph_ms(
@@ -435,6 +441,10 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
                      "bound_ms": b, "bound_by": by,
                      "f32_ms": timer.graph_ms(
                          [lambda: fa.flash_attention(qf, kb, vb)] * 8),
+                     "f32_library_ms": timer.graph_ms(
+                         [lambda: torch.nn.functional
+                          .scaled_dot_product_attention(
+                              qf, kf, vf, is_causal=True)] * 8),
                      "f32_bound_ms": b32, "f32_bound_by": by32})
     main = rows[0]
     return {"name": "flash_attention", "route": "cuda",
@@ -447,7 +457,7 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
             "library": "scaled_dot_product_attention",
             **{f: main[f] for f in ("ms", "plain_ms", "library_ms",
                                     "bound_ms", "bound_by", "f32_ms",
-                                    "f32_bound_ms")},
+                                    "f32_bound_ms", "f32_library_ms")},
             "f32_max_abs_err": max(r["max_abs_err_f32"] for r in rows),
             "f32_kernel": "SIMT, f32 q (flash_attention_f32)"}, rows
 
@@ -541,38 +551,56 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
             "prefill_bound_by": "+".join(sorted(pre_by))}, rows
 
 
-def check_dict_decode(rt, cfg, state, timer):
+def check_dict_decode(rt, w, lut, timer):
     """K4 on MLA's wkv_b (4096 × 512: 512 blocks of 1024 slots) and on a
-    ragged, prime block count of the same planes."""
+    ragged, prime block count of the same planes.  Beside the kernel's
+    time, two floors under the same cold graph timer: ``floor_ms``, a
+    one-element ``zero_()`` (what a graph node with no work reads), and
+    ``copy_ms``, a ``copy_`` that reads and writes K4's byte count.  The
+    bytes are what this run's data needs: the codes, the literal rows the
+    blocks use, the LUT rows the codes index (once each) and the output."""
     ddc = rt["ddc"]
-    lut = state.lut
-    w = state.params["blocks"][0]["attn"]["wkv_b"]
     rows = []
     for label, nb in (("wkv_b", w.codes.shape[0]),
                       ("ragged", max(w.codes.shape[0] - 3, 1))):
         codes, lits = w.codes[:nb], w.literals[:nb]
         got = ddc.dict_decode(codes, lits, lut)
-        same = bool(torch.equal(got, ddc.dict_decode_plain(codes, lits, lut)))
+        again = ddc.dict_decode(codes, lits, lut)
+        same = bool(torch.equal(got, ddc.dict_decode_plain(codes, lits, lut))
+                    and torch.equal(got, again))
         if not same:
             raise AssertionError(f"K4 {label} ({nb} blocks) differs from "
-                                 "its plain version")
-        slots = codes.shape[1]
-        b, by = bound_ms(nb * slots * 2 + int(w.nlit[:nb].sum()) * 4
-                         + nbytes(lut) + nb * slots * 4, 0.0)
-        rows.append({"planes": label, "blocks": nb, "slots": slots,
-                     "bitwise": same,
-                     # the kernel alone: CUDA-graph replays, the L2 wiped
-                     # before each call (the planes fit it)
-                     "ms": timer.graph_ms(
-                         [lambda: ddc.dict_decode(codes, lits, lut)],
-                         reps=20, cold=True),
-                     # single launches with the L2 flushed before each, the
-                     # host's launch latency inside
-                     "call_ms": timer.ms(
-                         lambda: ddc.dict_decode(codes, lits, lut), iters=20),
-                     "plain_ms": timer.ms(
-                         lambda: ddc.dict_decode_plain(codes, lits, lut)),
-                     "library_ms": None, "bound_ms": b, "bound_by": by})
+                                 "its plain version or between two calls")
+        slots, cap = codes.shape[1], lits.shape[1]
+        nlit = w.nlit[:nb].clamp(max=cap)
+        lut_rows = torch.unique(codes[codes != -1]).numel()  # -1: escape
+        moved = (nb * slots * 2 + int(nlit.sum()) * 4
+                 + lut_rows * lut.shape[1] + nb * slots * 4)
+        b, by = bound_ms(moved, 0.0)
+        half = torch.empty(moved // 2, dtype=torch.uint8, device=got.device)
+        other = torch.empty_like(half)
+        one = torch.empty(1, device=got.device)
+        row = {"planes": label, "blocks": nb, "slots": slots, "cap": cap,
+               "bitwise": same, "bytes": moved, "lut_rows_read": lut_rows,
+               # the kernel alone: CUDA-graph replays, the L2 wiped
+               # before each call (the planes fit it)
+               "ms": timer.graph_ms(
+                   [lambda: ddc.dict_decode(codes, lits, lut)],
+                   reps=20, cold=True),
+               "floor_ms": timer.graph_ms([one.zero_], reps=20, cold=True),
+               "copy_ms": timer.graph_ms([lambda: other.copy_(half)],
+                                         reps=20, cold=True),
+               # single launches with the L2 flushed before each, the
+               # host's launch latency inside
+               "call_ms": timer.ms(
+                   lambda: ddc.dict_decode(codes, lits, lut), iters=20),
+               "plain_ms": timer.ms(
+                   lambda: ddc.dict_decode_plain(codes, lits, lut)),
+               "library_ms": None, "bound_ms": b, "bound_by": by}
+        if hasattr(ddc, "launch_shape"):
+            blocks, threads = ddc.launch_shape(nb, slots)
+            row["grid"] = f"{blocks} blocks of {threads} threads"
+        rows.append(row)
     main = rows[0]
     return {"name": "dict_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dict_decode.cu",
@@ -580,9 +608,10 @@ def check_dict_decode(rt, cfg, state, timer):
             "bitwise": True, "max_abs_err": 0.0,
             "timed_at": f"MLA wkv_b {tuple(w.shape)}, {main['blocks']} blocks",
             "library": "none: no single PyTorch call decodes the dictionary",
-            **{f: main[f] for f in ("ms", "call_ms", "plain_ms",
-                                    "library_ms", "bound_ms", "bound_by")}
-            }, rows
+            **{f: main[f] for f in ("ms", "floor_ms", "copy_ms", "call_ms",
+                                    "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")},
+            **({"grid": main["grid"]} if "grid" in main else {})}, rows
 
 
 def pack(rt, cfg, device, seed):
@@ -757,7 +786,9 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         ("grouped_fused_decode_matmul",
          lambda: check_grouped(rt, cfg, state, device, BATCH * t_prefill,
                                gen, timer)),
-        ("dict_decode", lambda: check_dict_decode(rt, cfg, state, timer)),
+        ("dict_decode",
+         lambda: check_dict_decode(rt, moe[0]["attn"]["wkv_b"], state.lut,
+                                   timer)),
         ("flash_attention",
          lambda: check_flash(rt, device, t_prefill, gen, timer, cfg.n_heads,
                              cfg.n_heads,

@@ -1,6 +1,7 @@
 // Shared pieces of the W8A16 matmul kernels (fused_decode_matmul.cu,
-// dequant_matmul.cu) and the dictionary decode (dict_decode.cu): the
-// decode of one compressed block, the weight bytes as exact f32 and bf16
+// dequant_matmul.cu): the decode of one compressed block into a tile
+// (K1/K3's SIMT and tensor-core kernels; the dictionary decode,
+// dict_decode.cu, has its own), the weight bytes as exact f32 and bf16
 // without I2F (the decode-batch kernels' tensor-core products), the bf16
 // x tile, its row sums, the SIMT dot over a uint8 weight tile in shared
 // memory, and the affine epilogue

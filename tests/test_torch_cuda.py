@@ -13,6 +13,7 @@ bf16 x with f32 output → the same exact products summed in another order,
 bitwise on every input.
 """
 import dataclasses
+import itertools
 
 import pytest
 import torch
@@ -278,24 +279,65 @@ def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
             pl.zero[j], **kw))
 
 
-@pytest.mark.parametrize("n_weights,block_weights", [
-    (13 * 4096, 4096),    # prime block count
-    (9 * 400 + 40, 400),  # 100 slots (no 16-byte code reads), ragged end
-    (4096 * 512, 4096),   # MLA wkv_b's size: 512 blocks
-])
-def test_dict_decode_on_card(card, n_weights, block_weights):
-    g = _gen(card, 5)
-    w = torch.randint(0, 256, (n_weights,), generator=g, device=card
+def _dict_weights(n, escapes, g, device):
+    """n uint8 weights and a gram table: "all" — no gram is in the table;
+    "none" — every gram is (values 0–3, all 256 grams); "mixed" — half the
+    grams, drawn at random, are; "half" — the first half's grams are."""
+    w = torch.randint(0, 256, (n // 4, 4), generator=g, device=device
                       ).to(torch.uint8)
-    w[: n_weights // 2] = w[: n_weights // 2] % 4   # half hits the table
-    table = find_frequent_sequences([w], max_codes=60)
+    if escapes == "mixed":
+        hit = torch.rand(n // 4, generator=g, device=device) < 0.5
+        w[hit] %= 4
+    elif escapes == "half":
+        w[: n // 8] %= 4
+    elif escapes == "none":
+        w %= 4
+    if escapes == "all":
+        table = {(1, 2, 3, 4): 0}
+        assert not (w == torch.tensor([1, 2, 3, 4], device=device)
+                    ).all(1).any()
+    else:
+        table = {g: i for i, g in enumerate(
+            itertools.product(range(4), repeat=4))}
+    return w.reshape(-1), table
+
+
+@pytest.mark.parametrize("n_weights,block_weights,escapes,cap", [
+    (13 * 4096, 4096, "half", None),      # prime block count
+    (9 * 400 + 40, 400, "half", None),    # 100 slots, ragged end
+    (9 * 408 + 40, 408, "mixed", None),   # 102 slots: the scalar path
+    (4096 * 512, 4096, "half", None),     # MLA wkv_b's size: 512 blocks
+    (4096 * 512, 4096, "all", None),      # ... the random-weight path
+    (64 * 4096, 4096, "none", None),      # no escapes
+    (64 * 4096, 4096, "mixed", None),     # escapes interleaved in a block
+    (37 * 400 - 40, 400, "mixed", None),  # 100 slots, ragged end
+    (7 * 10240, 10240, "mixed", None),    # 2560 slots: 3 chunks
+    (7 * 10008 - 8, 10008, "all", None),  # 2502: chunks, scalar path
+    (64 * 4096, 4096, "all", 300),        # cap below the blocks' escapes
+    (7 * 10240, 10240, "mixed", 700),     # ... from the second chunk on
+])
+def test_dict_decode_on_card(card, n_weights, block_weights, escapes, cap):
+    """K4 bitwise against its plain version; two calls give the same bits,
+    and so do codes that start off a 16-byte boundary (the scalar path)."""
+    w, table = _dict_weights(n_weights, escapes, _gen(card, 5), card)
     bc = encode_blocked(w, TableIndex(table, device=card),
                         block_weights=block_weights)
     lut = build_lut(table, device=card)
-    got = ddc.dict_decode(bc.codes, bc.literals, lut)
-    assert torch.equal(got, ddc.dict_decode_plain(bc.codes, bc.literals,
-                                                  lut))
-    assert torch.equal(got.reshape(-1)[:n_weights], w)
+    lits = bc.literals
+    if cap is not None:
+        assert cap < int(bc.nlit.max())
+        lits = lits[:, :cap].contiguous()
+    got = ddc.dict_decode(bc.codes, lits, lut)
+    assert torch.equal(got, ddc.dict_decode_plain(bc.codes, lits, lut))
+    assert torch.equal(ddc.dict_decode(bc.codes, lits, lut), got)
+    nb, slots = bc.codes.shape
+    shifted = torch.empty(nb * slots + 1, dtype=torch.int16,
+                          device=card)[1:].view(nb, slots)
+    shifted.copy_(bc.codes)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(ddc.dict_decode(shifted, lits, lut), got)
+    if cap is None:
+        assert torch.equal(got.reshape(-1)[:n_weights], w)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -329,11 +371,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         ops.grouped_decode_dequant_matmul(torch.zeros((3, 4, 64),
                                                       device=card), lin,
                                           lut_l)
+    codes = torch.zeros((2, 256), dtype=torch.int16, device=card)
     with pytest.raises(ValueError, match="boundary"):      # misaligned
-        codes = torch.zeros(2 * 256 + 1, dtype=torch.int16, device=card)
-        ddc.dict_decode(codes[1:].reshape(2, 256),
-                        torch.zeros((2, 1, 4), dtype=torch.uint8,
+        lits = torch.zeros(2 * 4 + 1, dtype=torch.uint8, device=card)
+        ddc.dict_decode(codes, lits[1:].view(2, 1, 4), lut)
+    with pytest.raises(ValueError, match="at most"):       # 2^30 + 8 slots
+        ddc.dict_decode(codes[:1, :1].expand(1, (1 << 30) + 8),
+                        torch.zeros((1, 1, 4), dtype=torch.uint8,
                                     device=card), lut)
+    with pytest.raises(ValueError, match="at most"):       # 2^31 blocks
+        ddc.dict_decode(codes[:1, :1].expand(1 << 31, 1),
+                        torch.zeros((1, 1, 4), dtype=torch.uint8,
+                                    device=card).expand(1 << 31, 1, 4), lut)
 
 
 def test_prefill_card_matches_cpu(card):

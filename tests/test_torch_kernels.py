@@ -21,6 +21,7 @@ Tolerances:
     hi + lo for P·V), on bf16 inputs with a bf16 output: the card tests'
     1.6e-2.
 """
+import itertools
 import math
 
 import numpy as np
@@ -41,6 +42,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dequant_matmul as dqm
 from repro_torch.kernels.dequant_matmul import (dequant_matmul,
                                                 dequant_matmul_plain)
+from repro_torch.kernels import dict_decode as ddc
 from repro_torch.kernels.dict_decode import dict_decode, dict_decode_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -496,6 +498,105 @@ def test_dict_decode_plain(shape, block_weights, max_codes):
     np.testing.assert_array_equal(got, np.asarray(jops.dict_decode(
         *args, impl="pallas_interpret")))
     np.testing.assert_array_equal(got.reshape(-1)[: w.size], w.reshape(-1))
+
+
+def _dict_weights(n, escapes, seed):
+    """n uint8 weights and a gram table: "all" — no gram is in the table;
+    "none" — every gram is (values 0–3, all 256 grams); "mixed" — half the
+    grams, drawn at random, are; "half" — the first half's grams are, the
+    second half's escape."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 256, n).astype(np.uint8)
+    grams = w.reshape(-1, 4)
+    if escapes == "mixed":
+        grams[rng.random(len(grams)) < 0.5] %= 4
+    elif escapes == "half":
+        grams[: len(grams) // 2] %= 4
+    elif escapes == "none":
+        grams %= 4
+    if escapes == "all":
+        table = {(1, 2, 3, 4): 0}
+        assert not np.all(grams == (1, 2, 3, 4), 1).any()
+    else:
+        table = {g: i for i, g in enumerate(
+            itertools.product(range(4), repeat=4))}
+    return w, table
+
+
+def _dict_decode_emulation(codes, literals, lut):
+    """The work split of the card's dictionary decode (csrc/dict_decode.cu),
+    emulated in torch: a thread block per compressed block, lane L of its
+    launch_shape threads owns slots c0 + 4L .. c0 + 4L + 3 of each chunk of
+    threads·4 slots.  A lane counts its escapes; a warp scan gives each
+    lane the escapes of the lanes before it in the warp, the warp totals
+    (shared memory, one barrier) those of the warps before; the rank of a
+    chunk's first slot carries over from the chunk before, and an escape
+    takes literal row min(rank, cap − 1)."""
+    nb, slots = codes.shape
+    cap = literals.shape[1]
+    _, threads = ddc.launch_shape(nb, slots)
+    chunk = threads * ddc.LANE_SLOTS
+    c_all = codes.to(torch.int32) & 0xFFFF
+    out = torch.zeros((nb, slots, 4), dtype=torch.uint8)
+    lane_slot = (torch.arange(threads)[:, None] * ddc.LANE_SLOTS
+                 + torch.arange(ddc.LANE_SLOTS))        # (threads, 4)
+    for b in range(nb):
+        base = 0
+        for c0 in range(0, slots, chunk):
+            slot = c0 + lane_slot
+            mine = slot < slots
+            c = torch.where(mine, c_all[b, slot.clamp(max=slots - 1)], 0)
+            esc = mine & (c == 0xFFFF)
+            cnt = esc.sum(1).reshape(-1, 32)             # (warps, 32)
+            incl = cnt.cumsum(1)                         # the warp scan
+            warp_total = incl[:, -1]
+            before = warp_total.cumsum(0) - warp_total   # block-wide combine
+            first = (base + before[:, None] + incl - cnt).reshape(-1, 1)
+            rank = first + esc.cumsum(1) - esc.int()
+            grams = torch.where(
+                esc[..., None], literals[b, rank.clamp(max=cap - 1)],
+                lut[torch.where(esc | ~mine, 0, c).long()])
+            out[b, slot[mine]] = grams[mine]
+            base += int(warp_total.sum())
+    return out.reshape(nb, slots * 4)
+
+
+@pytest.mark.parametrize("n,block_weights,escapes,cap", [
+    (24 * 4096, 4096, "all", None),    # the random-weight path
+    (24 * 4096, 4096, "none", None),   # no escapes
+    (24 * 4096, 4096, "mixed", None),  # escapes interleaved in a block
+    (24 * 4096, 4096, "half", None),   # blocks without escapes beside full
+    (37 * 400 - 40, 400, "mixed", None),     # 100 slots, ragged end
+    (37 * 408 - 8, 408, "half", None),       # 102 slots: the scalar path
+    (5 * 10240, 10240, "mixed", None),  # 2560 slots: 3 chunks, rank carried
+    (5 * 10008 - 8, 10008, "all", None),     # 2502: chunks, scalar path
+    (24 * 4096, 4096, "all", 300),     # cap below every block's escapes
+    (5 * 10240, 10240, "mixed", 700),  # ... clipped from the second chunk on
+])
+def test_dict_decode_decomposition(n, block_weights, escapes, cap):
+    """K4's work split (``_dict_decode_emulation``) is bitwise equal to the
+    plain version, the reference's oracle and the Pallas kernel in
+    interpret mode, with all, none, some or half the blocks' grams
+    escaping, ragged blocks, several chunks and a clipped capacity."""
+    w, table = _dict_weights(n, escapes, 7)
+    lut = jbc.build_lut(table)
+    bc = jbc.encode_blocked(w, table, lut=lut, block_weights=block_weights)
+    lits = np.array(bc.literals)
+    if cap is not None:
+        assert cap < int(np.asarray(bc.nlit).max())
+        lits = np.ascontiguousarray(lits[:, :cap])
+    codes = torch.from_numpy(np.array(bc.codes).view(np.int16))
+    tlits, tlut = torch.from_numpy(lits), torch.from_numpy(np.array(lut))
+    got = _dict_decode_emulation(codes, tlits, tlut).numpy()
+    np.testing.assert_array_equal(got, dict_decode_plain(
+        codes, tlits, tlut).numpy())
+    args = (jnp.asarray(bc.codes), jnp.asarray(lits), jnp.asarray(bc.nlit),
+            jnp.asarray(lut))
+    np.testing.assert_array_equal(got, np.asarray(jref.dict_decode(*args)))
+    np.testing.assert_array_equal(got, np.asarray(jops.dict_decode(
+        *args, impl="pallas_interpret")))
+    if cap is None:
+        np.testing.assert_array_equal(got.reshape(-1)[:n], w)
 
 
 def _qkv(seed, b, hq, hkv, tq, tk, d, dv=None):

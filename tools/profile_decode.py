@@ -1,18 +1,24 @@
 """Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2|k5]
+    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2|k4|k5]
                                     [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
 and profiles one prefill and 8 decode steps with torch.profiler: device
-time by kernel, K2's time (every kernel named ``flash_attention``...), K5's
-(``dequant_matmul``...), the calls of the split-K epilogue, and the share
-of the window's wall time in
-which the device ran a kernel.  Busy time sums the device's own events
-(kernels, copies, fills) only: an operator's row repeats its kernels'
-time and is not counted.  Prints one JSON line per window.
+time by kernel, K2's time (every kernel named ``flash_attention``...), K4's
+(``dict_decode``...), K5's (``dequant_matmul``...), the calls of the
+split-K epilogue, and the share of the window's wall time in which the
+device ran a kernel.  Busy time sums the device's own events (kernels,
+copies, fills) only: an operator's row repeats its kernels' time and is
+not counted.  The absorb chain (``PackedLinear.materialize``: K4, the
+untile copy of ``materialize_int8`` and the dequantize ops after it; MLA's
+``wkv_b`` on DeepSeek) is K4's time plus the device time of the
+kernels that the operators of its calls launch, which the tool marks
+with ``record_function`` ranges for the window (``absorb_span_ms``: the
+device-side span of those ranges, the gaps between their kernels
+included).  Prints one JSON line per window.
 
 ``--model k1`` times the fused decode-matmul kernels alone, at M = 4
 (decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
@@ -52,6 +58,22 @@ other grids (2 blocks an SM; one task a warp), each bitwise-checked and
 timed the same way, with its registers and spills.  Prints the registers
 and spills ptxas reports for each K5 instantiation, and one JSON line.
 
+``--model k4`` times K4 (``dict_decode``) alone on two planes of
+DeepSeek-V2-Lite's MLA ``wkv_b`` shape (4096 × 512: 512 blocks of 1024
+slots): one packed from a seeded random weight of that shape alone (tile-
+major, as served: almost every gram escapes the dictionary), and one
+whose first half of blocks the dictionary covers and whose second half
+escapes (a literal capacity of ~1024 rows that half the blocks do not
+use), through chip_smoke.py's ``check_dict_decode``: bitwise against the
+plain version and between two calls, its time (CUDA-graph replays, the
+L2 wiped before each call), the floor and copy times beside it, the bytes
+bound.  Then the kernel's design choices: variants of its source with
+its constants replaced (K4_VARIANTS: slots a lane and warps a block),
+built beside the kernels and launched at the shape ``launch_shape`` gives
+their constants, each bitwise-checked and timed the same way on both
+planes, with its registers and spills.  Prints the registers and spills ptxas reports for
+each K4 instantiation, and one JSON line.
+
 ``--src DIR`` imports the port from ``DIR``
 instead of this checkout's ``src``: to compare two commits on one card,
 unpack the other (``git archive``) into a gitignored directory and run
@@ -90,6 +112,22 @@ def prompts(vocab):
     return out
 
 
+ABSORB, DECODE_INT8 = "absorb: materialize", "absorb: materialize_int8"
+
+
+def mark_absorb():
+    """Wrap ``PackedLinear.materialize`` and ``materialize_int8`` in
+    ``record_function`` ranges (ABSORB, DECODE_INT8), so a window can sum
+    the device time of the kernels their calls launch."""
+    from repro_torch.core.compressed import PackedLinear
+    for attr, label in (("materialize", ABSORB),
+                        ("materialize_int8", DECODE_INT8)):
+        def marked(self, *a, _f=getattr(PackedLinear, attr), _l=label, **kw):
+            with torch.profiler.record_function(_l):
+                return _f(self, *a, **kw)
+        setattr(PackedLinear, attr, marked)
+
+
 def window(model, name, fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -98,18 +136,39 @@ def window(model, name, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    marks = (ABSORB, DECODE_INT8)
     # the device's own events only: an operator's row also carries the
-    # time of the kernels it launched
+    # time of the kernels it launched, and a range's device-side row spans
+    # its kernels and the gaps between them
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            for e in averages
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in marks]
     busy = sum(ms for _, ms, _ in rows)
     rows.sort(key=lambda r: -r[1])
+    # a range's device time: the kernels the operators inside its host-side
+    # row launched (K4, launched through ctypes by no operator, is not
+    # among them)
+    ranged = {e.key: (e.device_time_total / 1e3, e.count) for e in averages
+              if e.key in marks and e.device_type == DeviceType.CPU}
+    span = sum(e.self_device_time_total / 1e3 for e in averages
+               if e.key == ABSORB and e.device_type == DeviceType.CUDA)
+    ops_ms, absorb_calls = ranged.get(ABSORB, (0.0, 0))
+    int8_ms = ranged.get(DECODE_INT8, (0.0, 0))[0]
+    k4_ms = sum(ms for k, ms, _ in rows if "dict_decode" in k)
     print(json.dumps({
         "model": model, "window": name, "wall_ms": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall * 1e3),
         "k2_ms": sum(ms for k, ms, _ in rows if "flash_attention" in k),
+        "k4_ms": k4_ms,
+        "k4_calls": sum(n for k, _, n in rows if "dict_decode" in k),
+        # the absorb chain: K4, the untile of materialize_int8, then the
+        # dequantize ops
+        "absorb_calls": absorb_calls, "absorb_ms": k4_ms + ops_ms,
+        "absorb_span_ms": span, "absorb_untile_ms": int8_ms,
+        "absorb_dequantize_ms": ops_ms - int8_ms,
         "k5_ms": sum(ms for k, ms, _ in rows if "dequant_matmul" in k),
         "fused_decode_matmul_ms": sum(ms for k, ms, _ in rows
                                       if "fused_decode_matmul" in k),
@@ -351,42 +410,52 @@ K5_VARIANTS = {
 }
 
 
-def build_k5_variants(_build):
-    """One library per K5_VARIANTS entry, built from the substituted source
-    into the build directory, all nvcc at once → {name: (C entry,
-    ptxas rows of its decode kernels, warps a block, rows a task)}."""
-    src = (_build.CSRC / "dequant_matmul.cu").read_text()
-    out = _build.BUILD_DIR / "k5_variants"
+def build_variants(_build, name, variants, symbol):
+    """One library per ``variants`` entry ({label: {old: new}}), the
+    source ``csrc/<name>.cu`` with each ``old`` replaced, built into the
+    build directory, all nvcc at once → {label: (C entry ``symbol``,
+    ptxas rows, the substituted source)}."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    out = _build.BUILD_DIR / f"{name}_variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, subs in K5_VARIANTS.items():
+    for label, subs in variants.items():
         text = src
         for old, new in subs.items():
             if old not in text:
-                raise RuntimeError(f"K5 variant {name!r}: {old!r} is not in "
-                                   "the source")
+                raise RuntimeError(f"{name} variant {label!r}: {old!r} is "
+                                   "not in the source")
             text = text.replace(old, new)
-        stem = out / name.replace(" ", "_")
+        stem = out / re.sub(r"\W+", "_", label)
         stem.with_suffix(".cu").write_text(text)
-        procs[name] = (subprocess.Popen(
+        procs[label] = (subprocess.Popen(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
              "-I", str(_build.CSRC), "-o", str(stem.with_suffix(".so")),
              str(stem.with_suffix(".cu"))], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), stem, text)
     libs = {}
-    for name, (proc, stem, text) in procs.items():
+    for label, (proc, stem, text) in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for K5 variant {name!r}:\n"
+            raise RuntimeError(f"nvcc failed for {name} variant {label!r}:\n"
                                + report)
-        fn = ctypes.CDLL(str(stem.with_suffix(".so"))
-                         ).qmoe_dequant_matmul_decode
+        fn = getattr(ctypes.CDLL(str(stem.with_suffix(".so"))), symbol)
         fn.restype = ctypes.c_int
+        libs[label] = (fn, ptxas_kernels(report), text)
+    return libs
+
+
+def build_k5_variants(_build):
+    """K5_VARIANTS built → {name: (C entry, ptxas rows of its decode
+    kernels, warps a block, rows a task)}."""
+    libs = {}
+    for name, (fn, ptxas, text) in build_variants(
+            _build, "dequant_matmul", K5_VARIANTS,
+            "qmoe_dequant_matmul_decode").items():
         const = {c: int(re.search(rf"constexpr int {c} = (\d+);",
                                   text).group(1))
                  for c in ("kDecWarps", "kTiles")}
-        libs[name] = (fn, [r for r in ptxas_kernels(report)
-                           if "decode" in r["kernel"]],
+        libs[name] = (fn, [r for r in ptxas if "decode" in r["kernel"]],
                       const["kDecWarps"], 8 * const["kTiles"])
     return libs
 
@@ -446,7 +515,6 @@ def time_k5(dev, label):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, design = [], []
     for arch, n, k in K5_HEADS:
         head = quantize_linear(torch.randn((n, k), generator=gen,
@@ -463,10 +531,114 @@ def time_k5(dev, label):
                       "variants": design, "ptxas": ptxas}), flush=True)
 
 
+K4_SHAPE = (4096, 512)     # DeepSeek-V2-Lite's MLA wkv_b
+# The kernel's design choices, each timed against the source as built: a
+# variant is the source with its own constants replaced.
+K4_VARIANTS = {
+    "as built": {},
+    "8 slots a lane, 4 warps": {
+        "constexpr int kLaneSlots = 4;": "constexpr int kLaneSlots = 8;",
+        "constexpr int kMaxWarps = 8;": "constexpr int kMaxWarps = 4;"},
+    "16 slots a lane, 2 warps": {
+        "constexpr int kLaneSlots = 4;": "constexpr int kLaneSlots = 16;",
+        "constexpr int kMaxWarps = 8;": "constexpr int kMaxWarps = 2;"},
+    "2 slots a lane, 16 warps": {
+        "constexpr int kLaneSlots = 4;": "constexpr int kLaneSlots = 2;",
+        "constexpr int kMaxWarps = 8;": "constexpr int kMaxWarps = 16;"},
+}
+
+
+def k4_planes(dev, gen):
+    """The two planes of K4_SHAPE (see --model k4) and their LUTs."""
+    from types import SimpleNamespace
+    from repro_torch.core.blocked_codec import (TableIndex, build_lut,
+                                                encode_blocked)
+    from repro_torch.core.codec import find_frequent_sequences
+    from repro_torch.core.compressed import pack_expert_stack
+    w = torch.randn(K4_SHAPE, generator=gen, device=dev)
+    pl, lut = pack_expert_stack([w])
+    random = SimpleNamespace(codes=pl.codes[0], literals=pl.literals[0],
+                             nlit=pl.nlit[0], shape=K4_SHAPE)
+    n = K4_SHAPE[0] * K4_SHAPE[1]
+    q = torch.randint(0, 256, (n,), generator=gen, device=dev
+                      ).to(torch.uint8)
+    q[: n // 2] %= 4                    # 256 grams, all in the table
+    table = find_frequent_sequences([q[: n // 2]], max_codes=256)
+    bc = encode_blocked(q, TableIndex(table, device=dev))
+    half = SimpleNamespace(codes=bc.codes, literals=bc.literals,
+                           nlit=bc.nlit, shape=K4_SHAPE)
+    return {"wkv_b random": (random, lut),
+            "half dictionary": (half, build_lut(table, device=dev))}
+
+
+def time_k4_variants(ddc, libs, plane, lut, dev, timer):
+    """Each variant on one plane, launched at the shape launch_shape gives
+    its constants: bitwise against the plain version, its time under
+    check_dict_decode's timer."""
+    from repro_torch.kernels import _build
+    codes, lits = plane.codes, plane.literals
+    nb, slots = codes.shape
+    want = ddc.dict_decode_plain(codes, lits, lut)
+    rows = []
+    for name, (fn, ptxas, text) in libs.items():
+        fn.argtypes = ddc._ARGTYPES
+        const = {c: int(re.search(rf"constexpr int {c} = (\d+);",
+                                  text).group(1))
+                 for c in ("kLaneSlots", "kMaxWarps")}
+        _, threads = ddc.launch_shape(nb, slots, const["kLaneSlots"],
+                                      const["kMaxWarps"])
+
+        def call(fn=fn, threads=threads, name=name):
+            out = torch.empty((nb, slots * 4), dtype=torch.uint8, device=dev)
+            _build.check(fn(codes.data_ptr(), lits.data_ptr(),
+                            lut.data_ptr(), out.data_ptr(), nb, slots,
+                            lits.shape[1], threads, dev.index,
+                            torch.cuda.current_stream(dev).cuda_stream),
+                         f"K4 variant {name!r}")
+            return out
+        rows.append({"variant": name,
+                     "grid": f"{nb} blocks of {threads} threads",
+                     "bitwise": bool(torch.equal(call(), want)),
+                     "ms": timer.graph_ms([call], reps=20, cold=True),
+                     "ptxas": ptxas})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def time_k4(dev, label):
+    """K4 on k4_planes through chip_smoke.check_dict_decode: one definition
+    of its check, timing, floors and bound; then, on a tree with the
+    redesigned kernel, its design variants (K4_VARIANTS) on the same
+    planes."""
+    from chip_smoke import Timer, check_dict_decode
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dict_decode as ddc
+    t0 = time.perf_counter()
+    _build.build([ddc.NAME])
+    variants = (build_variants(_build, ddc.NAME, K4_VARIANTS,
+                               "qmoe_dict_decode")
+                if hasattr(ddc, "launch_shape") else {})
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timer = Timer(dev)
+    rows, design = [], []
+    for plane_name, (plane, lut) in k4_planes(dev, gen).items():
+        summary, _ = check_dict_decode({"ddc": ddc}, plane, lut, timer)
+        rows.append({"plane": plane_name, **summary})
+        print(json.dumps(rows[-1]), flush=True)
+        design += [{"plane": plane_name, **r} for r in time_k4_variants(
+            ddc, variants, plane, lut, dev, timer)]
+    ptxas = print_ptxas(ddc.NAME)
+    print(json.dumps({"k4": label, "build_s": build_s, "rows": rows,
+                      "variants": design, "ptxas": ptxas}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model",
-                    choices=["llama", "deepseek", "both", "k1", "k2", "k5"],
+                    choices=["llama", "deepseek", "both", "k1", "k2", "k4",
+                             "k5"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -479,10 +651,12 @@ def main():
     from chip_smoke import nvidia_smi_line
     print(f"card: {nvidia_smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
-    kernel_alone = {"k1": time_k1, "k2": time_k2, "k5": time_k5}
+    kernel_alone = {"k1": time_k1, "k2": time_k2, "k4": time_k4,
+                    "k5": time_k5}
     if args.model in kernel_alone:
         kernel_alone[args.model](dev, args.src)
         return 0
+    mark_absorb()
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
         profile_model(model, dev)
