@@ -24,10 +24,18 @@ each in the phases below; the script exits non-zero if any phase fails:
      the L2, or the L2 flushed in the graph, or CUDA events around single
      calls), bounds, the plain version's time and one PyTorch library
      call's time as a yardstick where one exists.
-  4. End to end: ``generate`` answers 4 left-padded requests (prompt
-     lengths 32–200 from the seed) with 32 new tokens each; the launch
-     counts of that run, read right after it, must be what the path's
-     code launches, and no expert plane may be materialized.
+  4. End to end: 4 left-padded requests (prompt lengths 32–200 from the
+     seed), 32 new tokens each, greedy: first the eager decode loop
+     (``make_serve_fns``' ``decode_step`` dispatched from Python), then
+     ``generate`` twice (its decode phase replays one captured CUDA graph
+     of a step: the first call captures it, the second only replays).
+     Each of the three runs' launch counts, read right after it, must be
+     what the path's code launches, no expert plane may be materialized,
+     the first ``generate`` must capture once and the second not at all,
+     and both must give the eager loop's tokens bit for bit.  Decode ms a
+     step and tokens/s of the graph (its replays alone) and of the eager
+     loop, the capture's ms, each run's peak memory and the size of the
+     graph's memory pool are printed.
   5. Card against CPU: the same seeded model at 2 layers, packed once; the
      prefill logits of the card and of the CPU (plain versions) must agree
      within a stated tolerance; greedy tokens are compared.  For the MoE,
@@ -638,29 +646,76 @@ def pack(rt, cfg, device, seed):
                    "pack_peak_mem_bytes": peak}
 
 
+def eager_loop(rt, cfg, state, ids):
+    """The decode phase as an eager Python loop over ``make_serve_fns``'
+    ``decode_step`` (int positions, every op dispatched from the host), as
+    ``generate`` runs it on the CPU, greedy.  → (the MAX_NEW new tokens,
+    seconds of the decode steps alone)."""
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=ids.device)
+    b, t0 = ids.shape
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=ids.device)
+    logits, caches = prefill(state.params, state.lut, {"tokens": ids},
+                             caches)
+    toks = [torch.argmax(logits, dim=-1)[:, None]]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(MAX_NEW - 1):
+        logits, caches = decode_step(state.params, state.lut, toks[-1],
+                                     caches, t0 + i)
+        toks.append(torch.argmax(logits, dim=-1)[:, None])
+    torch.cuda.synchronize()
+    return torch.cat(toks, dim=1), time.perf_counter() - t
+
+
 def serve(rt, cfg, state, device, batch, lens, want, packed_want):
-    """The main path: ``generate`` answers the batch with MAX_NEW tokens,
-    counts zeroed just before and read just after; then the prefill alone
-    (median of 3).  Raises unless the launch and materialize counts are
-    ``want`` and ``packed_want``."""
-    _build, L, LM, ops = rt["_build"], rt["L"], rt["LM"], rt["ops"]
+    """The main path.  The eager decode loop first; then ``generate``
+    twice: the first call runs an eager step and captures the decode step,
+    the second only replays it.  Counts are zeroed just before each of the
+    three and read just after; each must count ``want`` launches and
+    ``packed_want`` materializations, the first generate one capture and
+    the second none, and both give the eager loop's tokens bit for bit.
+    Then the prefill alone (median of 3) and the graphed decode phase
+    alone (replays, after a prefill), whose tokens must be the same too.
+    Raises on any difference."""
+    _build, L, LM, ops, E = (rt["_build"], rt["L"], rt["LM"], rt["ops"],
+                             rt["engine"])
     t_prefill = batch.shape[1]
-    _build.LAUNCH_COUNTS.clear()
-    L.MATERIALIZE_COUNTS.clear()
-    ops.DISPATCH_COUNTS.clear()
-    torch.cuda.reset_peak_memory_stats(device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = rt["generate"](state.params, cfg, batch, lut=state.lut,
-                         max_new=MAX_NEW, device=device)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    launches = dict(_build.LAUNCH_COUNTS)
-    materialized = dict(L.MATERIALIZE_COUNTS)
-    dispatched = dict(ops.DISPATCH_COUNTS)
-    peak = torch.cuda.max_memory_allocated(device)
-    prefill, _ = rt["make_serve_fns"](cfg, device=device)
+    steps = MAX_NEW - 1
     ids = torch.as_tensor(batch, device=device)
+
+    def counted(fn):
+        for c in (_build.LAUNCH_COUNTS, L.MATERIALIZE_COUNTS,
+                  ops.DISPATCH_COUNTS, E.CAPTURE_COUNTS):
+            c.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"s": time.perf_counter() - t0,
+                     "launches": dict(_build.LAUNCH_COUNTS),
+                     "materialize_counts": dict(L.MATERIALIZE_COUNTS),
+                     "dispatch_counts": dict(ops.DISPATCH_COUNTS),
+                     "captures": E.CAPTURE_COUNTS["decode_loop"],
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated(
+                         device)}
+
+    def generate():
+        return rt["generate"](state.params, cfg, batch, lut=state.lut,
+                              max_new=MAX_NEW, device=device)
+
+    (eager, eager_decode_s), eager_run = counted(
+        lambda: eager_loop(rt, cfg, state, ids))
+    out_capture, capture_run = counted(generate)
+    out, replay_run = counted(generate)
+    graph = E.decode_graph(state.params, cfg, state.lut, BATCH,
+                           t_prefill + MAX_NEW, device=device)
+    # the decode graph's private pool (its step's intermediates), which
+    # max_memory_allocated does not count once the capture has freed them
+    pool = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ()))
+            == tuple(graph.graph.pool())]
+    prefill, _ = rt["make_serve_fns"](cfg, device=device)
     pre = []
     for _ in range(3):
         caches = LM.init_caches(cfg, BATCH, t_prefill + MAX_NEW,
@@ -671,24 +726,62 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
         torch.cuda.synchronize()
         pre.append(time.perf_counter() - t0)
     prefill_s = sorted(pre)[1]
-    new = out[:, t_prefill:].cpu()
+    tok0 = graph.prefill(state.params, state.lut, ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph.decode(state.params, state.lut, steps)
+    torch.cuda.synchronize()
+    graph_decode_s = time.perf_counter() - t0
+    alone = torch.cat([tok0, graph.seq[:, t_prefill + 1:t_prefill + MAX_NEW]],
+                      dim=1)
+    new = out[:, t_prefill:]
+    runs = {"eager_loop": eager_run, "generate_capture": capture_run,
+            "generate_replay": replay_run}
     e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": BATCH,
-           "prompt_lens": lens, "max_new": MAX_NEW, "generate_s": gen_s,
-           "prefill_ms": prefill_s * 1e3,
-           "decode_tokens_per_s": BATCH * (MAX_NEW - 1) / (gen_s - prefill_s),
-           "peak_mem_bytes": peak, "stats": state.stats,
-           "launches": launches, "materialize_counts": materialized,
-           "dispatch_counts": dispatched,
+           "prompt_lens": lens, "max_new": MAX_NEW,
+           "generate_s": replay_run["s"], "prefill_ms": prefill_s * 1e3,
+           "capture_ms": graph.capture_ms,
+           "decode_ms_per_step": graph_decode_s / steps * 1e3,
+           "decode_tokens_per_s": BATCH * steps / graph_decode_s,
+           "eager_decode_ms_per_step": eager_decode_s / steps * 1e3,
+           "eager_decode_tokens_per_s": BATCH * steps / eager_decode_s,
+           "generate_decode_tokens_per_s":
+               BATCH * steps / (replay_run["s"] - prefill_s),
+           "peak_mem_bytes": capture_run["peak_mem_bytes"],
+           "replay_peak_mem_bytes": replay_run["peak_mem_bytes"],
+           "eager_peak_mem_bytes": eager_run["peak_mem_bytes"],
+           "graph_pool_bytes": sum(pool), "graph_pool_segments": len(pool),
+           "stats": state.stats, "launches": replay_run["launches"],
+           "materialize_counts": replay_run["materialize_counts"],
+           "dispatch_counts": replay_run["dispatch_counts"],
+           "runs": {k: {n: r[n] for n in ("s", "launches", "captures",
+                                          "materialize_counts")}
+                    for k, r in runs.items()},
            "first_request_tokens": new[0].tolist()}
-    ok = (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
-          and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
-          and launches == want
-          and all(materialized.get(k, 0) == v for k, v in packed_want.items())
-          and bool(torch.isfinite(logits.float()).all()))
-    if not ok:
-        raise AssertionError(f"{cfg.name} main path: launches {launches} "
-                             f"(want {want}), materialize {materialized} "
-                             f"(want {packed_want}), out {tuple(out.shape)}")
+    faults = []
+    if not (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
+            and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
+            and bool(torch.isfinite(logits.float()).all())):
+        faults.append(f"out {tuple(out.shape)}, tokens in "
+                      f"[{int(new.min())}, {int(new.max())}]")
+    for name, toks in (("generate_capture", out_capture[:, t_prefill:]),
+                       ("generate_replay", new), ("graph_decode", alone)):
+        if not torch.equal(toks, eager):
+            faults.append(f"{name} tokens differ from the eager loop's at "
+                          f"{torch.nonzero(toks != eager).tolist()[:8]}")
+    for name, run in runs.items():
+        if run["launches"] != want or any(
+                run["materialize_counts"].get(k, 0) != v
+                for k, v in packed_want.items()):
+            faults.append(f"{name}: launches {run['launches']} (want "
+                          f"{want}), materialize {run['materialize_counts']}"
+                          f" (want {packed_want})")
+    if [r["captures"] for r in runs.values()] != [0, 1, 0]:
+        faults.append("captures (eager, first, second generate) "
+                      f"{[r['captures'] for r in runs.values()]}, want "
+                      "[0, 1, 0]")
+    if faults:
+        raise AssertionError(f"{cfg.name} main path: {faults}")
     return e2e
 
 
@@ -974,10 +1067,12 @@ def main() -> int:
     from repro_torch.kernels import fused_decode_matmul as fdm
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
+    from repro_torch.serve import engine
     from repro_torch.serve.engine import (build_serve_params, generate,
                                           make_serve_fns)
     rt = {"fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
-          "ops": ops, "_build": _build, "get_config": get_config,
+          "ops": ops, "_build": _build, "engine": engine,
+          "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
           "pack_expert_stack": pack_expert_stack,
           "build_serve_params": build_serve_params, "generate": generate,

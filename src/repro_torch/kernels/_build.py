@@ -37,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Launches of each kernel, by kernel name (K3 grouped_fused_decode_matmul
 # shares fused_decode_matmul's source).  Every wrapper adds one where it
 # launches its kernel and nowhere else; callers clear it to count a run.
+# A launch captured in the decode graph counts at each replay of the graph
+# (``serve.engine.DecodeGraph`` takes back what the capture added).
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,9 @@ wrapper raises), a CPU tensor takes the kernel's plain PyTorch version.
 There is no lever that sends CUDA tensors to a plain version.
 
 ``DISPATCH_COUNTS`` counts which path each compressed matmul took (the
-reference's probe); ``_build.LAUNCH_COUNTS`` counts kernel launches.
+reference's probe); ``_build.LAUNCH_COUNTS`` counts kernel launches.  In
+the captured decode graph both count at each replay
+(``serve.engine.DecodeGraph``).
 """
 from __future__ import annotations
 

@@ -11,6 +11,12 @@ stacked expert ``PackedLinear`` runs the grouped kernel.
 Unlike the reference, the KV cache is updated in place (``_kv_write``):
 the cache is the largest activation buffer and a functional copy per token
 would double it.
+
+Positions, as in the reference, are a Python int (prefill: the flash
+kernel takes its ``q_offset`` as a launch argument), a 0-d tensor (one
+offset shared by the batch) or a (B,) tensor (one offset a row, decode
+only).  A tensor position stays on the device: a decode step reads no
+tensor on the host, so it can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -48,7 +54,8 @@ def linear(x: torch.Tensor, w, lut=None, bias=None) -> torch.Tensor:
 # dense tensor, by kind: 'packed' (one weight), 'packed_stacked' (a stacked
 # expert weight — the grouped kernel keeps these at zero), 'quant'.  MLA's
 # absorb decodes wkv_b ('packed') at every call, as the reference does;
-# tests and chip_smoke.py assert on the counts.
+# tests and chip_smoke.py assert on the counts.  A captured decode step
+# counts once per replay (``serve.engine.DecodeGraph``).
 MATERIALIZE_COUNTS = collections.Counter()
 
 
@@ -89,23 +96,40 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 
+def positions(pos, t: int, device) -> torch.Tensor:
+    """The positions of ``t`` new tokens at ``pos``: (t,) for an int or a
+    0-d tensor, (B, t) for a per-row (B,) tensor (``t`` must then be 1)."""
+    if not torch.is_tensor(pos):
+        return int(pos) + torch.arange(t, device=device)
+    if pos.ndim == 1 and t != 1:
+        raise ValueError("vector (per-slot) pos supports single-token "
+                         f"decode only; got T={t}")
+    return pos.to(device)[..., None] + torch.arange(t, device=device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
-    """cos/sin tables (T, hd/2) for the given positions."""
+    """cos/sin tables (..., hd/2) for the given positions: (T,) shared by
+    the batch, or (B, T) per row."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    # theta filled on the device: a tensor made from a host scalar would
+    # be a copy, which a captured step cannot hold
+    base = torch.full((), theta, dtype=torch.float32,
+                      device=positions.device)
+    freqs = 1.0 / torch.pow(base, exps)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     """x: (B, T, H, hd) — rotate pairs (split-half convention); cos/sin
-    (T, hd/2) shared across the batch."""
+    (T, hd/2) shared across the batch or (B, T, hd/2) per row."""
     half = x.shape[-1] // 2
-    c = cos[None, :, None, :]
-    s = sin[None, :, None, :]
+    if cos.ndim == 3:
+        c, s = cos[:, :, None, :], sin[:, :, None, :]
+    else:
+        c, s = cos[None, :, None, :], sin[None, :, None, :]
     xf1 = x[..., :half].to(torch.float32)
     xf2 = x[..., half:].to(torch.float32)
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
@@ -148,13 +172,23 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _kv_write(dst: torch.Tensor, src: torch.Tensor, pos: int):
-    """Write ``src`` (B, T, ...) into the cache ``dst`` (B, L, ...) at one
-    shared offset ``pos``, in place."""
-    if not isinstance(pos, int):
-        raise NotImplementedError("per-slot (vector) cache positions are "
-                                  "not ported")
-    dst[:, pos:pos + src.shape[1]] = src
+def _kv_write(dst: torch.Tensor, src: torch.Tensor, pos):
+    """Write ``src`` (B, T, ...) into the cache ``dst`` (B, L, ...) at
+    ``pos``, in place.  An int: a slice at one shared offset (prefill).  A
+    0-d tensor: the T rows at ``pos + arange(T)`` by ``index_copy_``, the
+    same bytes.  A (B,) tensor (every row at its own offset): a per-row
+    scatter, which requires T == 1."""
+    t = src.shape[1]
+    if not torch.is_tensor(pos):
+        dst[:, int(pos):int(pos) + t] = src
+    elif pos.ndim == 0:
+        dst.index_copy_(1, pos + torch.arange(t, device=dst.device), src)
+    else:
+        if t != 1:
+            raise ValueError("per-slot (vector pos) cache writes decode "
+                             f"one token at a time; got T={t}")
+        dst.index_put_((torch.arange(dst.shape[0], device=dst.device), pos),
+                       src[:, 0])
     return dst
 
 
@@ -175,10 +209,17 @@ def _attend_cache_flash(q, cache_k, cache_v, pos: int):
     return o.transpose(1, 2)
 
 
-def _attend_cached(q, cache_k, cache_v, pos: int, t_new: int):
+def _decode_mask(pos, t: int, lmax: int, device) -> torch.Tensor:
+    """Which of ``lmax`` cache positions each of ``t`` queries at ``pos``
+    sees: (t, L) for a shared offset, (B, t, L) per row."""
+    return (torch.arange(lmax, device=device)
+            <= positions(pos, t, device)[..., None])
+
+
+def _attend_cached(q, cache_k, cache_v, pos, t_new: int):
     """Decode attention over a cache (plain torch, as the reference's is
-    plain jnp): positions past ``pos + t_new − 1`` get −1e30, whose exp is
-    exactly 0."""
+    plain jnp): positions past a row's ``pos + t_new − 1`` get −1e30, whose
+    exp is exactly 0.  ``pos``: an int, a 0-d tensor or per-row (B,)."""
     b, t, hq, hd = q.shape
     hkv = cache_k.shape[2]
     rep = hq // hkv
@@ -187,23 +228,23 @@ def _attend_cached(q, cache_k, cache_v, pos: int, t_new: int):
     kf = cache_k.to(torch.float32)
     vf = cache_v.to(torch.float32)
     logits = torch.einsum("btgrd,blgd->btgrl", qf, kf) / math.sqrt(hd)
-    kpos = torch.arange(lmax, device=q.device)
-    qpos = pos + torch.arange(t, device=q.device)
-    mask = kpos[None, :] <= qpos[:, None]                  # (t, L)
-    logits = torch.where(mask[None, :, None, None, :], logits,
-                         torch.full_like(logits, -1e30))
+    mask = _decode_mask(pos, t, lmax, q.device)     # (t, L) or (B, t, L)
+    mask = (mask[None, :, None, None, :] if mask.ndim == 2
+            else mask[:, :, None, None, :])
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("btgrl,blgd->btgrd", p, vf)
     return out.reshape(b, t, hq, hd).to(q.dtype)
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
-                    cache: Optional[Params] = None, pos: int | None = None,
+                    cache: Optional[Params] = None, pos=None,
                     causal: bool = True, rope=None):
     """Returns (y, cache). ``cache=None`` → full attention; with a cache:
-    writes k/v at ``pos`` (in place) then attends ≤ pos.  ``rope``: the
-    (cos, sin) tables of these positions, when the caller shares one pair
-    across layers."""
+    writes k/v at ``pos`` (in place) then attends ≤ pos.  ``pos``: an int,
+    a 0-d tensor or, for T == 1, per-row (B,).  ``rope``: the (cos, sin)
+    tables of these positions, when the caller shares one pair across
+    layers."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -212,10 +253,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     k = linear(x, p["wk"], lut, p.get("bk")).reshape(b, t, nkv, hd)
     v = linear(x, p["wv"], lut, p.get("bv")).reshape(b, t, nkv, hd)
 
-    pos0 = 0 if pos is None else int(pos)
+    pos0 = 0 if pos is None else pos
     if rope is None:
-        rope = rope_tables(pos0 + torch.arange(t, device=x.device), hd,
-                           cfg.rope_theta)
+        rope = rope_tables(positions(pos0, t, x.device), hd, cfg.rope_theta)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -230,8 +270,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
         elif t == ck.shape[1]:
             # full prefill: the fresh k/v are the cache's whole content
             o = _attend_full(q, k, v, causal)
-        else:  # chunked prefill: flash over the cache
-            o = _attend_cache_flash(q, ck, cv, pos0)
+        else:  # chunked prefill: flash over the cache (q_offset, a
+            # launch argument, read on the host)
+            o = _attend_cache_flash(q, ck, cv, int(pos0))
     y = linear(o.reshape(b, t, nq * hd), p["wo"], lut)
     return y, cache
 
@@ -288,25 +329,24 @@ def _mla_q(p, x, cfg, lut):
 
 
 def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
-              cache: Optional[Params] = None, pos: int | None = None,
-              rope=None):
+              cache: Optional[Params] = None, pos=None, rope=None):
     """MLA attention; returns (y, cache).  Without a cache, or at a
     prefill (T > 1), per-head K/V are built from the latents and attention
     runs the flash kernel (q/k head dim qk_nope + qk_rope, v head dim
     v_head_dim); a decode step (T = 1) runs the *absorbed* form over the
     cached latents in f32 plain torch, as the reference does in plain jnp.
-    The cache is updated in place.  ``rope``: the (cos, sin) tables of
-    these positions at qk_rope_head_dim, when the caller shares them."""
+    The cache is updated in place.  ``pos``: an int, a 0-d tensor or, for
+    T == 1, per-row (B,).  ``rope``: the (cos, sin) tables of these
+    positions at qk_rope_head_dim, when the caller shares them."""
     b, t, _ = x.shape
     nq = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
-    pos0 = 0 if pos is None else int(pos)
+    pos0 = 0 if pos is None else pos
 
     q_nope, q_rope = _mla_q(p, x, cfg, lut)
     if rope is None:
-        rope = rope_tables(pos0 + torch.arange(t, device=x.device), dr,
-                           cfg.rope_theta)
+        rope = rope_tables(positions(pos0, t, x.device), dr, cfg.rope_theta)
     cos, sin = rope
     q_rope = apply_rope(q_rope, cos, sin)
 
@@ -344,9 +384,10 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
             # full prefill: the fresh latents are the cache's whole content
             o = attend_latents(ckv, k_rope,
                                lambda q, k, v: _attend_full(q, k, v, True))
-        else:  # chunked prefill: flash over the cache
+        else:  # chunked prefill: flash over the cache (q_offset, a
+            # launch argument, read on the host)
             o = attend_latents(cckv, ckrope, lambda q, k, v:
-                               _attend_cache_flash(q, k, v, pos0))
+                               _attend_cache_flash(q, k, v, int(pos0)))
         return linear(o, p["wo"], lut), new_cache
 
     # Decode (absorbed): score = (q_nope·W_k)·ckv + q_rope·krope.
@@ -355,12 +396,9 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
     s_nope = torch.einsum("bthr,blr->bthl", qc, cckv.to(f32))
     s_rope = torch.einsum("bthd,bld->bthl", q_rope.to(f32), ckrope.to(f32))
     logits = (s_nope + s_rope) / math.sqrt(dn + dr)
-    lmax = cckv.shape[1]
-    kpos = torch.arange(lmax, device=x.device)
-    qpos = pos0 + torch.arange(t, device=x.device)
-    mask = kpos[None, :] <= qpos[:, None]                   # (t, L)
-    logits = torch.where(mask[None, :, None, :], logits,
-                         torch.full_like(logits, -1e30))
+    mask = _decode_mask(pos0, t, cckv.shape[1], x.device)
+    mask = mask[None, :, None, :] if mask.ndim == 2 else mask[:, :, None, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     attn = torch.softmax(logits, dim=-1)
     o_lat = torch.einsum("bthl,blr->bthr", attn, cckv.to(f32))
     o = torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32)).to(x.dtype)
@@ -431,6 +469,25 @@ def expert_slots(expert_ids: torch.Tensor,
     return (torch.cumsum(oh, dim=0) - oh).gather(1, flat_e[:, None])[:, 0]
 
 
+def dispatch_tables(expert_ids: torch.Tensor, slot: torch.Tensor,
+                    gates: torch.Tensor, cap: int, n_experts: int):
+    """The (E, cap) dispatch tables: the token each slot holds (n_tok
+    where none: the zero row) and its gate, from each (token, k) choice's
+    expert ``expert_ids`` (n_tok, k), its slot (:func:`expert_slots`) and
+    its gate (n_tok, k).  A choice at a slot ≥ cap is dropped.  As in the
+    reference, a dropped choice is scattered to a column ``cap`` that is
+    cut off, so no shape depends on the routing (no mask, no nonzero)."""
+    n_tok, k = expert_ids.shape
+    dev = expert_ids.device
+    where = (expert_ids.reshape(-1), torch.where(slot < cap, slot, cap))
+    tok_idx = torch.arange(n_tok * k, device=dev) // k
+    table = torch.full((n_experts, cap + 1), n_tok, dtype=torch.long,
+                       device=dev).index_put_(where, tok_idx)
+    gtable = torch.zeros((n_experts, cap + 1), dtype=torch.float32,
+                         device=dev).index_put_(where, gates.reshape(-1))
+    return table[:, :cap], gtable[:, :cap]
+
+
 def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
     """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
     compressed stack runs the grouped fused kernel (three launches, dense
@@ -488,11 +545,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     flat_e = expert_ids.reshape(-1)                         # (n·k,)
     slot = expert_slots(expert_ids, onehot)
     keep = slot < cap
-    tok_idx = torch.arange(n_tok, device=x.device).repeat_interleave(k)
-    table = torch.full((e, cap), n_tok, dtype=torch.long, device=x.device)
-    table[flat_e[keep], slot[keep]] = tok_idx[keep]         # n_tok: zero row
-    gtable = torch.zeros((e, cap), dtype=torch.float32, device=x.device)
-    gtable[flat_e[keep], slot[keep]] = gate_vals.reshape(-1)[keep]
+    table, gtable = dispatch_tables(expert_ids, slot, gate_vals, cap, e)
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     ye = _expert_ffn(p["experts"], xpad[table], lut)        # (e, cap, d)

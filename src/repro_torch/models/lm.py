@@ -113,10 +113,14 @@ def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
 
 
 def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
-            pos: Optional[int] = None, lut=None,
+            pos=None, lut=None,
             return_hidden: bool = False, return_routing: bool = False,
             routing: Optional[torch.Tensor] = None):
     """tokens (B, T) int → (logits, caches, aux_loss).
+
+    ``pos``: the first new token's position, an int (prefill), a 0-d
+    tensor or, for T == 1, a per-row (B,) tensor; a tensor stays on the
+    device (no host read, so a decode step can be captured).
 
     ``return_hidden=True`` skips the LM head and returns the final normed
     hidden states.  ``return_routing=True`` (MoE family) appends the top-k
@@ -127,9 +131,8 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
     if (return_routing or routing is not None) and cfg.family != "moe":
         raise ValueError(f"routing needs family 'moe', got {cfg.family!r}")
     x = L.embed(params["embed"], tokens, lut)
-    pos0 = 0 if pos is None else int(pos)
-    rope = L.rope_tables(pos0 + torch.arange(tokens.shape[1],
-                                             device=x.device),
+    rope = L.rope_tables(L.positions(0 if pos is None else pos,
+                                     tokens.shape[1], x.device),
                          cfg.qk_rope_head_dim if cfg.mla
                          else cfg.resolved_head_dim, cfg.rope_theta)
     caches = caches or {}

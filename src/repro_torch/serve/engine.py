@@ -8,12 +8,15 @@ Counterpart of ``repro/serve/engine.py`` for one device:
      expert into one stacked container.  It runs on the card by default
      (quantization, counting and encoding are tensor ops on the weights'
      device).
-  2. ``generate``: one prefill, then a greedy (or sampled) decode loop in
-     Python.  Every compressed projection runs the fused
-     decode→dequant→matmul kernel, every compressed expert stack the
-     grouped one, an int8 LM head the dequant-matmul kernel, prefill
-     attention the flash-attention kernel, and MLA's absorbed wkv_b the
-     dict-decode kernel.
+  2. ``generate``: one prefill, then the greedy (or sampled) decode
+     phase.  On the card the decode phase replays one captured CUDA graph
+     of a decode step (:class:`DecodeGraph`, the counterpart of the
+     reference's jitted ``_decode_loop``); on the CPU the same step runs
+     eagerly in a Python loop.  Every compressed
+     projection runs the fused decode→dequant→matmul kernel, every
+     compressed expert stack the grouped one, an int8 LM head the
+     dequant-matmul kernel, prefill attention the flash-attention kernel,
+     and MLA's absorbed wkv_b the dict-decode kernel.
 
 Not ported yet: ``TiledPackedLinear`` column tiles, ``model_shards``, the
 integrity manifest, the resilience rungs and the continuous-batching
@@ -21,7 +24,10 @@ scheduler.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
+import weakref
 from typing import Any, Optional
 
 import torch
@@ -34,9 +40,20 @@ from ..core.compressed import (PackedLinear, QuantLinear, stack_packed,
                                quantize_linear)
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
+from ..kernels import _build, ops
 from ..models import layers as L
 from ..models import lm as LM
 from .context import ServeContext
+
+# Captures of the decode step, the counterpart of the reference's
+# TRACE_COUNTS["decode_loop"]: one per capture, none for a replay.
+CAPTURE_COUNTS: collections.Counter = collections.Counter()
+
+# What the kernel wrappers and weight containers count from Python.  A
+# captured step's Python runs once, at capture: its counts are taken back
+# then and added at every replay.
+_STEP_COUNTERS = (_build.LAUNCH_COUNTS, ops.DISPATCH_COUNTS,
+                  L.MATERIALIZE_COUNTS)
 
 
 @dataclasses.dataclass
@@ -211,7 +228,8 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     prefill(params, lut, batch, caches) -> (last_logits, caches)
     decode_step(params, lut, token, caches, pos) -> (logits, caches)
 
-    Caches are updated in place and returned.
+    Caches are updated in place and returned.  ``pos`` is an int, a 0-d
+    tensor or a per-row (B,) tensor; a tensor is never read on the host.
     """
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
@@ -235,8 +253,7 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
 
     def decode_step(params, lut, token, caches, pos):
         logits, new_caches, _ = LM.forward(params, cfg, token.to(device),
-                                           caches=caches, pos=int(pos),
-                                           lut=lut)
+                                           caches=caches, pos=pos, lut=lut)
         return logits[:, -1], new_caches
 
     return prefill, decode_step
@@ -251,7 +268,185 @@ def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
     if generator is None or temperature <= 0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # the draw of torch.multinomial(probs, 1) (the argmax of p / q with
+    # q ~ Exp(1)), without its host-side check of probs, which synchronizes
+    # and so cannot be captured
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
+
+
+def _tensors(node):
+    """Every tensor of a tree of dicts, lists and weight containers."""
+    if torch.is_tensor(node):
+        yield node
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            yield from _tensors(getattr(node, f.name))
+
+
+class DecodeGraph:
+    """The decode phase as replays of one captured CUDA graph of a decode
+    step: the port's counterpart of the reference's jitted
+    ``_decode_loop``.
+
+    It owns what the step reads and writes, at fixed addresses: the token
+    input (B, 1), the position (a 0-d int64 tensor), the KV or latent
+    caches (which the prefill writes into) and a (B, max_len) buffer that
+    takes each new token at column pos + 1.  The step decodes, samples,
+    writes the token into the input and the buffer, and adds one to the
+    position.  Between replays the host only launches the next one.
+
+    The first decode step after a prefill runs eagerly (a real step, whose
+    token is kept; it loads every kernel, function attribute and library
+    handle the step needs), and the step is then captured once; every
+    later step, in this call and the next, is a replay.  The counts the
+    step's Python adds to the launch, dispatch and materialize counters
+    at capture are taken back and added at each replay.  A capture that
+    fails raises.  On a device without graphs (the CPU) every step runs
+    eagerly on the same buffers.
+
+    ``temperature > 0`` samples from the graph's own generator, which
+    the graph registers (each replay advances its offset); :meth:`run`
+    starts it from the caller's generator's state and hands the advanced
+    state back, so the draws are the eager loop's with that generator."""
+
+    def __init__(self, cfg, batch: int, max_len: int, *,
+                 temperature: float = 0.0, device=None):
+        device = resolve_device(device)
+        self.device, self.temperature = device, temperature
+        self.generator = (torch.Generator(device=device) if temperature > 0
+                          else None)
+        self.caches = LM.init_caches(cfg, batch, max_len, device=device)
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+        self.pos = torch.zeros((), dtype=torch.long, device=device)
+        self.seq = torch.zeros((batch, max_len), dtype=torch.long,
+                               device=device)
+        self._fns = make_serve_fns(cfg, device=device)
+        self.graph = None
+        self.step_counts = None        # per replay, one per _STEP_COUNTERS
+        self.capture_ms = None         # host time of the capture
+        self._finalizers: list = []
+
+    def prefill(self, params, lut, ids: torch.Tensor) -> torch.Tensor:
+        """Zero the caches and prefill ``ids`` (B, T0) into them; the
+        greedy first token goes into the input, T0 into the position.
+        → that token (B, 1)."""
+        for t in _tensors(self.caches):
+            t.zero_()
+        logits, _ = self._fns[0](params, lut, {"tokens": ids}, self.caches)
+        tok = sample_tokens(logits, 0.0)[:, None]
+        self.tok.copy_(tok)
+        self.pos.fill_(ids.shape[1])
+        return tok
+
+    def step(self, params, lut):
+        """One decode step on the buffers (what the graph captures)."""
+        logits, _ = self._fns[1](params, lut, self.tok, self.caches,
+                                 self.pos)
+        nxt = sample_tokens(logits, self.temperature,
+                            self.generator)[:, None]
+        self.tok.copy_(nxt)
+        self.seq.index_copy_(1, (self.pos + 1)[None], nxt)
+        self.pos.add_(1)
+
+    def capture(self, params, lut):
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = [collections.Counter(c) for c in _STEP_COUNTERS]
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self.step(params, lut)
+        finally:
+            counts = [c - b for c, b in zip(_STEP_COUNTERS, before)]
+            for c, b in zip(_STEP_COUNTERS, before):
+                c.clear()
+                c.update(b)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.step_counts = graph, counts
+        CAPTURE_COUNTS["decode_loop"] += 1
+
+    def replay(self):
+        self.graph.replay()
+        for c, d in zip(_STEP_COUNTERS, self.step_counts):
+            c.update(d)
+
+    def decode(self, params, lut, steps: int):
+        """``steps`` decode steps after :meth:`prefill`: replays, after an
+        eager step and the capture when there is no graph yet."""
+        if self.device.type != "cuda":
+            for _ in range(steps):
+                self.step(params, lut)
+            return
+        if self.graph is None and steps:
+            self.step(params, lut)
+            self.capture(params, lut)
+            steps -= 1
+        for _ in range(steps):
+            self.replay()
+
+    def run(self, params, lut, ids: torch.Tensor, max_new: int,
+            generator: torch.Generator | None = None):
+        """Prefill ``ids`` (B, T0), then ``max_new − 1`` decode steps,
+        sampling (if the graph samples) from ``generator``'s state, which
+        is advanced as the eager loop would advance it.  → the ``max_new``
+        new tokens (B, max_new), int64."""
+        if ids.shape[1] + max_new > self.seq.shape[1]:
+            raise ValueError(f"{ids.shape[1]} prompt + {max_new} new tokens "
+                             f"exceed the caches' {self.seq.shape[1]}")
+        if self.generator is not None:
+            self.generator.set_state(generator.get_state())
+        tok = self.prefill(params, lut, ids)
+        self.decode(params, lut, max_new - 1)
+        if self.generator is not None:
+            generator.set_state(self.generator.get_state())
+        t0 = ids.shape[1]
+        return torch.cat([tok, self.seq[:, t0 + 1:t0 + max_new]], dim=1)
+
+
+_GRAPHS: dict = {}
+
+
+def _drop_graph(key, ref):
+    graph = ref()
+    if graph is not None and _GRAPHS.get(key) is graph:
+        del _GRAPHS[key]
+        for f in graph._finalizers:
+            f.detach()
+
+
+def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
+                 temperature: float = 0.0,
+                 generator: torch.Generator | None = None,
+                 device=None) -> DecodeGraph:
+    """The :class:`DecodeGraph` of this configuration, batch, cache length
+    and sampling rule (greedy, or a temperature when a ``generator`` is
+    given) over these weights, made at the first call.  Graphs are kept by
+    the ``data_ptr()`` of every parameter tensor and of the LUT, so a new
+    ``ServeState`` gets a graph of its own, and a graph goes as soon as a
+    tensor it reads is freed: none outlives its weights."""
+    device = resolve_device(device)
+    temperature = (max(float(temperature), 0.0) if generator is not None
+                   else 0.0)
+    leaves = list(_tensors(params)) + ([lut] if lut is not None else [])
+    key = (cfg, batch, max_len, device, temperature,
+           tuple(t.data_ptr() for t in leaves))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = _GRAPHS[key] = DecodeGraph(cfg, batch, max_len,
+                                           temperature=temperature,
+                                           device=device)
+        ref = weakref.ref(graph)
+        graph._finalizers = [weakref.finalize(t, _drop_graph, key, ref)
+                             for t in leaves]
+    return graph
 
 
 @torch.no_grad()
@@ -266,7 +461,12 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     tokens (B, T0) int; returns (B, T0 + max_new) on the serving device.
     Runs on ``device`` (from ``ctx``, else the argument; the card unless
     the caller passes another).  Prompts of different lengths are
-    left-padded by the caller, as in the reference."""
+    left-padded by the caller, as in the reference.  The decode steps are
+    those of :func:`decode_graph`'s graph: on the card, replays of one
+    captured step (a later call with the same weights and shapes captures
+    nothing); on the CPU, the same step run eagerly in a Python loop.  The
+    first new token is greedy whatever the temperature, as in the
+    reference; only the decode steps sample."""
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
         lut, device = ctx.lut, ctx.device
@@ -275,17 +475,8 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     if max_new <= 0:
         return tokens
     b, t0 = tokens.shape
-    max_len = max_len or (t0 + max_new)
-    caches = LM.init_caches(cfg, b, max_len, device=device)
-    prefill, decode_step = make_serve_fns(cfg, device=device)
-    ids = tokens.long()
-    logits, caches = prefill(params, lut, {"tokens": ids}, caches)
-    # the first new token is greedy whatever the temperature, as in the
-    # reference; only the decode steps sample
-    tok = sample_tokens(logits, 0.0)[:, None]
-    out = [tok]
-    for i in range(max_new - 1):
-        logits, caches = decode_step(params, lut, tok, caches, t0 + i)
-        tok = sample_tokens(logits, temperature, generator)[:, None]
-        out.append(tok)
-    return torch.cat([tokens] + [t.to(tokens.dtype) for t in out], dim=1)
+    graph = decode_graph(params, cfg, lut, b, max_len or (t0 + max_new),
+                         temperature=temperature, generator=generator,
+                         device=device)
+    new = graph.run(params, lut, tokens.long(), max_new, generator)
+    return torch.cat([tokens, new.to(tokens.dtype)], dim=1)

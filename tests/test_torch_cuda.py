@@ -33,6 +33,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_decode_matmul as fdm
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.serve import engine as E
 from repro_torch.serve.engine import build_serve_params, make_serve_fns
 
 pytestmark = pytest.mark.cuda
@@ -451,3 +452,135 @@ def test_moe_prefill_card_matches_cpu(card):
     assert int(kept.sum()) >= b - 1
     err = (out["cuda"] - out["cpu"]).abs()[kept].max().item()
     assert err <= 3e-2, err
+
+
+# -- the decode phase as one captured graph ---------------------------------
+
+def _card_cfg(family):
+    """Smoke-width variants with head dims the flash kernel takes (64;
+    MLA's 192 / 128)."""
+    if family == "llama":
+        return dataclasses.replace(get_config("llama3.2-1b").smoke,
+                                   d_model=256, n_heads=4, n_kv_heads=2,
+                                   head_dim=64, d_ff=512)
+    return dataclasses.replace(
+        get_config("deepseek-v2-lite-16b").smoke, d_model=256, n_heads=4,
+        n_kv_heads=4, kv_lora_rank=128, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128, d_ff=512, moe_d_ff=128)
+
+
+def _card_state(cfg, card, seed=0):
+    params = LM.init_lm(cfg, seed=seed, device=card)
+    return build_serve_params(params, CompressionPolicy(min_weight_size=1024),
+                              device=card)
+
+
+_COUNTERS = (_build.LAUNCH_COUNTS, ops.DISPATCH_COUNTS, L.MATERIALIZE_COUNTS)
+
+
+def _counted(fn):
+    """fn()'s result and what it added to the launch, dispatch and
+    materialize counters."""
+    for c in _COUNTERS:
+        c.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [dict(c) for c in _COUNTERS]
+
+
+def _eager_loop(st, cfg, ids, max_new, temperature=0.0, generator=None):
+    """The eager decode loop over make_serve_fns (int positions), as the
+    CPU's generate runs it: → the max_new new tokens."""
+    prefill, decode_step = make_serve_fns(cfg, device=ids.device)
+    b, t0 = ids.shape
+    caches = LM.init_caches(cfg, b, t0 + max_new, device=ids.device)
+    logits, caches = prefill(st.params, st.lut, {"tokens": ids}, caches)
+    toks = [E.sample_tokens(logits)[:, None]]
+    for i in range(max_new - 1):
+        logits, caches = decode_step(st.params, st.lut, toks[-1], caches,
+                                     t0 + i)
+        toks.append(E.sample_tokens(logits, temperature, generator)[:, None])
+    return torch.cat(toks, dim=1)
+
+
+@pytest.mark.parametrize("family,temperature", [
+    ("llama", 0.0), ("llama", 2.0), ("deepseek", 0.0), ("deepseek", 2.0)])
+def test_graphed_generate_matches_eager_loop(card, family, temperature):
+    """generate on the card (an eager step, one capture, then replays)
+    gives the eager loop's tokens bit for bit, greedy and sampled from a
+    CUDA generator of the same seed, in a first call (capture) and a
+    second (replays only); each call counts the eager loop's launches,
+    dispatches and materializations, and only the first captures."""
+    cfg = _card_cfg(family)
+    st = _card_state(cfg, card)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 5),
+                        device=card)
+    max_new = 9
+    g_eager, g_graph = _gen(card, 11), _gen(card, 11)
+    for call in (1, 2):
+        want, eager_counts = _counted(lambda: _eager_loop(
+            st, cfg, ids, max_new, temperature, g_eager))
+        E.CAPTURE_COUNTS.clear()
+        got, counts = _counted(lambda: E.generate(
+            st.params, cfg, ids, lut=st.lut, max_new=max_new,
+            temperature=temperature, generator=g_graph))
+        assert E.CAPTURE_COUNTS["decode_loop"] == (1 if call == 1 else 0)
+        assert torch.equal(got[:, :13], ids)
+        assert torch.equal(got[:, 13:], want), (call, got[:, 13:], want)
+        assert counts == eager_counts
+    if family == "deepseek":
+        assert eager_counts[2] == {"packed": cfg.n_layers * max_new}
+    if temperature:
+        greedy = _eager_loop(st, cfg, ids, max_new)
+        assert not torch.equal(want, greedy)
+
+
+def test_new_state_captures_again(card):
+    """A second ServeState of the same shapes gets a graph of its own (and
+    its own tokens); the first state's graph still replays; a state's
+    graph goes with its weights."""
+    cfg = _card_cfg("llama")
+    ids = torch.randint(1, cfg.vocab_size, (2, 11), generator=_gen(card, 6),
+                        device=card)
+    states = [_card_state(cfg, card, seed) for seed in (0, 1)]
+    outs = []
+    for st in states:
+        E.CAPTURE_COUNTS.clear()
+        outs.append(E.generate(st.params, cfg, ids, lut=st.lut, max_new=6))
+        assert E.CAPTURE_COUNTS["decode_loop"] == 1
+        assert torch.equal(outs[-1][:, 11:], _eager_loop(st, cfg, ids, 6))
+    assert not torch.equal(outs[0], outs[1])
+    E.CAPTURE_COUNTS.clear()
+    again = E.generate(states[0].params, cfg, ids, lut=states[0].lut,
+                       max_new=6)
+    assert E.CAPTURE_COUNTS["decode_loop"] == 0 and torch.equal(again,
+                                                                outs[0])
+    n = len(E._GRAPHS)
+    del states[1], st
+    assert len(E._GRAPHS) == n - 1
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_reads_nothing_on_the_host(card, family):
+    """Under set_sync_debug_mode("error") (any synchronizing op raises): a
+    decode step with a 0-d and a per-row position tensor, then a graphed
+    generate from tokens on the card, its capture included."""
+    cfg = _card_cfg(family)
+    st = _card_state(cfg, card)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 7),
+                        device=card)
+    prefill, decode_step = make_serve_fns(cfg, device=card)
+    caches = LM.init_caches(cfg, 3, 16, device=card)
+    logits, caches = prefill(st.params, st.lut, {"tokens": ids}, caches)
+    tok = torch.argmax(logits, -1)[:, None]
+    pos = torch.tensor(13, device=card)
+    rows = torch.tensor([13, 13, 13], device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_step(st.params, st.lut, tok, caches, pos)
+        decode_step(st.params, st.lut, tok, caches, rows)
+        out = E.generate(st.params, cfg, ids, lut=st.lut, max_new=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(out[:, 13:], _eager_loop(st, cfg, ids, 5))

@@ -16,6 +16,8 @@ planes.  Tolerances:
   * greedy tokens: equal, except from a step where the reference's own
     greedy choice is an exact bf16 tie (see the generate test).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -255,6 +257,49 @@ def test_moe_matches_reference(models, mode):
     if mode == "compressed":
         assert ops.DISPATCH_COUNTS["grouped_fused"] == 3
         assert TL.MATERIALIZE_COUNTS["packed_stacked"] == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_moe_drops_match_reference(models, mode):
+    """apply_moe at capacity factor 0.25 (33 tokens × top-2 over 8
+    experts at capacity 4: most choices dropped, each to the scatter's
+    cut-off column) against the reference at the same capacity."""
+    cfg, tcfg, out = models
+    cfg = dataclasses.replace(cfg, capacity_factor=0.25)
+    tcfg = dataclasses.replace(tcfg, capacity_factor=0.25)
+    jp, jlut, tp, tlut, _ = out[mode]
+    jx, tx = _block_input(cfg, mode, 2)
+    jbp, tbp = _layer(jp["blocks"], 1)["moe"], tp["blocks"][1]["moe"]
+    jy, _, jids = jax.jit(lambda p, x, lut: JL.apply_moe(
+        p, x, cfg, lut=lut, with_routing=True))(jbp, jx, jlut)
+    ty, _, tids = TL.apply_moe(tbp, tx, tcfg, lut=tlut, with_routing=True)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    cap = TL._capacity(33, 2, 8, 0.25)
+    counts = np.bincount(np.asarray(jids).reshape(-1), minlength=8)
+    assert cap == 4 and np.maximum(counts - cap, 0).sum() > 33
+    _ulps(ty, jy, 1)
+
+
+@pytest.mark.parametrize("n_tok,k,e,cap", [
+    (4, 6, 64, 4),          # decode: an expert takes each token once
+    (33, 2, 8, 6), (33, 2, 8, 4), (700, 6, 64, 60), (97, 3, 5, 4)])
+def test_dispatch_tables_drop_by_scatter(n_tok, k, e, cap):
+    """The dispatch tables equal a loop that places each choice kept
+    within capacity, on random routings (distinct experts per token)."""
+    g = torch.Generator().manual_seed(n_tok * e)
+    ids = torch.argsort(torch.rand(n_tok, e, generator=g), dim=1)[:, :k]
+    gates = torch.rand(n_tok, k, generator=g)
+    slot = TL.expert_slots(ids, torch.nn.functional.one_hot(ids, e))
+    table, gtable = TL.dispatch_tables(ids, slot, gates, cap, e)
+    want = torch.full((e, cap), n_tok, dtype=torch.long)
+    gwant = torch.zeros((e, cap))
+    for i, (ex, s) in enumerate(zip(ids.reshape(-1).tolist(),
+                                    slot.tolist())):
+        if s < cap:
+            want[ex, s] = i // k
+            gwant[ex, s] = gates.reshape(-1)[i]
+    assert torch.equal(table, want) and torch.equal(gtable, gwant)
+    assert bool((slot >= cap).any()) == (n_tok > cap)     # drops
 
 
 def test_routing_ties_take_the_lower_expert():

@@ -98,6 +98,52 @@ def test_sampling_is_seeded():
     assert torch.equal(a, b) and a.shape == (4,)
 
 
+@pytest.mark.parametrize("temperature", [0.7, 50.0])
+def test_sampled_draw_is_multinomials(temperature):
+    """sample_tokens draws what torch.multinomial(probs, 1) draws from the
+    same generator state (the exponential race it runs for one sample),
+    without multinomial's host-side check, which a captured step cannot
+    hold."""
+    logits = torch.randn(5, 300, generator=torch.Generator().manual_seed(2))
+    probs = torch.softmax(logits / temperature, dim=-1)
+    for seed in range(4):
+        want = torch.multinomial(probs, 1,
+                                 generator=torch.Generator().manual_seed(seed))
+        got = TE.sample_tokens(logits, temperature,
+                               torch.Generator().manual_seed(seed))
+        assert torch.equal(got, want[:, 0])
+
+
+def test_decode_graphs_are_kept_per_state_and_released():
+    """decode_graph gives one graph per (config, batch, cache length,
+    sampling rule, weights): the same for a second call or another
+    generator at the same temperature, another for a new state of the same
+    shapes or another temperature, and none left once its weights are
+    freed."""
+    tcfg = tget_config("llama3.2-1b").smoke
+    states = [TE.build_serve_params(
+        TLM.init_lm(tcfg, seed=s, device="cpu"),
+        CompressionPolicy(min_weight_size=1024), device="cpu")
+        for s in (0, 1)]
+    n = len(TE._GRAPHS)
+
+    def graph(st, **kw):
+        return TE.decode_graph(st.params, tcfg, st.lut, 2, 12, device="cpu",
+                               **kw)
+
+    a = graph(states[0])
+    assert graph(states[0]) is a and graph(states[1]) is not a
+    assert graph(states[0], temperature=0.5) is a       # no generator
+    sampled = graph(states[0], temperature=0.5,
+                    generator=torch.Generator().manual_seed(0))
+    assert sampled is not a and sampled.generator is not None
+    assert graph(states[0], temperature=0.5,
+                 generator=torch.Generator()) is sampled
+    assert len(TE._GRAPHS) == n + 3
+    del states[0], sampled
+    assert len(TE._GRAPHS) == n + 1
+
+
 def test_sampled_generate_starts_greedy():
     """Under sampling the first new token is still the prefill's argmax,
     as in the reference (``repro.serve.engine.generate`` samples only in

@@ -6,7 +6,11 @@
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
 in compressed mode on the CUDA card, serves the 4 prompts of chip_smoke.py,
-and profiles one prefill and 8 decode steps with torch.profiler: device
+and profiles one prefill, 8 decode steps dispatched from Python (the eager
+loop) and, where the port has it, the same 8 steps as replays of the
+captured decode graph (``serve.engine.decode_graph``; the window starts
+after its capture, and no Python runs in it, so no range marks the
+absorb chain there) with torch.profiler: device
 time by kernel, K2's time (every kernel named ``flash_attention``...), K4's
 (``dict_decode``...), K5's (``dequant_matmul``...), the calls of the
 split-K epilogue, and the share of the window's wall time in which the
@@ -182,6 +186,7 @@ def profile_model(model, dev):
     from repro_torch.configs import get_config
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.models import lm as LM
+    from repro_torch.serve import engine
     from repro_torch.serve.engine import (build_serve_params, make_serve_fns,
                                           sample_tokens)
     arch, layers = MODELS[model]
@@ -215,6 +220,14 @@ def profile_model(model, dev):
     run_decode()
     window(cfg.name, "prefill", run_prefill)
     window(cfg.name, f"decode x{DECODE_STEPS}", run_decode)
+    if hasattr(engine, "decode_graph"):     # a port from before it: none
+        graph = engine.decode_graph(st.params, cfg, st.lut, BATCH,
+                                    t0 + DECODE_STEPS + 2, device=dev)
+        # warm-up: an eager step, the capture, replays
+        graph.run(st.params, st.lut, ids, DECODE_STEPS + 2)
+        graph.prefill(st.params, st.lut, ids)
+        window(cfg.name, f"graph decode x{DECODE_STEPS}",
+               lambda: graph.decode(st.params, st.lut, DECODE_STEPS))
 
 
 def ptxas_kernels(report: str) -> list:
