@@ -36,6 +36,15 @@ each in the phases below; the script exits non-zero if any phase fails:
      step and tokens/s of the graph (its replays alone) and of the eager
      loop, the capture's ms, each run's peak memory and the size of the
      graph's memory pool are printed.
+     On the Llama path, then the engine phase (``engine_phase``): 8
+     greedy requests (prompt lengths 32–200 and budgets 8–32 from the
+     seed) arriving at cumulative Poisson(1.5) ticks, drained through the
+     continuous-batching ``serve.scheduler.Engine`` (4 slots × 232 tokens,
+     pages of 8, its tick one captured CUDA graph): every completion
+     bitwise equal to ``generate`` of its prompt alone at the pool's
+     length, one capture, the drain's launches, every page freed; ticks,
+     tokens/s, the median tick and admission prefill, the capture, the
+     pool's bytes and peak memory are printed.
   5. Card against CPU: the same seeded model at 2 layers, packed once; the
      prefill logits of the card and of the CPU (plain versions) must agree
      within a stated tolerance; greedy tokens are compared.  For the MoE,
@@ -43,8 +52,10 @@ each in the phases below; the script exits non-zero if any phase fails:
      tensor-core kernel; the tokens each request routes and keeps
      differently are reported.
 
-Prints one ``kernel_detail`` and one ``e2e`` line per path, one JSON
-``kernels`` line (every kernel, with the launches of its path's run), the
+Prints one ``kernel_detail`` and one ``e2e`` line per path, an
+``engine`` line for Llama, one JSON
+``kernels`` line (every kernel, with the launches of its path's run; on
+Llama's rows also the engine drain's, ``engine_launches``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -65,6 +76,10 @@ SEED = 0
 BATCH, MAX_NEW = 4, 32
 PROMPT_MIN, PROMPT_MAX = 32, 200
 DS_LAYERS = 8            # DeepSeek-V2-Lite depth on the card (of 27)
+# The engine phase (Llama): requests arrive at cumulative Poisson(1.5)
+# ticks into the continuous-batching engine
+ENGINE_SLOTS, ENGINE_PAGE, ENGINE_MAX_LEN = 4, 8, 232
+ENGINE_REQUESTS, ENGINE_NEW_MIN, ENGINE_NEW_MAX = 8, 8, 32
 DS_CHECK_STEPS = 4       # greedy steps compared card against CPU
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak, same source
@@ -785,6 +800,125 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     return e2e
 
 
+def engine_phase(rt, cfg, state, device):
+    """Request-level serving: ENGINE_REQUESTS greedy requests (prompt
+    lengths in PROMPT_MIN–PROMPT_MAX and budgets in ENGINE_NEW_MIN–
+    ENGINE_NEW_MAX from the seed) arriving at cumulative Poisson(1.5)
+    ticks into ``Engine`` (ENGINE_SLOTS slots of ENGINE_MAX_LEN tokens,
+    pages of ENGINE_PAGE), drained.  Counts are zeroed just before the
+    drain and read just after.  Gates: every request ends as one
+    ``Completion`` with ``finished == 'max_new'``, its tokens bitwise equal
+    to ``generate`` of its prompt alone at the pool's length; all slots
+    occupied at once and a request joined mid-decode; one capture of the
+    generate step; the launches of (ticks + admissions) decode steps and
+    prefills; no weight materialized; every page back on the free list.
+    Raises on any difference; → the numbers."""
+    _build, L, ops, E = rt["_build"], rt["L"], rt["ops"], rt["engine"]
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, ENGINE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    budgets = rng.integers(ENGINE_NEW_MIN, ENGINE_NEW_MAX + 1,
+                           ENGINE_REQUESTS)
+    arrivals = np.concatenate([[0], np.cumsum(
+        rng.poisson(1.5, ENGINE_REQUESTS - 1))])
+    eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
+                       n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                       page_size=ENGINE_PAGE)
+    prefill_s, tick_s = [], []
+    prefill = eng._prefill
+
+    def timed_prefill(toks):          # its first-token read synchronizes
+        t = time.perf_counter()
+        out = prefill(toks)
+        prefill_s.append(time.perf_counter() - t)
+        return out
+
+    eng._prefill = timed_prefill
+    for c in (_build.LAUNCH_COUNTS, L.MATERIALIZE_COUNTS,
+              ops.DISPATCH_COUNTS, E.CAPTURE_COUNTS):
+        c.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = 0
+    while done < ENGINE_REQUESTS or eng.health()["occupied"] \
+            or eng.health()["queued"]:
+        while done < ENGINE_REQUESTS and eng.steps >= arrivals[done]:
+            eng.submit(rt["Request"](tokens=prompts[done],
+                                     max_new=int(budgets[done]), rid=done))
+            done += 1
+        n_pre = len(prefill_s)
+        t = time.perf_counter()
+        eng.step()                    # a tick ends on its token read
+        if len(prefill_s) == n_pre and eng.stats["occupancy"][-1]:
+            tick_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCH_COUNTS)
+    materialized = dict(L.MATERIALIZE_COUNTS)
+    captures = E.CAPTURE_COUNTS["generate_step"]
+    peak = torch.cuda.max_memory_allocated(device)
+    h = eng.health()
+    ticks = sum(1 for o in eng.stats["occupancy"] if o)
+    n_tokens = sum(c.n_generated for c in eng.completions)
+    info = {"model": cfg.name, "layers": cfg.n_layers,
+            "slots": ENGINE_SLOTS, "page_size": ENGINE_PAGE,
+            "max_len": eng.pool.max_len, "requests": ENGINE_REQUESTS,
+            "prompt_lens": lens.tolist(), "max_new": budgets.tolist(),
+            "arrivals": arrivals.tolist(), "ticks": ticks,
+            "steps": eng.steps, "generated_tokens": n_tokens,
+            "drain_ms": drain_s * 1e3, "tokens_per_s": n_tokens / drain_s,
+            "tick_ms_median": float(np.median(tick_s)) * 1e3,
+            "ticks_timed": len(tick_s),
+            "prefill_ms_median": float(np.median(prefill_s)) * 1e3,
+            "prefill_ms_each": [t * 1e3 for t in prefill_s],
+            "capture_ms": eng.capture_ms,
+            "pool_device_bytes": eng.pool.device_bytes(),
+            "peak_mem_bytes": peak, "launches": launches,
+            "materialize_counts": materialized, "captures": captures,
+            "health": h}
+    faults = []
+    by_rid = {}
+    for c in eng.completions:
+        if c.rid in by_rid:
+            faults.append(f"request {c.rid} completed twice")
+        by_rid[c.rid] = c
+    mismatched = []
+    for i, p in enumerate(prompts):
+        c = by_rid.get(i)
+        if c is None or c.finished != "max_new":
+            faults.append(f"request {i}: {c and c.finished}")
+            continue
+        want = rt["generate"](state.params, cfg, torch.as_tensor(p)[None],
+                              lut=state.lut, max_new=int(budgets[i]),
+                              max_len=eng.pool.max_len, device=device)[0]
+        if not np.array_equal(c.tokens, want.cpu().numpy()):
+            mismatched.append(i)
+    info["requests_not_bitwise_equal_to_generate"] = mismatched
+    if mismatched:
+        faults.append(f"requests {mismatched} differ from generate")
+    n_steps = ticks + ENGINE_REQUESTS
+    want_launches = {"fused_decode_matmul": 7 * cfg.n_layers * n_steps,
+                     "dequant_matmul": n_steps,
+                     "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
+    if launches != want_launches:
+        faults.append(f"launches {launches}, want {want_launches}")
+    if materialized.get("packed", 0) != 0:
+        faults.append(f"materialized {materialized}")
+    if captures != 1:
+        faults.append(f"{captures} captures of the generate step, want 1")
+    if h["occupancy_max"] != ENGINE_SLOTS or h["joined_mid_decode"] < 1:
+        faults.append(f"occupancy_max {h['occupancy_max']}, joined mid-"
+                      f"decode {h['joined_mid_decode']}")
+    if len(eng.pool.free_pages) != eng.pool.n_pages:
+        faults.append(f"{len(eng.pool.free_pages)} of {eng.pool.n_pages} "
+                      "pages free after the drain")
+    log(f"engine {cfg.name} " + json.dumps(info))
+    if faults:
+        raise AssertionError(f"{cfg.name} engine: {faults}")
+    return info
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -845,6 +979,15 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
     log(f"e2e {cfg.name} " + json.dumps(e2e))
+    engine = {}
+    try:
+        engine = engine_phase(rt, cfg, state, device)
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} engine")
+    for row in rows:
+        row["engine_launches"] = engine.get("launches", {}).get(row["name"],
+                                                                0)
     del state
     torch.cuda.empty_cache()
     try:
@@ -1068,15 +1211,18 @@ def main() -> int:
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
     from repro_torch.serve import engine
+    from repro_torch.serve.context import ServeContext
     from repro_torch.serve.engine import (build_serve_params, generate,
                                           make_serve_fns)
+    from repro_torch.serve.scheduler import Engine, Request
     rt = {"fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
           "ops": ops, "_build": _build, "engine": engine,
           "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
           "pack_expert_stack": pack_expert_stack,
           "build_serve_params": build_serve_params, "generate": generate,
-          "make_serve_fns": make_serve_fns}
+          "make_serve_fns": make_serve_fns, "Engine": Engine,
+          "Request": Request, "ServeContext": ServeContext}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)

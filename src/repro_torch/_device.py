@@ -1,6 +1,7 @@
 """Where the port's entry points run: the card, unless the caller says."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
                 "device='cpu' to run the kernels' plain versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``.  To a card it goes through
+    pinned memory by an asynchronous copy, which does not synchronize
+    (a copy from pageable memory does)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -193,3 +193,40 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     if nd:
         out["first"] = [one() for _ in range(nd)]
     return out
+
+
+def cache_batch_time_axes(cfg):
+    """Per-leaf ``(batch_axis, time_axis)`` of this config's serving cache,
+    as a tree of the caches' structure with a tuple at each leaf.
+
+    The paged KV pool (``serve/kv_cache.py``) gathers and scatters cache
+    leaves along these axes.  They are found from the structure, as the
+    reference finds them: :func:`init_caches` on the ``meta`` device at
+    two batches and two lengths, and the axis that moves with each is the
+    answer.  A leaf without exactly one of each, or whose time axis does
+    not follow its batch axis, raises ``ValueError``."""
+    a = init_caches(cfg, 2, 7, device="meta")
+    b = init_caches(cfg, 3, 7, device="meta")
+    c = init_caches(cfg, 2, 9, device="meta")
+
+    def axes(sa, sb, sc):
+        if isinstance(sa, dict):
+            return {k: axes(sa[k], sb[k], sc[k]) for k in sa}
+        if isinstance(sa, list):
+            return [axes(x, y, z) for x, y, z in zip(sa, sb, sc)]
+        batch = [i for i, (x, y) in enumerate(zip(sa.shape, sb.shape))
+                 if x != y]
+        time = [i for i, (x, y) in enumerate(zip(sa.shape, sc.shape))
+                if x != y]
+        if len(batch) != 1 or len(time) != 1:
+            raise ValueError(
+                f"cache leaf {tuple(sa.shape)} has no unambiguous (batch, "
+                f"time) axes: family {cfg.family!r} cannot back a paged KV "
+                "pool")
+        if time[0] != batch[0] + 1:
+            raise ValueError(
+                f"cache leaf {tuple(sa.shape)}: time axis {time[0]} is not "
+                f"adjacent to batch axis {batch[0]}")
+        return (batch[0], time[0])
+
+    return axes(a, b, c)

@@ -18,9 +18,10 @@ Counterpart of ``repro/serve/engine.py`` for one device:
      dequant-matmul kernel, prefill attention the flash-attention kernel,
      and MLA's absorbed wkv_b the dict-decode kernel.
 
-Not ported yet: ``TiledPackedLinear`` column tiles, ``model_shards``, the
-integrity manifest, the resilience rungs and the continuous-batching
-scheduler.
+The continuous-batching scheduler (``serve/scheduler.py``) builds on the
+prefill of :func:`make_serve_fns`, :func:`sample_tokens`' per-row mode and
+the capture helpers here.  Not ported yet: ``TiledPackedLinear`` column
+tiles, ``model_shards``, the integrity manifest and the resilience rungs.
 """
 from __future__ import annotations
 
@@ -45,8 +46,9 @@ from ..models import layers as L
 from ..models import lm as LM
 from .context import ServeContext
 
-# Captures of the decode step, the counterpart of the reference's
-# TRACE_COUNTS["decode_loop"]: one per capture, none for a replay.
+# Captures of a step, the counterpart of the reference's TRACE_COUNTS:
+# "decode_loop" for generate's decode step, "generate_step" for the
+# scheduler's; one per capture, none for a replay.
 CAPTURE_COUNTS: collections.Counter = collections.Counter()
 
 # What the kernel wrappers and weight containers count from Python.  A
@@ -259,18 +261,77 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     return prefill, decode_step
 
 
-def sample_tokens(logits: torch.Tensor, temperature: float = 0.0,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """The next-token rule: greedy argmax (the first maximum) unless a
-    generator and a positive temperature are given, then one categorical
-    draw per row from softmax(logits / temperature).  logits (B, V) →
-    (B,) token ids."""
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """x · c mod 2^32 for x in [0, 2^32) (an int or an int64 tensor): the
+    constant is split in 16-bit halves, so no product leaves int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix32(x):
+    """A 32-bit integer hash (Wellons' lowbias32) of x in [0, 2^32), by
+    the same operators on a Python int and on an int64 tensor, so the host
+    and either device give the same bits."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def seed_key(seed: int) -> int:
+    """A request's 32-bit sampling key from its integer seed (the port's
+    counterpart of ``jax.random.PRNGKey(seed)``)."""
+    seed = int(seed) & ((1 << 64) - 1)
+    return _mix32((seed & _MASK32) ^ _mix32((seed >> 32) ^ 0x9E3779B9))
+
+
+def fold_in(keys, data):
+    """Per-row keys folded with per-row data (the absolute position), as
+    ``jax.random.fold_in``: int64 tensors (B,) → (B,) in [0, 2^32)."""
+    return _mix32(keys ^ _mix32((data + 0x632BE5AB) & _MASK32))
+
+
+def _row_uniforms(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) uniforms in (0, 1), a pure function of each row's key and
+    the column index: a 32-bit hash per element, its top 24 bits centred
+    in their interval (exact in f32)."""
+    cols = _mix32(torch.arange(n, dtype=torch.int64, device=keys.device)
+                  ^ 0x85EBCA6B)
+    h = _mix32(keys[:, None] ^ cols[None, :])
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_tokens(logits: torch.Tensor, temperature=0.0,
+                  generator: torch.Generator | None = None, *,
+                  keys: torch.Tensor | None = None) -> torch.Tensor:
+    """The next-token rule.  logits (B, V) → (B,) token ids.  Two modes:
+
+    * a scalar ``temperature``: greedy argmax (the first maximum) unless a
+      generator and a positive temperature are given, then one categorical
+      draw per row from softmax(logits / temperature);
+    * per-row temperatures (B,) with per-row ``keys`` (B,) (from
+      :func:`fold_in`): each row draws from its own counter-based stream,
+      a pure function of its key and its logits, the same on any device
+      and with no host read; rows at temperature 0 take the greedy argmax
+      exactly.
+
+    A draw is the argmax of p / q with q ~ Exp(1), the race
+    ``torch.multinomial(probs, 1)`` runs for one sample, without its
+    host-side check of probs, which synchronizes and so cannot be
+    captured."""
+    greedy = torch.argmax(logits, dim=-1)
+    if torch.is_tensor(temperature) and temperature.ndim == 1:
+        temp = temperature.to(torch.float32)
+        probs = torch.softmax(logits.to(torch.float32)
+                              / torch.clamp(temp, min=1e-6)[:, None], dim=-1)
+        q = -torch.log(_row_uniforms(keys, logits.shape[-1]))
+        return torch.where(temp > 0, torch.argmax(probs / q, dim=-1), greedy)
     if generator is None or temperature <= 0:
-        return torch.argmax(logits, dim=-1)
+        return greedy
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    # the draw of torch.multinomial(probs, 1) (the argmax of p / q with
-    # q ~ Exp(1)), without its host-side check of probs, which synchronizes
-    # and so cannot be captured
     q = torch.empty_like(probs).exponential_(1, generator=generator)
     return torch.argmax(probs / q, dim=-1)
 
@@ -288,6 +349,34 @@ def _tensors(node):
     elif dataclasses.is_dataclass(node):
         for f in dataclasses.fields(node):
             yield from _tensors(getattr(node, f.name))
+
+
+def capture_step(step, generator: torch.Generator | None = None):
+    """Capture ``step()`` in a CUDA graph (its kernels are recorded, not
+    run).  → (graph, the counts its Python added to each of
+    ``_STEP_COUNTERS``, which are taken back, host ms of the capture).  A
+    capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = [collections.Counter(c) for c in _STEP_COUNTERS]
+    t0 = time.perf_counter()
+    try:
+        with torch.cuda.graph(graph):
+            step()
+    finally:
+        counts = [c - b for c, b in zip(_STEP_COUNTERS, before)]
+        for c, b in zip(_STEP_COUNTERS, before):
+            c.clear()
+            c.update(b)
+    return graph, counts, (time.perf_counter() - t0) * 1e3
+
+
+def replay_step(graph, counts):
+    """Replay a graph of :func:`capture_step`; add its step's counts."""
+    graph.replay()
+    for c, d in zip(_STEP_COUNTERS, counts):
+        c.update(d)
 
 
 class DecodeGraph:
@@ -356,27 +445,12 @@ class DecodeGraph:
         self.pos.add_(1)
 
     def capture(self, params, lut):
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        before = [collections.Counter(c) for c in _STEP_COUNTERS]
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                self.step(params, lut)
-        finally:
-            counts = [c - b for c, b in zip(_STEP_COUNTERS, before)]
-            for c, b in zip(_STEP_COUNTERS, before):
-                c.clear()
-                c.update(b)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph, self.step_counts = graph, counts
+        self.graph, self.step_counts, self.capture_ms = capture_step(
+            lambda: self.step(params, lut), self.generator)
         CAPTURE_COUNTS["decode_loop"] += 1
 
     def replay(self):
-        self.graph.replay()
-        for c, d in zip(_STEP_COUNTERS, self.step_counts):
-            c.update(d)
+        replay_step(self.graph, self.step_counts)
 
     def decode(self, params, lut, steps: int):
         """``steps`` decode steps after :meth:`prefill`: replays, after an
@@ -411,15 +485,23 @@ class DecodeGraph:
         return torch.cat([tok, self.seq[:, t0 + 1:t0 + max_new]], dim=1)
 
 
-_GRAPHS: dict = {}
+# The graphs decode_graph keeps, least recently used first.  Each holds
+# its own caches, token buffer and graph pool, so the cache is bounded by
+# count: a new shape past the bound frees the least recently used graph.
+MAX_GRAPHS = 4
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+
+
+def _forget(graph):
+    for f in graph._finalizers:
+        f.detach()
 
 
 def _drop_graph(key, ref):
     graph = ref()
     if graph is not None and _GRAPHS.get(key) is graph:
         del _GRAPHS[key]
-        for f in graph._finalizers:
-            f.detach()
+        _forget(graph)
 
 
 def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
@@ -431,7 +513,9 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     given) over these weights, made at the first call.  Graphs are kept by
     the ``data_ptr()`` of every parameter tensor and of the LUT, so a new
     ``ServeState`` gets a graph of its own, and a graph goes as soon as a
-    tensor it reads is freed: none outlives its weights."""
+    tensor it reads is freed: none outlives its weights.  At most
+    ``MAX_GRAPHS`` are kept; a new one past that frees the least recently
+    used."""
     device = resolve_device(device)
     temperature = (max(float(temperature), 0.0) if generator is not None
                    else 0.0)
@@ -439,13 +523,16 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     key = (cfg, batch, max_len, device, temperature,
            tuple(t.data_ptr() for t in leaves))
     graph = _GRAPHS.get(key)
-    if graph is None:
-        graph = _GRAPHS[key] = DecodeGraph(cfg, batch, max_len,
-                                           temperature=temperature,
-                                           device=device)
-        ref = weakref.ref(graph)
-        graph._finalizers = [weakref.finalize(t, _drop_graph, key, ref)
-                             for t in leaves]
+    if graph is not None:
+        _GRAPHS.move_to_end(key)
+        return graph
+    while len(_GRAPHS) >= MAX_GRAPHS:
+        _forget(_GRAPHS.popitem(last=False)[1])
+    graph = _GRAPHS[key] = DecodeGraph(cfg, batch, max_len,
+                                       temperature=temperature, device=device)
+    ref = weakref.ref(graph)
+    graph._finalizers = [weakref.finalize(t, _drop_graph, key, ref)
+                         for t in leaves]
     return graph
 
 

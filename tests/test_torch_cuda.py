@@ -15,6 +15,7 @@ bitwise on every input.
 import dataclasses
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,7 +35,9 @@ from repro_torch.kernels import fused_decode_matmul as fdm
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.serve import engine as E
+from repro_torch.serve.context import ServeContext
 from repro_torch.serve.engine import build_serve_params, make_serve_fns
+from repro_torch.serve.scheduler import Engine, Request
 
 pytestmark = pytest.mark.cuda
 
@@ -584,3 +587,169 @@ def test_decode_reads_nothing_on_the_host(card, family):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(out[:, 13:], _eager_loop(st, cfg, ids, 5))
+
+
+# -- request-level serving: the engine's generate step as one graph --------
+
+def _engine_cfg(family):
+    """``_card_cfg``; the MoE in the dropless regime (capacity ≥ every
+    token), where expert capacity cannot depend on the batch."""
+    cfg = _card_cfg(family)
+    if family == "deepseek":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)
+                                  / cfg.top_k)
+    return cfg
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_rows_do_not_depend_on_the_batch(card, family):
+    """A row's decode step gives the same bits alone (batch 1) as in a
+    batch of 4 beside other rows at other positions: what makes the
+    engine's ticks (M = n_slots) equal generate's steps (M = 1).  Checked
+    op by op: K1's decode kernel and K5 at M = 1 and 4, the decode
+    attention (GQA or MLA's absorbed form), then the whole step."""
+    cfg = _engine_cfg(family)
+    st = _card_state(cfg, card)
+    g = _gen(card, 9)
+    layer = st.params["blocks"][0]["attn"]
+    x = torch.randn((4, 1, cfg.d_model), generator=g, device=card
+                    ).to(torch.bfloat16)
+    diffs = {}
+
+    def rows(fn, *args):
+        """fn on 4 rows and on row 0 alone: the max |difference|."""
+        four, one = fn(*args), fn(*(a[:1] for a in args))
+        return (four[:1].float() - one.float()).abs().max().item()
+
+    w = layer["wo"]
+    diffs["k1"] = rows(lambda h: L.linear(h, w, st.lut),
+                       torch.randn((4, 1, w.shape[1]), generator=g,
+                                   device=card).to(torch.bfloat16))
+    head = st.params.get("lm_head", st.params["embed"])
+    diffs["k5"] = rows(lambda h: L.linear(h, head, st.lut), x)
+    pos = torch.tensor([11, 3, 7, 19], device=card)
+    caches = LM.init_caches(cfg, 4, 24, device=card)
+    for t in [t for c in caches["blocks"] for t in c.values()]:
+        t.copy_(torch.randn(t.shape, generator=g, device=card).to(t.dtype))
+    attn = L.apply_attention if family == "llama" else L.apply_mla
+
+    def attend(h, p):
+        n = h.shape[0]
+        cache = {k: v[:n].clone() for k, v in caches["blocks"][0].items()}
+        return attn(layer, h, cfg, lut=st.lut, cache=cache, pos=p)[0]
+
+    diffs["attention"] = rows(attend, x, pos)
+    _, decode_step = make_serve_fns(cfg, device=card)
+    tok = torch.randint(1, cfg.vocab_size, (4, 1), generator=g, device=card)
+
+    def step(t, p):
+        n = t.shape[0]
+        c = {k: [{n2: v[:n].clone() for n2, v in layer_c.items()}
+                 for layer_c in caches[k]] for k in caches}
+        return decode_step(st.params, st.lut, t, c, p)[0]
+
+    diffs["decode_step"] = rows(step, tok, pos)
+    assert diffs == {k: 0.0 for k in diffs}, diffs
+
+
+def _trace(cfg, card, n=8, seed=0):
+    """n prompts (lengths 5–20), budgets (3–8) and cumulative Poisson(1.5)
+    arrival ticks from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(5, 21)))
+               for _ in range(n)]
+    max_new = rng.integers(3, 9, n)
+    arrivals = np.concatenate([[0], np.cumsum(rng.poisson(1.5, n - 1))])
+    return prompts, max_new, arrivals
+
+
+def _serve_trace(eng, prompts, max_new, arrivals):
+    done = 0
+    while done < len(prompts) or eng.health()["occupied"] \
+            or eng.health()["queued"]:
+        while done < len(prompts) and eng.steps >= arrivals[done]:
+            eng.submit(Request(tokens=prompts[done],
+                               max_new=int(max_new[done]), rid=done))
+            done += 1
+        eng.step()
+    return {c.rid: c for c in eng.completions}
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_engine_matches_generate_on_card(card, family):
+    """A staggered mixed trace through the engine on the card (3 slots):
+    one capture of the generate step for the whole drain, every tick's
+    and admission's launches counted, every completion bitwise equal to
+    the port's generate of its prompt alone at the pool's length."""
+    cfg = _engine_cfg(family)
+    st = _card_state(cfg, card)
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+                 max_len=30)
+    prompts, max_new, arrivals = _trace(cfg, card)
+    E.CAPTURE_COUNTS.clear()
+    _build.LAUNCH_COUNTS.clear()
+    by_rid = _serve_trace(eng, prompts, max_new, arrivals)
+    launches = dict(_build.LAUNCH_COUNTS)
+    assert E.CAPTURE_COUNTS["generate_step"] == 1 and eng.capture_ms > 0
+    h = eng.health()
+    assert h["occupancy_max"] == 3 and h["joined_mid_decode"] >= 1
+    ticks = sum(1 for o in eng.stats["occupancy"] if o)
+    if family == "llama":
+        assert launches == {"fused_decode_matmul": 7 * cfg.n_layers
+                            * (ticks + 8), "dequant_matmul": ticks + 8,
+                            "flash_attention": cfg.n_layers * 8}, launches
+    assert len(eng.pool.free_pages) == eng.pool.n_pages
+    for i, p in enumerate(prompts):
+        assert by_rid[i].finished == "max_new"
+        want = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                          lut=st.lut, max_new=int(max_new[i]),
+                          max_len=eng.pool.max_len)[0]
+        assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), (
+            i, by_rid[i].tokens, want)
+
+
+def test_row_draw_is_the_same_on_card_and_cpu(card):
+    """The per-row sampling draw is a pure function of (key, position,
+    logits): the card's tokens are the CPU's for fixed inputs."""
+    g = torch.Generator().manual_seed(3)
+    logits = torch.randn(64, 1000, generator=g) * 2
+    temp = torch.rand(64, generator=g) * 2
+    temp[::5] = 0.0
+    keys = E.fold_in(torch.tensor([E.seed_key(s) for s in range(64)]),
+                     torch.randint(0, 4096, (64,), generator=g))
+    cpu = E.sample_tokens(logits, temp, keys=keys)
+    gpu = E.sample_tokens(logits.to(card), temp.to(card), keys=keys.to(card))
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_engine_reads_only_its_tokens_on_the_host(card):
+    """Under set_sync_debug_mode("error") (any synchronizing op raises) a
+    whole drain, its capture included, synchronizes only where the engine
+    reads a device result: once a tick (the next tokens) and once an
+    admission (the first token)."""
+    cfg = _engine_cfg("llama")
+    st = _card_state(cfg, card)
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+                 max_len=30)
+    prompts, max_new, arrivals = _trace(cfg, card, seed=1)
+    reads = []
+    read = eng._read
+
+    def counted_read(t):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            reads.append(t.shape)
+            return read(t)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    eng._read = counted_read
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _serve_trace(eng, prompts, max_new, arrivals)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ticks = sum(1 for o in eng.stats["occupancy"] if o)
+    assert len(reads) == ticks + len(prompts)
+    assert E.CAPTURE_COUNTS["generate_step"] >= 1

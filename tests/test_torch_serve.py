@@ -144,6 +144,48 @@ def test_decode_graphs_are_kept_per_state_and_released():
     assert len(TE._GRAPHS) == n + 1
 
 
+def test_decode_graph_cache_is_bounded():
+    """generate at eight prompt lengths (eight cache lengths) keeps at most
+    MAX_GRAPHS graphs, so the bytes the kept graphs hold stay at most
+    MAX_GRAPHS times the largest one's; the least recently used goes
+    first, and a repeated call on a kept shape makes no graph."""
+    tcfg = tget_config("llama3.2-1b").smoke
+    st = TE.build_serve_params(TLM.init_lm(tcfg, seed=0, device="cpu"),
+                               CompressionPolicy(min_weight_size=1024),
+                               device="cpu")
+    rng = np.random.default_rng(8)
+
+    def nbytes(g):
+        return sum(t.numel() * t.element_size()
+                   for t in TE._tensors([g.caches, g.tok, g.pos, g.seq]))
+
+    def run(t0):
+        """generate at prompt length t0; → the graph it used."""
+        toks = torch.from_numpy(rng.integers(1, tcfg.vocab_size, (2, t0)))
+        TE.generate(st.params, tcfg, toks, lut=st.lut, max_new=4,
+                    device="cpu")
+        return next(reversed(TE._GRAPHS.values()))
+
+    TE.CAPTURE_COUNTS.clear()
+    graphs = {}
+    for t0 in range(5, 13):
+        graphs[t0] = run(t0)
+        assert len(TE._GRAPHS) <= TE.MAX_GRAPHS
+        assert sum(nbytes(g) for g in TE._GRAPHS.values()) \
+            <= TE.MAX_GRAPHS * nbytes(graphs[t0])
+    kept = list(TE._GRAPHS.values())
+    assert kept == [graphs[t0] for t0 in range(13 - TE.MAX_GRAPHS, 13)]
+    # a kept shape again: the same graph, now the most recently used
+    assert run(13 - TE.MAX_GRAPHS) is kept[0]
+    assert list(TE._GRAPHS.values()) == kept[1:] + kept[:1]
+    # so a new shape evicts the next oldest, not it
+    run(13)
+    assert kept[0] in TE._GRAPHS.values()
+    assert kept[1] not in TE._GRAPHS.values()
+    assert len(TE._GRAPHS) == TE.MAX_GRAPHS
+    assert TE.CAPTURE_COUNTS["decode_loop"] == 0        # the CPU: eager
+
+
 def test_sampled_generate_starts_greedy():
     """Under sampling the first new token is still the prefill's argmax,
     as in the reference (``repro.serve.engine.generate`` samples only in

@@ -1,7 +1,7 @@
 """Where the time of the port's main paths goes on the card.
 
-    python3 tools/profile_decode.py [--model llama|deepseek|both|k1|k2|k4|k5]
-                                    [--src DIR]
+    python3 tools/profile_decode.py
+        [--model llama|deepseek|both|engine|k1|k2|k4|k5] [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
@@ -23,6 +23,16 @@ kernels that the operators of its calls launch, which the tool marks
 with ``record_function`` ranges for the window (``absorb_span_ms``: the
 device-side span of those ranges, the gaps between their kernels
 included).  Prints one JSON line per window.
+
+``--model engine`` profiles request-level serving on Llama-3.2-1B (all 16
+layers): ``serve.scheduler.Engine`` with 4 slots of 232 tokens (pages of
+8), as chip_smoke.py's engine phase builds it, holding chip_smoke.py's 4
+prompts (unpadded).  After the admissions, the capture of the generate
+step and a replayed tick, it profiles 8 ticks at full occupancy (each:
+one host-to-device copy of the step's inputs, a replay of the step's
+graph, the next-token read, the host's retire), then a step that admits
+one request (its batch-1 prefill into the fragment, the insert into its
+pages, and a tick).
 
 ``--model k1`` times the fused decode-matmul kernels alone, at M = 4
 (decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
@@ -106,11 +116,17 @@ MODELS = {"llama": ("llama3.2-1b", None),
           "deepseek": ("deepseek-v2-lite-16b", 8)}    # (arch, layers)
 
 
-def prompts(vocab):
+def requests(vocab):
+    """chip_smoke.py's BATCH prompts (lengths 32–200 from the seed)."""
     rng = np.random.default_rng(SEED)
     lens = rng.integers(32, 201, BATCH)
-    reqs = [rng.integers(0, vocab, int(n)) for n in lens]
-    out = np.zeros((BATCH, int(max(lens))), np.int64)
+    return [rng.integers(0, vocab, int(n)) for n in lens]
+
+
+def prompts(vocab):
+    """:func:`requests` left-padded with 0 into one batch."""
+    reqs = requests(vocab)
+    out = np.zeros((BATCH, max(len(r) for r in reqs)), np.int64)
     for i, r in enumerate(reqs):
         out[i, out.shape[1] - len(r):] = r
     return out
@@ -647,11 +663,37 @@ def time_k4(dev, label):
                       "variants": design, "ptxas": ptxas}), flush=True)
 
 
+def profile_engine(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.context import ServeContext
+    from repro_torch.serve.engine import build_serve_params
+    from repro_torch.serve.scheduler import Engine, Request
+    cfg = get_config("llama3.2-1b").full
+    params = LM.init_lm(cfg, seed=SEED, device=dev)
+    st = build_serve_params(params, CompressionPolicy(), device=dev)
+    del params
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=BATCH,
+                 max_len=232, page_size=8)
+    reqs = requests(cfg.vocab_size)
+    for i, r in enumerate(reqs):
+        eng.submit(Request(tokens=r, max_new=2 * DECODE_STEPS + 4, rid=i))
+    eng.step()            # 4 admissions, an eager tick and the capture
+    eng.step()            # a replayed tick
+    window(cfg.name, f"engine tick x{DECODE_STEPS}",
+           lambda: [eng.step() for _ in range(DECODE_STEPS)])
+    eng.drain()
+    eng.submit(Request(tokens=reqs[0], max_new=2, rid=BATCH))
+    window(cfg.name, "engine admission + tick", eng.step)
+    eng.drain()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model",
-                    choices=["llama", "deepseek", "both", "k1", "k2", "k4",
-                             "k5"],
+                    choices=["llama", "deepseek", "both", "engine", "k1",
+                             "k2", "k4", "k5"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -670,6 +712,9 @@ def main():
         kernel_alone[args.model](dev, args.src)
         return 0
     mark_absorb()
+    if args.model == "engine":
+        profile_engine(dev)
+        return 0
     for model in (("llama", "deepseek") if args.model == "both"
                   else (args.model,)):
         profile_model(model, dev)
