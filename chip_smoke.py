@@ -51,9 +51,19 @@ each in the phases below; the script exits non-zero if any phase fails:
      also under the card's routing, and with K2's SIMT kernel beside its
      tensor-core kernel; the tokens each request routes and keeps
      differently are reported.
+  6. Resilience (``resilience_phase`` on Llama after the engine phase;
+     ``moe_rungs`` on DeepSeek-V2-Lite at 2 layers): the manifest,
+     ``verify_serve_state`` and ``check_invariants`` timed, a flipped code
+     bit named and refused; ``ResilientEngine.generate`` on each rung of
+     the ladder with its launch counts and its tokens against the fused
+     rung's; each rung's prefill and decode step timed; a scheduler drain
+     with a poisoned slot; a request preempted after RESUME_AFTER tokens
+     and resumed, bitwise equal to ``generate``; K4 and K5 at the unfused
+     rung's shapes against their plain versions.  Every other phase must
+     end with the dispatch lever unset and no fallback counted.
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
-``engine`` line for Llama, one JSON
+``engine`` line for Llama, a ``resilience`` line per path, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -108,6 +118,18 @@ FLASH_ATOL_F32 = 1e-4
 #    and every request is held to the bound against a CPU run given the
 #    card's routing.
 E2E_LOGIT_ATOL = 5e-2
+#  * Rungs of the ladder against the fused rung at 16 layers: the same
+#    products summed in another order (K5 in one product, K1 in strips;
+#    materialize in one f32 matmul), each output rounded to bf16, through
+#    16 layers: twice the 2-layer card-vs-CPU bound on the prefill logits;
+#    greedy tokens equal, or first differing where the fused top-2 gap is
+#    within that bound (a near tie).
+RUNG_LOGIT_ATOL = 1e-1
+# The resilience phase's poisoned drain: 4 requests of 8 new tokens
+RES_REQUESTS, RES_NEW = 4, 8
+# the tokens a request has generated when a higher-priority arrival
+# preempts it; it resumes with this many minus one replayed decode steps
+RESUME_AFTER = 128
 
 
 def log(*a):
@@ -827,9 +849,9 @@ def engine_phase(rt, cfg, state, device):
     prefill_s, tick_s = [], []
     prefill = eng._prefill
 
-    def timed_prefill(toks):          # its first-token read synchronizes
+    def timed_prefill(*args):         # its first-token read synchronizes
         t = time.perf_counter()
-        out = prefill(toks)
+        out = prefill(*args)
         prefill_s.append(time.perf_counter() - t)
         return out
 
@@ -919,6 +941,511 @@ def engine_phase(rt, cfg, state, device):
     return info
 
 
+# ---------------------------------------------------------------------------
+# Integrity and the resilience ladder.
+# ---------------------------------------------------------------------------
+
+def unlevered(rt, what: str, failed: list):
+    """A phase other than the resilience phase must end with the dispatch
+    lever unset and no fallback counted."""
+    ops, res = rt["ops"], rt["resilience"]
+    if ops._DEFAULT_IMPL != "auto" or res.FALLBACK_COUNTS:
+        log(f"{what}: lever {ops._DEFAULT_IMPL}, fallbacks "
+            f"{dict(res.FALLBACK_COUNTS)}")
+        failed.append(f"{what}: lever set or fallbacks counted")
+
+
+def counted_run(rt, fn):
+    """fn() with the launch, dispatch, materialize, capture and fallback
+    counters zeroed just before and read just after; → (out, run)."""
+    _build, L, ops, E, R = (rt["_build"], rt["L"], rt["ops"], rt["engine"],
+                            rt["resilience"])
+    counters = (_build.LAUNCH_COUNTS, ops.DISPATCH_COUNTS,
+                L.MATERIALIZE_COUNTS, E.CAPTURE_COUNTS, R.FALLBACK_COUNTS)
+    for c in counters:
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"s": time.perf_counter() - t0,
+                 "launches": dict(_build.LAUNCH_COUNTS),
+                 "dispatch": dict(ops.DISPATCH_COUNTS),
+                 "materialized": dict(L.MATERIALIZE_COUNTS),
+                 "captures": dict(E.CAPTURE_COUNTS),
+                 "fallbacks": dict(R.FALLBACK_COUNTS)}
+
+
+def integrity_checks(rt, state, device, faults):
+    """verify_serve_state fast and full and check_invariants (timed), one
+    seeded code-bit flip named by 'full' and refused by the gate."""
+    I, R = rt["integrity"], rt["resilience"]
+    info = {"manifest_s": state.manifest["build_s"],
+            "manifest_bytes": state.manifest["total_bytes"],
+            "manifest_leaves": len(state.manifest["leaves"])}
+    for level in ("fast", "full"):
+        t0 = time.perf_counter()
+        rep = I.verify_serve_state(state, level=level)
+        info[f"verify_{level}_s"] = time.perf_counter() - t0
+        info[f"verify_{level}_bytes_hashed"] = rep.bytes_hashed
+        if not rep.ok:
+            faults.append(f"verify {level}: {rep.summary()}")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = I.check_invariants(state)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not rep.ok:
+            faults.append(f"check_invariants: {rep.summary()}")
+    info["check_invariants_ms"] = sorted(ms)[1]
+    info["invariant_leaves"] = rep.checked
+    bad, name = rt["FaultInjector"](SEED).flip_bit(state, "", plane="codes")
+    rep = I.verify_serve_state(bad, level="full")
+    info["flipped_leaf"] = name
+    info["flip_named"] = rep.quarantined == [name]
+    try:
+        R.ResilientEngine(None, bad, policy=R.ResiliencePolicy(
+            verify="full"), device=device)
+        info["flip_refused"] = False
+    except I.IntegrityError as e:
+        info["flip_refused"] = e.report.quarantined == [name]
+    R.FALLBACK_COUNTS.clear()         # the refusal's 'integrity_refused'
+    if not (info["flip_named"] and info["flip_refused"]):
+        faults.append(f"flipped code bit in {name}: named "
+                      f"{rep.quarantined}, refused {info['flip_refused']}")
+    return info
+
+
+def top2_gap(rt, cfg, state, ids, toks, row, step):
+    """The fused rung's top-2 logit gap of request ``row`` at decode
+    ``step`` (0: the prefill's token), teacher-forced on ``toks``."""
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=ids.device)
+    b, t0 = ids.shape
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=ids.device)
+    logits, caches = prefill(state.params, state.lut, {"tokens": ids},
+                             caches)
+    for i in range(step):
+        logits, caches = decode_step(state.params, state.lut,
+                                     toks[:, i:i + 1], caches, t0 + i)
+    top = torch.topk(logits[row].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def compare_rung_tokens(rt, cfg, state, ids, fused, got, rung, faults):
+    """``got`` must equal the fused rung's tokens, or first differ at a
+    step where the fused logits' top-2 gap is within RUNG_LOGIT_ATOL (a
+    near tie that the rungs' other order of sums may resolve the other
+    way).  → the report."""
+    diff = torch.nonzero(got != fused)
+    if diff.numel() == 0:
+        return {"tokens_equal": True}
+    row, step = (int(v) for v in diff[torch.argmin(diff[:, 1])])
+    gap = top2_gap(rt, cfg, state, ids, fused, row, step)
+    out = {"tokens_equal": False, "first_diff": [row, step],
+           "fused_top2_gap": gap}
+    if gap > RUNG_LOGIT_ATOL:
+        faults.append(f"{rung} tokens differ from fused at request {row} "
+                      f"step {step}, fused top-2 gap {gap}")
+    return out
+
+
+def check_unfused_kernels(rt, w, lut, device, gen, timer, m_prefill,
+                          launches):
+    """K4 and K5 at the unfused rung's call sites, on the largest Llama
+    projection (w_gate, 8192 × 2048): K4 decodes its planes (bitwise
+    against the plain version, two calls equal); K5 multiplies the decoded
+    weight at M = batch and at the prefill's M (bitwise on integer x,
+    within MATMUL_RTOL on random x).  Timed as CUDA-graph replays with the
+    L2 wiped before each call (planes and weight fit it)."""
+    ddc, dqm = rt["ddc"], rt["dqm"]
+    codes, lits = w.codes, w.literals
+    got = ddc.dict_decode(codes, lits, lut)
+    same = bool(torch.equal(got, ddc.dict_decode_plain(codes, lits, lut))
+                and torch.equal(got, ddc.dict_decode(codes, lits, lut)))
+    if not same:
+        raise AssertionError("K4 on w_gate differs from its plain version "
+                             "or between two calls")
+    nb, slots = codes.shape
+    cap = lits.shape[1]
+    lut_rows = torch.unique(codes[codes != -1]).numel()     # -1: escape
+    moved = (nb * slots * 2 + int(w.nlit.clamp(max=cap).sum()) * 4
+             + lut_rows * lut.shape[1] + nb * slots * 4)
+    b, by = bound_ms(moved, 0.0)
+    k4 = {"name": "dict_decode", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/dict_decode.cu",
+          "replaces": "src/repro/kernels/dict_decode.py:44",
+          "call_site": "unfused rung: ops.decode_dequant_matmul",
+          "bitwise": same, "max_abs_err": 0.0,
+          "timed_at": f"Llama w_gate {tuple(w.shape)}, {nb} blocks of "
+                      f"{slots} slots",
+          "ms": timer.graph_ms([lambda: ddc.dict_decode(codes, lits, lut)],
+                               reps=20, cold=True),
+          "plain_ms": timer.ms(lambda: ddc.dict_decode_plain(codes, lits,
+                                                             lut)),
+          "library_ms": None,
+          "library": "none: no single PyTorch call decodes the dictionary",
+          "bound_ms": b, "bound_by": by, "bytes": moved,
+          "launches": launches.get("dict_decode", 0)}
+    wq = w.materialize_int8(lut)
+    n, k = wq.shape
+    args = (wq, w.scale, w.zero)
+    wb = w.materialize(lut, torch.bfloat16)
+    rows = {}
+    for m in (BATCH, m_prefill):
+        xi = int_x(m, k, gen, device)
+        bit = bool(torch.equal(dqm.dequant_matmul(xi, *args),
+                               dqm.dequant_matmul_plain(xi, *args,
+                                                        torch.bfloat16)))
+        xr = rand_x(m, k, gen, device)
+        yk = dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)
+        yp = dqm.dequant_matmul_plain(xr, *args, torch.float32)
+        err = float((yk - yp).abs().max())
+        tol = MATMUL_RTOL * float(yp.abs().max())
+        if not (bit and err <= tol and torch.isfinite(yk).all()):
+            raise AssertionError(f"K5 on decoded w_gate M={m}: bitwise={bit}"
+                                 f" err={err} tol={tol}")
+        bb, bby = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
+        rows[m] = {"bitwise": bit, "max_abs_err": err,
+                   "ms": timer.graph_ms(
+                       [lambda: dqm.dequant_matmul(xr, *args)], reps=20,
+                       cold=True),
+                   "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
+                       xr, *args, torch.bfloat16)),
+                   "library_ms": timer.graph_ms([lambda: xr @ wb.T],
+                                                reps=20, cold=True),
+                   "bound_ms": bb, "bound_by": bby,
+                   "launch": dequant_launch(dqm, m, n, k)}
+    dec, pre = rows[BATCH], rows[m_prefill]
+    k5 = {"name": "dequant_matmul", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+          "replaces": "src/repro/kernels/dequant_matmul.py:69",
+          "call_site": "unfused rung: ops.decode_dequant_matmul",
+          "bitwise": dec["bitwise"] and pre["bitwise"],
+          "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
+          "timed_at": f"decoded Llama w_gate {n}x{k}, M={BATCH}",
+          "library": "torch.matmul on the bf16 dense weight",
+          **{f: dec[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "launch")},
+          **{f"prefill_{f}": pre[f] for f in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by",
+                                              "launch")},
+          "prefill_timed_at": f"the same weight at M={m_prefill}",
+          "launches": launches.get("dequant_matmul", 0)}
+    return [k4, k5]
+
+
+def ladder_runs(rt, reng, generate):
+    """``generate`` (a ResilientEngine call) three times, counted: clean
+    (the fused rung), under decode_fault(nth=1) (the unfused rung) and
+    under failing(times=2) at the request seam (materialize).  → (runs
+    with their last rung, new tokens), both by rung."""
+    R, FI = rt["resilience"], rt["FaultInjector"]
+    runs, toks = {}, {}
+    toks["fused"], runs["fused"] = counted_run(rt, generate)
+    runs["fused"]["last_rung"] = reng.last_rung
+    with FI(SEED).decode_fault(nth=1):
+        toks["unfused"], runs["unfused"] = counted_run(rt, generate)
+    runs["unfused"]["last_rung"] = reng.last_rung
+    orig = R._generate
+    R._generate = FI(SEED).failing(orig, times=2)
+    try:
+        toks["materialize"], runs["materialize"] = counted_run(rt, generate)
+    finally:
+        R._generate = orig
+    runs["materialize"]["last_rung"] = reng.last_rung
+    return runs, toks
+
+
+def resilience_phase(rt, cfg, state, device, batch, gen, timer, faults):
+    """Llama-3.2-1B at full width: the integrity checks; ResilientEngine
+    .generate clean (fused), under decode_fault(nth=1) (unfused: K4 then
+    K5 for every projection) and under failing(times=2) at the request
+    seam (materialize), each run's counts zeroed before it and read after
+    it, tokens compared with the clean run; each rung's prefill ms and
+    decode ms a step; one scheduler drain with a poisoned slot; one
+    request preempted after RESUME_AFTER tokens and resumed.  → (info,
+    the K4 and K5 rows at the unfused rung's call sites)."""
+    R = rt["resilience"]
+    t_prefill = batch.shape[1]
+    ids = torch.as_tensor(batch, device=device)
+    n = cfg.n_layers
+    info = integrity_checks(rt, state, device, faults)
+    t0 = time.perf_counter()
+    reng = R.ResilientEngine(cfg, state, policy=R.ResiliencePolicy(
+        max_retries=0, verify="fast"), device=device)
+    info["gate_s"] = time.perf_counter() - t0
+
+    def generate():
+        return reng.generate(batch, max_new=MAX_NEW)[:, t_prefill:]
+
+    want = {"fused": {"fused_decode_matmul": 7 * n * MAX_NEW,
+                      "dequant_matmul": MAX_NEW, "flash_attention": n},
+            "unfused": {"dict_decode": 7 * n * MAX_NEW,
+                        "dequant_matmul": (7 * n + 1) * MAX_NEW,
+                        "flash_attention": n},
+            "materialize": {"dequant_matmul": MAX_NEW, "flash_attention": n}}
+    runs, toks = ladder_runs(rt, reng, generate)
+    for rung, run in runs.items():
+        fallbacks = {"fused": {}, "unfused": {"unfused": 1},
+                     "materialize": {"unfused": 1, "materialize": 1}}[rung]
+        if (run["launches"] != want[rung] or set(run["dispatch"]) != {rung}
+                or run["fallbacks"] != fallbacks
+                or run["last_rung"] != rung):
+            faults.append(f"{rung} run: launches {run['launches']} (want "
+                          f"{want[rung]}), dispatch {run['dispatch']}, "
+                          f"fallbacks {run['fallbacks']}, last rung "
+                          f"{run['last_rung']}")
+        if rung != "fused":
+            run.update(compare_rung_tokens(rt, cfg, state, ids,
+                                           toks["fused"], toks[rung], rung,
+                                           faults))
+    if not torch.equal(toks["fused"], rt["generate"](
+            state.params, cfg, batch, lut=state.lut, max_new=MAX_NEW,
+            device=device)[:, t_prefill:]):
+        faults.append("ResilientEngine's fused tokens differ from generate's")
+    info["runs"] = runs
+    info["health"] = {k: v for k, v in reng.health().items()
+                      if k != "dispatch"}
+    info["rungs"] = rung_times(rt, cfg, state, device, ids, faults)
+    info["rung_logit_atol"] = RUNG_LOGIT_ATOL
+    rt["resilience"].FALLBACK_COUNTS.clear()
+    info["engine"] = poisoned_drain(rt, cfg, state, device, faults)
+    info["resume"] = preempted_resume(rt, cfg, state, device, faults)
+    return info
+
+
+def rung_times(rt, cfg, state, device, ids, faults):
+    """Each rung alone (a ladder of one rung): prefill ms (median of 3)
+    and its last-position logits against the fused rung's; decode ms a
+    step from replays of the rung's captured graph (after a prefill)."""
+    R, E, LM = rt["resilience"], rt["engine"], rt["LM"]
+    batch = ids.cpu().numpy()
+    t_prefill = ids.shape[1]
+    rungs, fused_logits = {}, None
+    for rung in ("fused", "unfused", "materialize"):
+        r = R.ResilientEngine(cfg, state, policy=R.ResiliencePolicy(
+            ladder=(rung,)), device=device)
+        pre = []
+        for _ in range(3):
+            caches = LM.init_caches(cfg, BATCH, t_prefill + MAX_NEW,
+                                    device=device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = r.prefill({"tokens": ids}, caches)
+            pre.append((time.perf_counter() - t0) * 1e3)
+        logits = logits.float()
+        if fused_logits is None:
+            fused_logits = logits
+        err = float((logits - fused_logits).abs().max())
+        r.generate(batch, max_new=MAX_NEW)         # captures its graph
+        graph = E.decode_graph(state.params, r._rung_cfg(rung), state.lut,
+                               BATCH, t_prefill + MAX_NEW, device=device)
+        if graph.graph is None:
+            raise AssertionError(f"{rung}: no captured decode graph")
+        graph.prefill(state.params, state.lut, ids)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.decode(state.params, state.lut, MAX_NEW - 1)
+        torch.cuda.synchronize()
+        rungs[rung] = {"prefill_ms": sorted(pre)[1], "prefill_ms_each": pre,
+                       "decode_ms_per_step": (time.perf_counter() - t0)
+                       / (MAX_NEW - 1) * 1e3,
+                       "prefill_logit_max_abs_diff_vs_fused": err}
+        if not (err <= RUNG_LOGIT_ATOL and math.isfinite(err)):
+            faults.append(f"{rung} prefill logits differ from fused by "
+                          f"{err}")
+    return rungs
+
+
+def poisoned_drain(rt, cfg, state, device, faults):
+    """RES_REQUESTS greedy requests through ResilientEngine.scheduler()
+    with slot 1 poisoned from its second step on (slot_fault, on every
+    rung): exactly one request refused; the survivors resumed and bitwise
+    equal to generate of their prompt alone at the pool's length."""
+    R = rt["resilience"]
+    rng = np.random.default_rng(SEED + 2)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, RES_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(k)) for k in lens]
+    reng = R.ResilientEngine(cfg, state, policy=R.ResiliencePolicy(
+        max_retries=0), device=device)
+    eng = reng.scheduler(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                         page_size=ENGINE_PAGE)
+    for i, p in enumerate(prompts):
+        eng.submit(rt["Request"](tokens=p, max_new=RES_NEW, rid=i))
+    R.FALLBACK_COUNTS.clear()
+    t0 = time.perf_counter()
+    with rt["FaultInjector"](SEED).slot_fault(slot=1, nth=2):
+        while not any(c.finished == "refused" for c in eng.completions):
+            eng.step()
+    eng.drain()
+    info = {"requests": RES_REQUESTS, "prompt_lens": lens.tolist(),
+            "max_new": RES_NEW, "drain_s": time.perf_counter() - t0,
+            "fallbacks": dict(R.FALLBACK_COUNTS),
+            "finished": {c.rid: c.finished for c in eng.completions}}
+    refused = [c.rid for c in eng.completions if c.finished == "refused"]
+    survivors_equal, info["survivors"] = [], {}
+    for c in eng.completions:
+        if c.finished != "max_new":
+            continue
+        want = rt["generate"](state.params, cfg, torch.as_tensor(
+            prompts[c.rid])[None], lut=state.lut, max_new=RES_NEW,
+            max_len=eng.pool.max_len, device=device)[0].cpu().numpy()
+        same = bool(np.array_equal(c.tokens, want))
+        survivors_equal.append(same and c.resumed == 1)
+        info["survivors"][c.rid] = {
+            "resumed": c.resumed, "tokens": c.tokens[len(prompts[c.rid]):]
+            .tolist(), "generate": want[len(prompts[c.rid]):].tolist()}
+    info["refused"], info["survivors_equal"] = refused, survivors_equal
+    if not (refused == [1] and len(survivors_equal) == RES_REQUESTS - 1
+            and all(survivors_equal)
+            and info["fallbacks"].get("quarantine") == 1):
+        faults.append(f"poisoned drain: {info}")
+    reng.close()
+    R.FALLBACK_COUNTS.clear()
+    return info
+
+
+def preempted_resume(rt, cfg, state, device, faults):
+    """A request preempted after RESUME_AFTER tokens on a pool of one
+    slot's pages by a higher-priority arrival, then resumed: both
+    completions bitwise equal to generate's.  Times the resume (the
+    prompt's prefill and RESUME_AFTER - 1 replays of the captured batch-1
+    step; cold, with the capture, in the drain, then warm) beside the
+    same steps run eagerly and one prefill of prompt and tokens, and
+    holds the resumed fragment bitwise against the eager steps' cache."""
+    E, LM, R = rt["engine"], rt["LM"], rt["resilience"]
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (PROMPT_MIN, 16)]
+    budgets = (RESUME_AFTER + 8, 4)
+    eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
+                       n_slots=2, max_len=ENGINE_MAX_LEN,
+                       page_size=ENGINE_PAGE,
+                       n_pages=-(-ENGINE_MAX_LEN // ENGINE_PAGE))
+    resumes, prefill = [], eng._prefill
+
+    def timed_prefill(toks, replay=()):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill(toks, replay)
+        torch.cuda.synchronize()
+        if len(replay):
+            resumes.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._prefill = timed_prefill
+    E.CAPTURE_COUNTS.clear()
+    R.FALLBACK_COUNTS.clear()
+    eng.submit(rt["Request"](tokens=prompts[0], max_new=budgets[0], rid=0))
+    for _ in range(RESUME_AFTER - 1):
+        eng.step()
+    out = list(eng._slots[0].out)
+    eng.submit(rt["Request"](tokens=prompts[1], max_new=budgets[1], rid=1,
+                             priority=1))
+    eng.drain()
+    done = {c.rid: c for c in eng.completions}
+    equal = []
+    for rid, p in enumerate(prompts):
+        want = rt["generate"](state.params, cfg, torch.as_tensor(p)[None],
+                              lut=state.lut, max_new=budgets[rid],
+                              max_len=eng.pool.max_len,
+                              device=device)[0].cpu().numpy()
+        equal.append(done[rid].finished == "max_new"
+                     and np.array_equal(done[rid].tokens, want))
+    info = {"prompt_len": len(prompts[0]), "tokens_before": len(out),
+            "replayed_steps": len(out) - 1, "resumed": done[0].resumed,
+            "bitwise_equal_generate": equal,
+            "preempts": R.FALLBACK_COUNTS.get("preempt", 0),
+            "resume_captures": E.CAPTURE_COUNTS["resume_step"]}
+    warm = []
+    for _ in range(3):
+        timed_prefill(prompts[0], out[:-1])
+        warm.append(resumes.pop())
+    toks = np.concatenate([prompts[0], out[:-1]])
+    prefill_fn, decode_step = rt["make_serve_fns"](cfg, device=device)
+    caches = LM.init_caches(cfg, 1, eng.pool.max_len, torch.bfloat16,
+                            device=device)
+    ids = torch.as_tensor(prompts[0], device=device)[None]
+    rep = torch.as_tensor(out[:-1], device=device).reshape(-1, 1, 1)
+    pos = torch.zeros((), dtype=torch.long, device=device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prefill_fn(state.params, state.lut, {"tokens": ids}, caches)
+    pos.fill_(len(prompts[0]))
+    for tok in rep:
+        decode_step(state.params, state.lut, tok, caches, pos)
+        pos.add_(1)
+    torch.cuda.synchronize()
+    info["eager_ms"] = (time.perf_counter() - t) * 1e3
+    same = all(torch.equal(a, b) for a, b in
+               zip(E._tensors(eng._frag), E._tensors(caches)))
+    one = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill_fn(state.params, state.lut, {"tokens": torch.as_tensor(
+            toks, device=device)[None]}, caches)
+        torch.cuda.synchronize()
+        one.append((time.perf_counter() - t) * 1e3)
+    info.update({"cold_ms": resumes[0], "warm_ms": sorted(warm)[1],
+                 "warm_ms_each": warm,
+                 "one_prefill_of_prompt_and_tokens_ms": sorted(one)[1],
+                 "fragment_bitwise_equal_eager": same})
+    if not (all(equal) and info["resumed"] == 1 and info["preempts"] == 1
+            and info["resume_captures"] == 1 and same and len(resumes) == 1):
+        faults.append(f"preempted resume: {info}")
+    eng.close()
+    R.FALLBACK_COUNTS.clear()
+    return info
+
+
+def moe_rungs(rt, device, batch, faults):
+    """DeepSeek-V2-Lite at full width, its dense first layer and one MoE
+    layer: pack (with the manifest), the integrity checks, then
+    ResilientEngine.generate clean (fused: K1, K3, K4), under
+    decode_fault(nth=1) (unfused: the grouped stacks decoded by K4, no K1
+    or K3) and under failing(times=2) (materialize: no K1, K3 or K4),
+    tokens compared with the fused run's."""
+    R = rt["resilience"]
+    cfg = dataclasses.replace(
+        rt["get_config"]("deepseek-v2-lite-16b").full, n_layers=2)
+    state, packing = pack(rt, cfg, device, SEED + 3)
+    info = {"model": cfg.name, "layers": cfg.n_layers, **packing,
+            **integrity_checks(rt, state, device, faults)}
+    t_prefill = batch.shape[1]
+    ids = torch.as_tensor(batch, device=device)
+    reng = R.ResilientEngine(cfg, state, policy=R.ResiliencePolicy(
+        max_retries=0), device=device)
+
+    def generate():
+        return reng.generate(batch, max_new=MAX_NEW)[:, t_prefill:]
+
+    runs, toks = ladder_runs(rt, reng, generate)
+    kernels = {"fused": {"fused_decode_matmul", "grouped_fused_decode_matmul",
+                         "dict_decode", "dequant_matmul", "flash_attention"},
+               "unfused": {"dict_decode", "dequant_matmul",
+                           "flash_attention"},
+               "materialize": {"dequant_matmul", "flash_attention"}}
+    for rung, run in runs.items():
+        if (set(run["launches"]) != kernels[rung]
+                or set(run["dispatch"]) != {rung, "grouped_" + rung}
+                or run["last_rung"] != rung
+                or run["materialized"].get("packed_stacked", 0)):
+            faults.append(f"DeepSeek {rung}: launches {run['launches']}, "
+                          f"dispatch {run['dispatch']}, last rung "
+                          f"{run['last_rung']}, materialized "
+                          f"{run['materialized']}")
+        if rung != "fused":
+            run.update(compare_rung_tokens(rt, cfg, state, ids,
+                                           toks["fused"], toks[rung], rung,
+                                           faults))
+    info["runs"] = runs
+    R.FALLBACK_COUNTS.clear()
+    del state
+    torch.cuda.empty_cache()
+    return info
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -988,6 +1515,24 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     for row in rows:
         row["engine_launches"] = engine.get("launches", {}).get(row["name"],
                                                                 0)
+    unlevered(rt, f"{cfg.name} e2e and engine", failed)
+    res, faults = {}, []
+    try:
+        res = resilience_phase(rt, cfg, state, device, batch, gen, timer,
+                               faults)
+        kernels.extend(dict(row, path=cfg.name) for row in
+                       check_unfused_kernels(
+                           rt, state.params["blocks"][0]["mlp"]["w_gate"],
+                           state.lut, device, gen, timer, BATCH * t_prefill,
+                           res["runs"]["unfused"]["launches"]))
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"resilience {cfg.name} " + json.dumps(res))
+    if faults:
+        log(f"resilience faults: {faults}")
+        failed.append(f"{cfg.name} resilience")
+    rt["resilience"].FALLBACK_COUNTS.clear()
     del state
     torch.cuda.empty_cache()
     try:
@@ -996,6 +1541,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     except Exception:
         traceback.print_exc()
         failed.append(f"{cfg.name} card_vs_cpu")
+    unlevered(rt, f"{cfg.name} card_vs_cpu", failed)
 
 
 def deepseek_path(rt, device, gen, timer, kernels, failed):
@@ -1060,6 +1606,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
     log(f"e2e {cfg.name} " + json.dumps(e2e))
+    unlevered(rt, f"{cfg.name} e2e", failed)
     del state
     torch.cuda.empty_cache()
     try:
@@ -1068,6 +1615,18 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
     except Exception:
         traceback.print_exc()
         failed.append(f"{cfg.name} card_vs_cpu")
+    unlevered(rt, f"{cfg.name} card_vs_cpu", failed)
+    res, faults = {}, []
+    try:
+        res = moe_rungs(rt, device, batch, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"resilience {full.name} " + json.dumps(res))
+    if faults:
+        log(f"resilience faults: {faults}")
+        failed.append(f"{full.name} resilience")
+    rt["resilience"].FALLBACK_COUNTS.clear()
 
 
 def card_vs_cpu(rt, cfg, device, batch, steps):
@@ -1215,7 +1774,11 @@ def main() -> int:
     from repro_torch.serve.engine import (build_serve_params, generate,
                                           make_serve_fns)
     from repro_torch.serve.scheduler import Engine, Request
-    rt = {"fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
+    from repro_torch.core import integrity
+    from repro_torch.serve import resilience
+    from repro_torch.testing import FaultInjector
+    rt = {"integrity": integrity, "resilience": resilience,
+          "FaultInjector": FaultInjector, "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
           "ops": ops, "_build": _build, "engine": engine,
           "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
@@ -1227,6 +1790,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     failed, kernels = [], []
+    t_start = time.perf_counter()
 
     # -- 1. device + build ---------------------------------------------------
     smi = nvidia_smi_line()
@@ -1256,6 +1820,7 @@ def main() -> int:
     for row in kernels:
         row.setdefault("launches", 0)
     log(json.dumps({"kernels": kernels}))
+    log(f"seconds: {time.perf_counter() - t_start:.1f}")
     if failed:
         log(f"FAILED: {failed}")
         return 1

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.dict_decode import dict_decode
+from ..kernels.dict_decode import dict_decode, dict_decode_plain
 from . import blocked_codec as bcdc
 from .codec import find_frequent_sequences
 from .quant import QuantConfig, quantize
@@ -79,17 +79,20 @@ class PackedLinear:
             literals=self.literals.to(device), nlit=self.nlit.to(device),
             scale=self.scale.to(device), zero=self.zero.to(device))
 
-    def materialize_int8(self, lut: torch.Tensor) -> torch.Tensor:
+    def materialize_int8(self, lut: torch.Tensor, *,
+                         plain: bool = False) -> torch.Tensor:
         """Decode to the dense uint8 (..., out, in) weight, for any leading
         dims: blocks decode on their own, so the planes flatten to
-        (-1, slots).  On CUDA planes the dict-decode kernel runs; on CPU
-        planes its plain version."""
+        (-1, slots).  On CUDA planes the dict-decode kernel runs, on CPU
+        planes its plain version; ``plain`` takes the plain version on any
+        device (the ``materialize`` rung, which runs no port kernel)."""
         n, k = self.shape
         lead = tuple(self.codes.shape[:-2])
         slots = self.codes.shape[-1]
         cap, s = self.literals.shape[-2:]
-        flat = dict_decode(self.codes.reshape(-1, slots),
-                           self.literals.reshape(-1, cap, s), lut)
+        decode = dict_decode_plain if plain else dict_decode
+        flat = decode(self.codes.reshape(-1, slots),
+                      self.literals.reshape(-1, cap, s), lut)
         per = self.codes.shape[-2] * slots * s
         flat = flat.reshape(-1, per)[:, : n * k]
         if self.tile_n:
@@ -98,10 +101,11 @@ class PackedLinear:
             w = flat.reshape(-1, n, k)
         return w.reshape(lead + (n, k))
 
-    def materialize(self, lut: torch.Tensor,
-                    dtype=torch.bfloat16) -> torch.Tensor:
-        """Decode + dequantize to the dense weight (any leading dims)."""
-        w = self.materialize_int8(lut).to(torch.float32)
+    def materialize(self, lut: torch.Tensor, dtype=torch.bfloat16, *,
+                    plain: bool = False) -> torch.Tensor:
+        """Decode + dequantize to the dense weight (any leading dims);
+        ``plain`` as in :meth:`materialize_int8`."""
+        w = self.materialize_int8(lut, plain=plain).to(torch.float32)
         return ((w - self.zero) * self.scale).to(dtype)
 
 

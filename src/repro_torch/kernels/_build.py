@@ -142,10 +142,14 @@ def sm_count(device) -> int:
 
 
 def check(err: int, name: str):
-    """Raise on a non-zero CUDA error code returned by a launch."""
+    """Raise ``torch.AcceleratorError`` on a non-zero CUDA error code
+    returned by a launch: the device fault that the resilience ladder and
+    the scheduler's quarantine catch (a bare ``RuntimeError``, which a
+    shape bug also raises, they do not)."""
     if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           "(cudaError_t)")
+        import torch
+        raise torch.AcceleratorError(f"{name}: CUDA launch failed with error "
+                                     f"{err} (cudaError_t)")
 
 
 def cuda_args(*tensors):

@@ -63,11 +63,13 @@ def materialize_weight(w, lut=None, dtype=None):
     """Dense view of any weight container (the MLA absorb, dense or
     int8 expert stacks).  ``dtype=None`` decodes containers to bf16 and
     leaves dense weights as they are.  A CUDA ``PackedLinear`` decodes
-    with the dict-decode kernel."""
+    with the dict-decode kernel, unless the dispatch lever pins the
+    ``materialize`` rung (``ops.plain_decode``)."""
     if isinstance(w, PackedLinear):
         kind = "packed_stacked" if w.codes.ndim > 2 else "packed"
         MATERIALIZE_COUNTS[kind] += 1
-        return w.materialize(lut, torch.bfloat16 if dtype is None else dtype)
+        return w.materialize(lut, torch.bfloat16 if dtype is None else dtype,
+                             plain=ops.plain_decode())
     if isinstance(w, QuantLinear):
         MATERIALIZE_COUNTS["quant"] += 1
         return w.materialize(torch.bfloat16 if dtype is None else dtype)
@@ -82,7 +84,8 @@ def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
                 * w.scale[ids, 0][..., None]).to(torch.bfloat16)
     if isinstance(w, PackedLinear):  # decode then gather (rare path)
         MATERIALIZE_COUNTS["packed"] += 1
-        return w.materialize(lut, torch.bfloat16)[ids]
+        return w.materialize(lut, torch.bfloat16,
+                             plain=ops.plain_decode())[ids]
     return w[ids]
 
 
@@ -90,9 +93,27 @@ def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
 # Norms + RoPE.
 # ---------------------------------------------------------------------------
 
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """The mean of squares over the last dim, (..., 1).
+
+    On the card a row's value must not depend on how many rows share the
+    call (an engine tick's row against ``generate``'s batch of one).
+    PyTorch's CUDA reduction sizes its threads along a row by the number
+    of rows when there are fewer than 16, so it would sum one row alone
+    in another order than the same row in a batch.  So the row is summed
+    in 16 pieces of d/16 first (16 or more outputs: one layout for any
+    number of rows), then its 16 partial sums (16 threads along a row for
+    any number of rows)."""
+    d = xf.shape[-1]
+    if not xf.is_cuda or d % 16:
+        return torch.mean(xf * xf, dim=-1, keepdim=True)
+    part = (xf * xf).reshape(*xf.shape[:-1], 16, d // 16).sum(dim=-1)
+    return part.sum(dim=-1, keepdim=True) * (1.0 / d)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _mean_square(xf)
     return (xf * torch.rsqrt(var + eps) * w.to(torch.float32)).to(x.dtype)
 
 

@@ -7,14 +7,19 @@ engine (counterpart of ``repro.serve``).
     of the same prompt.
   * Fixed batch: ``build_serve_params`` / ``make_serve_fns`` /
     ``generate`` serve one rectangular batch end to end.
+  * Resilience: ``ResilientEngine`` gates on the artifact's integrity and
+    walks the degradation ladder (fused → unfused → materialize) on
+    device faults, for ``generate``, the prefill and the scheduler.
 """
 from .context import ServeContext
 from .engine import (ServeState, build_serve_params, generate,
                      make_serve_fns, sample_tokens)
 from .kv_cache import PagedKVPool
-from .resilience import FALLBACK_COUNTS, ServeRefused
+from .resilience import (FALLBACK_COUNTS, DeadlineExceeded,
+                         ResiliencePolicy, ResilientEngine, ServeRefused)
 from .scheduler import Completion, Engine, Request
 
 __all__ = ["ServeState", "build_serve_params", "make_serve_fns", "generate",
            "sample_tokens", "ServeContext", "Engine", "Request", "Completion",
-           "PagedKVPool", "FALLBACK_COUNTS", "ServeRefused"]
+           "PagedKVPool", "FALLBACK_COUNTS", "ServeRefused",
+           "ResilientEngine", "ResiliencePolicy", "DeadlineExceeded"]

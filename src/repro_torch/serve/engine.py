@@ -20,8 +20,11 @@ Counterpart of ``repro/serve/engine.py`` for one device:
 
 The continuous-batching scheduler (``serve/scheduler.py``) builds on the
 prefill of :func:`make_serve_fns`, :func:`sample_tokens`' per-row mode and
-the capture helpers here.  Not ported yet: ``TiledPackedLinear`` column
-tiles, ``model_shards``, the integrity manifest and the resilience rungs.
+the capture helpers here.  The resilience ladder (``serve/resilience.py``)
+wraps :func:`generate` and frees a failed rung's graphs with
+:func:`drop_graphs`; ``build_serve_params`` records the integrity
+manifest.  Not ported yet: ``TiledPackedLinear`` column tiles and
+``model_shards``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..core.blocked_codec import (TableIndex, build_lut, choose_fused_tiles,
 from ..core.codec import find_frequent_sequences
 from ..core.compressed import (PackedLinear, QuantLinear, stack_packed,
                                quantize_linear)
+from ..core.integrity import build_manifest, leaf_groups
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
 from ..kernels import _build, ops
@@ -65,9 +69,13 @@ class ServeState:
     table: Optional[dict]
     mode: str
     stats: dict
+    # per-plane integrity manifest (core/integrity.py) recorded at pack
+    # time; verify_serve_state re-hashes against it before serving
+    manifest: Optional[dict] = None
 
     def to(self, device) -> "ServeState":
-        """The same artifact with every tensor on ``device``."""
+        """The same artifact with every tensor on ``device`` (the same
+        bytes, so the manifest still holds)."""
         return dataclasses.replace(
             self, params=_map_leaves(self.params, lambda t: t.to(device)),
             lut=self.lut.to(device) if self.lut is not None else None)
@@ -79,37 +87,6 @@ def _map_leaves(node, fn):
     if isinstance(node, list):
         return [_map_leaves(v, fn) for v in node]
     return fn(node)
-
-
-def _leaf_groups(params) -> list:
-    """[(name, [(holder, key), ...]), ...] in the reference's flatten order.
-
-    The reference stacks the layers of ``params["blocks"]``, so each
-    per-layer leaf (e.g. ``['blocks']['attn']['wq']``) is one stacked leaf
-    whose layers are quantized, counted and encoded in layer order, and
-    dict keys flatten sorted.  The table's code order depends on that
-    stream order, so the port walks its per-layer list the same way: a
-    group holds one leaf position across all layers.  Any other list (an
-    MoE model's ``first_blocks``) is a list in the reference too: each
-    element is a tree of its own."""
-    groups = []
-
-    def visit(node, prefix, holders):
-        for key in sorted(node):
-            name = f"{prefix}['{key}']"
-            child = node[key]
-            if isinstance(child, list) and key == "blocks":  # stacked layers
-                visit(child[0], name, child)
-            elif isinstance(child, list):
-                for i, sub in enumerate(child):
-                    visit(sub, f"{name}[{i}]", [sub])
-            elif isinstance(child, dict):
-                visit(child, name, [h[key] for h in holders])
-            else:
-                groups.append((name, [(h, key) for h in holders]))
-
-    visit(params, "", [params])
-    return groups
 
 
 def _unstack_if_one(dense, container):
@@ -135,10 +112,13 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                        qcfg: QuantConfig | None = None,
                        table: dict | None = None,
                        block_weights: int | None = None,
+                       manifest: bool = True,
                        device=None) -> ServeState:
     """Dense → quant/compressed per policy, on ``device`` (the card unless
     the caller passes another).  Planes, table and LUT are byte-equal to
-    the reference's ``build_serve_params`` for the same weights.
+    the reference's ``build_serve_params`` for the same weights, and so is
+    the integrity manifest (``manifest=True``: ``core.integrity.
+    build_manifest``, which records its own seconds as ``build_s``).
 
     A leaf with a leading expert axis, (E, N, K), is quantized per expert
     and encoded expert by expert; its streams join the dictionary in the
@@ -148,7 +128,7 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
     qcfg = qcfg or QuantConfig(bits=policy.bits, granularity="per_channel")
     bw = block_weights or policy.block_weights
     out = _copy_tree(params)
-    groups = _leaf_groups(out)
+    groups = leaf_groups(out)
 
     # Pass 1: decide actions; quantize selected tensors (each expert of a
     # stacked leaf on its own); gather streams.
@@ -215,7 +195,9 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
     if lut is not None:
         n_bytes["compressed"] += lut.numel()
     return ServeState(params=out, lut=lut, table=table, mode=policy.mode,
-                      stats=n_bytes)
+                      stats=n_bytes,
+                      manifest=(build_manifest(out, lut, table) if manifest
+                                else None))
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +516,18 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     graph._finalizers = [weakref.finalize(t, _drop_graph, key, ref)
                          for t in leaves]
     return graph
+
+
+def drop_graphs(cfg) -> int:
+    """Free every kept :class:`DecodeGraph` of configuration ``cfg`` (with
+    its caches and graph pool), so that a later call captures anew.  The
+    resilience ladder drops a rung's graphs when it leaves the rung: a
+    capture that raised leaves a graph with ``graph is None`` behind.
+    → how many were dropped."""
+    keys = [k for k in _GRAPHS if k[0] == cfg]
+    for k in keys:
+        _forget(_GRAPHS.pop(k))
+    return len(keys)
 
 
 @torch.no_grad()

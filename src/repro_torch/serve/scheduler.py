@@ -38,7 +38,9 @@ Fault isolation: when a tick fails with ``ServeRefused`` (raised by the
 ``guard`` hook) or a device fault, the engine bisects the active slots by
 replaying masked sub-batches through the same step, refuses only the
 culprits (``finished='refused'``) and requeues the survivors, which resume
-through a fresh prefill of prompt + generated-so-far.  A device fault
+through a fresh prefill of the prompt and a decode step for each token
+generated before but the last (on the card, replays of one captured
+batch-1 step).  A device fault
 inside a graph replay leaves the CUDA context unusable, so on the card the
 bisection can isolate only faults raised by the guard or by host code.
 Under page pressure (an overcommitted ``n_pages``), the lowest-priority,
@@ -48,7 +50,10 @@ strictly-higher-priority arrival and resumes the same way.
 Parity (the acceptance bar): a request served here, preempted or resumed
 or not, yields tokens bitwise equal to ``engine.generate`` of its prompt
 alone with ``max_len=engine.pool.max_len``, under greedy decoding.  The
-prefill is ``generate``'s closure over the same cache shape; masked cache
+prefill is ``generate``'s closure over the same cache shape, and a resume
+rebuilds its cache by the same prefill and decode steps ``generate`` ran
+(a prefill over the generated tokens would sum them in the prefill
+kernels' order, which on the card is not the decode kernels'); masked cache
 entries (−1e30, whose exp is 0) add nothing whatever stale pages hold;
 and a row's sampling stream folds in its absolute position, so a resume
 at position P draws what the uninterrupted run drew at P.  MoE configs
@@ -58,8 +63,10 @@ expert capacity depends on the batch.  Sampled tokens are the port's own:
 counter-based streams (``engine.sample_tokens``), as the reference's
 engine and its ``generate`` draw differently too.
 
-Not ported yet: the memory-pressure governor and tiered residency, and
-``ResilientEngine.scheduler()``.
+Under ``serve.resilience.ResilientEngine.scheduler()`` the guard walks
+the degradation ladder: each rung runs under its own config, so it gets a
+graph of its own, captured under its own dispatch lever.  Not ported yet:
+the memory-pressure governor and tiered residency.
 """
 from __future__ import annotations
 
@@ -87,6 +94,15 @@ from .resilience import FALLBACK_COUNTS, ServeRefused
 _FAULTS = (ServeRefused, torch.AcceleratorError)
 
 SHED_POLICIES = ("reject-new", "drop-oldest")
+
+
+def _generate_step(engine, cfg, mask: np.ndarray) -> torch.Tensor:
+    """The seam every decode tick and bisection probe crosses, the
+    counterpart of the reference's jitted ``_generate_step`` (which
+    ``testing.faults.FaultInjector.slot_fault`` wraps): ``engine``'s
+    generate step under ``cfg`` for the slots in ``mask``, eager or a
+    replay of its graph.  → the (B,) next tokens on the device."""
+    return engine._launch(cfg, mask)
 
 
 def _unguarded(cfg, call, kind):
@@ -238,7 +254,12 @@ class Engine:
         self._nxt = torch.zeros(b, dtype=torch.int64, device=self.device)
         self._frag = LM.init_caches(self.ctx.cfg, 1, self.pool.max_len,
                                     dtype, device=self.device)
+        # a resume's decode steps on the fragment: their token and position
+        self._rtok = torch.zeros((1, 1), dtype=torch.int64,
+                                 device=self.device)
+        self._rpos = torch.zeros((), dtype=torch.int64, device=self.device)
         self._graphs: dict = {}        # cfg -> (CUDA graph, step counts)
+        self._resume_graphs: dict = {}     # the same, for the resume step
         self.capture_ms = None
 
     def reset_stats(self) -> None:
@@ -347,6 +368,7 @@ class Engine:
         """Drop the captured step graphs and their memory pools
         (idempotent); a later tick captures again."""
         self._graphs.clear()
+        self._resume_graphs.clear()
 
     def __enter__(self) -> "Engine":
         return self
@@ -451,19 +473,36 @@ class Engine:
         synchronization."""
         return t.cpu().numpy().copy()
 
-    def _prefill(self, toks: np.ndarray):
-        """Prefill a 1-D token sequence into the engine's fragment (zeroed
-        first: batch 1, ``pool.max_len`` long), through the same prefill
-        and cache shape one-shot ``generate`` uses, so the fragment holds
-        what generate's cache would.  → (greedy first token, fragment)."""
+    def _prefill(self, toks: np.ndarray, replay=()):
+        """Prefill a 1-D prompt into the engine's fragment (zeroed first:
+        batch 1, ``pool.max_len`` long), through the same prefill and
+        cache shape one-shot ``generate`` uses, then run one decode step
+        for each token of ``replay`` (a resumed request's tokens but its
+        last), as generate's decode phase ran them: so the fragment holds
+        what generate's cache would, bit for bit.  On the card those steps
+        are replays of one captured batch-1 step.  → (greedy first token
+        of the prompt, fragment)."""
         ids = upload(np.asarray(toks, np.int64)[None, :], self.device)
+        rep = (upload(np.asarray(replay, np.int64).reshape(-1, 1, 1),
+                      self.device) if len(replay) else None)
 
         def call(cfg):
             for t in _leaves(self._frag):
                 t.zero_()
-            prefill, _ = _engine.make_serve_fns(cfg, device=self.device)
+            prefill, decode_step = _engine.make_serve_fns(cfg,
+                                                          device=self.device)
             logits, _ = prefill(self.params, self.ctx.lut, {"tokens": ids},
                                 self._frag)
+
+            def step():
+                decode_step(self.params, self.ctx.lut, self._rtok,
+                            self._frag, self._rpos)
+                self._rpos.add_(1)
+
+            self._rpos.fill_(len(toks))
+            for i in range(len(replay)):
+                self._rtok.copy_(rep[i])
+                self._graphed(self._resume_graphs, cfg, step, "resume_step")
             return _engine.sample_tokens(logits)
 
         tok0 = int(self._read(self.guard(call, "prefill"))[0])
@@ -472,10 +511,11 @@ class Engine:
     def _admit(self) -> List[Completion]:
         """Move queued requests into free slots (prefill → insert).
 
-        Fresh requests prefill their prompt; resumes prefill prompt +
-        out[:-1], so the cache holds what the uninterrupted run's held,
-        and continue from their last token at the same position.  A
-        request whose prefill itself faults is refused alone."""
+        Fresh requests prefill their prompt; resumes prefill the prompt
+        and decode out[:-1], so the cache holds what the uninterrupted
+        run's held, and continue from their last token at the same
+        position.  A request whose prefill itself faults is refused
+        alone."""
         done: List[Completion] = []
         while self._queue:
             free = [i for i, s in enumerate(self._slots) if s is None]
@@ -488,11 +528,8 @@ class Engine:
             p = self._queue.popleft()
             req = p.req
             resume = bool(p.out)
-            toks = (np.concatenate([req.tokens,
-                                    np.asarray(p.out[:-1], np.int32)])
-                    if resume else req.tokens)
             try:
-                tok0, frag = self._prefill(toks)
+                tok0, frag = self._prefill(req.tokens, p.out[:-1])
             except _FAULTS as e:
                 FALLBACK_COUNTS["quarantine"] += 1
                 self.stats["quarantined"] += 1
@@ -562,21 +599,31 @@ class Engine:
                 self._h_temp[i] = np.float32(
                     max(s.req.temperature, 0.0)).view(np.int32)
         self._dev.copy_(self._host, non_blocking=True)
-        if self.device.type != "cuda":
-            self._step(cfg)
-        elif cfg in self._graphs:
-            _engine.replay_step(*self._graphs[cfg])
-        else:
-            self._step(cfg)
-            graph, counts, self.capture_ms = _engine.capture_step(
-                lambda: self._step(cfg))
-            self._graphs[cfg] = (graph, counts)
-            _engine.CAPTURE_COUNTS["generate_step"] += 1
+        ms = self._graphed(self._graphs, cfg, lambda: self._step(cfg),
+                           "generate_step")
+        if ms is not None:
+            self.capture_ms = ms
         return self._nxt
+
+    def _graphed(self, graphs: dict, cfg, step, kind: str):
+        """Run ``step()``: on the card, a replay of ``graphs[cfg]`` (after
+        one eager step and the capture, counted as ``kind``, the first
+        time); on the CPU, eagerly.  → the capture's host ms, or None."""
+        if self.device.type != "cuda":
+            step()
+        elif cfg in graphs:
+            _engine.replay_step(*graphs[cfg])
+        else:
+            step()
+            graph, counts, ms = _engine.capture_step(step)
+            graphs[cfg] = (graph, counts)
+            _engine.CAPTURE_COUNTS[kind] += 1
+            return ms
+        return None
 
     def _call_with(self, mask: np.ndarray):
         def call(cfg):
-            return self._launch(cfg, mask)
+            return _generate_step(self, cfg, mask)
         call.active = mask
         return call
 

@@ -370,11 +370,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="weight"):        # 2 x for 3
         fdm.grouped_fused_decode_matmul(torch.zeros((2, 4, 64), device=card),
                                         *args, **kw)
+    # a linear-layout stack is no longer refused: it takes the two-step
+    # path, K4 then the dense product, as the tile-major stack does there
     lin, lut_l = pack_expert_stack(ws, tile=None)
-    with pytest.raises(NotImplementedError, match="linear-layout"):
-        ops.grouped_decode_dequant_matmul(torch.zeros((3, 4, 64),
-                                                      device=card), lin,
-                                          lut_l)
+    x3 = torch.ones((3, 4, 64), device=card)
+    linear = ops.grouped_decode_dequant_matmul(x3, lin, lut_l)
+    ops.set_default_impl("unfused")
+    try:
+        assert torch.equal(linear,
+                           ops.grouped_decode_dequant_matmul(x3, pl, lut))
+    finally:
+        ops.set_default_impl("auto")
     codes = torch.zeros((2, 256), dtype=torch.int16, device=card)
     with pytest.raises(ValueError, match="boundary"):      # misaligned
         lits = torch.zeros(2 * 4 + 1, dtype=torch.uint8, device=card)
@@ -652,6 +658,23 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family):
     assert diffs == {k: 0.0 for k in diffs}, diffs
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2048, 512, 64])
+def test_rms_norm_rows_do_not_depend_on_the_batch(card, d, dtype):
+    """rms_norm gives each row the same bits alone as in a batch of 2 to
+    16 rows or of a prefill's 700.  A plain CUDA mean over the row sums it
+    in another order when fewer than 16 rows share the call, which let a
+    long engine run leave generate's tokens at full Llama width (d 2048;
+    512 is MLA's latent norm, 64 a smoke width)."""
+    g = _gen(card, 10)
+    x = (torch.randn((700, 1, d), generator=g, device=card) * 3).to(dtype)
+    w = torch.randn(d, generator=g, device=card)
+    alone = torch.cat([L.rms_norm(x[i:i + 1], w) for i in range(16)])
+    for n in (2, 3, 4, 8, 16):
+        assert torch.equal(L.rms_norm(x[:n], w), alone[:n]), n
+    assert torch.equal(L.rms_norm(x, w)[:16], alone)
+
+
 def _trace(cfg, card, n=8, seed=0):
     """n prompts (lengths 5–20), budgets (3–8) and cumulative Poisson(1.5)
     arrival ticks from a numpy seed."""
@@ -708,6 +731,42 @@ def test_engine_matches_generate_on_card(card, family):
             i, by_rid[i].tokens, want)
 
 
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_resume_replays_one_captured_step_on_card(card, family):
+    """A request preempted after 12 tokens (a pool of one slot's pages)
+    resumes by its prompt's prefill and 11 replays of one captured batch-1
+    decode step, bitwise equal to generate; a second preempted request
+    resumes with no new capture."""
+    from repro_torch.serve.resilience import FALLBACK_COUNTS
+    cfg = _engine_cfg(family)
+    st = _card_state(cfg, card)
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=2,
+                 max_len=32, page_size=8, n_pages=4)
+    rng = np.random.default_rng(5)
+    E.CAPTURE_COUNTS.clear()
+    for rid in (0, 2):
+        low = rng.integers(1, cfg.vocab_size, 8)
+        high = rng.integers(1, cfg.vocab_size, 4)
+        eng.submit(Request(tokens=low, max_new=20, rid=rid))
+        for _ in range(11):
+            eng.step()
+        assert len(eng._slots[0].out) == 12
+        eng.submit(Request(tokens=high, max_new=2, rid=rid + 1, priority=1))
+        eng.drain()
+        by_rid = {c.rid: c for c in eng.completions}
+        assert by_rid[rid].resumed == 1 and by_rid[rid + 1].resumed == 0
+        for r, p, n in ((rid, low, 20), (rid + 1, high, 2)):
+            want = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                              lut=st.lut, max_new=n,
+                              max_len=eng.pool.max_len)[0]
+            assert np.array_equal(by_rid[r].tokens, want.cpu().numpy()), r
+        assert E.CAPTURE_COUNTS["resume_step"] == 1
+    assert eng.health()["preempted"] == 2
+    eng.close()
+    assert not eng._resume_graphs
+    FALLBACK_COUNTS.clear()           # the two preemptions
+
+
 def test_row_draw_is_the_same_on_card_and_cpu(card):
     """The per-row sampling draw is a pure function of (key, position,
     logits): the card's tokens are the CPU's for fixed inputs."""
@@ -753,3 +812,160 @@ def test_engine_reads_only_its_tokens_on_the_host(card):
     ticks = sum(1 for o in eng.stats["occupancy"] if o)
     assert len(reads) == ticks + len(prompts)
     assert E.CAPTURE_COUNTS["generate_step"] >= 1
+
+
+# -- integrity and the resilience ladder ------------------------------------
+
+# The rungs' logits differ by their order of sums (K1 in strips, K5 in one
+# product, f32 SGEMM); a greedy token may differ only where the fused
+# rung's top-2 logits lie within this of each other (a near tie: bf16
+# logits often tie exactly), the stated logit tolerance between rungs.
+RUNG_TIE = 0.1
+
+
+def _same_or_tie(st, cfg, ids, want, got):
+    """New tokens ``got`` equal ``want`` (the fused rung's), or first
+    differ where the fused logits, teacher-forced on ``want``, have a
+    top-2 gap within RUNG_TIE.  → that gap, or None when equal."""
+    t0 = ids.shape[1]
+    want, got = want[:, t0:].to(ids.device), got[:, t0:].to(ids.device)
+    diff = torch.nonzero(got != want)
+    if diff.numel() == 0:
+        return None
+    row, step = (int(v) for v in diff[torch.argmin(diff[:, 1])])
+    prefill, decode_step = make_serve_fns(cfg, device=ids.device)
+    caches = LM.init_caches(cfg, ids.shape[0], t0 + want.shape[1],
+                            device=ids.device)
+    logits, caches = prefill(st.params, st.lut, {"tokens": ids}, caches)
+    for i in range(step):
+        logits, caches = decode_step(st.params, st.lut, want[:, i:i + 1],
+                                     caches, t0 + i)
+    top = torch.topk(logits[row].float(), 2).values
+    gap = float(top[0] - top[1])
+    assert gap <= RUNG_TIE, (row, step, gap, want[row], got[row])
+    return gap
+
+def _rung_run(st, cfg, ids, max_new, rung, device):
+    """generate on one rung of the ladder (a ladder of that rung alone);
+    → (tokens, launch counts, dispatch counts)."""
+    from repro_torch.serve.resilience import ResiliencePolicy, ResilientEngine
+    eng = ResilientEngine(cfg, st, policy=ResiliencePolicy(ladder=(rung,)),
+                          device=device)
+    out, counts = _counted(lambda: eng.generate(ids, max_new=max_new))
+    assert eng.last_rung == rung and ops._DEFAULT_IMPL == "auto"
+    return out, counts[0], counts[1]
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_rungs_give_the_fused_tokens_on_card(card, family):
+    """Each rung of the ladder gives the fused rung's greedy tokens on the
+    card (or differs first at a near tie, ``_same_or_tie``).  The unfused rung launches K4 and then K5 for every compressed
+    projection (and no K1 or K3); the materialize rung launches no port
+    kernel for a compressed weight (only K5 for the int8 LM head and K2
+    at the prefill)."""
+    from repro_torch.serve.resilience import FALLBACK_COUNTS
+    cfg = _card_cfg(family)
+    st = _card_state(cfg, card)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 8),
+                        device=card)
+    max_new = 9
+    fused, fl, fd = _rung_run(st, cfg, ids, max_new, "fused", card)
+    assert set(fd) <= {"fused", "grouped_fused"}
+    assert fl.get("dict_decode", 0) == (cfg.n_layers * max_new
+                                        if family == "deepseek" else 0)
+    for rung in ("unfused", "materialize"):
+        out, launches, dispatch = _rung_run(st, cfg, ids, max_new, rung,
+                                            card)
+        _same_or_tie(st, cfg, ids, fused, out)
+        assert launches.get("fused_decode_matmul", 0) == 0
+        assert launches.get(fdm.GROUPED_NAME, 0) == 0
+        assert launches["flash_attention"] == cfg.n_layers
+        if rung == "unfused":
+            assert launches["dict_decode"] > 0
+            assert launches["dequant_matmul"] == dispatch["unfused"] \
+                + max_new
+            assert set(dispatch) <= {"unfused", "grouped_unfused"}
+            if family == "llama":
+                assert launches["dict_decode"] == 7 * cfg.n_layers * max_new
+        else:
+            assert launches.get("dict_decode", 0) == 0
+            assert launches["dequant_matmul"] == max_new    # the LM head
+            assert set(dispatch) <= {"materialize", "grouped_materialize"}
+    assert not FALLBACK_COUNTS
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_decode_fault_fires_at_the_cpu_tick_on_card(card, family):
+    """A decode fault calibrated on the CPU fires at the same execution on
+    the card, where it falls inside a replay of the captured step: the
+    replay is refused on the host, the ladder serves the request on the
+    unfused rung with the clean tokens (on the card: or a first difference
+    at a near tie, ``_same_or_tie``), and the fused rung's graph is
+    dropped."""
+    from repro_torch.serve.resilience import (FALLBACK_COUNTS,
+                                              ResiliencePolicy,
+                                              ResilientEngine)
+    from repro_torch.testing import FaultInjector
+    cfg = _card_cfg(family)
+    st = _card_state(cfg, card)
+    ids = torch.randint(1, cfg.vocab_size, (2, 11), generator=_gen(card, 9),
+                        device=card)
+    max_new = 8
+    runs = {}
+    for dev, s in (("cpu", st.to("cpu")), ("cuda", st)):
+        x = ids.to(dev)
+        clean = E.generate(s.params, cfg, x, lut=s.lut, max_new=max_new,
+                           device=dev)
+        with FaultInjector().decode_fault(nth=1 << 30) as never:
+            E.generate(s.params, dataclasses.replace(cfg, name="calib"), x,
+                       lut=s.lut, max_new=max_new, device=dev)
+        per_step = never.executions // max_new
+        nth = per_step * 4 + 1            # the first call of step 5
+        rcfg = dataclasses.replace(cfg, name=f"fault-{dev}")
+        eng = ResilientEngine(rcfg, s, policy=ResiliencePolicy(
+            max_retries=0), device=dev)
+        FALLBACK_COUNTS.clear()
+        E.CAPTURE_COUNTS.clear()
+        with FaultInjector().decode_fault(nth=nth) as probe:
+            out = eng.generate(x, max_new=max_new)
+        runs[dev] = (never.executions, probe.executions, eng.last_rung,
+                     dict(FALLBACK_COUNTS))
+        if dev == "cpu":
+            assert torch.equal(out, clean)
+        else:
+            _same_or_tie(s, cfg, x, clean, out)
+        assert not any(k[0] == rcfg for k in E._GRAPHS)
+        if dev == "cuda":
+            # fused: captured, then refused in a replay; unfused: captured
+            assert E.CAPTURE_COUNTS["decode_loop"] == 2
+    assert runs["cpu"] == runs["cuda"], runs
+    assert runs["cuda"][1] == runs["cuda"][0] // max_new * 4 + 1
+    assert runs["cuda"][2:] == ("unfused", {"unfused": 1})
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_check_invariants_reads_the_host_once(card, family):
+    """check_invariants reduces on the card and makes one host read (the
+    stacked flags), counted under set_sync_debug_mode('warn'); its report
+    and a flipped-code report match the CPU's."""
+    import warnings
+    from repro_torch.core import integrity as TI
+    from repro_torch.testing import FaultInjector
+    st = _card_state(_card_cfg(family), card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rep = TI.check_invariants(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert rep.ok and rep.checked > 0 and len(syncs) == 1, syncs
+    assert rep.corrupt == TI.check_invariants(st.to("cpu")).corrupt
+    for level in ("fast", "full"):
+        assert TI.verify_serve_state(st, level=level).ok
+    bad, name = FaultInjector().flip_bit(st, "", plane="codes")
+    got = TI.verify_serve_state(bad, level="full")
+    assert got.quarantined == [name]
+    assert got.corrupt == TI.verify_serve_state(bad.to("cpu")).corrupt

@@ -34,6 +34,7 @@ from repro.core import blocked_codec as jbc
 from repro.core import codec as jcodec
 from repro.core.compressed import pack_expert_stack as jpack_expert_stack
 from repro.core.compressed import pack_linear
+from repro.core.compressed import quantize_linear as jquantize_linear
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
@@ -321,10 +322,23 @@ def test_ops_flatten_leading_dims():
     y2 = ops.decode_dequant_matmul(x, tpl, t["lut"], out_dtype=torch.float32)
     assert torch.equal(y3.reshape(6, 64), y2)
     assert ops.DISPATCH_COUNTS["fused"] >= 2
-    linear = PackedLinear(t["codes"], t["literals"], None, t["scale"],
-                          t["zero"], shape=(64, 64))
-    with pytest.raises(NotImplementedError):
-        ops.decode_dequant_matmul(x, linear, t["lut"])
+    # the same weight in the linear layout (tile_n == 0) is served by the
+    # two-step path (decode, then K5's product): the same exact products
+    # on integer x, so the same bits
+    w = np.round(np.random.default_rng(3).standard_normal((64, 64)) * 3
+                 ).astype(np.float32) / 3
+    table = jcodec.find_frequent_sequences([np.asarray(
+        jquantize_linear(jnp.asarray(w)).values)])
+    lin = pack_linear(jnp.asarray(w), table, jbc.build_lut(table), tile=None)
+    assert lin.tile_n == 0
+    linear = PackedLinear(torch.from_numpy(np.array(lin.codes).view(np.int16)),
+                          torch.from_numpy(np.array(lin.literals)), None,
+                          t["scale"], t["zero"], shape=(64, 64))
+    y_lin = ops.decode_dequant_matmul(
+        x, linear, torch.from_numpy(np.array(jbc.build_lut(table))),
+        out_dtype=torch.float32)
+    assert torch.equal(y_lin, y2)
+    assert ops.DISPATCH_COUNTS["unfused"] == 1
 
 
 def _planes(pl):
