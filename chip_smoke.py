@@ -130,6 +130,15 @@ RES_REQUESTS, RES_NEW = 4, 8
 # the tokens a request has generated when a higher-priority arrival
 # preempts it; it resumes with this many minus one replayed decode steps
 RESUME_AFTER = 128
+# The residency phase (DeepSeek-V2-Lite, 8 layers): (expert-cache capacity
+# a layer, new tokens of the fixed batch); fewer tokens where every step
+# fetches.  K3's cache-stack row is timed at C = RES_CACHE_C.
+RES_CAPACITIES = ((64, 32), (24, 16), (6, 12), (1, 8))
+RES_CACHE_C = 24
+# The governor phase (Llama-3.2-1B): the engine phase's requests under a
+# 'ramp' and an 'oscillate' budget trace of GOV_STEPS steps from the boot
+# pool's bytes down to GOV_LOW_SLOTS slots' pages
+GOV_LOW_SLOTS, GOV_STEPS, GOV_COOLDOWN = 2, 64, 4
 
 
 def log(*a):
@@ -822,6 +831,19 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     return e2e
 
 
+def engine_requests(cfg):
+    """The engine phase's requests from the seed: (prompt lengths, prompts,
+    budgets, cumulative Poisson(1.5) arrival ticks)."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, ENGINE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    budgets = rng.integers(ENGINE_NEW_MIN, ENGINE_NEW_MAX + 1,
+                           ENGINE_REQUESTS)
+    arrivals = np.concatenate([[0], np.cumsum(
+        rng.poisson(1.5, ENGINE_REQUESTS - 1))])
+    return lens, prompts, budgets, arrivals
+
+
 def engine_phase(rt, cfg, state, device):
     """Request-level serving: ENGINE_REQUESTS greedy requests (prompt
     lengths in PROMPT_MIN–PROMPT_MAX and budgets in ENGINE_NEW_MIN–
@@ -836,13 +858,7 @@ def engine_phase(rt, cfg, state, device):
     prefills; no weight materialized; every page back on the free list.
     Raises on any difference; → the numbers."""
     _build, L, ops, E = rt["_build"], rt["L"], rt["ops"], rt["engine"]
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, ENGINE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
-    budgets = rng.integers(ENGINE_NEW_MIN, ENGINE_NEW_MAX + 1,
-                           ENGINE_REQUESTS)
-    arrivals = np.concatenate([[0], np.cumsum(
-        rng.poisson(1.5, ENGINE_REQUESTS - 1))])
+    lens, prompts, budgets, arrivals = engine_requests(cfg)
     eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
                        n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
                        page_size=ENGINE_PAGE)
@@ -1446,6 +1462,424 @@ def moe_rungs(rt, device, batch, faults):
     return info
 
 
+# ---------------------------------------------------------------------------
+# Tiered expert residency and the memory-pressure governor.
+# ---------------------------------------------------------------------------
+
+def zero_counts(rt):
+    """Zero the launch, materialize, dispatch, capture, fallback and
+    residency counters."""
+    for c in (rt["_build"].LAUNCH_COUNTS, rt["L"].MATERIALIZE_COUNTS,
+              rt["ops"].DISPATCH_COUNTS, rt["engine"].CAPTURE_COUNTS,
+              rt["resilience"].FALLBACK_COUNTS,
+              rt["residency"].RESIDENCY_COUNTS):
+        c.clear()
+
+
+def pinned_copy_gb_per_s(device) -> float:
+    """A plain 256 MiB copy from pinned host memory to the card, host clock
+    around it and a synchronize: the fetch rate's yardstick."""
+    src = torch.empty(256 << 20, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty_like(src, device=device)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    return src.numel() / (time.perf_counter() - t0) / 1e9
+
+
+def expert_plane_bytes(params) -> int:
+    """Device bytes of the caller's packed expert stacks (every MoE
+    layer's codes, literals, nlit, scale and zero)."""
+    return sum(t.numel() * t.element_size()
+               for b in params["blocks"] for w in b["moe"]["experts"].values()
+               for t in (w.codes, w.literals, w.nlit, w.scale, w.zero))
+
+
+def residency_phase(rt, cfg, state, device, batch, faults):
+    """DeepSeek-V2-Lite at full width under tiered residency: one
+    ResidencyManager over the packed state (its pinned host store, the
+    manifest checked), then ``generate`` through it (the user's entry
+    point: ``tiered_generate``) of the fixed batch, greedy, at each
+    capacity of RES_CAPACITIES (set_capacity between them), each run's
+    counts zeroed just before it and read just after.  Gates: tokens
+    bitwise equal to the fully resident generate's at the same cache
+    length; no expert plane materialized; every pass's launches (K3 three
+    a MoE layer, K1 six a layer, K4 one a layer, K5 one, K2 one a layer a
+    prefill pass).  → (info, K3's launches over the runs)."""
+    Res, _build, L = rt["residency"], rt["_build"], rt["L"]
+    t_prefill = batch.shape[1]
+    max_len = t_prefill + MAX_NEW
+    want = rt["generate"](state.params, cfg, batch, lut=state.lut,
+                          max_new=MAX_NEW, device=device)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    info = {"model": cfg.name, "layers": cfg.n_layers,
+            "pinned_copy_gb_per_s": pinned_copy_gb_per_s(device),
+            "caller_expert_planes_device_bytes":
+                expert_plane_bytes(state.params)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr = Res.ResidencyManager(state, cfg, capacity=RES_CAPACITIES[0][0])
+    info.update(manager_build_s=time.perf_counter() - t0,
+                bytes_per_expert=mgr.bytes_per_expert,
+                host_store_bytes=mgr.bytes_per_expert * n_moe
+                * mgr.n_experts, capacities=[])
+    ctx = rt["ServeContext"](cfg, lut=state.lut, residency=mgr)
+    run, calls = mgr.run, []
+
+    def timed_run(*a, **kw):          # a prefill or decode step, synced
+        t = time.perf_counter()
+        out = run(*a, **kw)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t,
+                      Res.RESIDENCY_COUNTS["replay"]))
+        return out
+
+    join, joins = mgr.join_prefetches, []
+
+    def timed_join():                 # the serving thread's prefetch wait
+        t = time.perf_counter()
+        join()
+        joins.append(time.perf_counter() - t)
+
+    mgr.run, mgr.join_prefetches = timed_run, timed_join
+    k3 = 0
+    try:
+        for cap, n in RES_CAPACITIES:
+            mgr.set_capacity(cap)
+            mgr.reset_stats()
+            calls.clear()
+            joins.clear()
+            zero_counts(rt)
+            torch.cuda.reset_peak_memory_stats(device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rt["generate"](state.params, None, batch, ctx=ctx,
+                                 max_new=n, max_len=max_len)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCH_COUNTS)
+            materialized = dict(L.MATERIALIZE_COUNTS)
+            snap = mgr.snapshot()
+            passes = n + snap["replay"]
+            pre_replays = calls[0][1]
+            decode_s = [t for t, _ in calls[1:]]
+            row = {"capacity": cap, "new_tokens": n,
+                   "bitwise": bool(torch.equal(out, want[:, :t_prefill + n])),
+                   "generate_s": total_s, "prefill_ms": calls[0][0] * 1e3,
+                   "prefill_replays": pre_replays,
+                   "decode_ms_per_step": (float(np.mean(decode_s)) * 1e3
+                                          if decode_s else None),
+                   "decode_ms_each": [t * 1e3 for t in decode_s],
+                   "hits": snap["hit"], "misses": snap["miss"],
+                   "prefetch_hits": snap["prefetch_hit"],
+                   "prefetch_installed": snap["prefetch_installed"],
+                   "replays": snap["replay"], "evictions": snap["evict"],
+                   "sync_fetches": snap["sync_fetch"],
+                   "bytes_fetched": snap["bytes_fetched"],
+                   "stall_s": mgr.stall_s, "crc_s": mgr.crc_s,
+                   "prefetch_crc_s": mgr.prefetch_crc_s,
+                   "prefetch_join_s": sum(joins),
+                   "passes": passes,
+                   "demand_fetch_gb_per_s": (
+                       snap["sync_fetch"] * mgr.bytes_per_expert
+                       / mgr.stall_s / 1e9 if mgr.stall_s else None),
+                   "cache_device_bytes": mgr.cache_device_bytes(),
+                   "peak_slots": snap["peak_slots"],
+                   "peak_ready_bytes": snap["peak_ready_bytes"],
+                   "memory_allocated": torch.cuda.memory_allocated(device),
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(device),
+                   "launches": launches, "materialize_counts": materialized}
+            info["capacities"].append(row)
+            k3 += launches.get("grouped_fused_decode_matmul", 0)
+            expect = {"grouped_fused_decode_matmul": 3 * n_moe * passes,
+                      "fused_decode_matmul": 6 * cfg.n_layers * passes,
+                      "dict_decode": cfg.n_layers * passes,
+                      "dequant_matmul": passes,
+                      "flash_attention": cfg.n_layers * (1 + pre_replays)}
+            if not row["bitwise"]:
+                faults.append(f"capacity {cap}: tokens differ from the "
+                              "resident generate's at "
+                              f"{torch.nonzero(out != want[:, :t_prefill + n]).tolist()[:8]}")
+            if launches != expect or materialized.get("packed_stacked", 0):
+                faults.append(f"capacity {cap}: launches {launches} (want "
+                              f"{expect}), materialized {materialized}")
+            if cap < mgr.n_experts and not snap["miss"]:
+                faults.append(f"capacity {cap}: no miss")
+    finally:
+        mgr.close()
+    del mgr, ctx
+    torch.cuda.empty_cache()
+    return info, k3
+
+
+def check_grouped_cache(rt, cfg, state, device, gen, timer, c=RES_CACHE_C):
+    """K3 on C-slot cache stacks (C of the first MoE layer's 64 experts in
+    a seeded order, its three stacks) at a decode step's cap, planned for
+    the layer's 64 experts as the residency manager launches it: bitwise
+    against its plain version on integer x and against the full stack's
+    rows on random x, within MATMUL_RTOL of the plain version on random x;
+    its time (graph replays; the three stacks' planes and bf16 weights
+    past the L2 together), the bound of its bytes, the plain version's
+    time and torch.bmm's on the same bf16 stacks."""
+    fdm, L = rt["fdm"], rt["L"]
+    lut = state.lut
+    experts = state.params["blocks"][0]["moe"]["experts"]
+    e = cfg.n_experts
+    m = L._capacity(BATCH, cfg.top_k, e, cfg.capacity_factor)
+    idx = torch.as_tensor(np.random.default_rng(SEED).permutation(e)[:c],
+                          device=device)
+    agg = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+    worst, rows = 0.0, []
+    for name in ("w_gate", "w_up", "w_down"):
+        w = experts[name]
+        sub = dataclasses.replace(w, **{
+            p: getattr(w, p).index_select(0, idx).contiguous()
+            for p in ("codes", "literals", "nlit", "scale", "zero")})
+        n, k = w.shape
+        args = (sub.codes, sub.literals, lut, sub.scale, sub.zero)
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        xi = torch.randint(-4, 5, (c, m, k), generator=gen, device=device
+                           ).to(torch.bfloat16)
+        same = bool(torch.equal(
+            fdm.grouped_fused_decode_matmul(xi, *args, **kw,
+                                            plan_experts=e),
+            fdm.grouped_fused_decode_matmul_plain(
+                xi, *args, **kw, out_dtype=torch.bfloat16)))
+        xr = torch.randn((e, m, k), generator=gen, device=device
+                         ).to(torch.bfloat16)
+        xs = xr.index_select(0, idx)
+        yk = fdm.grouped_fused_decode_matmul(xs, *args, **kw,
+                                             out_dtype=torch.float32,
+                                             plan_experts=e)
+        full = fdm.grouped_fused_decode_matmul(
+            xr, w.codes, w.literals, lut, w.scale, w.zero, **kw,
+            out_dtype=torch.float32).index_select(0, idx)
+        yp = fdm.grouped_fused_decode_matmul_plain(xs, *args, **kw,
+                                                   out_dtype=torch.float32)
+        err = float((yk - yp).abs().max())
+        tol = MATMUL_RTOL * float(yp.abs().max())
+        rows_equal = bool(torch.equal(yk, full))
+        worst = max(worst, err)
+        if not (same and rows_equal and err <= tol
+                and torch.isfinite(yk).all()):
+            raise AssertionError(f"K3 cache stack {name} C={c} M={m}: "
+                                 f"bitwise={same} rows equal to the full "
+                                 f"stack's={rows_equal} err={err} tol={tol}")
+        wbt = sub.materialize(lut, torch.bfloat16).transpose(1, 2)
+        b, by = bound_ms(nbytes(xs, lut) + plane_bytes(sub) + c * m * n * 2,
+                         2.0 * c * m * n * k)
+        t = {"stack": name, "C": c, "N": n, "K": k, "M": m,
+             "bitwise": same, "rows_equal_full_stack": rows_equal,
+             "max_abs_err": err,
+             "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
+                 xs, *args, **kw, plan_experts=e)] * 4, cold=True),
+             "plain_ms": timer.ms(
+                 lambda: fdm.grouped_fused_decode_matmul_plain(
+                     xs, *args, **kw, out_dtype=torch.bfloat16)),
+             "library_ms": timer.graph_ms([lambda: torch.bmm(xs, wbt)] * 4,
+                                          cold=True),
+             "bound_ms": b, "bound_by": by,
+             **launch_info(fdm, m, w, e)}
+        rows.append(t)
+        for f in agg:
+            agg[f] += t[f]
+        del wbt
+    return {"name": "grouped_fused_decode_matmul (C-slot cache stack)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
+            "replaces": "src/repro/kernels/fused_decode_matmul.py:202",
+            "bitwise": True, "max_abs_err": worst,
+            "timed_at": f"one MoE layer's 3 cache stacks of C={c} of "
+                        f"{e} experts, decode cap {m}, planned for {e}",
+            "library": "torch.bmm on the materialized bf16 cache stacks",
+            **agg, "bound_by": "bytes"}, rows
+
+
+def governor_phase(rt, cfg, state, device, faults):
+    """Llama-3.2-1B at full width: the engine phase's requests drained
+    through an Engine with no pressure, then under a MemoryGovernor
+    replaying a 'ramp' and an 'oscillate' budget trace (low: GOV_LOW_SLOTS
+    slots' pages) through the injector's pressure seam, each drain's
+    counts zeroed just before it and read just after.  Gates: every
+    request ends as one Completion of an accounted reason; every
+    'max_new' survivor bitwise equal to the unpressured drain's;
+    CAPTURE_COUNTS['generate_step'] <= 1 + plan changes; each reclaim
+    that released a free tail gave its pages' bytes back to the
+    allocator.  → info."""
+    G, P, _build = rt["governor"], rt["policy"], rt["_build"]
+    lens, prompts, budgets, arrivals = engine_requests(cfg)
+    accounted = {"eos", "max_new", "shed", "deadline", "refused", "pressure"}
+
+    def drain(gov):
+        eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut),
+                           state.params, n_slots=ENGINE_SLOTS,
+                           max_len=ENGINE_MAX_LEN, page_size=ENGINE_PAGE,
+                           governor=gov)
+        zero_counts(rt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = 0
+        while done < ENGINE_REQUESTS or eng.health()["occupied"] \
+                or eng.health()["queued"]:
+            while done < ENGINE_REQUESTS and eng.steps >= arrivals[done]:
+                eng.submit(rt["Request"](tokens=prompts[done],
+                                         max_new=int(budgets[done]),
+                                         rid=done))
+                done += 1
+            eng.step()
+        torch.cuda.synchronize()
+        run = {"drain_ms": (time.perf_counter() - t0) * 1e3,
+               "steps": eng.steps,
+               "launches": dict(_build.LAUNCH_COUNTS),
+               "captures": dict(rt["engine"].CAPTURE_COUNTS),
+               "fallbacks": dict(rt["resilience"].FALLBACK_COUNTS),
+               "pool_device_bytes": eng.pool.device_bytes(),
+               "page_nbytes": eng.pool.page_nbytes(),
+               "pages_per_slot": eng.pool.pages_per_slot,
+               "n_pages": eng.pool.n_pages, "page_moves": eng.pool.moves}
+        comps = {}
+        for c in eng.completions:
+            if c.rid in comps:
+                faults.append(f"request {c.rid} completed twice")
+            comps[c.rid] = c
+        eng.close()
+        return run, comps
+
+    base, base_comps = drain(None)
+    info = {"model": cfg.name, "layers": cfg.n_layers,
+            "unpressured": base, "traces": {}}
+    pn, pps = base["page_nbytes"], base["pages_per_slot"]
+    boot = base["n_pages"] * pn
+    for kind, kw in (("ramp", {}), ("oscillate", {"period": 2})):
+        gov = G.MemoryGovernor(P.device_budget(boot, expert_bytes=0,
+                                               kv_bytes=boot),
+                               cooldown_steps=GOV_COOLDOWN)
+        trace = rt["pressure_trace"](kind, boot_bytes=boot,
+                                     low_bytes=GOV_LOW_SLOTS * pps * pn,
+                                     n_steps=GOV_STEPS, seed=SEED, **kw)
+        released, on_step = [], gov.on_step
+
+        def measured(engine, on_step=on_step, released=released):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(device)
+            n = engine.pool.n_pages
+            on_step(engine)
+            torch.cuda.synchronize()
+            if engine.pool.n_pages < n:
+                released.append(
+                    [before - torch.cuda.memory_allocated(device),
+                     (n - engine.pool.n_pages) * pn])
+
+        gov.on_step = measured
+        with rt["FaultInjector"]().memory_pressure(trace):
+            run, comps = drain(gov)
+        reasons = {rid: c.finished for rid, c in comps.items()}
+        survivors = [rid for rid, r in reasons.items() if r == "max_new"]
+        differ = [rid for rid in survivors if not np.array_equal(
+            comps[rid].tokens, base_comps[rid].tokens)]
+        captures = run["captures"].get("generate_step", 0)
+        run.update(plan_changes=gov.plan_changes, reasons=reasons,
+                   survivors=survivors, survivors_not_bitwise=differ,
+                   released_bytes_and_pages_bytes=released,
+                   events=[(e["step"], e["rung"], e["detail"])
+                           for e in gov.events],
+                   rung_latency_s=gov.rung_latency,
+                   trace_low_bytes=GOV_LOW_SLOTS * pps * pn,
+                   boot_bytes=boot)
+        info["traces"][kind] = run
+        if set(reasons) != set(range(ENGINE_REQUESTS)) or not set(
+                reasons.values()) <= accounted:
+            faults.append(f"{kind}: completions {reasons}")
+        if differ or not survivors:
+            faults.append(f"{kind}: survivors {survivors}, not bitwise "
+                          f"equal to the unpressured drain: {differ}")
+        if not 1 <= captures <= 1 + gov.plan_changes:
+            faults.append(f"{kind}: {captures} captures of the tick for "
+                          f"{gov.plan_changes} plan changes")
+        if any(a != b for a, b in released):
+            faults.append(f"{kind}: released (allocator drop, pages' "
+                          f"bytes) {released}")
+    if not any(r["released_bytes_and_pages_bytes"]
+               for r in info["traces"].values()):
+        faults.append("no reclaim released a free tail of the pool")
+    if any(c.finished != "max_new" for c in base_comps.values()):
+        faults.append("unpressured drain: "
+                      f"{[c.finished for c in base_comps.values()]}")
+    rt["resilience"].FALLBACK_COUNTS.clear()
+    return info
+
+
+def governor_moe(rt, device, faults):
+    """DeepSeek-V2-Lite at full width, its dense first layer and one MoE
+    layer, served by an Engine under a ResidencyManager (capacity 8) and
+    a MemoryGovernor: a budget cut of 5 experts' bytes a layer trims the
+    expert cache to 3 and pauses prefetch, and no KV page goes; the
+    completions stay bitwise equal to the resident generate's.  → info."""
+    G, P, Res = rt["governor"], rt["policy"], rt["residency"]
+    full = rt["get_config"]("deepseek-v2-lite-16b").full
+    cfg = dataclasses.replace(full, n_layers=2, capacity_factor=float(
+        full.n_experts) / full.top_k)
+    state, packing = pack(rt, cfg, device, SEED + 5)
+    mgr = Res.ResidencyManager(state, cfg, capacity=8)
+    unit = mgr.n_layers * mgr.bytes_per_expert
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in rng.integers(PROMPT_MIN, 64, 2)]
+    probe = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut),
+                         state.params, n_slots=2, max_len=96)
+    kv_boot = probe.pool.n_pages * probe.pool.page_nbytes()
+    del probe
+    gov = G.MemoryGovernor(P.device_budget(
+        kv_boot + 8 * unit, expert_bytes=cfg.n_experts * unit,
+        kv_bytes=kv_boot), cooldown_steps=2)
+    eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut, residency=mgr),
+                       state.params, n_slots=2, max_len=96, governor=gov)
+    zero_counts(rt)
+    for i, p in enumerate(prompts):
+        eng.submit(rt["Request"](tokens=p, max_new=8, rid=i))
+    eng.step()
+    before = mgr.cache_device_bytes()
+    gov.set_budget(kv_boot + 3 * unit)
+    eng.step()
+    fb = dict(rt["resilience"].FALLBACK_COUNTS)
+    info = {"model": cfg.name, "layers": cfg.n_layers, **packing,
+            "unit_bytes": unit, "cache_bytes_before": before,
+            "cache_bytes_after": mgr.cache_device_bytes(),
+            "capacity": mgr.capacity,
+            "prefetch_enabled": mgr.prefetch_enabled,
+            "pages_usable": eng.pool.n_pages_usable,
+            "n_pages": eng.pool.n_pages, "page_moves": eng.pool.moves,
+            "fallbacks": fb}
+    if not (mgr.capacity == 3 and not mgr.prefetch_enabled
+            and eng.pool.n_pages_usable == eng.pool.n_pages
+            and eng.pool.moves == 0 and fb.get("pressure_trim") == 1
+            and not fb.get("pressure_kv_retire")
+            and mgr.cache_device_bytes() == 3 * unit):
+        faults.append(f"DeepSeek governor: {info}")
+    eng.drain()
+    info["residency"] = mgr.snapshot()
+    info["launches"] = dict(rt["_build"].LAUNCH_COUNTS)
+    differ = []
+    for c in eng.completions:
+        want = rt["generate"](state.params, cfg,
+                              torch.as_tensor(prompts[c.rid])[None],
+                              lut=state.lut, max_new=8,
+                              max_len=eng.pool.max_len, device=device)[0]
+        if c.finished != "max_new" or not np.array_equal(
+                c.tokens, want.cpu().numpy()):
+            differ.append(c.rid)
+    info["requests_not_bitwise_equal_to_generate"] = differ
+    if differ or len(eng.completions) != len(prompts):
+        faults.append(f"DeepSeek governor: requests {differ} differ")
+    eng.close()
+    rt["resilience"].FALLBACK_COUNTS.clear()
+    del eng, mgr, state
+    torch.cuda.empty_cache()
+    return info
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -1533,6 +1967,21 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         log(f"resilience faults: {faults}")
         failed.append(f"{cfg.name} resilience")
     rt["resilience"].FALLBACK_COUNTS.clear()
+    gov, faults = {}, []
+    try:
+        gov = governor_phase(rt, cfg, state, device, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"governor {cfg.name} " + json.dumps(gov))
+    if faults:
+        log(f"governor faults: {faults}")
+        failed.append(f"{cfg.name} governor")
+    for row in rows:
+        row["governor_launches"] = {
+            kind: run["launches"].get(row["name"], 0)
+            for kind, run in gov.get("traces", {}).items()}
+    rt["resilience"].FALLBACK_COUNTS.clear()
     del state
     torch.cuda.empty_cache()
     try:
@@ -1583,7 +2032,9 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
                              "wo; shared experts), decode M=4", cold=True)),
         ("dequant_matmul",
          lambda: (check_dequant(rt, state.params["lm_head"], device, gen,
-                                timer), None))),
+                                timer), None)),
+        ("grouped_fused_decode_matmul (C-slot cache stack)",
+         lambda: check_grouped_cache(rt, cfg, state, device, gen, timer))),
         kernels, failed)
     n_moe = cfg.n_layers - cfg.first_dense_layers
     e2e = {}
@@ -1607,6 +2058,24 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     unlevered(rt, f"{cfg.name} e2e", failed)
+    res, faults, k3 = {}, [], 0
+    try:
+        res, k3 = residency_phase(rt, cfg, state, device, batch, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"residency {cfg.name} " + json.dumps(res))
+    if faults:
+        log(f"residency faults: {faults}")
+        failed.append(f"{cfg.name} residency")
+    for row in rows:
+        if row["name"].endswith("(C-slot cache stack)"):
+            row["launches"] = k3
+        else:
+            row["residency_launches"] = sum(
+                c["launches"].get(row["name"], 0)
+                for c in res.get("capacities", []))
+    unlevered(rt, f"{cfg.name} residency", failed)
     del state
     torch.cuda.empty_cache()
     try:
@@ -1626,6 +2095,17 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
     if faults:
         log(f"resilience faults: {faults}")
         failed.append(f"{full.name} resilience")
+    rt["resilience"].FALLBACK_COUNTS.clear()
+    gov, faults = {}, []
+    try:
+        gov = governor_moe(rt, device, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"governor {full.name} " + json.dumps(gov))
+    if faults:
+        log(f"governor faults: {faults}")
+        failed.append(f"{full.name} governor")
     rt["resilience"].FALLBACK_COUNTS.clear()
 
 
@@ -1775,9 +2255,12 @@ def main() -> int:
                                           make_serve_fns)
     from repro_torch.serve.scheduler import Engine, Request
     from repro_torch.core import integrity
-    from repro_torch.serve import resilience
-    from repro_torch.testing import FaultInjector
+    from repro_torch.serve import governor, residency, resilience
+    from repro_torch.core import policy
+    from repro_torch.testing import FaultInjector, pressure_trace
     rt = {"integrity": integrity, "resilience": resilience,
+          "residency": residency, "governor": governor, "policy": policy,
+          "pressure_trace": pressure_trace,
           "FaultInjector": FaultInjector, "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
           "ops": ops, "_build": _build, "engine": engine,
           "get_config": get_config,

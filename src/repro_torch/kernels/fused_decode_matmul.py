@@ -243,10 +243,13 @@ def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
 
 
 def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
-            tile_k, out_dtype):
+            tile_k, out_dtype, plan_experts=None):
     """Check the operands and launch the kernel for E = x.shape[0] weights
     of one shape: x (E, M, K), codes (E, nb, slots), literals
-    (E, nb, cap, 4), scale/zero E·N values → (E, M, N)."""
+    (E, nb, cap, 4), scale/zero E·N values → (E, M, N).  The launch is
+    planned for ``plan_experts`` weights (default E), so that a stack
+    holding some of a layer's experts sums each expert's rows in the order
+    the whole stack would."""
     dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
     n, k = shape
     e, m = x.shape[0], x.shape[1]
@@ -288,7 +291,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
     if m == 0 or e == 0:
         return out
-    plan = launch_plan(m, n, k, tile_k, e, _build.sm_count(dev), slots)
+    plan = launch_plan(m, n, k, tile_k, plan_experts or e,
+                       _build.sm_count(dev), slots)
     splits = plan.splits
     if e * splits > MAX_GRID_Z:
         raise ValueError(f"{name}: {e} weights × {splits} K splits exceed "
@@ -344,7 +348,9 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
 
 def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
                                 shape, tile_n: int, tile_k: int,
-                                out_dtype=torch.bfloat16) -> torch.Tensor:
+                                out_dtype=torch.bfloat16,
+                                plan_experts: int | None = None
+                                ) -> torch.Tensor:
     """K3: y[e] = x[e] @ dequant(decode(codes[e], literals[e])).T for every
     expert of a stacked weight, in one launch.
 
@@ -352,7 +358,14 @@ def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
     (E, nb, slots), literals uint8 (E, nb, cap, 4) with one literal
     capacity for the stack, lut shared; scale/zero (E, N, 1) f32.
     → (E, M, N).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel or raise.
+
+    ``plan_experts``: the expert count the launch is planned for (default
+    E).  :func:`launch_plan` picks the decode kernel's warps and the other
+    kernels' K splits from E, and those fix the order in which an expert's
+    products are summed; a tiered-residency cache stack of C of a layer's
+    experts passes the layer's expert count, so each expert's rows are
+    bitwise those of the whole stack whatever C and the expert's slot."""
     if x.device.type == "cpu":
         return grouped_fused_decode_matmul_plain(
             x, codes, literals, lut, scale, zero, shape=shape,
@@ -361,4 +374,4 @@ def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
         raise ValueError(f"{GROUPED_NAME}: no kernel for device {x.device}")
     return _launch(GROUPED_NAME, x, codes, literals, lut, scale, zero,
                    shape=shape, tile_n=tile_n, tile_k=tile_k,
-                   out_dtype=out_dtype)
+                   out_dtype=out_dtype, plan_experts=plan_experts)

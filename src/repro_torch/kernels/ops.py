@@ -128,10 +128,13 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):
                             q_offset=q_offset)
 
 
-def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16):
+def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16,
+                        plan_experts=None):
     """Grouped expert fused matmul over a stacked tile-major PackedLinear
     (leading expert axis on every plane): xe (E, cap, K) → (E, cap, N), one
-    launch of the grouped kernel.  No probe: callers count."""
+    launch of the grouped kernel, planned for ``plan_experts`` experts
+    (default E: see ``grouped_fused_decode_matmul``).  No probe: callers
+    count."""
     if not packed.tile_n or packed.codes.ndim != 3:
         raise ValueError("grouped_fused_local takes a stacked tile-major "
                          f"PackedLinear, got codes {tuple(packed.codes.shape)}"
@@ -139,11 +142,12 @@ def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16):
     return _grouped(xe, packed.codes, packed.literals, lut, packed.scale,
                     packed.zero, shape=tuple(packed.shape),
                     tile_n=packed.tile_n, tile_k=packed.tile_k,
-                    out_dtype=out_dtype)
+                    out_dtype=out_dtype, plan_experts=plan_experts)
 
 
 def grouped_decode_dequant_matmul(xe, packed, lut, *,
-                                  out_dtype=torch.bfloat16):
+                                  out_dtype=torch.bfloat16,
+                                  plan_experts=None):
     """Per-expert compressed matmul y[e] = x[e] @ W[e].T — the MoE hot
     path.  ``packed``: a stacked PackedLinear (codes (E, nb, slots), scale
     (E, N, 1), …); ``xe`` the capacity-gathered token blocks (E, cap, K).
@@ -151,7 +155,9 @@ def grouped_decode_dequant_matmul(xe, packed, lut, *,
     'grouped_fused').  Otherwise the dense expert stack is decoded,
     dequantized to f32 and multiplied by one f32 einsum: decoded by K4 at
     ``unfused`` and for linear-layout stacks (probe 'grouped_unfused'), by
-    the plain decode at ``materialize`` (probe 'grouped_materialize')."""
+    the plain decode at ``materialize`` (probe 'grouped_materialize').
+    ``plan_experts``: the fused kernel's planned expert count (a tiered
+    cache stack's layer-wide count; default E)."""
     if lut is None or packed.codes.ndim != 3:
         raise ValueError("grouped_decode_dequant_matmul takes a stacked "
                          "PackedLinear and its LUT, got codes "
@@ -159,7 +165,8 @@ def grouped_decode_dequant_matmul(xe, packed, lut, *,
     impl = _DEFAULT_IMPL
     if impl == Impl.AUTO.value and packed.tile_n:
         DISPATCH_COUNTS["grouped_fused"] += 1
-        return grouped_fused_local(xe, packed, lut, out_dtype=out_dtype)
+        return grouped_fused_local(xe, packed, lut, out_dtype=out_dtype,
+                                   plan_experts=plan_experts)
     plain = impl == Impl.MATERIALIZE.value
     DISPATCH_COUNTS["grouped_materialize" if plain
                     else "grouped_unfused"] += 1

@@ -21,6 +21,7 @@ tensor on the host, so it can be captured in a CUDA graph.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import math
 from typing import Any, Optional
 
@@ -509,22 +510,49 @@ def dispatch_tables(expert_ids: torch.Tensor, slot: torch.Tensor,
     return table[:, :cap], gtable[:, :cap]
 
 
-def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
+def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None, *,
+                plan_experts: int | None = None) -> torch.Tensor:
     """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
     compressed stack runs the grouped fused kernel (three launches, dense
-    expert weights never exist); dense and int8 stacks are materialized
-    and multiplied, as in the reference."""
+    expert weights never exist), planned for ``plan_experts`` experts (a
+    tiered cache stack passes the layer's count); dense and int8 stacks
+    are materialized and multiplied, as in the reference."""
     def mm(h, w):
         if isinstance(w, PackedLinear) and w.codes.ndim == 3 \
                 and lut is not None:
-            return ops.grouped_decode_dequant_matmul(h, w, lut,
-                                                     out_dtype=h.dtype)
+            return ops.grouped_decode_dequant_matmul(
+                h, w, lut, out_dtype=h.dtype, plan_experts=plan_experts)
         return torch.einsum("ecx,eyx->ecy", h,
                             materialize_weight(w, lut, h.dtype))
 
     g = mm(xe, experts["w_gate"])
     u = mm(xe, experts["w_up"])
     return mm(_silu_mul(g, u), experts["w_down"])
+
+
+def _expert_weight(w, i: int):
+    """Expert ``i`` of a stacked expert weight (dense, int8 or packed)."""
+    if isinstance(w, (PackedLinear, QuantLinear)):
+        return dataclasses.replace(w, **{
+            f.name: getattr(w, f.name)[i] for f in dataclasses.fields(w)
+            if isinstance(getattr(w, f.name), torch.Tensor)})
+    return w[i]
+
+
+def _expert_scan(experts: Params, xe: torch.Tensor, lut=None) -> torch.Tensor:
+    """The reference's ``moe_expert_scan``: experts one at a time, each
+    one's three weights decoded to dense (``materialize_weight``: the
+    dict-decode kernel, then the dequantize) and multiplied, so at most
+    one expert is dense at once: peak memory is the compressed stacks plus
+    one expert's dense weights."""
+    out = []
+    for i in range(xe.shape[0]):
+        w = {k: materialize_weight(_expert_weight(experts[k], i), lut,
+                                   xe.dtype)
+             for k in ("w_gate", "w_up", "w_down")}
+        g, u = xe[i] @ w["w_gate"].T, xe[i] @ w["w_up"].T
+        out.append(_silu_mul(g, u) @ w["w_down"].T)
+    return torch.stack(out)
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
@@ -542,7 +570,13 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     gates renormalized, capacity slots in token-major order with slots ≥
     cap dropped.  The combine adds each token's gated expert outputs in
     ascending expert order in x's dtype, as the reference's scatter-add
-    does; it is a fixed-order gather and add, never an atomic scatter."""
+    does; it is a fixed-order gather and add, never an atomic scatter.
+
+    ``p["residency"]`` (per-layer ``slot_of_expert`` (E,) and
+    ``expert_of_slot`` (C,) index tensors, set by the tiered-residency
+    manager) marks ``p["experts"]`` as C-slot cache stacks.  With
+    ``cfg.moe_expert_scan`` and no residency, experts are decoded and
+    multiplied one at a time."""
     b, t, d = x.shape
     n_tok = b * t
     e, k = cfg.n_experts, cfg.top_k
@@ -569,7 +603,27 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     table, gtable = dispatch_tables(expert_ids, slot, gate_vals, cap, e)
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    ye = _expert_ffn(p["experts"], xpad[table], lut)        # (e, cap, d)
+    res = p.get("residency")
+    if getattr(cfg, "moe_expert_scan", False) and res is None:
+        ye = _expert_scan(p["experts"], xpad[table], lut)
+    elif res is not None:
+        # Tiered residency: the stacks hold the C cached slots.  Gather
+        # the tokens into slot order (a vacant slot's sentinel e reads the
+        # pad row of the table, whose tokens are the zero row), run the
+        # grouped kernel over the C slots, scatter back to expert order
+        # (an absent expert's sentinel C reads a zero row).  The combine
+        # reads only routed experts, all of them resident when a step
+        # commits (serve/residency.py), so y is the fully resident one.
+        tpad = torch.cat([table, table.new_full((1, cap), n_tok)], dim=0)
+        ye_c = _expert_ffn(p["experts"],
+                           xpad[tpad.index_select(0,
+                                                  res["expert_of_slot"])],
+                           lut, plan_experts=e)             # (C, cap, d)
+        ye = torch.cat([ye_c, ye_c.new_zeros((1, cap, d))], dim=0
+                       ).index_select(0, res["slot_of_expert"])
+    else:
+        ye = _expert_ffn(p["experts"], xpad[table], lut,
+                         plan_experts=e)                    # (e, cap, d)
     contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
     contrib = torch.cat([contrib.reshape(e * cap, d),
                          contrib.new_zeros((1, d))], dim=0)  # last: dropped

@@ -10,6 +10,10 @@ engine (counterpart of ``repro.serve``).
   * Resilience: ``ResilientEngine`` gates on the artifact's integrity and
     walks the degradation ladder (fused → unfused → materialize) on
     device faults, for ``generate``, the prefill and the scheduler.
+  * Memory: ``residency.ResidencyManager`` (tiered expert residency, a
+    pinned host store under a device cache of hot experts) and
+    ``governor.MemoryGovernor`` (trims that cache and the paged KV pool
+    when the device budget moves).
 """
 from .context import ServeContext
 from .engine import (ServeState, build_serve_params, generate,

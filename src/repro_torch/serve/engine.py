@@ -23,7 +23,9 @@ prefill of :func:`make_serve_fns`, :func:`sample_tokens`' per-row mode and
 the capture helpers here.  The resilience ladder (``serve/resilience.py``)
 wraps :func:`generate` and frees a failed rung's graphs with
 :func:`drop_graphs`; ``build_serve_params`` records the integrity
-manifest.  Not ported yet: ``TiledPackedLinear`` column tiles and
+manifest.  Tiered expert residency (``serve/residency.py``) takes over
+:func:`make_serve_fns` and :func:`generate` when the context carries a
+manager.  Not ported yet: ``TiledPackedLinear`` column tiles and
 ``model_shards``.
 """
 from __future__ import annotations
@@ -214,11 +216,25 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
 
     Caches are updated in place and returned.  ``pos`` is an int, a 0-d
     tensor or a per-row (B,) tensor; a tensor is never read on the host.
+    A ``ctx`` with a ``residency`` manager gives the tiered closures
+    (``serve.residency.make_tiered_serve_fns``): each step runs through
+    the manager's fetch/replay protocol.
     """
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
         device = ctx.device
-    device = resolve_device(device)
+        if ctx.residency is not None:
+            from . import residency as _res
+            return _res.make_tiered_serve_fns(
+                ctx if cfg is ctx.cfg else ctx.with_cfg(cfg))
+    return serve_fns(cfg, resolve_device(device))
+
+
+def serve_fns(cfg, device: torch.device, *, routing: bool = False):
+    """The resident (prefill, decode_step) of :func:`make_serve_fns` on
+    ``device``.  ``routing=True`` (MoE family) appends each step's expert
+    ids, (L_moe, B·T, k), to what it returns: the steps the residency
+    manager launches."""
 
     def _last_logits(params, hidden, lut):
         """LM head on the final position only."""
@@ -231,14 +247,14 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
 
     def prefill(params, lut, batch, caches):
         tokens = batch["tokens"].to(device)
-        hidden, new_caches, _ = LM.forward(params, cfg, tokens, caches=caches,
-                                           pos=0, lut=lut, return_hidden=True)
-        return _last_logits(params, hidden, lut), new_caches
+        out = LM.forward(params, cfg, tokens, caches=caches, pos=0, lut=lut,
+                         return_hidden=True, return_routing=routing)
+        return (_last_logits(params, out[0], lut), out[1]) + out[3:]
 
     def decode_step(params, lut, token, caches, pos):
-        logits, new_caches, _ = LM.forward(params, cfg, token.to(device),
-                                           caches=caches, pos=pos, lut=lut)
-        return logits[:, -1], new_caches
+        out = LM.forward(params, cfg, token.to(device), caches=caches,
+                         pos=pos, lut=lut, return_routing=routing)
+        return (out[0][:, -1], out[1]) + out[3:]
 
     return prefill, decode_step
 
@@ -547,10 +563,18 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     captured step (a later call with the same weights and shapes captures
     nothing); on the CPU, the same step run eagerly in a Python loop.  The
     first new token is greedy whatever the temperature, as in the
-    reference; only the decode steps sample."""
+    reference; only the decode steps sample.  A ``ctx`` with a
+    ``residency`` manager serves through ``residency.tiered_generate``
+    (eager steps under the fetch/replay protocol, bitwise equal)."""
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
         lut, device = ctx.lut, ctx.device
+        if ctx.residency is not None:
+            from . import residency as _res
+            return _res.tiered_generate(
+                params, cfg, tokens, ctx=ctx, max_new=max_new,
+                max_len=max_len, temperature=temperature,
+                generator=generator)
     device = resolve_device(device)
     tokens = torch.as_tensor(tokens).to(device)
     if max_new <= 0:

@@ -11,8 +11,9 @@ contiguous-looking cache of length ``max_len``:
     (per-layer K/V, MLA latent planes, an MoE model's ``"first"`` layers)
     pages uniformly, along the axes ``LM.cache_batch_time_axes`` finds.
     The last page is a *sink*, outside the allocator's ids (below).  The
-    page tensors are allocated once and only ever written in place, so a
-    captured step reads them at fixed addresses.
+    page tensors are written in place and rebuilt only by the runtime
+    shrink and regrow (below), so a captured step reads them at fixed
+    addresses until then.
   * ``paged_view``: gather the pool into the per-slot ``(n_slots,
     max_len, ...)`` cache the decode step reads and writes.
   * ``write_token``: scatter each slot's entry at its position back into
@@ -28,8 +29,15 @@ Pages are fungible across slots: ``alloc`` hands out the free list LIFO
 ``n_slots * pages_per_slot`` overcommits the pool: a free slot is then no
 guarantee of free pages, and ``alloc`` raises ``PoolExhausted``.
 
-Not ported: the reference's runtime shrink and regrow (``retire_pages``,
-``restore_pages``), whose only caller is the memory-pressure governor.
+Runtime elasticity (the memory-pressure governor, ``serve/governor.py``):
+``retire_pages`` takes free pages out of circulation, highest ids first,
+and releases a contiguous retired tail from the device (the leaves are
+rebuilt without it, the sink page kept last); ``restore_pages`` returns
+retired pages first and grows fresh zero pages past them.  A release or a
+growth moves every page tensor, so the pool counts it in ``moves``: the
+engine drops its captured tick when that count changes, and the next tick
+captures anew.  A retire that releases nothing leaves every address as it
+was and needs no new capture.
 """
 from __future__ import annotations
 
@@ -135,10 +143,11 @@ def insert_fragment(cfg, page_size: int, pages, fragment,
 class PagedKVPool:
     """Host-side page allocator over a device-resident cache pool.
 
-    ``pages`` is the device state, allocated once at ``n_pages + 1``
-    pages (the last is the sink) and written in place; the page table and
-    the free list are host state, so admission decisions never touch the
-    device."""
+    ``pages`` is the device state, ``n_pages + 1`` pages (the last is the
+    sink), written in place and rebuilt only when the governor releases a
+    retired tail or grows the pool (``moves`` counts those); the page
+    table and the free list are host state, so admission decisions never
+    touch the device."""
 
     def __init__(self, cfg, n_slots: int, max_len: int, *,
                  page_size: int = 8, dtype=torch.bfloat16,
@@ -161,19 +170,89 @@ class PagedKVPool:
         self.page_table = np.zeros((n_slots, self.pages_per_slot), np.int64)
         self.free_pages: List[int] = list(range(self.n_pages))
         self._owned = [False] * n_slots
+        # Runtime elasticity: retired pages are out of circulation but may
+        # still be on the device until the tail they sit in is free and
+        # can be released.  ``moves`` counts rebuilds of the page tensors.
+        self.retired: set = set()
+        self.moves = 0
+
+    @property
+    def n_pages_usable(self) -> int:
+        """Pages in circulation: on the device, less the retired ones."""
+        return self.n_pages - len(self.retired)
 
     def page_nbytes(self) -> int:
         """Device bytes of one page across every cache leaf."""
         return self.device_bytes() // (self.n_pages + 1)
 
     def device_bytes(self) -> int:
-        """Device bytes of the page pool: ``n_pages`` pages and the sink
-        page that inactive slots write to."""
+        """Device bytes of the page pool right now: ``n_pages`` pages and
+        the sink page that inactive slots write to.  Falls when a retired
+        tail is released, grows with ``restore_pages``."""
         return sum(t.numel() * t.element_size() for t in _leaves(self.pages))
 
     def can_alloc(self) -> bool:
         """Whether the free list can back another slot right now."""
         return len(self.free_pages) >= self.pages_per_slot
+
+    # -- runtime shrink and regrow (memory-pressure governor) ----------
+    def retire_pages(self, n: int) -> int:
+        """Take up to ``n`` free pages out of circulation; → how many.
+        Highest ids go first, so the retired set gathers at the pool's
+        tail, and a contiguous retired tail is released from the device.
+        An owned page is never touched: live requests keep their KV, so
+        under pressure the caller preempts (freeing pages) and retires
+        again."""
+        take = sorted(self.free_pages, reverse=True)[:max(0, int(n))]
+        for p in take:
+            self.free_pages.remove(p)
+            self.retired.add(p)
+        self._release_tail()
+        return len(take)
+
+    def restore_pages(self, n: int) -> int:
+        """Return ``n`` pages to circulation (the regrow rung): retired
+        pages still on the device first, then fresh zero pages grown at
+        the tail.  → ``n``."""
+        n = max(0, int(n))
+        back = sorted(self.retired)[:n]
+        for p in back:
+            self.retired.discard(p)
+            self.free_pages.append(p)
+        if n > len(back):
+            self._grow_pages(n - len(back))
+        return n
+
+    def _rebuild_pages(self, n: int, extra: int = 0) -> None:
+        """New page tensors holding pages [0, n), ``extra`` zero pages and
+        the sink; the old tensors are freed with their last reference."""
+        out = []
+        for leaf, (ba, _) in zip(_leaves(self.pages), _axes_leaves(self.cfg)):
+            f = _front(leaf, ba, ba + 1)
+            parts = [f[:n]]
+            if extra:
+                parts.append(f.new_zeros((extra,) + tuple(f.shape[1:])))
+            parts.append(f[-1:])
+            out.append(torch.cat(parts).movedim((0, 1), (ba, ba + 1)))
+        self.pages = _rebuild(self.pages, iter(out))
+        self.moves += 1
+
+    def _release_tail(self) -> None:
+        """Release the contiguous retired tail from the device, if any."""
+        new_n = self.n_pages
+        while (new_n - 1) in self.retired:
+            new_n -= 1
+        if new_n == self.n_pages:
+            return
+        for p in range(new_n, self.n_pages):
+            self.retired.discard(p)
+        self._rebuild_pages(new_n)
+        self.n_pages = new_n
+
+    def _grow_pages(self, extra: int) -> None:
+        self._rebuild_pages(self.n_pages, extra)
+        self.free_pages.extend(range(self.n_pages, self.n_pages + extra))
+        self.n_pages += extra
 
     def alloc(self, slot: int) -> np.ndarray:
         """Claim ``pages_per_slot`` pages for ``slot`` (LIFO reuse)."""
@@ -190,8 +269,9 @@ class PagedKVPool:
 
     def free(self, slot: int) -> None:
         """Return ``slot``'s pages to the free list and point its row at
-        page 0.  Freeing a slot that owns nothing is a safe no-op: the
-        retire, quarantine and preempt paths may each release a slot."""
+        page 0 (after a released tail a stale id would be out of range).
+        Freeing a slot that owns nothing is a safe no-op: the retire,
+        quarantine and preempt paths may each release a slot."""
         if self._owned[slot]:
             self.free_pages.extend(int(p) for p in self.page_table[slot])
             self._owned[slot] = False

@@ -42,8 +42,13 @@ the injector's faults (``testing/faults.py``).
 ``ResilientEngine.scheduler()`` returns a continuous-batching
 ``scheduler.Engine`` whose every prefill and generate step walks the
 ladder through its ``guard`` hook; when even the last rung fails for a
-batched tick, the engine's quarantine bisects the slots.  Not ported yet:
-tiered residency (``residency=``) and the memory-pressure governor.
+batched tick, the engine's quarantine bisects the slots.
+
+``ResilientEngine(residency=...)`` serves under tiered expert residency:
+the manager rides in every context this engine builds, so ``generate``,
+the prefill, the scheduler and every rung share one cache (the unfused and
+materialize rungs decode the fetched cache slots).  A fetch fault raises
+``torch.AcceleratorError`` on the host and walks the same ladder.
 """
 from __future__ import annotations
 
@@ -68,7 +73,11 @@ from .context import ServeContext
 # poisoned request refused out of a batch, 'preempt' per in-flight request
 # evicted under page pressure, 'shed' per request shed by the bounded
 # queue and 'expired' per TTL or deadline expiry, under the reference's
-# names.
+# names.  The memory-pressure governor (serve/governor.py) ticks
+# 'pressure_trim' per expert-cache trim, 'pressure_kv_retire' per page
+# retirement, 'pressure_preempt' per request evicted to shrink the pool,
+# 'pressure_tighten' per admission tightening, 'pressure_refused' per
+# submission refused at its last rung and 'pressure_regrow' per regrow.
 FALLBACK_COUNTS: collections.Counter = collections.Counter()
 
 
@@ -100,9 +109,10 @@ def _generate(params, cfg, tokens, **kw):
     return _engine.generate(params, cfg, tokens, **kw)
 
 
-def _prefill(cfg, params, lut, batch, caches, device=None):
+def _prefill(cfg, params, lut, batch, caches, device=None, residency=None):
     """Seam mirroring :func:`_generate` for the prefill."""
-    prefill, _ = _engine.make_serve_fns(cfg, device=device)
+    prefill, _ = _engine.make_serve_fns(ctx=ServeContext(
+        cfg=cfg, lut=lut, device=device, residency=residency))
     return prefill(params, lut, batch, caches)
 
 
@@ -113,13 +123,16 @@ class ResilientEngine:
     ``state`` is an ``engine.ServeState`` (or any object with ``params``,
     ``lut``, ``table`` and ``manifest``).  The integrity gate runs once at
     construction per ``policy.verify``; ``generate`` and ``prefill`` then
-    walk the retry, deadline and ladder machinery per request."""
+    walk the retry, deadline and ladder machinery per request.
+    ``residency``: an optional ``serve.residency.ResidencyManager`` built
+    on ``state``, shared by every call and rung."""
 
     def __init__(self, cfg, state, *, policy: ResiliencePolicy | None = None,
-                 device=None):
+                 device=None, residency=None):
         self.cfg = cfg
         self.state = state
         self.device = resolve_device(device)
+        self.residency = residency
         self.policy = policy or ResiliencePolicy()
         self.verify_report = None
         self.invariant_report = None
@@ -212,8 +225,7 @@ class ResilientEngine:
         """``engine.generate`` under the ladder."""
         def make_call(rung):
             cfg = self._rung_cfg(rung)
-            ctx = ServeContext(cfg=cfg, lut=self.state.lut,
-                               device=self.device)
+            ctx = self._context(cfg)
             return lambda: _generate(self.state.params, cfg, tokens,
                                      ctx=ctx, max_new=max_new,
                                      max_len=max_len,
@@ -226,7 +238,8 @@ class ResilientEngine:
         def make_call(rung):
             cfg = self._rung_cfg(rung)
             return lambda: _prefill(cfg, self.state.params, self.state.lut,
-                                    batch, caches, device=self.device)
+                                    batch, caches, device=self.device,
+                                    residency=self.residency)
         return self._with_ladder(make_call, deadline_s=deadline_s)
 
     def _guard(self, call, kind: str):
@@ -245,16 +258,21 @@ class ResilientEngine:
         (``n_slots``, ``max_len``, ``page_size``, ...) pass through; the
         engine is remembered so that :meth:`close` covers it."""
         from .scheduler import Engine
-        ctx = ServeContext(cfg=self.cfg, lut=self.state.lut,
-                           device=self.device)
-        self._scheduler = Engine(ctx, self.state.params, guard=self._guard,
-                                 **engine_kw)
+        self._scheduler = Engine(self._context(self.cfg), self.state.params,
+                                 guard=self._guard, **engine_kw)
         return self._scheduler
 
+    def _context(self, cfg) -> ServeContext:
+        return ServeContext(cfg=cfg, lut=self.state.lut, device=self.device,
+                            residency=self.residency)
+
     def close(self) -> None:
-        """Drop the scheduler's graphs (idempotent)."""
+        """Drop the scheduler's graphs and stop the residency prefetch
+        worker (idempotent)."""
         if self._scheduler is not None:
             self._scheduler.close()
+        elif self.residency is not None:
+            self.residency.close()
 
     def __enter__(self) -> "ResilientEngine":
         return self
@@ -264,8 +282,9 @@ class ResilientEngine:
 
     def health(self) -> dict:
         """Snapshot for operators and CI: the gate's reports, the probe
-        counters, the last rung and the recent errors."""
-        return {
+        counters, the last rung and the recent errors; under tiered
+        residency the manager's snapshot, and with a governor its own."""
+        out = {
             "requests": self.requests,
             "last_rung": self.last_rung,
             "fallbacks": dict(FALLBACK_COUNTS),
@@ -276,3 +295,9 @@ class ResilientEngine:
                            if self.invariant_report else None),
             "recent_errors": self._history[-8:],
         }
+        if self.residency is not None:
+            out["residency"] = self.residency.snapshot()
+        sched = self._scheduler
+        if sched is not None and sched.governor is not None:
+            out["pressure"] = sched.governor.snapshot()
+        return out

@@ -65,8 +65,17 @@ engine and its ``generate`` draw differently too.
 
 Under ``serve.resilience.ResilientEngine.scheduler()`` the guard walks
 the degradation ladder: each rung runs under its own config, so it gets a
-graph of its own, captured under its own dispatch lever.  Not ported yet:
-the memory-pressure governor and tiered residency.
+graph of its own, captured under its own dispatch lever.
+
+Memory: with a ``serve.governor.MemoryGovernor`` attached
+(``Engine(governor=...)``), every ``step()`` first lets it trim or regrow
+the residency cache, retire or restore KV pages (a released or grown tail
+moves the page tensors, and the engine captures its tick anew), preempt,
+tighten ``max_queue`` or refuse new work (``finished='pressure'``).  With
+a ``ResidencyManager`` on the context (tiered expert residency), the
+prefill and every tick run eagerly through the manager's fetch/replay
+protocol (``serve/residency.py``); completions stay bitwise equal to the
+resident engine's.
 """
 from __future__ import annotations
 
@@ -145,7 +154,7 @@ class Completion:
     tokens: np.ndarray
     n_generated: int
     finished: str        # 'eos' | 'max_new' | 'shed' | 'deadline' |
-                         # 'refused'
+                         # 'refused' | 'pressure'
     submitted_step: int
     finished_step: int
     resumed: int = 0     # preempt / quarantine-survivor re-prefills taken
@@ -200,6 +209,8 @@ class Engine:
     ``shed_policy`` picks who sheds on overflow ('reject-new' |
     'drop-oldest'); ``request_ttl`` is the default ``ttl_steps``.
     Requeues from preemption or quarantine are exempt from ``max_queue``.
+    ``governor``: an optional ``serve.governor.MemoryGovernor``, run at
+    the top of every ``step()``.
     """
 
     def __init__(self, ctx: ServeContext, params, *, n_slots: int = 4,
@@ -208,7 +219,7 @@ class Engine:
                  max_queue: Optional[int] = None,
                  shed_policy: str = "reject-new",
                  request_ttl: Optional[int] = None,
-                 n_pages: Optional[int] = None):
+                 n_pages: Optional[int] = None, governor=None):
         if shed_policy not in SHED_POLICIES:
             raise ValueError(f"shed_policy must be one of {SHED_POLICIES}, "
                              f"got {shed_policy!r}")
@@ -228,7 +239,10 @@ class Engine:
         self.steps = 0
         self.completions: List[Completion] = []
         self._init_buffers(dtype)
+        self.governor = governor
         self.reset_stats()
+        if governor is not None:
+            governor.attach(self)
 
     def _init_buffers(self, dtype) -> None:
         """The step's inputs as views of one int64 device buffer, filled
@@ -259,15 +273,24 @@ class Engine:
                                  device=self.device)
         self._rpos = torch.zeros((), dtype=torch.int64, device=self.device)
         self._graphs: dict = {}        # cfg -> (CUDA graph, step counts)
+        self._graphs_moves = self.pool.moves   # the pages _graphs read
         self._resume_graphs: dict = {}     # the same, for the resume step
         self.capture_ms = None
 
     def reset_stats(self) -> None:
-        """Zero the lifecycle counters (after a warm-up drain, say)."""
+        """Zero the lifecycle counters (after a warm-up drain, say); under
+        tiered residency also the manager's counters and
+        ``RESIDENCY_COUNTS``."""
         self.stats = {"admitted": 0, "joined_mid_decode": 0,
                       "occupancy": [], "shed": 0, "expired": 0,
                       "preempted": 0, "quarantined": 0, "resumed": 0,
-                      "queue_peak": 0, "pressure_preempted": 0}
+                      "queue_peak": 0, "pressure_refused": 0,
+                      "pressure_preempted": 0}
+        mgr = self.ctx.residency
+        if mgr is not None:
+            from .residency import RESIDENCY_COUNTS
+            RESIDENCY_COUNTS.clear()
+            mgr.reset_stats()
 
     # -- public API ----------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -303,6 +326,15 @@ class Engine:
                                                    rid=rid),
                            submitted_step=self.steps,
                            submit_time=time.monotonic())
+        if self.governor is not None and self.governor.refusing:
+            # the reclaim ladder's last rung: the budget is below what the
+            # engine can run under, so new work is refused, never queued
+            FALLBACK_COUNTS["pressure_refused"] += 1
+            self.stats["pressure_refused"] += 1
+            self.completions.append(self._completion(
+                pending.req.rid, pending.req.tokens, [], "pressure",
+                pending.submitted_step))
+            return rid
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             if self.shed_policy == "reject-new":
                 self._shed(pending)
@@ -315,7 +347,11 @@ class Engine:
 
     def step(self) -> List[Completion]:
         """One tick: expire → admit → decode one token → retire.  Returns
-        the completions this tick produced."""
+        the completions this tick produced.  An attached governor runs
+        first: the step boundary is the fence where no step is in flight,
+        so it may rebuild the cache stacks and the page tensors."""
+        if self.governor is not None:
+            self.governor.on_step(self)
         done = self._expire()
         done.extend(self._admit())
         occ = [i for i, s in enumerate(self._slots) if s is not None]
@@ -346,7 +382,7 @@ class Engine:
 
     def health(self) -> dict:
         occ = self.stats["occupancy"]
-        return {
+        out = {
             "steps": self.steps,
             "queued": len(self._queue),
             "queue_peak": self.stats["queue_peak"],
@@ -363,12 +399,20 @@ class Engine:
             "quarantined": self.stats["quarantined"],
             "resumed": self.stats["resumed"],
         }
+        if self.ctx.residency is not None:
+            out["residency"] = self.ctx.residency.snapshot()
+        if self.governor is not None:
+            out["pressure"] = self.governor.snapshot()
+        return out
 
     def close(self) -> None:
-        """Drop the captured step graphs and their memory pools
-        (idempotent); a later tick captures again."""
+        """Drop the captured step graphs and their memory pools, and stop
+        the residency prefetch worker (idempotent); a later tick captures
+        again."""
         self._graphs.clear()
         self._resume_graphs.clear()
+        if self.ctx.residency is not None:
+            self.ctx.residency.close()
 
     def __enter__(self) -> "Engine":
         return self
@@ -489,8 +533,8 @@ class Engine:
         def call(cfg):
             for t in _leaves(self._frag):
                 t.zero_()
-            prefill, decode_step = _engine.make_serve_fns(cfg,
-                                                          device=self.device)
+            prefill, decode_step = _engine.make_serve_fns(
+                ctx=self.ctx.with_cfg(cfg))
             logits, _ = prefill(self.params, self.ctx.lut, {"tokens": ids},
                                 self._frag)
 
@@ -569,26 +613,36 @@ class Engine:
         return done
 
     # -- decode --------------------------------------------------------
-    def _step(self, cfg) -> None:
+    def _step(self, cfg, params=None):
         """The generate step on the engine's buffers: what a CUDA graph
         captures.  Writes each active slot's new cache entry into its page
-        and the (B,) next tokens into ``_nxt``."""
+        and the (B,) next tokens into ``_nxt``.  ``params``: a residency
+        manager's served tree, for which the step also returns its
+        routing."""
         pool = self.pool
         view = paged_view(cfg, pool.pages, self._pt)
-        _, decode_step = _engine.make_serve_fns(cfg, device=self.device)
-        logits, _ = decode_step(self.params, self.ctx.lut, self._tok, view,
-                                self._pos)
+        _, decode_step = _engine.serve_fns(cfg, self.device,
+                                           routing=params is not None)
+        logits, _, *routing = decode_step(
+            self.params if params is None else params, self.ctx.lut,
+            self._tok, view, self._pos)
         temp = self._temp.to(torch.int32).view(torch.float32)
         nxt = _engine.sample_tokens(
             logits, temp, keys=_engine.fold_in(self._key, self._pos))
         write_token(cfg, pool.page_size, pool.pages, view, self._pt,
                     self._pos, self._act != 0)
         self._nxt.copy_(nxt)
+        return routing[0] if routing else None
 
     def _launch(self, cfg, mask: np.ndarray) -> torch.Tensor:
         """Fill the buffers for the slots in ``mask`` and run the step:
         on the card, a replay of its graph (after one eager step and the
-        capture, the first time); on the CPU, eagerly.  → next tokens."""
+        capture, the first time, or the first time after the pool's pages
+        moved); on the CPU, eagerly.  Under tiered residency, eagerly
+        through the manager's fetch/replay protocol, the active slots'
+        routing driving the fetches (a replayed pass rewrites each slot's
+        row at its position before reading it, and ``_nxt``).  → next
+        tokens."""
         self._h_pt[:] = self.pool.page_table
         self._h_act[:] = mask
         for i, s in enumerate(self._slots):
@@ -599,6 +653,14 @@ class Engine:
                 self._h_temp[i] = np.float32(
                     max(s.req.temperature, 0.0)).view(np.int32)
         self._dev.copy_(self._host, non_blocking=True)
+        mgr = self.ctx.residency
+        if mgr is not None:
+            mgr.check_params(self.params)
+            mgr.run(lambda dp: (None, self._step(cfg, dp)), active=mask)
+            return self._nxt
+        if self._graphs_moves != self.pool.moves:
+            self._graphs.clear()       # they read the pages' old addresses
+            self._graphs_moves = self.pool.moves
         ms = self._graphed(self._graphs, cfg, lambda: self._step(cfg),
                            "generate_step")
         if ms is not None:
@@ -608,8 +670,10 @@ class Engine:
     def _graphed(self, graphs: dict, cfg, step, kind: str):
         """Run ``step()``: on the card, a replay of ``graphs[cfg]`` (after
         one eager step and the capture, counted as ``kind``, the first
-        time); on the CPU, eagerly.  → the capture's host ms, or None."""
-        if self.device.type != "cuda":
+        time); on the CPU, or under tiered residency (whose steps read
+        their routing on the host), eagerly.  → the capture's host ms, or
+        None."""
+        if self.device.type != "cuda" or self.ctx.residency is not None:
             step()
         elif cfg in graphs:
             _engine.replay_step(*graphs[cfg])

@@ -27,9 +27,16 @@ Counterpart of ``repro/testing/faults.py`` for the port:
     quarantine bisection can isolate it.  ``alloc_failure(times)``: page
     pool exhaustion at ``PagedKVPool.can_alloc`` or ``alloc``.
 
+  * **Memory pressure**: ``pressure_trace(kind, ...)`` builds a seeded
+    per-step budget trace (step, spike, ramp, oscillate), the same arrays
+    as the reference's for the same seed, and ``memory_pressure(trace)``
+    replays it through the ``serve.governor._os_pressure`` seam.
+  * **Residency faults**: ``fetch_fault(times, delay_s)`` breaks (raises
+    ``torch.AcceleratorError``) or slows ``serve.residency._transfer``,
+    the host-to-device seam of every expert fetch and prefetch.
+
 Not ported yet: the checkpoint-damage methods (they wait for the training
-port), ``pressure_trace``, ``memory_pressure`` and ``fetch_fault`` (they
-wait for tiered residency and the governor).
+port).
 
 Seeded from ``REPRO_FAULT_SEED``, as the reference's injector is.
 """
@@ -40,6 +47,7 @@ import contextlib
 import dataclasses
 import itertools
 import os
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -52,6 +60,50 @@ from ..serve.engine import _copy_tree
 
 def _default_seed() -> int:
     return int(os.environ.get("REPRO_FAULT_SEED", "0"))
+
+
+PRESSURE_KINDS = ("step", "spike", "ramp", "oscillate")
+
+
+def pressure_trace(kind: str, *, boot_bytes: int, low_bytes: int,
+                   n_steps: int, period: int = 8,
+                   seed: Optional[int] = None) -> list:
+    """A seeded per-step device-budget trace (bytes), one value per engine
+    step, the reference's arrays for the same arguments:
+
+      * 'step': the budget drops to ``low_bytes`` at a seeded step and
+        stays there;
+      * 'spike': a short seeded window at ``low_bytes``, then recovery;
+      * 'ramp': linear descent to ``low_bytes`` over the first half,
+        linear recovery over the second;
+      * 'oscillate': a square wave between the two levels with period
+        ``period`` and a seeded phase (hysteresis must keep the plan
+        changes bounded by band crossings, not steps).
+
+    Seeded from ``REPRO_FAULT_SEED`` by default."""
+    if kind not in PRESSURE_KINDS:
+        raise ValueError(f"kind must be one of {PRESSURE_KINDS}, "
+                         f"got {kind!r}")
+    rng = np.random.default_rng(_default_seed() if seed is None else seed)
+    boot, low, n = int(boot_bytes), int(low_bytes), int(n_steps)
+    t = np.arange(n)
+    if kind == "step":
+        at = int(rng.integers(1, max(2, n // 4)))
+        vals = np.where(t < at, boot, low)
+    elif kind == "spike":
+        width = max(1, period // 2)
+        at = int(rng.integers(1, max(2, n - width)))
+        vals = np.where((t >= at) & (t < at + width), low, boot)
+    elif kind == "ramp":
+        half = max(1, n // 2)
+        vals = np.concatenate([
+            np.linspace(boot, low, half),
+            np.linspace(low, boot, n - half)]).astype(np.int64)
+    else:                                              # oscillate
+        phase = int(rng.integers(max(1, period)))
+        vals = np.where(((t + phase) // max(1, period)) % 2 == 0,
+                        boot, low)
+    return [int(v) for v in vals]
 
 
 class FaultProbe:
@@ -194,6 +246,72 @@ class FaultInjector:
             ops.decode_dequant_matmul = orig
             _engine.replay_step = orig_replay
             _engine._STEP_COUNTERS = counters
+
+    # -- memory pressure -----------------------------------------------
+    @contextlib.contextmanager
+    def memory_pressure(self, trace, *, hold_last: bool = True):
+        """Replay a budget trace through ``serve.governor._os_pressure``.
+
+        Each governor poll (one per engine step) takes the next value of
+        ``trace`` (bytes); past the end the last value holds unless
+        ``hold_last=False``, after which the seam reports no signal.
+        Yields a :class:`FaultProbe` counting the polls served."""
+        from ..serve import governor as _gov
+
+        orig = _gov._os_pressure
+        probe = FaultProbe()
+        seq = [int(v) for v in trace]
+
+        def patched():
+            i = probe.executions
+            probe.counts["executions"] += 1
+            if i < len(seq):
+                return seq[i]
+            return seq[-1] if (hold_last and seq) else None
+
+        _gov._os_pressure = patched
+        try:
+            yield probe
+        finally:
+            _gov._os_pressure = orig
+
+    # -- residency faults ----------------------------------------------
+    @contextlib.contextmanager
+    def fetch_fault(self, times: int = 1, delay_s: float = 0.0,
+                    message: str = "injected fetch fault"):
+        """Break or slow the host-to-device expert transfer.
+
+        Patches ``serve.residency._transfer``, the seam every demand fetch
+        and prefetch crosses, to raise ``torch.AcceleratorError`` for its
+        first ``times`` crossings (or, with ``delay_s`` > 0, to sleep and
+        then copy: a saturated link, not a dead one).  A demand fetch's
+        fault leaves ``ResidencyManager.run`` and walks the ladder; a
+        prefetch's is counted as ``prefetch_error`` and becomes a later
+        demand miss.  A persistent fault (``times`` huge) ends in refused
+        requests, never a hang.  Yields a :class:`FaultProbe` counting the
+        injected crossings."""
+        from ..serve import residency as _res
+
+        orig = _res._transfer
+        counter = itertools.count()
+        probe = FaultProbe()
+
+        def wrapped(arrays, dst):
+            n = next(counter)
+            if n < times:
+                probe.counts["executions"] += 1
+                if delay_s > 0:
+                    time.sleep(delay_s)
+                    return orig(arrays, dst)
+                raise torch.AcceleratorError(
+                    f"{message} (transfer {n + 1} of {times})")
+            return orig(arrays, dst)
+
+        _res._transfer = wrapped
+        try:
+            yield probe
+        finally:
+            _res._transfer = orig
 
     # -- scheduler faults ----------------------------------------------
     @contextlib.contextmanager

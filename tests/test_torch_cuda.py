@@ -969,3 +969,185 @@ def test_check_invariants_reads_the_host_once(card, family):
     got = TI.verify_serve_state(bad, level="full")
     assert got.quarantined == [name]
     assert got.corrupt == TI.verify_serve_state(bad.to("cpu")).corrupt
+
+
+# -- tiered residency and the governor ---------------------------------------
+
+@pytest.mark.parametrize("n,k", [(1408, 2048), (2048, 1408)])
+def test_k3_on_cache_stacks_equals_the_full_stack_on_card(card, n, k):
+    """K3 over a C-slot stack of experts gathered from DeepSeek-V2-Lite's
+    64-expert stack (its gate/up and down shapes), planned for 64 experts,
+    gives each expert's rows bit for bit as K3 over the full stack, for C
+    in {1, 6, 24, 64} (slots in a seeded order), at M = 4 (the decode
+    kernel) and M = 83 (the prefill cap: the tensor-core kernel).  The
+    plan a launch of C experts alone would take differs from the full
+    stack's (warps, or K splits), which is why the cache passes the
+    layer's expert count."""
+    g = _gen(card, 13)
+    ws = [torch.randn((n, k), generator=g, device=card) * 0.02
+          for _ in range(64)]
+    pl, lut = pack_expert_stack(ws)
+    del ws
+    kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    planes = ("codes", "literals", "scale", "zero")
+    rng = np.random.default_rng(3)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    slots = pl.codes.shape[-1]
+    for m in (4, 83):
+        x = torch.randn((64, m, k), generator=g, device=card
+                        ).to(torch.bfloat16)
+        full = fdm.grouped_fused_decode_matmul(
+            x, *(getattr(pl, p) for p in planes[:2]), lut,
+            *(getattr(pl, p) for p in planes[2:]), **kw,
+            out_dtype=torch.float32)
+        differs = []
+        for c in (1, 6, 24, 64):
+            idx = torch.as_tensor(rng.permutation(64)[:c], device=card)
+            sub = [getattr(pl, p).index_select(0, idx).contiguous()
+                   for p in planes]
+            got = fdm.grouped_fused_decode_matmul(
+                x.index_select(0, idx), sub[0], sub[1], lut, sub[2], sub[3],
+                **kw, out_dtype=torch.float32, plan_experts=64)
+            assert torch.equal(got, full.index_select(0, idx)), (m, c)
+            differs.append(fdm.launch_plan(m, n, k, pl.tile_k, c, sms, slots)
+                           != fdm.launch_plan(m, n, k, pl.tile_k, 64, sms,
+                                              slots))
+        assert any(differs), m
+
+
+def _tiered_state(card):
+    cfg = _engine_cfg("deepseek")
+    return cfg, _card_state(cfg, card)
+
+
+def test_tiered_generate_matches_resident_on_card(card):
+    """generate under a ResidencyManager at capacities {all, half, 1}
+    gives the resident (graphed) generate's tokens bit for bit, greedy and
+    sampled; K3 runs on the cache stacks and no expert plane is
+    materialized; the constrained capacities miss and replay."""
+    from repro_torch.serve.residency import (RESIDENCY_COUNTS,
+                                             ResidencyManager)
+    cfg, st = _tiered_state(card)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 5),
+                        device=card)
+    for temperature in (0.0, 2.0):
+        want = E.generate(st.params, cfg, ids, lut=st.lut, max_new=9,
+                          temperature=temperature, generator=_gen(card, 11))
+        for cap in (cfg.n_experts, cfg.n_experts // 2, 1):
+            RESIDENCY_COUNTS.clear()
+            mgr = ResidencyManager(st, cfg, capacity=cap)
+            ctx = ServeContext(cfg, lut=st.lut, residency=mgr)
+            got, counts = _counted(lambda: E.generate(
+                st.params, None, ids, ctx=ctx, max_new=9,
+                temperature=temperature, generator=_gen(card, 11)))
+            mgr.close()
+            assert torch.equal(got, want), (temperature, cap)
+            assert counts[0]["grouped_fused_decode_matmul"] > 0
+            assert counts[2].get("packed_stacked", 0) == 0
+            if cap < cfg.n_experts:
+                assert RESIDENCY_COUNTS["miss"] > 0
+                assert RESIDENCY_COUNTS["replay"] > 0
+
+
+def test_prefetch_on_the_side_stream_on_card(card):
+    """The prefetch worker copies on its own stream and the serving stream
+    waits on its events: prefetched slots are installed and hit, and the
+    tokens stay bitwise; under a slow link (fetch_fault with delay_s, on
+    every demand fetch and prefetch) too."""
+    from repro_torch.serve.residency import (RESIDENCY_COUNTS,
+                                             ResidencyManager)
+    from repro_torch.testing import FaultInjector
+    cfg, st = _tiered_state(card)
+    ids = torch.randint(1, cfg.vocab_size, (2, 9), generator=_gen(card, 6),
+                        device=card)
+    want = E.generate(st.params, cfg, ids, lut=st.lut, max_new=8)
+    for delay in (0.0, 0.002):
+        RESIDENCY_COUNTS.clear()
+        mgr = ResidencyManager(st, cfg, capacity=2)
+        ctx = ServeContext(cfg, lut=st.lut, residency=mgr)
+        with FaultInjector().fetch_fault(times=1 << 30 if delay else 0,
+                                         delay_s=delay) as probe:
+            got = E.generate(st.params, None, ids, ctx=ctx, max_new=8)
+        assert mgr._side is not None
+        assert mgr._side != torch.cuda.current_stream(card)
+        mgr.close()
+        assert torch.equal(got, want), delay
+        assert RESIDENCY_COUNTS["prefetch_installed"] > 0
+        assert RESIDENCY_COUNTS["prefetch_hit"] > 0
+        assert RESIDENCY_COUNTS["prefetch_error"] == 0
+        assert (probe.executions > 0) == (delay > 0)
+
+
+def test_tiered_engine_matches_generate_on_card(card):
+    """The engine under a ResidencyManager of capacity 2 (its admissions
+    and ticks eager, under fetch/replay): every completion of a staggered
+    trace bitwise equal to generate of its prompt alone; no tick is
+    captured."""
+    from repro_torch.serve.residency import ResidencyManager
+    cfg, st = _tiered_state(card)
+    mgr = ResidencyManager(st, cfg, capacity=2)
+    eng = Engine(ServeContext(cfg, lut=st.lut, residency=mgr), st.params,
+                 n_slots=3, max_len=30)
+    prompts, max_new, arrivals = _trace(cfg, card, n=6, seed=2)
+    E.CAPTURE_COUNTS.clear()
+    by_rid = _serve_trace(eng, prompts, max_new, arrivals)
+    assert not E.CAPTURE_COUNTS
+    assert eng.health()["residency"]["miss"] > 0
+    eng.close()
+    for i, p in enumerate(prompts):
+        want = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                          lut=st.lut, max_new=int(max_new[i]),
+                          max_len=eng.pool.max_len)[0]
+        assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), i
+
+
+def test_pool_shrink_and_regrow_recapture_the_tick_on_card(card):
+    """A ramp trace under a MemoryGovernor: the released tail gives its
+    bytes back to the allocator, each move of the pages drops the
+    engine's graph so the next tick captures anew, captures stay within
+    1 + plan changes, and every survivor equals generate bitwise."""
+    from repro_torch.serve.governor import MemoryGovernor
+    from repro_torch.serve.kv_cache import PagedKVPool
+    from repro_torch.testing import FaultInjector, pressure_trace
+    from repro_torch.core.policy import device_budget
+    cfg = _engine_cfg("llama")
+    st = _card_state(cfg, card)
+    pool = PagedKVPool(cfg, 3, 32, page_size=8, device=card)
+    pn, boot = pool.page_nbytes(), pool.n_pages * pool.page_nbytes()
+    del pool
+    gov = MemoryGovernor(device_budget(boot, expert_bytes=0, kv_bytes=boot),
+                         cooldown_steps=2)
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+                 max_len=32, governor=gov)
+    prompts, max_new, arrivals = _trace(cfg, card, n=6, seed=4)
+    trace = pressure_trace("ramp", boot_bytes=boot, low_bytes=5 * pn,
+                           n_steps=24, seed=1)
+    E.CAPTURE_COUNTS.clear()
+    released = []
+    on_step = gov.on_step
+
+    def measured(engine):
+        torch.cuda.synchronize()
+        before, n = torch.cuda.memory_allocated(card), engine.pool.n_pages
+        on_step(engine)
+        torch.cuda.synchronize()
+        if engine.pool.n_pages < n:
+            released.append((before - torch.cuda.memory_allocated(card),
+                             (n - engine.pool.n_pages) * pn))
+
+    gov.on_step = measured
+    with FaultInjector().memory_pressure(trace):
+        by_rid = _serve_trace(eng, prompts, max_new, arrivals)
+        for _ in range(12):
+            eng.step()
+    assert eng.pool.moves >= 2 and released
+    assert all(got == want for got, want in released), released
+    assert 2 <= E.CAPTURE_COUNTS["generate_step"] <= 1 + gov.plan_changes
+    for i, p in enumerate(prompts):
+        c = by_rid[i]
+        assert c.finished in ("max_new", "eos", "pressure", "shed"), c
+        if c.finished == "max_new":
+            want = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                              lut=st.lut, max_new=int(max_new[i]),
+                              max_len=eng.pool.max_len)[0]
+            assert np.array_equal(c.tokens, want.cpu().numpy()), i

@@ -26,13 +26,15 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 """
 
 
-# modules of the MoE slice, of request-level serving and of integrity and
-# resilience, which the walk below must reach
+# modules of the MoE slice, of request-level serving, of integrity and
+# resilience, and of tiered residency and the governor, which the walk
+# below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
                "repro_torch.serve.scheduler", "repro_torch.core.integrity",
-               "repro_torch.testing.faults")
+               "repro_torch.testing.faults", "repro_torch.serve.residency",
+               "repro_torch.serve.governor", "repro_torch.core.policy")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -45,7 +47,7 @@ assert not missing, missing
 """.format(moe=MOE_MODULES) + _CHECK.format(forbidden=FORBIDDEN)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 33   # every submodule was loaded
+    assert int(out.stdout.split()[-1]) >= 35   # every submodule was loaded
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
