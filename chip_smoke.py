@@ -70,6 +70,7 @@ card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -139,6 +140,9 @@ RES_CACHE_C = 24
 # 'ramp' and an 'oscillate' budget trace of GOV_STEPS steps from the boot
 # pool's bytes down to GOV_LOW_SLOTS slots' pages
 GOV_LOW_SLOTS, GOV_STEPS, GOV_COOLDOWN = 2, 64, 4
+# The tiled phase (Llama): column groups of CompressionPolicy(tiles=G); the
+# first is the one served by the engine, the rungs and the launcher
+TILES = (2, 4)
 
 
 def log(*a):
@@ -668,9 +672,10 @@ def check_dict_decode(rt, w, lut, timer):
             **({"grid": main["grid"]} if "grid" in main else {})}, rows
 
 
-def pack(rt, cfg, device, seed):
+def pack(rt, cfg, device, seed, tiles=0):
     """Seeded weights on the card, packed in compressed mode with the
-    default policy; the dense weights are freed.  → (state, timings)."""
+    default policy (``tiles``: its column groups); the dense weights are
+    freed.  → (state, timings)."""
     LM = rt["LM"]
     t0 = time.perf_counter()
     params = LM.init_lm(cfg, seed=seed, device=device)
@@ -679,13 +684,15 @@ def pack(rt, cfg, device, seed):
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     state = rt["build_serve_params"](
-        params, rt["CompressionPolicy"](mode="compressed"), device=device)
+        params, rt["CompressionPolicy"](mode="compressed", tiles=tiles),
+        device=device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     del params
     torch.cuda.empty_cache()
-    log(f"pack: {cfg.name} ({cfg.n_layers} layers) init {init_s:.2f} s, "
+    log(f"pack: {cfg.name} ({cfg.n_layers} layers, tiles {tiles}) init "
+        f"{init_s:.2f} s, "
         f"build_serve_params {pack_s:.2f} s (peak {peak} B), table "
         f"{len(state.table)} codes, stats {json.dumps(state.stats)}")
     return state, {"init_s": init_s, "pack_s": pack_s,
@@ -713,13 +720,15 @@ def eager_loop(rt, cfg, state, ids):
     return torch.cat(toks, dim=1), time.perf_counter() - t
 
 
-def serve(rt, cfg, state, device, batch, lens, want, packed_want):
+def serve(rt, cfg, state, device, batch, lens, want, packed_want,
+          dispatch_want=None):
     """The main path.  The eager decode loop first; then ``generate``
     twice: the first call runs an eager step and captures the decode step,
     the second only replays it.  Counts are zeroed just before each of the
-    three and read just after; each must count ``want`` launches and
-    ``packed_want`` materializations, the first generate one capture and
-    the second none, and both give the eager loop's tokens bit for bit.
+    three and read just after; each must count ``want`` launches,
+    ``packed_want`` materializations and (where given) ``dispatch_want``
+    dispatches, the first generate one capture and the second none, and
+    both give the eager loop's tokens bit for bit.
     Then the prefill alone (median of 3) and the graphed decode phase
     alone (replays, after a prefill), whose tokens must be the same too.
     Raises on any difference."""
@@ -803,7 +812,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
            "runs": {k: {n: r[n] for n in ("s", "launches", "captures",
                                           "materialize_counts")}
                     for k, r in runs.items()},
-           "first_request_tokens": new[0].tolist()}
+           "first_request_tokens": new[0].tolist(), "tokens": new.tolist()}
     faults = []
     if not (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
             and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
@@ -818,10 +827,13 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want):
     for name, run in runs.items():
         if run["launches"] != want or any(
                 run["materialize_counts"].get(k, 0) != v
-                for k, v in packed_want.items()):
+                for k, v in packed_want.items()) or (
+                dispatch_want is not None
+                and run["dispatch_counts"] != dispatch_want):
             faults.append(f"{name}: launches {run['launches']} (want "
                           f"{want}), materialize {run['materialize_counts']}"
-                          f" (want {packed_want})")
+                          f" (want {packed_want}), dispatch "
+                          f"{run['dispatch_counts']} (want {dispatch_want})")
     if [r["captures"] for r in runs.values()] != [0, 1, 0]:
         faults.append("captures (eager, first, second generate) "
                       f"{[r['captures'] for r in runs.values()]}, want "
@@ -844,7 +856,7 @@ def engine_requests(cfg):
     return lens, prompts, budgets, arrivals
 
 
-def engine_phase(rt, cfg, state, device):
+def engine_phase(rt, cfg, state, device, dispatch="fused"):
     """Request-level serving: ENGINE_REQUESTS greedy requests (prompt
     lengths in PROMPT_MIN–PROMPT_MAX and budgets in ENGINE_NEW_MIN–
     ENGINE_NEW_MAX from the seed) arriving at cumulative Poisson(1.5)
@@ -855,8 +867,9 @@ def engine_phase(rt, cfg, state, device):
     to ``generate`` of its prompt alone at the pool's length; all slots
     occupied at once and a request joined mid-decode; one capture of the
     generate step; the launches of (ticks + admissions) decode steps and
-    prefills; no weight materialized; every page back on the free list.
-    Raises on any difference; → the numbers."""
+    prefills, each K1 launch one ``dispatch`` (its probe: 'fused', or
+    'tiled_fused' for a tiled state); no weight materialized; every page
+    back on the free list.  Raises on any difference; → the numbers."""
     _build, L, ops, E = rt["_build"], rt["L"], rt["ops"], rt["engine"]
     lens, prompts, budgets, arrivals = engine_requests(cfg)
     eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
@@ -894,6 +907,7 @@ def engine_phase(rt, cfg, state, device):
     drain_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCH_COUNTS)
     materialized = dict(L.MATERIALIZE_COUNTS)
+    dispatched = dict(ops.DISPATCH_COUNTS)
     captures = E.CAPTURE_COUNTS["generate_step"]
     peak = torch.cuda.max_memory_allocated(device)
     h = eng.health()
@@ -913,8 +927,8 @@ def engine_phase(rt, cfg, state, device):
             "capture_ms": eng.capture_ms,
             "pool_device_bytes": eng.pool.device_bytes(),
             "peak_mem_bytes": peak, "launches": launches,
-            "materialize_counts": materialized, "captures": captures,
-            "health": h}
+            "materialize_counts": materialized, "dispatch": dispatched,
+            "captures": captures, "health": h}
     faults = []
     by_rid = {}
     for c in eng.completions:
@@ -941,7 +955,9 @@ def engine_phase(rt, cfg, state, device):
                      "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
     if launches != want_launches:
         faults.append(f"launches {launches}, want {want_launches}")
-    if materialized.get("packed", 0) != 0:
+    if dispatched != {dispatch: want_launches["fused_decode_matmul"]}:
+        faults.append(f"dispatch {dispatched}, want {dispatch} only")
+    if materialized:
         faults.append(f"materialized {materialized}")
     if captures != 1:
         faults.append(f"{captures} captures of the generate step, want 1")
@@ -1880,6 +1896,414 @@ def governor_moe(rt, device, faults):
     return info
 
 
+# ---------------------------------------------------------------------------
+# Column groups: TiledPackedLinear storage and K1 with G > 1.
+# ---------------------------------------------------------------------------
+
+def check_fused_groups(rt, lut, projections, untiled, device, m_prefill,
+                       gen, timer):
+    """K1 over G column groups on each ``(label, [planes per layer],
+    in_layer)`` of ``projections`` (one G), against ``untiled`` (the same
+    projections' G = 1 planes: the same weights, tiles and blocks) at M =
+    batch and M = ``m_prefill``: bitwise equal to its plain version and to
+    K1 at G = 1 on integer x, within MATMUL_RTOL of the plain version on
+    random x.  Timed as ``check_fused`` times K1 (graph replays walking the
+    layers' planes), with K1 at G = 1 on the untiled planes under the same
+    timer (``g1_ms``).  → (totals over one layer's projections, rows)."""
+    fdm = rt["fdm"]
+    rows, worst = [], 0.0
+    fields = ("ms", "g1_ms", "plain_ms", "bound_ms", "library_ms")
+    agg = dict.fromkeys(fields, 0.0)
+    pre = dict.fromkeys(fields, 0.0)
+    pre_by, seen = set(), {}
+    for (label, ws, in_layer), (_, us, _) in zip(projections, untiled):
+        w, u = ws[0], us[0]
+        n, k = w.shape
+        if (w.tile_n, w.tile_k, w.codes.shape[-1]) != (
+                u.tile_n, u.tile_k, u.codes.shape[-1]):
+            raise AssertionError(f"{label}: groups tiled {w.tile_n}x"
+                                 f"{w.tile_k} ({w.codes.shape[-1]} slots), "
+                                 f"untiled {u.tile_n}x{u.tile_k}")
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+
+        def k1(x, p, dt=torch.bfloat16):
+            return fdm.fused_decode_matmul(x, p.codes, p.literals, lut,
+                                           p.scale, p.zero, **kw,
+                                           out_dtype=dt)
+
+        def plain(x, dt=torch.bfloat16):
+            return fdm.fused_decode_matmul_plain(x, w.codes, w.literals, lut,
+                                                 w.scale, w.zero, **kw,
+                                                 out_dtype=dt)
+        for m in (BATCH, m_prefill):
+            xi = int_x(m, k, gen, device)
+            yk = k1(xi, w)
+            same_plain = bool(torch.equal(yk, plain(xi)))
+            same_g1 = bool(torch.equal(yk, k1(xi, u)))
+            xr = rand_x(m, k, gen, device)
+            yk, yp = k1(xr, w, torch.float32), plain(xr, torch.float32)
+            err = float((yk - yp).abs().max())
+            tol = MATMUL_RTOL * float(yp.abs().max())
+            worst = max(worst, err)
+            if not (same_plain and same_g1 and err <= tol
+                    and torch.isfinite(yk).all()):
+                raise AssertionError(
+                    f"K1 G={w.tiles} {label} {w.shape} M={m}: bitwise "
+                    f"plain={same_plain} G=1={same_g1} err={err} tol={tol}")
+            key = (n, k, m)
+            if key not in seen:
+                b, by = bound_ms(nbytes(xr, w.codes, w.literals, lut,
+                                        w.scale, w.zero) + m * n * 2,
+                                 2.0 * m * n * k)
+                wbs = [ul.materialize(lut, torch.bfloat16) for ul in us]
+                seen[key] = {
+                    "proj": label, "N": n, "K": k, "M": m, "G": w.tiles,
+                    "layers": len(ws), "bitwise_plain": same_plain,
+                    "bitwise_g1": same_g1, "max_abs_err": err,
+                    "ms": timer.graph_ms([lambda p=wl: k1(xr, p)
+                                          for wl in ws]),
+                    "g1_ms": timer.graph_ms([lambda p=ul: k1(xr, p)
+                                             for ul in us]),
+                    "plain_ms": timer.ms(lambda: plain(xr)),
+                    "library_ms": timer.graph_ms([lambda wb=wb: xr @ wb.T
+                                                  for wb in wbs]),
+                    "bound_ms": b, "bound_by": by,
+                    "tile": [w.tile_n, w.tile_k],
+                    **launch_info(fdm, m, w, 1)}
+                del wbs
+                rows.append(seen[key])
+            t = seen[key]
+            if in_layer:
+                for f in fields:
+                    (agg if m == BATCH else pre)[f] += t[f]
+                if m == m_prefill:
+                    pre_by.add(t["bound_by"])
+    return {"max_abs_err": worst, **agg, "bound_by": "bytes",
+            **{f"prefill_{f}": v for f, v in pre.items()},
+            "prefill_bound_by": "+".join(sorted(pre_by))}, rows
+
+
+def logits_and_tokens(rt, cfg, state, batch, device):
+    """The prefill's last-position logits (f32, on the host) and the
+    greedy tokens of ``generate`` for the fixed batch."""
+    ids = torch.as_tensor(batch, device=device)
+    prefill, _ = rt["make_serve_fns"](cfg, device=device)
+    caches = rt["LM"].init_caches(cfg, BATCH, ids.shape[1] + MAX_NEW,
+                                  device=device)
+    logits, _ = prefill(state.params, state.lut, {"tokens": ids}, caches)
+    toks = rt["generate"](state.params, cfg, batch, lut=state.lut,
+                          max_new=MAX_NEW, device=device)[:, ids.shape[1]:]
+    return logits.float().cpu(), toks
+
+
+def against_untiled(rt, cfg, tiled, untiled, batch, device, faults):
+    """The tiled state's prefill logits within E2E_LOGIT_ATOL of the
+    untiled state's; where the greedy tokens first differ (if they do),
+    with the untiled logits' top-2 gap there."""
+    ids = torch.as_tensor(batch, device=device)
+    lt, tt = logits_and_tokens(rt, cfg, tiled, batch, device)
+    lu, tu = logits_and_tokens(rt, cfg, untiled, batch, device)
+    err = float((lt - lu).abs().max())
+    out = {"prefill_logit_max_abs_err": err, "tolerance": E2E_LOGIT_ATOL,
+           "logits_bitwise": bool(torch.equal(lt, lu)),
+           "tokens_equal": bool(torch.equal(tt, tu))}
+    if not (err <= E2E_LOGIT_ATOL and math.isfinite(err)):
+        faults.append(f"tiled prefill logits differ from untiled by {err}")
+    diff = torch.nonzero(tt != tu)
+    if diff.numel():
+        row, step = (int(v) for v in diff[torch.argmin(diff[:, 1])])
+        out["first_diff"] = [row, step]
+        out["untiled_top2_gap"] = top2_gap(rt, cfg, untiled, ids, tu, row,
+                                           step)
+    return out
+
+
+def tiled_rungs(rt, cfg, state, device, batch, fused, faults):
+    """The tiled state on the unfused and materialize rungs (a ladder of
+    one rung each): launches, dispatch and the tokens against the fused
+    rung's (``compare_rung_tokens``)."""
+    R = rt["resilience"]
+    n = cfg.n_layers
+    ids = torch.as_tensor(batch, device=device)
+    want = {"unfused": {"dict_decode": 7 * n * MAX_NEW,
+                        "dequant_matmul": (7 * n + 1) * MAX_NEW,
+                        "flash_attention": n},
+            "materialize": {"dequant_matmul": MAX_NEW, "flash_attention": n}}
+    out = {}
+    for rung in ("unfused", "materialize"):
+        reng = R.ResilientEngine(cfg, state, policy=R.ResiliencePolicy(
+            ladder=(rung,), max_retries=0), device=device)
+        toks, run = counted_run(rt, lambda: reng.generate(
+            batch, max_new=MAX_NEW)[:, ids.shape[1]:])
+        run["last_rung"] = reng.last_rung
+        if (run["launches"] != want[rung]
+                or run["dispatch"] != {f"tiled_{rung}": 7 * n * MAX_NEW}
+                or reng.last_rung != rung):
+            faults.append(f"tiled {rung} run: launches {run['launches']} "
+                          f"(want {want[rung]}), dispatch {run['dispatch']}"
+                          f", last rung {reng.last_rung}")
+        run.update(compare_rung_tokens(rt, cfg, state, ids, fused, toks,
+                                       rung, faults))
+        out[rung] = run
+        rt["engine"].drop_graphs(reng._rung_cfg(rung))
+    return out
+
+
+def tiled_phase(rt, cfg, untiled, device, batch, lens, gen, timer,
+                kernels, failed):
+    """Llama-3.2-1B at full width, packed with CompressionPolicy(tiles=G)
+    for G in TILES (the same seeded weights as ``untiled``): K1 with
+    column groups at every projection shape against its plain version and
+    K1 at G = 1; the main path at each G (the eager loop and ``generate``
+    twice, bitwise among themselves, every projection one 'tiled_fused'
+    K1 launch, nothing materialized); at TILES[0] the engine drain, the
+    prefill logits and greedy tokens against the untiled state's, and the
+    unfused and materialize rungs.  Adds one kernels row per G."""
+    t_prefill = batch.shape[1]
+    n = cfg.n_layers
+    names = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("mlp", "w_gate"), ("mlp", "w_up"), ("mlp", "w_down"))
+
+    def projections(st):
+        return [(name, [b[grp][name] for b in st.params["blocks"]], True)
+                for grp, name in names]
+
+    info, faults = {}, []
+    for tiles in TILES:
+        try:
+            st, packing = pack(rt, cfg, device, SEED, tiles=tiles)
+            res = info[f"G{tiles}"] = {"packing": packing}
+            row, detail = check_fused_groups(
+                rt, st.lut, projections(st), projections(untiled), device,
+                BATCH * t_prefill, gen, timer)
+            res["kernel_rows"] = detail
+            e2e = serve(rt, cfg, st, device, batch, lens, want={
+                "fused_decode_matmul": 7 * n * MAX_NEW,
+                "dequant_matmul": MAX_NEW, "flash_attention": n},
+                packed_want={"packed": 0, "tiled": 0},
+                dispatch_want={"tiled_fused": 7 * n * MAX_NEW})
+            res["e2e"] = {k: v for k, v in e2e.items() if k != "tokens"}
+            kernels.append(dict(
+                row, name=f"fused_decode_matmul (column groups, G={tiles})",
+                route="cuda", path=cfg.name,
+                source="src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
+                replaces="src/repro/kernels/fused_decode_matmul.py:114",
+                timed_at=f"one layer's 7 projections as {tiles} column "
+                         f"groups, decode M={BATCH}",
+                prefill_timed_at=f"the same projections at "
+                                 f"M={BATCH * t_prefill}",
+                library="torch.matmul on the bf16 dense weight",
+                launches=e2e["launches"].get("fused_decode_matmul", 0)))
+            if tiles == TILES[0]:
+                eng = engine_phase(rt, cfg, st, device,
+                                   dispatch="tiled_fused")
+                kernels[-1]["engine_launches"] = eng["launches"].get(
+                    "fused_decode_matmul", 0)
+                res["engine"] = {k: eng[k] for k in (
+                    "ticks", "tokens_per_s", "tick_ms_median",
+                    "prefill_ms_median", "launches", "dispatch",
+                    "requests_not_bitwise_equal_to_generate")}
+                res["against_untiled"] = against_untiled(
+                    rt, cfg, st, untiled, batch, device, faults)
+                fused = torch.as_tensor(e2e["tokens"], device=device)
+                res["rungs"] = tiled_rungs(rt, cfg, st, device, batch,
+                                           fused, faults)
+            del st
+            rt["engine"].drop_graphs(cfg)
+            torch.cuda.empty_cache()
+        except Exception:
+            traceback.print_exc()
+            faults.append(f"G={tiles} raised")
+    log(f"tiled {cfg.name} " + json.dumps(info))
+    if faults:
+        log(f"tiled faults: {faults}")
+        failed.append(f"{cfg.name} tiled")
+
+
+def tiled_moe(rt, device, batch, lens, gen, faults):
+    """DeepSeek-V2-Lite at full width, 2 layers, CompressionPolicy(tiles=
+    2): K1 with column groups at MLA's and the MLPs' shapes against its
+    plain version (bitwise on integer x, within MATMUL_RTOL on random x);
+    K4 decoding the tiled wkv_b (the absorb's weight) bitwise against its
+    plain decode; the main path with every projection on 'tiled_fused',
+    the expert stacks on K3 and the absorb counted 'tiled'."""
+    fdm = rt["fdm"]
+    cfg = dataclasses.replace(rt["get_config"]("deepseek-v2-lite-16b").full,
+                              n_layers=2)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    st, packing = pack(rt, cfg, device, SEED, tiles=2)
+    first, moe = st.params["first_blocks"], st.params["blocks"]
+    ws = ([(f"attn.{k}", b["attn"][k]) for b in first + moe
+           for k in ("wq", "wkv_a", "wo")]
+          + [(f"first.{k}", b["mlp"][k]) for b in first
+             for k in ("w_gate", "w_up", "w_down")]
+          + [(f"shared.{k}", b["moe"]["shared"][k]) for b in moe
+             for k in ("w_gate", "w_up", "w_down")])
+    checks, seen = [], set()
+    for label, w in ws:
+        if (label, w.shape) in seen:
+            continue
+        seen.add((label, w.shape))
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        args = (w.codes, w.literals, st.lut, w.scale, w.zero)
+        for m in (BATCH, BATCH * batch.shape[1]):
+            xi, xr = int_x(m, w.shape[1], gen, device), \
+                rand_x(m, w.shape[1], gen, device)
+            same = bool(torch.equal(fdm.fused_decode_matmul(xi, *args, **kw),
+                                    fdm.fused_decode_matmul_plain(
+                                        xi, *args, **kw,
+                                        out_dtype=torch.bfloat16)))
+            yk = fdm.fused_decode_matmul(xr, *args, **kw,
+                                         out_dtype=torch.float32)
+            yp = fdm.fused_decode_matmul_plain(xr, *args, **kw)
+            err = float((yk - yp).abs().max())
+            ok = same and err <= MATMUL_RTOL * float(yp.abs().max())
+            checks.append({"proj": label, "shape": list(w.shape), "M": m,
+                           "G": w.tiles, "tile": [w.tile_n, w.tile_k],
+                           "bitwise": same, "max_abs_err": err,
+                           **launch_info(fdm, m, w, 1)})
+            if not ok:
+                faults.append(f"K1 G=2 {label} {w.shape} M={m}: bitwise "
+                              f"{same}, err {err}")
+    wkv_b = moe[0]["attn"]["wkv_b"]
+    k4_same = bool(torch.equal(wkv_b.materialize_int8(st.lut),
+                               wkv_b.materialize_int8(st.lut, plain=True)))
+    if not k4_same:
+        faults.append("K4 on the tiled wkv_b differs from the plain decode")
+    L = cfg.n_layers
+    e2e = serve(rt, cfg, st, device, batch, lens, want={
+        "grouped_fused_decode_matmul": 3 * n_moe * MAX_NEW,
+        "fused_decode_matmul": 6 * L * MAX_NEW,
+        "dict_decode": L * MAX_NEW, "dequant_matmul": MAX_NEW,
+        "flash_attention": L},
+        packed_want={"packed_stacked": 0, "packed": 0,
+                     "tiled": L * MAX_NEW},
+        dispatch_want={"tiled_fused": 6 * L * MAX_NEW,
+                       "grouped_fused": 3 * n_moe * MAX_NEW})
+    info = {"model": cfg.name, "layers": L, "packing": packing,
+            "k1_checks": checks, "k4_tiled_wkv_b_bitwise": k4_same,
+            "wkv_b": {"shape": list(wkv_b.shape), "G": wkv_b.tiles,
+                      "codes": list(wkv_b.codes.shape)},
+            "e2e": {k: v for k, v in e2e.items() if k != "tokens"}}
+    del st
+    rt["engine"].drop_graphs(cfg)
+    torch.cuda.empty_cache()
+    return info
+
+
+# the launcher's runs on the card, the reference's smoke configs and flag
+# sets; the pressure run's low watermark (1 MiB under the 4 GiB boot
+# budget) forces the governor to retire KV pages and regrow them
+LAUNCHER_RUNS = (
+    ("llama_verify", ["--arch", "llama3.2-1b", "--tiles", "2",
+                      "--verify", "full"]),
+    ("llama_pressure", ["--arch", "llama3.2-1b", "--tiles", "2",
+                        "--pressure-trace", "oscillate",
+                        "--pressure-low-mib", "1"]),
+    ("deepseek_tiered", ["--arch", "deepseek-v2-lite-16b",
+                         "--residency", "tiered", "--tiles", "2"]),
+)
+
+
+def cpu_top2_gap(rt, cfg, params, tiles, prompt, prefix) -> float:
+    """The top-2 gap of the CPU's logits for the token after ``prompt`` +
+    ``prefix``, from the launcher's compressed state of ``params`` built on
+    the CPU (the plain versions): where a card sample leaves the CPU's,
+    how near a tie the CPU's choice was."""
+    st = rt["build_serve_params"](params, rt["CompressionPolicy"](
+        mode="compressed", min_weight_size=1024, tiles=tiles), device="cpu")
+    seq = torch.tensor([list(prompt) + list(prefix)], dtype=torch.long)
+    logits = rt["LM"].forward(st.params, cfg, seq, lut=st.lut)[0]
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def launcher_phase(rt, device, gen, timer, kernels, faults):
+    """``repro_torch.launch.serve.main`` in this process on the card, for
+    each of LAUNCHER_RUNS: every request ends as one completion, every K1
+    launch is a 'tiled_fused' dispatch (K3 for the expert stacks), no
+    fallback rung is taken; under the pressure trace the governor changes
+    its plan and retires KV pages at least once.  Both runs of an argv,
+    on the card and with ``--device cpu`` (every kernel's plain version),
+    serve the same weights, ``init_lm(seed=0)`` drawn on the CPU: the CPU
+    run must end its requests for the same reasons; where its sample
+    tokens first differ is reported, with the CPU logits' top-2 gap there.  Then K2 at the smoke configs' head dims (16; MLA 24/16)
+    against its plain version, a kernels row each with the launches of
+    that arch's runs."""
+    out, flash = {}, collections.Counter()
+    for name, flags in LAUNCHER_RUNS:
+        argv = flags + ["--batch", "4", "--max-new", "16"]
+        params = rt["LM"].init_lm(rt["get_config"](flags[1]).smoke, seed=0,
+                                  device="cpu")
+        res, run = counted_run(rt, lambda: rt["launch_serve"].main(
+            argv, params=params))
+        cpu = rt["launch_serve"].main(argv + ["--device", "cpu"],
+                                      params=params)
+        flash[flags[1]] += run["launches"].get("flash_attention", 0)
+        rids = sorted(c.rid for c in res["completions"])
+        d, launches = res["dispatch"], run["launches"]
+        moe = "deepseek" in name
+        info = {"argv": argv, "s": run["s"], "reasons": res["reasons"],
+                "dispatch": d, "launches": launches,
+                "tokens": res["tokens"], "sample": res["sample"],
+                "fallbacks": run["fallbacks"],
+                "last_rung": res["health"]["last_rung"],
+                "cpu_reasons": cpu["reasons"]}
+        first = next((i for i, (a, b) in enumerate(zip(res["sample"],
+                                                       cpu["sample"]))
+                      if a != b), None)
+        info["cpu_sample_first_diff"] = first
+        if first is not None:
+            cfg = rt["get_config"](flags[1]).smoke
+            prompt = rt["DataPipeline"](rt["DataConfig"](
+                vocab_size=cfg.vocab_size, batch=4,
+                seq_len=16)).batch_at(0)["tokens"][0].tolist()
+            info["cpu_top2_gap_there"] = cpu_top2_gap(
+                rt, cfg, params, int(flags[flags.index("--tiles") + 1]),
+                prompt, cpu["sample"][:first])
+        if res["residency"] is not None:
+            info["residency"] = {k: res["residency"][k] for k in (
+                "capacity", "hit", "miss", "prefetch_hit", "evict",
+                "bytes_fetched")}
+        if res["pressure"] is not None:
+            info["pressure"] = {k: res["pressure"][k] for k in (
+                "plan_changes", "refusing", "plan", "rung_latency_s")}
+        out[name] = info
+        want_d = {"tiled_fused"} | ({"grouped_fused"} if moe else set())
+        # the governor counts its rungs among the fallbacks; no other
+        # fallback may be taken
+        ladder = {k: v for k, v in run["fallbacks"].items()
+                  if not k.startswith("pressure_")}
+        pressed = res["pressure"] is None or (
+            res["pressure"]["plan_changes"] > 0
+            and run["fallbacks"].get("pressure_kv_retire", 0) > 0)
+        if (rids != [0, 1, 2, 3] or set(d) != want_d
+                or launches.get("fused_decode_matmul") != d["tiled_fused"]
+                or (moe and launches.get("grouped_fused_decode_matmul")
+                    != d["grouped_fused"])
+                or ladder or res["health"]["last_rung"] != "fused"
+                or sum(res["reasons"].values()) != 4 or not pressed
+                or cpu["reasons"] != res["reasons"]):
+            faults.append(f"launcher {name}: requests {rids}, dispatch {d}, "
+                          f"launches {launches}, fallbacks "
+                          f"{run['fallbacks']}, reasons {res['reasons']}, "
+                          f"pressure {info.get('pressure')}")
+    for arch in ("llama3.2-1b", "deepseek-v2-lite-16b"):
+        cfg = rt["get_config"](arch).smoke
+        if cfg.family == "moe":
+            dims = (cfg.n_heads, cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                    cfg.v_head_dim)
+        else:
+            dims = (cfg.n_kv_heads, cfg.resolved_head_dim,
+                    cfg.resolved_head_dim)
+        row, detail = check_flash(rt, device, 16, gen, timer, cfg.n_heads,
+                                  *dims, f"{cfg.name} prefill")
+        out[f"flash_{cfg.name}"] = detail
+        kernels.append(dict(row, path=f"launcher {cfg.name}",
+                            launches=flash[arch]))
+    return out
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -1982,6 +2406,10 @@ def llama_path(rt, device, gen, timer, kernels, failed):
             kind: run["launches"].get(row["name"], 0)
             for kind, run in gov.get("traces", {}).items()}
     rt["resilience"].FALLBACK_COUNTS.clear()
+    rt["engine"].drop_graphs(cfg)
+    tiled_phase(rt, cfg, state, device, batch, lens, gen, timer, kernels,
+                failed)
+    unlevered(rt, f"{cfg.name} tiled", failed)
     del state
     torch.cuda.empty_cache()
     try:
@@ -2107,6 +2535,17 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         log(f"governor faults: {faults}")
         failed.append(f"{full.name} governor")
     rt["resilience"].FALLBACK_COUNTS.clear()
+    res, faults = {}, []
+    try:
+        res = tiled_moe(rt, device, batch, lens, gen, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log(f"tiled {full.name} " + json.dumps(res))
+    if faults:
+        log(f"tiled faults: {faults}")
+        failed.append(f"{full.name} tiled")
+    unlevered(rt, f"{full.name} tiled", failed)
 
 
 def card_vs_cpu(rt, cfg, device, batch, steps):
@@ -2258,7 +2697,10 @@ def main() -> int:
     from repro_torch.serve import governor, residency, resilience
     from repro_torch.core import policy
     from repro_torch.testing import FaultInjector, pressure_trace
-    rt = {"integrity": integrity, "resilience": resilience,
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.train.data import DataConfig, DataPipeline
+    rt = {"launch_serve": launch_serve, "DataConfig": DataConfig,
+          "DataPipeline": DataPipeline, "integrity": integrity, "resilience": resilience,
           "residency": residency, "governor": governor, "policy": policy,
           "pressure_trace": pressure_trace,
           "FaultInjector": FaultInjector, "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
@@ -2299,6 +2741,20 @@ def main() -> int:
             traceback.print_exc()
             failed.append(path.__name__)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    res, faults = {}, []
+    try:
+        res = launcher_phase(rt, device, gen, timer, kernels, faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    log("launcher " + json.dumps(res))
+    if faults:
+        log(f"launcher faults: {faults}")
+        failed.append("launcher")
+    unlevered(rt, "launcher", failed)
+    log(f"launcher_phase: {time.perf_counter() - t0:.1f} s")
 
     for row in kernels:
         row.setdefault("launches", 0)

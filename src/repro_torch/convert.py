@@ -12,6 +12,7 @@ Weight containers travel as plain dicts with a ``"kind"`` key:
   {"kind": "quant", "values", "scale", "zero"}
   {"kind": "packed", "codes" (uint16), "literals", "nlit", "scale", "zero",
    "shape", "tile_n", "tile_k"}
+  {"kind": "tiled", the same keys, planes with a column-group axis}
 
 with the same leading layer axis as any other stacked leaf.
 """
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core.compressed import PackedLinear, QuantLinear
+from .core.compressed import PackedLinear, QuantLinear, TiledPackedLinear
 from .serve.engine import ServeState
 
 
@@ -37,8 +38,9 @@ def _leaf(node, device):
         return QuantLinear(_tensor(node["values"], device),
                            _tensor(node["scale"], device),
                            _tensor(node["zero"], device))
-    if isinstance(node, dict) and node.get("kind") == "packed":
-        return PackedLinear(_tensor(node["codes"], device),
+    if isinstance(node, dict) and node.get("kind") in ("packed", "tiled"):
+        cls = PackedLinear if node["kind"] == "packed" else TiledPackedLinear
+        return cls(_tensor(node["codes"], device),
                             _tensor(node["literals"], device),
                             _tensor(node["nlit"], device),
                             _tensor(node["scale"], device),

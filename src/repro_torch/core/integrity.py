@@ -20,7 +20,8 @@ the artifact it loaded is the one that was packed.  Two layers:
     range is invisible here; that is what the CRC layer is for.
 
 Leaves are named by the reference's keyed paths
-(``"['blocks']['attn']['wq'].codes"``).  The reference stacks the layers
+(``"['blocks']['attn']['wq'].codes"``; a ``TiledPackedLinear``'s planes
+are the reference's ``codes_t``, ``literals_t`` and ``nlit_t``).  The reference stacks the layers
 of ``params['blocks']`` on a leading axis; the port keeps a list, so a
 stacked leaf is the concatenation of its layers' planes in layer order
 and its CRCs are the reference's.  The port stores codes as int16 holding
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from .codec import ESCAPE
-from .compressed import PackedLinear, QuantLinear
+from .compressed import PackedLinear, QuantLinear, TiledPackedLinear
 
 # 'fast' level: planes up to this many bytes hash whole; larger ones hash
 # a strided byte sample of about _FAST_SAMPLE bytes, with head and tail.
@@ -47,7 +48,8 @@ _FAST_SAMPLE = 1 << 16
 
 MANIFEST_VERSION = 1
 
-_CONTAINERS = (PackedLinear, QuantLinear)
+_CONTAINERS = (PackedLinear, TiledPackedLinear, QuantLinear)
+_PACKED = (PackedLinear, TiledPackedLinear)
 
 
 class IntegrityError(RuntimeError):
@@ -120,6 +122,12 @@ def leaf_groups(params) -> list:
     return groups
 
 
+def plane_keys(container) -> dict:
+    """{field -> the reference's plane name} where they differ: a
+    ``TiledPackedLinear``'s ``codes`` is the reference's ``codes_t``."""
+    return getattr(container, "PLANE_KEYS", {})
+
+
 def _stacked(name: str) -> bool:
     return name.startswith("['blocks']")
 
@@ -134,8 +142,9 @@ def plane_leaves(params):
         if isinstance(first, _CONTAINERS):
             planes = [f.name for f in dataclasses.fields(first)
                       if isinstance(getattr(first, f.name), torch.Tensor)]
+            keys = plane_keys(first)
             for plane in planes:
-                yield _Leaf(f"{name}.{plane}",
+                yield _Leaf(f"{name}.{keys.get(plane, plane)}",
                             [getattr(h[k], plane) for h, k in holders],
                             _stacked(name))
         elif isinstance(first, torch.Tensor):
@@ -331,7 +340,7 @@ def verify_serve_state(state, *, level: str = "full") -> IntegrityReport:
 
 def _container_ok(w, n_rows: int) -> torch.Tensor:
     ok = torch.isfinite(w.scale).all() & torch.isfinite(w.zero).all()
-    if isinstance(w, PackedLinear):
+    if isinstance(w, _PACKED):
         codes = w.codes.to(torch.int32) & 0xFFFF
         ok = ok & ((codes < n_rows) | (codes == ESCAPE)).all()
         cap = w.literals.shape[-2]
@@ -341,7 +350,7 @@ def _container_ok(w, n_rows: int) -> torch.Tensor:
 
 def invariant_flags(params, lut) -> dict:
     """{container leaf name -> 0-d bool tensor on the planes' device}:
-    packed planes, every code < LUT rows or == ESCAPE, 0 <= nlit <= the
+    packed planes (untiled or column groups), every code < LUT rows or == ESCAPE, 0 <= nlit <= the
     literal capacity, scale and zero finite; int8 weights, scale and zero
     finite.  A stacked leaf's flag covers all its layers.  No host read."""
     n_rows = lut.shape[0] if lut is not None else 0

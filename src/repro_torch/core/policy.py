@@ -1,7 +1,8 @@
 """Compression policy — which tensors carry Tiny-QMoE compression — and
 the device-memory budget split of tiered serving.
 
-Counterpart of ``repro/core/policy.py``: ``CompressionPolicy``, and
+Counterpart of ``repro/core/policy.py``: ``CompressionPolicy`` (with its
+``tiles``, the column groups of ``TiledPackedLinear`` storage), and
 ``DeviceBudget`` / ``device_budget`` (the same integer arithmetic).
 The policy:
 
@@ -29,6 +30,10 @@ class CompressionPolicy:
     bits: float = 8
     block_weights: int = 4096
     exclude_extra: tuple = ()
+    # column-tile storage: split each compressed weight (experts excepted)
+    # into this many column groups, one set of planes each, which K1 reads
+    # in one launch; 0/1 = untiled planes
+    tiles: int = 0
 
     def excluded(self, name: str) -> bool:
         pats = EXCLUDE_PATTERNS + tuple(self.exclude_extra)

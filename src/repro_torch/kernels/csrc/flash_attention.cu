@@ -18,7 +18,8 @@
 //
 // What bounds K2 on the H100 at the main paths' prefill shapes (Tq ≈ Tk ≈
 // 200; D = 64 for Llama-3.2-1B, Dqk/Dv = 192/128 for DeepSeek-V2-Lite's
-// MLA): neither the bytes nor the operations, but latency and load.
+// MLA; the smoke configs' 16 and 24/16 are built too): neither the bytes
+// nor the operations, but latency and load.
 // Llama moves 7.2 MB of q/k/v/o (2.1 µs at 3.35 TB/s) and does 0.5 GFLOP
 // (0.5 µs on the tensor cores); a block's few tiles leave the launch, the
 // first tile's loads and the serial softmax between the two products as
@@ -236,11 +237,20 @@ constexpr int kTcRows = 16 * kTcWarps;  // query rows per block
 constexpr int kTcKeys = 64;             // keys per K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The q/k head dim as the tensor cores take it: whole k16 steps.  A DQK
+// of 8s but not 16s (the smoke configs' MLA, 24) is staged with zero
+// columns up to DQKP, which add nothing to Q·Kᵀ.
+template <int DQK>
+__host__ __device__ constexpr int tc_dqk() {
+  return (DQK + 15) / 16 * 16;
+}
+
 // Shared memory of one block: Q (64 rows), then two stages of K and of V
 // (64 keys each), every row padded by 8 bf16 (16 bytes).
 template <int DQK, int DV>
 constexpr size_t tc_smem_bytes() {
-  return ((size_t)kTcRows * (DQK + 8) + 2 * (size_t)kTcKeys * (DQK + 8) +
+  return ((size_t)kTcRows * (tc_dqk<DQK>() + 8) +
+          2 * (size_t)kTcKeys * (tc_dqk<DQK>() + 8) +
           2 * (size_t)kTcKeys * (DV + 8)) * sizeof(bf16);
 }
 
@@ -272,12 +282,13 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                            long long ksh, long long kst, long long vsb,
                            long long vsh, long long vst, float scale_log2,
                            int causal, int q_offset) {
-  constexpr int LDQ = DQK + 8, LDV = DV + 8;   // bf16 per staged row
-  constexpr int QCH = DQK / 8, VCH = DV / 8;   // 16-byte chunks per row
-  constexpr int KS = DQK / 16;                 // k16 steps of Q·Kᵀ
+  constexpr int DQKP = tc_dqk<DQK>();
+  constexpr int LDQ = DQKP + 8, LDV = DV + 8;  // bf16 per staged row
+  constexpr int QCH = DQK / 8, VCH = DV / 8;   // 16-byte chunks copied a row
+  constexpr int KS = DQKP / 16;                // k16 steps of Q·Kᵀ
   constexpr int NS = kTcKeys / 8;              // n8 tiles of S
   constexpr int NO = DV / 8;                   // n8 tiles of O
-  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims of 16s");
+  static_assert(DQK % 8 == 0 && DV % 16 == 0, "Dqk of 8s, Dv of 16s");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + kTcRows * LDQ;               // 2 stages
@@ -299,6 +310,14 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   const bf16* kg = k + b * ksb + kvh * ksh;
   const bf16* vg = v + b * vsb + kvh * vsh;
 
+  if constexpr (DQKP > DQK) {
+    // the columns DQK … DQKP of Q and of both K stages (rows laid out one
+    // after another) are zero once: no copy writes them
+    for (int r = tid; r < kTcRows + 2 * kTcKeys; r += kTcThreads)
+#pragma unroll
+      for (int c = DQK; c < DQKP; c += 8)
+        *reinterpret_cast<uint4*>(qs + r * LDQ + c) = make_uint4(0, 0, 0, 0);
+  }
   // Q rows past Tq and K/V rows past Tk read nothing and are zero
   for (int i = tid; i < kTcRows * QCH; i += kTcThreads) {
     const int r = i / QCH, c = (i - r * QCH) * 8;
@@ -480,7 +499,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
 
 // C entry points, bound with ctypes.  Each returns the CUDA error code (0 =
 // ok).  Strides are in elements, (batch, head, time) for each of q, k, v.
-// Head dims (Dqk, Dv): (64, 64), (128, 128) and MLA's (192, 128).
+// Head dims (Dqk, Dv): (64, 64), (128, 128) and MLA's (192, 128), and the
+// smoke configs' (16, 16) and MLA (24, 16).
 //
 // qmoe_flash_attention_mma: bf16 q, k, v and out; every base pointer and
 // stride a multiple of 8 elements (16 bytes, for cp.async).
@@ -502,6 +522,8 @@ extern "C" int qmoe_flash_attention_mma(
   if (Dqk == 64 && Dv == 64) return launch_mma<64, 64>(QMOE_ARGS);
   if (Dqk == 128 && Dv == 128) return launch_mma<128, 128>(QMOE_ARGS);
   if (Dqk == 192 && Dv == 128) return launch_mma<192, 128>(QMOE_ARGS);
+  if (Dqk == 16 && Dv == 16) return launch_mma<16, 16>(QMOE_ARGS);
+  if (Dqk == 24 && Dv == 16) return launch_mma<24, 16>(QMOE_ARGS);
 #undef QMOE_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -526,6 +548,8 @@ extern "C" int qmoe_flash_attention_simt(
   if (Dqk == 64 && Dv == 64) return launch<64, 64, 1>(QMOE_ARGS);
   if (Dqk == 128 && Dv == 128) return launch<128, 128, 1>(QMOE_ARGS);
   if (Dqk == 192 && Dv == 128) return launch<192, 128, 2>(QMOE_ARGS);
+  if (Dqk == 16 && Dv == 16) return launch<16, 16, 1>(QMOE_ARGS);
+  if (Dqk == 24 && Dv == 16) return launch<24, 16, 1>(QMOE_ARGS);
 #undef QMOE_ARGS
   return (int)cudaErrorInvalidValue;
 }

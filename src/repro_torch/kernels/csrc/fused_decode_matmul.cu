@@ -1,8 +1,15 @@
 // Fused decode -> dequant -> matmul over tile-major compressed planes.
 //
 // Replaces two TPU Pallas kernels of repro/kernels/fused_decode_matmul.py:
-//   * K1 fused_decode_matmul (_kernel, _decode_tile, _accumulate), G = 1
-//     planes;
+//   * K1 fused_decode_matmul (_kernel, _decode_tile, _accumulate), with its
+//     column groups: planes (G, nb, slots) of a TiledPackedLinear, group g
+//     the tile-major planes of the (N, K/G) sub-weight over x columns
+//     [g·K/G, (g+1)·K/G).  A block walks the K tiles of all G groups in
+//     order into one accumulator and applies the affine epilogue once, as
+//     the TPU grid (M/bm, N/tile_n, G, K/(G·tile_k)) does; each K tile
+//     finds its own compressed block (tile_block), so a warp's tiles, a
+//     split or a decoded span may cross a group boundary.  G = 1 is the
+//     untiled PackedLinear;
 //   * K3 grouped_fused_decode_matmul (_grouped_kernel): the same product for
 //     every expert of a stacked MoE weight in one launch.  The device code
 //     is K1's; a block finds its expert from its index (gridDim.z =
@@ -103,6 +110,18 @@ __device__ __forceinline__ void to_expert(
     part += (long long)e * ex.splits * M * N;
     sxpart += (long long)e * ex.splits * M;
   }
+}
+
+// The first compressed block, bb = 0, of weight tile (j, kt) — kt counts the
+// K tiles of the whole K — with every later block of the tile at + bb.  K
+// tile kt lies in column group g = kt / nkt_g, whose tile-major planes
+// follow those of the groups before it (nnt · nkt_g · bpt blocks each); its
+// x columns start at kt · tile_k in every group.  At one group (nkt_g =
+// K / tile_k) this is (j · nkt + kt) · bpt.
+__device__ __forceinline__ long long tile_block(int j, int kt, int nnt,
+                                                int nkt_g, int bpt) {
+  const int g = kt / nkt_g;
+  return (((long long)g * nnt + j) * nkt_g + (kt - g * nkt_g)) * bpt;
 }
 
 // ---------------------------------------------------------------------------
@@ -279,7 +298,7 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
                                   const float* __restrict__ zero,
                                   TOut* __restrict__ out, int M, int N,
                                   int K, int tile_n, int tile_k, int slots,
-                                  int cap, int bpt, Expert ex) {
+                                  int cap, int bpt, int nkt_g, Expert ex) {
   extern __shared__ float dsm[];
   const int W = blockDim.x >> 5;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -356,7 +375,7 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
   constexpr uint32_t kOnes = 0x3F803F80u;   // bf16x2 (1, 1)
 
   for (int kt = warp; kt < nkt; kt += W) {
-    const long long blk = ((long long)j * nkt + kt) * bpt + bb;
+    const long long blk = tile_block(j, kt, nnt, nkt_g, bpt) + bb;
     const int k0 = kt * tile_k;
     if (kWide) {
       __syncwarp();                  // the last tile's reads of xs are done
@@ -504,7 +523,8 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                            TOut* __restrict__ out, float* __restrict__ part,
                            float* __restrict__ sxpart, int M, int N, int K,
                            int tile_n, int tile_k, int slots, int cap,
-                           int bpt, int tiles_per_split, Expert ex) {
+                           int bpt, int nkt_g, int tiles_per_split,
+                           Expert ex) {
   constexpr int BM = 2 * RPT;
   extern __shared__ __align__(16) unsigned char smem[];
   // a staged row holds at least 4 columns (one uint32 / float4 read); below
@@ -541,7 +561,7 @@ fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
   for (int kt = kt0; kt < kt1; ++kt) {
     for (int idx = warp; idx < tcount * bpt; idx += qmoe::kThreads / 32) {
       int jj = idx / bpt, bb = idx - jj * bpt;
-      long long blk = ((long long)(j0 + jj) * nkt + kt) * bpt + bb;
+      long long blk = tile_block(j0 + jj, kt, nnt, nkt_g, bpt) + bb;
       decode_block(codes + blk * slots, lits + blk * cap, lut, slots, cap,
                    qs + jj * tile_n * qstride, qstride, tk_shift,
                    bb * block_bytes, lane);
@@ -611,8 +631,9 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                float* __restrict__ part,
                                float* __restrict__ sxpart, int M, int N,
                                int K, int tile_n, int tile_k, int slots,
-                               int cap, int bpt, int tiles_per_split,
-                               int span, int bands_per_block, Expert ex) {
+                               int cap, int bpt, int nkt_g,
+                               int tiles_per_split, int span,
+                               int bands_per_block, Expert ex) {
   constexpr int kWarps = kMmaThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   const int qstride = span * tile_k + 8;   // bf16 per decoded row
@@ -665,7 +686,8 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
     for (int idx = warp; idx < tcount * per_row; idx += kWarps) {
       const int jj = idx / per_row, rem = idx - jj * per_row;
       const int t = rem / bpt, bb = rem - t * bpt;
-      const long long blk = ((long long)(j0 + jj) * nkt + c0 + t) * bpt + bb;
+      const long long blk =
+          tile_block(j0 + jj, c0 + t, nnt, nkt_g, bpt) + bb;
       decode_block(codes + blk * slots, lits + blk * cap, lut, slots, cap,
                    qs + jj * tile_n * qstride + t * tile_k, qstride,
                    tk_shift, bb * block_bytes, lane);
@@ -791,10 +813,12 @@ template <typename TOut, bool kGrouped>
 int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
-           int tile_n, int tile_k, int slots, int cap, int bpt, int splits,
-           int span, int bands_per_block, int decode_warps, int E,
+           int tile_n, int tile_k, int slots, int cap, int bpt, int groups,
+           int splits, int span, int bands_per_block, int decode_warps, int E,
            cudaStream_t stream) {
   const int nkt = K / tile_k;
+  if (groups < 1 || nkt % groups) return (int)cudaErrorInvalidValue;
+  const int nkt_g = nkt / groups;   // K tiles of one column group
   const int tiles_per_split = (nkt + splits - 1) / splits;
   const long long nb = (long long)(N / tile_n) * nkt * bpt;
   const Expert ex = {nb * slots, nb * cap, splits};
@@ -813,7 +837,7 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
     const int rpb = 4 * slots / tile_k;
     if (M > kDecM || splits != 1 || tile_k < 4 || decode_warps > kDecMaxWarps ||
         slots > (tile_k >= 32 ? 256 * kDecSteps : 512) ||
-        rpb * tile_k != 4 * slots)
+        rpb * tile_k != 4 * slots || (bpt & (bpt - 1)) || (rpb & (rpb - 1)))
       return (int)cudaErrorInvalidValue;
     const int H = tile_k >= 128 ? tile_k / 128 : 1;   // the kernel's H
     const size_t smem =
@@ -828,7 +852,7 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
     if (err != cudaSuccess) return (int)err;
     kern<<<(unsigned)blocks, decode_warps * 32, smem, stream>>>(
         xp, cp, lp, up, sp, zp, op, M, N, K, tile_n, tile_k, slots, cap, bpt,
-        ex);
+        nkt_g, ex);
     return (int)cudaGetLastError();
   }
   if (bm == kMmaBM) {
@@ -851,7 +875,7 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
               E * splits);
     kern<<<grid, kMmaThreads, smem, stream>>>(
         xp, cp, lp, up, sp, zp, op, pp, sxp, M, N, K, tile_n, tile_k, slots,
-        cap, bpt, tiles_per_split, span, bands_per_block, ex);
+        cap, bpt, nkt_g, tiles_per_split, span, bands_per_block, ex);
     return finish_launch(part, sxpart, scale, zero, op, out_bf16, M, N,
                          splits, E, stream);
   }
@@ -867,7 +891,7 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
   dim3 grid(stripes, (M + bm - 1) / bm, E * splits);
   kern<<<grid, qmoe::kThreads, smem, stream>>>(
       xp, cp, lp, up, sp, zp, op, pp, sxp, M, N, K, tile_n, tile_k, slots,
-      cap, bpt, tiles_per_split, ex);
+      cap, bpt, nkt_g, tiles_per_split, ex);
   return finish_launch(part, sxpart, scale, zero, op, out_bf16, M, N, splits,
                        E, stream);
 }
@@ -877,16 +901,16 @@ int launch_any(int E, int bm, const void* x, const void* codes,
                const void* lits, const void* lut, const void* scale,
                const void* zero, void* out, void* part, void* sxpart,
                int out_bf16, int M, int N, int K, int tile_n, int tile_k,
-               int slots, int cap, int bpt, int splits, int span,
+               int slots, int cap, int bpt, int groups, int splits, int span,
                int bands_per_block, int decode_warps, cudaStream_t stream) {
   if (E == 1)
     return launch<TOut, false>(bm, x, codes, lits, lut, scale, zero, out,
                                part, sxpart, out_bf16, M, N, K, tile_n,
-                               tile_k, slots, cap, bpt, splits, span,
+                               tile_k, slots, cap, bpt, groups, splits, span,
                                bands_per_block, decode_warps, E, stream);
   return launch<TOut, true>(bm, x, codes, lits, lut, scale, zero, out, part,
                             sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,
-                            cap, bpt, splits, span, bands_per_block,
+                            cap, bpt, groups, splits, span, bands_per_block,
                             decode_warps, E, stream);
 }
 
@@ -895,8 +919,11 @@ int launch_any(int E, int bm, const void* x, const void* codes,
 // C entry point, bound with ctypes.  Returns the CUDA error code (0 = ok).
 // E weights of one shape in one launch: x (E, M, K), planes (E, nb, slots)
 // and (E, nb, cap, 4), scale/zero (E, N, 1), out (E, M, N) — K1 is E = 1,
-// K3 a whole expert stack.  decode_warps > 0: the decode-batch kernel (M ≤
-// 4, tile_k ≥ 4, slots ≤ 1024, one split), that many warps to a block.
+// K3 a whole expert stack.  groups: K1's column groups G (1 for K3), the
+// nb blocks of a weight being G groups' planes one after another, each for
+// K/G columns (K/tile_k must divide by G); bpt: blocks per weight tile.
+// decode_warps > 0: the decode-batch kernel (M ≤ 4, tile_k ≥ 4, slots ≤
+// 1024, one split, power-of-two bpt), that many warps to a block.
 // Else bm: rows per block — 4 or 16 (SIMT product) or 128 (tensor cores;
 // needs tile_k % 64 == 0, and takes span: K tiles decoded at once, and
 // bands_per_block: 128-row bands per block, which needs a split of at
@@ -907,7 +934,7 @@ extern "C" int qmoe_fused_decode_matmul(
     const void* x, const void* codes, const void* lits, const void* lut,
     const void* scale, const void* zero, void* out, void* part, void* sxpart,
     int out_bf16, int E, int M, int N, int K, int tile_n, int tile_k,
-    int slots, int cap, int bpt, int splits, int bm, int span,
+    int slots, int cap, int bpt, int groups, int splits, int bm, int span,
     int bands_per_block, int decode_warps, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // This library links its own CUDA runtime: select the tensors' device.
@@ -916,10 +943,10 @@ extern "C" int qmoe_fused_decode_matmul(
   if (out_bf16)
     return launch_any<__nv_bfloat16>(E, bm, x, codes, lits, lut, scale, zero,
                                      out, part, sxpart, 1, M, N, K, tile_n,
-                                     tile_k, slots, cap, bpt, splits, span,
-                                     bands_per_block, decode_warps, s);
+                                     tile_k, slots, cap, bpt, groups, splits,
+                                     span, bands_per_block, decode_warps, s);
   return launch_any<float>(E, bm, x, codes, lits, lut, scale, zero, out,
                            part, sxpart, 0, M, N, K, tile_n, tile_k, slots,
-                           cap, bpt, splits, span, bands_per_block,
+                           cap, bpt, groups, splits, span, bands_per_block,
                            decode_warps, s);
 }

@@ -12,8 +12,9 @@ Layouts are the reference's: q (B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v
 (B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv) in q's dtype, with query i at position
 ``q_offset + i``.  Masked scores are NEG_INF = −1e30 and the denominator
 is max(l, 1e−30), as in the reference.  The kernels take the head-dim
-pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64 and 128, and DeepSeek-V2's
-MLA (qk_nope + qk_rope = 192, v = 128).
+pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64 and 128, DeepSeek-V2's
+MLA (qk_nope + qk_rope = 192, v = 128), and the smoke configs' 16 and MLA
+24/16 (the tensor-core kernel stages Dqk 24 with zero columns up to 32).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from . import _build
 NAME = "flash_attention"          # the CUDA source; the bf16 kernel's count
 F32_NAME = "flash_attention_f32"  # the SIMT kernel's count
 NEG_INF = -1e30
-HEAD_DIMS = ((64, 64), (128, 128), (192, 128))   # (Dqk, Dv) in the kernel
+# (Dqk, Dv) in the kernels: the published widths, then the smoke configs
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (16, 16), (24, 16))
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _MMA_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9 + [ctypes.c_float]
                  + [_I] * 3 + [_P])

@@ -1,9 +1,11 @@
 """Fused decode→dequant→matmul: the compressed serving hot path.
 
 Counterpart of two TPU Pallas kernels of
-``repro/kernels/fused_decode_matmul.py``: K1 ``fused_decode_matmul`` (G = 1
-tile-major planes) and K3 ``grouped_fused_decode_matmul`` (the same product
-for every expert of a stacked MoE weight, in one launch).  Both run the CUDA
+``repro/kernels/fused_decode_matmul.py``: K1 ``fused_decode_matmul``
+(tile-major planes, with its column groups: G > 1 for a
+``TiledPackedLinear``'s (G, nb, slots) planes, all G in one launch) and K3
+``grouped_fused_decode_matmul`` (the same product for every expert of a
+stacked MoE weight, in one launch).  Both run the CUDA
 kernel ``csrc/fused_decode_matmul.cu`` (its header says what bounds it on
 the H100 and how the design answers that; :func:`launch_plan` picks one of
 its three kernels: decode batch, SIMT rows, tensor-core prefill); :func:`fused_decode_matmul_plain`
@@ -40,7 +42,7 @@ DECODE_MAX_WARPS = 16     # K tiles a block's warps take at once
 DECODE_WARPS_PER_SM = 16  # resident at 128 registers a thread
 MAX_GRID_X = 2 ** 31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 16 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 17 + [_P]
 
 
 def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
@@ -49,22 +51,33 @@ def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
     """Plain version: walk K in ``tile_k`` strips, decode only that strip's
     blocks to an (N, tile_k) uint8 band, accumulate ``x_k @ q_k.T`` and
     the row sums of x in f32, then the affine epilogue once — the strip
-    structure of ``repro.kernels.ref.fused_decode_matmul``."""
+    structure of ``repro.kernels.ref.fused_decode_matmul``.
+
+    Column groups: planes (G, nb, slots) / (G, nb, cap, 4) hold G
+    sub-weights of (N, K/G), group g over x columns [g·K/G, (g+1)·K/G).
+    The strips are walked in (g, k) order into the one accumulator, as
+    the kernel walks them; 2-D planes are G = 1.  (The reference's CPU
+    path adds each group's affine output instead, which rounds
+    otherwise.)"""
     n, k = shape
     m = x.shape[0]
-    nnt, nkt = n // tile_n, k // tile_k
-    nb, slots = codes.shape
+    if codes.ndim == 2:
+        codes, literals = codes[None], literals[None]
+    groups, nb, slots = codes.shape
+    nnt, nkt = n // tile_n, k // (groups * tile_k)
     bpt = nb // (nnt * nkt)
-    cap, s = literals.shape[1], literals.shape[2]
-    codes_s = codes.reshape(nnt, nkt, bpt, slots)
-    lits_s = literals.reshape(nnt, nkt, bpt, cap, s)
+    cap, s = literals.shape[2], literals.shape[3]
+    codes_s = codes.reshape(groups, nnt, nkt, bpt, slots)
+    lits_s = literals.reshape(groups, nnt, nkt, bpt, cap, s)
     xf = x.to(torch.float32)
     acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    for kt in range(nkt):
-        q = decode_blocked(codes_s[:, kt].reshape(-1, slots),
-                           lits_s[:, kt].reshape(-1, cap, s), lut)
-        q = q.reshape(n, tile_k).to(torch.float32)
-        acc = acc + xf[:, kt * tile_k:(kt + 1) * tile_k] @ q.T
+    for g in range(groups):
+        for kt in range(nkt):
+            q = decode_blocked(codes_s[g, :, kt].reshape(-1, slots),
+                               lits_s[g, :, kt].reshape(-1, cap, s), lut)
+            q = q.reshape(n, tile_k).to(torch.float32)
+            c0 = (g * nkt + kt) * tile_k
+            acc = acc + xf[:, c0:c0 + tile_k] @ q.T
     sumx = xf.sum(dim=1, keepdim=True)
     y = scale.reshape(1, -1) * (acc - sumx * zero.reshape(1, -1))
     return y.to(out_dtype)
@@ -243,19 +256,23 @@ def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
 
 
 def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
-            tile_k, out_dtype, plan_experts=None):
+            tile_k, out_dtype, plan_experts=None, groups: int = 1):
     """Check the operands and launch the kernel for E = x.shape[0] weights
     of one shape: x (E, M, K), codes (E, nb, slots), literals
     (E, nb, cap, 4), scale/zero E·N values → (E, M, N).  The launch is
     planned for ``plan_experts`` weights (default E), so that a stack
     holding some of a layer's experts sums each expert's rows in the order
-    the whole stack would."""
+    the whole stack would.  ``groups``: K1's column groups, a weight's nb
+    blocks being ``groups`` sub-weights' planes of (N, K/groups) one after
+    another."""
     dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
     n, k = shape
     e, m = x.shape[0], x.shape[1]
     if x.ndim != 3 or x.shape[2] != k:
         raise ValueError(f"{name}: x {tuple(x.shape)} against weight {shape}")
-    check_tiles(name, shape, tile_n, tile_k)
+    if groups < 1 or k % groups:
+        raise ValueError(f"{name}: {groups} column groups of {shape}")
+    check_tiles(name, (n, k // groups), tile_n, tile_k)
     if codes.ndim != 3 or codes.shape[0] != e:
         raise ValueError(f"{name}: codes {tuple(codes.shape)} for {e} "
                          "weight(s)")
@@ -300,6 +317,13 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     if plan.kernel == "decode" and e * nnt * bpt > MAX_GRID_X:
         raise ValueError(f"{name}: {e * nnt * bpt} row groups exceed the "
                          f"grid's x extent {MAX_GRID_X}")
+    if plan.kernel == "decode" and (bpt & (bpt - 1)
+                                    or (4 * slots // tile_k) & (
+                                        4 * slots // tile_k - 1)):
+        raise ValueError(f"{name}: the decode kernel takes a power-of-two "
+                         f"count of blocks a tile and of columns a block, "
+                         f"got {bpt} blocks of {slots} slots at tile_k "
+                         f"{tile_k}")
     part = sx = None
     if splits > 1:
         part = torch.empty(e * splits * m * n, dtype=torch.float32,
@@ -311,7 +335,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
              out.data_ptr(), part.data_ptr() if part is not None else None,
              sx.data_ptr() if sx is not None else None,
              int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
-             slots, literals.shape[2], bpt, splits, plan.bm, plan.span,
+             slots, literals.shape[2], bpt, groups, splits, plan.bm,
+             plan.span,
              plan.bands_per_block, plan.warps if plan.kernel == "decode"
              else 0, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
@@ -328,8 +353,11 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
 
     x: (M, K) float; codes int16 (uint16 bits) (nb, slots), literals uint8
     (nb, cap, 4), lut uint8 (n_codes + 1, 4): tile-major planes of the
-    dense ``shape = (N, K)`` weight; scale/zero (N, 1) f32.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.
+    dense ``shape = (N, K)`` weight; scale/zero (N, 1) f32.  Column
+    groups: codes (G, nb, slots) and literals (G, nb, cap, 4), group g the
+    planes of the (N, K/G) sub-weight over x columns [g·K/G, (g+1)·K/G)
+    (a ``TiledPackedLinear``), all G in one launch.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
     """
     if x.device.type == "cpu":
         return fused_decode_matmul_plain(
@@ -337,13 +365,19 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
             tile_n=tile_n, tile_k=tile_k, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {x.device}")
-    if x.ndim != 2 or codes.ndim != 2 or literals.ndim != 3:
+    if x.ndim != 2 or codes.ndim not in (2, 3) \
+            or literals.ndim != codes.ndim + 1:
         raise ValueError(f"{NAME}: x {tuple(x.shape)}, codes "
-                         f"{tuple(codes.shape)}: one weight's 2-D planes "
-                         "and a 2-D x")
-    return _launch(NAME, x[None], codes[None], literals[None], lut, scale,
-                   zero, shape=shape, tile_n=tile_n, tile_k=tile_k,
-                   out_dtype=out_dtype)[0]
+                         f"{tuple(codes.shape)}, literals "
+                         f"{tuple(literals.shape)}: one weight's 2-D planes "
+                         "or (G, ...) column groups, and a 2-D x")
+    groups = codes.shape[0] if codes.ndim == 3 else 1
+    if not (codes.is_contiguous() and literals.is_contiguous()):
+        raise ValueError(f"{NAME}: codes and literals must be contiguous")
+    return _launch(NAME, x[None], codes.reshape(1, -1, codes.shape[-1]),
+                   literals.reshape((1, -1) + tuple(literals.shape[-2:])),
+                   lut, scale, zero, shape=shape, tile_n=tile_n,
+                   tile_k=tile_k, out_dtype=out_dtype, groups=groups)[0]
 
 
 def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,

@@ -18,7 +18,9 @@ ladder's ``FALLBACK_COUNTS`` and ``health()``); ``chip_smoke.py`` holds
 the lever unset and no fallback counted on every phase but its
 resilience phase.  No wrapper catches a kernel's error and falls back to
 a plain version.  Linear-layout planes (``tile_n == 0``), which the fused
-kernels cannot read, take the unfused path at any lever.
+kernels cannot read, take the unfused path at any lever.  A
+``TiledPackedLinear`` (column groups) takes the same rungs in
+:func:`decode_dequant_matmul`, K1 reading its G groups in one launch.
 
 ``DISPATCH_COUNTS`` counts which path each compressed matmul took (the
 reference's probe); ``_build.LAUNCH_COUNTS`` counts kernel launches.  In
@@ -90,35 +92,47 @@ def dequant_matmul(x, wq, scale, zero, *, out_dtype=torch.float32):
 
 
 def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
-    """Compressed-weight matmul, the paper's serving hot path.
+    """Compressed-weight matmul, the paper's serving hot path, over one
+    layer's planes: a ``PackedLinear`` (codes (nb, slots)) or a
+    ``TiledPackedLinear`` (codes (G, nb, slots), probes prefixed 'tiled_',
+    the one-device branch of the reference's
+    ``ops.tiled_decode_dequant_matmul``).
 
-    Tile-major planes with the lever at ``auto``: the fused decode→dequant→matmul kernel
-    (probe 'fused').  ``unfused`` or linear-layout planes: K4 decodes the
-    dense uint8 weight, which K5 multiplies (probe 'unfused').
+    Tile-major planes with the lever at ``auto``: the fused
+    decode→dequant→matmul kernel, over all G column groups in one launch,
+    one accumulator and one affine epilogue (probe 'fused').  ``unfused``
+    or linear-layout planes: K4 decodes the dense uint8 weight, which K5
+    multiplies (probe 'unfused'; the reference's tiled rung decodes with
+    plain code and an einsum, which gives the same uint8 weight).
     ``materialize``: the plain decode, the weight dequantized to f32 and
     one f32 ``torch.matmul`` (probe 'materialize'; the reference
     multiplies in x's dtype, which at bf16 rounds every weight and moves
     greedy tokens away from the fused rung's)."""
-    if packed.codes.ndim != 2:
-        raise ValueError("decode_dequant_matmul takes one layer's 2-D "
+    probe = packed.PROBE
+    if packed.codes.ndim != 2 + packed.GROUP_AXES:
+        raise ValueError(f"{probe}decode_dequant_matmul takes one layer's "
                          f"planes, got codes {tuple(packed.codes.shape)}")
     impl = _DEFAULT_IMPL
     n, k = packed.shape
     if impl == Impl.MATERIALIZE.value:
-        DISPATCH_COUNTS["materialize"] += 1
+        DISPATCH_COUNTS[probe + "materialize"] += 1
         w = packed.materialize(lut, dtype=torch.float32, plain=True)
         return torch.matmul(x.to(torch.float32), w.T).to(out_dtype)
     if impl == Impl.UNFUSED.value or not packed.tile_n:
-        DISPATCH_COUNTS["unfused"] += 1
+        DISPATCH_COUNTS[probe + "unfused"] += 1
         return dequant_matmul(x, packed.materialize_int8(lut), packed.scale,
                               packed.zero, out_dtype=out_dtype)
-    DISPATCH_COUNTS["fused"] += 1
+    DISPATCH_COUNTS[probe + "fused"] += 1
     lead = x.shape[:-1]
     y = _fused(x.reshape(-1, k), packed.codes, packed.literals, lut,
                packed.scale, packed.zero, shape=tuple(packed.shape),
                tile_n=packed.tile_n, tile_k=packed.tile_k,
                out_dtype=out_dtype)
     return y.reshape(*lead, n)
+
+
+# the reference's name for the TiledPackedLinear branch
+tiled_decode_dequant_matmul = decode_dequant_matmul
 
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):

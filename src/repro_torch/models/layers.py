@@ -3,10 +3,12 @@
 Counterpart of ``repro/models/layers.py`` for the dense Llama family and
 DeepSeek-V2's MLA attention and MoE (global dispatch).  Activations keep the
 reference's (B, T, H, hd) layout and weights its (out, in) layout.  A linear
-weight is a dense tensor, a ``QuantLinear`` or a ``PackedLinear``;
-``linear`` routes the last two to the hand-written kernels through
-``kernels.ops`` (CUDA tensors) or their plain versions (CPU tensors), and a
-stacked expert ``PackedLinear`` runs the grouped kernel.
+weight is a dense tensor, a ``QuantLinear``, a ``PackedLinear`` or a
+``TiledPackedLinear`` (column groups); ``linear`` routes the containers to
+the hand-written kernels through ``kernels.ops`` (CUDA tensors) or their
+plain versions (CPU tensors), and a stacked expert ``PackedLinear`` runs
+the grouped kernel.  The port keeps a list of per-layer dicts, so a
+container reaches a layer with that layer's planes alone.
 
 Unlike the reference, the KV cache is updated in place (``_kv_write``):
 the cache is the largest activation buffer and a functional copy per token
@@ -27,7 +29,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..core.compressed import PackedLinear, QuantLinear
+from ..core.compressed import PackedLinear, QuantLinear, TiledPackedLinear
 from ..kernels import ops
 
 Params = Any  # nested dict of tensors / weight containers
@@ -39,7 +41,7 @@ Params = Any  # nested dict of tensors / weight containers
 
 def linear(x: torch.Tensor, w, lut=None, bias=None) -> torch.Tensor:
     """y = x @ W.T (+ bias) for any weight container."""
-    if isinstance(w, PackedLinear):
+    if isinstance(w, (PackedLinear, TiledPackedLinear)):
         y = ops.decode_dequant_matmul(x, w, lut, out_dtype=x.dtype)
     elif isinstance(w, QuantLinear):
         y = ops.dequant_matmul(x, w.values, w.scale, w.zero,
@@ -53,7 +55,8 @@ def linear(x: torch.Tensor, w, lut=None, bias=None) -> torch.Tensor:
 
 # Materialization probe: how often a weight container was decoded to a
 # dense tensor, by kind: 'packed' (one weight), 'packed_stacked' (a stacked
-# expert weight — the grouped kernel keeps these at zero), 'quant'.  MLA's
+# expert weight — the grouped kernel keeps these at zero), 'tiled' (a
+# TiledPackedLinear: MLA's absorb of a tiled wkv_b), 'quant'.  MLA's
 # absorb decodes wkv_b ('packed') at every call, as the reference does;
 # tests and chip_smoke.py assert on the counts.  A captured decode step
 # counts once per replay (``serve.engine.DecodeGraph``).
@@ -63,11 +66,13 @@ MATERIALIZE_COUNTS = collections.Counter()
 def materialize_weight(w, lut=None, dtype=None):
     """Dense view of any weight container (the MLA absorb, dense or
     int8 expert stacks).  ``dtype=None`` decodes containers to bf16 and
-    leaves dense weights as they are.  A CUDA ``PackedLinear`` decodes
-    with the dict-decode kernel, unless the dispatch lever pins the
-    ``materialize`` rung (``ops.plain_decode``)."""
-    if isinstance(w, PackedLinear):
-        kind = "packed_stacked" if w.codes.ndim > 2 else "packed"
+    leaves dense weights as they are.  A CUDA ``PackedLinear`` or
+    ``TiledPackedLinear`` decodes with the dict-decode kernel, unless the
+    dispatch lever pins the ``materialize`` rung (``ops.plain_decode``)."""
+    if isinstance(w, (PackedLinear, TiledPackedLinear)):
+        kind = "tiled" if w.GROUP_AXES else "packed"
+        if w.codes.ndim > 2 + w.GROUP_AXES:
+            kind += "_stacked"
         MATERIALIZE_COUNTS[kind] += 1
         return w.materialize(lut, torch.bfloat16 if dtype is None else dtype,
                              plain=ops.plain_decode())

@@ -5,7 +5,10 @@ Counterpart of ``repro/serve/engine.py`` for one device:
      per channel, build ONE model-wide dictionary over the quantized byte
      streams, and encode each tensor in the tile-major blocked layout; a
      stacked expert leaf (E, N, K) is quantized and encoded expert by
-     expert into one stacked container.  It runs on the card by default
+     expert into one stacked container; under ``CompressionPolicy(tiles=
+     G)`` every other compressed weight whose in-dim G divides is stored
+     as G column groups (``TiledPackedLinear``), which K1 reads in one
+     launch.  It runs on the card by default
      (quantization, counting and encoding are tensor ops on the weights'
      device).
   2. ``generate``: one prefill, then the greedy (or sampled) decode
@@ -25,8 +28,7 @@ wraps :func:`generate` and frees a failed rung's graphs with
 :func:`drop_graphs`; ``build_serve_params`` records the integrity
 manifest.  Tiered expert residency (``serve/residency.py``) takes over
 :func:`make_serve_fns` and :func:`generate` when the context carries a
-manager.  Not ported yet: ``TiledPackedLinear`` column tiles and
-``model_shards``.
+manager.  Not ported yet: ``model_shards`` (multi-device).
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ from .._device import resolve_device
 from ..core.blocked_codec import (TableIndex, build_lut, choose_fused_tiles,
                                   encode_blocked, encode_blocked_tiled)
 from ..core.codec import find_frequent_sequences
-from ..core.compressed import (PackedLinear, QuantLinear, stack_packed,
-                               quantize_linear)
+from ..core.compressed import (QuantLinear, encode_tiled_planes,
+                               quantize_linear, stack_packed, stack_tiled)
 from ..core.integrity import build_manifest, leaf_groups
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
@@ -125,7 +127,14 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
     A leaf with a leading expert axis, (E, N, K), is quantized per expert
     and encoded expert by expert; its streams join the dictionary in the
     reference's layer-major, expert-minor order, and one literal capacity
-    covers every layer's and expert's planes of that leaf."""
+    covers every layer's and expert's planes of that leaf.
+
+    ``policy.tiles = G > 1``: a compressed leaf whose in-dim G divides and
+    whose path holds no ``"experts"`` (expert stacks stay stacked
+    ``PackedLinear``s for K3) becomes a ``TiledPackedLinear`` per layer,
+    its G column groups encoded on their own (``encode_tiled_planes``,
+    tile-major where the (out, in/G) sub-weight admits it), one literal
+    capacity across the leaf's layers and groups."""
     device = resolve_device(device)
     qcfg = qcfg or QuantConfig(bits=policy.bits, granularity="per_channel")
     bw = block_weights or policy.block_weights
@@ -177,6 +186,21 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                 n_bytes["quant"] += q.nbytes
             continue
         shape = tuple(per_layer[0][0].values.shape)
+        if (policy.tiles > 1 and shape[-1] % policy.tiles == 0
+                and "experts" not in name):
+            per = [[encode_tiled_planes(q.values, index, policy.tiles,
+                                        block_weights=bw, tile="auto")
+                    for q in qls] for qls in per_layer]
+            tn, tk = per[0][0][1], per[0][0][2]
+            cap = max(bc.literals.shape[1] for layer in per
+                      for bcs, _, _ in layer for bc in bcs)
+            for (h, k), qls, layer in zip(holders, per_layer, per):
+                tl = stack_tiled(qls, [bcs for bcs, _, _ in layer],
+                                 shape=shape, tile_n=tn, tile_k=tk, cap=cap)
+                h[k] = tl = _unstack_if_one(h[k], tl)
+                n_bytes["compressed"] += (tl.payload_nbytes
+                                          + 8 * shape[0] * len(qls))
+            continue
         tiles = choose_fused_tiles(shape, bw)
         tn, tk = tiles[:2] if tiles else (0, 0)
 

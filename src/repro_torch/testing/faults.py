@@ -53,8 +53,8 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from ..core.compressed import PackedLinear, QuantLinear
-from ..core.integrity import leaf_groups
+from ..core.compressed import PackedLinear, QuantLinear, TiledPackedLinear
+from ..core.integrity import leaf_groups, plane_keys
 from ..serve.engine import _copy_tree
 
 
@@ -145,25 +145,31 @@ class FaultInjector:
         """Return ``(copy of state, leaf name)`` with one bit flipped in
         the first plane (in the reference's flatten order) whose keyed
         path contains ``leaf_substr`` and ends in ``plane`` ('codes' |
-        'literals' | 'nlit' | 'scale' | 'zero' | 'values').  The manifest
-        is deliberately not rebuilt."""
+        'literals' | 'nlit' | 'scale' | 'zero' | 'values', and a
+        TiledPackedLinear's 'codes_t' | 'literals_t' | 'nlit_t').  The
+        manifest is deliberately not rebuilt."""
         params = _copy_tree(state.params)
         for name, holders in leaf_groups(params):
             first = holders[0][0][holders[0][1]]
-            if not isinstance(first, (PackedLinear, QuantLinear)):
+            if not isinstance(first, (PackedLinear, TiledPackedLinear,
+                                      QuantLinear)):
                 continue
+            field = {v: k for k, v in plane_keys(first).items()}.get(plane,
+                                                                     plane)
             full = f"{name}.{plane}"
-            if leaf_substr not in full or not isinstance(
-                    getattr(first, plane, None), torch.Tensor):
+            if (leaf_substr not in full
+                    or plane_keys(first).get(field, field) != plane
+                    or not isinstance(getattr(first, field, None),
+                                      torch.Tensor)):
                 continue
-            parts = [getattr(h[k], plane) for h, k in holders]
+            parts = [getattr(h[k], field) for h, k in holders]
             sizes = [p.numel() * p.element_size() for p in parts]
             b = self._draw(sum(sizes), bit)
             byte, off = b // 8, 0
             for (h, k), size in zip(holders, sizes):
                 if byte < off + size:
-                    h[k] = dataclasses.replace(h[k], **{plane: _flipped(
-                        getattr(h[k], plane), byte - off, b % 8)})
+                    h[k] = dataclasses.replace(h[k], **{field: _flipped(
+                        getattr(h[k], field), byte - off, b % 8)})
                     break
                 off += size
             return dataclasses.replace(state, params=params), full

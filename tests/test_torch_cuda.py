@@ -25,7 +25,8 @@ from repro_torch.core.blocked_codec import (TableIndex, build_lut,
                                             encode_blocked,
                                             encode_blocked_tiled)
 from repro_torch.core.codec import find_frequent_sequences
-from repro_torch.core.compressed import pack_expert_stack, quantize_linear
+from repro_torch.core.compressed import (pack_expert_stack,
+                                         pack_linear_tiled, quantize_linear)
 from repro_torch.core.policy import CompressionPolicy
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dequant_matmul as dqm
@@ -190,6 +191,11 @@ def test_dequant_matmul_on_card(card, n, k, m):
     (1, 4, 2, 40, 129, 64, 64, 89, torch.bfloat16),    # Tk = 64·2 + 1
     (4, 32, 8, 175, 207, 64, 64, 0, torch.bfloat16),   # Llama: GQA rep 4
     (4, 16, 16, 175, 207, 192, 128, 0, torch.bfloat16),  # MLA's prefill
+    (3, 4, 2, 16, 16, 16, 16, 0, torch.bfloat16),      # Llama's smoke config
+    (3, 4, 2, 70, 70, 16, 16, 0, torch.float32),
+    (3, 4, 4, 16, 16, 24, 16, 0, torch.bfloat16),      # MLA's smoke config
+    (2, 4, 4, 70, 135, 24, 16, 65, torch.bfloat16),    # Dqk 24, K tiles
+    (3, 4, 4, 37, 37, 24, 16, 0, torch.float32),
 ])
 def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
                                  dtype):
@@ -347,9 +353,9 @@ def test_dict_decode_on_card(card, n_weights, block_weights, escapes, cap):
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     x = torch.zeros((2, 64), device=card)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(torch.zeros((1, 2, 3, 16), device=card),
-                           torch.zeros((1, 2, 3, 16), device=card),
-                           torch.zeros((1, 2, 3, 16), device=card))
+        fa.flash_attention(torch.zeros((1, 2, 3, 32), device=card),
+                           torch.zeros((1, 2, 3, 32), device=card),
+                           torch.zeros((1, 2, 3, 32), device=card))
     with pytest.raises(ValueError, match="head_dim"):      # (192, 64)
         fa.flash_attention(torch.zeros((1, 2, 3, 192), device=card),
                            torch.zeros((1, 2, 3, 192), device=card),
@@ -1151,3 +1157,107 @@ def test_pool_shrink_and_regrow_recapture_the_tick_on_card(card):
                               lut=st.lut, max_new=int(max_new[i]),
                               max_len=eng.pool.max_len)[0]
             assert np.array_equal(c.tokens, want.cpu().numpy()), i
+
+
+# -- K1's column groups (TiledPackedLinear) --------------------------------
+
+@pytest.mark.parametrize("n,k,groups", [
+    (512, 2048, 2),      # Llama wk/wv at 2 groups: tile_k 512
+    (2048, 2048, 4),     # wq/wo at 4 groups: one K tile a group
+    (256, 2816, 2),      # tile_k 128, 11 tiles a group: splits, warps and
+                         # spans cross the group boundary
+    (192, 8192, 4),      # w_down's K, tile_n 64
+])
+@pytest.mark.parametrize("m", [1, 4, 9, 200])
+def test_k1_column_groups_on_card(card, n, k, groups, m):
+    """K1 over G column groups, one launch: bitwise equal to its plain
+    version and to K1 at G = 1 on the untiled planes of the same weight
+    (with the same tiles) on integer x, within 1e-4 of the output's scale
+    of the plain version on random x, at every kernel of the plan (decode
+    M ≤ 4, SIMT M = 9, tensor cores M = 200)."""
+    g = _gen(card, 12)
+    w = torch.randn((n, k), generator=g, device=card) * 0.02
+    table = find_frequent_sequences([quantize_linear(w).values])
+    tt = pack_linear_tiled(w, table, groups, tile="auto")
+    lut = build_lut(table, device=card)
+    args = (tt.codes, tt.literals, lut, tt.scale, tt.zero)
+    kw = dict(shape=(n, k), tile_n=tt.tile_n, tile_k=tt.tile_k)
+    xi, xr = _xs(m, k, g, card)
+    _check_matmul(
+        lambda x, dt: fdm.fused_decode_matmul(x, *args, **kw, out_dtype=dt),
+        lambda x, dt: fdm.fused_decode_matmul_plain(x, *args, **kw,
+                                                    out_dtype=dt), xi, xr)
+    bc = encode_blocked_tiled(quantize_linear(w).values,
+                              TableIndex(table, device=card),
+                              tile_n=tt.tile_n, tile_k=tt.tile_k)
+    _build.LAUNCH_COUNTS.clear()
+    y = fdm.fused_decode_matmul(xi, *args, **kw)
+    assert dict(_build.LAUNCH_COUNTS) == {fdm.NAME: 1}
+    assert torch.equal(y, fdm.fused_decode_matmul(
+        xi, bc.codes, bc.literals, lut, tt.scale, tt.zero, **kw))
+    assert torch.equal(fdm.fused_decode_matmul(xr, *args, **kw),
+                       fdm.fused_decode_matmul(xr, *args, **kw))
+
+
+def test_k1_and_k3_bits_unchanged_on_card(card):
+    """K1 at G = 1, K3 and K2 give, on fixed-seed inputs, the bits they
+    gave before K1's column groups and K2's smoke head dims
+    (``tools/k1_bits.py``: the CRC32 of each output, recorded on an H100
+    of 132 SMs)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "k1_bits.py"
+    spec = importlib.util.spec_from_file_location("k1_bits", path)
+    k1_bits = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(k1_bits)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    if sms not in k1_bits.EXPECTED:
+        pytest.skip(f"bits recorded for {sorted(k1_bits.EXPECTED)} SMs, "
+                    f"the card has {sms}")
+    assert k1_bits.case_outputs(card) == k1_bits.EXPECTED[sms]
+
+
+def _tiled_state(cfg, card, seed=0):
+    params = LM.init_lm(cfg, seed=seed, device=card)
+    return build_serve_params(params, CompressionPolicy(
+        min_weight_size=1024, tiles=2), device=card)
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_tiled_generate_and_engine_on_card(card, family):
+    """A tiled state (tiles=2) on the card: graphed generate gives the
+    eager loop's tokens bit for bit with its counts, every projection
+    on K1 with column groups ('tiled_fused'), expert stacks on K3, MLA's
+    tiled wkv_b absorbed by K4 (counted 'tiled'); the Engine's completions
+    equal generate's."""
+    from repro_torch.core.compressed import TiledPackedLinear
+    cfg = _engine_cfg(family)
+    st = _tiled_state(cfg, card)
+    assert isinstance(st.params["blocks"][0]["attn"]["wo"],
+                      TiledPackedLinear)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 5),
+                        device=card)
+    max_new = 9
+    want, eager_counts = _counted(lambda: _eager_loop(st, cfg, ids,
+                                                      max_new))
+    got, counts = _counted(lambda: E.generate(st.params, cfg, ids,
+                                              lut=st.lut, max_new=max_new))
+    assert torch.equal(got[:, 13:], want) and counts == eager_counts
+    launches, dispatch, materialized = counts
+    assert set(dispatch) <= {"tiled_fused", "grouped_fused"}
+    assert launches["fused_decode_matmul"] == dispatch["tiled_fused"]
+    if family == "deepseek":
+        assert materialized == {"tiled": cfg.n_layers * max_new}
+        assert launches["dict_decode"] == cfg.n_layers * max_new
+    else:
+        assert not materialized
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+                 max_len=30)
+    prompts, budgets, arrivals = _trace(cfg, card)
+    by_rid = _serve_trace(eng, prompts, budgets, arrivals)
+    for i, p in enumerate(prompts):
+        ref = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                         lut=st.lut, max_new=int(budgets[i]),
+                         max_len=eng.pool.max_len)[0]
+        assert np.array_equal(by_rid[i].tokens, ref.cpu().numpy()), i
+    eng.close()

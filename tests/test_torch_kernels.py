@@ -741,6 +741,14 @@ def test_flash_attention_operand_alignment():
         assert torch.equal(got, t)
 
 
+def _tile_block(j, kt, nnt, nkt_g, bpt):
+    """The first block of weight tile (j, kt), as ``tile_block`` in
+    csrc/fused_decode_matmul.cu finds it: K tile kt (of the whole K) lies
+    in column group kt // nkt_g."""
+    g = kt // nkt_g
+    return ((g * nnt + j) * nkt_g + kt - g * nkt_g) * bpt
+
+
 def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
                              tile_n, tile_k):
     """The work split of the card's decode-batch kernel (M ≤ 4), emulated in
@@ -754,13 +762,21 @@ def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
     128 (H = tile_k / 128 partial sums per row, one when tile_k ≤ 128)
     over the warp's tiles, and Σx the same way.  tile_k 4, 8, 16: a lane
     holds whole rows.  The partials are summed in (warp, group) order,
-    then the affine epilogue."""
+    then the affine epilogue.  Column groups (codes (G, nb, slots)): the
+    K tiles of all groups are walked as one K, each tile's blocks found by
+    :func:`_tile_block`."""
     n, k = shape
     m = x.shape[0]
+    n_groups = codes.shape[0] if codes.ndim == 3 else 1
+    codes = codes.reshape(-1, codes.shape[-1])
+    literals = literals.reshape((-1,) + tuple(literals.shape[-2:]))
     nb, slots = codes.shape
     cap = literals.shape[1]
     nnt, nkt = n // tile_n, k // tile_k
     bpt = nb // (nnt * nkt)
+    first = torch.tensor([[_tile_block(j, kt, nnt, nkt // n_groups, bpt)
+                           for kt in range(nkt)] for j in range(nnt)])
+    rows = first[..., None] + torch.arange(bpt)        # (nnt, nkt, bpt)
     plan = fdm.launch_plan(m, n, k, tile_k, 1, 132, slots)
     assert plan.kernel == "decode" and plan.splits == 1
     warps, rpb = plan.warps, 4 * slots // tile_k
@@ -768,8 +784,8 @@ def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
     steps = -(-slots // 256)
     xb = torch.zeros((4, k))
     xb[:m] = x.to(torch.bfloat16).float()
-    c_all = (codes.to(torch.int32) & 0xFFFF).reshape(nnt, nkt, bpt, slots)
-    l_all = literals.reshape(nnt, nkt, bpt, cap, 4)
+    c_all = (codes.to(torch.int32) & 0xFFFF)[rows]
+    l_all = literals[rows]
     red = torch.zeros((warps, nnt, bpt, rpb, groups, 4))
     redsx = torch.zeros((warps, groups, 4))
     lane = torch.arange(32)
@@ -937,3 +953,44 @@ def test_decode_kernel_decomposition_grouped(e, n, k, m, kind):
     else:
         assert_close_scaled(got, plain)
         assert_close_scaled(got, ref)
+
+
+@pytest.mark.parametrize("shape,groups,m", [
+    ((128, 2048), 2, 4),        # tile_k 512: one K tile a group
+    ((128, 2048), 4, 3),        # tile_k 512, 4 groups of one tile
+    ((64, 2 * 17 * 64), 2, 4),  # 17 tiles a group: warps cross the boundary
+    ((256, 1280), 2, 2),        # tile_k 128, 5 tiles a group
+])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_decode_kernel_decomposition_column_groups(shape, groups, m, kind):
+    """K1 with column groups at decode: the kernel walks the K tiles of
+    all G groups as one K, each tile finding its own block
+    (``tile_block``), so its work split over (G, nb, slots) planes is
+    bitwise equal to the plain version with groups, and to the plain
+    version at G = 1 on the untiled planes of the same weight with the
+    same tiles, on integer x; close on bf16 x."""
+    from repro_torch.core.compressed import pack_linear_tiled
+    rng = np.random.default_rng(11)
+    w = np.round(rng.standard_normal(shape) * 3).astype(np.float32) / 3
+    from repro.core.compressed import quantize_linear
+    vals = np.asarray(quantize_linear(jnp.asarray(w)).values)
+    table = jcodec.find_frequent_sequences([vals])
+    tt = pack_linear_tiled(torch.from_numpy(w), table, groups, tile="auto")
+    lut = torch.from_numpy(np.array(jbc.build_lut(table)))
+    from repro_torch.core import blocked_codec as tbc
+    bc = tbc.encode_blocked_tiled(torch.from_numpy(vals.copy()), table,
+                                  tile_n=tt.tile_n, tile_k=tt.tile_k)
+    kw = dict(shape=shape, tile_n=tt.tile_n, tile_k=tt.tile_k)
+    x = torch.from_numpy(_x(rng, m, shape[1], kind).copy())
+    got = _decode_kernel_emulation(x, tt.codes, tt.literals, lut, tt.scale,
+                                   tt.zero, **kw).numpy()
+    plain = fused_decode_matmul_plain(x, tt.codes, tt.literals, lut,
+                                      tt.scale, tt.zero, **kw).numpy()
+    untiled = fused_decode_matmul_plain(x, bc.codes, bc.literals, lut,
+                                        tt.scale, tt.zero, **kw).numpy()
+    if kind == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, untiled)
+    else:
+        assert_close_scaled(got, plain)
+        assert_close_scaled(got, untiled)

@@ -1,0 +1,159 @@
+"""The port's serving launcher (``repro_torch.launch.serve``) and the data
+pipeline it draws its prompts from (``repro_torch.train.data``), on the CPU.
+
+  * ``DataPipeline.batch_at`` gives the reference's tokens and labels for
+    several steps, from a Markov table and from a byte corpus.
+  * ``main`` runs with every flag set the launcher documents (the three
+    weight modes, ``--tiles 2``, ``--verify full``, DeepSeek's
+    ``--residency tiered``, ``--pressure-trace oscillate``), accounts for
+    every request and dispatches what the flags ask for; ``--mesh`` is
+    refused.
+  * With the reference's ``init_lm(PRNGKey(0))`` weights carried across
+    (``repro_torch.convert``), the Llama run's ``sample:`` tokens and its
+    completions by reason equal the reference launcher's, run in-process.
+"""
+import re
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config
+from repro.launch import serve as JS
+from repro.models import lm as JLM
+from repro.train.data import DataConfig as JDataConfig
+from repro.train.data import DataPipeline as JDataPipeline
+
+from repro_torch import convert
+from repro_torch.configs import get_config as tget_config
+from repro_torch.launch import serve as TS
+from repro_torch.train.data import DataConfig, DataPipeline
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("kind", ["markov", "bytes"])
+def test_batch_at_matches_reference(kind, tmp_path):
+    path = None
+    if kind == "bytes":
+        path = tmp_path / "corpus.bin"
+        path.write_bytes(np.random.default_rng(7).integers(
+            0, 256, 5000, dtype=np.uint8).tobytes())
+        path = str(path)
+    kw = dict(vocab_size=256 if kind == "bytes" else 300, batch=3,
+              seq_len=17, seed=5, kind=kind, corpus_path=path)
+    ref = JDataPipeline(JDataConfig(**kw))
+    got = DataPipeline(DataConfig(**kw))
+    for step in (0, 1, 7, 1000):
+        want, have = ref.batch_at(step), got.batch_at(step)
+        for key in ("tokens", "labels"):
+            assert have[key].dtype == torch.int32
+            np.testing.assert_array_equal(have[key].numpy(),
+                                          np.asarray(want[key]))
+    first = next(iter(got))
+    assert torch.equal(first["tokens"], got.batch_at(0)["tokens"])
+
+
+FLAG_SETS = {
+    "dense": ["--mode", "dense"],
+    "quant": ["--mode", "quant"],
+    "compressed": [],
+    "tiles": ["--tiles", "2"],
+    "verify": ["--tiles", "2", "--verify", "full"],
+    "pressure": ["--tiles", "2", "--pressure-trace", "oscillate"],
+    "tiered": ["--arch", "deepseek-v2-lite-16b", "--residency", "tiered",
+               "--tiles", "2"],
+}
+
+
+@pytest.mark.parametrize("flags", list(FLAG_SETS))
+def test_main_runs_each_flag_set_on_cpu(flags, capsys):
+    argv = ["--device", "cpu", "--batch", "3", "--max-new", "6"] \
+        + FLAG_SETS[flags]
+    out = TS.main(argv)
+    text = capsys.readouterr().out
+    assert out["reasons"] == {"max_new": 3}
+    assert out["engine"]["completed"] == 3 and out["tokens"] == 18
+    assert "completions by reason: {'max_new': 3}" in text
+    assert re.search(r"^sample: \[(\d+, ){5}\d+\]$", text, re.M)
+    dispatch = out["dispatch"]
+    if flags in ("dense", "quant"):
+        assert not dispatch and "matmul dispatch" not in text
+    elif flags == "compressed":
+        assert set(dispatch) == {"fused"}
+    else:
+        assert "tiled_fused" in dispatch and "tiled_unfused" not in dispatch
+        assert "fused" not in dispatch
+    if flags == "tiered":
+        assert set(dispatch) == {"tiled_fused", "grouped_fused"}
+        assert out["residency"]["miss"] > 0
+        assert re.search(r"^residency: hits \d+", text, re.M)
+        assert "expert cache:" in text
+    if flags == "verify":
+        assert "verify[full]: ok" in text
+        assert "verify[invariant]: ok" in text
+    if flags == "pressure":
+        assert re.search(r"^pressure: plan_changes \d+", text, re.M)
+        assert "pressure trace: oscillate" in text
+    if flags != "dense" and flags != "quant":
+        assert out["health"]["last_rung"] == "fused"
+        assert not out["health"]["fallbacks"]
+
+
+def test_pressure_trace_low_watermark_forces_a_reclaim(capsys):
+    """Oscillating down to a 1 MiB low watermark under the 4 GiB boot
+    budget: the governor retires KV pages and regrows them, refuses what
+    arrives below its floor, and every request is accounted for."""
+    out = TS.main(["--device", "cpu", "--batch", "4", "--max-new", "4",
+                   "--tiles", "2", "--pressure-trace", "oscillate",
+                   "--pressure-low-mib", "1"])
+    text = capsys.readouterr().out
+    assert sum(out["reasons"].values()) == 4
+    assert set(out["reasons"]) <= {"max_new", "pressure"}
+    assert out["pressure"]["plan_changes"] > 0
+    assert "retire_kv" in out["pressure"]["rung_latency_s"]
+    assert re.search(r"^pressure: plan_changes [1-9]", text, re.M)
+
+
+def test_mesh_is_refused(capsys):
+    with pytest.raises(SystemExit) as e:
+        TS.main(["--device", "cpu", "--mesh", "2,4"])
+    assert e.value.code != 0
+    assert "queue 1 item 11" in capsys.readouterr().err
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.main(["--batch", "1", "--max-new", "2"])
+
+
+def _summary(text: str):
+    sample = re.search(r"^sample: (\[.*\])$", text, re.M).group(1)
+    reasons = re.search(r"^completions by reason: (\{.*\})$", text,
+                        re.M).group(1)
+    return sample, reasons
+
+
+@pytest.mark.parametrize("tiles", [0, 2])
+def test_llama_run_matches_reference_launcher(tiles, capsys, monkeypatch):
+    """The reference's launcher and the port's, on the reference's weights:
+    the same sample tokens and completions by reason (the Engine's greedy
+    tokens are the port's generate, held to the reference's there)."""
+    argv = ["--batch", "3", "--max-new", "8", "--tiles", str(tiles)]
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    JS.main()
+    ref = _summary(capsys.readouterr().out)
+    cfg = get_config("llama3.2-1b").smoke
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, JLM.init_lm(
+            jax.random.PRNGKey(0), cfg, jnp.float32)),
+        tget_config("llama3.2-1b").smoke, device="cpu")
+    TS.main(argv + ["--device", "cpu"], params=params)
+    got = _summary(capsys.readouterr().out)
+    assert got == ref

@@ -27,14 +27,15 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 
 
 # modules of the MoE slice, of request-level serving, of integrity and
-# resilience, and of tiered residency and the governor, which the walk
-# below must reach
+# resilience, of tiered residency and the governor, and of the serving
+# launcher and its data pipeline, which the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
                "repro_torch.serve.scheduler", "repro_torch.core.integrity",
                "repro_torch.testing.faults", "repro_torch.serve.residency",
-               "repro_torch.serve.governor", "repro_torch.core.policy")
+               "repro_torch.serve.governor", "repro_torch.core.policy",
+               "repro_torch.launch.serve", "repro_torch.train.data")
 
 
 def test_port_imports_no_jax_and_no_reference():

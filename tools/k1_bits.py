@@ -1,0 +1,141 @@
+"""The bits of K1, K3 and K2 on fixed-seed inputs, for holding a kernel
+change to "unchanged bit for bit".
+
+    python3 tools/k1_bits.py [--src DIR] [--check]
+
+Imports the port from ``--src`` (default: this checkout's ``src``),
+builds its fused decode-matmul kernel on the CUDA card, and runs K1 on
+untiled planes (G = 1) and K3 on expert stacks (``CASES``: the decode
+kernel at M ≤ 4, the SIMT kernel, the tensor-core kernel) on weights and
+x drawn with numpy from one seed, so that two trees see the same inputs,
+and K2 (its flash-attention kernels) at the main paths' prefill shapes
+(``FLASH_CASES``: the tensor-core kernel on bf16, the SIMT kernel on f32
+q).
+Prints one JSON line: the CRC32 of each case's output bytes, the card's
+name and SM count.  ``--check`` compares them with ``EXPECTED`` (taken
+from an earlier tree on an H100 of 132 SMs; the plan, and so the order
+of the sums, depends on the SM count) and exits 1 on a difference.
+
+Only functions of the port that every tree since K3 has are used:
+``fused_decode_matmul`` and ``grouped_fused_decode_matmul`` on 2-D and
+stacked planes, ``pack_expert_stack`` to pack, ``flash_attention``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import zlib
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SEED = 0
+
+# (name, experts E (0: K1 on one weight), N, K, M, x kind)
+CASES = (
+    ("k1_decode", 0, 2048, 2048, 4, "rand"),
+    ("k1_decode_int", 0, 2048, 2048, 4, "int"),
+    ("k1_decode_t128", 0, 2048, 1408, 3, "rand"),
+    ("k1_simt", 0, 512, 2048, 9, "rand"),
+    ("k1_mma", 0, 1024, 2048, 300, "rand"),
+    ("k1_mma_int", 0, 1024, 2048, 300, "int"),
+    ("k3_decode", 8, 1408, 2048, 4, "rand"),
+    ("k3_mma", 8, 2048, 1408, 130, "rand"),
+)
+
+# (name, B, Hq, Hkv, T, Dqk, Dv, q dtype): keys T + 32, q_offset 0
+FLASH_CASES = (
+    ("k2_mma_64", 4, 32, 8, 175, 64, 64, "bf16"),
+    ("k2_mma_192", 4, 16, 16, 175, 192, 128, "bf16"),
+    ("k2_simt_64", 4, 32, 8, 175, 64, 64, "f32"),
+    ("k2_simt_192", 4, 16, 16, 175, 192, 128, "f32"),
+)
+
+# CRC32 of each case's output on an H100 80GB HBM3 (132 SMs), from the
+# tree before K1's column groups and K2's smoke head dims (and the same
+# from the tree with them); the key is the SM count the plans were made for
+EXPECTED: dict = {132: {
+    "k1_decode": 2086993932, "k1_decode_int": 1476962406,
+    "k1_decode_t128": 911195632, "k1_simt": 846810400,
+    "k1_mma": 34615304, "k1_mma_int": 942546493,
+    "k3_decode": 360643931, "k3_mma": 3723757787,
+    "k2_mma_64": 3481377767, "k2_mma_192": 505407163,
+    "k2_simt_64": 1568519408, "k2_simt_192": 484588909}}
+
+
+def case_outputs(device) -> dict:
+    """{case: CRC32 of the output bytes} for ``CASES`` on ``device``."""
+    from repro_torch.core.compressed import pack_expert_stack
+    from repro_torch.kernels import fused_decode_matmul as fdm
+    out = {}
+    for name, e, n, k, m, kind in CASES:
+        rng = np.random.default_rng([SEED, n, k, m, e])
+        ws = [torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)
+                               * 0.02).to(device) for _ in range(max(e, 1))]
+        pl, lut = pack_expert_stack(ws)
+        del ws
+        shape = (max(e, 1), m, k)
+        if kind == "int":
+            x = rng.integers(-4, 5, shape).astype(np.float32)
+        else:
+            x = rng.standard_normal(shape).astype(np.float32)
+        x = torch.from_numpy(x).to(device).to(torch.bfloat16)
+        kw = dict(shape=tuple(pl.shape), tile_n=pl.tile_n, tile_k=pl.tile_k,
+                  out_dtype=torch.float32)
+        if e == 0:
+            y = fdm.fused_decode_matmul(x[0], pl.codes[0], pl.literals[0],
+                                        lut, pl.scale[0], pl.zero[0], **kw)
+        else:
+            y = fdm.grouped_fused_decode_matmul(x, pl.codes, pl.literals,
+                                                lut, pl.scale, pl.zero, **kw)
+        out[name] = zlib.crc32(y.contiguous().cpu().numpy().tobytes())
+    from repro_torch.kernels import flash_attention as fa
+    for name, b, hq, hkv, t, d, dv, qdt in FLASH_CASES:
+        rng = np.random.default_rng([SEED, b, hq, t, d, dv])
+
+        def draw(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(device).to(torch.bfloat16)
+
+        q = draw(b, hq, t, d)
+        k, v = draw(b, hkv, t + 32, d), draw(b, hkv, t + 32, dv)
+        if qdt == "f32":
+            q = q.float()
+        y = fa.flash_attention(q, k, v)
+        out[name] = zlib.crc32(y.contiguous().cpu().float().numpy()
+                               .tobytes())
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--check", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("k1_bits: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    crcs = case_outputs(device)
+    print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
+                      "sms": sms, "crc32": crcs}), flush=True)
+    if args.check:
+        want = EXPECTED.get(sms)
+        if want is None:
+            print(f"k1_bits: no expected bits for {sms} SMs",
+                  file=sys.stderr)
+            return 1
+        bad = {k: (v, want[k]) for k, v in crcs.items() if want[k] != v}
+        if bad:
+            print(f"k1_bits: bits changed: {bad}", file=sys.stderr)
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
