@@ -226,6 +226,13 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def by_kernel(kernel_launches: dict, name: str) -> dict:
+    """The launches of wrapper ``name`` by kernel ({kernel: n}) from a
+    run's ``_build.KERNEL_COUNTS``."""
+    return {key.split(":", 1)[1]: v for key, v in kernel_launches.items()
+            if key.split(":", 1)[0] == name}
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -401,17 +408,23 @@ def dequant_launch(dqm, m, n, k):
     return {f: v for f, v in plan._asdict().items() if v or f == "kernel"}
 
 
-def check_dequant(rt, head, device, gen, timer):
-    """K5 on the int8 LM head at M = batch: bitwise on integer x, within
-    MATMUL_RTOL on random x, two calls with the same bits."""
+def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True):
+    """K5 at M = ``m`` on the uint8 weight ``wq`` (N, K) with its scale and
+    zero (``wb``: the same weight dequantized to bf16, for the library
+    call): bitwise equal to the plain version on integer x, within
+    MATMUL_RTOL on random x, two calls with the same bits.  Timed as
+    CUDA-graph replays, with the L2 wiped before each call where the
+    weight fits it; the plain version by single calls (``plain``), and
+    ``torch.matmul`` on ``wb`` the same way as the kernel.  → the row."""
     dqm = rt["dqm"]
-    n, k = head.values.shape
-    args = (head.values, head.scale, head.zero)
-    xi = int_x(BATCH, k, gen, device)
+    device = wq.device
+    n, k = wq.shape
+    args = (wq, scale, zero)
+    xi = int_x(m, k, gen, device)
     same = bool(torch.equal(dqm.dequant_matmul(xi, *args),
                             dqm.dequant_matmul_plain(xi, *args,
                                                      torch.bfloat16)))
-    xr = rand_x(BATCH, k, gen, device)
+    xr = rand_x(m, k, gen, device)
     yk = dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)
     yp = dqm.dequant_matmul_plain(xr, *args, torch.float32)
     err = float((yk - yp).abs().max())
@@ -419,23 +432,39 @@ def check_dequant(rt, head, device, gen, timer):
     again = bool(torch.equal(
         yk, dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)))
     if not (same and again and err <= tol and torch.isfinite(yk).all()):
-        raise AssertionError(f"K5 bitwise={same} err={err} tol={tol} "
-                             f"repeatable={again}")
-    wb = head.materialize(torch.bfloat16)
-    b, by = bound_ms(nbytes(xr, *args) + BATCH * n * 2, 2.0 * BATCH * n * k)
-    row = {"name": "dequant_matmul", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
-           "replaces": "src/repro/kernels/dequant_matmul.py:69",
-           "bitwise": same, "max_abs_err": err,
-           "launch": dequant_launch(dqm, BATCH, n, k),
-           "timed_at": f"LM head {n}x{k}, M={BATCH}",
-           # a 210-263 MB weight exceeds the L2 on its own
-           "ms": timer.graph_ms([lambda: dqm.dequant_matmul(xr, *args)] * 4),
-           "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
-               xr, *args, torch.bfloat16)),
-           "library_ms": timer.graph_ms([lambda: xr @ wb.T] * 4),
-           "bound_ms": b, "bound_by": by}
-    return row
+        raise AssertionError(f"K5 ({m}, {n}, {k}): bitwise={same} err={err}"
+                             f" tol={tol} repeatable={again}")
+    b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
+    return {"bitwise": same, "max_abs_err": err,
+            "launch": dequant_launch(dqm, m, n, k),
+            "ms": weight_graph_ms(timer, wq, lambda: dqm.dequant_matmul(
+                xr, *args)),
+            "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
+                xr, *args, torch.bfloat16)) if plain else None,
+            "library_ms": weight_graph_ms(timer, wq, lambda: xr @ wb.T),
+            "bound_ms": b, "bound_by": by}
+
+
+def weight_graph_ms(timer, w, fn) -> float:
+    """``timer.graph_ms`` of a call that reads weight ``w``: with the L2
+    wiped before each call where ``w`` fits it, else 4 calls a replay."""
+    if nbytes(w) < L2_BYTES:
+        return timer.graph_ms([fn], reps=20, cold=True)
+    return timer.graph_ms([fn] * 4)
+
+
+K5_ROW = {"name": "dequant_matmul", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
+          "replaces": "src/repro/kernels/dequant_matmul.py:69"}
+
+
+def check_dequant(rt, head, gen, timer):
+    """K5 on the int8 LM head at M = batch (``check_k5``)."""
+    n, k = head.values.shape
+    return {**K5_ROW, **check_k5(rt, head.values, head.scale, head.zero,
+                                 head.materialize(torch.bfloat16), BATCH,
+                                 gen, timer),
+            "timed_at": f"LM head {n}x{k}, M={BATCH}"}
 
 
 def _sdpa(q, k, v):
@@ -672,10 +701,10 @@ def check_dict_decode(rt, w, lut, timer):
             **({"grid": main["grid"]} if "grid" in main else {})}, rows
 
 
-def pack(rt, cfg, device, seed, tiles=0):
-    """Seeded weights on the card, packed in compressed mode with the
-    default policy (``tiles``: its column groups); the dense weights are
-    freed.  → (state, timings)."""
+def pack(rt, cfg, device, seed, tiles=0, mode="compressed"):
+    """Seeded weights on the card, packed in ``mode`` with the default
+    policy (``tiles``: its column groups); the dense weights are freed.
+    → (state, timings)."""
     LM = rt["LM"]
     t0 = time.perf_counter()
     params = LM.init_lm(cfg, seed=seed, device=device)
@@ -684,17 +713,18 @@ def pack(rt, cfg, device, seed, tiles=0):
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     state = rt["build_serve_params"](
-        params, rt["CompressionPolicy"](mode="compressed", tiles=tiles),
+        params, rt["CompressionPolicy"](mode=mode, tiles=tiles),
         device=device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     del params
     torch.cuda.empty_cache()
-    log(f"pack: {cfg.name} ({cfg.n_layers} layers, tiles {tiles}) init "
+    log(f"pack: {cfg.name} ({cfg.n_layers} layers, {mode}, tiles {tiles}) "
+        "init "
         f"{init_s:.2f} s, "
         f"build_serve_params {pack_s:.2f} s (peak {peak} B), table "
-        f"{len(state.table)} codes, stats {json.dumps(state.stats)}")
+        f"{len(state.table or ())} codes, stats {json.dumps(state.stats)}")
     return state, {"init_s": init_s, "pack_s": pack_s,
                    "pack_peak_mem_bytes": peak}
 
@@ -721,11 +751,12 @@ def eager_loop(rt, cfg, state, ids):
 
 
 def serve(rt, cfg, state, device, batch, lens, want, packed_want,
-          dispatch_want=None):
+          dispatch_want=None, kernel_want=None):
     """The main path.  The eager decode loop first; then ``generate``
     twice: the first call runs an eager step and captures the decode step,
     the second only replays it.  Counts are zeroed just before each of the
-    three and read just after; each must count ``want`` launches,
+    three and read just after; each must count ``want`` launches (and,
+    where given, ``kernel_want`` launches by wrapper and kernel),
     ``packed_want`` materializations and (where given) ``dispatch_want``
     dispatches, the first generate one capture and the second none, and
     both give the eager loop's tokens bit for bit.
@@ -739,8 +770,9 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     ids = torch.as_tensor(batch, device=device)
 
     def counted(fn):
-        for c in (_build.LAUNCH_COUNTS, L.MATERIALIZE_COUNTS,
-                  ops.DISPATCH_COUNTS, E.CAPTURE_COUNTS):
+        for c in (_build.LAUNCH_COUNTS, _build.KERNEL_COUNTS,
+                  L.MATERIALIZE_COUNTS, ops.DISPATCH_COUNTS,
+                  E.CAPTURE_COUNTS):
             c.clear()
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
@@ -749,6 +781,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
         torch.cuda.synchronize()
         return out, {"s": time.perf_counter() - t0,
                      "launches": dict(_build.LAUNCH_COUNTS),
+                     "kernel_launches": dict(_build.KERNEL_COUNTS),
                      "materialize_counts": dict(L.MATERIALIZE_COUNTS),
                      "dispatch_counts": dict(ops.DISPATCH_COUNTS),
                      "captures": E.CAPTURE_COUNTS["decode_loop"],
@@ -807,9 +840,11 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
            "eager_peak_mem_bytes": eager_run["peak_mem_bytes"],
            "graph_pool_bytes": sum(pool), "graph_pool_segments": len(pool),
            "stats": state.stats, "launches": replay_run["launches"],
+           "kernel_launches": replay_run["kernel_launches"],
            "materialize_counts": replay_run["materialize_counts"],
            "dispatch_counts": replay_run["dispatch_counts"],
-           "runs": {k: {n: r[n] for n in ("s", "launches", "captures",
+           "runs": {k: {n: r[n] for n in ("s", "launches",
+                                          "kernel_launches", "captures",
                                           "materialize_counts")}
                     for k, r in runs.items()},
            "first_request_tokens": new[0].tolist(), "tokens": new.tolist()}
@@ -829,9 +864,13 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
                 run["materialize_counts"].get(k, 0) != v
                 for k, v in packed_want.items()) or (
                 dispatch_want is not None
-                and run["dispatch_counts"] != dispatch_want):
+                and run["dispatch_counts"] != dispatch_want) or (
+                kernel_want is not None
+                and run["kernel_launches"] != kernel_want):
             faults.append(f"{name}: launches {run['launches']} (want "
-                          f"{want}), materialize {run['materialize_counts']}"
+                          f"{want}), by kernel {run['kernel_launches']} "
+                          f"(want {kernel_want}), materialize "
+                          f"{run['materialize_counts']}"
                           f" (want {packed_want}), dispatch "
                           f"{run['dispatch_counts']} (want {dispatch_want})")
     if [r["captures"] for r in runs.values()] != [0, 1, 0]:
@@ -868,8 +907,10 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
     occupied at once and a request joined mid-decode; one capture of the
     generate step; the launches of (ticks + admissions) decode steps and
     prefills, each K1 launch one ``dispatch`` (its probe: 'fused', or
-    'tiled_fused' for a tiled state); no weight materialized; every page
-    back on the free list.  Raises on any difference; → the numbers."""
+    'tiled_fused' for a tiled state; None for a quant-mode state, whose
+    projections all launch K5 and dispatch nothing); no weight
+    materialized; every page back on the free list.  Raises on any
+    difference; → the numbers."""
     _build, L, ops, E = rt["_build"], rt["L"], rt["ops"], rt["engine"]
     lens, prompts, budgets, arrivals = engine_requests(cfg)
     eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
@@ -885,8 +926,8 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
         return out
 
     eng._prefill = timed_prefill
-    for c in (_build.LAUNCH_COUNTS, L.MATERIALIZE_COUNTS,
-              ops.DISPATCH_COUNTS, E.CAPTURE_COUNTS):
+    for c in (_build.LAUNCH_COUNTS, _build.KERNEL_COUNTS,
+              L.MATERIALIZE_COUNTS, ops.DISPATCH_COUNTS, E.CAPTURE_COUNTS):
         c.clear()
     torch.cuda.reset_peak_memory_stats(device)
     torch.cuda.synchronize()
@@ -906,6 +947,7 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCH_COUNTS)
+    kernel_counts = dict(_build.KERNEL_COUNTS)
     materialized = dict(L.MATERIALIZE_COUNTS)
     dispatched = dict(ops.DISPATCH_COUNTS)
     captures = E.CAPTURE_COUNTS["generate_step"]
@@ -927,6 +969,7 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
             "capture_ms": eng.capture_ms,
             "pool_device_bytes": eng.pool.device_bytes(),
             "peak_mem_bytes": peak, "launches": launches,
+            "kernel_launches": kernel_counts,
             "materialize_counts": materialized, "dispatch": dispatched,
             "captures": captures, "health": h}
     faults = []
@@ -950,13 +993,27 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
     if mismatched:
         faults.append(f"requests {mismatched} differ from generate")
     n_steps = ticks + ENGINE_REQUESTS
-    want_launches = {"fused_decode_matmul": 7 * cfg.n_layers * n_steps,
-                     "dequant_matmul": n_steps,
+    proj = 7 * cfg.n_layers * n_steps
+    want_launches = {"fused_decode_matmul": proj, "dequant_matmul": n_steps,
                      "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
+    want_dispatch = {dispatch: proj}
+    if dispatch is None:
+        want_launches = {"dequant_matmul": proj + n_steps,
+                         "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
+        want_dispatch = {}
+        # the admissions' projections on K5's tensor-core kernel (every
+        # prompt is longer than 4), the ticks' and every head on the
+        # decode kernel
+        want_kernels = {
+            "dequant_matmul:mma": 7 * cfg.n_layers * ENGINE_REQUESTS,
+            "dequant_matmul:decode": proj + n_steps
+            - 7 * cfg.n_layers * ENGINE_REQUESTS}
+        if kernel_counts != want_kernels:
+            faults.append(f"by kernel {kernel_counts}, want {want_kernels}")
     if launches != want_launches:
         faults.append(f"launches {launches}, want {want_launches}")
-    if dispatched != {dispatch: want_launches["fused_decode_matmul"]}:
-        faults.append(f"dispatch {dispatched}, want {dispatch} only")
+    if dispatched != want_dispatch:
+        faults.append(f"dispatch {dispatched}, want {want_dispatch}")
     if materialized:
         faults.append(f"materialized {materialized}")
     if captures != 1:
@@ -992,8 +1049,9 @@ def counted_run(rt, fn):
     counters zeroed just before and read just after; → (out, run)."""
     _build, L, ops, E, R = (rt["_build"], rt["L"], rt["ops"], rt["engine"],
                             rt["resilience"])
-    counters = (_build.LAUNCH_COUNTS, ops.DISPATCH_COUNTS,
-                L.MATERIALIZE_COUNTS, E.CAPTURE_COUNTS, R.FALLBACK_COUNTS)
+    counters = (_build.LAUNCH_COUNTS, _build.KERNEL_COUNTS,
+                ops.DISPATCH_COUNTS, L.MATERIALIZE_COUNTS, E.CAPTURE_COUNTS,
+                R.FALLBACK_COUNTS)
     for c in counters:
         c.clear()
     torch.cuda.synchronize()
@@ -1002,6 +1060,7 @@ def counted_run(rt, fn):
     torch.cuda.synchronize()
     return out, {"s": time.perf_counter() - t0,
                  "launches": dict(_build.LAUNCH_COUNTS),
+                 "kernel_launches": dict(_build.KERNEL_COUNTS),
                  "dispatch": dict(ops.DISPATCH_COUNTS),
                  "materialized": dict(L.MATERIALIZE_COUNTS),
                  "captures": dict(E.CAPTURE_COUNTS),
@@ -1082,15 +1141,16 @@ def compare_rung_tokens(rt, cfg, state, ids, fused, got, rung, faults):
     return out
 
 
-def check_unfused_kernels(rt, w, lut, device, gen, timer, m_prefill,
-                          launches):
+def check_unfused_kernels(rt, w, lut, device, gen, timer, m_prefill, run):
     """K4 and K5 at the unfused rung's call sites, on the largest Llama
     projection (w_gate, 8192 × 2048): K4 decodes its planes (bitwise
     against the plain version, two calls equal); K5 multiplies the decoded
     weight at M = batch and at the prefill's M (bitwise on integer x,
     within MATMUL_RTOL on random x).  Timed as CUDA-graph replays with the
-    L2 wiped before each call (planes and weight fit it)."""
+    L2 wiped before each call (planes and weight fit it).  Launches from
+    the unfused rung's ``run`` (counted_run)."""
     ddc, dqm = rt["ddc"], rt["dqm"]
+    launches = run["launches"]
     codes, lits = w.codes, w.literals
     got = ddc.dict_decode(codes, lits, lut)
     same = bool(torch.equal(got, ddc.dict_decode_plain(codes, lits, lut))
@@ -1121,38 +1181,10 @@ def check_unfused_kernels(rt, w, lut, device, gen, timer, m_prefill,
           "launches": launches.get("dict_decode", 0)}
     wq = w.materialize_int8(lut)
     n, k = wq.shape
-    args = (wq, w.scale, w.zero)
     wb = w.materialize(lut, torch.bfloat16)
-    rows = {}
-    for m in (BATCH, m_prefill):
-        xi = int_x(m, k, gen, device)
-        bit = bool(torch.equal(dqm.dequant_matmul(xi, *args),
-                               dqm.dequant_matmul_plain(xi, *args,
-                                                        torch.bfloat16)))
-        xr = rand_x(m, k, gen, device)
-        yk = dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)
-        yp = dqm.dequant_matmul_plain(xr, *args, torch.float32)
-        err = float((yk - yp).abs().max())
-        tol = MATMUL_RTOL * float(yp.abs().max())
-        if not (bit and err <= tol and torch.isfinite(yk).all()):
-            raise AssertionError(f"K5 on decoded w_gate M={m}: bitwise={bit}"
-                                 f" err={err} tol={tol}")
-        bb, bby = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
-        rows[m] = {"bitwise": bit, "max_abs_err": err,
-                   "ms": timer.graph_ms(
-                       [lambda: dqm.dequant_matmul(xr, *args)], reps=20,
-                       cold=True),
-                   "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
-                       xr, *args, torch.bfloat16)),
-                   "library_ms": timer.graph_ms([lambda: xr @ wb.T],
-                                                reps=20, cold=True),
-                   "bound_ms": bb, "bound_by": bby,
-                   "launch": dequant_launch(dqm, m, n, k)}
-    dec, pre = rows[BATCH], rows[m_prefill]
-    k5 = {"name": "dequant_matmul", "route": "cuda",
-          "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
-          "replaces": "src/repro/kernels/dequant_matmul.py:69",
-          "call_site": "unfused rung: ops.decode_dequant_matmul",
+    dec, pre = (check_k5(rt, wq, w.scale, w.zero, wb, m, gen, timer)
+                for m in (BATCH, m_prefill))
+    k5 = {**K5_ROW, "call_site": "unfused rung: ops.decode_dequant_matmul",
           "bitwise": dec["bitwise"] and pre["bitwise"],
           "max_abs_err": max(dec["max_abs_err"], pre["max_abs_err"]),
           "timed_at": f"decoded Llama w_gate {n}x{k}, M={BATCH}",
@@ -1163,7 +1195,9 @@ def check_unfused_kernels(rt, w, lut, device, gen, timer, m_prefill,
                                               "bound_ms", "bound_by",
                                               "launch")},
           "prefill_timed_at": f"the same weight at M={m_prefill}",
-          "launches": launches.get("dequant_matmul", 0)}
+          "launches": launches.get("dequant_matmul", 0),
+          "launches_by_kernel": by_kernel(run["kernel_launches"],
+                                          dqm.NAME)}
     return [k4, k5]
 
 
@@ -1485,7 +1519,8 @@ def moe_rungs(rt, device, batch, faults):
 def zero_counts(rt):
     """Zero the launch, materialize, dispatch, capture, fallback and
     residency counters."""
-    for c in (rt["_build"].LAUNCH_COUNTS, rt["L"].MATERIALIZE_COUNTS,
+    for c in (rt["_build"].LAUNCH_COUNTS, rt["_build"].KERNEL_COUNTS,
+              rt["L"].MATERIALIZE_COUNTS,
               rt["ops"].DISPATCH_COUNTS, rt["engine"].CAPTURE_COUNTS,
               rt["resilience"].FALLBACK_COUNTS,
               rt["residency"].RESIDENCY_COUNTS):
@@ -2120,13 +2155,16 @@ def tiled_phase(rt, cfg, untiled, device, batch, lens, gen, timer,
         failed.append(f"{cfg.name} tiled")
 
 
-def tiled_moe(rt, device, batch, lens, gen, faults):
+def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
     """DeepSeek-V2-Lite at full width, 2 layers, CompressionPolicy(tiles=
     2): K1 with column groups at MLA's and the MLPs' shapes against its
     plain version (bitwise on integer x, within MATMUL_RTOL on random x);
-    K4 decoding the tiled wkv_b (the absorb's weight) bitwise against its
-    plain decode; the main path with every projection on 'tiled_fused',
-    the expert stacks on K3 and the absorb counted 'tiled'."""
+    where the plan gives K1's SIMT kernel (the first w_down's groups at
+    tile_k 32, at the prefill's M) its time, bound, plain and
+    ``torch.matmul`` times, a row of ``kernels``; K4 decoding the tiled
+    wkv_b (the absorb's weight) bitwise against its plain decode; the main
+    path with every projection on 'tiled_fused', the expert stacks on K3
+    and the absorb counted 'tiled'."""
     fdm = rt["fdm"]
     cfg = dataclasses.replace(rt["get_config"]("deepseek-v2-lite-16b").full,
                               n_layers=2)
@@ -2158,10 +2196,35 @@ def tiled_moe(rt, device, batch, lens, gen, faults):
             yp = fdm.fused_decode_matmul_plain(xr, *args, **kw)
             err = float((yk - yp).abs().max())
             ok = same and err <= MATMUL_RTOL * float(yp.abs().max())
+            plan = launch_info(fdm, m, w, 1)
             checks.append({"proj": label, "shape": list(w.shape), "M": m,
                            "G": w.tiles, "tile": [w.tile_n, w.tile_k],
-                           "bitwise": same, "max_abs_err": err,
-                           **launch_info(fdm, m, w, 1)})
+                           "bitwise": same, "max_abs_err": err, **plan})
+            if plan["kernel"] == "simt":
+                n, k = w.shape
+                wb = w.materialize(st.lut, torch.bfloat16)
+                b, by = bound_ms(nbytes(xr, *args) + m * n * 2,
+                                 2.0 * m * n * k)
+                kernels.append({
+                    "name": fdm.NAME, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "fused_decode_matmul.cu",
+                    "replaces": "src/repro/kernels/fused_decode_matmul.py"
+                                ":114",
+                    "path": f"{cfg.name} tiled (SIMT kernel)",
+                    "timed_at": f"{label} {tuple(w.shape)}, G={w.tiles}, "
+                                f"tile_k {w.tile_k}, M={m}",
+                    "bitwise": same, "max_abs_err": err, "launch": plan,
+                    "ms": timer.graph_ms([lambda: fdm.fused_decode_matmul(
+                        xr, *args, **kw)], reps=20, cold=True),
+                    "plain_ms": timer.ms(lambda: fdm.fused_decode_matmul_plain(
+                        xr, *args, **kw, out_dtype=torch.bfloat16)),
+                    "library_ms": timer.graph_ms([lambda: xr @ wb.T],
+                                                 reps=20, cold=True),
+                    "library": "torch.matmul on the bf16 weight",
+                    "bound_ms": b, "bound_by": by,
+                    "launches_of": "fused_decode_matmul:simt, generate"})
+                del wb
             if not ok:
                 faults.append(f"K1 G=2 {label} {w.shape} M={m}: bitwise "
                               f"{same}, err {err}")
@@ -2180,6 +2243,10 @@ def tiled_moe(rt, device, batch, lens, gen, faults):
                      "tiled": L * MAX_NEW},
         dispatch_want={"tiled_fused": 6 * L * MAX_NEW,
                        "grouped_fused": 3 * n_moe * MAX_NEW})
+    for row in kernels:
+        if row.get("launches_of") == "fused_decode_matmul:simt, generate":
+            row["launches"] = e2e["kernel_launches"].get(
+                "fused_decode_matmul:simt", 0)
     info = {"model": cfg.name, "layers": L, "packing": packing,
             "k1_checks": checks, "k4_tiled_wkv_b_bitwise": k4_same,
             "wkv_b": {"shape": list(wkv_b.shape), "G": wkv_b.tiles,
@@ -2191,9 +2258,170 @@ def tiled_moe(rt, device, batch, lens, gen, faults):
     return info
 
 
+# ---------------------------------------------------------------------------
+# Quant mode: every projection a QuantLinear through K5.
+# ---------------------------------------------------------------------------
+
+# The prefill M at which quant_phase times K5 on each distinct Llama
+# projection: the fixed batch's 4 × 175 and one engine admission's 175
+QUANT_K5_M = (700, 175)
+
+
+def quant_counts(rt, cfg, state, ids, faults):
+    """K5 and K2 launches of one quant-mode prefill and of one eager
+    decode step after it, each counted alone, with nothing materialized
+    and no fallback: 7 projections a layer and the head, K2 at the
+    prefill only; the prefill's projections on K5's tensor-core kernel,
+    its head (the last position's 4 rows) and the step on the decode
+    kernel.  → the counts."""
+    _build, L = rt["_build"], rt["L"]
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=ids.device)
+    caches = rt["LM"].init_caches(cfg, BATCH, ids.shape[1] + 1,
+                                  device=ids.device)
+    out = {}
+    for what in ("prefill", "step"):
+        _build.LAUNCH_COUNTS.clear()
+        _build.KERNEL_COUNTS.clear()
+        L.MATERIALIZE_COUNTS.clear()
+        if what == "prefill":
+            logits, caches = prefill(state.params, state.lut,
+                                     {"tokens": ids}, caches)
+        else:
+            decode_step(state.params, state.lut,
+                        torch.argmax(logits, dim=-1)[:, None], caches,
+                        ids.shape[1])
+        torch.cuda.synchronize()
+        out[what] = dict(_build.LAUNCH_COUNTS)
+        out[f"{what}_by_kernel"] = dict(_build.KERNEL_COUNTS)
+        want = {"dequant_matmul": 7 * cfg.n_layers + 1}
+        want_kernels = {"dequant_matmul:decode": 7 * cfg.n_layers + 1}
+        if what == "prefill":
+            want["flash_attention"] = cfg.n_layers
+            want_kernels = {"dequant_matmul:mma": 7 * cfg.n_layers,
+                            "dequant_matmul:decode": 1}
+        if out[what] != want or out[f"{what}_by_kernel"] != want_kernels \
+                or L.MATERIALIZE_COUNTS:
+            faults.append(f"quant {what}: launches {out[what]} (want "
+                          f"{want}), by kernel {out[f'{what}_by_kernel']} "
+                          f"(want {want_kernels}), materialized "
+                          f"{dict(L.MATERIALIZE_COUNTS)}")
+    return out
+
+
+def quant_phase(rt, cfg, compressed, device, batch, lens, fused_tokens,
+                gen, timer, kernels, failed):
+    """Llama-3.2-1B at full width in quant mode, packed from the same
+    seeded weights as the compressed state: nothing materialized (the
+    embedding gathers rows, the tied head is a QuantLinear), every
+    projection and the head through K5 (the tensor-core kernel at the
+    prefill's M, the decode kernel at the steps'), 113 launches a prefill
+    and a step.  The fixed batch through ``serve`` (graphed tokens bitwise
+    to the eager loop), its tokens against the compressed state's (equal,
+    or apart at a fused top-2 gap ≤ RUNG_LOGIT_ATOL: the same int8
+    weights, sums in another order), the engine's requests bitwise to
+    ``generate``; then K5 at QUANT_K5_M on each distinct projection shape
+    (rows of ``kernels``).  → the info."""
+    faults, info = [], {}
+    ids = torch.as_tensor(batch, device=device)
+    n = cfg.n_layers
+    try:
+        state, info["packing"] = pack(rt, cfg, device, SEED, mode="quant")
+        info["counts"] = quant_counts(rt, cfg, state, ids, faults)
+        e2e = serve(rt, cfg, state, device, batch, lens, want={
+            "dequant_matmul": (7 * n + 1) * MAX_NEW, "flash_attention": n},
+            packed_want={"quant": 0, "packed": 0}, dispatch_want={},
+            kernel_want={"dequant_matmul:mma": 7 * n,
+                         "dequant_matmul:decode":
+                             (7 * n + 1) * MAX_NEW - 7 * n})
+        info["e2e"] = e2e
+        for name, run in e2e["runs"].items():
+            if run["materialize_counts"]:
+                faults.append(f"{name} materialized "
+                              f"{run['materialize_counts']}")
+        info["vs_compressed"] = compare_rung_tokens(
+            rt, cfg, compressed, ids,
+            torch.as_tensor(fused_tokens, device=device),
+            torch.as_tensor(e2e["tokens"], device=device), "quant", faults)
+        info["engine"] = engine_phase(rt, cfg, state, device, dispatch=None)
+    except Exception:
+        traceback.print_exc()
+        faults.append("serving raised")
+    if rt["resilience"].FALLBACK_COUNTS:
+        faults.append(f"fallbacks {dict(rt['resilience'].FALLBACK_COUNTS)}")
+    if "packing" not in info:
+        failed.append(f"{cfg.name} quant")
+        return
+    # the tensor-core kernel's launches: at M = 700 the fixed batch's
+    # prefill (serve's generate), at 175 one admission's (the engine's
+    # drain, prompts of PROMPT_MIN-PROMPT_MAX)
+    launches = {
+        700: ("generate, fixed batch", info.get("e2e", {}).get(
+            "kernel_launches", {}).get("dequant_matmul:mma", 0)),
+        175: ("engine drain, admissions", info.get("engine", {}).get(
+            "kernel_launches", {}).get("dequant_matmul:mma", 0))}
+    block = state.params["blocks"][0]
+    for label, w in (("q/o_proj", block["attn"]["wq"]),
+                     ("k/v_proj", block["attn"]["wk"]),
+                     ("gate/up_proj", block["mlp"]["w_gate"]),
+                     ("down_proj", block["mlp"]["w_down"])):
+        wb = w.materialize(torch.bfloat16)
+        for m in QUANT_K5_M:
+            try:
+                row = check_k5(rt, w.values, w.scale, w.zero, wb, m, gen,
+                               timer)
+            except Exception:
+                traceback.print_exc()
+                faults.append(f"K5 {label} M={m}")
+                continue
+            kernels.append({**K5_ROW, **row, "path": f"{cfg.name} quant",
+                            "timed_at": f"{label} {tuple(w.values.shape)}"
+                                        f", M={m}",
+                            "library": "torch.matmul on the bf16 weight",
+                            "launches_of": f"dequant_matmul:mma, "
+                                           f"{launches[m][0]}",
+                            "launches": launches[m][1]})
+        del wb
+    log(f"quant {cfg.name} " + json.dumps(info))
+    if faults:
+        log(f"quant faults: {faults}")
+        failed.append(f"{cfg.name} quant")
+    del state
+    torch.cuda.empty_cache()
+
+
+def quant_moe(rt, device, batch, lens, failed):
+    """DeepSeek-V2-Lite at 2 layers (a dense and an MoE layer) in quant
+    mode, the fixed batch through ``serve``: MLA's wq, wkv_a, wo, the
+    dense and the shared experts' MLPs and the head through K5 (13 a
+    pass); MLA's wkv_b and the 3 expert stacks materialized at every pass
+    (5), as the reference does in quant mode."""
+    full = rt["get_config"]("deepseek-v2-lite-16b").full
+    cfg = dataclasses.replace(full, n_layers=2)
+    faults, info = [], {}
+    try:
+        state, info["packing"] = pack(rt, cfg, device, SEED, mode="quant")
+        info["e2e"] = serve(rt, cfg, state, device, batch, lens, want={
+            "dequant_matmul": 13 * MAX_NEW, "flash_attention": 2},
+            packed_want={"quant": 5 * MAX_NEW, "packed": 0},
+            dispatch_want={})
+        del state
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    if rt["resilience"].FALLBACK_COUNTS:
+        faults.append(f"fallbacks {dict(rt['resilience'].FALLBACK_COUNTS)}")
+    log(f"quant {cfg.name} " + json.dumps(info))
+    if faults:
+        log(f"quant faults: {faults}")
+        failed.append(f"{cfg.name} quant")
+    torch.cuda.empty_cache()
+
+
 # the launcher's runs on the card, the reference's smoke configs and flag
 # sets; the pressure run's low watermark (1 MiB under the 4 GiB boot
-# budget) forces the governor to retire KV pages and regrow them
+# budget) forces the governor to retire KV pages and regrow them; the
+# quant run serves every projection through K5 (admissions of 16 tokens
+# on its tensor-core kernel, the ticks on its decode kernel)
 LAUNCHER_RUNS = (
     ("llama_verify", ["--arch", "llama3.2-1b", "--tiles", "2",
                       "--verify", "full"]),
@@ -2202,16 +2430,17 @@ LAUNCHER_RUNS = (
                         "--pressure-low-mib", "1"]),
     ("deepseek_tiered", ["--arch", "deepseek-v2-lite-16b",
                          "--residency", "tiered", "--tiles", "2"]),
+    ("llama_quant", ["--arch", "llama3.2-1b", "--mode", "quant"]),
 )
 
 
-def cpu_top2_gap(rt, cfg, params, tiles, prompt, prefix) -> float:
+def cpu_top2_gap(rt, cfg, params, mode, tiles, prompt, prefix) -> float:
     """The top-2 gap of the CPU's logits for the token after ``prompt`` +
-    ``prefix``, from the launcher's compressed state of ``params`` built on
-    the CPU (the plain versions): where a card sample leaves the CPU's,
-    how near a tie the CPU's choice was."""
+    ``prefix``, from the launcher's state of ``params`` (``mode``,
+    ``tiles``) built on the CPU (the plain versions): where a card sample
+    leaves the CPU's, how near a tie the CPU's choice was."""
     st = rt["build_serve_params"](params, rt["CompressionPolicy"](
-        mode="compressed", min_weight_size=1024, tiles=tiles), device="cpu")
+        mode=mode, min_weight_size=1024, tiles=tiles), device="cpu")
     seq = torch.tensor([list(prompt) + list(prefix)], dtype=torch.long)
     logits = rt["LM"].forward(st.params, cfg, seq, lut=st.lut)[0]
     top = torch.topk(logits[0, -1].float(), 2).values
@@ -2223,7 +2452,9 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
     each of LAUNCHER_RUNS: every request ends as one completion, every K1
     launch is a 'tiled_fused' dispatch (K3 for the expert stacks), no
     fallback rung is taken; under the pressure trace the governor changes
-    its plan and retires KV pages at least once.  Both runs of an argv,
+    its plan and retires KV pages at least once; in quant mode nothing is
+    dispatched or materialized, K5 launches its tensor-core and its
+    decode kernel and no other matmul kernel runs.  Both runs of an argv,
     on the card and with ``--device cpu`` (every kernel's plain version),
     serve the same weights, ``init_lm(seed=0)`` drawn on the CPU: the CPU
     run must end its requests for the same reasons; where its sample
@@ -2243,8 +2474,14 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
         rids = sorted(c.rid for c in res["completions"])
         d, launches = res["dispatch"], run["launches"]
         moe = "deepseek" in name
+        mode = flags[flags.index("--mode") + 1] if "--mode" in flags \
+            else "compressed"
+        tiles = int(flags[flags.index("--tiles") + 1]) if "--tiles" in flags \
+            else 0
         info = {"argv": argv, "s": run["s"], "reasons": res["reasons"],
                 "dispatch": d, "launches": launches,
+                "kernel_launches": run["kernel_launches"],
+                "materialized": run["materialized"],
                 "tokens": res["tokens"], "sample": res["sample"],
                 "fallbacks": run["fallbacks"],
                 "last_rung": res["health"]["last_rung"],
@@ -2259,8 +2496,7 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
                 vocab_size=cfg.vocab_size, batch=4,
                 seq_len=16)).batch_at(0)["tokens"][0].tolist()
             info["cpu_top2_gap_there"] = cpu_top2_gap(
-                rt, cfg, params, int(flags[flags.index("--tiles") + 1]),
-                prompt, cpu["sample"][:first])
+                rt, cfg, params, mode, tiles, prompt, cpu["sample"][:first])
         if res["residency"] is not None:
             info["residency"] = {k: res["residency"][k] for k in (
                 "capacity", "hit", "miss", "prefetch_hit", "evict",
@@ -2269,7 +2505,20 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
             info["pressure"] = {k: res["pressure"][k] for k in (
                 "plan_changes", "refusing", "plan", "rung_latency_s")}
         out[name] = info
-        want_d = {"tiled_fused"} | ({"grouped_fused"} if moe else set())
+        if mode == "quant":
+            kl = run["kernel_launches"]
+            matmuls_ok = (set(launches) == {"dequant_matmul",
+                                            "flash_attention"}
+                          and set(kl) == {"dequant_matmul:mma",
+                                          "dequant_matmul:decode"}
+                          and not run["materialized"])
+            want_d = set()
+        else:
+            matmuls_ok = (
+                launches.get("fused_decode_matmul") == d.get("tiled_fused")
+                and (not moe or launches.get("grouped_fused_decode_matmul")
+                     == d.get("grouped_fused")))
+            want_d = {"tiled_fused"} | ({"grouped_fused"} if moe else set())
         # the governor counts its rungs among the fallbacks; no other
         # fallback may be taken
         ladder = {k: v for k, v in run["fallbacks"].items()
@@ -2277,15 +2526,14 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
         pressed = res["pressure"] is None or (
             res["pressure"]["plan_changes"] > 0
             and run["fallbacks"].get("pressure_kv_retire", 0) > 0)
-        if (rids != [0, 1, 2, 3] or set(d) != want_d
-                or launches.get("fused_decode_matmul") != d["tiled_fused"]
-                or (moe and launches.get("grouped_fused_decode_matmul")
-                    != d["grouped_fused"])
+        if (rids != [0, 1, 2, 3] or set(d) != want_d or not matmuls_ok
                 or ladder or res["health"]["last_rung"] != "fused"
                 or sum(res["reasons"].values()) != 4 or not pressed
                 or cpu["reasons"] != res["reasons"]):
             faults.append(f"launcher {name}: requests {rids}, dispatch {d}, "
-                          f"launches {launches}, fallbacks "
+                          f"launches {launches}, by kernel "
+                          f"{run['kernel_launches']}, materialized "
+                          f"{run['materialized']}, fallbacks "
                           f"{run['fallbacks']}, reasons {res['reasons']}, "
                           f"pressure {info.get('pressure')}")
     for arch in ("llama3.2-1b", "deepseek-v2-lite-16b"):
@@ -2344,7 +2592,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     rows = run_checks(cfg, (
         ("fused_decode_matmul", check_k1),
         ("dequant_matmul",
-         lambda: (check_dequant(rt, state.params["embed"], device, gen,
+         lambda: (check_dequant(rt, state.params["embed"], gen,
                                 timer), None)),
         ("flash_attention",
          lambda: check_flash(rt, device, t_prefill, gen, timer, cfg.n_heads,
@@ -2363,6 +2611,8 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         failed.append(f"{cfg.name} e2e")
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
+        row["launches_by_kernel"] = by_kernel(
+            e2e.get("kernel_launches", {}), row["name"])
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     engine = {}
     try:
@@ -2382,7 +2632,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
                        check_unfused_kernels(
                            rt, state.params["blocks"][0]["mlp"]["w_gate"],
                            state.lut, device, gen, timer, BATCH * t_prefill,
-                           res["runs"]["unfused"]["launches"]))
+                           res["runs"]["unfused"]))
     except Exception:
         traceback.print_exc()
         faults.append("raised")
@@ -2410,6 +2660,11 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     tiled_phase(rt, cfg, state, device, batch, lens, gen, timer, kernels,
                 failed)
     unlevered(rt, f"{cfg.name} tiled", failed)
+    t0 = time.perf_counter()
+    quant_phase(rt, cfg, state, device, batch, lens, e2e.get("tokens", []),
+                gen, timer, kernels, failed)
+    unlevered(rt, f"{cfg.name} quant", failed)
+    log(f"quant_phase: {time.perf_counter() - t0:.1f} s")
     del state
     torch.cuda.empty_cache()
     try:
@@ -2459,7 +2714,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
                              "one MoE layer's 6 projections (MLA wq, wkv_a, "
                              "wo; shared experts), decode M=4", cold=True)),
         ("dequant_matmul",
-         lambda: (check_dequant(rt, state.params["lm_head"], device, gen,
+         lambda: (check_dequant(rt, state.params["lm_head"], gen,
                                 timer), None)),
         ("grouped_fused_decode_matmul (C-slot cache stack)",
          lambda: check_grouped_cache(rt, cfg, state, device, gen, timer))),
@@ -2484,6 +2739,8 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         failed.append(f"{cfg.name} e2e")
     for row in rows:
         row["launches"] = e2e.get("launches", {}).get(row["name"], 0)
+        row["launches_by_kernel"] = by_kernel(
+            e2e.get("kernel_launches", {}), row["name"])
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     unlevered(rt, f"{cfg.name} e2e", failed)
     res, faults, k3 = {}, [], 0
@@ -2537,7 +2794,8 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
     rt["resilience"].FALLBACK_COUNTS.clear()
     res, faults = {}, []
     try:
-        res = tiled_moe(rt, device, batch, lens, gen, faults)
+        res = tiled_moe(rt, device, batch, lens, gen, timer, kernels,
+                        faults)
     except Exception:
         traceback.print_exc()
         faults.append("raised")
@@ -2546,6 +2804,8 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         log(f"tiled faults: {faults}")
         failed.append(f"{full.name} tiled")
     unlevered(rt, f"{full.name} tiled", failed)
+    quant_moe(rt, device, batch, lens, failed)
+    unlevered(rt, f"{full.name} quant", failed)
 
 
 def card_vs_cpu(rt, cfg, device, batch, steps):

@@ -40,6 +40,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # A launch captured in the decode graph counts at each replay of the graph
 # (``serve.engine.DecodeGraph`` takes back what the capture added).
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+# The same launches of the wrappers that choose among kernels (K1, K3 and
+# K5), by "<name>:<kernel>", the kernel their plan picked ("decode",
+# "mma", "simt"): which of a wrapper's kernels a run went through.
+KERNEL_COUNTS: collections.Counter = collections.Counter()
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple, object] = {}

@@ -9,13 +9,19 @@
 // QuantLinear: 128 256 × 2048 uint8, 263 MB) and DeepSeek-V2-Lite's
 // int8 head (102 400 × 2048) at M = batch, every prefill and decode step.
 // There it is a GEMV over the weight, bound by memory bytes: the weight is
-// read once.  Two kernels, picked by the wrapper's plan (dequant_plan):
+// read once.  In mode='quant' every projection is a QuantLinear, and on
+// the resilience ladder's unfused rung every projection runs K4 then K5:
+// there each prefill is a GEMM at M = the prompt's tokens (700 for 4 × 175),
+// about 1 200 operations a byte, above the card's ridge of ~295: bound by
+// the tensor cores' operations (0.024 ms for Llama's w_gate at M = 700).
+// Three kernels, picked by the wrapper's plan (dequant_plan):
 //
 //   * the decode kernel at M ≤ 4 with K % 16 == 0 (below);
-//   * the SIMT kernel at other shapes: blocks of 128 output columns walk K
-//     in 512-byte chunks through shared memory, split over gridDim.z when
-//     N/128 × M/BM blocks would leave the card idle (matmul_common.cuh's
-//     block layout and split-K epilogue).
+//   * the tensor-core kernel from M = 5 on with K % 16 == 0 (below);
+//   * the SIMT kernel where K % 16 ≠ 0: blocks of 128 output columns walk
+//     K in 512-byte chunks through shared memory, split over gridDim.z
+//     when N/128 × M/BM blocks would leave the card idle
+//     (matmul_common.cuh's block layout and split-K epilogue).
 //
 // Ragged M, N and K are masked in the kernels, never padded in device
 // memory.
@@ -324,6 +330,231 @@ dequant_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (prefill M, K % 16 == 0, x and wq on 16-byte
+// boundaries).  The SIMT kernel served every M > 4 before it, at 1.23 ms
+// for Llama's w_gate at M = 700 (52× the bound, 37× torch.matmul), for
+// three costs; what this kernel does about each:
+//   1. The product on the CUDA cores (f32 FMAs, 19 TFLOP/s).  Here it runs
+//      on mma.sync m16n8k16 (bf16 in, f32 sums; q ≤ 255 and bf16 x are
+//      exact in bf16, so integer x sums exactly, as in the plain version).
+//      A block owns a 128 × 128 output tile and one K split; 8 warps, 2
+//      along M × 4 along N, each hold 64 × 32 of f32 sums (4 × 4 tiles).
+//   2. 16 rows of x a block: each 16-row band copied the whole weight
+//      through shared memory again (~740 MB of L2 reads for 16.8 MB of
+//      weight at M = 700), with x restaged as f32 and its row sums redone
+//      in every chunk.  Here a band is 128 rows: the weight is read once a
+//      band; x is staged once a step as bf16, and Σx is taken once a block
+//      from the same A fragments, by one more mma a tile against a B of
+//      ones (bf16 1.0), in the two warps of the first N column.
+//   3. Nothing overlapped: load → barrier → dot → barrier.  Here K runs in
+//      steps of 64: the bf16 x tile (128 × 64) and the uint8 weight tile
+//      (128 × 64) come by cp.async into a ring of kMmaStages stages, two
+//      steps' copies in flight during the current step's products; two
+//      blocks an SM (launch bounds: 128 registers a thread; 97 KB of
+//      shared memory a block), so that one block's conversion and barriers
+//      overlap the other's products.
+// Each weight byte becomes an exact bf16 once a stage, by one PRMT and one
+// FADD (gram_byte) and half a PRMT to pack, into a bf16 tile in shared
+// memory that ldmatrix reads, as it reads x.  (B fed to registers straight
+// from the uint8 stage saves the tile and a barrier, but each byte is then
+// converted by both warps along M, and at 128 registers it spilled: slower
+// at every main-path shape but one, PERF.md.)  Rows past M
+// or N and columns past K are zero-filled by the copy (src-size 0), never
+// read.  One split writes through the affine epilogue (qmoe::affine) in
+// registers; several write raw sums to the fixed-order split-K workspace
+// (dequant_plan splits K only where the tiles leave SMs idle).  Two calls
+// give the same bits.
+constexpr int kMmaThreads = 256;
+constexpr int kMmaBM = 128;               // rows of x a block
+constexpr int kMmaBN = 128;               // weight rows (output columns)
+constexpr int kStepK = 64;                // K columns a stage
+constexpr int kMmaStages = 3;             // the cp.async ring
+constexpr int kMmaBlocksPerSM = 2;        // launch bounds: registers a thread
+constexpr int kLdX = kStepK + 8;          // bf16 a staged x row (144 bytes)
+constexpr int kXStageBytes = kMmaBM * kLdX * 2;
+constexpr int kWStageBytes = kMmaBN * kStepK;      // rows 64 bytes apart
+constexpr int kStageBytes = kXStageBytes + kWStageBytes;
+constexpr int kBTileBytes = kMmaBN * kLdX * 2;   // the bf16 B tile
+constexpr int kMmaSmem = kMmaStages * kStageBytes + kBTileBytes + kMmaBM * 4;
+
+// Bytes j and j + 1 of w as one exact bf16x2 (byte j in the low half): the
+// top halves of their exact f32s.
+__device__ __forceinline__ uint32_t byte_pair(uint32_t w, uint32_t magic,
+                                              int j) {
+  return __byte_perm(__float_as_uint(qmoe::gram_byte(w, magic, j)),
+                     __float_as_uint(qmoe::gram_byte(w, magic, j + 1)),
+                     0x7632);
+}
+
+template <typename TOut>
+__global__ void __launch_bounds__(kMmaThreads, kMmaBlocksPerSM)
+dequant_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                          const uint8_t* __restrict__ wq,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ zero,
+                          TOut* __restrict__ out, float* __restrict__ part,
+                          float* __restrict__ sxpart, int M, int N, int K,
+                          int steps_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sumx = reinterpret_cast<float*>(smem + kMmaStages * kStageBytes +
+                                         kBTileBytes);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kMmaBN, m0 = blockIdx.y * kMmaBM;
+  const int split = blockIdx.z;
+  const int s0 = split * steps_per_split;
+  const int steps = min(steps_per_split, (K + kStepK - 1) / kStepK - s0);
+  // the row sums feed the epilogue: every block's with one split, else
+  // the first stripe's, once per split
+  const bool need_sumx = part == nullptr || blockIdx.x == 0;
+
+  // this thread's copies, the same rows and columns in every step: x rows
+  // rx + 32q (q < 4) at column cx, weight rows rw + 64q (q < 2) at byte cw
+  const int rx = tid >> 3, cx = (tid & 7) * 8;
+  const int rw = tid >> 2, cw = (tid & 3) * 16;
+  const __nv_bfloat16* xsrc = x + (long long)(m0 + rx) * K + cx;
+  const uint8_t* wsrc = wq + (long long)(n0 + rw) * K + cw;
+  // step st of the split into stage st % kMmaStages; one copy group per
+  // step, empty past the last, so that waiting for all but the newest
+  // kMmaStages − 2 groups always means step st is in
+  auto load = [&](int st) {
+    if (st < steps) {
+      unsigned char* xs = smem + (st % kMmaStages) * kStageBytes;
+      unsigned char* ws = xs + kXStageBytes;
+      const int k0 = (s0 + st) * kStepK;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool in = m0 + rx + 32 * q < M && k0 + cx < K;
+        qmoe::cp_async16(xs + (rx + 32 * q) * (2 * kLdX) + 2 * cx,
+                         in ? xsrc + 32LL * q * K + k0 : x, in ? 16 : 0);
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const bool in = n0 + rw + 64 * q < N && k0 + cw < K;
+        qmoe::cp_async16(ws + (rw + 64 * q) * kStepK + cw,
+                         in ? wsrc + 64LL * q * K + k0 : wq, in ? 16 : 0);
+      }
+    }
+    qmoe::cp_async_commit();
+  };
+
+  float acc[4][4][4];                    // [m16 tile][n8 tile][fragment]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
+  // Σx of the warp's rows, by the tensor cores against a B of ones (bf16
+  // 1.0 = 0x3F80): C[g][·] and C[g + 8][·] of tile i are rows 16i + g and
+  // 16i + g + 8.  Taken by the warps of the first N column, where needed.
+  const bool sum_rows = need_sumx && wn == 0;
+  constexpr uint32_t kOnes = 0x3F803F80u;
+  float sxa[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) sxa[i][v] = 0.f;
+  // 0x4B000000, not known to the compiler (M ≥ 1): see gram_byte
+  const uint32_t magic = 0x4B000000u | ((uint32_t)M >> 31);
+
+  for (int st = 0; st < kMmaStages - 1; ++st) load(st);
+  for (int st = 0; st < steps; ++st) {
+    qmoe::cp_async_wait<kMmaStages - 2>();
+    // step st is in; every warp is done with step st − 1's stage
+    __syncthreads();
+    load(st + kMmaStages - 1);
+    const unsigned char* xs = smem + (st % kMmaStages) * kStageBytes;
+    const unsigned char* ws = xs + kXStageBytes;
+    // the stage widened to bf16 once, then ldmatrix in natural K order
+    __nv_bfloat16* bt = reinterpret_cast<__nv_bfloat16*>(
+        smem + kMmaStages * kStageBytes);
+    for (int i = tid; i < kMmaBN * 4; i += kMmaThreads) {
+      const int r = i >> 2, c = (i & 3) * 16;
+      const uint4 v = *reinterpret_cast<const uint4*>(ws + r * kStepK + c);
+      uint4* dst = reinterpret_cast<uint4*>(bt + r * kLdX + c);
+      dst[0] = make_uint4(byte_pair(v.x, magic, 0), byte_pair(v.x, magic, 2),
+                          byte_pair(v.y, magic, 0), byte_pair(v.y, magic, 2));
+      dst[1] = make_uint4(byte_pair(v.z, magic, 0), byte_pair(v.z, magic, 2),
+                          byte_pair(v.w, magic, 0), byte_pair(v.w, magic, 2));
+    }
+    __syncthreads();
+    const __nv_bfloat16* xt = reinterpret_cast<const __nv_bfloat16*>(xs);
+    const int a_row = wm * 64 + (lane & 15), a_col = (lane >> 4) * 8;
+    const int b_row = wn * 32 + (lane & 7) + ((lane >> 4) << 3);
+    const int b_col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < kStepK; kk += 16) {
+      uint32_t a[4][4], bb[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qmoe::ldmatrix_x4(a[i], xt + (a_row + i * 16) * kLdX + kk + a_col);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        qmoe::ldmatrix_x4(bb[p], bt + (b_row + p * 16) * kLdX + kk + b_col);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          qmoe::mma_bf16(acc[i][j], a[i], bb[j >> 1][(j & 1) * 2],
+                         bb[j >> 1][(j & 1) * 2 + 1]);
+        if (sum_rows) qmoe::mma_bf16(sxa[i], a[i], kOnes, kOnes);
+      }
+    }
+  }
+  qmoe::cp_async_wait<0>();
+  if (sum_rows && t == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sumx[wm * 64 + i * 16 + g] = sxa[i][0];
+      sumx[wm * 64 + i * 16 + g + 8] = sxa[i][2];
+    }
+  __syncthreads();
+
+  // C[g + 8h][2t + v] of tile (i, j) is y at row 64·wm + 16i + g + 8h,
+  // column 32·wn + 8j + 2t + v; two neighbouring columns stored together
+  // where N is even
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm * 64 + i * 16 + g + 8 * h, m = m0 + r;
+      if (m >= M) continue;
+      const float sr = need_sumx ? sumx[r] : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (part != nullptr) {
+          float* p = part + ((long long)split * M + m) * N + n;
+          if (pairs && n + 1 < N) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            if (n < N) p[0] = v0;
+            if (n + 1 < N) p[1] = v1;
+          }
+          continue;
+        }
+        TOut* o = out + (long long)m * N + n;
+        auto y = [&](int c, float v) {
+          return qmoe::affine(__ldg(scale + n + c), __ldg(zero + n + c), v,
+                              sr);
+        };
+        if (pairs && n + 1 < N) {
+          qmoe::store2(o, y(0, v0), y(1, v1));
+        } else {
+          if (n < N) qmoe::store(o, y(0, v0));
+          if (n + 1 < N) qmoe::store(o + 1, y(1, v1));
+        }
+      }
+    }
+  if (part != nullptr && blockIdx.x == 0 && tid < kMmaBM && m0 + tid < M)
+    sxpart[(long long)split * M + m0 + tid] = sumx[tid];
+}
+
 constexpr int kMaxDevices = 64;
 
 // Raise kern's dynamic shared memory cap to `bytes` once per device: the
@@ -389,6 +620,32 @@ int launch_decode(const void* x, const void* wq, const void* scale,
   return (int)cudaGetLastError();
 }
 
+template <typename TOut>
+int launch_mma(const void* x, const void* wq, const void* scale,
+               const void* zero, void* out, void* part, void* sxpart, int M,
+               int N, int K, int splits, int device, cudaStream_t stream) {
+  const int steps = (K + kStepK - 1) / kStepK;
+  if (M < 1 || N < 1 || K < 16 || K % 16 || splits < 1 || splits > steps)
+    return (int)cudaErrorInvalidValue;
+  auto kern = dequant_matmul_mma_kernel<TOut>;
+  static std::atomic<bool> ready[kMaxDevices];
+  int rc = smem_cap_once(ready, (const void*)kern, kMmaSmem, device);
+  if (rc) return rc;
+  dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, splits);
+  kern<<<grid, kMmaThreads, kMmaSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(wq),
+      static_cast<const float*>(scale), static_cast<const float*>(zero),
+      static_cast<TOut*>(out),
+      splits > 1 ? static_cast<float*>(part) : nullptr,
+      static_cast<float*>(sxpart), M, N, K, (steps + splits - 1) / splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  return qmoe::launch_splitk_epilogue(
+      static_cast<const float*>(part), static_cast<const float*>(sxpart),
+      static_cast<const float*>(scale), static_cast<const float*>(zero), out,
+      sizeof(TOut) == 2, M, N, splits, stream);
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes.  Each returns the CUDA error code
@@ -436,4 +693,23 @@ extern "C" int qmoe_dequant_matmul_decode(const void* x, const void* wq,
                                                  N, K, blocks, device, s)
                   : launch_decode<float>(x, wq, scale, zero, out, M, N, K,
                                          blocks, device, s);
+}
+
+// The tensor-core kernel (K % 16 == 0, x and wq on 16-byte boundaries):
+// 128 × 128 output tiles, K in `splits` runs of whole 64-column steps with
+// f32 workspaces part (splits·M·N) and sxpart (splits·M), unused when
+// splits == 1.
+extern "C" int qmoe_dequant_matmul_mma(const void* x, const void* wq,
+                                       const void* scale, const void* zero,
+                                       void* out, void* part, void* sxpart,
+                                       int out_bf16, int M, int N, int K,
+                                       int splits, int device, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return (int)dev_err;
+  return out_bf16 ? launch_mma<__nv_bfloat16>(x, wq, scale, zero, out, part,
+                                              sxpart, M, N, K, splits,
+                                              device, s)
+                  : launch_mma<float>(x, wq, scale, zero, out, part, sxpart,
+                                      M, N, K, splits, device, s);
 }

@@ -181,6 +181,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Two neighbouring outputs at once (p on a two-element boundary).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // y = s·(acc − sumx·z), every step rounded on its own.  nvcc would contract
 // the plain expression into an FMA, which rounds once where the plain
 // PyTorch version rounds twice; the _rn intrinsics are never contracted.

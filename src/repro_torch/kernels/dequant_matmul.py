@@ -5,9 +5,10 @@ Pallas kernel).  The CUDA kernels are in ``csrc/dequant_matmul.cu`` (its
 note says what bounds them on the H100 and how the design answers that);
 :func:`dequant_plan` picks one by shape: the decode kernel at M ≤ 4 (a warp
 per 8 weight rows over all of K, the product on the tensor cores), the
-SIMT kernel otherwise.  :func:`dequant_matmul_plain` is the plain PyTorch
-version the CPU runs and the card's kernels are held against.  All compute
-the kernel's affine form
+tensor-core kernel at larger M (128 × 128 output tiles, K in steps of 64
+through a cp.async ring), the SIMT kernel where K % 16 ≠ 0.
+:func:`dequant_matmul_plain` is the plain PyTorch version the CPU runs and
+the card's kernels are held against.  All compute the kernel's affine form
 
     y = s · (Σ_k x·q − z·Σ_k x)
 
@@ -32,20 +33,29 @@ DECODE_ROWS = 8           # weight rows of a decode warp task (kDecRows)
 DECODE_WARPS = 8          # warps a decode block (kDecWarps)
 DECODE_BLOCKS_PER_SM = 2  # resident: launch bounds cap 128 registers
 DECODE_STAGE_COLS = 512   # K columns of one stage (kLoads · kSlice)
+MMA_MIN_M = 5             # the tensor-core kernel from this M on (PERF.md)
+MMA_BM = MMA_BN = 128     # output tile of a tensor-core block (kMmaBM/BN)
+MMA_STEP_K = 64           # K columns a stage (kStepK)
+MMA_STAGES = 3            # the cp.async ring (kMmaStages)
+MMA_THREADS = 256         # 8 warps (kMmaThreads)
+MMA_BLOCKS_PER_SM = 2     # resident: launch bounds cap 128 registers
 SMEM_MAX = 232448         # the most shared memory one block may take (H100)
 MAX_GRID_X = 2 ** 31 - 1
 MAX_GRID_YZ = 65535
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 7 + [_P]
 _DECODE_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
+_MMA_ARGTYPES = [_P] * 7 + [_I] * 6 + [_P]
 
 
 class DequantPlan(NamedTuple):
     """How one launch covers (M, N, K): ``kernel`` ``"decode"`` — warp
     tasks of ``DECODE_ROWS`` weight rows over all of K, ``DECODE_WARPS`` to
-    a block, ``grid[0]`` blocks — or ``"simt"`` — ``rpt`` rows of x a
-    thread in blocks of 128 columns, K in ``splits`` runs; ``grid`` and
-    ``threads`` as the C side launches them."""
+    a block, ``grid[0]`` blocks — ``"mma"`` — 128 × 128 output tiles,
+    (stripes of N, bands of M, K splits of whole 64-column steps) — or
+    ``"simt"`` — ``rpt`` rows of x a thread in blocks of 128 columns, K in
+    ``splits`` runs; ``grid`` and ``threads`` as the C side launches
+    them."""
     kernel: str
     grid: tuple
     threads: int
@@ -62,6 +72,16 @@ def decode_smem_bytes(k: int) -> int:
     return DECODE_M * (2 * kpad + 16) + DECODE_WARPS * DECODE_M * 4
 
 
+def mma_smem_bytes() -> int:
+    """Shared memory of one tensor-core block (csrc: ``kMmaSmem``): the
+    ring's stages of bf16 x (128 rows of 64 columns, each row 16 bytes
+    longer) and uint8 weight (128 × 64), the weight stage widened to bf16
+    (128 × 72), and 128 row sums."""
+    row = (MMA_STEP_K + 8) * 2
+    stage = MMA_BM * row + MMA_BN * MMA_STEP_K
+    return MMA_STAGES * stage + MMA_BN * row + MMA_BM * 4
+
+
 def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
     """The launch of (M, K) × (K, N) on a card of ``sms`` SMs, a pure
     function of the shapes.
@@ -71,14 +91,40 @@ def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
     block.  The grid is persistent: no more warps than the card holds at
     once (2 blocks an SM), and as few as take the tasks in the same number
     of rounds, so that every warp runs the same number of tasks but the
-    last few (PERF.md).  Otherwise the SIMT kernel: 4 rows a block at
-    M ≤ 4, else 16; K split so that about two blocks sit on every SM."""
+    last few (PERF.md).
+
+    From ``MMA_MIN_M`` rows on (K a positive multiple of 16; it beats the
+    SIMT kernel already at M = 5, PERF.md): the tensor-core kernel,
+    blocks of 128 × 128 outputs, two resident an SM.  K is split only
+    where the output tiles leave SMs without a block: into as many runs
+    of whole 64-column steps as keep the grid within one block an SM
+    (k_proj at M = 700: 4 × 6 tiles, 5 splits), no run empty.  Splitting
+    for both of an SM's block slots instead moved a layer's seven
+    projections by −4 % at M = 700 and +1 % at 175 (PERF.md): within
+    what the split-K epilogue costs, so the simpler rule stays.
+
+    Otherwise the SIMT kernel: 4 rows a block at M ≤ 4, else 16; K split
+    so that about two blocks sit on every SM."""
     if m <= DECODE_M and k > 0 and k % 16 == 0:
         tasks = -(-n // DECODE_ROWS)
         rounds = -(-tasks // (sms * DECODE_BLOCKS_PER_SM * DECODE_WARPS))
         blocks = -(-tasks // (rounds * DECODE_WARPS))
         return DequantPlan("decode", (blocks, 1, 1), 32 * DECODE_WARPS,
                            decode_smem_bytes(k))
+    if m >= MMA_MIN_M and k > 0 and k % 16 == 0:
+        stripes, bands = -(-n // MMA_BN), -(-m // MMA_BM)
+        steps = -(-k // MMA_STEP_K)
+        want = max(1, min(steps, sms // (stripes * bands)))
+        splits = -(-steps // -(-steps // want))
+        return DequantPlan("mma", (stripes, bands, splits), MMA_THREADS,
+                           mma_smem_bytes(), splits=splits)
+    return simt_plan(m, n, k, sms)
+
+
+def simt_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+    """The SIMT kernel's launch at any shape (``dequant_plan``'s choice
+    where K % 16 ≠ 0; tools/profile_decode.py times it beside the others
+    at their shapes)."""
     rpt = 2 if m <= 4 else 8
     stripes, bands = -(-n // 128), -(-m // (2 * rpt))
     splits = _split_count(stripes * bands, max(1, -(-k // KC)), sms)
@@ -125,7 +171,7 @@ def dequant_matmul(x, wq, scale, zero,
     if wq.data_ptr() % 16:
         raise ValueError(f"{NAME}: wq must start on a 16-byte boundary")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:       # the decode kernel copies x 16 B at a time
+    if xb.data_ptr() % 16:       # decode and mma copy x 16 B at a time
         xb = xb.clone()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
@@ -136,11 +182,25 @@ def dequant_matmul(x, wq, scale, zero,
         raise ValueError(f"{NAME}: ({m}, {n}, {k}) needs a grid "
                          f"{plan.grid} with {plan.smem_bytes} B of shared "
                          "memory a block, past the card's limits")
-    bf16 = int(out_dtype == torch.bfloat16)
+    _launch(plan, xb, wq, scale, zero, out)
+    _build.LAUNCH_COUNTS[NAME] += 1
+    _build.KERNEL_COUNTS[f"{NAME}:{plan.kernel}"] += 1
+    return out
+
+
+def _launch(plan: DequantPlan, xb, wq, scale, zero, out, fn=None):
+    """Launch ``plan``'s kernel on checked operands (xb bf16 and wq on
+    16-byte boundaries, out allocated); raises on a CUDA error.  ``fn``:
+    another build's C entry of ``plan.kernel`` (tools/profile_decode.py's
+    design variants)."""
+    m, k = xb.shape
+    n = wq.shape[0]
+    dev = out.device
+    bf16 = int(out.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan.kernel == "decode":
-        fn = _build.function(NAME, "qmoe_dequant_matmul_decode",
-                             _DECODE_ARGTYPES)
+        fn = fn or _build.function(NAME, "qmoe_dequant_matmul_decode",
+                                   _DECODE_ARGTYPES)
         err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                  zero.data_ptr(), out.data_ptr(), bf16, m, n, k,
                  plan.grid[0], dev.index, stream)
@@ -151,12 +211,17 @@ def dequant_matmul(x, wq, scale, zero,
                                device=dev)
             sx = torch.empty(plan.splits * m, dtype=torch.float32,
                              device=dev)
-        fn = _build.function(NAME, "qmoe_dequant_matmul", _ARGTYPES)
-        err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                 zero.data_ptr(), out.data_ptr(),
-                 part.data_ptr() if part is not None else None,
-                 sx.data_ptr() if sx is not None else None, bf16, m, n, k,
-                 plan.splits, plan.rpt, dev.index, stream)
+        ptrs = (xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                zero.data_ptr(), out.data_ptr(),
+                part.data_ptr() if part is not None else None,
+                sx.data_ptr() if sx is not None else None, bf16, m, n, k,
+                plan.splits)
+        if plan.kernel == "mma":
+            fn = fn or _build.function(NAME, "qmoe_dequant_matmul_mma",
+                                       _MMA_ARGTYPES)
+            err = fn(*ptrs, dev.index, stream)
+        else:
+            fn = fn or _build.function(NAME, "qmoe_dequant_matmul",
+                                       _ARGTYPES)
+            err = fn(*ptrs, plan.rpt, dev.index, stream)
     _build.check(err, NAME)
-    _build.LAUNCH_COUNTS[NAME] += 1
-    return out

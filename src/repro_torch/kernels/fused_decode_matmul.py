@@ -342,6 +342,7 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
+    _build.KERNEL_COUNTS[f"{name}:{plan.kernel}"] += 1
     return out
 
 

@@ -62,8 +62,8 @@ CAPTURE_COUNTS: collections.Counter = collections.Counter()
 # What the kernel wrappers and weight containers count from Python.  A
 # captured step's Python runs once, at capture: its counts are taken back
 # then and added at every replay.
-_STEP_COUNTERS = (_build.LAUNCH_COUNTS, ops.DISPATCH_COUNTS,
-                  L.MATERIALIZE_COUNTS)
+_STEP_COUNTERS = (_build.LAUNCH_COUNTS, _build.KERNEL_COUNTS,
+                  ops.DISPATCH_COUNTS, L.MATERIALIZE_COUNTS)
 
 
 @dataclasses.dataclass

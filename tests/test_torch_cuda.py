@@ -138,9 +138,12 @@ def test_decode_kernel_on_card(card, e, n, k, tile_k):
                       lambda x, dt: plain(x, *args, **kw, out_dtype=dt),
                       xi, xr)
         _build.LAUNCH_COUNTS.clear()
+        _build.KERNEL_COUNTS.clear()
         y1 = kernel(xr, *args, **kw, out_dtype=torch.float32)
         y2 = kernel(xr, *args, **kw, out_dtype=torch.float32)
         assert sum(_build.LAUNCH_COUNTS.values()) == 2
+        assert dict(_build.KERNEL_COUNTS) == {
+            f"{fdm.NAME if e == 1 else fdm.GROUPED_NAME}:decode": 2}
         assert torch.equal(y1, y2)
 
 
@@ -155,12 +158,20 @@ def test_decode_kernel_on_card(card, e, n, k, tile_k):
     (37, 48, 2),            # K not a whole stage
     (40, 28672, 3),         # x past 48 KB of shared memory
     (130, 100, 4),          # K % 16 != 0 at M = 4: the SIMT kernel
+    (130, 100, 40),         # ... and at prefill M
+    # quant mode's projections (Llama-3.2-1B: q/o, k/v, gate/up, down) at
+    # prefill M: the tensor-core kernel, split-K where tiles are few
+    *[(n, k, m) for n, k in ((2048, 2048), (512, 2048), (8192, 2048),
+                             (2048, 8192))
+      for m in (5, 16, 64, 175, 700)],
+    (1003, 2048, 131),      # ragged M and N against the 128 × 128 tiles
 ])
 def test_dequant_matmul_on_card(card, n, k, m):
     """K5 (quantized from seeded random weights): bitwise equal to the
     plain version on integer x, within 1e-4 of the output's scale on
     random x, two calls bitwise equal, one launch each of the kernel the
-    plan picks."""
+    plan picks: decode at M ≤ 4, the tensor-core kernel from MMA_MIN_M on,
+    the SIMT kernel where K % 16 ≠ 0 (or M between the two)."""
     g = _gen(card, 1)
     q = quantize_linear(torch.randn((n, k), generator=g, device=card))
     xi, xr = _xs(m, k, g, card)
@@ -169,11 +180,14 @@ def test_dequant_matmul_on_card(card, n, k, m):
         lambda x, dt: dqm.dequant_matmul_plain(x, q.values, q.scale, q.zero,
                                                dt), xi, xr)
     plan = dqm.dequant_plan(m, n, k, 132)
-    assert plan.kernel == ("decode" if m <= 4 and k % 16 == 0 else "simt")
+    assert plan.kernel == ("simt" if k % 16 else "decode" if m <= 4
+                           else "mma" if m >= dqm.MMA_MIN_M else "simt")
     _build.LAUNCH_COUNTS.clear()
+    _build.KERNEL_COUNTS.clear()
     y1 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
     y2 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
     assert dict(_build.LAUNCH_COUNTS) == {dqm.NAME: 2}
+    assert dict(_build.KERNEL_COUNTS) == {f"{dqm.NAME}:{plan.kernel}": 2}
     assert torch.equal(y1, y2)
 
 
@@ -735,6 +749,42 @@ def test_engine_matches_generate_on_card(card, family):
                           max_len=eng.pool.max_len)[0]
         assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), (
             i, by_rid[i].tokens, want)
+
+
+@pytest.mark.parametrize("family", ["llama", "deepseek"])
+def test_quant_mode_generate_and_engine_on_card(card, family):
+    """Quant mode (every projection a QuantLinear through K5: the
+    tensor-core kernel at the prefills' M, the decode kernel at the
+    steps'): generate's graphed tokens bitwise equal to the eager loop's
+    with the same counts, one capture; a staggered trace through the
+    engine, every completion bitwise equal to generate alone.  Llama
+    launches K5 only (7 a layer and the head) and materializes nothing."""
+    cfg = _engine_cfg(family)
+    st = build_serve_params(LM.init_lm(cfg, seed=0, device=card),
+                            CompressionPolicy(mode="quant",
+                                              min_weight_size=1024),
+                            device=card)
+    ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 5),
+                        device=card)
+    want, eager_counts = _counted(lambda: _eager_loop(st, cfg, ids, 9))
+    E.CAPTURE_COUNTS.clear()
+    got, counts = _counted(lambda: E.generate(st.params, cfg, ids,
+                                              lut=st.lut, max_new=9))
+    assert E.CAPTURE_COUNTS["decode_loop"] == 1
+    assert torch.equal(got[:, 13:], want) and counts == eager_counts
+    if family == "llama":
+        assert counts == [{"dequant_matmul": (7 * cfg.n_layers + 1) * 9,
+                           "flash_attention": cfg.n_layers}, {}, {}]
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+                 max_len=30)
+    prompts, max_new, arrivals = _trace(cfg, card)
+    by_rid = _serve_trace(eng, prompts, max_new, arrivals)
+    assert eng.health()["joined_mid_decode"] >= 1
+    for i, p in enumerate(prompts):
+        want = E.generate(st.params, cfg, torch.as_tensor(p)[None],
+                          lut=st.lut, max_new=int(max_new[i]),
+                          max_len=eng.pool.max_len)[0]
+        assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), i
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek"])

@@ -158,6 +158,17 @@ def test_dequant_matmul_plain(n, k, m, kind):
         assert_close_scaled(got, pallas)
 
 
+# (N, K) of every K5 call in quant mode: Llama-3.2-1B's q/o, k/v,
+# gate/up, down and tied head; DeepSeek-V2-Lite's wq, wkv_a, wo, dense
+# gate/up and down, shared experts' gate/up and down, and head; each at
+# decode (1, 4), the cut (5, 16, 32) and prefill M (175, 700)
+K5_MODEL_SHAPES = ((2048, 2048), (512, 2048), (8192, 2048), (2048, 8192),
+                   (128256, 2048), (3072, 2048), (576, 2048),
+                   (10944, 2048), (2048, 10944), (2816, 2048),
+                   (2048, 2816), (102400, 2048))
+K5_MODEL_M = (1, 4, 5, 16, 32, 175, 700)
+
+
 @pytest.mark.parametrize("m,n,k", [
     (4, 128256, 2048),   # Llama-3.2-1B's tied head at decode batch
     (1, 102400, 2048),   # DeepSeek-V2-Lite's head
@@ -166,11 +177,15 @@ def test_dequant_matmul_plain(n, k, m, kind):
     (4, 64, 16),         # one 16-column piece
     (4, 8, 28672),       # the widest K a block's shared memory holds
     (4, 130, 100),       # K % 16 != 0: the SIMT kernel
-    (5, 128256, 2048),   # M > 4: the SIMT kernel (a full-logits forward)
+    (5, 128256, 2048),   # M > 4: the tensor-core kernel (full logits)
     (700, 1000, 512),    # prefill rows
+    (40, 130, 100),      # K % 16 != 0 at prefill M: the SIMT kernel
     (4, 211, 0),         # K = 0: the SIMT kernel writes the epilogue
+    (9, 211, 0),
     (1, 4096, 10944),
-])
+] + [(m, n, k) for n, k in K5_MODEL_SHAPES for m in K5_MODEL_M
+     if (m, n, k) not in ((4, 128256, 2048), (1, 102400, 2048),
+                          (5, 128256, 2048))])
 @pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
 def test_dequant_plan(m, n, k, sms):
     """K5's launch plan, a pure function of the shapes: the decode kernel
@@ -178,11 +193,15 @@ def test_dequant_plan(m, n, k, sms):
     wrapper refuses a wq off a 16-byte boundary for every kernel), each
     output row in exactly one warp task and each task in exactly one warp
     of the grid, and the grid, block and shared memory within what the
-    card takes.  Else the SIMT kernel: every K chunk in exactly one split,
-    no split empty."""
+    card takes.  From MMA_MIN_M rows on, the same K: the tensor-core
+    kernel, 128 × 128 tiles, K split only where the tiles leave SMs idle
+    and then within one block an SM, every 64-column step in exactly one
+    split, no split empty.  Else the SIMT kernel: every K chunk in
+    exactly one split, no split empty."""
     plan = dqm.dequant_plan(m, n, k, sms)
-    assert plan.kernel == ("decode" if m <= 4 and k > 0 and k % 16 == 0
-                           else "simt")
+    vec = k > 0 and k % 16 == 0
+    assert plan.kernel == ("decode" if m <= 4 and vec else "mma"
+                           if m >= dqm.MMA_MIN_M and vec else "simt")
     assert plan.smem_bytes <= dqm.SMEM_MAX and plan.threads <= 1024
     assert 0 < plan.grid[0] <= dqm.MAX_GRID_X
     assert all(0 < g <= dqm.MAX_GRID_YZ for g in plan.grid[1:])
@@ -207,6 +226,16 @@ def test_dequant_plan(m, n, k, sms):
         assert (owner >= 0).all()
         rows = (np.arange(tasks)[:, None] * rpw + np.arange(rpw)).ravel()
         assert np.array_equal(rows[rows < n], np.arange(n))
+    elif plan.kernel == "mma":
+        stripes, bands, splits = plan.grid
+        assert (stripes, bands) == (-(-n // dqm.MMA_BN), -(-m // dqm.MMA_BM))
+        assert plan.threads == dqm.MMA_THREADS and plan.splits == splits
+        assert plan.smem_bytes == dqm.mma_smem_bytes()
+        tiles = stripes * bands
+        assert splits == 1 or (tiles * splits <= sms and 2 * tiles <= sms)
+        steps = -(-k // dqm.MMA_STEP_K)
+        per = -(-steps // splits)
+        assert (splits - 1) * per < steps <= splits * per
     else:
         rpt = 2 if m <= 4 else 8
         assert plan.rpt == rpt and plan.threads == 256

@@ -579,3 +579,37 @@ def test_other_errors_are_not_quarantined(served):
     with pytest.raises(RuntimeError, match="shape mismatch"):
         eng.drain()
     assert FALLBACK_COUNTS["quarantine"] == 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v2-lite-16b"])
+def test_quant_mode_engine_matches_generate(arch):
+    """Quant mode (every projection a QuantLinear through K5): 6 staggered
+    requests through 2 slots, each completion bitwise equal to one-shot
+    generate of its prompt alone.  On Llama nothing is materialized (the
+    embedding gathers rows, the tied head multiplies through K5); on
+    DeepSeek only MLA's wkv_b and the expert stacks, as the reference."""
+    from repro_torch.core.compressed import QuantLinear
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    tcfg = tget_config(arch).smoke
+    st = TE.build_serve_params(
+        LM.init_lm(tcfg, seed=0, device="cpu"),
+        CompressionPolicy(mode="quant", min_weight_size=1024), device="cpu")
+    assert isinstance(st.params["embed"], QuantLinear)
+    ctx = ServeContext(tcfg, lut=st.lut, device="cpu")
+    eng = Engine(ctx, st.params, n_slots=2, max_len=20)
+    prompts = _prompts(tcfg.vocab_size, 6)
+    L.MATERIALIZE_COUNTS.clear()
+    max_news = _staggered(eng, lambda i, m: eng.submit(
+        Request(tokens=prompts[i], max_new=m, rid=i)), 6)
+    assert set(L.MATERIALIZE_COUNTS) <= (
+        set() if tcfg.family == "dense" else {"quant"})
+    assert eng.health()["joined_mid_decode"] >= 1
+    by_rid = _by_rid(eng)
+    for i, p in enumerate(prompts):
+        assert by_rid[i].finished == "max_new"
+        np.testing.assert_array_equal(
+            by_rid[i].tokens,
+            _ref(st.params, ctx, p, int(max_news[i]), eng.pool.max_len),
+            err_msg=f"request {i} diverged from one-shot generate")

@@ -1,5 +1,5 @@
-"""The bits of K1, K3 and K2 on fixed-seed inputs, for holding a kernel
-change to "unchanged bit for bit".
+"""The bits of K1, K3, K2 and K5's decode kernel on fixed-seed inputs, for
+holding a kernel change to "unchanged bit for bit".
 
     python3 tools/k1_bits.py [--src DIR] [--check]
 
@@ -10,7 +10,8 @@ kernel at M ≤ 4, the SIMT kernel, the tensor-core kernel) on weights and
 x drawn with numpy from one seed, so that two trees see the same inputs,
 and K2 (its flash-attention kernels) at the main paths' prefill shapes
 (``FLASH_CASES``: the tensor-core kernel on bf16, the SIMT kernel on f32
-q).
+q), and K5 (``dequant_matmul``) at M = 1–4 on both paths' int8 LM heads
+(``K5_CASES``: its decode kernel), quantized from numpy draws.
 Prints one JSON line: the CRC32 of each case's output bytes, the card's
 name and SM count.  ``--check`` compares them with ``EXPECTED`` (taken
 from an earlier tree on an H100 of 132 SMs; the plan, and so the order
@@ -18,7 +19,8 @@ of the sums, depends on the SM count) and exits 1 on a difference.
 
 Only functions of the port that every tree since K3 has are used:
 ``fused_decode_matmul`` and ``grouped_fused_decode_matmul`` on 2-D and
-stacked planes, ``pack_expert_stack`` to pack, ``flash_attention``.
+stacked planes, ``pack_expert_stack`` to pack, ``flash_attention``,
+``quantize_linear`` and ``dequant_matmul``.
 """
 from __future__ import annotations
 
@@ -54,6 +56,12 @@ FLASH_CASES = (
     ("k2_simt_192", 4, 16, 16, 175, 192, 128, "f32"),
 )
 
+# (name, N, K, M): K5 on an int8 LM head (Llama-3.2-1B's, DeepSeek-V2-
+# Lite's) at decode batch, random bf16 x, bf16 output
+K5_CASES = tuple((f"k5_decode_{arch}_m{m}", n, 2048, m)
+                 for arch, n in (("llama", 128256), ("deepseek", 102400))
+                 for m in (1, 2, 3, 4))
+
 # CRC32 of each case's output on an H100 80GB HBM3 (132 SMs), from the
 # tree before K1's column groups and K2's smoke head dims (and the same
 # from the tree with them); the key is the SM count the plans were made for
@@ -63,7 +71,14 @@ EXPECTED: dict = {132: {
     "k1_mma": 34615304, "k1_mma_int": 942546493,
     "k3_decode": 360643931, "k3_mma": 3723757787,
     "k2_mma_64": 3481377767, "k2_mma_192": 505407163,
-    "k2_simt_64": 1568519408, "k2_simt_192": 484588909}}
+    "k2_simt_64": 1568519408, "k2_simt_192": 484588909,
+    # K5's decode kernel, from the tree before K5's tensor-core kernel
+    "k5_decode_llama_m1": 1744373323, "k5_decode_llama_m2": 2962426492,
+    "k5_decode_llama_m3": 3509981583, "k5_decode_llama_m4": 1652619544,
+    "k5_decode_deepseek_m1": 3800816622,
+    "k5_decode_deepseek_m2": 2631134178,
+    "k5_decode_deepseek_m3": 1246984601,
+    "k5_decode_deepseek_m4": 1565512306}}
 
 
 def case_outputs(device) -> dict:
@@ -107,6 +122,22 @@ def case_outputs(device) -> dict:
         y = fa.flash_attention(q, k, v)
         out[name] = zlib.crc32(y.contiguous().cpu().float().numpy()
                                .tobytes())
+    from repro_torch.core.compressed import quantize_linear
+    from repro_torch.kernels import dequant_matmul as dqm
+    heads = {}
+    for name, n, k, m in K5_CASES:
+        if n not in heads:
+            heads.clear()
+            rng = np.random.default_rng([SEED, n, k])
+            heads[n] = quantize_linear(torch.from_numpy(
+                rng.standard_normal((n, k), dtype=np.float32)).to(device))
+        q = heads[n]
+        rng = np.random.default_rng([SEED, n, k, m])
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(device).to(torch.bfloat16)
+        y = dqm.dequant_matmul(x, q.values, q.scale, q.zero)
+        out[name] = zlib.crc32(y.contiguous().cpu().float().numpy()
+                               .tobytes())
     return out
 
 
@@ -130,7 +161,8 @@ def main() -> int:
             print(f"k1_bits: no expected bits for {sms} SMs",
                   file=sys.stderr)
             return 1
-        bad = {k: (v, want[k]) for k, v in crcs.items() if want[k] != v}
+        bad = {k: (v, want.get(k)) for k, v in crcs.items()
+               if want.get(k) != v}
         if bad:
             print(f"k1_bits: bits changed: {bad}", file=sys.stderr)
             return 1

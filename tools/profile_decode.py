@@ -419,6 +419,23 @@ def time_k2(dev, label):
 
 K5_HEADS = (("llama3.2-1b", 128256, 2048),
             ("deepseek-v2-lite-16b", 102400, 2048))
+# Llama-3.2-1B's distinct projection shapes in quant mode (q/o, k/v,
+# gate/up, down) and its head, timed at prefill M (the fixed batch's
+# 4 × 175, one admission's 175) and, on gate/up and the head, at the M
+# around the cut between the SIMT and the tensor-core kernel.  The
+# tensor-core kernel's design choice against the source as built (two
+# blocks an SM, at most 128 registers a thread): launch bounds of one
+# block an SM (no cap on registers).
+K5_SHAPES = (("q/o", 2048, 2048), ("k/v", 512, 2048),
+             ("gate/up", 8192, 2048), ("down", 2048, 8192),
+             ("llama3.2-1b head", 128256, 2048))
+K5_PREFILL_M = (700, 175)
+K5_CUT_M = (5, 8, 16)
+K5_CUT_SHAPES = ("gate/up", "llama3.2-1b head")
+K5_MMA_VARIANTS = {
+    "1 block an SM": {"constexpr int kMmaBlocksPerSM = 2;":
+                      "constexpr int kMmaBlocksPerSM = 1;"},
+}
 # The decode kernel's design choices, each timed against the source as
 # built: a variant is the source with its own constants (or a line of it)
 # replaced.  PACK_HI packs the high halves of two exact f32 by one PRMT.
@@ -528,10 +545,58 @@ def time_k5_variants(dqm, libs, head, dev, gen, timer, sms):
     return rows
 
 
+def time_k5_prefill(dqm, dev, gen, timer, mma_libs):
+    """K5 at prefill M on Llama-3.2-1B's projection shapes and its head
+    (K5_SHAPES) through chip_smoke.check_k5, with the SIMT kernel's time
+    at the same shape and inputs (a tree with ``simt_plan``), at the cut's
+    M (K5_CUT_M) on gate/up and the head too, and the tensor-core kernel's
+    design variants (``mma_libs``) at the prefill M."""
+    from chip_smoke import check_k5, int_x, rand_x, weight_graph_ms
+    from repro_torch.core.compressed import quantize_linear
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for name, n, k in K5_SHAPES:
+        q = quantize_linear(torch.randn((n, k), generator=gen, device=dev))
+        args = (q.values, q.scale, q.zero)
+        wb = q.materialize(torch.bfloat16)
+        for m in K5_PREFILL_M + (K5_CUT_M if name in K5_CUT_SHAPES
+                                 else ()):
+            row = {"shape": name, "N": n, "K": k, "M": m,
+                   **check_k5({"dqm": dqm}, *args, wb, m, gen, timer,
+                              plain=m in K5_PREFILL_M)}
+            xi, xr = int_x(m, k, gen, dev), rand_x(m, k, gen, dev)
+            want = dqm.dequant_matmul_plain(xi, *args, torch.bfloat16)
+            out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            plans = {}
+            if hasattr(dqm, "simt_plan"):
+                plans["simt"] = (dqm.simt_plan(m, n, k, sms), None)
+            if m in K5_PREFILL_M and mma_libs:
+                plans.update({label: (dqm.dequant_plan(m, n, k, sms), fn)
+                              for label, (fn, _) in mma_libs.items()})
+                # K split for both of an SM's block slots, not one
+                plans["split for two blocks an SM"] = (dqm.dequant_plan(
+                    m, n, k, sms * dqm.MMA_BLOCKS_PER_SM), None)
+            for label, (plan, fn) in plans.items():
+                def call(x, plan=plan, fn=fn):
+                    dqm._launch(plan, x, *args, out, fn=fn)
+                    return out
+                row[label] = {
+                    "bitwise": bool(torch.equal(call(xi), want)),
+                    "ms": weight_graph_ms(timer, q.values,
+                                          lambda c=call: c(xr))}
+            rows.append(row)
+            print(json.dumps(rows[-1]), flush=True)
+        del q, args, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_k5(dev, label):
     """K5 at both paths' LM heads through chip_smoke.check_dequant: one
     definition of its error, timing and bound; then, on a tree with the
-    decode kernel, its design variants (K5_VARIANTS) on the same heads."""
+    decode kernel, its design variants (K5_VARIANTS) on the same heads;
+    then the prefill rows (time_k5_prefill), on a tree with the
+    tensor-core kernel with its design variants (K5_MMA_VARIANTS)."""
     from chip_smoke import Timer, check_dequant
     from repro_torch.core.compressed import quantize_linear
     from repro_torch.kernels import _build
@@ -540,7 +605,15 @@ def time_k5(dev, label):
     _build.build([dqm.NAME])
     variants = (build_k5_variants(_build)
                 if hasattr(dqm, "dequant_plan") else {})
+    mma_libs = {}
+    if hasattr(dqm, "MMA_MIN_M"):
+        for name, (fn, ptxas, _) in build_variants(
+                _build, dqm.NAME, K5_MMA_VARIANTS,
+                "qmoe_dequant_matmul_mma").items():
+            fn.argtypes = dqm._MMA_ARGTYPES
+            mma_libs[name] = (fn, [r for r in ptxas if "mma" in r["kernel"]])
     build_s = time.perf_counter() - t0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
@@ -548,16 +621,20 @@ def time_k5(dev, label):
     for arch, n, k in K5_HEADS:
         head = quantize_linear(torch.randn((n, k), generator=gen,
                                            device=dev))
-        rows.append({"head": arch, **check_dequant({"dqm": dqm}, head, dev,
-                                                   gen, timer)})
+        rows.append({"head": arch, **check_dequant({"dqm": dqm}, head, gen,
+                                                   timer)})
         print(json.dumps(rows[-1]), flush=True)
         design += [{"head": arch, **r} for r in time_k5_variants(
             dqm, variants, head, dev, gen, timer, sms)]
         del head
         torch.cuda.empty_cache()
+    prefill = time_k5_prefill(dqm, dev, gen, timer, mma_libs)
     ptxas = print_ptxas(dqm.NAME)
     print(json.dumps({"k5": label, "build_s": build_s, "rows": rows,
-                      "variants": design, "ptxas": ptxas}), flush=True)
+                      "variants": design, "prefill": prefill,
+                      "mma_variants_ptxas": {k: v[1] for k, v in
+                                             mma_libs.items()},
+                      "ptxas": ptxas}), flush=True)
 
 
 K4_SHAPE = (4096, 512)     # DeepSeek-V2-Lite's MLA wkv_b
