@@ -45,6 +45,16 @@ each in the phases below; the script exits non-zero if any phase fails:
      length, one capture, the drain's launches, every page freed; ticks,
      tokens/s, the median tick and admission prefill, the capture, the
      pool's bytes and peak memory are printed.
+     Then the rows phase (``rows_phase``): 5–16 rows, where K1's decode
+     kernel runs four row groups and K5's decode kernel one launch a group
+     of 4 rows — ``generate`` at batch 8 and 16 with the gates above, the
+     engine phase's requests through the engine at 8 and 16 slots (each
+     completion bitwise ``generate`` alone), kernel rows at M = 5, 8, 16
+     for K1 (the 7 projections) and K5 (the head), and on the DeepSeek
+     path K3's stacks at capacities 5, 8, 16: each row bitwise on integer
+     x and each row of the output bitwise that row alone.  K1/K3's SIMT
+     kernel, which only tiles 1 or 2 weights wide reach, must launch in no
+     phase but the kernel checks (``SimtWatch``).
   5. Card against CPU: the same seeded model at 2 layers, packed once; the
      prefill logits of the card and of the CPU (plain versions) must agree
      within a stated tolerance; greedy tokens are compared.  For the MoE,
@@ -63,7 +73,8 @@ each in the phases below; the script exits non-zero if any phase fails:
      end with the dispatch lever unset and no fallback counted.
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
-``engine`` line for Llama, a ``resilience`` line per path, one JSON
+``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
+the SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -226,6 +237,27 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+class SimtWatch(collections.Counter):
+    """``_build.KERNEL_COUNTS`` for the whole run (the same object, whose
+    class ``watch`` swaps, since the decode graph's replays add to it): the
+    Counter that every phase clears and reads, which also keeps, by phase
+    (``phase``, set as each path moves on), each launch of K1/K3's SIMT
+    kernel — a launch inside a captured step is seen at its capture.  No
+    served path may launch it: only tiles 1 or 2 weights wide reach it,
+    and only the kernel checks (``<path> kernels``) hold such tiles."""
+
+    @classmethod
+    def watch(cls, counts: collections.Counter) -> "SimtWatch":
+        counts.__class__ = cls
+        counts.phase, counts.simt = "setup", collections.Counter()
+        return counts
+
+    def __setitem__(self, key, value):
+        if key.endswith(":simt") and "fused_decode_matmul" in key:
+            self.simt[self.phase] += value - self.get(key, 0)
+        super().__setitem__(key, value)
+
+
 def by_kernel(kernel_launches: dict, name: str) -> dict:
     """The launches of wrapper ``name`` by kernel ({kernel: n}) from a
     run's ``_build.KERNEL_COUNTS``."""
@@ -247,12 +279,12 @@ def rand_x(m, k, gen, device):
                        ).to(torch.bfloat16)
 
 
-def make_prompts(vocab: int):
+def make_prompts(vocab: int, n_prompts: int = BATCH):
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, BATCH)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, n_prompts)
     reqs = [rng.integers(0, vocab, int(n)) for n in lens]
     width = int(max(lens))
-    batch = np.zeros((BATCH, width), np.int64)     # left-padded with 0
+    batch = np.zeros((n_prompts, width), np.int64)     # left-padded with 0
     for i, r in enumerate(reqs):
         batch[i, width - len(r):] = r
     return batch, [int(n) for n in lens]
@@ -361,10 +393,11 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
 
 def check_small_tiles(rt, device, gen):
     """K1 and K3 on weights whose K the packer cuts into tiles 2 and 1
-    weights wide (K ≡ 2 mod 4, K odd: the SIMT kernel at decode M) and 4
-    and 8 wide (the decode kernel's product on the SIMT cores), at M =
-    batch and 129: bitwise on integer x.  Packed from seeded random weights
-    of those shapes alone."""
+    weights wide (K ≡ 2 mod 4, K odd: the SIMT kernel, at every M) and 4
+    and 8 wide (the decode kernel's product on the SIMT cores; at M = 129
+    the tensor-core kernel, K ≡ 4 mod 8 copying x 8 bytes at a time), at
+    M = batch and 129: bitwise on integer x.  Packed from seeded random
+    weights of those shapes alone."""
     fdm, pack_stack = rt["fdm"], rt["pack_expert_stack"]
     rows = []
     for e, n, k in ((1, 128, 130), (1, 128, 131), (3, 128, 130),
@@ -638,6 +671,56 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
             "prefill_bound_by": "+".join(sorted(pre_by))}, rows
 
 
+def check_grouped_rows(rt, state, device, gen, timer, m):
+    """K3 on the first MoE layer's three expert stacks at capacity ``m``
+    (5–16: the decode kernel's row groups, an engine tick of m slots in
+    the dropless regime): ``rows_check`` on each (bitwise on integer x,
+    MATMUL_RTOL on random x, each row bitwise that row alone), timed as
+    ``check_grouped`` times it.  → (the row, its stacks)."""
+    fdm = rt["fdm"]
+    lut = state.lut
+    experts = state.params["blocks"][0]["moe"]["experts"]
+    row = {"name": "grouped_fused_decode_matmul", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/fused_decode_matmul.cu",
+           "replaces": "src/repro/kernels/fused_decode_matmul.py:202",
+           "timed_at": f"one MoE layer's 3 expert stacks, cap {m}",
+           "library": "torch.bmm on the materialized bf16 expert stack",
+           "bitwise": True, "rows_equal_alone": True, "max_abs_err": 0.0,
+           "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "bound_by": "bytes"}
+    detail = []
+    for name in ("w_gate", "w_up", "w_down"):
+        w = experts[name]
+        e = w.codes.shape[0]
+        n, k = w.shape
+        args = (w.codes, w.literals, lut, w.scale, w.zero)
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        fields, xr = rows_check(
+            lambda x, dt: fdm.grouped_fused_decode_matmul(
+                x, *args, **kw, out_dtype=dt),
+            lambda x, dt: fdm.grouped_fused_decode_matmul_plain(
+                x, *args, **kw, out_dtype=dt), m, k, gen, device, lead=(e,))
+        wbt = w.materialize(lut, torch.bfloat16).transpose(1, 2)
+        b, by = bound_ms(nbytes(xr, lut) + plane_bytes(w) + e * m * n * 2,
+                         2.0 * e * m * n * k)
+        t = {"stack": name, "E": e, "N": n, "K": k, "M": m, **fields,
+             "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
+                 xr, *args, **kw)] * 4),
+             "plain_ms": timer.ms(
+                 lambda: fdm.grouped_fused_decode_matmul_plain(
+                     xr, *args, **kw, out_dtype=torch.bfloat16)),
+             "library_ms": timer.graph_ms([lambda: torch.bmm(xr, wbt)] * 4),
+             "bound_ms": b, "bound_by": by, **launch_info(fdm, m, w, e)}
+        del wbt
+        for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            row[f] += t[f]
+        row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+        detail.append(t)
+    row["launch"] = {f: detail[0][f] for f in ("kernel", "grid", "threads",
+                                                "smem_bytes")}
+    return row, detail
+
+
 def check_dict_decode(rt, w, lut, timer):
     """K4 on MLA's wkv_b (4096 × 512: 512 blocks of 1024 slots) and on a
     ragged, prime block count of the same planes.  Beside the kernel's
@@ -765,7 +848,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     Raises on any difference."""
     _build, L, LM, ops, E = (rt["_build"], rt["L"], rt["LM"], rt["ops"],
                              rt["engine"])
-    t_prefill = batch.shape[1]
+    b, t_prefill = batch.shape
     steps = MAX_NEW - 1
     ids = torch.as_tensor(batch, device=device)
 
@@ -796,7 +879,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
         lambda: eager_loop(rt, cfg, state, ids))
     out_capture, capture_run = counted(generate)
     out, replay_run = counted(generate)
-    graph = E.decode_graph(state.params, cfg, state.lut, BATCH,
+    graph = E.decode_graph(state.params, cfg, state.lut, b,
                            t_prefill + MAX_NEW, device=device)
     # the decode graph's private pool (its step's intermediates), which
     # max_memory_allocated does not count once the capture has freed them
@@ -806,8 +889,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     prefill, _ = rt["make_serve_fns"](cfg, device=device)
     pre = []
     for _ in range(3):
-        caches = LM.init_caches(cfg, BATCH, t_prefill + MAX_NEW,
-                                device=device)
+        caches = LM.init_caches(cfg, b, t_prefill + MAX_NEW, device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, _ = prefill(state.params, state.lut, {"tokens": ids}, caches)
@@ -825,16 +907,16 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     new = out[:, t_prefill:]
     runs = {"eager_loop": eager_run, "generate_capture": capture_run,
             "generate_replay": replay_run}
-    e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": BATCH,
+    e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": b,
            "prompt_lens": lens, "max_new": MAX_NEW,
            "generate_s": replay_run["s"], "prefill_ms": prefill_s * 1e3,
            "capture_ms": graph.capture_ms,
            "decode_ms_per_step": graph_decode_s / steps * 1e3,
-           "decode_tokens_per_s": BATCH * steps / graph_decode_s,
+           "decode_tokens_per_s": b * steps / graph_decode_s,
            "eager_decode_ms_per_step": eager_decode_s / steps * 1e3,
-           "eager_decode_tokens_per_s": BATCH * steps / eager_decode_s,
+           "eager_decode_tokens_per_s": b * steps / eager_decode_s,
            "generate_decode_tokens_per_s":
-               BATCH * steps / (replay_run["s"] - prefill_s),
+               b * steps / (replay_run["s"] - prefill_s),
            "peak_mem_bytes": capture_run["peak_mem_bytes"],
            "replay_peak_mem_bytes": replay_run["peak_mem_bytes"],
            "eager_peak_mem_bytes": eager_run["peak_mem_bytes"],
@@ -849,7 +931,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
                     for k, r in runs.items()},
            "first_request_tokens": new[0].tolist(), "tokens": new.tolist()}
     faults = []
-    if not (tuple(out.shape) == (BATCH, t_prefill + MAX_NEW)
+    if not (tuple(out.shape) == (b, t_prefill + MAX_NEW)
             and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
             and bool(torch.isfinite(logits.float()).all())):
         faults.append(f"out {tuple(out.shape)}, tokens in "
@@ -895,26 +977,32 @@ def engine_requests(cfg):
     return lens, prompts, budgets, arrivals
 
 
-def engine_phase(rt, cfg, state, device, dispatch="fused"):
+def engine_phase(rt, cfg, state, device, dispatch="fused",
+                 slots=ENGINE_SLOTS, refs=None):
     """Request-level serving: ENGINE_REQUESTS greedy requests (prompt
     lengths in PROMPT_MIN–PROMPT_MAX and budgets in ENGINE_NEW_MIN–
     ENGINE_NEW_MAX from the seed) arriving at cumulative Poisson(1.5)
-    ticks into ``Engine`` (ENGINE_SLOTS slots of ENGINE_MAX_LEN tokens,
-    pages of ENGINE_PAGE), drained.  Counts are zeroed just before the
-    drain and read just after.  Gates: every request ends as one
-    ``Completion`` with ``finished == 'max_new'``, its tokens bitwise equal
-    to ``generate`` of its prompt alone at the pool's length; all slots
-    occupied at once and a request joined mid-decode; one capture of the
-    generate step; the launches of (ticks + admissions) decode steps and
-    prefills, each K1 launch one ``dispatch`` (its probe: 'fused', or
-    'tiled_fused' for a tiled state; None for a quant-mode state, whose
-    projections all launch K5 and dispatch nothing); no weight
-    materialized; every page back on the free list.  Raises on any
+    ticks into ``Engine`` (``slots`` slots of ENGINE_MAX_LEN tokens, pages
+    of ENGINE_PAGE), drained.  Counts are zeroed just before the drain and
+    read just after.  Gates: every request ends as one ``Completion`` with
+    ``finished == 'max_new'``, its tokens bitwise equal to ``generate`` of
+    its prompt alone at the pool's length (a tick runs all ``slots`` rows:
+    the decode kernels at M = slots); at ENGINE_SLOTS all slots occupied
+    at once (above, more than ENGINE_SLOTS rows live in a tick) and a
+    request joined mid-decode; one capture of the generate step; the
+    launches of (ticks + admissions) decode steps and prefills, by kernel
+    (K1's decode kernel every tick, its tensor-core kernel at every
+    admission, K5's decode kernel ⌈slots / 4⌉ launches a tick), each K1
+    launch one ``dispatch`` (its probe: 'fused', or 'tiled_fused' for a
+    tiled state; None for a quant-mode state, whose projections all launch
+    K5 and dispatch nothing); no weight materialized; every page back on
+    the free list.  ``refs``: a dict of generate's tokens by request,
+    filled on the first call and compared against after.  Raises on any
     difference; → the numbers."""
     _build, L, ops, E = rt["_build"], rt["L"], rt["ops"], rt["engine"]
     lens, prompts, budgets, arrivals = engine_requests(cfg)
     eng = rt["Engine"](rt["ServeContext"](cfg, lut=state.lut), state.params,
-                       n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN,
+                       n_slots=slots, max_len=ENGINE_MAX_LEN,
                        page_size=ENGINE_PAGE)
     prefill_s, tick_s = [], []
     prefill = eng._prefill
@@ -956,7 +1044,7 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
     ticks = sum(1 for o in eng.stats["occupancy"] if o)
     n_tokens = sum(c.n_generated for c in eng.completions)
     info = {"model": cfg.name, "layers": cfg.n_layers,
-            "slots": ENGINE_SLOTS, "page_size": ENGINE_PAGE,
+            "slots": slots, "page_size": ENGINE_PAGE,
             "max_len": eng.pool.max_len, "requests": ENGINE_REQUESTS,
             "prompt_lens": lens.tolist(), "max_new": budgets.tolist(),
             "arrivals": arrivals.tolist(), "ticks": ticks,
@@ -979,37 +1067,47 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
             faults.append(f"request {c.rid} completed twice")
         by_rid[c.rid] = c
     mismatched = []
+    refs = {} if refs is None else refs
     for i, p in enumerate(prompts):
         c = by_rid.get(i)
         if c is None or c.finished != "max_new":
             faults.append(f"request {i}: {c and c.finished}")
             continue
-        want = rt["generate"](state.params, cfg, torch.as_tensor(p)[None],
-                              lut=state.lut, max_new=int(budgets[i]),
-                              max_len=eng.pool.max_len, device=device)[0]
-        if not np.array_equal(c.tokens, want.cpu().numpy()):
+        if i not in refs:
+            refs[i] = rt["generate"](
+                state.params, cfg, torch.as_tensor(p)[None], lut=state.lut,
+                max_new=int(budgets[i]), max_len=eng.pool.max_len,
+                device=device)[0].cpu().numpy()
+        if not np.array_equal(c.tokens, refs[i]):
             mismatched.append(i)
     info["requests_not_bitwise_equal_to_generate"] = mismatched
     if mismatched:
         faults.append(f"requests {mismatched} differ from generate")
     n_steps = ticks + ENGINE_REQUESTS
     proj = 7 * cfg.n_layers * n_steps
-    want_launches = {"fused_decode_matmul": proj, "dequant_matmul": n_steps,
+    # a tick's M = slots: K5 (the head; in quant mode every projection)
+    # on its decode kernel, one launch a group of 4 rows; an admission's
+    # head at M = 1, its projections at the prompt's length (> 16: the
+    # tensor-core kernels)
+    groups = -(-slots // 4)
+    tick_proj = 7 * cfg.n_layers * ticks
+    admit_proj = 7 * cfg.n_layers * ENGINE_REQUESTS
+    head = groups * ticks + ENGINE_REQUESTS
+    want_launches = {"fused_decode_matmul": proj, "dequant_matmul": head,
                      "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
+    want_kernels = {"fused_decode_matmul:decode": tick_proj,
+                    "fused_decode_matmul:mma": admit_proj,
+                    "dequant_matmul:decode": head}
     want_dispatch = {dispatch: proj}
     if dispatch is None:
-        want_launches = {"dequant_matmul": proj + n_steps,
+        want_launches = {"dequant_matmul": groups * tick_proj + admit_proj
+                         + head,
                          "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
         want_dispatch = {}
-        # the admissions' projections on K5's tensor-core kernel (every
-        # prompt is longer than 4), the ticks' and every head on the
-        # decode kernel
-        want_kernels = {
-            "dequant_matmul:mma": 7 * cfg.n_layers * ENGINE_REQUESTS,
-            "dequant_matmul:decode": proj + n_steps
-            - 7 * cfg.n_layers * ENGINE_REQUESTS}
-        if kernel_counts != want_kernels:
-            faults.append(f"by kernel {kernel_counts}, want {want_kernels}")
+        want_kernels = {"dequant_matmul:mma": admit_proj,
+                        "dequant_matmul:decode": groups * tick_proj + head}
+    if kernel_counts != want_kernels:
+        faults.append(f"by kernel {kernel_counts}, want {want_kernels}")
     if launches != want_launches:
         faults.append(f"launches {launches}, want {want_launches}")
     if dispatched != want_dispatch:
@@ -1018,7 +1116,9 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
         faults.append(f"materialized {materialized}")
     if captures != 1:
         faults.append(f"{captures} captures of the generate step, want 1")
-    if h["occupancy_max"] != ENGINE_SLOTS or h["joined_mid_decode"] < 1:
+    if not (h["occupancy_max"] == slots if slots == ENGINE_SLOTS
+            else h["occupancy_max"] > ENGINE_SLOTS) \
+            or h["joined_mid_decode"] < 1:
         faults.append(f"occupancy_max {h['occupancy_max']}, joined mid-"
                       f"decode {h['joined_mid_decode']}")
     if len(eng.pool.free_pages) != eng.pool.n_pages:
@@ -1027,6 +1127,161 @@ def engine_phase(rt, cfg, state, device, dispatch="fused"):
     log(f"engine {cfg.name} " + json.dumps(info))
     if faults:
         raise AssertionError(f"{cfg.name} engine: {faults}")
+    return info
+
+
+# The rows phase (Llama-3.2-1B): generate's batches and the engine's slots
+# above the fixed batch's 4, and the M of its kernel rows (K1, K3, K5).
+ROWS_BATCHES = (8, 16)
+ROWS_M = (5, 8, 16)
+
+
+def rows_check(call, plain, m, k, gen, device, lead=()):
+    """One kernel call at M = ``m`` rows of x (after ``lead`` dims; the
+    row axis is the last but one): bitwise equal to ``plain`` on integer
+    x, within MATMUL_RTOL on random x, and each row of the random-x output
+    bitwise that row computed alone (M = 1: what makes an engine tick of m
+    slots give generate's tokens).  → (row fields, the random x)."""
+    xi = torch.randint(-4, 5, (*lead, m, k), generator=gen, device=device
+                       ).to(torch.bfloat16)
+    same = bool(torch.equal(call(xi, torch.bfloat16),
+                            plain(xi, torch.bfloat16)))
+    xr = torch.randn((*lead, m, k), generator=gen, device=device
+                     ).to(torch.bfloat16)
+    yk, yp = call(xr, torch.float32), plain(xr, torch.float32)
+    err = float((yk - yp).abs().max())
+    tol = MATMUL_RTOL * float(yp.abs().max())
+    alone = all(torch.equal(yk[..., i:i + 1, :],
+                            call(xr[..., i:i + 1, :], torch.float32))
+                for i in range(m))
+    if not (same and alone and err <= tol and torch.isfinite(yk).all()):
+        raise AssertionError(f"M={m}: bitwise={same} rows_alone={alone} "
+                             f"err={err} tol={tol}")
+    return {"bitwise": same, "rows_equal_alone": alone,
+            "max_abs_err": err}, xr
+
+
+def rows_kernels(rt, cfg, state, device, gen, timer):
+    """Kernel rows at M = 5, 8, 16 (``ROWS_M``) for K1 on Llama's 7
+    projections (timed walking the 16 layers' planes; one row per M, the
+    layer's 7 summed) and K5 on the head: each through ``rows_check``,
+    with the plan's kernel, ms, bound, plain ms and ``torch.matmul``'s ms
+    on the bf16 weight.  → kernels rows."""
+    fdm = rt["fdm"]
+    lut = state.lut
+    blocks = state.params["blocks"]
+    rows = {m: {"name": fdm.NAME, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "fused_decode_matmul.cu",
+                "replaces": "src/repro/kernels/fused_decode_matmul.py:114",
+                "timed_at": f"one layer's 7 projections, M={m}",
+                "bitwise": True, "rows_equal_alone": True,
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0, "bound_by": "bytes",
+                "library": "torch.matmul on the bf16 weight", "detail": []}
+            for m in ROWS_M}
+    for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                      ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
+                      ("mlp", "w_down")):
+        ws = [b[grp][name] for b in blocks]
+        w = ws[0]
+        n, k = w.shape
+        args = (w.codes, w.literals, lut, w.scale, w.zero)
+        kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        wbs = [wl.materialize(lut, torch.bfloat16) for wl in ws]
+        for m in ROWS_M:
+            fields, xr = rows_check(
+                lambda x, dt: fdm.fused_decode_matmul(x, *args, **kw,
+                                                      out_dtype=dt),
+                lambda x, dt: fdm.fused_decode_matmul_plain(
+                    x, *args, **kw, out_dtype=dt), m, k, gen, device)
+            b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
+            t = {"proj": name, "N": n, "K": k, "M": m, **fields,
+                 "ms": timer.graph_ms([lambda wl=wl: fdm.fused_decode_matmul(
+                     xr, wl.codes, wl.literals, lut, wl.scale, wl.zero,
+                     **kw) for wl in ws]),
+                 "plain_ms": timer.ms(lambda: fdm.fused_decode_matmul_plain(
+                     xr, *args, **kw, out_dtype=torch.bfloat16)),
+                 "library_ms": timer.graph_ms([lambda wb=wb: xr @ wb.T
+                                               for wb in wbs]),
+                 "bound_ms": b, "bound_by": by,
+                 **launch_info(fdm, m, w, 1)}
+            row = rows[m]
+            for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                row[f] += t[f]
+            for f in ("bitwise", "rows_equal_alone"):
+                row[f] = row[f] and t[f]
+            row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
+            row["detail"].append(t)
+            row.setdefault("launch", {f: t[f] for f in (
+                "kernel", "grid", "threads", "smem_bytes")})
+        del wbs
+    head = state.params.get("lm_head", state.params["embed"])
+    wb = head.materialize(torch.bfloat16)
+    n, k = head.values.shape
+    out = list(rows.values())
+    dqm = rt["dqm"]
+    for m in ROWS_M:
+        fields, _ = rows_check(
+            lambda x, dt: dqm.dequant_matmul(x, head.values, head.scale,
+                                             head.zero, dt),
+            lambda x, dt: dqm.dequant_matmul_plain(x, head.values,
+                                                   head.scale, head.zero,
+                                                   dt), m, k, gen, device)
+        out.append({**K5_ROW, **check_k5(rt, head.values, head.scale,
+                                         head.zero, wb, m, gen, timer),
+                    **fields, "timed_at": f"LM head {n}x{k}, M={m}"})
+    return out
+
+
+def rows_phase(rt, cfg, state, device, engine_refs, gen, timer, kernels,
+               faults):
+    """5–16 rows on Llama-3.2-1B at full width, where K1's decode kernel
+    runs four row groups and K5's decode kernel one launch a group of 4
+    rows: ``generate`` at batch 8 and 16 (``serve``'s gates: the eager
+    loop, two generates bitwise to it, one capture, the launches by
+    kernel), its prefill, capture and decode ms a step graphed; the engine
+    phase's requests through the engine at 8 and 16 slots, each completion
+    bitwise the ``generate``-alone tokens the engine phase computed; and
+    the kernel rows at M = 5, 8, 16 (``rows_kernels``).  → the numbers."""
+    info = {"generate": {}, "engine": {}}
+    L = cfg.n_layers
+    for b in ROWS_BATCHES:
+        batch, lens = make_prompts(cfg.vocab_size, b)
+        groups = -(-b // 4)
+        e2e = serve(rt, cfg, state, device, batch, lens, want={
+            "fused_decode_matmul": 7 * L * MAX_NEW,
+            "dequant_matmul": groups * MAX_NEW, "flash_attention": L},
+            packed_want={"packed": 0}, kernel_want={
+                "fused_decode_matmul:mma": 7 * L,
+                "fused_decode_matmul:decode": 7 * L * (MAX_NEW - 1),
+                "dequant_matmul:decode": groups * MAX_NEW})
+        info["generate"][b] = {
+            f: e2e[f] for f in ("prompt_lens", "prefill_ms", "capture_ms",
+                                "decode_ms_per_step", "decode_tokens_per_s",
+                                "eager_decode_ms_per_step", "peak_mem_bytes",
+                                "launches", "kernel_launches")}
+    for slots in ROWS_BATCHES:
+        eng = engine_phase(rt, cfg, state, device, slots=slots,
+                           refs=engine_refs)
+        info["engine"][slots] = {
+            f: eng[f] for f in ("ticks", "tokens_per_s", "tick_ms_median",
+                                "prefill_ms_median", "capture_ms",
+                                "kernel_launches", "health",
+                                "requests_not_bitwise_equal_to_generate")}
+    rows = rows_kernels(rt, cfg, state, device, gen, timer)
+    for row in rows:
+        m = int(row["timed_at"].rsplit("M=", 1)[1])
+        b = min(bb for bb in ROWS_BATCHES if bb >= m)
+        row["path"] = f"{cfg.name} rows"
+        row["launches"] = info["generate"][b]["launches"].get(row["name"], 0)
+        row["launches_by_kernel"] = by_kernel(
+            info["generate"][b]["kernel_launches"], row["name"])
+        row["launches_of"] = f"generate at batch {b}"
+    kernels.extend(rows)
+    info["kernel_rows"] = [{f: r.get(f) for f in (
+        "name", "timed_at", "ms", "bound_ms", "plain_ms", "library_ms",
+        "bitwise", "rows_equal_alone", "max_abs_err")} for r in rows]
     return info
 
 
@@ -2159,9 +2414,10 @@ def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
     """DeepSeek-V2-Lite at full width, 2 layers, CompressionPolicy(tiles=
     2): K1 with column groups at MLA's and the MLPs' shapes against its
     plain version (bitwise on integer x, within MATMUL_RTOL on random x);
-    where the plan gives K1's SIMT kernel (the first w_down's groups at
-    tile_k 32, at the prefill's M) its time, bound, plain and
-    ``torch.matmul`` times, a row of ``kernels``; K4 decoding the tiled
+    where the plan gives K1's tensor-core kernel a tile narrower than its
+    64-column step (the first w_down's groups at tile_k 32, at the
+    prefill's M) its time, bound, plain and ``torch.matmul`` times, a row
+    of ``kernels``; K4 decoding the tiled
     wkv_b (the absorb's weight) bitwise against its plain decode; the main
     path with every projection on 'tiled_fused', the expert stacks on K3
     and the absorb counted 'tiled'."""
@@ -2200,7 +2456,7 @@ def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
             checks.append({"proj": label, "shape": list(w.shape), "M": m,
                            "G": w.tiles, "tile": [w.tile_n, w.tile_k],
                            "bitwise": same, "max_abs_err": err, **plan})
-            if plan["kernel"] == "simt":
+            if plan["kernel"] == "mma" and w.tile_k < 64:
                 n, k = w.shape
                 wb = w.materialize(st.lut, torch.bfloat16)
                 b, by = bound_ms(nbytes(xr, *args) + m * n * 2,
@@ -2211,7 +2467,7 @@ def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
                               "fused_decode_matmul.cu",
                     "replaces": "src/repro/kernels/fused_decode_matmul.py"
                                 ":114",
-                    "path": f"{cfg.name} tiled (SIMT kernel)",
+                    "path": f"{cfg.name} tiled (tensor cores, tile_k < 64)",
                     "timed_at": f"{label} {tuple(w.shape)}, G={w.tiles}, "
                                 f"tile_k {w.tile_k}, M={m}",
                     "bitwise": same, "max_abs_err": err, "launch": plan,
@@ -2223,7 +2479,7 @@ def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
                                                  reps=20, cold=True),
                     "library": "torch.matmul on the bf16 weight",
                     "bound_ms": b, "bound_by": by,
-                    "launches_of": "fused_decode_matmul:simt, generate"})
+                    "launches_of": "fused_decode_matmul:mma, generate"})
                 del wb
             if not ok:
                 faults.append(f"K1 G=2 {label} {w.shape} M={m}: bitwise "
@@ -2244,9 +2500,9 @@ def tiled_moe(rt, device, batch, lens, gen, timer, kernels, faults):
         dispatch_want={"tiled_fused": 6 * L * MAX_NEW,
                        "grouped_fused": 3 * n_moe * MAX_NEW})
     for row in kernels:
-        if row.get("launches_of") == "fused_decode_matmul:simt, generate":
+        if row.get("launches_of") == "fused_decode_matmul:mma, generate":
             row["launches"] = e2e["kernel_launches"].get(
-                "fused_decode_matmul:simt", 0)
+                "fused_decode_matmul:mma", 0)
     info = {"model": cfg.name, "layers": L, "packing": packing,
             "k1_checks": checks, "k4_tiled_wkv_b_bitwise": k4_same,
             "wkv_b": {"shape": list(wkv_b.shape), "G": wkv_b.tiles,
@@ -2453,8 +2709,9 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
     launch is a 'tiled_fused' dispatch (K3 for the expert stacks), no
     fallback rung is taken; under the pressure trace the governor changes
     its plan and retires KV pages at least once; in quant mode nothing is
-    dispatched or materialized, K5 launches its tensor-core and its
-    decode kernel and no other matmul kernel runs.  Both runs of an argv,
+    dispatched or materialized, K5 launches its decode kernel (and its
+    tensor-core kernel for a prompt past 16 tokens) and no other matmul
+    kernel runs.  Both runs of an argv,
     on the card and with ``--device cpu`` (every kernel's plain version),
     serve the same weights, ``init_lm(seed=0)`` drawn on the CPU: the CPU
     run must end its requests for the same reasons; where its sample
@@ -2507,9 +2764,13 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
         out[name] = info
         if mode == "quant":
             kl = run["kernel_launches"]
+            # the smoke prompts are 16 tokens: admissions too run K5's
+            # decode kernel (4 launches of 4 rows); a longer prompt its
+            # tensor-core kernel
             matmuls_ok = (set(launches) == {"dequant_matmul",
                                             "flash_attention"}
-                          and set(kl) == {"dequant_matmul:mma",
+                          and "dequant_matmul:decode" in kl
+                          and set(kl) <= {"dequant_matmul:mma",
                                           "dequant_matmul:decode"}
                           and not run["materialized"])
             want_d = set()
@@ -2552,6 +2813,12 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
     return out
 
 
+def phase(rt, name: str):
+    """Name the phase that the launches from here on belong to (for
+    ``SimtWatch``)."""
+    rt["watch"].phase = name
+
+
 def run_checks(cfg, checks, kernels, failed):
     """Run each ``(name, check)``; a check returns (row, detail).  Rows go
     to ``kernels`` with the path's name; a check that raises is a failed
@@ -2589,6 +2856,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         return row, {"rows": detail,
                      "small_tiles": check_small_tiles(rt, device, gen)}
 
+    phase(rt, f"{cfg.name} kernels")
     rows = run_checks(cfg, (
         ("fused_decode_matmul", check_k1),
         ("dequant_matmul",
@@ -2599,6 +2867,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
                              cfg.n_kv_heads, cfg.resolved_head_dim,
                              cfg.resolved_head_dim, "prefill"))),
         kernels, failed)
+    phase(rt, f"{cfg.name} e2e")
     e2e = {}
     try:
         e2e = serve(rt, cfg, state, device, batch, lens, want={
@@ -2614,9 +2883,10 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         row["launches_by_kernel"] = by_kernel(
             e2e.get("kernel_launches", {}), row["name"])
     log(f"e2e {cfg.name} " + json.dumps(e2e))
-    engine = {}
+    engine, refs = {}, {}
+    phase(rt, f"{cfg.name} engine")
     try:
-        engine = engine_phase(rt, cfg, state, device)
+        engine = engine_phase(rt, cfg, state, device, refs=refs)
     except Exception:
         traceback.print_exc()
         failed.append(f"{cfg.name} engine")
@@ -2624,6 +2894,20 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         row["engine_launches"] = engine.get("launches", {}).get(row["name"],
                                                                 0)
     unlevered(rt, f"{cfg.name} e2e and engine", failed)
+    phase(rt, f"{cfg.name} rows")
+    t0, info, faults = time.perf_counter(), {}, []
+    try:
+        info = rows_phase(rt, cfg, state, device, refs, gen, timer, kernels,
+                          faults)
+    except Exception:
+        traceback.print_exc()
+        faults.append("raised")
+    info["s"] = time.perf_counter() - t0
+    log(f"rows {cfg.name} " + json.dumps(info))
+    if faults:
+        failed.append(f"{cfg.name} rows")
+    unlevered(rt, f"{cfg.name} rows", failed)
+    phase(rt, f"{cfg.name} resilience")
     res, faults = {}, []
     try:
         res = resilience_phase(rt, cfg, state, device, batch, gen, timer,
@@ -2641,6 +2925,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
         log(f"resilience faults: {faults}")
         failed.append(f"{cfg.name} resilience")
     rt["resilience"].FALLBACK_COUNTS.clear()
+    phase(rt, f"{cfg.name} governor")
     gov, faults = {}, []
     try:
         gov = governor_phase(rt, cfg, state, device, faults)
@@ -2657,9 +2942,11 @@ def llama_path(rt, device, gen, timer, kernels, failed):
             for kind, run in gov.get("traces", {}).items()}
     rt["resilience"].FALLBACK_COUNTS.clear()
     rt["engine"].drop_graphs(cfg)
+    phase(rt, f"{cfg.name} tiled")
     tiled_phase(rt, cfg, state, device, batch, lens, gen, timer, kernels,
                 failed)
     unlevered(rt, f"{cfg.name} tiled", failed)
+    phase(rt, f"{cfg.name} quant")
     t0 = time.perf_counter()
     quant_phase(rt, cfg, state, device, batch, lens, e2e.get("tokens", []),
                 gen, timer, kernels, failed)
@@ -2667,6 +2954,7 @@ def llama_path(rt, device, gen, timer, kernels, failed):
     log(f"quant_phase: {time.perf_counter() - t0:.1f} s")
     del state
     torch.cuda.empty_cache()
+    phase(rt, f"{cfg.name} card_vs_cpu")
     try:
         card_vs_cpu(rt, dataclasses.replace(cfg, n_layers=2), device, batch,
                     steps=8)
@@ -2696,6 +2984,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
            for name in ("w_gate", "w_up", "w_down")]
         + [(f"first.{name}", [b["mlp"][name] for b in first], False)
            for name in ("w_gate", "w_up", "w_down")])
+    phase(rt, f"{cfg.name} kernels")
     rows = run_checks(cfg, (
         ("grouped_fused_decode_matmul",
          lambda: check_grouped(rt, cfg, state, device, BATCH * t_prefill,
@@ -2717,9 +3006,13 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
          lambda: (check_dequant(rt, state.params["lm_head"], gen,
                                 timer), None)),
         ("grouped_fused_decode_matmul (C-slot cache stack)",
-         lambda: check_grouped_cache(rt, cfg, state, device, gen, timer))),
+         lambda: check_grouped_cache(rt, cfg, state, device, gen, timer)),
+        *[(f"grouped_fused_decode_matmul cap {m}",
+           lambda m=m: check_grouped_rows(rt, state, device, gen, timer, m))
+          for m in ROWS_M]),
         kernels, failed)
     n_moe = cfg.n_layers - cfg.first_dense_layers
+    phase(rt, f"{cfg.name} e2e")
     e2e = {}
     try:
         # per forward: 3 grouped launches per MoE layer; K1 for MLA's wq,
@@ -2743,6 +3036,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
             e2e.get("kernel_launches", {}), row["name"])
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     unlevered(rt, f"{cfg.name} e2e", failed)
+    phase(rt, f"{cfg.name} residency")
     res, faults, k3 = {}, [], 0
     try:
         res, k3 = residency_phase(rt, cfg, state, device, batch, faults)
@@ -2763,6 +3057,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
     unlevered(rt, f"{cfg.name} residency", failed)
     del state
     torch.cuda.empty_cache()
+    phase(rt, f"{cfg.name} card_vs_cpu")
     try:
         card_vs_cpu(rt, dataclasses.replace(cfg, n_layers=2), device, batch,
                     steps=DS_CHECK_STEPS)
@@ -2770,6 +3065,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         traceback.print_exc()
         failed.append(f"{cfg.name} card_vs_cpu")
     unlevered(rt, f"{cfg.name} card_vs_cpu", failed)
+    phase(rt, f"{full.name} resilience")
     res, faults = {}, []
     try:
         res = moe_rungs(rt, device, batch, faults)
@@ -2781,6 +3077,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         log(f"resilience faults: {faults}")
         failed.append(f"{full.name} resilience")
     rt["resilience"].FALLBACK_COUNTS.clear()
+    phase(rt, f"{full.name} governor")
     gov, faults = {}, []
     try:
         gov = governor_moe(rt, device, faults)
@@ -2792,6 +3089,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         log(f"governor faults: {faults}")
         failed.append(f"{full.name} governor")
     rt["resilience"].FALLBACK_COUNTS.clear()
+    phase(rt, f"{full.name} tiled")
     res, faults = {}, []
     try:
         res = tiled_moe(rt, device, batch, lens, gen, timer, kernels,
@@ -2804,6 +3102,7 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
         log(f"tiled faults: {faults}")
         failed.append(f"{full.name} tiled")
     unlevered(rt, f"{full.name} tiled", failed)
+    phase(rt, f"{full.name} quant")
     quant_moe(rt, device, batch, lens, failed)
     unlevered(rt, f"{full.name} quant", failed)
 
@@ -2970,7 +3269,8 @@ def main() -> int:
           "pack_expert_stack": pack_expert_stack,
           "build_serve_params": build_serve_params, "generate": generate,
           "make_serve_fns": make_serve_fns, "Engine": Engine,
-          "Request": Request, "ServeContext": ServeContext}
+          "Request": Request, "ServeContext": ServeContext,
+          "watch": SimtWatch.watch(_build.KERNEL_COUNTS)}
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -3003,6 +3303,7 @@ def main() -> int:
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    phase(rt, "launcher")
     res, faults = {}, []
     try:
         res = launcher_phase(rt, device, gen, timer, kernels, faults)
@@ -3016,6 +3317,15 @@ def main() -> int:
     unlevered(rt, "launcher", failed)
     log(f"launcher_phase: {time.perf_counter() - t0:.1f} s")
 
+    # K1/K3's SIMT kernel: only the kernel checks (tiles 1 and 2 weights
+    # wide) may have launched it
+    simt = dict(rt["watch"].simt)
+    log("simt_launches_by_phase " + json.dumps(simt))
+    served = {p: n for p, n in simt.items() if n and not p.endswith(
+        " kernels")}
+    if served:
+        failed.append(f"fused_decode_matmul:simt launched on served paths: "
+                      f"{served}")
     for row in kernels:
         row.setdefault("launches", 0)
     log(json.dumps({"kernels": kernels}))

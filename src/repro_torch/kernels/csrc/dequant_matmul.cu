@@ -16,8 +16,10 @@
 // the tensor cores' operations (0.024 ms for Llama's w_gate at M = 700).
 // Three kernels, picked by the wrapper's plan (dequant_plan):
 //
-//   * the decode kernel at M ≤ 4 with K % 16 == 0 (below);
-//   * the tensor-core kernel from M = 5 on with K % 16 == 0 (below);
+//   * the decode kernel at M ≤ 4 with K % 16 == 0 (below), which the
+//     wrapper also launches once a group of 4 rows at M 5–16, so that a
+//     row has its bits alone at every M up to 16;
+//   * the tensor-core kernel from M = 17 on with K % 16 == 0 (below);
 //   * the SIMT kernel where K % 16 ≠ 0: blocks of 128 output columns walk
 //     K in 512-byte chunks through shared memory, split over gridDim.z
 //     when N/128 × M/BM blocks would leave the card idle

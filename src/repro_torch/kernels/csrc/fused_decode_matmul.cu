@@ -18,9 +18,11 @@
 //     LUT is shared).
 //
 // Three kernels, picked by the wrapper's plan (launch_plan): the decode
-// kernel at M ≤ 4 (tile_k ≥ 4: one warp per compressed block, below), the
-// SIMT kernel at other decode-sized M (5–16, tile_k 1 or 2 at M ≤ 4, or
-// tile_k % 64 != 0 at prefill), and the tensor-core prefill kernel.
+// kernel at M ≤ 16 (tile_k ≥ 4: one warp per compressed block, 1 or 4
+// row groups of 4 rows, below), the tensor-core kernel above 16 rows (any
+// tile_k ≥ 4), and the SIMT kernel only for tiles 1 or 2 weights wide (K
+// odd or 2 mod 4) or compressed blocks past the decode kernel's limits:
+// no model the port serves has either.
 //
 //   y[m, n] = s[n] · (Σ_k bf16(x[m, k]) · q[n, k] − z[n] · Σ_k bf16(x[m, k]))
 //
@@ -30,10 +32,11 @@
 // _decode_tile clips it.  The decoded weight never reaches device memory.
 //
 // What bounds it on the H100:
-//   * At decode (M = batch, 1–8) it reads the compressed planes once — 2
-//     bytes of code per 4 weights plus the literal rows — so the bound is
+//   * At decode (M = batch or engine slots, 1–16) it reads the compressed
+//     planes once — 2 bytes of code per 4 weights plus the literal rows —
+//     against 2·M operations a weight, far below the ridge, so the bound is
 //     memory bytes (the decode kernel's note below says how it answers
-//     that).
+//     that; at 5–16 rows also the x each block stages, below).
 //   * At prefill (M = 4 prompts × up to 200 tokens) the bound is the
 //     operations: 2·M·N·K on the tensor cores, about 0.024 ms for
 //     8192 × 2048 at M = 700 against 0.008 ms for its planes' bytes.  What
@@ -44,12 +47,17 @@
 // Design:
 //   * SIMT and prefill kernels: blocks own 128 output columns.  The SIMT
 //     kernel holds BM = 4 or 16 rows and the product runs on the SIMT
-//     cores, so M is not padded to 128 rows; at prefill-sized M the product
-//     runs on the tensor cores (mma.sync, bf16 in, f32 sums) and a block
-//     walks a group of 128-row bands over each span of K tiles it decoded,
-//     so a tile is decoded once per band group (the wrapper's plan: at least
-//     two bands per group, one group per launch where the grid still fills
-//     the card).
+//     cores; at prefill-sized M the product runs on the tensor cores
+//     (mma.sync, bf16 in, f32 sums) and a block walks a group of 128-row
+//     bands over each span of K tiles it decoded, so a tile is decoded
+//     once per band group (the wrapper's plan: at least two bands per
+//     group, one group per launch where the grid still fills the card).
+//     Tiles narrower than the 64-column K step sit side by side in the
+//     span; the plan cuts K into splits of whole steps, so only a split's
+//     last span may end inside one, padded with q = 0 and x = 0.  (The
+//     SIMT kernel it replaces there, at tile_k 32, took 5.5 ms for 2048 ×
+//     10944 at M = 700 against 0.38: a decode → barrier → stage → barrier
+//     → product chain every 32 columns, the product on the CUDA cores.)
 //   * The TPU grid carries its accumulator across K steps; blocks here run
 //     in no order, so a block loops over its K tiles itself.  In the SIMT
 //     and prefill kernels, to put more blocks on the card — and at
@@ -175,9 +183,36 @@ __device__ __forceinline__ long long tile_block(int j, int kt, int nnt,
 // terms between groups are dropped (below).  tile_k 4, 8 or 16: a lane
 // holds whole rows (tile_k / 4 grams each), multiplies them on the SIMT
 // cores and adds each row's sum to shared memory as it completes.
-constexpr int kDecM = 4;          // rows of x the decode kernel takes
+//
+// Rows 5–16 (an engine tick of 5–16 slots, generate at batch 5–16, K3 at
+// capacities 5–16): the same kernel, instantiated for four row groups of
+// 4 rows.  The bound is still bytes (2·16 operations a weight against
+// ~1.5 bytes), so a block decodes each compressed block once, whatever M
+// is, and runs every row group's product on the grams it holds.  The
+// contract is the reference's row independence: a row's bits at any M
+// from 1 to 16 are its bits at M = 1.  So each group of 4 rows runs
+// exactly the M ≤ 4 arithmetic — the same block-diagonal mma with x in
+// the same A rows, the same Σx mma, the same (warp, column block) order
+// in the epilogue — and W, the warps a row group's K tiles are dealt to,
+// is the plan's, a function of (E, N, tile_k, slots, SMs) and never of M.
+// Registers: four groups' accumulators (4 × 20 f32 a lane) beside the 32
+// grams do not fit the 128 registers a thread has at 16 warps a block, so
+// this instantiation runs at most kDecRowWarps warps a block (255
+// registers a thread), and a warp walks the K tiles of virtual warps
+// warp, warp + 8, ... < W one after another, each into its own partial
+// sums: the bits of W warps.  x: a block owns 4·slots / tile_k output
+// columns (8 at tile_k 512) and reads all of x, 32·K bytes at 16 rows
+// against ~1.5·8·K of planes, and every block of the launch reads the
+// same x.  So a lane reads its A pieces straight from x through L1,
+// 16 bytes (two mma steps) a load, where the SM's other blocks find them:
+// staging 16 rows in shared memory, as at M ≤ 4, was 9–14 % slower
+// (shared memory taken from L1), and staging them past L1 40–70 %
+// (PERF.md).
+constexpr int kDecM = 4;          // rows of x in a row group
+constexpr int kDecRG = 4;         // row groups of the wide instantiation
 constexpr int kDecSteps = 4;      // 256-slot steps: blocks of ≤ 1024 slots
 constexpr int kDecMaxWarps = 16;  // warps per CUDA block (K tiles at once)
+constexpr int kDecRowWarps = 8;   // warps per CUDA block at 5–16 rows
 
 using qmoe::bf16x2_of;   // the weight-byte conversions (matmul_common.cuh)
 using qmoe::gram_byte;
@@ -259,17 +294,17 @@ __device__ __forceinline__ void decode_grams(
   }
 }
 
-// A warp's copy of x for one K tile (wide kernel): kDecM rows × tile_k
-// columns in 8-byte pieces of 4 columns, piece (m, u, l) holding columns
-// 32·l + 4·u .. + 3 of row m at (m·8 + u)·16 + l, so that the lanes of a
-// product step (lane l of each row reading piece (m, u, l)) hit
-// neighbouring words at offsets known to the compiler.  Copied by
-// cp.async, issued before the block's codes are read so that its latency
-// hides behind theirs.
+// A warp's copy of x for one K tile (wide kernel, M ≤ 4): kDecM rows ×
+// tile_k columns in 8-byte pieces of 4 columns, piece (m, u, l) holding
+// columns 32·l + 4·u .. + 3 of row m at (m·8 + u)·16 + l, so that the
+// lanes of a product step (lane l of each row reading piece (m, u, l))
+// hit neighbouring words at offsets known to the compiler.  Rows past M
+// read row M − 1.  Copied by cp.async, issued before the block's codes
+// are read so that its latency hides behind theirs.
 constexpr int kXsPieces = kDecM * 8 * 16;   // uint2 per warp
-__device__ __forceinline__ void stage_x(const __nv_bfloat16* const (&xr)[kDecM],
-                                        int k0, int tile_k, int lane,
-                                        uint2* __restrict__ xs) {
+__device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
+                                        int M, int K, int k0, int tile_k,
+                                        int lane, uint2* __restrict__ xs) {
   // lane copies pieces kc = lane + 32i of each row: (u, l) = (lane % 8,
   // lane / 8 + 4i)
   const int n = max((tile_k / 4 - lane + 31) >> 5, 0);
@@ -277,7 +312,7 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* const (&xr)[kDecM],
       xs + (lane & 7) * 16 + (lane >> 3));
 #pragma unroll
   for (int m = 0; m < kDecM; ++m) {
-    const __nv_bfloat16* src = xr[m] + k0 + 4 * lane;
+    const __nv_bfloat16* src = x + (long long)min(m, M - 1) * K + k0 + 4 * lane;
     unsigned dst = d0 + m * 8 * 16 * 8;
     for (int i = 0; i < n; ++i, src += 128, dst += 4 * 8)
       asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
@@ -287,9 +322,13 @@ __device__ __forceinline__ void stage_x(const __nv_bfloat16* const (&xr)[kDecM],
 }
 
 // kWide: tile_k ≥ 32 (so slots is a multiple of 8), product on the tensor
-// cores; else tile_k 4, 8, 16, product on the SIMT cores.
-template <typename TOut, bool kGrouped, bool kWide>
-__global__ void __launch_bounds__(kDecMaxWarps * 32)
+// cores; else tile_k 4, 8, 16, product on the SIMT cores.  kRG: row groups
+// of 4 rows (1: M ≤ 4; kDecRG: M 5–16).  W: the plan's warps, over which
+// the K tiles are dealt (tile kt to warp kt mod W); a block of P = W warps
+// (kRG = 1) or min(W, kDecRowWarps) runs them, warp p those of p, p + P...
+template <typename TOut, bool kGrouped, bool kWide, int kRG>
+__global__ void __launch_bounds__(kRG == 1 ? kDecMaxWarps * 32
+                                           : kDecRowWarps * 32)
 fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
                                   const uint16_t* __restrict__ codes,
                                   const uint32_t* __restrict__ lits,
@@ -298,18 +337,22 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
                                   const float* __restrict__ zero,
                                   TOut* __restrict__ out, int M, int N,
                                   int K, int tile_n, int tile_k, int slots,
-                                  int cap, int bpt, int nkt_g, Expert ex) {
+                                  int cap, int bpt, int nkt_g, int W,
+                                  Expert ex) {
+  constexpr int kM = kDecM * kRG;           // rows of x a block holds
   extern __shared__ float dsm[];
-  const int W = blockDim.x >> 5;
+  const int P = blockDim.x >> 5;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tk_shift = __ffs(tile_k) - 1;   // tile_k is a power of two
   const int rpb = (4 * slots) >> tk_shift;  // output columns of the group
   const int lpr = kWide ? tile_k >> 5 : 1;  // lanes per row of a step
   const int H = lpr >= 4 ? lpr >> 2 : 1;    // partial sums per row (below)
-  float* red = dsm;                         // [W][rpb][H][kDecM]
-  float* redsx = dsm + W * rpb * H * kDecM; // [W][4][kDecM]
-  uint2* xs = reinterpret_cast<uint2*>(redsx + W * 4 * kDecM) +
-              warp * kXsPieces;             // the warp's x tile (wide)
+  // row groups holding a row < M: the others are not run
+  const int rgs = kRG == 1 ? 1 : (M + kDecM - 1) / kDecM;
+  float* red = dsm;                         // [W][rpb][H][kM]
+  float* redsx = dsm + W * rpb * H * kM;    // [W][4][kM]
+  uint2* xs = reinterpret_cast<uint2*>(redsx + W * 4 * kM) +
+              warp * kXsPieces;             // the warp's x tile (M ≤ 4)
   const int nkt = K / tile_k, nnt = N / tile_n;
   int rg = blockIdx.x;
   if (kGrouped) {
@@ -330,13 +373,9 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
     zr = __ldg(zero + n0 + tid % rpb);
   }
   if (!kWide) {
-    for (int i = tid; i < W * rpb * kDecM; i += blockDim.x) red[i] = 0.f;
+    for (int i = tid; i < W * rpb * kM; i += blockDim.x) red[i] = 0.f;
     __syncthreads();
   }
-  // rows of x past M read row M − 1: their sums are never stored
-  const __nv_bfloat16* xr[kDecM];
-#pragma unroll
-  for (int m = 0; m < kDecM; ++m) xr[m] = x + (long long)min(m, M - 1) * K;
   // 0x4B000000, not known to the compiler (M ≥ 1): see gram_byte
   const uint32_t magic = 0x4B000000u | ((uint32_t)M >> 31);
 
@@ -345,16 +384,18 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
   // .. + 3 (u = 0..7).  mma u of step st takes them as its B fragment:
   // column n = gq, K slots {2tq, 2tq + 1, 2tq + 8, 2tq + 9} = the gram's 4
   // columns (the product's K order permuted).  The 16 A rows are (s, m),
-  // s = r / 4, m = r % 4: row (s, m) holds x row m at the columns of the
-  // lanes of "group" s — lanes whose tq reads column block 4s + tq (lpr ≥
-  // 4: the gq with gq % H = s), or lanes with tq / lpr = s (lpr 1 or 2) —
-  // and zero at the other K slots.  So C[(s, m)][n] is x row m against
-  // weight row (n, s)'s columns of lane group s: a partial sum when s
-  // belongs to column n (lpr ≥ 4: s = n % H, H column blocks of 128 per
-  // row), a cross term to drop otherwise.  One more mma against ones
-  // sums x: Σ_{s < H} C[(s, m)][·] is Σ_k x[m][k] over the tile.
+  // s = r / 4, m = r % 4: row (s, m) holds x row m (of the row group) at
+  // the columns of the lanes of "group" s — lanes whose tq reads column
+  // block 4s + tq (lpr ≥ 4: the gq with gq % H = s), or lanes with tq /
+  // lpr = s (lpr 1 or 2) — and zero at the other K slots.  So C[(s, m)][n]
+  // is x row m against weight row (n, s)'s columns of lane group s: a
+  // partial sum when s belongs to column n (lpr ≥ 4: s = n % H, H column
+  // blocks of 128 per row), a cross term to drop otherwise.  One more mma
+  // against ones sums x: Σ_{s < H} C[(s, m)][·] is Σ_k x[m][k] over the
+  // tile.  Each row group has its own A, C and Σx mma.
   const int gq = lane >> 2, tq = lane & 3;
-  const uint2* xa[2];   // A rows gq and gq + 8
+  const uint2* xa[2];   // A rows gq and gq + 8 (M ≤ 4: in xs)
+  int xc[2];            // ... their column in the tile (5–16 rows: in x)
   bool av[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -362,136 +403,194 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
     av[i] = lpr >= 4 ? sg < H : sg == tq / lpr;
     const int blk = lpr >= 4 ? 4 * sg + tq : (tq & (lpr - 1));
     xa[i] = xs + (gq & 3) * 8 * 16 + (av[i] ? blk : 0);
+    xc[i] = 32 * (av[i] ? blk : 0);
   }
-  float acc[kDecSteps][4], csx[4];
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    csx[v] = 0.f;
-#pragma unroll
-    for (int st = 0; st < kDecSteps; ++st) acc[st][v] = 0.f;
-  }
-  float sx[kDecM] = {0.f, 0.f, 0.f, 0.f};   // narrow: Σ_k x
-  float* wred = red + warp * rpb * kDecM;   // narrow: [rpb][kDecM]
   constexpr uint32_t kOnes = 0x3F803F80u;   // bf16x2 (1, 1)
 
-  for (int kt = warp; kt < nkt; kt += W) {
-    const long long blk = tile_block(j, kt, nnt, nkt_g, bpt) + bb;
-    const int k0 = kt * tile_k;
-    if (kWide) {
-      __syncwarp();                  // the last tile's reads of xs are done
-      stage_x(xr, k0, tile_k, lane, xs);
-    }
-    // narrow tiles have at most 512 slots (rows ≤ tile_n ≤ 128): 2 steps
-    constexpr int kSteps = kWide ? kDecSteps : 2;
-    uint32_t g[kSteps][8];
-    decode_grams<kWide, kSteps>(codes + blk * slots, lits + blk * cap, lut,
-                                slots, cap, lane, g);
-    if constexpr (kWide) {
-      asm volatile("cp.async.wait_all;\n" ::: "memory");
-      __syncwarp();
-      // steps past the block hold zero grams: their sums are never stored
+  for (int vw = warp; vw < W; vw += P) {
+    float acc[kRG][kDecSteps][4], csx[kRG][4];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        uint32_t bq[kDecSteps][2];
+    for (int r = 0; r < kRG; ++r)
 #pragma unroll
-        for (int st = 0; st < kDecSteps; ++st) {
-          bq[st][0] = bf16x2_of(gram_byte(g[st][u], magic, 0),
-                                gram_byte(g[st][u], magic, 1));
-          bq[st][1] = bf16x2_of(gram_byte(g[st][u], magic, 2),
-                                gram_byte(g[st][u], magic, 3));
-        }
-        const uint2 p0 = av[0] ? xa[0][u * 16] : make_uint2(0u, 0u);
-        const uint2 p1 = av[1] ? xa[1][u * 16] : make_uint2(0u, 0u);
-        const uint32_t a[4] = {p0.x, p1.x, p0.y, p1.y};
-        qmoe::mma_bf16(csx, a, kOnes, kOnes);
+      for (int v = 0; v < 4; ++v) {
+        csx[r][v] = 0.f;
 #pragma unroll
-        for (int st = 0; st < kDecSteps; ++st)
-          qmoe::mma_bf16(acc[st], a, bq[st][0], bq[st][1]);
+        for (int st = 0; st < kDecSteps; ++st) acc[r][st][v] = 0.f;
       }
-    } else {
-      // tile_k 4, 8, 16: gpr grams per row, whole rows in one lane
-      const int gpr = tile_k >> 2;
+    float sx[kM];                            // narrow: Σ_k x
 #pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        float ra[kDecM] = {0.f, 0.f, 0.f, 0.f};
+    for (int m = 0; m < kM; ++m) sx[m] = 0.f;
+    float* wred = red + vw * rpb * kM;      // narrow: [rpb][kM]
+
+    for (int kt = vw; kt < nkt; kt += W) {
+      const long long blk = tile_block(j, kt, nnt, nkt_g, bpt) + bb;
+      const int k0 = kt * tile_k;
+      if (kWide && kRG == 1) {
+        __syncwarp();                  // the last tile's reads of xs are done
+        stage_x(x, M, K, k0, tile_k, lane, xs);
+      }
+      // narrow tiles have at most 512 slots (rows ≤ tile_n ≤ 128): 2 steps
+      constexpr int kSteps = kWide ? kDecSteps : 2;
+      uint32_t g[kSteps][8];
+      decode_grams<kWide, kSteps>(codes + blk * slots, lits + blk * cap, lut,
+                                  slots, cap, lane, g);
+      if constexpr (kWide && kRG > 1) {
+        // two mma steps (u = 2v, 2v + 1) a 16-byte read of each row
+        // group's A pieces (x columns 32·blk + 8v .. + 7 of its row, pieces
+        // u = 2v and 2v + 1 of M ≤ 4's layout); each accumulator sees
+        // u = 0..7 in order, as at M ≤ 4
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int slot = st * 256 + lane * 8 + u;
-          if (slot >= slots) continue;
-          const int c0 = k0 + (((lane * 8 + u) & (gpr - 1)) << 2);
+        for (int v = 0; v < 4; ++v) {
+          uint32_t bq[2][kDecSteps][2];
 #pragma unroll
-          for (int m = 0; m < kDecM; ++m) {
-            float xf[4];
-            bf16x4_to_float(
-                __ldg(reinterpret_cast<const uint2*>(xr[m] + c0)), xf);
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int b = 0; b < 4; ++b)
-              ra[m] = fmaf(xf[b], gram_byte(g[st][u], magic, b), ra[m]);
-          }
-          if (((lane * 8 + u + 1) & (gpr - 1)) == 0) {
-            float* r = wred + (slot >> (tk_shift - 2)) * kDecM;
+            for (int st = 0; st < kDecSteps; ++st) {
+              const uint32_t gr = g[st][2 * v + h];
+              bq[h][st][0] = bf16x2_of(gram_byte(gr, magic, 0),
+                                       gram_byte(gr, magic, 1));
+              bq[h][st][1] = bf16x2_of(gram_byte(gr, magic, 2),
+                                       gram_byte(gr, magic, 3));
+            }
 #pragma unroll
-            for (int m = 0; m < kDecM; ++m) {
-              r[m] += ra[m];
-              ra[m] = 0.f;
+          for (int r = 0; r < kRG; ++r) {
+            if (r >= rgs) break;
+            // rows past M read row M − 1: their sums are never stored
+            const __nv_bfloat16* xrow =
+                x + (long long)min(kDecM * r + (gq & 3), M - 1) * K + k0 +
+                8 * v;
+            uint4 q0 = make_uint4(0u, 0u, 0u, 0u), q1 = q0;
+            if (av[0]) q0 = __ldg(reinterpret_cast<const uint4*>(xrow + xc[0]));
+            if (av[1]) q1 = __ldg(reinterpret_cast<const uint4*>(xrow + xc[1]));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t a[4] = {h ? q0.z : q0.x, h ? q1.z : q1.x,
+                                     h ? q0.w : q0.y, h ? q1.w : q1.y};
+              qmoe::mma_bf16(csx[r], a, kOnes, kOnes);
+#pragma unroll
+              for (int st = 0; st < kDecSteps; ++st)
+                qmoe::mma_bf16(acc[r][st], a, bq[h][st][0], bq[h][st][1]);
             }
           }
         }
-      }
-      // Σ_k x over this tile's columns, 4 per lane at a time
-      for (int c = k0 + lane * 4; c < k0 + tile_k; c += 128) {
+      } else if constexpr (kWide) {
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
+        // steps past the block hold zero grams: their sums are never stored
 #pragma unroll
-        for (int m = 0; m < kDecM; ++m) {
-          float xf[4];
-          bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(xr[m] + c)),
-                          xf);
-          sx[m] += (xf[0] + xf[1]) + (xf[2] + xf[3]);
+        for (int u = 0; u < 8; ++u) {
+          uint32_t bq[kDecSteps][2];
+#pragma unroll
+          for (int st = 0; st < kDecSteps; ++st) {
+            bq[st][0] = bf16x2_of(gram_byte(g[st][u], magic, 0),
+                                  gram_byte(g[st][u], magic, 1));
+            bq[st][1] = bf16x2_of(gram_byte(g[st][u], magic, 2),
+                                  gram_byte(g[st][u], magic, 3));
+          }
+          const uint2 p0 = av[0] ? xa[0][u * 16] : make_uint2(0u, 0u);
+          const uint2 p1 = av[1] ? xa[1][u * 16] : make_uint2(0u, 0u);
+          const uint32_t a[4] = {p0.x, p1.x, p0.y, p1.y};
+          qmoe::mma_bf16(csx[0], a, kOnes, kOnes);
+#pragma unroll
+          for (int st = 0; st < kDecSteps; ++st)
+            qmoe::mma_bf16(acc[0][st], a, bq[st][0], bq[st][1]);
+        }
+      } else {
+        // tile_k 4, 8, 16: gpr grams per row, whole rows in one lane
+        const int gpr = tile_k >> 2;
+#pragma unroll
+        for (int st = 0; st < kSteps; ++st) {
+          float ra[kM];
+#pragma unroll
+          for (int m = 0; m < kM; ++m) ra[m] = 0.f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int slot = st * 256 + lane * 8 + u;
+            if (slot >= slots) continue;
+            const int c0 = k0 + (((lane * 8 + u) & (gpr - 1)) << 2);
+#pragma unroll
+            for (int m = 0; m < kM; ++m) {
+              if (m >= kDecM * rgs) break;
+              float xf[4];
+              bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(
+                                  x + (long long)min(m, M - 1) * K + c0)),
+                              xf);
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                ra[m] = fmaf(xf[b], gram_byte(g[st][u], magic, b), ra[m]);
+            }
+            if (((lane * 8 + u + 1) & (gpr - 1)) == 0) {
+              float* r = wred + (slot >> (tk_shift - 2)) * kM;
+#pragma unroll
+              for (int m = 0; m < kM; ++m) {
+                r[m] += ra[m];
+                ra[m] = 0.f;
+              }
+            }
+          }
+        }
+        // Σ_k x over this tile's columns, 4 per lane at a time
+        for (int c = k0 + lane * 4; c < k0 + tile_k; c += 128) {
+#pragma unroll
+          for (int m = 0; m < kM; ++m) {
+            if (m >= kDecM * rgs) break;
+            float xf[4];
+            bf16x4_to_float(__ldg(reinterpret_cast<const uint2*>(
+                                x + (long long)min(m, M - 1) * K + c)),
+                            xf);
+            sx[m] += (xf[0] + xf[1]) + (xf[2] + xf[3]);
+          }
         }
       }
     }
-  }
 
-  if (kWide) {
-    // each (row, s, m) partial is one C entry of one lane
-    const int rps = 32 / lpr;   // rows per step
+    if (kWide) {
+      // each (row, s, m) partial is one C entry of one lane
+      const int rps = 32 / lpr;   // rows per step
 #pragma unroll
-    for (int st = 0; st < kDecSteps; ++st) {
+      for (int r = 0; r < kRG; ++r) {
+        if (r >= rgs) break;
 #pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int r = gq + 8 * (v >> 1), n = 2 * tq + (v & 1);
-        const int sg = r >> 2, m = r & 3;
-        bool use;
-        int row;
-        if (lpr >= 4) {
-          use = sg == (n & (H - 1));
-          row = n / H;
-        } else {
-          use = sg < 4 / lpr;
-          row = (4 / lpr) * n + sg;
+        for (int st = 0; st < kDecSteps; ++st) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            const int ar = gq + 8 * (v >> 1), n = 2 * tq + (v & 1);
+            const int sg = ar >> 2, m = ar & 3;
+            bool use;
+            int row;
+            if (lpr >= 4) {
+              use = sg == (n & (H - 1));
+              row = n / H;
+            } else {
+              use = sg < 4 / lpr;
+              row = (4 / lpr) * n + sg;
+            }
+            row += st * rps;
+            if (use && row < rpb)
+              red[((vw * rpb + row) * H + (lpr >= 4 ? sg : 0)) * kM +
+                  kDecM * r + m] = acc[r][st][v];
+          }
         }
-        row += st * rps;
-        if (use && row < rpb)
-          red[((warp * rpb + row) * H + (lpr >= 4 ? sg : 0)) * kDecM + m] =
-              acc[st][v];
+        if (tq == 0) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int ar = gq + 8 * i;
+            if ((ar >> 2) < H)
+              redsx[(vw * 4 + (ar >> 2)) * kM + kDecM * r + (ar & 3)] =
+                  csx[r][2 * i];
+          }
+        }
       }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sx[m] += __shfl_xor_sync(0xffffffffu, sx[m], off);
+      if (lane == 0)
+#pragma unroll
+        for (int m = 0; m < kM; ++m) redsx[vw * 4 * kM + m] = sx[m];
     }
-    if (tq == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = gq + 8 * i;
-        if ((r >> 2) < H)
-          redsx[(warp * 4 + (r >> 2)) * kDecM + (r & 3)] = csx[2 * i];
-      }
-    }
-  } else {
-#pragma unroll
-    for (int m = 0; m < kDecM; ++m)
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sx[m] += __shfl_xor_sync(0xffffffffu, sx[m], off);
-    if (lane == 0)
-#pragma unroll
-      for (int m = 0; m < kDecM; ++m) redsx[warp * 4 * kDecM + m] = sx[m];
   }
   __syncthreads();
 
@@ -503,8 +602,8 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
     for (int w = 0; w < W; ++w)
 #pragma unroll 4
       for (int h = 0; h < H; ++h) {
-        a += red[((w * rpb + row) * H + h) * kDecM + m];
-        sum += redsx[(w * 4 + h) * kDecM + m];
+        a += red[((w * rpb + row) * H + h) * kM + m];
+        sum += redsx[(w * 4 + h) * kM + m];
       }
     const int n = n0 + row;
     if (t >= blockDim.x) sc = scale[n], zr = zero[n];
@@ -512,6 +611,11 @@ fused_decode_matmul_decode_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// The SIMT kernel: BM = 2·RPT rows (4 or 16) × 128 columns a block, K
+// split over gridDim.z, the product on the CUDA cores.  It serves only
+// tiles 1 or 2 weights wide (a gram spans rows: the tile is staged 4
+// columns wide, x zero past tile_k) and compressed blocks past the decode
+// kernel's limits; every served model's tiles take the other two.
 template <int RPT, typename TOut, bool kGrouped>
 __global__ void __launch_bounds__(qmoe::kThreads)
 fused_decode_matmul_kernel(const __nv_bfloat16* __restrict__ x,
@@ -611,15 +715,32 @@ __host__ __device__ constexpr size_t align128(size_t n) {
 
 constexpr size_t kXStage = align128((size_t)kMmaBM * kLdX * 2);  // bytes
 
+// The columns a span of span_cols decoded columns takes in shared memory:
+// whole 64-column steps (tile_k < 64 can leave a span short of a step).
+__host__ __device__ constexpr int span_alloc(int span_cols) {
+  return (span_cols + kSubK - 1) / kSubK * kSubK;
+}
+
 // Shared memory of the tensor-core kernel for a span of span_cols decoded
-// columns: the span in bf16 (row stride span_cols + 8), kStages bf16
-// stages of one 64-column step of x, and the row sums of x.
+// columns: the span in bf16 (row stride span_alloc(span_cols) + 8),
+// kStages bf16 stages of one 64-column step of x, and the row sums of x.
 __host__ __device__ inline size_t mma_smem_bytes(int span_cols) {
-  return align128((size_t)qmoe::kBN * (span_cols + 8) * 2) +
+  return align128((size_t)qmoe::kBN * (span_alloc(span_cols) + 8) * 2) +
          kStages * kXStage + kMmaBM * sizeof(float);
 }
 
-template <typename TOut, bool kGrouped>
+// dst[0:8) = src[0:src_bytes) and zeros after, through L1: x rows that
+// are 8 but not 16 bytes apart (K ≡ 4 mod 8, tile_k 4).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// kNarrow: tile_k < 64, where a span may end inside a 64-column step and
+// rows of x may be 8 bytes out of step; else every span is whole steps.
+template <typename TOut, bool kGrouped, bool kNarrow>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                const uint16_t* __restrict__ codes,
@@ -636,7 +757,7 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                                int bands_per_block, Expert ex) {
   constexpr int kWarps = kMmaThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int qstride = span * tile_k + 8;   // bf16 per decoded row
+  const int qstride = span_alloc(span * tile_k) + 8;   // bf16 a row
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
   const size_t qbytes = align128((size_t)qmoe::kBN * qstride * 2);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + qbytes);
@@ -692,16 +813,25 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    qs + jj * tile_n * qstride + t * tile_k, qstride,
                    tk_shift, bb * block_bytes, lane);
     }
+    // below tile_k 64 a span may end inside a step: its last step is
+    // padded with q = 0 here and x = 0 (copied from no source) below
+    const int vc = (c1 - c0) * tile_k;          // the span's real columns
+    const int steps = (vc + kSubK - 1) / kSubK;
+    const int pad = steps * kSubK - vc;
+    if (kNarrow)
+      for (int i = tid; i < qmoe::kBN * pad; i += kMmaThreads)
+        qs[(i / pad) * qstride + vc + i % pad] = __float2bfloat16_rn(0.f);
     __syncthreads();
-    const int steps = (c1 - c0) * tile_k / kSubK;
     for (int band = band0; band < band1; ++band) {
       const int m0 = band * kMmaBM;
       if (c0 == kt0 && tid < kMmaBM) sumx[tid] = 0.f;
       // x: 128 rows × 64 columns of step st into stage st % kStages, 16
-      // bytes per copy (the wrapper passes x 16-byte aligned and K is a
-      // multiple of 64 here); rows past M read nothing and are zero.  One
-      // copy group per step, empty past the last, so that waiting for all
-      // but the newest kStages − 2 groups always means step st is in.
+      // bytes per copy (the wrapper passes x 16-byte aligned, and a span
+      // starts on a multiple of 8 columns), or 2 × 8 where rows are 8
+      // bytes out of step (K ≡ 4 mod 8); rows past M and columns past the
+      // span read nothing and are zero.  One copy group per step, empty
+      // past the last, so that waiting for all but the newest kStages − 2
+      // groups always means step st is in.
       auto load_x = [&](int st) {
         if (st < steps) {
           __nv_bfloat16* dst = xs + (st % kStages) * (kXStage / 2);
@@ -709,9 +839,20 @@ fused_decode_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
           for (int i = tid; i < kMmaBM * (kSubK / 8); i += kMmaThreads) {
             const int r = i / (kSubK / 8), c = (i - r * (kSubK / 8)) * 8;
             const int m = m0 + r;
-            cp_async16(dst + r * kLdX + c,
-                       x + (long long)min(m, M - 1) * K + xcol + c,
-                       m < M ? 16 : 0);
+            // bytes of this row's 8 columns inside the span
+            const int nb =
+                m >= M ? 0
+                       : kNarrow ? 2 * min(max(vc - st * kSubK - c, 0), 8)
+                                 : 16;
+            const __nv_bfloat16* src = x + (long long)min(m, M - 1) * K +
+                                       (kNarrow && !nb ? 0 : xcol + c);
+            if (kNarrow && (K & 7)) {
+              cp_async8(dst + r * kLdX + c, src, min(nb, 8));
+              cp_async8(dst + r * kLdX + c + 4, nb > 8 ? src + 4 : src,
+                        max(nb - 8, 0));
+            } else {
+              cp_async16(dst + r * kLdX + c, src, nb);
+            }
           }
         }
         cp_async_commit();
@@ -814,12 +955,14 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
            const void* lut, const void* scale, const void* zero, void* out,
            void* part, void* sxpart, int out_bf16, int M, int N, int K,
            int tile_n, int tile_k, int slots, int cap, int bpt, int groups,
-           int splits, int span, int bands_per_block, int decode_warps, int E,
-           cudaStream_t stream) {
+           int splits, int tiles_per_split, int span, int bands_per_block,
+           int decode_warps, int E, cudaStream_t stream) {
   const int nkt = K / tile_k;
-  if (groups < 1 || nkt % groups) return (int)cudaErrorInvalidValue;
+  if (groups < 1 || nkt % groups || splits < 1 || tiles_per_split < 1 ||
+      (long long)tiles_per_split * (splits - 1) >= nkt ||
+      (long long)tiles_per_split * splits < nkt)
+    return (int)cudaErrorInvalidValue;
   const int nkt_g = nkt / groups;   // K tiles of one column group
-  const int tiles_per_split = (nkt + splits - 1) / splits;
   const long long nb = (long long)(N / tile_n) * nkt * bpt;
   const Expert ex = {nb * slots, nb * cap, splits};
   const int stripes = (N + qmoe::kBN - 1) / qmoe::kBN;
@@ -835,34 +978,53 @@ int launch(int bm, const void* x, const void* codes, const void* lits,
   if (decode_warps > 0) {
     // one block per row group, all of K: no split, no workspace
     const int rpb = 4 * slots / tile_k;
-    if (M > kDecM || splits != 1 || tile_k < 4 || decode_warps > kDecMaxWarps ||
+    if (M > kDecM * kDecRG || splits != 1 || tile_k < 4 ||
+        decode_warps > kDecMaxWarps ||
         slots > (tile_k >= 32 ? 256 * kDecSteps : 512) ||
         rpb * tile_k != 4 * slots || (bpt & (bpt - 1)) || (rpb & (rpb - 1)))
       return (int)cudaErrorInvalidValue;
+    const bool rows16 = M > kDecM;                    // four row groups
+    const int kM = rows16 ? kDecM * kDecRG : kDecM;   // the kernel's kM
+    const int P = rows16 && decode_warps > kDecRowWarps ? kDecRowWarps
+                                                      : decode_warps;
     const int H = tile_k >= 128 ? tile_k / 128 : 1;   // the kernel's H
-    const size_t smem =
-        (size_t)decode_warps * ((rpb * H + 4) * kDecM * 4 +
-                                (tile_k >= 32 ? kXsPieces * 8 : 0));
+    // x tiles in shared memory at M ≤ 4 only
+    const size_t smem = (size_t)decode_warps * (rpb * H + 4) * kM * 4 +
+                        (tile_k >= 32 && !rows16 ? (size_t)P * kXsPieces * 8
+                                                 : 0);
     const long long blocks = (long long)E * (N / tile_n) * bpt;
-    auto kern = tile_k >= 32
-                    ? &fused_decode_matmul_decode_kernel<TOut, kGrouped, true>
-                    : &fused_decode_matmul_decode_kernel<TOut, kGrouped, false>;
+    auto kern =
+        tile_k >= 32
+            ? (rows16 ? &fused_decode_matmul_decode_kernel<TOut, kGrouped,
+                                                           true, kDecRG>
+                      : &fused_decode_matmul_decode_kernel<TOut, kGrouped,
+                                                           true, 1>)
+            : (rows16 ? &fused_decode_matmul_decode_kernel<TOut, kGrouped,
+                                                           false, kDecRG>
+                      : &fused_decode_matmul_decode_kernel<TOut, kGrouped,
+                                                           false, 1>);
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<(unsigned)blocks, decode_warps * 32, smem, stream>>>(
+    kern<<<(unsigned)blocks, P * 32, smem, stream>>>(
         xp, cp, lp, up, sp, zp, op, M, N, K, tile_n, tile_k, slots, cap, bpt,
-        nkt_g, ex);
+        nkt_g, decode_warps, ex);
     return (int)cudaGetLastError();
   }
   if (bm == kMmaBM) {
     const int bands = (M + kMmaBM - 1) / kMmaBM;
-    // a block with several bands must see its whole split in one span
-    if (tile_k % kSubK || span < 1 || bands_per_block < 1 ||
-        (bands_per_block > 1 && tiles_per_split > span))
+    // a block with several bands must see its whole split in one span;
+    // splits and the spans inside them start on whole 64-column steps, so
+    // only a split's last span may be short of one
+    if (tile_k < 4 || span < 1 || bands_per_block < 1 ||
+        (bands_per_block > 1 && tiles_per_split > span) ||
+        (splits > 1 && tiles_per_split * tile_k % kSubK) ||
+        (tiles_per_split > span && span * tile_k % kSubK))
       return (int)cudaErrorInvalidValue;
     const size_t smem = mma_smem_bytes(span * tile_k);
-    auto kern = &fused_decode_matmul_mma_kernel<TOut, kGrouped>;
+    auto kern = tile_k < kSubK
+                    ? &fused_decode_matmul_mma_kernel<TOut, kGrouped, true>
+                    : &fused_decode_matmul_mma_kernel<TOut, kGrouped, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     // the most shared memory the SM can give
@@ -901,17 +1063,19 @@ int launch_any(int E, int bm, const void* x, const void* codes,
                const void* lits, const void* lut, const void* scale,
                const void* zero, void* out, void* part, void* sxpart,
                int out_bf16, int M, int N, int K, int tile_n, int tile_k,
-               int slots, int cap, int bpt, int groups, int splits, int span,
-               int bands_per_block, int decode_warps, cudaStream_t stream) {
+               int slots, int cap, int bpt, int groups, int splits,
+               int tiles_per_split, int span, int bands_per_block,
+               int decode_warps, cudaStream_t stream) {
   if (E == 1)
     return launch<TOut, false>(bm, x, codes, lits, lut, scale, zero, out,
                                part, sxpart, out_bf16, M, N, K, tile_n,
-                               tile_k, slots, cap, bpt, groups, splits, span,
-                               bands_per_block, decode_warps, E, stream);
+                               tile_k, slots, cap, bpt, groups, splits,
+                               tiles_per_split, span, bands_per_block,
+                               decode_warps, E, stream);
   return launch<TOut, true>(bm, x, codes, lits, lut, scale, zero, out, part,
                             sxpart, out_bf16, M, N, K, tile_n, tile_k, slots,
-                            cap, bpt, groups, splits, span, bands_per_block,
-                            decode_warps, E, stream);
+                            cap, bpt, groups, splits, tiles_per_split, span,
+                            bands_per_block, decode_warps, E, stream);
 }
 
 }  // namespace
@@ -922,20 +1086,24 @@ int launch_any(int E, int bm, const void* x, const void* codes,
 // K3 a whole expert stack.  groups: K1's column groups G (1 for K3), the
 // nb blocks of a weight being G groups' planes one after another, each for
 // K/G columns (K/tile_k must divide by G); bpt: blocks per weight tile.
-// decode_warps > 0: the decode-batch kernel (M ≤ 4, tile_k ≥ 4, slots ≤
-// 1024, one split, power-of-two bpt), that many warps to a block.
+// decode_warps > 0: the decode-batch kernel (M ≤ 16, tile_k ≥ 4, slots ≤
+// 1024, one split, power-of-two bpt); the K tiles dealt to that many
+// warps, which a block of as many (M ≤ 4) or at most 8 (M 5–16) runs.
 // Else bm: rows per block — 4 or 16 (SIMT product) or 128 (tensor cores;
-// needs tile_k % 64 == 0, and takes span: K tiles decoded at once, and
+// needs tile_k ≥ 4, and takes span: K tiles decoded at once, and
 // bands_per_block: 128-row bands per block, which needs a split of at
-// most one span).  part/sxpart: f32 workspaces of E·splits·M·N and
-// E·splits·M (unused when splits == 1).  The literal plane is read as one
-// uint32 per gram (S = 4).
+// most one span).  K is cut into splits runs of tiles_per_split tiles
+// (the last may be shorter; below tile_k 64 whole 64-column steps but
+// the last).  part/sxpart: f32 workspaces of E·splits·M·N and E·splits·M
+// (unused when splits == 1).  The literal plane is read as one uint32 per
+// gram (S = 4).
 extern "C" int qmoe_fused_decode_matmul(
     const void* x, const void* codes, const void* lits, const void* lut,
     const void* scale, const void* zero, void* out, void* part, void* sxpart,
     int out_bf16, int E, int M, int N, int K, int tile_n, int tile_k,
-    int slots, int cap, int bpt, int groups, int splits, int bm, int span,
-    int bands_per_block, int decode_warps, int device, void* stream) {
+    int slots, int cap, int bpt, int groups, int splits, int tiles_per_split,
+    int bm, int span, int bands_per_block, int decode_warps, int device,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // This library links its own CUDA runtime: select the tensors' device.
   cudaError_t dev_err = cudaSetDevice(device);
@@ -944,9 +1112,10 @@ extern "C" int qmoe_fused_decode_matmul(
     return launch_any<__nv_bfloat16>(E, bm, x, codes, lits, lut, scale, zero,
                                      out, part, sxpart, 1, M, N, K, tile_n,
                                      tile_k, slots, cap, bpt, groups, splits,
-                                     span, bands_per_block, decode_warps, s);
+                                     tiles_per_split, span, bands_per_block,
+                                     decode_warps, s);
   return launch_any<float>(E, bm, x, codes, lits, lut, scale, zero, out,
                            part, sxpart, 0, M, N, K, tile_n, tile_k, slots,
-                           cap, bpt, groups, splits, span, bands_per_block,
-                           decode_warps, s);
+                           cap, bpt, groups, splits, tiles_per_split, span,
+                           bands_per_block, decode_warps, s);
 }

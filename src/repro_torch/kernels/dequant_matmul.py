@@ -3,10 +3,12 @@
 Counterpart of ``repro/kernels/dequant_matmul.py::dequant_matmul`` (the TPU
 Pallas kernel).  The CUDA kernels are in ``csrc/dequant_matmul.cu`` (its
 note says what bounds them on the H100 and how the design answers that);
-:func:`dequant_plan` picks one by shape: the decode kernel at M ≤ 4 (a warp
-per 8 weight rows over all of K, the product on the tensor cores), the
-tensor-core kernel at larger M (128 × 128 output tiles, K in steps of 64
-through a cp.async ring), the SIMT kernel where K % 16 ≠ 0.
+:func:`dequant_plan` picks one by shape: the decode kernel at M ≤ 16 (a
+warp per 8 weight rows over all of K, the product on the tensor cores; 4
+rows a launch, so that above 4 rows one launch a group of 4 gives every
+row its bits at M = 1), the tensor-core kernel at larger M (128 × 128
+output tiles, K in steps of 64 through a cp.async ring), the SIMT kernel
+where K % 16 ≠ 0.
 :func:`dequant_matmul_plain` is the plain PyTorch version the CPU runs and
 the card's kernels are held against.  All compute the kernel's affine form
 
@@ -33,7 +35,7 @@ DECODE_ROWS = 8           # weight rows of a decode warp task (kDecRows)
 DECODE_WARPS = 8          # warps a decode block (kDecWarps)
 DECODE_BLOCKS_PER_SM = 2  # resident: launch bounds cap 128 registers
 DECODE_STAGE_COLS = 512   # K columns of one stage (kLoads · kSlice)
-MMA_MIN_M = 5             # the tensor-core kernel from this M on (PERF.md)
+MMA_MIN_M = 17            # the tensor-core kernel from this M on (PERF.md)
 MMA_BM = MMA_BN = 128     # output tile of a tensor-core block (kMmaBM/BN)
 MMA_STEP_K = 64           # K columns a stage (kStepK)
 MMA_STAGES = 3            # the cp.async ring (kMmaStages)
@@ -55,13 +57,15 @@ class DequantPlan(NamedTuple):
     (stripes of N, bands of M, K splits of whole 64-column steps) — or
     ``"simt"`` — ``rpt`` rows of x a thread in blocks of 128 columns, K in
     ``splits`` runs; ``grid`` and ``threads`` as the C side launches
-    them."""
+    them; ``row_groups`` launches of the decode kernel, one a group of 4
+    rows."""
     kernel: str
     grid: tuple
     threads: int
     smem_bytes: int
     rpt: int = 0
     splits: int = 1
+    row_groups: int = 1
 
 
 def decode_smem_bytes(k: int) -> int:
@@ -86,16 +90,19 @@ def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
     """The launch of (M, K) × (K, N) on a card of ``sms`` SMs, a pure
     function of the shapes.
 
-    Decode batch (M ≤ 4, K a positive multiple of 16: rows of 16-byte
+    Decode batch (M ≤ 16, K a positive multiple of 16: rows of 16-byte
     loads): the decode kernel, one warp task per 8 weight rows, 8 warps a
     block.  The grid is persistent: no more warps than the card holds at
     once (2 blocks an SM), and as few as take the tasks in the same number
     of rounds, so that every warp runs the same number of tasks but the
-    last few (PERF.md).
+    last few (PERF.md).  It takes 4 rows of x: above 4, ``row_groups`` =
+    ⌈M / 4⌉ launches, one a group of 4 rows, so that each row has the
+    bits it has alone (the reference's row independence: an engine tick
+    of 5–16 slots gives each request generate's tokens), at about the
+    price of ⌈M / 4⌉ decode-batch calls (PERF.md).
 
-    From ``MMA_MIN_M`` rows on (K a positive multiple of 16; it beats the
-    SIMT kernel already at M = 5, PERF.md): the tensor-core kernel,
-    blocks of 128 × 128 outputs, two resident an SM.  K is split only
+    From ``MMA_MIN_M`` rows on (K a positive multiple of 16): the
+    tensor-core kernel, blocks of 128 × 128 outputs, two resident an SM.  K is split only
     where the output tiles leave SMs without a block: into as many runs
     of whole 64-column steps as keep the grid within one block an SM
     (k_proj at M = 700: 4 × 6 tiles, 5 splits), no run empty.  Splitting
@@ -105,20 +112,29 @@ def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
 
     Otherwise the SIMT kernel: 4 rows a block at M ≤ 4, else 16; K split
     so that about two blocks sit on every SM."""
-    if m <= DECODE_M and k > 0 and k % 16 == 0:
+    if m < MMA_MIN_M and k > 0 and k % 16 == 0:
         tasks = -(-n // DECODE_ROWS)
         rounds = -(-tasks // (sms * DECODE_BLOCKS_PER_SM * DECODE_WARPS))
         blocks = -(-tasks // (rounds * DECODE_WARPS))
         return DequantPlan("decode", (blocks, 1, 1), 32 * DECODE_WARPS,
-                           decode_smem_bytes(k))
+                           decode_smem_bytes(k),
+                           row_groups=-(-m // DECODE_M))
     if m >= MMA_MIN_M and k > 0 and k % 16 == 0:
-        stripes, bands = -(-n // MMA_BN), -(-m // MMA_BM)
-        steps = -(-k // MMA_STEP_K)
-        want = max(1, min(steps, sms // (stripes * bands)))
-        splits = -(-steps // -(-steps // want))
-        return DequantPlan("mma", (stripes, bands, splits), MMA_THREADS,
-                           mma_smem_bytes(), splits=splits)
+        return mma_plan(m, n, k, sms)
     return simt_plan(m, n, k, sms)
+
+
+def mma_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+    """The tensor-core kernel's launch at any M (K a positive multiple of
+    16): ``dequant_plan``'s choice from MMA_MIN_M rows on; below, what
+    tools/profile_decode.py and the tests time and emulate beside the
+    decode kernel's row groups."""
+    stripes, bands = -(-n // MMA_BN), -(-m // MMA_BM)
+    steps = -(-k // MMA_STEP_K)
+    want = max(1, min(steps, sms // (stripes * bands)))
+    splits = -(-steps // -(-steps // want))
+    return DequantPlan("mma", (stripes, bands, splits), MMA_THREADS,
+                       mma_smem_bytes(), splits=splits)
 
 
 def simt_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
@@ -183,8 +199,8 @@ def dequant_matmul(x, wq, scale, zero,
                          f"{plan.grid} with {plan.smem_bytes} B of shared "
                          "memory a block, past the card's limits")
     _launch(plan, xb, wq, scale, zero, out)
-    _build.LAUNCH_COUNTS[NAME] += 1
-    _build.KERNEL_COUNTS[f"{NAME}:{plan.kernel}"] += 1
+    _build.LAUNCH_COUNTS[NAME] += plan.row_groups
+    _build.KERNEL_COUNTS[f"{NAME}:{plan.kernel}"] += plan.row_groups
     return out
 
 
@@ -201,9 +217,13 @@ def _launch(plan: DequantPlan, xb, wq, scale, zero, out, fn=None):
     if plan.kernel == "decode":
         fn = fn or _build.function(NAME, "qmoe_dequant_matmul_decode",
                                    _DECODE_ARGTYPES)
-        err = fn(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                 zero.data_ptr(), out.data_ptr(), bf16, m, n, k,
-                 plan.grid[0], dev.index, stream)
+        for r in range(0, m, DECODE_M):       # one launch a group of 4 rows
+            err = fn(xb[r:].data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                     zero.data_ptr(), out[r:].data_ptr(), bf16,
+                     min(DECODE_M, m - r), n, k, plan.grid[0], dev.index,
+                     stream)
+            if err:
+                break
     else:
         part = sx = None
         if plan.splits > 1:

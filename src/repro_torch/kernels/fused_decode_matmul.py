@@ -8,7 +8,9 @@ Counterpart of two TPU Pallas kernels of
 stacked MoE weight, in one launch).  Both run the CUDA
 kernel ``csrc/fused_decode_matmul.cu`` (its header says what bounds it on
 the H100 and how the design answers that; :func:`launch_plan` picks one of
-its three kernels: decode batch, SIMT rows, tensor-core prefill); :func:`fused_decode_matmul_plain`
+its three kernels: the decode kernel at M ≤ 16, the tensor-core kernel
+above, the SIMT kernel only for tiles 1 or 2 weights wide or compressed
+blocks past the decode kernel's limits); :func:`fused_decode_matmul_plain`
 and :func:`grouped_fused_decode_matmul_plain` are the plain PyTorch
 versions the CPU runs and the card's kernel is held against.
 
@@ -34,15 +36,18 @@ MAX_TILE_N = 128          # the kernel's block width (csrc: kBN)
 MAX_TILE_K = 512          # bounds the tile held in shared memory
 MAX_GRID_Z = 65535        # experts × K splits share gridDim.z
 MMA_BM = 128              # rows of a band of the tensor-core kernel
+MMA_STEP_K = 64           # K columns of a tensor-core step (csrc: kSubK)
 SPAN_COLS = 512           # widest K span the tensor-core kernel decodes
 MMA_SMEM_MAX = 232448     # the most shared memory one block may take (H100)
-DECODE_M = 4              # rows of x the decode-batch kernel takes (kDecM)
+DECODE_M = 4              # rows of x in a row group of the decode kernel
+DECODE_MAX_M = 16         # rows it takes: 4 row groups (kDecRG)
 DECODE_MAX_SLOTS = 1024   # its blocks: at most 4 steps of 256 slots
 DECODE_MAX_WARPS = 16     # K tiles a block's warps take at once
+DECODE_ROW_WARPS = 8      # warps a block at M 5–16 (kDecRowWarps)
 DECODE_WARPS_PER_SM = 16  # resident at 128 registers a thread
 MAX_GRID_X = 2 ** 31 - 1
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I] * 17 + [_P]
+_ARGTYPES = [_P] * 9 + [_I] * 18 + [_P]
 
 
 def fused_decode_matmul_plain(x, codes, literals, lut, scale, zero, *,
@@ -98,11 +103,12 @@ def check_tiles(name: str, shape, tile_n: int, tile_k: int):
 
 
 def block_rows(m: int, tile_k: int) -> int:
-    """Rows per block: 4 or 16 with the SIMT product (decode-sized M), 128
-    with the tensor-core product (prefill-sized M; needs 64 | tile_k)."""
-    if m <= 4:
+    """Rows per block: 4 (one row group of the decode kernel, or the SIMT
+    kernel's band) at M ≤ 4, 16 (four row groups, or a SIMT band) at M
+    5–16 or tile_k 1 and 2, else 128 (the tensor-core kernel's band)."""
+    if m <= DECODE_M:
         return 4
-    if m <= 16 or tile_k % 64:
+    if m <= DECODE_MAX_M or tile_k < 4:
         return 16
     return MMA_BM
 
@@ -119,22 +125,24 @@ def _split_count(blocks: int, steps: int, sms: int) -> int:
 
 def mma_smem_bytes(span_cols: int) -> int:
     """Shared memory of one tensor-core block decoding ``span_cols``
-    columns at once (csrc: ``mma_smem_bytes``): the span in bf16, three
-    bf16 stages of x (128 × 72) and 128 row sums."""
+    columns at once (csrc: ``mma_smem_bytes``): the span in bf16 (its
+    columns rounded up to whole 64-column steps), three bf16 stages of x
+    (128 × 72) and 128 row sums."""
     def align(b):
         return _cdiv(b, 128) * 128
-    return (align(128 * (span_cols + 8) * 2) + 3 * align(128 * 72 * 2)
+    cols = _cdiv(span_cols, MMA_STEP_K) * MMA_STEP_K
+    return (align(128 * (cols + 8) * 2) + 3 * align(128 * 72 * 2)
             + 128 * 4)
 
 
 class Plan(NamedTuple):
     """How one launch covers (E, M, N, K): ``kernel`` — ``"decode"`` (M ≤
-    4: a warp per compressed block, ``warps`` K tiles at once per block,
-    all of K in the launch), ``"simt"`` or ``"mma"`` — with ``bm`` rows per
-    block, K cut into ``splits`` runs of ``tiles_per_split`` tiles (the
-    last may be shorter), decoded ``span`` tiles at a time, and — at bm =
-    128 — ``bands_per_block`` 128-row bands walked by each block over each
-    span it decodes."""
+    16: a warp per compressed block, ``warps`` K tiles at once per row
+    group, all of K in the launch), ``"simt"`` or ``"mma"`` — with ``bm``
+    rows per block, K cut into ``splits`` runs of ``tiles_per_split``
+    tiles (the last may be shorter), decoded ``span`` tiles at a time, and
+    — at bm = 128 — ``bands_per_block`` 128-row bands walked by each block
+    over each span it decodes."""
     bm: int
     splits: int
     tiles_per_split: int
@@ -149,36 +157,44 @@ def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
     """The launch of E products (M, K) × (K, N) with K tiles of ``tile_k``
     (compressed blocks of ``slots`` codes) on a card of ``sms`` SMs.
 
-    Decode batch (M ≤ 4, tile_k ≥ 4, blocks of ≤ 1024 slots, ≤ 512 below
+    Decode batch (M ≤ 16, tile_k ≥ 4, blocks of ≤ 1024 slots, ≤ 512 below
     tile_k 32 — every block the packer makes at those tiles): the decode
-    kernel, one block per row group over all of K — no split — whose W
-    warps take every W-th K tile.  W is the largest power of two that keeps
-    the grid's warps within one wave of the card (16 a SM), at most the K
-    tiles and 16: a block's fixed costs (its barrier, the epilogue) are
-    paid once per row group, so where row groups alone fill the card one
-    warp walks all of K (PERF.md: K3's down stack went from 11 warps to
-    1, and its time fell by over a third).  Its grid is E · N · tile_k /
-    (4 · slots) blocks (:func:`launch_grid`).
+    kernel, one block per row group over all of K — no split — whose K
+    tiles are dealt to W warps, tile kt to warp kt mod W.  W is the
+    largest power of two that keeps the grid's warps within one wave of
+    the card (16 a SM), at most the K tiles and 16: a block's fixed costs
+    (its barrier, the epilogue) are paid once per row group, so where row
+    groups alone fill the card one warp walks all of K (PERF.md: K3's down
+    stack went from 11 warps to 1, and its time fell by over a third).
+    Its grid is E · N · tile_k / (4 · slots) blocks (:func:`launch_grid`).
+    Neither W nor the grid depends on M: W fixes the order in which a
+    row's products are summed, so a row has the same bits at every M from
+    1 to 16 (above 4 rows the kernel runs 4-row groups, each with the M ≤
+    4 arithmetic).
 
-    Other decode-sized M (bm 4 or 16, SIMT): one band of rows per block, K
-    split so that about two blocks sit on every SM.
+    Prefill-sized M (M > 16, tile_k ≥ 4; bm 128, tensor cores, one block
+    per SM): the kernel decodes ``span`` K tiles at once, ``SPAN_COLS``
+    columns or all of K if less, which fits a block's shared memory
+    (``mma_smem_bytes``).  With one band of rows (M ≤ 128) a tile is
+    decoded once whatever the grid, so K is split so that about two blocks
+    sit on every SM.  With several bands, a split is one span and a block
+    walks ``bands_per_block`` ≥ 2 bands over it, so each tile is decoded
+    ⌈bands / bands_per_block⌉ ≤ bands / 2 times: once, where E · stripes
+    · splits blocks already cover the SMs; else the fewest bands per block
+    that keep the grid within one block per SM.  The price is the split-K
+    workspace, written and read once: 8·M·N·K / SPAN_COLS bytes, about
+    M·N·K · 4.7e-15 s at 3.35 TB/s, against the decodes saved, at least
+    bands/2 decodes of N·K weights at about 4e-12 s each (PERF.md),
+    M·N·K · 1.6e-14 s — under a third.  Below tile_k 64 a split is whole
+    64-column steps (the kernel's K step; tiles sit side by side in it), so
+    only the last split's last span may end inside a step.
 
-    Prefill-sized M (bm 128, tensor cores; one block per SM): the kernel
-    decodes ``span`` K tiles at once, ``SPAN_COLS`` columns or all of K if
-    less, which fits a block's shared memory (``mma_smem_bytes``).  With
-    one band of rows (M ≤ 128) a tile is decoded once whatever the grid,
-    so K is split as at decode.  With several bands, a split is one span
-    and a block walks ``bands_per_block`` ≥ 2 bands over it, so each tile
-    is decoded ⌈bands / bands_per_block⌉ ≤ bands / 2 times: once, where
-    E · stripes · splits blocks already cover the SMs; else the fewest
-    bands per block that keep the grid within one block per SM.
-    The price is the split-K workspace, written and read once: 8·M·N·K /
-    SPAN_COLS bytes, about M·N·K · 4.7e-15 s at 3.35 TB/s, against the
-    decodes saved, at least bands/2 decodes of N·K weights at about 4e-12 s
-    each (PERF.md), M·N·K · 1.6e-14 s — under a third."""
+    Otherwise (tile_k 1 or 2, or a decode-sized M whose blocks pass the
+    decode kernel's limits) the SIMT kernel: one band of 4 or 16 rows per
+    block, K split so that about two blocks sit on every SM."""
     bm = block_rows(m, tile_k)
     nkt = k // tile_k
-    if (m <= DECODE_M and tile_k >= 4
+    if (m <= DECODE_MAX_M and tile_k >= 4
             and slots <= (DECODE_MAX_SLOTS if tile_k >= 32 else 512)):
         groups = e * n * tile_k // (4 * slots)
         fit = max(1, sms * DECODE_WARPS_PER_SM // max(groups, 1))
@@ -189,24 +205,40 @@ def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
     span = min(nkt, max(1, SPAN_COLS // tile_k))
     if bm < MMA_BM or bands == 1:
         splits = _split_count(e * stripes * bands, nkt, sms)
-        per_block = 1
     else:
         splits = _cdiv(nkt, span)
+    per = _cdiv(nkt, splits)
+    if bm == MMA_BM and tile_k < MMA_STEP_K:
+        step = MMA_STEP_K // tile_k           # tiles of one K step
+        per = min(nkt, _cdiv(per, step) * step)
+        splits = _cdiv(nkt, per)
+    per_block = 1
+    if bm == MMA_BM and bands > 1:
         groups = max(1, min(bands // 2, sms // (e * stripes * splits)))
         per_block = _cdiv(bands, groups)
-    return Plan(bm, splits, _cdiv(nkt, splits), span, per_block,
+    return Plan(bm, splits, per, span, per_block,
                 "mma" if bm == MMA_BM else "simt")
 
 
-def decode_smem_bytes(tile_k: int, slots: int, warps: int) -> int:
-    """Shared memory of one decode-kernel block (csrc: ``launch``): per
-    warp, its partial sums (rpb rows × H column groups × 4 rows of x) and
-    Σx (4 × 4), and at tile_k ≥ 32 its x tile (4 × 8 × 16 pieces of 8
-    bytes)."""
+def decode_smem_bytes(tile_k: int, slots: int, warps: int,
+                      m: int = DECODE_M) -> int:
+    """Shared memory of one decode-kernel block at M = ``m`` (csrc:
+    ``launch``): per warp of the plan, its partial sums (rpb rows × H
+    column groups × the block's rows of x: 4, or 16 above 4) and Σx (4 ×
+    those rows), and at M ≤ 4 and tile_k ≥ 32 per warp its x tile (4 × 8 ×
+    16 pieces of 8 bytes; above 4 rows x is read through L1)."""
     rpb = 4 * slots // tile_k
     groups = tile_k // 128 if tile_k >= 128 else 1
-    return warps * ((rpb * groups + 4) * DECODE_M * 4
-                    + (DECODE_M * 8 * 16 * 8 if tile_k >= 32 else 0))
+    rows = DECODE_M if m <= DECODE_M else DECODE_MAX_M
+    xs = DECODE_M * 8 * 16 * 8 if tile_k >= 32 and m <= DECODE_M else 0
+    return warps * ((rpb * groups + 4) * rows * 4 + xs)
+
+
+def decode_threads(warps: int, m: int) -> int:
+    """Threads of a decode-kernel block: the plan's warps at M ≤ 4, at
+    most DECODE_ROW_WARPS of them at M 5–16 (each then walks the K tiles
+    of several of the plan's warps in turn)."""
+    return 32 * (warps if m <= DECODE_M else min(warps, DECODE_ROW_WARPS))
 
 
 def launch_grid(plan: Plan, m: int, n: int, tile_k: int, slots: int,
@@ -217,8 +249,9 @@ def launch_grid(plan: Plan, m: int, n: int, tile_k: int, slots: int,
     if plan.kernel == "decode":
         return {"kernel": "decode", "grid": [e * n * tile_k // (4 * slots),
                                              1, 1],
-                "threads": 32 * plan.warps,
-                "smem_bytes": decode_smem_bytes(tile_k, slots, plan.warps)}
+                "threads": decode_threads(plan.warps, m),
+                "smem_bytes": decode_smem_bytes(tile_k, slots, plan.warps,
+                                                m)}
     rows = _cdiv(_cdiv(m, plan.bm), plan.bands_per_block)
     return {"kernel": plan.kernel,
             "grid": [_cdiv(n, MAX_TILE_N), rows, e * plan.splits],
@@ -256,7 +289,8 @@ def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
 
 
 def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
-            tile_k, out_dtype, plan_experts=None, groups: int = 1):
+            tile_k, out_dtype, plan_experts=None, groups: int = 1,
+            fn=None):
     """Check the operands and launch the kernel for E = x.shape[0] weights
     of one shape: x (E, M, K), codes (E, nb, slots), literals
     (E, nb, cap, 4), scale/zero E·N values → (E, M, N).  The launch is
@@ -264,7 +298,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     holding some of a layer's experts sums each expert's rows in the order
     the whole stack would.  ``groups``: K1's column groups, a weight's nb
     blocks being ``groups`` sub-weights' planes of (N, K/groups) one after
-    another."""
+    another.  ``fn``: another build's C entry (tools/profile_decode.py's
+    design variants)."""
     dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
     n, k = shape
     e, m = x.shape[0], x.shape[1]
@@ -329,14 +364,14 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
         part = torch.empty(e * splits * m * n, dtype=torch.float32,
                            device=dev)
         sx = torch.empty(e * splits * m, dtype=torch.float32, device=dev)
-    fn = _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
+    fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
     err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
              lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
              out.data_ptr(), part.data_ptr() if part is not None else None,
              sx.data_ptr() if sx is not None else None,
              int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
-             slots, literals.shape[2], bpt, groups, splits, plan.bm,
-             plan.span,
+             slots, literals.shape[2], bpt, groups, splits,
+             plan.tiles_per_split, plan.bm, plan.span,
              plan.bands_per_block, plan.warps if plan.kernel == "decode"
              else 0, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)

@@ -243,24 +243,53 @@ def _decode_mask(pos, t: int, lmax: int, device) -> torch.Tensor:
             <= positions(pos, t, device)[..., None])
 
 
+# Rows the decode step's f32 attention einsums run at on the card, whatever
+# the batch up to it.  cuBLAS picks a GEMM by its shape, and these GEMMs
+# have B batches (GQA: B · kv heads; MLA's absorb: M = B), so one row would
+# be summed in another order alone (generate's batch of one) than beside
+# others (an engine tick of n_slots rows): on the H100 MLA's attention of a
+# row moved by ~1e-3 between 4 rows and 1, and Llama-3.2-1B's engine at 8
+# slots left generate's tokens.  Padded to ROW_PAD rows, every batch up to
+# ROW_PAD runs the same GEMMs, so a row has one set of bits, as the fused
+# matmuls give it up to 16 rows.
+ROW_PAD = 16
+
+
+def _row_pad(b: int, x: torch.Tensor):
+    """A function taking a (b, ...) tensor to f32 (or ``dtype``) and, on
+    the card below ROW_PAD rows, to ROW_PAD rows: its own, then rows left
+    unwritten.  Every output row of the einsums below comes from its own
+    input rows alone, so the pad rows reach no row that is kept, and the
+    padded copy costs what the f32 copy did."""
+    if not x.is_cuda or b >= ROW_PAD:
+        return lambda a, dtype=torch.float32: a.to(dtype)
+
+    def pad(a, dtype=torch.float32):
+        out = a.new_empty((ROW_PAD,) + tuple(a.shape[1:]), dtype=dtype)
+        out[:b] = a
+        return out
+    return pad
+
+
 def _attend_cached(q, cache_k, cache_v, pos, t_new: int):
     """Decode attention over a cache (plain torch, as the reference's is
     plain jnp): positions past a row's ``pos + t_new − 1`` get −1e30, whose
-    exp is exactly 0.  ``pos``: an int, a 0-d tensor or per-row (B,)."""
+    exp is exactly 0.  ``pos``: an int, a 0-d tensor or per-row (B,).  In
+    f32; on the card the batch padded to ROW_PAD rows (above)."""
     b, t, hq, hd = q.shape
     hkv = cache_k.shape[2]
     rep = hq // hkv
     lmax = cache_k.shape[1]
-    qf = q.to(torch.float32).reshape(b, t, hkv, rep, hd)
-    kf = cache_k.to(torch.float32)
-    vf = cache_v.to(torch.float32)
+    pad = _row_pad(b, q)
+    qf = pad(q.reshape(b, t, hkv, rep, hd))
+    kf, vf = pad(cache_k), pad(cache_v)
     logits = torch.einsum("btgrd,blgd->btgrl", qf, kf) / math.sqrt(hd)
     mask = _decode_mask(pos, t, lmax, q.device)     # (t, L) or (B, t, L)
     mask = (mask[None, :, None, None, :] if mask.ndim == 2
-            else mask[:, :, None, None, :])
+            else pad(mask[:, :, None, None, :], torch.bool))
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("btgrl,blgd->btgrd", p, vf)
+    out = torch.einsum("btgrl,blgd->btgrd", p, vf)[:b]
     return out.reshape(b, t, hq, hd).to(q.dtype)
 
 
@@ -417,18 +446,22 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
                                _attend_cache_flash(q, k, v, int(pos0)))
         return linear(o, p["wo"], lut), new_cache
 
-    # Decode (absorbed): score = (q_nope·W_k)·ckv + q_rope·krope.
+    # Decode (absorbed): score = (q_nope·W_k)·ckv + q_rope·krope, in f32;
+    # on the card the batch padded to ROW_PAD rows (above).
     f32 = torch.float32
-    qc = torch.einsum("bthd,hdr->bthr", q_nope.to(f32), w_k.to(f32))
-    s_nope = torch.einsum("bthr,blr->bthl", qc, cckv.to(f32))
-    s_rope = torch.einsum("bthd,bld->bthl", q_rope.to(f32), ckrope.to(f32))
+    pad = _row_pad(b, x)
+    qn, qr, kv, kr = pad(q_nope), pad(q_rope), pad(cckv), pad(ckrope)
+    qc = torch.einsum("bthd,hdr->bthr", qn, w_k.to(f32))
+    s_nope = torch.einsum("bthr,blr->bthl", qc, kv)
+    s_rope = torch.einsum("bthd,bld->bthl", qr, kr)
     logits = (s_nope + s_rope) / math.sqrt(dn + dr)
     mask = _decode_mask(pos0, t, cckv.shape[1], x.device)
-    mask = mask[None, :, None, :] if mask.ndim == 2 else mask[:, :, None, :]
+    mask = mask[None, :, None, :] if mask.ndim == 2 else pad(
+        mask[:, :, None, :], torch.bool)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     attn = torch.softmax(logits, dim=-1)
-    o_lat = torch.einsum("bthl,blr->bthr", attn, cckv.to(f32))
-    o = torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32)).to(x.dtype)
+    o_lat = torch.einsum("bthl,blr->bthr", attn, kv)
+    o = torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32))[:b].to(x.dtype)
     return linear(o.reshape(b, t, nq * dv), p["wo"], lut), new_cache
 
 

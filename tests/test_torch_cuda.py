@@ -78,8 +78,23 @@ def _check_matmul(kernel, plain, xi, xr):
     (128, 130, 129, 300),
     (128, 131, 4, 300),     # tile_k 1: a gram spans four
     (128, 131, 129, 2),
+    # the decode kernel at 5–16 rows (four row groups of 4)
+    (2048, 2048, 5, 2), (2048, 2048, 8, 300), (2048, 2048, 16, 2),
+    (256, 2816, 13, 300),   # tile_k 256, 11 tiles
+    (128, 96, 16, 300),     # tile_k 32: a lane a row
+    (128, 208, 8, 2),       # tile_k 16: rows in a lane, SIMT product
+    (128, 136, 16, 300),    # tile_k 8
+    (128, 132, 5, 2),       # tile_k 4
+    # the tensor-core kernel below tile_k 64: 11 tiles of 32, 13 of 16,
+    # 17 of 8, 33 of 4 with rows 8 bytes out of step (K ≡ 4 mod 8)
+    (256, 352, 700, 300), (256, 208, 700, 2), (128, 136, 129, 300),
+    (128, 132, 129, 2), (128, 352, 17, 2),
 ])
 def test_fused_decode_matmul_on_card(card, n, k, m, levels):
+    """K1 against its plain version (bitwise on integer x, within 1e-4 of
+    the output's scale on random x) through the kernel the plan picks:
+    the decode kernel at M ≤ 16, the tensor-core kernel above (any tile_k
+    ≥ 4), the SIMT kernel at tile_k 1 and 2."""
     g = _gen(card)
     w = torch.randint(-levels, levels + 1, (n, k), generator=g,
                       device=card).float() / levels
@@ -96,6 +111,18 @@ def test_fused_decode_matmul_on_card(card, n, k, m, levels):
         lambda x, dt: fdm.fused_decode_matmul(x, *args, **kw, out_dtype=dt),
         lambda x, dt: fdm.fused_decode_matmul_plain(x, *args, **kw,
                                                     out_dtype=dt), xi, xr)
+    _check_kernel(fdm.NAME, m, tk, lambda: fdm.fused_decode_matmul(
+        xi, *args, **kw))
+
+
+def _check_kernel(name, m, tile_k, fn):
+    """One call of fn launches the kernel the plan must pick: decode at
+    M ≤ 16, the tensor-core kernel above, SIMT only at tile_k 1 and 2."""
+    want = ("simt" if tile_k < 4 else "decode" if m <= fdm.DECODE_MAX_M
+            else "mma")
+    _build.KERNEL_COUNTS.clear()
+    fn()
+    assert dict(_build.KERNEL_COUNTS) == {f"{name}:{want}": 1}
 
 
 @pytest.mark.parametrize("e,n,k,tile_k", [
@@ -160,18 +187,22 @@ def test_decode_kernel_on_card(card, e, n, k, tile_k):
     (130, 100, 4),          # K % 16 != 0 at M = 4: the SIMT kernel
     (130, 100, 40),         # ... and at prefill M
     # quant mode's projections (Llama-3.2-1B: q/o, k/v, gate/up, down) at
-    # prefill M: the tensor-core kernel, split-K where tiles are few
+    # 5 and 16 rows (the decode kernel's row groups) and from 17 on (the
+    # tensor-core kernel, split-K where tiles are few)
     *[(n, k, m) for n, k in ((2048, 2048), (512, 2048), (8192, 2048),
                              (2048, 8192))
-      for m in (5, 16, 64, 175, 700)],
+      for m in (5, 16, 17, 64, 175, 700)],
     (1003, 2048, 131),      # ragged M and N against the 128 × 128 tiles
+    (1003, 2048, 13),       # the decode kernel's row groups, ragged N
+    (128256, 2048, 16),     # the head at an engine tick of 16 slots
 ])
 def test_dequant_matmul_on_card(card, n, k, m):
     """K5 (quantized from seeded random weights): bitwise equal to the
     plain version on integer x, within 1e-4 of the output's scale on
-    random x, two calls bitwise equal, one launch each of the kernel the
-    plan picks: decode at M ≤ 4, the tensor-core kernel from MMA_MIN_M on,
-    the SIMT kernel where K % 16 ≠ 0 (or M between the two)."""
+    random x, two calls bitwise equal, the launches of the kernel the
+    plan picks: the decode kernel at M ≤ 16 (one launch a group of 4
+    rows), the tensor-core kernel from MMA_MIN_M on, the SIMT kernel where
+    K % 16 ≠ 0."""
     g = _gen(card, 1)
     q = quantize_linear(torch.randn((n, k), generator=g, device=card))
     xi, xr = _xs(m, k, g, card)
@@ -180,14 +211,16 @@ def test_dequant_matmul_on_card(card, n, k, m):
         lambda x, dt: dqm.dequant_matmul_plain(x, q.values, q.scale, q.zero,
                                                dt), xi, xr)
     plan = dqm.dequant_plan(m, n, k, 132)
-    assert plan.kernel == ("simt" if k % 16 else "decode" if m <= 4
-                           else "mma" if m >= dqm.MMA_MIN_M else "simt")
+    assert plan.kernel == ("simt" if k % 16 else "decode"
+                           if m < dqm.MMA_MIN_M else "mma")
+    launches = 2 * (-(-m // 4) if plan.kernel == "decode" else 1)
     _build.LAUNCH_COUNTS.clear()
     _build.KERNEL_COUNTS.clear()
     y1 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
     y2 = dqm.dequant_matmul(xr, q.values, q.scale, q.zero, torch.float32)
-    assert dict(_build.LAUNCH_COUNTS) == {dqm.NAME: 2}
-    assert dict(_build.KERNEL_COUNTS) == {f"{dqm.NAME}:{plan.kernel}": 2}
+    assert dict(_build.LAUNCH_COUNTS) == {dqm.NAME: launches}
+    assert dict(_build.KERNEL_COUNTS) == {
+        f"{dqm.NAME}:{plan.kernel}": launches}
     assert torch.equal(y1, y2)
 
 
@@ -277,6 +310,11 @@ def test_flash_attention_bf16_layouts_on_card(card, layout):
     (64, 128, 256, 4),    # 64 experts at decode
     (64, 640, 640, 83),   # 64 experts at a prefill cap, two spans a block
     (3, 128, 130, 83),    # tile_k 2
+    (64, 128, 256, 8),    # 64 experts at capacity 8 and 16: row groups
+    (64, 128, 256, 16),
+    (7, 24, 96, 5),       # tile_k 32 at 5 rows
+    (5, 48, 208, 16),     # tile_k 16 at 16 rows
+    (3, 128, 352, 130),   # 11 tiles of 32 on the tensor cores
 ])
 def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
     g = _gen(card, 4)
@@ -301,6 +339,8 @@ def test_grouped_fused_decode_matmul_on_card(card, e, n, k, m):
         assert torch.equal(y[j], fdm.fused_decode_matmul(
             xi[j], pl.codes[j], pl.literals[j], lut, pl.scale[j],
             pl.zero[j], **kw))
+    _check_kernel(fdm.GROUPED_NAME, m, pl.tile_k,
+                  lambda: fdm.grouped_fused_decode_matmul(xi, *args, **kw))
 
 
 def _dict_weights(n, escapes, g, device):
@@ -628,53 +668,83 @@ def _engine_cfg(family):
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek"])
-def test_decode_rows_do_not_depend_on_the_batch(card, family):
-    """A row's decode step gives the same bits alone (batch 1) as in a
-    batch of 4 beside other rows at other positions: what makes the
-    engine's ticks (M = n_slots) equal generate's steps (M = 1).  Checked
-    op by op: K1's decode kernel and K5 at M = 1 and 4, the decode
-    attention (GQA or MLA's absorbed form), then the whole step."""
+@pytest.mark.parametrize("n", [4, 5, 8, 16])
+def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
+    """Each row of a decode step gives the same bits alone (batch 1) as in
+    a batch of n beside other rows at other positions: what makes the
+    engine's ticks (M = n_slots) equal generate's steps (M = 1), as the
+    reference's kernels (K innermost into one accumulator per row block)
+    make them.  Checked op by op, every row against itself alone: K1 and
+    K5 at M = n (their decode kernels; above 4 rows in groups of 4), K3 on
+    the layer's expert stack at capacity n (DeepSeek), the decode
+    attention (GQA or MLA's absorbed form; for GQA also at Llama-3.2-1B's
+    full head counts), then the whole step."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
     g = _gen(card, 9)
     layer = st.params["blocks"][0]["attn"]
-    x = torch.randn((4, 1, cfg.d_model), generator=g, device=card
+    x = torch.randn((n, 1, cfg.d_model), generator=g, device=card
                     ).to(torch.bfloat16)
     diffs = {}
 
-    def rows(fn, *args):
-        """fn on 4 rows and on row 0 alone: the max |difference|."""
-        four, one = fn(*args), fn(*(a[:1] for a in args))
-        return (four[:1].float() - one.float()).abs().max().item()
+    def rows(fn, *args, dim=0):
+        """fn on the n rows (along ``dim``) and on each row alone: the
+        max |difference|."""
+        many = fn(*args)
+        return max((many.narrow(dim, i, 1).float() - fn(
+            *(a.narrow(dim, i, 1) for a in args)).float()).abs().max().item()
+            for i in range(n))
 
     w = layer["wo"]
     diffs["k1"] = rows(lambda h: L.linear(h, w, st.lut),
-                       torch.randn((4, 1, w.shape[1]), generator=g,
+                       torch.randn((n, 1, w.shape[1]), generator=g,
                                    device=card).to(torch.bfloat16))
     head = st.params.get("lm_head", st.params["embed"])
     diffs["k5"] = rows(lambda h: L.linear(h, head, st.lut), x)
-    pos = torch.tensor([11, 3, 7, 19], device=card)
-    caches = LM.init_caches(cfg, 4, 24, device=card)
+    if family == "deepseek":
+        ws = st.params["blocks"][0]["moe"]["experts"]
+        for name in ("w_gate", "w_down"):
+            w = ws[name]
+            diffs[f"k3_{name}"] = rows(
+                lambda h, w=w: ops.grouped_decode_dequant_matmul(
+                    h, w, st.lut, out_dtype=h.dtype),
+                torch.randn((w.codes.shape[0], n, w.shape[1]), generator=g,
+                            device=card).to(torch.bfloat16), dim=1)
+    pos = torch.randint(1, 23, (n,), generator=g, device=card)
+    caches = LM.init_caches(cfg, n, 24, device=card)
     for t in [t for c in caches["blocks"] for t in c.values()]:
         t.copy_(torch.randn(t.shape, generator=g, device=card).to(t.dtype))
     attn = L.apply_attention if family == "llama" else L.apply_mla
 
-    def attend(h, p):
-        n = h.shape[0]
-        cache = {k: v[:n].clone() for k, v in caches["blocks"][0].items()}
-        return attn(layer, h, cfg, lut=st.lut, cache=cache, pos=p)[0]
+    def rows_cached(fn, *args):
+        """``rows`` for fn(caches, *args) on the batch's cache rows."""
+        many = fn(caches_of(slice(0, n)), *args)
+        return max((many[i:i + 1].float() - fn(
+            caches_of(slice(i, i + 1)), *(a[i:i + 1] for a in args)
+        ).float()).abs().max().item() for i in range(n))
 
-    diffs["attention"] = rows(attend, x, pos)
+    def caches_of(r):
+        return {k: [{n2: v[r].clone() for n2, v in layer_c.items()}
+                    for layer_c in caches[k]] for k in caches}
+
+    diffs["attention"] = rows_cached(
+        lambda c, h, p: attn(layer, h, cfg, lut=st.lut, cache=c["blocks"][0],
+                             pos=p)[0], x, pos)
+    if family == "llama":
+        # the decode attention at Llama-3.2-1B's own head counts (32 q / 8
+        # kv heads of 64, 232 cached positions), which the smoke width
+        # does not reach: what the engine's ticks run at full width
+        def full(*shape):
+            return torch.randn(shape, generator=g, device=card
+                               ).to(torch.bfloat16)
+        diffs["attention_full_heads"] = rows(
+            lambda q, k, v, p: L._attend_cached(q, k, v, p, 1),
+            full(n, 1, 32, 64), full(n, 232, 8, 64), full(n, 232, 8, 64),
+            torch.randint(1, 231, (n,), generator=g, device=card))
     _, decode_step = make_serve_fns(cfg, device=card)
-    tok = torch.randint(1, cfg.vocab_size, (4, 1), generator=g, device=card)
-
-    def step(t, p):
-        n = t.shape[0]
-        c = {k: [{n2: v[:n].clone() for n2, v in layer_c.items()}
-                 for layer_c in caches[k]] for k in caches}
-        return decode_step(st.params, st.lut, t, c, p)[0]
-
-    diffs["decode_step"] = rows(step, tok, pos)
+    tok = torch.randint(1, cfg.vocab_size, (n, 1), generator=g, device=card)
+    diffs["decode_step"] = rows_cached(
+        lambda c, t, p: decode_step(st.params, st.lut, t, c, p)[0], tok, pos)
     assert diffs == {k: 0.0 for k in diffs}, diffs
 
 
@@ -719,28 +789,32 @@ def _serve_trace(eng, prompts, max_new, arrivals):
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek"])
-def test_engine_matches_generate_on_card(card, family):
-    """A staggered mixed trace through the engine on the card (3 slots):
-    one capture of the generate step for the whole drain, every tick's
-    and admission's launches counted, every completion bitwise equal to
-    the port's generate of its prompt alone at the pool's length."""
+@pytest.mark.parametrize("slots", [3, 8, 16])
+def test_engine_matches_generate_on_card(card, family, slots):
+    """A staggered mixed trace through the engine on the card (3, 8 or 16
+    slots; above 3, twice as many requests as slots, the first ``slots``
+    at tick 0 so that every slot is taken): one capture of the generate
+    step for the whole drain, every tick's and admission's launches
+    counted, every completion bitwise equal to the port's generate of its
+    prompt alone at the pool's length (a tick runs every slot's row, so
+    its decode kernels run at M = slots)."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
-    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=3,
+    eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=slots,
                  max_len=30)
-    prompts, max_new, arrivals = _trace(cfg, card)
+    n = 8 if slots == 3 else 2 * slots
+    prompts, max_new, arrivals = _trace(cfg, card, n)
+    if slots > 3:
+        arrivals = np.concatenate([np.zeros(slots, int),
+                                   arrivals[:n - slots] + 1])
     E.CAPTURE_COUNTS.clear()
     _build.LAUNCH_COUNTS.clear()
     by_rid = _serve_trace(eng, prompts, max_new, arrivals)
     launches = dict(_build.LAUNCH_COUNTS)
     assert E.CAPTURE_COUNTS["generate_step"] == 1 and eng.capture_ms > 0
     h = eng.health()
-    assert h["occupancy_max"] == 3 and h["joined_mid_decode"] >= 1
+    assert h["occupancy_max"] == slots and h["joined_mid_decode"] >= 1
     ticks = sum(1 for o in eng.stats["occupancy"] if o)
-    if family == "llama":
-        assert launches == {"fused_decode_matmul": 7 * cfg.n_layers
-                            * (ticks + 8), "dequant_matmul": ticks + 8,
-                            "flash_attention": cfg.n_layers * 8}, launches
     assert len(eng.pool.free_pages) == eng.pool.n_pages
     for i, p in enumerate(prompts):
         assert by_rid[i].finished == "max_new"
@@ -749,6 +823,14 @@ def test_engine_matches_generate_on_card(card, family):
                           max_len=eng.pool.max_len)[0]
         assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), (
             i, by_rid[i].tokens, want)
+    if family == "llama":
+        # K5's head at M = slots: one launch, or one per group of 4 rows
+        head = dqm.dequant_plan(slots, cfg.vocab_size, cfg.d_model, 132)
+        k5_tick = getattr(head, "row_groups", 1)
+        assert launches == {"fused_decode_matmul": 7 * cfg.n_layers
+                            * (ticks + n), "dequant_matmul":
+                            k5_tick * ticks + n,
+                            "flash_attention": cfg.n_layers * n}, launches
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek"])
@@ -1217,14 +1299,16 @@ def test_pool_shrink_and_regrow_recapture_the_tick_on_card(card):
     (256, 2816, 2),      # tile_k 128, 11 tiles a group: splits, warps and
                          # spans cross the group boundary
     (192, 8192, 4),      # w_down's K, tile_n 64
+    (256, 2 * 11 * 32, 2),   # 11 tiles of 32 a group (the tiled DeepSeek
+    (256, 4 * 13 * 16, 4),   # first w_down's 171, cut), 13 of 16
 ])
-@pytest.mark.parametrize("m", [1, 4, 9, 200])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 9, 16, 200, 700])
 def test_k1_column_groups_on_card(card, n, k, groups, m):
     """K1 over G column groups, one launch: bitwise equal to its plain
     version and to K1 at G = 1 on the untiled planes of the same weight
     (with the same tiles) on integer x, within 1e-4 of the output's scale
     of the plain version on random x, at every kernel of the plan (decode
-    M ≤ 4, SIMT M = 9, tensor cores M = 200)."""
+    M ≤ 16, tensor cores M = 200 and 700, tile_k 16 and 32 included)."""
     g = _gen(card, 12)
     w = torch.randn((n, k), generator=g, device=card) * 0.02
     table = find_frequent_sequences([quantize_linear(w).values])
@@ -1245,15 +1329,18 @@ def test_k1_column_groups_on_card(card, n, k, groups, m):
     assert dict(_build.LAUNCH_COUNTS) == {fdm.NAME: 1}
     assert torch.equal(y, fdm.fused_decode_matmul(
         xi, bc.codes, bc.literals, lut, tt.scale, tt.zero, **kw))
+    _check_kernel(fdm.NAME, m, tt.tile_k,
+                  lambda: fdm.fused_decode_matmul(xi, *args, **kw))
     assert torch.equal(fdm.fused_decode_matmul(xr, *args, **kw),
                        fdm.fused_decode_matmul(xr, *args, **kw))
 
 
 def test_k1_and_k3_bits_unchanged_on_card(card):
     """K1 at G = 1, K3 and K2 give, on fixed-seed inputs, the bits they
-    gave before K1's column groups and K2's smoke head dims
-    (``tools/k1_bits.py``: the CRC32 of each output, recorded on an H100
-    of 132 SMs)."""
+    gave before K1's column groups and K2's smoke head dims, and K1/K3
+    above 4 rows the bits recorded with the 16-row decode kernel, each of
+    their rows bitwise that row alone (``tools/k1_bits.py``: the CRC32 of
+    each output, recorded on an H100 of 132 SMs)."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "tools" / "k1_bits.py"
@@ -1264,7 +1351,9 @@ def test_k1_and_k3_bits_unchanged_on_card(card):
     if sms not in k1_bits.EXPECTED:
         pytest.skip(f"bits recorded for {sorted(k1_bits.EXPECTED)} SMs, "
                     f"the card has {sms}")
-    assert k1_bits.case_outputs(card) == k1_bits.EXPECTED[sms]
+    rows_alone = {}
+    assert k1_bits.case_outputs(card, rows_alone) == k1_bits.EXPECTED[sms]
+    assert rows_alone and all(rows_alone.values()), rows_alone
 
 
 def _tiled_state(cfg, card, seed=0):

@@ -42,11 +42,16 @@ def test_dequant_plan_splits_k_proj_at_prefill():
 
 def _mma_emulation(x, wq, scale, zero, sms=SMS):
     """The work split of the card's K5 tensor-core kernel, in f32 torch:
-    see the module's docstring."""
+    see the module's docstring.  Its plan (``mma_plan``) is
+    ``dequant_plan``'s from MMA_MIN_M rows on; below, the tensor-core
+    kernel's launch at those shapes (the decode kernel's row groups serve
+    them)."""
     m, k = x.shape
     n = wq.shape[0]
-    plan = dqm.dequant_plan(m, n, k, sms)
+    plan = dqm.mma_plan(m, n, k, sms)
     assert plan.kernel == "mma"
+    if m >= dqm.MMA_MIN_M:
+        assert dqm.dequant_plan(m, n, k, sms) == plan
     stripes, bands, splits = plan.grid
     steps = _cdiv(k, dqm.MMA_STEP_K)
     per = _cdiv(steps, splits)

@@ -39,6 +39,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 
+from repro_torch.core.blocked_codec import decode_blocked
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import dequant_matmul as dqm
 from repro_torch.kernels.dequant_matmul import (dequant_matmul,
@@ -177,7 +178,8 @@ K5_MODEL_M = (1, 4, 5, 16, 32, 175, 700)
     (4, 64, 16),         # one 16-column piece
     (4, 8, 28672),       # the widest K a block's shared memory holds
     (4, 130, 100),       # K % 16 != 0: the SIMT kernel
-    (5, 128256, 2048),   # M > 4: the tensor-core kernel (full logits)
+    (5, 128256, 2048),   # M > 4: the decode kernel, 2 row groups
+    (17, 128256, 2048),  # the tensor-core kernel (full logits)
     (700, 1000, 512),    # prefill rows
     (40, 130, 100),      # K % 16 != 0 at prefill M: the SIMT kernel
     (4, 211, 0),         # K = 0: the SIMT kernel writes the epilogue
@@ -189,7 +191,8 @@ K5_MODEL_M = (1, 4, 5, 16, 32, 175, 700)
 @pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
 def test_dequant_plan(m, n, k, sms):
     """K5's launch plan, a pure function of the shapes: the decode kernel
-    exactly at M ≤ 4 with K a positive multiple of 16 (16-byte rows; the
+    exactly at M ≤ 16 with K a positive multiple of 16, one launch a group
+    of 4 rows (16-byte rows; the
     wrapper refuses a wq off a 16-byte boundary for every kernel), each
     output row in exactly one warp task and each task in exactly one warp
     of the grid, and the grid, block and shared memory within what the
@@ -200,8 +203,10 @@ def test_dequant_plan(m, n, k, sms):
     exactly one split, no split empty."""
     plan = dqm.dequant_plan(m, n, k, sms)
     vec = k > 0 and k % 16 == 0
-    assert plan.kernel == ("decode" if m <= 4 and vec else "mma"
-                           if m >= dqm.MMA_MIN_M and vec else "simt")
+    assert plan.kernel == ("decode" if m < dqm.MMA_MIN_M and vec else "mma"
+                           if vec else "simt")
+    # one decode launch a group of 4 rows, each row's bits those of M = 1
+    assert plan.row_groups == (-(-m // 4) if plan.kernel == "decode" else 1)
     assert plan.smem_bytes <= dqm.SMEM_MAX and plan.threads <= 1024
     assert 0 < plan.grid[0] <= dqm.MAX_GRID_X
     assert all(0 < g <= dqm.MAX_GRID_YZ for g in plan.grid[1:])
@@ -247,7 +252,10 @@ def test_dequant_plan(m, n, k, sms):
 
 
 def _dequant_decode_emulation(x, wq, scale, zero, sms=132):
-    """The work split of the card's K5 decode kernel (M ≤ 4), emulated in
+    """The work split of the card's K5 decode kernel, emulated in f32
+    torch.  Above 4 rows the wrapper launches it once a group of 4 rows
+    (the plan's ``row_groups``), so the rows are those groups' outputs one
+    after another.  At M ≤ 4, emulated in
     f32 torch.  Warp gw of the grid takes tasks gw, gw + (warps in the
     grid), ...; task t is weight rows 8t .. 8t + 7 over all of K, walked
     in 64-column slices.  In slice sl, lane (gid, tig) holds 16 bytes of
@@ -261,7 +269,11 @@ def _dequant_decode_emulation(x, wq, scale, zero, sms=132):
     m, k = x.shape
     n = wq.shape[0]
     plan = dqm.dequant_plan(m, n, k, sms)
-    assert plan.kernel == "decode"
+    assert plan.kernel == "decode" and plan.row_groups == -(-m // 4)
+    if m > 4:
+        return torch.cat([_dequant_decode_emulation(x[r:r + 4], wq, scale,
+                                                    zero, sms)
+                          for r in range(0, m, 4)])
     rpw, warps, blocks = dqm.DECODE_ROWS, dqm.DECODE_WARPS, plan.grid[0]
     cols = dqm.DECODE_STAGE_COLS                     # columns a stage
     kpad = -(-k // cols) * cols
@@ -313,14 +325,17 @@ def _dequant_decode_emulation(x, wq, scale, zero, sms=132):
 @pytest.mark.parametrize("m,n,k", [
     (1, 37, 64), (2, 203, 512), (3, 130, 1040), (4, 257, 2048),
     (4, 9, 48),
+    (5, 203, 512), (8, 37, 64), (13, 130, 1040), (16, 257, 2048),
 ])
 @pytest.mark.parametrize("kind", ["int", "bf16"])
 def test_dequant_decode_decomposition(m, n, k, kind):
     """K5's decode-kernel work split (``_dequant_decode_emulation``) is
     bitwise equal to the plain version and to the reference's Pallas
     kernel (interpret mode) on integer-valued x, and within
-    assert_close_scaled of both on bf16 x — at M = 1–4, N ragged against
-    the 8-row tasks, K ragged against the stages."""
+    assert_close_scaled of both on bf16 x — at M = 1–16 (above 4, one
+    launch a group of 4 rows), N ragged against the 8-row tasks, K ragged
+    against the stages.  On bf16 x each row is bitwise the emulation of
+    that row alone."""
     rng = np.random.default_rng(11)
     wq = rng.integers(0, 256, (n, k)).astype(np.uint8)
     scale = (rng.random((n, 1)) * 0.02 + 1e-3).astype(np.float32)
@@ -337,6 +352,10 @@ def test_dequant_decode_decomposition(m, n, k, kind):
     else:
         assert_close_scaled(got, plain)
         assert_close_scaled(got, pallas)
+        for i in range(m):
+            np.testing.assert_array_equal(got[i:i + 1], (
+                _dequant_decode_emulation(args[0][i:i + 1], *args[1:])
+                .numpy()))
 
 
 def test_ops_flatten_leading_dims():
@@ -435,8 +454,8 @@ def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
     (129, 2048, 10944, 64, 1),
     (700, 256, 704, 64, 1),       # 11 tiles of 64: no multiple of the span
     (300, 1408, 2048, 512, 64),   # a cap of three bands
-    (4, 8192, 2048, 512, 1),      # decode: SIMT rows
-    (83, 1408, 2048, 32, 64),     # tile_k 32: SIMT rows at prefill
+    (4, 8192, 2048, 512, 1),      # decode batch
+    (83, 1408, 2048, 32, 64),     # tile_k 32 at prefill: tensor cores
     (4, 128, 130, 2, 1),          # tile_k 2 (K 2 mod 4) at decode
     (4, 2048, 10944, 64, 1),      # decode: 171 tiles, warps walk several
     (4, 1408, 2048, 512, 64),     # K3 at decode: 11 264 row groups
@@ -446,17 +465,33 @@ def test_grouped_fused_decode_matmul_plain(e, n, k, m, kind):
     (129, 128, 130, 2, 1),        # and past 16 rows
     (129, 128, 131, 1, 1),        # tile_k 1 (K odd)
     (83, 1408, 2050, 2, 64),      # an expert stack at tile_k 2
-])
+] + [(m, n, k, tile_k, e) for m in (1, 4, 5, 8, 16, 17, 130, 700)
+     for n, k, tile_k, e in (
+         (2048, 2048, 512, 1),     # Llama wq, wo
+         (2048, 8192, 512, 1),     # w_down: 16 tiles
+         (2048, 2816, 256, 1),     # DeepSeek shared experts' down
+         (2048, 1408, 128, 64),    # expert stack down
+         (256, 704, 64, 1),        # 11 tiles of 64
+         (2048, 10944, 32, 1),     # the tiled first w_down's tiles (G = 2)
+         (2048, 10944, 16, 1),     # ... at G = 4
+         (128, 136, 8, 1),         # 17 tiles of 8
+         (128, 132, 4, 1),         # K ≡ 4 mod 8
+         (64, 2 * 17 * 32, 32, 3))]) # an odd tile count, three experts
 @pytest.mark.parametrize("sms", [132, 114])      # H100 SXM, H100 PCIe
 def test_launch_plan(m, n, k, tile_k, e, sms):
     """The fused kernels' launch plan: every K tile in exactly one split,
     the grid's z extent, a tensor-core span that fits a block's shared
     memory (and covers its split when a block walks several bands), and
-    fewer decodes of each tile than 128-row bands of M.  At M ≤ 4 (tile_k
-    ≥ 4) the decode kernel: one split, every tile in one block, a power of
-    two of warps (or all the K tiles, at most 16) that keeps the grid's
-    warps within one wave of the card, a grid of one block per row group
-    within the x extent and shared memory within what a block may take."""
+    fewer decodes of each tile than 128-row bands of M; below tile_k 64,
+    splits of whole 64-column steps.  At M ≤ 16 (tile_k ≥ 4) the decode
+    kernel: one split, every tile in one block, a power of two of warps
+    (or all the K tiles, at most 16) that keeps the grid's warps within one
+    wave of the card — the same warps and grid at every M from 1 to 16,
+    which fix the order of a row's sums — a grid of one block per row
+    group within the x extent, and shared memory within what a block may
+    take.  Above 16 rows the tensor-core kernel at every tile_k ≥ 4: the
+    SIMT kernel only at tile_k 1 and 2 (or blocks past the decode
+    kernel's limits)."""
     slots = min(min(n & -n, 128) * tile_k, 4096) // 4   # the packer's
     plan = fdm.launch_plan(m, n, k, tile_k, e, sms, slots)
     nkt = k // tile_k
@@ -473,12 +508,17 @@ def test_launch_plan(m, n, k, tile_k, e, sms):
         assert plan.span * tile_k <= fdm.SPAN_COLS
         if plan.bands_per_block > 1:
             assert plan.tiles_per_split <= plan.span
+        # splits, and spans within a split, start on whole 64-column steps
+        if plan.splits > 1:
+            assert plan.tiles_per_split * tile_k % fdm.MMA_STEP_K == 0
+        if plan.tiles_per_split > plan.span:
+            assert plan.span * tile_k % fdm.MMA_STEP_K == 0
         if m > 128:             # decodes of each tile in one launch
             assert -(-bands // plan.bands_per_block) < bands
     else:
         assert plan.bands_per_block == 1
     grid = fdm.launch_grid(plan, m, n, tile_k, slots, e)
-    if m <= fdm.DECODE_M and tile_k >= 4:
+    if m <= fdm.DECODE_MAX_M and tile_k >= 4:
         assert plan.kernel == "decode" and grid["kernel"] == "decode"
         assert plan.splits == 1 and plan.tiles_per_split == nkt
         groups = grid["grid"][0]          # one block per row group
@@ -487,15 +527,25 @@ def test_launch_plan(m, n, k, tile_k, e, sms):
         assert plan.warps == min(1 << (fit.bit_length() - 1), nkt,
                                  fdm.DECODE_MAX_WARPS)
         assert groups == e * n * tile_k // (4 * slots)
-        assert grid["threads"] == 32 * plan.warps <= 512
+        # the warps and the grid are those of M = 1: no function of M
+        one = fdm.launch_plan(1, n, k, tile_k, e, sms, slots)
+        assert plan.warps == one.warps and grid["grid"] == fdm.launch_grid(
+            one, 1, n, tile_k, slots, e)["grid"]
+        assert grid["threads"] == 32 * (plan.warps if m <= fdm.DECODE_M
+                                        else min(plan.warps,
+                                                 fdm.DECODE_ROW_WARPS))
+        assert grid["threads"] <= 512
         assert 0 < grid["grid"][0] <= fdm.MAX_GRID_X
-        assert grid["smem_bytes"] == fdm.decode_smem_bytes(tile_k, slots,
-                                                            plan.warps)
+        assert grid["smem_bytes"] == fdm.decode_smem_bytes(
+            tile_k, slots, plan.warps, m)
         assert grid["smem_bytes"] <= fdm.MMA_SMEM_MAX
     else:
+        assert plan.kernel == ("mma" if tile_k >= 4 and m > fdm.DECODE_MAX_M
+                               else "simt")
         assert plan.kernel == ("mma" if plan.bm == fdm.MMA_BM else "simt")
         assert grid["grid"][2] == e * plan.splits <= fdm.MAX_GRID_Z
-    assert fdm.launch_plan(m, n, k, tile_k, e, sms, 2048).kernel != "decode"
+    assert fdm.launch_plan(m, n, k, tile_k, e, sms, 2048).kernel == (
+        "mma" if m > fdm.DECODE_MAX_M and tile_k >= 4 else "simt")
 
 
 @pytest.mark.parametrize("shape", [(128, 130), (256, 6), (1408, 2050),
@@ -508,8 +558,18 @@ def test_small_tile_k_is_in_the_kernels_range(shape):
     assert tile_k in (1, 2)
     fdm.check_tiles(fdm.NAME, shape, tile_n, tile_k)
     assert fdm.launch_plan(4, *shape, tile_k, 1, 132).bm == 4
-    # tile_k 1 and 2 stay on the SIMT kernel at decode M
-    assert fdm.launch_plan(4, *shape, tile_k, 1, 132).kernel == "simt"
+    # tile_k 1 and 2 stay on the SIMT kernel at every M: the only shapes
+    # it still serves; every other tile_k takes the decode kernel (M ≤ 16)
+    # or the tensor-core kernel
+    for m in (1, 4, 5, 8, 16, 17, 130, 700):
+        plan = fdm.launch_plan(m, *shape, tile_k, 1, 132)
+        assert plan.kernel == "simt" and plan.bm == (4 if m <= 4 else 16)
+    for tk in (4, 8, 16, 32, 64, 128, 256, 512):
+        for m in (1, 4, 5, 8, 16, 17, 130, 700):
+            assert fdm.launch_plan(m, 128, 4096, tk, 1, 132,
+                                   min(32 * tk, 512)
+                                   ).kernel == ("decode" if m <= 16
+                                                else "mma")
     for bad in (3, 1024):
         with pytest.raises(ValueError, match="range"):
             fdm.check_tiles(fdm.NAME, (128, 3 * 1024), 128, bad)
@@ -780,8 +840,11 @@ def _tile_block(j, kt, nnt, nkt_g, bpt):
 
 def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
                              tile_n, tile_k):
-    """The work split of the card's decode-batch kernel (M ≤ 4), emulated in
-    f32 torch: one block per row group (block position bb of tile row j)
+    """The work split of the card's decode-batch kernel, emulated in f32
+    torch.  Above 4 rows (at most 16) the kernel runs each group of 4
+    rows with the M ≤ 4 arithmetic at the same warps, so the rows are
+    those groups' outputs one after another.  At M ≤ 4: one block per row
+    group of the weight (block position bb of tile row j)
     over all of K; warp w takes K tiles w, w + W, ...; each step of 256
     slots gives lane L slots 8L .. 8L + 7, whose escape ranks are the
     step's base (escapes of the earlier steps), the escapes of the lanes
@@ -796,6 +859,15 @@ def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
     :func:`_tile_block`."""
     n, k = shape
     m = x.shape[0]
+    if m > 4:
+        # four row groups at most, each the M ≤ 4 work at the same warps
+        plan = fdm.launch_plan(m, n, k, tile_k, 1, 132, codes.shape[-1])
+        assert plan.kernel == "decode" and m <= fdm.DECODE_MAX_M
+        assert plan.warps == fdm.launch_plan(1, n, k, tile_k, 1, 132,
+                                             codes.shape[-1]).warps
+        return torch.cat([_decode_kernel_emulation(
+            x[r:r + 4], codes, literals, lut, scale, zero, shape=shape,
+            tile_n=tile_n, tile_k=tile_k) for r in range(0, m, 4)])
     n_groups = codes.shape[0] if codes.ndim == 3 else 1
     codes = codes.reshape(-1, codes.shape[-1])
     literals = literals.reshape((-1,) + tuple(literals.shape[-2:]))
@@ -877,6 +949,96 @@ def _decode_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
     return y
 
 
+def _mma_kernel_emulation(x, codes, literals, lut, scale, zero, *, shape,
+                          tile_n, tile_k):
+    """The K steps of the card's tensor-core kernel (M > 16), emulated in
+    f32 torch, as the plan cuts them: K split into ``tiles_per_split``
+    tiles a split (below tile_k 64 whole 64-column steps, but for the last
+    split); each split decoded ``span`` tiles at a time, the tiles side by
+    side; a span's product in 64-column steps of four 16-column mma
+    (x rows × the span's weight rows), the last step of a span that ends
+    inside a step padded with q = 0 and x = 0 (copied from no source);
+    Σx over the same steps; the splits' sums added in split order, then
+    the affine epilogue."""
+    n, k = shape
+    m = x.shape[0]
+    nb, slots = codes.shape[-2:]
+    cap = literals.shape[-2]
+    plan = fdm.launch_plan(m, n, k, tile_k, 1, 132, slots)
+    assert plan.kernel == "mma" and plan.bm == fdm.MMA_BM
+    nkt = k // tile_k
+    if plan.splits > 1:
+        assert plan.tiles_per_split * tile_k % fdm.MMA_STEP_K == 0
+    # the decoded weight, tile (j, kt) at rows j·tile_n, columns kt·tile_k
+    nnt = n // tile_n
+    bpt = nb // (nnt * nkt)
+    q = decode_blocked(codes.reshape(-1, slots),
+                       literals.reshape(-1, cap, 4), lut).float()
+    w = q.reshape(nnt, nkt, tile_n, tile_k).permute(0, 2, 1, 3).reshape(
+        n, k)
+    xb = x.to(torch.bfloat16).float()
+    accs, sxs = [], []
+    for s in range(plan.splits):
+        kt0 = s * plan.tiles_per_split
+        kt1 = min(kt0 + plan.tiles_per_split, nkt)
+        acc, sx = torch.zeros((m, n)), torch.zeros(m)
+        for c0 in range(kt0, kt1, plan.span):
+            c1 = min(c0 + plan.span, kt1)
+            vc = (c1 - c0) * tile_k
+            steps = -(-vc // fdm.MMA_STEP_K)
+            qs = torch.zeros((n, steps * 64))
+            qs[:, :vc] = w[:, c0 * tile_k:c0 * tile_k + vc]
+            xs = torch.zeros((m, steps * 64))
+            xs[:, :vc] = xb[:, c0 * tile_k:c0 * tile_k + vc]
+            for st in range(steps):
+                for u in range(4):
+                    cols = slice(64 * st + 16 * u, 64 * st + 16 * u + 16)
+                    acc = acc + xs[:, cols] @ qs[:, cols].T
+                sx = sx + xs[:, 64 * st:64 * st + 64].sum(dim=1)
+        accs.append(acc)
+        sxs.append(sx)
+    acc, sx = accs[0], sxs[0]
+    if plan.splits > 1:      # splitk_epilogue: from 0, in split order
+        acc, sx = torch.zeros((m, n)), torch.zeros(m)
+        for a, b in zip(accs, sxs):
+            acc, sx = acc + a, sx + b
+    return scale.reshape(1, -1) * (acc - sx[:, None] * zero.reshape(1, -1))
+
+
+@pytest.mark.parametrize("shape,m", [
+    ((128, 11 * 32), 40),      # tile_k 32, 11 tiles: one span, split
+    ((128, 11 * 32), 130),     # two bands: a split is one span
+    ((256, 13 * 16), 17),      # tile_k 16, 13 tiles
+    ((128, 43 * 16), 300),     # 43 tiles of 16: two spans, the last short
+    ((128, 17 * 8), 129),      # tile_k 8, 17 tiles
+    ((128, 33 * 4), 129),      # tile_k 4, K ≡ 4 mod 8
+])
+@pytest.mark.parametrize("kind", ["int", "bf16"])
+def test_mma_kernel_decomposition_below_tile_k_64(shape, m, kind):
+    """K1's tensor-core kernel at tile_k < 64 (``_mma_kernel_emulation``:
+    tiles side by side in 64-column steps, a span that ends inside a step
+    padded with zeros) is bitwise equal to the plain version and to the
+    reference's oracle on integer-valued x, within assert_close_scaled on
+    bf16 x — at odd tile counts."""
+    pl, lut, t = _packed(shape, 8)
+    assert pl.tile_k < 64 and (shape[1] // pl.tile_k) % 2 == 1
+    x = torch.from_numpy(_x(np.random.default_rng(8), m, shape[1],
+                            kind).copy())
+    kw = dict(shape=shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
+    args = (t["codes"], t["literals"], t["lut"], t["scale"], t["zero"])
+    got = _mma_kernel_emulation(x, *args, **kw).numpy()
+    plain = fused_decode_matmul_plain(x, *args, **kw).numpy()
+    ref = np.asarray(jref.fused_decode_matmul(
+        jnp.asarray(x.numpy()), pl.codes, pl.literals, pl.nlit,
+        jnp.asarray(lut), pl.scale, pl.zero, **kw))
+    if kind == "int":
+        np.testing.assert_array_equal(got, plain)
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert_close_scaled(got, plain)
+        assert_close_scaled(got, ref)
+
+
 def _packed_escapes(shape, seed, escapes):
     """Planes of a seeded weight where every gram escapes (a table of
     grams the weight lacks) or none does (a two-level weight, every gram
@@ -917,12 +1079,21 @@ def _packed_escapes(shape, seed, escapes):
     ((128, 2048), 4, 4096, "all"),      # every gram escapes
     ((128, 2048), 4, 4096, "none"),     # no gram escapes
     ((64, 17 * 64), 4, 4096, "all"),    # 17 tiles: warps take two each
+    # 5–16 rows: four row groups at most
+    ((128, 2048), 16, 4096, "mixed"),   # tile_k 512
+    ((256, 640), 5, 4096, "mixed"),     # tile_k 128, 5 tiles
+    ((96, 160), 8, 1024, "mixed"),      # tile_k 32
+    ((32, 48), 13, 256, "mixed"),       # tile_k 16: narrow
+    ((24, 36), 16, 4096, "mixed"),      # tile_k 4
+    ((64, 17 * 64), 9, 4096, "all"),    # 17 tiles, every gram escapes
 ])
 @pytest.mark.parametrize("kind", ["int", "bf16"])
 def test_decode_kernel_decomposition(shape, m, bw, escapes, kind):
     """The decode-batch kernel's work split (``_decode_kernel_emulation``)
     is bitwise equal to the plain version and to the reference's oracle on
-    integer-valued x, and within assert_close_scaled on bf16 x."""
+    integer-valued x, and within assert_close_scaled on bf16 x; above 4
+    rows, each row on bf16 x is bitwise the emulation of that row alone
+    (M = 1)."""
     if escapes == "mixed":
         pl, lut, t = _packed(shape, 5, bw)
     else:
@@ -949,6 +1120,11 @@ def test_decode_kernel_decomposition(shape, m, bw, escapes, kind):
     else:
         assert_close_scaled(got, plain)
         assert_close_scaled(got, ref)
+        if m > 4:
+            for i in range(m):
+                np.testing.assert_array_equal(got[i:i + 1], (
+                    _decode_kernel_emulation(x[i:i + 1], *args, **kw)
+                    .numpy()))
 
 
 @pytest.mark.parametrize("e,n,k,m", [(3, 128, 1408, 4), (5, 64, 256, 3)])

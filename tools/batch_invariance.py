@@ -1,6 +1,6 @@
 """Whether a decode row on the card depends on the rows beside it.
 
-    python3 tools/batch_invariance.py [--plain-mean]
+    python3 tools/batch_invariance.py [--batch N] [--plain-mean] [--unpadded]
 
 The engine (``serve.scheduler.Engine``) serves each request bitwise equal
 to ``generate`` of its prompt alone only if every op of a decode step
@@ -10,18 +10,20 @@ compressed mode on the CUDA card) and one seeded 32-token prompt, this
 tool:
 
   * runs STEPS (180) greedy decode steps twice in lockstep, the row alone
-    and the same row in a batch of 2 (the second row idle at position 0,
-    as an empty slot), and at the first step whose logits differ names
-    the first ops (``models.layers`` functions) whose outputs differ for
-    the row, with whether their inputs were equal;
-  * serves the prompt through an ``Engine`` of 1, 2 and 4 slots (232
-    tokens, pages of 8) for STEPS tokens and gives the index of the
+    and the same row in a batch of ``--batch`` rows (default 2; the other
+    rows idle at position 0, as empty slots), and at the first step whose
+    logits differ names the first ops (``models.layers`` functions) whose
+    outputs differ for the row, with whether their inputs were equal;
+  * serves the prompt through an ``Engine`` of 1, 2, 4, 8 and 16 slots
+    (232 tokens, pages of 8) for STEPS tokens and gives the index of the
     first token that differs from ``generate``'s (null: none).
 
 ``--plain-mean`` first puts back a plain ``torch.mean`` in ``rms_norm``
 (the port before its norm summed a row in a layout fixed for any number
-of rows), to show what that layout repairs.  Prints the card's name and
-power limit, then one JSON line.
+of rows), to show what that layout repairs; ``--unpadded`` runs the
+decode attention's einsums at the batch's own rows (``layers.ROW_PAD`` =
+1; the port before it padded them to 16 rows).  Prints the card's name
+and power limit, then one JSON line.
 """
 import argparse
 import json
@@ -45,6 +47,8 @@ from repro_torch.serve.context import ServeContext  # noqa: E402
 from repro_torch.serve.scheduler import Engine, Request  # noqa: E402
 
 PROMPT, MAX_LEN, PAGE, STEPS = 32, 232, 8, 180
+SLOTS = (1, 2, 4, 8, 16)
+BATCH = [2]           # the lockstep batch (--batch)
 TRACED = ("embed", "rope_tables", "rms_norm", "linear", "apply_rope",
           "_kv_write", "_attend_cached", "_silu_mul")
 
@@ -63,7 +67,8 @@ def trace_ops(record):
             out = fn(*args, **kw)
             if record[0] is not None:
                 def row0(t):
-                    t = t[0] if t.ndim and t.shape[0] in (1, 2) else t
+                    t = t[0] if t.ndim and t.shape[0] in (1, BATCH[0]) \
+                        else t
                     return t.detach().float().clone()
                 first = out[0] if isinstance(out, tuple) else out
                 record[0].append((name, [row0(a) for a in args
@@ -76,14 +81,15 @@ def trace_ops(record):
 
 
 def lockstep(cfg, st, prompt, steps, dev):
-    """The row alone and in a batch of 2, step by step on the alone run's
-    greedy tokens.  → the first step whose logits differ and the first
-    ops whose outputs differ there."""
+    """The row alone and in a batch of BATCH rows, step by step on the
+    alone run's greedy tokens.  → the first step whose logits differ and
+    the first ops whose outputs differ there."""
     record = [None]
     trace_ops(record)
     prefill, step = E.make_serve_fns(cfg, device=dev)
+    n = BATCH[0]
     one = LM.init_caches(cfg, 1, MAX_LEN, device=dev)
-    two = LM.init_caches(cfg, 2, MAX_LEN, device=dev)
+    two = LM.init_caches(cfg, n, MAX_LEN, device=dev)
     logits, _ = prefill(st.params, st.lut, {"tokens": prompt[None]}, one)
     for a, b in zip(E._tensors(two), E._tensors(one)):
         a[:1].copy_(b)
@@ -94,9 +100,9 @@ def lockstep(cfg, st, prompt, steps, dev):
         l1, _ = step(st.params, st.lut, torch.tensor([[tok]], device=dev),
                      one, torch.tensor([pos], device=dev))
         ops1, record[0] = record[0], []
-        l2, _ = step(st.params, st.lut, torch.tensor([[tok], [0]],
-                                                     device=dev),
-                     two, torch.tensor([pos, 0], device=dev))
+        l2, _ = step(st.params, st.lut,
+                     torch.tensor([[tok]] + [[0]] * (n - 1), device=dev),
+                     two, torch.tensor([pos] + [0] * (n - 1), device=dev))
         ops2, record[0] = record[0], None
         if not torch.equal(l1[0], l2[0]):
             ops = []
@@ -114,8 +120,11 @@ def lockstep(cfg, st, prompt, steps, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--plain-mean", action="store_true")
+    ap.add_argument("--unpadded", action="store_true")
     args = ap.parse_args()
+    BATCH[0] = args.batch
     if not torch.cuda.is_available():
         print("batch_invariance: no CUDA device", file=sys.stderr)
         return 2
@@ -125,6 +134,8 @@ def main():
     if args.plain_mean:
         L._mean_square = lambda xf: torch.mean(xf * xf, dim=-1,
                                                keepdim=True)
+    if args.unpadded:
+        L.ROW_PAD = 1
     _build.build()
     dev = torch.device("cuda", 0)
     cfg = get_config("llama3.2-1b").full
@@ -138,7 +149,7 @@ def main():
                       max_new=STEPS, max_len=MAX_LEN,
                       device=dev)[0, PROMPT:].cpu().numpy()
     engine = {}
-    for n in (1, 2, 4):
+    for n in SLOTS:
         eng = Engine(ServeContext(cfg, lut=st.lut, device=dev), st.params,
                      n_slots=n, max_len=MAX_LEN, page_size=PAGE)
         eng.submit(Request(tokens=prompt, max_new=STEPS))
@@ -147,8 +158,8 @@ def main():
         engine[f"{n}_slots_first_diff"] = first_diff(
             eng.completions[0].tokens[PROMPT:], want)
     out = {"model": cfg.name, "steps": STEPS,
-           "plain_mean": args.plain_mean,
-           "batch_of_2": lockstep(cfg, st, ids, STEPS, dev),
+           "plain_mean": args.plain_mean, "unpadded": args.unpadded,
+           f"batch_of_{args.batch}": lockstep(cfg, st, ids, STEPS, dev),
            "engine_vs_generate": engine}
     print(json.dumps(out))
     return 0

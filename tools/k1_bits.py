@@ -6,16 +6,19 @@ holding a kernel change to "unchanged bit for bit".
 Imports the port from ``--src`` (default: this checkout's ``src``),
 builds its fused decode-matmul kernel on the CUDA card, and runs K1 on
 untiled planes (G = 1) and K3 on expert stacks (``CASES``: the decode
-kernel at M ≤ 4, the SIMT kernel, the tensor-core kernel) on weights and
+kernel at M ≤ 4 and at 5–16 rows, the tensor-core kernel) on weights and
 x drawn with numpy from one seed, so that two trees see the same inputs,
 and K2 (its flash-attention kernels) at the main paths' prefill shapes
 (``FLASH_CASES``: the tensor-core kernel on bf16, the SIMT kernel on f32
 q), and K5 (``dequant_matmul``) at M = 1–4 on both paths' int8 LM heads
 (``K5_CASES``: its decode kernel), quantized from numpy draws.
 Prints one JSON line: the CRC32 of each case's output bytes, the card's
-name and SM count.  ``--check`` compares them with ``EXPECTED`` (taken
-from an earlier tree on an H100 of 132 SMs; the plan, and so the order
-of the sums, depends on the SM count) and exits 1 on a difference.
+name and SM count, and for the cases above 4 rows whether every row is
+bitwise that row alone (M = 1: what a decode-kernel case above 4 rows
+must give).  ``--check`` compares the CRCs with ``EXPECTED`` (taken from
+an earlier tree on an H100 of 132 SMs; the plan, and so the order of the
+sums, depends on the SM count) and exits 1 on a difference or on a row
+that differs from itself alone.
 
 Only functions of the port that every tree since K3 has are used:
 ``fused_decode_matmul`` and ``grouped_fused_decode_matmul`` on 2-D and
@@ -41,10 +44,12 @@ CASES = (
     ("k1_decode", 0, 2048, 2048, 4, "rand"),
     ("k1_decode_int", 0, 2048, 2048, 4, "int"),
     ("k1_decode_t128", 0, 2048, 1408, 3, "rand"),
-    ("k1_simt", 0, 512, 2048, 9, "rand"),
+    ("k1_decode_m9", 0, 512, 2048, 9, "rand"),
     ("k1_mma", 0, 1024, 2048, 300, "rand"),
     ("k1_mma_int", 0, 1024, 2048, 300, "int"),
     ("k3_decode", 8, 1408, 2048, 4, "rand"),
+    ("k3_decode_c8", 8, 1408, 2048, 8, "rand"),
+    ("k3_decode_c16", 8, 2048, 1408, 16, "rand"),
     ("k3_mma", 8, 2048, 1408, 130, "rand"),
 )
 
@@ -64,10 +69,14 @@ K5_CASES = tuple((f"k5_decode_{arch}_m{m}", n, 2048, m)
 
 # CRC32 of each case's output on an H100 80GB HBM3 (132 SMs), from the
 # tree before K1's column groups and K2's smoke head dims (and the same
-# from the tree with them); the key is the SM count the plans were made for
+# from the tree with them); the key is the SM count the plans were made for.
+# The cases above 4 rows (k1_decode_m9, k3_decode_c8 / c16) are from the
+# tree that gave the decode kernel 16 rows, their rows each bitwise equal
+# to the row alone; before it M = 9 ran the SIMT kernel (CRC 846810400).
 EXPECTED: dict = {132: {
     "k1_decode": 2086993932, "k1_decode_int": 1476962406,
-    "k1_decode_t128": 911195632, "k1_simt": 846810400,
+    "k1_decode_t128": 911195632, "k1_decode_m9": 3968490457,
+    "k3_decode_c8": 674148794, "k3_decode_c16": 3269957869,
     "k1_mma": 34615304, "k1_mma_int": 942546493,
     "k3_decode": 360643931, "k3_mma": 3723757787,
     "k2_mma_64": 3481377767, "k2_mma_192": 505407163,
@@ -81,8 +90,10 @@ EXPECTED: dict = {132: {
     "k5_decode_deepseek_m4": 1565512306}}
 
 
-def case_outputs(device) -> dict:
-    """{case: CRC32 of the output bytes} for ``CASES`` on ``device``."""
+def case_outputs(device, rows_alone=None) -> dict:
+    """{case: CRC32 of the output bytes} for ``CASES`` on ``device``; for
+    the K1/K3 cases above 4 rows, ``rows_alone[case]`` is whether each row
+    of the output is bitwise that row computed alone (M = 1)."""
     from repro_torch.core.compressed import pack_expert_stack
     from repro_torch.kernels import fused_decode_matmul as fdm
     out = {}
@@ -100,13 +111,21 @@ def case_outputs(device) -> dict:
         x = torch.from_numpy(x).to(device).to(torch.bfloat16)
         kw = dict(shape=tuple(pl.shape), tile_n=pl.tile_n, tile_k=pl.tile_k,
                   out_dtype=torch.float32)
-        if e == 0:
-            y = fdm.fused_decode_matmul(x[0], pl.codes[0], pl.literals[0],
-                                        lut, pl.scale[0], pl.zero[0], **kw)
-        else:
-            y = fdm.grouped_fused_decode_matmul(x, pl.codes, pl.literals,
-                                                lut, pl.scale, pl.zero, **kw)
-        out[name] = zlib.crc32(y.contiguous().cpu().numpy().tobytes())
+        def run(xs):
+            if e == 0:
+                return fdm.fused_decode_matmul(
+                    xs[0], pl.codes[0], pl.literals[0], lut, pl.scale[0],
+                    pl.zero[0], **kw)[None]
+            return fdm.grouped_fused_decode_matmul(
+                xs, pl.codes, pl.literals, lut, pl.scale, pl.zero, **kw)
+
+        y = run(x)
+        out[name] = zlib.crc32(y[0 if e == 0 else slice(None)].contiguous()
+                               .cpu().numpy().tobytes())
+        if rows_alone is not None and 4 < m <= 16:
+            rows_alone[name] = all(torch.equal(y[:, i:i + 1],
+                                               run(x[:, i:i + 1]))
+                                   for i in range(m))
     from repro_torch.kernels import flash_attention as fa
     for name, b, hq, hkv, t, d, dv, qdt in FLASH_CASES:
         rng = np.random.default_rng([SEED, b, hq, t, d, dv])
@@ -152,9 +171,11 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    crcs = case_outputs(device)
+    rows_alone = {}
+    crcs = case_outputs(device, rows_alone)
     print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
-                      "sms": sms, "crc32": crcs}), flush=True)
+                      "sms": sms, "crc32": crcs,
+                      "rows_equal_alone": rows_alone}), flush=True)
     if args.check:
         want = EXPECTED.get(sms)
         if want is None:
@@ -165,6 +186,11 @@ def main() -> int:
                if want.get(k) != v}
         if bad:
             print(f"k1_bits: bits changed: {bad}", file=sys.stderr)
+            return 1
+        apart = [k for k, same in rows_alone.items() if not same]
+        if apart:
+            print(f"k1_bits: rows differ from themselves alone: {apart}",
+                  file=sys.stderr)
             return 1
     return 0
 

@@ -1,7 +1,7 @@
 """Where the time of the port's main paths goes on the card.
 
     python3 tools/profile_decode.py
-        [--model llama|deepseek|both|engine|k1|k2|k4|k5] [--src DIR]
+        [--model llama|deepseek|both|engine|rows|k1|k2|k4|k5] [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
@@ -34,19 +34,32 @@ graph, the next-token read, the host's retire), then a step that admits
 one request (its batch-1 prefill into the fragment, the insert into its
 pages, and a tick).
 
+``--model rows`` times ``generate``'s graphed decode on Llama-3.2-1B (all
+16 layers) at batch 4, 8 and 16 (chip_smoke.py's prompts, 32 new tokens):
+a warm-up prefill and decode (the step's capture), then the prefill and
+the replayed decode phase timed three times (medians), and the launches
+of one replayed step by kernel.  With ``--src`` A B B A, it shows what a
+batch above 4 costs a step on each tree.
+
 ``--model k1`` times the fused decode-matmul kernels alone, at M = 4
-(decode) and M = 700 (prefill): K1 (``fused_decode_matmul``) on
-Llama-3.2-1B's seven projection shapes, as chip_smoke.py does (CUDA-graph
-replays walking the 16 layers' planes), and on DeepSeek-V2-Lite's first
-down projection (2048 × 10944, tile_k 64; the L2 flushed before each
-call); K3 (``grouped_fused_decode_matmul``) on DeepSeek-shaped expert
-stacks, gate/up (64 × 1408 × 2048) and down (64 × 2048 × 1408), at cap 4
+(decode), 5, 8 and 16 (an engine tick or a batch of 5–16 rows) and 700
+(prefill): K1 (``fused_decode_matmul``) on Llama-3.2-1B's seven
+projection shapes, as chip_smoke.py does (CUDA-graph replays walking the
+16 layers' planes; ``layer_ms`` sums a layer's seven at each M), and on
+DeepSeek-V2-Lite's first down projection (2048 × 10944, tile_k 64, at M =
+4 and 700; and as the tiled state packs it, two column groups at tile_k
+32, at M = 700; the L2 flushed before each call); K3
+(``grouped_fused_decode_matmul``) on DeepSeek-shaped expert stacks,
+gate/up (64 × 1408 × 2048) and down (64 × 2048 × 1408), at cap 4, 8, 16
 and 83.  The DeepSeek shapes are packed from seeded random weights of
 those shapes alone.  Each row has the kernel the plan picks, its bytes or
 operations bound and the time of one PyTorch call on the materialized
 bf16 weights (``torch.matmul``; ``torch.bmm`` for a stack), timed the same
-way.  Prints the registers and spills ptxas reports for each kernel of
-the source, and one JSON line.
+way; where ``K1_VARIANT_AT`` names the projection and M, the 16-row decode
+kernel's design variants (``K1_VARIANTS``, built from the source with one
+line replaced), bitwise-checked against it and timed beside it.  Prints
+the registers and spills ptxas reports for each kernel of the source, and
+one JSON line.
 
 ``--model k2`` times K2 (``flash_attention``) alone with CUDA-graph
 replays, as chip_smoke.py does, at both paths' prefill shapes: Llama's
@@ -112,6 +125,17 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parents[1]
 BATCH, DECODE_STEPS, SEED = 4, 8, 0
+K1_M = (BATCH, 5, 8, 16, 700)     # --model k1: the M of Llama's projections
+# The decode kernel's design choices at 5–16 rows: variants of
+# csrc/fused_decode_matmul.cu with one line replaced, timed beside the
+# source where ``K1_VARIANT_AT`` names the projection and M (the bits must
+# not move: each row's arithmetic is the same).
+K1_VARIANTS = {
+    "4 warps a block": {"constexpr int kDecRowWarps = 8;":
+                        "constexpr int kDecRowWarps = 4;"},
+}
+K1_VARIANT_AT = {("wq", 16), ("w_gate", 8), ("w_gate", 16), ("w_down", 16),
+                 ("experts.w_gate", 16), ("experts.w_down", 16)}
 MODELS = {"llama": ("llama3.2-1b", None),
           "deepseek": ("deepseek-v2-lite-16b", 8)}    # (arch, layers)
 
@@ -281,10 +305,29 @@ def print_ptxas(name: str) -> list:
     return rows
 
 
+def k1_call(fdm, x, w, lut, e, fn=None):
+    """K1 (e = 0: one weight's planes, x (M, K)) or K3 (a stack of e
+    experts, x (E, M, K)) through ``fn``, a variant build's C entry, or
+    the source's."""
+    kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k,
+              out_dtype=torch.bfloat16, fn=fn)
+    if e == 0:
+        return fdm._launch(fdm.NAME, x[None], w.codes.reshape(
+            1, -1, w.codes.shape[-1]), w.literals.reshape(
+            (1, -1) + tuple(w.literals.shape[-2:])), lut, w.scale, w.zero,
+            **kw)[0]
+    return fdm._launch(fdm.GROUPED_NAME, x, w.codes, w.literals, lut,
+                       w.scale, w.zero, **kw)
+
+
 def time_k1(dev, label, reps=20):
     from chip_smoke import Timer, bound_ms, nbytes, plane_bytes
     from repro_torch.configs import get_config
-    from repro_torch.core.compressed import pack_expert_stack
+    from repro_torch.core.blocked_codec import build_lut
+    from repro_torch.core.codec import find_frequent_sequences
+    from repro_torch.core.compressed import (pack_expert_stack,
+                                             pack_linear_tiled,
+                                             quantize_linear)
     from repro_torch.core.policy import CompressionPolicy
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_decode_matmul as fdm
@@ -314,14 +357,40 @@ def time_k1(dev, label, reps=20):
         plan = fdm.launch_plan(m, *w.shape, w.tile_k, e, sms, slots)
         return fdm.launch_grid(plan, m, w.shape[0], w.tile_k, slots, e)
 
-    rows, layer_ms = [], 0.0
+    # (a tree from before the 16-row decode kernel has none of the lines)
+    variants = {} if not hasattr(fdm, "DECODE_MAX_M") else {
+        label: fn for label, (fn, _, _) in build_variants(
+            _build, fdm.NAME, K1_VARIANTS,
+            "qmoe_fused_decode_matmul").items()}
+    for fn in variants.values():
+        fn.argtypes = fdm._ARGTYPES
+
+    def variant_rows(proj, m, x, w, lut, e, reps_, main_ms):
+        """Each of K1_VARIANTS on the call (x, w) beside the source: its
+        time walking the same weights and whether its bits are the
+        source's."""
+        out = {}
+        for label, fn in variants.items():
+            calls = [lambda wl=wl, fn=fn: k1_call(fdm, x, wl, lut, e, fn)
+                     for wl in w]
+            same = all(torch.equal(k1_call(fdm, x, wl, lut, e, fn),
+                                   k1_call(fdm, x, wl, lut, e))
+                       for wl in w[:2])
+            out[label] = {"ms": timer.graph_ms(calls, reps=reps_),
+                          "bitwise_to_source": same}
+        row = {"proj": proj, "M": m, "source_ms": main_ms, "variants": out}
+        print(json.dumps(row), flush=True)
+        return row
+
+    variant_out = []
+    rows, layer_ms = [], {}
     for grp, name in (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
                       ("attn", "wo"), ("mlp", "w_gate"), ("mlp", "w_up"),
                       ("mlp", "w_down")):
         ws = [b[grp][name] for b in st.params["blocks"]]
         n, k = ws[0].shape
         wbs = [w.materialize(st.lut, torch.bfloat16) for w in ws]
-        for m in (BATCH, 700):
+        for m in K1_M:
             x = torch.randn((m, k), generator=gen, device=dev
                             ).to(torch.bfloat16)
             fns = [lambda w=w: fdm.fused_decode_matmul(
@@ -337,8 +406,10 @@ def time_k1(dev, label, reps=20):
                          "bound_ms": b, "bound_by": by, "library_ms": lib,
                          **plan_of(m, ws[0], 1)})
             print(json.dumps(rows[-1]), flush=True)
-            if m == BATCH:
-                layer_ms += ms
+            layer_ms[m] = layer_ms.get(m, 0.0) + ms
+            if (name, m) in K1_VARIANT_AT:
+                variant_out.append(variant_rows(name, m, x, ws, st.lut, 0,
+                                                reps, ms))
         del wbs
     del st
     torch.cuda.empty_cache()
@@ -347,18 +418,30 @@ def time_k1(dev, label, reps=20):
     # expert stack of each shape (~280 MB of planes, past the L2)
     for proj, e, n, k, m_values in (
             ("first.w_down", 1, 2048, 10944, (BATCH, 700)),
-            ("experts.w_gate", 64, 1408, 2048, (4, 83)),
-            ("experts.w_down", 64, 2048, 1408, (4, 83))):
+            ("first.w_down G=2", 1, 2048, 10944, (700,)),
+            ("experts.w_gate", 64, 1408, 2048, (4, 8, 16, 83)),
+            ("experts.w_down", 64, 2048, 1408, (4, 8, 16, 83))):
         ws = [torch.randn((n, k), generator=gen, device=dev) * 0.02
               for _ in range(e)]
-        pl, lut = pack_expert_stack(ws)
+        if proj.endswith("G=2"):
+            # the tiled state's first w_down: two column groups of 5472
+            # columns, which the packer cuts into tiles 32 wide
+            table = find_frequent_sequences([quantize_linear(ws[0]).values])
+            pl = pack_linear_tiled(ws[0], table, 2, tile="auto")
+            lut = build_lut(table, device=dev)
+            planes = (pl.codes, pl.literals)
+        else:
+            pl, lut = pack_expert_stack(ws)
+            planes = (pl.codes[0], pl.literals[0])
         del ws
         kw = dict(shape=pl.shape, tile_n=pl.tile_n, tile_k=pl.tile_k)
         wb = pl.materialize(lut, torch.bfloat16)
+        if e == 1:
+            wb = wb.reshape(1, n, k)
         for m in m_values:
             if e == 1:
-                args = (pl.codes[0], pl.literals[0], lut, pl.scale[0],
-                        pl.zero[0])
+                args = (*planes, lut, pl.scale.reshape(-1, 1),
+                        pl.zero.reshape(-1, 1))
                 x = torch.randn((m, k), generator=gen, device=dev
                                 ).to(torch.bfloat16)
                 ms = timer.graph_ms([lambda: fdm.fused_decode_matmul(
@@ -374,6 +457,9 @@ def time_k1(dev, label, reps=20):
                 wbt = wb.transpose(1, 2)
                 lib = timer.graph_ms([lambda: torch.bmm(x, wbt)] * 4,
                                      reps=reps)
+                if (proj, m) in K1_VARIANT_AT:
+                    variant_out.append(variant_rows(proj, m, x, [pl] * 4,
+                                                    lut, e, reps, ms))
             b, by = bound_ms(nbytes(x, lut) + plane_bytes(pl) + e * m * n * 2,
                              2.0 * e * m * n * k)
             rows.append({"proj": proj, "E": e, "N": n, "K": k, "M": m,
@@ -385,7 +471,8 @@ def time_k1(dev, label, reps=20):
         torch.cuda.empty_cache()
     ptxas = print_ptxas(fdm.NAME)
     print(json.dumps({"k1": label, "build_s": build_s,
-                      "layer_ms_m4": layer_ms, "rows": rows,
+                      "layer_ms": layer_ms, "rows": rows,
+                      "variants": variant_out,
                       "ptxas": ptxas}), flush=True)
 
 
@@ -549,8 +636,10 @@ def time_k5_prefill(dqm, dev, gen, timer, mma_libs):
     """K5 at prefill M on Llama-3.2-1B's projection shapes and its head
     (K5_SHAPES) through chip_smoke.check_k5, with the SIMT kernel's time
     at the same shape and inputs (a tree with ``simt_plan``), at the cut's
-    M (K5_CUT_M) on gate/up and the head too, and the tensor-core kernel's
-    design variants (``mma_libs``) at the prefill M."""
+    M (K5_CUT_M) on gate/up and the head too (there also the tensor-core
+    kernel's time, on a tree where the decode kernel's row groups take
+    those M), and the tensor-core kernel's design variants (``mma_libs``)
+    at the prefill M."""
     from chip_smoke import check_k5, int_x, rand_x, weight_graph_ms
     from repro_torch.core.compressed import quantize_linear
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -570,6 +659,10 @@ def time_k5_prefill(dqm, dev, gen, timer, mma_libs):
             plans = {}
             if hasattr(dqm, "simt_plan"):
                 plans["simt"] = (dqm.simt_plan(m, n, k, sms), None)
+            if hasattr(dqm, "mma_plan") and m in K5_CUT_M:
+                # the tensor-core kernel where the decode kernel's row
+                # groups now serve (MMA_MIN_M 17): the price of the cut
+                plans["mma"] = (dqm.mma_plan(m, n, k, sms), None)
             if m in K5_PREFILL_M and mma_libs:
                 plans.update({label: (dqm.dequant_plan(m, n, k, sms), fn)
                               for label, (fn, _) in mma_libs.items()})
@@ -766,11 +859,66 @@ def profile_engine(dev):
     eng.drain()
 
 
+ROWS_BATCHES = (4, 8, 16)
+
+
+def time_rows(dev, label):
+    """``--model rows`` (the module's docstring)."""
+    from chip_smoke import MAX_NEW, make_prompts
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import CompressionPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm as LM
+    from repro_torch.serve import engine as E
+    from repro_torch.serve.engine import build_serve_params
+    cfg = get_config("llama3.2-1b").full
+    params = LM.init_lm(cfg, seed=SEED, device=dev)
+    st = build_serve_params(params, CompressionPolicy(), device=dev)
+    del params
+    torch.cuda.empty_cache()
+    rows = []
+    for b in ROWS_BATCHES:
+        batch, _ = make_prompts(cfg.vocab_size, b)
+        ids = torch.as_tensor(batch, device=dev)
+        t_prefill = ids.shape[1]
+        graph = E.decode_graph(st.params, cfg, st.lut, b,
+                               t_prefill + MAX_NEW, device=dev)
+        graph.prefill(st.params, st.lut, ids)
+        graph.decode(st.params, st.lut, MAX_NEW - 1)     # captures
+        pre, dec = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.prefill(st.params, st.lut, ids)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            graph.decode(st.params, st.lut, MAX_NEW - 1)
+            torch.cuda.synchronize()
+            pre.append((t1 - t0) * 1e3)
+            dec.append((time.perf_counter() - t1) * 1e3 / (MAX_NEW - 1))
+        graph.prefill(st.params, st.lut, ids)
+        _build.LAUNCH_COUNTS.clear()
+        _build.KERNEL_COUNTS.clear()
+        graph.decode(st.params, st.lut, 1)              # one replay
+        torch.cuda.synchronize()
+        rows.append({"batch": b, "prompt_len": t_prefill,
+                     "prefill_ms": sorted(pre)[1],
+                     "decode_ms_per_step": sorted(dec)[1],
+                     "decode_ms_runs": dec, "capture_ms": graph.capture_ms,
+                     "step_launches": dict(_build.LAUNCH_COUNTS),
+                     "step_kernel_launches": dict(_build.KERNEL_COUNTS)})
+        print(json.dumps(rows[-1]), flush=True)
+        del graph
+        E.drop_graphs(cfg)
+        torch.cuda.empty_cache()
+    print(json.dumps({"rows": label, "rows_by_batch": rows}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model",
-                    choices=["llama", "deepseek", "both", "engine", "k1",
-                             "k2", "k4", "k5"],
+                    choices=["llama", "deepseek", "both", "engine", "rows",
+                             "k1", "k2", "k4", "k5"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -784,7 +932,7 @@ def main():
     print(f"card: {nvidia_smi_line()}", flush=True)
     dev = torch.device("cuda", 0)
     kernel_alone = {"k1": time_k1, "k2": time_k2, "k4": time_k4,
-                    "k5": time_k5}
+                    "k5": time_k5, "rows": time_rows}
     if args.model in kernel_alone:
         kernel_alone[args.model](dev, args.src)
         return 0
