@@ -45,11 +45,12 @@ each in the phases below; the script exits non-zero if any phase fails:
      length, one capture, the drain's launches, every page freed; ticks,
      tokens/s, the median tick and admission prefill, the capture, the
      pool's bytes and peak memory are printed.
-     Then the rows phase (``rows_phase``): 5–16 rows, where K1's decode
-     kernel runs four row groups and K5's decode kernel one launch a group
-     of 4 rows — ``generate`` at batch 8 and 16 with the gates above, the
-     engine phase's requests through the engine at 8 and 16 slots (each
-     completion bitwise ``generate`` alone), kernel rows at M = 5, 8, 16
+     Then the rows phase (``rows_phase``): 5–32 rows, where K1's decode
+     kernel runs four row groups (above 16 rows, a launch a group of 16)
+     and K5's decode kernel one launch a group of 4 rows — ``generate`` at
+     batch 8, 16 and 32 with the gates above, the engine phase's requests
+     through the engine at 8, 16 and 32 slots (each completion bitwise
+     ``generate`` alone), kernel rows at M = 5, 8, 16, 32 (decode rows)
      for K1 (the 7 projections) and K5 (the head), and on the DeepSeek
      path K3's stacks at capacities 5, 8, 16: each row bitwise on integer
      x and each row of the output bitwise that row alone.  K1/K3's SIMT
@@ -71,6 +72,17 @@ each in the phases below; the script exits non-zero if any phase fails:
      and resumed, bitwise equal to ``generate``; K4 and K5 at the unfused
      rung's shapes against their plain versions.  Every other phase must
      end with the dispatch lever unset and no fallback counted.
+  7. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
+     f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
+     attention forward K2's SIMT kernel under its autograd.Function); one
+     step's gradients against the all-plain attention's; GPTQ on layer 0
+     (below naive per-channel); the trained model packed compressed and
+     served through ``serve``'s gates, with its escape share.
+     DeepSeek-V2-Lite at full width cut to 2 layers (a depth cut: the MoE
+     backward, the aux loss, MLA through K2 at (192, 128)); then the
+     training launcher on its smoke default, stopped by SIGINT and resumed
+     (losses bitwise the uninterrupted run's).  K2 f32 rows at both
+     training shapes.
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
@@ -105,6 +117,7 @@ ENGINE_REQUESTS, ENGINE_NEW_MIN, ENGINE_NEW_MAX = 8, 8, 32
 DS_CHECK_STEPS = 4       # greedy steps compared card against CPU
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak, same source
+F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores, same source
 # Tolerances, each with its reason:
 #  * K1/K5 on random bf16 x, f32 output: the kernel and the plain version
 #    sum the same exact products in another order; f32 roundoff over
@@ -231,9 +244,11 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
+    """The larger of the bytes over HBM's rate and the operations over
+    ``peak`` (bf16 tensor cores; F32_FLOP_PER_S for f32 work)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -256,6 +271,13 @@ class SimtWatch(collections.Counter):
         if key.endswith(":simt") and "fused_decode_matmul" in key:
             self.simt[self.phase] += value - self.get(key, 0)
         super().__setitem__(key, value)
+
+
+def matmul_kernels(kernel_launches: dict) -> dict:
+    """A run's ``_build.KERNEL_COUNTS`` without K2's (``flash_attention:
+    mma|simt``): the matmul wrappers' launches, which the gates hold."""
+    return {k: v for k, v in kernel_launches.items()
+            if not k.startswith("flash_attention:")}
 
 
 def by_kernel(kernel_launches: dict, name: str) -> dict:
@@ -295,14 +317,20 @@ def make_prompts(vocab: int, n_prompts: int = BATCH):
 L2_BYTES = 50 << 20      # H100 SXM L2
 
 
-def launch_info(fdm, m, w, e):
+def launch_info(fdm, m, w, e, decode=False):
     """The kernel ``fdm.launch_plan`` picks for a call at M = ``m`` on the
-    planes of ``w`` (E = ``e`` weights) and its grid and block size."""
+    planes of ``w`` (E = ``e`` weights; ``decode``: a decode step's rows)
+    and its grid and block size (above 16 decode rows: of one launch of
+    ``row_groups``)."""
     slots = w.codes.shape[-1]
     plan = fdm.launch_plan(m, *w.shape, w.tile_k, e,
                            torch.cuda.get_device_properties(0)
-                           .multi_processor_count, slots)
-    return fdm.launch_grid(plan, m, w.shape[0], w.tile_k, slots, e)
+                           .multi_processor_count, slots, decode)
+    rows = min(m, fdm.DECODE_MAX_M) if plan.row_groups > 1 else m
+    out = fdm.launch_grid(plan, rows, w.shape[0], w.tile_k, slots, e)
+    if plan.row_groups > 1:
+        out["row_groups"] = plan.row_groups
+    return out
 
 
 def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
@@ -431,47 +459,49 @@ def check_small_tiles(rt, device, gen):
     return rows
 
 
-def dequant_launch(dqm, m, n, k):
+def dequant_launch(dqm, m, n, k, decode=False):
     """The kernel ``dqm.dequant_plan`` picks for K5 at (m, n, k), with its
     grid (a tree from before the plan: the SIMT kernel)."""
     if not hasattr(dqm, "dequant_plan"):
         return {"kernel": "simt"}
     plan = dqm.dequant_plan(m, n, k, torch.cuda.get_device_properties(0)
-                            .multi_processor_count)
+                            .multi_processor_count, decode)
     return {f: v for f, v in plan._asdict().items() if v or f == "kernel"}
 
 
-def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True):
+def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True,
+             decode=False):
     """K5 at M = ``m`` on the uint8 weight ``wq`` (N, K) with its scale and
     zero (``wb``: the same weight dequantized to bf16, for the library
     call): bitwise equal to the plain version on integer x, within
     MATMUL_RTOL on random x, two calls with the same bits.  Timed as
     CUDA-graph replays, with the L2 wiped before each call where the
     weight fits it; the plain version by single calls (``plain``), and
-    ``torch.matmul`` on ``wb`` the same way as the kernel.  → the row."""
+    ``torch.matmul`` on ``wb`` the same way as the kernel.  ``decode``:
+    the rows are a decode step's (``dequant_plan``).  → the row."""
     dqm = rt["dqm"]
+    dq = lambda x, *a, **kw: dqm.dequant_matmul(x, *a, **kw,  # noqa: E731
+                                                decode=decode)
     device = wq.device
     n, k = wq.shape
     args = (wq, scale, zero)
     xi = int_x(m, k, gen, device)
-    same = bool(torch.equal(dqm.dequant_matmul(xi, *args),
+    same = bool(torch.equal(dq(xi, *args),
                             dqm.dequant_matmul_plain(xi, *args,
                                                      torch.bfloat16)))
     xr = rand_x(m, k, gen, device)
-    yk = dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)
+    yk = dq(xr, *args, out_dtype=torch.float32)
     yp = dqm.dequant_matmul_plain(xr, *args, torch.float32)
     err = float((yk - yp).abs().max())
     tol = MATMUL_RTOL * float(yp.abs().max())
-    again = bool(torch.equal(
-        yk, dqm.dequant_matmul(xr, *args, out_dtype=torch.float32)))
+    again = bool(torch.equal(yk, dq(xr, *args, out_dtype=torch.float32)))
     if not (same and again and err <= tol and torch.isfinite(yk).all()):
         raise AssertionError(f"K5 ({m}, {n}, {k}): bitwise={same} err={err}"
                              f" tol={tol} repeatable={again}")
     b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
     return {"bitwise": same, "max_abs_err": err,
-            "launch": dequant_launch(dqm, m, n, k),
-            "ms": weight_graph_ms(timer, wq, lambda: dqm.dequant_matmul(
-                xr, *args)),
+            "launch": dequant_launch(dqm, m, n, k, decode),
+            "ms": weight_graph_ms(timer, wq, lambda: dq(xr, *args)),
             "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
                 xr, *args, torch.bfloat16)) if plain else None,
             "library_ms": weight_graph_ms(timer, wq, lambda: xr @ wb.T),
@@ -672,9 +702,10 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
 
 
 def check_grouped_rows(rt, state, device, gen, timer, m):
-    """K3 on the first MoE layer's three expert stacks at capacity ``m``
-    (5–16: the decode kernel's row groups, an engine tick of m slots in
-    the dropless regime): ``rows_check`` on each (bitwise on integer x,
+    """K3 on the first MoE layer's three expert stacks at decode capacity
+    ``m`` (the decode kernel's row groups; above 16 a launch a group of
+    16: an engine tick of m slots in the dropless regime): ``rows_check``
+    on each (bitwise on integer x,
     MATMUL_RTOL on random x, each row bitwise that row alone), timed as
     ``check_grouped`` times it.  → (the row, its stacks)."""
     fdm = rt["fdm"]
@@ -697,7 +728,7 @@ def check_grouped_rows(rt, state, device, gen, timer, m):
         kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
         fields, xr = rows_check(
             lambda x, dt: fdm.grouped_fused_decode_matmul(
-                x, *args, **kw, out_dtype=dt),
+                x, *args, **kw, out_dtype=dt, decode=True),
             lambda x, dt: fdm.grouped_fused_decode_matmul_plain(
                 x, *args, **kw, out_dtype=dt), m, k, gen, device, lead=(e,))
         wbt = w.materialize(lut, torch.bfloat16).transpose(1, 2)
@@ -705,19 +736,21 @@ def check_grouped_rows(rt, state, device, gen, timer, m):
                          2.0 * e * m * n * k)
         t = {"stack": name, "E": e, "N": n, "K": k, "M": m, **fields,
              "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
-                 xr, *args, **kw)] * 4),
+                 xr, *args, **kw, decode=True)] * 4),
              "plain_ms": timer.ms(
                  lambda: fdm.grouped_fused_decode_matmul_plain(
                      xr, *args, **kw, out_dtype=torch.bfloat16)),
              "library_ms": timer.graph_ms([lambda: torch.bmm(xr, wbt)] * 4),
-             "bound_ms": b, "bound_by": by, **launch_info(fdm, m, w, e)}
+             "bound_ms": b, "bound_by": by,
+             **launch_info(fdm, m, w, e, decode=True)}
         del wbt
         for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
             row[f] += t[f]
         row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
         detail.append(t)
     row["launch"] = {f: detail[0][f] for f in ("kernel", "grid", "threads",
-                                                "smem_bytes")}
+                                                "smem_bytes", "row_groups")
+                     if f in detail[0]}
     return row, detail
 
 
@@ -948,7 +981,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
                 dispatch_want is not None
                 and run["dispatch_counts"] != dispatch_want) or (
                 kernel_want is not None
-                and run["kernel_launches"] != kernel_want):
+                and matmul_kernels(run["kernel_launches"]) != kernel_want):
             faults.append(f"{name}: launches {run['launches']} (want "
                           f"{want}), by kernel {run['kernel_launches']} "
                           f"(want {kernel_want}), materialize "
@@ -1085,6 +1118,9 @@ def engine_phase(rt, cfg, state, device, dispatch="fused",
         faults.append(f"requests {mismatched} differ from generate")
     n_steps = ticks + ENGINE_REQUESTS
     proj = 7 * cfg.n_layers * n_steps
+    # above 16 slots a tick's K1 runs its decode kernel once a group of 16
+    # rows (one dispatch a projection)
+    k1_groups = -(-slots // 16)
     # a tick's M = slots: K5 (the head; in quant mode every projection)
     # on its decode kernel, one launch a group of 4 rows; an admission's
     # head at M = 1, its projections at the prompt's length (> 16: the
@@ -1093,9 +1129,10 @@ def engine_phase(rt, cfg, state, device, dispatch="fused",
     tick_proj = 7 * cfg.n_layers * ticks
     admit_proj = 7 * cfg.n_layers * ENGINE_REQUESTS
     head = groups * ticks + ENGINE_REQUESTS
-    want_launches = {"fused_decode_matmul": proj, "dequant_matmul": head,
+    want_launches = {"fused_decode_matmul": proj + (k1_groups - 1)
+                     * tick_proj, "dequant_matmul": head,
                      "flash_attention": cfg.n_layers * ENGINE_REQUESTS}
-    want_kernels = {"fused_decode_matmul:decode": tick_proj,
+    want_kernels = {"fused_decode_matmul:decode": k1_groups * tick_proj,
                     "fused_decode_matmul:mma": admit_proj,
                     "dequant_matmul:decode": head}
     want_dispatch = {dispatch: proj}
@@ -1106,7 +1143,7 @@ def engine_phase(rt, cfg, state, device, dispatch="fused",
         want_dispatch = {}
         want_kernels = {"dequant_matmul:mma": admit_proj,
                         "dequant_matmul:decode": groups * tick_proj + head}
-    if kernel_counts != want_kernels:
+    if matmul_kernels(kernel_counts) != want_kernels:
         faults.append(f"by kernel {kernel_counts}, want {want_kernels}")
     if launches != want_launches:
         faults.append(f"launches {launches}, want {want_launches}")
@@ -1132,8 +1169,8 @@ def engine_phase(rt, cfg, state, device, dispatch="fused",
 
 # The rows phase (Llama-3.2-1B): generate's batches and the engine's slots
 # above the fixed batch's 4, and the M of its kernel rows (K1, K3, K5).
-ROWS_BATCHES = (8, 16)
-ROWS_M = (5, 8, 16)
+ROWS_BATCHES = (8, 16, 32)
+ROWS_M = (5, 8, 16, 32)
 
 
 def rows_check(call, plain, m, k, gen, device, lead=()):
@@ -1161,8 +1198,38 @@ def rows_check(call, plain, m, k, gen, device, lead=()):
             "max_abs_err": err}, xr
 
 
+# Dense-weight decode rows (MoE's router; every projection in dense mode):
+# the M of ``layers.linear``'s GEMMs of 16 rows, the last piece padded
+DENSE_ROWS_M = (5, 16, 17, 24, 32, 64)
+
+
+def dense_rows(rt, w, what, device, gen) -> dict:
+    """``layers.linear`` on a dense bf16 weight ``w`` at a decode step's
+    rows, x (M, 1, K) bf16 at each M of DENSE_ROWS_M: every row bitwise
+    that row alone (M = 1), and the output within MATMUL_RTOL of the f32
+    product plus bf16's rounding of it (2⁻⁸ of each value).  → the
+    numbers; raises where a row differs."""
+    lin = rt["L"].linear
+    w = w.to(torch.bfloat16)
+    out = {"weight": what, "shape": list(w.shape), "rows_differing": {},
+           "max_abs_err": 0.0}
+    for m in DENSE_ROWS_M:
+        x = torch.randn((m, 1, w.shape[1]), generator=gen, device=device
+                        ).to(torch.bfloat16)
+        y = lin(x, w, decode=True)
+        out["rows_differing"][m] = [i for i in range(m) if not torch.equal(
+            y[i:i + 1], lin(x[i:i + 1], w, decode=True))]
+        ref = x.float() @ w.float().T
+        err = (y.float() - ref).abs()
+        tol = MATMUL_RTOL * ref.abs().max() + ref.abs() * 2.0 ** -8
+        out["max_abs_err"] = max(out["max_abs_err"], float(err.max()))
+        if out["rows_differing"][m] or not bool((err <= tol).all()):
+            raise AssertionError(f"dense rows {what}: {out}")
+    return out
+
+
 def rows_kernels(rt, cfg, state, device, gen, timer):
-    """Kernel rows at M = 5, 8, 16 (``ROWS_M``) for K1 on Llama's 7
+    """Kernel rows at decode M = 5, 8, 16, 32 (``ROWS_M``) for K1 on Llama's 7
     projections (timed walking the 16 layers' planes; one row per M, the
     layer's 7 summed) and K5 on the head: each through ``rows_check``,
     with the plan's kernel, ms, bound, plain ms and ``torch.matmul``'s ms
@@ -1192,20 +1259,21 @@ def rows_kernels(rt, cfg, state, device, gen, timer):
         for m in ROWS_M:
             fields, xr = rows_check(
                 lambda x, dt: fdm.fused_decode_matmul(x, *args, **kw,
-                                                      out_dtype=dt),
+                                                      out_dtype=dt,
+                                                      decode=True),
                 lambda x, dt: fdm.fused_decode_matmul_plain(
                     x, *args, **kw, out_dtype=dt), m, k, gen, device)
             b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
             t = {"proj": name, "N": n, "K": k, "M": m, **fields,
                  "ms": timer.graph_ms([lambda wl=wl: fdm.fused_decode_matmul(
                      xr, wl.codes, wl.literals, lut, wl.scale, wl.zero,
-                     **kw) for wl in ws]),
+                     **kw, decode=True) for wl in ws]),
                  "plain_ms": timer.ms(lambda: fdm.fused_decode_matmul_plain(
                      xr, *args, **kw, out_dtype=torch.bfloat16)),
                  "library_ms": timer.graph_ms([lambda wb=wb: xr @ wb.T
                                                for wb in wbs]),
                  "bound_ms": b, "bound_by": by,
-                 **launch_info(fdm, m, w, 1)}
+                 **launch_info(fdm, m, w, 1, decode=True)}
             row = rows[m]
             for f in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 row[f] += t[f]
@@ -1214,7 +1282,8 @@ def rows_kernels(rt, cfg, state, device, gen, timer):
             row["max_abs_err"] = max(row["max_abs_err"], t["max_abs_err"])
             row["detail"].append(t)
             row.setdefault("launch", {f: t[f] for f in (
-                "kernel", "grid", "threads", "smem_bytes")})
+                "kernel", "grid", "threads", "smem_bytes", "row_groups")
+                if f in t})
         del wbs
     head = state.params.get("lm_head", state.params["embed"])
     wb = head.materialize(torch.bfloat16)
@@ -1224,37 +1293,42 @@ def rows_kernels(rt, cfg, state, device, gen, timer):
     for m in ROWS_M:
         fields, _ = rows_check(
             lambda x, dt: dqm.dequant_matmul(x, head.values, head.scale,
-                                             head.zero, dt),
+                                             head.zero, dt, decode=True),
             lambda x, dt: dqm.dequant_matmul_plain(x, head.values,
                                                    head.scale, head.zero,
                                                    dt), m, k, gen, device)
         out.append({**K5_ROW, **check_k5(rt, head.values, head.scale,
-                                         head.zero, wb, m, gen, timer),
+                                         head.zero, wb, m, gen, timer,
+                                         decode=True),
                     **fields, "timed_at": f"LM head {n}x{k}, M={m}"})
     return out
 
 
 def rows_phase(rt, cfg, state, device, engine_refs, gen, timer, kernels,
                faults):
-    """5–16 rows on Llama-3.2-1B at full width, where K1's decode kernel
-    runs four row groups and K5's decode kernel one launch a group of 4
-    rows: ``generate`` at batch 8 and 16 (``serve``'s gates: the eager
-    loop, two generates bitwise to it, one capture, the launches by
-    kernel), its prefill, capture and decode ms a step graphed; the engine
-    phase's requests through the engine at 8 and 16 slots, each completion
-    bitwise the ``generate``-alone tokens the engine phase computed; and
-    the kernel rows at M = 5, 8, 16 (``rows_kernels``).  → the numbers."""
+    """5–32 rows on Llama-3.2-1B at full width, where K1's decode kernel
+    runs four row groups (above 16 rows a launch a group of 16) and K5's
+    decode kernel one launch a group of 4 rows: ``generate`` at batch 8,
+    16 and 32 (``serve``'s gates: the eager loop, two generates bitwise to
+    it, one capture, the launches by kernel), its prefill, capture and
+    decode ms a step graphed; the engine phase's requests through the
+    engine at 8, 16 and 32 slots, each completion bitwise the
+    ``generate``-alone tokens the engine phase computed; layer 0's w_gate
+    as dense mode holds it through ``layers.linear`` (``dense_rows``); and
+    the kernel rows at M = 5, 8, 16, 32 (``rows_kernels``).  → the
+    numbers."""
     info = {"generate": {}, "engine": {}}
     L = cfg.n_layers
     for b in ROWS_BATCHES:
         batch, lens = make_prompts(cfg.vocab_size, b)
-        groups = -(-b // 4)
+        groups, k1_groups = -(-b // 4), -(-b // 16)
         e2e = serve(rt, cfg, state, device, batch, lens, want={
-            "fused_decode_matmul": 7 * L * MAX_NEW,
+            "fused_decode_matmul": 7 * L * (1 + k1_groups * (MAX_NEW - 1)),
             "dequant_matmul": groups * MAX_NEW, "flash_attention": L},
             packed_want={"packed": 0}, kernel_want={
                 "fused_decode_matmul:mma": 7 * L,
-                "fused_decode_matmul:decode": 7 * L * (MAX_NEW - 1),
+                "fused_decode_matmul:decode": 7 * L * k1_groups
+                * (MAX_NEW - 1),
                 "dequant_matmul:decode": groups * MAX_NEW})
         info["generate"][b] = {
             f: e2e[f] for f in ("prompt_lens", "prefill_ms", "capture_ms",
@@ -1269,6 +1343,10 @@ def rows_phase(rt, cfg, state, device, engine_refs, gen, timer, kernels,
                                 "prefill_ms_median", "capture_ms",
                                 "kernel_launches", "health",
                                 "requests_not_bitwise_equal_to_generate")}
+    info["dense_rows"] = dense_rows(
+        rt, state.params["blocks"][0]["mlp"]["w_gate"].materialize(
+            state.lut, torch.bfloat16), "layer 0 w_gate (dense mode)",
+        device, gen)
     rows = rows_kernels(rt, cfg, state, device, gen, timer)
     for row in rows:
         m = int(row["timed_at"].rsplit("M=", 1)[1])
@@ -2555,7 +2633,8 @@ def quant_counts(rt, cfg, state, ids, faults):
             want["flash_attention"] = cfg.n_layers
             want_kernels = {"dequant_matmul:mma": 7 * cfg.n_layers,
                             "dequant_matmul:decode": 1}
-        if out[what] != want or out[f"{what}_by_kernel"] != want_kernels \
+        if out[what] != want or matmul_kernels(
+                out[f"{what}_by_kernel"]) != want_kernels \
                 or L.MATERIALIZE_COUNTS:
             faults.append(f"quant {what}: launches {out[what]} (want "
                           f"{want}), by kernel {out[f'{what}_by_kernel']} "
@@ -2763,7 +2842,7 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
                 "plan_changes", "refusing", "plan", "rung_latency_s")}
         out[name] = info
         if mode == "quant":
-            kl = run["kernel_launches"]
+            kl = matmul_kernels(run["kernel_launches"])
             # the smoke prompts are 16 tokens: admissions too run K5's
             # decode kernel (4 launches of 4 rows); a longer prompt its
             # tensor-core kernel
@@ -2810,6 +2889,370 @@ def launcher_phase(rt, device, gen, timer, kernels, faults):
         out[f"flash_{cfg.name}"] = detail
         kernels.append(dict(row, path=f"launcher {cfg.name}",
                             launches=flash[arch]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training and calibration: the train phase.
+# ---------------------------------------------------------------------------
+
+# Llama-3.2-1B at full width, all 16 layers, f32: steps, batch × tokens
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 256
+# The train phase's data: DataPipeline's Markov stream over the first
+# TRAIN_DATA_VOCAB token ids, at the launcher's lr 5e-3.  At this width
+# that lr spikes the loss whatever the data (tools/train_loss_witness.py,
+# H100: over the full vocabulary 12.18 → 12.35 with warmup 1 and → 13.07
+# with the launcher's 50-step schedule; over 1 024 ids a spike at step 5
+# too), while one step at lr 1e-6 lowers the loss (the gradient's sign is
+# right) and lr 5e-4 falls slowly (12.18 → 12.10).  The full vocabulary
+# leaves 8 steps ~0.4 nats above ln V to win, less than a spike; 1 024
+# ids leave ~5, so the fall checked is the model learning.
+TRAIN_DATA_VOCAB = 1024
+# DeepSeek-V2-Lite at full width, cut to 2 layers (the dense first layer
+# and one MoE layer): the MoE dispatch's backward, the aux loss, MLA
+DS_TRAIN_LAYERS, DS_TRAIN_STEPS = 2, 3
+#  * One train step's gradients with K2 under its autograd.Function (the
+#    SIMT kernel's forward) against those of the all-plain attention, every
+#    parameter as one vector (L2): the two forwards differ by f32 roundoff
+#    (FLASH_ATOL_F32 at most, sums in another order), which 16 layers of
+#    f32 activations carry into every gradient.
+TRAIN_GRAD_RTOL = 1e-3
+GPTQ_BITS = 4
+# the training launcher's leg: steps of its smoke default, checkpoints
+# every LAUNCH_CKPT_EVERY, SIGINT at LAUNCH_STOP_AT
+LAUNCH_TRAIN_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_STOP_AT = 30, 4, 13
+
+
+def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
+    """K2's SIMT kernel at a training forward's shapes: f32 q, k and v of
+    (TRAIN_BATCH, h, TRAIN_SEQ, d), causal, against its plain version
+    (FLASH_ATOL_F32); timed beside the plain version and SDPA on the same
+    f32 inputs (k and v repeated to the q heads outside the timed call);
+    the bound at f32's peak.  → the kernels row."""
+    fa = rt["fa"]
+    t = TRAIN_SEQ
+    q = torch.randn((TRAIN_BATCH, hq, t, d), generator=gen, device=device)
+    k = torch.randn((TRAIN_BATCH, hkv, t, d), generator=gen, device=device)
+    v = torch.randn((TRAIN_BATCH, hkv, t, dv), generator=gen,
+                    device=device)
+    err = float((fa.flash_attention(q, k, v) - fa.flash_attention_plain(
+        q, k, v)).abs().max())
+    if not err <= FLASH_ATOL_F32:
+        raise AssertionError(f"K2 f32 ({d}, {dv}) T={t}: err {err}")
+    kf, vf = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    pairs = t * (t + 1) // 2
+    b, by = bound_ms(4 * TRAIN_BATCH * (hq * t * (d + dv)
+                                        + hkv * t * (d + dv)),
+                     2.0 * (d + dv) * TRAIN_BATCH * hq * pairs,
+                     F32_FLOP_PER_S)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "kernel": "SIMT (f32 operands)",
+            "timed_at": f"{what}: f32 q, k, v (B={TRAIN_BATCH}, {hq}/{hkv} "
+                        f"heads, T={t}, {d}/{dv}), causal",
+            "max_abs_err": err,
+            "ms": timer.graph_ms([lambda: fa.flash_attention(q, k, v)] * 8),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
+            "library_ms": timer.graph_ms([
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kf, vf, is_causal=True)] * 8),
+            "library": "scaled_dot_product_attention (f32)",
+            "bound_ms": b, "bound_by": by}
+
+
+def train_steps(rt, cfg, state, step, data, n, first=0):
+    """``n`` train steps from ``first``, counted (launches zeroed just
+    before, read just after) and timed (each step ends on its loss's host
+    read).  → (state, {losses, step_ms, median_step_ms, peak_mem_bytes,
+    launches, kernel_launches})."""
+    _build = rt["_build"]
+    _build.LAUNCH_COUNTS.clear()
+    _build.KERNEL_COUNTS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(i))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"train {cfg.name} step {i + 1}: loss {losses[-1]:.6f} "
+            f"grad_norm {float(m['grad_norm']):.4f} lr "
+            f"{float(m['lr']):.3e} ({ms[-1]:.1f} ms)")
+    return state, {"losses": losses, "step_ms": ms,
+                   "median_step_ms": float(np.median(ms)),
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": dict(_build.LAUNCH_COUNTS),
+                   "kernel_launches": dict(_build.KERNEL_COUNTS)}
+
+
+def grad_against_plain(rt, cfg, tcfg, params, batch):
+    """One step's loss and gradients with K2 under its autograd.Function
+    against the all-plain attention (``ops.flash_attention`` swapped for
+    the plain version under autograd): every parameter as one vector (L2).
+    → the numbers."""
+    S, T, ops, fa = rt["steps"], rt["tree"], rt["ops"], rt["fa"]
+    _build = rt["_build"]
+    _build.KERNEL_COUNTS.clear()
+    loss, grads = S.loss_and_grads(params, cfg, tcfg, batch)
+    simt = _build.KERNEL_COUNTS["flash_attention:simt"]
+    real = ops.flash_attention
+    ops.flash_attention = fa.flash_attention_plain
+    try:
+        _build.KERNEL_COUNTS.clear()
+        loss_p, grads_p = S.loss_and_grads(params, cfg, tcfg, batch)
+        plain_launches = sum(_build.KERNEL_COUNTS.values())
+    finally:
+        ops.flash_attention = real
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(grads, grads_p))
+    den = sum(float((b ** 2).sum()) for b in grads_p)
+    rel = (num / den) ** 0.5
+    out = {"loss": float(loss), "loss_plain": float(loss_p),
+           "grad_rel_l2": rel, "tolerance": TRAIN_GRAD_RTOL,
+           "simt_launches": simt, "plain_run_launches": plain_launches,
+           "leaves": len(T.leaves(params))}
+    if not (rel <= TRAIN_GRAD_RTOL and simt == cfg.n_layers
+            and plain_launches == 0 and math.isfinite(rel)):
+        raise AssertionError(f"K2 autograd gradients: {out}")
+    return out
+
+
+def layer0_inputs(rt, cfg, params, tokens) -> dict:
+    """The inputs of layer 0's 7 projections on ``tokens`` (one no-grad
+    forward with ``layers.linear`` recording them): {name: (n_tok, K)}."""
+    L = rt["L"]
+    blk = params["blocks"][0]
+    names = {id(blk[g][n]): n for g, ns in (
+        ("attn", ("wq", "wk", "wv", "wo")),
+        ("mlp", ("w_gate", "w_up", "w_down"))) for n in ns}
+    seen, real = {}, L.linear
+
+    def recording(x, w, *a, **kw):
+        n = names.get(id(w))
+        if n is not None and n not in seen:
+            seen[n] = x.reshape(-1, x.shape[-1]).detach().clone()
+        return real(x, w, *a, **kw)
+
+    L.linear = recording
+    try:
+        with torch.no_grad():
+            rt["LM"].forward(params, cfg, tokens, return_hidden=True)
+    finally:
+        L.linear = real
+    return seen
+
+
+def gptq_check(rt, cfg, params, tokens) -> dict:
+    """GPTQ at full width on layer 0's 7 projections, each calibrated on
+    its own inputs from ``tokens``: ``gptq_layer_error`` of GPTQ against
+    naive per-channel at GPTQ_BITS; GPTQ must be the lower for each.  →
+    the numbers, with the seconds."""
+    gptq, Q = rt["gptq"], rt["quant"]
+    blk = params["blocks"][0]
+    ws = {n: blk[g][n] for g, ns in (("attn", ("wq", "wk", "wv", "wo")),
+                                     ("mlp", ("w_gate", "w_up", "w_down")))
+          for n in ns}
+    inputs = layer0_inputs(rt, cfg, params, tokens)
+    qcfg = Q.QuantConfig(bits=GPTQ_BITS)
+    out, worse = {}, []
+    for name, w in ws.items():
+        x = inputs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = gptq.accumulate_hessian(gptq.init_hessian(w.shape[1],
+                                                      device=w.device), x)
+        qt = gptq.gptq_quantize(w, h, qcfg)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        e_g = float(gptq.gptq_layer_error(w, qt, h))
+        e_n = float(gptq.gptq_layer_error(w, Q.quantize(w, qcfg), h))
+        out[name] = {"shape": list(w.shape), "tokens": x.shape[0],
+                     "gptq_error": e_g, "naive_per_channel_error": e_n,
+                     "ratio": e_g / e_n, "s": sec}
+        if not (e_g < e_n and math.isfinite(e_g)):
+            worse.append(name)
+    out["s_total"] = sum(v["s"] for v in out.values())
+    if worse:
+        raise AssertionError(f"GPTQ not below naive per-channel at "
+                             f"{GPTQ_BITS} bits on {worse}: {out}")
+    return out
+
+
+def escape_share(rt, state) -> float:
+    """Escaped grams over all grams of the packed weights."""
+    esc = tot = 0
+    for w in rt["tree"].leaves(state.params):
+        if hasattr(w, "nlit"):
+            esc += int(w.nlit.sum())
+            tot += w.codes.numel()
+    return esc / max(tot, 1)
+
+
+def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
+    """Llama-3.2-1B at full width, 16 layers, f32, from seed 0 on the card:
+    TRAIN_STEPS steps of batch TRAIN_BATCH × TRAIN_SEQ (tokens below
+    TRAIN_DATA_VOCAB) at the reference launcher's AdamW (lr 5e-3, warmup
+    steps/10); the loss must fall, and
+    every step's attention is K2's SIMT kernel (16 launches a step).  Then
+    one step's gradients against the all-plain attention; GPTQ on layer
+    0; the trained model packed compressed and served by ``serve`` (the
+    eager loop, two generates, bitwise, the counts) with the escape
+    share.  → the numbers."""
+    S, opt = rt["steps"], rt["optimizer"]
+    cfg = rt["get_config"]("llama3.2-1b").full
+    tcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+        total_steps=TRAIN_STEPS))
+    data = rt["DataPipeline"](rt["DataConfig"](
+        vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    t0 = time.perf_counter()
+    state = S.init_train_state(rt["LM"].init_lm(cfg, seed=SEED,
+                                                device=device), tcfg)
+    torch.cuda.synchronize()
+    info = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "init_s": time.perf_counter() - t0}
+    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
+                             data, TRAIN_STEPS)
+    info.update(run)
+    losses = run["losses"]
+    simt = run["kernel_launches"].get("flash_attention:simt", 0)
+    info["flash_attention_simt_launches"] = simt
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and simt == cfg.n_layers * TRAIN_STEPS
+            and set(run["launches"]) == {"flash_attention_f32"}):
+        faults.append(f"llama train: losses {losses}, launches "
+                      f"{run['launches']}, by kernel "
+                      f"{run['kernel_launches']}")
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    batch = {k: v.to(device) for k, v in
+             data.batch_at(TRAIN_STEPS).items()}
+    info["grad_vs_plain"] = grad_against_plain(rt, cfg, tcfg, params, batch)
+    torch.cuda.empty_cache()
+    info["gptq"] = gptq_check(rt, cfg, params, data.batch_at(
+        TRAIN_STEPS + 1)["tokens"].to(device))
+    row = check_flash_train(rt, device, gen, timer, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.resolved_head_dim,
+                            cfg.resolved_head_dim, "Llama-3.2-1B training")
+    kernels.append(dict(row, path=f"{cfg.name} train", launches=simt,
+                        launches_of=f"{TRAIN_STEPS} train steps"))
+    # the trained model, packed compressed and served
+    rt["engine"].drop_graphs(cfg)
+    state = rt["build_serve_params"](params, rt["CompressionPolicy"](
+        mode="compressed"), device=device)
+    del params
+    torch.cuda.empty_cache()
+    info["escape_share"] = escape_share(rt, state)
+    batch, lens = make_prompts(cfg.vocab_size)
+    e2e = serve(rt, cfg, state, device, batch, lens, want={
+        "fused_decode_matmul": 7 * cfg.n_layers * MAX_NEW,
+        "dequant_matmul": MAX_NEW, "flash_attention": cfg.n_layers},
+        packed_want={"packed": 0})
+    info["serve"] = {f: e2e[f] for f in (
+        "decode_ms_per_step", "prefill_ms", "launches", "kernel_launches",
+        "first_request_tokens")}
+    rt["engine"].drop_graphs(cfg)
+    return info
+
+
+def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
+    """DeepSeek-V2-Lite at full width cut to DS_TRAIN_LAYERS layers, f32,
+    from seed 0: DS_TRAIN_STEPS steps (the MoE dispatch's backward, the
+    aux loss, MLA through K2's SIMT kernel at (192, 128)); finite losses,
+    the routers' aux loss > 0, 2 K2 launches a step; K2 f32 at MLA's
+    training shapes against its plain version.  → the numbers."""
+    S, opt = rt["steps"], rt["optimizer"]
+    cfg = dataclasses.replace(rt["get_config"]("deepseek-v2-lite-16b").full,
+                              n_layers=DS_TRAIN_LAYERS)
+    tcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=1, total_steps=DS_TRAIN_STEPS))
+    data = rt["DataPipeline"](rt["DataConfig"](
+        vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    state = S.init_train_state(rt["LM"].init_lm(cfg, seed=SEED,
+                                                device=device), tcfg)
+    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
+                             data, DS_TRAIN_STEPS)
+    with torch.no_grad():
+        _, _, aux = rt["LM"].forward(state["params"], cfg, data.batch_at(
+            DS_TRAIN_STEPS)["tokens"].to(device), return_hidden=True)
+    info = {"model": cfg.name, "layers": cfg.n_layers,
+            "depth_cut": f"{DS_TRAIN_LAYERS} of 27 layers", **run,
+            "aux_loss": float(aux)}
+    simt = run["kernel_launches"].get("flash_attention:simt", 0)
+    info["flash_attention_simt_launches"] = simt
+    if not (all(map(math.isfinite, run["losses"])) and float(aux) > 0
+            and simt == cfg.n_layers * DS_TRAIN_STEPS):
+        faults.append(f"deepseek train: {info}")
+    del state
+    torch.cuda.empty_cache()
+    row = check_flash_train(rt, device, gen, timer, cfg.n_heads, cfg.n_heads,
+                            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+                            cfg.v_head_dim, "DeepSeek-V2-Lite MLA training")
+    kernels.append(dict(row, path=f"{cfg.name} train", launches=simt,
+                        launches_of=f"{DS_TRAIN_STEPS} train steps at "
+                                    f"{DS_TRAIN_LAYERS} layers"))
+    return info
+
+
+def launcher_train(rt, faults) -> dict:
+    """``repro_torch.launch.train.main`` in this process on the card at its
+    smoke default: LAUNCH_TRAIN_STEPS steps uninterrupted; then the same
+    run stopped by SIGINT at LAUNCH_STOP_AT (``PreemptionGuard``: a
+    checkpoint, a stop) and started again on its --ckpt-dir, which must
+    resume there and give the uninterrupted run's losses, bit for bit.
+    → the numbers."""
+    import signal
+    import tempfile
+    main = rt["launch_train"].main
+    argv = ["--steps", str(LAUNCH_TRAIN_STEPS), "--ckpt-every",
+            str(LAUNCH_CKPT_EVERY)]
+
+    def stop(s, m):
+        if s == LAUNCH_STOP_AT:
+            signal.raise_signal(signal.SIGINT)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ref = main(argv + ["--ckpt-dir", f"{d}/ref"])
+        ref_s = time.perf_counter() - t0
+        first = main(argv + ["--ckpt-dir", f"{d}/run"], on_metrics=stop)
+        second = main(argv + ["--ckpt-dir", f"{d}/run"])
+    resumed = {**first["losses"], **second["losses"]}
+    differ = [s for s in ref["losses"] if resumed.get(s) != ref["losses"][s]]
+    info = {"argv": argv, "uninterrupted_s": ref_s,
+            "stopped_at": first["end_step"],
+            "resumed_from": second["start_step"],
+            "end_step": second["end_step"],
+            "losses_first_last": [ref["losses"][1],
+                                  ref["losses"][LAUNCH_TRAIN_STEPS]],
+            "steps_differing_from_uninterrupted": differ}
+    if (first["end_step"] != LAUNCH_STOP_AT
+            or second["start_step"] != LAUNCH_STOP_AT
+            or second["end_step"] != LAUNCH_TRAIN_STEPS or differ):
+        faults.append(f"launcher train: {info}")
+    return info
+
+
+def train_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """Training and calibration on the card: ``llama_train``,
+    ``deepseek_train``, ``launcher_train``, each timed."""
+    out = {}
+    for name, fn in (("llama", lambda: llama_train(
+            rt, device, gen, timer, kernels, faults)),
+                     ("deepseek", lambda: deepseek_train(
+                         rt, device, gen, timer, kernels, faults)),
+                     ("launcher", lambda: launcher_train(rt, faults))):
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn()
+        except Exception:
+            traceback.print_exc()
+            faults.append(f"train {name} raised")
+        out.setdefault(name, {})["s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3036,6 +3479,12 @@ def deepseek_path(rt, device, gen, timer, kernels, failed):
             e2e.get("kernel_launches", {}), row["name"])
     log(f"e2e {cfg.name} " + json.dumps(e2e))
     unlevered(rt, f"{cfg.name} e2e", failed)
+    try:
+        log(f"dense_rows {cfg.name} " + json.dumps(dense_rows(
+            rt, moe[0]["moe"]["router"], "layer 1 router", device, gen)))
+    except Exception:
+        traceback.print_exc()
+        failed.append(f"{cfg.name} dense rows")
     phase(rt, f"{cfg.name} residency")
     res, faults, k3 = {}, [], 0
     try:
@@ -3257,8 +3706,13 @@ def main() -> int:
     from repro_torch.core import policy
     from repro_torch.testing import FaultInjector, pressure_trace
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.train.data import DataConfig, DataPipeline
+    from repro_torch.train import optimizer, steps, tree
+    from repro_torch.core import gptq, quant
     rt = {"launch_serve": launch_serve, "DataConfig": DataConfig,
+          "launch_train": launch_train, "optimizer": optimizer,
+          "steps": steps, "tree": tree, "gptq": gptq, "quant": quant,
           "DataPipeline": DataPipeline, "integrity": integrity, "resilience": resilience,
           "residency": residency, "governor": governor, "policy": policy,
           "pressure_trace": pressure_trace,
@@ -3302,20 +3756,21 @@ def main() -> int:
             failed.append(path.__name__)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    phase(rt, "launcher")
-    res, faults = {}, []
-    try:
-        res = launcher_phase(rt, device, gen, timer, kernels, faults)
-    except Exception:
-        traceback.print_exc()
-        faults.append("raised")
-    log("launcher " + json.dumps(res))
-    if faults:
-        log(f"launcher faults: {faults}")
-        failed.append("launcher")
-    unlevered(rt, "launcher", failed)
-    log(f"launcher_phase: {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("launcher", launcher_phase), ("train", train_phase)):
+        t0 = time.perf_counter()
+        phase(rt, name)
+        res, faults = {}, []
+        try:
+            res = fn(rt, device, gen, timer, kernels, faults)
+        except Exception:
+            traceback.print_exc()
+            faults.append("raised")
+        log(f"{name} " + json.dumps(res))
+        if faults:
+            log(f"{name} faults: {faults}")
+            failed.append(name)
+        unlevered(rt, name, failed)
+        log(f"{name}_phase: {time.perf_counter() - t0:.1f} s")
 
     # K1/K3's SIMT kernel: only the kernel checks (tiles 1 and 2 weights
     # wide) may have launched it

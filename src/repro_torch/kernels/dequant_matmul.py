@@ -86,9 +86,11 @@ def mma_smem_bytes() -> int:
     return MMA_STAGES * stage + MMA_BN * row + MMA_BM * 4
 
 
-def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+def dequant_plan(m: int, n: int, k: int, sms: int,
+                 decode: bool = False) -> DequantPlan:
     """The launch of (M, K) × (K, N) on a card of ``sms`` SMs, a pure
-    function of the shapes.
+    function of the shapes and of ``decode``: whether the M rows are a
+    decode step's (one token a row, each its own request).
 
     Decode batch (M ≤ 16, K a positive multiple of 16: rows of 16-byte
     loads): the decode kernel, one warp task per 8 weight rows, 8 warps a
@@ -99,7 +101,10 @@ def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
     ⌈M / 4⌉ launches, one a group of 4 rows, so that each row has the
     bits it has alone (the reference's row independence: an engine tick
     of 5–16 slots gives each request generate's tokens), at about the
-    price of ⌈M / 4⌉ decode-batch calls (PERF.md).
+    price of ⌈M / 4⌉ decode-batch calls (PERF.md).  A decode step's rows
+    take this plan at any M, so that above 16 rows too a row has the bits
+    it has alone; a prefill of the same M (one request's tokens) takes the
+    tensor-core kernel, as the shapes alone cannot tell the two apart.
 
     From ``MMA_MIN_M`` rows on (K a positive multiple of 16): the
     tensor-core kernel, blocks of 128 × 128 outputs, two resident an SM.  K is split only
@@ -112,7 +117,7 @@ def dequant_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
 
     Otherwise the SIMT kernel: 4 rows a block at M ≤ 4, else 16; K split
     so that about two blocks sit on every SM."""
-    if m < MMA_MIN_M and k > 0 and k % 16 == 0:
+    if (m < MMA_MIN_M or decode) and k > 0 and k % 16 == 0:
         tasks = -(-n // DECODE_ROWS)
         rounds = -(-tasks // (sms * DECODE_BLOCKS_PER_SM * DECODE_WARPS))
         blocks = -(-tasks // (rounds * DECODE_WARPS))
@@ -160,10 +165,11 @@ def dequant_matmul_plain(x, wq, scale, zero,
     return y.to(out_dtype)
 
 
-def dequant_matmul(x, wq, scale, zero,
-                   out_dtype=torch.bfloat16) -> torch.Tensor:
+def dequant_matmul(x, wq, scale, zero, out_dtype=torch.bfloat16,
+                   decode: bool = False) -> torch.Tensor:
     """y = x @ dequant(wq).T.  x: (M, K) float; wq: (N, K) uint8;
-    scale/zero: (N, 1) f32.  CPU tensors take the plain version; CUDA
+    scale/zero: (N, 1) f32.  ``decode``: x's rows are a decode step's
+    (:func:`dequant_plan`).  CPU tensors take the plain version; CUDA
     tensors launch the kernel :func:`dequant_plan` picks, or raise."""
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, wq, scale, zero, out_dtype)
@@ -192,7 +198,7 @@ def dequant_matmul(x, wq, scale, zero,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    plan = dequant_plan(m, n, k, _build.sm_count(dev))
+    plan = dequant_plan(m, n, k, _build.sm_count(dev), decode)
     if plan.smem_bytes > SMEM_MAX or plan.grid[0] > MAX_GRID_X \
             or max(plan.grid[1:]) > MAX_GRID_YZ:
         raise ValueError(f"{NAME}: ({m}, {n}, {k}) needs a grid "

@@ -11,7 +11,16 @@ PyTorch version the CPU runs and the card's kernels are held against.
 Layouts are the reference's: q (B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v
 (B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv) in q's dtype, with query i at position
 ``q_offset + i``.  Masked scores are NEG_INF = −1e30 and the denominator
-is max(l, 1e−30), as in the reference.  The kernels take the head-dim
+is max(l, 1e−30), as in the reference.  Both kernels also count in
+``_build.KERNEL_COUNTS`` as ``flash_attention:mma`` / ``:simt``.
+
+Training differentiates through K2 with :class:`FlashAttentionFn`: its
+forward launches the kernel (f32 operands, as training runs, the SIMT
+kernel; bf16 the tensor-core kernel), its backward recomputes attention
+with :func:`flash_attention_plain` under autograd and differentiates
+that.  The reference has no backward kernel (its attention has no
+``custom_vjp``: JAX differentiates its plain path), so none is ported.
+The kernels take the head-dim
 pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64 and 128, DeepSeek-V2's
 MLA (qk_nope + qk_rope = 192, v = 128), and the smoke configs' 16 and MLA
 24/16 (the tensor-core kernel stages Dqk 24 with zero columns up to 32).
@@ -124,4 +133,30 @@ def flash_attention(q, k, v, *, causal: bool = True,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
+    _build.KERNEL_COUNTS[f"{NAME}:{'mma' if name == NAME else 'simt'}"] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K2 under autograd: the forward is :func:`flash_attention` (the
+    kernel on CUDA tensors, which raises rather than fall back; the plain
+    version on the CPU), the backward the plain version's gradient,
+    recomputed from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(need) for t, need in
+                   zip(saved, ctx.needs_input_grad[:3])]
+            out = flash_attention_plain(*ins, **ctx.opts)
+            wanted = [t for t in ins if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in ins) + (None, None, None)

@@ -150,12 +150,22 @@ class Plan(NamedTuple):
     bands_per_block: int
     kernel: str = "simt"
     warps: int = 0
+    row_groups: int = 1
 
 
 def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
-                sms: int, slots: int = DECODE_MAX_SLOTS) -> Plan:
+                sms: int, slots: int = DECODE_MAX_SLOTS,
+                decode: bool = False) -> Plan:
     """The launch of E products (M, K) × (K, N) with K tiles of ``tile_k``
     (compressed blocks of ``slots`` codes) on a card of ``sms`` SMs.
+
+    ``decode``: the M rows are a decode step's (one token a row, each its
+    own request).  Above 16 such rows the plan is the 16-row plan below
+    with ``row_groups`` = ⌈M/16⌉: the wrapper launches it once a group of
+    at most 16 rows, so that a row has the bits it has alone at any M (an
+    engine tick of 17 or more slots gives each request generate's tokens).
+    A prefill of the same M (one request's tokens) takes the tensor-core
+    kernel, as the shapes alone cannot tell the two apart.
 
     Decode batch (M ≤ 16, tile_k ≥ 4, blocks of ≤ 1024 slots, ≤ 512 below
     tile_k 32 — every block the packer makes at those tiles): the decode
@@ -192,6 +202,9 @@ def launch_plan(m: int, n: int, k: int, tile_k: int, e: int,
     Otherwise (tile_k 1 or 2, or a decode-sized M whose blocks pass the
     decode kernel's limits) the SIMT kernel: one band of 4 or 16 rows per
     block, K split so that about two blocks sit on every SM."""
+    if decode and m > DECODE_MAX_M:
+        return launch_plan(DECODE_MAX_M, n, k, tile_k, e, sms, slots
+                           )._replace(row_groups=_cdiv(m, DECODE_MAX_M))
     bm = block_rows(m, tile_k)
     nkt = k // tile_k
     if (m <= DECODE_MAX_M and tile_k >= 4
@@ -290,7 +303,7 @@ def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
 
 def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
             tile_k, out_dtype, plan_experts=None, groups: int = 1,
-            fn=None):
+            fn=None, decode: bool = False):
     """Check the operands and launch the kernel for E = x.shape[0] weights
     of one shape: x (E, M, K), codes (E, nb, slots), literals
     (E, nb, cap, 4), scale/zero E·N values → (E, M, N).  The launch is
@@ -299,7 +312,10 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     the whole stack would.  ``groups``: K1's column groups, a weight's nb
     blocks being ``groups`` sub-weights' planes of (N, K/groups) one after
     another.  ``fn``: another build's C entry (tools/profile_decode.py's
-    design variants)."""
+    design variants).  ``decode``: the rows are a decode step's
+    (:func:`launch_plan`); above 16 they run in groups of 16, a launch
+    each, straight into ``out`` (K1) or, an expert stack's group being
+    strided along M, through a buffer of the group's rows (K3)."""
     dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
     n, k = shape
     e, m = x.shape[0], x.shape[1]
@@ -338,13 +354,38 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
                          "literals and lut (read as uint32) must start on "
                          "a 16-, 4- and 4-byte boundary")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:      # the tensor-core path loads x 16 B at a time
-        xb = xb.clone()
     out = torch.empty((e, m, n), dtype=out_dtype, device=dev)
     if m == 0 or e == 0:
         return out
-    plan = launch_plan(m, n, k, tile_k, plan_experts or e,
-                       _build.sm_count(dev), slots)
+    pe, sms = plan_experts or e, _build.sm_count(dev)
+    plan = launch_plan(m, n, k, tile_k, pe, sms, slots, decode)
+    fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
+    rows = DECODE_MAX_M if plan.row_groups > 1 else m
+    for r in range(0, m, rows):
+        mg = min(rows, m - r)
+        xg, og = xb[:, r:r + mg], out[:, r:r + mg]
+        strided = mg < m and e > 1    # an expert stack's row group
+        if strided:
+            xg = xg.contiguous()
+            og = torch.empty((e, mg, n), dtype=out_dtype, device=dev)
+        if xg.data_ptr() % 16:  # the tensor-core path loads x 16 B at a time
+            xg = xg.clone()
+        _launch_rows(name, fn, plan if mg == m else launch_plan(
+            mg, n, k, tile_k, pe, sms, slots), xg, codes, literals, lut,
+            scale, zero, og, e=e, m=mg, n=n, k=k, tile_n=tile_n,
+            tile_k=tile_k, bpt=bpt, groups=groups)
+        if strided:
+            out[:, r:r + mg].copy_(og)
+    return out
+
+
+def _launch_rows(name, fn, plan: Plan, xb, codes, literals, lut, scale, zero,
+                 out, *, e, m, n, k, tile_n, tile_k, bpt, groups):
+    """One launch of ``plan`` (at most 16 rows where it is a decode step's
+    row group) on checked operands: xb (E, m, K) bf16 and out (E, m, N),
+    each contiguous."""
+    dev, slots = xb.device, codes.shape[2]
+    nnt = n // tile_n
     splits = plan.splits
     if e * splits > MAX_GRID_Z:
         raise ValueError(f"{name}: {e} weights × {splits} K splits exceed "
@@ -364,12 +405,11 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
         part = torch.empty(e * splits * m * n, dtype=torch.float32,
                            device=dev)
         sx = torch.empty(e * splits * m, dtype=torch.float32, device=dev)
-    fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
     err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
              lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
              out.data_ptr(), part.data_ptr() if part is not None else None,
              sx.data_ptr() if sx is not None else None,
-             int(out_dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
+             int(out.dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
              slots, literals.shape[2], bpt, groups, splits,
              plan.tiles_per_split, plan.bm, plan.span,
              plan.bands_per_block, plan.warps if plan.kernel == "decode"
@@ -378,12 +418,12 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
     _build.KERNEL_COUNTS[f"{name}:{plan.kernel}"] += 1
-    return out
 
 
 def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
                         tile_n: int, tile_k: int,
-                        out_dtype=torch.bfloat16) -> torch.Tensor:
+                        out_dtype=torch.bfloat16,
+                        decode: bool = False) -> torch.Tensor:
     """K1: y = x @ dequant(decode(codes, literals)).T without a dense
     weight.
 
@@ -392,8 +432,10 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
     dense ``shape = (N, K)`` weight; scale/zero (N, 1) f32.  Column
     groups: codes (G, nb, slots) and literals (G, nb, cap, 4), group g the
     planes of the (N, K/G) sub-weight over x columns [g·K/G, (g+1)·K/G)
-    (a ``TiledPackedLinear``), all G in one launch.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
+    (a ``TiledPackedLinear``), all G in one launch.  ``decode``: x's rows
+    are a decode step's, each row its own request (:func:`launch_plan`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
     """
     if x.device.type == "cpu":
         return fused_decode_matmul_plain(
@@ -413,14 +455,15 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
     return _launch(NAME, x[None], codes.reshape(1, -1, codes.shape[-1]),
                    literals.reshape((1, -1) + tuple(literals.shape[-2:])),
                    lut, scale, zero, shape=shape, tile_n=tile_n,
-                   tile_k=tile_k, out_dtype=out_dtype, groups=groups)[0]
+                   tile_k=tile_k, out_dtype=out_dtype, groups=groups,
+                   decode=decode)[0]
 
 
 def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
                                 shape, tile_n: int, tile_k: int,
                                 out_dtype=torch.bfloat16,
-                                plan_experts: int | None = None
-                                ) -> torch.Tensor:
+                                plan_experts: int | None = None,
+                                decode: bool = False) -> torch.Tensor:
     """K3: y[e] = x[e] @ dequant(decode(codes[e], literals[e])).T for every
     expert of a stacked weight, in one launch.
 
@@ -444,4 +487,5 @@ def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,
         raise ValueError(f"{GROUPED_NAME}: no kernel for device {x.device}")
     return _launch(GROUPED_NAME, x, codes, literals, lut, scale, zero,
                    shape=shape, tile_n=tile_n, tile_k=tile_k,
-                   out_dtype=out_dtype, plan_experts=plan_experts)
+                   out_dtype=out_dtype, plan_experts=plan_experts,
+                   decode=decode)

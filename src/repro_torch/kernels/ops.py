@@ -35,7 +35,7 @@ import torch
 
 from .dequant_matmul import dequant_matmul as _dequant_matmul
 from .dict_decode import dict_decode  # noqa: F401  (public entry point)
-from .flash_attention import flash_attention as _flash_attention
+from .flash_attention import FlashAttentionFn
 from .fused_decode_matmul import fused_decode_matmul as _fused
 from .fused_decode_matmul import grouped_fused_decode_matmul as _grouped
 
@@ -82,16 +82,20 @@ def plain_decode() -> bool:
     return _DEFAULT_IMPL == Impl.MATERIALIZE.value
 
 
-def dequant_matmul(x, wq, scale, zero, *, out_dtype=torch.float32):
+def dequant_matmul(x, wq, scale, zero, *, out_dtype=torch.float32,
+                   decode: bool = False):
     """y = x @ dequant(wq).T.  x: (..., K); wq: (N, K) uint8; scale/zero:
-    (N, 1).  Leading dims of x flatten to M."""
+    (N, 1).  Leading dims of x flatten to M.  ``decode``: the M rows are a
+    decode step's, one token a request (the kernels' plans keep each such
+    row's bits what they are alone, at any M)."""
     lead = x.shape[:-1]
     y = _dequant_matmul(x.reshape(-1, x.shape[-1]), wq, scale, zero,
-                        out_dtype=out_dtype)
+                        out_dtype=out_dtype, decode=decode)
     return y.reshape(*lead, wq.shape[0])
 
 
-def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
+def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
+                          decode: bool = False):
     """Compressed-weight matmul, the paper's serving hot path, over one
     layer's planes: a ``PackedLinear`` (codes (nb, slots)) or a
     ``TiledPackedLinear`` (codes (G, nb, slots), probes prefixed 'tiled_',
@@ -107,7 +111,8 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
     ``materialize``: the plain decode, the weight dequantized to f32 and
     one f32 ``torch.matmul`` (probe 'materialize'; the reference
     multiplies in x's dtype, which at bf16 rounds every weight and moves
-    greedy tokens away from the fused rung's)."""
+    greedy tokens away from the fused rung's).  ``decode``: as in
+    :func:`dequant_matmul`, for the fused and unfused rungs."""
     probe = packed.PROBE
     if packed.codes.ndim != 2 + packed.GROUP_AXES:
         raise ValueError(f"{probe}decode_dequant_matmul takes one layer's "
@@ -121,13 +126,14 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16):
     if impl == Impl.UNFUSED.value or not packed.tile_n:
         DISPATCH_COUNTS[probe + "unfused"] += 1
         return dequant_matmul(x, packed.materialize_int8(lut), packed.scale,
-                              packed.zero, out_dtype=out_dtype)
+                              packed.zero, out_dtype=out_dtype,
+                              decode=decode)
     DISPATCH_COUNTS[probe + "fused"] += 1
     lead = x.shape[:-1]
     y = _fused(x.reshape(-1, k), packed.codes, packed.literals, lut,
                packed.scale, packed.zero, shape=tuple(packed.shape),
                tile_n=packed.tile_n, tile_k=packed.tile_k,
-               out_dtype=out_dtype)
+               out_dtype=out_dtype, decode=decode)
     return y.reshape(*lead, n)
 
 
@@ -137,18 +143,19 @@ tiled_decode_dequant_matmul = decode_dequant_matmul
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):
     """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
-    (B, Hq, Tq, Dv)."""
-    return _flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                            q_offset=q_offset)
+    (B, Hq, Tq, Dv), through K2's ``autograd.Function``: the kernel
+    forward, and where autograd records (training) the plain version's
+    backward."""
+    return FlashAttentionFn.apply(q, k, v, causal, sm_scale, q_offset)
 
 
 def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16,
-                        plan_experts=None):
+                        plan_experts=None, decode: bool = False):
     """Grouped expert fused matmul over a stacked tile-major PackedLinear
     (leading expert axis on every plane): xe (E, cap, K) → (E, cap, N), one
     launch of the grouped kernel, planned for ``plan_experts`` experts
-    (default E: see ``grouped_fused_decode_matmul``).  No probe: callers
-    count."""
+    (default E: see ``grouped_fused_decode_matmul``); ``decode``: the
+    capacity rows are a decode step's tokens.  No probe: callers count."""
     if not packed.tile_n or packed.codes.ndim != 3:
         raise ValueError("grouped_fused_local takes a stacked tile-major "
                          f"PackedLinear, got codes {tuple(packed.codes.shape)}"
@@ -156,12 +163,13 @@ def grouped_fused_local(xe, packed, lut, *, out_dtype=torch.bfloat16,
     return _grouped(xe, packed.codes, packed.literals, lut, packed.scale,
                     packed.zero, shape=tuple(packed.shape),
                     tile_n=packed.tile_n, tile_k=packed.tile_k,
-                    out_dtype=out_dtype, plan_experts=plan_experts)
+                    out_dtype=out_dtype, plan_experts=plan_experts,
+                    decode=decode)
 
 
 def grouped_decode_dequant_matmul(xe, packed, lut, *,
                                   out_dtype=torch.bfloat16,
-                                  plan_experts=None):
+                                  plan_experts=None, decode: bool = False):
     """Per-expert compressed matmul y[e] = x[e] @ W[e].T — the MoE hot
     path.  ``packed``: a stacked PackedLinear (codes (E, nb, slots), scale
     (E, N, 1), …); ``xe`` the capacity-gathered token blocks (E, cap, K).
@@ -171,7 +179,9 @@ def grouped_decode_dequant_matmul(xe, packed, lut, *,
     ``unfused`` and for linear-layout stacks (probe 'grouped_unfused'), by
     the plain decode at ``materialize`` (probe 'grouped_materialize').
     ``plan_experts``: the fused kernel's planned expert count (a tiered
-    cache stack's layer-wide count; default E)."""
+    cache stack's layer-wide count; default E).  ``decode``: the capacity
+    rows are a decode step's tokens (each row's bits then do not depend on
+    the capacity, above 16 too)."""
     if lut is None or packed.codes.ndim != 3:
         raise ValueError("grouped_decode_dequant_matmul takes a stacked "
                          "PackedLinear and its LUT, got codes "
@@ -180,7 +190,7 @@ def grouped_decode_dequant_matmul(xe, packed, lut, *,
     if impl == Impl.AUTO.value and packed.tile_n:
         DISPATCH_COUNTS["grouped_fused"] += 1
         return grouped_fused_local(xe, packed, lut, out_dtype=out_dtype,
-                                   plan_experts=plan_experts)
+                                   plan_experts=plan_experts, decode=decode)
     plain = impl == Impl.MATERIALIZE.value
     DISPATCH_COUNTS["grouped_materialize" if plain
                     else "grouped_unfused"] += 1

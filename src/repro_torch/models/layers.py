@@ -39,18 +39,42 @@ Params = Any  # nested dict of tensors / weight containers
 # Linear dispatch — dense | int8 | compressed.
 # ---------------------------------------------------------------------------
 
-def linear(x: torch.Tensor, w, lut=None, bias=None) -> torch.Tensor:
-    """y = x @ W.T (+ bias) for any weight container."""
+def linear(x: torch.Tensor, w, lut=None, bias=None,
+           decode: bool | None = None) -> torch.Tensor:
+    """y = x @ W.T (+ bias) for any weight container.
+
+    ``decode``: x's rows are a decode step's, one token of its own request
+    each; ``None`` reads it from x, (B, 1, K) being a decode step's.  The
+    kernels then plan every row as they plan it alone, at any batch
+    (``fused_decode_matmul.launch_plan``, ``dequant_matmul.dequant_plan``),
+    and a dense weight on the card (MoE's router; dense mode) multiplies
+    them in GEMMs of ROW_PAD rows (``_dense_decode``)."""
+    if decode is None:
+        decode = x.ndim == 3 and x.shape[1] == 1
     if isinstance(w, (PackedLinear, TiledPackedLinear)):
-        y = ops.decode_dequant_matmul(x, w, lut, out_dtype=x.dtype)
+        y = ops.decode_dequant_matmul(x, w, lut, out_dtype=x.dtype,
+                                      decode=decode)
     elif isinstance(w, QuantLinear):
         y = ops.dequant_matmul(x, w.values, w.scale, w.zero,
-                               out_dtype=x.dtype)
+                               out_dtype=x.dtype, decode=decode)
+    elif decode and x.is_cuda:
+        y = _dense_decode(x, w.to(x.dtype))
     else:
         y = x @ w.to(x.dtype).T
     if bias is not None:
         y = y + bias.to(y.dtype)
     return y
+
+
+def _dense_decode(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w.T for a decode step's rows on the card: GEMMs of exactly
+    ROW_PAD rows, the last piece padded with zero rows, so that cuBLAS
+    sums a row in one order at any batch, alone included (see ROW_PAD)."""
+    xf = x.reshape(-1, x.shape[-1])
+    m = xf.shape[0]
+    xf = torch.nn.functional.pad(xf, (0, 0, 0, -m % ROW_PAD))
+    y = torch.cat([c @ w.T for c in xf.split(ROW_PAD)])
+    return y[:m].reshape(*x.shape[:-1], w.shape[0])
 
 
 # Materialization probe: how often a weight container was decoded to a
@@ -243,16 +267,31 @@ def _decode_mask(pos, t: int, lmax: int, device) -> torch.Tensor:
             <= positions(pos, t, device)[..., None])
 
 
-# Rows the decode step's f32 attention einsums run at on the card, whatever
-# the batch up to it.  cuBLAS picks a GEMM by its shape, and these GEMMs
-# have B batches (GQA: B · kv heads; MLA's absorb: M = B), so one row would
-# be summed in another order alone (generate's batch of one) than beside
-# others (an engine tick of n_slots rows): on the H100 MLA's attention of a
-# row moved by ~1e-3 between 4 rows and 1, and Llama-3.2-1B's engine at 8
-# slots left generate's tokens.  Padded to ROW_PAD rows, every batch up to
-# ROW_PAD runs the same GEMMs, so a row has one set of bits, as the fused
-# matmuls give it up to 16 rows.
+# Rows the decode step's f32 attention einsums and its dense-weight matmuls
+# run at on the card, whatever the batch (above ROW_PAD rows, in pieces of
+# ROW_PAD rows, each padded).  cuBLAS picks a GEMM by its shape, and the
+# einsums' GEMMs have B batches (GQA: B · kv heads; MLA's absorb: M = B),
+# so one row would be summed in another order alone (generate's batch of
+# one) than beside others (an engine tick of n_slots rows): on the H100
+# MLA's attention of a row moved by ~1e-3 between 4 rows and 1, and
+# Llama-3.2-1B's engine at 8 slots left generate's tokens.  Padded to
+# ROW_PAD rows, every batch up to ROW_PAD runs the same GEMMs, and a
+# larger batch runs them piece by piece (``_by_row_pieces``,
+# ``_dense_decode``), so a row has one set of bits at any batch, as the
+# fused matmuls' decode plans give it.
 ROW_PAD = 16
+
+
+def _by_row_pieces(fn, b: int, x: torch.Tensor, *rows, pos):
+    """``fn(*rows, pos)`` on the card in pieces of ROW_PAD rows of the
+    batch, concatenated, where the batch ``b`` is larger; else one call.
+    ``rows`` are (B, ...) tensors; ``pos`` an int, a 0-d tensor or (B,)."""
+    if not x.is_cuda or b <= ROW_PAD:
+        return fn(*rows, pos)
+    return torch.cat([fn(*(r[i:i + ROW_PAD] for r in rows),
+                         pos[i:i + ROW_PAD] if torch.is_tensor(pos)
+                         and pos.ndim == 1 else pos)
+                      for i in range(0, b, ROW_PAD)])
 
 
 def _row_pad(b: int, x: torch.Tensor):
@@ -276,6 +315,11 @@ def _attend_cached(q, cache_k, cache_v, pos, t_new: int):
     plain jnp): positions past a row's ``pos + t_new − 1`` get −1e30, whose
     exp is exactly 0.  ``pos``: an int, a 0-d tensor or per-row (B,).  In
     f32; on the card the batch padded to ROW_PAD rows (above)."""
+    b = q.shape[0]
+    if q.is_cuda and b > ROW_PAD:
+        return _by_row_pieces(
+            lambda qq, kk, vv, p: _attend_cached(qq, kk, vv, p, t_new),
+            b, q, q, cache_k, cache_v, pos=pos)
     b, t, hq, hd = q.shape
     hkv = cache_k.shape[2]
     rep = hq // hkv
@@ -446,23 +490,32 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
                                _attend_cache_flash(q, k, v, int(pos0)))
         return linear(o, p["wo"], lut), new_cache
 
-    # Decode (absorbed): score = (q_nope·W_k)·ckv + q_rope·krope, in f32;
-    # on the card the batch padded to ROW_PAD rows (above).
+    o = _by_row_pieces(
+        lambda qn, qr, kv, kr, p: _mla_absorbed(qn, qr, kv, kr, w_k, w_v, p,
+                                                dn + dr),
+        b, x, q_nope, q_rope, cckv, ckrope, pos=pos0).to(x.dtype)
+    return linear(o.reshape(b, t, nq * dv), p["wo"], lut), new_cache
+
+
+def _mla_absorbed(q_nope, q_rope, cckv, ckrope, w_k, w_v, pos, d_qk: int):
+    """MLA's decode (absorbed) over the cached latents: score =
+    (q_nope·W_k)·ckv + q_rope·krope, in f32; on the card the batch padded
+    to ROW_PAD rows (above).  → (b, t, nq, dv) f32."""
     f32 = torch.float32
-    pad = _row_pad(b, x)
+    b, t = q_nope.shape[:2]
+    pad = _row_pad(b, q_nope)
     qn, qr, kv, kr = pad(q_nope), pad(q_rope), pad(cckv), pad(ckrope)
     qc = torch.einsum("bthd,hdr->bthr", qn, w_k.to(f32))
     s_nope = torch.einsum("bthr,blr->bthl", qc, kv)
     s_rope = torch.einsum("bthd,bld->bthl", qr, kr)
-    logits = (s_nope + s_rope) / math.sqrt(dn + dr)
-    mask = _decode_mask(pos0, t, cckv.shape[1], x.device)
+    logits = (s_nope + s_rope) / math.sqrt(d_qk)
+    mask = _decode_mask(pos, t, cckv.shape[1], q_nope.device)
     mask = mask[None, :, None, :] if mask.ndim == 2 else pad(
         mask[:, :, None, :], torch.bool)
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     attn = torch.softmax(logits, dim=-1)
     o_lat = torch.einsum("bthl,blr->bthr", attn, kv)
-    o = torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32))[:b].to(x.dtype)
-    return linear(o.reshape(b, t, nq * dv), p["wo"], lut), new_cache
+    return torch.einsum("bthr,hdr->bthd", o_lat, w_v.to(f32))[:b]
 
 
 # ---------------------------------------------------------------------------
@@ -487,10 +540,11 @@ def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return g * sig * u
 
 
-def apply_mlp(p: Params, x: torch.Tensor, *, lut=None) -> torch.Tensor:
-    g = linear(x, p["w_gate"], lut)
-    u = linear(x, p["w_up"], lut)
-    return linear(_silu_mul(g, u), p["w_down"], lut)
+def apply_mlp(p: Params, x: torch.Tensor, *, lut=None,
+              decode: bool | None = None) -> torch.Tensor:
+    g = linear(x, p["w_gate"], lut, decode=decode)
+    u = linear(x, p["w_up"], lut, decode=decode)
+    return linear(_silu_mul(g, u), p["w_down"], lut, decode=decode)
 
 
 def init_moe(cfg, gen: torch.Generator, device,
@@ -549,17 +603,20 @@ def dispatch_tables(expert_ids: torch.Tensor, slot: torch.Tensor,
 
 
 def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None, *,
-                plan_experts: int | None = None) -> torch.Tensor:
+                plan_experts: int | None = None,
+                decode: bool = False) -> torch.Tensor:
     """SwiGLU over the capacity-gathered token blocks xe (E, cap, d).  A
     compressed stack runs the grouped fused kernel (three launches, dense
     expert weights never exist), planned for ``plan_experts`` experts (a
     tiered cache stack passes the layer's count); dense and int8 stacks
-    are materialized and multiplied, as in the reference."""
+    are materialized and multiplied, as in the reference.  ``decode``:
+    the capacity rows are a decode step's tokens."""
     def mm(h, w):
         if isinstance(w, PackedLinear) and w.codes.ndim == 3 \
                 and lut is not None:
             return ops.grouped_decode_dequant_matmul(
-                h, w, lut, out_dtype=h.dtype, plan_experts=plan_experts)
+                h, w, lut, out_dtype=h.dtype, plan_experts=plan_experts,
+                decode=decode)
         return torch.einsum("ecx,eyx->ecy", h,
                             materialize_weight(w, lut, h.dtype))
 
@@ -620,7 +677,9 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(n_tok, d)
 
-    router_logits = linear(xf, p["router"], lut).to(torch.float32)
+    decode = t == 1       # one token a row: a decode step's rows
+    router_logits = linear(xf, p["router"], lut, decode=decode
+                           ).to(torch.float32)
     probs = torch.softmax(router_logits, dim=-1)
     if expert_ids is None:
         srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -656,12 +715,12 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
         ye_c = _expert_ffn(p["experts"],
                            xpad[tpad.index_select(0,
                                                   res["expert_of_slot"])],
-                           lut, plan_experts=e)             # (C, cap, d)
+                           lut, plan_experts=e, decode=decode)  # (C, cap, d)
         ye = torch.cat([ye_c, ye_c.new_zeros((1, cap, d))], dim=0
                        ).index_select(0, res["slot_of_expert"])
     else:
-        ye = _expert_ffn(p["experts"], xpad[table], lut,
-                         plan_experts=e)                    # (e, cap, d)
+        ye = _expert_ffn(p["experts"], xpad[table], lut, plan_experts=e,
+                         decode=decode)                     # (e, cap, d)
     contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
     contrib = torch.cat([contrib.reshape(e * cap, d),
                          contrib.new_zeros((1, d))], dim=0)  # last: dropped
@@ -672,7 +731,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
         y = y + contrib[where[:, j]]
 
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], xf, lut=lut)
+        y = y + apply_mlp(p["shared"], xf, lut=lut, decode=decode)
     y = y.reshape(b, t, d)
     if with_routing:
         return y, aux, expert_ids

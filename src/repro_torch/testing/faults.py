@@ -35,8 +35,10 @@ Counterpart of ``repro/testing/faults.py`` for the port:
     ``torch.AcceleratorError``) or slows ``serve.residency._transfer``,
     the host-to-device seam of every expert fetch and prefetch.
 
-Not ported yet: the checkpoint-damage methods (they wait for the training
-port).
+  * **Checkpoint damage** (``train/checkpoint.py``'s layout):
+    ``uncommit_step`` (a torn write: no COMMIT), ``truncate_step`` (every
+    shard cut short: an unreadable archive) and ``corrupt_step`` (seeded
+    bit rot inside a shard's payload: only the checksums catch it).
 
 Seeded from ``REPRO_FAULT_SEED``, as the reference's injector is.
 """
@@ -185,6 +187,41 @@ class FaultInjector:
                                    lut=_flipped(state.lut, b // 8, b % 8))
 
     # -- runtime errors ------------------------------------------------
+    # -- checkpoint damage ---------------------------------------------
+    @staticmethod
+    def _step_dir(ckpt_dir: str, step: int) -> str:
+        return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+    def uncommit_step(self, ckpt_dir: str, step: int):
+        """Torn write: the COMMIT marker never landed."""
+        os.remove(os.path.join(self._step_dir(ckpt_dir, step), "COMMIT"))
+
+    def truncate_step(self, ckpt_dir: str, step: int, keep_bytes: int = 64):
+        """Chop every shard file to ``keep_bytes`` (unreadable archive)."""
+        d = self._step_dir(ckpt_dir, step)
+        for fn in os.listdir(d):
+            if fn.startswith("shard_"):
+                with open(os.path.join(d, fn), "r+b") as f:
+                    f.truncate(keep_bytes)
+
+    def corrupt_step(self, ckpt_dir: str, step: int, nbits: int = 8):
+        """Post-commit bit rot inside the first shard's payload (a
+        readable archive, wrong bytes): ``nbits`` seeded bits of its back
+        half, past the archive's header."""
+        d = self._step_dir(ckpt_dir, step)
+        for fn in sorted(os.listdir(d)):
+            if fn.startswith("shard_"):
+                path = os.path.join(d, fn)
+                with open(path, "rb") as f:
+                    data = bytearray(f.read())
+                lo = len(data) // 2
+                for _ in range(nbits):
+                    b = int(self.rng.integers(lo * 8, len(data) * 8))
+                    data[b // 8] ^= 1 << (b % 8)
+                with open(path, "wb") as f:
+                    f.write(bytes(data))
+                return
+
     def failing(self, fn: Callable, times: int = 1,
                 message: str = "injected device fault") -> Callable:
         """Wrap ``fn`` to raise ``torch.AcceleratorError`` on its first

@@ -1,7 +1,14 @@
-"""Training runtime of the port (counterpart of ``repro.train``).  Only
-the data pipeline is ported so far, for the serving launcher's prompts;
-the optimizer, steps, checkpoint and fault tolerance wait for the training
-slice."""
+"""Training runtime of the port (counterpart of ``repro.train``): the data
+pipeline, AdamW (int8 moments optional), the train step, checkpoints and
+the fault-tolerant loop, and a briefly trained smoke model."""
+from . import checkpoint, fault
 from .data import DataConfig, DataPipeline
+from .optimizer import AdamWConfig, adamw_init, adamw_update, lr_schedule
+from .steps import (TrainConfig, cross_entropy, init_train_state,
+                    make_train_step)
+from .trained import trained_tiny_model
 
-__all__ = ["DataConfig", "DataPipeline"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_schedule",
+           "TrainConfig", "make_train_step", "init_train_state",
+           "cross_entropy", "DataConfig", "DataPipeline", "checkpoint",
+           "fault", "trained_tiny_model"]

@@ -667,18 +667,33 @@ def _engine_cfg(family):
     return cfg
 
 
+@pytest.mark.parametrize("n,k", [(17, 2048), (24, 2048), (32, 2048),
+                                 (64, 2048), (32, 128)])
+def test_dense_decode_rows_on_card(card, n, k):
+    """A dense weight at a decode step's n rows (DeepSeek-V2-Lite's router,
+    64 × 2048, and a narrow one): ``layers.linear`` runs GEMMs of 16 rows,
+    the last piece padded, so each row's bits are those it has alone."""
+    g = _gen(card, n + k)
+    w = torch.randn((64, k), generator=g, device=card).to(torch.bfloat16)
+    x = torch.randn((n, 1, k), generator=g, device=card).to(torch.bfloat16)
+    y = L.linear(x, w)
+    for i in range(n):
+        assert torch.equal(y[i:i + 1], L.linear(x[i:i + 1], w)), i
+
+
 @pytest.mark.parametrize("family", ["llama", "deepseek"])
-@pytest.mark.parametrize("n", [4, 5, 8, 16])
+@pytest.mark.parametrize("n", [4, 5, 8, 16, 17, 24, 32, 64])
 def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
     """Each row of a decode step gives the same bits alone (batch 1) as in
     a batch of n beside other rows at other positions: what makes the
     engine's ticks (M = n_slots) equal generate's steps (M = 1), as the
     reference's kernels (K innermost into one accumulator per row block)
     make them.  Checked op by op, every row against itself alone: K1 and
-    K5 at M = n (their decode kernels; above 4 rows in groups of 4), K3 on
-    the layer's expert stack at capacity n (DeepSeek), the decode
-    attention (GQA or MLA's absorbed form; for GQA also at Llama-3.2-1B's
-    full head counts), then the whole step."""
+    K5 at M = n (their decode kernels; above 4 rows in groups of 4, above
+    16 rows K1 in launches of 16), K3 on the layer's expert stack at
+    capacity n (DeepSeek), the decode attention (GQA or MLA's absorbed
+    form, above 16 rows in padded pieces of 16; for GQA also at
+    Llama-3.2-1B's full head counts), then the whole step."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
     g = _gen(card, 9)
@@ -707,7 +722,7 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
             w = ws[name]
             diffs[f"k3_{name}"] = rows(
                 lambda h, w=w: ops.grouped_decode_dequant_matmul(
-                    h, w, st.lut, out_dtype=h.dtype),
+                    h, w, st.lut, out_dtype=h.dtype, decode=True),
                 torch.randn((w.codes.shape[0], n, w.shape[1]), generator=g,
                             device=card).to(torch.bfloat16), dim=1)
     pos = torch.randint(1, 23, (n,), generator=g, device=card)
@@ -789,15 +804,16 @@ def _serve_trace(eng, prompts, max_new, arrivals):
 
 
 @pytest.mark.parametrize("family", ["llama", "deepseek"])
-@pytest.mark.parametrize("slots", [3, 8, 16])
+@pytest.mark.parametrize("slots", [3, 8, 16, 32])
 def test_engine_matches_generate_on_card(card, family, slots):
-    """A staggered mixed trace through the engine on the card (3, 8 or 16
-    slots; above 3, twice as many requests as slots, the first ``slots``
+    """A staggered mixed trace through the engine on the card (3, 8, 16 or
+    32 slots; above 3, twice as many requests as slots, the first ``slots``
     at tick 0 so that every slot is taken): one capture of the generate
     step for the whole drain, every tick's and admission's launches
     counted, every completion bitwise equal to the port's generate of its
     prompt alone at the pool's length (a tick runs every slot's row, so
-    its decode kernels run at M = slots)."""
+    its decode kernels run at M = slots: above 16, K1 in launches of 16
+    rows)."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
     eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=slots,
@@ -824,11 +840,14 @@ def test_engine_matches_generate_on_card(card, family, slots):
         assert np.array_equal(by_rid[i].tokens, want.cpu().numpy()), (
             i, by_rid[i].tokens, want)
     if family == "llama":
-        # K5's head at M = slots: one launch, or one per group of 4 rows
-        head = dqm.dequant_plan(slots, cfg.vocab_size, cfg.d_model, 132)
-        k5_tick = getattr(head, "row_groups", 1)
+        # K5's head at M = slots: one launch a group of 4 rows; K1 one a
+        # group of 16 rows
+        head = dqm.dequant_plan(slots, cfg.vocab_size, cfg.d_model, 132,
+                                decode=True)
+        k5_tick = head.row_groups
+        k1_tick = -(-slots // 16)
         assert launches == {"fused_decode_matmul": 7 * cfg.n_layers
-                            * (ticks + n), "dequant_matmul":
+                            * (k1_tick * ticks + n), "dequant_matmul":
                             k5_tick * ticks + n,
                             "flash_attention": cfg.n_layers * n}, launches
 
@@ -1400,3 +1419,93 @@ def test_tiled_generate_and_engine_on_card(card, family):
                          max_len=eng.pool.max_len)[0]
         assert np.array_equal(by_rid[i].tokens, ref.cpu().numpy()), i
     eng.close()
+
+
+# -- training and calibration on the card ---------------------------------------
+
+@pytest.mark.parametrize("hq,hkv,d,dv", [(8, 2, 64, 64), (4, 4, 192, 128)])
+def test_flash_attention_autograd_on_card(card, hq, hkv, d, dv):
+    """K2 under its autograd.Function on f32 operands at T = 256 (a
+    training forward's length; Llama's head dim and MLA's 192/128): the
+    forward is the SIMT kernel (one launch, within 1e-4 of the plain
+    version), and the gradients are the plain version's on the same
+    inputs and upstream gradient, bitwise (the backward recomputes it)."""
+    from repro_torch.kernels import ops as OPS
+    g = _gen(card, 11)
+    shapes = ((2, hq, 256, d), (2, hkv, 256, d), (2, hkv, 256, dv))
+    base = [torch.randn(s, generator=g, device=card) for s in shapes]
+    w = torch.randn((2, hq, 256, dv), generator=g, device=card)
+
+    def run(fn):
+        ts = [b.clone().requires_grad_(True) for b in base]
+        out = fn(*ts, causal=True)
+        (out * w).sum().backward()
+        return out.detach(), [t.grad for t in ts]
+
+    _build.KERNEL_COUNTS.clear()
+    out, grads = run(OPS.flash_attention)
+    assert dict(_build.KERNEL_COUNTS) == {"flash_attention:simt": 1}
+    out_p, grads_p = run(fa.flash_attention_plain)
+    assert float((out - out_p).abs().max()) <= 1e-4
+    for a, b in zip(grads, grads_p):
+        assert torch.equal(a, b)
+
+
+def test_train_steps_on_card_match_the_cpu(card):
+    """The Llama smoke config from one init, 3 train steps on the card
+    and on the CPU (the plain versions): each loss within 1e-5 relative
+    and the parameters, as one vector, within 1e-5 relative (f32 sums in
+    another order on each device, through AdamW, as in
+    tests/test_torch_train.py); every step's attention on K2's SIMT
+    kernel."""
+    from repro_torch.train import tree as T
+    from repro_torch.train.data import DataConfig, DataPipeline
+    from repro_torch.train.steps import (TrainConfig, init_train_state,
+                                         make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b").smoke
+    params = LM.init_lm(cfg, seed=0, device="cpu")
+    tcfg = TrainConfig()
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                                   seq_len=32, seed=2))
+    step = make_train_step(cfg, tcfg)
+    sc = init_train_state(params, tcfg)
+    sg = init_train_state(T.map_leaves(lambda t: t.to(card), params), tcfg)
+    _build.KERNEL_COUNTS.clear()
+    for i in range(3):
+        sc, mc = step(sc, data.batch_at(i))
+        sg, mg = step(sg, data.batch_at(i))
+        assert float(mg["loss"]) == pytest.approx(float(mc["loss"]),
+                                                  rel=1e-5)
+    assert _build.KERNEL_COUNTS["flash_attention:simt"] == 3 * cfg.n_layers
+    a, b = T.leaves(sg["params"]), T.leaves(sc["params"])
+    num = sum(float(((x.cpu() - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y ** 2).sum()) for y in b)
+    assert (num / den) ** 0.5 <= 1e-5
+
+
+def test_gptq_on_card_matches_cpu(card):
+    """GPTQ of one seeded weight on calibration activations, on the card
+    and on the CPU: codes equal for at least 99.9 % of entries and the
+    layer error within 1e-4 relative (the inverse and Cholesky factor of
+    two solver libraries, as in tests/test_torch_gptq.py)."""
+    from repro_torch.core import gptq
+    from repro_torch.core.quant import QuantConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.laplace(0, 0.05, (96, 256)).astype(np.float32))
+    mix = rng.normal(size=(256, 256)).astype(np.float32) / 16
+    xs = [torch.from_numpy(rng.normal(size=(128, 256)).astype(np.float32)
+                           @ mix) for _ in range(2)]
+    cfg = QuantConfig(bits=4)
+    cpu = gptq.calibrate_and_quantize(w, xs, cfg)
+    dev = gptq.calibrate_and_quantize(w.to(card), [x.to(card) for x in xs],
+                                      cfg)
+    same = float((dev.values.cpu() == cpu.values).float().mean())
+    assert same >= 0.999, same
+    h = gptq.init_hessian(256)
+    for x in xs:
+        h = gptq.accumulate_hessian(h, x)
+    e_cpu = float(gptq.gptq_layer_error(w, cpu, h))
+    e_dev = float(gptq.gptq_layer_error(w.to(card), dev, h.to(card)))
+    assert e_dev == pytest.approx(e_cpu, rel=1e-4)

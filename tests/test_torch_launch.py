@@ -1,5 +1,6 @@
-"""The port's serving launcher (``repro_torch.launch.serve``) and the data
-pipeline it draws its prompts from (``repro_torch.train.data``), on the CPU.
+"""The port's serving launcher (``repro_torch.launch.serve``), its training
+launcher (``repro_torch.launch.train``) and the data pipeline both draw
+from (``repro_torch.train.data``), on the CPU.
 
   * ``DataPipeline.batch_at`` gives the reference's tokens and labels for
     several steps, from a Markov table and from a byte corpus.
@@ -11,6 +12,13 @@ pipeline it draws its prompts from (``repro_torch.train.data``), on the CPU.
   * With the reference's ``init_lm(PRNGKey(0))`` weights carried across
     (``repro_torch.convert``), the Llama run's ``sample:`` tokens and its
     completions by reason equal the reference launcher's, run in-process.
+  * The training launcher: each flag set trains on the CPU (the loss
+    falls); ``--mesh single|multi`` is refused; a run stopped by SIGINT
+    and started again resumes from its checkpoint with the uninterrupted
+    run's losses, bit for bit (the same eager ops on the same CPU); on
+    the reference's init its losses are the reference's train step's
+    under the launcher's TrainConfig, within 1e-5 relative (f32 sums in
+    another order; tests/test_torch_train.py).
 """
 import re
 import sys
@@ -31,9 +39,19 @@ from repro.train.data import DataPipeline as JDataPipeline
 from repro_torch import convert
 from repro_torch.configs import get_config as tget_config
 from repro_torch.launch import serve as TS
+from repro_torch.launch import train as TT
 from repro_torch.train.data import DataConfig, DataPipeline
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _reset_fallback_counts():
+    """The launcher's health line reports the resilience ladder's global
+    ``FALLBACK_COUNTS``: clear it, so that a run reads its own fallbacks
+    and not those an earlier test in this process left."""
+    from repro_torch.serve.resilience import FALLBACK_COUNTS
+    FALLBACK_COUNTS.clear()
 
 
 @pytest.mark.parametrize("kind", ["markov", "bytes"])
@@ -157,3 +175,100 @@ def test_llama_run_matches_reference_launcher(tiles, capsys, monkeypatch):
     TS.main(argv + ["--device", "cpu"], params=params)
     got = _summary(capsys.readouterr().out)
     assert got == ref
+
+
+# -- the training launcher ---------------------------------------------------
+
+TRAIN_FLAGS = {
+    "plain": [],
+    "accum": ["--accum", "2"],
+    "int8_ef": ["--grad-compression", "int8_ef"],
+    "quantized_opt": ["--quantized-opt"],
+    "logits_chunk": ["--logits-chunk", "8"],
+    "deepseek": ["--arch", "deepseek-v2-lite-16b"],
+}
+
+
+@pytest.mark.parametrize("flags", list(TRAIN_FLAGS))
+def test_train_main_runs_each_flag_set_on_cpu(flags, capsys, tmp_path):
+    """20 steps at the default batch (8 × 32) and lr 1e-2: the last
+    three steps' mean loss below the first step's."""
+    out = TT.main(["--device", "cpu", "--steps", "20", "--lr", "1e-2",
+                   "--ckpt-dir", str(tmp_path / "ck")] + TRAIN_FLAGS[flags])
+    text = capsys.readouterr().out
+    assert out["start_step"] == 0 and out["end_step"] == 20
+    assert sorted(out["losses"]) == list(range(1, 21))
+    assert all(np.isfinite(v) for v in out["losses"].values())
+    assert np.mean([out["losses"][s] for s in (18, 19, 20)]) < \
+        out["losses"][1]
+    assert re.search(r"^step +10 loss \d+\.\d{4} gnorm", text, re.M)
+    assert "done at step 20." in text
+    assert (tmp_path / "ck" / "step_00000020" / "COMMIT").exists()
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_train_mesh_is_refused(mesh, capsys):
+    with pytest.raises(SystemExit) as e:
+        TT.main(["--device", "cpu", "--mesh", mesh])
+    assert e.value.code != 0
+    assert "queue 1 item 11" in capsys.readouterr().err
+
+
+def test_train_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TT.main(["--steps", "1"])
+
+
+def test_train_preempted_and_resumed_equals_uninterrupted(tmp_path, capsys):
+    """SIGINT at step 7 (checkpoints every 3): the loop commits step 7 and
+    stops; started again with the same --ckpt-dir it resumes at 7 and its
+    losses for steps 8–16 are the uninterrupted run's."""
+    import signal
+    argv = ["--device", "cpu", "--steps", "16", "--batch", "4", "--seq",
+            "16", "--ckpt-every", "3"]
+    ref = TT.main(argv + ["--ckpt-dir", str(tmp_path / "ref")])
+
+    def stop_at_7(s, m):
+        if s == 7:
+            signal.raise_signal(signal.SIGINT)
+
+    d = ["--ckpt-dir", str(tmp_path / "run")]
+    first = TT.main(argv + d, on_metrics=stop_at_7)
+    assert first["end_step"] == 7
+    assert "stopped at step 7" in capsys.readouterr().out
+    second = TT.main(argv + d)
+    assert second["start_step"] == 7 and second["end_step"] == 16
+    assert "resumed from committed step 7" in capsys.readouterr().out
+    assert {**first["losses"], **second["losses"]} == ref["losses"]
+
+
+def test_train_losses_match_the_reference_step(tmp_path):
+    """On the reference's init (``init_lm(PRNGKey(0))``, converted), the
+    launcher's losses are those of the reference's jitted train step under
+    the same TrainConfig (the reference launcher's: lr 5e-3, warmup
+    steps/10) and the same batches."""
+    from repro.train.data import DataConfig as JDC, DataPipeline as JDP
+    from repro.train.optimizer import AdamWConfig as JAdamW
+    from repro.train.steps import TrainConfig as JTC
+    from repro.train.steps import init_train_state, make_train_step
+    cfg = get_config("llama3.2-1b").smoke
+    params = JLM.init_lm(jax.random.PRNGKey(0), cfg, jnp.float32)
+    steps = 8
+    jt = JTC(optimizer=JAdamW(lr=5e-3, warmup_steps=max(steps // 10, 1),
+                              total_steps=steps))
+    state = init_train_state(params, jt)
+    step = jax.jit(make_train_step(cfg, jt))
+    data = JDP(JDC(vocab_size=cfg.vocab_size, batch=4, seq_len=16))
+    want = {}
+    for i in range(steps):
+        state, m = step(state, data.batch_at(i))
+        want[i + 1] = float(m["loss"])
+    got = TT.main(["--device", "cpu", "--steps", str(steps), "--batch", "4",
+                   "--seq", "16", "--ckpt-dir", str(tmp_path / "ck")],
+                  params=convert.params_from_numpy(
+                      jax.tree_util.tree_map(np.asarray, params),
+                      tget_config("llama3.2-1b").smoke, device="cpu"))
+    for s in want:
+        assert got["losses"][s] == pytest.approx(want[s], rel=1e-5), s

@@ -27,15 +27,22 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 
 
 # modules of the MoE slice, of request-level serving, of integrity and
-# resilience, of tiered residency and the governor, and of the serving
-# launcher and its data pipeline, which the walk below must reach
+# resilience, of tiered residency and the governor, of the serving
+# launcher and its data pipeline, and of training and calibration, which
+# the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
                "repro_torch.serve.scheduler", "repro_torch.core.integrity",
                "repro_torch.testing.faults", "repro_torch.serve.residency",
                "repro_torch.serve.governor", "repro_torch.core.policy",
-               "repro_torch.launch.serve", "repro_torch.train.data")
+               "repro_torch.launch.serve", "repro_torch.train.data",
+               "repro_torch.core.quant", "repro_torch.core.gptq",
+               "repro_torch.core.lzw", "repro_torch.core.codec",
+               "repro_torch.train.optimizer", "repro_torch.train.steps",
+               "repro_torch.train.tree", "repro_torch.train.checkpoint",
+               "repro_torch.train.fault", "repro_torch.train.trained",
+               "repro_torch.launch.train")
 
 
 def test_port_imports_no_jax_and_no_reference():
