@@ -59,8 +59,8 @@ each in the phases below; the script exits non-zero if any phase fails:
   5. Card against CPU: the same seeded model at 2 layers, packed once; the
      prefill logits of the card and of the CPU (plain versions) must agree
      within a stated tolerance; greedy tokens are compared.  For the MoE,
-     also under the card's routing, and with K2's SIMT kernel beside its
-     tensor-core kernel; the tokens each request routes and keeps
+     also under the card's routing, and with K2's f32 kernel beside its
+     bf16 kernel; the tokens each request routes and keeps
      differently are reported.
   6. Resilience (``resilience_phase`` on Llama after the engine phase;
      ``moe_rungs`` on DeepSeek-V2-Lite at 2 layers): the manifest,
@@ -74,7 +74,8 @@ each in the phases below; the script exits non-zero if any phase fails:
      end with the dispatch lever unset and no fallback counted.
   7. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
-     attention forward K2's SIMT kernel under its autograd.Function); one
+     attention forward K2's f32 kernel, three-term TF32 on the tensor
+     cores, under its autograd.Function); one
      step's gradients against the all-plain attention's; GPTQ on layer 0
      (below naive per-channel); the trained model packed compressed and
      served through ``serve``'s gates, with its escape share.
@@ -86,7 +87,7 @@ each in the phases below; the script exits non-zero if any phase fails:
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
-the SIMT kernel's launches by phase, one JSON
+K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -118,6 +119,7 @@ DS_CHECK_STEPS = 4       # greedy steps compared card against CPU
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense bf16 tensor-core peak, same source
 F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores, same source
+TF32_FLOP_PER_S = 495e12         # dense TF32 tensor-core peak, same source
 # Tolerances, each with its reason:
 #  * K1/K5 on random bf16 x, f32 output: the kernel and the plain version
 #    sum the same exact products in another order; f32 roundoff over
@@ -540,8 +542,9 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
     """K2 at the prefill's (B, hq, T, d) against (B, hkv, T + 32, d/dv)
     keys and values with q_offset 0 (the prefill over a cache of T + 32),
     and on a ragged prime T: the tensor-core kernel on bf16 operands (the
-    main path's), and the SIMT kernel with f32 q (``f32_*``), each
-    launched under its own count."""
+    main path's), and the f32 kernel with f32 q (``f32_*``; the wrapper
+    upcasts k and v to f32 inside the timed call), each launched under its
+    own count."""
     fa, _build = rt["fa"], rt["_build"]
     rows, worst = [], 0.0
     for tq in (t_prefill, 197):
@@ -570,7 +573,8 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
         kv_bytes = 2 * BATCH * hkv * seen_k * (d + dv)
         flops = 2.0 * (d + dv) * BATCH * hq * pairs
         b, by = bound_ms(kv_bytes + 2 * BATCH * hq * tq * (d + dv), flops)
-        b32, by32 = bound_ms(kv_bytes + 4 * BATCH * hq * tq * (d + dv), flops)
+        b32, by32 = bound_ms(kv_bytes + 4 * BATCH * hq * tq * (d + dv),
+                             3 * flops, TF32_FLOP_PER_S)
         kr, vr = kb[:, :, :tq], vb[:, :, :tq]
         # SDPA on f32 operands: with enable_gqa it takes the math backend
         # (bmm, whose cuBLAS workspace per stream outlives the timing); k
@@ -609,7 +613,8 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
                                     "bound_ms", "bound_by", "f32_ms",
                                     "f32_bound_ms", "f32_library_ms")},
             "f32_max_abs_err": max(r["max_abs_err_f32"] for r in rows),
-            "f32_kernel": "SIMT, f32 q (flash_attention_f32)"}, rows
+            "f32_kernel": "three-term TF32 on the tensor cores, f32 q "
+                          "(flash_attention_f32)"}, rows
 
 
 def plane_bytes(w) -> int:
@@ -2912,7 +2917,7 @@ TRAIN_DATA_VOCAB = 1024
 # and one MoE layer): the MoE dispatch's backward, the aux loss, MLA
 DS_TRAIN_LAYERS, DS_TRAIN_STEPS = 2, 3
 #  * One train step's gradients with K2 under its autograd.Function (the
-#    SIMT kernel's forward) against those of the all-plain attention, every
+#    f32 kernel's forward) against those of the all-plain attention, every
 #    parameter as one vector (L2): the two forwards differ by f32 roundoff
 #    (FLASH_ATOL_F32 at most, sums in another order), which 16 layers of
 #    f32 activations carry into every gradient.
@@ -2924,11 +2929,13 @@ LAUNCH_TRAIN_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_STOP_AT = 30, 4, 13
 
 
 def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
-    """K2's SIMT kernel at a training forward's shapes: f32 q, k and v of
+    """K2's f32 kernel at a training forward's shapes: f32 q, k and v of
     (TRAIN_BATCH, h, TRAIN_SEQ, d), causal, against its plain version
     (FLASH_ATOL_F32); timed beside the plain version and SDPA on the same
-    f32 inputs (k and v repeated to the q heads outside the timed call);
-    the bound at f32's peak.  → the kernels row."""
+    f32 inputs (k and v repeated to the q heads outside the timed call).
+    The bound is the lesser of two: the work as f32 FMA at f32's peak, and
+    as the kernel takes it, three TF32 products at TF32's peak; each the
+    larger of its operations and the bytes.  → the kernels row."""
     fa = rt["fa"]
     t = TRAIN_SEQ
     q = torch.randn((TRAIN_BATCH, hq, t, d), generator=gen, device=device)
@@ -2941,14 +2948,16 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
         raise AssertionError(f"K2 f32 ({d}, {dv}) T={t}: err {err}")
     kf, vf = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
     pairs = t * (t + 1) // 2
-    b, by = bound_ms(4 * TRAIN_BATCH * (hq * t * (d + dv)
-                                        + hkv * t * (d + dv)),
-                     2.0 * (d + dv) * TRAIN_BATCH * hq * pairs,
-                     F32_FLOP_PER_S)
+    moved = 4 * TRAIN_BATCH * (hq * t * (d + dv) + hkv * t * (d + dv))
+    flops = 2.0 * (d + dv) * TRAIN_BATCH * hq * pairs
+    fma = bound_ms(moved, flops, F32_FLOP_PER_S)
+    tf32x3 = bound_ms(moved, 3 * flops, TF32_FLOP_PER_S)
+    (b, by), peak = min((fma, "f32 FMA at 67 TFLOP/s"),
+                        (tf32x3, "3 TF32 products at 495 TFLOP/s"))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
-            "kernel": "SIMT (f32 operands)",
+            "kernel": "three-term TF32 on the tensor cores (f32 operands)",
             "timed_at": f"{what}: f32 q, k, v (B={TRAIN_BATCH}, {hq}/{hkv} "
                         f"heads, T={t}, {d}/{dv}), causal",
             "max_abs_err": err,
@@ -2958,7 +2967,8 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, kf, vf, is_causal=True)] * 8),
             "library": "scaled_dot_product_attention (f32)",
-            "bound_ms": b, "bound_by": by}
+            "bound_ms": b, "bound_by": by, "bound_peak": peak,
+            "f32_fma_bound_ms": fma[0], "tf32x3_bound_ms": tf32x3[0]}
 
 
 def train_steps(rt, cfg, state, step, data, n, first=0):
@@ -2987,6 +2997,16 @@ def train_steps(rt, cfg, state, step, data, n, first=0):
                    "kernel_launches": dict(_build.KERNEL_COUNTS)}
 
 
+def k2_train_launches(run) -> int:
+    """K2's f32-kernel launches in a ``train_steps`` run; raises if the run
+    launched K2 through any other kernel."""
+    k2 = {k: n for k, n in run["kernel_launches"].items()
+          if k.startswith("flash_attention:")}
+    if set(k2) - {"flash_attention:tf32x3"}:
+        raise AssertionError(f"train steps launched K2 as {k2}")
+    return k2.get("flash_attention:tf32x3", 0)
+
+
 def grad_against_plain(rt, cfg, tcfg, params, batch):
     """One step's loss and gradients with K2 under its autograd.Function
     against the all-plain attention (``ops.flash_attention`` swapped for
@@ -2996,7 +3016,7 @@ def grad_against_plain(rt, cfg, tcfg, params, batch):
     _build = rt["_build"]
     _build.KERNEL_COUNTS.clear()
     loss, grads = S.loss_and_grads(params, cfg, tcfg, batch)
-    simt = _build.KERNEL_COUNTS["flash_attention:simt"]
+    k2 = _build.KERNEL_COUNTS["flash_attention:tf32x3"]
     real = ops.flash_attention
     ops.flash_attention = fa.flash_attention_plain
     try:
@@ -3010,9 +3030,9 @@ def grad_against_plain(rt, cfg, tcfg, params, batch):
     rel = (num / den) ** 0.5
     out = {"loss": float(loss), "loss_plain": float(loss_p),
            "grad_rel_l2": rel, "tolerance": TRAIN_GRAD_RTOL,
-           "simt_launches": simt, "plain_run_launches": plain_launches,
+           "tf32x3_launches": k2, "plain_run_launches": plain_launches,
            "leaves": len(T.leaves(params))}
-    if not (rel <= TRAIN_GRAD_RTOL and simt == cfg.n_layers
+    if not (rel <= TRAIN_GRAD_RTOL and k2 == cfg.n_layers
             and plain_launches == 0 and math.isfinite(rel)):
         raise AssertionError(f"K2 autograd gradients: {out}")
     return out
@@ -3094,7 +3114,8 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
     TRAIN_STEPS steps of batch TRAIN_BATCH × TRAIN_SEQ (tokens below
     TRAIN_DATA_VOCAB) at the reference launcher's AdamW (lr 5e-3, warmup
     steps/10); the loss must fall, and
-    every step's attention is K2's SIMT kernel (16 launches a step).  Then
+    every step's attention is K2's f32 kernel (16 launches a step, none
+    of another K2 kernel).  Then
     one step's gradients against the all-plain attention; GPTQ on layer
     0; the trained model packed compressed and served by ``serve`` (the
     eager loop, two generates, bitwise, the counts) with the escape
@@ -3117,10 +3138,10 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
                              data, TRAIN_STEPS)
     info.update(run)
     losses = run["losses"]
-    simt = run["kernel_launches"].get("flash_attention:simt", 0)
-    info["flash_attention_simt_launches"] = simt
+    k2 = k2_train_launches(run)
+    info["flash_attention_tf32x3_launches"] = k2
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
-            and simt == cfg.n_layers * TRAIN_STEPS
+            and k2 == cfg.n_layers * TRAIN_STEPS
             and set(run["launches"]) == {"flash_attention_f32"}):
         faults.append(f"llama train: losses {losses}, launches "
                       f"{run['launches']}, by kernel "
@@ -3137,7 +3158,7 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
     row = check_flash_train(rt, device, gen, timer, cfg.n_heads,
                             cfg.n_kv_heads, cfg.resolved_head_dim,
                             cfg.resolved_head_dim, "Llama-3.2-1B training")
-    kernels.append(dict(row, path=f"{cfg.name} train", launches=simt,
+    kernels.append(dict(row, path=f"{cfg.name} train", launches=k2,
                         launches_of=f"{TRAIN_STEPS} train steps"))
     # the trained model, packed compressed and served
     rt["engine"].drop_graphs(cfg)
@@ -3161,7 +3182,7 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
 def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
     """DeepSeek-V2-Lite at full width cut to DS_TRAIN_LAYERS layers, f32,
     from seed 0: DS_TRAIN_STEPS steps (the MoE dispatch's backward, the
-    aux loss, MLA through K2's SIMT kernel at (192, 128)); finite losses,
+    aux loss, MLA through K2's f32 kernel at (192, 128)); finite losses,
     the routers' aux loss > 0, 2 K2 launches a step; K2 f32 at MLA's
     training shapes against its plain version.  → the numbers."""
     S, opt = rt["steps"], rt["optimizer"]
@@ -3181,17 +3202,17 @@ def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
     info = {"model": cfg.name, "layers": cfg.n_layers,
             "depth_cut": f"{DS_TRAIN_LAYERS} of 27 layers", **run,
             "aux_loss": float(aux)}
-    simt = run["kernel_launches"].get("flash_attention:simt", 0)
-    info["flash_attention_simt_launches"] = simt
+    k2 = k2_train_launches(run)
+    info["flash_attention_tf32x3_launches"] = k2
     if not (all(map(math.isfinite, run["losses"])) and float(aux) > 0
-            and simt == cfg.n_layers * DS_TRAIN_STEPS):
+            and k2 == cfg.n_layers * DS_TRAIN_STEPS):
         faults.append(f"deepseek train: {info}")
     del state
     torch.cuda.empty_cache()
     row = check_flash_train(rt, device, gen, timer, cfg.n_heads, cfg.n_heads,
                             cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
                             cfg.v_head_dim, "DeepSeek-V2-Lite MLA training")
-    kernels.append(dict(row, path=f"{cfg.name} train", launches=simt,
+    kernels.append(dict(row, path=f"{cfg.name} train", launches=k2,
                         launches_of=f"{DS_TRAIN_STEPS} train steps at "
                                     f"{DS_TRAIN_LAYERS} layers"))
     return info
@@ -3562,7 +3583,7 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
     E2E_LOGIT_ATOL, greedy tokens of ``steps`` steps compared.
 
     For an MoE model the card's prefill runs twice, with K2's tensor-core
-    kernel (the main path's) and with its SIMT kernel (f32 q), and each is
+    kernel (the main path's) and with its f32 kernel (f32 q), and each is
     held against two CPU runs.  Against the CPU's own routing: a request
     whose last token routes to, or keeps within capacity, other experts is
     left out (at most one), the others within the tolerance.  Against a
@@ -3619,18 +3640,18 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
         _build, fa, ops = rt["_build"], rt["fa"], rt["ops"]
         tensor_core = ops.flash_attention
 
-        def simt(q, k, v, **kw):          # K2's SIMT kernel takes f32 q
+        def f32(q, k, v, **kw):           # K2's f32 kernel takes f32 q
             return tensor_core(q.float(), k, v, **kw).to(q.dtype)
 
         _build.LAUNCH_COUNTS.clear()
-        ops.flash_attention = simt
+        ops.flash_attention = f32
         try:
-            res["card_simt"] = prefill(st_gpu, device)
+            res["card_f32"] = prefill(st_gpu, device)
         finally:
             ops.flash_attention = tensor_core
         k2 = {n: _build.LAUNCH_COUNTS[n] for n in (fa.NAME, fa.F32_NAME)}
         if k2 != {fa.NAME: 0, fa.F32_NAME: cfg.n_layers}:
-            faults.append(f"SIMT run launched K2 as {k2}")
+            faults.append(f"f32 run launched K2 as {k2}")
         cap = L._capacity(BATCH * t_prefill, cfg.top_k, cfg.n_experts,
                           cfg.capacity_factor)
 
@@ -3644,7 +3665,7 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
                 -1).any(0).reshape(BATCH, t_prefill)
 
         cpu_logits, cpu_route = res["cpu"][0], res["cpu"][2]
-        for key in ("card", "card_simt"):
+        for key in ("card", "card_f32"):
             logits, _, route = res[key]
             same = prefill(st_cpu, "cpu", routing=route)[0]
             err = (logits - cpu_logits).abs().max(dim=-1).values

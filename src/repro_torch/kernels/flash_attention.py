@@ -2,28 +2,31 @@
 
 Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (the
 TPU Pallas kernel).  The CUDA source is ``csrc/flash_attention.cu``, with
-two kernels chosen by dtype: bf16 q, k and v (every path through
-``generate``) run the tensor-core kernel (``mma.sync``, bf16 operands, f32
-sums, P split into bf16 hi + lo for P·V), counted as ``flash_attention``;
-any f32 operand runs the SIMT kernel (f32 throughout), counted as
-``flash_attention_f32``.  :func:`flash_attention_plain` is the plain
-PyTorch version the CPU runs and the card's kernels are held against.
+two kernels, both on the tensor cores (``mma.sync``), chosen by dtype:
+bf16 q, k and v (every path through ``generate``) run the bf16 kernel
+(bf16 operands, f32 sums, P split into bf16 hi + lo for P·V), counted as
+``flash_attention``; any f32 operand runs the f32 kernel (TF32 operands
+split into hi + lo, each product taken as hi·hi + hi·lo + lo·hi, f32
+sums), counted as ``flash_attention_f32``.  A bf16 operand beside an f32
+one is upcast to f32 before the launch (exact), and a bf16 q's output is
+rounded back to bf16.  :func:`flash_attention_plain` is the plain PyTorch
+version the CPU runs and the card's kernels are held against.
 Layouts are the reference's: q (B, Hq, Tq, Dqk), k (B, Hkv, Tk, Dqk), v
 (B, Hkv, Tk, Dv) → (B, Hq, Tq, Dv) in q's dtype, with query i at position
 ``q_offset + i``.  Masked scores are NEG_INF = −1e30 and the denominator
 is max(l, 1e−30), as in the reference.  Both kernels also count in
-``_build.KERNEL_COUNTS`` as ``flash_attention:mma`` / ``:simt``.
+``_build.KERNEL_COUNTS`` as ``flash_attention:mma`` / ``:tf32x3``.
 
 Training differentiates through K2 with :class:`FlashAttentionFn`: its
-forward launches the kernel (f32 operands, as training runs, the SIMT
-kernel; bf16 the tensor-core kernel), its backward recomputes attention
+forward launches the kernel (f32 operands, as training runs, the f32
+kernel; bf16 the bf16 kernel), its backward recomputes attention
 with :func:`flash_attention_plain` under autograd and differentiates
 that.  The reference has no backward kernel (its attention has no
 ``custom_vjp``: JAX differentiates its plain path), so none is ported.
 The kernels take the head-dim
 pairs (Dqk, Dv) of ``HEAD_DIMS``: Llama's 64 and 128, DeepSeek-V2's
 MLA (qk_nope + qk_rope = 192, v = 128), and the smoke configs' 16 and MLA
-24/16 (the tensor-core kernel stages Dqk 24 with zero columns up to 32).
+24/16 (the bf16 kernel stages Dqk 24 with zero columns up to 32).
 """
 from __future__ import annotations
 
@@ -35,15 +38,18 @@ import torch
 from . import _build
 
 NAME = "flash_attention"          # the CUDA source; the bf16 kernel's count
-F32_NAME = "flash_attention_f32"  # the SIMT kernel's count
+F32_NAME = "flash_attention_f32"  # the f32 (three-term TF32) kernel's count
 NEG_INF = -1e30
 # (Dqk, Dv) in the kernels: the published widths, then the smoke configs
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (16, 16), (24, 16))
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_MMA_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9 + [ctypes.c_float]
-                 + [_I] * 3 + [_P])
-_SIMT_ARGTYPES = ([_P] * 4 + [_I] * 9 + [_L] * 9 + [ctypes.c_float]
-                  + [_I] * 3 + [_P])
+# both C entries: q, k, v, out, B, Hq, Hkv, Tq, Tk, Dqk, Dv, 9 strides,
+# sm_scale, causal, q_offset, device, stream
+_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9 + [ctypes.c_float]
+             + [_I] * 3 + [_P])
+# kernel → (C entry, operand dtype); the KERNEL_COUNTS key is NAME:kernel
+_KERNELS = {"mma": ("qmoe_flash_attention_mma", torch.bfloat16),
+            "tf32x3": ("qmoe_flash_attention_tf32x3", torch.float32)}
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -70,10 +76,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if its base and (B, H, T) strides are multiples of 8 bf16
-    (16 bytes, the tensor-core kernel's copy unit), else a contiguous copy
-    that is."""
-    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+    """``t`` if its base and (B, H, T) strides are multiples of 16 bytes
+    (the kernels' copy unit: 8 bf16, 4 f32), else a contiguous copy that
+    is."""
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st % per == 0 for st in t.stride()[:3]):
         return t
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -85,10 +92,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """(B, Hq, Tq, Dqk) × (B, Hkv, Tk, Dqk), (B, Hkv, Tk, Dv) →
     (B, Hq, Tq, Dv).  Any strides over (B, H, T) with the head dim
     contiguous; ``sm_scale`` defaults to 1/sqrt(Dqk).  CPU tensors take the
-    plain version; CUDA tensors launch a kernel or raise: the tensor-core
-    kernel when q, k and v are bf16 (an operand whose base or (B, H, T)
-    strides are not multiples of 8 elements goes through ``.contiguous()``
-    first), the SIMT kernel when any is f32."""
+    plain version; CUDA tensors launch a kernel or raise: the bf16 kernel
+    when q, k and v are bf16, the f32 (three-term TF32) kernel when any is
+    f32 (a bf16 operand upcast first).  An operand whose base or (B, H, T)
+    strides are not multiples of 16 bytes goes through ``.contiguous()``
+    first."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale, q_offset=q_offset)
@@ -116,24 +124,21 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if b * hq * tq == 0:
         return out
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    if q.dtype == k.dtype == torch.bfloat16:
-        q, k, v = _aligned(q), _aligned(k), _aligned(v)
-        name, dtypes = NAME, ()
-        fn = _build.function(NAME, "qmoe_flash_attention_mma", _MMA_ARGTYPES)
-    else:
-        name = F32_NAME
-        dtypes = (int(q.dtype == torch.bfloat16),
-                  int(k.dtype == torch.bfloat16))
-        fn = _build.function(NAME, "qmoe_flash_attention_simt",
-                             _SIMT_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             *dtypes, b, hq, hkv, tq, tk, d, dv, *q.stride()[:3],
-             *k.stride()[:3], *v.stride()[:3], float(sm), int(causal),
-             int(q_offset), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+    kernel = "mma" if q.dtype == k.dtype == torch.bfloat16 else "tf32x3"
+    symbol, dtype = _KERNELS[kernel]
+    q, k, v = (_aligned(t.to(dtype)) for t in (q, k, v))
+    res = out if out.dtype == dtype else torch.empty_like(out, dtype=dtype)
+    fn = _build.function(NAME, symbol, _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
+             b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
+             *v.stride()[:3], float(sm), int(causal), int(q_offset),
+             dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    name = NAME if kernel == "mma" else F32_NAME
     _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
-    _build.KERNEL_COUNTS[f"{NAME}:{'mma' if name == NAME else 'simt'}"] += 1
+    _build.KERNEL_COUNTS[f"{NAME}:{kernel}"] += 1
+    if res is not out:
+        out.copy_(res)
     return out
 
 

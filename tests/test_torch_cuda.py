@@ -224,41 +224,79 @@ def test_dequant_matmul_on_card(card, n, k, m):
     assert torch.equal(y1, y2)
 
 
-@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,dv,off,dtype", [
-    (2, 4, 2, 70, 70, 64, 64, 0, torch.float32),
-    (1, 32, 8, 197, 229, 64, 64, 0, torch.bfloat16),
-    (2, 8, 2, 33, 100, 128, 128, 20, torch.float32),
-    (1, 4, 4, 1, 50, 64, 64, 49, torch.bfloat16),
-    (2, 16, 16, 37, 69, 192, 128, 0, torch.float32),
-    (1, 16, 16, 101, 133, 192, 128, 32, torch.bfloat16),
-    (2, 16, 8, 64, 64, 192, 128, 5, torch.float32),    # GQA, one q block
-    (1, 8, 2, 1, 207, 64, 64, 206, torch.bfloat16),    # one row, full cache
-    (2, 4, 2, 15, 15, 64, 64, 0, torch.bfloat16),      # a warp's ragged tail
-    (1, 4, 4, 65, 80, 128, 128, 15, torch.bfloat16),   # a block's tail
-    (1, 4, 2, 40, 129, 64, 64, 89, torch.bfloat16),    # Tk = 64·2 + 1
-    (4, 32, 8, 175, 207, 64, 64, 0, torch.bfloat16),   # Llama: GQA rep 4
-    (4, 16, 16, 175, 207, 192, 128, 0, torch.bfloat16),  # MLA's prefill
-    (3, 4, 2, 16, 16, 16, 16, 0, torch.bfloat16),      # Llama's smoke config
-    (3, 4, 2, 70, 70, 16, 16, 0, torch.float32),
-    (3, 4, 4, 16, 16, 24, 16, 0, torch.bfloat16),      # MLA's smoke config
-    (2, 4, 4, 70, 135, 24, 16, 65, torch.bfloat16),    # Dqk 24, K tiles
-    (3, 4, 4, 37, 37, 24, 16, 0, torch.float32),
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,d,dv,off,dtype,layout", [
+    (2, 4, 2, 70, 70, 64, 64, 0, torch.float32, "contiguous"),
+    (1, 32, 8, 197, 229, 64, 64, 0, torch.bfloat16, "contiguous"),
+    (2, 8, 2, 33, 100, 128, 128, 20, torch.float32, "contiguous"),
+    (1, 4, 4, 1, 50, 64, 64, 49, torch.bfloat16, "contiguous"),
+    (2, 16, 16, 37, 69, 192, 128, 0, torch.float32, "contiguous"),
+    (1, 16, 16, 101, 133, 192, 128, 32, torch.bfloat16, "contiguous"),
+    (2, 16, 8, 64, 64, 192, 128, 5, torch.float32, "contiguous"),    # GQA, one q block
+    (1, 8, 2, 1, 207, 64, 64, 206, torch.bfloat16, "contiguous"),    # one row, full cache
+    (2, 4, 2, 15, 15, 64, 64, 0, torch.bfloat16, "contiguous"),      # a warp's ragged tail
+    (1, 4, 4, 65, 80, 128, 128, 15, torch.bfloat16, "contiguous"),   # a block's tail
+    (1, 4, 2, 40, 129, 64, 64, 89, torch.bfloat16, "contiguous"),    # Tk = 64·2 + 1
+    (4, 32, 8, 175, 207, 64, 64, 0, torch.bfloat16, "contiguous"),   # Llama: GQA rep 4
+    (4, 16, 16, 175, 207, 192, 128, 0, torch.bfloat16, "contiguous"),  # MLA's prefill
+    (3, 4, 2, 16, 16, 16, 16, 0, torch.bfloat16, "contiguous"),      # Llama's smoke config
+    (3, 4, 2, 70, 70, 16, 16, 0, torch.float32, "contiguous"),
+    (3, 4, 4, 16, 16, 24, 16, 0, torch.bfloat16, "contiguous"),      # MLA's smoke config
+    (2, 4, 4, 70, 135, 24, 16, 65, torch.bfloat16, "contiguous"),    # Dqk 24, K tiles
+    (3, 4, 4, 37, 37, 24, 16, 0, torch.float32, "contiguous"),
+    # f32 at the training shapes (4 × 256 tokens), and on the views the
+    # layers pass ((B, T, H, D) transposed), not causal, beside bf16 k/v
+    # (and bf16 q beside f32 k/v: bf16 out), and unaligned
+    (4, 32, 8, 256, 256, 64, 64, 0, torch.float32, "contiguous"),
+    (4, 16, 16, 256, 256, 192, 128, 0, torch.float32, "contiguous"),
+    (2, 32, 8, 256, 256, 64, 64, 0, torch.float32, "views"),
+    (2, 16, 16, 256, 256, 192, 128, 0, torch.float32, "views"),
+    (2, 8, 2, 70, 100, 64, 64, 0, torch.float32, "noncausal"),
+    (2, 4, 4, 37, 69, 192, 128, 0, torch.float32, "noncausal"),
+    (4, 32, 8, 175, 207, 64, 64, 0, torch.float32, "mixed"),
+    (4, 16, 16, 175, 207, 192, 128, 0, torch.float32, "mixed"),
+    (2, 4, 2, 33, 50, 64, 64, 3, torch.bfloat16, "mixed"),
+    (2, 8, 2, 37, 70, 64, 64, 5, torch.float32, "unaligned"),
+    (2, 4, 4, 40, 129, 192, 128, 89, torch.float32, "unaligned"),
+    (2, 4, 2, 45, 45, 24, 16, 0, torch.float32, "views"),
 ])
 def test_flash_attention_on_card(card, b, hq, hkv, tq, tk, d, dv, off,
-                                 dtype):
-    """bf16 operands run the tensor-core kernel, f32 the SIMT kernel; each
-    launch counts under its own name."""
+                                 dtype, layout):
+    """bf16 operands run the bf16 kernel (``flash_attention:mma``), any f32
+    operand the f32 kernel (three-term TF32, ``flash_attention:tf32x3``);
+    each launch counts under its own name.  ``layout``: contiguous;
+    ``views``, (B, T, H, D) tensors transposed as models/layers.py passes
+    them; ``noncausal``; ``mixed``, k and v in the other dtype than q (the
+    wrapper upcasts to f32); ``unaligned``, v's rows dv + 1 elements apart
+    (the wrapper copies it contiguous).  Within 1e-4 of the plain version
+    for an f32 output, two bf16 ulps for a bf16 one."""
     g = _gen(card, 2)
-    q = torch.randn((b, hq, tq, d), generator=g, device=card).to(dtype)
-    k = torch.randn((b, hkv, tk, d), generator=g, device=card).to(dtype)
-    v = torch.randn((b, hkv, tk, dv), generator=g, device=card).to(dtype)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    kv_dtype = other if layout == "mixed" else dtype
+
+    def draw(*shape, dt=dtype):
+        if layout == "views":          # (B, T, H, D) → (B, H, T, D) views
+            x = torch.randn((shape[0], shape[2], shape[1], shape[3]),
+                            generator=g, device=card).to(dt)
+            return x.transpose(1, 2)
+        return torch.randn(shape, generator=g, device=card).to(dt)
+
+    q = draw(b, hq, tq, d)
+    k, v = draw(b, hkv, tk, d, dt=kv_dtype), draw(b, hkv, tk, dv, dt=kv_dtype)
+    if layout == "unaligned":
+        v = torch.randn((b, hkv, tk, dv + 1), generator=g, device=card
+                        ).to(dtype)[..., :dv]
+        assert v.stride(2) % 4
+    causal = layout != "noncausal"
     _build.LAUNCH_COUNTS.clear()
-    got = fa.flash_attention(q, k, v, q_offset=off)
-    assert dict(_build.LAUNCH_COUNTS) == {
-        fa.NAME if dtype == torch.bfloat16 else fa.F32_NAME: 1}
+    _build.KERNEL_COUNTS.clear()
+    got = fa.flash_attention(q, k, v, causal=causal, q_offset=off)
+    bf16 = dtype == kv_dtype == torch.bfloat16
+    assert dict(_build.LAUNCH_COUNTS) == {fa.NAME if bf16 else fa.F32_NAME: 1}
+    assert dict(_build.KERNEL_COUNTS) == {
+        "flash_attention:mma" if bf16 else "flash_attention:tf32x3": 1}
     assert got.shape == (b, hq, tq, dv) and got.dtype == dtype
-    err = (got.float() - fa.flash_attention_plain(q, k, v, q_offset=off)
-           .float()).abs().max().item()
+    err = (got.float() - fa.flash_attention_plain(
+        q, k, v, causal=causal, q_offset=off).float()).abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 1.6e-2), err
 
 
@@ -1359,7 +1397,8 @@ def test_k1_and_k3_bits_unchanged_on_card(card):
     gave before K1's column groups and K2's smoke head dims, and K1/K3
     above 4 rows the bits recorded with the 16-row decode kernel, each of
     their rows bitwise that row alone (``tools/k1_bits.py``: the CRC32 of
-    each output, recorded on an H100 of 132 SMs)."""
+    each output, recorded on an H100 of 132 SMs); K2's f32 cases the bits
+    of the three-term TF32 kernel, within 1e-4 of the plain version."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parents[1] / "tools" / "k1_bits.py"
@@ -1370,9 +1409,13 @@ def test_k1_and_k3_bits_unchanged_on_card(card):
     if sms not in k1_bits.EXPECTED:
         pytest.skip(f"bits recorded for {sorted(k1_bits.EXPECTED)} SMs, "
                     f"the card has {sms}")
-    rows_alone = {}
-    assert k1_bits.case_outputs(card, rows_alone) == k1_bits.EXPECTED[sms]
+    rows_alone, flash_err = {}, {}
+    assert k1_bits.case_outputs(card, rows_alone, flash_err) == \
+        k1_bits.EXPECTED[sms]
     assert rows_alone and all(rows_alone.values()), rows_alone
+    f32 = [c[0] for c in k1_bits.FLASH_CASES if c[7] == "f32"]
+    assert f32 and all(flash_err[n] <= k1_bits.F32_ATOL for n in f32), \
+        flash_err
 
 
 def _tiled_state(cfg, card, seed=0):
@@ -1427,8 +1470,8 @@ def test_tiled_generate_and_engine_on_card(card, family):
 def test_flash_attention_autograd_on_card(card, hq, hkv, d, dv):
     """K2 under its autograd.Function on f32 operands at T = 256 (a
     training forward's length; Llama's head dim and MLA's 192/128): the
-    forward is the SIMT kernel (one launch, within 1e-4 of the plain
-    version), and the gradients are the plain version's on the same
+    forward is the f32 (three-term TF32) kernel (one launch, within 1e-4
+    of the plain version), and the gradients are the plain version's on the same
     inputs and upstream gradient, bitwise (the backward recomputes it)."""
     from repro_torch.kernels import ops as OPS
     g = _gen(card, 11)
@@ -1444,7 +1487,7 @@ def test_flash_attention_autograd_on_card(card, hq, hkv, d, dv):
 
     _build.KERNEL_COUNTS.clear()
     out, grads = run(OPS.flash_attention)
-    assert dict(_build.KERNEL_COUNTS) == {"flash_attention:simt": 1}
+    assert dict(_build.KERNEL_COUNTS) == {"flash_attention:tf32x3": 1}
     out_p, grads_p = run(fa.flash_attention_plain)
     assert float((out - out_p).abs().max()) <= 1e-4
     for a, b in zip(grads, grads_p):
@@ -1456,8 +1499,8 @@ def test_train_steps_on_card_match_the_cpu(card):
     and on the CPU (the plain versions): each loss within 1e-5 relative
     and the parameters, as one vector, within 1e-5 relative (f32 sums in
     another order on each device, through AdamW, as in
-    tests/test_torch_train.py); every step's attention on K2's SIMT
-    kernel."""
+    tests/test_torch_train.py); every step's attention on K2's f32
+    (three-term TF32) kernel."""
     from repro_torch.train import tree as T
     from repro_torch.train.data import DataConfig, DataPipeline
     from repro_torch.train.steps import (TrainConfig, init_train_state,
@@ -1477,7 +1520,7 @@ def test_train_steps_on_card_match_the_cpu(card):
         sg, mg = step(sg, data.batch_at(i))
         assert float(mg["loss"]) == pytest.approx(float(mc["loss"]),
                                                   rel=1e-5)
-    assert _build.KERNEL_COUNTS["flash_attention:simt"] == 3 * cfg.n_layers
+    assert _build.KERNEL_COUNTS["flash_attention:tf32x3"] == 3 * cfg.n_layers
     a, b = T.leaves(sg["params"]), T.leaves(sc["params"])
     num = sum(float(((x.cpu() - y) ** 2).sum()) for x, y in zip(a, b))
     den = sum(float((y ** 2).sum()) for y in b)

@@ -19,7 +19,8 @@ Tolerances:
     bf16-representable for those comparisons.
   * the card's tensor-core attention, emulated here (P split into bf16
     hi + lo for P·V), on bf16 inputs with a bf16 output: the card tests'
-    1.6e-2.
+    1.6e-2.  Its f32 kernel, emulated here too (three TF32 products), on
+    f32 inputs: K2's f32 tolerance, 1e-4.
 """
 import itertools
 import math
@@ -811,6 +812,109 @@ def test_flash_attention_tensor_core_numerics(hq, hkv, d, dv, q_offset,
     assert got.shape == ref.shape == (2, hq, 175, dv)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 1.6e-2, err
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest on the
+    f32 bits with ties away from zero (adding half of the 13 dropped bits'
+    range to the sign-magnitude pattern), the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32(x):
+    """hi = tf32(x), lo = tf32(x − hi): the card's f32 kernel's split."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32x3(eq, a, b):
+    """einsum(eq, a, b) as the card's f32 kernel takes it: both operands
+    split, hi·hi + hi·lo + lo·hi, each a TF32 product summed in f32."""
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _tf32x3_attention(q, k, v, *, causal, q_offset, keys):
+    """The numerics of the card's f32 K2 kernel (three-term TF32 on the
+    tensor cores), emulated in f32 torch: keys in tiles of ``keys``, S =
+    Q·Kᵀ in three TF32 products, scores in log2 units (scale · log2 e,
+    masked to −1e30), the running max and sum in f32, P·V in three TF32
+    products of the split P and V, l summed from the unsplit P, and
+    o / max(l, 1e−30)."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, tq, d)
+    scale = 1.4426950408889634 / math.sqrt(d)
+    m = torch.full((b, hkv, hq // hkv, tq, 1), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros((b, hkv, hq // hkv, tq, v.shape[-1]))
+    qpos = q_offset + torch.arange(tq)
+    for k0 in range(0, tk, keys):
+        s = _tf32x3("bgrqd,bgkd->bgrqk", qg, k[:, :, k0:k0 + keys]) * scale
+        if causal:
+            kpos = k0 + torch.arange(s.shape[-1])
+            s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _tf32x3("bgrqk,bgkd->bgrqd", p,
+                                v[:, :, k0:k0 + keys])
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, tq, -1)
+
+
+@pytest.mark.parametrize("hq,hkv,d,dv,keys", [(8, 2, 64, 64, 64),  # Llama
+                                              (4, 4, 192, 128, 64),  # MLA
+                                              (4, 4, 192, 128, 32)])
+@pytest.mark.parametrize("q_offset,seed", [(0, 13), (32, 14)])
+def test_flash_attention_tf32x3_numerics(hq, hkv, d, dv, keys, q_offset,
+                                         seed):
+    """Three TF32 products (hi·hi + hi·lo + lo·hi), as the card's f32 K2
+    kernel takes Q·Kᵀ and P·V, keep f32 attention within K2's f32
+    tolerance, 1e-4, of the reference (``repro.kernels.ref`` in f32) at
+    the training shapes: 256 queries, causal, over 256 + q_offset keys in
+    the kernel's tiles (MLA's in 64 or 32 keys).  One TF32 product alone
+    would not: it errs ~1.6e-3 on these inputs, which the test also
+    shows."""
+    q, k, v = (torch.from_numpy(a)
+               for a in _qkv(seed, 2, hq, hkv, 256, 256 + q_offset, d, dv))
+    got = _tf32x3_attention(q, k, v, causal=True, q_offset=q_offset,
+                            keys=keys)
+    ref = torch.from_numpy(np.asarray(jref.flash_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), causal=True,
+        q_offset=q_offset)).copy())
+    assert got.shape == ref.shape == (2, hq, 256, dv)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-4, err
+    one_pass = flash_attention_plain(_tf32(q), _tf32(k), _tf32(v),
+                                     q_offset=q_offset)
+    assert (one_pass - ref).abs().max().item() > 1e-4
+
+
+def test_tf32_split_rebuilds_f32():
+    """hi + lo of the split rebuilds x to within 2^-22 of |x|, hi with its
+    low 13 bits zero (a TF32 value), over randn values of many scales and
+    the values whose dropped bits are exactly half (ties, rounded away
+    from zero)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy((rng.standard_normal(1 << 16)
+                          * 10.0 ** rng.integers(-20, 20, 1 << 16))
+                         .astype(np.float32))
+    ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                         1.0 + 3 * 2.0 ** -11], dtype=torch.float32)
+    x = torch.cat([x, ties])
+    hi, lo = _split_tf32(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    rel = ((hi.double() + lo.double() - x.double()).abs()
+           / x.double().abs())
+    assert rel.max().item() <= 2.0 ** -22
+    assert hi[-3:].tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                                1.0 + 2.0 ** -9]
 
 
 def test_flash_attention_operand_alignment():

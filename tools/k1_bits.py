@@ -9,8 +9,10 @@ untiled planes (G = 1) and K3 on expert stacks (``CASES``: the decode
 kernel at M ≤ 4 and at 5–16 rows, the tensor-core kernel) on weights and
 x drawn with numpy from one seed, so that two trees see the same inputs,
 and K2 (its flash-attention kernels) at the main paths' prefill shapes
-(``FLASH_CASES``: the tensor-core kernel on bf16, the SIMT kernel on f32
-q), and K5 (``dequant_matmul``) at M = 1–4 on both paths' int8 LM heads
+(``FLASH_CASES``: the bf16 kernel on bf16, the f32 kernel, three-term
+TF32, on f32 q beside bf16 k and v; each case's error against the plain
+version is printed too, and ``--check`` holds the f32 cases to K2's f32
+tolerance, 1e-4), and K5 (``dequant_matmul``) at M = 1–4 on both paths' int8 LM heads
 (``K5_CASES``: its decode kernel), quantized from numpy draws.
 Prints one JSON line: the CRC32 of each case's output bytes, the card's
 name and SM count, and for the cases above 4 rows whether every row is
@@ -22,8 +24,8 @@ that differs from itself alone.
 
 Only functions of the port that every tree since K3 has are used:
 ``fused_decode_matmul`` and ``grouped_fused_decode_matmul`` on 2-D and
-stacked planes, ``pack_expert_stack`` to pack, ``flash_attention``,
-``quantize_linear`` and ``dequant_matmul``.
+stacked planes, ``pack_expert_stack`` to pack, ``flash_attention`` and its
+plain version, ``quantize_linear`` and ``dequant_matmul``.
 """
 from __future__ import annotations
 
@@ -53,12 +55,16 @@ CASES = (
     ("k3_mma", 8, 2048, 1408, 130, "rand"),
 )
 
-# (name, B, Hq, Hkv, T, Dqk, Dv, q dtype): keys T + 32, q_offset 0
+# (name, B, Hq, Hkv, T, Dqk, Dv, q dtype): keys T + 32, q_offset 0; k and
+# v bf16.  An f32 case's contract is K2's f32 tolerance against the plain
+# version, F32_ATOL, not its bits: its CRC is the bits of the kernel that
+# passed it when they were taken.
+F32_ATOL = 1e-4
 FLASH_CASES = (
     ("k2_mma_64", 4, 32, 8, 175, 64, 64, "bf16"),
     ("k2_mma_192", 4, 16, 16, 175, 192, 128, "bf16"),
-    ("k2_simt_64", 4, 32, 8, 175, 64, 64, "f32"),
-    ("k2_simt_192", 4, 16, 16, 175, 192, 128, "f32"),
+    ("k2_tf32x3_64", 4, 32, 8, 175, 64, 64, "f32"),
+    ("k2_tf32x3_192", 4, 16, 16, 175, 192, 128, "f32"),
 )
 
 # (name, N, K, M): K5 on an int8 LM head (Llama-3.2-1B's, DeepSeek-V2-
@@ -80,7 +86,10 @@ EXPECTED: dict = {132: {
     "k1_mma": 34615304, "k1_mma_int": 942546493,
     "k3_decode": 360643931, "k3_mma": 3723757787,
     "k2_mma_64": 3481377767, "k2_mma_192": 505407163,
-    "k2_simt_64": 1568519408, "k2_simt_192": 484588909,
+    # K2's f32 kernel (three-term TF32), within 1e-4 of the plain version
+    # there (1.5e-6 and 2.4e-6); the SIMT kernel it replaced gave
+    # 1568519408 and 484588909
+    "k2_tf32x3_64": 636781454, "k2_tf32x3_192": 111455433,
     # K5's decode kernel, from the tree before K5's tensor-core kernel
     "k5_decode_llama_m1": 1744373323, "k5_decode_llama_m2": 2962426492,
     "k5_decode_llama_m3": 3509981583, "k5_decode_llama_m4": 1652619544,
@@ -90,10 +99,12 @@ EXPECTED: dict = {132: {
     "k5_decode_deepseek_m4": 1565512306}}
 
 
-def case_outputs(device, rows_alone=None) -> dict:
+def case_outputs(device, rows_alone=None, flash_err=None) -> dict:
     """{case: CRC32 of the output bytes} for ``CASES`` on ``device``; for
     the K1/K3 cases above 4 rows, ``rows_alone[case]`` is whether each row
-    of the output is bitwise that row computed alone (M = 1)."""
+    of the output is bitwise that row computed alone (M = 1); for the K2
+    cases, ``flash_err[case]`` is the output's largest distance from the
+    plain version's."""
     from repro_torch.core.compressed import pack_expert_stack
     from repro_torch.kernels import fused_decode_matmul as fdm
     out = {}
@@ -141,6 +152,9 @@ def case_outputs(device, rows_alone=None) -> dict:
         y = fa.flash_attention(q, k, v)
         out[name] = zlib.crc32(y.contiguous().cpu().float().numpy()
                                .tobytes())
+        if flash_err is not None:
+            flash_err[name] = float((y.float() - fa.flash_attention_plain(
+                q, k, v).float()).abs().max())
     from repro_torch.core.compressed import quantize_linear
     from repro_torch.kernels import dequant_matmul as dqm
     heads = {}
@@ -171,11 +185,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    rows_alone = {}
-    crcs = case_outputs(device, rows_alone)
+    rows_alone, flash_err = {}, {}
+    crcs = case_outputs(device, rows_alone, flash_err)
     print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
                       "sms": sms, "crc32": crcs,
-                      "rows_equal_alone": rows_alone}), flush=True)
+                      "rows_equal_alone": rows_alone,
+                      "k2_max_abs_err": flash_err}), flush=True)
     if args.check:
         want = EXPECTED.get(sms)
         if want is None:
@@ -186,6 +201,13 @@ def main() -> int:
                if want.get(k) != v}
         if bad:
             print(f"k1_bits: bits changed: {bad}", file=sys.stderr)
+            return 1
+        far = {name: err for name, err in flash_err.items()
+               if dict((c[0], c[7]) for c in FLASH_CASES)[name] == "f32"
+               and not err <= F32_ATOL}
+        if far:
+            print(f"k1_bits: K2 f32 cases past {F32_ATOL}: {far}",
+                  file=sys.stderr)
             return 1
         apart = [k for k, same in rows_alone.items() if not same]
         if apart:

@@ -1,7 +1,8 @@
 """Where the time of the port's main paths goes on the card.
 
     python3 tools/profile_decode.py
-        [--model llama|deepseek|both|engine|rows|k1|k2|k4|k5] [--src DIR]
+        [--model llama|deepseek|both|engine|rows|k1|k2|k4|k5|train]
+        [--src DIR]
 
 For each model — Llama-3.2-1B (all 16 layers) and DeepSeek-V2-Lite (full
 width, 8 of 27 layers, as chip_smoke.py serves it) — packs seeded weights
@@ -270,6 +271,21 @@ def profile_model(model, dev):
                lambda: graph.decode(st.params, st.lut, DECODE_STEPS))
 
 
+def short_name(fn: str) -> str:
+    """``kernel<template args>`` from a mangled kernel name (its length-
+    prefixed name ending in ``kernel``), else the name as it is."""
+    for i in range(len(fn)):
+        for j in range(i + 1, min(i + 4, len(fn))):
+            if not fn[i:j].isdigit():
+                break
+            name = fn[j:j + int(fn[i:j])]
+            rest = fn[j + len(name):]
+            args = re.match(r"I(\w+?)EEv", rest)
+            if name.endswith("kernel") and args:
+                return f"{name}<{args.group(1)}>"
+    return fn
+
+
 def ptxas_kernels(report: str) -> list:
     """(kernel, registers, spill bytes, static shared memory bytes) for
     each entry function of a ``ptxas -v`` report, the template arguments
@@ -278,10 +294,7 @@ def ptxas_kernels(report: str) -> list:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            fn, spill = m.group(1), 0
-            short = re.search(r"\d([a-z_]*kernel)I(\w+?)EEv", fn)
-            if short:
-                fn = f"{short.group(1)}<{short.group(2)}>"
+            fn, spill = short_name(m.group(1)), 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -477,12 +490,31 @@ def time_k1(dev, label, reps=20):
 
 
 K2_SHAPES = (("llama", 32, 8, 64, 64), ("mla", 16, 16, 192, 128))
+# The f32 kernel's design choices at the training shapes: variants of
+# csrc/flash_attention.cu with one line replaced, each checked against the
+# plain version (1e-4) and timed beside the source.
+K2_F32_VARIANTS = {
+    "MLA 64-key tiles": {"constexpr int kMlaKeys = 32;":
+                         "constexpr int kMlaKeys = 64;"},
+    "D 64 at 3 blocks an SM": {"constexpr int kMinBlocks64 = 2;":
+                               "constexpr int kMinBlocks64 = 3;"},
+    "cvt.rna instruction": {
+        "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;":
+        "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) "
+        ": \"f\"(x));\n  return r;"},
+    "hi and lo truncated": {
+        "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;":
+        "  return __float_as_uint(x) & 0xffffe000u;"},
+}
 
 
 def time_k2(dev, label):
-    """K2 at both paths' prefill shapes through chip_smoke.check_flash: one
-    definition of its error, timing and bound."""
-    from chip_smoke import Timer, check_flash
+    """K2 at both paths' prefill shapes through chip_smoke.check_flash, and
+    its f32 kernel at both training shapes through
+    chip_smoke.check_flash_train (one definition of its error, timing and
+    bound), then K2_F32_VARIANTS at the training shapes (a tree with the
+    three-term TF32 kernel)."""
+    from chip_smoke import Timer, check_flash, check_flash_train
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
@@ -491,16 +523,48 @@ def time_k2(dev, label):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timer = Timer(dev)
-    rows = []
+    rt = {"fa": fa, "_build": _build}
+    rows, train_rows, variants = [], [], []
     for what, hq, hkv, d, dv in K2_SHAPES:
-        _, shape_rows = check_flash({"fa": fa, "_build": _build}, dev, 175,
-                                    gen, timer, hq, hkv, d, dv, what)
+        _, shape_rows = check_flash(rt, dev, 175, gen, timer, hq, hkv, d, dv,
+                                    what)
         for row in shape_rows:
             rows.append({"shape": what, "B": BATCH, "Hq": hq, "Hkv": hkv,
                          **row})
             print(json.dumps(rows[-1]), flush=True)
+    for what, hq, hkv, d, dv in K2_SHAPES:
+        _build.KERNEL_COUNTS.clear()
+        row = check_flash_train(rt, dev, gen, timer, hq, hkv, d, dv,
+                                f"{what} training")
+        train_rows.append({**row, "kernel_launches": dict(
+            _build.KERNEL_COUNTS)})
+        print(json.dumps(train_rows[-1]), flush=True)
+    if "kMlaKeys" in (_build.CSRC / "flash_attention.cu").read_text():
+        symbol = "qmoe_flash_attention_tf32x3"
+        built = build_variants(_build, "flash_attention", K2_F32_VARIANTS,
+                               symbol)
+        source = _build.function("flash_attention", symbol, fa._ARGTYPES)
+        for name, (fn, ptxas, _) in built.items():
+            fn.argtypes = fa._ARGTYPES
+            out = {"variant": name, "ptxas": [
+                r for r in ptxas if "tf32x3" in r["kernel"]]}
+            for (what, hq, hkv, d, dv), src_row in zip(K2_SHAPES,
+                                                         train_rows):
+                _build._FUNCS[("flash_attention", symbol)] = fn
+                try:
+                    row = check_flash_train(rt, dev, gen, timer, hq, hkv, d,
+                                            dv, f"{what} training")
+                except AssertionError as e:     # outside the tolerance
+                    row = {"ms": None, "max_abs_err": str(e)}
+                finally:
+                    _build._FUNCS[("flash_attention", symbol)] = source
+                out[what] = {"ms": row["ms"], "source_ms": src_row["ms"],
+                             "max_abs_err": row["max_abs_err"]}
+            variants.append(out)
+            print(json.dumps(out), flush=True)
     ptxas = print_ptxas("flash_attention")
     print(json.dumps({"k2": label, "build_s": build_s, "rows": rows,
+                      "train_rows": train_rows, "variants": variants,
                       "ptxas": ptxas}), flush=True)
 
 
@@ -914,11 +978,113 @@ def time_rows(dev, label):
     print(json.dumps({"rows": label, "rows_by_batch": rows}), flush=True)
 
 
+TRAIN_MARKS = {"forward": "train: forward",
+               "k2_forward": "train: K2 forward",
+               "k2_backward": "train: K2 backward (plain)",
+               "adamw": "train: AdamW"}
+
+
+def mark_train():
+    """``record_function`` ranges (TRAIN_MARKS) around the train step's
+    loss (the forward), K2's autograd.Function forward and backward, and
+    AdamW's update.  The backward runs on autograd's device thread, so it
+    is the step's busy time less the forward's and AdamW's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import steps as S
+
+    def ranged(f, label):
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return f(*a, **kw)
+        return run
+
+    S._loss_fn = ranged(S._loss_fn, TRAIN_MARKS["forward"])
+    S.adamw_update = ranged(S.adamw_update, TRAIN_MARKS["adamw"])
+    fn = fa.FlashAttentionFn
+    fn.forward = staticmethod(ranged(fn.forward, TRAIN_MARKS["k2_forward"]))
+    fn.backward = staticmethod(ranged(fn.backward,
+                                      TRAIN_MARKS["k2_backward"]))
+
+
+def profile_train(dev):
+    """``--model train``: one eager Llama-3.2-1B f32 train step (4 × 256
+    tokens, full width, 16 layers, chip_smoke.py's train settings) under
+    the profiler, after two warm-up steps and three timed ones: busy time
+    by kernel and by range (forward, K2's forward, the backward, K2's plain
+    backward within it, the rest of the backward, AdamW), and the idle
+    share of the step's wall time."""
+    from chip_smoke import (TRAIN_BATCH, TRAIN_DATA_VOCAB, TRAIN_SEQ,
+                            TRAIN_STEPS)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm as LM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as S
+    from repro_torch.train.data import DataConfig, DataPipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b").full
+    tcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=max(TRAIN_STEPS // 10, 1),
+        total_steps=TRAIN_STEPS))
+    data = DataPipeline(DataConfig(vocab_size=TRAIN_DATA_VOCAB,
+                                   batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    state = S.init_train_state(LM.init_lm(cfg, seed=SEED, device=dev), tcfg)
+    step = S.make_train_step(cfg, tcfg)
+    mark_train()
+    ms = []
+    for i in range(5):           # 2 warm-up steps, then 3 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(i))
+        float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    _build.KERNEL_COUNTS.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(5))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    marks = set(TRAIN_MARKS.values())
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in averages
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in marks]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    ranged = {name: sum(e.device_time_total / 1e3 for e in averages
+                        if e.key == label and e.device_type == DeviceType.CPU)
+              for name, label in TRAIN_MARKS.items()}
+    # K2's kernel is launched through ctypes, by no operator, so no range
+    # holds it: every launch is in the forward
+    k2_ms = sum(ms_ for k, ms_, _ in rows if "flash_attention" in k)
+    ranged["forward"] += k2_ms
+    ranged["k2_forward"] += k2_ms
+    backward = busy - ranged["forward"] - ranged["adamw"]
+    print(json.dumps({
+        "model": cfg.name, "window": "train step", "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "step_ms_unprofiled": ms[2:],
+        "wall_ms": wall, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / wall,
+        "forward_ms": ranged["forward"],
+        "k2_forward_ms": ranged["k2_forward"],
+        "backward_ms": backward, "k2_backward_ms": ranged["k2_backward"],
+        "backward_rest_ms": backward - ranged["k2_backward"],
+        "adamw_ms": ranged["adamw"],
+        "k2_kernel_ms": k2_ms,
+        "kernel_launches": dict(_build.KERNEL_COUNTS),
+        "top_kernels": [{"name": k[:80], "ms": ms_, "calls": n}
+                        for k, ms_, n in rows[:15]]}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model",
                     choices=["llama", "deepseek", "both", "engine", "rows",
-                             "k1", "k2", "k4", "k5"],
+                             "k1", "k2", "k4", "k5", "train"],
                     default="both")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the directory to import repro_torch from")
@@ -933,6 +1099,9 @@ def main():
     dev = torch.device("cuda", 0)
     kernel_alone = {"k1": time_k1, "k2": time_k2, "k4": time_k4,
                     "k5": time_k5, "rows": time_rows}
+    if args.model == "train":
+        profile_train(dev)
+        return 0
     if args.model in kernel_alone:
         kernel_alone[args.model](dev, args.src)
         return 0
