@@ -5,7 +5,8 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Imports nothing of JAX or of the JAX package.
 Two main paths — Llama-3.2-1B (dense) and DeepSeek-V2-Lite (MLA + MoE) —
-each in the phases below; the script exits non-zero if any phase fails:
+each in the phases below, then the other decoder-only families; the
+script exits non-zero if any phase fails:
 
   1. Device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
@@ -72,7 +73,24 @@ each in the phases below; the script exits non-zero if any phase fails:
      and resumed, bitwise equal to ``generate``; K4 and K5 at the unfused
      rung's shapes against their plain versions.  Every other phase must
      end with the dispatch lever unset and no fallback counted.
-  7. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
+  7. Families (``families_phase``, after both paths): the decoder-only
+     families beside them, compressed, at full width, weights from the
+     seed (FAMILY_MODELS): Zamba2-1.2B (hybrid: 38 Mamba2 blocks, the
+     shared attention block after every 6th; K1, K2 at MHA D 64, K5) and
+     Mamba2-2.7B (64 blocks; also one 320-token prompt, two SSD chunks) at
+     full depth, Qwen3-4B (qk-norm, the int8 KV cache; also the engine at
+     4 slots) at 8 of 36 layers, Qwen2-7B (QKV bias) at 4 of 28, and
+     InternVL2-2B at 4 of 24 with 256 patch embeddings before each prompt.
+     Each through ``serve``'s gates (launches as ``family_want`` computes
+     them from the config, graphed tokens bitwise the eager loop's),
+     nothing materialized; every kernel call of a prefill and a decode
+     step against its plain version on the same inputs, and the prefill
+     logits against the same path with every kernel swapped for its
+     plain version (``against_plain``); kernel rows for K1 on Mamba2's in/out projections
+     (tile_n 16) and K5 on each model's head (N = 32 000, 50 280,
+     151 936, 152 064, 92 553) at decode and prefill M; a ``family`` line
+     per model.
+  8. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
      attention forward K2's f32 kernel, three-term TF32 on the tensor
      cores, under its autograd.Function); one
@@ -87,6 +105,7 @@ each in the phases below; the script exits non-zero if any phase fails:
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
+a ``family`` line per model of the families phase,
 K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
@@ -95,6 +114,7 @@ card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -850,16 +870,18 @@ def pack(rt, cfg, device, seed, tiles=0, mode="compressed"):
                    "pack_peak_mem_bytes": peak}
 
 
-def eager_loop(rt, cfg, state, ids):
+def eager_loop(rt, cfg, state, ids, embeds=None):
     """The decode phase as an eager Python loop over ``make_serve_fns``'
     ``decode_step`` (int positions, every op dispatched from the host), as
-    ``generate`` runs it on the CPU, greedy.  → (the MAX_NEW new tokens,
+    ``generate`` runs it on the CPU, greedy; ``embeds`` (B, T', d): a
+    VLM's patch embeddings before the prompt.  → (the MAX_NEW new tokens,
     seconds of the decode steps alone)."""
     prefill, decode_step = rt["make_serve_fns"](cfg, device=ids.device)
-    b, t0 = ids.shape
+    b = ids.shape[0]
+    t0 = ids.shape[1] + (0 if embeds is None else embeds.shape[1])
     caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=ids.device)
-    logits, caches = prefill(state.params, state.lut, {"tokens": ids},
-                             caches)
+    logits, caches = prefill(state.params, state.lut,
+                             {"tokens": ids, "embeds": embeds}, caches)
     toks = [torch.argmax(logits, dim=-1)[:, None]]
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -872,8 +894,9 @@ def eager_loop(rt, cfg, state, ids):
 
 
 def serve(rt, cfg, state, device, batch, lens, want, packed_want,
-          dispatch_want=None, kernel_want=None):
-    """The main path.  The eager decode loop first; then ``generate``
+          dispatch_want=None, kernel_want=None, embeds=None):
+    """The main path (``embeds``: a VLM's patch embeddings, prepended at
+    the prefill).  The eager decode loop first; then ``generate``
     twice: the first call runs an eager step and captures the decode step,
     the second only replays it.  Counts are zeroed just before each of the
     three and read just after; each must count ``want`` launches (and,
@@ -886,7 +909,9 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     Raises on any difference."""
     _build, L, LM, ops, E = (rt["_build"], rt["L"], rt["LM"], rt["ops"],
                              rt["engine"])
-    b, t_prefill = batch.shape
+    b, t_tokens = batch.shape
+    # the prefill's positions: the patch embeddings', then the prompt's
+    t_prefill = t_tokens + (0 if embeds is None else embeds.shape[1])
     steps = MAX_NEW - 1
     ids = torch.as_tensor(batch, device=device)
 
@@ -911,10 +936,10 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
 
     def generate():
         return rt["generate"](state.params, cfg, batch, lut=state.lut,
-                              max_new=MAX_NEW, device=device)
+                              max_new=MAX_NEW, embeds=embeds, device=device)
 
     (eager, eager_decode_s), eager_run = counted(
-        lambda: eager_loop(rt, cfg, state, ids))
+        lambda: eager_loop(rt, cfg, state, ids, embeds))
     out_capture, capture_run = counted(generate)
     out, replay_run = counted(generate)
     graph = E.decode_graph(state.params, cfg, state.lut, b,
@@ -930,11 +955,12 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
         caches = LM.init_caches(cfg, b, t_prefill + MAX_NEW, device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _ = prefill(state.params, state.lut, {"tokens": ids}, caches)
+        logits, _ = prefill(state.params, state.lut,
+                            {"tokens": ids, "embeds": embeds}, caches)
         torch.cuda.synchronize()
         pre.append(time.perf_counter() - t0)
     prefill_s = sorted(pre)[1]
-    tok0 = graph.prefill(state.params, state.lut, ids)
+    tok0 = graph.prefill(state.params, state.lut, ids, embeds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     graph.decode(state.params, state.lut, steps)
@@ -942,7 +968,7 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
     graph_decode_s = time.perf_counter() - t0
     alone = torch.cat([tok0, graph.seq[:, t_prefill + 1:t_prefill + MAX_NEW]],
                       dim=1)
-    new = out[:, t_prefill:]
+    new = out[:, t_tokens:]
     runs = {"eager_loop": eager_run, "generate_capture": capture_run,
             "generate_replay": replay_run}
     e2e = {"model": cfg.name, "layers": cfg.n_layers, "batch": b,
@@ -969,12 +995,12 @@ def serve(rt, cfg, state, device, batch, lens, want, packed_want,
                     for k, r in runs.items()},
            "first_request_tokens": new[0].tolist(), "tokens": new.tolist()}
     faults = []
-    if not (tuple(out.shape) == (b, t_prefill + MAX_NEW)
+    if not (tuple(out.shape) == (b, t_tokens + MAX_NEW)
             and int(new.min()) >= 0 and int(new.max()) < cfg.vocab_size
             and bool(torch.isfinite(logits.float()).all())):
         faults.append(f"out {tuple(out.shape)}, tokens in "
                       f"[{int(new.min())}, {int(new.max())}]")
-    for name, toks in (("generate_capture", out_capture[:, t_prefill:]),
+    for name, toks in (("generate_capture", out_capture[:, t_tokens:]),
                        ("generate_replay", new), ("graph_decode", alone)):
         if not torch.equal(toks, eager):
             faults.append(f"{name} tokens differ from the eager loop's at "
@@ -3277,6 +3303,307 @@ def train_phase(rt, device, gen, timer, kernels, faults) -> dict:
     return out
 
 
+# The families phase: the decoder-only families beside Llama and DeepSeek,
+# compressed, at full width, random weights from the seed: (arch, layers on
+# the card or None for full depth, config overrides).  Depth cuts are for
+# time (Qwen2-7B's, Qwen3-4B's and InternVL2-2B's layers are all alike).
+FAMILY_MODELS = (
+    ("zamba2-1.2b", None, {}),
+    ("mamba2-2.7b", None, {}),
+    ("qwen3-4b", 8, {"kv_cache_bits": 8}),
+    ("qwen2-7b", 4, {}),
+    ("internvl2-2b", 4, {}),
+)
+# Mamba2's extra request: one prompt longer than its 256-token SSD chunk
+MAMBA_LONG_PROMPT = 320
+#  * The families' kernels against their plain versions on the path's own
+#    inputs: every K1, K5 and K2 call of a prefill and a decode step is
+#    repeated with the plain version on the same inputs.  Both round the
+#    same f32 value, summed in another order, to bf16: one bf16 ulp of
+#    the call's largest output (K1, K5), two for K2 (another exp; as
+#    FLASH_ATOL_BF16).
+FAMILY_CALL_ULPS = {"fused_decode_matmul": 1, "dequant_matmul": 1,
+                    "flash_attention": 2}
+#  * End to end, the prefill logits of the kernels' path against the same
+#    path with every kernel swapped for its plain version: the per-call
+#    differences above pass through every layer, so the logits part by a
+#    number of ulps that grows with depth (measured, reported beside
+#    ATOL["compressed"] = 3e-2 of tests/test_torch_model.py, which is
+#    below one bf16 ulp of a logit above 4: 2^-5).  Gated: each request's
+#    greedy token the same, or the plain path's top-2 gap within the
+#    difference.
+FAMILY_LOGIT_ATOL = 3e-2
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def _plain_fns(rt) -> dict:
+    """The plain versions of the wrappers ``ops`` calls, by wrapper name
+    and ``ops`` attribute."""
+    fdm, dqm, fa = rt["fdm"], rt["dqm"], rt["fa"]
+    return {
+        "fused_decode_matmul": ("_fused", lambda x, *a, decode=False, **kw:
+                                fdm.fused_decode_matmul_plain(x, *a, **kw)),
+        "dequant_matmul": ("_dequant_matmul",
+                           lambda x, wq, sc, z, out_dtype, decode=False:
+                           dqm.dequant_matmul_plain(x, wq, sc, z,
+                                                    out_dtype)),
+        "flash_attention": ("flash_attention",
+                            lambda q, k, v, causal=True, sm_scale=None,
+                            q_offset=0: fa.flash_attention_plain(
+                                q, k, v, causal=causal, sm_scale=sm_scale,
+                                q_offset=q_offset))}
+
+
+def family_want(rt, cfg) -> dict:
+    """The launches, by wrapper, of one prefill and MAX_NEW − 1 decode
+    steps, from the config: K1 once a compressed projection a forward (7
+    an attention + MLP layer, 2 a Mamba2 block: in_proj, out_proj; the
+    hybrid's shared block 7 at each application), K5 once a forward (the
+    int8 head, at the last position), K2 once an attention layer at the
+    prefill."""
+    fam = cfg.family
+    attn = cfg.n_layers
+    if fam in ("ssm", "hybrid"):
+        attn = (len(rt["LM"]._hybrid_segments(cfg)) - 1 if fam == "hybrid"
+                else 0)
+    mamba = cfg.n_layers if fam in ("ssm", "hybrid") else 0
+    want = {"fused_decode_matmul": (7 * attn + 2 * mamba) * MAX_NEW,
+            "dequant_matmul": MAX_NEW}
+    if attn:
+        want["flash_attention"] = attn
+    return want
+
+
+@contextlib.contextmanager
+def plain_kernels(rt, record=None):
+    """Every kernel wrapper the dense, SSM and hybrid paths call — K1
+    (``ops._fused``), K5 (``ops._dequant_matmul``) and K2
+    (``ops.flash_attention``) — swapped for its plain version on the
+    card's tensors; restored on exit.  With ``record`` (a dict), each
+    kernel runs as before and its plain version is run beside it on the
+    same inputs: per wrapper, the calls and the worst difference in bf16
+    ulps of the call's largest plain output."""
+    ops = rt["ops"]
+    plain = _plain_fns(rt)
+    saved = {attr: getattr(ops, attr) for attr, _ in plain.values()}
+
+    def beside(name, real, ref):
+        def call(*a, **kw):
+            y = real(*a, **kw)
+            p = ref(*a, **kw).float()
+            err = float((y.float() - p).abs().max())
+            ulp = _bf16_ulp(float(p.abs().max()))
+            r = record.setdefault(name, {"calls": 0, "worst_abs_err": 0.0,
+                                         "worst_ulps": 0.0})
+            r["calls"] += 1
+            r["worst_abs_err"] = max(r["worst_abs_err"], err)
+            r["worst_ulps"] = max(r["worst_ulps"], err / ulp if ulp
+                                  else (0.0 if err == 0 else math.inf))
+            return y
+        return call
+
+    for name, (attr, ref) in plain.items():
+        setattr(ops, attr, ref if record is None
+                else beside(name, saved[attr], ref))
+    try:
+        yield
+    finally:
+        for attr, fn in saved.items():
+            setattr(ops, attr, fn)
+
+
+def against_plain(rt, cfg, state, device, batch, embeds=None) -> dict:
+    """The kernels against their plain versions on the path's own inputs
+    (``plain_kernels(record=...)`` over a prefill and one decode step):
+    each call within FAMILY_CALL_ULPS.  Then the prefill's last-position
+    logits of the kernels' path and of the all-plain path (the plain run
+    launching no kernel): the difference (reported beside
+    FAMILY_LOGIT_ATOL), finite logits, and each request's greedy token
+    the same or the plain path's top-2 gap within the difference."""
+    _build, LM = rt["_build"], rt["LM"]
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=device)
+    ids = torch.as_tensor(batch, device=device)
+    t0 = ids.shape[1] + (0 if embeds is None else embeds.shape[1])
+
+    def run(step=False):
+        caches = LM.init_caches(cfg, ids.shape[0], t0 + MAX_NEW,
+                                device=device)
+        logits, caches = prefill(state.params, state.lut,
+                                 {"tokens": ids, "embeds": embeds}, caches)
+        if step:
+            decode_step(state.params, state.lut,
+                        torch.argmax(logits, -1)[:, None], caches, t0)
+        torch.cuda.synchronize()
+        return logits.float()
+
+    calls = {}
+    with plain_kernels(rt, calls):
+        run(step=True)
+    kern = run()
+    _build.LAUNCH_COUNTS.clear()
+    with plain_kernels(rt):
+        t = time.perf_counter()
+        plain = run()
+        plain_s = time.perf_counter() - t
+    launched = dict(_build.LAUNCH_COUNTS)
+    err = float((kern - plain).abs().max())
+    top2 = plain.topk(2, dim=-1).values
+    same = torch.argmax(kern, -1) == torch.argmax(plain, -1)
+    near = (top2[:, 0] - top2[:, 1]) <= err
+    out = {"calls": calls, "call_ulps_allowed": FAMILY_CALL_ULPS,
+           "logits_max_abs_err": err, "logits_atol": FAMILY_LOGIT_ATOL,
+           "within_logits_atol": err <= FAMILY_LOGIT_ATOL,
+           "logits_err_ulps": err / _bf16_ulp(float(plain.abs().max())),
+           "max_abs_logit": float(plain.abs().max()),
+           "greedy_same": same.tolist(),
+           "plain_top2_gap": (top2[:, 0] - top2[:, 1]).tolist(),
+           "plain_prefill_s": plain_s, "plain_run_launches": launched}
+    bad = [n for n, r in calls.items()
+           if r["worst_ulps"] > FAMILY_CALL_ULPS[n]]
+    if bad or launched or set(calls) != set(
+            family_want(rt, cfg)) or not bool(
+            torch.isfinite(kern).all()) or not bool((same | near).all()):
+        raise AssertionError(f"{cfg.name} against plain: {out}")
+    return out
+
+
+def check_head_k5(rt, head, m_prefill, gen, timer, what):
+    """K5 on a model's int8 head (``check_k5``; Mamba2's N = 50 280 and
+    InternVL2's 92 553 end in a partial stripe of 128 rows): at M = BATCH
+    as a decode step's rows and at the prefill's M.  → the kernels row
+    (decode M) with the prefill M's numbers beside."""
+    n, k = head.values.shape
+    wb = head.materialize(torch.bfloat16)
+    dec = check_k5(rt, head.values, head.scale, head.zero, wb, BATCH, gen,
+                   timer, decode=True)
+    pre = check_k5(rt, head.values, head.scale, head.zero, wb, m_prefill,
+                   gen, timer)
+    del wb
+    return {**K5_ROW, **dec, "N": n, "K": k, "ragged_last_stripe": n % 128,
+            "timed_at": f"{what} head {n}x{k}, M={BATCH} (decode rows)",
+            **{f"prefill_{f}": pre[f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bitwise", "max_abs_err", "launch")},
+            "prefill_timed_at": f"the same head at M={m_prefill}"}
+
+
+def family_model(rt, device, gen, timer, kernels, arch, depth, over,
+                 faults) -> dict:
+    """One model of FAMILY_MODELS: pack, serve (``serve``'s gates: the
+    eager loop, a capturing and a replaying ``generate``, tokens bitwise,
+    launches as ``family_want``), nothing materialized, the prefill
+    against the all-plain path; a K5 row on its head; Mamba2 also its
+    long prompt and K1 rows; Qwen3 the engine (``engine_phase``) on its
+    int8 cache and that cache's bytes; InternVL2 with patch embeddings.
+    → the model's line."""
+    E = rt["engine"]
+    full = rt["get_config"](arch).full
+    cfg = dataclasses.replace(full, **over, n_layers=depth or full.n_layers)
+    batch, lens = make_prompts(cfg.vocab_size)
+    embeds = None
+    if cfg.family == "vlm":
+        g = torch.Generator(device=device)
+        g.manual_seed(SEED)
+        embeds = rt["frontends"].vision_patch_embeddings(
+            g, BATCH, cfg.n_patches, cfg.d_model)
+    phase(rt, f"families {cfg.name}")
+    state, packing = pack(rt, cfg, device, SEED)
+    info = {"model": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+            "full_layers": full.n_layers, **over, **packing}
+    want = family_want(rt, cfg)
+    t0 = time.perf_counter()
+    e2e = serve(rt, cfg, state, device, batch, lens, want=want,
+                packed_want={}, embeds=embeds)
+    info["serve_s"] = time.perf_counter() - t0
+    info.update({k: e2e[k] for k in (
+        "batch", "prompt_lens", "max_new", "prefill_ms", "capture_ms",
+        "decode_ms_per_step", "decode_tokens_per_s",
+        "eager_decode_ms_per_step", "eager_decode_tokens_per_s",
+        "peak_mem_bytes", "graph_pool_bytes", "launches",
+        "kernel_launches", "materialize_counts", "stats")})
+    info["launches_want"] = want
+    info["graphed_tokens_bitwise_eager"] = True      # serve raised if not
+    if embeds is not None:
+        info["patch_embeddings"] = embeds.shape[1]
+    materialized = {k: r["materialize_counts"] for k, r in e2e["runs"].items()
+                    if r["materialize_counts"]}
+    if materialized:
+        faults.append(f"{cfg.name} materialized {materialized}")
+    info["against_plain"] = against_plain(rt, cfg, state, device, batch,
+                                          embeds)
+    m_prefill = BATCH * batch.shape[1]
+    rows = []
+    if cfg.family == "ssm":
+        rng = np.random.default_rng(SEED)
+        long = rng.integers(0, cfg.vocab_size, (1, MAMBA_LONG_PROMPT))
+        info["long_prompt"] = {
+            k: v for k, v in serve(rt, cfg, state, device, long,
+                                   [MAMBA_LONG_PROMPT], want=want,
+                                   packed_want={}).items()
+            if k in ("prefill_ms", "decode_ms_per_step",
+                     "eager_decode_ms_per_step", "launches",
+                     "materialize_counts", "tokens")}
+        info["long_prompt"]["against_plain"] = against_plain(
+            rt, cfg, state, device, long)
+    if cfg.family == "dense" and cfg.kv_cache_bits == 8:
+        phase(rt, f"families {cfg.name} engine")
+        eng = engine_phase(rt, cfg, state, device)
+        info["engine"] = {k: eng[k] for k in (
+            "slots", "requests", "ticks", "tokens_per_s", "tick_ms_median",
+            "prefill_ms_median", "pool_device_bytes", "peak_mem_bytes",
+            "kernel_launches", "requests_not_bitwise_equal_to_generate")}
+        nb = [sum(nbytes(t) for t in E._tensors(rt["LM"].init_caches(
+            c, ENGINE_SLOTS, ENGINE_MAX_LEN, device=device)))
+              for c in (cfg, dataclasses.replace(cfg, kv_cache_bits=16))]
+        info["kv_cache_bytes"] = {"int8": nb[0], "bf16": nb[1],
+                                  "ratio": nb[0] / nb[1]}
+        if not nb[0] < 0.7 * nb[1]:
+            faults.append(f"{cfg.name} int8 cache {nb[0]} B not under 0.7 "
+                          f"of bf16's {nb[1]} B")
+    phase(rt, f"{cfg.name} kernels")
+    if cfg.family == "ssm":
+        blocks = state.params["blocks"]
+        row, detail = check_fused(
+            rt, state.lut, [(name, [b["mamba"][name] for b in blocks], True)
+                            for name in ("in_proj", "out_proj")],
+            device, m_prefill, gen, timer,
+            "one Mamba2 block's in_proj and out_proj, decode M=4")
+        rows.append(row)
+        info["k1_rows"] = detail
+    rows.append(check_head_k5(rt, state.params.get(
+        "lm_head", state.params["embed"]), m_prefill, gen, timer, cfg.name))
+    for row in rows:
+        row["path"] = f"families {cfg.name}"
+        row["launches"] = e2e["launches"].get(row["name"], 0)
+        row["launches_by_kernel"] = by_kernel(e2e["kernel_launches"],
+                                              row["name"])
+        row["launches_of"] = "the model's generate (prefill + 31 steps)"
+    kernels.extend(rows)
+    log(f"family {cfg.name} " + json.dumps(info))
+    E.drop_graphs(cfg)
+    return info
+
+
+def families_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """FAMILY_MODELS one after another (``family_model``); a model that
+    raises is a fault and the next still runs.  → seconds by model."""
+    out = {}
+    for arch, depth, over in FAMILY_MODELS:
+        t0 = time.perf_counter()
+        try:
+            family_model(rt, device, gen, timer, kernels, arch, depth, over,
+                         faults)
+        except Exception:
+            traceback.print_exc()
+            faults.append(f"{arch} raised")
+        torch.cuda.empty_cache()
+        out[arch] = time.perf_counter() - t0
+    return {"seconds": out}
+
+
 def phase(rt, name: str):
     """Name the phase that the launches from here on belong to (for
     ``SimtWatch``)."""
@@ -3716,6 +4043,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_decode_matmul as fdm
     from repro_torch.models import layers as L
+    from repro_torch.models import frontends
     from repro_torch.models import lm as LM
     from repro_torch.serve import engine
     from repro_torch.serve.context import ServeContext
@@ -3737,7 +4065,8 @@ def main() -> int:
           "DataPipeline": DataPipeline, "integrity": integrity, "resilience": resilience,
           "residency": residency, "governor": governor, "policy": policy,
           "pressure_trace": pressure_trace,
-          "FaultInjector": FaultInjector, "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
+          "FaultInjector": FaultInjector, "frontends": frontends,
+          "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
           "ops": ops, "_build": _build, "engine": engine,
           "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
@@ -3777,7 +4106,8 @@ def main() -> int:
             failed.append(path.__name__)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
-    for name, fn in (("launcher", launcher_phase), ("train", train_phase)):
+    for name, fn in (("families", families_phase),
+                     ("launcher", launcher_phase), ("train", train_phase)):
         t0 = time.perf_counter()
         phase(rt, name)
         res, faults = {}, []

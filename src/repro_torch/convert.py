@@ -1,8 +1,10 @@
 """Carry weights across from the JAX package, as numpy arrays.
 
 The JAX package stacks per-layer leaves on a leading axis under
-``params["blocks"]``; the port keeps a list of per-layer dicts.  An MoE
-model's ``first_blocks`` is a list in both.  Stacked expert leaves keep
+``params["blocks"]`` (attention + MLP layers, MoE layers, Mamba2 blocks);
+the port keeps a list of per-layer dicts.  An MoE model's
+``first_blocks`` is a list in both, and the hybrid's ``shared_attn`` one
+unstacked dict in both.  Stacked expert leaves keep
 their expert axis: (L, E, N, K) in the reference, (E, N, K) per layer here,
 and so do their planes.  These functions take numpy only (``np.asarray`` of
 every leaf, done by the caller), so this package never sees a JAX type.

@@ -1,0 +1,22 @@
+"""Modality frontend stand-ins (counterpart of ``repro/models/frontends.py``).
+
+The assigned VLM entry specifies the transformer backbone only: the
+vision frontend's output, precomputed patch embeddings, is what the
+backbone takes (``lm.forward``'s and ``generate``'s ``embeds``).  These
+helpers draw correctly shaped stand-ins for tests and ``chip_smoke.py``
+from an explicit ``torch.Generator``, where the reference draws from a key.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def vision_patch_embeddings(gen: torch.Generator, batch: int, n_patches: int,
+                            d_model: int, dtype=torch.float32) -> torch.Tensor:
+    """Stand-in for an InternViT patch embedding + projector output: (B, P,
+    d) normals × 0.02 on the generator's device.
+
+    Real system: 448×448 image → ViT → pixel-shuffle → MLP projector →
+    (B, P, d) tokens prepended to the text sequence."""
+    return torch.randn((batch, n_patches, d_model), generator=gen,
+                       device=gen.device, dtype=dtype) * 0.02

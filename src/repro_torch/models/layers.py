@@ -1,7 +1,8 @@
 """Model primitives — functional layers over plain parameter dicts.
 
-Counterpart of ``repro/models/layers.py`` for the dense Llama family and
-DeepSeek-V2's MLA attention and MoE (global dispatch).  Activations keep the
+Counterpart of ``repro/models/layers.py`` for the decoder-only families:
+GQA attention (with Qwen2's QKV bias, Qwen3's qk-norm and the int8 KV
+cache), DeepSeek-V2's MLA attention and MoE (global dispatch).  Activations keep the
 reference's (B, T, H, hd) layout and weights its (out, in) layout.  A linear
 weight is a dense tensor, a ``QuantLinear``, a ``PackedLinear`` or a
 ``TiledPackedLinear`` (column groups); ``linear`` routes the containers to
@@ -188,7 +189,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention (llama family).
+# GQA attention (llama / qwen / internlm family).
 # ---------------------------------------------------------------------------
 
 def _normal(shape, gen, device, dtype, std):
@@ -201,26 +202,60 @@ def init_attention(cfg, gen: torch.Generator, device,
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError("qkv_bias / qk_norm are not ported")
     s = 1.0 / math.sqrt(d)
-    return {
+    p = {
         "wq": _normal((nq * hd, d), gen, device, dtype, s),
         "wk": _normal((nkv * hd, d), gen, device, dtype, s),
         "wv": _normal((nkv * hd, d), gen, device, dtype, s),
         "wo": _normal((d, nq * hd), gen, device, dtype,
                       1.0 / math.sqrt(nq * hd)),
     }
+    if cfg.qkv_bias:           # Qwen2: biases on q, k and v, kept dense
+        for name, n in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+            p[name] = torch.zeros(n * hd, dtype=dtype, device=device)
+    if cfg.qk_norm:            # Qwen3: RMS norm of q and k over head_dim
+        p["q_norm"] = torch.ones(hd, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(hd, dtype=dtype, device=device)
+    return p
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                   device="cpu") -> Params:
-    if getattr(cfg, "kv_cache_bits", 16) != 16:
-        raise NotImplementedError("the int8 KV cache is not ported")
+    """K/V caches (B, L, kv heads, hd) in ``dtype``; with
+    ``cfg.kv_cache_bits == 8``, int8 codes with an f32 scale per (token,
+    head), (B, L, kv heads, 1), as the reference's int8 cache."""
     hd = cfg.resolved_head_dim
     shape = (batch, max_len, cfg.n_kv_heads, hd)
+    if getattr(cfg, "kv_cache_bits", 16) == 8:
+        scale = shape[:3] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(scale, dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+_RECIP_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def _quant_kv(x: torch.Tensor):
+    """(B, T, H, hd) → (int8 codes, f32 scales (B, T, H, 1)) per (token,
+    head): scale max(|x|)/127 clamped at 1e-12, codes rounded half to even
+    and clipped to ±127, as the reference's ``_quant_kv``."""
+    xf = x.to(torch.float32)
+    # the reference's XLA program divides by the constant 127 as a
+    # multiply by its f32 reciprocal
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True)
+                        * _RECIP_127, min=1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def _kv_write(dst: torch.Tensor, src: torch.Tensor, pos):
@@ -352,6 +387,9 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     q = linear(x, p["wq"], lut, p.get("bq")).reshape(b, t, nq, hd)
     k = linear(x, p["wk"], lut, p.get("bk")).reshape(b, t, nkv, hd)
     v = linear(x, p["wv"], lut, p.get("bv")).reshape(b, t, nkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
 
     pos0 = 0 if pos is None else pos
     if rope is None:
@@ -363,8 +401,18 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     if cache is None:
         o = _attend_full(q, k, v, causal)
     else:
-        ck = _kv_write(cache["k"], k.to(cache["k"].dtype), pos0)
-        cv = _kv_write(cache["v"], v.to(cache["v"].dtype), pos0)
+        if cache["k"].dtype == torch.int8:
+            # int8 cache: codes and scales written in place; attention
+            # reads the whole cache dequantized to q's dtype
+            for name, val in (("k", k), ("v", v)):
+                codes, scale = _quant_kv(val)
+                _kv_write(cache[name], codes, pos0)
+                _kv_write(cache[name + "_scale"], scale, pos0)
+            ck = _dequant_kv(cache["k"], cache["k_scale"], q.dtype)
+            cv = _dequant_kv(cache["v"], cache["v_scale"], q.dtype)
+        else:
+            ck = _kv_write(cache["k"], k.to(cache["k"].dtype), pos0)
+            cv = _kv_write(cache["v"], v.to(cache["v"].dtype), pos0)
         if t == 1:
             o = _attend_cached(q, ck, cv, pos0, t)
         elif t == ck.shape[1]:
@@ -531,13 +579,17 @@ def init_mlp(d: int, ff: int, gen: torch.Generator, device,
     }
 
 
-def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """silu(g)·u op by op in g's dtype, as the reference's XLA program
+def _silu(g: torch.Tensor) -> torch.Tensor:
+    """silu(g) op by op in g's dtype, as the reference's XLA program
     computes it (logistic = 1 / (1 + exp(−g)), each op rounded to bf16 in
     the quantized modes); a fused F.silu rounds differently and moves bf16
     activations by an ulp."""
-    sig = 1.0 / (1.0 + torch.exp(-g))
-    return g * sig * u
+    return g * (1.0 / (1.0 + torch.exp(-g)))
+
+
+def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """silu(g)·u, each op in g's dtype (:func:`_silu`)."""
+    return _silu(g) * u
 
 
 def apply_mlp(p: Params, x: torch.Tensor, *, lut=None,

@@ -1,12 +1,18 @@
-"""Decoder-only LM assembly — the dense (Llama) and MoE (DeepSeek-V2)
+"""Decoder-only LM assembly — the dense (Llama, Qwen, InternLM), MoE
+(DeepSeek-V2, Kimi-K2), SSM (Mamba2), hybrid (Zamba2) and VLM (InternVL2)
 families.
 
 Counterpart of ``repro/models/lm.py`` (``init_lm``, ``forward``,
-``init_caches`` for ``family`` 'dense' and 'moe').  The reference stacks
+``init_caches``, ``cache_batch_time_axes``).  The reference stacks
 layers on a leading axis and runs them under ``lax.scan``; here
 ``params["blocks"]`` is a list of per-layer dicts and a Python loop runs
 them.  An MoE model's first ``first_dense_layers`` layers (attention + a
 dense MLP) are the list ``params["first_blocks"]``, as in the reference.
+The hybrid applies one ``params["shared_attn"]`` block (attention + MLP,
+weights shared, a KV cache of its own at each application) after every
+``attn_period`` Mamba2 blocks.  A VLM is the dense stack with patch
+embeddings prepended to the token embeddings (``forward``'s ``embeds``).
+The encoder–decoder family (``repro/models/encdec.py``) is not ported.
 """
 from __future__ import annotations
 
@@ -16,11 +22,12 @@ import torch
 
 from .._device import resolve_device
 from . import layers as L
+from . import ssm as S
 
 Params = Any
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _check_family(cfg):
@@ -51,13 +58,24 @@ def init_lm(cfg, *, seed: int = 0, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal((v, d), gen, device, dtype, 0.02)
-    if cfg.family == "dense":
-        params["blocks"] = [{
+    def dense_block():
+        return {
             "attn_norm": torch.ones(d, dtype=dtype, device=device),
             "attn": L.init_attention(cfg, gen, device, dtype),
             "mlp_norm": torch.ones(d, dtype=dtype, device=device),
             "mlp": L.init_mlp(d, cfg.d_ff, gen, device, dtype),
+        }
+
+    if cfg.family in ("dense", "vlm"):
+        params["blocks"] = [dense_block() for _ in range(cfg.n_layers)]
+        return params
+    if cfg.family in ("ssm", "hybrid"):
+        params["blocks"] = [{
+            "norm": torch.ones(d, dtype=dtype, device=device),
+            "mamba": S.init_mamba2(cfg, gen, device, dtype),
         } for _ in range(cfg.n_layers)]
+        if cfg.family == "hybrid":
+            params["shared_attn"] = dense_block()
         return params
     nd = cfg.first_dense_layers
     ff = cfg.d_ff or cfg.moe_d_ff * (cfg.top_k + cfg.n_shared_experts)
@@ -92,6 +110,21 @@ def _dense_block(bp, x, cfg, lut, cache, pos, rope):
     return x, new_cache
 
 
+def _ssm_block(bp, x, cfg, lut, cache):
+    h = L.rms_norm(x, bp["norm"], cfg.norm_eps)
+    y, new_cache = S.apply_mamba2(bp["mamba"], h, cfg, lut=lut, cache=cache)
+    return x + y, new_cache
+
+
+def _hybrid_segments(cfg):
+    """Zamba2: the shared attention block follows every ``attn_period``
+    Mamba2 blocks.  → [(start, end), ...] Mamba2 segments; an application
+    of the shared block follows every segment but the last."""
+    per, n = cfg.attn_period, cfg.n_layers
+    bounds = list(range(per, n, per))
+    return list(zip([0] + bounds, bounds + [n]))
+
+
 def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
     """An MoE-family layer (MLA or GQA attention, then the MoE or, in the
     first layers, a dense MLP).  Returns (x, cache, aux, expert_ids or
@@ -112,11 +145,16 @@ def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
     return x + L.apply_mlp(bp["mlp"], h, lut=lut), new_cache, 0.0, None
 
 
-def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
-            pos=None, lut=None,
-            return_hidden: bool = False, return_routing: bool = False,
+def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None, caches=None, pos=None,
+            lut=None, return_hidden: bool = False,
+            return_routing: bool = False,
             routing: Optional[torch.Tensor] = None):
     """tokens (B, T) int → (logits, caches, aux_loss).
+
+    ``embeds`` (B, T', d): a modality frontend's outputs (the VLM's patch
+    embeddings), prepended to the token embeddings in their dtype; the
+    logits then cover T' + T positions, from ``pos``.
 
     ``pos``: the first new token's position, an int (prefill), a 0-d
     tensor or, for T == 1, a per-row (B,) tensor; a tensor stays on the
@@ -126,15 +164,24 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
     hidden states.  ``return_routing=True`` (MoE family) appends the top-k
     expert ids of the MoE layers, (L_moe, B·T, k); ``routing``, ids of that
     shape (another run's), routes the MoE layers' tokens to those experts
-    instead.  Caches are updated in place and returned."""
+    instead.  Caches (attention and SSM state) are updated in place and
+    returned."""
     _check_family(cfg)
-    if (return_routing or routing is not None) and cfg.family != "moe":
-        raise ValueError(f"routing needs family 'moe', got {cfg.family!r}")
-    x = L.embed(params["embed"], tokens, lut)
-    rope = L.rope_tables(L.positions(0 if pos is None else pos,
-                                     tokens.shape[1], x.device),
-                         cfg.qk_rope_head_dim if cfg.mla
-                         else cfg.resolved_head_dim, cfg.rope_theta)
+    fam = cfg.family
+    if (return_routing or routing is not None) and fam != "moe":
+        raise ValueError(f"routing needs family 'moe', got {fam!r}")
+    if tokens is not None:
+        x = L.embed(params["embed"], tokens, lut)
+        if embeds is not None:
+            x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    else:
+        x = embeds
+    rope = None
+    if fam != "ssm":
+        rope = L.rope_tables(L.positions(0 if pos is None else pos,
+                                         x.shape[1], x.device),
+                             cfg.qk_rope_head_dim if cfg.mla
+                             else cfg.resolved_head_dim, cfg.rope_theta)
     caches = caches or {}
     out_caches: dict = {}
     aux = 0.0
@@ -149,17 +196,36 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
         out_caches["first"] = ncs if fb_caches is not None else None
     blk_caches = caches.get("blocks")
     new_caches = []
-    for i, bp in enumerate(params["blocks"]):
-        cache = blk_caches[i] if blk_caches is not None else None
-        if cfg.family == "dense":
-            x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
-        else:
-            x, nc, a, ids = _moe_block(
-                bp, x, cfg, lut, cache, pos, rope,
-                None if routing is None else routing[i])
-            aux = aux + a
-            routed.append(ids)
-        new_caches.append(nc)
+    if fam == "hybrid":
+        attn_caches = caches.get("attn")
+        new_attn = []
+        segs = _hybrid_segments(cfg)
+        for si, (s, e) in enumerate(segs):
+            for i in range(s, e):
+                x, nc = _ssm_block(params["blocks"][i], x, cfg, lut,
+                                   blk_caches[i] if blk_caches is not None
+                                   else None)
+                new_caches.append(nc)
+            if si < len(segs) - 1:
+                x, nac = _dense_block(params["shared_attn"], x, cfg, lut,
+                                      attn_caches[si] if attn_caches
+                                      is not None else None, pos, rope)
+                new_attn.append(nac)
+        out_caches["attn"] = new_attn if attn_caches is not None else None
+    else:
+        for i, bp in enumerate(params["blocks"]):
+            cache = blk_caches[i] if blk_caches is not None else None
+            if fam in ("dense", "vlm"):
+                x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
+            elif fam == "ssm":
+                x, nc = _ssm_block(bp, x, cfg, lut, cache)
+            else:
+                x, nc, a, ids = _moe_block(
+                    bp, x, cfg, lut, cache, pos, rope,
+                    None if routing is None else routing[i])
+                aux = aux + a
+                routed.append(ids)
+            new_caches.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     out_caches["blocks"] = new_caches if blk_caches is not None else None
     extra = (torch.stack(routed),) if return_routing else ()
@@ -175,9 +241,11 @@ def forward(params: Params, cfg, tokens: torch.Tensor, *, caches=None,
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                 device=None) -> Params:
-    """Per-layer KV caches for serving, on ``device`` (the card unless the
+    """Per-layer caches for serving, on ``device`` (the card unless the
     caller passes another).  MLA layers cache the latents; an MoE model's
-    first dense layers have theirs under ``"first"``."""
+    first dense layers have theirs under ``"first"``; Mamba2 blocks their
+    f32 conv ring and SSM state (``ssm.init_ssm_cache``), and the hybrid's
+    shared attention a KV cache per application under ``"attn"``."""
     _check_family(cfg)
     device = resolve_device(device)
 
@@ -186,8 +254,15 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             return L.init_mla_cache(cfg, batch, max_len, dtype, device)
         return L.init_kv_cache(cfg, batch, max_len, dtype, device)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return {"blocks": [one() for _ in range(cfg.n_layers)]}
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"blocks": [S.init_ssm_cache(cfg, batch, device)
+                          for _ in range(cfg.n_layers)]}
+        if cfg.family == "hybrid":
+            out["attn"] = [one()
+                           for _ in range(len(_hybrid_segments(cfg)) - 1)]
+        return out
     nd = cfg.first_dense_layers
     out = {"blocks": [one() for _ in range(cfg.n_layers - nd)]}
     if nd:
@@ -204,7 +279,9 @@ def cache_batch_time_axes(cfg):
     reference finds them: :func:`init_caches` on the ``meta`` device at
     two batches and two lengths, and the axis that moves with each is the
     answer.  A leaf without exactly one of each, or whose time axis does
-    not follow its batch axis, raises ``ValueError``."""
+    not follow its batch axis, raises ``ValueError``: so do the Mamba2
+    caches of the ``ssm`` and ``hybrid`` families, whose state has no time
+    axis to page."""
     a = init_caches(cfg, 2, 7, device="meta")
     b = init_caches(cfg, 3, 7, device="meta")
     c = init_caches(cfg, 2, 9, device="meta")

@@ -236,6 +236,8 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     ``ctx``, else the argument; the card unless the caller passes another).
 
     prefill(params, lut, batch, caches) -> (last_logits, caches)
+      (``batch``: {"tokens": (B, T0)} and, for a VLM, "embeds" (B, T', d),
+      prepended; the first decode position is then T' + T0)
     decode_step(params, lut, token, caches, pos) -> (logits, caches)
 
     Caches are updated in place and returned.  ``pos`` is an int, a 0-d
@@ -271,7 +273,9 @@ def serve_fns(cfg, device: torch.device, *, routing: bool = False):
 
     def prefill(params, lut, batch, caches):
         tokens = batch["tokens"].to(device)
+        embeds = batch.get("embeds")
         out = LM.forward(params, cfg, tokens, caches=caches, pos=0, lut=lut,
+                         embeds=None if embeds is None else embeds.to(device),
                          return_hidden=True, return_routing=routing)
         return (_last_logits(params, out[0], lut), out[1]) + out[3:]
 
@@ -444,16 +448,20 @@ class DecodeGraph:
         self.capture_ms = None         # host time of the capture
         self._finalizers: list = []
 
-    def prefill(self, params, lut, ids: torch.Tensor) -> torch.Tensor:
-        """Zero the caches and prefill ``ids`` (B, T0) into them; the
-        greedy first token goes into the input, T0 into the position.
+    def prefill(self, params, lut, ids: torch.Tensor,
+                embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Zero the caches (KV and SSM state) and prefill ``ids`` (B, T0),
+        after ``embeds`` (B, T', d) where given, into them; the greedy
+        first token goes into the input, T' + T0 into the position.
         → that token (B, 1)."""
         for t in _tensors(self.caches):
             t.zero_()
-        logits, _ = self._fns[0](params, lut, {"tokens": ids}, self.caches)
+        logits, _ = self._fns[0](params, lut,
+                                 {"tokens": ids, "embeds": embeds},
+                                 self.caches)
         tok = sample_tokens(logits, 0.0)[:, None]
         self.tok.copy_(tok)
-        self.pos.fill_(ids.shape[1])
+        self.pos.fill_(_extra(embeds) + ids.shape[1])
         return tok
 
     def step(self, params, lut):
@@ -489,22 +497,30 @@ class DecodeGraph:
             self.replay()
 
     def run(self, params, lut, ids: torch.Tensor, max_new: int,
-            generator: torch.Generator | None = None):
-        """Prefill ``ids`` (B, T0), then ``max_new − 1`` decode steps,
-        sampling (if the graph samples) from ``generator``'s state, which
-        is advanced as the eager loop would advance it.  → the ``max_new``
+            generator: torch.Generator | None = None,
+            embeds: torch.Tensor | None = None):
+        """Prefill ``ids`` (B, T0) after ``embeds`` (B, T', d) where given,
+        then ``max_new − 1`` decode steps from position T' + T0, sampling
+        (if the graph samples) from ``generator``'s state, which is
+        advanced as the eager loop would advance it.  → the ``max_new``
         new tokens (B, max_new), int64."""
-        if ids.shape[1] + max_new > self.seq.shape[1]:
-            raise ValueError(f"{ids.shape[1]} prompt + {max_new} new tokens "
+        t0 = _extra(embeds) + ids.shape[1]
+        if t0 + max_new > self.seq.shape[1]:
+            raise ValueError(f"{t0} prompt + {max_new} new tokens "
                              f"exceed the caches' {self.seq.shape[1]}")
         if self.generator is not None:
             self.generator.set_state(generator.get_state())
-        tok = self.prefill(params, lut, ids)
+        tok = self.prefill(params, lut, ids, embeds)
         self.decode(params, lut, max_new - 1)
         if self.generator is not None:
             generator.set_state(self.generator.get_state())
-        t0 = ids.shape[1]
         return torch.cat([tok, self.seq[:, t0 + 1:t0 + max_new]], dim=1)
+
+
+def _extra(embeds) -> int:
+    """The positions a prefix of ``embeds`` (B, T', d) takes: T' (0 for
+    none)."""
+    return 0 if embeds is None else embeds.shape[1]
 
 
 # The graphs decode_graph keeps, least recently used first.  Each holds
@@ -574,7 +590,8 @@ def drop_graphs(cfg) -> int:
 def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
              lut=None, max_new: int = 16, max_len: int | None = None,
              temperature: float = 0.0,
-             generator: torch.Generator | None = None, device=None):
+             generator: torch.Generator | None = None, embeds=None,
+             device=None):
     """One-shot generation: one prefill, then ``max_new − 1`` decode steps.
     The prefill's token is greedy; the decode steps follow
     :func:`sample_tokens` with ``temperature`` and ``generator``.
@@ -587,7 +604,11 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     captured step (a later call with the same weights and shapes captures
     nothing); on the CPU, the same step run eagerly in a Python loop.  The
     first new token is greedy whatever the temperature, as in the
-    reference; only the decode steps sample.  A ``ctx`` with a
+    reference; only the decode steps sample.  ``embeds`` (B, T', d), a
+    VLM's patch embeddings, are prepended to the prompt's embeddings at
+    the prefill, so the decode starts at T' + T0 (the cache holds T' + T0
+    + max_new positions unless ``max_len`` says more); the returned
+    sequence holds the tokens alone.  A ``ctx`` with a
     ``residency`` manager serves through ``residency.tiered_generate``
     (eager steps under the fetch/replay protocol, bitwise equal)."""
     if ctx is not None:
@@ -595,6 +616,9 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
         lut, device = ctx.lut, ctx.device
         if ctx.residency is not None:
             from . import residency as _res
+            if embeds is not None:
+                raise ValueError("tiered residency serves MoE models; "
+                                 "embeds are a VLM's")
             return _res.tiered_generate(
                 params, cfg, tokens, ctx=ctx, max_new=max_new,
                 max_len=max_len, temperature=temperature,
@@ -603,9 +627,12 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     tokens = torch.as_tensor(tokens).to(device)
     if max_new <= 0:
         return tokens
+    if embeds is not None:
+        embeds = torch.as_tensor(embeds).to(device)
     b, t0 = tokens.shape
-    graph = decode_graph(params, cfg, lut, b, max_len or (t0 + max_new),
+    graph = decode_graph(params, cfg, lut, b,
+                         max_len or (_extra(embeds) + t0 + max_new),
                          temperature=temperature, generator=generator,
                          device=device)
-    new = graph.run(params, lut, tokens.long(), max_new, generator)
+    new = graph.run(params, lut, tokens.long(), max_new, generator, embeds)
     return torch.cat([tokens, new.to(tokens.dtype)], dim=1)

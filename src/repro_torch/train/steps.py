@@ -1,8 +1,9 @@
 """Training step functions — loss, gradients, optimizer, gradient
 compression.
 
-Counterpart of ``repro/train/steps.py`` for the port's two families (dense
-Llama, and the MoE family with MLA and the load-balance aux loss).  The
+Counterpart of ``repro/train/steps.py`` for two families (dense Llama,
+and the MoE family with MLA and the load-balance aux loss); training the
+SSM, hybrid and VLM families, which the port serves, is not ported.  The
 step is eager PyTorch: gradients by ``torch.autograd`` through the model's
 forward, where the attention is K2 under its ``autograd.Function`` (the
 kernel forward, the plain version's backward: ``kernels/flash_attention

@@ -35,6 +35,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_decode_matmul as fdm
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.models import ssm as SSM
 from repro_torch.serve import engine as E
 from repro_torch.serve.context import ServeContext
 from repro_torch.serve.engine import build_serve_params, make_serve_fns
@@ -565,11 +566,22 @@ def test_moe_prefill_card_matches_cpu(card):
 
 def _card_cfg(family):
     """Smoke-width variants with head dims the flash kernel takes (64;
-    MLA's 192 / 128)."""
+    MLA's 192 / 128); Mamba2 and Zamba2 at head dim 64 with a state of 32
+    (13-token prompts span two of their 8-token chunks); Qwen3 (qk-norm)
+    with the int8 KV cache."""
     if family == "llama":
         return dataclasses.replace(get_config("llama3.2-1b").smoke,
                                    d_model=256, n_heads=4, n_kv_heads=2,
                                    head_dim=64, d_ff=512)
+    if family in ("mamba2", "zamba2"):
+        arch = "mamba2-2.7b" if family == "mamba2" else "zamba2-1.2b"
+        return dataclasses.replace(get_config(arch).smoke, d_model=256,
+                                   n_heads=4, n_kv_heads=4, head_dim=64,
+                                   d_ff=512, ssm_state=32, ssm_head_dim=64)
+    if family == "qwen3_int8":
+        return dataclasses.replace(get_config("qwen3-4b").smoke, d_model=256,
+                                   n_heads=4, n_kv_heads=2, head_dim=64,
+                                   d_ff=512, kv_cache_bits=8)
     return dataclasses.replace(
         get_config("deepseek-v2-lite-16b").smoke, d_model=256, n_heads=4,
         n_kv_heads=4, kv_lora_rank=128, qk_nope_head_dim=128,
@@ -611,13 +623,17 @@ def _eager_loop(st, cfg, ids, max_new, temperature=0.0, generator=None):
 
 
 @pytest.mark.parametrize("family,temperature", [
-    ("llama", 0.0), ("llama", 2.0), ("deepseek", 0.0), ("deepseek", 2.0)])
+    ("llama", 0.0), ("llama", 2.0), ("deepseek", 0.0), ("deepseek", 2.0),
+    ("mamba2", 0.0), ("mamba2", 2.0), ("zamba2", 0.0), ("zamba2", 2.0)])
 def test_graphed_generate_matches_eager_loop(card, family, temperature):
     """generate on the card (an eager step, one capture, then replays)
     gives the eager loop's tokens bit for bit, greedy and sampled from a
     CUDA generator of the same seed, in a first call (capture) and a
     second (replays only); each call counts the eager loop's launches,
-    dispatches and materializations, and only the first captures."""
+    dispatches and materializations, and only the first captures.  For
+    Mamba2 and Zamba2 the replays must read the SSM state the last replay
+    wrote into the cache tensors (and the second call's prefill must start
+    from a zeroed state)."""
     cfg = _card_cfg(family)
     st = _card_state(cfg, card)
     ids = torch.randint(1, cfg.vocab_size, (3, 13), generator=_gen(card, 5),
@@ -719,8 +735,10 @@ def test_dense_decode_rows_on_card(card, n, k):
         assert torch.equal(y[i:i + 1], L.linear(x[i:i + 1], w)), i
 
 
-@pytest.mark.parametrize("family", ["llama", "deepseek"])
-@pytest.mark.parametrize("n", [4, 5, 8, 16, 17, 24, 32, 64])
+@pytest.mark.parametrize("n,family", [
+    (n, f) for f in ("llama", "deepseek")
+    for n in (4, 5, 8, 16, 17, 24, 32, 64)]
+    + [(n, f) for f in ("mamba2", "zamba2") for n in (4, 5, 8, 16, 17, 32)])
 def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
     """Each row of a decode step gives the same bits alone (batch 1) as in
     a batch of n beside other rows at other positions: what makes the
@@ -731,11 +749,19 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
     16 rows K1 in launches of 16), K3 on the layer's expert stack at
     capacity n (DeepSeek), the decode attention (GQA or MLA's absorbed
     form, above 16 rows in padded pieces of 16; for GQA also at
-    Llama-3.2-1B's full head counts), then the whole step."""
+    Llama-3.2-1B's full head counts), Mamba2's in/out projections and its
+    block's recurrent step (Mamba2, Zamba2; the hybrid's shared attention
+    too), then the whole step."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
     g = _gen(card, 9)
-    layer = st.params["blocks"][0]["attn"]
+    recurrent = family in ("mamba2", "zamba2")
+    if family == "mamba2":
+        layer = st.params["blocks"][0]["mamba"]
+    elif family == "zamba2":
+        layer = st.params["shared_attn"]["attn"]
+    else:
+        layer = st.params["blocks"][0]["attn"]
     x = torch.randn((n, 1, cfg.d_model), generator=g, device=card
                     ).to(torch.bfloat16)
     diffs = {}
@@ -748,10 +774,14 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
             *(a.narrow(dim, i, 1) for a in args)).float()).abs().max().item()
             for i in range(n))
 
-    w = layer["wo"]
+    w = layer["out_proj" if family == "mamba2" else "wo"]
     diffs["k1"] = rows(lambda h: L.linear(h, w, st.lut),
                        torch.randn((n, 1, w.shape[1]), generator=g,
                                    device=card).to(torch.bfloat16))
+    if recurrent:
+        mamba = st.params["blocks"][0]["mamba"]
+        w = mamba["in_proj"]
+        diffs["k1_in_proj"] = rows(lambda h: L.linear(h, w, st.lut), x)
     head = st.params.get("lm_head", st.params["embed"])
     diffs["k5"] = rows(lambda h: L.linear(h, head, st.lut), x)
     if family == "deepseek":
@@ -765,9 +795,9 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
                             device=card).to(torch.bfloat16), dim=1)
     pos = torch.randint(1, 23, (n,), generator=g, device=card)
     caches = LM.init_caches(cfg, n, 24, device=card)
-    for t in [t for c in caches["blocks"] for t in c.values()]:
+    for t in [t for k in caches for c in caches[k] for t in c.values()]:
         t.copy_(torch.randn(t.shape, generator=g, device=card).to(t.dtype))
-    attn = L.apply_attention if family == "llama" else L.apply_mla
+    attn = L.apply_mla if family == "deepseek" else L.apply_attention
 
     def rows_cached(fn, *args):
         """``rows`` for fn(caches, *args) on the batch's cache rows."""
@@ -780,9 +810,16 @@ def test_decode_rows_do_not_depend_on_the_batch(card, family, n):
         return {k: [{n2: v[r].clone() for n2, v in layer_c.items()}
                     for layer_c in caches[k]] for k in caches}
 
-    diffs["attention"] = rows_cached(
-        lambda c, h, p: attn(layer, h, cfg, lut=st.lut, cache=c["blocks"][0],
-                             pos=p)[0], x, pos)
+    if recurrent:
+        diffs["mamba2_step"] = rows_cached(
+            lambda c, h: SSM.apply_mamba2(mamba, h, cfg, lut=st.lut,
+                                          cache=c["blocks"][0])[0], x)
+    if family != "mamba2":
+        diffs["attention"] = rows_cached(
+            lambda c, h, p: attn(layer, h, cfg, lut=st.lut,
+                                 cache=c["attn" if family == "zamba2"
+                                         else "blocks"][0], pos=p)[0],
+            x, pos)
     if family == "llama":
         # the decode attention at Llama-3.2-1B's own head counts (32 q / 8
         # kv heads of 64, 232 cached positions), which the smoke width
@@ -841,7 +878,7 @@ def _serve_trace(eng, prompts, max_new, arrivals):
     return {c.rid: c for c in eng.completions}
 
 
-@pytest.mark.parametrize("family", ["llama", "deepseek"])
+@pytest.mark.parametrize("family", ["llama", "deepseek", "qwen3_int8"])
 @pytest.mark.parametrize("slots", [3, 8, 16, 32])
 def test_engine_matches_generate_on_card(card, family, slots):
     """A staggered mixed trace through the engine on the card (3, 8, 16 or
@@ -851,7 +888,7 @@ def test_engine_matches_generate_on_card(card, family, slots):
     counted, every completion bitwise equal to the port's generate of its
     prompt alone at the pool's length (a tick runs every slot's row, so
     its decode kernels run at M = slots: above 16, K1 in launches of 16
-    rows)."""
+    rows).  Qwen3's int8 cache pages its codes and their scales."""
     cfg = _engine_cfg(family)
     st = _card_state(cfg, card)
     eng = Engine(ServeContext(cfg, lut=st.lut), st.params, n_slots=slots,

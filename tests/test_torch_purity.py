@@ -28,8 +28,8 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 
 # modules of the MoE slice, of request-level serving, of integrity and
 # resilience, of tiered residency and the governor, of the serving
-# launcher and its data pipeline, and of training and calibration, which
-# the walk below must reach
+# launcher and its data pipeline, of training and calibration, and of the
+# other decoder-only families, which the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
@@ -42,7 +42,16 @@ MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.train.optimizer", "repro_torch.train.steps",
                "repro_torch.train.tree", "repro_torch.train.checkpoint",
                "repro_torch.train.fault", "repro_torch.train.trained",
-               "repro_torch.launch.train")
+               "repro_torch.launch.train", "repro_torch.models.ssm",
+               "repro_torch.models.frontends",
+               "repro_torch.configs.mamba2_2_7b",
+               "repro_torch.configs.zamba2_1_2b",
+               "repro_torch.configs.qwen3_4b",
+               "repro_torch.configs.qwen2_7b",
+               "repro_torch.configs.internlm2_1_8b",
+               "repro_torch.configs.internvl2_2b",
+               "repro_torch.configs.llama3_405b",
+               "repro_torch.configs.kimi_k2_1t_a32b")
 
 
 def test_port_imports_no_jax_and_no_reference():
