@@ -5,8 +5,8 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Imports nothing of JAX or of the JAX package.
 Two main paths — Llama-3.2-1B (dense) and DeepSeek-V2-Lite (MLA + MoE) —
-each in the phases below, then the other decoder-only families; the
-script exits non-zero if any phase fails:
+each in the phases below, then the other decoder-only families and the
+encoder–decoder; the script exits non-zero if any phase fails:
 
   1. Device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
@@ -90,7 +90,20 @@ script exits non-zero if any phase fails:
      (tile_n 16) and K5 on each model's head (N = 32 000, 50 280,
      151 936, 152 064, 92 553) at decode and prefill M; a ``family`` line
      per model.
-  8. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
+  8. Encoder–decoder (``encdec_phase``, after the families):
+     seamless-m4t-medium at full width and depth (12 + 12 layers),
+     compressed, weights from the seed; 4 requests of ENCDEC_FRAMES bf16
+     audio frames (``frontends.audio_frame_embeddings``), prompts
+     left-padded to 16 tokens, 32 new: the eager loop, then
+     ``decode_graph(...).run`` twice (capture, replays), then a second
+     batch through the same graph, then the first in quant mode; launches
+     as ``encdec_want`` computes them, graphed tokens bitwise the eager
+     loop's, nothing materialized, each decode row bitwise itself alone
+     at 4 and 16 rows, every K1/K5/K2 call of a prefill and a step
+     within 1 (K2: 2) bf16 ulps of its plain version; kernel rows for K2
+     at the encoder's shape and at Tq = 1 (no mask), K5 on the 256 206-row
+     head, K1 on the encoder's ``w_gate``; an ``encdec`` line.
+  9. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
      attention forward K2's f32 kernel, three-term TF32 on the tensor
      cores, under its autograd.Function); one
@@ -101,11 +114,15 @@ script exits non-zero if any phase fails:
      backward, the aux loss, MLA through K2 at (192, 128)); then the
      training launcher on its smoke default, stopped by SIGINT and resumed
      (losses bitwise the uninterrupted run's).  K2 f32 rows at both
-     training shapes.
+     training shapes.  Then FAMILY_TRAIN: seamless-m4t-medium at full
+     depth (f32 frames; K2 without the mask in its encoder and
+     cross-attention), Zamba2-1.2B at 7 blocks, InternVL2-2B at 2 layers
+     (patch embeddings), each with its gradients against the all-plain
+     attention's.
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
-a ``family`` line per model of the families phase,
+a ``family`` line per model of the families phase, an ``encdec`` line,
 K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
@@ -846,9 +863,10 @@ def pack(rt, cfg, device, seed, tiles=0, mode="compressed"):
     """Seeded weights on the card, packed in ``mode`` with the default
     policy (``tiles``: its column groups); the dense weights are freed.
     → (state, timings)."""
-    LM = rt["LM"]
+    init = (rt["ED"].init_encdec if cfg.family == "encdec"
+            else rt["LM"].init_lm)
     t0 = time.perf_counter()
-    params = LM.init_lm(cfg, seed=seed, device=device)
+    params = init(cfg, seed=seed, device=device)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(device)
@@ -3033,10 +3051,11 @@ def k2_train_launches(run) -> int:
     return k2.get("flash_attention:tf32x3", 0)
 
 
-def grad_against_plain(rt, cfg, tcfg, params, batch):
+def grad_against_plain(rt, cfg, tcfg, params, batch, k2_want=None):
     """One step's loss and gradients with K2 under its autograd.Function
     against the all-plain attention (``ops.flash_attention`` swapped for
     the plain version under autograd): every parameter as one vector (L2).
+    ``k2_want``: K2's launches in the forward (default: one a layer).
     → the numbers."""
     S, T, ops, fa = rt["steps"], rt["tree"], rt["ops"], rt["fa"]
     _build = rt["_build"]
@@ -3058,7 +3077,8 @@ def grad_against_plain(rt, cfg, tcfg, params, batch):
            "grad_rel_l2": rel, "tolerance": TRAIN_GRAD_RTOL,
            "tf32x3_launches": k2, "plain_run_launches": plain_launches,
            "leaves": len(T.leaves(params))}
-    if not (rel <= TRAIN_GRAD_RTOL and k2 == cfg.n_layers
+    if not (rel <= TRAIN_GRAD_RTOL
+            and k2 == (cfg.n_layers if k2_want is None else k2_want)
             and plain_launches == 0 and math.isfinite(rel)):
         raise AssertionError(f"K2 autograd gradients: {out}")
     return out
@@ -3244,6 +3264,99 @@ def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
     return info
 
 
+# The families' train steps at full width: (arch, config overrides, steps).
+# seamless-m4t-medium at full depth (12 + 12 layers; K2's f32 kernel
+# without the mask in the encoder and the cross-attention); Zamba2-1.2B
+# cut to 7 Mamba2 blocks, the fewest after which its shared attention
+# block is applied (it follows every 6th block but the last segment's:
+# 6 blocks give none); InternVL2-2B cut to 2 layers, 64 patch embeddings
+# before each row's tokens.
+FAMILY_TRAIN = (
+    ("seamless-m4t-medium", {}, 3),
+    ("zamba2-1.2b", {"n_layers": 7}, 2),
+    ("internvl2-2b", {"n_layers": 2, "n_patches": 64}, 2),
+)
+
+
+class FrontendData:
+    """A data pipeline whose batches also carry the frontend's output for
+    the step: an encoder–decoder's ``enc_embeds`` (TRAIN_BATCH ×
+    TRAIN_SEQ f32 frames) or a VLM's ``embeds`` (TRAIN_BATCH ×
+    ``n_patches``), drawn on the card from the seed and the step."""
+
+    def __init__(self, rt, cfg, base, device):
+        self.rt, self.cfg, self.base, self.device = rt, cfg, base, device
+
+    def batch_at(self, i):
+        batch = dict(self.base.batch_at(i))
+        g = torch.Generator(device=self.device)
+        g.manual_seed(SEED * 1000 + i)
+        fe = self.rt["frontends"]
+        if self.cfg.family == "encdec":
+            batch["enc_embeds"] = fe.audio_frame_embeddings(
+                g, TRAIN_BATCH, TRAIN_SEQ, self.cfg.d_model)
+        elif self.cfg.family == "vlm":
+            batch["embeds"] = fe.vision_patch_embeddings(
+                g, TRAIN_BATCH, self.cfg.n_patches, self.cfg.d_model)
+        return batch
+
+
+def k2_per_step(rt, cfg) -> int:
+    """K2's launches in one train step's forward: an attention layer's
+    each (an encoder–decoder: its encoder layers and, twice, its decoder
+    layers; the hybrid: each application of the shared block)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.decoder_layers
+    if cfg.family == "hybrid":
+        return len(rt["LM"]._hybrid_segments(cfg)) - 1
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def family_train(rt, device, faults, arch, over, steps) -> dict:
+    """One family's f32 train steps at full width from seed 0 (batches of
+    TRAIN_BATCH × TRAIN_SEQ tokens below TRAIN_DATA_VOCAB, with the
+    frontend's output: ``FrontendData``): finite losses, K2's f32 kernel
+    ``k2_per_step`` times a step, and one step's gradients against the
+    all-plain attention (TRAIN_GRAD_RTOL).  → the numbers."""
+    S, opt = rt["steps"], rt["optimizer"]
+    full = rt["get_config"](arch).full
+    cfg = dataclasses.replace(full, **over)
+    tcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=1, total_steps=steps))
+    data = FrontendData(rt, cfg, rt["DataPipeline"](rt["DataConfig"](
+        vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)),
+        device)
+    init = (rt["ED"].init_encdec if cfg.family == "encdec"
+            else rt["LM"].init_lm)
+    t0 = time.perf_counter()
+    state = S.init_train_state(init(cfg, seed=SEED, device=device), tcfg)
+    torch.cuda.synchronize()
+    info = {"model": cfg.name, "family": cfg.family, **over,
+            "full_layers": full.n_layers, "dtype": "float32",
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "n_params": cfg.n_params(), "init_s": time.perf_counter() - t0}
+    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
+                             data, steps)
+    info.update(run)
+    k2 = k2_train_launches(run)
+    per = k2_per_step(rt, cfg)
+    info["flash_attention_tf32x3_launches"] = k2
+    info["flash_attention_tf32x3_want"] = per * steps
+    if not (all(map(math.isfinite, run["losses"])) and k2 == per * steps):
+        faults.append(f"{cfg.name} train: losses {run['losses']}, K2 "
+                      f"{k2} (want {per * steps})")
+    params = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    batch = {k: v.to(device) for k, v in data.batch_at(steps).items()}
+    info["grad_vs_plain"] = grad_against_plain(rt, cfg, tcfg, params, batch,
+                                               k2_want=per)
+    del params
+    torch.cuda.empty_cache()
+    log(f"train {cfg.name} " + json.dumps(info))
+    return info
+
+
 def launcher_train(rt, faults) -> dict:
     """``repro_torch.launch.train.main`` in this process on the card at its
     smoke default: LAUNCH_TRAIN_STEPS steps uninterrupted; then the same
@@ -3285,12 +3398,16 @@ def launcher_train(rt, faults) -> dict:
 
 def train_phase(rt, device, gen, timer, kernels, faults) -> dict:
     """Training and calibration on the card: ``llama_train``,
-    ``deepseek_train``, ``launcher_train``, each timed."""
+    ``deepseek_train``, ``family_train`` on each of FAMILY_TRAIN,
+    ``launcher_train``, each timed."""
     out = {}
     for name, fn in (("llama", lambda: llama_train(
             rt, device, gen, timer, kernels, faults)),
                      ("deepseek", lambda: deepseek_train(
                          rt, device, gen, timer, kernels, faults)),
+                     *((arch, lambda a=arch, o=over, n=n: family_train(
+                         rt, device, faults, a, o, n))
+                       for arch, over, n in FAMILY_TRAIN),
                      ("launcher", lambda: launcher_train(rt, faults))):
         t0 = time.perf_counter()
         try:
@@ -3602,6 +3719,355 @@ def families_phase(rt, device, gen, timer, kernels, faults) -> dict:
         torch.cuda.empty_cache()
         out[arch] = time.perf_counter() - t0
     return {"seconds": out}
+
+
+# The encoder–decoder phase: seamless-m4t-medium at full width and full
+# depth (12 + 12 layers), compressed, random weights from the seed; 4
+# requests of ENCDEC_FRAMES bf16 frames (the reference's serving specs
+# give bf16 frames) and a decoder prompt left-padded to ENCDEC_PROMPT
+# tokens (pad id 0), MAX_NEW new tokens; then a second batch (other
+# frames, other prompts) through the same decode graph; then the first
+# batch in mode='quant'.
+ENCDEC_FRAMES = 300
+ENCDEC_PROMPT, ENCDEC_LENS = 16, (16, 12, 8, 4)
+# decode rows each held against itself alone
+ENCDEC_ROWS = (4, 16)
+
+
+def encdec_prompts(vocab: int, seed: int):
+    """ENCDEC_LENS prompts left-padded to ENCDEC_PROMPT (pad id 0), token
+    ids from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((len(ENCDEC_LENS), ENCDEC_PROMPT), np.int64)
+    for i, n in enumerate(ENCDEC_LENS):
+        out[i, ENCDEC_PROMPT - n:] = rng.integers(1, vocab, n)
+    return out
+
+
+def encdec_want(cfg, mode: str):
+    """(launches by wrapper, launches by wrapper:kernel) of one prefill
+    and MAX_NEW − 1 decode steps, from the config.  A prefill runs K1 on
+    every projection: 7 an encoder layer (at M = B·S), the cross K/V (2 a
+    decoder layer, at M = B·S) and 9 a decoder layer (self q/k/v/o, cross
+    q/o, the MLP; at M = B·T0), all on the tensor-core kernel; K2 once an
+    encoder layer (no mask), and twice a decoder layer (causal over the
+    cache; cross-attention, no mask); K5 once (the head at the last
+    position, a decode row).  A decode step: K1 9 a decoder layer (decode
+    kernel), K2 once a decoder layer (cross-attention at Tq = 1), K5 once.
+    In quant mode every projection is K5 instead of K1 (its tensor-core
+    kernel at the prefill, its decode kernel at a step)."""
+    e, d, steps = cfg.encoder_layers, cfg.decoder_layers, MAX_NEW - 1
+    pre, step = 7 * e + 2 * d + 9 * d, 9 * d
+    k2 = (e + 2 * d) + steps * d
+    if mode == "quant":
+        return ({"dequant_matmul": pre + 1 + steps * (step + 1),
+                 "flash_attention": k2},
+                {"dequant_matmul:mma": pre,
+                 "dequant_matmul:decode": MAX_NEW + steps * step,
+                 "flash_attention:mma": k2})
+    return ({"fused_decode_matmul": pre + steps * step,
+             "dequant_matmul": MAX_NEW, "flash_attention": k2},
+            {"fused_decode_matmul:mma": pre,
+             "fused_decode_matmul:decode": steps * step,
+             "dequant_matmul:decode": MAX_NEW, "flash_attention:mma": k2})
+
+
+def encdec_eager(rt, cfg, state, ids, frames):
+    """The decode phase as an eager loop over ``make_serve_fns``' steps on
+    fresh caches (int positions).  → (the MAX_NEW new tokens, seconds of
+    the decode steps alone)."""
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=ids.device)
+    b, t0 = ids.shape
+    caches = rt["ED"].init_caches(cfg, b, t0 + MAX_NEW, frames.shape[1],
+                                  enc_dtype=frames.dtype, device=ids.device)
+    logits, caches = prefill(state.params, state.lut,
+                             {"tokens": ids, "enc_embeds": frames}, caches)
+    toks = [torch.argmax(logits, dim=-1)[:, None]]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(MAX_NEW - 1):
+        logits, caches = decode_step(state.params, state.lut, toks[-1],
+                                     caches, t0 + i)
+        toks.append(torch.argmax(logits, dim=-1)[:, None])
+    torch.cuda.synchronize()
+    return torch.cat(toks, dim=1), time.perf_counter() - t
+
+
+def encdec_serve(rt, cfg, state, device, batches, mode, faults) -> dict:
+    """The main path on each (ids, frames) of ``batches``: the eager loop,
+    then ``decode_graph(...).run`` — the first batch twice (the first run
+    takes an eager step and captures the decode step, the second only
+    replays), every later batch once through the same graph (its prefill
+    copies its cross K/V into the graph's buffers).  Counts zeroed just
+    before each run and read just after: each must be ``encdec_want``'s,
+    nothing materialized, one capture in all; every graphed run's tokens
+    bitwise the eager loop's on that batch.  Then the encoder alone, the
+    prefill alone (medians of 3) and the graphed decode alone (replays
+    after a prefill)."""
+    E, ED = rt["engine"], rt["ED"]
+    want, kernel_want = encdec_want(cfg, mode)
+    ids0, frames0 = batches[0]
+    b, t0 = ids0.shape
+    graph = E.decode_graph(state.params, cfg, state.lut, b, t0 + MAX_NEW,
+                           enc_len=frames0.shape[1], enc_dtype=frames0.dtype,
+                           device=device)
+    runs, tokens = {}, []
+
+    def counted(fn):
+        torch.cuda.reset_peak_memory_stats(device)
+        out, run = counted_run(rt, fn)
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated(device)
+        return out, run
+
+    for i, (ids, frames) in enumerate(batches):
+        (eager, eager_s), runs[f"eager_{i}"] = counted(
+            lambda: encdec_eager(rt, cfg, state, ids, frames))
+        for rep in ((0, 1) if i == 0 else (0,)):
+            got, runs[f"graph_{i}_{rep}"] = counted(
+                lambda: graph.run(state.params, state.lut, ids, MAX_NEW,
+                                  enc_embeds=frames))
+            if not torch.equal(got, eager):
+                faults.append(f"{cfg.name} {mode} batch {i} run {rep}: "
+                              "graphed tokens differ from the eager loop's "
+                              f"at {torch.nonzero(got != eager).tolist()[:8]}")
+        if i == 0:
+            eager_decode_s = eager_s
+        tokens.append(eager)
+    for name, run in runs.items():
+        if (run["launches"] != want or run["kernel_launches"] != kernel_want
+                or run["materialized"] or run["fallbacks"]):
+            faults.append(f"{cfg.name} {mode} {name}: launches "
+                          f"{run['launches']} (want {want}), by kernel "
+                          f"{run['kernel_launches']} (want {kernel_want}), "
+                          f"materialized {run['materialized']}, fallbacks "
+                          f"{run['fallbacks']}")
+    captures = [r["captures"].get("decode_loop", 0) for r in runs.values()]
+    if captures != [0, 1, 0] + [0, 0] * (len(batches) - 1):
+        faults.append(f"{cfg.name} {mode} captures {captures}")
+    prefill, _ = rt["make_serve_fns"](cfg, device=device)
+
+    def median_ms(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)[1]
+
+    with torch.no_grad():
+        encoder_ms = median_ms(lambda: ED.encode(state.params, cfg, frames0,
+                                                 lut=state.lut))
+        prefill_ms = median_ms(lambda: prefill(
+            state.params, state.lut, {"tokens": ids0, "enc_embeds": frames0},
+            ED.init_caches(cfg, b, t0 + MAX_NEW, frames0.shape[1],
+                           device=device)))
+        graph.prefill(state.params, state.lut, ids0, enc_embeds=frames0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graph.decode(state.params, state.lut, MAX_NEW - 1)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t
+    pool = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ()))
+            == tuple(graph.graph.pool())]
+    steps = MAX_NEW - 1
+    replay = runs["graph_0_1"]
+    return {"mode": mode, "encoder_ms": encoder_ms, "prefill_ms": prefill_ms,
+            "decode_ms_per_step": graph_s / steps * 1e3,
+            "decode_tokens_per_s": b * steps / graph_s,
+            "eager_decode_ms_per_step": eager_decode_s / steps * 1e3,
+            "eager_decode_tokens_per_s": b * steps / eager_decode_s,
+            "capture_ms": graph.capture_ms,
+            "peak_mem_bytes": runs["graph_0_0"]["peak_mem_bytes"],
+            "replay_peak_mem_bytes": replay["peak_mem_bytes"],
+            "graph_pool_bytes": sum(pool), "launches": replay["launches"],
+            "kernel_launches": replay["kernel_launches"],
+            "launches_want": want, "kernel_launches_want": kernel_want,
+            "step_kernel_launches": dict(graph.step_counts[1]),
+            "runs": {k: {f: r[f] for f in ("s", "captures", "materialized")}
+                     for k, r in runs.items()},
+            "tokens": [t.tolist() for t in tokens]}
+
+
+def encdec_rows(rt, cfg, state, device, ids, frames) -> dict:
+    """Each row of a decode step bitwise itself alone, at ENCDEC_ROWS
+    rows: the batch's caches after its prefill (at 16 rows the 4 rows
+    four times over), per-row positions.  → the worst |difference| by row
+    count."""
+    ED = rt["ED"]
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=device)
+    b, t0 = ids.shape
+    caches = ED.init_caches(cfg, b, t0 + MAX_NEW, frames.shape[1],
+                            device=device)
+    with torch.no_grad():
+        logits, caches = prefill(state.params, state.lut,
+                                 {"tokens": ids, "enc_embeds": frames},
+                                 caches)
+        tok = torch.argmax(logits, -1)[:, None]
+        out = {}
+        for n in ENCDEC_ROWS:
+            reps = -(-n // b)
+
+            def rows(r, reps=reps):
+                def one(t):
+                    return torch.cat([t] * reps)[r].clone()
+                return {k: [{m: one(t) for m, t in layer.items()}
+                            for layer in v] if k == "self"
+                        else [one(t) for t in v] for k, v in caches.items()}
+
+            toks = torch.cat([tok] * reps)[:n]
+            pos = t0 + torch.arange(n, device=device) % 3
+            many = decode_step(state.params, state.lut, toks,
+                               rows(slice(0, n)), pos)[0]
+            out[n] = max(float((many[i:i + 1].float() - decode_step(
+                state.params, state.lut, toks[i:i + 1],
+                rows(slice(i, i + 1)), pos[i:i + 1])[0].float()
+                ).abs().max()) for i in range(n))
+    return out
+
+
+def encdec_against_plain(rt, cfg, state, device, ids, frames) -> dict:
+    """Every K1, K5 and K2 call of a prefill and a decode step against its
+    plain version on the same inputs (``plain_kernels(record=...)``):
+    within FAMILY_CALL_ULPS.  → per wrapper, calls and worst ulps."""
+    ED = rt["ED"]
+    prefill, decode_step = rt["make_serve_fns"](cfg, device=device)
+    b, t0 = ids.shape
+    calls = {}
+    with torch.no_grad(), plain_kernels(rt, calls):
+        caches = ED.init_caches(cfg, b, t0 + MAX_NEW, frames.shape[1],
+                                device=device)
+        logits, caches = prefill(state.params, state.lut,
+                                 {"tokens": ids, "enc_embeds": frames},
+                                 caches)
+        decode_step(state.params, state.lut,
+                    torch.argmax(logits, -1)[:, None], caches, t0)
+        torch.cuda.synchronize()
+    bad = [n for n, r in calls.items()
+           if r["worst_ulps"] > FAMILY_CALL_ULPS[n]]
+    if bad or set(calls) != set(FAMILY_CALL_ULPS):
+        raise AssertionError(f"{cfg.name} against plain: {calls}")
+    return {"calls": calls, "call_ulps_allowed": FAMILY_CALL_ULPS}
+
+
+def check_flash_cross(rt, device, gen, timer, b, h, tq, tk, d, what):
+    """K2 without the mask at (b, h, tq, d) against (b, h, tk, d) keys and
+    values, bf16 operands as the layers pass them ((B, T, H, D) tensors
+    transposed): within FLASH_ATOL_BF16 of the plain version; timed beside
+    the plain version and SDPA (no mask) on the same inputs.  Bound: the
+    bytes (q, k, v read once, the output written once) and the operations
+    (2·(d + dv) a query–key pair)."""
+    fa = rt["fa"]
+
+    def view(t):
+        return torch.randn((b, t, h, d), generator=gen, device=device
+                           ).to(torch.bfloat16).transpose(1, 2)
+
+    q, k, v = view(tq), view(tk), view(tk)
+    y = fa.flash_attention(q, k, v, causal=False)
+    err = float((y.float() - fa.flash_attention_plain(
+        q, k, v, causal=False).float()).abs().max())
+    if not (err <= FLASH_ATOL_BF16 and torch.isfinite(y).all()):
+        raise AssertionError(f"K2 not causal ({b}, {h}, {tq}, {tk}, {d}): "
+                             f"err {err}")
+    bb, by = bound_ms(nbytes(q, k, v, y), 2.0 * 2 * d * b * h * tq * tk)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:80",
+            "kernel": "bf16 tensor cores (flash_attention:mma), no mask",
+            "timed_at": f"{what}: bf16 q (B={b}, {h} heads, Tq={tq}, D={d}) "
+                        f"over Tk={tk}, not causal",
+            "max_abs_err": err,
+            "ms": timer.graph_ms([lambda: fa.flash_attention(
+                q, k, v, causal=False)] * 8),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=False)),
+            "library_ms": timer.graph_ms([
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v)] * 8),
+            "library": "scaled_dot_product_attention (bf16, no mask)",
+            "bound_ms": bb, "bound_by": by}
+
+
+def encdec_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """seamless-m4t-medium at full width and depth: pack, the main path
+    on two batches (``encdec_serve``), each decode row bitwise alone
+    (``encdec_rows``), every kernel call against its plain version
+    (``encdec_against_plain``), kernel rows (K2 at the encoder's and the
+    cross-attention's decode shapes, K5 on the 256 206-row head, K1 on
+    the encoder's ``w_gate``), then the first batch in quant mode.  → the
+    ``encdec`` line's numbers."""
+    E = rt["engine"]
+    cfg = rt["get_config"]("seamless-m4t-medium").full
+    b, s = len(ENCDEC_LENS), ENCDEC_FRAMES
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    batches = []
+    for i in range(2):
+        frames = rt["frontends"].audio_frame_embeddings(
+            g, b, s, cfg.d_model, torch.bfloat16)
+        ids = torch.as_tensor(encdec_prompts(cfg.vocab_size, SEED + i),
+                              device=device)
+        batches.append((ids, frames))
+    state, packing = pack(rt, cfg, device, SEED)
+    info = {"model": cfg.name, "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": cfg.decoder_layers, "batch": b, "frames": s,
+            "frames_dtype": "bfloat16", "prompt": ENCDEC_PROMPT,
+            "prompt_lens": list(ENCDEC_LENS), "max_new": MAX_NEW,
+            "n_params": cfg.n_params(), **packing}
+    t0 = time.perf_counter()
+    info["compressed"] = comp = encdec_serve(rt, cfg, state, device, batches,
+                                             "compressed", faults)
+    info["serve_s"] = time.perf_counter() - t0
+    rows = encdec_rows(rt, cfg, state, device, *batches[0])
+    info["rows_worst_abs_diff_alone"] = rows
+    if any(v != 0.0 for v in rows.values()):
+        faults.append(f"{cfg.name} decode rows depend on the batch: {rows}")
+    info["against_plain"] = encdec_against_plain(rt, cfg, state, device,
+                                                 *batches[0])
+    phase(rt, "encdec kernels")
+    m_enc, m_dec = b * s, b * ENCDEC_PROMPT
+    launches = comp["launches"]
+    k1, k1_rows = check_fused(
+        rt, state.lut, [("w_gate", [blk["mlp"]["w_gate"]
+                                    for blk in state.params["encoder"]],
+                         True)],
+        device, m_enc, gen, timer,
+        f"the encoder's w_gate (4096 x 1024, 12 layers' planes), M={BATCH}")
+    info["k1_rows"] = k1_rows
+    k5 = check_head_k5(rt, state.params["lm_head"], m_dec, gen, timer,
+                       cfg.name)
+    k2_enc = check_flash_cross(rt, device, gen, timer, b, cfg.n_heads, s, s,
+                               cfg.resolved_head_dim, "the encoder's "
+                               "self-attention")
+    k2_dec = check_flash_cross(rt, device, gen, timer, b, cfg.n_heads, 1, s,
+                               cfg.resolved_head_dim, "cross-attention at a "
+                               "decode step")
+    for row in (k1, k5, k2_enc, k2_dec):
+        row["path"] = f"encdec {cfg.name}"
+        row["launches"] = launches.get(row["name"], 0)
+        row["launches_by_kernel"] = by_kernel(comp["kernel_launches"],
+                                              row["name"])
+        row["launches_of"] = ("the graphed run of the first batch (prefill "
+                              f"+ {MAX_NEW - 1} steps)")
+    kernels.extend([k1, k5, k2_enc, k2_dec])
+    phase(rt, "encdec")
+    E.drop_graphs(cfg)
+    del state
+    torch.cuda.empty_cache()
+    qstate, qpacking = pack(rt, cfg, device, SEED, mode="quant")
+    info["quant"] = quant = encdec_serve(rt, cfg, qstate, device,
+                                         batches[:1], "quant", faults)
+    quant["pack_s"] = qpacking["pack_s"]
+    same = [a == c for a, c in zip(quant["tokens"][0], comp["tokens"][0])]
+    quant["requests_equal_to_compressed"] = sum(same)
+    E.drop_graphs(cfg)
+    del qstate
+    torch.cuda.empty_cache()
+    log(f"encdec {cfg.name} " + json.dumps(info))
+    return {"encdec_s": time.perf_counter() - t0}
 
 
 def phase(rt, name: str):
@@ -4044,6 +4510,7 @@ def main() -> int:
     from repro_torch.kernels import fused_decode_matmul as fdm
     from repro_torch.models import layers as L
     from repro_torch.models import frontends
+    from repro_torch.models import encdec as ED
     from repro_torch.models import lm as LM
     from repro_torch.serve import engine
     from repro_torch.serve.context import ServeContext
@@ -4067,6 +4534,7 @@ def main() -> int:
           "pressure_trace": pressure_trace,
           "FaultInjector": FaultInjector, "frontends": frontends,
           "fdm": fdm, "dqm": dqm, "fa": fa, "ddc": ddc, "L": L, "LM": LM,
+          "ED": ED,
           "ops": ops, "_build": _build, "engine": engine,
           "get_config": get_config,
           "CompressionPolicy": CompressionPolicy,
@@ -4106,7 +4574,7 @@ def main() -> int:
             failed.append(path.__name__)
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
-    for name, fn in (("families", families_phase),
+    for name, fn in (("families", families_phase), ("encdec", encdec_phase),
                      ("launcher", launcher_phase), ("train", train_phase)):
         t0 = time.perf_counter()
         phase(rt, name)

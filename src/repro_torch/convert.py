@@ -1,10 +1,11 @@
 """Carry weights across from the JAX package, as numpy arrays.
 
 The JAX package stacks per-layer leaves on a leading axis under
-``params["blocks"]`` (attention + MLP layers, MoE layers, Mamba2 blocks);
-the port keeps a list of per-layer dicts.  An MoE model's
-``first_blocks`` is a list in both, and the hybrid's ``shared_attn`` one
-unstacked dict in both.  Stacked expert leaves keep
+``params["blocks"]`` (attention + MLP layers, MoE layers, Mamba2 blocks)
+and, for an encoder–decoder, under ``params["encoder"]`` and
+``params["decoder"]``; the port keeps lists of per-layer dicts.  An MoE
+model's ``first_blocks`` is a list in both, and the hybrid's
+``shared_attn`` one unstacked dict in both.  Stacked expert leaves keep
 their expert axis: (L, E, N, K) in the reference, (E, N, K) per layer here,
 and so do their planes.  These functions take numpy only (``np.asarray`` of
 every leaf, done by the caller), so this package never sees a JAX type.
@@ -65,20 +66,23 @@ def _layer(node, i: int):
     return node[i]
 
 
-def _unstack(tree: dict, cfg) -> dict:
-    out = dict(tree)
-    n = cfg.n_layers - (cfg.first_dense_layers if cfg.family == "moe" else 0)
-    out["blocks"] = [_layer(tree["blocks"], i) for i in range(n)]
-    return out
+def _stacks(cfg) -> dict:
+    """{key: layers} of the reference's stacked lists for ``cfg``."""
+    if cfg.family == "encdec":
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.decoder_layers}
+    return {"blocks": cfg.n_layers - (cfg.first_dense_layers
+                                      if cfg.family == "moe" else 0)}
 
 
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """The JAX package's dense parameter tree (numpy leaves, stacked
-    ``blocks``) → the port's parameter dict on ``device``."""
+    ``blocks``, or ``encoder`` and ``decoder``) → the port's parameter
+    dict on ``device``."""
     device = resolve_device(device)
-    flat = _unstack(tree, cfg)
-    out = {k: _leaf(v, device) for k, v in flat.items() if k != "blocks"}
-    out["blocks"] = [_leaf(b, device) for b in flat["blocks"]]
+    stacks = _stacks(cfg)
+    out = {k: _leaf(v, device) for k, v in tree.items() if k not in stacks}
+    for k, n in stacks.items():
+        out[k] = [_leaf(_layer(tree[k], i), device) for i in range(n)]
     return out
 
 

@@ -91,10 +91,16 @@ class IntegrityReport:
 # The parameter tree in the reference's flatten order.
 # ---------------------------------------------------------------------------
 
+# The parameter lists the reference stacks on a leading layer axis: the
+# decoder-only families' blocks, the encoder–decoder's two stacks.
+STACKED = ("blocks", "encoder", "decoder")
+
+
 def leaf_groups(params) -> list:
     """[(name, [(holder, key), ...]), ...] in the reference's flatten order.
 
-    The reference stacks the layers of ``params["blocks"]``, so each
+    The reference stacks the layers of ``params["blocks"]`` (and of an
+    encoder–decoder's ``"encoder"`` and ``"decoder"``: ``STACKED``), so each
     per-layer leaf (e.g. ``['blocks']['attn']['wq']``) is one stacked leaf
     whose layers are quantized, counted and encoded in layer order, and
     dict keys flatten sorted.  The table's code order depends on that
@@ -108,7 +114,7 @@ def leaf_groups(params) -> list:
         for key in sorted(node):
             name = f"{prefix}['{key}']"
             child = node[key]
-            if isinstance(child, list) and key == "blocks":  # stacked layers
+            if isinstance(child, list) and key in STACKED:  # stacked layers
                 visit(child[0], name, child)
             elif isinstance(child, list):
                 for i, sub in enumerate(child):
@@ -129,7 +135,7 @@ def plane_keys(container) -> dict:
 
 
 def _stacked(name: str) -> bool:
-    return name.startswith("['blocks']")
+    return any(name.startswith(f"['{k}']") for k in STACKED)
 
 
 def plane_leaves(params):

@@ -1,3 +1,4 @@
 """Launchers of the port (counterpart of ``repro.launch``): the serving
-launcher, ``python -m repro_torch.launch.serve``.  The mesh, dry-run and
-training launchers are not ported yet."""
+launcher, ``python -m repro_torch.launch.serve``, and the training
+launcher, ``python -m repro_torch.launch.train``.  The mesh and dry-run
+launchers are not ported yet."""

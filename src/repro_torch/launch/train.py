@@ -4,8 +4,9 @@
         --steps 100 --batch 16 --seq 64 [--full] [--device cpu]
 
 Counterpart of ``repro/launch/train.py`` with its flags and defaults, plus
-``--device``.  It trains the arch's smoke config (``--full``: the full
-width) from ``init_lm(cfg, seed=0)`` in f32 on the seeded
+``--device``.  It trains any decoder-only arch (an encoder–decoder exits
+with the reference's message, as there) on its smoke config (``--full``:
+the full width) from ``init_lm(cfg, seed=0)`` in f32 on the seeded
 ``train.data.DataPipeline``, through ``train.fault.FaultTolerantLoop``:
 periodic atomic checkpoints under ``--ckpt-dir`` every ``--ckpt-every``
 steps, a checkpoint and a stop at SIGTERM/SIGINT, and a resume from the
@@ -86,6 +87,8 @@ def main(argv=None, *, params=None, on_metrics=None) -> dict:
         logits_chunk=args.logits_chunk)
     data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    batch=args.batch, seq_len=args.seq))
+    if cfg.family == "encdec":
+        raise SystemExit("use examples/ for enc-dec; LM families here")
     if params is None:
         params = LM.init_lm(cfg, seed=0, device=device,
                             dtype=tcfg.param_dtype)

@@ -1,15 +1,16 @@
 """Model primitives — functional layers over plain parameter dicts.
 
-Counterpart of ``repro/models/layers.py`` for the decoder-only families:
-GQA attention (with Qwen2's QKV bias, Qwen3's qk-norm and the int8 KV
-cache), DeepSeek-V2's MLA attention and MoE (global dispatch).  Activations keep the
-reference's (B, T, H, hd) layout and weights its (out, in) layout.  A linear
-weight is a dense tensor, a ``QuantLinear``, a ``PackedLinear`` or a
-``TiledPackedLinear`` (column groups); ``linear`` routes the containers to
-the hand-written kernels through ``kernels.ops`` (CUDA tensors) or their
-plain versions (CPU tensors), and a stacked expert ``PackedLinear`` runs
-the grouped kernel.  The port keeps a list of per-layer dicts, so a
-container reaches a layer with that layer's planes alone.
+Counterpart of ``repro/models/layers.py``: GQA attention (with Qwen2's QKV
+bias, Qwen3's qk-norm and the int8 KV cache), the encoder–decoder's
+cross-attention, DeepSeek-V2's MLA attention and MoE (global dispatch).
+Activations keep the reference's (B, T, H, hd) layout and weights its (out,
+in) layout.  A linear weight is a dense tensor, a ``QuantLinear``, a
+``PackedLinear`` or a ``TiledPackedLinear`` (column groups); ``linear``
+routes the containers to the hand-written kernels through ``kernels.ops``
+(CUDA tensors) or their plain versions (CPU tensors), and a stacked expert
+``PackedLinear`` runs the grouped kernel.  The port keeps a list of
+per-layer dicts, so a container reaches a layer with that layer's planes
+alone.
 
 Unlike the reference, the KV cache is updated in place (``_kv_write``):
 the cache is the largest activation buffer and a functional copy per token
@@ -423,6 +424,30 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
             o = _attend_cache_flash(q, ck, cv, int(pos0))
     y = linear(o.reshape(b, t, nq * hd), p["wo"], lut)
     return y, cache
+
+
+def apply_cross_attention(p: Params, x: torch.Tensor, enc_k, enc_v, cfg, *,
+                          lut=None) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, S, H, hd):
+    no rope, no mask, the flash kernel at any T (a decode step's q is one
+    row a request)."""
+    b, t, _ = x.shape
+    hd = cfg.resolved_head_dim
+    nq = cfg.n_heads
+    q = linear(x, p["wq"], lut, p.get("bq")).reshape(b, t, nq, hd)
+    o = _attend_full(q, enc_k, enc_v, causal=False)
+    return linear(o.reshape(b, t, nq * hd), p["wo"], lut)
+
+
+def project_enc_kv(p: Params, enc_out: torch.Tensor, cfg, *, lut=None):
+    """A decoder layer's cross-attention K/V of the encoder's output:
+    (B, S, kv heads, hd) each."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    nkv = cfg.n_kv_heads
+    k = linear(enc_out, p["wk"], lut, p.get("bk")).reshape(b, s, nkv, hd)
+    v = linear(enc_out, p["wv"], lut, p.get("bv")).reshape(b, s, nkv, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

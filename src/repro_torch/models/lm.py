@@ -12,7 +12,8 @@ The hybrid applies one ``params["shared_attn"]`` block (attention + MLP,
 weights shared, a KV cache of its own at each application) after every
 ``attn_period`` Mamba2 blocks.  A VLM is the dense stack with patch
 embeddings prepended to the token embeddings (``forward``'s ``embeds``).
-The encoder–decoder family (``repro/models/encdec.py``) is not ported.
+The encoder–decoder family is ``models/encdec.py``'s: here, as in the
+reference, ``init_lm`` and ``init_caches`` raise ``ValueError`` for it.
 """
 from __future__ import annotations
 
@@ -32,8 +33,10 @@ FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 def _check_family(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported; "
-                                  f"only {FAMILIES} are")
+        raise ValueError(f"family {cfg.family!r} is not a decoder-only LM's "
+                         f"{FAMILIES}"
+                         + ("; models/encdec.py serves it"
+                            if cfg.family == "encdec" else ""))
 
 
 def _init_attn(cfg, gen, device, dtype):

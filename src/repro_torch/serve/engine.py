@@ -28,7 +28,9 @@ wraps :func:`generate` and frees a failed rung's graphs with
 :func:`drop_graphs`; ``build_serve_params`` records the integrity
 manifest.  Tiered expert residency (``serve/residency.py``) takes over
 :func:`make_serve_fns` and :func:`generate` when the context carries a
-manager.  Not ported yet: ``model_shards`` (multi-device).
+manager.  An encoder–decoder (``models/encdec.py``) is served through
+:func:`make_serve_fns` and :func:`decode_graph`.  Not ported yet:
+``model_shards`` (multi-device).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from ..core.integrity import build_manifest, leaf_groups
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
 from ..kernels import _build, ops
+from ..models import encdec as ED
 from ..models import layers as L
 from ..models import lm as LM
 from .context import ServeContext
@@ -237,7 +240,9 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
 
     prefill(params, lut, batch, caches) -> (last_logits, caches)
       (``batch``: {"tokens": (B, T0)} and, for a VLM, "embeds" (B, T', d),
-      prepended; the first decode position is then T' + T0)
+      prepended; the first decode position is then T' + T0; for an
+      encoder–decoder, "enc_embeds" (B, S, d), the encoder's frames, and
+      ``caches`` from ``encdec.init_caches``)
     decode_step(params, lut, token, caches, pos) -> (logits, caches)
 
     Caches are updated in place and returned.  ``pos`` is an int, a 0-d
@@ -261,15 +266,32 @@ def serve_fns(cfg, device: torch.device, *, routing: bool = False):
     ``device``.  ``routing=True`` (MoE family) appends each step's expert
     ids, (L_moe, B·T, k), to what it returns: the steps the residency
     manager launches."""
+    if routing and cfg.family == "encdec":
+        raise ValueError("routing capture is not supported for encdec")
 
     def _last_logits(params, hidden, lut):
         """LM head on the final position only."""
-        head = params.get("lm_head", params["embed"])
+        head = params["lm_head"] if "lm_head" in params else params["embed"]
         logits = L.linear(hidden[:, -1:], head, lut)
         if cfg.logits_softcap:
             c = cfg.logits_softcap
             logits = torch.tanh(logits / c) * c
         return logits[:, 0]
+
+    if cfg.family == "encdec":
+        def prefill_ed(params, lut, batch, caches):
+            hidden, caches = ED.forward(
+                params, cfg, batch["enc_embeds"].to(device),
+                batch["tokens"].to(device), caches=caches, pos=0, lut=lut,
+                return_hidden=True)
+            return _last_logits(params, hidden, lut), caches
+
+        def decode_step_ed(params, lut, token, caches, pos):
+            logits, caches = ED.decode_step(params, cfg, token.to(device),
+                                            caches, pos, lut=lut)
+            return logits[:, -1], caches
+
+        return prefill_ed, decode_step_ed
 
     def prefill(params, lut, batch, caches):
         tokens = batch["tokens"].to(device)
@@ -413,7 +435,11 @@ class DecodeGraph:
     It owns what the step reads and writes, at fixed addresses: the token
     input (B, 1), the position (a 0-d int64 tensor), the KV or latent
     caches (which the prefill writes into) and a (B, max_len) buffer that
-    takes each new token at column pos + 1.  The step decodes, samples,
+    takes each new token at column pos + 1.  An encoder–decoder's caches
+    (``encdec.init_caches``: ``enc_len`` frames, cross K/V in
+    ``enc_dtype``, the frames' dtype) also hold each decoder layer's cross
+    K/V, which every prefill copies into the same buffers, so a replay
+    reads the frames last prefilled.  The step decodes, samples,
     writes the token into the input and the buffer, and adds one to the
     position.  Between replays the host only launches the next one.
 
@@ -432,12 +458,17 @@ class DecodeGraph:
     state back, so the draws are the eager loop's with that generator."""
 
     def __init__(self, cfg, batch: int, max_len: int, *,
-                 temperature: float = 0.0, device=None):
+                 temperature: float = 0.0, enc_len: int = 0,
+                 enc_dtype=torch.bfloat16, device=None):
         device = resolve_device(device)
         self.device, self.temperature = device, temperature
         self.generator = (torch.Generator(device=device) if temperature > 0
                           else None)
-        self.caches = LM.init_caches(cfg, batch, max_len, device=device)
+        if cfg.family == "encdec":
+            self.caches = ED.init_caches(cfg, batch, max_len, enc_len,
+                                         enc_dtype=enc_dtype, device=device)
+        else:
+            self.caches = LM.init_caches(cfg, batch, max_len, device=device)
         self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros((), dtype=torch.long, device=device)
         self.seq = torch.zeros((batch, max_len), dtype=torch.long,
@@ -449,16 +480,18 @@ class DecodeGraph:
         self._finalizers: list = []
 
     def prefill(self, params, lut, ids: torch.Tensor,
-                embeds: torch.Tensor | None = None) -> torch.Tensor:
+                embeds: torch.Tensor | None = None,
+                enc_embeds: torch.Tensor | None = None) -> torch.Tensor:
         """Zero the caches (KV and SSM state) and prefill ``ids`` (B, T0),
-        after ``embeds`` (B, T', d) where given, into them; the greedy
-        first token goes into the input, T' + T0 into the position.
-        → that token (B, 1)."""
+        after ``embeds`` (B, T', d) where given, into them (an
+        encoder–decoder: over ``enc_embeds`` (B, S, d), whose cross K/V
+        go into the caches' buffers); the greedy first token goes into
+        the input, T' + T0 into the position.  → that token (B, 1)."""
         for t in _tensors(self.caches):
             t.zero_()
-        logits, _ = self._fns[0](params, lut,
-                                 {"tokens": ids, "embeds": embeds},
-                                 self.caches)
+        logits, _ = self._fns[0](params, lut, {
+            "tokens": ids, "embeds": embeds, "enc_embeds": enc_embeds},
+            self.caches)
         tok = sample_tokens(logits, 0.0)[:, None]
         self.tok.copy_(tok)
         self.pos.fill_(_extra(embeds) + ids.shape[1])
@@ -498,8 +531,10 @@ class DecodeGraph:
 
     def run(self, params, lut, ids: torch.Tensor, max_new: int,
             generator: torch.Generator | None = None,
-            embeds: torch.Tensor | None = None):
-        """Prefill ``ids`` (B, T0) after ``embeds`` (B, T', d) where given,
+            embeds: torch.Tensor | None = None,
+            enc_embeds: torch.Tensor | None = None):
+        """Prefill ``ids`` (B, T0) after ``embeds`` (B, T', d) where given
+        (an encoder–decoder: over the frames ``enc_embeds`` (B, S, d)),
         then ``max_new − 1`` decode steps from position T' + T0, sampling
         (if the graph samples) from ``generator``'s state, which is
         advanced as the eager loop would advance it.  → the ``max_new``
@@ -510,7 +545,7 @@ class DecodeGraph:
                              f"exceed the caches' {self.seq.shape[1]}")
         if self.generator is not None:
             self.generator.set_state(generator.get_state())
-        tok = self.prefill(params, lut, ids, embeds)
+        tok = self.prefill(params, lut, ids, embeds, enc_embeds)
         self.decode(params, lut, max_new - 1)
         if self.generator is not None:
             generator.set_state(self.generator.get_state())
@@ -545,11 +580,16 @@ def _drop_graph(key, ref):
 def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
                  temperature: float = 0.0,
                  generator: torch.Generator | None = None,
+                 enc_len: int = 0, enc_dtype=torch.bfloat16,
                  device=None) -> DecodeGraph:
-    """The :class:`DecodeGraph` of this configuration, batch, cache length
-    and sampling rule (greedy, or a temperature when a ``generator`` is
-    given) over these weights, made at the first call.  Graphs are kept by
-    the ``data_ptr()`` of every parameter tensor and of the LUT, so a new
+    """The :class:`DecodeGraph` of this configuration, batch, cache length,
+    sampling rule (greedy, or a temperature when a ``generator`` is
+    given) and, for an encoder–decoder, frames (``enc_len``, ``enc_dtype``)
+    over these weights, made at the first call.  An encoder–decoder's
+    decode phase is ``decode_graph(...).run(..., enc_embeds=frames)``: the
+    counterpart of the reference's ``_decode_loop`` after its prefill.
+    Graphs are kept by the ``data_ptr()`` of every parameter tensor and of
+    the LUT, so a new
     ``ServeState`` gets a graph of its own, and a graph goes as soon as a
     tensor it reads is freed: none outlives its weights.  At most
     ``MAX_GRAPHS`` are kept; a new one past that frees the least recently
@@ -558,7 +598,7 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     temperature = (max(float(temperature), 0.0) if generator is not None
                    else 0.0)
     leaves = list(_tensors(params)) + ([lut] if lut is not None else [])
-    key = (cfg, batch, max_len, device, temperature,
+    key = (cfg, batch, max_len, device, temperature, enc_len, enc_dtype,
            tuple(t.data_ptr() for t in leaves))
     graph = _GRAPHS.get(key)
     if graph is not None:
@@ -567,7 +607,9 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     while len(_GRAPHS) >= MAX_GRAPHS:
         _forget(_GRAPHS.popitem(last=False)[1])
     graph = _GRAPHS[key] = DecodeGraph(cfg, batch, max_len,
-                                       temperature=temperature, device=device)
+                                       temperature=temperature,
+                                       enc_len=enc_len, enc_dtype=enc_dtype,
+                                       device=device)
     ref = weakref.ref(graph)
     graph._finalizers = [weakref.finalize(t, _drop_graph, key, ref)
                          for t in leaves]
@@ -610,9 +652,17 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     + max_new positions unless ``max_len`` says more); the returned
     sequence holds the tokens alone.  A ``ctx`` with a
     ``residency`` manager serves through ``residency.tiered_generate``
-    (eager steps under the fetch/replay protocol, bitwise equal)."""
+    (eager steps under the fetch/replay protocol, bitwise equal).  An
+    encoder–decoder raises ``ValueError``, as the reference's ``generate``
+    does (its ``init_caches`` refuses the family): it is served through
+    :func:`make_serve_fns` or :func:`decode_graph`."""
+    if cfg is None and ctx is not None:
+        cfg = ctx.cfg
+    if cfg.family == "encdec":
+        raise ValueError("generate serves decoder-only LMs; family 'encdec' "
+                         "decodes through make_serve_fns or decode_graph "
+                         "(with its enc_embeds)")
     if ctx is not None:
-        cfg = ctx.cfg if cfg is None else cfg
         lut, device = ctx.lut, ctx.device
         if ctx.residency is not None:
             from . import residency as _res

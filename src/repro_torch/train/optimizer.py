@@ -6,12 +6,13 @@ of ``moment_block`` values along the parameter's last dim (affine uint8,
 the paper's quantizer pointed at training state), re-quantized from fresh
 f32 values each step.
 
-The reference stacks ``params['blocks']``' layers on a leading axis and
-decides by that stacked shape which leaves take weight decay (≥ 2-D) and
-which have int8 moments (:func:`quantizable`); the port, which keeps a
-list of layers, decides by the same stacked shape
-(``tree.stacked_shape``), so the two make the same choices leaf for leaf
-(a layer's norm weight is decayed, the final norm's is not).  The
+The reference stacks ``params['blocks']``' layers (an encoder–decoder's
+``encoder`` and ``decoder``) on a leading axis and decides by that stacked
+shape which leaves take weight decay (≥ 2-D) and which have int8 moments
+(:func:`quantizable`); the port, which keeps lists of layers, decides by
+the same stacked shape (``tree.stacked_shape``), so the two make the same
+choices leaf for leaf (a layer's norm weight is decayed, the final norm's
+is not).  The
 reference runs the update jitted, where XLA turns a division by a
 constant into a product by its f32 reciprocal and a dequantize's
 q·scale + zero into one fused multiply-add; the port computes those the
@@ -97,14 +98,9 @@ def _dq_moment(qm: QMoment, shape) -> torch.Tensor:
     return _fma(qm.q, qm.scale, qm.zero).reshape(shape)
 
 
-def _n_blocks(params) -> int:
-    return len(params["blocks"]) if isinstance(params, dict) and \
-        isinstance(params.get("blocks"), list) else 0
-
-
 def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
     """{"mu": a {"m", "v"} per parameter (f32, or QMoments), "step": 0}."""
-    nb = _n_blocks(params)
+    nb = T.stack_counts(params)
     mus = []
     for path, p in T.flatten(params):
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -151,7 +147,7 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig):
     f32 = dict(dtype=torch.float32, device=stepf.device)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, **f32), stepf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, **f32), stepf)
-    nb = _n_blocks(params)
+    nb = T.stack_counts(params)
     flat_p = T.flatten(params)
     flat_g = T.leaves(grads)
     mus = _mu_list(state["mu"], params)

@@ -1,9 +1,10 @@
 """Training step functions — loss, gradients, optimizer, gradient
 compression.
 
-Counterpart of ``repro/train/steps.py`` for two families (dense Llama,
-and the MoE family with MLA and the load-balance aux loss); training the
-SSM, hybrid and VLM families, which the port serves, is not ported.  The
+Counterpart of ``repro/train/steps.py`` for every family the port serves:
+dense, MoE (with the load-balance aux loss), SSM, hybrid, VLM (the logits
+past the batch's ``embeds`` prefix) and the encoder–decoder (the batch's
+``enc_embeds`` through the encoder; ``models/encdec.py``).  The
 step is eager PyTorch: gradients by ``torch.autograd`` through the model's
 forward, where the attention is K2 under its ``autograd.Function`` (the
 kernel forward, the plain version's backward: ``kernels/flash_attention
@@ -26,6 +27,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..models import encdec as ED
 from ..models import lm as LM
 from . import tree as T
 from .optimizer import AdamWConfig, _fma, _recip, adamw_init, adamw_update
@@ -97,11 +99,20 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
 
 
 def _loss_fn(params, cfg, tcfg: TrainConfig, batch):
+    fam = cfg.family
     chunked = tcfg.logits_chunk > 0
-    out, _, aux = LM.forward(params, cfg, batch["tokens"],
-                             return_hidden=chunked)
+    if fam == "encdec":
+        out, _ = ED.forward(params, cfg, batch["enc_embeds"],
+                            batch["tokens"], return_hidden=chunked)
+        aux = 0.0
+    else:
+        out, _, aux = LM.forward(params, cfg, batch["tokens"],
+                                 embeds=batch.get("embeds"),
+                                 return_hidden=chunked)
+        if fam == "vlm" and batch.get("embeds") is not None:
+            out = out[:, batch["embeds"].shape[1]:]
     if chunked:
-        head = params.get("lm_head", params["embed"])
+        head = params["lm_head"] if "lm_head" in params else params["embed"]
         loss = chunked_cross_entropy(out, head, batch["labels"],
                                      chunk=tcfg.logits_chunk,
                                      z_loss=tcfg.z_loss,
@@ -119,14 +130,15 @@ def compress_grads_int8(grads, error_fb):
     as the next step's feedback.  → (dequantized grads, new feedback).
 
     A tensor is a leaf of the reference's layout, where a ``blocks`` leaf
-    stacks every layer: the port's layers of one such leaf share one
-    (min, max), so the codes are the reference's."""
+    (an encoder–decoder's ``encoder`` and ``decoder`` leaves too) stacks
+    every layer: the port's layers of one such leaf share one (min, max),
+    so the codes are the reference's."""
     flat, errs = T.flatten(grads), T.leaves(error_fb)
     gfs = [g.to(torch.float32) + e for (_, g), e in zip(flat, errs)]
     groups: dict = {}
     for i, (path, _) in enumerate(flat):
-        groups.setdefault(re.sub(r"^\['blocks'\]\[\d+\]", "['blocks']",
-                                 path), []).append(i)
+        groups.setdefault(re.sub(r"^\['(blocks|encoder|decoder)'\]\[\d+\]",
+                                 r"['\1']", path), []).append(i)
     dq, fb = [None] * len(gfs), [None] * len(gfs)
     for idx in groups.values():
         mn = torch.stack([torch.min(gfs[i]) for i in idx]).min()

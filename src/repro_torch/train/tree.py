@@ -13,6 +13,8 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.integrity import STACKED
+
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -67,9 +69,21 @@ def map_leaves(fn: Callable, tree: Any, *rest: Any) -> Any:
                             for i, x in enumerate(leaves(tree))])
 
 
-def stacked_shape(path: str, leaf: torch.Tensor, n_blocks: int) -> tuple:
+def stack_counts(params) -> dict:
+    """{key: layers} of the top-level lists that the JAX package stacks on
+    a leading axis (``core.integrity.STACKED``: ``blocks``, an
+    encoder–decoder's ``encoder`` and ``decoder``)."""
+    return {k: len(params[k]) for k in STACKED
+            if isinstance(params, dict) and isinstance(params.get(k), list)}
+
+
+def stacked_shape(path: str, leaf: torch.Tensor, counts: dict) -> tuple:
     """The shape this leaf of a parameter tree has in the JAX package,
-    which stacks ``params['blocks']``' layers on a leading axis (an MoE
-    model's ``first_blocks`` stay a list there too)."""
+    which stacks the layers of each list of ``counts``
+    (:func:`stack_counts`) on a leading axis (an MoE model's
+    ``first_blocks`` stay a list there too)."""
     shape = tuple(leaf.shape)
-    return (n_blocks,) + shape if path.startswith("['blocks']") else shape
+    for k, n in counts.items():
+        if path.startswith(f"['{k}']"):
+            return (n,) + shape
+    return shape

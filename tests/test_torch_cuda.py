@@ -1589,3 +1589,188 @@ def test_gptq_on_card_matches_cpu(card):
     e_cpu = float(gptq.gptq_layer_error(w, cpu, h))
     e_dev = float(gptq.gptq_layer_error(w.to(card), dev, h.to(card)))
     assert e_dev == pytest.approx(e_cpu, rel=1e-4)
+
+
+# -- the encoder–decoder (seamless-m4t-medium) --------------------------------
+
+from repro_torch.models import encdec as ED  # noqa: E402
+from repro_torch.models import frontends  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tq", [1, 300])
+def test_flash_attention_not_causal_at_seamless_shapes_on_card(card, tq,
+                                                                dtype):
+    """K2 without the mask at seamless-m4t-medium's shapes: 4 × 16 heads of
+    64 over 300 frames, as the layers pass them ((B, T, H, D) tensors
+    transposed), at Tq = 300 (the encoder's self-attention) and Tq = 1
+    (cross-attention at a decode step: one live row in a block of 64;
+    300 keys, a multiple of neither 64 nor 16).  Within 1e-4 of the plain
+    version in f32, two bf16 ulps in bf16; the output has exactly the
+    rows asked for and two calls give the same bits."""
+    g = _gen(card, 21)
+
+    def view(t):
+        return torch.randn((4, t, 16, 64), generator=g, device=card
+                           ).to(dtype).transpose(1, 2)
+
+    q, k, v = view(tq), view(300), view(300)
+    _build.KERNEL_COUNTS.clear()
+    got = fa.flash_attention(q, k, v, causal=False)
+    kernel = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    assert dict(_build.KERNEL_COUNTS) == {f"flash_attention:{kernel}": 1}
+    assert got.shape == (4, 16, tq, 64) and got.dtype == dtype
+    err = (got.float() - fa.flash_attention_plain(
+        q, k, v, causal=False).float()).abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 1.6e-2), err
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("m,decode", [(4, True), (1, True), (64, False)])
+def test_dequant_matmul_seamless_head_on_card(card, m, decode):
+    """K5 on seamless-m4t-medium's LM head, 256 206 × 1 024 (2 001 stripes
+    of 128 rows and one of 78), quantized from a seeded random weight: at
+    a decode step's rows (M = 4 and 1) and a prefill's (M = 64) bitwise to
+    the plain version on integer x, within 1e-4 on random x."""
+    g = _gen(card, 22)
+    q = quantize_linear(torch.randn((256206, 1024), generator=g,
+                                    device=card))
+    xi, xr = _xs(m, 1024, g, card)
+    _check_matmul(
+        lambda x, dt: dqm.dequant_matmul(x, q.values, q.scale, q.zero, dt,
+                                         decode=decode),
+        lambda x, dt: dqm.dequant_matmul_plain(x, q.values, q.scale, q.zero,
+                                               dt), xi, xr)
+
+
+def _encdec_card_state(card, mode="compressed"):
+    cfg = get_config("seamless-m4t-medium").smoke
+    params = ED.init_encdec(cfg, seed=0, device=card)
+    return cfg, build_serve_params(params, CompressionPolicy(
+        mode=mode, min_weight_size=1024), device=card)
+
+
+def _encdec_eager(st, cfg, ids, frames, max_new):
+    """The eager decode loop over make_serve_fns on fresh caches."""
+    prefill, decode_step = make_serve_fns(cfg, device=ids.device)
+    b, t0 = ids.shape
+    caches = ED.init_caches(cfg, b, t0 + max_new, frames.shape[1],
+                            enc_dtype=frames.dtype, device=ids.device)
+    logits, caches = prefill(st.params, st.lut, {"tokens": ids,
+                                                 "enc_embeds": frames},
+                             caches)
+    toks = [torch.argmax(logits, -1)[:, None]]
+    for i in range(max_new - 1):
+        logits, caches = decode_step(st.params, st.lut, toks[-1], caches,
+                                     t0 + i)
+        toks.append(torch.argmax(logits, -1)[:, None])
+    return torch.cat(toks, dim=1)
+
+
+@pytest.mark.parametrize("mode", ["compressed", "quant"])
+def test_encdec_graphed_matches_eager_over_two_batches_on_card(card, mode):
+    """One DecodeGraph (an eager step, a capture, replays), two batches of
+    other frames and prompts: each prefill copies its cross K/V into the
+    graph's buffers, so each batch's tokens equal an eager loop's on fresh
+    caches, bit for bit; the second batch captures nothing; a captured
+    step launches K2 once a decoder layer (cross-attention, Tq = 1)."""
+    cfg, st = _encdec_card_state(card, mode)
+    graph = E.decode_graph(st.params, cfg, st.lut, 3, 11 + 9, enc_len=37,
+                           device=card)
+    outs = []
+    for seed in (1, 2):
+        g = _gen(card, seed)
+        ids = torch.randint(1, cfg.vocab_size, (3, 11), generator=g,
+                            device=card)
+        frames = frontends.audio_frame_embeddings(g, 3, 37, cfg.d_model,
+                                                  torch.bfloat16)
+        want = _encdec_eager(st, cfg, ids, frames, 9)
+        E.CAPTURE_COUNTS.clear()
+        got = graph.run(st.params, st.lut, ids, 9, enc_embeds=frames)
+        assert E.CAPTURE_COUNTS["decode_loop"] == (1 if seed == 1 else 0)
+        assert torch.equal(got, want), (seed, got, want)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1])
+    step = dict(graph.step_counts[1])
+    assert step.get("flash_attention:mma") == cfg.decoder_layers, step
+    assert L.MATERIALIZE_COUNTS.get("packed", 0) == 0
+
+
+@pytest.mark.parametrize("n", [4, 16])
+def test_encdec_decode_rows_do_not_depend_on_the_batch(card, n):
+    """Each row of an encoder–decoder decode step (K1, K2 at Tq = 1 over
+    its own frames, the decode attention, K5) gives the same bits alone as
+    in a batch of n at other positions."""
+    cfg, st = _encdec_card_state(card)
+    g = _gen(card, 23)
+    caches = ED.init_caches(cfg, n, 24, 37, device=card)
+    for t in E._tensors(caches):
+        t.copy_(torch.randn(t.shape, generator=g, device=card).to(t.dtype))
+    pos = torch.randint(1, 23, (n,), generator=g, device=card)
+    tok = torch.randint(1, cfg.vocab_size, (n, 1), generator=g, device=card)
+    _, decode_step = make_serve_fns(cfg, device=card)
+
+    def rows_of(r):
+        return {k: [{m: t[r].clone() for m, t in layer.items()}
+                    for layer in v] if k == "self" else
+                [t[r].clone() for t in v] for k, v in caches.items()}
+
+    many = decode_step(st.params, st.lut, tok, rows_of(slice(0, n)), pos)[0]
+    for i in range(n):
+        one = decode_step(st.params, st.lut, tok[i:i + 1],
+                          rows_of(slice(i, i + 1)), pos[i:i + 1])[0]
+        assert torch.equal(many[i:i + 1], one), i
+
+
+def test_encdec_train_steps_on_card_match_the_cpu(card):
+    """The seamless smoke config from one init, 3 train steps (batches
+    with f32 frames) on the card and on the CPU: each loss within 1e-5
+    relative, the parameters within 1e-5 relative (as
+    tests/test_torch_train.py); every attention forward on K2's f32
+    kernel, the encoder's and the cross-attention's without the mask
+    (enc + 2 · dec launches a step).  Then one step's gradients on the
+    card against the same step with the all-plain attention, within the
+    1e-3 (L2, relative) that chip_smoke.py's train phase holds."""
+    from repro_torch.train import tree as T
+    from repro_torch.train.data import DataConfig, DataPipeline
+    from repro_torch.train.steps import (TrainConfig, init_train_state,
+                                         make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("seamless-m4t-medium").smoke
+    params = ED.init_encdec(cfg, seed=0, device="cpu")
+    tcfg = TrainConfig()
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                                   seq_len=32, seed=2))
+    rng = np.random.default_rng(3)
+    frames = [torch.from_numpy((rng.standard_normal((4, 40, cfg.d_model))
+                                * 0.02).astype(np.float32)) for _ in range(3)]
+    step = make_train_step(cfg, tcfg)
+    sc = init_train_state(params, tcfg)
+    sg = init_train_state(T.map_leaves(lambda t: t.to(card), params), tcfg)
+    _build.KERNEL_COUNTS.clear()
+    for i in range(3):
+        batch = dict(data.batch_at(i), enc_embeds=frames[i])
+        sc, mc = step(sc, batch)
+        sg, mg = step(sg, batch)
+        assert float(mg["loss"]) == pytest.approx(float(mc["loss"]),
+                                                  rel=1e-5)
+    assert dict(_build.KERNEL_COUNTS) == {
+        "flash_attention:tf32x3": 3 * (cfg.encoder_layers
+                                       + 2 * cfg.decoder_layers)}
+    a, b = T.leaves(sg["params"]), T.leaves(sc["params"])
+    num = sum(float(((x.cpu() - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y ** 2).sum()) for y in b)
+    assert (num / den) ** 0.5 <= 1e-5
+    from repro_torch.train.steps import loss_and_grads
+    batch = {k: v.to(card) for k, v in dict(
+        data.batch_at(3), enc_embeds=frames[0]).items()}
+    _, kern = loss_and_grads(sg["params"], cfg, tcfg, batch)
+    real = ops.flash_attention
+    ops.flash_attention = fa.flash_attention_plain
+    try:
+        _, plain = loss_and_grads(sg["params"], cfg, tcfg, batch)
+    finally:
+        ops.flash_attention = real
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(kern, plain))
+    den = sum(float((y ** 2).sum()) for y in plain)
+    assert (num / den) ** 0.5 <= 1e-3

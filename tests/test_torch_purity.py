@@ -28,8 +28,9 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 
 # modules of the MoE slice, of request-level serving, of integrity and
 # resilience, of tiered residency and the governor, of the serving
-# launcher and its data pipeline, of training and calibration, and of the
-# other decoder-only families, which the walk below must reach
+# launcher and its data pipeline, of training and calibration, of the
+# other decoder-only families and of the encoder–decoder, which the walk
+# below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
@@ -51,7 +52,9 @@ MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.configs.internlm2_1_8b",
                "repro_torch.configs.internvl2_2b",
                "repro_torch.configs.llama3_405b",
-               "repro_torch.configs.kimi_k2_1t_a32b")
+               "repro_torch.configs.kimi_k2_1t_a32b",
+               "repro_torch.models.encdec",
+               "repro_torch.configs.seamless_m4t_medium")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -64,7 +67,7 @@ assert not missing, missing
 """.format(moe=MOE_MODULES) + _CHECK.format(forbidden=FORBIDDEN)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 35   # every submodule was loaded
+    assert int(out.stdout.split()[-1]) >= 37   # every submodule was loaded
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():
