@@ -5,8 +5,9 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Imports nothing of JAX or of the JAX package.
 Two main paths — Llama-3.2-1B (dense) and DeepSeek-V2-Lite (MLA + MoE) —
-each in the phases below, then the other decoder-only families and the
-encoder–decoder; the script exits non-zero if any phase fails:
+each in the phases below, then the other decoder-only families, the
+encoder–decoder, the examples and serving on a mesh of ranks; the script
+exits non-zero if any phase fails:
 
   1. Device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
@@ -103,7 +104,25 @@ encoder–decoder; the script exits non-zero if any phase fails:
      within 1 (K2: 2) bf16 ulps of its plain version; kernel rows for K2
      at the encoder's shape and at Tq = 1 (no mask), K5 on the 256 206-row
      head, K1 on the encoder's ``w_gate``; an ``encdec`` line.
-  9. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
+  9. Examples (``examples_phase``, after the encoder–decoder):
+     ``examples/torch_quickstart.py`` on the card (its own gates: every
+     compressed weight decodes to the quant state's int8 values byte for
+     byte, the two modes' tokens apart only at an exact tie) and
+     ``examples/torch_serve_batched.py`` in each mode (prefill ms, eager
+     and graphed tokens/s); an ``examples`` line.
+ 10. Mesh (``mesh_phase``): MESH_RANKS ranks on the one card over gloo
+     (``launch.mesh.spawn``; the packed planes reach them through CUDA
+     IPC, each rank keeps its share): Llama-3.2-1B at full width and
+     depth on MESH_LLAMA through ``generate`` (tokens bitwise the
+     one-process eager loop's, every K1 launch at an out band's N, K5 at
+     the head's band, K1 launches a rank as one process's, no SIMT; K1/K5
+     rows on the bands), DeepSeek-V2-Lite at full width cut to
+     MESH_DS_LAYERS layers with ``moe_local_dispatch`` and the tiled
+     Llama cut to MESH_TILED_LAYERS on MESH_WIDE (prefill logits within
+     MESH_LOGIT_ATOL of one process; DeepSeek's tokens under the
+     exact-tie rule, K3 on 32 experts a rank, K4 and K2 on every rank);
+     per-rank ms a step (ranks sharing one card); a ``mesh`` line.
+ 11. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
      attention forward K2's f32 kernel, three-term TF32 on the tensor
      cores, under its autograd.Function); one
@@ -123,6 +142,7 @@ encoder–decoder; the script exits non-zero if any phase fails:
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
 a ``family`` line per model of the families phase, an ``encdec`` line,
+an ``examples`` and a ``mesh`` line (with ``mesh_detail``),
 K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
@@ -139,6 +159,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 import numpy as np
@@ -356,13 +377,15 @@ def make_prompts(vocab: int, n_prompts: int = BATCH):
 L2_BYTES = 50 << 20      # H100 SXM L2
 
 
-def launch_info(fdm, m, w, e, decode=False):
+def launch_info(fdm, m, w, e, decode=False, plan_n=None, plan_e=None):
     """The kernel ``fdm.launch_plan`` picks for a call at M = ``m`` on the
-    planes of ``w`` (E = ``e`` weights; ``decode``: a decode step's rows)
-    and its grid and block size (above 16 decode rows: of one launch of
-    ``row_groups``)."""
+    planes of ``w`` (E = ``e`` weights; ``decode``: a decode step's rows;
+    ``plan_n`` / ``plan_e``: the N and E the launch is planned for, a mesh
+    rank's share passing the whole weight's) and its grid and block size
+    (above 16 decode rows: of one launch of ``row_groups``)."""
     slots = w.codes.shape[-1]
-    plan = fdm.launch_plan(m, *w.shape, w.tile_k, e,
+    n, k = w.shape
+    plan = fdm.launch_plan(m, plan_n or n, k, w.tile_k, plan_e or e,
                            torch.cuda.get_device_properties(0)
                            .multi_processor_count, slots, decode)
     rows = min(m, fdm.DECODE_MAX_M) if plan.row_groups > 1 else m
@@ -373,7 +396,7 @@ def launch_info(fdm, m, w, e, decode=False):
 
 
 def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
-                timed_at, cold=False):
+                timed_at, cold=False, shards=1):
     """K1 on each ``(label, weights, in_layer)`` of ``projections`` — the
     packed planes of one projection in every layer that has it — at M =
     batch (decode) and M = ``m_prefill`` (prefill): bitwise on integer x,
@@ -381,7 +404,9 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
     planes; with ``cold``, a walk whose planes fit twice in the L2 is timed
     with the L2 flushed before each call.  The row's times add up the
     ``in_layer`` projections: one layer's K1 work at decode (``ms``...)
-    and at the prefill (``prefill_ms``...)."""
+    and at the prefill (``prefill_ms``...).  ``shards``: the planes are
+    out bands of a weight ``shards`` times as wide, and each launch takes
+    the whole weight's plan (``plan_n``), as the mesh path launches it."""
     fdm = rt["fdm"]
 
     def planes(w):
@@ -398,17 +423,18 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
         w = ws[0]
         n, k = w.shape
         args, kw = planes(w)
+        pk = {"plan_n": n * shards} if shards > 1 else {}
         flush = cold and sum(plane_bytes(wl) for wl in ws) < 2 * L2_BYTES
         for m in (BATCH, m_prefill):
             xi = int_x(m, k, gen, device)
-            yk = fdm.fused_decode_matmul(xi, *args, **kw,
+            yk = fdm.fused_decode_matmul(xi, *args, **kw, **pk,
                                          out_dtype=torch.bfloat16)
             yp = fdm.fused_decode_matmul_plain(xi, *args, **kw,
                                                out_dtype=torch.bfloat16)
             same = bool(torch.equal(yk, yp))
             bitwise &= same
             xr = rand_x(m, k, gen, device)
-            yk = fdm.fused_decode_matmul(xr, *args, **kw,
+            yk = fdm.fused_decode_matmul(xr, *args, **kw, **pk,
                                          out_dtype=torch.float32)
             yp = fdm.fused_decode_matmul_plain(xr, *args, **kw,
                                                out_dtype=torch.float32)
@@ -427,7 +453,7 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
                 b, by = bound_ms(nbytes(xr, *args) + m * n * 2,
                                  2.0 * m * n * k)
                 kern = [lambda p=planes(wl): fdm.fused_decode_matmul(
-                    xr, *p[0], **p[1]) for wl in ws]
+                    xr, *p[0], **p[1], **pk) for wl in ws]
                 wbs = [wl.materialize(lut, torch.bfloat16) for wl in ws]
                 lib = [lambda wb=wb: xr @ wb.T for wb in wbs]
                 t = {"proj": label, "N": n, "K": k, "M": m,
@@ -439,7 +465,7 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
                      "bound_ms": b, "bound_by": by, "l2_flushed": flush,
                      "cap": w.literals.shape[1],
                      "tile": [w.tile_n, w.tile_k],
-                     **launch_info(fdm, m, w, 1)}
+                     **pk, **launch_info(fdm, m, w, 1, plan_n=n * shards)}
                 del wbs, lib
                 rows.append(t)
             if m == BATCH and in_layer:
@@ -498,18 +524,20 @@ def check_small_tiles(rt, device, gen):
     return rows
 
 
-def dequant_launch(dqm, m, n, k, decode=False):
-    """The kernel ``dqm.dequant_plan`` picks for K5 at (m, n, k), with its
-    grid (a tree from before the plan: the SIMT kernel)."""
+def dequant_launch(dqm, m, n, k, decode=False, plan_n=None):
+    """The kernel ``dqm.dequant_plan`` picks for K5 at (m, n, k), planned
+    for ``plan_n`` columns where given, with its grid (a tree from before
+    the plan: the SIMT kernel)."""
     if not hasattr(dqm, "dequant_plan"):
         return {"kernel": "simt"}
+    pk = {"plan_n": plan_n} if plan_n else {}
     plan = dqm.dequant_plan(m, n, k, torch.cuda.get_device_properties(0)
-                            .multi_processor_count, decode)
+                            .multi_processor_count, decode, **pk)
     return {f: v for f, v in plan._asdict().items() if v or f == "kernel"}
 
 
 def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True,
-             decode=False):
+             decode=False, plan_n=None):
     """K5 at M = ``m`` on the uint8 weight ``wq`` (N, K) with its scale and
     zero (``wb``: the same weight dequantized to bf16, for the library
     call): bitwise equal to the plain version on integer x, within
@@ -517,10 +545,13 @@ def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True,
     CUDA-graph replays, with the L2 wiped before each call where the
     weight fits it; the plain version by single calls (``plain``), and
     ``torch.matmul`` on ``wb`` the same way as the kernel.  ``decode``:
-    the rows are a decode step's (``dequant_plan``).  → the row."""
+    the rows are a decode step's (``dequant_plan``); ``plan_n``: ``wq``
+    is an out band of a weight of ``plan_n`` rows, launched with that
+    weight's plan, as the mesh path launches it.  → the row."""
     dqm = rt["dqm"]
+    pk = {"plan_n": plan_n} if plan_n else {}
     dq = lambda x, *a, **kw: dqm.dequant_matmul(x, *a, **kw,  # noqa: E731
-                                                decode=decode)
+                                                decode=decode, **pk)
     device = wq.device
     n, k = wq.shape
     args = (wq, scale, zero)
@@ -539,7 +570,7 @@ def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True,
                              f" tol={tol} repeatable={again}")
     b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
     return {"bitwise": same, "max_abs_err": err,
-            "launch": dequant_launch(dqm, m, n, k, decode),
+            "launch": dequant_launch(dqm, m, n, k, decode, plan_n), **pk,
             "ms": weight_graph_ms(timer, wq, lambda: dq(xr, *args)),
             "plain_ms": timer.ms(lambda: dqm.dequant_matmul_plain(
                 xr, *args, torch.bfloat16)) if plain else None,
@@ -661,10 +692,13 @@ def plane_bytes(w) -> int:
             + (w.scale.numel() + w.zero.numel()) * 4)
 
 
-def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
+def check_grouped(rt, cfg, state, device, n_prefill, gen, timer,
+                  plan_experts=None):
     """K3 on the first MoE layer's three expert stacks (64 experts; gate/up
     1408 × 2048, down 2048 × 1408) at M = cap of a decode step (4 tokens)
-    and of the prefill (4 prompts × T tokens)."""
+    and of the prefill (4 prompts × T tokens).  ``plan_experts``: the
+    stacks are a mesh rank's share of stacks of that many experts, each
+    launch planned for them, as the mesh path launches it."""
     fdm, L = rt["fdm"], rt["L"]
     lut = state.lut
     experts = state.params["blocks"][0]["moe"]["experts"]
@@ -683,18 +717,19 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
         n, k = w.shape
         args = (w.codes, w.literals, lut, w.scale, w.zero)
         kw = dict(shape=w.shape, tile_n=w.tile_n, tile_k=w.tile_k)
+        pk = {"plan_experts": plan_experts} if plan_experts else {}
         wbt = w.materialize(lut, torch.bfloat16).transpose(1, 2)
         for phase, m in caps.items():
             xi = torch.randint(-4, 5, (e, m, k), generator=gen, device=device
                                ).to(torch.bfloat16)
             same = bool(torch.equal(
-                fdm.grouped_fused_decode_matmul(xi, *args, **kw),
+                fdm.grouped_fused_decode_matmul(xi, *args, **kw, **pk),
                 fdm.grouped_fused_decode_matmul_plain(
                     xi, *args, **kw, out_dtype=torch.bfloat16)))
             bitwise &= same
             xr = torch.randn((e, m, k), generator=gen, device=device
                              ).to(torch.bfloat16)
-            yk = fdm.grouped_fused_decode_matmul(xr, *args, **kw,
+            yk = fdm.grouped_fused_decode_matmul(xr, *args, **kw, **pk,
                                                  out_dtype=torch.float32)
             yp = fdm.grouped_fused_decode_matmul_plain(
                 xr, *args, **kw, out_dtype=torch.float32)
@@ -712,7 +747,7 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
             t = {"stack": name, "E": e, "N": n, "K": k, "M": m,
                  "phase": phase, "bitwise": same, "max_abs_err": err,
                  "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
-                     xr, *args, **kw)] * 4),
+                     xr, *args, **kw, **pk)] * 4),
                  "plain_ms": timer.ms(
                      lambda: fdm.grouped_fused_decode_matmul_plain(
                          xr, *args, **kw, out_dtype=torch.bfloat16)),
@@ -720,7 +755,7 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer):
                      [lambda: torch.bmm(xr, wbt)] * 4),
                  "bound_ms": b, "bound_by": by,
                  "cap": w.literals.shape[2], "tile": [w.tile_n, w.tile_k],
-                 **launch_info(fdm, m, w, e)}
+                 **pk, **launch_info(fdm, m, w, e, plan_e=plan_experts)}
             rows.append(t)
             if phase == "decode":
                 for f in agg:
@@ -859,9 +894,11 @@ def check_dict_decode(rt, w, lut, timer):
             **({"grid": main["grid"]} if "grid" in main else {})}, rows
 
 
-def pack(rt, cfg, device, seed, tiles=0, mode="compressed"):
+def pack(rt, cfg, device, seed, tiles=0, mode="compressed",
+         model_shards=1):
     """Seeded weights on the card, packed in ``mode`` with the default
-    policy (``tiles``: its column groups); the dense weights are freed.
+    policy (``tiles``: its column groups; ``model_shards``: the model ranks
+    of the mesh it is packed for); the dense weights are freed.
     → (state, timings)."""
     init = (rt["ED"].init_encdec if cfg.family == "encdec"
             else rt["LM"].init_lm)
@@ -873,13 +910,14 @@ def pack(rt, cfg, device, seed, tiles=0, mode="compressed"):
     t0 = time.perf_counter()
     state = rt["build_serve_params"](
         params, rt["CompressionPolicy"](mode=mode, tiles=tiles),
-        device=device)
+        model_shards=model_shards, device=device)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device)
     del params
     torch.cuda.empty_cache()
-    log(f"pack: {cfg.name} ({cfg.n_layers} layers, {mode}, tiles {tiles}) "
+    log(f"pack: {cfg.name} ({cfg.n_layers} layers, {mode}, tiles {tiles}"
+        f"{f', model_shards {model_shards}' if model_shards > 1 else ''}) "
         "init "
         f"{init_s:.2f} s, "
         f"build_serve_params {pack_s:.2f} s (peak {peak} B), table "
@@ -3461,12 +3499,14 @@ def _plain_fns(rt) -> dict:
     and ``ops`` attribute."""
     fdm, dqm, fa = rt["fdm"], rt["dqm"], rt["fa"]
     return {
-        "fused_decode_matmul": ("_fused", lambda x, *a, decode=False, **kw:
+        # decode and plan_n choose a launch; the plain order has neither
+        "fused_decode_matmul": ("_fused", lambda x, *a, decode=False,
+                                plan_n=None, **kw:
                                 fdm.fused_decode_matmul_plain(x, *a, **kw)),
         "dequant_matmul": ("_dequant_matmul",
-                           lambda x, wq, sc, z, out_dtype, decode=False:
-                           dqm.dequant_matmul_plain(x, wq, sc, z,
-                                                    out_dtype)),
+                           lambda x, wq, sc, z, out_dtype, decode=False,
+                           plan_n=None: dqm.dequant_matmul_plain(
+                               x, wq, sc, z, out_dtype)),
         "flash_attention": ("flash_attention",
                             lambda q, k, v, causal=True, sm_scale=None,
                             q_offset=0: fa.flash_attention_plain(
@@ -4070,6 +4110,526 @@ def encdec_phase(rt, device, gen, timer, kernels, faults) -> dict:
     return {"encdec_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# The examples phase: examples/torch_quickstart.py and
+# examples/torch_serve_batched.py on the card, as a user runs them.
+# ---------------------------------------------------------------------------
+
+EXAMPLE_MODES = ("compressed", "quant", "dense")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """The quickstart (100 steps of the Llama smoke model, packed
+    compressed and quant, 12 tokens for 2 prompts): its card checks, the
+    codec byte for byte and the tokens under the exact-tie rule, are its
+    own assertions; then the batched-serving example in each mode (its
+    graph-step tokens must be its eager loop's)."""
+    out = {}
+    try:
+        q = load_example("torch_quickstart").main([], device=device)
+        out["quickstart"] = {
+            "loss": q["loss"], "dense_bytes": q["dense_bytes"],
+            "compressed_bytes": q["compressed_bytes"],
+            "codec_equal": f"{q['codec_weights'] - len(q['codec_mismatch'])}"
+                           f"/{q['codec_weights']}",
+            "exact": q["exact"], "parting": q["parting"],
+            "compressed_tokens": q["compressed"][:, -12:].tolist(),
+            "quant_tokens": q["quant"][:, -12:].tolist()}
+    except Exception:
+        traceback.print_exc()
+        faults.append("quickstart")
+    sb = load_example("torch_serve_batched")
+    for mode in EXAMPLE_MODES:
+        try:
+            r = sb.main(["--mode", mode], device=device)
+            out[f"serve_batched {mode}"] = {
+                k: r[k] for k in ("prefill_ms", "decode_ms", "tok_s",
+                                  "graph_ms", "graph_tok_s")}
+        except Exception:
+            traceback.print_exc()
+            faults.append(f"serve_batched {mode}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh phase: serving on a device mesh of ranks (processes, over gloo)
+# that share the one card.  Proves the sharded kernels' shapes and bits,
+# not a multi-card speed.
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_LLAMA = (1, 2)      # Llama-3.2-1B, full width and depth, compressed
+MESH_WIDE = (2, 2)       # DeepSeek-V2-Lite (local-routing MoE), tiled Llama
+MESH_DS_LAYERS = 2       # DeepSeek-V2-Lite at full width, cut to 2 layers
+MESH_TILED_LAYERS = 2    # tiled Llama-3.2-1B (tiles 2), cut to 2 layers
+#  * Local-routing MoE and column groups against one process at 2 layers:
+#    the local router runs in f32 (the global one in x's bf16), the
+#    partial outputs add over model in bf16, column groups add their f32
+#    partial sums over data: bf16 flips through 2 layers, the
+#    card-vs-CPU bound above.  Both sides dropless (capacity factor
+#    E / top-k), so no token's drop depends on its data shard.
+MESH_LOGIT_ATOL = E2E_LOGIT_ATOL
+
+
+class LaunchShapes(collections.Counter):
+    """{(wrapper, N, E): launches} of K1, K3 and K5 in this process: the
+    out width N and weight count E each launch took (K5: one count a
+    launch, as ``LAUNCH_COUNTS``)."""
+
+    @classmethod
+    def install(cls, rt) -> "LaunchShapes":
+        rec, fdm, dqm = cls(), rt["fdm"], rt["dqm"]
+        rows, k5 = fdm._launch_rows, dqm._launch
+
+        def launch_rows(name, fn, plan, *a, **kw):
+            rec[(name, kw["n"], kw["e"])] += 1
+            return rows(name, fn, plan, *a, **kw)
+
+        def launch(plan, xb, wq, *a, **kw):
+            rec[("dequant_matmul", wq.shape[0], 1)] += plan.row_groups
+            return k5(plan, xb, wq, *a, **kw)
+
+        fdm._launch_rows, dqm._launch = launch_rows, launch
+        return rec
+
+    def table(self) -> dict:
+        return {f"{name} N={n} E={e}": v for (name, n, e), v in
+                sorted(self.items())}
+
+
+def eager_logits(rt, cfg, params, lut, ids, ctx=None):
+    """``make_serve_fns``' prefill and MAX_NEW − 1 eager decode steps,
+    greedy (under ``ctx``'s mesh where given); → (tokens (B, MAX_NEW),
+    each step's logits (MAX_NEW, B, V) f32, prefill ms, decode ms a
+    step)."""
+    device = ids.device
+    if ctx is None:
+        ctx = rt["ServeContext"](cfg, lut=lut, device=device)
+    prefill, step = rt["make_serve_fns"](ctx=ctx)
+    b, t0 = ids.shape
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches = prefill(params, lut, {"tokens": ids}, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    steps, toks = [logits.float()], [torch.argmax(logits, -1)[:, None]]
+    t = time.perf_counter()
+    for i in range(MAX_NEW - 1):
+        logits, caches = step(params, lut, toks[-1], caches, t0 + i)
+        steps.append(logits.float())
+        toks.append(torch.argmax(logits, -1)[:, None])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / (MAX_NEW - 1)
+    return torch.cat(toks, 1), torch.stack(steps), prefill_ms, step_ms
+
+
+def tie_rule(toks, ref, logits, ref_logits) -> list:
+    """Rows whose tokens part from ``ref`` away from an exact tie: each row
+    may differ only from a step where one run's logits give both tokens
+    the same value (``tests/test_torch_moe.py``'s rule).  → [(row, step,
+    both top-2 gaps)] of every parting row, with ``tied``."""
+    out = []
+    for r in range(toks.shape[0]):
+        diff = torch.nonzero(toks[r] != ref[r])
+        if not diff.numel():
+            continue
+        s = int(diff[0])
+        a, b = int(toks[r, s]), int(ref[r, s])
+        tied = any(bool(lg[r, a] == lg[r, b])
+                   for lg in (logits[s], ref_logits[s]))
+        gaps = [float(v[0] - v[1]) for v in (
+            torch.topk(logits[s][r], 2).values,
+            torch.topk(ref_logits[s][r], 2).values)]
+        out.append({"row": r, "step": s, "tied": tied, "top2_gaps": gaps})
+    return out
+
+
+def band_bits(rt, mesh, lut, pairs, ms, gen) -> dict:
+    """Each share of ``pairs`` — ``(label, whole, share)`` — launched as
+    the mesh path launches it (planned for the whole weight: ``plan_n``,
+    ``plan_experts``) against the whole weight's launch on the same
+    random x, at each M of ``ms`` (K3: capacity rows): K1 on an out band
+    and K5 on the head's band bitwise the rank's columns of the whole
+    launch, K3 on the rank's experts bitwise its experts of it.  The int8
+    head is replicated (``share`` None) and cut here as ``ops`` cuts it
+    at each call.  → {"<label> M=<m>": equal}."""
+    fdm, dqm = rt["fdm"], rt["dqm"]
+    f32 = torch.float32
+    out = {}
+    for label, whole, share in pairs:
+        for m in ms:
+            if share is None:                       # K5: the head's band
+                n, k = whole.values.shape
+                waxes = rt["partition"].weight_axes(mesh)
+                per = n // mesh.axis_size(waxes)
+                cols = slice(mesh.axis_index(waxes) * per,
+                             (mesh.axis_index(waxes) + 1) * per)
+                x = rand_x(m, k, gen, whole.values.device)
+                a = dqm.dequant_matmul(
+                    x, whole.values[cols], whole.scale[cols],
+                    whole.zero[cols], out_dtype=f32, decode=m <= BATCH,
+                    plan_n=n)
+                b = dqm.dequant_matmul(x, whole.values, whole.scale,
+                                       whole.zero, out_dtype=f32,
+                                       decode=m <= BATCH)[:, cols]
+                out[f"{label} M={m}"] = bool(torch.equal(a, b))
+                continue
+            kw = dict(tile_n=whole.tile_n, tile_k=whole.tile_k,
+                      out_dtype=f32)
+            i = mesh.axis_index(share.mesh_axes)
+            if whole.codes.ndim == 3:               # K3: the rank's experts
+                e, k = whole.codes.shape[0], whole.shape[1]
+                per = share.codes.shape[0]
+                rows = slice(i * per, (i + 1) * per)
+                x = torch.randn((e, m, k), generator=gen,
+                                device=whole.codes.device).to(torch.bfloat16)
+                a = fdm.grouped_fused_decode_matmul(
+                    x[rows], share.codes, share.literals, lut, share.scale,
+                    share.zero, shape=share.shape, plan_experts=e, **kw)
+                b = fdm.grouped_fused_decode_matmul(
+                    x, whole.codes, whole.literals, lut, whole.scale,
+                    whole.zero, shape=whole.shape, **kw)[rows]
+            else:                                   # K1: an out band
+                n, k = whole.shape
+                per = share.shape[0]
+                x = rand_x(m, k, gen, whole.codes.device)
+                a = fdm.fused_decode_matmul(
+                    x, share.codes, share.literals, lut, share.scale,
+                    share.zero, shape=share.shape, plan_n=n, **kw)
+                b = fdm.fused_decode_matmul(
+                    x, whole.codes, whole.literals, lut, whole.scale,
+                    whole.zero, shape=whole.shape, **kw
+                    )[:, i * per:(i + 1) * per]
+            out[f"{label} M={m}"] = bool(torch.equal(a, b))
+    return out
+
+
+def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
+    """Llama-3.2-1B on MESH_LLAMA: a prefill on the mesh (the process's
+    first: kernel loads, library handles, gloo's first collectives), then
+    one timed, then ``generate`` on the mesh (the counted main path; its
+    decode ms a step is its time past the timed prefill's); on rank 0, K1
+    on the layers' out bands and K5 on the head's band, each launched
+    with the whole weight's plan as the mesh path launches it, against
+    their plain versions (``check_fused``, ``check_k5``) and against the
+    whole weight's launch (``band_bits``, layer 0)."""
+    cfg, lut, ids = p["cfg"], p["lut"], p["ids"]
+    device = ids.device
+    b, t0 = ids.shape
+    params = rt["partition"].place_params(p["params"], mesh)
+    ctx = rt["ServeContext"](cfg, lut=lut, device=device, mesh=mesh)
+    prefill, _ = rt["make_serve_fns"](ctx=ctx)
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(params, lut, {"tokens": ids}, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+    del caches
+    rec.clear()
+    toks, run = counted_run(rt, lambda: rt["generate"](
+        params, cfg, ids, ctx=ctx, max_new=MAX_NEW))
+    out = {"tokens": toks[:, t0:].cpu(), "run": run,
+           "launch_shapes": rec.table(), "prefill_ms": prefill_ms,
+           "step_ms": (run["s"] * 1e3 - prefill_ms) / (MAX_NEW - 1),
+           "rows": []}
+    if mesh.rank == 0:
+        blocks = params["blocks"]
+        projections = [(name, [b[grp][name] for b in blocks], True)
+                       for grp, name in (("attn", "wq"), ("attn", "wk"),
+                                         ("attn", "wv"), ("attn", "wo"),
+                                         ("mlp", "w_gate"), ("mlp", "w_up"),
+                                         ("mlp", "w_down"))]
+        shards = mesh.shape["model"]
+        row, _ = check_fused(rt, lut, projections, device, ids.numel(), gen,
+                             timer, f"one layer's 7 out bands (N/{shards}, "
+                             f"planned for N), decode M={BATCH}",
+                             shards=shards)
+        k1 = run["kernel_launches"]
+        out["rows"].append(dict(
+            row, name="fused_decode_matmul (mesh band N/2)",
+            launches=k1.get("fused_decode_matmul:decode", 0)
+            + k1.get("fused_decode_matmul:mma", 0),
+            launches_of=f"{cfg.name} generate on mesh {MESH_LLAMA}, rank 0"))
+        head = params["embed"]
+        n = head.values.shape[0]
+        band = slice(0, n // mesh.shape["model"])
+        wq, sc, zr = head.values[band], head.scale[band], head.zero[band]
+        out["rows"].append({
+            **K5_ROW, **check_k5(rt, wq, sc, zr, head.materialize(
+                torch.bfloat16)[band], BATCH, gen, timer, decode=True,
+                plan_n=n),
+            "name": "dequant_matmul (mesh band N/2)",
+            "timed_at": f"LM head band {wq.shape[0]}x{wq.shape[1]} of {n} "
+                        f"(planned for N), M={BATCH} (decode)",
+            "launches": run["launches"].get("dequant_matmul", 0),
+            "launches_of": f"{cfg.name} generate on mesh {MESH_LLAMA}, "
+                           "rank 0"})
+        whole = p["params"]
+        out["band_bits"] = band_bits(
+            rt, mesh, lut, [(name, whole["blocks"][0][grp][name],
+                             blocks[0][grp][name])
+                            for grp, name in (("attn", "wq"), ("attn", "wk"),
+                                              ("attn", "wv"), ("attn", "wo"),
+                                              ("mlp", "w_gate"),
+                                              ("mlp", "w_up"),
+                                              ("mlp", "w_down"))]
+            + [("head", head, None)], (BATCH, ids.numel()), gen)
+    return out
+
+
+def mesh_eager(rt, mesh, p, rec, gen, timer) -> dict:
+    """A model on MESH_WIDE: ``make_serve_fns`` on the mesh, a prefill and
+    MAX_NEW − 1 eager decode steps (the counted main path; its prefill ms
+    is the model's first in the rank, loads and warm-up included); rank 0
+    keeps every step's logits and, for an MoE model, checks K3 on its
+    experts as the mesh path launches it (``check_grouped`` on the last
+    layer's stacks: E/model experts planned for E, at the capacities of
+    a decode step and of its data shard's prefill; ``band_bits`` against
+    the whole stacks' launch)."""
+    cfg, lut, ids = p["cfg"], p["lut"], p["ids"]
+    params = rt["partition"].place_params(p["params"], mesh)
+    ctx = rt["ServeContext"](cfg, lut=lut, device=ids.device, mesh=mesh)
+    rec.clear()
+    (toks, logits, prefill_ms, step_ms), run = counted_run(
+        rt, lambda: eager_logits(rt, cfg, params, lut, ids, ctx))
+    out = {"tokens": toks.cpu(), "run": run, "launch_shapes": rec.table(),
+           "prefill_ms": prefill_ms, "step_ms": step_ms,
+           "logits": logits.cpu() if mesh.rank == 0 else None, "rows": []}
+    if mesh.rank == 0 and cfg.n_experts:
+        held = types.SimpleNamespace(
+            params={"blocks": params["blocks"][-1:]}, lut=lut)
+        n_prefill = ids.numel() // mesh.shape["data"]
+        row, _ = check_grouped(rt, cfg, held, ids.device, n_prefill, gen,
+                               timer, plan_experts=cfg.n_experts)
+        kl = run["kernel_launches"]
+        out["rows"].append(dict(
+            row, name="grouped_fused_decode_matmul (mesh, E/2 experts)",
+            launches=kl.get("grouped_fused_decode_matmul:decode", 0)
+            + kl.get("grouped_fused_decode_matmul:mma", 0),
+            launches_of=f"{cfg.name} at {cfg.n_layers} layers on mesh "
+                        f"{MESH_WIDE}, rank 0"))
+        L = rt["L"]
+        caps = sorted({L._capacity(n, cfg.top_k, cfg.n_experts,
+                                   cfg.capacity_factor)
+                       for n in (BATCH // mesh.shape["data"], n_prefill)})
+        whole = p["params"]["blocks"][-1]["moe"]["experts"]
+        mine = params["blocks"][-1]["moe"]["experts"]
+        out["band_bits"] = band_bits(
+            rt, mesh, lut, [(name, whole[name], mine[name])
+                            for name in ("w_gate", "w_up", "w_down")],
+            caps, gen)
+    return out
+
+
+def mesh_rank(rank: int, payload: dict) -> dict:
+    """One rank of the mesh phase (``launch.mesh.spawn``: each rank a
+    process on the one card, the payload's planes its parent's, shared
+    through CUDA IPC): Llama on MESH_LLAMA (ranks past it wait), then
+    DeepSeek-V2-Lite and the tiled Llama on MESH_WIDE."""
+    rt = load_runtime()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())
+    M = rt["mesh"]
+    rec = LaunchShapes.install(rt)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + rank)
+    out = {}
+    with torch.no_grad():
+        mesh = M.make_mesh(MESH_LLAMA, ("data", "model"))
+        if mesh is not None:
+            timer = Timer(device) if mesh.rank == 0 else None
+            out["llama"] = mesh_llama(rt, mesh, payload["llama"], rec, gen,
+                                      timer)
+            del timer
+        mesh = M.make_mesh(MESH_WIDE, ("data", "model"))
+        timer = Timer(device) if mesh.rank == 0 else None
+        for key in ("deepseek", "tiled"):
+            out[key] = mesh_eager(rt, mesh, payload[key], rec, gen, timer)
+    return out
+
+
+def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """Serving on a device mesh, MESH_RANKS ranks sharing the card over
+    gloo (``launch.mesh.spawn``), each on its share of the planes
+    (``sharding.partition.place_params``):
+      * Llama-3.2-1B at full width and depth, compressed for 2 model
+        ranks, on MESH_LLAMA: the fixed batch, MAX_NEW tokens through
+        ``generate``; tokens bitwise the one-process eager loop's over the
+        same planes; every K1 launch at an out band's N (N/2), K5 at the
+        head's band, as many K1 launches a rank as one process makes, no
+        SIMT launch; K1/K5 rows on the bands, each launched with the
+        whole weight's plan, and each band's launch bitwise the whole
+        weight's columns (``band_bits``).
+      * DeepSeek-V2-Lite at full width, MESH_DS_LAYERS layers, dropless,
+        ``moe_local_dispatch`` on MESH_WIDE: prefill logits within
+        MESH_LOGIT_ATOL of one process (global dispatch), tokens under
+        the exact-tie rule; K3 on 32 experts a rank (planned for 64, and
+        bitwise the whole stacks' launch on them), K4 (wkv_b) and K2
+        launched on every rank.
+      * Llama-3.2-1B tiled (tiles 2), MESH_TILED_LAYERS layers, on
+        MESH_WIDE: prefill logits within MESH_LOGIT_ATOL, tokens under
+        the exact-tie rule.
+    Per-rank ms a step are of ranks sharing one card, not a multi-card
+    speed."""
+    get, replace = rt["get_config"], dataclasses.replace
+    mshards = MESH_LLAMA[1]
+    cfg = get("llama3.2-1b").full
+    batch, lens = make_prompts(cfg.vocab_size)
+    ids = torch.from_numpy(batch).to(device)
+    llama, _ = pack(rt, cfg, device, SEED, model_shards=mshards)
+    zero_counts(rt)
+    ref_toks, _ = eager_loop(rt, cfg, llama, ids)
+    one_k1 = {k: v for k, v in rt["_build"].KERNEL_COUNTS.items()
+              if k.startswith("fused_decode_matmul")}
+    full = get("deepseek-v2-lite-16b").full
+    dcfg = replace(full, n_layers=MESH_DS_LAYERS,
+                   capacity_factor=full.n_experts / full.top_k)
+    dbatch, _ = make_prompts(dcfg.vocab_size)
+    dids = torch.from_numpy(dbatch).to(device)
+    ds, _ = pack(rt, dcfg, device, SEED, model_shards=MESH_WIDE[1])
+    d_ref = eager_logits(rt, dcfg, ds.params, ds.lut, dids)
+    tcfg = replace(cfg, n_layers=MESH_TILED_LAYERS)
+    tiled, _ = pack(rt, tcfg, device, SEED, tiles=2,
+                    model_shards=MESH_WIDE[1])
+    t_ref = eager_logits(rt, tcfg, tiled.params, tiled.lut, ids)
+    payload = {
+        "llama": {"cfg": cfg, "params": llama.params, "lut": llama.lut,
+                  "ids": ids},
+        "deepseek": {"cfg": replace(dcfg, moe_local_dispatch=True),
+                     "params": ds.params, "lut": ds.lut, "ids": dids},
+        "tiled": {"cfg": tcfg, "params": tiled.params, "lut": tiled.lut,
+                  "ids": ids}}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = rt["mesh"].spawn(mesh_rank, MESH_RANKS, payload, device="cuda")
+    spawn_s = time.perf_counter() - t
+    res = {"spawn_s": spawn_s, "ranks": MESH_RANKS,
+           "note": "ranks share one card: per-rank ms are not a multi-card "
+                   "speed", "llama": {}, "deepseek": {}, "tiled": {}}
+
+    # Llama on MESH_LLAMA
+    bands = {w.shape[0] // mshards for b in llama.params["blocks"]
+             for grp in ("attn", "mlp") for w in b[grp].values()}
+    head_band = llama.params["embed"].values.shape[0] // mshards
+    for r, out in enumerate(outs[:math.prod(MESH_LLAMA)]):
+        o = out["llama"]
+        k1 = {k: v for k, v in o["run"]["kernel_launches"].items()
+              if k.startswith("fused_decode_matmul")}
+        ns = {int(key.split("N=")[1].split()[0]) for key in o["launch_shapes"]
+              if key.startswith("fused_decode_matmul ")}
+        k5n = {int(key.split("N=")[1].split()[0]) for key in o["launch_shapes"]
+               if key.startswith("dequant_matmul ")}
+        res["llama"][f"rank{r}"] = {
+            "tokens_equal": bool(torch.equal(o["tokens"], ref_toks.cpu())),
+            "prefill_ms": o["prefill_ms"], "step_ms": o["step_ms"],
+            "kernel_launches": o["run"]["kernel_launches"],
+            "dispatch": o["run"]["dispatch"],
+            "launch_shapes": o["launch_shapes"]}
+        if not torch.equal(o["tokens"], ref_toks.cpu()):
+            faults.append(f"llama mesh rank {r}: tokens differ from the "
+                          "one-process eager loop")
+        if k1 != one_k1 or ns != bands or k5n != {head_band}:
+            faults.append(f"llama mesh rank {r}: K1 {k1} vs one process "
+                          f"{one_k1}, K1 N {sorted(ns)} vs bands "
+                          f"{sorted(bands)}, K5 N {sorted(k5n)}")
+        if o["run"]["kernel_launches"].get("fused_decode_matmul:simt"):
+            faults.append(f"llama mesh rank {r}: SIMT launched")
+        if "band_bits" in o:
+            res["llama"]["band_bits"] = o["band_bits"]
+            if not all(o["band_bits"].values()):
+                faults.append(f"llama mesh rank {r}: a band's launch "
+                              f"differs from the whole weight's: "
+                              f"{o['band_bits']}")
+        if set(o["run"]["dispatch"]) != {"fused_shard_map",
+                                         "dequant_shard_map"}:
+            faults.append(f"llama mesh rank {r}: dispatch "
+                          f"{o['run']['dispatch']}")
+        for row in o["rows"]:
+            kernels.append(dict(row, path=f"{cfg.name} mesh {MESH_LLAMA}"))
+
+    # DeepSeek-V2-Lite (local routing) and the tiled Llama on MESH_WIDE
+    e_loc = dcfg.n_experts // MESH_WIDE[1]
+    for key, ref, model in (("deepseek", d_ref, dcfg), ("tiled", t_ref,
+                                                        tcfg)):
+        logits0 = outs[0][key]["logits"]
+        err = float((logits0[0] - ref[1][0].cpu()).abs().max())
+        parting = tie_rule(outs[0][key]["tokens"], ref[0].cpu(), logits0,
+                           ref[1].cpu())
+        res[key]["prefill_logit_err"] = err
+        res[key]["parting"] = parting
+        if not err <= MESH_LOGIT_ATOL:
+            faults.append(f"{key} mesh: prefill logits {err} > "
+                          f"{MESH_LOGIT_ATOL}")
+        if not all(p["tied"] for p in parting):
+            faults.append(f"{key} mesh: tokens part from one process "
+                          f"away from an exact tie: {parting}")
+        bits = outs[0][key].get("band_bits")
+        if bits is not None:
+            res[key]["band_bits"] = bits
+            if not all(bits.values()):
+                faults.append(f"{key} mesh: the rank's experts' launch "
+                              f"differs from the whole stack's: {bits}")
+        for r, out in enumerate(outs):
+            o = out[key]
+            kl = o["run"]["kernel_launches"]
+            res[key][f"rank{r}"] = {
+                "prefill_ms": o["prefill_ms"], "step_ms": o["step_ms"],
+                "kernel_launches": kl, "launches": o["run"]["launches"],
+                "dispatch": o["run"]["dispatch"],
+                "launch_shapes": o["launch_shapes"],
+                "tokens_equal_rank0": bool(torch.equal(
+                    o["tokens"], outs[0][key]["tokens"]))}
+            if not torch.equal(o["tokens"], outs[0][key]["tokens"]):
+                faults.append(f"{key} mesh rank {r}: tokens differ from "
+                              "rank 0's")
+            if kl.get("fused_decode_matmul:simt"):
+                faults.append(f"{key} mesh rank {r}: SIMT launched")
+            if key == "deepseek":
+                k3e = {int(k.split("E=")[1]) for k in o["launch_shapes"]
+                       if k.startswith("grouped_fused_decode_matmul ")}
+                if k3e != {e_loc} or not o["run"]["launches"].get(
+                        "dict_decode") or not o["run"]["launches"].get(
+                        "flash_attention") or not o["run"]["dispatch"].get(
+                        "grouped_fused_shard_map"):
+                    faults.append(f"deepseek mesh rank {r}: K3 E {k3e} "
+                                  f"(want {e_loc}), launches "
+                                  f"{o['run']['launches']}, dispatch "
+                                  f"{o['run']['dispatch']}")
+            elif not o["run"]["dispatch"].get("tiled_fused_shard_map"):
+                faults.append(f"tiled mesh rank {r}: dispatch "
+                              f"{o['run']['dispatch']}")
+            for row in o["rows"]:
+                kernels.append(dict(row, path=f"{model.name} mesh "
+                                    f"{MESH_WIDE}"))
+    log("mesh_detail " + json.dumps({k: v for k, v in res.items()
+                                     if k in ("llama", "deepseek", "tiled")
+                                     }, default=str))
+    return {"spawn_s": spawn_s, "note": res["note"], "summary": {
+        key: {r: {f: v for f, v in d.items()
+                  if f in ("prefill_ms", "step_ms", "tokens_equal")}
+              for r, d in res[key].items() if r.startswith("rank")}
+        for key in ("llama", "deepseek", "tiled")},
+        "deepseek_logit_err": res["deepseek"]["prefill_logit_err"],
+        "tiled_logit_err": res["tiled"]["prefill_logit_err"],
+        "parting": {k: res[k]["parting"] for k in ("deepseek", "tiled")},
+        "band_bits": {k: res[k].get("band_bits")
+                      for k in ("llama", "deepseek")}}
+
+
 def phase(rt, name: str):
     """Name the phase that the launches from here on belong to (for
     ``SimtWatch``)."""
@@ -4495,10 +5055,10 @@ def card_vs_cpu(rt, cfg, device, batch, steps):
 
 # ---------------------------------------------------------------------------
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+def load_runtime() -> dict:
+    """The port's modules and entry points by name (the ``rt`` every phase
+    takes), imported from this checkout's ``src``; each rank of the mesh
+    phase loads them too."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.compressed import pack_expert_stack
@@ -4526,7 +5086,9 @@ def main() -> int:
     from repro_torch.train.data import DataConfig, DataPipeline
     from repro_torch.train import optimizer, steps, tree
     from repro_torch.core import gptq, quant
-    rt = {"launch_serve": launch_serve, "DataConfig": DataConfig,
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import partition
+    return {"launch_serve": launch_serve, "DataConfig": DataConfig,
           "launch_train": launch_train, "optimizer": optimizer,
           "steps": steps, "tree": tree, "gptq": gptq, "quant": quant,
           "DataPipeline": DataPipeline, "integrity": integrity, "resilience": resilience,
@@ -4542,7 +5104,16 @@ def main() -> int:
           "build_serve_params": build_serve_params, "generate": generate,
           "make_serve_fns": make_serve_fns, "Engine": Engine,
           "Request": Request, "ServeContext": ServeContext,
-          "watch": SimtWatch.watch(_build.KERNEL_COUNTS)}
+          "mesh": mesh, "partition": partition}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    rt = load_runtime()
+    rt["watch"] = SimtWatch.watch(rt["_build"].KERNEL_COUNTS)
+    _build = rt["_build"]
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -4575,6 +5146,7 @@ def main() -> int:
         log(f"{path.__name__}: {time.perf_counter() - t0:.1f} s")
 
     for name, fn in (("families", families_phase), ("encdec", encdec_phase),
+                     ("examples", examples_phase), ("mesh", mesh_phase),
                      ("launcher", launcher_phase), ("train", train_phase)):
         t0 = time.perf_counter()
         phase(rt, name)

@@ -144,14 +144,26 @@ def _shrink_block_weights(vol: int, block_weights: int, seq_len: int) -> int:
 def choose_fused_tiles(shape: tuple, block_weights: int = DEFAULT_BLOCK_WEIGHTS,
                        seq_len: int = DEFAULT_SEQ_LEN,
                        max_tile_n: int = DEFAULT_TILE_N,
-                       max_tile_k: int = DEFAULT_TILE_K):
+                       max_tile_k: int = DEFAULT_TILE_K,
+                       shards: tuple = (1, 1)):
     """(tile_n, tile_k, block_weights) for the fused layout, or None when
     the weight cannot hold a tile of whole grams.  Tiles are the largest
     power-of-two divisors of (N, K) up to the kernel's tile, so no padding
-    is ever needed."""
+    is ever needed.
+
+    ``shards=(sn, sk)``: the intended mesh split of the dense dims; tiles
+    then divide the per-shard dims (N/sn, K/sk), so the sharded fused
+    path splits the tile-major block axis in whole out-tile bands (a
+    per-shard divisor also divides the whole dim).  A shard count that
+    does not divide its dim is ignored."""
     n, k = int(shape[0]), int(shape[1])
     if n <= 0 or k <= 0:
         return None
+    sn, sk = int(shards[0]) or 1, int(shards[1]) or 1
+    if sn > 1 and n % sn == 0:
+        n //= sn
+    if sk > 1 and k % sk == 0:
+        k //= sk
     tn = _pow2_divisor(n, max_tile_n)
     tk = _pow2_divisor(k, max_tile_k)
     vol = tn * tk

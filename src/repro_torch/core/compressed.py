@@ -14,7 +14,7 @@ every plane.
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar
+from typing import ClassVar, Optional
 
 import torch
 
@@ -66,6 +66,10 @@ class _PackedPlanes:
     shape: tuple
     tile_n: int = 0
     tile_k: int = 0
+    # a mesh rank's share (``sharding.partition.place_params``): None, or
+    # the mesh axes the planes were split over (see ``place_params``); the
+    # planes and ``shape`` are then the rank's
+    mesh_axes: Optional[tuple] = None
 
     GROUP_AXES: ClassVar[int] = 0
     PROBE: ClassVar[str] = ""
@@ -178,7 +182,7 @@ class TiledPackedLinear(_PackedPlanes):
 
 def encode_tiled_planes(vals: torch.Tensor, table, tiles: int,
                         block_weights: int = bcdc.DEFAULT_BLOCK_WEIGHTS,
-                        tile=None):
+                        tile=None, shards: tuple = (1, 1)):
     """Encode a quantized (out, in) uint8 weight as ``tiles`` column
     groups.  → ``(bcs, tile_n, tile_k)``: one BlockedCompressed per group,
     literal capacities not yet unified.  ``tile=(tn, tk)`` or ``"auto"``
@@ -186,13 +190,16 @@ def encode_tiled_planes(vals: torch.Tensor, table, tiles: int,
     sub-weight) selects the tile-major layout; ``None`` the linear one.
     The block size shrinks to the sub-weight's volume, rounded down to
     whole grams, as the reference's does.  ``table``: a {gram -> code}
-    dict or a prepared ``TableIndex``."""
+    dict or a prepared ``TableIndex``.  ``shards=(model_shards, 1)``: the
+    auto choice divides the per-model-shard out dim
+    (:func:`blocked_codec.choose_fused_tiles`)."""
     out, k = vals.shape
     if k % tiles:
         raise ValueError(f"{tiles} column groups do not divide {vals.shape}")
     k_t = k // tiles
     if tile == "auto":
-        picked = bcdc.choose_fused_tiles((out, k_t), block_weights)
+        picked = bcdc.choose_fused_tiles((out, k_t), block_weights,
+                                         shards=shards)
         tile = picked[:2] if picked else None
     s = bcdc.DEFAULT_SEQ_LEN
     bw = min(block_weights, (out * k_t // s) * s) or s
@@ -303,7 +310,8 @@ def pack_linear_tiled(w: torch.Tensor, table, tiles: int,
                       qcfg: QuantConfig | None = None,
                       block_weights: int = bcdc.DEFAULT_BLOCK_WEIGHTS,
                       lit_cap: int | None = None,
-                      tile=None) -> TiledPackedLinear:
+                      tile=None, shards: tuple = (1, 1)
+                      ) -> TiledPackedLinear:
     """Quantize one (out, in) weight and encode it as ``tiles`` column
     groups (:func:`encode_tiled_planes`; ``tile=None`` keeps the linear
     layout, ``"auto"`` picks the tile-major one), on the weight's device.
@@ -311,7 +319,8 @@ def pack_linear_tiled(w: torch.Tensor, table, tiles: int,
     largest)."""
     ql = quantize_linear(w, qcfg)
     bcs, tn, tk = encode_tiled_planes(ql.values, table, tiles,
-                                      block_weights=block_weights, tile=tile)
+                                      block_weights=block_weights, tile=tile,
+                                      shards=shards)
     t = stack_tiled([ql], [bcs], shape=tuple(w.shape), tile_n=tn, tile_k=tk,
                     cap=lit_cap)
     return dataclasses.replace(t, codes=t.codes[0], literals=t.literals[0],

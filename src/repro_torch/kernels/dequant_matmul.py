@@ -87,7 +87,8 @@ def mma_smem_bytes() -> int:
 
 
 def dequant_plan(m: int, n: int, k: int, sms: int,
-                 decode: bool = False) -> DequantPlan:
+                 decode: bool = False,
+                 plan_n: int | None = None) -> DequantPlan:
     """The launch of (M, K) × (K, N) on a card of ``sms`` SMs, a pure
     function of the shapes and of ``decode``: whether the M rows are a
     decode step's (one token a row, each its own request).
@@ -116,7 +117,13 @@ def dequant_plan(m: int, n: int, k: int, sms: int,
     what the split-K epilogue costs, so the simpler rule stays.
 
     Otherwise the SIMT kernel: 4 rows a block at M ≤ 4, else 16; K split
-    so that about two blocks sit on every SM."""
+    so that about two blocks sit on every SM.
+
+    ``plan_n``: the N whose K splits the launch takes (default N), the
+    grid covering N: a mesh rank's out-band of a weight passes the whole
+    weight's N, so that each column's products are summed in the order
+    the whole weight's launch sums them (the decode kernel's order does
+    not depend on N)."""
     if (m < MMA_MIN_M or decode) and k > 0 and k % 16 == 0:
         tasks = -(-n // DECODE_ROWS)
         rounds = -(-tasks // (sms * DECODE_BLOCKS_PER_SM * DECODE_WARPS))
@@ -125,30 +132,33 @@ def dequant_plan(m: int, n: int, k: int, sms: int,
                            decode_smem_bytes(k),
                            row_groups=-(-m // DECODE_M))
     if m >= MMA_MIN_M and k > 0 and k % 16 == 0:
-        return mma_plan(m, n, k, sms)
-    return simt_plan(m, n, k, sms)
+        return mma_plan(m, n, k, sms, plan_n)
+    return simt_plan(m, n, k, sms, plan_n)
 
 
-def mma_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+def mma_plan(m: int, n: int, k: int, sms: int,
+             plan_n: int | None = None) -> DequantPlan:
     """The tensor-core kernel's launch at any M (K a positive multiple of
     16): ``dequant_plan``'s choice from MMA_MIN_M rows on; below, what
     tools/profile_decode.py and the tests time and emulate beside the
     decode kernel's row groups."""
     stripes, bands = -(-n // MMA_BN), -(-m // MMA_BM)
     steps = -(-k // MMA_STEP_K)
-    want = max(1, min(steps, sms // (stripes * bands)))
+    want = max(1, min(steps, sms // (-(-(plan_n or n) // MMA_BN) * bands)))
     splits = -(-steps // -(-steps // want))
     return DequantPlan("mma", (stripes, bands, splits), MMA_THREADS,
                        mma_smem_bytes(), splits=splits)
 
 
-def simt_plan(m: int, n: int, k: int, sms: int) -> DequantPlan:
+def simt_plan(m: int, n: int, k: int, sms: int,
+              plan_n: int | None = None) -> DequantPlan:
     """The SIMT kernel's launch at any shape (``dequant_plan``'s choice
     where K % 16 ≠ 0; tools/profile_decode.py times it beside the others
     at their shapes)."""
     rpt = 2 if m <= 4 else 8
     stripes, bands = -(-n // 128), -(-m // (2 * rpt))
-    splits = _split_count(stripes * bands, max(1, -(-k // KC)), sms)
+    splits = _split_count(-(-(plan_n or n) // 128) * bands,
+                          max(1, -(-k // KC)), sms)
     return DequantPlan("simt", (stripes, bands, splits), 256,
                        128 * (KC + 4) + (2 * rpt * KC + 2 * rpt) * 4,
                        rpt=rpt, splits=splits)
@@ -166,11 +176,14 @@ def dequant_matmul_plain(x, wq, scale, zero,
 
 
 def dequant_matmul(x, wq, scale, zero, out_dtype=torch.bfloat16,
-                   decode: bool = False) -> torch.Tensor:
+                   decode: bool = False,
+                   plan_n: int | None = None) -> torch.Tensor:
     """y = x @ dequant(wq).T.  x: (M, K) float; wq: (N, K) uint8;
     scale/zero: (N, 1) f32.  ``decode``: x's rows are a decode step's
-    (:func:`dequant_plan`).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel :func:`dequant_plan` picks, or raise."""
+    (:func:`dequant_plan`); ``plan_n``: the N the launch is planned for
+    (a mesh rank's out-band passes the whole weight's).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel
+    :func:`dequant_plan` picks, or raise."""
     if x.device.type == "cpu":
         return dequant_matmul_plain(x, wq, scale, zero, out_dtype)
     if x.device.type != "cuda":
@@ -198,7 +211,7 @@ def dequant_matmul(x, wq, scale, zero, out_dtype=torch.bfloat16,
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
-    plan = dequant_plan(m, n, k, _build.sm_count(dev), decode)
+    plan = dequant_plan(m, n, k, _build.sm_count(dev), decode, plan_n)
     if plan.smem_bytes > SMEM_MAX or plan.grid[0] > MAX_GRID_X \
             or max(plan.grid[1:]) > MAX_GRID_YZ:
         raise ValueError(f"{NAME}: ({m}, {n}, {k}) needs a grid "

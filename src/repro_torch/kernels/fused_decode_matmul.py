@@ -303,7 +303,7 @@ def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
 
 def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
             tile_k, out_dtype, plan_experts=None, groups: int = 1,
-            fn=None, decode: bool = False):
+            fn=None, decode: bool = False, plan_n: int | None = None):
     """Check the operands and launch the kernel for E = x.shape[0] weights
     of one shape: x (E, M, K), codes (E, nb, slots), literals
     (E, nb, cap, 4), scale/zero E·N values → (E, M, N).  The launch is
@@ -315,7 +315,11 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     design variants).  ``decode``: the rows are a decode step's
     (:func:`launch_plan`); above 16 they run in groups of 16, a launch
     each, straight into ``out`` (K1) or, an expert stack's group being
-    strided along M, through a buffer of the group's rows (K3)."""
+    strided along M, through a buffer of the group's rows (K3).
+    ``plan_n``: the output width the launch is planned for (default N): a
+    mesh rank's out-band of a weight passes the whole weight's N, so that
+    each column's products are summed in the order the whole weight's
+    launch sums them."""
     dev = _build.cuda_args(x, codes, literals, lut, scale, zero)
     n, k = shape
     e, m = x.shape[0], x.shape[1]
@@ -358,7 +362,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     if m == 0 or e == 0:
         return out
     pe, sms = plan_experts or e, _build.sm_count(dev)
-    plan = launch_plan(m, n, k, tile_k, pe, sms, slots, decode)
+    pn = plan_n or n
+    plan = launch_plan(m, pn, k, tile_k, pe, sms, slots, decode)
     fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
     rows = DECODE_MAX_M if plan.row_groups > 1 else m
     for r in range(0, m, rows):
@@ -371,7 +376,7 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
         if xg.data_ptr() % 16:  # the tensor-core path loads x 16 B at a time
             xg = xg.clone()
         _launch_rows(name, fn, plan if mg == m else launch_plan(
-            mg, n, k, tile_k, pe, sms, slots), xg, codes, literals, lut,
+            mg, pn, k, tile_k, pe, sms, slots), xg, codes, literals, lut,
             scale, zero, og, e=e, m=mg, n=n, k=k, tile_n=tile_n,
             tile_k=tile_k, bpt=bpt, groups=groups)
         if strided:
@@ -423,7 +428,8 @@ def _launch_rows(name, fn, plan: Plan, xb, codes, literals, lut, scale, zero,
 def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
                         tile_n: int, tile_k: int,
                         out_dtype=torch.bfloat16,
-                        decode: bool = False) -> torch.Tensor:
+                        decode: bool = False,
+                        plan_n: int | None = None) -> torch.Tensor:
     """K1: y = x @ dequant(decode(codes, literals)).T without a dense
     weight.
 
@@ -434,8 +440,9 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
     planes of the (N, K/G) sub-weight over x columns [g·K/G, (g+1)·K/G)
     (a ``TiledPackedLinear``), all G in one launch.  ``decode``: x's rows
     are a decode step's, each row its own request (:func:`launch_plan`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
+    ``plan_n``: the N the launch is planned for (:func:`_launch`; a mesh
+    rank's out-band passes the whole weight's).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
     """
     if x.device.type == "cpu":
         return fused_decode_matmul_plain(
@@ -456,7 +463,7 @@ def fused_decode_matmul(x, codes, literals, lut, scale, zero, *, shape,
                    literals.reshape((1, -1) + tuple(literals.shape[-2:])),
                    lut, scale, zero, shape=shape, tile_n=tile_n,
                    tile_k=tile_k, out_dtype=out_dtype, groups=groups,
-                   decode=decode)[0]
+                   decode=decode, plan_n=plan_n)[0]
 
 
 def grouped_fused_decode_matmul(x, codes, literals, lut, scale, zero, *,

@@ -25,6 +25,34 @@ kernels cannot read, take the unfused path at any lever.  A
 ``DISPATCH_COUNTS`` counts which path each compressed matmul took (the
 reference's probe); ``_build.LAUNCH_COUNTS`` counts kernel launches.  In
 a captured step both count at each replay (``serve.engine.capture_step``).
+
+On a mesh (``sharding.partition.active_mesh``, more than one rank) the
+containers are each rank's share (``partition.place_params``) and the
+wrappers take the reference's ``shard_map`` branches, with its placement
+gates and probes: a ``PackedLinear``'s out-tile band on the (pod, model)
+ranks runs K1 ('fused_shard_map'), a ``TiledPackedLinear``'s groups on
+data and band on model run K1 with the f32 sum over data after it
+('tiled_fused_shard_map'), an expert stack's E/model experts run K3
+('grouped_fused_shard_map'), and an int8 weight's band runs K5
+('dequant_shard_map': the reference leaves its head to GSPMD, which
+shards it the same way).  Each launch is planned for the whole weight
+(its N, and K3's E), so a column's products are summed in the order the
+one-device launch sums them and a column-parallel output is bitwise the
+one-device output.  The outputs are then all-gathered: activations stay
+replicated on every rank in this slice.  Two of the reference's rules
+are not yet taken (open work, ``ROADMAP.md`` queue 1 item 3): x's rows
+are not split over data (or pod), so every rank of a band takes all of
+them, as a row's bits would otherwise depend on how many rows share its
+launch (the CPU's plain products, and K1's tensor-core plan, whose K
+splits follow the row bands); and the fused branch's second gate, m ≤
+max(N, 512) rows (``repro/kernels/ops.py:109``, ``:266-282``), is not
+applied: it prices the activation gather the reference's ``shard_map``
+makes, which replicated activations do not need, and it would send a
+prefill's rows of a narrow weight (Llama-3.2-1B's k/v, N = 512, at M =
+700) to the two-step path, whose K5 sums in another order than one
+device's K1 (on the card the tokens then part from one device's).  A
+container that the placement gates leave whole takes the one-device
+two-step path on every rank, as the reference falls back.
 """
 from __future__ import annotations
 
@@ -60,6 +88,11 @@ class Impl(str, enum.Enum):
 
 VALID_IMPLS = frozenset(i.value for i in Impl)
 
+# the probe each rung counts under, on one device and on a rank's share
+# (the fallback rungs keep their names)
+_RUNG_PROBE = {Impl.AUTO.value: "fused"}
+_SHARD_PROBE = {Impl.AUTO.value: "fused_shard_map"}
+
 # The ladder's rungs.  'fused' is not an impl: it serves with the lever
 # unset ('auto'); the fallback rungs pin it.
 FUSED_RUNG = "fused"
@@ -89,9 +122,44 @@ def dequant_matmul(x, wq, scale, zero, *, out_dtype=torch.float32,
     decode step's, one token a request (the kernels' plans keep each such
     row's bits what they are alone, at any M)."""
     lead = x.shape[:-1]
-    y = _dequant_matmul(x.reshape(-1, x.shape[-1]), wq, scale, zero,
-                        out_dtype=out_dtype, decode=decode)
-    return y.reshape(*lead, wq.shape[0])
+    x2 = x.reshape(-1, x.shape[-1])
+    mesh, waxes, wsize = _weight_axes()
+    n = wq.shape[0]
+    if wsize > 1 and wq.ndim == 2 and n % wsize == 0:
+        DISPATCH_COUNTS["dequant_shard_map"] += 1
+        band = _band_rows(n, mesh, waxes, wsize)
+        y = mesh.all_gather(_dequant_matmul(
+            x2, wq[band], scale[band], zero[band], out_dtype=out_dtype,
+            decode=decode, plan_n=n), waxes, dim=1)
+    else:
+        y = _dequant_matmul(x2, wq, scale, zero, out_dtype=out_dtype,
+                            decode=decode)
+    return y.reshape(*lead, n)
+
+
+def _mesh():
+    """The active mesh of more than one rank, or None."""
+    from ..sharding.partition import current_mesh
+    _, mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _weight_axes():
+    """(mesh, weight axes, their size): the reference's ``waxes``, the
+    (pod, model) axes of size > 1 over which a weight's out-tile bands
+    split; (None, (), 1) without a mesh."""
+    mesh = _mesh()
+    if mesh is None:
+        return None, (), 1
+    from ..sharding.partition import weight_axes
+    waxes = weight_axes(mesh)
+    return mesh, waxes, mesh.axis_size(waxes)
+
+
+def _band_rows(n: int, mesh, axes, size: int) -> slice:
+    """This rank's rows of ``n`` split in ``size`` bands along ``axes``."""
+    i, per = mesh.axis_index(axes), n // size
+    return slice(i * per, (i + 1) * per)
 
 
 def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
@@ -117,28 +185,93 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
     if packed.codes.ndim != 2 + packed.GROUP_AXES:
         raise ValueError(f"{probe}decode_dequant_matmul takes one layer's "
                          f"planes, got codes {tuple(packed.codes.shape)}")
+    mesh = _mesh()
+    if mesh is not None and packed.mesh_axes is not None:
+        return _sharded_matmul(x, packed, lut, mesh, out_dtype=out_dtype,
+                               decode=decode)
+    if packed.mesh_axes is not None:
+        raise ValueError(f"{probe}decode_dequant_matmul: a mesh rank's "
+                         "share of a weight needs its mesh active "
+                         "(sharding.partition.active_mesh)")
     impl = _DEFAULT_IMPL
+    if mesh is not None:
+        from ..sharding.partition import placement_ok
+        if placement_ok(packed, mesh):
+            raise ValueError(f"{probe}decode_dequant_matmul on a mesh "
+                             "needs the rank's share of the weight "
+                             "(sharding.partition.place_params)")
+        # the gates keep this weight whole: the one-device two-step path
+        # on every rank, as the reference falls back
+        if impl == Impl.AUTO.value:
+            impl = Impl.UNFUSED.value
+    if impl == Impl.AUTO.value and not packed.tile_n:
+        impl = Impl.UNFUSED.value
+    DISPATCH_COUNTS[probe + _RUNG_PROBE.get(impl, impl)] += 1
     n, k = packed.shape
-    if impl == Impl.MATERIALIZE.value:
-        DISPATCH_COUNTS[probe + "materialize"] += 1
-        w = packed.materialize(lut, dtype=torch.float32, plain=True)
-        return torch.matmul(x.to(torch.float32), w.T).to(out_dtype)
-    if impl == Impl.UNFUSED.value or not packed.tile_n:
-        DISPATCH_COUNTS[probe + "unfused"] += 1
-        return dequant_matmul(x, packed.materialize_int8(lut), packed.scale,
-                              packed.zero, out_dtype=out_dtype,
-                              decode=decode)
-    DISPATCH_COUNTS[probe + "fused"] += 1
     lead = x.shape[:-1]
-    y = _fused(x.reshape(-1, k), packed.codes, packed.literals, lut,
-               packed.scale, packed.zero, shape=tuple(packed.shape),
-               tile_n=packed.tile_n, tile_k=packed.tile_k,
-               out_dtype=out_dtype, decode=decode)
-    return y.reshape(*lead, n)
+    return _local_matmul(x.reshape(-1, k), packed, lut, impl,
+                         out_dtype=out_dtype, decode=decode, plan_n=n
+                         ).reshape(*lead, n)
 
 
 # the reference's name for the TiledPackedLinear branch
 tiled_decode_dequant_matmul = decode_dequant_matmul
+
+
+def _local_matmul(x2, packed, lut, impl: str, *, out_dtype, decode: bool,
+                  plan_n: int) -> torch.Tensor:
+    """One rank's product x2 (M, K_loc) over its planes on the rung
+    ``impl``, planned for the whole weight's ``plan_n`` columns."""
+    if impl == Impl.MATERIALIZE.value:
+        w = packed.materialize(lut, dtype=torch.float32, plain=True)
+        return torch.matmul(x2.to(torch.float32), w.T).to(out_dtype)
+    if impl == Impl.UNFUSED.value:
+        return _dequant_matmul(x2, packed.materialize_int8(lut),
+                               packed.scale, packed.zero,
+                               out_dtype=out_dtype, decode=decode,
+                               plan_n=plan_n)
+    return _fused(x2, packed.codes, packed.literals, lut, packed.scale,
+                  packed.zero, shape=tuple(packed.shape),
+                  tile_n=packed.tile_n, tile_k=packed.tile_k,
+                  out_dtype=out_dtype, decode=decode, plan_n=plan_n)
+
+
+def _sharded_matmul(x, packed, lut, mesh, *, out_dtype, decode: bool):
+    """``decode_dequant_matmul`` over a mesh rank's share of a weight (the
+    reference's ``_fused_decode_matmul_sharded`` and
+    ``_tiled_fused_sharded``): see the module's note."""
+    lead, kdim = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, kdim)
+    impl = _DEFAULT_IMPL
+    if packed.GROUP_AXES:
+        return _tiled_sharded(x2, packed, lut, mesh, impl,
+                              out_dtype=out_dtype, decode=decode
+                              ).reshape(*lead, -1)
+    waxes = tuple(packed.mesh_axes)
+    n = packed.shape[0] * mesh.axis_size(waxes)
+    DISPATCH_COUNTS[packed.PROBE + _SHARD_PROBE.get(impl, impl)] += 1
+    y = _local_matmul(x2, packed, lut, impl, out_dtype=out_dtype,
+                      decode=decode, plan_n=n)
+    return mesh.all_gather(y, waxes, dim=1).reshape(*lead, n)
+
+
+def _tiled_sharded(x2, packed, lut, mesh, impl: str, *, out_dtype,
+                   decode: bool):
+    """A TiledPackedLinear on a mesh: this rank's column groups (on data)
+    and out band (on model) in one launch over its x columns, the f32
+    partial sums added over data (the reference's row-parallel ``psum``),
+    the cast, then the columns gathered over model."""
+    n_loc, k_loc = packed.shape
+    msize = mesh.axis_size("model") if "model" in packed.mesh_axes else 1
+    dsize = mesh.axis_size("data") if "data" in packed.mesh_axes else 1
+    DISPATCH_COUNTS["tiled_" + _SHARD_PROBE.get(impl, impl)] += 1
+    d = mesh.axis_index("data") if dsize > 1 else 0
+    y = _local_matmul(x2[:, d * k_loc:(d + 1) * k_loc], packed, lut, impl,
+                      out_dtype=torch.float32, decode=decode,
+                      plan_n=n_loc * msize)
+    if dsize > 1:
+        y = mesh.psum(y, "data")
+    return mesh.all_gather(y.to(out_dtype), "model", dim=1)
 
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):
@@ -181,14 +314,61 @@ def grouped_decode_dequant_matmul(xe, packed, lut, *,
     ``plan_experts``: the fused kernel's planned expert count (a tiered
     cache stack's layer-wide count; default E).  ``decode``: the capacity
     rows are a decode step's tokens (each row's bits then do not depend on
-    the capacity, above 16 too)."""
+    the capacity, above 16 too).
+
+    On a mesh, over a rank's share of the stack (experts on model), each
+    launch planned for the whole stack's E: ``xe`` of all E experts runs
+    the rank's experts and gathers the expert axis back (probe
+    'grouped_fused_shard_map'); ``xe`` of the rank's E/model experts
+    alone (the local-routing MoE, ``layers.apply_moe_local``, which
+    counts its call) stays on the rank."""
     if lut is None or packed.codes.ndim != 3:
         raise ValueError("grouped_decode_dequant_matmul takes a stacked "
                          "PackedLinear and its LUT, got codes "
                          f"{tuple(packed.codes.shape)}")
     impl = _DEFAULT_IMPL
+    mesh = _mesh()
+    if mesh is not None and packed.mesh_axes is not None:
+        # experts on model: this rank's E/model experts, planned for the
+        # whole stack
+        size = mesh.axis_size(packed.mesh_axes)
+        e_loc = packed.codes.shape[0]
+        if xe.shape[0] == e_loc:
+            # the rank's own experts' tokens (the local-routing MoE,
+            # which counts its call): the product stays on the rank
+            return _grouped_local(xe, packed, lut, impl, None,
+                                  out_dtype=out_dtype,
+                                  plan_experts=e_loc * size, decode=decode)
+        rows = _band_rows(xe.shape[0], mesh, packed.mesh_axes, size)
+        y = _grouped_local(xe[rows], packed, lut, impl,
+                           "grouped_fused_shard_map", out_dtype=out_dtype,
+                           plan_experts=xe.shape[0], decode=decode)
+        return mesh.all_gather(y, packed.mesh_axes, dim=0)
+    if packed.mesh_axes is not None:
+        raise ValueError("grouped_decode_dequant_matmul: a mesh rank's "
+                         "share of an expert stack needs its mesh active")
+    if mesh is not None:
+        from ..sharding.partition import placement_ok
+        if placement_ok(packed, mesh):
+            raise ValueError("grouped_decode_dequant_matmul on a mesh "
+                             "needs the rank's share of the expert stack "
+                             "(sharding.partition.place_params)")
+        if impl == Impl.AUTO.value:      # the reference's fallback
+            impl = Impl.UNFUSED.value
+    return _grouped_local(xe, packed, lut, impl, "grouped_fused",
+                          out_dtype=out_dtype, plan_experts=plan_experts,
+                          decode=decode)
+
+
+def _grouped_local(xe, packed, lut, impl: str, probe, *, out_dtype,
+                   plan_experts, decode: bool):
+    """The grouped product over the stack this rank holds, on the rung
+    ``impl``: the fused kernel counted as ``probe`` (None: the caller
+    counts it), the other rungs as the reference counts them on any
+    mesh."""
     if impl == Impl.AUTO.value and packed.tile_n:
-        DISPATCH_COUNTS["grouped_fused"] += 1
+        if probe:
+            DISPATCH_COUNTS[probe] += 1
         return grouped_fused_local(xe, packed, lut, out_dtype=out_dtype,
                                    plan_experts=plan_experts, decode=decode)
     plain = impl == Impl.MATERIALIZE.value

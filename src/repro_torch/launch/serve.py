@@ -26,17 +26,32 @@ compressed MoE model's expert planes in host memory under a device cache of
 ``serve.governor.MemoryGovernor`` attached to the engine.
 
 It runs on the CUDA card unless ``--device cpu`` is given (the kernels'
-plain versions).  ``--mesh`` is refused: multi-device serving is not
-ported yet (ROADMAP.md, queue 1 item 11).  Weights are the port's
-``init_lm(cfg, seed=0)`` of the arch's smoke config, as in the
-reference, unless the caller of :func:`main` passes ``params``.
+plain versions).  Weights are the port's ``init_lm(cfg, seed=0)`` of the
+arch's smoke config, as in the reference, unless the caller of
+:func:`main` passes ``params``.
+
+``--mesh DATA,MODEL`` serves on a mesh of DATA × MODEL ranks
+(``launch.mesh``): the weights are packed with ``model_shards = MODEL``,
+each rank keeps its share of them (``sharding.partition.place_params``;
+the LUT and the other leaves replicated), every rank runs the same
+engine, eagerly, and rank 0 prints the summary with ``mesh: {...}``.
+Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set) the ranks are the ones
+it started, and a mesh of more ranks than that is refused; otherwise the
+launcher starts the ranks itself (``launch.mesh.spawn``), over gloo,
+all on one card where there is only one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import math
+import os
+import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..configs import get_config
@@ -49,6 +64,7 @@ from ..serve.kv_cache import PagedKVPool
 from ..serve.resilience import ResiliencePolicy, ResilientEngine
 from ..serve.scheduler import Engine, Request
 from ..train.data import DataConfig, DataPipeline
+from . import mesh as M
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -80,8 +96,8 @@ def _parser() -> argparse.ArgumentParser:
                          "expired requests complete with "
                          "finished='deadline' (default: no TTL)")
     ap.add_argument("--mesh", default=None,
-                    help="DATA,MODEL mesh shape: refused, multi-device "
-                         "serving is not ported yet")
+                    help="DATA,MODEL mesh shape: serve on DATA x MODEL "
+                         "ranks (started here, or by torchrun)")
     ap.add_argument("--tiles", type=int, default=0,
                     help="column groups for compressed weights "
                          "(TiledPackedLinear; 0 = plain PackedLinear)")
@@ -138,10 +154,51 @@ def main(argv=None, *, params=None) -> dict:
     printed (completions, dispatch counts, health, ...)."""
     ap = _parser()
     args = ap.parse_args(argv)
+    mesh = None
     if args.mesh:
-        ap.error(f"--mesh {args.mesh}: multi-device serving is not ported "
-                 "yet (ROADMAP.md, queue 1 item 11); run without --mesh")
+        shape = _parse_mesh(ap, args.mesh)
+        need = math.prod(shape)
+        if not dist.is_initialized() and "RANK" not in os.environ:
+            # no ranks yet: start them, each running this launcher
+            if params is not None:
+                params = _map_leaves(params, lambda t: t.cpu())
+            return M.spawn(_rank_main, need,
+                           list(sys.argv[1:] if argv is None else argv),
+                           params, device=args.device or "cuda")[0]
+        have = M.world_size()
+        if need > have:
+            ap.error(f"--mesh {args.mesh} needs {need} devices, have {have} "
+                     f"(start {need} ranks)")
+        M.init_from_env(args.device or "cuda")
+        mesh = M.make_mesh(shape, (M.AXIS_DATA, M.AXIS_MODEL))
+        if mesh is None:          # a rank past the mesh serves nothing
+            return {}
     device = resolve_device(args.device)
+    quiet = (contextlib.redirect_stdout(io.StringIO())
+             if mesh is not None and mesh.rank else contextlib.nullcontext())
+    with quiet:
+        return _serve(args, ap, device, mesh, params)
+
+
+def _rank_main(rank: int, argv: list, params):
+    """One rank of ``--mesh`` (``launch.mesh.spawn``)."""
+    return main(argv, params=params)
+
+
+def _parse_mesh(ap, spec: str) -> tuple:
+    """'2,4' -> (2, 4): (data, model)."""
+    try:
+        shape = tuple(int(s) for s in spec.split(","))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        ap.error(f"--mesh wants DATA,MODEL, got {spec!r}")
+    return shape
+
+
+def _serve(args, ap, device, mesh, params) -> dict:
+    """The launcher's body on ``device`` (and ``mesh``, this rank's)."""
+    model_shards = mesh.shape[M.AXIS_MODEL] if mesh is not None else 1
 
     cfg = get_config(args.arch).smoke
     if params is None:
@@ -155,9 +212,18 @@ def main(argv=None, *, params=None) -> dict:
     else:
         st = build_serve_params(
             params, CompressionPolicy(mode=args.mode, min_weight_size=1024,
-                                      tiles=args.tiles), device=device)
+                                      tiles=args.tiles),
+            model_shards=model_shards, device=device)
         sp, lut = st.params, st.lut
         print(f"{args.mode} weights: {sum(st.stats.values())/2**20:.2f} MiB")
+    if mesh is not None:
+        # each rank keeps its share of the packed state (ResilientEngine
+        # places it after the integrity gate); the LUT and the other
+        # leaves replicate
+        if args.residency == "tiered":
+            ap.error("--residency tiered is single-device: run it without "
+                     "--mesh")
+        print(f"mesh: {dict(mesh.shape)}")
 
     max_len = args.prompt_len + args.max_new
 
@@ -231,15 +297,15 @@ def main(argv=None, *, params=None) -> dict:
         # IntegrityError naming themselves instead of serving garbage
         rengine = ResilientEngine(
             cfg, st, policy=ResiliencePolicy(verify=args.verify),
-            device=device, residency=residency)
+            device=device, residency=residency, mesh=mesh)
         if args.verify != "off":
             print(rengine.verify_report.summary())
             print(rengine.invariant_report.summary())
         eng = rengine.scheduler(**engine_kw)
     else:
         rengine = None
-        eng = Engine(ServeContext(cfg=cfg, lut=lut, device=device), sp,
-                     **engine_kw)
+        eng = Engine(ServeContext(cfg=cfg, lut=lut, device=device,
+                                  mesh=mesh), sp, **engine_kw)
 
     toks = data.batch_at(0)["tokens"].numpy()
     arrivals = [i * args.stagger for i in range(args.batch)]
@@ -302,7 +368,8 @@ def main(argv=None, *, params=None) -> dict:
     return {"completions": list(eng.completions), "reasons": reasons,
             "dispatch": dispatch, "health": health, "engine": h,
             "residency": res, "pressure": pressure, "sample": sample,
-            "seconds": dt, "tokens": n_tok}
+            "seconds": dt, "tokens": n_tok,
+            "mesh": dict(mesh.shape) if mesh is not None else None}
 
 
 if __name__ == "__main__":

@@ -17,8 +17,9 @@ newest committed step that loads when it starts again with the same
 
 It runs on the CUDA card unless ``--device cpu`` is given, and never
 falls back to the CPU.  ``--mesh single|multi`` is refused: multi-device
-training is not ported yet (ROADMAP.md, queue 1 item 11); ``--mesh host``
-(the default) is the one device.
+training is not ported yet (ROADMAP.md, queue 1 item 3, which holds it
+since serving on a mesh was ported); ``--mesh host`` (the default) is
+the one device.
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ def main(argv=None, *, params=None, on_metrics=None) -> dict:
     args = ap.parse_args(argv)
     if args.mesh != "host":
         ap.error(f"--mesh {args.mesh}: multi-device training is not ported "
-                 "yet (ROADMAP.md, queue 1 item 11); run with --mesh host")
+                 "yet (ROADMAP.md, queue 1 item 3: multi-device training); "
+                 "run with --mesh host")
     device = resolve_device(args.device)
     entry = get_config(args.arch)
     cfg = entry.full if args.full else entry.smoke

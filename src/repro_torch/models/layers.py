@@ -33,6 +33,7 @@ import torch
 
 from ..core.compressed import PackedLinear, QuantLinear, TiledPackedLinear
 from ..kernels import ops
+from ..sharding import partition as PT
 
 Params = Any  # nested dict of tensors / weight containers
 
@@ -100,8 +101,11 @@ def materialize_weight(w, lut=None, dtype=None):
         if w.codes.ndim > 2 + w.GROUP_AXES:
             kind += "_stacked"
         MATERIALIZE_COUNTS[kind] += 1
-        return w.materialize(lut, torch.bfloat16 if dtype is None else dtype,
-                             plain=ops.plain_decode())
+        dense = w.materialize(lut, torch.bfloat16 if dtype is None else dtype,
+                              plain=ops.plain_decode())
+        if w.mesh_axes is not None:     # a mesh rank's share: gather it
+            return PT.gather_container(w, dense, PT.current_mesh()[1])
+        return dense
     if isinstance(w, QuantLinear):
         MATERIALIZE_COUNTS["quant"] += 1
         return w.materialize(torch.bfloat16 if dtype is None else dtype)
@@ -687,7 +691,9 @@ def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None, *,
     expert weights never exist), planned for ``plan_experts`` experts (a
     tiered cache stack passes the layer's count); dense and int8 stacks
     are materialized and multiplied, as in the reference.  ``decode``:
-    the capacity rows are a decode step's tokens."""
+    the capacity rows are a decode step's tokens.  A mesh rank's share
+    of a stack with xe of its own experts (the local-routing MoE) stays
+    on the rank (``ops.grouped_decode_dequant_matmul``)."""
     def mm(h, w):
         if isinstance(w, PackedLinear) and w.codes.ndim == 3 \
                 and lut is not None:
@@ -702,8 +708,19 @@ def _expert_ffn(experts: Params, xe: torch.Tensor, lut=None, *,
     return mm(_silu_mul(g, u), experts["w_down"])
 
 
-def _expert_weight(w, i: int):
-    """Expert ``i`` of a stacked expert weight (dense, int8 or packed)."""
+def _grouped_ok(w, lut) -> bool:
+    """A stack the grouped fused kernel takes at the lever's auto rung."""
+    return (isinstance(w, PackedLinear) and bool(w.tile_n)
+            and w.codes.ndim == 3 and lut is not None
+            and ops._DEFAULT_IMPL == ops.Impl.AUTO.value)
+
+
+def _expert_weight(w, i):
+    """Expert ``i`` (an index, or a slice of experts) of a stacked expert
+    weight (dense, int8 or packed)."""
+    if getattr(w, "mesh_axes", None) is not None:
+        raise ValueError("expert-by-expert decode (moe_expert_scan) takes "
+                         "whole stacks, not a mesh rank's share")
     if isinstance(w, (PackedLinear, QuantLinear)):
         return dataclasses.replace(w, **{
             f.name: getattr(w, f.name)[i] for f in dataclasses.fields(w)
@@ -749,6 +766,16 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     manager) marks ``p["experts"]`` as C-slot cache stacks.  With
     ``cfg.moe_expert_scan`` and no residency, experts are decoded and
     multiplied one at a time."""
+    if (getattr(cfg, "moe_local_dispatch", False) and not with_routing
+            and expert_ids is None and p.get("residency") is None):
+        _, mesh = PT.current_mesh()
+        if mesh is not None:
+            msize = mesh.shape.get("model", 1)
+            bsize = mesh.axis_size(("pod", "data"))
+            if (msize > 1 and cfg.n_experts % msize == 0
+                    and x.shape[0] % bsize == 0):
+                return apply_moe_local(p, x, cfg, lut=lut)
+        # no mesh / non-divisible batch: global dispatch below
     b, t, d = x.shape
     n_tok = b * t
     e, k = cfg.n_experts, cfg.top_k
@@ -812,4 +839,87 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     y = y.reshape(b, t, d)
     if with_routing:
         return y, aux, expert_ids
+    return y, aux
+
+
+def apply_moe_local(p: Params, x: torch.Tensor, cfg, *, lut=None):
+    """Local-routing MoE on the active mesh (the reference's
+    ``apply_moe_local``, its ``shard_map`` over ranks).  → (y, aux).
+
+    Each rank takes its (pod, data) shard of the batch's rows and the
+    E/model experts of its model shard: the router runs in f32 over the
+    whole expert set (so every rank has the same gates), a choice of an
+    expert outside the rank's range is left to its owner, and the rank's
+    tokens go to its experts at the reference's per-(token shard, expert)
+    capacity — dropless, the global path's outputs; where the capacity
+    drops, another drop than the global path's, as in the reference.
+    Compressed stacks (placed on the ranks by ``place_params``) run K3
+    over the rank's experts, planned for all E ('grouped_fused_shard_map',
+    counted once a call as in the reference); other stacks are decoded
+    to the rank's dense experts.  The partial outputs are summed over
+    model in x's dtype (``Mesh.psum``: rank order, the same bits on every
+    rank), ``aux`` is averaged over model and the batch axes, and the
+    rows are gathered back over the batch axes (activations stay
+    replicated in this slice).  The shared experts run on all rows."""
+    _, mesh = PT.current_mesh()
+    e_full, k = cfg.n_experts, cfg.top_k
+    b, t, d = x.shape
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    bsize = mesh.axis_size(batch_axes)
+    bl = b // bsize
+    bi = mesh.axis_index(batch_axes)
+    msize = mesh.shape["model"]
+    e_loc = e_full // msize
+    offset = mesh.axis_index("model") * e_loc
+    experts = p["experts"]
+    names = ("w_gate", "w_up", "w_down")
+    local = {name: experts[name] if getattr(experts[name], "mesh_axes",
+                                            None) is not None
+             else _expert_weight(experts[name], slice(offset, offset + e_loc))
+             for name in names}
+    grouped = all(_grouped_ok(local[n], lut) for n in names)
+    if grouped:
+        ops.DISPATCH_COUNTS["grouped_fused_shard_map"] += 1
+    router_w = materialize_weight(p["router"], lut, torch.float32)
+
+    x_loc = x[bi * bl:(bi + 1) * bl]
+    n_tok = bl * t
+    xf = x_loc.reshape(n_tok, d)
+    probs = torch.softmax(xf.to(torch.float32) @ router_w.T, dim=-1)
+    srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_ids = srt[:, :k], order[:, :k]
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(expert_ids, e_full)
+    f = onehot.to(torch.float32).sum(dim=1).mean(dim=0)
+    aux = e_full * torch.sum(f * probs.mean(dim=0))
+
+    cap = _capacity(n_tok, k, e_full, cfg.capacity_factor)
+    local_ids = expert_ids - offset
+    owned = (local_ids >= 0) & (local_ids < e_loc)
+    lid = torch.where(owned, local_ids, e_loc)          # e_loc: not ours
+    oh = torch.nn.functional.one_hot(lid, e_loc + 1)[..., :e_loc]
+    slot = expert_slots(torch.where(owned, local_ids, 0), oh)
+    slot = torch.where(owned.reshape(-1), slot, cap)    # unowned: dropped
+    table, gtable = dispatch_tables(torch.where(owned, local_ids, 0), slot,
+                                    gate_vals, cap, e_loc)
+    keep = slot < cap
+    xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    ye = _expert_ffn(local, xpad[table], lut, plan_experts=e_full,
+                     decode=t == 1)                      # (e_loc, cap, d)
+    contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
+    contrib = torch.cat([contrib.reshape(e_loc * cap, d),
+                         contrib.new_zeros((1, d))], dim=0)
+    flat = torch.where(owned, local_ids, 0).reshape(-1)
+    where = torch.where(keep, flat * cap + slot, e_loc * cap
+                        ).reshape(n_tok, k)
+    where = where.gather(1, torch.argsort(expert_ids, dim=1))  # by expert
+    y = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        y = y + contrib[where[:, j]]
+    y = mesh.psum(y, "model")
+    aux = mesh.pmean(mesh.pmean(aux, "model"), batch_axes)
+    y = mesh.all_gather(y.reshape(bl, t, d), batch_axes, dim=0)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x.reshape(b * t, d), lut=lut,
+                          decode=t == 1).reshape(b, t, d)
     return y, aux

@@ -128,10 +128,13 @@ def _hybrid_segments(cfg):
     return list(zip([0] + bounds, bounds + [n]))
 
 
-def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
+def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None,
+               with_routing: bool = False):
     """An MoE-family layer (MLA or GQA attention, then the MoE or, in the
     first layers, a dense MLP).  Returns (x, cache, aux, expert_ids or
-    None); ``expert_ids`` routes the MoE's tokens (``apply_moe``)."""
+    None); ``expert_ids`` routes the MoE's tokens (``apply_moe``);
+    ``with_routing`` returns the top-k ids (which, as in the reference,
+    keeps the MoE on its global dispatch)."""
     h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     attn = L.apply_mla if cfg.mla else L.apply_attention
     a, new_cache = attn(bp["attn"], h, cfg, lut=lut, cache=cache, pos=pos,
@@ -142,9 +145,10 @@ def _moe_block(bp, x, cfg, lut, cache, pos, rope, expert_ids=None):
     x = x + a
     h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
     if "moe" in bp:
-        y, aux, ids = L.apply_moe(bp["moe"], h, cfg, lut=lut,
-                                  with_routing=True, expert_ids=expert_ids)
-        return x + y, new_cache, aux, ids
+        out = L.apply_moe(bp["moe"], h, cfg, lut=lut,
+                          with_routing=with_routing, expert_ids=expert_ids)
+        return x + out[0], new_cache, out[1], (out[2] if with_routing
+                                               else None)
     return x + L.apply_mlp(bp["mlp"], h, lut=lut), new_cache, 0.0, None
 
 
@@ -225,7 +229,8 @@ def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
             else:
                 x, nc, a, ids = _moe_block(
                     bp, x, cfg, lut, cache, pos, rope,
-                    None if routing is None else routing[i])
+                    None if routing is None else routing[i],
+                    with_routing=return_routing)
                 aux = aux + a
                 routed.append(ids)
             new_caches.append(nc)

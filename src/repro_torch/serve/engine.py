@@ -29,8 +29,17 @@ wraps :func:`generate` and frees a failed rung's graphs with
 manifest.  Tiered expert residency (``serve/residency.py``) takes over
 :func:`make_serve_fns` and :func:`generate` when the context carries a
 manager.  An encoder–decoder (``models/encdec.py``) is served through
-:func:`make_serve_fns` and :func:`decode_graph`.  Not ported yet:
-``model_shards`` (multi-device).
+:func:`make_serve_fns` and :func:`decode_graph`.
+
+On a device mesh (``ServeContext.mesh``, a ``launch.mesh.Mesh`` of
+ranks): ``build_serve_params(model_shards=N)`` picks tiles that divide
+each model shard's out dim, each rank serves its share of the state
+(``sharding.partition.place_params``), and :func:`make_serve_fns` and
+:func:`generate` run their steps under the mesh
+(``partition.active_mesh``), where the compressed matmuls take their
+sharded branches (``kernels.ops``).  Collectives over gloo cannot be
+captured in a CUDA graph, so on a mesh the decode phase runs eagerly and
+:func:`decode_graph` refuses a mesh.
 """
 from __future__ import annotations
 
@@ -55,6 +64,7 @@ from ..kernels import _build, ops
 from ..models import encdec as ED
 from ..models import layers as L
 from ..models import lm as LM
+from ..sharding import partition as PT
 from .context import ServeContext
 
 # Captures of a step, the counterpart of the reference's TRACE_COUNTS:
@@ -119,6 +129,7 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                        qcfg: QuantConfig | None = None,
                        table: dict | None = None,
                        block_weights: int | None = None,
+                       model_shards: int = 1,
                        manifest: bool = True,
                        device=None) -> ServeState:
     """Dense → quant/compressed per policy, on ``device`` (the card unless
@@ -137,7 +148,13 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
     ``PackedLinear``s for K3) becomes a ``TiledPackedLinear`` per layer,
     its G column groups encoded on their own (``encode_tiled_planes``,
     tile-major where the (out, in/G) sub-weight admits it), one literal
-    capacity across the leaf's layers and groups."""
+    capacity across the leaf's layers and groups.
+
+    ``model_shards``: the model-axis size of the serving mesh.  The fused
+    tiles then divide each shard's out dim (``choose_fused_tiles(shards=
+    (model_shards, 1))``, expert stacks and column groups included), so
+    every rank's out band is whole tiles and serving on the mesh takes
+    the sharded fused kernels."""
     device = resolve_device(device)
     qcfg = qcfg or QuantConfig(bits=policy.bits, granularity="per_channel")
     bw = block_weights or policy.block_weights
@@ -192,7 +209,8 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
         if (policy.tiles > 1 and shape[-1] % policy.tiles == 0
                 and "experts" not in name):
             per = [[encode_tiled_planes(q.values, index, policy.tiles,
-                                        block_weights=bw, tile="auto")
+                                        block_weights=bw, tile="auto",
+                                        shards=(model_shards, 1))
                     for q in qls] for qls in per_layer]
             tn, tk = per[0][0][1], per[0][0][2]
             cap = max(bc.literals.shape[1] for layer in per
@@ -204,7 +222,7 @@ def build_serve_params(params: Any, policy: CompressionPolicy, *,
                 n_bytes["compressed"] += (tl.payload_nbytes
                                           + 8 * shape[0] * len(qls))
             continue
-        tiles = choose_fused_tiles(shape, bw)
+        tiles = choose_fused_tiles(shape, bw, shards=(model_shards, 1))
         tn, tk = tiles[:2] if tiles else (0, 0)
 
         def encode(q):
@@ -249,7 +267,9 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     tensor or a per-row (B,) tensor; a tensor is never read on the host.
     A ``ctx`` with a ``residency`` manager gives the tiered closures
     (``serve.residency.make_tiered_serve_fns``): each step runs through
-    the manager's fetch/replay protocol.
+    the manager's fetch/replay protocol.  A ``ctx`` with a ``mesh`` gives
+    closures that run under it (``partition.active_mesh``), over the
+    rank's share of the params.
     """
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
@@ -258,7 +278,19 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
             from . import residency as _res
             return _res.make_tiered_serve_fns(
                 ctx if cfg is ctx.cfg else ctx.with_cfg(cfg))
+        if ctx.mesh is not None:
+            return _on_mesh(serve_fns(cfg, resolve_device(device)), ctx.mesh)
     return serve_fns(cfg, resolve_device(device))
+
+
+def _on_mesh(fns, mesh):
+    """Each of ``fns`` run under ``mesh`` (``partition.active_mesh``)."""
+    def wrap(fn):
+        def run(*a, **kw):
+            with PT.active_mesh(mesh):
+                return fn(*a, **kw)
+        return run
+    return tuple(wrap(f) for f in fns)
 
 
 def serve_fns(cfg, device: torch.device, *, routing: bool = False):
@@ -459,9 +491,10 @@ class DecodeGraph:
 
     def __init__(self, cfg, batch: int, max_len: int, *,
                  temperature: float = 0.0, enc_len: int = 0,
-                 enc_dtype=torch.bfloat16, device=None):
+                 enc_dtype=torch.bfloat16, device=None, mesh=None):
         device = resolve_device(device)
         self.device, self.temperature = device, temperature
+        self.mesh = mesh
         self.generator = (torch.Generator(device=device) if temperature > 0
                           else None)
         if cfg.family == "encdec":
@@ -473,7 +506,8 @@ class DecodeGraph:
         self.pos = torch.zeros((), dtype=torch.long, device=device)
         self.seq = torch.zeros((batch, max_len), dtype=torch.long,
                                device=device)
-        self._fns = make_serve_fns(cfg, device=device)
+        self._fns = make_serve_fns(ctx=ServeContext(cfg, device=device,
+                                                    mesh=mesh))
         self.graph = None
         self.step_counts = None        # per replay, one per _STEP_COUNTERS
         self.capture_ms = None         # host time of the capture
@@ -517,8 +551,9 @@ class DecodeGraph:
 
     def decode(self, params, lut, steps: int):
         """``steps`` decode steps after :meth:`prefill`: replays, after an
-        eager step and the capture when there is no graph yet."""
-        if self.device.type != "cuda":
+        eager step and the capture when there is no graph yet; eager steps
+        on the CPU and on a mesh (its collectives are not captured)."""
+        if self.device.type != "cuda" or self.mesh is not None:
             for _ in range(steps):
                 self.step(params, lut)
             return
@@ -581,7 +616,7 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
                  temperature: float = 0.0,
                  generator: torch.Generator | None = None,
                  enc_len: int = 0, enc_dtype=torch.bfloat16,
-                 device=None) -> DecodeGraph:
+                 device=None, mesh=None) -> DecodeGraph:
     """The :class:`DecodeGraph` of this configuration, batch, cache length,
     sampling rule (greedy, or a temperature when a ``generator`` is
     given) and, for an encoder–decoder, frames (``enc_len``, ``enc_dtype``)
@@ -593,7 +628,14 @@ def decode_graph(params, cfg, lut, batch: int, max_len: int, *,
     ``ServeState`` gets a graph of its own, and a graph goes as soon as a
     tensor it reads is freed: none outlives its weights.  At most
     ``MAX_GRAPHS`` are kept; a new one past that frees the least recently
-    used."""
+    used.  A ``mesh`` is refused: collectives over gloo cannot be captured
+    in a CUDA graph (``generate`` on a mesh decodes eagerly; capture with
+    NCCL across cards is not ported)."""
+    if mesh is not None:
+        raise ValueError("decode_graph: a step on a mesh runs collectives "
+                         "over gloo, which a CUDA graph cannot capture; "
+                         "generate(ctx=ServeContext(..., mesh=)) decodes "
+                         "eagerly on a mesh")
     device = resolve_device(device)
     temperature = (max(float(temperature), 0.0) if generator is not None
                    else 0.0)
@@ -655,7 +697,9 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     (eager steps under the fetch/replay protocol, bitwise equal).  An
     encoder–decoder raises ``ValueError``, as the reference's ``generate``
     does (its ``init_caches`` refuses the family): it is served through
-    :func:`make_serve_fns` or :func:`decode_graph`."""
+    :func:`make_serve_fns` or :func:`decode_graph`.  A ``ctx`` with a
+    ``mesh`` serves the rank's share of ``params`` under it, its decode
+    steps eager (same tokens on every rank)."""
     if cfg is None and ctx is not None:
         cfg = ctx.cfg
     if cfg.family == "encdec":
@@ -680,9 +724,15 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     if embeds is not None:
         embeds = torch.as_tensor(embeds).to(device)
     b, t0 = tokens.shape
-    graph = decode_graph(params, cfg, lut, b,
-                         max_len or (_extra(embeds) + t0 + max_new),
-                         temperature=temperature, generator=generator,
-                         device=device)
+    length = max_len or (_extra(embeds) + t0 + max_new)
+    mesh = ctx.mesh if ctx is not None else None
+    if mesh is not None:
+        graph = DecodeGraph(cfg, b, length, temperature=(
+            max(float(temperature), 0.0) if generator is not None else 0.0),
+            device=device, mesh=mesh)
+    else:
+        graph = decode_graph(params, cfg, lut, b, length,
+                             temperature=temperature, generator=generator,
+                             device=device)
     new = graph.run(params, lut, tokens.long(), max_new, generator, embeds)
     return torch.cat([tokens, new.to(tokens.dtype)], dim=1)

@@ -63,6 +63,7 @@ from .._device import resolve_device
 from ..core.integrity import (IntegrityError, check_invariants,
                               verify_serve_state)
 from ..kernels import ops
+from ..sharding.partition import place_params
 from . import engine as _engine
 from .context import ServeContext
 
@@ -109,10 +110,11 @@ def _generate(params, cfg, tokens, **kw):
     return _engine.generate(params, cfg, tokens, **kw)
 
 
-def _prefill(cfg, params, lut, batch, caches, device=None, residency=None):
+def _prefill(cfg, params, lut, batch, caches, device=None, residency=None,
+             mesh=None):
     """Seam mirroring :func:`_generate` for the prefill."""
     prefill, _ = _engine.make_serve_fns(ctx=ServeContext(
-        cfg=cfg, lut=lut, device=device, residency=residency))
+        cfg=cfg, lut=lut, device=device, residency=residency, mesh=mesh))
     return prefill(params, lut, batch, caches)
 
 
@@ -125,14 +127,22 @@ class ResilientEngine:
     construction per ``policy.verify``; ``generate`` and ``prefill`` then
     walk the retry, deadline and ladder machinery per request.
     ``residency``: an optional ``serve.residency.ResidencyManager`` built
-    on ``state``, shared by every call and rung."""
+    on ``state``, shared by every call and rung.  ``mesh``: a
+    ``launch.mesh.Mesh`` to serve on; ``state`` is then the whole artifact,
+    which the integrity gate checks before each rank keeps its share
+    (``sharding.partition.place_params``).  Tiered residency is
+    single-device: a mesh beside it is refused, as in the reference."""
 
     def __init__(self, cfg, state, *, policy: ResiliencePolicy | None = None,
-                 device=None, residency=None):
+                 device=None, residency=None, mesh=None):
+        if residency is not None and mesh is not None:
+            raise ValueError("tiered residency is single-device — "
+                             "mesh must be None")
         self.cfg = cfg
         self.state = state
         self.device = resolve_device(device)
         self.residency = residency
+        self.mesh = mesh
         self.policy = policy or ResiliencePolicy()
         self.verify_report = None
         self.invariant_report = None
@@ -142,6 +152,9 @@ class ResilientEngine:
         self._scheduler = None
         if self.policy.verify != "off":
             self._integrity_gate()
+        if mesh is not None:
+            self.state = dataclasses.replace(
+                state, params=place_params(state.params, mesh))
 
     # -- integrity -----------------------------------------------------
     def _integrity_gate(self):
@@ -239,7 +252,8 @@ class ResilientEngine:
             cfg = self._rung_cfg(rung)
             return lambda: _prefill(cfg, self.state.params, self.state.lut,
                                     batch, caches, device=self.device,
-                                    residency=self.residency)
+                                    residency=self.residency,
+                                    mesh=self.mesh)
         return self._with_ladder(make_call, deadline_s=deadline_s)
 
     def _guard(self, call, kind: str):
@@ -264,7 +278,7 @@ class ResilientEngine:
 
     def _context(self, cfg) -> ServeContext:
         return ServeContext(cfg=cfg, lut=self.state.lut, device=self.device,
-                            residency=self.residency)
+                            residency=self.residency, mesh=self.mesh)
 
     def close(self) -> None:
         """Drop the scheduler's graphs and stop the residency prefetch

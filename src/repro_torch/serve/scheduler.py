@@ -90,6 +90,7 @@ import torch
 
 from .._device import resolve_device, upload
 from ..models import lm as LM
+from ..sharding import partition as PT
 from . import engine as _engine
 from .context import ServeContext
 from .kv_cache import (PagedKVPool, PoolExhausted, _leaves, paged_view,
@@ -353,11 +354,12 @@ class Engine:
         if self.governor is not None:
             self.governor.on_step(self)
         done = self._expire()
-        done.extend(self._admit())
-        occ = [i for i, s in enumerate(self._slots) if s is not None]
-        self.stats["occupancy"].append(len(occ))
-        if occ:
-            done.extend(self._decode_tick())
+        with PT.active_mesh(self.ctx.mesh):
+            done.extend(self._admit())
+            occ = [i for i, s in enumerate(self._slots) if s is not None]
+            self.stats["occupancy"].append(len(occ))
+            if occ:
+                done.extend(self._decode_tick())
         self.steps += 1
         self.completions.extend(done)
         return done
@@ -670,10 +672,12 @@ class Engine:
     def _graphed(self, graphs: dict, cfg, step, kind: str):
         """Run ``step()``: on the card, a replay of ``graphs[cfg]`` (after
         one eager step and the capture, counted as ``kind``, the first
-        time); on the CPU, or under tiered residency (whose steps read
-        their routing on the host), eagerly.  → the capture's host ms, or
+        time); on the CPU, under tiered residency (whose steps read
+        their routing on the host) or on a mesh (whose collectives over
+        gloo are not captured), eagerly.  → the capture's host ms, or
         None."""
-        if self.device.type != "cuda" or self.ctx.residency is not None:
+        if (self.device.type != "cuda" or self.ctx.residency is not None
+                or self.ctx.mesh is not None):
             step()
         elif cfg in graphs:
             _engine.replay_step(*graphs[cfg])

@@ -14,8 +14,8 @@ Counterpart of ``repro/train/fault.py`` on one device:
     launcher to act on; nothing in the step changes (that would change
     the numbers).
   * ``elastic_restore`` restores the newest checkpoint onto one device.
-    Its other case, a different mesh of devices, waits for the
-    multi-device port (ROADMAP queue 1 item 11) and is refused.
+    Its other case, a different mesh of devices, waits for
+    multi-device training (ROADMAP queue 1 item 3) and is refused.
 """
 from __future__ import annotations
 
@@ -137,12 +137,12 @@ def elastic_restore(ckpt_dir: str, like_state: Any, new_mesh=None,
     """Restore the newest committed checkpoint onto one device (``device``,
     else the devices of ``like_state``'s leaves) → (state, step).  A mesh
     (``new_mesh``) is refused: restoring onto several devices waits for
-    the multi-device port (ROADMAP queue 1 item 11)."""
+    multi-device training (ROADMAP queue 1 item 3)."""
     if new_mesh is not None or make_shardings is not None:
         raise NotImplementedError(
             "elastic_restore onto a mesh is not ported: the port restores "
             "onto one device (multi-device training is ROADMAP queue 1 "
-            "item 11)")
+            "item 3)")
     last = ckpt.latest_step(ckpt_dir)
     if last is None:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")

@@ -113,7 +113,7 @@ def test_elastic_restore_onto_one_device_and_refuses_a_mesh(tmp_path):
     ckpt.save(d, 11, state)
     restored, at = elastic_restore(d, state, device="cpu")
     assert at == 11 and _equal(restored, state)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         elastic_restore(d, state, new_mesh=(2, 2))
 
 

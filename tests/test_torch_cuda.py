@@ -1774,3 +1774,110 @@ def test_encdec_train_steps_on_card_match_the_cpu(card):
     num = sum(float(((x - y) ** 2).sum()) for x, y in zip(kern, plain))
     den = sum(float((y ** 2).sum()) for y in plain)
     assert (num / den) ** 0.5 <= 1e-3
+
+
+# -- serving on a mesh: ranks sharing the card over gloo -------------------
+
+def _mesh_cases(card):
+    """The smoke models packed for two model ranks, on the card: K1 on
+    Llama's projections at decode and prefill M, K5 on its int8 w_gate,
+    K3 on DeepSeek's first expert stack, generate on Llama; → (cases,
+    one process's outputs)."""
+    llama = LM.init_lm(get_config("llama3.2-1b").smoke, seed=0, device=card)
+    cfg = get_config("llama3.2-1b").smoke
+    st = build_serve_params(llama, CompressionPolicy(
+        mode="compressed", min_weight_size=1024), model_shards=2,
+        device=card)
+    sq = build_serve_params(llama, CompressionPolicy(
+        mode="quant", min_weight_size=1024), model_shards=2, device=card)
+    ds_cfg = get_config("deepseek-v2-lite-16b").smoke
+    ds = build_serve_params(LM.init_lm(ds_cfg, seed=0, device=card),
+                            CompressionPolicy(mode="compressed",
+                                              min_weight_size=1024),
+                            model_shards=2, device=card)
+    g = _gen(card, 3)
+    blk = st.params["blocks"][0]
+    matmul = {}
+    for name, grp in (("wq", "attn"), ("w_gate", "mlp"), ("w_down", "mlp")):
+        w = blk[grp][name]
+        for m, decode in ((4, True), (33, False)):
+            x = torch.randn((m, w.shape[1]), generator=g, device=card)
+            matmul[f"k1 {name} {m}"] = (w, st.lut, x.to(torch.bfloat16),
+                                        decode)
+    q = sq.params["blocks"][0]["mlp"]["w_gate"]
+    k5 = {"k5 w_gate": (q, torch.randn((4, q.values.shape[1]), generator=g,
+                                       device=card).to(torch.bfloat16))}
+    stack = ds.params["blocks"][1]["moe"]["experts"]["w_gate"]
+    k3 = {"k3 w_gate": (stack, ds.lut, torch.randn(
+        (stack.codes.shape[0], 5, stack.shape[1]), generator=g,
+        device=card).to(torch.bfloat16))}
+    ids = torch.randint(1, cfg.vocab_size, (3, 9), generator=g, device=card)
+    cases = {"device": "cuda", "matmul": matmul, "k5": k5, "k3": k3,
+             "generate": {"generate": (cfg, st.params, st.lut, ids, 6)}}
+    one = {key: ops.decode_dequant_matmul(x, w, lut, out_dtype=torch.float32,
+                                          decode=d)
+           for key, (w, lut, x, d) in matmul.items()}
+    one.update({key: ops.dequant_matmul(x, q.values, q.scale, q.zero,
+                                        out_dtype=torch.float32)
+                for key, (q, x) in k5.items()})
+    one.update({key: ops.grouped_decode_dequant_matmul(
+        xe, w, lut, out_dtype=torch.float32)
+        for key, (w, lut, xe) in k3.items()})
+    one["generate"] = E.generate(st.params, cfg, ids, lut=st.lut,
+                                 max_new=6)
+    return cases, one
+
+
+def test_mesh_ranks_on_card_are_one_process_bitwise(card):
+    """Two ranks on the one card (gloo takes CUDA tensors): each rank's
+    K1 and K5 on its out band and K3 on its experts, launched with the
+    whole weight's plan, gathered, are one process's outputs bit for bit;
+    generate on the mesh gives one process's tokens; K1/K3's SIMT kernel
+    launches in no rank."""
+    import torch_mesh_worker
+    from repro_torch.launch import mesh as M
+    _build.build()
+    cases, one = _mesh_cases(card)
+    outs = M.spawn(torch_mesh_worker.run, 2, (1, 2), cases, device="cuda")
+    for out in outs:
+        for key in list(cases["matmul"]) + list(cases["k5"]) + list(
+                cases["k3"]):
+            y, probe = out[key][:2]
+            assert torch.equal(y.to(card), one[key]), key
+            assert set(probe) <= {"fused_shard_map", "dequant_shard_map",
+                                  "grouped_fused_shard_map"}, probe
+        toks, probe = out["generate"]
+        assert torch.equal(toks.to(card), one["generate"])
+        assert not probe.get("fused") and probe["fused_shard_map"] > 0
+        launches = out["launches"]
+        assert launches.get("fused_decode_matmul:decode", 0) > 0
+        assert launches.get("grouped_fused_decode_matmul:decode", 0) > 0
+        assert not launches.get("fused_decode_matmul:simt")
+
+
+def _example(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_quickstart_example_on_card(card):
+    """On the card the example holds the codec (every compressed weight
+    decodes to the quant state's int8 values) and the tokens under the
+    exact-tie rule (K1 and K5 sum in other orders)."""
+    out = _example("torch_quickstart").main([], device=card)
+    assert not out["codec_mismatch"] and out["codec_weights"] > 0
+    assert out["eager_matches_generate"]
+    assert all(p["tied"] for p in out["parting"])
+
+
+@pytest.mark.parametrize("mode", ["compressed", "quant", "dense"])
+def test_serve_batched_example_on_card(card, mode):
+    out = _example("torch_serve_batched").main(["--mode", mode],
+                                               device=card)
+    assert out["prefill_ms"] > 0 and out["graph_tok_s"] > 0
+    assert out["tokens"].shape == (8, 16)

@@ -1,9 +1,12 @@
 """The port's examples, each run once on the CPU at its smallest settings
 (``examples/torch_gptq_calibration.py``,
-``examples/torch_fault_tolerant_train.py``)."""
+``examples/torch_fault_tolerant_train.py``), and the quickstart and the
+batched-serving example as they are (``examples/torch_quickstart.py``,
+``examples/torch_serve_batched.py``)."""
 import importlib.util
 from pathlib import Path
 
+import pytest
 import torch
 
 torch.set_num_threads(2)
@@ -38,3 +41,31 @@ def test_fault_tolerant_train_example_runs(tmp_path, capsys):
     text = capsys.readouterr().out
     assert out["resumed_at"] == 10 and out["restored_at"] == 20
     assert "resumed from committed step 10" in text
+
+
+def test_quickstart_example_runs(capsys):
+    """The reference quickstart's recipe (100 steps, both packing modes,
+    12 tokens for 2 prompts): on the CPU the compressed and quant tokens
+    agree token for token (the example's own assertion), and every
+    compressed weight decodes to the quant state's int8 values."""
+    out = _example("torch_quickstart").main(["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert out["exact"] and not out["codec_mismatch"]
+    assert out["codec_weights"] > 0
+    assert out["compressed"].shape == (2, 16 + 12)
+    assert "matches quantized model exactly: True" in text
+    assert "trained 100 steps" in text
+
+
+@pytest.mark.parametrize("mode", ["compressed", "quant", "dense"])
+def test_serve_batched_example_runs(mode, capsys):
+    """8 requests of 8–24 tokens left-padded into one batch: prefill ms,
+    eager and graph-step tokens/s reported, and the graph-step tokens
+    equal to the eager loop's (on the CPU both run eagerly)."""
+    out = _example("torch_serve_batched").main(
+        ["--device", "cpu", "--mode", mode])
+    text = capsys.readouterr().out
+    assert out["batch"] == 8 and 8 <= out["prompt_len"] <= 24
+    assert out["tokens"].shape == (8, 16)
+    assert out["prefill_ms"] > 0 and out["tok_s"] > 0
+    assert "graphed tokens equal the eager loop's: True" in text

@@ -7,8 +7,9 @@ from (``repro_torch.train.data``), on the CPU.
   * ``main`` runs with every flag set the launcher documents (the three
     weight modes, ``--tiles 2``, ``--verify full``, DeepSeek's
     ``--residency tiered``, ``--pressure-trace oscillate``), accounts for
-    every request and dispatches what the flags ask for; ``--mesh`` is
-    refused.
+    every request and dispatches what the flags ask for; ``--mesh 1,2``
+    serves on two spawned ranks with the one-device completions, and a
+    mesh of more ranks than torchrun started is refused.
   * With the reference's ``init_lm(PRNGKey(0))`` weights carried across
     (``repro_torch.convert``), the Llama run's ``sample:`` tokens and its
     completions by reason equal the reference launcher's, run in-process.
@@ -137,11 +138,31 @@ def test_pressure_trace_low_watermark_forces_a_reclaim(capsys):
     assert re.search(r"^pressure: plan_changes [1-9]", text, re.M)
 
 
-def test_mesh_is_refused(capsys):
+def test_mesh_serves_as_one_device():
+    """``--mesh 1,2`` starts two ranks (gloo, on the CPU), each serving its
+    share of the packed weights through the sharded kernels' plain
+    versions: the completions are the one-device launcher's, token for
+    token, and every compressed matmul took the sharded fused branch."""
+    one = TS.main(["--device", "cpu"])
+    got = TS.main(["--device", "cpu", "--mesh", "1,2"])
+    assert got["mesh"] == {"data": 1, "model": 2} and one["mesh"] is None
+    assert got["sample"] == one["sample"]
+    assert got["reasons"] == one["reasons"]
+    assert [list(c.tokens) for c in got["completions"]] == \
+        [list(c.tokens) for c in one["completions"]]
+    assert set(got["dispatch"]) == {"fused_shard_map"}
+    assert got["dispatch"]["fused_shard_map"] == one["dispatch"]["fused"]
+
+
+def test_mesh_of_more_ranks_than_started_is_refused(monkeypatch, capsys):
+    """Under torchrun's variables, a mesh of more ranks than it started is
+    refused with the reference launcher's message."""
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(SystemExit) as e:
-        TS.main(["--device", "cpu", "--mesh", "2,4"])
+        TS.main(["--device", "cpu", "--mesh", "1,2"])
     assert e.value.code != 0
-    assert "queue 1 item 11" in capsys.readouterr().err
+    assert "--mesh 1,2 needs 2 devices, have 1" in capsys.readouterr().err
 
 
 def test_default_device_is_the_card():
@@ -211,7 +232,7 @@ def test_train_mesh_is_refused(mesh, capsys):
     with pytest.raises(SystemExit) as e:
         TT.main(["--device", "cpu", "--mesh", mesh])
     assert e.value.code != 0
-    assert "queue 1 item 11" in capsys.readouterr().err
+    assert "queue 1 item 3" in capsys.readouterr().err
 
 
 def test_train_default_device_is_the_card():

@@ -7,6 +7,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -29,8 +31,8 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 # modules of the MoE slice, of request-level serving, of integrity and
 # resilience, of tiered residency and the governor, of the serving
 # launcher and its data pipeline, of training and calibration, of the
-# other decoder-only families and of the encoder–decoder, which the walk
-# below must reach
+# other decoder-only families, of the encoder–decoder and of serving on a
+# mesh, which the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
@@ -54,7 +56,8 @@ MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.configs.llama3_405b",
                "repro_torch.configs.kimi_k2_1t_a32b",
                "repro_torch.models.encdec",
-               "repro_torch.configs.seamless_m4t_medium")
+               "repro_torch.configs.seamless_m4t_medium",
+               "repro_torch.launch.mesh", "repro_torch.sharding.partition")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -67,7 +70,31 @@ assert not missing, missing
 """.format(moe=MOE_MODULES) + _CHECK.format(forbidden=FORBIDDEN)
     out = _run(code)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 37   # every submodule was loaded
+    assert int(out.stdout.split()[-1]) >= 39   # every submodule was loaded
+
+
+def _imports(path: Path) -> set:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (ROOT / "examples").glob("torch_*.py")))
+def test_example_imports_no_jax_and_no_reference(name):
+    """The port's examples (the quickstart and the batched-serving example
+    among them) import the port alone, in a fresh process."""
+    names = _imports(ROOT / "examples" / name)
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    assert any(n.startswith("repro_torch") for n in names)
+    code = "\n".join(f"import {n}" for n in sorted(names)) + \
+        _CHECK.format(forbidden=FORBIDDEN)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference():

@@ -114,7 +114,15 @@ def test_sampled_draw_is_multinomials(temperature):
         assert torch.equal(got, want[:, 0])
 
 
-def test_decode_graphs_are_kept_per_state_and_released():
+@pytest.fixture
+def no_kept_graphs():
+    """Start with no decode graph kept: states that other test files cache
+    keep their graphs alive in the same worker process."""
+    for cfg in {key[0] for key in TE._GRAPHS}:
+        TE.drop_graphs(cfg)
+
+
+def test_decode_graphs_are_kept_per_state_and_released(no_kept_graphs):
     """decode_graph gives one graph per (config, batch, cache length,
     sampling rule, weights): the same for a second call or another
     generator at the same temperature, another for a new state of the same
@@ -144,7 +152,7 @@ def test_decode_graphs_are_kept_per_state_and_released():
     assert len(TE._GRAPHS) == n + 1
 
 
-def test_decode_graph_cache_is_bounded():
+def test_decode_graph_cache_is_bounded(no_kept_graphs):
     """generate at eight prompt lengths (eight cache lengths) keeps at most
     MAX_GRAPHS graphs, so the bytes the kept graphs hold stay at most
     MAX_GRAPHS times the largest one's; the least recently used goes
