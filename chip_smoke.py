@@ -6,8 +6,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc.  Imports nothing of JAX or of the JAX package.
 Two main paths — Llama-3.2-1B (dense) and DeepSeek-V2-Lite (MLA + MoE) —
 each in the phases below, then the other decoder-only families, the
-encoder–decoder, the examples and serving on a mesh of ranks; the script
-exits non-zero if any phase fails:
+encoder–decoder, the examples, serving on a mesh of ranks, training, and
+training on a mesh; the script exits non-zero if any phase fails:
 
   1. Device: the card's name and power limit (nvidia-smi), and the build of
      every kernel from ``src/repro_torch/kernels/csrc`` (one nvcc per
@@ -122,7 +122,7 @@ exits non-zero if any phase fails:
      MESH_LOGIT_ATOL of one process; DeepSeek's tokens under the
      exact-tie rule, K3 on 32 experts a rank, K4 and K2 on every rank);
      per-rank ms a step (ranks sharing one card); a ``mesh`` line.
- 11. Train (``train_phase``, last): Llama-3.2-1B at full width, 16 layers,
+ 11. Train (``train_phase``): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
      attention forward K2's f32 kernel, three-term TF32 on the tensor
      cores, under its autograd.Function); one
@@ -138,11 +138,21 @@ exits non-zero if any phase fails:
      cross-attention), Zamba2-1.2B at 7 blocks, InternVL2-2B at 2 layers
      (patch embeddings), each with its gradients against the all-plain
      attention's.
+ 12. Train on a mesh (``train_mesh_phase``, last): MESH_RANKS ranks on the
+     card over gloo; Llama-3.2-1B at full width cut to TRAIN_MESH_LAYERS
+     layers, f32, its train state sharded on TRAIN_MESH (ZeRO-3),
+     TRAIN_MESH_STEPS steps, each loss within TRAIN_MESH_LOSS_RTOL of one
+     process's on the card, K2's f32 kernel in every rank's forward; the
+     checkpoint after step TRAIN_MESH_CKPT restored onto
+     TRAIN_MESH_RESTORE and into one process, one more step each;
+     DeepSeek-V2-Lite at 2 layers on TRAIN_MESH_MOE, its kept (token,
+     expert) pairs equal one process's; K2 f32 at a data rank's shape.
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
 a ``family`` line per model of the families phase, an ``encdec`` line,
-an ``examples`` and a ``mesh`` line (with ``mesh_detail``),
+an ``examples`` and a ``mesh`` line (with ``mesh_detail``), a
+``train_mesh`` line (with ``train_mesh_detail``),
 K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
@@ -275,8 +285,11 @@ class Timer:
             for f in fns:                       # warm-up outside capture
                 f()
         torch.cuda.current_stream().wait_stream(side)
+        from repro_torch.serve.engine import no_collection
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        # a dead graph freed mid-capture would void it
+        with no_collection(), torch.cuda.graph(graph,
+                                               capture_error_mode="relaxed"):
             for f in fns:
                 f()
         graph.replay()
@@ -3010,9 +3023,10 @@ GPTQ_BITS = 4
 LAUNCH_TRAIN_STEPS, LAUNCH_CKPT_EVERY, LAUNCH_STOP_AT = 30, 4, 13
 
 
-def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
+def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what,
+                      batch=TRAIN_BATCH):
     """K2's f32 kernel at a training forward's shapes: f32 q, k and v of
-    (TRAIN_BATCH, h, TRAIN_SEQ, d), causal, against its plain version
+    (batch, h, TRAIN_SEQ, d), causal, against its plain version
     (FLASH_ATOL_F32); timed beside the plain version and SDPA on the same
     f32 inputs (k and v repeated to the q heads outside the timed call).
     The bound is the lesser of two: the work as f32 FMA at f32's peak, and
@@ -3020,9 +3034,9 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
     larger of its operations and the bytes.  → the kernels row."""
     fa = rt["fa"]
     t = TRAIN_SEQ
-    q = torch.randn((TRAIN_BATCH, hq, t, d), generator=gen, device=device)
-    k = torch.randn((TRAIN_BATCH, hkv, t, d), generator=gen, device=device)
-    v = torch.randn((TRAIN_BATCH, hkv, t, dv), generator=gen,
+    q = torch.randn((batch, hq, t, d), generator=gen, device=device)
+    k = torch.randn((batch, hkv, t, d), generator=gen, device=device)
+    v = torch.randn((batch, hkv, t, dv), generator=gen,
                     device=device)
     err = float((fa.flash_attention(q, k, v) - fa.flash_attention_plain(
         q, k, v)).abs().max())
@@ -3030,8 +3044,8 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
         raise AssertionError(f"K2 f32 ({d}, {dv}) T={t}: err {err}")
     kf, vf = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
     pairs = t * (t + 1) // 2
-    moved = 4 * TRAIN_BATCH * (hq * t * (d + dv) + hkv * t * (d + dv))
-    flops = 2.0 * (d + dv) * TRAIN_BATCH * hq * pairs
+    moved = 4 * batch * (hq * t * (d + dv) + hkv * t * (d + dv))
+    flops = 2.0 * (d + dv) * batch * hq * pairs
     fma = bound_ms(moved, flops, F32_FLOP_PER_S)
     tf32x3 = bound_ms(moved, 3 * flops, TF32_FLOP_PER_S)
     (b, by), peak = min((fma, "f32 FMA at 67 TFLOP/s"),
@@ -3040,7 +3054,7 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what):
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:80",
             "kernel": "three-term TF32 on the tensor cores (f32 operands)",
-            "timed_at": f"{what}: f32 q, k, v (B={TRAIN_BATCH}, {hq}/{hkv} "
+            "timed_at": f"{what}: f32 q, k, v (B={batch}, {hq}/{hkv} "
                         f"heads, T={t}, {d}/{dv}), causal",
             "max_abs_err": err,
             "ms": timer.graph_ms([lambda: fa.flash_attention(q, k, v)] * 8),
@@ -4630,6 +4644,335 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                       for k in ("llama", "deepseek")}}
 
 
+# Training on a mesh (``train_mesh_phase``): MESH_RANKS ranks sharing the
+# card over gloo, each storing its shard of the train state (ZeRO-3).
+TRAIN_MESH = (2, 2)          # Llama-3.2-1B: the train steps, a checkpoint
+TRAIN_MESH_RESTORE = (1, 2)  # the checkpoint restored onto it, one step
+TRAIN_MESH_MOE = (2, 1)      # DeepSeek-V2-Lite: a step, its kept pairs
+# Llama-3.2-1B at full width cut to 2 of its 16 layers (four ranks share
+# the card, each gathering the whole f32 parameters and gradients), 2
+# steps of TRAIN_BATCH x TRAIN_SEQ tokens, the checkpoint after step 1
+# (3 steps and the checkpoint after step 2 took the phase past its ~60 s:
+# a step moves 1.5 GB a rank through gloo's host staging).
+# f32 Adam moments, as the one-device train phase: int8 moments part the
+# mesh's losses from one process's by 9.3e-4 at step 3 (`pr32_try2`: a
+# moment's code that roundoff moves between 0 and 1 moves its element by
+# about lr; tests/test_torch_train.py holds them step by step).
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_CKPT = 2, 2, 1
+MESH_MOE_LAYERS = 2          # DeepSeek-V2-Lite at full width, 2 layers
+#  * Each step's loss on the mesh (and after the restores) against one
+#    process's on the card: a data rank's GEMMs take 512 of the 1 024
+#    rows and the gradients add over ranks in another order (f32
+#    roundoff); AdamW at lr 5e-3 sends an element whose gradient is near
+#    eps by up to lr (tests/test_torch_mesh_train.py), which the steps
+#    carry into the loss (measured at 3 steps: 5.2e-7, `pr32_try1`).  The
+#    DeepSeek step's loss (the MoE's aux in it) is held to it too.
+TRAIN_MESH_LOSS_RTOL = 1e-5
+
+
+def _mesh_step(mesh, step, shards, batch) -> tuple:
+    """One train step on ``mesh``, timed: → (shards, its record: loss,
+    grad norm, ms, the bytes received and the wall seconds spent by
+    collective, ``Mesh.traffic`` and ``Mesh.seconds``)."""
+    bytes0 = collections.Counter(mesh.traffic)
+    secs0 = collections.Counter(mesh.seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards, m = step(shards, batch)
+    loss = float(m["loss"])
+    return shards, {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "bytes": dict(mesh.traffic - bytes0),
+                    "comm_s": dict(mesh.seconds - secs0)}
+
+
+def train_mesh_rank(rank: int, payload: dict) -> dict:
+    """One rank of the train-mesh phase (``launch.mesh.spawn``; the
+    parent's weights reach it through CUDA IPC): Llama-3.2-1B's train
+    state sharded on TRAIN_MESH, TRAIN_MESH_STEPS steps (counted, timed,
+    the bytes and seconds of each step's collectives), the
+    step-TRAIN_MESH_CKPT checkpoint written from the mesh; that
+    checkpoint restored onto TRAIN_MESH_RESTORE (``elastic_restore``) and
+    one more step; then DeepSeek-V2-Lite's train state sharded on
+    TRAIN_MESH_MOE and one step through ``make_train_step``, each MoE
+    layer's kept choices recorded."""
+    rt = load_runtime()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M, PT, S, _build = rt["mesh"], rt["partition"], rt["steps"], rt["_build"]
+    p = payload["llama"]
+    device = p["params"]["embed"].device
+    cfg, tcfg, data = p["cfg"], p["tcfg"], p["data"]
+    out = {}
+    mesh = M.make_mesh(TRAIN_MESH, ("data", "model"))
+    state = S.init_train_state(p["params"], tcfg)
+    specs = PT.make_train_state_specs(state, mesh)
+    shards = PT.shard_tree(state, specs, mesh)
+    like = rt["tree"].map_leaves(lambda x: torch.empty(
+        x.shape, dtype=x.dtype, device="meta"), state)
+    del state
+    step = S.make_train_step(cfg, tcfg, mesh=mesh, specs=specs)
+    _build.LAUNCH_COUNTS.clear()
+    _build.KERNEL_COUNTS.clear()
+    torch.cuda.reset_peak_memory_stats()
+    steps, save_s = [], None
+    for i in range(TRAIN_MESH_STEPS):
+        shards, rec = _mesh_step(mesh, step, shards, data.batch_at(i))
+        steps.append(rec)
+        if i + 1 == TRAIN_MESH_CKPT:
+            t0 = time.perf_counter()
+            rt["checkpoint"].save(p["ckpt_dir"], i + 1, shards, specs=specs,
+                                  mesh=mesh)
+            save_s = time.perf_counter() - t0
+    out["llama"] = {"steps": steps, "save_s": save_s,
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                    "launches": dict(_build.LAUNCH_COUNTS),
+                    "kernel_launches": dict(_build.KERNEL_COUNTS),
+                    "shard_bytes": sum(x.numel() * x.element_size() for x in
+                                       rt["tree"].leaves(shards))}
+    del shards
+    torch.cuda.empty_cache()
+    mesh = M.make_mesh(TRAIN_MESH_RESTORE, ("data", "model"))
+    if mesh is not None:
+        t0 = time.perf_counter()
+        restored, at = rt["fault"].elastic_restore(
+            p["ckpt_dir"], like, mesh, PT.make_train_state_specs,
+            device=device)
+        restore_s = time.perf_counter() - t0
+        specs = PT.make_train_state_specs(like, mesh)
+        _build.KERNEL_COUNTS.clear()
+        restored, rec = _mesh_step(
+            mesh, S.make_train_step(cfg, tcfg, mesh=mesh, specs=specs),
+            restored, data.batch_at(at))
+        out["restored"] = {"at": at, "restore_s": restore_s, **rec,
+                           "kernel_launches": dict(_build.KERNEL_COUNTS)}
+        del restored
+    torch.cuda.empty_cache()
+    mesh = M.make_mesh(TRAIN_MESH_MOE, ("data", "model"))
+    if mesh is not None:
+        d = payload["deepseek"]
+        state = S.init_train_state(d["params"], d["tcfg"])
+        specs = PT.make_train_state_specs(state, mesh)
+        shards = PT.shard_tree(state, specs, mesh)
+        del state
+        step = S.make_train_step(d["cfg"], d["tcfg"], mesh=mesh,
+                                 specs=specs)
+        _build.KERNEL_COUNTS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with rt["routes"].recording() as routes:
+            shards, rec = _mesh_step(mesh, step, shards, d["batch"])
+        out["deepseek"] = {
+            **rec, "routes": [(ids.cpu(), keep.cpu(), float(aux))
+                              for ids, keep, aux in routes],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "kernel_launches": dict(_build.KERNEL_COUNTS)}
+        del shards
+    return out
+
+
+def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """Training on a device mesh, MESH_RANKS ranks sharing the card over
+    gloo (``launch.mesh.spawn``):
+      * Llama-3.2-1B at full width, TRAIN_MESH_LAYERS of its 16 layers,
+        f32, from seed 0: its train state sharded on TRAIN_MESH
+        (``make_train_state_specs``); TRAIN_MESH_STEPS steps, each loss
+        within TRAIN_MESH_LOSS_RTOL of one process's step on the card;
+        every rank the same losses, K2's f32 kernel (``tf32x3``) in every
+        forward and no other K2 kernel; per rank ms a step, peak memory,
+        the bytes and the wall seconds of a step's collectives (parameter
+        gathers, the gradients' reduce-scatter); the step-TRAIN_MESH_CKPT
+        checkpoint written from the mesh, restored onto TRAIN_MESH_RESTORE
+        and into one process (``elastic_restore``, each leaf's CRC32
+        checked against the manifest), one more step each within the
+        bound of the uninterrupted run.  K2 f32 held against its plain
+        version at a data rank's shape.
+      * DeepSeek-V2-Lite at full width, MESH_MOE_LAYERS layers, capacity
+        factor 1.25: its train state sharded on TRAIN_MESH_MOE and one
+        step through ``make_train_step`` (each data rank routes its half
+        of the rows with the whole batch's capacity and slot ranks, the
+        aux loss through a sum whose backward sums, the expert gradients
+        reduce-scattered), against one process's ``make_train_step`` on
+        the same batch: the kept (token, expert) pairs, gathered, equal,
+        in a batch that drops some; the loss and the aux within
+        TRAIN_MESH_LOSS_RTOL; K2 f32 in each rank's forward.
+    Times are of ranks sharing one card: they prove bits and shapes, not a
+    multi-card speed."""
+    import tempfile
+    get, replace = rt["get_config"], dataclasses.replace
+    S, opt, T, LM = rt["steps"], rt["optimizer"], rt["tree"], rt["LM"]
+    cfg = replace(get("llama3.2-1b").full, n_layers=TRAIN_MESH_LAYERS)
+    tcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=1, total_steps=TRAIN_MESH_STEPS + 1))
+    data = rt["DataPipeline"](rt["DataConfig"](
+        vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    params = LM.init_lm(cfg, seed=SEED, device=device)
+    # one process, on the card: the uninterrupted run
+    state = S.init_train_state(params, tcfg)
+    step = S.make_train_step(cfg, tcfg)
+    rt["_build"].KERNEL_COUNTS.clear()
+    one, one_ms = [], []
+    for i in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(i))
+        one.append(float(m["loss"]))
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    one_k2 = rt["_build"].KERNEL_COUNTS.get("flash_attention:tf32x3", 0)
+    like = T.map_leaves(lambda x: torch.empty(x.shape, dtype=x.dtype,
+                                              device="meta"), state)
+    del state
+    # DeepSeek: one process's step on the batch the mesh steps on
+    dcfg = replace(get("deepseek-v2-lite-16b").full,
+                   n_layers=MESH_MOE_LAYERS)
+    dtcfg = S.TrainConfig(optimizer=opt.AdamWConfig(
+        lr=5e-3, warmup_steps=1, total_steps=2))
+    dparams = LM.init_lm(dcfg, seed=SEED, device=device)
+    dbatch = data.batch_at(0)
+    dstate = S.init_train_state(dparams, dtcfg)
+    rt["_build"].KERNEL_COUNTS.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rt["routes"].recording() as one_routes:
+        dstate, dm = S.make_train_step(dcfg, dtcfg)(dstate, dbatch)
+    one_moe = {"loss": float(dm["loss"]),
+               "ms": (time.perf_counter() - t0) * 1e3,
+               "k2": rt["_build"].KERNEL_COUNTS.get(
+                   "flash_attention:tf32x3", 0)}
+    del dstate, dm
+    torch.cuda.empty_cache()
+    res = {"model": f"{cfg.name} at {TRAIN_MESH_LAYERS} of 16 layers "
+                    "(full width, f32)",
+           "moe_model": f"{dcfg.name} at {MESH_MOE_LAYERS} of 27 layers "
+                        f"(full width, f32), capacity factor "
+                        f"{dcfg.capacity_factor}",
+           "mesh": TRAIN_MESH, "restore_mesh": TRAIN_MESH_RESTORE,
+           "moe_mesh": TRAIN_MESH_MOE, "per_rank": {},
+           "note": "ranks share one card over gloo: per-rank ms are not a "
+                   "multi-card speed; comm_s: wall seconds in each "
+                   "collective, its peers' wait included",
+           "one_process": {"losses": one, "step_ms": one_ms}}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        payload = {"llama": {"cfg": cfg, "tcfg": tcfg, "data": data,
+                             "params": params, "ckpt_dir": ckpt_dir},
+                   "deepseek": {"cfg": dcfg, "tcfg": dtcfg,
+                                "params": dparams, "batch": dbatch}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = rt["mesh"].spawn(train_mesh_rank, MESH_RANKS, payload,
+                                device="cuda")
+        res["spawn_s"] = time.perf_counter() - t0
+        del payload, dparams
+        t0 = time.perf_counter()
+        restored, at = rt["fault"].elastic_restore(ckpt_dir, like,
+                                                   device=device)
+        res["one_process"]["restore_s"] = time.perf_counter() - t0
+    rt["_build"].KERNEL_COUNTS.clear()
+    restored, m = step(restored, data.batch_at(at))
+    res["one_process"]["restored"] = {"at": at, "loss": float(m["loss"])}
+    del restored
+    torch.cuda.empty_cache()
+
+    def close(a, b):
+        return abs(a - b) <= TRAIN_MESH_LOSS_RTOL * abs(b)
+
+    want_k2 = TRAIN_MESH_LAYERS * TRAIN_MESH_STEPS
+    if one_k2 != want_k2:
+        faults.append(f"train_mesh one process: K2 tf32x3 {one_k2}")
+    if not (at == TRAIN_MESH_CKPT and close(float(m["loss"]), one[at])):
+        faults.append(f"train_mesh: one process restored at {at}, loss "
+                      f"{float(m['loss'])} vs {one[at]}")
+    for r, out in enumerate(outs):
+        o = out["llama"]
+        losses = [s["loss"] for s in o["steps"]]
+        k2 = {k: n for k, n in o["kernel_launches"].items()
+              if k.startswith("flash_attention:")}
+        mine = res["per_rank"][f"rank{r}"] = {
+            "losses": losses, "step_ms": [s["ms"] for s in o["steps"]],
+            "bytes_a_step": [s["bytes"] for s in o["steps"]],
+            "comm_s_a_step": [s["comm_s"] for s in o["steps"]],
+            "peak_mem_bytes": o["peak_mem_bytes"],
+            "shard_bytes": o["shard_bytes"], "save_s": o["save_s"],
+            "kernel_launches": o["kernel_launches"],
+            "launches": o["launches"]}
+        if losses != [s["loss"] for s in outs[0]["llama"]["steps"]]:
+            faults.append(f"train_mesh rank {r}: losses {losses} differ "
+                          "from rank 0's")
+        if not all(close(a, b) for a, b in zip(losses, one)):
+            faults.append(f"train_mesh rank {r}: losses {losses} vs one "
+                          f"process {one}")
+        if k2 != {"flash_attention:tf32x3": want_k2}:
+            faults.append(f"train_mesh rank {r}: K2 launches {k2}, want "
+                          f"{want_k2} tf32x3")
+        if "restored" in out:
+            rr = out["restored"]
+            mine["restored"] = rr
+            if not (rr["at"] == TRAIN_MESH_CKPT
+                    and close(rr["loss"], one[TRAIN_MESH_CKPT])
+                    and rr["kernel_launches"].get(
+                        "flash_attention:tf32x3") == TRAIN_MESH_LAYERS):
+                faults.append(f"train_mesh rank {r} restored on "
+                              f"{TRAIN_MESH_RESTORE}: {rr} vs one process "
+                              f"{one[TRAIN_MESH_CKPT]}")
+    # DeepSeek's step: the data ranks' kept choices side by side
+    got = {r: o["deepseek"] for r, o in enumerate(outs) if "deepseek" in o}
+    moe = {"layers": len(one_routes), "dropped": [
+        int((~keep).sum()) for _, keep, _ in one_routes],
+        "choices": int(one_routes[0][1].numel()) if one_routes else 0,
+        "ranks": len(got), "one_process": one_moe,
+        "per_rank": {f"rank{r}": {k: g[k] for k in (
+            "loss", "grad_norm", "ms", "bytes", "comm_s", "peak_mem_bytes",
+            "kernel_launches")} for r, g in got.items()}}
+    moe["ids_equal"] = moe["kept_equal"] = len(got) == math.prod(
+        TRAIN_MESH_MOE)
+    moe["aux_rel_err"] = moe["loss_rel_err"] = 0.0
+    for li, (ids, keep, aux) in enumerate(one_routes):
+        mids = torch.cat([g["routes"][li][0] for g in got.values()])
+        mkeep = torch.cat([g["routes"][li][1] for g in got.values()])
+        moe["ids_equal"] &= bool(torch.equal(mids, ids.cpu()))
+        moe["kept_equal"] &= bool(torch.equal(mkeep, keep.cpu()))
+        moe["aux_rel_err"] = max(moe["aux_rel_err"], max(
+            abs(g["routes"][li][2] - float(aux)) / abs(float(aux))
+            for g in got.values()))
+    for g in got.values():
+        moe["loss_rel_err"] = max(moe["loss_rel_err"], abs(
+            g["loss"] - one_moe["loss"]) / abs(one_moe["loss"]))
+    res["deepseek"] = moe
+    ds_k2 = {g["kernel_launches"].get("flash_attention:tf32x3", 0)
+             for g in got.values()} | {one_moe["k2"]}
+    if not (moe["layers"] == MESH_MOE_LAYERS - dcfg.first_dense_layers
+            and all(moe["dropped"]) and moe["ids_equal"]
+            and moe["kept_equal"]
+            and len({g["loss"] for g in got.values()}) == 1
+            and moe["aux_rel_err"] <= TRAIN_MESH_LOSS_RTOL
+            and moe["loss_rel_err"] <= TRAIN_MESH_LOSS_RTOL
+            and ds_k2 == {MESH_MOE_LAYERS}):
+        faults.append(f"train_mesh deepseek: {moe}")
+    row = check_flash_train(rt, device, gen, timer, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.resolved_head_dim,
+                            cfg.resolved_head_dim,
+                            "Llama-3.2-1B training, a data rank's rows on "
+                            f"mesh {TRAIN_MESH}", batch=TRAIN_BATCH // 2)
+    kernels.append(dict(
+        row, path=f"{cfg.name} train mesh {TRAIN_MESH}",
+        launches=outs[0]["llama"]["kernel_launches"].get(
+            "flash_attention:tf32x3", 0),
+        launches_of=f"{TRAIN_MESH_STEPS} train steps at "
+                    f"{TRAIN_MESH_LAYERS} layers on mesh {TRAIN_MESH}, "
+                    "rank 0"))
+    log("train_mesh_detail " + json.dumps(res, default=str))
+    ranks = res["per_rank"]
+    return {"note": res["note"], "model": res["model"], "one_process": one,
+            "summary": {r: {f: d[f] for f in ("losses", "step_ms",
+                                              "comm_s_a_step",
+                                              "peak_mem_bytes", "save_s")}
+                        for r, d in ranks.items()},
+            "bytes_a_step_rank0": ranks["rank0"]["bytes_a_step"],
+            "restored": {r: d["restored"] for r, d in ranks.items()
+                         if "restored" in d},
+            "one_process_restored": res["one_process"]["restored"],
+            "deepseek": moe, "spawn_s": res["spawn_s"]}
+
+
 def phase(rt, name: str):
     """Name the phase that the launches from here on belong to (for
     ``SimtWatch``)."""
@@ -5080,17 +5423,18 @@ def load_runtime() -> dict:
     from repro_torch.core import integrity
     from repro_torch.serve import governor, residency, resilience
     from repro_torch.core import policy
-    from repro_torch.testing import FaultInjector, pressure_trace
+    from repro_torch.testing import FaultInjector, pressure_trace, routes
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.train.data import DataConfig, DataPipeline
-    from repro_torch.train import optimizer, steps, tree
+    from repro_torch.train import checkpoint, fault, optimizer, steps, tree
     from repro_torch.core import gptq, quant
     from repro_torch.launch import mesh
     from repro_torch.sharding import partition
     return {"launch_serve": launch_serve, "DataConfig": DataConfig,
           "launch_train": launch_train, "optimizer": optimizer,
           "steps": steps, "tree": tree, "gptq": gptq, "quant": quant,
+          "checkpoint": checkpoint, "fault": fault,
           "DataPipeline": DataPipeline, "integrity": integrity, "resilience": resilience,
           "residency": residency, "governor": governor, "policy": policy,
           "pressure_trace": pressure_trace,
@@ -5104,7 +5448,7 @@ def load_runtime() -> dict:
           "build_serve_params": build_serve_params, "generate": generate,
           "make_serve_fns": make_serve_fns, "Engine": Engine,
           "Request": Request, "ServeContext": ServeContext,
-          "mesh": mesh, "partition": partition}
+          "mesh": mesh, "partition": partition, "routes": routes}
 
 
 def main() -> int:
@@ -5147,7 +5491,8 @@ def main() -> int:
 
     for name, fn in (("families", families_phase), ("encdec", encdec_phase),
                      ("examples", examples_phase), ("mesh", mesh_phase),
-                     ("launcher", launcher_phase), ("train", train_phase)):
+                     ("launcher", launcher_phase), ("train", train_phase),
+                     ("train_mesh", train_mesh_phase)):
         t0 = time.perf_counter()
         phase(rt, name)
         res, faults = {}, []

@@ -39,12 +39,14 @@ shards it the same way).  Each launch is planned for the whole weight
 (its N, and K3's E), so a column's products are summed in the order the
 one-device launch sums them and a column-parallel output is bitwise the
 one-device output.  The outputs are then all-gathered: activations stay
-replicated on every rank in this slice.  Two of the reference's rules
-are not yet taken (open work, ``ROADMAP.md`` queue 1 item 3): x's rows
-are not split over data (or pod), so every rank of a band takes all of
-them, as a row's bits would otherwise depend on how many rows share its
-launch (the CPU's plain products, and K1's tensor-core plan, whose K
-splits follow the row bands); and the fused branch's second gate, m ≤
+replicated on every rank of a serving mesh.  Two of the reference's
+rules are not taken, by design (``ROADMAP.md`` queue 3, "Not port
+faults": serving on a mesh): x's rows are not split over data (or pod),
+so every rank of a band takes all of them, as a row's bits would
+otherwise depend on how many rows share its launch (the CPU's plain
+products, and K1's tensor-core plan, whose K splits follow the row
+bands; training splits rows over data, ``train/steps.py``); and the
+fused branch's second gate, m ≤
 max(N, 512) rows (``repro/kernels/ops.py:109``, ``:266-282``), is not
 applied: it prices the activation gather the reference's ``shard_map``
 makes, which replicated activations do not need, and it would send a

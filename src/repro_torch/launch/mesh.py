@@ -27,14 +27,25 @@ Ranks start in one of two ways:
 only when asked (256 and 512 ranks); :class:`AbstractMesh` is a mesh's
 shape and axis names without ranks, which is all the partition rules read
 (``sharding.partition``).
+
+Training on a mesh (``train/steps.py``) adds the collectives of a ZeRO
+step: ``all_to_all`` (the gradients' reduce-scatter), ``psum_diff``, a sum
+whose backward sums the gradient over the same ranks (the MoE's global
+statistics), ``pmin``/``pmax`` (exact, in any order), ``agree`` (a flag
+OR-ed over the mesh: every control decision of the training loop),
+``gather_host`` (a checkpoint's shards to its writer) and ``barrier``.
+Each rank counts the bytes it receives by collective in ``Mesh.traffic``
+and the wall seconds it spends in each in ``Mesh.seconds``.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
 import os
 import shutil
 import tempfile
+import time
 from typing import Callable, Optional
 
 import torch
@@ -76,17 +87,31 @@ class Mesh(AbstractMesh):
         idx = _unravel(rank, tuple(self.shape.values()))
         self.coords = dict(zip(self.axis_names, idx))
         self.groups = groups
+        self.traffic: collections.Counter = collections.Counter()
+        self.seconds: collections.Counter = collections.Counter()
 
-    def axis_index(self, axes) -> int:
-        """This rank's index along ``axes`` (one name or a tuple),
-        row-major over them in the mesh's axis order."""
+    def axis_index(self, axes, coords: Optional[dict] = None) -> int:
+        """This rank's (or the rank at ``coords``') index along ``axes``
+        (one name or a tuple), row-major over them in the mesh's axis
+        order."""
+        coords = self.coords if coords is None else coords
         idx = 0
         for a in _ordered(self, axes):
-            idx = idx * self.shape[a] + self.coords[a]
+            idx = idx * self.shape[a] + coords[a]
         return idx
 
     def axis_size(self, axes) -> int:
         return math.prod(self.shape[a] for a in _ordered(self, axes))
+
+    def _start(self, t: torch.Tensor, group) -> float:
+        """The clock at a collective's start.  A CUDA tensor that gloo
+        stages through the host waits for the work queued before it: that
+        wait is taken first, so ``seconds`` holds the collective's own
+        time and the wait for its peers.  NCCL's collectives are queued,
+        so on it ``seconds`` holds their launch alone."""
+        if t.device.type == "cuda" and dist.get_backend(group) != "nccl":
+            torch.cuda.synchronize(t.device)
+        return time.perf_counter()
 
     def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
         """Concatenate every rank's ``t`` along ``dim``, in the order of
@@ -94,10 +119,17 @@ class Mesh(AbstractMesh):
         axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
         if not axes:
             return t
+        return torch.cat(self._gather(t, axes, "all_gather"), dim=dim)
+
+    def _gather(self, t: torch.Tensor, axes: tuple, what: str) -> list:
         t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
+        n = self.axis_size(axes)
+        parts = [torch.empty_like(t) for _ in range(n)]
+        t0 = self._start(t, self.groups[axes])
         dist.all_gather(parts, t, group=self.groups[axes])
-        return torch.cat(parts, dim=dim)
+        self.seconds[what] += time.perf_counter() - t0
+        self.traffic[what] += (n - 1) * t.numel() * t.element_size()
+        return parts
 
     def psum(self, t: torch.Tensor, axes) -> torch.Tensor:
         """Σ of every rank's ``t`` over ``axes``, in ``t``'s dtype, added
@@ -105,9 +137,7 @@ class Mesh(AbstractMesh):
         axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
         if not axes:
             return t
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.axis_size(axes))]
-        dist.all_gather(parts, t, group=self.groups[axes])
+        parts = self._gather(t, axes, "psum")
         out = parts[0]
         for p in parts[1:]:
             out = out + p
@@ -116,6 +146,102 @@ class Mesh(AbstractMesh):
     def pmean(self, t: torch.Tensor, axes) -> torch.Tensor:
         n = self.axis_size(tuple(a for a in _ordered(self, axes)))
         return self.psum(t, axes) / n if n > 1 else t
+
+    def psum_diff(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """:meth:`psum` under autograd: its backward sums the gradient
+        over the same ranks (each rank's loss reads the sum, so the sum's
+        gradient is every rank's)."""
+        return _PSum.apply(t, self, axes)
+
+    def _reduce(self, t: torch.Tensor, axes, op) -> torch.Tensor:
+        axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
+        if not axes:
+            return t
+        out = t.clone(memory_format=torch.contiguous_format)
+        t0 = self._start(out, self.groups[axes])
+        dist.all_reduce(out, op=op, group=self.groups[axes])
+        self.seconds["all_reduce"] += time.perf_counter() - t0
+        self.traffic["all_reduce"] += out.numel() * out.element_size()
+        return out
+
+    def pmin(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Elementwise min over ``axes`` (exact: the same bits in any
+        order)."""
+        return self._reduce(t, axes, dist.ReduceOp.MIN)
+
+    def pmax(self, t: torch.Tensor, axes) -> torch.Tensor:
+        return self._reduce(t, axes, dist.ReduceOp.MAX)
+
+    def agree(self, flag: bool) -> bool:
+        """``flag`` OR-ed over every rank of the mesh (a collective: every
+        rank must call it at the same point)."""
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self._flag_device(live))
+        return bool(self._reduce(t, live, dist.ReduceOp.MAX).item())
+
+    def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Chunk j of ``t`` (its dim 0 cut into ``axis_size(axes)`` equal
+        chunks) goes to the rank of index j along ``axes``: → the chunks
+        this rank received, in the senders' index order along dim 0.
+        gloo exchanges host tensors, so a CUDA tensor is staged through
+        the host (as gloo stages its other collectives)."""
+        axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
+        if not axes:
+            return t
+        group = self.groups[axes]
+        staged = (t.device.type == "cuda"
+                  and dist.get_backend(group) != "nccl")
+        t0 = self._start(t, group)
+        x = t.contiguous().cpu() if staged else t.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        out = out.to(t.device) if staged else out
+        self.seconds["all_to_all"] += time.perf_counter() - t0
+        n = self.axis_size(axes)
+        self.traffic["all_to_all"] += (n - 1) * (x.numel() // n) \
+            * x.element_size()
+        return out
+
+    def gather_host(self, t: torch.Tensor) -> Optional[list]:
+        """Every rank's ``t``, copied to the host, to rank 0 of the mesh:
+        → the list in rank order on rank 0, None on the others."""
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        if not live:
+            return [t.detach().cpu().contiguous()]
+        t0 = self._start(t, self.groups[live])
+        h = t.detach().cpu().contiguous()
+        parts = ([torch.empty_like(h) for _ in range(self.size)]
+                 if self.rank == 0 else None)
+        dist.gather(h, parts, dst=0, group=self.groups[live])
+        self.seconds["gather"] += time.perf_counter() - t0
+        if parts is not None:
+            self.traffic["gather"] += (self.size - 1) * h.numel() \
+                * h.element_size()
+        return parts
+
+    def barrier(self) -> None:
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        if live:
+            dist.barrier(group=self.groups[live])
+
+    def _flag_device(self, axes: tuple) -> torch.device:
+        """Where a small host-side flag goes: NCCL reduces only CUDA
+        tensors, gloo any."""
+        if (axes and dist.get_backend(self.groups[axes]) == "nccl"):
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.psum(t, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.psum(grad, ctx.axes), None, None
 
 
 def _ordered(mesh: AbstractMesh, axes) -> tuple:

@@ -761,6 +761,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     ascending expert order in x's dtype, as the reference's scatter-add
     does; it is a fixed-order gather and add, never an atomic scatter.
 
+    Inside ``sharding.partition.rows_split`` (a training step on a mesh
+    whose data ranks each take a share of the microbatch's rows) the
+    capacity, the slots and the aux loss are the whole microbatch's, as
+    the reference's global program computes them.
+
     ``p["residency"]`` (per-layer ``slot_of_expert`` (E,) and
     ``expert_of_slot`` (C,) index tensors, set by the tiered-residency
     manager) marks ``p["experts"]`` as C-slot cache stacks.  With
@@ -794,13 +799,36 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
 
     # Load-balance aux loss (Switch-style): e · Σ_e f_e · P_e.
     onehot = torch.nn.functional.one_hot(expert_ids, e)     # (n, k, e)
-    f = onehot.to(torch.float32).sum(dim=1).mean(dim=0)
-    aux = e * torch.sum(f * probs.mean(dim=0))
-
-    cap = _capacity(n_tok, k, e, cfg.capacity_factor)
     flat_e = expert_ids.reshape(-1)                         # (n·k,)
     slot = expert_slots(expert_ids, onehot)
-    keep = slot < cap
+    split = PT.row_split()
+    if split is None:
+        f = onehot.to(torch.float32).sum(dim=1).mean(dim=0)
+        aux = e * torch.sum(f * probs.mean(dim=0))
+        cap = _capacity(n_tok, k, e, cfg.capacity_factor)
+        keep = slot < cap
+    else:
+        # A training rank's share of the microbatch's rows: the aux loss,
+        # the capacity and each choice's slot are the whole microbatch's.
+        # f and P are means over all its tokens (a sum whose backward
+        # sums over the data ranks); a choice's slot is its global
+        # token-major rank, the lower data ranks' counts for its expert
+        # before it; the table holds the rank's kept choices.
+        mesh, axes = split
+        n_all = n_tok * mesh.axis_size(axes)
+        sums = mesh.psum_diff(torch.cat([
+            onehot.to(torch.float32).sum(dim=1).sum(dim=0),
+            probs.sum(dim=0)]), axes)
+        f, pm = sums[:e] / n_all, sums[e:] / n_all
+        aux = e * torch.sum(f * pm)
+        cap = _capacity(n_all, k, e, cfg.capacity_factor)
+        counts = mesh.all_gather(onehot.sum(dim=(0, 1))[None], axes, dim=0)
+        before = counts[:mesh.axis_index(axes)].sum(dim=0)
+        keep = slot + before[flat_e] < cap
+        slot = torch.where(keep, slot, cap)
+    # at call time: the testing package imports the serving stack
+    from ..testing import routes
+    routes.record(expert_ids, keep.reshape(n_tok, k), aux)
     table, gtable = dispatch_tables(expert_ids, slot, gate_vals, cap, e)
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)

@@ -44,7 +44,9 @@ captured in a CUDA graph, so on a mesh the decode phase runs eagerly and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import time
 import weakref
 from typing import Any, Optional
@@ -431,18 +433,34 @@ def _tensors(node):
             yield from _tensors(getattr(node, f.name))
 
 
+@contextlib.contextmanager
+def no_collection():
+    """Python's cyclic garbage collector held off for the block: a CUDA
+    graph that a dead cycle holds, destroyed by a collection while another
+    graph is being captured, invalidates that capture
+    (``torch.cuda.graph`` no longer collects before it captures)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def capture_step(step, generator: torch.Generator | None = None):
     """Capture ``step()`` in a CUDA graph (its kernels are recorded, not
-    run).  → (graph, the counts its Python added to each of
-    ``_STEP_COUNTERS``, which are taken back, host ms of the capture).  A
-    capture that fails raises."""
+    run), with no garbage collection during the capture
+    (:func:`no_collection`).  → (graph, the counts its Python added to
+    each of ``_STEP_COUNTERS``, which are taken back, host ms of the
+    capture).  A capture that fails raises."""
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
     before = [collections.Counter(c) for c in _STEP_COUNTERS]
     t0 = time.perf_counter()
     try:
-        with torch.cuda.graph(graph):
+        with no_collection(), torch.cuda.graph(graph):
             step()
     finally:
         counts = [c - b for c, b in zip(_STEP_COUNTERS, before)]

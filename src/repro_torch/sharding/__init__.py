@@ -1,2 +1,2 @@
-"""Sharding of the port's serving state over a ``launch.mesh.Mesh``
-(counterpart of ``repro.sharding``)."""
+"""Sharding of the port's serving and training state over a
+``launch.mesh.Mesh`` (counterpart of ``repro.sharding``)."""

@@ -1,14 +1,13 @@
-"""Partition rules — param path → spec, divisibility-guarded (serving half).
+"""Partition rules — param path → spec, divisibility-guarded.
 
-Counterpart of ``repro/sharding/partition.py`` without
-``make_train_state_specs`` (training on a mesh is not ported).  A spec is
-a tuple with one entry per dim: a mesh axis name, a tuple of names (the
-dim split over their product, major first) or ``None`` (replicated) — the
-reference's ``PartitionSpec`` as a tuple.  The rule table, the guard (an
-axis the dim does not divide is dropped) and the plane rules are the
-reference's, so the specs equal its specs for the same tree and mesh
-shape; the rules read only ``mesh.shape`` and ``mesh.axis_names``, so
-they run on an ``launch.mesh.AbstractMesh`` as well.
+Counterpart of ``repro/sharding/partition.py``.  A spec is a tuple with
+one entry per dim: a mesh axis name, a tuple of names (the dim split over
+their product, major first) or ``None`` (replicated) — the reference's
+``PartitionSpec`` as a tuple.  The rule table, the guard (an axis the dim
+does not divide is dropped) and the plane rules are the reference's, so
+the specs equal its specs for the same tree and mesh shape; the rules
+read only ``mesh.shape`` and ``mesh.axis_names``, so they run on an
+``launch.mesh.AbstractMesh`` as well.
 
 A tree is nested dicts and lists with tensors (or anything with a
 ``shape``) and weight containers at the leaves; a container's planes are
@@ -19,12 +18,22 @@ plane specs.  The port keeps a model's layers as a list, so a layer's
 leaf has no stacked dim: its spec is the reference's for the stacked leaf
 without the leading ``None``.
 
-What a serving rank holds is not this table: the port places the planes
-that the sharded kernels read as their ``shard_map`` in-specs give them
-(:func:`place_params`), and keeps every other leaf replicated in this
-slice (the FSDP and KV-cache layouts wait with training on a mesh).
+Serving: what a rank holds is not this table.  The port places the
+planes that the sharded kernels read as their ``shard_map`` in-specs give
+them (:func:`place_params`), and keeps every other leaf replicated.
 ``constrain`` is a no-op outside a mesh, as in the reference, and inside
-one too: activations stay replicated over ``model``.
+one too: served activations stay replicated over ``model`` and their rows
+are not split over ``data`` (by design: ROADMAP.md queue 3, "Not port
+faults", serving on a mesh — a plain product's bits follow its row
+count).
+
+Training (``train/steps.py``) is the port's ZeRO-3: each rank stores its
+shard of every leaf of the train state under
+:func:`make_train_state_specs` (:func:`shard_leaf`: major-first over a
+tuple of axes, as :func:`place_params` cuts bands), gathers the whole
+parameters for a step (:func:`gather_leaf`), and computes the rows of its
+data rank (:func:`rows_split` marks them split for the MoE's global
+statistics); the ``model`` axis splits storage only.
 """
 from __future__ import annotations
 
@@ -33,7 +42,9 @@ import dataclasses
 import re
 from typing import Any
 
-from ..launch.mesh import AXIS_DATA, AXIS_MODEL, AXIS_POD
+import torch
+
+from ..launch.mesh import AXIS_DATA, AXIS_MODEL, AXIS_POD, _unravel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +339,138 @@ def make_data_specs(batch_like: Any, mesh) -> Any:
     return _map_tree(batch_like, one)
 
 
+def _is_qmoment(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def make_train_state_specs(state: Any, mesh,
+                           scfg: ShardingConfig | None = None) -> Any:
+    """Specs for {"params", "opt": {"mu", "step"}[, "grad_error"]} (the
+    reference's ZeRO-3): f32 moments take their parameter's spec; an int8
+    moment's planes (``optimizer.QMoment``: the parameter reshaped to
+    (*lead, last // b, b)) take it with the last dim's axis moved onto
+    the block-count dim, each plane through the guard; ``grad_error``
+    takes the parameter specs and ``step`` is replicated."""
+    scfg = scfg or ShardingConfig(mode="train")
+    pspecs = make_param_specs(state["params"], mesh, scfg)
+
+    def moment(pspec, leaf):
+        if not _is_qmoment(leaf):
+            return pspec
+        pdims = list(pspec) + [None] * (len(leaf.q.shape) - 1 - len(pspec))
+        qdims = tuple(pdims[:-1]) + (pdims[-1] if pdims else None, None)
+        return type(leaf)(*(_guarded_spec(qdims, tuple(x.shape), mesh)
+                            for x in leaf))
+
+    def walk(ps, mu):
+        if isinstance(ps, tuple):
+            return {"m": moment(ps, mu["m"]), "v": moment(ps, mu["v"])}
+        if isinstance(ps, dict):
+            return {k: walk(ps[k], mu[k]) for k in ps}
+        return [walk(p, m) for p, m in zip(ps, mu)]
+
+    out = {"params": pspecs,
+           "opt": {"mu": walk(pspecs, state["opt"]["mu"]), "step": ()}}
+    if "grad_error" in state:
+        out["grad_error"] = pspecs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# What a training rank holds: its shard of every leaf under its spec.
+# ---------------------------------------------------------------------------
+
+def spec_axes(spec) -> tuple:
+    """The mesh axes a spec splits over, dim by dim."""
+    out = []
+    for ax in spec:
+        out.extend((ax,) if isinstance(ax, str) else tuple(ax or ()))
+    return tuple(out)
+
+
+def whole_shape(shape, spec, mesh) -> tuple:
+    """The whole leaf's shape, from a shard's ``shape`` and its spec."""
+    return tuple(d * _axis_total(mesh, ax) for d, ax in zip(shape, spec))
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    return tuple(d // _axis_total(mesh, ax) for d, ax in zip(shape, spec))
+
+
+def shard_leaf(t, spec, mesh, coords: dict | None = None):
+    """The shard of the whole leaf ``t`` under ``spec`` of this rank (or
+    of the rank at ``coords``): each split dim cut into the band of the
+    rank's index along its axes (a copy, so the whole can be freed);
+    ``t`` itself where nothing is split."""
+    cut = t
+    for dim, ax in enumerate(spec):
+        if ax is not None and _axis_total(mesh, ax) > 1:
+            per = cut.shape[dim] // _axis_total(mesh, ax)
+            cut = cut.narrow(dim, mesh.axis_index(ax, coords) * per, per)
+    return t if cut is t else cut.clone(memory_format=torch.contiguous_format)
+
+
+def assemble(parts: list, spec, mesh):
+    """The whole leaf from every rank's shard (``parts`` in rank order,
+    as ``Mesh.gather_host`` gives them)."""
+    whole = parts[0].new_empty(whole_shape(parts[0].shape, spec, mesh))
+    for rank, part in enumerate(parts):
+        coords = dict(zip(mesh.axis_names,
+                          _unravel(rank, tuple(mesh.shape.values()))))
+        view = whole
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                view = view.narrow(dim, mesh.axis_index(ax, coords)
+                                   * part.shape[dim], part.shape[dim])
+        view.copy_(part)
+    return whole
+
+
+def gather_leaf(t, spec, mesh):
+    """The whole leaf from this rank's shard ``t``: gathered over exactly
+    the axes its spec names, dim by dim."""
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            t = mesh.all_gather(t, ax, dim=dim)
+    return t
+
+
+def flat_specs(specs: Any, like: Any) -> list:
+    """The specs of ``like``'s leaves, in ``train.tree.flatten``'s order
+    (``specs`` has ``like``'s structure, a spec tuple at each leaf)."""
+    out: list = []
+
+    def walk(s, node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(s[k], node[k])
+        elif _is_qmoment(node):
+            for f in node._fields:
+                walk(getattr(s, f), getattr(node, f))
+        elif isinstance(node, (list, tuple)):
+            for a, b in zip(s, node):
+                walk(a, b)
+        else:
+            out.append(s)
+
+    walk(specs, like)
+    return out
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of ``tree`` (whole) cut to this rank's shard."""
+    from ..train import tree as T
+    return T.unflatten(tree, [shard_leaf(x, s, mesh) for x, s in zip(
+        T.leaves(tree), flat_specs(specs, tree))])
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every leaf of ``tree`` (this rank's shards) gathered whole."""
+    from ..train import tree as T
+    return T.unflatten(tree, [gather_leaf(x, s, mesh) for x, s in zip(
+        T.leaves(tree), flat_specs(specs, tree))])
+
+
 # ---------------------------------------------------------------------------
 # The mesh that the kernels' dispatch sees.
 # ---------------------------------------------------------------------------
@@ -362,8 +505,33 @@ def current_mesh():
 def constrain(x, *dims):
     """The reference's sharding constraint.  Outside a mesh a no-op, as
     there; inside one a no-op too: the port keeps activations replicated
-    on every rank of the mesh in this slice."""
+    on every rank of a serving mesh (see the module docstring)."""
     return x
+
+
+_ROW_SPLIT: list = []
+
+
+@contextlib.contextmanager
+def rows_split(mesh, axes):
+    """Mark the rows this block computes as one data rank's share of each
+    microbatch, split over ``axes`` of ``mesh`` (a training step on a
+    mesh, ``train/steps.py``): the MoE then takes its capacity, slot
+    ranks and aux loss over the whole microbatch (``layers.apply_moe``).
+    A no-op where ``axes`` hold one rank."""
+    if mesh is None or mesh.axis_size(axes) <= 1:
+        yield None
+        return
+    _ROW_SPLIT.append((mesh, tuple(axes)))
+    try:
+        yield mesh
+    finally:
+        _ROW_SPLIT.pop()
+
+
+def row_split():
+    """(mesh, data axes) of the enclosing :func:`rows_split`, or None."""
+    return _ROW_SPLIT[-1] if _ROW_SPLIT else None
 
 
 

@@ -1,6 +1,7 @@
 """Training runtime of the port (counterpart of ``repro.train``): the data
-pipeline, AdamW (int8 moments optional), the train step, checkpoints and
-the fault-tolerant loop, and a briefly trained smoke model."""
+pipeline, AdamW (int8 moments optional), the train step (on one device or
+a mesh of ranks), checkpoints and the fault-tolerant loop, and a briefly
+trained smoke model."""
 from . import checkpoint, fault
 from .data import DataConfig, DataPipeline
 from .optimizer import AdamWConfig, adamw_init, adamw_update, lr_schedule

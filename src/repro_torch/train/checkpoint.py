@@ -20,8 +20,17 @@ Leaves are named by the port's own tree paths (``train.tree``: dict keys
 sorted, ``['params']['blocks'][0]['attn']['wq']``), so a checkpoint of the
 port holds the port's leaves, a layer at a time.  The state is written
 from wherever it lives (``.cpu()``) and restored onto the devices of the
-target tree's leaves, or onto ``device``: one device (a restore across
-devices waits for the multi-device port, ROADMAP queue 1 item 11).
+target tree's leaves, or onto ``device``.
+
+On a mesh of ranks (``specs``/``shardings`` and ``mesh``: each rank holds
+its shards, ``sharding.partition``) ``save`` gathers each leaf whole on
+rank 0, which writes it in the same layout and manifest (``"hosts": 1``,
+as the reference writes), then every rank passes a barrier: a checkpoint
+of one state is byte-equal whoever wrote it, and restores anywhere.
+``restore`` reads whole leaves, checks each against the manifest (whole
+shape, dtype, CRC32) and keeps this rank's shard under the target's
+specs; the ranks agree on the outcome, so a damaged leaf raises
+``CheckpointCorruptError`` on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..sharding import partition as PT
 from . import tree as T
 
 COMMIT = "COMMIT"
@@ -55,14 +65,37 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, host_id: int = 0,
-         extra: dict | None = None) -> str:
-    """Write one checkpoint atomically; returns the step directory."""
+         extra: dict | None = None, specs: Any = None, mesh=None) -> str:
+    """Write one checkpoint atomically; returns the step directory.  On
+    ``mesh`` (``tree`` this rank's shards under ``specs``) every rank
+    sends its shards to rank 0 (``Mesh.gather_host``), which assembles
+    each leaf whole and writes, and all pass a barrier after the
+    commit."""
+    step_dir = _step_dir(ckpt_dir, step)
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        flat = T.flatten(tree)
+        arrs = {}
+        for (name, leaf), spec in zip(flat, PT.flat_specs(specs, tree)):
+            parts = mesh.gather_host(leaf)
+            if parts is not None:
+                arrs[name] = PT.assemble(parts, spec, mesh).numpy()
+        if mesh.rank == 0:
+            _write(ckpt_dir, step, arrs, host_id, extra)
+        mesh.barrier()
+        return step_dir
+    _write(ckpt_dir, step, {name: leaf.detach().cpu().numpy()
+                            for name, leaf in T.flatten(tree)},
+           host_id, extra)
+    return step_dir
+
+
+def _write(ckpt_dir: str, step: int, arrs: dict, host_id: int,
+           extra: dict | None) -> None:
     step_dir = _step_dir(ckpt_dir, step)
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step:08d}_")
     try:
-        arrs = {name: leaf.detach().cpu().numpy()
-                for name, leaf in T.flatten(tree)}
         np.savez(os.path.join(tmp, f"shard_{host_id:05d}.npz"), **arrs)
         manifest = {
             "step": step,
@@ -83,7 +116,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, host_id: int = 0,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return step_dir
 
 
 def _committed(ckpt_dir: str) -> list:
@@ -110,17 +142,47 @@ def _load_manifest(step_dir: str) -> dict:
 
 
 def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
-            verify: bool = True) -> Any:
+            verify: bool = True, shardings: Any = None, mesh=None) -> Any:
     """Load step ``step`` into the structure of ``like``: every leaf in
     ``like``'s leaf's dtype, on ``device`` or else on that leaf's device.
     ``verify=True`` checks each leaf's shape and dtype against the
     manifest and the target and its CRC32, raising
     ``CheckpointCorruptError`` (naming the leaf) before anything is
-    built."""
+    built.  On ``mesh`` ``like`` holds this rank's shards under
+    ``shardings`` (a spec tree): each whole leaf is checked, then cut to
+    the rank's shard; every rank raises if any rank's check failed."""
+    sharded = mesh is not None and mesh.size > 1
+    specs = PT.flat_specs(shardings, like) if sharded else None
+    flat = T.flatten(like)
+    try:
+        arrs = _read_checked(ckpt_dir, step, [
+            (name, PT.whole_shape(leaf.shape, specs[i], mesh) if sharded
+             else tuple(leaf.shape)) for i, (name, leaf) in enumerate(flat)],
+            verify)
+        failed = None
+    except (CheckpointCorruptError, KeyError, OSError) as e:
+        failed = e
+    if sharded and mesh.agree(failed is not None) and failed is None:
+        failed = CheckpointCorruptError(
+            f"step {step} under {ckpt_dir}: another rank's restore failed")
+    if failed is not None:
+        raise failed
+    out = []
+    for i, (arr, (_, leaf)) in enumerate(zip(arrs, flat)):
+        t = torch.from_numpy(np.array(arr))
+        if sharded:
+            t = PT.shard_leaf(t, specs[i], mesh)
+        out.append(t.to(device=device if device is not None else leaf.device,
+                        dtype=leaf.dtype))
+    return T.unflatten(like, out)
+
+
+def _read_checked(ckpt_dir: str, step: int, want: list, verify: bool):
+    """The arrays of ``want`` ([(leaf name, whole shape)]) from step
+    ``step``, each checked against the manifest and ``want``."""
     step_dir = _step_dir(ckpt_dir, step)
     if not os.path.exists(os.path.join(step_dir, COMMIT)):
         raise FileNotFoundError(f"no committed checkpoint at {step_dir}")
-    flat = T.flatten(like)
     manifest = _load_manifest(step_dir)
     m_names = manifest.get("names", [])
     m_shapes = {n: tuple(s) for n, s in zip(m_names,
@@ -128,14 +190,13 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
     m_dtypes = dict(zip(m_names, manifest.get("dtypes", [])))
     crcs = dict(zip(m_names, manifest.get("crc32", [])))
     if verify:
-        for name, leaf in flat:
+        for name, shape in want:
             if name not in m_shapes:
                 raise CheckpointCorruptError(
                     f"{step_dir}: manifest missing leaf {name}")
-            if m_shapes[name] != tuple(leaf.shape):
+            if m_shapes[name] != shape:
                 raise CheckpointCorruptError(
-                    f"{name}: ckpt {m_shapes[name]} vs model "
-                    f"{tuple(leaf.shape)}")
+                    f"{name}: ckpt {m_shapes[name]} vs model {shape}")
     data = {}
     try:
         for fn in sorted(os.listdir(step_dir)):
@@ -147,13 +208,13 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
         raise CheckpointCorruptError(
             f"unreadable shard in {step_dir}: {e}") from e
     arrs = []
-    for name, leaf in flat:      # validate every leaf, then build
+    for name, shape in want:      # validate every leaf, then build
         if name not in data:
             raise CheckpointCorruptError(f"checkpoint missing leaf {name}")
         arr = data[name]
-        if tuple(arr.shape) != tuple(leaf.shape):
+        if tuple(arr.shape) != shape:
             raise CheckpointCorruptError(
-                f"{name}: ckpt {arr.shape} vs model {tuple(leaf.shape)}")
+                f"{name}: ckpt {arr.shape} vs model {shape}")
         if verify and m_dtypes.get(name, str(arr.dtype)) != str(arr.dtype):
             raise CheckpointCorruptError(
                 f"{name}: shard dtype {arr.dtype} vs manifest "
@@ -162,26 +223,25 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None,
             raise CheckpointCorruptError(
                 f"{name}: checksum mismatch (bit rot or torn shard)")
         arrs.append(arr)
-    return T.unflatten(like, [
-        torch.from_numpy(np.array(a)).to(
-            device=device if device is not None else leaf.device,
-            dtype=leaf.dtype)
-        for a, (_, leaf) in zip(arrs, flat)])
+    return arrs
 
 
-def restore_latest(ckpt_dir: str, like: Any, *, on_skip=None):
+def restore_latest(ckpt_dir: str, like: Any, *, on_skip=None,
+                   shardings: Any = None, mesh=None):
     """Restore the newest *loadable* committed checkpoint → (state, step).
 
     Walks committed steps newest → oldest; a step that fails validation
     (unreadable shard, checksum or shape mismatch) is skipped, and
     ``on_skip(step, exc)`` is told.  Raises FileNotFoundError when no
-    step loads."""
+    step loads.  ``shardings``/``mesh``: as :func:`restore` (its ranks
+    agree, so they skip the same steps)."""
     if not os.path.isdir(ckpt_dir):
         raise FileNotFoundError(f"no checkpoint dir {ckpt_dir}")
     last_exc = None
     for s in reversed(_committed(ckpt_dir)):
         try:
-            return restore(ckpt_dir, s, like), s
+            return restore(ckpt_dir, s, like, shardings=shardings,
+                           mesh=mesh), s
         except (CheckpointCorruptError, KeyError, OSError) as e:
             last_exc = e
             if on_skip is not None:

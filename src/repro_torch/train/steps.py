@@ -17,18 +17,31 @@ State is ``{"params", "opt", ["grad_error"]}``; a step returns a new state
 and leaves the one it was given as it was.  Parameters live where the
 caller put them (the card unless the caller asked for the CPU:
 ``models.lm.init_lm``); each batch moves to their device.
+
+On a mesh of ranks (``make_train_step(cfg, tcfg, mesh, specs)``, the
+reference's jitted step under ``make_train_state_specs`` shardings) each
+rank stores its shard of every leaf of the state (ZeRO-3) and, each step,
+gathers the whole parameters, runs forward and backward on its data
+rank's share of each microbatch (:func:`data_rows`), sums the gradients
+over the data axes into its shard (a reduce-scatter) and updates it
+(``optimizer.adamw_update`` on shards).  The ``model`` axis splits
+storage only: its ranks compute the same rows.  The loss and the metrics
+are the global ones, the same bits on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..launch import mesh as M
 from ..models import encdec as ED
 from ..models import lm as LM
+from ..sharding import partition as PT
 from . import tree as T
 from .optimizer import AdamWConfig, _fma, _recip, adamw_init, adamw_update
 
@@ -124,7 +137,7 @@ def _loss_fn(params, cfg, tcfg: TrainConfig, batch):
     return loss
 
 
-def compress_grads_int8(grads, error_fb):
+def compress_grads_int8(grads, error_fb, *, specs=None, mesh=None):
     """int8 gradient compression with error feedback (per-tensor affine):
     quantize g + e to uint8, dequantize for the update, keep the residual
     as the next step's feedback.  → (dequantized grads, new feedback).
@@ -132,17 +145,34 @@ def compress_grads_int8(grads, error_fb):
     A tensor is a leaf of the reference's layout, where a ``blocks`` leaf
     (an encoder–decoder's ``encoder`` and ``decoder`` leaves too) stacks
     every layer: the port's layers of one such leaf share one (min, max),
-    so the codes are the reference's."""
+    so the codes are the reference's.  On ``mesh`` (``grads`` and
+    ``error_fb`` this rank's shards, ``specs`` the parameters' spec
+    tree) the (min, max) is the whole leaf's: reduced over the axes the
+    leaf is split over before the rank quantizes its shard."""
     flat, errs = T.flatten(grads), T.leaves(error_fb)
     gfs = [g.to(torch.float32) + e for (_, g), e in zip(flat, errs)]
     groups: dict = {}
     for i, (path, _) in enumerate(flat):
         groups.setdefault(re.sub(r"^\['(blocks|encoder|decoder)'\]\[\d+\]",
                                  r"['\1']", path), []).append(i)
+    idxs = list(groups.values())
+    mins = [torch.stack([torch.min(gfs[i]) for i in idx]).min()
+            for idx in idxs]
+    maxs = [torch.stack([torch.max(gfs[i]) for i in idx]).max()
+            for idx in idxs]
+    if mesh is not None and mesh.size > 1:
+        axes = [PT.spec_axes(s) for s in PT.flat_specs(specs, grads)]
+        by_axes: dict = {}
+        for gi, idx in enumerate(idxs):
+            by_axes.setdefault(axes[idx[0]], []).append(gi)
+        for ax, gis in by_axes.items():
+            if ax:
+                mn = mesh.pmin(torch.stack([mins[g] for g in gis]), ax)
+                mx = mesh.pmax(torch.stack([maxs[g] for g in gis]), ax)
+                for j, g in enumerate(gis):
+                    mins[g], maxs[g] = mn[j], mx[j]
     dq, fb = [None] * len(gfs), [None] * len(gfs)
-    for idx in groups.values():
-        mn = torch.stack([torch.min(gfs[i]) for i in idx]).min()
-        mx = torch.stack([torch.max(gfs[i]) for i in idx]).max()
+    for idx, mn, mx in zip(idxs, mins, maxs):
         scale = torch.clamp((mx - mn) * _recip(255.0, mn.device), min=1e-12)
         for i in idx:
             q = torch.clamp(torch.round((gfs[i] - mn) / scale), 0, 255)
@@ -169,45 +199,155 @@ def loss_and_grads(params, cfg, tcfg: TrainConfig, batch):
                            for p, g in zip(flat, grads)]
 
 
-def make_train_step(cfg, tcfg: TrainConfig):
+def grads_of(params, cfg, tcfg: TrainConfig, batch):
+    """Loss and gradients (a tree of ``params``' structure); with
+    ``accum_steps`` > 1 the batch splits on its leading dim and the
+    microbatches' gradients are summed in ``accum_dtype``, then averaged
+    (one microbatch's activations live at a time)."""
+    a = tcfg.accum_steps
+    if a <= 1:
+        loss, grads = loss_and_grads(params, cfg, tcfg, batch)
+        return loss, T.unflatten(params, grads)
+    b = batch["tokens"].shape[0]
+    if b % a:
+        raise ValueError(f"batch {b} does not split into {a} microbatches")
+    acc = [torch.zeros(p.shape, dtype=tcfg.accum_dtype, device=p.device)
+           for p in T.leaves(params)]
+    lsum = None
+    for i in range(a):
+        mb = {k: v[i * (b // a):(i + 1) * (b // a)] for k, v in batch.items()}
+        loss, grads = loss_and_grads(params, cfg, tcfg, mb)
+        acc = [x + g.to(x.dtype) for x, g in zip(acc, grads)]
+        lsum = loss if lsum is None else lsum + loss
+    inv = _recip(a, lsum.device)
+    return lsum * inv, T.unflatten(params, [x * inv for x in acc])
+
+
+def data_rows(batch: dict, accum: int, mesh):
+    """This data rank's rows of ``batch`` → (rows, split).  The reference
+    splits the global batch into ``accum`` contiguous microbatches; data
+    rank d of D takes the d-th of D equal slices of each, so every
+    microbatch keeps its rows, its mean and its MoE capacity.  Where a
+    microbatch does not split into D rows each (the reference's
+    ``make_data_specs`` guard leaves such rows whole) every data rank
+    takes all rows, and ``split`` is False."""
+    axes = M.data_axes(mesh)
+    nd = mesh.axis_size(axes)
+    a = max(accum, 1)
+    b = batch["tokens"].shape[0]
+    if b % a:
+        raise ValueError(f"batch {b} does not split into {a} microbatches")
+    m = b // a
+    if nd <= 1 or m % nd:
+        return batch, False
+    per, d = m // nd, mesh.axis_index(axes)
+    return {k: torch.cat([v[i * m + d * per:i * m + (d + 1) * per]
+                          for i in range(a)]) for k, v in batch.items()}, True
+
+
+# gradients summed over the data ranks in exchanges of at most this many
+# elements a rank sends (a bucket of leaves flattened into one)
+GRAD_BUCKET = 1 << 26
+
+
+def _reduce_scatter(grads: list, specs: list, mesh, axes) -> list:
+    """Each rank's shard (under ``specs``) of the sum over ``axes`` of
+    every rank's whole ``grads``: each rank sends every data peer the
+    peer's shard of its gradients (``Mesh.all_to_all``) and adds the
+    shards it gets in the peers' index order — the bits of a sum of the
+    whole gradients in rank order, cut to the shard, for the bytes of
+    the shards alone."""
+    peers = []
+    for j in range(mesh.axis_size(axes)):
+        coords, rest = dict(mesh.coords), j
+        for a in reversed([a for a in mesh.axis_names if a in axes]):
+            coords[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
+        peers.append(coords)
+    out, i = [], 0
+    while i < len(grads):
+        j, n = i + 1, grads[i].numel()
+        while j < len(grads) and n + grads[j].numel() <= GRAD_BUCKET:
+            n += grads[j].numel()
+            j += 1
+        send = torch.cat([PT.shard_leaf(g, s, mesh, c).reshape(-1)
+                          for c in peers
+                          for g, s in zip(grads[i:j], specs[i:j])])
+        got = mesh.all_to_all(send, axes).view(len(peers), -1)
+        total = got[0]
+        for row in got[1:]:
+            total = total + row
+        shapes = [PT.shard_shape(g.shape, s, mesh)
+                  for g, s in zip(grads[i:j], specs[i:j])]
+        out += [part.view(shape) for part, shape in zip(
+            total.split([math.prod(sh) for sh in shapes]), shapes)]
+        i = j
+    return out
+
+
+def loss_and_grads_on_mesh(params, cfg, tcfg: TrainConfig, batch, mesh,
+                           specs):
+    """One rank's loss and gradients on ``mesh``: the whole parameters
+    gathered from this rank's shards (``params`` under ``specs``, the
+    parameters' spec tree), forward and backward on its data rank's rows
+    (:func:`data_rows`, the MoE's statistics taken over the whole
+    microbatch: ``sharding.partition.rows_split``), the gradients summed
+    over the data axes into this rank's shards (:func:`_reduce_scatter`)
+    and averaged with the loss over the data ranks.  → (loss, this rank's
+    shards of the gradients, a tree of ``params``' structure); every rank
+    gets the same loss bits."""
+    whole = PT.gather_tree(params, specs, mesh)
+    device = T.leaves(whole)[0].device
+    rows, split = data_rows(_on(batch, device), tcfg.accum_steps, mesh)
+    axes = M.data_axes(mesh)
+    with PT.rows_split(mesh if split else None, axes):
+        loss, grads = grads_of(whole, cfg, tcfg, rows)
+    del whole
+    flat = PT.flat_specs(specs, params)
+    if split:
+        inv = _recip(mesh.axis_size(axes), device)
+        loss = mesh.psum(loss, axes) * inv
+        shards = [g * inv for g in _reduce_scatter(T.leaves(grads), flat,
+                                                   mesh, axes)]
+    else:
+        shards = [PT.shard_leaf(g, s, mesh)
+                  for g, s in zip(T.leaves(grads), flat)]
+    return loss, T.unflatten(params, shards)
+
+
+def make_train_step(cfg, tcfg: TrainConfig, mesh=None, specs=None):
     """→ ``train_step(state, batch) -> (state, metrics)``; metrics
     {"loss", "grad_norm", "lr"} are 0-d tensors on the parameters'
-    device (nothing is read on the host)."""
-    use_ef = tcfg.grad_compression == "int8_ef"
+    device (nothing is read on the host).
 
-    def grads_of(params, batch):
-        """Loss and gradients; with ``accum_steps`` > 1 the batch splits
-        on its leading dim and the microbatches' gradients are summed in
-        ``accum_dtype``, then averaged (one microbatch's activations live
-        at a time)."""
-        a = tcfg.accum_steps
-        if a <= 1:
-            loss, grads = loss_and_grads(params, cfg, tcfg, batch)
-            return loss, T.unflatten(params, grads)
-        b = batch["tokens"].shape[0]
-        if b % a:
-            raise ValueError(f"batch {b} does not split into {a} "
-                             "microbatches")
-        acc = [torch.zeros(p.shape, dtype=tcfg.accum_dtype, device=p.device)
-               for p in T.leaves(params)]
-        lsum = None
-        for i in range(a):
-            mb = {k: v[i * (b // a):(i + 1) * (b // a)]
-                  for k, v in batch.items()}
-            loss, grads = loss_and_grads(params, cfg, tcfg, mb)
-            acc = [x + g.to(x.dtype) for x, g in zip(acc, grads)]
-            lsum = loss if lsum is None else lsum + loss
-        inv = _recip(a, lsum.device)
-        return lsum * inv, T.unflatten(params, [x * inv for x in acc])
+    On ``mesh`` (more than one rank) the state is this rank's shards
+    under ``specs`` (``sharding.partition.make_train_state_specs`` of the
+    whole state), ``batch`` the global batch: the step gathers, computes
+    its rows and gets its shard of the summed gradients
+    (:func:`loss_and_grads_on_mesh`), compresses them against each whole
+    leaf's range (``int8_ef``) and updates its shards
+    (``optimizer.adamw_update``)."""
+    use_ef = tcfg.grad_compression == "int8_ef"
+    sharded = mesh is not None and mesh.size > 1
+    if sharded and specs is None:
+        raise ValueError("a train step on a mesh takes the state's specs "
+                         "(sharding.partition.make_train_state_specs)")
 
     def train_step(state, batch):
         params = state["params"]
-        device = T.leaves(params)[0].device
-        loss, grads = grads_of(params, _on(batch, device))
+        if sharded:
+            loss, grads = loss_and_grads_on_mesh(
+                params, cfg, tcfg, batch, mesh, specs["params"])
+        else:
+            device = T.leaves(params)[0].device
+            loss, grads = grads_of(params, cfg, tcfg, _on(batch, device))
         if use_ef:
-            grads, new_err = compress_grads_int8(grads, state["grad_error"])
-        new_params, new_opt, om = adamw_update(params, grads, state["opt"],
-                                               tcfg.optimizer)
+            grads, new_err = compress_grads_int8(
+                grads, state["grad_error"],
+                specs=specs["params"] if sharded else None,
+                mesh=mesh if sharded else None)
+        new_params, new_opt, om = adamw_update(
+            params, grads, state["opt"], tcfg.optimizer,
+            specs=specs if sharded else None, mesh=mesh if sharded else None)
         new_state = {"params": new_params, "opt": new_opt}
         if use_ef:
             new_state["grad_error"] = new_err

@@ -11,8 +11,6 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import torch
-
 from ..core.integrity import STACKED
 
 
@@ -77,12 +75,14 @@ def stack_counts(params) -> dict:
             if isinstance(params, dict) and isinstance(params.get(k), list)}
 
 
-def stacked_shape(path: str, leaf: torch.Tensor, counts: dict) -> tuple:
+def stacked_shape(path: str, leaf, counts: dict) -> tuple:
     """The shape this leaf of a parameter tree has in the JAX package,
     which stacks the layers of each list of ``counts``
     (:func:`stack_counts`) on a leading axis (an MoE model's
-    ``first_blocks`` stay a list there too)."""
-    shape = tuple(leaf.shape)
+    ``first_blocks`` stay a list there too).  ``leaf``: a tensor, or the
+    whole leaf's shape where a mesh rank holds a shard of it
+    (``sharding.partition.whole_shape``)."""
+    shape = tuple(leaf if isinstance(leaf, tuple) else leaf.shape)
     for k, n in counts.items():
         if path.startswith(f"['{k}']"):
             return (n,) + shape

@@ -25,7 +25,9 @@ from repro.train.steps import init_train_state as jinit
 
 from repro_torch import convert
 from repro_torch.configs import get_config as tget_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm as LM
+from repro_torch.sharding import partition as PT
 from repro_torch.testing import FaultInjector
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import tree as T
@@ -113,7 +115,13 @@ def test_elastic_restore_onto_one_device_and_refuses_a_mesh(tmp_path):
     ckpt.save(d, 11, state)
     restored, at = elastic_restore(d, state, device="cpu")
     assert at == 11 and _equal(restored, state)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    # onto a mesh (here the one-device host mesh: every spec replicates)
+    # through the specs make_shardings gives for it; a mesh without them
+    # is refused (tests/test_torch_mesh_train.py restores onto ranks)
+    restored, at = elastic_restore(d, state, make_host_mesh(),
+                                   PT.make_train_state_specs)
+    assert at == 11 and _equal(restored, state)
+    with pytest.raises(ValueError, match="make_shardings"):
         elastic_restore(d, state, new_mesh=(2, 2))
 
 

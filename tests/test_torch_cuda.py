@@ -1855,6 +1855,47 @@ def test_mesh_ranks_on_card_are_one_process_bitwise(card):
         assert not launches.get("fused_decode_matmul:simt")
 
 
+def test_train_mesh_step_on_card_matches_one_process(card):
+    """Four ranks on the one card (gloo), the Llama smoke train state
+    sharded on (2, 2) (ZeRO-3): 3 steps, each from the state the mesh
+    reached against one process's step on the card from the same state —
+    the loss within 1e-5 relative and the parameters, as one vector,
+    within 1e-6 (tests/test_torch_mesh_train.py's step bounds: the
+    gradients add over the data ranks in another order); every rank the
+    same losses; each rank's forward on K2's f32 kernel, one launch a
+    layer a step."""
+    import torch_mesh_train_worker
+    from repro_torch.launch import mesh as M
+    from repro_torch.train import tree as T
+    from repro_torch.train.data import DataConfig, DataPipeline
+    from repro_torch.train.steps import (TrainConfig, init_train_state,
+                                         make_train_step)
+    _build.build()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama3.2-1b").smoke
+    tcfg = TrainConfig()
+    state = init_train_state(LM.init_lm(cfg, seed=0, device=card), tcfg)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, batch=4,
+                                   seq_len=32, seed=2))
+    batches = [data.batch_at(i) for i in range(3)]
+    outs = M.spawn(torch_mesh_train_worker.run, 4, (2, 2), {
+        "steps": {"llama": (cfg, tcfg, state, batches)}}, device="cuda")
+    states, metrics, _ = outs[0]["llama"]
+    step = make_train_step(cfg, tcfg)
+    for i, b in enumerate(batches):
+        new, m = step(T.map_leaves(lambda t: t.to(card), states[i]), b)
+        assert metrics[i]["loss"] == pytest.approx(float(m["loss"]),
+                                                   rel=1e-5), i
+        a, w = T.leaves(states[i + 1]["params"]), T.leaves(new["params"])
+        num = sum(float(((x.to(card) - y) ** 2).sum()) for x, y in zip(a, w))
+        den = sum(float((y ** 2).sum()) for y in w)
+        assert (num / den) ** 0.5 <= 1e-6, i
+    for out in outs:
+        assert out["llama"][1] == metrics
+        assert out["launches"] == {"flash_attention:tf32x3":
+                                   3 * cfg.n_layers}
+
+
 def _example(name):
     import importlib.util
     from pathlib import Path

@@ -14,12 +14,12 @@ from (``repro_torch.train.data``), on the CPU.
     (``repro_torch.convert``), the Llama run's ``sample:`` tokens and its
     completions by reason equal the reference launcher's, run in-process.
   * The training launcher: each flag set trains on the CPU (the loss
-    falls); ``--mesh single|multi`` is refused; a run stopped by SIGINT
-    and started again resumes from its checkpoint with the uninterrupted
-    run's losses, bit for bit (the same eager ops on the same CPU); on
-    the reference's init its losses are the reference's train step's
-    under the launcher's TrainConfig, within 1e-5 relative (f32 sums in
-    another order; tests/test_torch_train.py).
+    falls); ``--mesh single|multi`` is refused without its ranks; a run
+    stopped by SIGINT and started again resumes from its checkpoint with
+    the uninterrupted run's losses, bit for bit (the same eager ops on the
+    same CPU); on the reference's init its losses are the reference's
+    train step's under the launcher's TrainConfig, within 1e-5 relative
+    (f32 sums in another order; tests/test_torch_train.py).
 """
 import re
 import sys
@@ -229,10 +229,13 @@ def test_train_main_runs_each_flag_set_on_cpu(flags, capsys, tmp_path):
 
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_train_mesh_is_refused(mesh, capsys):
+    """Without the production mesh's ranks started (torchrun), the mesh is
+    refused, naming the ranks it needs."""
     with pytest.raises(SystemExit) as e:
         TT.main(["--device", "cpu", "--mesh", mesh])
     assert e.value.code != 0
-    assert "queue 1 item 3" in capsys.readouterr().err
+    need = 256 if mesh == "single" else 512
+    assert f"needs {need} devices, have 1" in capsys.readouterr().err
 
 
 def test_train_default_device_is_the_card():

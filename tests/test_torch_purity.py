@@ -31,8 +31,8 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 # modules of the MoE slice, of request-level serving, of integrity and
 # resilience, of tiered residency and the governor, of the serving
 # launcher and its data pipeline, of training and calibration, of the
-# other decoder-only families, of the encoder–decoder and of serving on a
-# mesh, which the walk below must reach
+# other decoder-only families, of the encoder–decoder, of serving on a
+# mesh and of training on one, which the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
@@ -57,7 +57,8 @@ MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.configs.kimi_k2_1t_a32b",
                "repro_torch.models.encdec",
                "repro_torch.configs.seamless_m4t_medium",
-               "repro_torch.launch.mesh", "repro_torch.sharding.partition")
+               "repro_torch.launch.mesh", "repro_torch.sharding.partition",
+               "repro_torch.testing.routes")
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -93,6 +94,16 @@ def test_example_imports_no_jax_and_no_reference(name):
     assert any(n.startswith("repro_torch") for n in names)
     code = "\n".join(f"import {n}" for n in sorted(names)) + \
         _CHECK.format(forbidden=FORBIDDEN)
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("name", ["torch_mesh_worker",
+                                  "torch_mesh_train_worker"])
+def test_mesh_worker_imports_no_jax_and_no_reference(name):
+    """What the spawned ranks of the mesh tests import by name."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+            f"import {name}" + _CHECK.format(forbidden=FORBIDDEN))
     out = _run(code)
     assert out.returncode == 0, out.stderr
 
