@@ -147,12 +147,24 @@ training on a mesh; the script exits non-zero if any phase fails:
      TRAIN_MESH_RESTORE and into one process, one more step each;
      DeepSeek-V2-Lite at 2 layers on TRAIN_MESH_MOE, its kept (token,
      expert) pairs equal one process's; K2 f32 at a data rank's shape.
+ 13. Dry run (``dryrun_phase``, last): plans on fake tensors
+     (``launch/dryrun.py``) for an H100 SXM of 132 SMs (the card's count
+     must be that), held against this run: the train_mesh phase's Llama
+     cell on each rank of a ``PlannedMesh`` (bytes by collective, K2's
+     launches and the state's bytes equal to what the rank measured, the
+     planned peak within DRYRUN_PEAK_RATIO of the measured), Llama-3.2-1B
+     compressed on the fixed batch (a prefill's and a decode step's
+     launches by kernel and argument bytes equal to the card's eager
+     calls, K1's planned bytes a layer within DRYRUN_K1_RTOL of those
+     behind PERF.md's K1 bound); and internlm2-1.8b's decode_32k on the
+     16×16 mesh, which must plan (its bytes a rank printed, not gated).
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
 a ``family`` line per model of the families phase, an ``encdec`` line,
 an ``examples`` and a ``mesh`` line (with ``mesh_detail``), a
-``train_mesh`` line (with ``train_mesh_detail``),
+``train_mesh`` line (with ``train_mesh_detail``), a ``dryrun`` line (with
+``dryrun_detail``),
 K1/K3's SIMT kernel's launches by phase, one JSON
 ``kernels`` line (every kernel, with the launches of its path's run; on
 Llama's rows also the engine drain's, ``engine_launches``), the
@@ -463,8 +475,10 @@ def check_fused(rt, lut, projections, device, m_prefill, gen, timer,
                          if (r["N"], r["K"], r["M"], r["layers"]) == key)
             else:
                 seen.add(key)
-                b, by = bound_ms(nbytes(xr, *args) + m * n * 2,
-                                 2.0 * m * n * k)
+                flops, moved = fdm.work(m, n, k, codes=w.codes,
+                                        literals=w.literals, lut=lut,
+                                        scale=w.scale, zero=w.zero)
+                b, by = bound_ms(moved, flops)
                 kern = [lambda p=planes(wl): fdm.fused_decode_matmul(
                     xr, *p[0], **p[1], **pk) for wl in ws]
                 wbs = [wl.materialize(lut, torch.bfloat16) for wl in ws]
@@ -581,7 +595,8 @@ def check_k5(rt, wq, scale, zero, wb, m, gen, timer, plain=True,
     if not (same and again and err <= tol and torch.isfinite(yk).all()):
         raise AssertionError(f"K5 ({m}, {n}, {k}): bitwise={same} err={err}"
                              f" tol={tol} repeatable={again}")
-    b, by = bound_ms(nbytes(xr, *args) + m * n * 2, 2.0 * m * n * k)
+    flops, moved = dqm.work(m, n, k, wq=wq, scale=scale, zero=zero)
+    b, by = bound_ms(moved, flops)
     return {"bitwise": same, "max_abs_err": err,
             "launch": dequant_launch(dqm, m, n, k, decode, plan_n), **pk,
             "ms": weight_graph_ms(timer, wq, lambda: dq(xr, *args)),
@@ -649,11 +664,9 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
                 and torch.isfinite(yk).all()):
             raise AssertionError(f"K2 ({d}, {dv}) T={tq}: bf16 err {err}, "
                                  f"f32 err {err32}, launches {routed}")
-        pairs = sum(min(tk, i + 1) for i in range(tq))
-        seen_k = min(tk, tq)
-        kv_bytes = 2 * BATCH * hkv * seen_k * (d + dv)
-        flops = 2.0 * (d + dv) * BATCH * hq * pairs
-        b, by = bound_ms(kv_bytes + 2 * BATCH * hq * tq * (d + dv), flops)
+        flops, moved = fa.work(BATCH, hq, hkv, tq, tk, d, dv)
+        kv_bytes = moved - 2 * BATCH * hq * tq * (d + dv)
+        b, by = bound_ms(moved, flops)
         b32, by32 = bound_ms(kv_bytes + 4 * BATCH * hq * tq * (d + dv),
                              3 * flops, TF32_FLOP_PER_S)
         kr, vr = kb[:, :, :tq], vb[:, :, :tq]
@@ -701,8 +714,13 @@ def check_flash(rt, device, t_prefill, gen, timer, hq, hkv, d, dv, what):
 def plane_bytes(w) -> int:
     """Bytes a decode of the packed weight ``w`` must read: the codes, the
     literal rows its blocks use (4 × Σ nlit), scale and zero."""
-    return (w.codes.numel() * 2 + int(w.nlit.sum()) * 4
+    return (w.codes.numel() * 2 + used_literal_bytes(w)
             + (w.scale.numel() + w.zero.numel()) * 4)
+
+
+def used_literal_bytes(w) -> int:
+    """The literal rows the blocks of ``w`` use: 4 × Σ nlit bytes."""
+    return int(w.nlit.sum()) * 4
 
 
 def check_grouped(rt, cfg, state, device, n_prefill, gen, timer,
@@ -753,8 +771,11 @@ def check_grouped(rt, cfg, state, device, n_prefill, gen, timer,
                 raise AssertionError(f"K3 {name} {tuple(w.codes.shape)} "
                                      f"M={m}: bitwise={same} err={err} "
                                      f"tol={tol}")
-            b, by = bound_ms(nbytes(xr, lut) + plane_bytes(w) + e * m * n * 2,
-                             2.0 * e * m * n * k)
+            flops, moved = fdm.work(m, n, k, codes=w.codes,
+                                    literals=w.literals, lut=lut,
+                                    scale=w.scale, zero=w.zero, e=e,
+                                    literal_bytes=used_literal_bytes(w))
+            b, by = bound_ms(moved, flops)
             # one stack's planes (~280 MB) and bf16 weights (~370 MB) are
             # each past the 50 MB L2, so repeated calls find it cold
             t = {"stack": name, "E": e, "N": n, "K": k, "M": m,
@@ -822,8 +843,10 @@ def check_grouped_rows(rt, state, device, gen, timer, m):
             lambda x, dt: fdm.grouped_fused_decode_matmul_plain(
                 x, *args, **kw, out_dtype=dt), m, k, gen, device, lead=(e,))
         wbt = w.materialize(lut, torch.bfloat16).transpose(1, 2)
-        b, by = bound_ms(nbytes(xr, lut) + plane_bytes(w) + e * m * n * 2,
-                         2.0 * e * m * n * k)
+        flops, moved = fdm.work(m, n, k, codes=w.codes, literals=w.literals,
+                                lut=lut, scale=w.scale, zero=w.zero, e=e,
+                                literal_bytes=used_literal_bytes(w))
+        b, by = bound_ms(moved, flops)
         t = {"stack": name, "E": e, "N": n, "K": k, "M": m, **fields,
              "ms": timer.graph_ms([lambda: fdm.grouped_fused_decode_matmul(
                  xr, *args, **kw, decode=True)] * 4),
@@ -867,8 +890,9 @@ def check_dict_decode(rt, w, lut, timer):
         slots, cap = codes.shape[1], lits.shape[1]
         nlit = w.nlit[:nb].clamp(max=cap)
         lut_rows = torch.unique(codes[codes != -1]).numel()  # -1: escape
-        moved = (nb * slots * 2 + int(nlit.sum()) * 4
-                 + lut_rows * lut.shape[1] + nb * slots * 4)
+        _, moved = ddc.work(nb, slots, cap, lut.shape[0],
+                            literal_rows=int(nlit.sum()),
+                            lut_rows_read=lut_rows)
         b, by = bound_ms(moved, 0.0)
         half = torch.empty(moved // 2, dtype=torch.uint8, device=got.device)
         other = torch.empty_like(half)
@@ -4961,6 +4985,9 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                     "rank 0"))
     log("train_mesh_detail " + json.dumps(res, default=str))
     ranks = res["per_rank"]
+    # what the dry run's phase holds its plan of this cell against
+    rt["train_mesh"] = {"cfg": cfg, "tcfg": tcfg, "batch": data.batch_at(1),
+                        "per_rank": ranks}
     return {"note": res["note"], "model": res["model"], "one_process": one,
             "summary": {r: {f: d[f] for f in ("losses", "step_ms",
                                               "comm_s_a_step",
@@ -4971,6 +4998,218 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                          if "restored" in d},
             "one_process_restored": res["one_process"]["restored"],
             "deepseek": moe, "spawn_s": res["spawn_s"]}
+
+
+# The dry run (``dryrun_phase``, last): plans on fake tensors held against
+# the runs above and one production cell.
+#  * The planned peak (arguments + the step's peak of temporaries) against
+#    a rank's measured ``max_memory_allocated`` over the train_mesh
+#    phase's steps and checkpoint: the plan counts storages, not the
+#    caching allocator's blocks, and the measured peak spans two steps and
+#    a checkpoint's gather, so only their ratio is gated.
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+#  * PERF.md §6's K1 decode bound of one Llama-3.2-1B layer's 7
+#    projections at M = 4 (ms at HBM_BYTES_PER_S): the plan's K1 bytes a
+#    layer must come within DRYRUN_K1_RTOL of the bytes behind it.
+DRYRUN_K1_BOUND_MS, DRYRUN_K1_RTOL = 0.0279, 0.01
+DRYRUN_CELL = ("internlm2-1.8b", "decode_32k")   # on the 16×16 mesh
+
+
+def dryrun_train_mesh(rt, faults) -> dict:
+    """The train_mesh phase's Llama cell planned on each rank of a
+    ``PlannedMesh`` of TRAIN_MESH: one ``make_train_step`` on the rank's
+    ZeRO-3 shards (``launch.specs.train_state_specs``, f32) against what
+    that rank measured in its second step: bytes by collective and K2's
+    f32 launches equal, the state's bytes equal its shards', the planned
+    peak against the measured peak within DRYRUN_PEAK_RATIO."""
+    tm = rt.get("train_mesh")
+    if tm is None:
+        faults.append("dryrun: the train_mesh phase left no measurements")
+        return {}
+    D, PT, S = rt["dryrun"], rt["partition"], rt["steps"]
+    cfg, tcfg, batch = tm["cfg"], tm["tcfg"], tm["batch"]
+    dev = D.planned_device("cuda")
+    out = {}
+    for r in range(math.prod(TRAIN_MESH)):
+        got = tm["per_rank"][f"rank{r}"]
+        mesh = rt["mesh"].PlannedMesh(TRAIN_MESH, ("data", "model"), r)
+        with D.fake_tensors(dev):
+            state = rt["specs"].train_state_specs(cfg, tcfg.optimizer,
+                                                  torch.float32, dev)
+            specs = PT.make_train_state_specs(state, mesh)
+            shards = PT.shard_tree(state, specs, mesh)
+            del state
+            fb = D.fake_like(batch, dev)
+            plan = D.plan_step(S.make_train_step(cfg, tcfg, mesh=mesh,
+                                                 specs=specs),
+                               shards, fb, mesh=mesh, grad=True)
+        mem = plan["memory"]
+        k2 = plan["kernels"].get("flash_attention:tf32x3", {})
+        row = {"received_planned": plan["collectives"][
+                   "received_bytes_by_kind"],
+               "received_measured": got["bytes_a_step"][1],
+               "k2_planned": k2.get("launches", 0),
+               "k2_measured": got["kernel_launches"].get(
+                   "flash_attention:tf32x3", 0) / TRAIN_MESH_STEPS,
+               "state_bytes_planned": mem["argument_size_in_bytes"]
+               - rt["op_stats"].tree_bytes(fb),
+               "state_bytes_measured": got["shard_bytes"],
+               "peak_planned": mem["total_hbm_bytes"],
+               "peak_measured": got["peak_mem_bytes"],
+               "memory": mem, "collectives": plan["collectives"]}
+        row["peak_ratio"] = row["peak_planned"] / row["peak_measured"]
+        out[f"rank{r}"] = row
+        lo, hi = DRYRUN_PEAK_RATIO
+        if not (row["received_planned"] == row["received_measured"]
+                and row["k2_planned"] == row["k2_measured"]
+                == TRAIN_MESH_LAYERS
+                and row["state_bytes_planned"] == row["state_bytes_measured"]
+                and lo <= row["peak_ratio"] <= hi):
+            faults.append(f"dryrun train_mesh rank {r}: {row}")
+    return out
+
+
+def dryrun_llama(rt, device, faults) -> dict:
+    """Llama-3.2-1B at full width, compressed, on the fixed batch: a
+    prefill and one decode step, planned on fake tensors of the packed
+    state's own shapes, against ``KERNEL_COUNTS`` of the same eager calls
+    on the card (the decode step: 112 K1 decode, 1 K5 decode, no K2, as
+    PERF.md §6 counts them); the argument bytes and the state's bytes
+    equal; the plan's K1 bytes a layer at decode within DRYRUN_K1_RTOL of
+    the bytes behind §6's K1 bound."""
+    D, ops, _build = rt["dryrun"], rt["op_stats"], rt["_build"]
+    cfg = rt["get_config"]("llama3.2-1b").full
+    batch, _ = make_prompts(cfg.vocab_size)
+    state, packing = pack(rt, cfg, device, SEED)
+    ids = torch.as_tensor(batch, device=device)
+    t0 = batch.shape[1]
+    caches = rt["LM"].init_caches(cfg, BATCH, t0 + MAX_NEW, device=device)
+    prefill, decode = rt["make_serve_fns"](cfg, device=device)
+    real = {}
+    with torch.no_grad():
+        _build.KERNEL_COUNTS.clear()
+        logits, caches = prefill(state.params, state.lut, {"tokens": ids},
+                                 caches)
+        torch.cuda.synchronize()
+        real["prefill"] = dict(_build.KERNEL_COUNTS)
+        tok = logits.argmax(-1)[:, None]
+        holds = ops.tree_bytes(state.params, state.lut, tok, caches)
+        _build.KERNEL_COUNTS.clear()
+        decode(state.params, state.lut, tok, caches, t0)
+        torch.cuda.synchronize()
+        real["decode"] = dict(_build.KERNEL_COUNTS)
+    real_state = ops.tree_bytes(state.params, state.lut)
+    dev = D.planned_device("cuda")
+    plans = {}
+    with D.fake_tensors(dev):
+        params, lut = D.fake_like(state.params, dev), D.fake_like(state.lut,
+                                                                 dev)
+        fcaches = D.fake_like(caches, dev)
+        plans["prefill"] = D.plan_step(
+            D.serve_step(cfg, "prefill", None, dev), params, lut,
+            {"tokens": D.fake_like(ids, dev)}, fcaches, mesh=None)
+        plans["decode"] = D.plan_step(
+            D.serve_step(cfg, "decode", None, dev), params, lut,
+            D.fake_like(tok, dev), fcaches, t0, mesh=None)
+        plan_state = ops.tree_bytes(params, lut)
+    del state, caches, logits
+    torch.cuda.empty_cache()
+    out = {"packing": packing, "state_bytes_measured": real_state,
+           "state_bytes_planned": plan_state,
+           "decode_argument_bytes_measured": holds}
+    for step in ("prefill", "decode"):
+        launches = {k: v["launches"]
+                    for k, v in plans[step]["kernels"].items()}
+        out[step] = {"launches_planned": launches,
+                     "launches_measured": real[step],
+                     "memory": plans[step]["memory"],
+                     "cost": plans[step]["cost"]}
+        if launches != real[step]:
+            faults.append(f"dryrun llama {step}: planned {launches}, "
+                          f"measured {real[step]}")
+    want = {"fused_decode_matmul:decode": 7 * cfg.n_layers,
+            "dequant_matmul:decode": 1}
+    k1 = plans["decode"]["kernels"].get("fused_decode_matmul:decode", {})
+    out["k1_bytes_a_layer_planned"] = k1.get("bytes", 0) / cfg.n_layers
+    out["k1_bytes_behind_bound"] = DRYRUN_K1_BOUND_MS * 1e-3 \
+        * HBM_BYTES_PER_S
+    out["k1_rel_diff"] = (out["k1_bytes_a_layer_planned"]
+                          / out["k1_bytes_behind_bound"] - 1)
+    arg = plans["decode"]["memory"]["argument_size_in_bytes"]
+    if not (out["decode"]["launches_planned"] == want
+            and arg == holds and plan_state == real_state
+            and abs(out["k1_rel_diff"]) <= DRYRUN_K1_RTOL):
+        faults.append(f"dryrun llama: decode launches "
+                      f"{out['decode']['launches_planned']} (want {want}), "
+                      f"argument bytes {arg} vs {holds}, state "
+                      f"{plan_state} vs {real_state}, K1 bytes a layer "
+                      f"{out['k1_rel_diff']:+.4f} off the bound's")
+    return out
+
+
+def dryrun_cell(rt, faults) -> dict:
+    """One production cell (DRYRUN_CELL, rank 0 of the 16×16 mesh) through
+    ``launch.dryrun.run_cell``: it must plan; its per-rank bytes are
+    printed beside the card's memory, with no gate on the fit."""
+    rec = rt["dryrun"].run_cell(*DRYRUN_CELL, multi_pod=False)
+    if not rec["ok"]:
+        faults.append(f"dryrun cell {DRYRUN_CELL}: {rec.get('error')}")
+        return rec
+    mem, gb = rec["memory"], 1e9
+    return {"cell": f"{DRYRUN_CELL[0]} {DRYRUN_CELL[1]} single (16x16)",
+            "planned": rec["planned"],
+            "per_rank_gb": {k: mem[f"{k}_size_in_bytes"] / gb
+                            for k in ("argument", "temp")}
+            | {"total": mem["total_hbm_bytes"] / gb},
+            "card_gb": torch.cuda.get_device_properties(0).total_memory / gb,
+            "collective_gb_by_kind": {
+                k: v / gb for k, v in rec["collectives"][
+                    "bytes_by_kind"].items()},
+            "launches_by_kernel": {k: v["launches"]
+                                   for k, v in rec["kernels"].items()},
+            "host_wall_s": rec["wall_s"]}
+
+
+def dryrun_phase(rt, device, gen, timer, kernels, faults) -> dict:
+    """The dry run (``launch/dryrun.py``), planned on fake tensors for an
+    H100 SXM of 132 SMs (the card's own count must be that): the
+    train_mesh cell against each rank's measurements
+    (``dryrun_train_mesh``), Llama-3.2-1B's prefill and decode step
+    against the card's launches (``dryrun_llama``), and internlm2-1.8b's
+    decode_32k cell on the 16×16 mesh (``dryrun_cell``).  Planned bytes
+    and FLOPs are the plan's, for that card; measured numbers are this
+    run's, beside nvidia-smi's name and power limit."""
+    _build = rt["_build"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"planned_sms": _build.PLAN_SMS, "device_sms": sms,
+           "nvidia_smi": nvidia_smi_line()}
+    if sms != _build.PLAN_SMS:
+        faults.append(f"dryrun: the card has {sms} SMs, the plans "
+                      f"{_build.PLAN_SMS}")
+    for name, fn in (("train_mesh", lambda: dryrun_train_mesh(rt, faults)),
+                     ("llama", lambda: dryrun_llama(rt, device, faults)),
+                     ("cell", lambda: dryrun_cell(rt, faults))):
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn()
+        except Exception:
+            traceback.print_exc()
+            faults.append(f"dryrun {name} raised")
+        out[f"{name}_s"] = time.perf_counter() - t0
+    log("dryrun_detail " + json.dumps(out, default=str))
+    tm = out.get("train_mesh", {})
+    return {"sms": [sms, _build.PLAN_SMS],
+            "train_mesh": {r: {k: v[k] for k in (
+                "received_planned", "received_measured", "k2_planned",
+                "k2_measured", "state_bytes_planned", "state_bytes_measured",
+                "peak_planned", "peak_measured", "peak_ratio")}
+                for r, v in tm.items()},
+            "llama": {k: out.get("llama", {}).get(k) for k in (
+                "state_bytes_planned", "state_bytes_measured",
+                "k1_bytes_a_layer_planned", "k1_bytes_behind_bound",
+                "k1_rel_diff")},
+            "cell": out.get("cell"),
+            "seconds": {k: out[k] for k in out if k.endswith("_s")}}
 
 
 def phase(rt, name: str):
@@ -5429,7 +5668,7 @@ def load_runtime() -> dict:
     from repro_torch.train.data import DataConfig, DataPipeline
     from repro_torch.train import checkpoint, fault, optimizer, steps, tree
     from repro_torch.core import gptq, quant
-    from repro_torch.launch import mesh
+    from repro_torch.launch import dryrun, mesh, op_stats, specs
     from repro_torch.sharding import partition
     return {"launch_serve": launch_serve, "DataConfig": DataConfig,
           "launch_train": launch_train, "optimizer": optimizer,
@@ -5448,7 +5687,8 @@ def load_runtime() -> dict:
           "build_serve_params": build_serve_params, "generate": generate,
           "make_serve_fns": make_serve_fns, "Engine": Engine,
           "Request": Request, "ServeContext": ServeContext,
-          "mesh": mesh, "partition": partition, "routes": routes}
+          "mesh": mesh, "partition": partition, "routes": routes,
+          "dryrun": dryrun, "op_stats": op_stats, "specs": specs}
 
 
 def main() -> int:
@@ -5492,7 +5732,8 @@ def main() -> int:
     for name, fn in (("families", families_phase), ("encdec", encdec_phase),
                      ("examples", examples_phase), ("mesh", mesh_phase),
                      ("launcher", launcher_phase), ("train", train_phase),
-                     ("train_mesh", train_mesh_phase)):
+                     ("train_mesh", train_mesh_phase),
+                     ("dryrun", dryrun_phase)):
         t0 = time.perf_counter()
         phase(rt, name)
         res, faults = {}, []

@@ -25,3 +25,18 @@ def upload(a, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` that draws on ``device``.  On the
+    ``meta`` device and under a ``FakeTensorMode`` (a dry run's plan: only
+    shapes, nothing drawn) a CPU generator stands in, as ``meta`` has
+    none and a build of torch without CUDA cannot make a CUDA one; the
+    draws keep their device."""
+    from torch._guards import detect_fake_mode
+    if device.type == "meta" or (device.type != "cpu"
+                                 and detect_fake_mode() is not None):
+        device = torch.device("cpu")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen

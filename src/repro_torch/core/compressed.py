@@ -3,7 +3,9 @@
 Counterpart of ``repro/core/compressed.py`` (``QuantLinear``,
 ``PackedLinear``, ``TiledPackedLinear``, ``encode_tiled_planes``,
 ``pad_literals``, ``quantize_linear``, ``pack_linear_tiled``,
-``pack_expert_stack``).  A linear weight is dense (a tensor), a
+``pack_expert_stack``, and the dry run's planners ``planned_packed_specs``,
+``planned_tiled_specs``, ``planned_quant_specs`` and ``lut_spec``, which
+hold shapes and dtypes, never numbers).  A linear weight is dense (a tensor), a
 :class:`QuantLinear` (mode 'quant'), a :class:`PackedLinear` (mode
 'compressed') or, under ``CompressionPolicy(tiles=G)``, a
 :class:`TiledPackedLinear` (G column groups, each encoded on its own);
@@ -14,6 +16,7 @@ every plane.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import ClassVar, Optional
 
 import torch
@@ -70,6 +73,10 @@ class _PackedPlanes:
     # the mesh axes the planes were split over (see ``place_params``); the
     # planes and ``shape`` are then the rank's
     mesh_axes: Optional[tuple] = None
+    # the reference's flag: the consumer contracts the model-sharded dim
+    # (wo / w_down, ``sharding.partition.is_row_parallel``).  The planner
+    # sets it as the reference's specs do; no kernel path reads it.
+    row_parallel: bool = False
 
     GROUP_AXES: ClassVar[int] = 0
     PROBE: ClassVar[str] = ""
@@ -326,3 +333,89 @@ def pack_linear_tiled(w: torch.Tensor, table, tiles: int,
     return dataclasses.replace(t, codes=t.codes[0], literals=t.literals[0],
                                nlit=t.nlit[0], scale=t.scale[0],
                                zero=t.zero[0])
+
+
+# ---------------------------------------------------------------------------
+# Dry-run shape planning: containers of empty tensors (``meta``, or fake
+# tensors under a ``FakeTensorMode``) of the shapes and dtypes packing
+# gives, without data.
+# ---------------------------------------------------------------------------
+
+def _empty(shape, dtype, device):
+    return torch.empty(tuple(shape), dtype=dtype, device=device)
+
+
+def planned_packed_specs(shape: tuple, *, stacked: tuple = (),
+                         block_weights: int = bcdc.DEFAULT_BLOCK_WEIGHTS,
+                         seq_len: int = bcdc.DEFAULT_SEQ_LEN,
+                         lit_cap_frac: float = 0.25, tile_n: int = 0,
+                         tile_k: int = 0, device="meta") -> PackedLinear:
+    """A :class:`PackedLinear` of empty planes for a dense ``shape`` (the
+    reference's ``planned_packed_specs``).  ``lit_cap_frac``: the planned
+    escape rate, the literal capacity a share of the slots (packing sizes
+    it from the data).  ``tile_n/tile_k``: the tile-major layout (the block
+    size shrunk to divide the tile's volume); 0 the linear one."""
+    n = math.prod(shape)
+    if tile_n:
+        bw = bcdc._shrink_block_weights(tile_n * tile_k, block_weights,
+                                        seq_len)
+        nb = n // bw
+    else:
+        bw = block_weights
+        nb = -(-n // bw)
+    slots = bw // seq_len
+    cap = max(1, int(slots * lit_cap_frac))
+    out = shape[0]
+    return PackedLinear(
+        codes=_empty(stacked + (nb, slots), torch.int16, device),
+        literals=_empty(stacked + (nb, cap, seq_len), torch.uint8, device),
+        nlit=_empty(stacked + (nb,), torch.int32, device),
+        scale=_empty(stacked + (out, 1), torch.float32, device),
+        zero=_empty(stacked + (out, 1), torch.float32, device),
+        shape=tuple(shape), tile_n=tile_n, tile_k=tile_k)
+
+
+def planned_tiled_specs(shape: tuple, tiles: int, *, stacked: tuple = (),
+                        block_weights: int = bcdc.DEFAULT_BLOCK_WEIGHTS,
+                        seq_len: int = bcdc.DEFAULT_SEQ_LEN,
+                        lit_cap_frac: float = 0.25, tile_n: int = 0,
+                        tile_k: int = 0, device="meta"
+                        ) -> TiledPackedLinear:
+    """A :class:`TiledPackedLinear` of empty planes: ``tiles`` column
+    groups of (out, in/tiles), the block size first shrunk to the
+    sub-weight's volume in whole grams (as :func:`encode_tiled_planes`),
+    then to divide the tile's (the reference's ``planned_tiled_specs``)."""
+    out, in_full = shape
+    n = out * (in_full // tiles)
+    bw = min(block_weights, (n // seq_len) * seq_len) or seq_len
+    if tile_n:
+        bw = bcdc._shrink_block_weights(tile_n * tile_k, bw, seq_len)
+        nb = n // bw
+    else:
+        nb = -(-n // bw)
+    slots = bw // seq_len
+    cap = max(1, int(slots * lit_cap_frac))
+    return TiledPackedLinear(
+        codes=_empty(stacked + (tiles, nb, slots), torch.int16, device),
+        literals=_empty(stacked + (tiles, nb, cap, seq_len), torch.uint8,
+                        device),
+        nlit=_empty(stacked + (tiles, nb), torch.int32, device),
+        scale=_empty(stacked + (out, 1), torch.float32, device),
+        zero=_empty(stacked + (out, 1), torch.float32, device),
+        shape=tuple(shape), tile_n=tile_n, tile_k=tile_k)
+
+
+def planned_quant_specs(shape: tuple, *, stacked: tuple = (),
+                        device="meta") -> QuantLinear:
+    """A :class:`QuantLinear` of empty planes for a dense ``shape``."""
+    return QuantLinear(
+        values=_empty(stacked + tuple(shape), torch.uint8, device),
+        scale=_empty(stacked + (shape[0], 1), torch.float32, device),
+        zero=_empty(stacked + (shape[0], 1), torch.float32, device))
+
+
+def lut_spec(n_codes: int = 65536, seq_len: int = bcdc.DEFAULT_SEQ_LEN,
+             device="meta") -> torch.Tensor:
+    """The model-wide decode LUT's empty stand-in: (n_codes, seq_len)
+    uint8."""
+    return _empty((n_codes, seq_len), torch.uint8, device)

@@ -13,10 +13,19 @@ first launch on a CUDA tensor builds what it needs, and :func:`build`
 starts one nvcc per source, all at once, for callers that want every
 kernel up front.  ``ptxas``' report (registers, shared memory, spills) is
 kept beside each library as ``.log``.
+
+A plan (``launch/dryrun.py``) runs the port on fake tensors under
+:func:`planning`: while one is open, every wrapper counts its launches in
+``LAUNCH_COUNTS`` and ``KERNEL_COUNTS`` as it does on the card, records
+each launch's FLOPs and bytes (its module's ``work`` formula) in
+:class:`Plan`, returns its output unwritten and makes no ``ctypes`` call;
+:func:`sm_count` answers the plan's SM count.  Outside a plan the
+wrappers read one module-level name, ``PLAN``, and are what they were.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,6 +53,11 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 # K5), by "<name>:<kernel>", the kernel their plan picked ("decode",
 # "mma", "simt"): which of a wrapper's kernels a run went through.
 KERNEL_COUNTS: collections.Counter = collections.Counter()
+
+# The plan a dry run records into (:func:`planning`), or None.
+PLAN: "Plan | None" = None
+# The SM count a plan is made for: an H100 SXM's (NVIDIA data sheet).
+PLAN_SMS = 132
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple, object] = {}
@@ -135,8 +149,44 @@ def function(name: str, symbol: str, argtypes: list):
     return fn
 
 
+class Plan:
+    """The kernel launches of one planned run, by ``"<wrapper>:<kernel>"``:
+    {key: {"launches", "flops", "bytes"}}, each launch's FLOPs and bytes
+    from its wrapper's ``work`` formula; ``sms``: the SM count the
+    wrappers' launch plans split by."""
+
+    def __init__(self, sms: int = PLAN_SMS):
+        self.sms = sms
+        self.kernels: dict = {}
+
+    def launch(self, key: str, work: tuple) -> None:
+        flops, nbytes = work
+        k = self.kernels.setdefault(key, {"launches": 0, "flops": 0,
+                                          "bytes": 0})
+        k["launches"] += 1
+        k["flops"] += int(flops)
+        k["bytes"] += int(nbytes)
+
+
+@contextlib.contextmanager
+def planning(sms: int = PLAN_SMS):
+    """Open a :class:`Plan` for the block: the wrappers plan their launches
+    into it instead of making them (see the module's note)."""
+    global PLAN
+    if PLAN is not None:
+        raise RuntimeError("a plan is already open")
+    PLAN = Plan(sms)
+    try:
+        yield PLAN
+    finally:
+        PLAN = None
+
+
 def sm_count(device) -> int:
-    """Streaming multiprocessors of a CUDA device (asked once per device)."""
+    """Streaming multiprocessors of a CUDA device (asked once per device);
+    under a plan, the plan's count."""
+    if PLAN is not None:
+        return PLAN.sms
     n = _SMS.get(device.index)
     if n is None:
         import torch

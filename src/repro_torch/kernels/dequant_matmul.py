@@ -164,6 +164,18 @@ def simt_plan(m: int, n: int, k: int, sms: int,
                        rpt=rpt, splits=splits)
 
 
+def work(m: int, n: int, k: int, *, wq, scale, zero,
+         out_dtype=torch.bfloat16) -> tuple:
+    """(FLOPs, bytes) of one launch over (M, K) × (K, N): 2·M·N·K
+    operations; x read once as bf16, ``wq``, scale and zero read once, the
+    output written once.  A dry run's plan (``launch/dryrun.py``) and
+    ``chip_smoke.py``'s bounds count by it."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    return (2 * m * n * k, 2 * m * k + nbytes(wq) + nbytes(scale)
+            + nbytes(zero) + m * n * out_dtype.itemsize)
+
+
 def dequant_matmul_plain(x, wq, scale, zero,
                          out_dtype=torch.float32) -> torch.Tensor:
     """Plain version: f32 integer-weight product, row sums of x, affine
@@ -203,10 +215,11 @@ def dequant_matmul(x, wq, scale, zero, out_dtype=torch.bfloat16,
     if not (wq.is_contiguous() and scale.is_contiguous()
             and zero.is_contiguous()):
         raise ValueError(f"{NAME}: wq, scale and zero must be contiguous")
-    if wq.data_ptr() % 16:
+    if _build.PLAN is None and wq.data_ptr() % 16:
         raise ValueError(f"{NAME}: wq must start on a 16-byte boundary")
     xb = x.to(torch.bfloat16).contiguous()
-    if xb.data_ptr() % 16:       # decode and mma copy x 16 B at a time
+    # decode and mma copy x 16 B at a time
+    if _build.PLAN is None and xb.data_ptr() % 16:
         xb = xb.clone()
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
@@ -230,6 +243,13 @@ def _launch(plan: DequantPlan, xb, wq, scale, zero, out, fn=None):
     design variants)."""
     m, k = xb.shape
     n = wq.shape[0]
+    if _build.PLAN is not None:        # a dry run: planned, not launched
+        rows = DECODE_M if plan.kernel == "decode" else m
+        for r in range(0, m, rows):
+            _build.PLAN.launch(f"{NAME}:{plan.kernel}", work(
+                min(rows, m - r), n, k, wq=wq, scale=scale, zero=zero,
+                out_dtype=out.dtype))
+        return
     dev = out.device
     bf16 = int(out.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(dev).cuda_stream

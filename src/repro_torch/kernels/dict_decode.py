@@ -37,6 +37,22 @@ def dict_decode_plain(codes, literals, lut) -> torch.Tensor:
     return decode_blocked(codes, literals, lut)
 
 
+def work(nb: int, slots: int, cap: int, lut_rows: int, *,
+         literal_rows: int | None = None,
+         lut_rows_read: int | None = None) -> tuple:
+    """(FLOPs, bytes) of one launch over ``nb`` blocks of ``slots`` codes
+    with ``cap`` literal rows each and a LUT of ``lut_rows`` rows: no
+    arithmetic; the codes, the literal rows and LUT rows read once, the
+    output written once.  ``literal_rows`` (Σ nlit) and ``lut_rows_read``
+    (the distinct codes): what the data uses, where it is known; by
+    default every literal row and LUT row, as a plan, which has no data,
+    counts them.  A dry run's plan (``launch/dryrun.py``) and
+    ``chip_smoke.py``'s bounds count by it."""
+    lits = nb * cap if literal_rows is None else literal_rows
+    rows = lut_rows if lut_rows_read is None else lut_rows_read
+    return 0, nb * slots * 2 + lits * 4 + rows * 4 + nb * slots * 4
+
+
 def launch_shape(nb: int, slots: int, lane_slots: int = LANE_SLOTS,
                  max_warps: int = MAX_WARPS) -> tuple:
     """(thread blocks, threads a block) that :func:`dict_decode` launches:
@@ -83,17 +99,22 @@ def dict_decode(codes, literals, lut) -> torch.Tensor:
     for what, t in (("codes", codes), ("literals", literals), ("lut", lut)):
         if not t.is_contiguous():
             raise ValueError(f"{NAME}: {what} must be contiguous")
-    if literals.data_ptr() % 4 or lut.data_ptr() % 4:
+    if _build.PLAN is None and (literals.data_ptr() % 4
+                                or lut.data_ptr() % 4):
         raise ValueError(f"{NAME}: literals and lut (read as uint32) must "
                          "start on a 4-byte boundary")
     out = torch.empty((nb, slots * 4), dtype=torch.uint8, device=dev)
     if nb == 0 or slots == 0:
         return out
-    _, threads = launch_shape(nb, slots)
-    fn = _build.function(NAME, "qmoe_dict_decode", _ARGTYPES)
-    err = fn(codes.data_ptr(), literals.data_ptr(), lut.data_ptr(),
-             out.data_ptr(), nb, slots, literals.shape[1], threads,
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, NAME)
+    if _build.PLAN is not None:        # a dry run: planned, not launched
+        _build.PLAN.launch(f"{NAME}:decode", work(
+            nb, slots, literals.shape[1], lut.shape[0]))
+    else:
+        _, threads = launch_shape(nb, slots)
+        fn = _build.function(NAME, "qmoe_dict_decode", _ARGTYPES)
+        err = fn(codes.data_ptr(), literals.data_ptr(), lut.data_ptr(),
+                 out.data_ptr(), nb, slots, literals.shape[1], threads,
+                 dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, NAME)
     _build.LAUNCH_COUNTS[NAME] += 1
     return out

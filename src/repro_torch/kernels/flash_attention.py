@@ -75,6 +75,28 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return out.reshape(b, hq, tq, v.shape[-1]).to(q.dtype)
 
 
+def work(b: int, hq: int, hkv: int, tq: int, tk: int, d: int, dv: int, *,
+         causal: bool = True, q_offset: int = 0, itemsize: int = 2
+         ) -> tuple:
+    """(FLOPs, bytes) of one launch: 2·(Dqk + Dv) operations per (query,
+    key) pair the mask keeps (query i sees keys up to q_offset + i, all
+    of them without the mask); the keys and values that some query sees
+    read once, q read and the output written once, each element of
+    ``itemsize`` bytes (2: the bf16 kernel; 4: the f32 one).  A dry run's
+    plan (``launch/dryrun.py``) and ``chip_smoke.py``'s bounds count by
+    it."""
+    if causal:
+        # Σ_i min(tk, q_offset + i + 1) over the tq queries
+        full = max(0, min(tq, q_offset + tq - tk + 1))
+        lo, hi = q_offset + 1, q_offset + tq - full
+        pairs = full * tk + (hi + lo) * max(0, hi - lo + 1) // 2
+        seen = min(tk, q_offset + tq)
+    else:
+        pairs, seen = tq * tk, tk
+    return (2 * (d + dv) * b * hq * pairs,
+            itemsize * (b * hkv * seen * (d + dv) + b * hq * tq * (d + dv)))
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if its base and (B, H, T) strides are multiples of 16 bytes
     (the kernels' copy unit: 8 bf16, 4 f32), else a contiguous copy that
@@ -126,15 +148,23 @@ def flash_attention(q, k, v, *, causal: bool = True,
     sm = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
     kernel = "mma" if q.dtype == k.dtype == torch.bfloat16 else "tf32x3"
     symbol, dtype = _KERNELS[kernel]
-    q, k, v = (_aligned(t.to(dtype)) for t in (q, k, v))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    if _build.PLAN is None:     # a plan's fake tensors have no address
+        q, k, v = (_aligned(t) for t in (q, k, v))
     res = out if out.dtype == dtype else torch.empty_like(out, dtype=dtype)
-    fn = _build.function(NAME, symbol, _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
-             b, hq, hkv, tq, tk, d, dv, *q.stride()[:3], *k.stride()[:3],
-             *v.stride()[:3], float(sm), int(causal), int(q_offset),
-             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     name = NAME if kernel == "mma" else F32_NAME
-    _build.check(err, name)
+    if _build.PLAN is not None:        # a dry run: planned, not launched
+        _build.PLAN.launch(f"{NAME}:{kernel}", work(
+            b, hq, hkv, tq, tk, d, dv, causal=causal, q_offset=q_offset,
+            itemsize=dtype.itemsize))
+    else:
+        fn = _build.function(NAME, symbol, _ARGTYPES)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), res.data_ptr(),
+                 b, hq, hkv, tq, tk, d, dv, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], float(sm), int(causal),
+                 int(q_offset), dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
     _build.KERNEL_COUNTS[f"{NAME}:{kernel}"] += 1
     if res is not out:

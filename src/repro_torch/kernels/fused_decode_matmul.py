@@ -271,6 +271,24 @@ def launch_grid(plan: Plan, m: int, n: int, tile_k: int, slots: int,
             "threads": 512 if plan.kernel == "mma" else 256}
 
 
+def work(m: int, n: int, k: int, *, codes, literals, lut, scale, zero,
+         e: int = 1, out_dtype=torch.bfloat16,
+         literal_bytes: int | None = None) -> tuple:
+    """(FLOPs, bytes) of one launch over E products (M, K) × (K, N):
+    2·E·M·N·K operations; x read once as bf16 (the kernel's operand), the
+    codes, the literals, the LUT, scale and zero read once, the output
+    written once.  ``literal_bytes``: the literal rows the blocks use,
+    where the data is known (4 × Σ nlit); by default the whole literal
+    plane, as a plan, which has no data, counts it.  A dry run's plan
+    (``launch/dryrun.py``) and ``chip_smoke.py``'s bounds count by it."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    lits = nbytes(literals) if literal_bytes is None else literal_bytes
+    return (2 * e * m * n * k,
+            2 * e * m * k + nbytes(codes) + lits + nbytes(lut)
+            + nbytes(scale) + nbytes(zero) + e * m * n * out_dtype.itemsize)
+
+
 def grouped_fused_decode_matmul_plain(x, codes, literals, lut, scale, zero,
                                       *, shape, tile_n: int, tile_k: int,
                                       out_dtype=torch.float32
@@ -352,8 +370,9 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
                     ("scale", scale), ("zero", zero)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
-    if codes.data_ptr() % 16 or literals.data_ptr() % 4 \
-            or lut.data_ptr() % 4:
+    if _build.PLAN is None and (codes.data_ptr() % 16
+                                or literals.data_ptr() % 4
+                                or lut.data_ptr() % 4):
         raise ValueError(f"{name}: codes (read 16 bytes at a time), "
                          "literals and lut (read as uint32) must start on "
                          "a 16-, 4- and 4-byte boundary")
@@ -364,7 +383,9 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
     pe, sms = plan_experts or e, _build.sm_count(dev)
     pn = plan_n or n
     plan = launch_plan(m, pn, k, tile_k, pe, sms, slots, decode)
-    fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul", _ARGTYPES)
+    if _build.PLAN is None:
+        fn = fn or _build.function(NAME, "qmoe_fused_decode_matmul",
+                                   _ARGTYPES)
     rows = DECODE_MAX_M if plan.row_groups > 1 else m
     for r in range(0, m, rows):
         mg = min(rows, m - r)
@@ -373,7 +394,8 @@ def _launch(name, x, codes, literals, lut, scale, zero, *, shape, tile_n,
         if strided:
             xg = xg.contiguous()
             og = torch.empty((e, mg, n), dtype=out_dtype, device=dev)
-        if xg.data_ptr() % 16:  # the tensor-core path loads x 16 B at a time
+        # the tensor-core path loads x 16 B at a time
+        if _build.PLAN is None and xg.data_ptr() % 16:
             xg = xg.clone()
         _launch_rows(name, fn, plan if mg == m else launch_plan(
             mg, pn, k, tile_k, pe, sms, slots), xg, codes, literals, lut,
@@ -410,17 +432,23 @@ def _launch_rows(name, fn, plan: Plan, xb, codes, literals, lut, scale, zero,
         part = torch.empty(e * splits * m * n, dtype=torch.float32,
                            device=dev)
         sx = torch.empty(e * splits * m, dtype=torch.float32, device=dev)
-    err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
-             lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-             out.data_ptr(), part.data_ptr() if part is not None else None,
-             sx.data_ptr() if sx is not None else None,
-             int(out.dtype == torch.bfloat16), e, m, n, k, tile_n, tile_k,
-             slots, literals.shape[2], bpt, groups, splits,
-             plan.tiles_per_split, plan.bm, plan.span,
-             plan.bands_per_block, plan.warps if plan.kernel == "decode"
-             else 0, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
+    if _build.PLAN is not None:        # a dry run: planned, not launched
+        _build.PLAN.launch(f"{name}:{plan.kernel}", work(
+            m, n, k, codes=codes, literals=literals, lut=lut, scale=scale,
+            zero=zero, e=e, out_dtype=out.dtype))
+    else:
+        err = fn(xb.data_ptr(), codes.data_ptr(), literals.data_ptr(),
+                 lut.data_ptr(), scale.data_ptr(), zero.data_ptr(),
+                 out.data_ptr(),
+                 part.data_ptr() if part is not None else None,
+                 sx.data_ptr() if sx is not None else None,
+                 int(out.dtype == torch.bfloat16), e, m, n, k, tile_n,
+                 tile_k, slots, literals.shape[2], bpt, groups, splits,
+                 plan.tiles_per_split, plan.bm, plan.span,
+                 plan.bands_per_block, plan.warps if plan.kernel == "decode"
+                 else 0, dev.index,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, name)
     _build.LAUNCH_COUNTS[name] += 1
     _build.KERNEL_COUNTS[f"{name}:{plan.kernel}"] += 1
 

@@ -26,7 +26,11 @@ Ranks start in one of two ways:
 ``make_production_mesh`` builds the reference's 16×16 and 2×16×16 meshes
 only when asked (256 and 512 ranks); :class:`AbstractMesh` is a mesh's
 shape and axis names without ranks, which is all the partition rules read
-(``sharding.partition``).
+(``sharding.partition``).  :class:`PlannedMesh` reaches the production
+shapes without ranks: one rank's coordinates on a mesh of any shape whose
+collectives return empty tensors of their results' shapes and count what
+they would move (the dry run, ``launch/dryrun.py``,
+``PlannedMesh.production``).
 
 Training on a mesh (``train/steps.py``) adds the collectives of a ZeRO
 step: ``all_to_all`` (the gradients' reduce-scatter), ``psum_diff``, a sum
@@ -233,6 +237,93 @@ class Mesh(AbstractMesh):
         return torch.device("cpu")
 
 
+# The reference's HLO collective kind of each of ``Mesh.traffic``'s keys
+# that a step runs: an all-gather is an ``all-gather``; ``psum`` (a gather
+# and a sum in rank order, here) and the ``pmin``/``pmax``/``agree``
+# reductions are its ``all-reduce``; ``all_to_all`` (the gradients'
+# reduce-scatter) is an ``all-to-all``.
+HLO_KIND = {"all_gather": "all-gather", "psum": "all-reduce",
+            "all_reduce": "all-reduce", "all_to_all": "all-to-all"}
+
+
+class PlannedMesh(Mesh):
+    """One rank (``rank``, row-major over ``shape``) of a mesh of any shape,
+    with no process group and no ``torch.distributed`` world: a dry run's
+    mesh (``launch/dryrun.py``).  Its collectives reach no peer: each
+    returns empty tensors (fake under a ``FakeTensorMode``) of the real
+    result's shape and dtype, counts in ``traffic`` what ``Mesh`` counts
+    (the bytes this rank receives: (n − 1)·t for a gather), and counts
+    the reference's measures by HLO kind (``HLO_KIND``): ``ops``, the
+    result's bytes (``result_bytes``) and the operands' bytes
+    (``operand_bytes``), as ``repro/launch/hlo_stats.py`` reads them from
+    the compiled program — an all-gather's result n·t and operand t, an
+    all-reduce's both t, an all-to-all's both t.  ``agree`` returns its
+    own flag: a plan is one rank's view.  ``gather_host`` (a checkpoint's)
+    is not planned: it needs the ranks' world."""
+
+    def __init__(self, shape: tuple, axes: tuple, rank: int = 0):
+        super().__init__(tuple(int(x) for x in shape), tuple(axes),
+                         rank, {})
+        self.ops: collections.Counter = collections.Counter()
+        self.result_bytes: collections.Counter = collections.Counter()
+        self.operand_bytes: collections.Counter = collections.Counter()
+
+    @classmethod
+    def production(cls, *, multi_pod: bool = False,
+                   rank: int = 0) -> "PlannedMesh":
+        """Rank ``rank`` of the 16×16 or 2×16×16 mesh
+        (:func:`make_production_mesh`'s shapes)."""
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ((AXIS_POD, AXIS_DATA, AXIS_MODEL) if multi_pod
+                else (AXIS_DATA, AXIS_MODEL))
+        return cls(shape, axes, rank)
+
+    def _count(self, what: str, received: int, result: int,
+               operand: int) -> None:
+        kind = HLO_KIND[what]
+        self.traffic[what] += received
+        self.ops[kind] += 1
+        self.result_bytes[kind] += result
+        self.operand_bytes[kind] += operand
+
+    def _gather(self, t: torch.Tensor, axes: tuple, what: str) -> list:
+        t = t.contiguous()
+        n = self.axis_size(axes)
+        size = t.numel() * t.element_size()
+        self._count(what, (n - 1) * size, n * size if what == "all_gather"
+                    else size, size)
+        # one buffer of the n parts: the bytes Mesh's n buffers take
+        return list(torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                device=t.device).unbind(0))
+
+    def _reduce(self, t: torch.Tensor, axes, op) -> torch.Tensor:
+        axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
+        if not axes:
+            return t
+        out = torch.empty_like(t, memory_format=torch.contiguous_format)
+        size = out.numel() * out.element_size()
+        self._count("all_reduce", size, size, size)
+        return out
+
+    def agree(self, flag: bool) -> bool:
+        live = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        self._reduce(torch.zeros(1, dtype=torch.int32), live, None)
+        return bool(flag)
+
+    def all_to_all(self, t: torch.Tensor, axes) -> torch.Tensor:
+        axes = tuple(a for a in _ordered(self, axes) if self.shape[a] > 1)
+        if not axes:
+            return t
+        n = self.axis_size(axes)
+        size = t.numel() * t.element_size()
+        self._count("all_to_all", (n - 1) * (t.numel() // n)
+                    * t.element_size(), size, size)
+        return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+    def barrier(self) -> None:
+        return None
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes):
@@ -315,7 +406,8 @@ def make_mesh(shape: tuple, axes: tuple) -> Optional[Mesh]:
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16×16 single-pod (256 ranks) or 2×16×16 multi-pod (512 ranks); built
-    only when called, from ranks already started."""
+    only when called, from ranks already started.  To plan one rank of
+    these meshes without starting any: ``PlannedMesh.production``."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ((AXIS_POD, AXIS_DATA, AXIS_MODEL) if multi_pod
             else (AXIS_DATA, AXIS_MODEL))

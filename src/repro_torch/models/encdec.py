@@ -27,7 +27,7 @@ from typing import Any
 
 import torch
 
-from .._device import resolve_device
+from .._device import generator, resolve_device
 from . import layers as L
 
 Params = Any
@@ -39,8 +39,7 @@ def init_encdec(cfg, *, seed: int = 0, device=None,
     the caller passes another).  Same shapes and scales as the reference's
     ``init_encdec``; the numbers differ (torch and jax generators)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(device, seed)
     d, v = cfg.d_model, cfg.vocab_size
 
     def ones():

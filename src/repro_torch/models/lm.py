@@ -21,7 +21,7 @@ from typing import Any, Optional
 
 import torch
 
-from .._device import resolve_device
+from .._device import generator, resolve_device
 from . import layers as L
 from . import ssm as S
 
@@ -52,8 +52,7 @@ def init_lm(cfg, *, seed: int = 0, device=None,
     init; the numbers differ (torch and jax generators differ)."""
     _check_family(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(device, seed)
     d, v = cfg.d_model, cfg.vocab_size
     params: dict = {
         "embed": L._normal((v, d), gen, device, dtype, 0.02),

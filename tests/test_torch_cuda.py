@@ -1922,3 +1922,53 @@ def test_serve_batched_example_on_card(card, mode):
                                                device=card)
     assert out["prefill_ms"] > 0 and out["graph_tok_s"] > 0
     assert out["tokens"].shape == (8, 16)
+
+
+def test_dryrun_plan_matches_run_on_card(card):
+    """The dry run's plan (``launch/dryrun.py``) of the Llama smoke
+    model's eager prefill and one decode step, on fake tensors of the
+    packed state's shapes, launches by ``<wrapper>:<kernel>`` what the
+    same calls launch on the card (``_build.KERNEL_COUNTS``), and holds
+    the bytes they hold; the plans split by the card's own SM count."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import op_stats
+    assert torch.cuda.get_device_properties(card).multi_processor_count \
+        == _build.PLAN_SMS
+    cfg = get_config("llama3.2-1b").smoke
+    params = LM.init_lm(cfg, seed=0, device=card)
+    st = build_serve_params(params, CompressionPolicy(min_weight_size=1024),
+                            device=card, manifest=False)
+    ids = torch.randint(0, cfg.vocab_size, (3, 11), generator=_gen(card),
+                        device=card)
+    caches = LM.init_caches(cfg, 3, 16, device=card)
+    prefill, decode = make_serve_fns(cfg, device=card)
+    real = {}
+    with torch.no_grad():
+        _build.KERNEL_COUNTS.clear()
+        logits, caches = prefill(st.params, st.lut, {"tokens": ids}, caches)
+        real["prefill"] = dict(_build.KERNEL_COUNTS)
+        tok = logits.argmax(-1)[:, None]
+        held = op_stats.tree_bytes(st.params, st.lut, tok, caches)
+        _build.KERNEL_COUNTS.clear()
+        decode(st.params, st.lut, tok, caches, 11)
+        real["decode"] = dict(_build.KERNEL_COUNTS)
+    _build.KERNEL_COUNTS.clear()
+    plans = {}
+    with D.fake_tensors(card):
+        p, lut = D.fake_like(st.params, card), D.fake_like(st.lut, card)
+        fc = D.fake_like(caches, card)
+        plans["prefill"] = D.plan_step(D.serve_step(cfg, "prefill", None,
+                                                    card), p, lut,
+                                       {"tokens": D.fake_like(ids, card)},
+                                       fc, mesh=None)
+        plans["decode"] = D.plan_step(D.serve_step(cfg, "decode", None,
+                                                   card), p, lut,
+                                      D.fake_like(tok, card), fc, 11,
+                                      mesh=None)
+    _build.KERNEL_COUNTS.clear()
+    _build.LAUNCH_COUNTS.clear()
+    for step in ("prefill", "decode"):
+        assert {k: v["launches"] for k, v in
+                plans[step]["kernels"].items()} == real[step], step
+    assert real["prefill"]["flash_attention:mma"] == cfg.n_layers
+    assert plans["decode"]["memory"]["argument_size_in_bytes"] == held

@@ -32,7 +32,8 @@ print('clean', len([m for m in sys.modules if m.startswith('repro_torch')]))
 # resilience, of tiered residency and the governor, of the serving
 # launcher and its data pipeline, of training and calibration, of the
 # other decoder-only families, of the encoder–decoder, of serving on a
-# mesh and of training on one, which the walk below must reach
+# mesh and of training on one, and of the dry run (with the compressed
+# planners of core.compressed), which the walk below must reach
 MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.kernels.dict_decode",
                "repro_torch.serve.kv_cache", "repro_torch.serve.resilience",
@@ -58,7 +59,9 @@ MOE_MODULES = ("repro_torch.configs.deepseek_v2_lite_16b",
                "repro_torch.models.encdec",
                "repro_torch.configs.seamless_m4t_medium",
                "repro_torch.launch.mesh", "repro_torch.sharding.partition",
-               "repro_torch.testing.routes")
+               "repro_torch.testing.routes", "repro_torch.launch.specs",
+               "repro_torch.launch.dryrun", "repro_torch.launch.op_stats",
+               "repro_torch.core.compressed")
 
 
 def test_port_imports_no_jax_and_no_reference():
