@@ -112,15 +112,21 @@ training on a mesh; the script exits non-zero if any phase fails:
      and graphed tokens/s); an ``examples`` line.
  10. Mesh (``mesh_phase``): MESH_RANKS ranks on the one card over gloo
      (``launch.mesh.spawn``; the packed planes reach them through CUDA
-     IPC, each rank keeps its share): Llama-3.2-1B at full width and
-     depth on MESH_LLAMA through ``generate`` (tokens bitwise the
-     one-process eager loop's, every K1 launch at an out band's N, K5 at
-     the head's band, K1 launches a rank as one process's, no SIMT; K1/K5
-     rows on the bands), DeepSeek-V2-Lite at full width cut to
+     IPC, each rank keeps its share of the planes, of the vocab rows and
+     of the caches): Llama-3.2-1B at full width and depth on MESH_LLAMA
+     through ``generate`` (its kv heads on the model ranks: tokens
+     bitwise the one-process eager loop's, every K1 launch at an out
+     band's N, K5 on the stored vocab band, K1 launches a rank as one
+     process's, no SIMT; K1/K5 rows on the bands, a K2 row on the rank's
+     heads), then cut to MESH_ROWS_LAYERS layers on MESH_WIDE (each data
+     rank's rows bitwise one process serving them alone), DeepSeek-V2-Lite at full width cut to
      MESH_DS_LAYERS layers with ``moe_local_dispatch`` and the tiled
-     Llama cut to MESH_TILED_LAYERS on MESH_WIDE (prefill logits within
-     MESH_LOGIT_ATOL of one process; DeepSeek's tokens under the
-     exact-tie rule, K3 on 32 experts a rank, K4 and K2 on every rank);
+     Llama cut to MESH_TILED_LAYERS on MESH_WIDE, and the Llama smoke
+     model on MESH_SPREAD (its 2 kv heads on 4 ranks: each holds a block
+     of the cache's positions) (prefill logits within MESH_LOGIT_ATOL of
+     one process; tokens under the exact-tie rule; DeepSeek's K3 on 32
+     experts a rank, K4 and K2 on every rank); each rank's cache bytes
+     gated to be the whole caches' share, beside its peak memory;
      per-rank ms a step (ranks sharing one card); a ``mesh`` line.
  11. Train (``train_phase``): Llama-3.2-1B at full width, 16 layers,
      f32, trained TRAIN_STEPS steps from seed 0 (the loss must fall; every
@@ -157,7 +163,8 @@ training on a mesh; the script exits non-zero if any phase fails:
      launches by kernel and argument bytes equal to the card's eager
      calls, K1's planned bytes a layer within DRYRUN_K1_RTOL of those
      behind PERF.md's K1 bound); and internlm2-1.8b's decode_32k on the
-     16×16 mesh, which must plan (its bytes a rank printed, not gated).
+     16×16 mesh, which must plan (its bytes a rank and its caches'
+     beside the reference's share printed, not gated).
 
 Prints one ``kernel_detail`` and one ``e2e`` line per path, an
 ``engine`` and a ``rows`` line for Llama, a ``resilience`` line per path,
@@ -4207,7 +4214,13 @@ def examples_phase(rt, device, gen, timer, kernels, faults) -> dict:
 
 MESH_RANKS = 4
 MESH_LLAMA = (1, 2)      # Llama-3.2-1B, full width and depth, compressed
-MESH_WIDE = (2, 2)       # DeepSeek-V2-Lite (local-routing MoE), tiled Llama
+MESH_WIDE = (2, 2)       # Llama-3.2-1B's rows over data, DeepSeek-V2-Lite
+                         # (local-routing MoE), tiled Llama
+MESH_SPREAD = (1, 4)     # Llama smoke: 2 kv heads on 4 model ranks, each
+                         # holding a block of the cache's positions
+MESH_ROWS_LAYERS = 4     # Llama-3.2-1B's rows over data on MESH_WIDE: the
+                         # first 4 of the 16 layers packed for MESH_LLAMA
+                         # (a depth cut: the phase's time)
 MESH_DS_LAYERS = 2       # DeepSeek-V2-Lite at full width, cut to 2 layers
 MESH_TILED_LAYERS = 2    # tiled Llama-3.2-1B (tiles 2), cut to 2 layers
 #  * Local-routing MoE and column groups against one process at 2 layers:
@@ -4255,7 +4268,8 @@ def eager_logits(rt, cfg, params, lut, ids, ctx=None):
         ctx = rt["ServeContext"](cfg, lut=lut, device=device)
     prefill, step = rt["make_serve_fns"](ctx=ctx)
     b, t0 = ids.shape
-    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device)
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device,
+                                  mesh=ctx.mesh)
     torch.cuda.synchronize()
     t = time.perf_counter()
     logits, caches = prefill(params, lut, {"tokens": ids}, caches)
@@ -4353,6 +4367,26 @@ def band_bits(rt, mesh, lut, pairs, ms, gen) -> dict:
     return out
 
 
+def tensor_bytes(rt, tree) -> int:
+    """Bytes of every tensor of a tree (meta tensors included)."""
+    return sum(t.numel() * t.element_size()
+               for t in rt["engine"]._tensors(tree))
+
+
+def cache_report(rt, cfg, b, length, mesh, device) -> dict:
+    """The rank's caches of ``b`` rows and ``length`` positions as
+    ``lm.init_caches(mesh=)`` allocates them (``generate``'s), beside the
+    whole caches' bytes at the same (rounded) length, and this process's
+    peak memory on the card since its last reset."""
+    LM, PT = rt["LM"], rt["partition"]
+    share = LM.init_caches(cfg, b, length, device="meta", mesh=mesh)
+    whole = LM.init_caches(cfg, b, PT.cache_len(cfg, length, mesh),
+                           device="meta")
+    return {"cache_bytes": tensor_bytes(rt, share),
+            "whole_cache_bytes": tensor_bytes(rt, whole),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device)}
+
+
 def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
     """Llama-3.2-1B on MESH_LLAMA: a prefill on the mesh (the process's
     first: kernel loads, library handles, gloo's first collectives), then
@@ -4368,7 +4402,8 @@ def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
     params = rt["partition"].place_params(p["params"], mesh)
     ctx = rt["ServeContext"](cfg, lut=lut, device=device, mesh=mesh)
     prefill, _ = rt["make_serve_fns"](ctx=ctx)
-    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device)
+    caches = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device=device,
+                                  mesh=mesh)
     for _ in range(2):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -4377,12 +4412,14 @@ def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
         prefill_ms = (time.perf_counter() - t) * 1e3
     del caches
     rec.clear()
+    torch.cuda.reset_peak_memory_stats(device)
     toks, run = counted_run(rt, lambda: rt["generate"](
         params, cfg, ids, ctx=ctx, max_new=MAX_NEW))
     out = {"tokens": toks[:, t0:].cpu(), "run": run,
            "launch_shapes": rec.table(), "prefill_ms": prefill_ms,
            "step_ms": (run["s"] * 1e3 - prefill_ms) / (MAX_NEW - 1),
-           "rows": []}
+           "rows": [], **cache_report(rt, cfg, b, t0 + MAX_NEW, mesh,
+                                      device)}
     if mesh.rank == 0:
         blocks = params["blocks"]
         projections = [(name, [b[grp][name] for b in blocks], True)
@@ -4401,20 +4438,38 @@ def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
             launches=k1.get("fused_decode_matmul:decode", 0)
             + k1.get("fused_decode_matmul:mma", 0),
             launches_of=f"{cfg.name} generate on mesh {MESH_LLAMA}, rank 0"))
-        head = params["embed"]
-        n = head.values.shape[0]
+        head, whole_head = params["embed"], p["params"]["embed"]
+        n = whole_head.values.shape[0]
         band = slice(0, n // mesh.shape["model"])
-        wq, sc, zr = head.values[band], head.scale[band], head.zero[band]
+        # the rank stores its vocab band (partition.place_vocab), which
+        # K5 reads: the whole head's rows, byte for byte
+        out["head_band_stored"] = bool(
+            head.mesh_axes == ("model",)
+            and torch.equal(head.values, whole_head.values[band])
+            and torch.equal(head.scale, whole_head.scale[band]))
+        wq, sc, zr = head.values, head.scale, head.zero
         out["rows"].append({
-            **K5_ROW, **check_k5(rt, wq, sc, zr, head.materialize(
+            **K5_ROW, **check_k5(rt, wq, sc, zr, whole_head.materialize(
                 torch.bfloat16)[band], BATCH, gen, timer, decode=True,
                 plan_n=n),
-            "name": "dequant_matmul (mesh band N/2)",
+            "name": "dequant_matmul (mesh, stored vocab band N/2)",
             "timed_at": f"LM head band {wq.shape[0]}x{wq.shape[1]} of {n} "
-                        f"(planned for N), M={BATCH} (decode)",
+                        f"(stored on the rank, planned for N), M={BATCH} "
+                        "(decode)",
             "launches": run["launches"].get("dequant_matmul", 0),
             "launches_of": f"{cfg.name} generate on mesh {MESH_LLAMA}, "
                            "rank 0"})
+        shards = mesh.shape["model"]
+        hd = cfg.resolved_head_dim
+        row, _ = check_flash(rt, device, t0, gen, timer,
+                             cfg.n_heads // shards, cfg.n_kv_heads // shards,
+                             hd, hd, f"{cfg.name} prefill, the rank's heads "
+                             f"(H/{shards}) on mesh {MESH_LLAMA}")
+        out["rows"].append(dict(
+            row, name=f"flash_attention (mesh, the rank's heads H/{shards})",
+            launches=run["kernel_launches"].get("flash_attention:mma", 0),
+            launches_of=f"{cfg.name} generate on mesh {MESH_LLAMA}, "
+                        "rank 0"))
         whole = p["params"]
         out["band_bits"] = band_bits(
             rt, mesh, lut, [(name, whole["blocks"][0][grp][name],
@@ -4424,8 +4479,31 @@ def mesh_llama(rt, mesh, p, rec, gen, timer) -> dict:
                                               ("mlp", "w_gate"),
                                               ("mlp", "w_up"),
                                               ("mlp", "w_down"))]
-            + [("head", head, None)], (BATCH, ids.numel()), gen)
+            + [("head", whole_head, None)], (BATCH, ids.numel()), gen)
     return out
+
+
+def mesh_rows(rt, mesh, p, rec, gen, timer) -> dict:
+    """Llama-3.2-1B (MESH_ROWS_LAYERS layers) on MESH_WIDE through
+    ``generate``: each data rank
+    prefills and decodes its rows of the batch (``partition.batch_rows``)
+    over its caches of those rows and of its heads, and the new tokens
+    are gathered over data at the end (the counted main path)."""
+    cfg, lut, ids = p["cfg"], p["lut"], p["ids"]
+    device = ids.device
+    b, t0 = ids.shape
+    params = rt["partition"].place_params(p["params"], mesh)
+    ctx = rt["ServeContext"](cfg, lut=lut, device=device, mesh=mesh)
+    rows = rt["partition"].batch_rows(mesh, b)
+    rec.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    toks, run = counted_run(rt, lambda: rt["generate"](
+        params, cfg, ids, ctx=ctx, max_new=MAX_NEW))
+    return {"tokens": toks[:, t0:].cpu(), "run": run,
+            "rows_held": [rows.start, rows.stop],
+            "launch_shapes": rec.table(), "step_ms": None,
+            "prefill_ms": None, "s": run["s"],
+            **cache_report(rt, cfg, b, t0 + MAX_NEW, mesh, device)}
 
 
 def mesh_eager(rt, mesh, p, rec, gen, timer) -> dict:
@@ -4441,11 +4519,14 @@ def mesh_eager(rt, mesh, p, rec, gen, timer) -> dict:
     params = rt["partition"].place_params(p["params"], mesh)
     ctx = rt["ServeContext"](cfg, lut=lut, device=ids.device, mesh=mesh)
     rec.clear()
+    torch.cuda.reset_peak_memory_stats(ids.device)
     (toks, logits, prefill_ms, step_ms), run = counted_run(
         rt, lambda: eager_logits(rt, cfg, params, lut, ids, ctx))
     out = {"tokens": toks.cpu(), "run": run, "launch_shapes": rec.table(),
            "prefill_ms": prefill_ms, "step_ms": step_ms,
-           "logits": logits.cpu() if mesh.rank == 0 else None, "rows": []}
+           "logits": logits.cpu() if mesh.rank == 0 else None, "rows": [],
+           **cache_report(rt, cfg, ids.shape[0], ids.shape[1] + MAX_NEW,
+                          mesh, ids.device)}
     if mesh.rank == 0 and cfg.n_experts:
         held = types.SimpleNamespace(
             params={"blocks": params["blocks"][-1:]}, lut=lut)
@@ -4495,8 +4576,12 @@ def mesh_rank(rank: int, payload: dict) -> dict:
             del timer
         mesh = M.make_mesh(MESH_WIDE, ("data", "model"))
         timer = Timer(device) if mesh.rank == 0 else None
+        out["rows"] = mesh_rows(rt, mesh, payload["rows"], rec, gen, timer)
         for key in ("deepseek", "tiled"):
             out[key] = mesh_eager(rt, mesh, payload[key], rec, gen, timer)
+        mesh = M.make_mesh(MESH_SPREAD, ("data", "model"))
+        out["spread"] = mesh_eager(rt, mesh, payload["spread"], rec, gen,
+                                   timer)
     return out
 
 
@@ -4544,20 +4629,56 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
     tiled, _ = pack(rt, tcfg, device, SEED, tiles=2,
                     model_shards=MESH_WIDE[1])
     t_ref = eager_logits(rt, tcfg, tiled.params, tiled.lut, ids)
+    # Llama cut to MESH_ROWS_LAYERS layers (the same packed planes), and
+    # one process serving each data rank's rows of the batch alone
+    rcfg = replace(cfg, n_layers=MESH_ROWS_LAYERS)
+    rstate = types.SimpleNamespace(
+        params={**llama.params,
+                "blocks": llama.params["blocks"][:MESH_ROWS_LAYERS]},
+        lut=llama.lut)
+    row_refs = {}
+    for d in range(MESH_WIDE[0]):
+        per = ids.shape[0] // MESH_WIDE[0]
+        rows = slice(d * per, (d + 1) * per)
+        row_refs[(rows.start, rows.stop)] = eager_loop(
+            rt, rcfg, rstate, ids[rows])[0].cpu()
+    scfg = get("llama3.2-1b").smoke
+    sbatch, _ = make_prompts(scfg.vocab_size)
+    sids = torch.from_numpy(sbatch).to(device)
+    # the smoke weights are below the default policy's size floor: packed
+    # at 1 024 weights, as the launcher packs them (bf16 activations, K1,
+    # K5 and K2 at the smoke head dims)
+    spread = rt["build_serve_params"](
+        rt["LM"].init_lm(scfg, seed=SEED, device=device),
+        rt["CompressionPolicy"](mode="compressed", min_weight_size=1024),
+        model_shards=MESH_SPREAD[1], device=device)
+    s_ref = eager_logits(rt, scfg, spread.params, spread.lut, sids)
     payload = {
         "llama": {"cfg": cfg, "params": llama.params, "lut": llama.lut,
                   "ids": ids},
+        "rows": {"cfg": rcfg, "params": rstate.params, "lut": llama.lut,
+                 "ids": ids},
         "deepseek": {"cfg": replace(dcfg, moe_local_dispatch=True),
                      "params": ds.params, "lut": ds.lut, "ids": dids},
         "tiled": {"cfg": tcfg, "params": tiled.params, "lut": tiled.lut,
-                  "ids": ids}}
+                  "ids": ids},
+        "spread": {"cfg": scfg, "params": spread.params, "lut": spread.lut,
+                   "ids": sids}}
     torch.cuda.synchronize()
     t = time.perf_counter()
     outs = rt["mesh"].spawn(mesh_rank, MESH_RANKS, payload, device="cuda")
     spawn_s = time.perf_counter() - t
     res = {"spawn_s": spawn_s, "ranks": MESH_RANKS,
            "note": "ranks share one card: per-rank ms are not a multi-card "
-                   "speed", "llama": {}, "deepseek": {}, "tiled": {}}
+                   "speed", "llama": {}, "rows": {}, "deepseek": {},
+           "tiled": {}, "spread": {}}
+
+    def caches_of(o, split):
+        """A rank's cache bytes, gated to be the whole caches' 1/split."""
+        got = {k: o[k] for k in ("cache_bytes", "whole_cache_bytes",
+                                 "peak_mem_bytes")}
+        got["split"] = split
+        return got, o["cache_bytes"] * split == o["whole_cache_bytes"]
 
     # Llama on MESH_LLAMA
     bands = {w.shape[0] // mshards for b in llama.params["blocks"]
@@ -4571,12 +4692,18 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
               if key.startswith("fused_decode_matmul ")}
         k5n = {int(key.split("N=")[1].split()[0]) for key in o["launch_shapes"]
                if key.startswith("dequant_matmul ")}
+        mem, split_ok = caches_of(o, MESH_LLAMA[1])
         res["llama"][f"rank{r}"] = {
             "tokens_equal": bool(torch.equal(o["tokens"], ref_toks.cpu())),
             "prefill_ms": o["prefill_ms"], "step_ms": o["step_ms"],
             "kernel_launches": o["run"]["kernel_launches"],
             "dispatch": o["run"]["dispatch"],
-            "launch_shapes": o["launch_shapes"]}
+            "launch_shapes": o["launch_shapes"], **mem}
+        if not split_ok:
+            faults.append(f"llama mesh rank {r}: caches {mem}")
+        if "head_band_stored" in o and not o["head_band_stored"]:
+            faults.append(f"llama mesh rank {r}: the head's vocab band is "
+                          "not the stored rows")
         if not torch.equal(o["tokens"], ref_toks.cpu()):
             faults.append(f"llama mesh rank {r}: tokens differ from the "
                           "one-process eager loop")
@@ -4599,10 +4726,39 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         for row in o["rows"]:
             kernels.append(dict(row, path=f"{cfg.name} mesh {MESH_LLAMA}"))
 
-    # DeepSeek-V2-Lite (local routing) and the tiled Llama on MESH_WIDE
+    # Llama's rows over data on MESH_WIDE: each data rank's rows bitwise
+    # one process serving them alone
+    for r, out in enumerate(outs):
+        o = out["rows"]
+        rows = tuple(o["rows_held"])
+        mem, split_ok = caches_of(o, math.prod(MESH_WIDE))
+        res["rows"][f"rank{r}"] = {
+            "rows": rows, "s": o["s"],
+            "rows_equal_alone": bool(torch.equal(
+                o["tokens"][rows[0]:rows[1]], row_refs[rows])),
+            "whole_equal_one_process": bool(torch.equal(
+                o["tokens"], ref_toks.cpu())),
+            "kernel_launches": o["run"]["kernel_launches"],
+            "dispatch": o["run"]["dispatch"], **mem}
+        if not res["rows"][f"rank{r}"]["rows_equal_alone"]:
+            faults.append(f"llama rows mesh rank {r}: its rows {rows} "
+                          "differ from one process serving them alone")
+        if not torch.equal(o["tokens"], outs[0]["rows"]["tokens"]):
+            faults.append(f"llama rows mesh rank {r}: tokens differ from "
+                          "rank 0's")
+        if not split_ok:
+            faults.append(f"llama rows mesh rank {r}: caches {mem}")
+        if o["run"]["kernel_launches"].get("fused_decode_matmul:simt"):
+            faults.append(f"llama rows mesh rank {r}: SIMT launched")
+
+    # DeepSeek-V2-Lite (local routing) and the tiled Llama on MESH_WIDE,
+    # the Llama smoke model's positions split on MESH_SPREAD
     e_loc = dcfg.n_experts // MESH_WIDE[1]
+    splits = {"deepseek": math.prod(MESH_WIDE), "tiled": math.prod(MESH_WIDE),
+              "spread": MESH_SPREAD[1]}
     for key, ref, model in (("deepseek", d_ref, dcfg), ("tiled", t_ref,
-                                                        tcfg)):
+                                                        tcfg),
+                            ("spread", s_ref, scfg)):
         logits0 = outs[0][key]["logits"]
         err = float((logits0[0] - ref[1][0].cpu()).abs().max())
         parting = tie_rule(outs[0][key]["tokens"], ref[0].cpu(), logits0,
@@ -4624,13 +4780,16 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         for r, out in enumerate(outs):
             o = out[key]
             kl = o["run"]["kernel_launches"]
+            mem, split_ok = caches_of(o, splits[key])
             res[key][f"rank{r}"] = {
                 "prefill_ms": o["prefill_ms"], "step_ms": o["step_ms"],
                 "kernel_launches": kl, "launches": o["run"]["launches"],
                 "dispatch": o["run"]["dispatch"],
                 "launch_shapes": o["launch_shapes"],
                 "tokens_equal_rank0": bool(torch.equal(
-                    o["tokens"], outs[0][key]["tokens"]))}
+                    o["tokens"], outs[0][key]["tokens"])), **mem}
+            if not split_ok:
+                faults.append(f"{key} mesh rank {r}: caches {mem}")
             if not torch.equal(o["tokens"], outs[0][key]["tokens"]):
                 faults.append(f"{key} mesh rank {r}: tokens differ from "
                               "rank 0's")
@@ -4647,23 +4806,32 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                                   f"(want {e_loc}), launches "
                                   f"{o['run']['launches']}, dispatch "
                                   f"{o['run']['dispatch']}")
+            elif key == "spread":
+                if not (o["run"]["kernel_launches"].get("flash_attention:mma")
+                        and o["run"]["launches"].get("fused_decode_matmul")):
+                    faults.append(f"spread mesh rank {r}: launches "
+                                  f"{o['run']['launches']}")
             elif not o["run"]["dispatch"].get("tiled_fused_shard_map"):
                 faults.append(f"tiled mesh rank {r}: dispatch "
                               f"{o['run']['dispatch']}")
             for row in o["rows"]:
                 kernels.append(dict(row, path=f"{model.name} mesh "
                                     f"{MESH_WIDE}"))
+    keys = ("llama", "rows", "deepseek", "tiled", "spread")
     log("mesh_detail " + json.dumps({k: v for k, v in res.items()
-                                     if k in ("llama", "deepseek", "tiled")
-                                     }, default=str))
+                                     if k in keys}, default=str))
     return {"spawn_s": spawn_s, "note": res["note"], "summary": {
         key: {r: {f: v for f, v in d.items()
-                  if f in ("prefill_ms", "step_ms", "tokens_equal")}
+                  if f in ("prefill_ms", "step_ms", "s", "tokens_equal",
+                           "rows_equal_alone", "cache_bytes",
+                           "whole_cache_bytes", "peak_mem_bytes")}
               for r, d in res[key].items() if r.startswith("rank")}
-        for key in ("llama", "deepseek", "tiled")},
+        for key in keys},
         "deepseek_logit_err": res["deepseek"]["prefill_logit_err"],
         "tiled_logit_err": res["tiled"]["prefill_logit_err"],
-        "parting": {k: res[k]["parting"] for k in ("deepseek", "tiled")},
+        "spread_logit_err": res["spread"]["prefill_logit_err"],
+        "parting": {k: res[k]["parting"] for k in ("deepseek", "tiled",
+                                                   "spread")},
         "band_bits": {k: res[k].get("band_bits")
                       for k in ("llama", "deepseek")}}
 
@@ -5161,6 +5329,9 @@ def dryrun_cell(rt, faults) -> dict:
             "per_rank_gb": {k: mem[f"{k}_size_in_bytes"] / gb
                             for k in ("argument", "temp")}
             | {"total": mem["total_hbm_bytes"] / gb},
+            "cache_gb": rec["cache_bytes"] / gb,
+            "reference_cache_gb": rec["reference_cache_bytes"] / gb,
+            "batch_rows": rec["batch_rows"],
             "card_gb": torch.cuda.get_device_properties(0).total_memory / gb,
             "collective_gb_by_kind": {
                 k: v / gb for k, v in rec["collectives"][

@@ -35,6 +35,10 @@ class QuantLinear:
     values: torch.Tensor   # uint8 [..., out, in]
     scale: torch.Tensor    # f32 [..., out, 1]
     zero: torch.Tensor     # f32 [..., out, 1]
+    # a mesh rank's vocab-row band of an embedding or head
+    # (``sharding.partition.place_vocab``): None, or the axes its rows
+    # were split over
+    mesh_axes: Optional[tuple] = None
 
     def materialize(self, dtype=torch.bfloat16) -> torch.Tensor:
         return ((self.values.to(torch.float32) - self.zero) * self.scale
@@ -42,7 +46,7 @@ class QuantLinear:
 
     def to(self, device) -> "QuantLinear":
         return QuantLinear(self.values.to(device), self.scale.to(device),
-                           self.zero.to(device))
+                           self.zero.to(device), self.mesh_axes)
 
     @property
     def nbytes(self) -> int:

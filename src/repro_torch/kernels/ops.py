@@ -32,29 +32,25 @@ wrappers take the reference's ``shard_map`` branches, with its placement
 gates and probes: a ``PackedLinear``'s out-tile band on the (pod, model)
 ranks runs K1 ('fused_shard_map'), a ``TiledPackedLinear``'s groups on
 data and band on model run K1 with the f32 sum over data after it
-('tiled_fused_shard_map'), an expert stack's E/model experts run K3
-('grouped_fused_shard_map'), and an int8 weight's band runs K5
-('dequant_shard_map': the reference leaves its head to GSPMD, which
-shards it the same way).  Each launch is planned for the whole weight
-(its N, and K3's E), so a column's products are summed in the order the
-one-device launch sums them and a column-parallel output is bitwise the
-one-device output.  The outputs are then all-gathered: activations stay
-replicated on every rank of a serving mesh.  Two of the reference's
-rules are not taken, by design (``ROADMAP.md`` queue 3, "Not port
-faults": serving on a mesh): x's rows are not split over data (or pod),
-so every rank of a band takes all of them, as a row's bits would
-otherwise depend on how many rows share its launch (the CPU's plain
-products, and K1's tensor-core plan, whose K splits follow the row
-bands; training splits rows over data, ``train/steps.py``); and the
-fused branch's second gate, m ≤
-max(N, 512) rows (``repro/kernels/ops.py:109``, ``:266-282``), is not
-applied: it prices the activation gather the reference's ``shard_map``
-makes, which replicated activations do not need, and it would send a
-prefill's rows of a narrow weight (Llama-3.2-1B's k/v, N = 512, at M =
-700) to the two-step path, whose K5 sums in another order than one
-device's K1 (on the card the tokens then part from one device's).  A
-container that the placement gates leave whole takes the one-device
-two-step path on every rank, as the reference falls back.
+('tiled_fused_shard_map'; rows split over data are gathered first, as
+the reference reshards x's columns onto data), an expert stack's E/model
+experts run K3 ('grouped_fused_shard_map'), and an int8 weight's band
+runs K5 ('dequant_shard_map': a stored vocab band of the embedding or
+head, ``partition.place_vocab``, or a band of a replicated weight taken
+at each call).  Each launch is planned for the whole weight (its N, and
+K3's E), so a column's products are summed in the order the one-device
+launch sums them and a column-parallel output is bitwise the one-device
+output.  ``gather=True`` (the default) all-gathers the outputs;
+``gather=False`` leaves the rank's ``model`` band of the columns on it
+(the reference's ``out_specs``), which the layers keep until the
+row-parallel weight after them (``models/layers.py``).  The fused
+branch's second gate, m ≤ max(N, 512) rows (``repro/kernels/ops.py:109``,
+``:266-282``), is not applied (``ROADMAP.md`` queue 3, "Not port
+faults"): it would send a prefill's rows of a narrow weight (Llama-3.2-1B's
+k/v, N = 512, at M = 700) to the two-step path, whose K5 sums in another
+order than one device's K1 (on the card the tokens then part from one
+device's).  A container that the placement gates leave whole takes the
+one-device two-step path on every rank, as the reference falls back.
 """
 from __future__ import annotations
 
@@ -118,25 +114,70 @@ def plain_decode() -> bool:
 
 
 def dequant_matmul(x, wq, scale, zero, *, out_dtype=torch.float32,
-                   decode: bool = False):
+                   decode: bool = False, gather: bool = True,
+                   mesh_axes=None):
     """y = x @ dequant(wq).T.  x: (..., K); wq: (N, K) uint8; scale/zero:
     (N, 1).  Leading dims of x flatten to M.  ``decode``: the M rows are a
     decode step's, one token a request (the kernels' plans keep each such
-    row's bits what they are alone, at any M)."""
+    row's bits what they are alone, at any M).
+
+    On a mesh: ``mesh_axes`` names the axes a stored band's rows were
+    split over (a placed embedding or head, ``partition.place_vocab``):
+    K5 runs on the band, planned for the whole N.  Otherwise a weight
+    whose rows split over the (pod, model) ranks runs K5 on the rank's
+    band of it, a view taken at each call.  ``gather=False`` returns the
+    rank's ``model`` band of the output columns (:func:`_band_out`)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if mesh_axes is not None:
+        mesh = _mesh()
+        if mesh is None:
+            raise ValueError("dequant_matmul: a mesh rank's band of a "
+                             "weight needs its mesh active "
+                             "(sharding.partition.active_mesh)")
+        n = wq.shape[0] * mesh.axis_size(mesh_axes)
+        DISPATCH_COUNTS["dequant_shard_map"] += 1
+        y = _band_out(_dequant_matmul(
+            x2, wq, scale, zero, out_dtype=out_dtype, decode=decode,
+            plan_n=n), mesh, tuple(mesh_axes), gather)
+        return y.reshape(*lead, y.shape[-1])
     mesh, waxes, wsize = _weight_axes()
     n = wq.shape[0]
     if wsize > 1 and wq.ndim == 2 and n % wsize == 0:
         DISPATCH_COUNTS["dequant_shard_map"] += 1
         band = _band_rows(n, mesh, waxes, wsize)
-        y = mesh.all_gather(_dequant_matmul(
+        y = _band_out(_dequant_matmul(
             x2, wq[band], scale[band], zero[band], out_dtype=out_dtype,
-            decode=decode, plan_n=n), waxes, dim=1)
+            decode=decode, plan_n=n), mesh, waxes, gather)
     else:
         y = _dequant_matmul(x2, wq, scale, zero, out_dtype=out_dtype,
                             decode=decode)
-    return y.reshape(*lead, n)
+        if not gather and mesh is not None:
+            y = _model_cols(y, mesh)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _model_cols(y, mesh):
+    """The rank's ``model`` band of the whole output's columns."""
+    ms = mesh.shape.get("model", 1)
+    if ms <= 1:
+        return y
+    per = y.shape[-1] // ms
+    m = mesh.axis_index("model")
+    return y[..., m * per:(m + 1) * per]
+
+
+def _band_out(y, mesh, axes: tuple, gather: bool):
+    """A product over the rank's out band along ``axes``: every rank's
+    band gathered whole (``gather``), or the rank's ``model`` band of
+    the columns, which is its own band where ``axes`` are the model axis
+    alone.  A band over (pod, model) is pod-major, so a model band is
+    not a union of pod bands: it is cut from the gathered whole."""
+    if gather:
+        return mesh.all_gather(y, axes, dim=-1)
+    if all(mesh.shape[a] <= 1 for a in axes if a != "model"):
+        return y
+    return _model_cols(mesh.all_gather(y, axes, dim=-1), mesh)
 
 
 def _mesh():
@@ -165,7 +206,7 @@ def _band_rows(n: int, mesh, axes, size: int) -> slice:
 
 
 def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
-                          decode: bool = False):
+                          decode: bool = False, gather: bool = True):
     """Compressed-weight matmul, the paper's serving hot path, over one
     layer's planes: a ``PackedLinear`` (codes (nb, slots)) or a
     ``TiledPackedLinear`` (codes (G, nb, slots), probes prefixed 'tiled_',
@@ -182,7 +223,10 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
     one f32 ``torch.matmul`` (probe 'materialize'; the reference
     multiplies in x's dtype, which at bf16 rounds every weight and moves
     greedy tokens away from the fused rung's).  ``decode``: as in
-    :func:`dequant_matmul`, for the fused and unfused rungs."""
+    :func:`dequant_matmul`, for the fused and unfused rungs.  On a mesh,
+    ``gather=False`` returns the rank's ``model`` band of the output
+    columns (column-parallel, the reference's ``out_specs``) instead of
+    the whole output."""
     probe = packed.PROBE
     if packed.codes.ndim != 2 + packed.GROUP_AXES:
         raise ValueError(f"{probe}decode_dequant_matmul takes one layer's "
@@ -190,7 +234,7 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
     mesh = _mesh()
     if mesh is not None and packed.mesh_axes is not None:
         return _sharded_matmul(x, packed, lut, mesh, out_dtype=out_dtype,
-                               decode=decode)
+                               decode=decode, gather=gather)
     if packed.mesh_axes is not None:
         raise ValueError(f"{probe}decode_dequant_matmul: a mesh rank's "
                          "share of a weight needs its mesh active "
@@ -211,9 +255,11 @@ def decode_dequant_matmul(x, packed, lut, *, out_dtype=torch.bfloat16,
     DISPATCH_COUNTS[probe + _RUNG_PROBE.get(impl, impl)] += 1
     n, k = packed.shape
     lead = x.shape[:-1]
-    return _local_matmul(x.reshape(-1, k), packed, lut, impl,
-                         out_dtype=out_dtype, decode=decode, plan_n=n
-                         ).reshape(*lead, n)
+    y = _local_matmul(x.reshape(-1, k), packed, lut, impl,
+                      out_dtype=out_dtype, decode=decode, plan_n=n)
+    if not gather and mesh is not None:
+        y = _model_cols(y, mesh)
+    return y.reshape(*lead, y.shape[-1])
 
 
 # the reference's name for the TiledPackedLinear branch
@@ -238,42 +284,58 @@ def _local_matmul(x2, packed, lut, impl: str, *, out_dtype, decode: bool,
                   out_dtype=out_dtype, decode=decode, plan_n=plan_n)
 
 
-def _sharded_matmul(x, packed, lut, mesh, *, out_dtype, decode: bool):
+def _sharded_matmul(x, packed, lut, mesh, *, out_dtype, decode: bool,
+                    gather: bool = True):
     """``decode_dequant_matmul`` over a mesh rank's share of a weight (the
     reference's ``_fused_decode_matmul_sharded`` and
-    ``_tiled_fused_sharded``): see the module's note."""
+    ``_tiled_fused_sharded``): see the module's note.  ``gather=False``:
+    the rank's model band of the columns, left on the rank."""
     lead, kdim = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, kdim)
     impl = _DEFAULT_IMPL
     if packed.GROUP_AXES:
         return _tiled_sharded(x2, packed, lut, mesh, impl,
-                              out_dtype=out_dtype, decode=decode
-                              ).reshape(*lead, -1)
+                              out_dtype=out_dtype, decode=decode,
+                              gather=gather).reshape(*lead, -1)
     waxes = tuple(packed.mesh_axes)
     n = packed.shape[0] * mesh.axis_size(waxes)
     DISPATCH_COUNTS[packed.PROBE + _SHARD_PROBE.get(impl, impl)] += 1
     y = _local_matmul(x2, packed, lut, impl, out_dtype=out_dtype,
                       decode=decode, plan_n=n)
-    return mesh.all_gather(y, waxes, dim=1).reshape(*lead, n)
+    return _band_out(y, mesh, waxes, gather).reshape(*lead, -1)
 
 
 def _tiled_sharded(x2, packed, lut, mesh, impl: str, *, out_dtype,
-                   decode: bool):
+                   decode: bool, gather: bool = True):
     """A TiledPackedLinear on a mesh: this rank's column groups (on data)
     and out band (on model) in one launch over its x columns, the f32
     partial sums added over data (the reference's row-parallel ``psum``),
-    the cast, then the columns gathered over model."""
+    the cast, then the columns gathered over model (``gather``) or left
+    on the rank."""
     n_loc, k_loc = packed.shape
     msize = mesh.axis_size("model") if "model" in packed.mesh_axes else 1
     dsize = mesh.axis_size("data") if "data" in packed.mesh_axes else 1
     DISPATCH_COUNTS["tiled_" + _SHARD_PROBE.get(impl, impl)] += 1
     d = mesh.axis_index("data") if dsize > 1 else 0
+    # x's columns go on data, so its rows must not be: rows split over
+    # data (a served batch's, partition.rows_split) are gathered first,
+    # as the reference reshards x to P(pod, data), and cut back after
+    from ..sharding.partition import row_split
+    split = row_split()
+    rows = (dsize > 1 and split is not None and split[0] is mesh
+            and "data" in split[1])
+    m = x2.shape[0]
+    if rows:
+        x2 = mesh.all_gather(x2, "data", dim=0)
     y = _local_matmul(x2[:, d * k_loc:(d + 1) * k_loc], packed, lut, impl,
                       out_dtype=torch.float32, decode=decode,
                       plan_n=n_loc * msize)
     if dsize > 1:
         y = mesh.psum(y, "data")
-    return mesh.all_gather(y.to(out_dtype), "model", dim=1)
+    if rows:
+        y = y[d * m:(d + 1) * m]
+    y = y.to(out_dtype)
+    return mesh.all_gather(y, "model", dim=1) if gather else y
 
 
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, q_offset=0):

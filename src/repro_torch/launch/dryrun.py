@@ -17,10 +17,15 @@ kernel wrappers plan their launches (``kernels._build.planning``) and
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
 A serve cell places the planned tree on its rank
-(``sharding.partition.place_params``: the port keeps every rank's KV cache
-and activations whole) and runs ``make_serve_fns``' eager prefill, or one
-decode step at ``pos``; a train cell runs one ``make_train_step`` on the
-rank's ZeRO-3 shards.  The plan is what the port does, not what the
+(``sharding.partition.place_params``), gives it its share of the caches
+(``partition.place_caches``: batch rows on (pod, data), K/V by heads or
+by positions on model, MLA's latents by positions; the Mamba2 state
+whole on model) and of the batch's rows (``partition.batch_rows``), and
+runs the eager prefill, or one decode step at ``pos``, as ``generate``
+runs them on a mesh (``serve.engine.on_mesh``); each record holds the
+rank's ``cache_bytes`` beside ``reference_cache_bytes``, its share under
+the reference's ``make_cache_specs``.  A train cell runs one
+``make_train_step`` on the rank's ZeRO-3 shards.  The plan is what the port does, not what the
 reference compiles: eager ops, no fusion, the kernels counted by their
 ``work`` formulas.  A cell the port cannot plan (a refusal, or a host read
 that fake tensors cannot answer) is recorded with ``ok: false`` and the
@@ -45,8 +50,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from ..configs import ASSIGNED_ARCHS, get_config
 from ..core.policy import CompressionPolicy, device_budget
 from ..kernels import _build
-from ..serve.context import ServeContext
-from ..serve.engine import make_serve_fns
+from ..serve.engine import on_mesh, serve_fns
 from ..sharding import partition as PT
 from ..train.optimizer import AdamWConfig
 from ..train.steps import TrainConfig, make_train_step
@@ -262,13 +266,44 @@ def plan_step(step, *args, mesh, grad: bool = False) -> dict:
             "launches": dict(_build.LAUNCH_COUNTS - launches0)}
 
 
-def serve_step(cfg, kind: str, mesh, device):
-    """The eager step of a serve cell on ``mesh``: ``make_serve_fns``'
-    prefill(params, lut, batch, caches), or one decode step as
-    step(params, lut, tokens, caches, pos)."""
-    prefill, decode = make_serve_fns(cfg, ctx=ServeContext(
-        cfg=cfg, device=device, mesh=mesh))
-    return prefill if kind == "prefill" else decode
+def serve_step(cfg, kind: str, mesh, device, rows=None):
+    """The eager step of a serve cell on ``mesh``, as ``generate`` runs it
+    there: the prefill(params, lut, batch, caches), or one decode step as
+    step(params, lut, tokens, caches, pos), over the rank's ``rows`` of
+    the batch (a slice, or None for all) and its caches, under
+    ``engine.on_mesh``."""
+    fn = serve_fns(cfg, device)[0 if kind == "prefill" else 1]
+
+    def step(*args):
+        with on_mesh(mesh, rows):
+            return fn(*args)
+    return step
+
+
+def cache_leaves_whole_on_model(caches, mesh) -> dict:
+    """{leaf path: bytes a rank holds beyond the reference's share} of the
+    cache leaves the port keeps whole on ``model`` where the reference
+    splits them (``partition.serve_cache_specs``: the Mamba2 state and
+    conv window)."""
+    ref = PT.make_cache_specs(caches, mesh)
+    own = PT.serve_cache_specs(caches, mesh)
+    out = {}
+
+    def walk(node, r, o, path):
+        if isinstance(node, dict):
+            for k in node:
+                walk(node[k], r[k], o[k], f"{path}/{k}" if path else k)
+        elif isinstance(node, list):
+            for i, (v, a, b) in enumerate(zip(node, r, o)):
+                walk(v, a, b, f"{path}/{i}")
+        elif tuple(r) != tuple(o):
+            extra = sharded_bytes(node, o, mesh) - sharded_bytes(node, r,
+                                                                 mesh)
+            key = "/".join(p for p in path.split("/") if not p.isdigit())
+            out[key] = out.get(key, 0) + extra
+
+    walk(caches, ref, own, "")
+    return out
 
 
 def sharded_bytes(tree, specs, mesh) -> int:
@@ -351,7 +386,7 @@ def plan_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                 budget = _residency_budget(pspecs, lut, cell["caches"])
                 if budget is not None:
                     out["residency_budget"] = budget.summary()
-            args = (lut, cell["batch"], cell["caches"])
+            pos = cell.get("pos")
             scfg = PT.ShardingConfig(mode="serve",
                                      fsdp_weights=arch_id in FSDP_SERVE)
             out["reference_specs_argument_bytes"] = (
@@ -364,14 +399,26 @@ def plan_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
                     cell["batch"], mesh), mesh))
             params = PT.place_params(pspecs, mesh)
             del pspecs
-            step = serve_step(cfg, kind, mesh, device)
+            rows = PT.batch_rows(mesh, cell["batch"]["tokens"].shape[0])
+            batch = {k: v if rows is None else v[rows]
+                     for k, v in cell["batch"].items()}
+            caches = PT.place_caches(cell["caches"], mesh)
+            out["cache_bytes"] = op_stats.tree_bytes(caches)
+            out["reference_cache_bytes"] = sharded_bytes(
+                cell["caches"], PT.make_cache_specs(cell["caches"], mesh),
+                mesh)
+            out["cache_whole_on_model"] = cache_leaves_whole_on_model(
+                cell["caches"], mesh)
+            out["batch_rows"] = (None if rows is None
+                                 else rows.stop - rows.start)
+            del cell
+            step = serve_step(cfg, kind, mesh, device, rows)
             if kind == "prefill":
-                out.update(plan_step(step, params, *args, mesh=mesh))
-            else:
-                out.update(plan_step(step, params, lut,
-                                     cell["batch"]["tokens"],
-                                     cell["caches"], cell["pos"],
+                out.update(plan_step(step, params, lut, batch, caches,
                                      mesh=mesh))
+            else:
+                out.update(plan_step(step, params, lut, batch["tokens"],
+                                     caches, pos, mesh=mesh))
     return out
 
 
@@ -411,7 +458,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     archs = ASSIGNED_ARCHS if (args.all or not args.arch) else [args.arch]
-    shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     os.makedirs(args.out, exist_ok=True)

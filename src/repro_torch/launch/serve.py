@@ -32,9 +32,12 @@ arch's smoke config, as in the reference, unless the caller of
 
 ``--mesh DATA,MODEL`` serves on a mesh of DATA × MODEL ranks
 (``launch.mesh``): the weights are packed with ``model_shards = MODEL``,
-each rank keeps its share of them (``sharding.partition.place_params``;
-the LUT and the other leaves replicated), every rank runs the same
-engine, eagerly, and rank 0 prints the summary with ``mesh: {...}``.
+each rank keeps its share of them (``sharding.partition.place_params``:
+the planes' bands, the int8 embedding's vocab band; the LUT and the other
+leaves replicated), every rank runs the same engine, eagerly, its KV
+pages holding the rank's heads or its block of positions
+(``serve.kv_cache.PagedKVPool(mesh=)``; the slots stay whole on every
+data rank), and rank 0 prints the summary with ``mesh: {...}``.
 Under ``torchrun`` (``RANK``/``WORLD_SIZE`` set) the ranks are the ones
 it started, and a mesh of more ranks than that is refused; otherwise the
 launcher starts the ranks itself (``launch.mesh.spawn``), over gloo,
@@ -231,7 +234,8 @@ def _serve(args, ap, device, mesh, params) -> dict:
         resident_bytes = _tree_bytes(sp) - expert_bytes + \
             (_tree_bytes(lut) if lut is not None else 0)
         probe_pool = PagedKVPool(cfg, args.slots, max_len,
-                                 page_size=args.page_size, device=device)
+                                 page_size=args.page_size, device=device,
+                                 mesh=mesh)
         kv_bytes = probe_pool.device_bytes()
         del probe_pool
         return device_budget(args.hbm_budget_mib * 2**20,

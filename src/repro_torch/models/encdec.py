@@ -183,10 +183,18 @@ def init_dec_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def init_caches(cfg, batch: int, max_len: int, enc_len: int,
                 dtype=torch.bfloat16, enc_dtype=torch.bfloat16,
-                device=None) -> dict:
+                device=None, *, mesh=None, rows: bool = True) -> dict:
     """Serving caches: {"self": :func:`init_dec_caches`, "enc_k", "enc_v":
     per-layer zero buffers (B, ``enc_len``, kv heads, hd) in ``enc_dtype``
-    (the frames' dtype), which a prefill fills}."""
+    (the frames' dtype), which a prefill fills}.  ``mesh``: this rank's
+    share, as ``lm.init_caches(mesh=)`` gives it (the cross K/V by
+    heads)."""
+    if mesh is not None and mesh.size > 1:
+        from ..sharding import partition as PT
+        whole = init_caches(cfg, batch, PT.cache_len(cfg, max_len, mesh),
+                            enc_len, dtype, enc_dtype, device="meta")
+        return PT.zeros_share(whole, mesh, resolve_device(device),
+                              rows=rows)
     device = resolve_device(device)
     shape = (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim)
 

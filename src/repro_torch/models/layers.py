@@ -59,13 +59,51 @@ def linear(x: torch.Tensor, w, lut=None, bias=None,
                                       decode=decode)
     elif isinstance(w, QuantLinear):
         y = ops.dequant_matmul(x, w.values, w.scale, w.zero,
-                               out_dtype=x.dtype, decode=decode)
+                               out_dtype=x.dtype, decode=decode,
+                               mesh_axes=w.mesh_axes)
     elif decode and x.is_cuda:
         y = _dense_decode(x, w.to(x.dtype))
     else:
         y = x @ w.to(x.dtype).T
     if bias is not None:
         y = y + bias.to(y.dtype)
+    return y
+
+
+def _model_axis():
+    """(mesh, model ranks, this rank's model index) of the active mesh
+    where its model axis has more than one rank, else (None, 1, 0)."""
+    mesh = PT.current_mesh()[1]
+    ms = mesh.shape.get("model", 1) if mesh is not None else 1
+    if ms <= 1 or mesh.size <= 1:
+        return None, 1, 0
+    return mesh, ms, mesh.axis_index("model")
+
+
+def linear_band(x: torch.Tensor, w, lut=None, bias=None,
+                decode: bool | None = None) -> torch.Tensor:
+    """The rank's ``model`` band of ``linear(x, w, lut, bias)``'s output
+    columns on the active mesh (a column-parallel product left on its
+    band, the reference's ``out_specs``): K1 or K5 on the rank's own band
+    of the weight, no gather; a weight the rank holds whole (dense, or
+    left whole by the placement gates) gives the whole product, cut."""
+    mesh, ms, m = _model_axis()
+    if mesh is None:
+        return linear(x, w, lut, bias, decode)
+    if decode is None:
+        decode = x.ndim == 3 and x.shape[1] == 1
+    if isinstance(w, (PackedLinear, TiledPackedLinear)):
+        y = ops.decode_dequant_matmul(x, w, lut, out_dtype=x.dtype,
+                                      decode=decode, gather=False)
+    elif isinstance(w, QuantLinear):
+        y = ops.dequant_matmul(x, w.values, w.scale, w.zero,
+                               out_dtype=x.dtype, decode=decode,
+                               gather=False, mesh_axes=w.mesh_axes)
+    else:
+        y = ops._model_cols(linear(x, w, lut, decode=decode), mesh)
+    if bias is not None:
+        per = bias.shape[0] // ms
+        y = y + bias[m * per:(m + 1) * per].to(y.dtype)
     return y
 
 
@@ -112,8 +150,45 @@ def materialize_weight(w, lut=None, dtype=None):
     return w if dtype is None else w.to(dtype)
 
 
+def materialize_band(w, lut=None, dtype=None):
+    """The rank's ``model`` band of the rows of ``w``'s dense weight on
+    the active mesh (MLA's ``wkv_b``: the rank's heads), decoded from the
+    rank's own band of the planes where it holds one over the model axis
+    alone (no gather); else the whole weight decoded, then cut."""
+    mesh, ms, m = _model_axis()
+    if mesh is None:
+        return materialize_weight(w, lut, dtype)
+    if (isinstance(w, (PackedLinear, TiledPackedLinear)) and not
+            w.GROUP_AXES and tuple(w.mesh_axes or ()) == ("model",)):
+        MATERIALIZE_COUNTS["packed"] += 1
+        return w.materialize(lut, torch.bfloat16 if dtype is None else dtype,
+                             plain=ops.plain_decode())
+    dense = materialize_weight(w, lut, dtype)
+    per = dense.shape[-2] // ms
+    return dense[..., m * per:(m + 1) * per, :]
+
+
 def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
-    """Embedding lookup from dense or int8 tables (rows = vocab)."""
+    """Embedding lookup from dense or int8 tables (rows = vocab).  A mesh
+    rank's vocab band (``partition.place_vocab``) is looked up vocab-
+    parallel: an id outside the band reads a zero row, and each row is
+    taken from the one rank whose band holds it (every rank's rows
+    gathered over model, in rank order: exact)."""
+    if isinstance(w, QuantLinear) and w.mesh_axes is not None:
+        mesh = PT.current_mesh()[1]
+        if mesh is None:
+            raise ValueError("embed: a mesh rank's vocab band needs its "
+                             "mesh active (sharding.partition.active_mesh)")
+        per = w.values.shape[0]
+        owner = torch.div(ids, per, rounding_mode="floor")
+        local = ids - owner * per
+        mine = owner == mesh.axis_index(w.mesh_axes)
+        rows = embed(dataclasses.replace(w, mesh_axes=None),
+                     torch.where(mine, local, torch.zeros_like(local)))
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        parts = mesh.all_gather(rows[None], w.mesh_axes, dim=0)
+        return torch.gather(parts, 0, owner[None, ..., None].expand(
+            (1,) + tuple(rows.shape)))[0]
     if isinstance(w, QuantLinear):
         rows = w.values[ids].to(torch.float32)
         return ((rows - w.zero[ids, 0][..., None])
@@ -300,10 +375,12 @@ def _attend_cache_flash(q, cache_k, cache_v, pos: int):
     return o.transpose(1, 2)
 
 
-def _decode_mask(pos, t: int, lmax: int, device) -> torch.Tensor:
-    """Which of ``lmax`` cache positions each of ``t`` queries at ``pos``
-    sees: (t, L) for a shared offset, (B, t, L) per row."""
-    return (torch.arange(lmax, device=device)
+def _decode_mask(pos, t: int, lmax: int, device,
+                 start: int = 0) -> torch.Tensor:
+    """Which of ``lmax`` cache positions (from position ``start``: a
+    rank's block) each of ``t`` queries at ``pos`` sees: (t, L) for a
+    shared offset, (B, t, L) per row."""
+    return (start + torch.arange(lmax, device=device)
             <= positions(pos, t, device)[..., None])
 
 
@@ -321,6 +398,15 @@ def _decode_mask(pos, t: int, lmax: int, device) -> torch.Tensor:
 # fused matmuls' decode plans give it.
 ROW_PAD = 16
 
+# The most a mesh rank's decode attention may add, in padded f32 K and V
+# of one layer, to run its einsums' GEMMs at one process's batch count
+# (``_attend_cached``'s ``kv_heads``).  The pad costs a rank one process's
+# transient (ROW_PAD rows of every kv head), so at long contexts or many
+# model ranks it is not taken: a rank's heads then keep their rows'
+# padding alone, within 2 bf16 ulps of one process (``PERF.md`` §6, the
+# dry run: Zamba2's ``long_500k`` would hold 208 GB of it on 16 ranks).
+KV_PAD_BYTES = 256 * 2 ** 20
+
 
 def _by_row_pieces(fn, b: int, x: torch.Tensor, *rows, pos):
     """``fn(*rows, pos)`` on the card in pieces of ROW_PAD rows of the
@@ -328,53 +414,149 @@ def _by_row_pieces(fn, b: int, x: torch.Tensor, *rows, pos):
     ``rows`` are (B, ...) tensors; ``pos`` an int, a 0-d tensor or (B,)."""
     if not x.is_cuda or b <= ROW_PAD:
         return fn(*rows, pos)
-    return torch.cat([fn(*(r[i:i + ROW_PAD] for r in rows),
-                         pos[i:i + ROW_PAD] if torch.is_tensor(pos)
-                         and pos.ndim == 1 else pos)
-                      for i in range(0, b, ROW_PAD)])
+    outs = [fn(*(r[i:i + ROW_PAD] for r in rows),
+               pos[i:i + ROW_PAD] if torch.is_tensor(pos)
+               and pos.ndim == 1 else pos)
+            for i in range(0, b, ROW_PAD)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(z) for z in zip(*outs))
+    return torch.cat(outs)
 
 
-def _row_pad(b: int, x: torch.Tensor):
+def _row_pad(b: int, x: torch.Tensor, rows: int = ROW_PAD):
     """A function taking a (b, ...) tensor to f32 (or ``dtype``) and, on
-    the card below ROW_PAD rows, to ROW_PAD rows: its own, then rows left
-    unwritten.  Every output row of the einsums below comes from its own
-    input rows alone, so the pad rows reach no row that is kept, and the
-    padded copy costs what the f32 copy did."""
-    if not x.is_cuda or b >= ROW_PAD:
+    the card below ``rows`` (ROW_PAD) rows, to ``rows`` rows: its own,
+    then rows left unwritten.  Every output row of the einsums below comes
+    from its own input rows alone, so the pad rows reach no row that is
+    kept, and the padded copy costs what the f32 copy did."""
+    if not x.is_cuda or b >= rows:
         return lambda a, dtype=torch.float32: a.to(dtype)
 
     def pad(a, dtype=torch.float32):
-        out = a.new_empty((ROW_PAD,) + tuple(a.shape[1:]), dtype=dtype)
+        out = a.new_empty((rows,) + tuple(a.shape[1:]), dtype=dtype)
         out[:b] = a
         return out
     return pad
 
 
-def _attend_cached(q, cache_k, cache_v, pos, t_new: int):
+def _attend_cached(q, cache_k, cache_v, pos, t_new: int,
+                   start: int | None = None, kv_heads: int | None = None):
     """Decode attention over a cache (plain torch, as the reference's is
     plain jnp): positions past a row's ``pos + t_new − 1`` get −1e30, whose
     exp is exactly 0.  ``pos``: an int, a 0-d tensor or per-row (B,).  In
-    f32; on the card the batch padded to ROW_PAD rows (above)."""
+    f32; on the card the batch padded to ROW_PAD rows (above).
+
+    ``start``: the cache is a mesh rank's block of positions from
+    ``start``; → the block's partials (:func:`_softmax_parts`), which
+    :func:`_merge_parts` merges over the model ranks.  ``kv_heads``: the
+    model's kv heads, of which the cache holds a mesh rank's share; on
+    the card the rows are then padded to ROW_PAD · kv_heads / its heads
+    where the padded f32 K and V fit KV_PAD_BYTES, so the einsums' GEMMs
+    run (ROW_PAD · kv heads) batches, as one process runs them over every
+    head: cuBLAS picks a batched GEMM by its batch count too, and a
+    head's bits would otherwise follow the rank's head count
+    (``tools/mesh_bits.py``)."""
     b = q.shape[0]
     if q.is_cuda and b > ROW_PAD:
         return _by_row_pieces(
-            lambda qq, kk, vv, p: _attend_cached(qq, kk, vv, p, t_new),
+            lambda qq, kk, vv, p: _attend_cached(qq, kk, vv, p, t_new, start,
+                                                 kv_heads),
             b, q, q, cache_k, cache_v, pos=pos)
     b, t, hq, hd = q.shape
     hkv = cache_k.shape[2]
     rep = hq // hkv
     lmax = cache_k.shape[1]
-    pad = _row_pad(b, q)
+    rows = ROW_PAD * (kv_heads or hkv) // hkv
+    if rows * lmax * hkv * (hd + cache_v.shape[-1]) * 4 > KV_PAD_BYTES:
+        rows = ROW_PAD
+    pad = _row_pad(b, q, rows)
     qf = pad(q.reshape(b, t, hkv, rep, hd))
     kf, vf = pad(cache_k), pad(cache_v)
     logits = torch.einsum("btgrd,blgd->btgrl", qf, kf) / math.sqrt(hd)
-    mask = _decode_mask(pos, t, lmax, q.device)     # (t, L) or (B, t, L)
+    mask = _decode_mask(pos, t, lmax, q.device, start or 0)
     mask = (mask[None, :, None, None, :] if mask.ndim == 2
             else pad(mask[:, :, None, None, :], torch.bool))
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    if start is not None:
+        mx, s, e = _softmax_parts(logits)
+        out = torch.einsum("btgrl,blgd->btgrd", e, vf)[:b]
+        return (mx[:b].reshape(b, t, hq, 1), s[:b].reshape(b, t, hq, 1),
+                out.reshape(b, t, hq, hd))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("btgrl,blgd->btgrd", p, vf)[:b]
     return out.reshape(b, t, hq, hd).to(q.dtype)
+
+
+def _softmax_parts(logits):
+    """One block's share of a softmax over its last dim: its running max,
+    its sum of exp(logit − max) and those exps (f32)."""
+    mx = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - mx)
+    return mx, e.sum(dim=-1, keepdim=True), e
+
+
+def _merge_parts(mesh, mx, s, o):
+    """Flash-decoding's merge of the model ranks' blocks: each rank's
+    (max, sum, unnormalized f32 output) gathered over model and combined
+    in rank order, → the normalized output, the same bits on every rank.
+    Rank 0's block holds position 0, so every row sees a position."""
+    parts = mesh.all_gather(torch.cat([o, mx, s], dim=-1)[None], "model",
+                            dim=0)
+    d = o.shape[-1]
+    po, pm, ps = parts[..., :d], parts[..., d:d + 1], parts[..., d + 1:]
+    big = pm.amax(dim=0)
+    w = torch.exp(pm - big)
+    num, den = po[0] * w[0], ps[0] * w[0]
+    for r in range(1, parts.shape[0]):
+        num = num + po[r] * w[r]
+        den = den + ps[r] * w[r]
+    return num / den
+
+
+def _kv_write_block(dst: torch.Tensor, src: torch.Tensor, pos, start: int):
+    """Write the entries of ``src`` (B, T, ...) at positions ``pos`` ..
+    ``pos + T − 1`` that fall in a mesh rank's block of the cache ``dst``
+    (B, L_block, ...), positions ``start`` .. ``start + L_block − 1``, in
+    place; the others belong to another rank.  ``pos``: an int, a 0-d
+    tensor (T = 1) or per-row (B,) (T = 1).  A tensor position stays on
+    the device: an entry outside the block writes back what its clamped
+    slot holds."""
+    t, lb = src.shape[1], dst.shape[1]
+    if not torch.is_tensor(pos):
+        lo, hi = max(int(pos), start), min(int(pos) + t, start + lb)
+        if lo < hi:
+            dst[:, lo - start:hi - start] = src[:, lo - int(pos):hi - int(pos)]
+        return dst
+    if t != 1:
+        raise ValueError("a tensor position writes one token at a time "
+                         f"into a rank's block of positions; got T={t}")
+    local = pos - start
+    ok = (local >= 0) & (local < lb)
+    idx = torch.clamp(local, 0, lb - 1)
+    if pos.ndim == 0:
+        cur = dst.index_select(1, idx[None])
+        keep = ok.reshape((1,) * cur.ndim)
+        dst.index_copy_(1, idx[None], torch.where(keep, src, cur))
+    else:
+        rows = torch.arange(dst.shape[0], device=dst.device)
+        cur = dst[rows, idx]
+        keep = ok.reshape((-1,) + (1,) * (cur.ndim - 1))
+        dst.index_put_((rows, idx), torch.where(keep, src[:, 0], cur))
+    return dst
+
+
+def _q_heads_kv(k, v, nq: int, first: int, count: int):
+    """The K/V heads that q heads ``first`` .. ``first + count − 1`` of
+    ``nq`` read (GQA), from whole K/V (B, T, kv heads, hd): a contiguous
+    run where the heads' groups align with it, else one K/V head per q
+    head."""
+    rep = nq // k.shape[2]
+    if count % rep == 0 and first % rep == 0:
+        sl = slice(first // rep, (first + count) // rep)
+        return k[:, :, sl], v[:, :, sl]
+    idx = torch.div(first + torch.arange(count, device=k.device), rep,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
@@ -384,14 +566,42 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     writes k/v at ``pos`` (in place) then attends ≤ pos.  ``pos``: an int,
     a 0-d tensor or, for T == 1, per-row (B,).  ``rope``: the (cos, sin)
     tables of these positions, when the caller shares one pair across
-    layers."""
+    layers.
+
+    On a mesh whose model axis has more than one rank (the reference's
+    ``_attend_full`` / ``_attend_cache_flash`` placements, ``cache`` the
+    rank's share, ``partition.serve_cache_specs``):
+      * kv heads divide the model ranks: q/k/v come from the rank's bands
+        of wq/wk/wv (:func:`linear_band`, no gather), the rank's heads
+        attend over its cache of those heads, and ``o`` is gathered over
+        model just before ``wo`` (the x gather of a row-parallel weight);
+      * they do not, at a prefill (or without a cache): k/v are made
+        whole (a transient, as the reference replicates them), q keeps
+        the rank's heads where the q heads divide, K2 runs on them, and
+        only the rank's block of positions is written into its cache;
+      * they do not, at a decode step: every head attends over the
+        rank's block of positions (``_attend_cached``'s f32 math,
+        ``ROW_PAD`` and mask), and the blocks' partials are merged over
+        model in rank order (:func:`_merge_parts`), the same on every
+        rank.
+    An int8 cache's scales follow their k/v."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    mesh, ms, m = _model_axis()
+    heads = ms > 1 and nkv % ms == 0
+    spread = ms > 1 and not heads and cache is not None
+    qband = ms > 1 and nq % ms == 0 and not (spread and t == 1)
+    nq_l = nq // ms if qband else nq
+    nkv_l = nkv // ms if heads else nkv
 
-    q = linear(x, p["wq"], lut, p.get("bq")).reshape(b, t, nq, hd)
-    k = linear(x, p["wk"], lut, p.get("bk")).reshape(b, t, nkv, hd)
-    v = linear(x, p["wv"], lut, p.get("bv")).reshape(b, t, nkv, hd)
+    def proj(name, n, band):
+        fn = linear_band if band else linear
+        return fn(x, p["w" + name], lut, p.get("b" + name)).reshape(
+            b, t, n, hd)
+
+    q, k, v = proj("q", nq_l, qband), proj("k", nkv_l, heads), \
+        proj("v", nkv_l, heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -403,54 +613,111 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache is None:
-        o = _attend_full(q, k, v, causal)
+    if qband and not heads:          # the K/V heads the rank's q heads read
+        k_q, v_q = _q_heads_kv(k, v, nq, m * nq_l, nq_l)
     else:
-        if cache["k"].dtype == torch.int8:
-            # int8 cache: codes and scales written in place; attention
-            # reads the whole cache dequantized to q's dtype
-            for name, val in (("k", k), ("v", v)):
-                codes, scale = _quant_kv(val)
-                _kv_write(cache[name], codes, pos0)
-                _kv_write(cache[name + "_scale"], scale, pos0)
-            ck = _dequant_kv(cache["k"], cache["k_scale"], q.dtype)
-            cv = _dequant_kv(cache["v"], cache["v_scale"], q.dtype)
-        else:
-            ck = _kv_write(cache["k"], k.to(cache["k"].dtype), pos0)
-            cv = _kv_write(cache["v"], v.to(cache["v"].dtype), pos0)
+        k_q, v_q = k, v
+    if cache is None:
+        o = _attend_full(q, k_q, v_q, causal)
+    elif spread:
+        o = _attend_spread(q, k, v, k_q, v_q, cache, pos0, mesh, m, nq,
+                           nq_l)
+    else:
+        if cache["k"].shape[2] != nkv_l:
+            raise ValueError(
+                f"a cache of {cache['k'].shape[2]} kv heads on a rank that "
+                f"computes {nkv_l}: on a mesh the cache is the rank's share "
+                "(lm.init_caches(..., mesh=), partition.place_caches)")
+        ck, cv = _store_kv(cache, k, v, pos0, _kv_write, q.dtype)
         if t == 1:
-            o = _attend_cached(q, ck, cv, pos0, t)
+            o = _attend_cached(q, ck, cv, pos0, t, kv_heads=nkv)
         elif t == ck.shape[1]:
             # full prefill: the fresh k/v are the cache's whole content
             o = _attend_full(q, k, v, causal)
         else:  # chunked prefill: flash over the cache (q_offset, a
             # launch argument, read on the host)
             o = _attend_cache_flash(q, ck, cv, int(pos0))
-    y = linear(o.reshape(b, t, nq * hd), p["wo"], lut)
+    o = o.reshape(b, t, nq_l * hd)
+    if qband:
+        o = mesh.all_gather(o, "model", dim=-1)
+    y = linear(o, p["wo"], lut)
     return y, cache
+
+
+def _store_kv(cache, k, v, pos, write, dtype):
+    """Write ``k``/``v`` into ``cache`` with ``write(dst, src, pos)`` (an
+    int8 cache: their codes and scales) → the cache's K/V to attend over
+    (an int8 cache's dequantized to ``dtype``)."""
+    if cache["k"].dtype == torch.int8:
+        # int8 cache: codes and scales written in place; attention reads
+        # the whole cache dequantized to q's dtype
+        for name, val in (("k", k), ("v", v)):
+            codes, scale = _quant_kv(val)
+            write(cache[name], codes, pos)
+            write(cache[name + "_scale"], scale, pos)
+        return (_dequant_kv(cache["k"], cache["k_scale"], dtype),
+                _dequant_kv(cache["v"], cache["v_scale"], dtype))
+    return (write(cache["k"], k.to(cache["k"].dtype), pos),
+            write(cache["v"], v.to(cache["v"].dtype), pos))
+
+
+def _attend_spread(q, k, v, k_q, v_q, cache, pos, mesh, m: int, nq: int,
+                   nq_l: int):
+    """Attention on a mesh whose model ranks each hold a block of the
+    cache's positions (:func:`apply_attention`): the rank's block of the
+    new k/v written in place; a decode step's partials over the block
+    merged over model; a prefill's q heads over the fresh k/v (from
+    position 0) or over the blocks gathered whole."""
+    t = q.shape[1]
+    start = m * cache["k"].shape[1]
+    ck, cv = _store_kv(cache, k, v, pos, lambda d, s, p: _kv_write_block(
+        d, s, p, start), q.dtype)
+    if t == 1:
+        mx, s, o = _attend_cached(q, ck, cv, pos, t, start=start)
+        return _merge_parts(mesh, mx, s, o).to(q.dtype)
+    if not torch.is_tensor(pos) and int(pos) == 0:
+        # the fresh k/v are everything before and at these positions
+        return _attend_full(q, k_q, v_q, True)
+    ck = mesh.all_gather(ck, "model", dim=1)
+    cv = mesh.all_gather(cv, "model", dim=1)
+    ck, cv = _q_heads_kv(ck, cv, nq, m * nq_l, nq_l) if nq_l < nq \
+        else (ck, cv)
+    return _attend_cache_flash(q, ck, cv, int(pos))
 
 
 def apply_cross_attention(p: Params, x: torch.Tensor, enc_k, enc_v, cfg, *,
                           lut=None) -> torch.Tensor:
     """Decoder cross-attention over precomputed encoder K/V (B, S, H, hd):
     no rope, no mask, the flash kernel at any T (a decode step's q is one
-    row a request)."""
+    row a request).  On a mesh whose model ranks divide the kv heads,
+    ``enc_k``/``enc_v`` are the rank's heads (:func:`project_enc_kv`), q
+    its band, and ``o`` is gathered over model before ``wo``."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     nq = cfg.n_heads
-    q = linear(x, p["wq"], lut, p.get("bq")).reshape(b, t, nq, hd)
-    o = _attend_full(q, enc_k, enc_v, causal=False)
-    return linear(o.reshape(b, t, nq * hd), p["wo"], lut)
+    mesh, ms, _ = _model_axis()
+    heads = ms > 1 and cfg.n_kv_heads % ms == 0
+    nq_l = nq // ms if heads else nq
+    q = (linear_band if heads else linear)(
+        x, p["wq"], lut, p.get("bq")).reshape(b, t, nq_l, hd)
+    o = _attend_full(q, enc_k, enc_v, causal=False).reshape(b, t, nq_l * hd)
+    if heads:
+        o = mesh.all_gather(o, "model", dim=-1)
+    return linear(o, p["wo"], lut)
 
 
 def project_enc_kv(p: Params, enc_out: torch.Tensor, cfg, *, lut=None):
     """A decoder layer's cross-attention K/V of the encoder's output:
-    (B, S, kv heads, hd) each."""
+    (B, S, kv heads, hd) each; on a mesh whose model ranks divide the kv
+    heads, the rank's heads (its bands of wk/wv)."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    nkv = cfg.n_kv_heads
-    k = linear(enc_out, p["wk"], lut, p.get("bk")).reshape(b, s, nkv, hd)
-    v = linear(enc_out, p["wv"], lut, p.get("bv")).reshape(b, s, nkv, hd)
+    _, ms, _ = _model_axis()
+    heads = ms > 1 and cfg.n_kv_heads % ms == 0
+    nkv = cfg.n_kv_heads // ms if heads else cfg.n_kv_heads
+    fn = linear_band if heads else linear
+    k = fn(enc_out, p["wk"], lut, p.get("bk")).reshape(b, s, nkv, hd)
+    v = fn(enc_out, p["wv"], lut, p.get("bv")).reshape(b, s, nkv, hd)
     return k, v
 
 
@@ -493,15 +760,35 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def _mla_q(p, x, cfg, lut):
+def _mla_latents(p, x, cfg, lut, pos, rope, band: bool = False):
+    """MLA's q (nope and roped parts; with ``band`` the rank's heads) and
+    the new latents (normed ckv, roped k_rope) at ``pos``."""
+    b, t, _ = x.shape
+    dr, r = cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(p, x, cfg, lut, band)
+    if rope is None:
+        rope = rope_tables(positions(pos, t, x.device), dr, cfg.rope_theta)
+    cos, sin = rope
+    q_rope = apply_rope(q_rope, cos, sin)
+    kv_a = linear(x, p["wkv_a"], lut)                       # (b, t, r + dr)
+    ckv = rms_norm(kv_a[..., :r], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., r:].reshape(b, t, 1, dr), cos, sin
+                        ).reshape(b, t, dr)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_q(p, x, cfg, lut, band: bool = False):
+    """q's nope and rope parts, (B, T, heads, dn) and (…, dr): every head,
+    or with ``band`` the rank's heads (its band of wq_b / wq)."""
     b, t, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    fn = linear_band if band else linear
     if cfg.q_lora_rank:
         qa = rms_norm(linear(x, p["wq_a"], lut), p["q_a_norm"], cfg.norm_eps)
-        q = linear(qa, p["wq_b"], lut)
+        q = fn(qa, p["wq_b"], lut)
     else:
-        q = linear(x, p["wq"], lut)
-    q = q.reshape(b, t, cfg.n_heads, dn + dr)
+        q = fn(x, p["wq"], lut)
+    q = q.reshape(b, t, -1, dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -515,22 +802,15 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
     The cache is updated in place.  ``pos``: an int, a 0-d tensor or, for
     T == 1, per-row (B,).  ``rope``: the (cos, sin) tables of these
     positions at qk_rope_head_dim, when the caller shares them."""
+    if _model_axis()[0] is not None:
+        return _apply_mla_mesh(p, x, cfg, lut=lut, cache=cache, pos=pos,
+                               rope=rope)
     b, t, _ = x.shape
     nq = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     r = cfg.kv_lora_rank
     pos0 = 0 if pos is None else pos
-
-    q_nope, q_rope = _mla_q(p, x, cfg, lut)
-    if rope is None:
-        rope = rope_tables(positions(pos0, t, x.device), dr, cfg.rope_theta)
-    cos, sin = rope
-    q_rope = apply_rope(q_rope, cos, sin)
-
-    kv_a = linear(x, p["wkv_a"], lut)                       # (b, t, r + dr)
-    ckv = rms_norm(kv_a[..., :r], p["kv_a_norm"], cfg.norm_eps)
-    k_rope = apply_rope(kv_a[..., r:].reshape(b, t, 1, dr), cos, sin
-                        ).reshape(b, t, dr)
+    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, lut, pos0, rope)
 
     wkv_b = materialize_weight(p["wkv_b"], lut, x.dtype
                                ).reshape(nq, dn + dv, r)
@@ -572,6 +852,115 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
                                                 dn + dr),
         b, x, q_nope, q_rope, cckv, ckrope, pos=pos0).to(x.dtype)
     return linear(o.reshape(b, t, nq * dv), p["wo"], lut), new_cache
+
+
+def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
+                    cache: Optional[Params] = None, pos=None, rope=None):
+    """:func:`apply_mla` on a mesh whose model axis has more than one rank
+    (the reference's placements): wq_b (or wq) gives the rank's heads
+    where they divide the ranks, and ``wkv_b`` is decoded for those heads
+    alone (:func:`materialize_band`, from the rank's band of its planes);
+    the latent cache is the rank's block of positions.  A prefill builds
+    its heads' K/V from the whole fresh latents (or, past position 0, the
+    blocks gathered) and runs K2 on them; a decode step absorbs its q
+    heads into the latent space, gathers that (small) q over model, takes
+    each block's partials over every head and merges them over model in
+    rank order (:func:`_merge_parts`), then applies its heads' W_v.  ``o``
+    is gathered over model before ``wo``."""
+    mesh, ms, m = _model_axis()
+    b, t, _ = x.shape
+    nq = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    pos0 = 0 if pos is None else pos
+    heads = nq % ms == 0
+    nq_l = nq // ms if heads else nq
+    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, lut, pos0, rope,
+                                               band=heads)
+    wkv_b = (materialize_band if heads else materialize_weight)(
+        p["wkv_b"], lut, x.dtype).reshape(nq_l, dn + dv, r)
+    w_k, w_v = wkv_b[:, :dn], wkv_b[:, dn:]
+
+    def gathered(o):
+        o = o.reshape(b, t, nq_l * dv)
+        return mesh.all_gather(o, "model", dim=-1) if heads else o
+
+    def prefill(kv, kr, flash):
+        lmax = kv.shape[1]
+        k_nope = torch.einsum("blr,hdr->blhd", kv.to(x.dtype), w_k)
+        v = torch.einsum("blr,hdr->blhd", kv.to(x.dtype), w_v)
+        k_full = torch.cat([k_nope, kr[:, :, None].to(x.dtype).expand(
+            b, lmax, nq_l, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        return gathered(flash(q_full, k_full, v).to(x.dtype))
+
+    full = (lambda q, k, v: _attend_full(q, k, v, True))
+    if cache is None:
+        return linear(prefill(ckv, k_rope, full), p["wo"], lut), None
+    lb = cache["ckv"].shape[1]
+    start = m * lb
+    cckv = _kv_write_block(cache["ckv"], ckv.to(cache["ckv"].dtype), pos0,
+                           start)
+    ckrope = _kv_write_block(cache["krope"],
+                             k_rope.to(cache["krope"].dtype), pos0, start)
+    new_cache = {"ckv": cckv, "krope": ckrope}
+    if t > 1:
+        if not torch.is_tensor(pos0) and int(pos0) == 0:
+            o = prefill(ckv, k_rope, full)
+        else:
+            o = prefill(mesh.all_gather(cckv, "model", dim=1),
+                        mesh.all_gather(ckrope, "model", dim=1),
+                        lambda q, k, v: _attend_cache_flash(q, k, v,
+                                                            int(pos0)))
+        return linear(o, p["wo"], lut), new_cache
+
+    f32 = torch.float32
+
+    def absorb(qn, _):
+        pad = _row_pad(qn.shape[0], qn)
+        return torch.einsum("bthd,hdr->bthr", pad(qn), w_k.to(f32)
+                            )[:qn.shape[0]]
+
+    qc = _by_row_pieces(absorb, b, x, q_nope, pos=None)
+    qr = q_rope.to(f32)
+    if heads:
+        qc = mesh.all_gather(qc, "model", dim=2)
+        qr = mesh.all_gather(qr, "model", dim=2)
+    mx, s, o_lat = _by_row_pieces(
+        lambda qc_, qr_, kv, kr, p_: _mla_parts(qc_, qr_, kv, kr, p_,
+                                                dn + dr, start),
+        b, x, qc, qr, cckv, ckrope, pos=pos0)
+    o_lat = _merge_parts(mesh, mx, s, o_lat)          # (b, t, nq, r) f32
+    if heads:
+        o_lat = o_lat[:, :, m * nq_l:(m + 1) * nq_l]
+
+    def value(ol, _):
+        pad = _row_pad(ol.shape[0], ol)
+        return torch.einsum("bthr,hdr->bthd", pad(ol), w_v.to(f32)
+                            )[:ol.shape[0]]
+
+    o = _by_row_pieces(value, b, x, o_lat, pos=None)
+    return linear(gathered(o.to(x.dtype)), p["wo"], lut), new_cache
+
+
+def _mla_parts(qc, qr, cckv, ckrope, pos, d_qk: int, start: int):
+    """One rank's block of MLA's absorbed decode: the scores of the
+    absorbed q ``qc`` (b, t, nq, r) and the rope q ``qr`` over the
+    block's latents (from position ``start``), in f32, on the card the
+    batch padded to ROW_PAD rows; → (max, sum, unnormalized latent
+    output) of the block (:func:`_softmax_parts`)."""
+    b, t = qc.shape[:2]
+    pad = _row_pad(b, qc)
+    kv, kr = pad(cckv), pad(ckrope)
+    s_nope = torch.einsum("bthr,blr->bthl", pad(qc), kv)
+    s_rope = torch.einsum("bthd,bld->bthl", pad(qr), kr)
+    logits = (s_nope + s_rope) / math.sqrt(d_qk)
+    mask = _decode_mask(pos, t, cckv.shape[1], qc.device, start)
+    mask = mask[None, :, None, :] if mask.ndim == 2 else pad(
+        mask[:, :, None, :], torch.bool)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    mx, s, e = _softmax_parts(logits)
+    return mx[:b], s[:b], torch.einsum("bthl,blr->bthr", e, kv)[:b]
 
 
 def _mla_absorbed(q_nope, q_rope, cckv, ckrope, w_k, w_v, pos, d_qk: int):
@@ -623,9 +1012,33 @@ def _silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def apply_mlp(p: Params, x: torch.Tensor, *, lut=None,
               decode: bool | None = None) -> torch.Tensor:
+    """SwiGLU.  On a mesh whose model ranks divide d_ff, w_gate and w_up
+    give the rank's band (:func:`linear_band`), silu·up runs on it, and
+    the band is gathered over model just before w_down (elementwise on
+    the band, so the bits are the whole product's)."""
+    mesh, ms, _ = _model_axis()
+    if mesh is not None and _out_dim(p["w_gate"]) % ms == 0:
+        g = linear_band(x, p["w_gate"], lut, decode=decode)
+        u = linear_band(x, p["w_up"], lut, decode=decode)
+        h = mesh.all_gather(_silu_mul(g, u), "model", dim=-1)
+        return linear(h, p["w_down"], lut, decode=decode)
     g = linear(x, p["w_gate"], lut, decode=decode)
     u = linear(x, p["w_up"], lut, decode=decode)
     return linear(_silu_mul(g, u), p["w_down"], lut, decode=decode)
+
+
+def _out_dim(w) -> int:
+    """A weight's whole out features (a placed container's whole N)."""
+    if isinstance(w, (PackedLinear, TiledPackedLinear)):
+        n = w.shape[0]
+        mesh = PT.current_mesh()[1]
+        if w.mesh_axes is not None and mesh is not None:
+            n *= mesh.axis_size(tuple(a for a in w.mesh_axes
+                                      if a != "data"))
+        return n
+    if isinstance(w, QuantLinear):
+        return w.values.shape[-2]
+    return w.shape[-2]
 
 
 def init_moe(cfg, gen: torch.Generator, device,
@@ -778,7 +1191,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
             msize = mesh.shape.get("model", 1)
             bsize = mesh.axis_size(("pod", "data"))
             if (msize > 1 and cfg.n_experts % msize == 0
-                    and x.shape[0] % bsize == 0):
+                    and (x.shape[0] % bsize == 0 or _rows_local(mesh))):
                 return apply_moe_local(p, x, cfg, lut=lut)
         # no mesh / non-divisible batch: global dispatch below
     b, t, d = x.shape
@@ -870,6 +1283,13 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     return y, aux
 
 
+def _rows_local(mesh) -> bool:
+    """Whether the rows being computed are a (pod, data) shard of the
+    batch on ``mesh`` (``partition.rows_split``)."""
+    split = PT.row_split()
+    return split is not None and split[0] is mesh
+
+
 def apply_moe_local(p: Params, x: torch.Tensor, cfg, *, lut=None):
     """Local-routing MoE on the active mesh (the reference's
     ``apply_moe_local``, its ``shard_map`` over ranks).  → (y, aux).
@@ -887,15 +1307,22 @@ def apply_moe_local(p: Params, x: torch.Tensor, cfg, *, lut=None):
     to the rank's dense experts.  The partial outputs are summed over
     model in x's dtype (``Mesh.psum``: rank order, the same bits on every
     rank), ``aux`` is averaged over model and the batch axes, and the
-    rows are gathered back over the batch axes (activations stay
-    replicated in this slice).  The shared experts run on all rows."""
+    rows are gathered back over the batch axes.  The shared experts run
+    on all rows.
+
+    Served on a mesh whose batch rows are split over (pod, data)
+    (``partition.rows_split``), ``x`` is already the rank's shard: it is
+    routed as it is, with no cut and no gather, which is the reference's
+    ``shard_map`` itself; the cut and the gather remain for a batch that
+    every rank holds whole (the engine's slots)."""
     _, mesh = PT.current_mesh()
     e_full, k = cfg.n_experts, cfg.top_k
     b, t, d = x.shape
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    bsize = mesh.axis_size(batch_axes)
+    local_rows = _rows_local(mesh)
+    bsize = 1 if local_rows else mesh.axis_size(batch_axes)
     bl = b // bsize
-    bi = mesh.axis_index(batch_axes)
+    bi = 0 if local_rows else mesh.axis_index(batch_axes)
     msize = mesh.shape["model"]
     e_loc = e_full // msize
     offset = mesh.axis_index("model") * e_loc
@@ -946,7 +1373,9 @@ def apply_moe_local(p: Params, x: torch.Tensor, cfg, *, lut=None):
         y = y + contrib[where[:, j]]
     y = mesh.psum(y, "model")
     aux = mesh.pmean(mesh.pmean(aux, "model"), batch_axes)
-    y = mesh.all_gather(y.reshape(bl, t, d), batch_axes, dim=0)
+    y = y.reshape(bl, t, d)
+    if not local_rows:
+        y = mesh.all_gather(y, batch_axes, dim=0)
     if "shared" in p:
         y = y + apply_mlp(p["shared"], x.reshape(b * t, d), lut=lut,
                           decode=t == 1).reshape(b, t, d)

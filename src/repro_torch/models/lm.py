@@ -247,13 +247,27 @@ def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
 
 
 def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-                device=None) -> Params:
+                device=None, *, mesh=None, rows: bool = True,
+                positions: bool = True) -> Params:
     """Per-layer caches for serving, on ``device`` (the card unless the
     caller passes another).  MLA layers cache the latents; an MoE model's
     first dense layers have theirs under ``"first"``; Mamba2 blocks their
     f32 conv ring and SSM state (``ssm.init_ssm_cache``), and the hybrid's
-    shared attention a KV cache per application under ``"attn"``."""
+    shared attention a KV cache per application under ``"attn"``.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` of more than one rank): this rank's
+    share of the caches of ``batch`` rows (``partition.serve_cache_specs``;
+    ``rows=False`` keeps every row, ``positions=False`` every position),
+    allocated alone; where the ranks split the positions, ``max_len`` is
+    rounded up to a multiple of the model ranks (``partition.cache_len``)."""
     _check_family(cfg)
+    if mesh is not None and mesh.size > 1:
+        from ..sharding import partition as PT
+        if positions:
+            max_len = PT.cache_len(cfg, max_len, mesh)
+        whole = init_caches(cfg, batch, max_len, dtype, device="meta")
+        return PT.zeros_share(whole, mesh, resolve_device(device),
+                              rows=rows, positions=positions)
     device = resolve_device(device)
 
     def one():

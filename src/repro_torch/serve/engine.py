@@ -34,12 +34,18 @@ manager.  An encoder–decoder (``models/encdec.py``) is served through
 On a device mesh (``ServeContext.mesh``, a ``launch.mesh.Mesh`` of
 ranks): ``build_serve_params(model_shards=N)`` picks tiles that divide
 each model shard's out dim, each rank serves its share of the state
-(``sharding.partition.place_params``), and :func:`make_serve_fns` and
+(``sharding.partition.place_params``) and of the caches
+(``lm.init_caches(mesh=)``), and :func:`make_serve_fns` and
 :func:`generate` run their steps under the mesh
 (``partition.active_mesh``), where the compressed matmuls take their
-sharded branches (``kernels.ops``).  Collectives over gloo cannot be
-captured in a CUDA graph, so on a mesh the decode phase runs eagerly and
-:func:`decode_graph` refuses a mesh.
+sharded branches (``kernels.ops``) and the layers keep column-parallel
+activations on their band.  A batch's rows split over (pod, data) where
+they divide it (``partition.batch_rows``): each rank prefills and
+decodes its rows over its caches, and :func:`generate` gathers the new
+tokens over those axes once, at the end; otherwise every rank serves
+every row.  Collectives over gloo cannot be captured in a CUDA graph,
+so on a mesh the decode phase runs eagerly and :func:`decode_graph`
+refuses a mesh.
 """
 from __future__ import annotations
 
@@ -63,6 +69,7 @@ from ..core.integrity import build_manifest, leaf_groups
 from ..core.policy import CompressionPolicy
 from ..core.quant import QuantConfig
 from ..kernels import _build, ops
+from ..launch.mesh import data_axes
 from ..models import encdec as ED
 from ..models import layers as L
 from ..models import lm as LM
@@ -271,7 +278,10 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     (``serve.residency.make_tiered_serve_fns``): each step runs through
     the manager's fetch/replay protocol.  A ``ctx`` with a ``mesh`` gives
     closures that run under it (``partition.active_mesh``), over the
-    rank's share of the params.
+    rank's share of the params and of the caches (``lm.init_caches(...,
+    mesh=)``): they take and return the whole batch's rows, and where the
+    caches hold the rank's share of the rows they run those alone (under
+    ``partition.rows_split``) and gather the logits over (pod, data).
     """
     if ctx is not None:
         cfg = ctx.cfg if cfg is None else cfg
@@ -285,14 +295,63 @@ def make_serve_fns(cfg=None, *, ctx: ServeContext | None = None,
     return serve_fns(cfg, resolve_device(device))
 
 
+def _cache_rows(caches) -> int:
+    """The rows a cache tree holds (every leaf's batch axis is its first)."""
+    return next(_tensors(caches)).shape[0]
+
+
+@contextlib.contextmanager
+def on_mesh(mesh, rows):
+    """Run a step under ``mesh`` (``partition.active_mesh``; None: no
+    mesh), its rows the rank's share of the batch where ``rows`` (a
+    slice) is given (``partition.rows_split`` over (pod, data))."""
+    if mesh is None:
+        yield
+        return
+    axes = data_axes(mesh)
+    with PT.active_mesh(mesh), PT.rows_split(
+            mesh if rows is not None else None, axes):
+        yield
+
+
 def _on_mesh(fns, mesh):
-    """Each of ``fns`` run under ``mesh`` (``partition.active_mesh``)."""
-    def wrap(fn):
-        def run(*a, **kw):
-            with PT.active_mesh(mesh):
-                return fn(*a, **kw)
-        return run
-    return tuple(wrap(f) for f in fns)
+    """``fns`` (prefill, decode_step) run under ``mesh`` on the whole
+    batch's inputs: where the caches hold the rank's share of the rows
+    (:func:`partition.batch_rows`), its rows alone, the logits gathered
+    over (pod, data) after."""
+    prefill, step = fns
+
+    def rows_for(b, caches):
+        rows = PT.batch_rows(mesh, b)
+        if rows is not None and _cache_rows(caches) == rows.stop - rows.start:
+            return rows
+        return None
+
+    def whole(logits, rows):
+        if rows is None:
+            return logits
+        return mesh.all_gather(logits, data_axes(mesh), dim=0)
+
+    def run_prefill(params, lut, batch, caches):
+        rows = rows_for(batch["tokens"].shape[0], caches)
+        if rows is not None:
+            batch = {k: v[rows] if torch.is_tensor(v) else v
+                     for k, v in batch.items()}
+        with on_mesh(mesh, rows):
+            out = prefill(params, lut, batch, caches)
+        return (whole(out[0], rows),) + tuple(out[1:])
+
+    def run_step(params, lut, token, caches, pos):
+        rows = rows_for(token.shape[0], caches)
+        if rows is not None:
+            token = token[rows]
+            if torch.is_tensor(pos) and pos.ndim == 1:
+                pos = pos[rows]
+        with on_mesh(mesh, rows):
+            out = step(params, lut, token, caches, pos)
+        return (whole(out[0], rows),) + tuple(out[1:])
+
+    return run_prefill, run_step
 
 
 def serve_fns(cfg, device: torch.device, *, routing: bool = False):
@@ -388,7 +447,8 @@ def _row_uniforms(keys: torch.Tensor, n: int) -> torch.Tensor:
 
 def sample_tokens(logits: torch.Tensor, temperature=0.0,
                   generator: torch.Generator | None = None, *,
-                  keys: torch.Tensor | None = None) -> torch.Tensor:
+                  keys: torch.Tensor | None = None, rows: slice | None = None,
+                  batch: int | None = None) -> torch.Tensor:
     """The next-token rule.  logits (B, V) → (B,) token ids.  Two modes:
 
     * a scalar ``temperature``: greedy argmax (the first maximum) unless a
@@ -403,7 +463,10 @@ def sample_tokens(logits: torch.Tensor, temperature=0.0,
     A draw is the argmax of p / q with q ~ Exp(1), the race
     ``torch.multinomial(probs, 1)`` runs for one sample, without its
     host-side check of probs, which synchronizes and so cannot be
-    captured."""
+    captured.  ``rows`` (with ``batch``): ``logits`` are those rows of a
+    batch of ``batch`` (a mesh rank's share); a generator's draw is made
+    for the whole batch and cut, so a row draws what it draws in one
+    process."""
     greedy = torch.argmax(logits, dim=-1)
     if torch.is_tensor(temperature) and temperature.ndim == 1:
         temp = temperature.to(torch.float32)
@@ -414,7 +477,11 @@ def sample_tokens(logits: torch.Tensor, temperature=0.0,
     if generator is None or temperature <= 0:
         return greedy
     probs = torch.softmax(logits.to(torch.float32) / temperature, dim=-1)
-    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    if rows is None:
+        q = torch.empty_like(probs).exponential_(1, generator=generator)
+    else:
+        q = probs.new_empty((batch, probs.shape[-1])).exponential_(
+            1, generator=generator)[rows]
     return torch.argmax(probs / q, dim=-1)
 
 
@@ -513,19 +580,24 @@ class DecodeGraph:
         device = resolve_device(device)
         self.device, self.temperature = device, temperature
         self.mesh = mesh
+        self.batch = batch
+        # a mesh rank's rows of the batch (None: all of them)
+        self.rows = PT.batch_rows(mesh, batch)
+        rows = batch if self.rows is None else self.rows.stop - self.rows.start
         self.generator = (torch.Generator(device=device) if temperature > 0
                           else None)
         if cfg.family == "encdec":
             self.caches = ED.init_caches(cfg, batch, max_len, enc_len,
-                                         enc_dtype=enc_dtype, device=device)
+                                         enc_dtype=enc_dtype, device=device,
+                                         mesh=mesh)
         else:
-            self.caches = LM.init_caches(cfg, batch, max_len, device=device)
-        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+            self.caches = LM.init_caches(cfg, batch, max_len, device=device,
+                                         mesh=mesh)
+        self.tok = torch.zeros((rows, 1), dtype=torch.long, device=device)
         self.pos = torch.zeros((), dtype=torch.long, device=device)
-        self.seq = torch.zeros((batch, max_len), dtype=torch.long,
+        self.seq = torch.zeros((rows, max_len), dtype=torch.long,
                                device=device)
-        self._fns = make_serve_fns(ctx=ServeContext(cfg, device=device,
-                                                    mesh=mesh))
+        self._fns = serve_fns(cfg, device)
         self.graph = None
         self.step_counts = None        # per replay, one per _STEP_COUNTERS
         self.capture_ms = None         # host time of the capture
@@ -541,20 +613,29 @@ class DecodeGraph:
         the input, T' + T0 into the position.  → that token (B, 1)."""
         for t in _tensors(self.caches):
             t.zero_()
-        logits, _ = self._fns[0](params, lut, {
-            "tokens": ids, "embeds": embeds, "enc_embeds": enc_embeds},
-            self.caches)
+        batch = {"tokens": ids, "embeds": embeds, "enc_embeds": enc_embeds}
+        if self.rows is not None:
+            batch = {k: v if v is None else v[self.rows]
+                     for k, v in batch.items()}
+        with self._under_mesh():
+            logits, _ = self._fns[0](params, lut, batch, self.caches)
         tok = sample_tokens(logits, 0.0)[:, None]
         self.tok.copy_(tok)
         self.pos.fill_(_extra(embeds) + ids.shape[1])
         return tok
 
+    def _under_mesh(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return on_mesh(self.mesh, self.rows)
+
     def step(self, params, lut):
         """One decode step on the buffers (what the graph captures)."""
-        logits, _ = self._fns[1](params, lut, self.tok, self.caches,
-                                 self.pos)
-        nxt = sample_tokens(logits, self.temperature,
-                            self.generator)[:, None]
+        with self._under_mesh():
+            logits, _ = self._fns[1](params, lut, self.tok, self.caches,
+                                     self.pos)
+        nxt = sample_tokens(logits, self.temperature, self.generator,
+                            rows=self.rows, batch=self.batch)[:, None]
         self.tok.copy_(nxt)
         self.seq.index_copy_(1, (self.pos + 1)[None], nxt)
         self.pos.add_(1)
@@ -602,7 +683,10 @@ class DecodeGraph:
         self.decode(params, lut, max_new - 1)
         if self.generator is not None:
             generator.set_state(self.generator.get_state())
-        return torch.cat([tok, self.seq[:, t0 + 1:t0 + max_new]], dim=1)
+        new = torch.cat([tok, self.seq[:, t0 + 1:t0 + max_new]], dim=1)
+        if self.rows is not None:       # the batch's rows, once
+            new = self.mesh.all_gather(new, data_axes(self.mesh), dim=0)
+        return new
 
 
 def _extra(embeds) -> int:
@@ -717,7 +801,9 @@ def generate(params, cfg, tokens, *, ctx: ServeContext | None = None,
     does (its ``init_caches`` refuses the family): it is served through
     :func:`make_serve_fns` or :func:`decode_graph`.  A ``ctx`` with a
     ``mesh`` serves the rank's share of ``params`` under it, its decode
-    steps eager (same tokens on every rank)."""
+    steps eager, over the rank's rows of the batch where (pod, data)
+    divide it (:class:`DecodeGraph`); the new tokens are gathered over
+    those axes at the end, so every rank returns the whole batch's."""
     if cfg is None and ctx is not None:
         cfg = ctx.cfg
     if cfg.family == "encdec":

@@ -109,14 +109,22 @@ def paged_view(cfg, pages, page_table: torch.Tensor):
 
 
 def write_token(cfg, page_size: int, pages, view, page_table: torch.Tensor,
-                pos: torch.Tensor, active: torch.Tensor) -> None:
+                pos: torch.Tensor, active: torch.Tensor,
+                start: int | None = None) -> None:
     """Scatter each slot's cache entry at ``pos`` (B,) from ``view`` (the
     caches the decode step wrote in place) into its page, in place.  An
     inactive slot (``active`` (B,) bool False) writes to the sink page,
-    the pool's last, which belongs to no slot."""
+    the pool's last, which belongs to no slot.  ``start``: the pool holds
+    a mesh rank's block of each slot's positions from ``start``
+    (:class:`PagedKVPool`); an entry outside it goes to the sink too."""
     leaves = _leaves(pages)
     axes = _axes_leaves(cfg)
     sink = leaves[0].shape[axes[0][0]] - 1
+    if start is not None:
+        length = page_table.shape[1] * page_size
+        pos = pos - start
+        active = active & (pos >= 0) & (pos < length)
+        pos = torch.clamp(pos, 0, length - 1)
     page_of = page_table.gather(1, (pos // page_size)[:, None])[:, 0]
     page = torch.where(active, page_of, torch.full_like(page_of, sink))
     off = pos % page_size
@@ -151,13 +159,26 @@ class PagedKVPool:
 
     def __init__(self, cfg, n_slots: int, max_len: int, *,
                  page_size: int = 8, dtype=torch.bfloat16,
-                 n_pages: int | None = None, device=None):
+                 n_pages: int | None = None, device=None, mesh=None):
         _axes_leaves(cfg)             # fail fast on a layout it cannot page
+        from ..sharding import partition as PT
         self.cfg = cfg
         self.n_slots = n_slots
         self.page_size = page_size
-        self.pages_per_slot = -(-max_len // page_size)
-        self.max_len = self.pages_per_slot * page_size
+        # On a mesh whose model ranks split the positions
+        # (``partition.cache_positions_split``), a rank's pages hold its
+        # contiguous block of each slot's positions, ``start`` onwards:
+        # the slot's length rounds to whole pages a rank, and the view
+        # the layers read is that block.  Otherwise a page holds the
+        # rank's heads (``lm.init_caches(mesh=)``) of whole positions.
+        ms = (mesh.shape.get("model", 1)
+              if PT.cache_positions_split(cfg, mesh) else 1)
+        pages = -(-max_len // page_size)
+        pages = -(-pages // ms) * ms
+        self.max_len = pages * page_size
+        self.pages_per_slot = pages // ms
+        self.start = (mesh.axis_index("model") * (self.max_len // ms)
+                      if ms > 1 else None)
         self.n_pages = (n_slots * self.pages_per_slot if n_pages is None
                         else n_pages)
         if self.n_pages < self.pages_per_slot:
@@ -166,7 +187,8 @@ class PagedKVPool:
                 f"({self.pages_per_slot} pages/slot)")
         self.device = resolve_device(device)
         self.pages = LM.init_caches(cfg, self.n_pages + 1, page_size, dtype,
-                                    device=self.device)
+                                    device=self.device, mesh=mesh,
+                                    rows=False, positions=False)
         self.page_table = np.zeros((n_slots, self.pages_per_slot), np.int64)
         self.free_pages: List[int] = list(range(self.n_pages))
         self._owned = [False] * n_slots

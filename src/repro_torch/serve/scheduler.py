@@ -229,7 +229,8 @@ class Engine:
         self.device = resolve_device(ctx.device)
         self.pool = PagedKVPool(ctx.cfg, n_slots, max_len,
                                 page_size=page_size, dtype=dtype,
-                                n_pages=n_pages, device=self.device)
+                                n_pages=n_pages, device=self.device,
+                                mesh=ctx.mesh)
         self.guard = guard or functools.partial(_unguarded, ctx.cfg)
         self.max_queue = max_queue
         self.shed_policy = shed_policy
@@ -268,7 +269,8 @@ class Engine:
          self._temp) = dev
         self._nxt = torch.zeros(b, dtype=torch.int64, device=self.device)
         self._frag = LM.init_caches(self.ctx.cfg, 1, self.pool.max_len,
-                                    dtype, device=self.device)
+                                    dtype, device=self.device,
+                                    mesh=self.ctx.mesh, rows=False)
         # a resume's decode steps on the fragment: their token and position
         self._rtok = torch.zeros((1, 1), dtype=torch.int64,
                                  device=self.device)
@@ -632,7 +634,7 @@ class Engine:
         nxt = _engine.sample_tokens(
             logits, temp, keys=_engine.fold_in(self._key, self._pos))
         write_token(cfg, pool.page_size, pool.pages, view, self._pt,
-                    self._pos, self._act != 0)
+                    self._pos, self._act != 0, start=pool.start)
         self._nxt.copy_(nxt)
         return routing[0] if routing else None
 

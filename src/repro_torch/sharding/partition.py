@@ -18,14 +18,25 @@ plane specs.  The port keeps a model's layers as a list, so a layer's
 leaf has no stacked dim: its spec is the reference's for the stacked leaf
 without the leading ``None``.
 
-Serving: what a rank holds is not this table.  The port places the
-planes that the sharded kernels read as their ``shard_map`` in-specs give
-them (:func:`place_params`), and keeps every other leaf replicated.
+Serving: what a rank holds is not this table alone.  The port places
+the planes that the sharded kernels read as their ``shard_map`` in-specs
+give them, and the int8 embedding and head as vocab-row bands on
+``model`` (:func:`place_params`); every other weight leaf stays
+replicated.  A rank's caches are its share under
+:func:`make_cache_specs` (:func:`serve_cache_specs`,
+:func:`place_caches`; ``models/lm.py::init_caches(mesh=)`` allocates
+it): batch rows on (pod, data), K/V (and their int8 scales) by heads on
+``model`` where the kv heads divide it, else by a contiguous block of
+positions, MLA's latents by positions, an encoder–decoder's cross K/V by
+heads; the Mamba2 state and conv window split over the batch axes only.
+A served batch's rows are split over (pod, data) where they divide it
+(:func:`batch_rows`, under :func:`rows_split`), else every rank serves
+all of them, as the reference's ``drow`` guard does.  Column-parallel
+activations stay on their ``model`` band (q/k/v by heads, the MLP's
+gate and up projections) until the row-parallel weight after them, as
+the reference's ``out_specs`` leave them (``models/layers.py``).
 ``constrain`` is a no-op outside a mesh, as in the reference, and inside
-one too: served activations stay replicated over ``model`` and their rows
-are not split over ``data`` (by design: ROADMAP.md queue 3, "Not port
-faults", serving on a mesh — a plain product's bits follow its row
-count).
+one too: the layers hold each activation on the rank as its spec says.
 
 Training (``train/steps.py``) is the port's ZeRO-3: each rank stores its
 shard of every leaf of the train state under
@@ -44,7 +55,8 @@ from typing import Any
 
 import torch
 
-from ..launch.mesh import AXIS_DATA, AXIS_MODEL, AXIS_POD, _unravel
+from ..launch.mesh import (AXIS_DATA, AXIS_MODEL, AXIS_POD, _unravel,
+                           data_axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,7 +292,8 @@ def _stacked_cache(path_str: str) -> int:
 def make_cache_specs(caches: Any, mesh, batch_axis=None) -> Any:
     """KV/SSM cache specs: batch on data axes when divisible, heads/state
     dims on model when divisible (the reference's rules).  The port keeps
-    a list of per-layer caches, which have no stacked dim."""
+    a list of per-layer caches (an encoder–decoder's cross K/V a list of
+    tensors), which have no stacked dim."""
     batch_axes = batch_axis if batch_axis is not None else (
         tuple(a for a in (AXIS_POD, AXIS_DATA) if a in mesh.axis_names)
         or None)
@@ -292,7 +305,8 @@ def make_cache_specs(caches: Any, mesh, batch_axis=None) -> Any:
         dims: list = [None] * len(shape)
         if stacked < len(shape):
             dims[stacked] = batch_axes
-        if re.search(r"(^|/)(k|v|enc_k|enc_v)$", path_str) and \
+        if re.search(r"(^|/)(k|v|enc_k|enc_v)$|(^|/)(enc_k|enc_v)/\d+$",
+                     path_str) and \
                 len(shape) >= stacked + 4:
             if shape[stacked + 2] % msize == 0:
                 dims[stacked + 2] = AXIS_MODEL
@@ -504,8 +518,8 @@ def current_mesh():
 
 def constrain(x, *dims):
     """The reference's sharding constraint.  Outside a mesh a no-op, as
-    there; inside one a no-op too: the port keeps activations replicated
-    on every rank of a serving mesh (see the module docstring)."""
+    there; inside one a no-op too: the layers hold each activation on the
+    rank as its spec places it (see the module docstring)."""
     return x
 
 
@@ -514,11 +528,13 @@ _ROW_SPLIT: list = []
 
 @contextlib.contextmanager
 def rows_split(mesh, axes):
-    """Mark the rows this block computes as one data rank's share of each
-    microbatch, split over ``axes`` of ``mesh`` (a training step on a
-    mesh, ``train/steps.py``): the MoE then takes its capacity, slot
-    ranks and aux loss over the whole microbatch (``layers.apply_moe``).
-    A no-op where ``axes`` hold one rank."""
+    """Mark the rows this block computes as one data rank's share of the
+    batch, split over ``axes`` of ``mesh`` (a training step's microbatch,
+    ``train/steps.py``; a served batch, ``serve/engine.py``): the global
+    MoE then takes its capacity, slot ranks and aux loss over the whole
+    batch (``layers.apply_moe``), and the local-routing MoE routes the
+    rows it is given (``layers.apply_moe_local``).  A no-op where
+    ``axes`` hold one rank."""
     if mesh is None or mesh.axis_size(axes) <= 1:
         yield None
         return
@@ -572,6 +588,149 @@ def placement_ok(w, mesh) -> bool:
     return False
 
 
+def batch_rows(mesh, b: int):
+    """This rank's rows of a batch of ``b`` over (pod, data): a slice, or
+    None where those axes hold one rank or do not divide ``b`` (every
+    rank then serves all rows, as the reference's ``drow`` guard keeps
+    them whole)."""
+    if mesh is None:
+        return None
+    axes = data_axes(mesh)
+    n = mesh.axis_size(axes)
+    if n <= 1 or b % n:
+        return None
+    per = b // n
+    i = mesh.axis_index(axes)
+    return slice(i * per, (i + 1) * per)
+
+
+def _model_size(mesh) -> int:
+    return mesh.shape.get(AXIS_MODEL, 1) if mesh is not None else 1
+
+
+def cache_positions_split(cfg, mesh) -> bool:
+    """Whether a rank's attention caches hold a block of positions (MLA's
+    latents, or K/V whose kv heads do not divide the model axis) rather
+    than whole positions, on ``mesh``."""
+    ms = _model_size(mesh)
+    return ms > 1 and (bool(getattr(cfg, "mla", False))
+                       or cfg.n_kv_heads % ms != 0)
+
+
+def cache_len(cfg, max_len: int, mesh) -> int:
+    """The positions a serving cache of ``max_len`` holds on ``mesh``:
+    rounded up to a multiple of the model ranks where the ranks split the
+    positions (each holds one contiguous block; the tail is masked as
+    every cache's unwritten tail is)."""
+    ms = _model_size(mesh)
+    if cache_positions_split(cfg, mesh):
+        return -(-max_len // ms) * ms
+    return max_len
+
+
+_SSM_LEAF = re.compile(r"(^|/)(ssm|conv)$")
+
+
+def serve_cache_specs(caches: Any, mesh, *, rows: bool = True,
+                      positions: bool = True) -> Any:
+    """The share of each cache leaf a serving rank holds: the reference's
+    :func:`make_cache_specs`, less what the port does not cut — the
+    Mamba2 state and conv window stay whole on ``model`` (split over the
+    batch axes only: their heads and channels are not a column band of
+    ``in_proj``), an encoder–decoder's cross K/V split by heads or not at
+    all, K/V (and their scales) by heads or positions and MLA's latents
+    by positions, never by ``head_dim`` or latent width (kept whole where
+    those alone divide).  ``rows=False`` keeps the batch axis whole (the
+    engine's slots and pages, which every data rank holds);
+    ``positions=False`` keeps the positions axis whole (the engine's
+    pages, each already a rank's positions: ``serve/kv_cache.py``)."""
+    specs = make_cache_specs(caches, mesh)
+
+    def fix(path, spec):
+        spec = list(spec)
+        if not rows and spec:
+            spec[0] = None
+        if _SSM_LEAF.search(path):
+            keep = ()
+        elif re.search(r"(^|/)(enc_k|enc_v)(/\d+)?$", path):
+            keep = (2,)
+        elif re.search(r"(^|/)(k|v|k_scale|v_scale)$", path):
+            keep = (1, 2)
+        elif re.search(r"(^|/)(ckv|krope)$", path):
+            keep = (1,)
+        else:
+            keep = ()
+        if not positions:
+            keep = tuple(i for i in keep if i != 1)
+        return tuple(None if (ax == AXIS_MODEL and i not in keep) else ax
+                     for i, ax in enumerate(spec))
+
+    def walk(node, sp, path=""):
+        if isinstance(node, dict):
+            return {k: walk(node[k], sp[k], f"{path}/{k}" if path else k)
+                    for k in node}
+        if isinstance(node, list):
+            return [walk(v, s, f"{path}/{i}" if path else str(i))
+                    for i, (v, s) in enumerate(zip(node, sp))]
+        return fix(path, sp)
+
+    return walk(caches, specs)
+
+
+def place_caches(caches: Any, mesh, *, rows: bool = True) -> Any:
+    """Each rank's share of whole serving caches (:func:`serve_cache_specs`),
+    as copies; the caches themselves where the mesh is one rank."""
+    if mesh is None or mesh.size <= 1:
+        return caches
+    specs = serve_cache_specs(caches, mesh, rows=rows)
+
+    def walk(node, sp):
+        if isinstance(node, dict):
+            return {k: walk(node[k], sp[k]) for k in node}
+        if isinstance(node, list):
+            return [walk(v, s) for v, s in zip(node, sp)]
+        return shard_leaf(node, sp, mesh)
+
+    return walk(caches, specs)
+
+
+def zeros_share(caches: Any, mesh, device, *, rows: bool = True,
+                positions: bool = True) -> Any:
+    """Zero tensors of each rank's share of ``caches`` (whole caches on
+    the ``meta`` device: shapes and dtypes alone), on ``device``."""
+    specs = serve_cache_specs(caches, mesh, rows=rows, positions=positions)
+
+    def walk(node, sp):
+        if isinstance(node, dict):
+            return {k: walk(node[k], sp[k]) for k in node}
+        if isinstance(node, list):
+            return [walk(v, s) for v, s in zip(node, sp)]
+        return torch.zeros(shard_shape(tuple(node.shape), sp, mesh),
+                           dtype=node.dtype, device=device)
+
+    return walk(caches, specs)
+
+
+_VOCAB_LEAVES = ("embed", "lm_head", "dec_embed")
+
+
+def place_vocab(w, mesh):
+    """An int8 embedding or head's vocab-row band on ``model`` (the
+    reference's serve spec ``("V", ...)``: rows over model where they
+    divide), as copies of ``values``, ``scale`` and ``zero``; ``w`` itself
+    where the rows do not divide or ``w`` is not a ``QuantLinear``."""
+    from ..core.compressed import QuantLinear
+    ms = _model_size(mesh)
+    if (not isinstance(w, QuantLinear) or w.mesh_axes is not None
+            or ms <= 1 or w.values.ndim != 2 or w.values.shape[0] % ms):
+        return w
+    m = mesh.coords[AXIS_MODEL]
+    return dataclasses.replace(
+        w, **{p: _band(getattr(w, p), 0, m, ms)
+              for p in ("values", "scale", "zero")},
+        mesh_axes=(AXIS_MODEL,))
+
+
 def _band(t, dim: int, index: int, count: int):
     per = t.shape[dim] // count
     return t.narrow(dim, index * per, per).contiguous().clone()
@@ -620,23 +779,26 @@ def place_params(params: Any, mesh) -> Any:
     them to a device — a ``PackedLinear``'s out-tile bands over the
     (pod, model) ranks (the rows of codes, literals, nlit, scale and
     zero), a ``TiledPackedLinear``'s column groups over data and out-tile
-    bands over model, an expert stack's experts over model.  A placed
-    container records the axes in ``mesh_axes`` and holds the rank's
-    ``shape``; the planes are copies, so the whole ones can be freed.
-    Every other leaf (dense weights, norms, embeddings, int8 weights,
-    whose K5 bands are views taken at each call, and the LUT) stays
-    replicated in this slice."""
+    bands over model, an expert stack's experts over model — and the
+    int8 ``embed``, ``lm_head`` and ``dec_embed`` as their vocab-row band
+    on model (:func:`place_vocab`, the serve specs' rows; K5 reads the
+    stored band).  A placed container records the axes in ``mesh_axes``
+    and holds the rank's ``shape``; the planes are copies, so the whole
+    ones can be freed.  Every other leaf (dense weights, norms, the other
+    int8 weights, whose K5 bands are views taken at each call, and the
+    LUT) stays replicated."""
     if mesh is None or mesh.size <= 1:
         return params
 
-    def walk(node):
+    def walk(node, top=False):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: (place_vocab(v, mesh) if top and k in _VOCAB_LEAVES
+                        else walk(v)) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
         return place_container(node, mesh)
 
-    return walk(params)
+    return walk(params, top=True)
 
 
 def gather_container(w, dense, mesh):

@@ -1855,6 +1855,31 @@ def test_mesh_ranks_on_card_are_one_process_bitwise(card):
         assert not launches.get("fused_decode_matmul:simt")
 
 
+@pytest.mark.parametrize("shards,b", [(2, 4), (4, 4), (2, 2), (4, 20)])
+def test_decode_attention_rank_heads_bitwise_on_card(card, shards, b):
+    """A mesh rank's kv heads through the decode attention (the heads path
+    of ``layers.apply_attention``), its rows padded for every kv head
+    (``kv_heads=``): each head is bitwise the whole call's, at Llama-3.2-1B's
+    heads (cuBLAS picks a batched GEMM by its batch count, so unpadded the
+    rank's heads part by up to 1.5e-5: ``tools/mesh_bits.py``)."""
+    g = _gen(card, 5)
+    lk, hq, hkv, d = 207, 32, 8, 64
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+
+    q, k, v = rand(b, 1, hq, d), rand(b, lk, hkv, d), rand(b, lk, hkv, d)
+    pos = torch.tensor(175, device=card)
+    whole = L._attend_cached(q, k, v, pos, 1)
+    qh, kh = hq // shards, hkv // shards
+    for i in range(shards):
+        part = L._attend_cached(q[:, :, i * qh:(i + 1) * qh],
+                                k[:, :, i * kh:(i + 1) * kh],
+                                v[:, :, i * kh:(i + 1) * kh], pos, 1,
+                                kv_heads=hkv)
+        assert torch.equal(part, whole[:, :, i * qh:(i + 1) * qh]), i
+
+
 def test_train_mesh_step_on_card_matches_one_process(card):
     """Four ranks on the one card (gloo), the Llama smoke train state
     sharded on (2, 2) (ZeRO-3): 3 steps, each from the state the mesh

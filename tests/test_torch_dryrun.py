@@ -253,10 +253,14 @@ def test_decode_step_plan_equals_run(ran, name, shape):
         _build.KERNEL_COUNTS.clear()
         with D.fake_tensors(dev):
             params = PT.place_params(D.fake_like(case["params"], dev), mesh)
-            args = [D.fake_like(case[k], dev)
-                    for k in ("lut", "tokens", "caches", "pos")]
+            lut, tokens, caches, pos = [D.fake_like(case[k], dev) for k in
+                                        ("lut", "tokens", "caches", "pos")]
+            rows = PT.batch_rows(mesh, tokens.shape[0])
+            tokens = tokens if rows is None else tokens[rows]
+            caches = PT.place_caches(caches, mesh)
             plan = D.plan_step(D.serve_step(case["cfg"], "decode", mesh,
-                                            dev), params, *args, mesh=mesh)
+                                            dev, rows), params, lut, tokens,
+                               caches, pos, mesh=mesh)
         got = outs[rank][name]
         assert _received(plan) == got["traffic"], (name, rank)
         assert plan["memory"]["argument_size_in_bytes"] == got["holds"]

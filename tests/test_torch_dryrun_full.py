@@ -4,7 +4,9 @@ process by ``run_cell``), and the CLI on one cell.
 
   * Each arch's record is ok, with the reference's keys, the planned card
     and the kernels' launches; its memory adds up as the reference's
-    ``total_hbm_bytes`` does.
+    ``total_hbm_bytes`` does; the rank's caches are its share under the
+    reference's ``make_cache_specs`` (the Mamba2 state and conv window
+    excepted, and named) and it serves its 8 of the batch's 128 rows.
   * ``python -m repro_torch.launch.dryrun`` on internlm2-1.8b writes that
     record; a second run skips it as cached; the CLI never imports JAX.
 """
@@ -50,6 +52,14 @@ def test_full_size_decode_plan(arch):
     _check_record(rec)
     assert rec["collectives"]["total_bytes"] > 0
     assert _build.PLAN is None
+    # the rank's caches are its share under the reference's
+    # make_cache_specs, less the Mamba2 state and conv window that the
+    # port keeps whole on model (named, with their extra bytes)
+    whole = rec["cache_whole_on_model"]
+    assert set(whole) <= {"blocks/ssm", "blocks/conv"}
+    assert rec["cache_bytes"] - sum(whole.values()) == \
+        rec["reference_cache_bytes"]
+    assert rec["batch_rows"] == 128 // 16
 
 
 _CLI = ("import runpy, sys; sys.argv = ['dryrun'] + sys.argv[1:]; "

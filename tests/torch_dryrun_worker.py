@@ -5,7 +5,8 @@ by name, so it imports the port alone (no JAX).  Four gloo ranks on the
 CPU: a set of collectives on (2, 2) (each result's shape and dtype), then
 one step of each case on its mesh — a Llama smoke train step on (2, 2), a
 serving decode step of the Llama smoke model on (1, 2) and of the
-DeepSeek smoke model (local-routing MoE) on (2, 2) — each with the bytes
+DeepSeek smoke model (local-routing MoE) on (2, 2), each on the rank's
+share of the params, caches and batch rows — each with the bytes
 the rank received by collective (``Mesh.traffic``) and the bytes it held
 before the step, which the test holds its plan to."""
 import collections
@@ -14,8 +15,7 @@ import torch
 
 from repro_torch.launch import op_stats
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.serve.context import ServeContext
-from repro_torch.serve.engine import make_serve_fns
+from repro_torch.serve.engine import on_mesh, serve_fns
 from repro_torch.sharding import partition as PT
 from repro_torch.train.steps import make_train_step
 
@@ -54,25 +54,20 @@ def train_case(mesh, case: dict) -> dict:
 
 
 def decode_case(mesh, case: dict) -> dict:
+    """One decode step as ``generate`` runs it on ``mesh``: the rank's
+    share of the params, of the caches and of the batch's rows."""
     params = PT.place_params(case["params"], mesh)
     lut, tokens, caches, pos = (case[k] for k in ("lut", "tokens",
                                                   "caches", "pos"))
-    caches = _clone(caches)
-    _, decode = make_serve_fns(case["cfg"], ctx=ServeContext(
-        cfg=case["cfg"], device="cpu", mesh=mesh))
+    rows = PT.batch_rows(mesh, tokens.shape[0])
+    tokens = tokens if rows is None else tokens[rows]
+    caches = PT.place_caches(caches, mesh)
+    _, decode = serve_fns(case["cfg"], torch.device("cpu"))
     holds = op_stats.tree_bytes(params, lut, tokens, caches, pos)
-    with torch.no_grad():
+    with torch.no_grad(), on_mesh(mesh, rows):
         _, traffic = _traffic(mesh, lambda: decode(params, lut, tokens,
                                                    caches, pos))
     return {"traffic": traffic, "holds": holds}
-
-
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.clone()
 
 
 def run(rank: int, cases: dict) -> dict:

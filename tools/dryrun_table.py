@@ -2,6 +2,15 @@
 
     PYTHONPATH=src python tools/dryrun_table.py results/dryrun_torch \
         [more record directories ...]
+    PYTHONPATH=src python tools/dryrun_table.py --before OLD_DIR NEW_DIR
+
+``--before OLD_DIR``: the serve cells (prefill, decode, ``long_500k``)
+of OLD_DIR's records (another tree's sweep) beside the given ones, a row
+per cell: on each mesh the planned argument / temp / total GB a rank,
+before → after; the rank's caches in GB beside its share under the
+reference's ``make_cache_specs`` (and the Mamba2 state the port keeps
+whole on model, GB); the all-gathered GB a step on 16×16, before →
+after.
 
 Reads every ``<arch>__<shape>__<mesh>__<mode>.json`` that
 ``python -m repro_torch.launch.dryrun`` wrote (a cell found in two
@@ -77,7 +86,53 @@ def row(arch, shape, one, two) -> str:
     return "| " + " | ".join(cells) + " |"
 
 
+def _mem(rec) -> str:
+    if not planned(rec):
+        return status(rec)
+    mem = rec["memory"]
+    return (f"{mem['argument_size_in_bytes'] / GB:.2f} / "
+            f"{mem['temp_size_in_bytes'] / GB:.2f} / "
+            f"{mem['total_hbm_bytes'] / GB:.2f}")
+
+
+def _caches(rec) -> str:
+    if not planned(rec) or "cache_bytes" not in rec:
+        return "–"
+    extra = sum(rec.get("cache_whole_on_model", {}).values())
+    out = (f"{rec['cache_bytes'] / GB:.3g} / "
+           f"{rec['reference_cache_bytes'] / GB:.3g}")
+    return out + (f" (+{extra / GB:.3g} SSM)" if extra else "")
+
+
+def _gathered(rec) -> str:
+    if not planned(rec):
+        return "–"
+    got = rec["collectives"]["bytes_by_kind"].get("all-gather", 0)
+    return f"{got / GB:.3g}"
+
+
+def compare(before_dir, dirs):
+    old, new = load([before_dir]), load(dirs)
+    print("| cell | 16×16 GB a rank: argument / temp / total, before → after"
+          " | 2×16×16, before → after | caches GB a rank / the reference's"
+          " share: 16×16; 2×16×16 | 16×16 all-gathered GB a step, before "
+          "→ after |")
+    print("|" + "---|" * 5)
+    for arch in sorted({k[0] for k in new}):
+        for shape in SHAPES[1:]:
+            keys = [(arch, shape, m) for m in ("single", "multi")]
+            if not any(planned(new.get(k)) for k in keys):
+                continue
+            o1, o2 = (old.get(k) for k in keys)
+            n1, n2 = (new.get(k) for k in keys)
+            print(f"| {arch} {shape} | {_mem(o1)} → {_mem(n1)} | "
+                  f"{_mem(o2)} → {_mem(n2)} | {_caches(n1)}; {_caches(n2)} "
+                  f"| {_gathered(o1)} → {_gathered(n1)} |")
+
+
 def main(argv):
+    if argv[:1] == ["--before"]:
+        return compare(argv[1], argv[2:])
     cells = load(argv or ["results/dryrun_torch"])
     print("| cell | status | 16×16 GB a rank: argument / temp / total "
           "(÷ 80 GB) | 16×16 collective GB a step: all-gather / all-reduce"
