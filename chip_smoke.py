@@ -146,13 +146,16 @@ training on a mesh; the script exits non-zero if any phase fails:
      attention's.
  12. Train on a mesh (``train_mesh_phase``, last): MESH_RANKS ranks on the
      card over gloo; Llama-3.2-1B at full width cut to TRAIN_MESH_LAYERS
-     layers, f32, its train state sharded on TRAIN_MESH (ZeRO-3),
-     TRAIN_MESH_STEPS steps, each loss within TRAIN_MESH_LOSS_RTOL of one
-     process's on the card, K2's f32 kernel in every rank's forward; the
+     layers, f32, its train state sharded on TRAIN_MESH (ZeRO-3), each
+     block's leaves gathered over data where it uses them (twice with
+     remat), tensor-parallel over model; TRAIN_MESH_STEPS steps, each loss
+     within TRAIN_MESH_LOSS_RTOL of one process's on the card, K2's f32
+     kernel on the rank's q heads in every forward and recompute; the
      checkpoint after step TRAIN_MESH_CKPT restored onto
      TRAIN_MESH_RESTORE and into one process, one more step each;
-     DeepSeek-V2-Lite at 2 layers on TRAIN_MESH_MOE, its kept (token,
-     expert) pairs equal one process's; K2 f32 at a data rank's shape.
+     DeepSeek-V2-Lite at 2 layers on TRAIN_MESH_MOE (its experts on
+     model), its kept (token, expert) pairs equal one process's; K2 f32 at
+     each mesh's rank's heads and rows.
  13. Dry run (``dryrun_phase``, last): plans on fake tensors
      (``launch/dryrun.py``) for an H100 SXM of 132 SMs (the card's count
      must be that), held against this run: the train_mesh phase's Llama
@@ -182,6 +185,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -3101,9 +3105,14 @@ def check_flash_train(rt, device, gen, timer, hq, hkv, d, dv, what,
 def train_steps(rt, cfg, state, step, data, n, first=0):
     """``n`` train steps from ``first``, counted (launches zeroed just
     before, read just after) and timed (each step ends on its loss's host
-    read).  → (state, {losses, step_ms, median_step_ms, peak_mem_bytes,
-    launches, kernel_launches})."""
+    read).  ``state``: the train state, or a function that makes it, so
+    that no caller holds the first state through the run and the peak is
+    a step's own (the old state, the new one, the gradients and the
+    activations).  → (state, {losses, step_ms, median_step_ms,
+    peak_mem_bytes, launches, kernel_launches})."""
     _build = rt["_build"]
+    if callable(state):
+        state = state()
     _build.LAUNCH_COUNTS.clear()
     _build.KERNEL_COUNTS.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -3240,11 +3249,16 @@ def escape_share(rt, state) -> float:
 
 def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
     """Llama-3.2-1B at full width, 16 layers, f32, from seed 0 on the card:
+    first one step without remat (every block's activations kept), then
     TRAIN_STEPS steps of batch TRAIN_BATCH × TRAIN_SEQ (tokens below
     TRAIN_DATA_VOCAB) at the reference launcher's AdamW (lr 5e-3, warmup
-    steps/10); the loss must fall, and
-    every step's attention is K2's f32 kernel (16 launches a step, none
-    of another K2 kernel).  Then
+    steps/10) with the config's per-block remat: its first loss bitwise
+    the step without remat's (the peaks of both reported); the loss must
+    fall, and every step's attention is K2's f32 kernel (32 launches a
+    step, the recompute's included; none of another K2 kernel).  Then
+    one forward and backward with remat and without on the same batch:
+    the same loss bits, a lower peak with remat (a step's own peak is
+    AdamW's update, where the activations are gone).  Then
     one step's gradients against the all-plain attention; GPTQ on layer
     0; the trained model packed compressed and served by ``serve`` (the
     eager loop, two generates, bitwise, the counts) with the escape
@@ -3256,21 +3270,40 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
         total_steps=TRAIN_STEPS))
     data = rt["DataPipeline"](rt["DataConfig"](
         vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
-    t0 = time.perf_counter()
-    state = S.init_train_state(rt["LM"].init_lm(cfg, seed=SEED,
-                                                device=device), tcfg)
-    torch.cuda.synchronize()
+    def init():
+        return S.init_train_state(rt["LM"].init_lm(cfg, seed=SEED,
+                                                   device=device), tcfg)
+
+    # one step without remat (every block's activations kept) from the
+    # same init: its loss bits and peak beside the remat run's
+    plain_cfg = dataclasses.replace(cfg, remat=False)
+    state, no_remat = train_steps(rt, plain_cfg, init, S.make_train_step(
+        plain_cfg, tcfg), data, 1)
+    del state
+    torch.cuda.empty_cache()
     info = {"model": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
-            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "init_s": time.perf_counter() - t0}
-    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat}
+    state, run = train_steps(rt, cfg, init, S.make_train_step(cfg, tcfg),
                              data, TRAIN_STEPS)
     info.update(run)
     losses = run["losses"]
+    info["no_remat"] = {
+        "loss": no_remat["losses"][0], "step_ms": no_remat["step_ms"][0],
+        "peak_mem_bytes": no_remat["peak_mem_bytes"],
+        "k2": k2_train_launches(no_remat),
+        "loss_bitwise": no_remat["losses"][0] == losses[0]}
+    log(f"train {cfg.name} remat: first loss {losses[0]!r} (no remat "
+        f"{no_remat['losses'][0]!r}), peak {run['peak_mem_bytes']} B (no "
+        f"remat {no_remat['peak_mem_bytes']} B), median step "
+        f"{run['median_step_ms']:.1f} ms (no remat "
+        f"{no_remat['step_ms'][0]:.1f} ms, a first step)")
+    if not (cfg.remat and info["no_remat"]["loss_bitwise"]
+            and info["no_remat"]["k2"] == cfg.n_layers):
+        faults.append(f"llama train remat: {info['no_remat']}")
     k2 = k2_train_launches(run)
     info["flash_attention_tf32x3_launches"] = k2
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
-            and k2 == cfg.n_layers * TRAIN_STEPS
+            and k2 == k2_per_step(rt, cfg) * TRAIN_STEPS
             and set(run["launches"]) == {"flash_attention_f32"}):
         faults.append(f"llama train: losses {losses}, launches "
                       f"{run['launches']}, by kernel "
@@ -3280,7 +3313,31 @@ def llama_train(rt, device, gen, timer, kernels, faults) -> dict:
     torch.cuda.empty_cache()
     batch = {k: v.to(device) for k, v in
              data.batch_at(TRAIN_STEPS).items()}
-    info["grad_vs_plain"] = grad_against_plain(rt, cfg, tcfg, params, batch)
+    # the forward and backward alone, with and without remat: the step's
+    # peak is AdamW's (the old state, the new one and the gradients), so
+    # what remat frees shows here
+    info["grads_peak"] = {}
+    for name, c in (("remat", cfg), ("no_remat", plain_cfg)):
+        gc.collect()     # no garbage freed inside the measured call
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = S.loss_and_grads(params, c, tcfg, batch)
+        info["grads_peak"][name] = {
+            "loss": float(loss),
+            "bytes_above_params": torch.cuda.max_memory_allocated() - base}
+        del loss, grads
+    gp = info["grads_peak"]
+    log(f"train {cfg.name} forward+backward peak above the parameters: "
+        f"remat {gp['remat']['bytes_above_params']} B, no remat "
+        f"{gp['no_remat']['bytes_above_params']} B")
+    if not (gp["remat"]["loss"] == gp["no_remat"]["loss"]
+            and gp["remat"]["bytes_above_params"]
+            < gp["no_remat"]["bytes_above_params"]):
+        faults.append(f"llama train remat, forward and backward: {gp}")
+    info["grad_vs_plain"] = grad_against_plain(rt, cfg, tcfg, params, batch,
+                                               k2_want=k2_per_step(rt, cfg))
     torch.cuda.empty_cache()
     info["gptq"] = gptq_check(rt, cfg, params, data.batch_at(
         TRAIN_STEPS + 1)["tokens"].to(device))
@@ -3321,10 +3378,9 @@ def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
         lr=5e-3, warmup_steps=1, total_steps=DS_TRAIN_STEPS))
     data = rt["DataPipeline"](rt["DataConfig"](
         vocab_size=TRAIN_DATA_VOCAB, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
-    state = S.init_train_state(rt["LM"].init_lm(cfg, seed=SEED,
-                                                device=device), tcfg)
-    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
-                             data, DS_TRAIN_STEPS)
+    state, run = train_steps(rt, cfg, lambda: S.init_train_state(
+        rt["LM"].init_lm(cfg, seed=SEED, device=device), tcfg),
+        S.make_train_step(cfg, tcfg), data, DS_TRAIN_STEPS)
     with torch.no_grad():
         _, _, aux = rt["LM"].forward(state["params"], cfg, data.batch_at(
             DS_TRAIN_STEPS)["tokens"].to(device), return_hidden=True)
@@ -3334,7 +3390,7 @@ def deepseek_train(rt, device, gen, timer, kernels, faults) -> dict:
     k2 = k2_train_launches(run)
     info["flash_attention_tf32x3_launches"] = k2
     if not (all(map(math.isfinite, run["losses"])) and float(aux) > 0
-            and k2 == cfg.n_layers * DS_TRAIN_STEPS):
+            and k2 == k2_per_step(rt, cfg) * DS_TRAIN_STEPS):
         faults.append(f"deepseek train: {info}")
     del state
     torch.cuda.empty_cache()
@@ -3385,14 +3441,18 @@ class FrontendData:
 
 
 def k2_per_step(rt, cfg) -> int:
-    """K2's launches in one train step's forward: an attention layer's
-    each (an encoder–decoder: its encoder layers and, twice, its decoder
-    layers; the hybrid: each application of the shared block)."""
+    """K2's launches in one train step: an attention layer's each (an
+    encoder–decoder: its encoder layers and, twice, its decoder layers;
+    the hybrid: each application of the shared block), twice where the
+    blocks run checkpointed (``cfg.remat``: the forward, then the
+    backward's recompute, ``layers.block``)."""
     if cfg.family == "encdec":
-        return cfg.encoder_layers + 2 * cfg.decoder_layers
-    if cfg.family == "hybrid":
-        return len(rt["LM"]._hybrid_segments(cfg)) - 1
-    return 0 if cfg.family == "ssm" else cfg.n_layers
+        n = cfg.encoder_layers + 2 * cfg.decoder_layers
+    elif cfg.family == "hybrid":
+        n = len(rt["LM"]._hybrid_segments(cfg)) - 1
+    else:
+        n = 0 if cfg.family == "ssm" else cfg.n_layers
+    return 2 * n if cfg.remat else n
 
 
 def family_train(rt, device, faults, arch, over, steps) -> dict:
@@ -3411,15 +3471,13 @@ def family_train(rt, device, faults, arch, over, steps) -> dict:
         device)
     init = (rt["ED"].init_encdec if cfg.family == "encdec"
             else rt["LM"].init_lm)
-    t0 = time.perf_counter()
-    state = S.init_train_state(init(cfg, seed=SEED, device=device), tcfg)
-    torch.cuda.synchronize()
     info = {"model": cfg.name, "family": cfg.family, **over,
             "full_layers": full.n_layers, "dtype": "float32",
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "n_params": cfg.n_params(), "init_s": time.perf_counter() - t0}
-    state, run = train_steps(rt, cfg, state, S.make_train_step(cfg, tcfg),
-                             data, steps)
+            "n_params": cfg.n_params()}
+    state, run = train_steps(rt, cfg, lambda: S.init_train_state(
+        init(cfg, seed=SEED, device=device), tcfg),
+        S.make_train_step(cfg, tcfg), data, steps)
     info.update(run)
     k2 = k2_train_launches(run)
     per = k2_per_step(rt, cfg)
@@ -4840,12 +4898,14 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
 # card over gloo, each storing its shard of the train state (ZeRO-3).
 TRAIN_MESH = (2, 2)          # Llama-3.2-1B: the train steps, a checkpoint
 TRAIN_MESH_RESTORE = (1, 2)  # the checkpoint restored onto it, one step
-TRAIN_MESH_MOE = (2, 1)      # DeepSeek-V2-Lite: a step, its kept pairs
+TRAIN_MESH_MOE = (1, 2)      # DeepSeek-V2-Lite: a step, experts on model
 # Llama-3.2-1B at full width cut to 2 of its 16 layers (four ranks share
-# the card, each gathering the whole f32 parameters and gradients), 2
-# steps of TRAIN_BATCH x TRAIN_SEQ tokens, the checkpoint after step 1
-# (3 steps and the checkpoint after step 2 took the phase past its ~60 s:
-# a step moves 1.5 GB a rank through gloo's host staging).
+# the card; each gathers a block's leaves over data where the block uses
+# them, twice with the config's remat, and computes its model rank's
+# heads, FFN columns and vocab band), 2 steps of TRAIN_BATCH x TRAIN_SEQ
+# tokens, the checkpoint after step 1 (3 steps and the checkpoint after
+# step 2 took the phase past its ~60 s when a step gathered the whole
+# parameters: 1.5 GB a rank through gloo's host staging).
 # f32 Adam moments, as the one-device train phase: int8 moments part the
 # mesh's losses from one process's by 9.3e-4 at step 3 (`pr32_try2`: a
 # moment's code that roundoff moves between 0 and 1 moves its element by
@@ -4892,6 +4952,14 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     M, PT, S, _build = rt["mesh"], rt["partition"], rt["steps"], rt["_build"]
+    ops, heads = rt["ops"], []
+    flash = ops.flash_attention
+
+    def seen(q, *a, **kw):       # the q heads each K2 call of a step sees
+        heads.append(int(q.shape[1]))
+        return flash(q, *a, **kw)
+
+    ops.flash_attention = seen
     p = payload["llama"]
     device = p["params"]["embed"].device
     cfg, tcfg, data = p["cfg"], p["tcfg"], p["data"]
@@ -4910,6 +4978,7 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
     steps, save_s = [], None
     for i in range(TRAIN_MESH_STEPS):
         shards, rec = _mesh_step(mesh, step, shards, data.batch_at(i))
+        rec["gathered_peak_bytes"] = PT.GATHER_STATS["peak"]
         steps.append(rec)
         if i + 1 == TRAIN_MESH_CKPT:
             t0 = time.perf_counter()
@@ -4920,6 +4989,7 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
                     "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                     "launches": dict(_build.LAUNCH_COUNTS),
                     "kernel_launches": dict(_build.KERNEL_COUNTS),
+                    "k2_heads": sorted(set(heads)),
                     "shard_bytes": sum(x.numel() * x.element_size() for x in
                                        rt["tree"].leaves(shards))}
     del shards
@@ -4933,11 +5003,17 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
         restore_s = time.perf_counter() - t0
         specs = PT.make_train_state_specs(like, mesh)
         _build.KERNEL_COUNTS.clear()
+        heads.clear()
+        torch.cuda.reset_peak_memory_stats()
         restored, rec = _mesh_step(
             mesh, S.make_train_step(cfg, tcfg, mesh=mesh, specs=specs),
             restored, data.batch_at(at))
         out["restored"] = {"at": at, "restore_s": restore_s, **rec,
-                           "kernel_launches": dict(_build.KERNEL_COUNTS)}
+                           "kernel_launches": dict(_build.KERNEL_COUNTS),
+                           "k2_heads": sorted(set(heads)),
+                           "gathered_peak_bytes": PT.GATHER_STATS["peak"],
+                           "peak_mem_bytes":
+                               torch.cuda.max_memory_allocated()}
         del restored
     torch.cuda.empty_cache()
     mesh = M.make_mesh(TRAIN_MESH_MOE, ("data", "model"))
@@ -4950,6 +5026,7 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
         step = S.make_train_step(d["cfg"], d["tcfg"], mesh=mesh,
                                  specs=specs)
         _build.KERNEL_COUNTS.clear()
+        heads.clear()
         torch.cuda.reset_peak_memory_stats()
         with rt["routes"].recording() as routes:
             shards, rec = _mesh_step(mesh, step, shards, d["batch"])
@@ -4957,7 +5034,10 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
             **rec, "routes": [(ids.cpu(), keep.cpu(), float(aux))
                               for ids, keep, aux in routes],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-            "kernel_launches": dict(_build.KERNEL_COUNTS)}
+            "kernel_launches": dict(_build.KERNEL_COUNTS),
+            "k2_heads": sorted(set(heads)), "coords": dict(mesh.coords),
+            "shard_bytes": sum(x.numel() * x.element_size() for x in
+                               rt["tree"].leaves(shards))}
         del shards
     return out
 
@@ -4970,9 +5050,11 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         (``make_train_state_specs``); TRAIN_MESH_STEPS steps, each loss
         within TRAIN_MESH_LOSS_RTOL of one process's step on the card;
         every rank the same losses, K2's f32 kernel (``tf32x3``) in every
-        forward and no other K2 kernel; per rank ms a step, peak memory,
-        the bytes and the wall seconds of a step's collectives (parameter
-        gathers, the gradients' reduce-scatter); the step-TRAIN_MESH_CKPT
+        forward and recompute and no other K2 kernel; per rank ms a step,
+        peak memory, the most gathered-parameter bytes alive at once, the
+        bytes and the wall seconds of a step's collectives (gathers on
+        use, the model ranks' sums, the gradients' reduce-scatter); the
+        step-TRAIN_MESH_CKPT
         checkpoint written from the mesh, restored onto TRAIN_MESH_RESTORE
         and into one process (``elastic_restore``, each leaf's CRC32
         checked against the manifest), one more step each within the
@@ -4980,13 +5062,14 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         version at a data rank's shape.
       * DeepSeek-V2-Lite at full width, MESH_MOE_LAYERS layers, capacity
         factor 1.25: its train state sharded on TRAIN_MESH_MOE and one
-        step through ``make_train_step`` (each data rank routes its half
-        of the rows with the whole batch's capacity and slot ranks, the
-        aux loss through a sum whose backward sums, the expert gradients
-        reduce-scattered), against one process's ``make_train_step`` on
-        the same batch: the kept (token, expert) pairs, gathered, equal,
-        in a batch that drops some; the loss and the aux within
-        TRAIN_MESH_LOSS_RTOL; K2 f32 in each rank's forward.
+        step through ``make_train_step`` (each model rank runs its E/model
+        experts on the dispatch table every rank computes alike, its
+        combine summed over model; MLA on its heads), against one
+        process's ``make_train_step`` on the same batch: the kept (token,
+        expert) pairs of each data rank's rows equal, in a batch that
+        drops some; the loss and the aux within TRAIN_MESH_LOSS_RTOL; K2
+        f32 on each rank's heads in its forward and recompute.
+    Every rank's K2 calls see the rank's q heads (n_heads / model).
     Times are of ranks sharing one card: they prove bits and shapes, not a
     multi-card speed."""
     import tempfile
@@ -5067,7 +5150,8 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
     def close(a, b):
         return abs(a - b) <= TRAIN_MESH_LOSS_RTOL * abs(b)
 
-    want_k2 = TRAIN_MESH_LAYERS * TRAIN_MESH_STEPS
+    per = k2_per_step(rt, cfg)
+    want_k2 = per * TRAIN_MESH_STEPS
     if one_k2 != want_k2:
         faults.append(f"train_mesh one process: K2 tf32x3 {one_k2}")
     if not (at == TRAIN_MESH_CKPT and close(float(m["loss"]), one[at])):
@@ -5082,10 +5166,16 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             "losses": losses, "step_ms": [s["ms"] for s in o["steps"]],
             "bytes_a_step": [s["bytes"] for s in o["steps"]],
             "comm_s_a_step": [s["comm_s"] for s in o["steps"]],
+            "gathered_peak_bytes": [s["gathered_peak_bytes"]
+                                    for s in o["steps"]],
             "peak_mem_bytes": o["peak_mem_bytes"],
             "shard_bytes": o["shard_bytes"], "save_s": o["save_s"],
             "kernel_launches": o["kernel_launches"],
-            "launches": o["launches"]}
+            "k2_heads": o["k2_heads"], "launches": o["launches"]}
+        if o["k2_heads"] != [cfg.n_heads // TRAIN_MESH[1]]:
+            faults.append(f"train_mesh rank {r}: K2 saw q heads "
+                          f"{o['k2_heads']}, want the rank's "
+                          f"{cfg.n_heads // TRAIN_MESH[1]}")
         if losses != [s["loss"] for s in outs[0]["llama"]["steps"]]:
             faults.append(f"train_mesh rank {r}: losses {losses} differ "
                           "from rank 0's")
@@ -5101,7 +5191,9 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             if not (rr["at"] == TRAIN_MESH_CKPT
                     and close(rr["loss"], one[TRAIN_MESH_CKPT])
                     and rr["kernel_launches"].get(
-                        "flash_attention:tf32x3") == TRAIN_MESH_LAYERS):
+                        "flash_attention:tf32x3") == per
+                    and rr["k2_heads"] == [
+                        cfg.n_heads // TRAIN_MESH_RESTORE[1]]):
                 faults.append(f"train_mesh rank {r} restored on "
                               f"{TRAIN_MESH_RESTORE}: {rr} vs one process "
                               f"{one[TRAIN_MESH_CKPT]}")
@@ -5113,13 +5205,24 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         "ranks": len(got), "one_process": one_moe,
         "per_rank": {f"rank{r}": {k: g[k] for k in (
             "loss", "grad_norm", "ms", "bytes", "comm_s", "peak_mem_bytes",
-            "kernel_launches")} for r, g in got.items()}}
+            "kernel_launches", "k2_heads")} for r, g in got.items()}}
     moe["ids_equal"] = moe["kept_equal"] = len(got) == math.prod(
         TRAIN_MESH_MOE)
     moe["aux_rel_err"] = moe["loss_rel_err"] = 0.0
+    # one rank of each data index: its rows' routes (the model ranks of a
+    # data rank route the same rows alike)
+    by_data = {}
+    for g in got.values():
+        by_data.setdefault(g["coords"]["data"], g)
+    for g in got.values():
+        d = by_data[g["coords"]["data"]]
+        moe["ids_equal"] &= all(torch.equal(a[0], b[0]) and torch.equal(
+            a[1], b[1]) for a, b in zip(g["routes"], d["routes"]))
     for li, (ids, keep, aux) in enumerate(one_routes):
-        mids = torch.cat([g["routes"][li][0] for g in got.values()])
-        mkeep = torch.cat([g["routes"][li][1] for g in got.values()])
+        mids = torch.cat([by_data[i]["routes"][li][0]
+                          for i in sorted(by_data)])
+        mkeep = torch.cat([by_data[i]["routes"][li][1]
+                           for i in sorted(by_data)])
         moe["ids_equal"] &= bool(torch.equal(mids, ids.cpu()))
         moe["kept_equal"] &= bool(torch.equal(mkeep, keep.cpu()))
         moe["aux_rel_err"] = max(moe["aux_rel_err"], max(
@@ -5137,28 +5240,42 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             and len({g["loss"] for g in got.values()}) == 1
             and moe["aux_rel_err"] <= TRAIN_MESH_LOSS_RTOL
             and moe["loss_rel_err"] <= TRAIN_MESH_LOSS_RTOL
-            and ds_k2 == {MESH_MOE_LAYERS}):
+            and ds_k2 == {k2_per_step(rt, dcfg)}
+            and all(g["k2_heads"] == [dcfg.n_heads // TRAIN_MESH_MOE[1]]
+                    for g in got.values())):
         faults.append(f"train_mesh deepseek: {moe}")
-    row = check_flash_train(rt, device, gen, timer, cfg.n_heads,
-                            cfg.n_kv_heads, cfg.resolved_head_dim,
-                            cfg.resolved_head_dim,
-                            "Llama-3.2-1B training, a data rank's rows on "
-                            f"mesh {TRAIN_MESH}", batch=TRAIN_BATCH // 2)
-    kernels.append(dict(
-        row, path=f"{cfg.name} train mesh {TRAIN_MESH}",
-        launches=outs[0]["llama"]["kernel_launches"].get(
-            "flash_attention:tf32x3", 0),
-        launches_of=f"{TRAIN_MESH_STEPS} train steps at "
-                    f"{TRAIN_MESH_LAYERS} layers on mesh {TRAIN_MESH}, "
-                    "rank 0"))
+    # K2 f32 at each mesh's rank's shape: its heads, its data rank's rows
+    for mshape, run, of in (
+            (TRAIN_MESH, outs[0]["llama"]["kernel_launches"],
+             f"{TRAIN_MESH_STEPS} train steps"),
+            (TRAIN_MESH_RESTORE, outs[0].get("restored", {}).get(
+                "kernel_launches", {}), "the step after the restore")):
+        row = check_flash_train(
+            rt, device, gen, timer, cfg.n_heads // mshape[1],
+            cfg.n_kv_heads // mshape[1], cfg.resolved_head_dim,
+            cfg.resolved_head_dim, "Llama-3.2-1B training, a rank's heads "
+            f"and rows on mesh {mshape}", batch=TRAIN_BATCH // mshape[0])
+        kernels.append(dict(
+            row, path=f"{cfg.name} train mesh {mshape}",
+            launches=run.get("flash_attention:tf32x3", 0),
+            launches_of=f"{of} at {TRAIN_MESH_LAYERS} layers on mesh "
+                        f"{mshape}, rank 0 (remat: the recompute's too)"))
     log("train_mesh_detail " + json.dumps(res, default=str))
     ranks = res["per_rank"]
     # what the dry run's phase holds its plan of this cell against
     rt["train_mesh"] = {"cfg": cfg, "tcfg": tcfg, "batch": data.batch_at(1),
-                        "per_rank": ranks}
+                        "per_rank": ranks, "moe": {
+                            "cfg": dcfg, "tcfg": dtcfg, "batch": dbatch,
+                            "per_rank": {f"rank{r}": {
+                                "bytes_a_step": [g["bytes"]],
+                                "kernel_launches": g["kernel_launches"],
+                                "shard_bytes": g["shard_bytes"],
+                                "peak_mem_bytes": g["peak_mem_bytes"]}
+                                for r, g in got.items()}}}
     return {"note": res["note"], "model": res["model"], "one_process": one,
             "summary": {r: {f: d[f] for f in ("losses", "step_ms",
                                               "comm_s_a_step",
+                                              "gathered_peak_bytes",
                                               "peak_mem_bytes", "save_s")}
                         for r, d in ranks.items()},
             "bytes_a_step_rank0": ranks["rank0"]["bytes_a_step"],
@@ -5184,23 +5301,34 @@ DRYRUN_CELL = ("internlm2-1.8b", "decode_32k")   # on the 16×16 mesh
 
 
 def dryrun_train_mesh(rt, faults) -> dict:
-    """The train_mesh phase's Llama cell planned on each rank of a
-    ``PlannedMesh`` of TRAIN_MESH: one ``make_train_step`` on the rank's
+    """The train_mesh phase's cells planned on each rank of a
+    ``PlannedMesh``: Llama on TRAIN_MESH and DeepSeek (its experts on
+    model) on TRAIN_MESH_MOE, one ``make_train_step`` on the rank's
     ZeRO-3 shards (``launch.specs.train_state_specs``, f32) against what
-    that rank measured in its second step: bytes by collective and K2's
+    that rank measured in its last step: bytes by collective and K2's
     f32 launches equal, the state's bytes equal its shards', the planned
     peak against the measured peak within DRYRUN_PEAK_RATIO."""
     tm = rt.get("train_mesh")
     if tm is None:
         faults.append("dryrun: the train_mesh phase left no measurements")
         return {}
+    out = dryrun_train_cell(rt, faults, tm, TRAIN_MESH)
+    out.update({f"moe {r}": row for r, row in dryrun_train_cell(
+        rt, faults, tm["moe"], TRAIN_MESH_MOE).items()})
+    return out
+
+
+def dryrun_train_cell(rt, faults, tm, shape) -> dict:
+    """One train_mesh cell (``tm``: its cfg, tcfg, batch and each rank's
+    measurements) planned on every rank of a ``PlannedMesh`` of
+    ``shape`` (``dryrun_train_mesh``)."""
     D, PT, S = rt["dryrun"], rt["partition"], rt["steps"]
     cfg, tcfg, batch = tm["cfg"], tm["tcfg"], tm["batch"]
     dev = D.planned_device("cuda")
     out = {}
-    for r in range(math.prod(TRAIN_MESH)):
+    for r in range(math.prod(shape)):
         got = tm["per_rank"][f"rank{r}"]
-        mesh = rt["mesh"].PlannedMesh(TRAIN_MESH, ("data", "model"), r)
+        mesh = rt["mesh"].PlannedMesh(shape, ("data", "model"), r)
         with D.fake_tensors(dev):
             state = rt["specs"].train_state_specs(cfg, tcfg.optimizer,
                                                   torch.float32, dev)
@@ -5215,10 +5343,10 @@ def dryrun_train_mesh(rt, faults) -> dict:
         k2 = plan["kernels"].get("flash_attention:tf32x3", {})
         row = {"received_planned": plan["collectives"][
                    "received_bytes_by_kind"],
-               "received_measured": got["bytes_a_step"][1],
+               "received_measured": got["bytes_a_step"][-1],
                "k2_planned": k2.get("launches", 0),
                "k2_measured": got["kernel_launches"].get(
-                   "flash_attention:tf32x3", 0) / TRAIN_MESH_STEPS,
+                   "flash_attention:tf32x3", 0) / len(got["bytes_a_step"]),
                "state_bytes_planned": mem["argument_size_in_bytes"]
                - rt["op_stats"].tree_bytes(fb),
                "state_bytes_measured": got["shard_bytes"],
@@ -5230,10 +5358,10 @@ def dryrun_train_mesh(rt, faults) -> dict:
         lo, hi = DRYRUN_PEAK_RATIO
         if not (row["received_planned"] == row["received_measured"]
                 and row["k2_planned"] == row["k2_measured"]
-                == TRAIN_MESH_LAYERS
+                == k2_per_step(rt, cfg)
                 and row["state_bytes_planned"] == row["state_bytes_measured"]
                 and lo <= row["peak_ratio"] <= hi):
-            faults.append(f"dryrun train_mesh rank {r}: {row}")
+            faults.append(f"dryrun train_mesh {cfg.name} rank {r}: {row}")
     return out
 
 

@@ -35,8 +35,11 @@ they would move (the dry run, ``launch/dryrun.py``,
 Training on a mesh (``train/steps.py``) adds the collectives of a ZeRO
 step: ``all_to_all`` (the gradients' reduce-scatter), ``psum_diff``, a sum
 whose backward sums the gradient over the same ranks (the MoE's global
-statistics), ``pmin``/``pmax`` (exact, in any order), ``agree`` (a flag
-OR-ed over the mesh: every control decision of the training loop),
+statistics), the four collectives of tensor-parallel training under
+autograd (:func:`gather_on_use` over the data axes, :func:`copy_to_model`,
+:func:`reduce_from_model`, :func:`gather_model`), ``pmin``/``pmax``
+(exact, in any order), ``agree`` (a flag OR-ed over the mesh: every
+control decision of the training loop),
 ``gather_host`` (a checkpoint's shards to its writer) and ``barrier``.
 Each rank counts the bytes it receives by collective in ``Mesh.traffic``
 and the wall seconds it spends in each in ``Mesh.seconds``.
@@ -333,6 +336,110 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.mesh.psum(grad, ctx.axes), None, None
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd for tensor-parallel training (``train/steps.py``,
+# the training branches of ``models/layers.py``).
+#
+# The pitfall they avoid: ``Mesh.psum_diff`` sums the gradient over its ranks
+# in the backward.  That is right over data ranks, each of which holds a
+# share of the loss (the sum's gradient is every rank's).  It is wrong over
+# model ranks: they all compute the same loss, so a sum there would count
+# the loss ``model`` times.  Over ``model`` a sum in the forward has the
+# identity backward (:func:`reduce_from_model`), and a replicated tensor that
+# each model rank reads in part has its partial gradients summed in the
+# backward (:func:`copy_to_model`).
+# ---------------------------------------------------------------------------
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.psum(t, AXIS_MODEL)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherOnUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, reduce):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.reduce = mesh, axes, dim, reduce
+        ctx.per = t.shape[dim]
+        return mesh.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axes, dim, per = ctx.mesh, ctx.axes, ctx.dim, ctx.per
+        if not ctx.reduce:
+            i = mesh.axis_index(axes)
+            return (grad.narrow(dim, i * per, per).contiguous(), None, None,
+                    None, None)
+        n = mesh.axis_size(axes)
+        send = torch.cat([grad.narrow(dim, j * per, per).reshape(-1)
+                          for j in range(n)])
+        got = mesh.all_to_all(send, axes).view(n, -1)
+        total = got[0]
+        for row in got[1:]:
+            total = total + row
+        shape = list(grad.shape)
+        shape[dim] = per
+        return total.view(shape), None, None, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.psum(grad, ctx.axes), None, None
+
+
+def copy_to_model(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The identity, whose backward sums the gradient over ``model`` (rank
+    order): the input of a column-parallel product, or any tensor that
+    every model rank holds whole and reads in part (its own heads, its own
+    experts' gates), so each rank's gradient is a part of the whole."""
+    return _SumGrad.apply(t, mesh, AXIS_MODEL)
+
+
+def reduce_from_model(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Σ of every model rank's ``t`` (``Mesh.psum``: rank order, the same
+    bits on every rank), whose backward is the identity: the output of a
+    row-parallel product, each rank's part of a sum that every model rank
+    then reads whole."""
+    return _ReduceFromModel.apply(t, mesh)
+
+
+def gather_model(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every model rank's ``t`` concatenated along ``dim``; the backward
+    gives the rank its own slice of the gradient, which each model rank
+    holds whole (a weight made whole on every rank and used whole)."""
+    return _GatherOnUse.apply(t, mesh, AXIS_MODEL, dim, False)
+
+
+def gather_on_use(t: torch.Tensor, mesh: Mesh, axes, dim: Optional[int],
+                  reduce: bool = True) -> torch.Tensor:
+    """A leaf's ZeRO-3 shard all-gathered over the data ``axes`` along
+    ``dim`` (never over ``model``).  The backward reduce-scatters its
+    gradient into the shard: each data rank's gradient of the whole leaf,
+    cut to every peer's shard (``all_to_all``) and added in the peers'
+    rank order, the bits of a sum of the whole gradients in rank order cut
+    to the shard.  ``dim=None`` (a leaf its spec does not split over the
+    data axes): the identity, whose backward sums the gradient over them
+    in rank order.  ``reduce=False`` (every data rank computed the same
+    rows, so its gradient is already the whole one) cuts the shard
+    alone."""
+    axes = tuple(a for a in _ordered(mesh, axes) if mesh.shape[a] > 1)
+    if not axes or (dim is None and not reduce):
+        return t
+    if dim is None:
+        return _SumGrad.apply(t, mesh, axes)
+    return _GatherOnUse.apply(t, mesh, axes, dim, reduce)
 
 
 def _ordered(mesh: AbstractMesh, axes) -> tuple:

@@ -28,6 +28,7 @@ from typing import Any
 import torch
 
 from .._device import generator, resolve_device
+from ..sharding import partition as PT
 from . import layers as L
 
 Params = Any
@@ -87,21 +88,28 @@ def encode(params: Params, cfg, embeds: torch.Tensor, *,
     in their dtype."""
     x = embeds
     rope = _rope(cfg, 0, x.shape[1], x.device)
-    for bp in params["encoder"]:
+
+    def body(bp, x):
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         a, _ = L.apply_attention(bp["attn"], h, cfg, lut=lut, causal=False,
                                  rope=rope)
         h = _norm_of_sum(x, a, bp["mlp_norm"], cfg)
         x = x + a
-        x = x + L.apply_mlp(bp["mlp"], h, lut=lut)
-    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+        return x + L.apply_mlp(bp["mlp"], h, lut=lut)
+
+    remat = L.remat_on(cfg, params["enc_final_norm"])
+    for bp in params["encoder"]:
+        x = L.block(lambda x_, bp=bp: body(PT.use(bp), x_), x, remat=remat)
+    return L.rms_norm(x, PT.use(params["enc_final_norm"]), cfg.norm_eps)
 
 
 def project_enc_kv_all(params: Params, cfg, enc_out: torch.Tensor, *,
                        lut=None):
     """Cross-attention K/V of every decoder layer: two lists of (B, S, kv
     heads, hd), the reference's stacked (L, B, S, H, hd) by layer."""
-    kv = [L.project_enc_kv(bp["cross"], enc_out, cfg, lut=lut)
+    remat = L.remat_on(cfg, params["dec_final_norm"])
+    kv = [L.block(lambda e, bp=bp: L.project_enc_kv(
+        PT.use(bp["cross"]), e, cfg, lut=lut), enc_out, remat=remat)
           for bp in params["decoder"]]
     return [k for k, _ in kv], [v for _, v in kv]
 
@@ -112,18 +120,23 @@ def decode_stack(params: Params, cfg, x: torch.Tensor, enc_k, enc_v, *,
     list of per-layer KV caches, is given) + cross-attention + MLP.
     → (x, the caches, updated in place, or None)."""
     rope = _rope(cfg, pos, x.shape[1], x.device)
-    for i, bp in enumerate(params["decoder"]):
-        cache = caches[i] if caches is not None else None
+
+    def body(bp, x, cache, ek, ev):
         h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
         a, _ = L.apply_attention(bp["attn"], h, cfg, lut=lut, cache=cache,
                                  pos=pos, causal=True, rope=rope)
         h = _norm_of_sum(x, a, bp["cross_norm"], cfg)
         x = x + a
-        c = L.apply_cross_attention(bp["cross"], h, enc_k[i], enc_v[i], cfg,
-                                    lut=lut)
+        c = L.apply_cross_attention(bp["cross"], h, ek, ev, cfg, lut=lut)
         h = _norm_of_sum(x, c, bp["mlp_norm"], cfg)
         x = x + c
-        x = x + L.apply_mlp(bp["mlp"], h, lut=lut)
+        return x + L.apply_mlp(bp["mlp"], h, lut=lut)
+
+    remat = L.remat_on(cfg, params["dec_final_norm"])
+    for i, bp in enumerate(params["decoder"]):
+        cache = caches[i] if caches is not None else None
+        x = L.block(lambda x_, bp=bp, cache=cache, i=i: body(
+            PT.use(bp), x_, cache, enc_k[i], enc_v[i]), x, remat=remat)
     return x, caches
 
 
@@ -150,14 +163,16 @@ def forward(params: Params, cfg, enc_embeds: torch.Tensor,
                         f"the cache's buffers {tuple(buf.shape)} {buf.dtype}")
                 buf.copy_(t)
         enc_k, enc_v = caches["enc_k"], caches["enc_v"]
-    x = L.embed(params["dec_embed"], dec_tokens, lut)
+    x = L.embed(PT.use(params["dec_embed"], keep=True), dec_tokens, lut,
+                band=PT.kept_band(params, "dec_embed"))
     x, new_self = decode_stack(params, cfg, x, enc_k, enc_v,
                                caches=caches.get("self"), pos=pos, lut=lut)
-    x = L.rms_norm(x, params["dec_final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, PT.use(params["dec_final_norm"]), cfg.norm_eps)
     new_caches = {"self": new_self, "enc_k": enc_k, "enc_v": enc_v}
     if return_hidden:
         return x, new_caches
-    return L.linear(x, params["lm_head"], lut), new_caches
+    return (L.head_logits(x, PT.use(params["lm_head"], keep=True), lut,
+                          band=PT.kept_band(params, "lm_head")), new_caches)
 
 
 def decode_step(params: Params, cfg, token: torch.Tensor, caches, pos, *,

@@ -33,6 +33,7 @@ import torch
 
 from ..core.compressed import PackedLinear, QuantLinear, TiledPackedLinear
 from ..kernels import ops
+from ..launch.mesh import copy_to_model, reduce_from_model
 from ..sharding import partition as PT
 
 Params = Any  # nested dict of tensors / weight containers
@@ -78,6 +79,87 @@ def _model_axis():
     if ms <= 1 or mesh.size <= 1:
         return None, 1, 0
     return mesh, ms, mesh.axis_index("model")
+
+
+def _heads_axis(cache=None):
+    """(training, mesh, model ranks, model index) that a layer computes its
+    heads on: a tensor-parallel training rank's (``partition.tp_mesh``; a
+    layer given no cache), whose weights are its bands already and whose
+    row-parallel outputs are summed over model; else the serving mesh's
+    (:func:`_model_axis`), whose weights are whole and whose column-
+    parallel outputs are gathered before a row-parallel weight."""
+    mesh, ms, m = PT.tp_mesh()
+    if mesh is not None and cache is None:
+        return True, mesh, ms, m
+    return (False,) + _model_axis()
+
+
+def _copier(train: bool, mesh):
+    """``copy_to_model`` on a training rank (a tensor every model rank
+    holds whole and reads in part: its gradient sums the ranks' parts),
+    else the identity."""
+    if not train:
+        return lambda t: t
+    return lambda t: copy_to_model(t, mesh)
+
+
+def _row_parallel(o, w, lut, train: bool, band: bool, mesh):
+    """``linear(o, w)`` where ``o`` holds the rank's band of ``w``'s input
+    (``band``): a training rank sums its partial product over model
+    (``reduce_from_model``); a serving rank gathers ``o`` over model
+    first (the x gather of a row-parallel weight)."""
+    if band and not train:
+        o = mesh.all_gather(o, "model", dim=-1)
+    y = linear(o, w, lut)
+    return reduce_from_model(y, mesh) if band and train else y
+
+
+# ---------------------------------------------------------------------------
+# The reference's per-block remat (``jax.checkpoint`` on the scan body).
+# ---------------------------------------------------------------------------
+
+_RECOMPUTING = [0]
+
+
+def remat_on(cfg, w) -> bool:
+    """Whether a stack's blocks run checkpointed: ``cfg.remat`` where
+    autograd records (a train step: grad enabled and the model's weights,
+    of which ``w`` is one, require it), as the reference wraps its scan
+    body in ``jax.checkpoint``; serving never."""
+    return (bool(getattr(cfg, "remat", False)) and torch.is_grad_enabled()
+            and bool(getattr(w, "requires_grad", False)))
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed block is being recomputed in the backward
+    (its forward ran before): a recorder of the forward's decisions
+    (``testing.routes``) then records nothing again."""
+    return _RECOMPUTING[0] > 0
+
+
+def block(fn, *args, remat: bool):
+    """``fn(*args)``; with ``remat``, under ``torch.utils.checkpoint``
+    (non-reentrant): the block keeps its inputs alone, and its saved
+    tensors are recomputed in the backward.  The recompute runs the same
+    ops on the same inputs, so losses and gradients are those without
+    remat, bit for bit."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    calls = [0]
+
+    def body(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        _RECOMPUTING[0] += 1
+        try:
+            return fn(*a)
+        finally:
+            _RECOMPUTING[0] -= 1
+
+    return checkpoint(body, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def linear_band(x: torch.Tensor, w, lut=None, bias=None,
@@ -168,12 +250,25 @@ def materialize_band(w, lut=None, dtype=None):
     return dense[..., m * per:(m + 1) * per, :]
 
 
-def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
+def embed(w, ids: torch.Tensor, lut=None, band: bool = False
+          ) -> torch.Tensor:
     """Embedding lookup from dense or int8 tables (rows = vocab).  A mesh
     rank's vocab band (``partition.place_vocab``) is looked up vocab-
     parallel: an id outside the band reads a zero row, and each row is
     taken from the one rank whose band holds it (every rank's rows
-    gathered over model, in rank order: exact)."""
+    gathered over model, in rank order: exact).  ``band``: ``w`` is a
+    training rank's dense vocab band (``partition.kept_band``), looked up
+    the same way under autograd: ids outside the band read zero rows,
+    summed over model (``launch.mesh.reduce_from_model``: one rank's row
+    and zeros, exact)."""
+    mesh, _, m = PT.tp_mesh()
+    if band and mesh is not None:
+        per = w.shape[0]
+        local = ids - m * per
+        mine = (local >= 0) & (local < per)
+        rows = w[torch.where(mine, local, torch.zeros_like(local))]
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return reduce_from_model(rows, mesh)
     if isinstance(w, QuantLinear) and w.mesh_axes is not None:
         mesh = PT.current_mesh()[1]
         if mesh is None:
@@ -198,6 +293,18 @@ def embed(w, ids: torch.Tensor, lut=None) -> torch.Tensor:
         return w.materialize(lut, torch.bfloat16,
                              plain=ops.plain_decode())[ids]
     return w[ids]
+
+
+def head_logits(x: torch.Tensor, head, lut=None,
+                band: bool = False) -> torch.Tensor:
+    """The LM head's logits; ``band``: ``head`` is a tensor-parallel
+    training rank's vocab band (``partition.kept_band``), which gives its
+    band of the vocab (a column-parallel product: ``train/steps.py``'s
+    loss reduces it over model)."""
+    mesh, _, _ = PT.tp_mesh()
+    if band and mesh is not None:
+        return linear(copy_to_model(x, mesh), head)
+    return linear(x, head, lut)
 
 
 # ---------------------------------------------------------------------------
@@ -584,27 +691,42 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
         ``ROW_PAD`` and mask), and the blocks' partials are merged over
         model in rank order (:func:`_merge_parts`), the same on every
         rank.
-    An int8 cache's scales follow their k/v."""
+    An int8 cache's scales follow their k/v.
+
+    A tensor-parallel training rank (no cache, ``partition.tp_mesh``)
+    holds its bands of wq/wk/wv/bq/bk/bv/wo already (the gather on use):
+    q/k/v are column-parallel on them, K2 runs on the rank's q heads, and
+    wo is row-parallel, its product summed over model (the reference's
+    SPMD placement).  Where the kv heads do not divide the model ranks,
+    wk/wv are whole on every rank, k/v are computed whole and the rank's
+    q heads read theirs.  A tensor every model rank holds whole and reads
+    in part (x before its bands, whole k/v, the qk-norm weights on its
+    heads) passes ``copy_to_model``, so its gradient sums the ranks'
+    parts."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    mesh, ms, m = _model_axis()
+    train, mesh, ms, m = _heads_axis(cache)
     heads = ms > 1 and nkv % ms == 0
     spread = ms > 1 and not heads and cache is not None
     qband = ms > 1 and nq % ms == 0 and not (spread and t == 1)
     nq_l = nq // ms if qband else nq
     nkv_l = nkv // ms if heads else nkv
+    cm = _copier(train, mesh)
+    xb = cm(x) if qband else x
 
     def proj(name, n, band):
-        fn = linear_band if band else linear
-        return fn(x, p["w" + name], lut, p.get("b" + name)).reshape(
-            b, t, n, hd)
+        fn = linear_band if band and not train else linear
+        return fn(xb if band else x, p["w" + name], lut,
+                  p.get("b" + name)).reshape(b, t, n, hd)
 
     q, k, v = proj("q", nq_l, qband), proj("k", nkv_l, heads), \
         proj("v", nkv_l, heads)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, cm(p["q_norm"]) if qband else p["q_norm"],
+                     cfg.norm_eps)
+        k = rms_norm(k, cm(p["k_norm"]) if heads else p["k_norm"],
+                     cfg.norm_eps)
 
     pos0 = 0 if pos is None else pos
     if rope is None:
@@ -614,7 +736,7 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
     k = apply_rope(k, cos, sin)
 
     if qband and not heads:          # the K/V heads the rank's q heads read
-        k_q, v_q = _q_heads_kv(k, v, nq, m * nq_l, nq_l)
+        k_q, v_q = _q_heads_kv(cm(k), cm(v), nq, m * nq_l, nq_l)
     else:
         k_q, v_q = k, v
     if cache is None:
@@ -638,10 +760,7 @@ def apply_attention(p: Params, x: torch.Tensor, cfg, *, lut=None,
             # launch argument, read on the host)
             o = _attend_cache_flash(q, ck, cv, int(pos0))
     o = o.reshape(b, t, nq_l * hd)
-    if qband:
-        o = mesh.all_gather(o, "model", dim=-1)
-    y = linear(o, p["wo"], lut)
-    return y, cache
+    return _row_parallel(o, p["wo"], lut, train, qband, mesh), cache
 
 
 def _store_kv(cache, k, v, pos, write, dtype):
@@ -691,33 +810,42 @@ def apply_cross_attention(p: Params, x: torch.Tensor, enc_k, enc_v, cfg, *,
     no rope, no mask, the flash kernel at any T (a decode step's q is one
     row a request).  On a mesh whose model ranks divide the kv heads,
     ``enc_k``/``enc_v`` are the rank's heads (:func:`project_enc_kv`), q
-    its band, and ``o`` is gathered over model before ``wo``."""
+    its band, and ``o`` is gathered over model before ``wo``.  A
+    tensor-parallel training rank computes its q heads wherever the model
+    ranks divide them (reading its heads' K/V from whole ones where the
+    kv heads do not divide), and wo is row-parallel, summed over model
+    (:func:`apply_attention`)."""
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
     nq = cfg.n_heads
-    mesh, ms, _ = _model_axis()
+    train, mesh, ms, m = _heads_axis()
     heads = ms > 1 and cfg.n_kv_heads % ms == 0
-    nq_l = nq // ms if heads else nq
-    q = (linear_band if heads else linear)(
-        x, p["wq"], lut, p.get("bq")).reshape(b, t, nq_l, hd)
+    qband = heads or (train and ms > 1 and nq % ms == 0)
+    nq_l = nq // ms if qband else nq
+    cm = _copier(train, mesh)
+    fn = linear_band if qband and not train else linear
+    q = fn(cm(x) if qband else x, p["wq"], lut, p.get("bq")).reshape(
+        b, t, nq_l, hd)
+    if qband and not heads:       # whole K/V: the rank's q heads read theirs
+        enc_k, enc_v = _q_heads_kv(cm(enc_k), cm(enc_v), nq, m * nq_l, nq_l)
     o = _attend_full(q, enc_k, enc_v, causal=False).reshape(b, t, nq_l * hd)
-    if heads:
-        o = mesh.all_gather(o, "model", dim=-1)
-    return linear(o, p["wo"], lut)
+    return _row_parallel(o, p["wo"], lut, train, qband, mesh)
 
 
 def project_enc_kv(p: Params, enc_out: torch.Tensor, cfg, *, lut=None):
     """A decoder layer's cross-attention K/V of the encoder's output:
     (B, S, kv heads, hd) each; on a mesh whose model ranks divide the kv
-    heads, the rank's heads (its bands of wk/wv)."""
+    heads, the rank's heads (its bands of wk/wv; a training rank's input
+    through ``copy_to_model``)."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    _, ms, _ = _model_axis()
+    train, mesh, ms, _ = _heads_axis()
     heads = ms > 1 and cfg.n_kv_heads % ms == 0
     nkv = cfg.n_kv_heads // ms if heads else cfg.n_kv_heads
-    fn = linear_band if heads else linear
-    k = fn(enc_out, p["wk"], lut, p.get("bk")).reshape(b, s, nkv, hd)
-    v = fn(enc_out, p["wv"], lut, p.get("bv")).reshape(b, s, nkv, hd)
+    fn = linear_band if heads and not train else linear
+    xin = _copier(train, mesh)(enc_out) if heads else enc_out
+    k = fn(xin, p["wk"], lut, p.get("bk")).reshape(b, s, nkv, hd)
+    v = fn(xin, p["wv"], lut, p.get("bv")).reshape(b, s, nkv, hd)
     return k, v
 
 
@@ -760,12 +888,14 @@ def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def _mla_latents(p, x, cfg, lut, pos, rope, band: bool = False):
+def _mla_latents(p, x, cfg, lut, pos, rope, band: bool = False, cm=None):
     """MLA's q (nope and roped parts; with ``band`` the rank's heads) and
-    the new latents (normed ckv, roped k_rope) at ``pos``."""
+    the new latents (normed ckv, roped k_rope) at ``pos``.  ``cm``: a
+    training rank's ``copy_to_model`` (:func:`_mla_q`), which the latents
+    its heads read pass too."""
     b, t, _ = x.shape
     dr, r = cfg.qk_rope_head_dim, cfg.kv_lora_rank
-    q_nope, q_rope = _mla_q(p, x, cfg, lut, band)
+    q_nope, q_rope = _mla_q(p, x, cfg, lut, band, cm)
     if rope is None:
         rope = rope_tables(positions(pos, t, x.device), dr, cfg.rope_theta)
     cos, sin = rope
@@ -774,15 +904,23 @@ def _mla_latents(p, x, cfg, lut, pos, rope, band: bool = False):
     ckv = rms_norm(kv_a[..., :r], p["kv_a_norm"], cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., r:].reshape(b, t, 1, dr), cos, sin
                         ).reshape(b, t, dr)
+    if band and cm is not None:
+        ckv, k_rope = cm(ckv), cm(k_rope)
     return q_nope, q_rope, ckv, k_rope
 
 
-def _mla_q(p, x, cfg, lut, band: bool = False):
+def _mla_q(p, x, cfg, lut, band: bool = False, cm=None):
     """q's nope and rope parts, (B, T, heads, dn) and (…, dr): every head,
-    or with ``band`` the rank's heads (its band of wq_b / wq)."""
+    or with ``band`` the rank's heads (its band of wq_b / wq: cut from the
+    whole weight, or with ``cm`` a training rank's band, its input through
+    ``cm``)."""
     b, t, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    fn = linear_band if band else linear
+    if band and cm is not None:
+        def fn(z, w, lut_):
+            return linear(cm(z), w, lut_)
+    else:
+        fn = linear_band if band else linear
     if cfg.q_lora_rank:
         qa = rms_norm(linear(x, p["wq_a"], lut), p["q_a_norm"], cfg.norm_eps)
         q = fn(qa, p["wq_b"], lut)
@@ -802,7 +940,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *, lut=None,
     The cache is updated in place.  ``pos``: an int, a 0-d tensor or, for
     T == 1, per-row (B,).  ``rope``: the (cos, sin) tables of these
     positions at qk_rope_head_dim, when the caller shares them."""
-    if _model_axis()[0] is not None:
+    if _heads_axis(cache)[1] is not None:
         return _apply_mla_mesh(p, x, cfg, lut=lut, cache=cache, pos=pos,
                                rope=rope)
     b, t, _ = x.shape
@@ -866,8 +1004,11 @@ def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
     heads into the latent space, gathers that (small) q over model, takes
     each block's partials over every head and merges them over model in
     rank order (:func:`_merge_parts`), then applies its heads' W_v.  ``o``
-    is gathered over model before ``wo``."""
-    mesh, ms, m = _model_axis()
+    is gathered over model before ``wo``.  A tensor-parallel training rank
+    (no cache) holds its heads' bands of wq_b (or wq) and wkv_b already,
+    wq_a, wkv_a and the norms whole; the latents its heads read pass
+    ``copy_to_model``, and wo is row-parallel, summed over model."""
+    train, mesh, ms, m = _heads_axis(cache)
     b, t, _ = x.shape
     nq = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -875,15 +1016,16 @@ def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
     pos0 = 0 if pos is None else pos
     heads = nq % ms == 0
     nq_l = nq // ms if heads else nq
-    q_nope, q_rope, ckv, k_rope = _mla_latents(p, x, cfg, lut, pos0, rope,
-                                               band=heads)
-    wkv_b = (materialize_band if heads else materialize_weight)(
+    q_nope, q_rope, ckv, k_rope = _mla_latents(
+        p, x, cfg, lut, pos0, rope, band=heads,
+        cm=_copier(True, mesh) if train else None)
+    wkv_b = (materialize_band if heads and not train else materialize_weight)(
         p["wkv_b"], lut, x.dtype).reshape(nq_l, dn + dv, r)
     w_k, w_v = wkv_b[:, :dn], wkv_b[:, dn:]
 
-    def gathered(o):
-        o = o.reshape(b, t, nq_l * dv)
-        return mesh.all_gather(o, "model", dim=-1) if heads else o
+    def out(o):
+        return _row_parallel(o.to(x.dtype).reshape(b, t, nq_l * dv),
+                             p["wo"], lut, train, heads, mesh)
 
     def prefill(kv, kr, flash):
         lmax = kv.shape[1]
@@ -892,11 +1034,11 @@ def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
         k_full = torch.cat([k_nope, kr[:, :, None].to(x.dtype).expand(
             b, lmax, nq_l, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        return gathered(flash(q_full, k_full, v).to(x.dtype))
+        return out(flash(q_full, k_full, v))
 
     full = (lambda q, k, v: _attend_full(q, k, v, True))
     if cache is None:
-        return linear(prefill(ckv, k_rope, full), p["wo"], lut), None
+        return prefill(ckv, k_rope, full), None
     lb = cache["ckv"].shape[1]
     start = m * lb
     cckv = _kv_write_block(cache["ckv"], ckv.to(cache["ckv"].dtype), pos0,
@@ -912,7 +1054,7 @@ def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
                         mesh.all_gather(ckrope, "model", dim=1),
                         lambda q, k, v: _attend_cache_flash(q, k, v,
                                                             int(pos0)))
-        return linear(o, p["wo"], lut), new_cache
+        return o, new_cache
 
     f32 = torch.float32
 
@@ -940,7 +1082,7 @@ def _apply_mla_mesh(p: Params, x: torch.Tensor, cfg, *, lut=None,
                             )[:ol.shape[0]]
 
     o = _by_row_pieces(value, b, x, o_lat, pos=None)
-    return linear(gathered(o.to(x.dtype)), p["wo"], lut), new_cache
+    return out(o), new_cache
 
 
 def _mla_parts(qc, qr, cckv, ckrope, pos, d_qk: int, start: int):
@@ -1015,9 +1157,18 @@ def apply_mlp(p: Params, x: torch.Tensor, *, lut=None,
     """SwiGLU.  On a mesh whose model ranks divide d_ff, w_gate and w_up
     give the rank's band (:func:`linear_band`), silu·up runs on it, and
     the band is gathered over model just before w_down (elementwise on
-    the band, so the bits are the whole product's)."""
-    mesh, ms, _ = _model_axis()
-    if mesh is not None and _out_dim(p["w_gate"]) % ms == 0:
+    the band, so the bits are the whole product's).  A tensor-parallel
+    training rank whose gather on use gave it its bands of the three
+    (``partition.kept_band``): gate/up column-parallel on them, w_down
+    row-parallel, its product summed over model."""
+    train, mesh, ms, _ = _heads_axis()
+    if train and PT.kept_band(p, "w_gate"):
+        xc = copy_to_model(x, mesh)
+        g = linear(xc, p["w_gate"], lut, decode=decode)
+        u = linear(xc, p["w_up"], lut, decode=decode)
+        return reduce_from_model(
+            linear(_silu_mul(g, u), p["w_down"], lut, decode=decode), mesh)
+    if not train and mesh is not None and _out_dim(p["w_gate"]) % ms == 0:
         g = linear_band(x, p["w_gate"], lut, decode=decode)
         u = linear_band(x, p["w_up"], lut, decode=decode)
         h = mesh.all_gather(_silu_mul(g, u), "model", dim=-1)
@@ -1241,12 +1392,18 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
         slot = torch.where(keep, slot, cap)
     # at call time: the testing package imports the serving stack
     from ..testing import routes
-    routes.record(expert_ids, keep.reshape(n_tok, k), aux)
+    if not recomputing():
+        routes.record(expert_ids, keep.reshape(n_tok, k), aux)
     table, gtable = dispatch_tables(expert_ids, slot, gate_vals, cap, e)
 
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     res = p.get("residency")
-    if getattr(cfg, "moe_expert_scan", False) and res is None:
+    mesh, ms, m = PT.tp_mesh()
+    tp_experts = mesh is not None and PT.kept_band(p["experts"], "w_gate")
+    if tp_experts:
+        y = _moe_experts_tp(p["experts"], xpad, table, gtable, keep,
+                            expert_ids, slot, cap, x.dtype, mesh, ms, m)
+    elif getattr(cfg, "moe_expert_scan", False) and res is None:
         ye = _expert_scan(p["experts"], xpad[table], lut)
     elif res is not None:
         # Tiered residency: the stacks hold the C cached slots.  Gather
@@ -1266,14 +1423,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     else:
         ye = _expert_ffn(p["experts"], xpad[table], lut, plan_experts=e,
                          decode=decode)                     # (e, cap, d)
-    contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
-    contrib = torch.cat([contrib.reshape(e * cap, d),
-                         contrib.new_zeros((1, d))], dim=0)  # last: dropped
-    where = torch.where(keep, flat_e * cap + slot, e * cap).reshape(n_tok, k)
-    where = where.gather(1, torch.argsort(expert_ids, dim=1))  # by expert
-    y = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y = y + contrib[where[:, j]]
+    if not tp_experts:
+        y = _combine(ye, gtable, keep, expert_ids, slot, cap, x.dtype)
 
     if "shared" in p:
         y = y + apply_mlp(p["shared"], xf, lut=lut, decode=decode)
@@ -1281,6 +1432,43 @@ def apply_moe(p: Params, x: torch.Tensor, cfg, *, lut=None,
     if with_routing:
         return y, aux, expert_ids
     return y, aux
+
+
+def _combine(ye, gtable, keep, expert_ids, slot, cap: int, dtype,
+             first: int = 0):
+    """Each token's gated outputs of experts ``first`` .. ``first + E −
+    1`` (``ye`` (E, cap, d) from their dispatch tables), added in
+    ascending expert order in ``dtype``; a choice dropped, or of another
+    expert, reads the zero row."""
+    e, _, d = ye.shape
+    n_tok, k = expert_ids.shape
+    contrib = ye.to(dtype) * gtable[..., None].to(dtype)
+    contrib = torch.cat([contrib.reshape(e * cap, d),
+                         contrib.new_zeros((1, d))], dim=0)  # last: dropped
+    local = expert_ids.reshape(-1) - first
+    keep = keep & (local >= 0) & (local < e)
+    where = torch.where(keep, local * cap + slot, e * cap).reshape(n_tok, k)
+    where = where.gather(1, torch.argsort(expert_ids, dim=1))  # by expert
+    y = torch.zeros((n_tok, d), dtype=dtype, device=ye.device)
+    for j in range(k):
+        y = y + contrib[where[:, j]]
+    return y
+
+
+def _moe_experts_tp(experts, xpad, table, gtable, keep, expert_ids, slot,
+                    cap: int, dtype, mesh, ms: int, m: int):
+    """A tensor-parallel training rank's experts (expert-parallel over
+    ``model``): its E/model experts on the dispatch table every model rank
+    computed alike (capacity, slots and aux the whole microbatch's), the
+    tokens and gates read through ``copy_to_model``, the combine of its
+    experts' gated outputs summed over model."""
+    el = table.shape[0] // ms
+    lo = m * el
+    xc, gc = copy_to_model(xpad, mesh), copy_to_model(gtable, mesh)
+    ye = _expert_ffn(experts, xc[table[lo:lo + el]])
+    y = _combine(ye, gc[lo:lo + el], keep, expert_ids, slot,
+                 cap, dtype, first=lo)
+    return reduce_from_model(y, mesh)
 
 
 def _rows_local(mesh) -> bool:
@@ -1357,20 +1545,11 @@ def apply_moe_local(p: Params, x: torch.Tensor, cfg, *, lut=None):
     slot = torch.where(owned.reshape(-1), slot, cap)    # unowned: dropped
     table, gtable = dispatch_tables(torch.where(owned, local_ids, 0), slot,
                                     gate_vals, cap, e_loc)
-    keep = slot < cap
     xpad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     ye = _expert_ffn(local, xpad[table], lut, plan_experts=e_full,
                      decode=t == 1)                      # (e_loc, cap, d)
-    contrib = ye.to(x.dtype) * gtable[..., None].to(x.dtype)
-    contrib = torch.cat([contrib.reshape(e_loc * cap, d),
-                         contrib.new_zeros((1, d))], dim=0)
-    flat = torch.where(owned, local_ids, 0).reshape(-1)
-    where = torch.where(keep, flat * cap + slot, e_loc * cap
-                        ).reshape(n_tok, k)
-    where = where.gather(1, torch.argsort(expert_ids, dim=1))  # by expert
-    y = torch.zeros((n_tok, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        y = y + contrib[where[:, j]]
+    y = _combine(ye, gtable, slot < cap, expert_ids, slot, cap, x.dtype,
+                 first=offset)
     y = mesh.psum(y, "model")
     aux = mesh.pmean(mesh.pmean(aux, "model"), batch_axes)
     y = y.reshape(bl, t, d)

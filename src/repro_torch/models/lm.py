@@ -22,6 +22,7 @@ from typing import Any, Optional
 import torch
 
 from .._device import generator, resolve_device
+from ..sharding import partition as PT
 from . import layers as L
 from . import ssm as S
 
@@ -177,7 +178,8 @@ def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
     if (return_routing or routing is not None) and fam != "moe":
         raise ValueError(f"routing needs family 'moe', got {fam!r}")
     if tokens is not None:
-        x = L.embed(params["embed"], tokens, lut)
+        x = L.embed(PT.use(params["embed"], keep=True), tokens, lut,
+                    band=PT.kept_band(params, "embed"))
         if embeds is not None:
             x = torch.cat([embeds.to(x.dtype), x], dim=1)
     else:
@@ -192,12 +194,20 @@ def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
     out_caches: dict = {}
     aux = 0.0
     routed = []
+    remat = L.remat_on(cfg, params["final_norm"])
+
+    def run(fn, bp, *args):
+        """One block: its leaves gathered on use inside the checkpointed
+        body (``partition.use``), so they live through its forward and
+        again through its recompute and backward."""
+        return L.block(lambda x_: fn(PT.use(bp), x_, *args), x, remat=remat)
+
     if "first_blocks" in params:
         fb_caches = caches.get("first")
         ncs = []
         for i, bp in enumerate(params["first_blocks"]):
             cache = fb_caches[i] if fb_caches is not None else None
-            x, nc, _, _ = _moe_block(bp, x, cfg, lut, cache, pos, rope)
+            x, nc, _, _ = run(_moe_block, bp, cfg, lut, cache, pos, rope)
             ncs.append(nc)
         out_caches["first"] = ncs if fb_caches is not None else None
     blk_caches = caches.get("blocks")
@@ -208,38 +218,39 @@ def forward(params: Params, cfg, tokens: Optional[torch.Tensor] = None, *,
         segs = _hybrid_segments(cfg)
         for si, (s, e) in enumerate(segs):
             for i in range(s, e):
-                x, nc = _ssm_block(params["blocks"][i], x, cfg, lut,
-                                   blk_caches[i] if blk_caches is not None
-                                   else None)
+                x, nc = run(_ssm_block, params["blocks"][i], cfg, lut,
+                            blk_caches[i] if blk_caches is not None
+                            else None)
                 new_caches.append(nc)
             if si < len(segs) - 1:
-                x, nac = _dense_block(params["shared_attn"], x, cfg, lut,
-                                      attn_caches[si] if attn_caches
-                                      is not None else None, pos, rope)
+                x, nac = run(_dense_block, params["shared_attn"], cfg, lut,
+                             attn_caches[si] if attn_caches
+                             is not None else None, pos, rope)
                 new_attn.append(nac)
         out_caches["attn"] = new_attn if attn_caches is not None else None
     else:
         for i, bp in enumerate(params["blocks"]):
             cache = blk_caches[i] if blk_caches is not None else None
             if fam in ("dense", "vlm"):
-                x, nc = _dense_block(bp, x, cfg, lut, cache, pos, rope)
+                x, nc = run(_dense_block, bp, cfg, lut, cache, pos, rope)
             elif fam == "ssm":
-                x, nc = _ssm_block(bp, x, cfg, lut, cache)
+                x, nc = run(_ssm_block, bp, cfg, lut, cache)
             else:
-                x, nc, a, ids = _moe_block(
-                    bp, x, cfg, lut, cache, pos, rope,
+                x, nc, a, ids = run(
+                    _moe_block, bp, cfg, lut, cache, pos, rope,
                     None if routing is None else routing[i],
-                    with_routing=return_routing)
+                    return_routing)
                 aux = aux + a
                 routed.append(ids)
             new_caches.append(nc)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, PT.use(params["final_norm"]), cfg.norm_eps)
     out_caches["blocks"] = new_caches if blk_caches is not None else None
     extra = (torch.stack(routed),) if return_routing else ()
     if return_hidden:
         return (x, out_caches, aux) + extra
-    head = params.get("lm_head", params["embed"])
-    logits = L.linear(x, head, lut)
+    key = "lm_head" if "lm_head" in params else "embed"
+    logits = L.head_logits(x, PT.use(params[key], keep=True), lut,
+                           band=PT.kept_band(params, key))
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = torch.tanh(logits / c) * c

@@ -41,22 +41,27 @@ one too: the layers hold each activation on the rank as its spec says.
 Training (``train/steps.py``) is the port's ZeRO-3: each rank stores its
 shard of every leaf of the train state under
 :func:`make_train_state_specs` (:func:`shard_leaf`: major-first over a
-tuple of axes, as :func:`place_params` cuts bands), gathers the whole
-parameters for a step (:func:`gather_leaf`), and computes the rows of its
-data rank (:func:`rows_split` marks them split for the MoE's global
-statistics); the ``model`` axis splits storage only.
+tuple of axes, as :func:`place_params` cuts bands) and computes the rows
+of its data rank (:func:`rows_split` marks them split for the MoE's global
+statistics).  A step gathers each block's leaves where the block uses
+them (:func:`gathering`, :func:`use`), over the data axes alone, and
+computes tensor-parallel on the rank's ``model`` band (:func:`tp_mesh`,
+:func:`tp_keeps_band`: heads, FFN columns, experts, vocab rows); a leaf
+whose band is not a head (Mamba2's, kv heads that do not divide the
+model ranks) is gathered over ``model`` too.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import re
+import weakref
 from typing import Any
 
 import torch
 
 from ..launch.mesh import (AXIS_DATA, AXIS_MODEL, AXIS_POD, _unravel,
-                           data_axes)
+                           data_axes, gather_model, gather_on_use)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -449,6 +454,66 @@ def gather_leaf(t, spec, mesh):
     return t
 
 
+def data_split(spec, mesh) -> tuple | None:
+    """(dim, axes) of the dim a parameter's spec splits over the data axes
+    (pod, data), or None: a ZeRO-3 leaf has at most one ("F")."""
+    for dim, ax in enumerate(spec):
+        names = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        axes = tuple(a for a in names if a in (AXIS_POD, AXIS_DATA)
+                     and mesh.shape.get(a, 1) > 1)
+        if axes:
+            return dim, axes
+    return None
+
+
+def model_dim(spec, mesh=None) -> int | None:
+    """The dim of a leaf that is on ``model`` once its shard is gathered
+    over the data axes alone (:func:`gather_leaf_data`): the dim its spec
+    puts on ``model``, or None (the leaf is whole over ``model`` there:
+    the rule does not split it, or ``_guarded_spec`` dropped ``M``)."""
+    for dim, ax in enumerate(spec):
+        names = (ax,) if isinstance(ax, str) else tuple(ax or ())
+        if AXIS_MODEL in names and (mesh is None
+                                    or mesh.shape.get(AXIS_MODEL, 1) > 1):
+            return dim
+    return None
+
+
+def gather_leaf_data(t, spec, mesh):
+    """This rank's shard ``t`` gathered over the data axes only: the rank
+    keeps its ``model`` band of each ``(M, F)`` leaf (:func:`model_dim`)."""
+    split = data_split(spec, mesh)
+    return t if split is None else mesh.all_gather(t, split[1], split[0])
+
+
+# Leaves whose ``model`` band a tensor-parallel training rank computes on:
+# the rule's ("M", ...) dim is heads (q heads, kv heads) and must cut whole
+# heads; FFN columns, experts and vocab rows are a band at any cut.
+_TP_Q_HEADS = re.compile(r"(^|/)(attn|cross)/(wq|bq|wo|wq_b|wkv_b)$")
+_TP_KV_HEADS = re.compile(r"(^|/)(attn|cross)/(wk|wv|bk|bv)$")
+_TP_BAND = re.compile(r"(^|/)((mlp|shared)/(w_gate|w_up|w_down)"
+                      r"|experts/(w_gate|w_up|w_down)"
+                      r"|embed|dec_embed|lm_head)$")
+
+
+def tp_keeps_band(path: str, spec, cfg, mesh) -> bool:
+    """Whether a tensor-parallel training rank computes on its ``model``
+    band of the leaf at ``path`` (a ``clean_keystr`` path) rather than on
+    the leaf gathered whole over ``model`` too: heads where the model
+    ranks divide them (wq/bq/wo and MLA's wq_b/wkv_b by q heads, wk/wv/bk/
+    bv by kv heads), the FFN's columns, experts and vocab rows wherever
+    the spec splits them.  Mamba2's in_proj/out_proj/conv are not: their
+    output concatenates z, x, B, C and dt, so a band is not a head."""
+    if model_dim(spec, mesh) is None:
+        return False
+    ms = mesh.shape[AXIS_MODEL]
+    if _TP_Q_HEADS.search(path):
+        return cfg.n_heads % ms == 0
+    if _TP_KV_HEADS.search(path):
+        return cfg.n_kv_heads % ms == 0
+    return bool(_TP_BAND.search(path))
+
+
 def flat_specs(specs: Any, like: Any) -> list:
     """The specs of ``like``'s leaves, in ``train.tree.flatten``'s order
     (``specs`` has ``like``'s structure, a spec tuple at each leaf)."""
@@ -483,6 +548,171 @@ def gather_tree(tree: Any, specs: Any, mesh) -> Any:
     from ..train import tree as T
     return T.unflatten(tree, [gather_leaf(x, s, mesh) for x, s in zip(
         T.leaves(tree), flat_specs(specs, tree))])
+
+
+# ---------------------------------------------------------------------------
+# Gather on use: a training step's parameters, one block at a time.
+# ---------------------------------------------------------------------------
+
+class _Gathering:
+    """One training step's gather-on-use state (:func:`gathering`)."""
+
+    def __init__(self, mesh, specs, cfg, reduce: bool):
+        self.mesh, self.specs, self.cfg, self.reduce = mesh, specs, cfg, reduce
+        # id(shard) -> (shard, its data split, the dim gathered over model
+        # too or None, whether the rank computes on its model band)
+        self.plans: dict = {}
+        self.memo: dict = {}        # id(shard) -> gathered, kept the step
+        self.live = self.peak = 0   # gathered bytes alive, and their most
+
+    def bind(self, tree) -> None:
+        from ..train import tree as T
+        self.plans, self.memo = {}, {}
+        for (path, t), spec in zip(T.flatten(tree),
+                                   flat_specs(self.specs, tree)):
+            dim = model_dim(spec, self.mesh)
+            band = dim is not None and tp_keeps_band(
+                clean_keystr(path), spec, self.cfg, self.mesh)
+            self.plans[id(t)] = (t, data_split(spec, self.mesh),
+                                 None if band else dim, band)
+
+    def _free(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+    def keeps_band(self, t) -> bool:
+        """Whether :meth:`gather` gives the rank its model band of the
+        bound shard ``t``."""
+        plan = self.plans.get(id(t))
+        return plan is not None and plan[0] is t and plan[3]
+
+    def gather(self, t):
+        plan = self.plans.get(id(t))
+        if plan is None or plan[0] is not t:
+            return t
+        _, split, whole, _ = plan
+        out = t
+        if split is not None:
+            out = gather_on_use(out, self.mesh, split[1], split[0],
+                                  self.reduce)
+        elif self.reduce:        # a leaf whole over data: its grads summed
+            out = gather_on_use(out, self.mesh, data_axes(self.mesh),
+                                  None)
+        if whole is not None:
+            out = gather_model(out, self.mesh, whole)
+        if split is not None or whole is not None:   # a gathered copy
+            nbytes = out.numel() * out.element_size()
+            self.live += nbytes
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(out, self._free, nbytes)
+        return out
+
+
+_GATHERING: list = []
+# the last step's most gathered-parameter bytes alive at once (a rank's)
+GATHER_STATS = {"peak": 0}
+
+
+@contextlib.contextmanager
+def gathering(mesh, specs, cfg, *, reduce: bool = True):
+    """While the block runs, a training rank's parameters are its ZeRO-3
+    shards under ``specs`` (the parameters' spec tree), gathered where
+    they are used (:func:`use`): over the data axes alone, keeping the
+    rank's ``model`` band of each leaf that tensor-parallel compute reads
+    as a band (:func:`tp_keeps_band`), gathered over ``model`` too
+    otherwise.  The gradients reach the shards through the gathers'
+    backward (``launch.mesh.gather_on_use``: reduce-scattered over the
+    data ranks, or with ``reduce=False``, where every data rank computed
+    the same rows, cut).  ``train.steps.loss_and_grads`` binds the leaves
+    it differentiates (:func:`bind_gathering`).  → the state, whose
+    ``peak`` (kept in ``GATHER_STATS`` when the block ends) is the most
+    gathered-parameter bytes alive at once."""
+    ctx = _Gathering(mesh, specs, cfg, reduce)
+    _GATHERING.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _GATHERING.pop()
+        GATHER_STATS["peak"] = ctx.peak
+
+
+def bind_gathering(tree) -> None:
+    """Register ``tree`` (a tree of the parameters' structure, this rank's
+    shards) with the enclosing :func:`gathering`, if any."""
+    if _GATHERING:
+        _GATHERING[-1].bind(tree)
+
+
+class _Used(dict):
+    """A block's parameters whose leaves are gathered at their first
+    read (:func:`use`) and kept for the reads after it within the block."""
+
+    def __init__(self, node, ctx):
+        super().__init__(node)
+        self._ctx, self._raw = ctx, node
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        if isinstance(v, dict) and not isinstance(v, _Used):
+            v = _Used(v, self._ctx)
+        elif isinstance(v, torch.Tensor):
+            v = self._ctx.gather(v)
+        else:
+            return v
+        super().__setitem__(k, v)
+        return v
+
+    def get(self, k, default=None):
+        return self[k] if k in self else default
+
+
+def use(node, *, keep: bool = False):
+    """``node`` (a block's parameter dict, or one leaf) as the computation
+    reads it inside :func:`gathering`: a leaf gathered at its first read
+    (a dict's leaves lazily, so a leaf the block does not read is not
+    gathered); ``node`` itself outside one.  Called inside a block's
+    checkpointed body, the gathered band lives through that block's
+    forward and again through its recompute and backward.  ``keep``: a
+    leaf read in several places of the step (a tied embedding and head)
+    is gathered once and kept for the step."""
+    if not _GATHERING:
+        return node
+    ctx = _GATHERING[-1]
+    if isinstance(node, dict):
+        return _Used(node, ctx)
+    if not isinstance(node, torch.Tensor):
+        return node
+    if keep:
+        if id(node) not in ctx.memo:
+            ctx.memo[id(node)] = ctx.gather(node)
+        return ctx.memo[id(node)]
+    return ctx.gather(node)
+
+
+def kept_band(node, key) -> bool:
+    """Whether the gather on use gives this training rank its ``model``
+    band of ``node[key]`` (:func:`tp_keeps_band`, from the config and the
+    mesh), read off the bound shard's plan without gathering it; False
+    outside :func:`gathering`.  ``node``: a block's parameters as
+    :func:`use` gives them, or the bound tree's dict that holds the leaf
+    (the embedding, the head)."""
+    if not _GATHERING:
+        return False
+    raw = node._raw if isinstance(node, _Used) else node
+    return _GATHERING[-1].keeps_band(raw[key])
+
+
+def tp_mesh():
+    """(mesh, model ranks, this rank's model index) where a training step
+    computes tensor-parallel over ``model`` (autograd records inside
+    :func:`gathering` on a mesh of more than one model rank), else
+    (None, 1, 0)."""
+    if not _GATHERING or not torch.is_grad_enabled():
+        return None, 1, 0
+    mesh = _GATHERING[-1].mesh
+    ms = mesh.shape.get(AXIS_MODEL, 1)
+    if ms <= 1:
+        return None, 1, 0
+    return mesh, ms, mesh.axis_index(AXIS_MODEL)
 
 
 # ---------------------------------------------------------------------------

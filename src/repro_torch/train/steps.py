@@ -21,17 +21,19 @@ caller put them (the card unless the caller asked for the CPU:
 On a mesh of ranks (``make_train_step(cfg, tcfg, mesh, specs)``, the
 reference's jitted step under ``make_train_state_specs`` shardings) each
 rank stores its shard of every leaf of the state (ZeRO-3) and, each step,
-gathers the whole parameters, runs forward and backward on its data
-rank's share of each microbatch (:func:`data_rows`), sums the gradients
-over the data axes into its shard (a reduce-scatter) and updates it
-(``optimizer.adamw_update`` on shards).  The ``model`` axis splits
-storage only: its ranks compute the same rows.  The loss and the metrics
-are the global ones, the same bits on every rank.
+runs forward and backward on its data rank's share of each microbatch
+(:func:`data_rows`) with each block's leaves gathered over the data axes
+where they are used (``sharding.partition.gathering``), computes
+tensor-parallel over ``model`` on its bands (heads, FFN columns, experts,
+the vocab of the embedding, head and loss), gets its shard of the
+gradients summed over the data axes from the gathers' backward (a
+reduce-scatter) and updates it (``optimizer.adamw_update`` on shards).
+The loss and the metrics are the global ones, the same bits on every
+rank.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 import re
 from typing import Any
 
@@ -58,39 +60,76 @@ class TrainConfig:
     accum_dtype: Any = torch.float32    # the gradient accumulator's dtype
 
 
+def _lse_ll(logits: torch.Tensor, labels: torch.Tensor, band):
+    """(lse, the label's logit) over the last dim of f32 ``logits``.
+    ``band`` (mesh, this rank's model index), where ``logits`` are a
+    tensor-parallel rank's vocab band: lse from the max over model and the
+    sum of exps over model (``reduce_from_model``), the label's logit
+    from the rank whose band holds it (zeros elsewhere, summed)."""
+    if band is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return lse, ll
+    mesh, m = band
+    vl = logits.shape[-1]
+    mx = mesh.pmax(logits.detach().amax(dim=-1), M.AXIS_MODEL)
+    s = M.reduce_from_model(torch.exp(logits - mx[..., None]).sum(dim=-1),
+                            mesh)
+    lse = mx + torch.log(s)
+    local = labels.long() - m * vl
+    mine = (local >= 0) & (local < vl)
+    ll = torch.gather(logits, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    ll = M.reduce_from_model(torch.where(mine, ll, torch.zeros_like(ll)),
+                             mesh)
+    return lse, ll
+
+
+def _vocab_band(params, key):
+    """(mesh, model index) where ``params[key]`` (the LM head, or the tied
+    embedding) is given to a tensor-parallel training rank as its vocab
+    band (``partition.kept_band``), else None."""
+    mesh, _, m = PT.tp_mesh()
+    return (mesh, m) if PT.kept_band(params, key) else None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_loss: float = 0.0) -> torch.Tensor:
+                  z_loss: float = 0.0, band=None) -> torch.Tensor:
     """Token-mean CE with optional z-loss; logits (B, T, V), labels
-    (B, T)."""
-    lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    (B, T).  ``band``: the logits are a tensor-parallel rank's vocab band
+    (:func:`_lse_ll`)."""
+    lse, ll = _lse_ll(logits.to(torch.float32), labels, band)
     ce = torch.mean(lse - ll)
     if z_loss:
         ce = ce + z_loss * torch.mean(lse ** 2)
     return ce
 
 
-def _chunk_sums(h, head, lab, softcap: float):
-    """Σ(lse − ll) and Σ lse² over one (B, c) chunk."""
+def _chunk_sums(h, head, lab, softcap: float, band=None):
+    """Σ(lse − ll) and Σ lse² over one (B, c) chunk (``band``: ``head`` is
+    a tensor-parallel rank's vocab band, ``h`` its input)."""
+    if band is not None:
+        h = M.copy_to_model(h, band[0])
     logits = torch.einsum("bcd,vd->bcv", h.to(torch.float32),
                           head.to(torch.float32))
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+    lse, ll = _lse_ll(logits, lab, band)
     return torch.sum(lse - ll), torch.sum(lse ** 2)
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int,
-                          z_loss: float = 0.0,
-                          softcap: float = 0.0) -> torch.Tensor:
+                          z_loss: float = 0.0, softcap: float = 0.0,
+                          band=None) -> torch.Tensor:
     """CE without materializing (B, T, V) logits: sequence chunks of
     ``chunk`` (the largest divisor of T not above it), each one's (B, c,
     V) logits reduced to two sums and recomputed in the backward
     (``torch.utils.checkpoint``).  hidden (B, T, d); head (V, d); labels
-    (B, T)."""
+    (B, T).  ``band`` (mesh, model index): ``head`` is a tensor-parallel
+    training rank's vocab band (:func:`_vocab_band`), each chunk's logits
+    then (B, c, V/model), the reference's logits slice pinned to the vocab
+    band (:func:`_lse_ll`)."""
     b, t, _ = hidden.shape
     c = min(chunk, t)
     while t % c:
@@ -98,7 +137,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
     ce_sum = hidden.new_zeros((), dtype=torch.float32)
     z_sum = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, t, c):
-        args = (hidden[:, i:i + c], head, labels[:, i:i + c], softcap)
+        args = (hidden[:, i:i + c], head, labels[:, i:i + c], softcap, band)
         if torch.is_grad_enabled():
             ce, z = checkpoint(_chunk_sums, *args, use_reentrant=False)
         else:
@@ -124,14 +163,15 @@ def _loss_fn(params, cfg, tcfg: TrainConfig, batch):
                                  return_hidden=chunked)
         if fam == "vlm" and batch.get("embeds") is not None:
             out = out[:, batch["embeds"].shape[1]:]
+    key = "lm_head" if "lm_head" in params else "embed"
+    head, band = PT.use(params[key], keep=True), _vocab_band(params, key)
     if chunked:
-        head = params["lm_head"] if "lm_head" in params else params["embed"]
         loss = chunked_cross_entropy(out, head, batch["labels"],
                                      chunk=tcfg.logits_chunk,
                                      z_loss=tcfg.z_loss,
-                                     softcap=cfg.logits_softcap)
+                                     softcap=cfg.logits_softcap, band=band)
     else:
-        loss = cross_entropy(out, batch["labels"], tcfg.z_loss)
+        loss = cross_entropy(out, batch["labels"], tcfg.z_loss, band=band)
     if cfg.is_moe:
         loss = loss + tcfg.moe_aux_weight * aux
     return loss
@@ -192,8 +232,10 @@ def loss_and_grads(params, cfg, tcfg: TrainConfig, batch):
     over the reference's loss."""
     flat = T.leaves(params)
     live = [p.detach().requires_grad_(True) for p in flat]
+    tree = T.unflatten(params, live)
+    PT.bind_gathering(tree)
     with torch.enable_grad():
-        loss = _loss_fn(T.unflatten(params, live), cfg, tcfg, batch)
+        loss = _loss_fn(tree, cfg, tcfg, batch)
         grads = torch.autograd.grad(loss, live, allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(flat, grads)]
@@ -245,73 +287,33 @@ def data_rows(batch: dict, accum: int, mesh):
                           for i in range(a)]) for k, v in batch.items()}, True
 
 
-# gradients summed over the data ranks in exchanges of at most this many
-# elements a rank sends (a bucket of leaves flattened into one)
-GRAD_BUCKET = 1 << 26
-
-
-def _reduce_scatter(grads: list, specs: list, mesh, axes) -> list:
-    """Each rank's shard (under ``specs``) of the sum over ``axes`` of
-    every rank's whole ``grads``: each rank sends every data peer the
-    peer's shard of its gradients (``Mesh.all_to_all``) and adds the
-    shards it gets in the peers' index order — the bits of a sum of the
-    whole gradients in rank order, cut to the shard, for the bytes of
-    the shards alone."""
-    peers = []
-    for j in range(mesh.axis_size(axes)):
-        coords, rest = dict(mesh.coords), j
-        for a in reversed([a for a in mesh.axis_names if a in axes]):
-            coords[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
-        peers.append(coords)
-    out, i = [], 0
-    while i < len(grads):
-        j, n = i + 1, grads[i].numel()
-        while j < len(grads) and n + grads[j].numel() <= GRAD_BUCKET:
-            n += grads[j].numel()
-            j += 1
-        send = torch.cat([PT.shard_leaf(g, s, mesh, c).reshape(-1)
-                          for c in peers
-                          for g, s in zip(grads[i:j], specs[i:j])])
-        got = mesh.all_to_all(send, axes).view(len(peers), -1)
-        total = got[0]
-        for row in got[1:]:
-            total = total + row
-        shapes = [PT.shard_shape(g.shape, s, mesh)
-                  for g, s in zip(grads[i:j], specs[i:j])]
-        out += [part.view(shape) for part, shape in zip(
-            total.split([math.prod(sh) for sh in shapes]), shapes)]
-        i = j
-    return out
-
-
 def loss_and_grads_on_mesh(params, cfg, tcfg: TrainConfig, batch, mesh,
                            specs):
-    """One rank's loss and gradients on ``mesh``: the whole parameters
-    gathered from this rank's shards (``params`` under ``specs``, the
-    parameters' spec tree), forward and backward on its data rank's rows
-    (:func:`data_rows`, the MoE's statistics taken over the whole
-    microbatch: ``sharding.partition.rows_split``), the gradients summed
-    over the data axes into this rank's shards (:func:`_reduce_scatter`)
-    and averaged with the loss over the data ranks.  → (loss, this rank's
+    """One rank's loss and gradients on ``mesh``, from this rank's shards
+    (``params`` under ``specs``, the parameters' spec tree): forward and
+    backward on its data rank's rows (:func:`data_rows`, the MoE's
+    statistics taken over the whole microbatch:
+    ``sharding.partition.rows_split``), each block's leaves gathered over
+    the data axes where the block uses them (``partition.gathering``,
+    inside its checkpointed body under ``cfg.remat``), the compute
+    tensor-parallel over ``model`` on the rank's bands (heads, FFN columns,
+    experts, vocab rows).  The gradients come out of the gathers'
+    backward as this rank's shards, summed over the data ranks in rank
+    order (each microbatch's, accumulated in ``accum_dtype``), and are
+    averaged with the loss over the data ranks.  → (loss, this rank's
     shards of the gradients, a tree of ``params``' structure); every rank
     gets the same loss bits."""
-    whole = PT.gather_tree(params, specs, mesh)
-    device = T.leaves(whole)[0].device
+    device = T.leaves(params)[0].device
     rows, split = data_rows(_on(batch, device), tcfg.accum_steps, mesh)
     axes = M.data_axes(mesh)
-    with PT.rows_split(mesh if split else None, axes):
-        loss, grads = grads_of(whole, cfg, tcfg, rows)
-    del whole
-    flat = PT.flat_specs(specs, params)
+    with PT.rows_split(mesh if split else None, axes), \
+            PT.gathering(mesh, specs, cfg, reduce=split):
+        loss, grads = grads_of(params, cfg, tcfg, rows)
     if split:
         inv = _recip(mesh.axis_size(axes), device)
         loss = mesh.psum(loss, axes) * inv
-        shards = [g * inv for g in _reduce_scatter(T.leaves(grads), flat,
-                                                   mesh, axes)]
-    else:
-        shards = [PT.shard_leaf(g, s, mesh)
-                  for g, s in zip(T.leaves(grads), flat)]
-    return loss, T.unflatten(params, shards)
+        grads = T.map_leaves(lambda g: g * inv, grads)
+    return loss, grads
 
 
 def make_train_step(cfg, tcfg: TrainConfig, mesh=None, specs=None):
@@ -321,8 +323,9 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None, specs=None):
 
     On ``mesh`` (more than one rank) the state is this rank's shards
     under ``specs`` (``sharding.partition.make_train_state_specs`` of the
-    whole state), ``batch`` the global batch: the step gathers, computes
-    its rows and gets its shard of the summed gradients
+    whole state), ``batch`` the global batch: the step computes its rows
+    on its bands, gathering each block's leaves on use, and gets its
+    shard of the summed gradients
     (:func:`loss_and_grads_on_mesh`), compresses them against each whole
     leaf's range (``int8_ef``) and updates its shards
     (``optimizer.adamw_update``)."""

@@ -4,13 +4,15 @@
         [more record directories ...]
     PYTHONPATH=src python tools/dryrun_table.py --before OLD_DIR NEW_DIR
 
-``--before OLD_DIR``: the serve cells (prefill, decode, ``long_500k``)
-of OLD_DIR's records (another tree's sweep) beside the given ones, a row
-per cell: on each mesh the planned argument / temp / total GB a rank,
-before → after; the rank's caches in GB beside its share under the
-reference's ``make_cache_specs`` (and the Mamba2 state the port keeps
-whole on model, GB); the all-gathered GB a step on 16×16, before →
-after.
+``--before OLD_DIR``: OLD_DIR's records (another tree's sweep) beside
+the given ones, a row per cell.  The ``train_4k`` cells first: on each
+mesh the planned argument / temp / total GB a rank and the all-gathered
+GB a step, before → after, and whether the after fits the planned card.
+Then the serve cells (prefill, decode, ``long_500k``): on each mesh the
+planned argument / temp / total GB a rank, before → after; the rank's
+caches in GB beside its share under the reference's
+``make_cache_specs`` (and the Mamba2 state the port keeps whole on
+model, GB); the all-gathered GB a step on 16×16, before → after.
 
 Reads every ``<arch>__<shape>__<mesh>__<mode>.json`` that
 ``python -m repro_torch.launch.dryrun`` wrote (a cell found in two
@@ -111,8 +113,39 @@ def _gathered(rec) -> str:
     return f"{got / GB:.3g}"
 
 
+def _fits(rec) -> str:
+    if not planned(rec):
+        return "–"
+    mem = rec["memory"]["total_hbm_bytes"]
+    return "yes" if mem <= rec["planned"]["hbm_bytes"] else "no"
+
+
+def compare_train(old, new):
+    """The train cells of two sweeps: on each mesh the planned argument /
+    temp / total GB a rank and the all-gathered GB a step, before →
+    after, and whether the after fits the planned card."""
+    keys = sorted({(k[0], k[1]) for k in new if k[1] == "train_4k"})
+    if not keys:
+        return
+    print("| cell | 16×16 GB a rank: argument / temp / total, before → after"
+          " | 2×16×16, before → after | all-gathered GB a step, 16×16; "
+          "2×16×16, before → after | fits 80 GB after: 16×16 / 2×16×16 |")
+    print("|" + "---|" * 5)
+    for arch, shape in keys:
+        o1, o2 = (old.get((arch, shape, m)) for m in ("single", "multi"))
+        n1, n2 = (new.get((arch, shape, m)) for m in ("single", "multi"))
+        print(f"| {arch} {shape} | {_mem(o1)} → {_mem(n1)} | "
+              f"{_mem(o2)} → {_mem(n2)} | {_gathered(o1)} → "
+              f"{_gathered(n1)}; {_gathered(o2)} → {_gathered(n2)} | "
+              f"{_fits(n1)} / {_fits(n2)} |")
+    print()
+
+
 def compare(before_dir, dirs):
     old, new = load([before_dir]), load(dirs)
+    compare_train(old, new)
+    if not any(k[1] != "train_4k" for k in new):
+        return
     print("| cell | 16×16 GB a rank: argument / temp / total, before → after"
           " | 2×16×16, before → after | caches GB a rank / the reference's"
           " share: 16×16; 2×16×16 | 16×16 all-gathered GB a step, before "
