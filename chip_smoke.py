@@ -154,8 +154,11 @@ training on a mesh; the script exits non-zero if any phase fails:
      checkpoint after step TRAIN_MESH_CKPT restored onto
      TRAIN_MESH_RESTORE and into one process, one more step each;
      DeepSeek-V2-Lite at 2 layers on TRAIN_MESH_MOE (its experts on
-     model), its kept (token, expert) pairs equal one process's; K2 f32 at
-     each mesh's rank's heads and rows.
+     model), its kept (token, expert) pairs equal one process's;
+     Mamba2-2.7B at TRAIN_MESH_SSM_LAYERS blocks on TRAIN_MESH_SSM (each
+     model rank on its SSM heads), TRAIN_MESH_SSM_STEPS steps, each loss
+     and gradient norm within TRAIN_MESH_LOSS_RTOL of one process's; K2
+     f32 at each mesh's rank's heads and rows.
  13. Dry run (``dryrun_phase``, last): plans on fake tensors
      (``launch/dryrun.py``) for an H100 SXM of 132 SMs (the card's count
      must be that), held against this run: the train_mesh phase's Llama
@@ -4280,6 +4283,8 @@ MESH_ROWS_LAYERS = 4     # Llama-3.2-1B's rows over data on MESH_WIDE: the
                          # first 4 of the 16 layers packed for MESH_LLAMA
                          # (a depth cut: the phase's time)
 MESH_DS_LAYERS = 2       # DeepSeek-V2-Lite at full width, cut to 2 layers
+MESH_SSM = (1, 2)        # Mamba2-2.7B at full width, its SSM heads on model
+MESH_SSM_LAYERS = 4      # of its 64 blocks (a depth cut: the phase's time)
 MESH_TILED_LAYERS = 2    # tiled Llama-3.2-1B (tiles 2), cut to 2 layers
 #  * Local-routing MoE and column groups against one process at 2 layers:
 #    the local router runs in f32 (the global one in x's bf16), the
@@ -4611,11 +4616,71 @@ def mesh_eager(rt, mesh, p, rec, gen, timer) -> dict:
     return out
 
 
+def mesh_ssm(rt, mesh, p, rec, gen, timer) -> dict:
+    """Mamba2-2.7B (MESH_SSM_LAYERS blocks) on MESH_SSM, each model rank
+    on its own SSM heads (``ssm.apply_mamba2``: K1 on its in_proj and
+    out_proj out bands, its state (B, H/2, P, N) and its channels of the
+    conv window): ``generate`` (the counted main path), then the eager
+    loop on the mesh for its logits; on rank 0, K1 on the two bands
+    against their plain versions (``check_fused``, each launch planned for
+    the whole weight) and against the whole weight's launch
+    (``band_bits``, block 0)."""
+    cfg, lut, ids = p["cfg"], p["lut"], p["ids"]
+    device = ids.device
+    b, t0 = ids.shape
+    params = rt["partition"].place_params(p["params"], mesh)
+    ctx = rt["ServeContext"](cfg, lut=lut, device=device, mesh=mesh)
+    rec.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    toks, run = counted_run(rt, lambda: rt["generate"](
+        params, cfg, ids, ctx=ctx, max_new=MAX_NEW))
+    shapes = rec.table()
+    report = cache_report(rt, cfg, b, t0 + MAX_NEW, mesh, device)
+    share = rt["LM"].init_caches(cfg, b, t0 + MAX_NEW, device="meta",
+                                 mesh=mesh)
+    etoks, logits, prefill_ms, step_ms = eager_logits(rt, cfg, params, lut,
+                                                      ids, ctx)
+    out = {"tokens": toks[:, t0:].cpu(), "eager_tokens": etoks.cpu(),
+           "run": run, "launch_shapes": shapes, "prefill_ms": prefill_ms,
+           "step_ms": step_ms,
+           "logits": logits.cpu() if mesh.rank == 0 else None,
+           "cache_shapes": {k: list(v.shape)
+                            for k, v in share["blocks"][0].items()},
+           "conv_w_rows": int(params["blocks"][0]["mamba"]["conv_w"].shape[0]),
+           "rows": [], **report}
+    if mesh.rank == 0:
+        blocks = params["blocks"]
+        shards = mesh.shape["model"]
+        row, _ = check_fused(
+            rt, lut, [(name, [blk["mamba"][name] for blk in blocks], True)
+                      for name in ("in_proj", "out_proj")],
+            device, ids.numel(), gen, timer,
+            f"one Mamba2 block's in_proj and out_proj out bands "
+            f"(N/{shards}, planned for N), decode M={BATCH}", shards=shards)
+        k1 = run["kernel_launches"]
+        out["rows"].append(dict(
+            row, name=f"fused_decode_matmul (mesh band N/{shards}, Mamba2 "
+                      "in_proj/out_proj)",
+            launches=k1.get("fused_decode_matmul:decode", 0)
+            + k1.get("fused_decode_matmul:mma", 0),
+            launches_by_kernel={k: v for k, v in k1.items()
+                                if k.startswith("fused_decode_matmul:")},
+            launches_of=f"{cfg.name} at {cfg.n_layers} blocks, generate on "
+                        f"mesh {MESH_SSM}, rank 0"))
+        whole = p["params"]["blocks"][0]["mamba"]
+        out["band_bits"] = band_bits(
+            rt, mesh, lut, [(name, whole[name], blocks[0]["mamba"][name])
+                            for name in ("in_proj", "out_proj")],
+            (BATCH, ids.numel()), gen)
+    return out
+
+
 def mesh_rank(rank: int, payload: dict) -> dict:
     """One rank of the mesh phase (``launch.mesh.spawn``: each rank a
     process on the one card, the payload's planes its parent's, shared
-    through CUDA IPC): Llama on MESH_LLAMA (ranks past it wait), then
-    DeepSeek-V2-Lite and the tiled Llama on MESH_WIDE."""
+    through CUDA IPC): Llama on MESH_LLAMA, Mamba2 on MESH_SSM (ranks
+    past them wait), then DeepSeek-V2-Lite and the tiled Llama on
+    MESH_WIDE."""
     rt = load_runtime()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4631,6 +4696,12 @@ def mesh_rank(rank: int, payload: dict) -> dict:
             timer = Timer(device) if mesh.rank == 0 else None
             out["llama"] = mesh_llama(rt, mesh, payload["llama"], rec, gen,
                                       timer)
+            del timer
+        mesh = M.make_mesh(MESH_SSM, ("data", "model"))
+        if mesh is not None:
+            timer = Timer(device) if mesh.rank == 0 else None
+            out["mamba"] = mesh_ssm(rt, mesh, payload["mamba"], rec, gen,
+                                    timer)
             del timer
         mesh = M.make_mesh(MESH_WIDE, ("data", "model"))
         timer = Timer(device) if mesh.rank == 0 else None
@@ -4664,6 +4735,17 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
       * Llama-3.2-1B tiled (tiles 2), MESH_TILED_LAYERS layers, on
         MESH_WIDE: prefill logits within MESH_LOGIT_ATOL, tokens under
         the exact-tie rule.
+      * Mamba2-2.7B at full width, MESH_SSM_LAYERS blocks, compressed for
+        2 model ranks, on MESH_SSM, each model rank on its 40 SSM heads:
+        the fixed batch, MAX_NEW tokens through ``generate``; tokens
+        against the one-process eager loop over the same planes, bitwise
+        or under the exact-tie rule with the prefill logits within
+        MESH_LOGIT_ATOL (``held`` says which); each rank's SSM state
+        (B, 40, 64, 128), its channels of the conv window and conv_w, its
+        caches half the whole's; every K1 launch at an out band's N (the
+        whole weight's plan), K5 at the head's band, no SIMT launch; a K1
+        row on the two bands and each band's launch bitwise the whole
+        weight's columns.
     Per-rank ms a step are of ranks sharing one card, not a multi-card
     speed."""
     get, replace = rt["get_config"], dataclasses.replace
@@ -4700,6 +4782,13 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         rows = slice(d * per, (d + 1) * per)
         row_refs[(rows.start, rows.stop)] = eager_loop(
             rt, rcfg, rstate, ids[rows])[0].cpu()
+    # Mamba2-2.7B cut to MESH_SSM_LAYERS blocks, packed for its model
+    # ranks; one process's eager loop (tokens, every step's logits)
+    mcfg = replace(get("mamba2-2.7b").full, n_layers=MESH_SSM_LAYERS)
+    mbatch, _ = make_prompts(mcfg.vocab_size)
+    mids = torch.from_numpy(mbatch).to(device)
+    mamba, _ = pack(rt, mcfg, device, SEED, model_shards=MESH_SSM[1])
+    m_ref = eager_logits(rt, mcfg, mamba.params, mamba.lut, mids)
     scfg = get("llama3.2-1b").smoke
     sbatch, _ = make_prompts(scfg.vocab_size)
     sids = torch.from_numpy(sbatch).to(device)
@@ -4714,6 +4803,8 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
     payload = {
         "llama": {"cfg": cfg, "params": llama.params, "lut": llama.lut,
                   "ids": ids},
+        "mamba": {"cfg": mcfg, "params": mamba.params, "lut": mamba.lut,
+                  "ids": mids},
         "rows": {"cfg": rcfg, "params": rstate.params, "lut": llama.lut,
                  "ids": ids},
         "deepseek": {"cfg": replace(dcfg, moe_local_dispatch=True),
@@ -4728,8 +4819,8 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
     spawn_s = time.perf_counter() - t
     res = {"spawn_s": spawn_s, "ranks": MESH_RANKS,
            "note": "ranks share one card: per-rank ms are not a multi-card "
-                   "speed", "llama": {}, "rows": {}, "deepseek": {},
-           "tiled": {}, "spread": {}}
+                   "speed", "llama": {}, "mamba": {}, "rows": {},
+           "deepseek": {}, "tiled": {}, "spread": {}}
 
     def caches_of(o, split):
         """A rank's cache bytes, gated to be the whole caches' 1/split."""
@@ -4783,6 +4874,88 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                           f"{o['run']['dispatch']}")
         for row in o["rows"]:
             kernels.append(dict(row, path=f"{cfg.name} mesh {MESH_LLAMA}"))
+
+    # Mamba2 on MESH_SSM: each model rank on its SSM heads
+    ms = MESH_SSM[1]
+    whole0 = mamba.params["blocks"][0]["mamba"]
+    bands = {whole0[name].shape[0] // ms for name in ("in_proj", "out_proj")}
+    head_band = mamba.params["embed"].values.shape[0] // ms
+    want_ssm = [BATCH, mcfg.ssm_heads // ms, mcfg.ssm_head_dim,
+                mcfg.ssm_state]
+    want_conv = [BATCH, mcfg.ssm_conv - 1,
+                 (mcfg.d_inner + 2 * mcfg.ssm_n_groups * mcfg.ssm_state)
+                 // ms]
+    logits0 = outs[0]["mamba"]["logits"]
+    err = float((logits0[0] - m_ref[1][0].cpu()).abs().max())
+    res["mamba"]["prefill_logit_err"] = err
+    for r, out in enumerate(outs[:math.prod(MESH_SSM)]):
+        o = out["mamba"]
+        kl = o["run"]["kernel_launches"]
+        ns = {int(key.split("N=")[1].split()[0]) for key in o["launch_shapes"]
+              if key.startswith("fused_decode_matmul ")}
+        k5n = {int(key.split("N=")[1].split()[0]) for key in o["launch_shapes"]
+               if key.startswith("dequant_matmul ")}
+        bitwise = bool(torch.equal(o["tokens"], m_ref[0].cpu()))
+        parting = tie_rule(o["tokens"], m_ref[0].cpu(), logits0,
+                           m_ref[1].cpu())
+        held = ("bitwise" if bitwise else "exact-tie rule"
+                if all(p["tied"] for p in parting) and err <= MESH_LOGIT_ATOL
+                else None)
+        mem, split_ok = caches_of(o, ms)
+        res["mamba"][f"rank{r}"] = {
+            "tokens_equal": bitwise, "held": held, "parting": parting,
+            "generate_equals_eager": bool(torch.equal(o["tokens"],
+                                                      o["eager_tokens"])),
+            "prefill_ms": o["prefill_ms"], "step_ms": o["step_ms"],
+            "generate_s": o["run"]["s"], "kernel_launches": kl,
+            "dispatch": o["run"]["dispatch"],
+            "launch_shapes": o["launch_shapes"],
+            "cache_shapes": o["cache_shapes"],
+            "conv_w_rows": o["conv_w_rows"], **mem}
+        if held is None:
+            faults.append(f"mamba mesh rank {r}: tokens part from one process "
+                          f"(prefill logits {err} vs {MESH_LOGIT_ATOL}, "
+                          f"{parting})")
+        if not torch.equal(o["tokens"], o["eager_tokens"]) or \
+                not torch.equal(o["tokens"], outs[0]["mamba"]["tokens"]):
+            faults.append(f"mamba mesh rank {r}: generate's tokens differ "
+                          "from the mesh's eager loop or from rank 0's")
+        if (o["cache_shapes"]["ssm"] != want_ssm
+                or o["cache_shapes"]["conv"] != want_conv or not split_ok
+                or o["conv_w_rows"] != want_conv[2]):
+            faults.append(f"mamba mesh rank {r}: caches {o['cache_shapes']} "
+                          f"(want ssm {want_ssm}, conv {want_conv}), {mem}, "
+                          f"conv_w rows {o['conv_w_rows']}")
+        if ns != bands or k5n != {head_band} or not (
+                kl.get("fused_decode_matmul:decode", 0)
+                + kl.get("fused_decode_matmul:mma", 0)):
+            faults.append(f"mamba mesh rank {r}: K1 N {sorted(ns)} vs bands "
+                          f"{sorted(bands)}, K5 N {sorted(k5n)}, launches "
+                          f"{kl}")
+        if kl.get("fused_decode_matmul:simt"):
+            faults.append(f"mamba mesh rank {r}: SIMT launched")
+        if not o["run"]["dispatch"].get("fused_shard_map") or \
+                o["run"]["dispatch"].get("unfused"):
+            faults.append(f"mamba mesh rank {r}: dispatch "
+                          f"{o['run']['dispatch']}")
+        if "band_bits" in o:
+            res["mamba"]["band_bits"] = o["band_bits"]
+            if not all(o["band_bits"].values()):
+                faults.append(f"mamba mesh rank {r}: a band's launch differs "
+                              f"from the whole weight's: {o['band_bits']}")
+        for row in o["rows"]:
+            kernels.append(dict(row, path=f"{mcfg.name} mesh {MESH_SSM}"))
+    log("mesh_ssm " + json.dumps({
+        "model": f"{mcfg.name} at {MESH_SSM_LAYERS} of 64 blocks (full "
+                 "width), compressed for 2 model ranks",
+        "device": nvidia_smi_line(), **{k: v for k, v in res["mamba"].items()
+                                        if not k.startswith("rank")},
+        "per_rank": {r: {f: d[f] for f in (
+            "held", "tokens_equal", "prefill_ms", "step_ms", "generate_s",
+            "cache_bytes", "whole_cache_bytes", "peak_mem_bytes",
+            "cache_shapes")}
+            for r, d in res["mamba"].items() if r.startswith("rank")}},
+        default=str))
 
     # Llama's rows over data on MESH_WIDE: each data rank's rows bitwise
     # one process serving them alone
@@ -4875,23 +5048,24 @@ def mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             for row in o["rows"]:
                 kernels.append(dict(row, path=f"{model.name} mesh "
                                     f"{MESH_WIDE}"))
-    keys = ("llama", "rows", "deepseek", "tiled", "spread")
+    keys = ("llama", "mamba", "rows", "deepseek", "tiled", "spread")
     log("mesh_detail " + json.dumps({k: v for k, v in res.items()
                                      if k in keys}, default=str))
     return {"spawn_s": spawn_s, "note": res["note"], "summary": {
         key: {r: {f: v for f, v in d.items()
                   if f in ("prefill_ms", "step_ms", "s", "tokens_equal",
-                           "rows_equal_alone", "cache_bytes",
+                           "held", "rows_equal_alone", "cache_bytes",
                            "whole_cache_bytes", "peak_mem_bytes")}
               for r, d in res[key].items() if r.startswith("rank")}
         for key in keys},
         "deepseek_logit_err": res["deepseek"]["prefill_logit_err"],
         "tiled_logit_err": res["tiled"]["prefill_logit_err"],
         "spread_logit_err": res["spread"]["prefill_logit_err"],
+        "mamba_logit_err": res["mamba"]["prefill_logit_err"],
         "parting": {k: res[k]["parting"] for k in ("deepseek", "tiled",
                                                    "spread")},
         "band_bits": {k: res[k].get("band_bits")
-                      for k in ("llama", "deepseek")}}
+                      for k in ("llama", "mamba", "deepseek")}}
 
 
 # Training on a mesh (``train_mesh_phase``): MESH_RANKS ranks sharing the
@@ -4912,13 +5086,17 @@ TRAIN_MESH_MOE = (1, 2)      # DeepSeek-V2-Lite: a step, experts on model
 # about lr; tests/test_torch_train.py holds them step by step).
 TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_CKPT = 2, 2, 1
 MESH_MOE_LAYERS = 2          # DeepSeek-V2-Lite at full width, 2 layers
+TRAIN_MESH_SSM = (1, 2)      # Mamba2-2.7B: steps, its SSM heads on model
+TRAIN_MESH_SSM_LAYERS = 2    # of its 64 blocks, full width, f32
+TRAIN_MESH_SSM_STEPS = 2     # the second step's loss reads the first's update
 #  * Each step's loss on the mesh (and after the restores) against one
 #    process's on the card: a data rank's GEMMs take 512 of the 1 024
 #    rows and the gradients add over ranks in another order (f32
 #    roundoff); AdamW at lr 5e-3 sends an element whose gradient is near
 #    eps by up to lr (tests/test_torch_mesh_train.py), which the steps
 #    carry into the loss (measured at 3 steps: 5.2e-7, `pr32_try1`).  The
-#    DeepSeek step's loss (the MoE's aux in it) is held to it too.
+#    DeepSeek step's loss (the MoE's aux in it), and Mamba2's losses and
+#    gradient norms, are held to it too.
 TRAIN_MESH_LOSS_RTOL = 1e-5
 
 
@@ -5039,6 +5217,38 @@ def train_mesh_rank(rank: int, payload: dict) -> dict:
             "shard_bytes": sum(x.numel() * x.element_size() for x in
                                rt["tree"].leaves(shards))}
         del shards
+    torch.cuda.empty_cache()
+    mesh = M.make_mesh(TRAIN_MESH_SSM, ("data", "model"))
+    if mesh is not None:
+        m = payload["mamba"]
+        state = S.init_train_state(m["params"], m["tcfg"])
+        specs = PT.make_train_state_specs(state, mesh)
+        # the leaves the gather on use would gather whole over model: none
+        # of a Mamba2 block's where its heads divide the model ranks
+        whole = [PT.clean_keystr(path) for (path, _), sp in zip(
+            rt["tree"].flatten(state["params"]),
+            PT.flat_specs(specs["params"], state["params"]))
+            if PT.model_dim(sp, mesh) is not None and not PT.tp_keeps_band(
+                PT.clean_keystr(path), sp, m["cfg"], mesh)]
+        shards = PT.shard_tree(state, specs, mesh)
+        del state
+        step = S.make_train_step(m["cfg"], m["tcfg"], mesh=mesh, specs=specs)
+        _build.KERNEL_COUNTS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        recs = []
+        for batch in m["batches"]:
+            shards, rec = _mesh_step(mesh, step, shards, batch)
+            recs.append(rec)
+        out["mamba"] = {
+            **recs[0], "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "gathered_peak_bytes": PT.GATHER_STATS["peak"],
+            "whole_over_model": whole, "coords": dict(mesh.coords),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "kernel_launches": dict(_build.KERNEL_COUNTS),
+            "shard_bytes": sum(x.numel() * x.element_size() for x in
+                               rt["tree"].leaves(shards))}
+        del shards
     return out
 
 
@@ -5069,6 +5279,17 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         expert) pairs of each data rank's rows equal, in a batch that
         drops some; the loss and the aux within TRAIN_MESH_LOSS_RTOL; K2
         f32 on each rank's heads in its forward and recompute.
+      * Mamba2-2.7B at full width, TRAIN_MESH_SSM_LAYERS blocks, f32: its
+        train state sharded on TRAIN_MESH_SSM and TRAIN_MESH_SSM_STEPS
+        steps through ``make_train_step`` (each on its batch, as the
+        Llama steps), each model rank on
+        its 40 SSM heads (its rows of in_proj and channels of the conv, B's
+        and C's rows gathered as weights, out_proj row-parallel): no leaf of its blocks gathered whole over model; each
+        step's loss and gradient norm within TRAIN_MESH_LOSS_RTOL of one
+        process's steps on the card (the norm reads the backward, the
+        second loss the first step's update); each rank's most
+        gathered-parameter bytes alive (``GATHER_STATS["peak"]``) and the
+        first step's collective bytes.
     Every rank's K2 calls see the rank's q heads (n_heads / model).
     Times are of ranks sharing one card: they prove bits and shapes, not a
     multi-card speed."""
@@ -5115,6 +5336,22 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
                    "flash_attention:tf32x3", 0)}
     del dstate, dm
     torch.cuda.empty_cache()
+    # Mamba2: one process's steps on the batches the mesh steps on
+    scfg = replace(get("mamba2-2.7b").full, n_layers=TRAIN_MESH_SSM_LAYERS)
+    sparams = LM.init_lm(scfg, seed=SEED, device=device)
+    sstate = S.init_train_state(sparams, dtcfg)
+    sstep = S.make_train_step(scfg, dtcfg)
+    sbatches = [data.batch_at(i) for i in range(TRAIN_MESH_SSM_STEPS)]
+    one_ssm = {"losses": [], "grad_norms": [], "ms": []}
+    for batch in sbatches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sstate, sm = sstep(sstate, batch)
+        one_ssm["losses"].append(float(sm["loss"]))
+        one_ssm["grad_norms"].append(float(sm["grad_norm"]))
+        one_ssm["ms"].append((time.perf_counter() - t0) * 1e3)
+    del sstate, sm
+    torch.cuda.empty_cache()
     res = {"model": f"{cfg.name} at {TRAIN_MESH_LAYERS} of 16 layers "
                     "(full width, f32)",
            "moe_model": f"{dcfg.name} at {MESH_MOE_LAYERS} of 27 layers "
@@ -5130,13 +5367,15 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
         payload = {"llama": {"cfg": cfg, "tcfg": tcfg, "data": data,
                              "params": params, "ckpt_dir": ckpt_dir},
                    "deepseek": {"cfg": dcfg, "tcfg": dtcfg,
-                                "params": dparams, "batch": dbatch}}
+                                "params": dparams, "batch": dbatch},
+                   "mamba": {"cfg": scfg, "tcfg": dtcfg, "params": sparams,
+                             "batches": sbatches}}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = rt["mesh"].spawn(train_mesh_rank, MESH_RANKS, payload,
                                 device="cuda")
         res["spawn_s"] = time.perf_counter() - t0
-        del payload, dparams
+        del payload, dparams, sparams
         t0 = time.perf_counter()
         restored, at = rt["fault"].elastic_restore(ckpt_dir, like,
                                                    device=device)
@@ -5244,6 +5483,36 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             and all(g["k2_heads"] == [dcfg.n_heads // TRAIN_MESH_MOE[1]]
                     for g in got.values())):
         faults.append(f"train_mesh deepseek: {moe}")
+    # Mamba2's steps on its SSM heads
+    sgot = {r: o["mamba"] for r, o in enumerate(outs) if "mamba" in o}
+    ssm = {"model": f"{scfg.name} at {TRAIN_MESH_SSM_LAYERS} of 64 blocks "
+                    "(full width, f32)", "mesh": TRAIN_MESH_SSM,
+           "device": nvidia_smi_line(), "one_process": one_ssm,
+           "per_rank": {f"rank{r}": {k: g[k] for k in (
+               "losses", "grad_norms", "ms", "bytes", "comm_s",
+               "gathered_peak_bytes", "peak_mem_bytes", "shard_bytes",
+               "whole_over_model")} for r, g in sgot.items()}}
+
+    def rel_err(key):
+        """The largest relative distance of a rank's step values under
+        ``key`` from one process's."""
+        return max((abs(a - b) / abs(b) for g in sgot.values()
+                    for a, b in zip(g[key], one_ssm[key])), default=None)
+
+    # the first step's gradient norm reads the backward; the second
+    # step's loss reads the first step's update
+    ssm["loss_rel_err"] = rel_err("losses")
+    ssm["grad_norm_rel_err"] = rel_err("grad_norms")
+    res["mamba"] = ssm
+    log("train_mesh_ssm " + json.dumps(ssm, default=str))
+    if not (len(sgot) == math.prod(TRAIN_MESH_SSM)
+            and all(len(g["losses"]) == TRAIN_MESH_SSM_STEPS
+                    for g in sgot.values())
+            and len({tuple(g["losses"]) for g in sgot.values()}) == 1
+            and ssm["loss_rel_err"] <= TRAIN_MESH_LOSS_RTOL
+            and ssm["grad_norm_rel_err"] <= TRAIN_MESH_LOSS_RTOL
+            and not any(g["whole_over_model"] for g in sgot.values())):
+        faults.append(f"train_mesh mamba: {ssm}")
     # K2 f32 at each mesh's rank's shape: its heads, its data rank's rows
     for mshape, run, of in (
             (TRAIN_MESH, outs[0]["llama"]["kernel_launches"],
@@ -5282,7 +5551,13 @@ def train_mesh_phase(rt, device, gen, timer, kernels, faults) -> dict:
             "restored": {r: d["restored"] for r, d in ranks.items()
                          if "restored" in d},
             "one_process_restored": res["one_process"]["restored"],
-            "deepseek": moe, "spawn_s": res["spawn_s"]}
+            "deepseek": moe, "mamba": {
+                "loss_rel_err": ssm["loss_rel_err"],
+                "gathered_peak_bytes": {r: d["gathered_peak_bytes"]
+                                        for r, d in ssm["per_rank"].items()},
+                "bytes_a_step": {r: d["bytes"]
+                                 for r, d in ssm["per_rank"].items()}},
+            "spawn_s": res["spawn_s"]}
 
 
 # The dry run (``dryrun_phase``, last): plans on fake tensors held against

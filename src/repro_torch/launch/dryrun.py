@@ -19,8 +19,9 @@ kernel wrappers plan their launches (``kernels._build.planning``) and
 A serve cell places the planned tree on its rank
 (``sharding.partition.place_params``), gives it its share of the caches
 (``partition.place_caches``: batch rows on (pod, data), K/V by heads or
-by positions on model, MLA's latents by positions; the Mamba2 state
-whole on model) and of the batch's rows (``partition.batch_rows``), and
+by positions on model, MLA's latents by positions, the Mamba2 state by
+heads and its conv window by channels where the model ranks divide its
+heads and B/C width, else whole on model) and of the batch's rows (``partition.batch_rows``), and
 runs the eager prefill, or one decode step at ``pos``, as ``generate``
 runs them on a mesh (``serve.engine.on_mesh``); each record holds the
 rank's ``cache_bytes`` beside ``reference_cache_bytes``, its share under
@@ -284,7 +285,8 @@ def cache_leaves_whole_on_model(caches, mesh) -> dict:
     """{leaf path: bytes a rank holds beyond the reference's share} of the
     cache leaves the port keeps whole on ``model`` where the reference
     splits them (``partition.serve_cache_specs``: the Mamba2 state and
-    conv window)."""
+    conv window where the model ranks do not divide its heads or B/C
+    width; empty where they do)."""
     ref = PT.make_cache_specs(caches, mesh)
     own = PT.serve_cache_specs(caches, mesh)
     out = {}

@@ -35,9 +35,10 @@ they would move (the dry run, ``launch/dryrun.py``,
 Training on a mesh (``train/steps.py``) adds the collectives of a ZeRO
 step: ``all_to_all`` (the gradients' reduce-scatter), ``psum_diff``, a sum
 whose backward sums the gradient over the same ranks (the MoE's global
-statistics), the four collectives of tensor-parallel training under
+statistics), the collectives of tensor-parallel training under
 autograd (:func:`gather_on_use` over the data axes, :func:`copy_to_model`,
-:func:`reduce_from_model`, :func:`gather_model`), ``pmin``/``pmax``
+:func:`reduce_from_model`, :func:`gather_model`,
+:func:`gather_model_summed`), ``pmin``/``pmax``
 (exact, in any order), ``agree`` (a flag OR-ed over the mesh: every
 control decision of the training loop),
 ``gather_host`` (a checkpoint's shards to its writer) and ``barrier``.
@@ -420,6 +421,16 @@ def gather_model(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     gives the rank its own slice of the gradient, which each model rank
     holds whole (a weight made whole on every rank and used whole)."""
     return _GatherOnUse.apply(t, mesh, AXIS_MODEL, dim, False)
+
+
+def gather_model_summed(t: torch.Tensor, mesh: Mesh, dim: int
+                        ) -> torch.Tensor:
+    """Every model rank's ``t`` concatenated along ``dim``, where each rank
+    then reads the whole in part (the B/C rows of Mamba2's in_proj and
+    conv, read for the rank's heads; the gated norm's piece sums): the
+    backward sums the ranks' gradients of the whole in rank order and
+    gives the rank its own slice (a reduce-scatter over ``model``)."""
+    return _GatherOnUse.apply(t, mesh, AXIS_MODEL, dim, True)
 
 
 def gather_on_use(t: torch.Tensor, mesh: Mesh, axes, dim: Optional[int],

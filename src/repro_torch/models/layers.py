@@ -329,6 +329,21 @@ def _mean_square(xf: torch.Tensor) -> torch.Tensor:
     return part.sum(dim=-1, keepdim=True) * (1.0 / d)
 
 
+def square_pieces(xf: torch.Tensor, pieces: int) -> torch.Tensor:
+    """The sums of squares of ``pieces`` equal pieces of ``xf``'s last dim,
+    (..., pieces): a model rank's share of :func:`_mean_square`'s 16
+    pieces of a row it holds 16/ms of (``ssm.apply_mamba2``'s gated norm).
+    Rows are padded with zero rows to 16 outputs or more, the layout
+    ``_mean_square``'s 16 pieces a row have at any number of rows."""
+    lead, d = xf.shape[:-1], xf.shape[-1]
+    sq = (xf * xf).reshape(-1, pieces, d // pieces)
+    rows = sq.shape[0]
+    need = -(-16 // pieces)
+    if rows < need:
+        sq = torch.nn.functional.pad(sq, (0, 0, 0, 0, 0, need - rows))
+    return sq.sum(dim=-1)[:rows].reshape(*lead, pieces)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     xf = x.to(torch.float32)
     var = _mean_square(xf)

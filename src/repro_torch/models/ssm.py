@@ -20,6 +20,32 @@ Differences from the reference, each for the card:
     product summed over the state dim by one reduction of ≥ 16 outputs a
     call, so a row's bits do not depend on the batch (as ``layers.
     _mean_square``).
+
+On a mesh whose model ranks divide the SSM heads and the B/C width
+(``partition.ssm_split``), a model rank computes the block on its own
+heads, as the reference's shardings place it (``in_proj`` and the conv on
+``M``, the state by heads, the window by channels):
+  * serving: ``in_proj`` is K1 on the rank's stored out-tile band, its
+    product gathered whole (as for any weight); the rank takes its heads'
+    z, x and dt and its 1/ms of B and C, convolves those channels over
+    its window (``partition.serve_cache_specs``), gathers the convolved B
+    and C over model, scans its heads from its state (B, H/ms, P, N), and
+    gathers ``y`` over model before ``out_proj``;
+  * training: the rank's rows of ``in_proj`` and channels of the conv are
+    its bands already (``partition.tp_keeps_band``: z, x, B, C and dt of
+    its heads, ``partition.ssm_rows``); the B and C rows of both are
+    gathered over model as weights (2·g·n rows, never the B and C
+    activations), the rest read as they are, and ``out_proj`` is
+    row-parallel, summed over model;
+  * the gated norm's mean of squares over d_inner is the ranks' pieces
+    gathered over model and added in one process's order
+    (``layers.square_pieces``: on the card bitwise ``layers.
+    _mean_square`` where ms divides 16); a training rank's gather sums
+    the pieces' gradients over model in the backward;
+  * ``a_log``, ``dt_bias``, ``d_skip`` and ``gate_norm`` stay whole, read
+    on the rank's heads (a training rank's through ``copy_to_model``).
+Where the model ranks do not divide them, every rank computes the whole
+block, as on one device.
 """
 from __future__ import annotations
 
@@ -28,7 +54,10 @@ from typing import Optional
 
 import torch
 
-from .layers import _normal, _silu, linear, rms_norm
+from ..launch.mesh import gather_model_summed
+from ..sharding import partition as PT
+from .layers import (_copier, _heads_axis, _mean_square, _normal,
+                     _row_parallel, _silu, linear, square_pieces)
 
 
 def init_mamba2(cfg, gen: torch.Generator, device,
@@ -188,6 +217,44 @@ def ssd_decode_step(x, dt, a, b_in, c_in, state):
     return y[:, None], s_new
 
 
+def _rank_groups(z: torch.Tensor, h: int, hl: int, m: int) -> torch.Tensor:
+    """B or C (B, T, G, N) → the groups that heads m·hl … (m+1)·hl − 1
+    read (head i reads group i // (h/G), as ``jnp.repeat``), as (B, T,
+    G', N) whose repeat over hl/G' heads each (:func:`_repeat_groups`)
+    gives those heads theirs."""
+    rep = h // z.shape[2]
+    first = m * hl // rep
+    if hl % rep == 0:
+        return z[:, :, first:first + hl // rep]
+    if rep % hl == 0:
+        return z[:, :, first:first + 1]
+    idx = torch.div(m * hl + torch.arange(hl, device=z.device), rep,
+                    rounding_mode="floor")
+    return z.index_select(2, idx)
+
+
+def gated_mean_square(prod: torch.Tensor, mesh, ms: int, d: int,
+                      train: bool) -> torch.Tensor:
+    """The mean of squares over the whole row of ``d`` channels from this
+    rank's ``d``/ms of them, (..., 1): ``layers._mean_square``'s 16 pieces
+    (the rank's 16/ms from ``layers.square_pieces``) gathered over model
+    and added in one process's order where ms divides 16, else the
+    ranks' sums added in rank order; ``layers._mean_square`` itself with
+    no mesh.  ``train``: under autograd, the backward sums the gradient
+    over model (each rank's share of it)."""
+    if mesh is None:
+        return _mean_square(prod)
+    if d % 16 == 0 and 16 % ms == 0:
+        part = square_pieces(prod, 16 // ms)
+        parts = (gather_model_summed(part, mesh, -1) if train
+                 else mesh.all_gather(part, "model", dim=-1))
+        return parts.sum(dim=-1, keepdim=True) * (1.0 / d)
+    total = (prod * prod).sum(dim=-1, keepdim=True)
+    total = (mesh.psum_diff(total, "model") if train
+             else mesh.psum(total, "model"))
+    return total * (1.0 / d)
+
+
 def apply_mamba2(p, x: torch.Tensor, cfg, *, lut=None, cache=None):
     """The Mamba2 block: in_proj → softplus(dt + dt_bias) → conv → SSD →
     the D skip → the gated norm rms_norm(y·silu(z)) → out_proj.
@@ -195,27 +262,66 @@ def apply_mamba2(p, x: torch.Tensor, cfg, *, lut=None, cache=None):
     ``cache=None``: from scratch (prefill or training, no state kept).
     With a cache ({"conv", "ssm"}, :func:`init_ssm_cache`): T == 1 runs
     the recurrent step, T > 1 the chunked scan from the cached state; the
-    new conv ring and state are copied into the cache tensors.  → (y,
-    cache)."""
+    new conv ring and state are copied into the cache tensors.  On a mesh
+    whose model ranks divide the heads, the rank's heads alone (see the
+    module's note; ``cache`` the rank's share); elsewhere model rank 0 of
+    one, the whole block.  → (y, cache)."""
+    train, mesh, ms, m = _heads_axis(cache)
+    if mesh is None or not PT.ssm_split(cfg, ms) or (
+            train and not PT.kept_band(p, "in_proj")):
+        train, mesh, ms, m = False, None, 1, 0
     bsz, t, _ = x.shape
-    di = cfg.d_inner
+    di, hp = cfg.d_inner, cfg.ssm_head_dim
     g, n, h = cfg.ssm_n_groups, cfg.ssm_state, cfg.ssm_heads
-    hp = cfg.ssm_head_dim
+    gn = g * n
+    hl, dl, gl = h // ms, di // ms, gn // ms
     f32 = torch.float32
-
-    zxbcdt = linear(x, p["in_proj"], lut)
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * g * n]
-    dt = zxbcdt[..., -h:].to(f32) + p["dt_bias"].to(f32)
+    bc_axis = PT.SegmentedAxis("model", (gn, gn))   # B_m, C_m → B, C
+    cm = _copier(train, mesh)
+    heads = slice(m * hl, (m + 1) * hl)
+    if train:
+        # the rank's rows (z, x, B, C, dt of its heads) and conv channels
+        # (x, B, C): B's and C's rows gathered whole, as weights
+        wz, wx, wbc, wdt = p["in_proj"].split([dl, dl, 2 * gl, hl])
+        wbc = PT.unband(gather_model_summed(wbc, mesh, 0), 0, bc_axis, ms)
+        proj = linear(cm(x), torch.cat([wz, wx, wbc, wdt]))
+        z, xbc, dt = proj.split([dl, dl + 2 * gn, hl], dim=-1)
+        conv = []
+        for w in (p["conv_w"], p["conv_b"]):
+            w_x, w_bc = w.split([dl, 2 * gl])
+            conv.append(torch.cat([w_x, PT.unband(
+                gather_model_summed(w_bc, mesh, 0), 0, bc_axis, ms)]))
+        xbc_c, _ = _causal_conv(xbc, *conv)
+        xs, bc = xbc_c.split([dl, 2 * gn], dim=-1)
+    else:
+        if cache is not None and cache["ssm"].shape[1] != hl:
+            raise ValueError(
+                f"an SSM state of {cache['ssm'].shape[1]} heads on a rank "
+                f"that computes {hl}: on a mesh the cache is the rank's share "
+                "(lm.init_caches(..., mesh=), partition.place_caches)")
+        # K1 on the (rank's out band of the) whole in_proj; the rank's
+        # heads' z, x and dt and its 1/ms of B and C
+        zxbcdt = linear(x, p["in_proj"], lut)
+        ax = PT.SegmentedAxis("model", (di, gn, gn))
+        z = zxbcdt[..., m * dl:(m + 1) * dl]
+        xbc = PT.cut_band(zxbcdt[..., di:2 * di + 2 * gn], -1, ax, ms, m)
+        dt = zxbcdt[..., 2 * di + 2 * gn:][..., heads]
+        conv_w, conv_b = (
+            w if w.shape[0] == dl + 2 * gl else PT.cut_band(w, 0, ax, ms, m)
+            for w in (p["conv_w"], p["conv_b"]))
+        xbc_c, new_conv = _causal_conv(
+            xbc, conv_w, conv_b, cache["conv"] if cache is not None else None)
+        xs, bc = xbc_c.split([dl, 2 * gl], dim=-1)
+        if mesh is not None:    # the convolved B and C, gathered whole
+            bc = PT.unband(mesh.all_gather(bc, "model", dim=-1), -1,
+                           bc_axis, ms)
+    dt = dt.to(f32) + cm(p["dt_bias"])[heads].to(f32)
     dt = torch.logaddexp(dt, torch.zeros_like(dt))        # softplus, as jax's
+    xs = xs.reshape(bsz, t, hl, hp)
+    b_in = _rank_groups(bc[..., :gn].reshape(bsz, t, g, n), h, hl, m)
+    c_in = _rank_groups(bc[..., gn:].reshape(bsz, t, g, n), h, hl, m)
 
-    conv_state = cache["conv"] if cache is not None else None
-    xbc_c, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state)
-    xs = xbc_c[..., :di].reshape(bsz, t, h, hp)
-    b_in = xbc_c[..., di:di + g * n].reshape(bsz, t, g, n)
-    c_in = xbc_c[..., di + g * n:].reshape(bsz, t, g, n)
-
-    a = -torch.exp(p["a_log"].to(f32))
+    a = -torch.exp(cm(p["a_log"])[heads].to(f32))
     if cache is not None and t == 1:
         y, new_state = ssd_decode_step(xs, dt, a, b_in, c_in, cache["ssm"])
     else:
@@ -223,13 +329,16 @@ def apply_mamba2(p, x: torch.Tensor, cfg, *, lut=None, cache=None):
             xs, dt, a, b_in, c_in, cfg.ssm_chunk,
             cache["ssm"] if cache is not None else None)
 
-    y = y + xs.to(f32) * p["d_skip"].to(f32)[:, None]
-    y = y.reshape(bsz, t, di).to(x.dtype)
+    y = y + xs.to(f32) * cm(p["d_skip"])[heads].to(f32)[:, None]
+    y = y.reshape(bsz, t, dl).to(x.dtype)
     # the gated norm: the reference's XLA program normalizes the product
-    # y·silu(z) in f32, unrounded (silu itself rounded op by op)
-    y = rms_norm(y.to(f32) * _silu(z).to(f32), p["gate_norm"],
-                 cfg.norm_eps).to(x.dtype)
-    out = linear(y, p["out_proj"], lut)
+    # y·silu(z) in f32, unrounded (silu itself rounded op by op); rms_norm's
+    # ops, its mean of squares over the model ranks
+    prod = y.to(f32) * _silu(z).to(f32)
+    var = gated_mean_square(prod, mesh, ms, di, train)
+    y = (prod * torch.rsqrt(var + cfg.norm_eps)
+         * cm(p["gate_norm"])[m * dl:(m + 1) * dl].to(f32)).to(x.dtype)
+    out = _row_parallel(y, p["out_proj"], lut, train, mesh is not None, mesh)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(new_state)

@@ -28,7 +28,9 @@ replicated.  A rank's caches are its share under
 it): batch rows on (pod, data), K/V (and their int8 scales) by heads on
 ``model`` where the kv heads divide it, else by a contiguous block of
 positions, MLA's latents by positions, an encoder–decoder's cross K/V by
-heads; the Mamba2 state and conv window split over the batch axes only.
+heads, the Mamba2 state by heads and its conv window by the rank's
+channels where the model ranks divide its heads and its B/C width (else
+split over the batch axes only).
 A served batch's rows are split over (pod, data) where they divide it
 (:func:`batch_rows`, under :func:`rows_split`), else every rank serves
 all of them, as the reference's ``drow`` guard does.  Column-parallel
@@ -46,9 +48,21 @@ of its data rank (:func:`rows_split` marks them split for the MoE's global
 statistics).  A step gathers each block's leaves where the block uses
 them (:func:`gathering`, :func:`use`), over the data axes alone, and
 computes tensor-parallel on the rank's ``model`` band (:func:`tp_mesh`,
-:func:`tp_keeps_band`: heads, FFN columns, experts, vocab rows); a leaf
-whose band is not a head (Mamba2's, kv heads that do not divide the
-model ranks) is gathered over ``model`` too.
+:func:`tp_keeps_band`: heads, FFN columns, experts, vocab rows, Mamba2's
+SSM heads); a leaf whose band is not a head (kv heads, or Mamba2 heads
+and B/C width, that do not divide the model ranks) is gathered over
+``model`` too.
+
+Mamba2's ``in_proj`` rows are five segments (z, x, B, C, dt) and its conv
+channels three (x, B, C): a contiguous band of them is not a set of
+heads.  Where the model ranks divide the heads and the B/C width
+(:func:`ssm_split`), the spec of those dims is a :class:`SegmentedAxis`,
+equal to the bare ``"model"`` of the reference's spec, under which a rank
+holds the m-th 1/ms of every segment (:func:`ssm_rows`): as many rows as
+the reference's contiguous band, its own heads' (out_proj's columns,
+its heads' channels, carry the same mark in one segment).  :func:`shard_leaf`,
+:func:`assemble` and :func:`gather_leaf` follow it, so checkpoints,
+moments and restores keep the reference's row order.
 """
 from __future__ import annotations
 
@@ -264,7 +278,9 @@ def make_param_specs(params: Any, mesh, scfg: ShardingConfig | None = None
     """Spec tree matching ``params``: a container's planes by the plane
     rules, a dense leaf by the rule its path matches (leading dims beyond
     the rule's rank are stacked and replicate), anything else
-    replicated."""
+    replicated; Mamba2's in_proj rows, conv channels and out_proj
+    columns under a :class:`SegmentedAxis` where the model ranks divide
+    its heads and B/C width."""
     scfg = scfg or ShardingConfig()
 
     def one(path_str, leaf):
@@ -278,7 +294,7 @@ def make_param_specs(params: Any, mesh, scfg: ShardingConfig | None = None
                 return _spec_for_dense(path_str, shape, scfg, mesh, stacked)
         return _guarded_spec((), shape, mesh)
 
-    return _map_tree(params, one)
+    return _segment_ssm(params, _map_tree(params, one), mesh)
 
 
 def _stacked_cache(path_str: str) -> int:
@@ -396,6 +412,140 @@ def make_train_state_specs(state: Any, mesh,
 
 
 # ---------------------------------------------------------------------------
+# Mamba2's head-aligned bands.
+# ---------------------------------------------------------------------------
+
+class SegmentedAxis(str):
+    """A spec entry: the mesh axis ``axis`` over a dim made of ``sizes``'
+    segments laid end to end; the rank of index i of n along the axis holds
+    the i-th of n equal pieces of every segment, in segment order (as many
+    rows as a contiguous band; one segment is a contiguous band).  Equal
+    to the bare axis name, as the reference's spec holds it."""
+
+    def __new__(cls, axis: str, sizes):
+        self = super().__new__(cls, axis)
+        self.sizes = tuple(int(s) for s in sizes)
+        return self
+
+    def __reduce__(self):
+        return (SegmentedAxis, (str(self), self.sizes))
+
+    def __repr__(self) -> str:
+        return f"SegmentedAxis({str(self)!r}, {self.sizes})"
+
+
+def _ssm_dims(di: int, bc: int, h: int, ms: int):
+    """(d_inner, B/C width, heads) of a Mamba2 block whose B and C together
+    are ``bc`` wide, where ``ms`` model ranks (more than one) each take
+    whole heads and an equal share of the B/C width; else None.  The one
+    test of the split: :func:`ssm_split` asks it of a config, the specs,
+    placements and caches of the leaves' shapes."""
+    if ms <= 1 or bc <= 0 or bc % 2 or h % ms or (bc // 2) % ms:
+        return None
+    return di, bc // 2, h
+
+
+def ssm_split(cfg, ms: int) -> bool:
+    """Whether ``ms`` model ranks (more than one) each take whole SSM heads
+    and an equal share of the B/C width of ``cfg``'s Mamba2 blocks."""
+    return _ssm_dims(cfg.d_inner, 2 * cfg.ssm_n_groups * cfg.ssm_state,
+                     cfg.ssm_heads, ms) is not None
+
+
+def _ssm_sizes(di: int, gn: int, h: int, conv: bool) -> tuple:
+    return (di, gn, gn) if conv else (di, di, gn, gn, h)
+
+
+def ssm_rows(cfg, ms: int, m: int, *, conv: bool = False) -> list:
+    """The rows of ``in_proj`` (``conv``: the channels of ``conv_w`` /
+    ``conv_b`` and of the conv window) that model rank ``m`` of ``ms``
+    holds: the m-th 1/ms of each of z, x, B, C and dt (x, B, C)."""
+    sizes = _ssm_sizes(cfg.d_inner, cfg.ssm_n_groups * cfg.ssm_state,
+                       cfg.ssm_heads, conv)
+    out, start = [], 0
+    for s in sizes:
+        per = s // ms
+        out.extend(range(start + m * per, start + (m + 1) * per))
+        start += s
+    return out
+
+
+def cut_band(t, dim: int, ax, n: int, i: int):
+    """The band of index ``i`` of ``n`` along ``dim`` under the spec entry
+    ``ax`` (a view for a bare axis; a :class:`SegmentedAxis` a copy)."""
+    sizes = getattr(ax, "sizes", None)
+    if not sizes or len(sizes) == 1 or n <= 1:
+        per = t.shape[dim] // n
+        return t.narrow(dim, i * per, per)
+    parts, start = [], 0
+    for s in sizes:
+        parts.append(t.narrow(dim, start + i * (s // n), s // n))
+        start += s
+    return torch.cat(parts, dim)
+
+
+def unband(t, dim: int, ax, n: int):
+    """``t``, whose dim ``dim`` holds the n ranks' bands under ``ax`` end
+    to end (an all-gather's order), in the whole leaf's row order."""
+    sizes = getattr(ax, "sizes", None)
+    if not sizes or len(sizes) == 1 or n <= 1:
+        return t
+    per = [s // n for s in sizes]
+    bands = [b.split(per, dim) for b in t.split(sum(per), dim)]
+    return torch.cat([bands[i][k] for k in range(len(sizes))
+                      for i in range(n)], dim)
+
+
+def _ssm_block(node, ms: int):
+    """(d_inner, B/C width, heads) of a Mamba2 block's dict of leaves (read
+    off their shapes: ``a_log`` is (h,), ``gate_norm`` (d_inner,),
+    ``in_proj`` (2·d_inner + 2·gn + h, d)) where ``ms`` model ranks divide
+    its heads and B/C width (:func:`_ssm_dims`); else None."""
+    need = ("in_proj", "conv_w", "conv_b", "a_log", "gate_norm", "out_proj")
+    if not isinstance(node, dict) or not all(k in node for k in need):
+        return None
+
+    def shape(w):
+        return tuple(w.shape if hasattr(w, "shape") else w.values.shape)
+
+    h, di = shape(node["a_log"])[-1], shape(node["gate_norm"])[-1]
+    return _ssm_dims(di, shape(node["in_proj"])[-2] - 2 * di - h, h, ms)
+
+
+# the Mamba2 leaves a model rank holds by its heads, and the dim of each
+# that model splits: in_proj's rows and the conv's channels in segments,
+# out_proj's columns (d_inner, head-major) in one
+_SSM_SPLIT_LEAVES = (("in_proj", -2, False), ("conv_w", -2, True),
+                     ("conv_b", -1, True), ("out_proj", -1, None))
+
+
+def _segment_ssm(params, specs, mesh):
+    """``specs`` with a :class:`SegmentedAxis` on the ``model`` dim of each
+    Mamba2 block's ``in_proj`` rows, ``conv_w``/``conv_b`` channels and
+    ``out_proj`` columns (one segment), where the model ranks divide its
+    heads and B/C width and each of those specs has the bare ``model``
+    there: the one mark of the block on its heads (:func:`tp_keeps_band`),
+    on all four leaves or on none."""
+    if isinstance(params, (list, tuple)):
+        return [_segment_ssm(p, s, mesh) for p, s in zip(params, specs)]
+    if not isinstance(params, dict):
+        return specs
+    specs = {k: _segment_ssm(v, specs[k], mesh) for k, v in params.items()}
+    sizes = _ssm_block(params, mesh.shape.get(AXIS_MODEL, 1))
+    if sizes is None or not all(
+            isinstance(specs[k], tuple) and len(specs[k]) >= -dim
+            and specs[k][dim] == AXIS_MODEL
+            for k, dim, _ in _SSM_SPLIT_LEAVES):
+        return specs
+    for name, dim, conv in _SSM_SPLIT_LEAVES:
+        spec = list(specs[name])
+        spec[dim] = SegmentedAxis(AXIS_MODEL, (sizes[0],) if conv is None
+                                  else _ssm_sizes(*sizes, conv))
+        specs[name] = tuple(spec)
+    return specs
+
+
+# ---------------------------------------------------------------------------
 # What a training rank holds: its shard of every leaf under its spec.
 # ---------------------------------------------------------------------------
 
@@ -419,13 +569,14 @@ def shard_shape(shape, spec, mesh) -> tuple:
 def shard_leaf(t, spec, mesh, coords: dict | None = None):
     """The shard of the whole leaf ``t`` under ``spec`` of this rank (or
     of the rank at ``coords``): each split dim cut into the band of the
-    rank's index along its axes (a copy, so the whole can be freed);
-    ``t`` itself where nothing is split."""
+    rank's index along its axes (a :class:`SegmentedAxis` dim into its
+    piece of every segment; a copy, so the whole can be freed); ``t``
+    itself where nothing is split."""
     cut = t
     for dim, ax in enumerate(spec):
         if ax is not None and _axis_total(mesh, ax) > 1:
-            per = cut.shape[dim] // _axis_total(mesh, ax)
-            cut = cut.narrow(dim, mesh.axis_index(ax, coords) * per, per)
+            cut = cut_band(cut, dim, ax, _axis_total(mesh, ax),
+                            mesh.axis_index(ax, coords))
     return t if cut is t else cut.clone(memory_format=torch.contiguous_format)
 
 
@@ -442,6 +593,8 @@ def assemble(parts: list, spec, mesh):
                 view = view.narrow(dim, mesh.axis_index(ax, coords)
                                    * part.shape[dim], part.shape[dim])
         view.copy_(part)
+    for dim, ax in enumerate(spec):     # bands end to end → the row order
+        whole = unband(whole, dim, ax, _axis_total(mesh, ax))
     return whole
 
 
@@ -450,7 +603,8 @@ def gather_leaf(t, spec, mesh):
     the axes its spec names, dim by dim."""
     for dim, ax in enumerate(spec):
         if ax is not None:
-            t = mesh.all_gather(t, ax, dim=dim)
+            t = unband(mesh.all_gather(t, ax, dim=dim), dim, ax,
+                        _axis_total(mesh, ax))
     return t
 
 
@@ -494,6 +648,7 @@ _TP_KV_HEADS = re.compile(r"(^|/)(attn|cross)/(wk|wv|bk|bv)$")
 _TP_BAND = re.compile(r"(^|/)((mlp|shared)/(w_gate|w_up|w_down)"
                       r"|experts/(w_gate|w_up|w_down)"
                       r"|embed|dec_embed|lm_head)$")
+_TP_SSM = re.compile(r"(^|/)mamba/(in_proj|conv_w|conv_b|out_proj)$")
 
 
 def tp_keeps_band(path: str, spec, cfg, mesh) -> bool:
@@ -502,15 +657,20 @@ def tp_keeps_band(path: str, spec, cfg, mesh) -> bool:
     the leaf gathered whole over ``model`` too: heads where the model
     ranks divide them (wq/bq/wo and MLA's wq_b/wkv_b by q heads, wk/wv/bk/
     bv by kv heads), the FFN's columns, experts and vocab rows wherever
-    the spec splits them.  Mamba2's in_proj/out_proj/conv are not: their
-    output concatenates z, x, B, C and dt, so a band is not a head."""
-    if model_dim(spec, mesh) is None:
+    the spec splits them, and Mamba2's SSM heads where its spec marks them
+    (the :class:`SegmentedAxis` that :func:`make_param_specs` puts on
+    in_proj's rows, the conv's channels and out_proj's columns together:
+    the rank's z, x, B, C and dt, and its heads' channels of d_inner)."""
+    dim = model_dim(spec, mesh)
+    if dim is None:
         return False
     ms = mesh.shape[AXIS_MODEL]
     if _TP_Q_HEADS.search(path):
         return cfg.n_heads % ms == 0
     if _TP_KV_HEADS.search(path):
         return cfg.n_kv_heads % ms == 0
+    if _TP_SSM.search(path):
+        return isinstance(spec[dim], SegmentedAxis)
     return bool(_TP_BAND.search(path))
 
 
@@ -861,13 +1021,26 @@ def cache_len(cfg, max_len: int, mesh) -> int:
 _SSM_LEAF = re.compile(r"(^|/)(ssm|conv)$")
 
 
+def _ssm_cache_axis(node, ms: int):
+    """The :class:`SegmentedAxis` of a Mamba2 cache's conv channels (x, B,
+    C) where ``ms`` model ranks divide its heads and its B/C width
+    (:func:`_ssm_dims`), read off the shapes of ``node`` ({"conv": (B,
+    K−1, C), "ssm": (B, H, P, N)}); else None."""
+    h, hp = node["ssm"].shape[1], node["ssm"].shape[2]
+    dims = _ssm_dims(h * hp, node["conv"].shape[-1] - h * hp, h, ms)
+    return None if dims is None else SegmentedAxis(
+        AXIS_MODEL, _ssm_sizes(*dims, True))
+
+
 def serve_cache_specs(caches: Any, mesh, *, rows: bool = True,
                       positions: bool = True) -> Any:
     """The share of each cache leaf a serving rank holds: the reference's
     :func:`make_cache_specs`, less what the port does not cut — the
-    Mamba2 state and conv window stay whole on ``model`` (split over the
-    batch axes only: their heads and channels are not a column band of
-    ``in_proj``), an encoder–decoder's cross K/V split by heads or not at
+    Mamba2 state and conv window whole on ``model`` where the model ranks
+    do not divide its heads or its B/C width (elsewhere the state by
+    heads and the window by the rank's channels of x, B and C, a
+    :class:`SegmentedAxis`: the channels ``ssm.apply_mamba2`` convolves on
+    the rank), an encoder–decoder's cross K/V split by heads or not at
     all, K/V (and their scales) by heads or positions and MLA's latents
     by positions, never by ``head_dim`` or latent width (kept whole where
     those alone divide).  ``rows=False`` keeps the batch axis whole (the
@@ -875,14 +1048,21 @@ def serve_cache_specs(caches: Any, mesh, *, rows: bool = True,
     ``positions=False`` keeps the positions axis whole (the engine's
     pages, each already a rank's positions: ``serve/kv_cache.py``)."""
     specs = make_cache_specs(caches, mesh)
+    ms = _model_size(mesh)
 
-    def fix(path, spec):
+    def fix(path, spec, ssm_axis=None):
         spec = list(spec)
         if not rows and spec:
             spec[0] = None
         if _SSM_LEAF.search(path):
-            keep = ()
-        elif re.search(r"(^|/)(enc_k|enc_v)(/\d+)?$", path):
+            if ssm_axis is not None and path.endswith("conv"):
+                spec[2] = ssm_axis      # the rank's channels of x, B, C
+            # the state by heads (dim 1), the window by channels (dim 2)
+            keep = (() if ssm_axis is None
+                    else (2,) if path.endswith("conv") else (1,))
+            return tuple(None if (ax == AXIS_MODEL and i not in keep)
+                         else ax for i, ax in enumerate(spec))
+        if re.search(r"(^|/)(enc_k|enc_v)(/\d+)?$", path):
             keep = (2,)
         elif re.search(r"(^|/)(k|v|k_scale|v_scale)$", path):
             keep = (1, 2)
@@ -895,14 +1075,16 @@ def serve_cache_specs(caches: Any, mesh, *, rows: bool = True,
         return tuple(None if (ax == AXIS_MODEL and i not in keep) else ax
                      for i, ax in enumerate(spec))
 
-    def walk(node, sp, path=""):
+    def walk(node, sp, path="", ssm_axis=None):
         if isinstance(node, dict):
-            return {k: walk(node[k], sp[k], f"{path}/{k}" if path else k)
-                    for k in node}
+            if "ssm" in node and "conv" in node:
+                ssm_axis = _ssm_cache_axis(node, ms)
+            return {k: walk(node[k], sp[k], f"{path}/{k}" if path else k,
+                            ssm_axis) for k in node}
         if isinstance(node, list):
             return [walk(v, s, f"{path}/{i}" if path else str(i))
                     for i, (v, s) in enumerate(zip(node, sp))]
-        return fix(path, sp)
+        return fix(path, sp, ssm_axis)
 
     return walk(caches, specs)
 
@@ -1003,6 +1185,21 @@ def place_container(w, mesh):
         shape=(n // wsize, k), mesh_axes=waxes)
 
 
+def _place_ssm_conv(node: dict, mesh) -> dict:
+    """A Mamba2 block's dict with dense ``conv_w``/``conv_b`` cut to the
+    rank's channels of x, B and C (copies) where the model ranks divide
+    its heads and B/C width; ``node`` itself elsewhere."""
+    ms = mesh.shape.get(AXIS_MODEL, 1)
+    sizes = _ssm_block(node, ms)
+    if sizes is None or any(_planes(node[k]) is not None
+                            for k in ("conv_w", "conv_b")):
+        return node
+    ax = SegmentedAxis(AXIS_MODEL, _ssm_sizes(*sizes, True))
+    return {**node, **{k: cut_band(node[k], 0, ax, ms,
+                                    mesh.coords[AXIS_MODEL])
+                       for k in ("conv_w", "conv_b")}}
+
+
 def place_params(params: Any, mesh) -> Any:
     """Each rank's share of a served tree on ``mesh``: the planes the
     sharded kernels read, as the reference's ``shard_map`` in-specs give
@@ -1012,16 +1209,20 @@ def place_params(params: Any, mesh) -> Any:
     bands over model, an expert stack's experts over model — and the
     int8 ``embed``, ``lm_head`` and ``dec_embed`` as their vocab-row band
     on model (:func:`place_vocab`, the serve specs' rows; K5 reads the
-    stored band).  A placed container records the axes in ``mesh_axes``
-    and holds the rank's ``shape``; the planes are copies, so the whole
-    ones can be freed.  Every other leaf (dense weights, norms, the other
-    int8 weights, whose K5 bands are views taken at each call, and the
-    LUT) stays replicated."""
+    stored band), and a Mamba2 block's ``conv_w``/``conv_b`` as the rank's
+    channels of x, B and C where the model ranks divide its heads and B/C
+    width (:func:`ssm_rows`, the serve spec's ``M`` on them).  A placed
+    container records the axes in ``mesh_axes`` and holds the rank's
+    ``shape``; the planes are copies, so the whole ones can be freed.
+    Every other leaf (dense weights, norms, the other int8 weights, whose
+    K5 bands are views taken at each call, and the LUT) stays
+    replicated."""
     if mesh is None or mesh.size <= 1:
         return params
 
     def walk(node, top=False):
         if isinstance(node, dict):
+            node = _place_ssm_conv(node, mesh)
             return {k: (place_vocab(v, mesh) if top and k in _VOCAB_LEAVES
                         else walk(v)) for k, v in node.items()}
         if isinstance(node, list):

@@ -1880,6 +1880,68 @@ def test_decode_attention_rank_heads_bitwise_on_card(card, shards, b):
         assert torch.equal(part, whole[:, :, i * qh:(i + 1) * qh]), i
 
 
+class _PiecesMesh:
+    """A stand-in for the model axis of ``ms`` ranks, as rank ``rank``
+    sees it: its all-gather puts the other ranks' piece sums of their
+    bands of the row (``layers.square_pieces``) beside the rank's own."""
+
+    def __init__(self, bands, rank):
+        self.bands, self.rank = bands, rank
+
+    def all_gather(self, t, axes, dim):
+        k = 16 // len(self.bands)
+        return torch.cat([t if i == self.rank else L.square_pieces(b, k)
+                          for i, b in enumerate(self.bands)], dim)
+
+
+@pytest.mark.parametrize("ms", [2, 4])
+@pytest.mark.parametrize("shape", [(1, 1, 5120), (4, 1, 5120), (2, 7, 128),
+                                   (3, 300, 4096)])
+def test_ssm_gated_norm_pieces_are_mean_square_on_card(card, ms, shape):
+    """A model rank's gated-norm mean of squares (``ssm.gated_mean_square``:
+    its 16/ms pieces of d/16, the other ranks' gathered beside them, the
+    16 added in one process's order) is bitwise ``layers._mean_square``
+    of the whole row, at one row and at many (Mamba2-2.7B's d_inner
+    5 120, Zamba2-1.2B's 4 096, the smoke models' 128)."""
+    g = _gen(card, 11)
+    xf = torch.randn(shape, generator=g, device=card)
+    whole = L._mean_square(xf)
+    bands = list(xf.split(shape[-1] // ms, dim=-1))
+    for r in range(ms):
+        got = SSM.gated_mean_square(bands[r], _PiecesMesh(bands, r), ms,
+                                    shape[-1], False)
+        assert torch.equal(got, whole), r
+
+
+@pytest.mark.parametrize("ms", [2, 4, 16])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_ssm_decode_step_rank_heads_bitwise_on_card(card, ms, b):
+    """A model rank's heads through ``ssm.ssd_decode_step`` (its x, dt,
+    decay and state of its heads, B and C of its heads' group) are
+    bitwise the whole call's heads, at Mamba2-2.7B's 80 heads of 64 × 128
+    state, one group."""
+    g = _gen(card, 12)
+    h, p, n = 80, 64, 128
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    x, dt = rand(b, 1, h, p).to(torch.bfloat16), rand(b, 1, h).abs()
+    a = -rand(h).abs()
+    bi, ci = rand(b, 1, 1, n).to(torch.bfloat16), rand(b, 1, 1, n).to(
+        torch.bfloat16)
+    state = rand(b, h, p, n)
+    y, s = SSM.ssd_decode_step(x, dt, a, bi, ci, state)
+    hl = h // ms
+    for m in range(ms):
+        sl = slice(m * hl, (m + 1) * hl)
+        ym, sm = SSM.ssd_decode_step(
+            x[:, :, sl], dt[:, :, sl], a[sl], SSM._rank_groups(bi, h, hl, m),
+            SSM._rank_groups(ci, h, hl, m), state[:, sl].contiguous())
+        assert torch.equal(ym, y[:, :, sl]), m
+        assert torch.equal(sm, s[:, sl]), m
+
+
 def test_train_mesh_step_on_card_matches_one_process(card):
     """Four ranks on the one card (gloo), the Llama smoke train state
     sharded on (2, 2) (ZeRO-3): 3 steps, each from the state the mesh

@@ -6,7 +6,8 @@ process by ``run_cell``), and the CLI on one cell.
     and the kernels' launches; its memory adds up as the reference's
     ``total_hbm_bytes`` does; the rank's caches are its share under the
     reference's ``make_cache_specs`` (the Mamba2 state and conv window
-    excepted, and named) and it serves its 8 of the batch's 128 rows.
+    included: none is kept whole on model) and it serves its 8 of the
+    batch's 128 rows.
   * ``python -m repro_torch.launch.dryrun`` on internlm2-1.8b writes that
     record; a second run skips it as cached; the CLI never imports JAX.
 """
@@ -18,9 +19,10 @@ import tempfile
 
 import pytest
 
-from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.configs import ASSIGNED_ARCHS, get_config
 from repro_torch.kernels import _build
 from repro_torch.launch import dryrun as D
+from repro_torch.sharding import partition as PT
 
 RECORD_KEYS = {"arch", "shape", "mesh", "mode", "ok", "memory", "cost",
                "collectives", "wall_s", "kernels", "planned"}
@@ -53,12 +55,15 @@ def test_full_size_decode_plan(arch):
     assert rec["collectives"]["total_bytes"] > 0
     assert _build.PLAN is None
     # the rank's caches are its share under the reference's
-    # make_cache_specs, less the Mamba2 state and conv window that the
-    # port keeps whole on model (named, with their extra bytes)
-    whole = rec["cache_whole_on_model"]
-    assert set(whole) <= {"blocks/ssm", "blocks/conv"}
-    assert rec["cache_bytes"] - sum(whole.values()) == \
-        rec["reference_cache_bytes"]
+    # make_cache_specs: the Mamba2 state by heads and its conv window by
+    # channels too, since the 16 model ranks divide both SSM configs'
+    # heads and B/C width (partition.ssm_split), so no leaf is named as
+    # kept whole on model
+    cfg = get_config(arch).full
+    if cfg.family in ("ssm", "hybrid"):
+        assert PT.ssm_split(cfg, 16)
+    assert rec["cache_whole_on_model"] == {}
+    assert rec["cache_bytes"] == rec["reference_cache_bytes"]
     assert rec["batch_rows"] == 128 // 16
 
 

@@ -62,10 +62,11 @@ def gathered_bound(params, cfg, mesh) -> tuple:
 
 def _data_gathers(mesh, params, specs) -> bool:
     """Whether ``gather_leaf_data`` gives every leaf's model band: the
-    whole leaf cut on its ``model`` dim alone."""
+    whole leaf cut on its ``model`` dim alone (under the spec's entry of
+    that dim: Mamba2's rows and channels by their segments)."""
     for t, spec in zip(T.leaves(params), PT.flat_specs(specs, params)):
-        band = tuple("model" if i == PT.model_dim(spec, mesh) else None
-                     for i in range(len(spec)))
+        dim = PT.model_dim(spec, mesh)
+        band = tuple(spec[i] if i == dim else None for i in range(len(spec)))
         got = PT.gather_leaf_data(PT.shard_leaf(t, spec, mesh), spec, mesh)
         if not torch.equal(got, PT.shard_leaf(t, band, mesh)):
             return False

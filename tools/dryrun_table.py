@@ -12,7 +12,8 @@ Then the serve cells (prefill, decode, ``long_500k``): on each mesh the
 planned argument / temp / total GB a rank, before → after; the rank's
 caches in GB beside its share under the reference's
 ``make_cache_specs`` (and the Mamba2 state the port keeps whole on
-model, GB); the all-gathered GB a step on 16×16, before → after.
+model, GB), before → after; the all-gathered GB a step on 16×16, before
+→ after.
 
 Reads every ``<arch>__<shape>__<mesh>__<mode>.json`` that
 ``python -m repro_torch.launch.dryrun`` wrote (a cell found in two
@@ -148,8 +149,8 @@ def compare(before_dir, dirs):
         return
     print("| cell | 16×16 GB a rank: argument / temp / total, before → after"
           " | 2×16×16, before → after | caches GB a rank / the reference's"
-          " share: 16×16; 2×16×16 | 16×16 all-gathered GB a step, before "
-          "→ after |")
+          " share, before → after: 16×16; 2×16×16 | 16×16 all-gathered GB "
+          "a step, before → after |")
     print("|" + "---|" * 5)
     for arch in sorted({k[0] for k in new}):
         for shape in SHAPES[1:]:
@@ -159,7 +160,8 @@ def compare(before_dir, dirs):
             o1, o2 = (old.get(k) for k in keys)
             n1, n2 = (new.get(k) for k in keys)
             print(f"| {arch} {shape} | {_mem(o1)} → {_mem(n1)} | "
-                  f"{_mem(o2)} → {_mem(n2)} | {_caches(n1)}; {_caches(n2)} "
+                  f"{_mem(o2)} → {_mem(n2)} | {_caches(o1)} → "
+                  f"{_caches(n1)}; {_caches(o2)} → {_caches(n2)} "
                   f"| {_gathered(o1)} → {_gathered(n1)} |")
 
 
